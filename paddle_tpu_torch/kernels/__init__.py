@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. Importing this package needs neither nvcc nor a card: a kernel
+builds at its first launch on a CUDA tensor."""
+from . import paged_attention  # noqa: F401
+from .paged_attention import (  # noqa: F401
+    paged_attention_reference,
+)

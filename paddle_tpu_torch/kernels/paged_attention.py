@@ -1,0 +1,224 @@
+"""Ragged paged attention for decode serving — single-token decode AND
+multi-token prefill chunks.
+
+K/V live in a paged pool (``serving/kv_cache.py``) and attention reads
+them THROUGH per-sequence page tables, so one batch shape serves every
+ragged length mix up to ``table_width * page_size`` tokens. A slot may
+carry a CHUNK of ``q_len in [0, C]`` query tokens (a slice of its
+prompt) attending causally within the chunk: query ``j`` of the chunk
+sees keys up to absolute position ``kv_len - q_len + j``.
+
+Layouts (the same as ``paddle_tpu/fluid/ops/pallas_kernels/
+paged_attention.py``):
+
+    q            [B, Hq, D]            single token per slot, OR
+                 [B, C, Hq, D]         a chunk of C query tokens/slot
+    q_lens       [B] int32             valid query tokens per slot
+                                       (chunked form only; 0 = dead)
+    k/v_pages    [P, page_size, Hkv, D]   the shared page pool
+    page_tables  [B, W] int32          page ids per slot, GARBAGE-padded
+    kv_lens      [B] int32             valid keys per slot INCLUDING
+                                       this call's q_len tokens
+
+GQA: ``Hq % Hkv == 0``; query head h attends kv head ``h // (Hq/Hkv)``.
+Dead slots (q_lens == 0, or kv_lens == 0 in the single-token form)
+produce exact zeros; so do dead query lanes ``j >= q_len`` of a live
+slot.
+
+Two implementations of the same function:
+
+  - ``paged_attention_reference`` — the plain PyTorch version: gather
+    ``k_pages[tables]``, repeat for GQA, mask, dense softmax. The CPU
+    tests run it, and ``chip_smoke.py`` holds the kernel against it.
+  - ``_paged_attention_cuda`` — the hand-written Hopper kernel in
+    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only), built by
+    ``nvcc`` at first use and bound with ``ctypes``.
+
+``paged_attention`` routes on the tensor's device ONLY: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernel or raises.
+``counts`` tallies both (``kernel_launches`` once per launch,
+``plain_calls`` once per plain-version call through the router) so a
+run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+# head_dim bound of the kernel's register accumulators (8 floats a lane)
+MAX_HEAD_DIM = 256
+
+__all__ = ["paged_attention", "paged_attention_reference", "counts",
+           "NEG_INF", "MAX_HEAD_DIM"]
+
+
+class _Counts:
+    """Launch tallies of the router. Plain ints: the decode engine's
+    single scheduler thread is the only caller on the serving path."""
+
+    def __init__(self):
+        self.kernel_launches = 0
+        self.plain_calls = 0
+
+    def reset(self):
+        self.kernel_launches = 0
+        self.plain_calls = 0
+
+
+counts = _Counts()
+
+
+def _check_shapes(q, k_pages, v_pages, page_tables, kv_lens, q_lens):
+    if q.ndim not in (3, 4):
+        raise ValueError(f"q must be [B, Hq, D] or [B, C, Hq, D], got "
+                         f"{tuple(q.shape)}")
+    b = q.shape[0]
+    c = q.shape[1] if q.ndim == 4 else 1
+    hq, d = q.shape[-2], q.shape[-1]
+    p, ps, hkv, d2 = k_pages.shape
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(f"k_pages {tuple(k_pages.shape)} != v_pages "
+                         f"{tuple(v_pages.shape)}")
+    if d2 != d:
+        raise ValueError(f"head_dim mismatch: q has {d}, pages have {d2}")
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads "
+                         f"{hkv}")
+    if page_tables.ndim != 2 or page_tables.shape[0] != b:
+        raise ValueError(f"page_tables {tuple(page_tables.shape)} does "
+                         f"not match batch {b}")
+    if tuple(kv_lens.shape) != (b,):
+        raise ValueError(f"kv_lens {tuple(kv_lens.shape)} != ({b},)")
+    if q.ndim == 4:
+        if q_lens is None:
+            raise ValueError("chunked q [B, C, Hq, D] requires q_lens")
+        if tuple(q_lens.shape) != (b,):
+            raise ValueError(f"q_lens {tuple(q_lens.shape)} != ({b},)")
+    elif q_lens is not None:
+        raise ValueError("q_lens only applies to chunked q [B, C, Hq, D]")
+    return b, c, hq, d, ps, hkv, page_tables.shape[1]
+
+
+def _canon_chunked(q, kv_lens, q_lens):
+    """Canonicalize both call forms to (q [B, C, Hq, D], q_lens [B]):
+    the single-token form is C=1 with one valid query iff the slot is
+    live (kv_len > 0)."""
+    if q.ndim == 3:
+        q = q[:, None]
+        q_lens = (kv_lens > 0).to(torch.int32)
+    return q, q_lens
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_tables, kv_lens,
+                              *, q_lens=None,
+                              scale: Optional[float] = None):
+    """The plain version: gather the pages, mask causally past each
+    query's visibility limit, dense softmax. Same signature and
+    semantics as the kernel; returns the same rank as ``q``."""
+    b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
+                                            page_tables, kv_lens, q_lens)
+    squeeze = q.ndim == 3
+    q, q_lens = _canon_chunked(q, kv_lens, q_lens)
+    scale = float(scale) if scale else d ** -0.5
+    rep = hq // hkv
+    tables = page_tables.long()
+    # [B, W, ps, Hkv, D] -> [B, T, Hkv, D], T = W * ps
+    k = k_pages[tables].reshape(b, w * ps, hkv, d)
+    v = v_pages[tables].reshape(b, w * ps, hkv, d)
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    qf = q.float() * scale
+    s = torch.einsum("bchd,bthd->bcht", qf, k.float())
+    # chunk-causal visibility: query j (absolute position
+    # kv_len - q_len + j) sees keys at positions <= its own; dead
+    # lanes (j >= q_len) see nothing -> exact-zero rows
+    dev = q.device
+    lane = torch.arange(c, device=dev)[None, :]                # [1, C]
+    kv_l = kv_lens.long()[:, None]
+    q_l = q_lens.long()[:, None]
+    limit = kv_l - q_l + lane                                  # [B, C]
+    valid = lane < q_l                                         # [B, C]
+    t = torch.arange(w * ps, device=dev)[None, None, :]        # [1, 1, T]
+    keep = (t <= limit[:, :, None]) & valid[:, :, None]        # [B, C, T]
+    keep = keep[:, :, None, :]                                 # [B, C, 1, T]
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m) * keep
+    l = torch.sum(p, dim=-1, keepdim=True)
+    o = torch.einsum("bcht,bthd->bchd", p, v.float())
+    tiny = torch.finfo(torch.float32).tiny
+    o = (o / torch.clamp(l, min=tiny)).to(q.dtype)
+    return o[:, 0] if squeeze else o
+
+
+def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
+                          *, q_lens=None, scale: Optional[float] = None):
+    """Launch the hand-written kernel. Raises on what it does not take:
+    a non-CUDA or mixed device, a dtype other than float32, a
+    non-contiguous q or pool, a head_dim above ``MAX_HEAD_DIM`` or not
+    a multiple of 4 (the kernel stages rows as float4)."""
+    from ._build import load_library
+
+    b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
+                                            page_tables, kv_lens, q_lens)
+    squeeze = q.ndim == 3
+    q, q_lens = _canon_chunked(q, kv_lens, q_lens)
+    dev = q.device
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("page_tables", page_tables), ("kv_lens", kv_lens),
+                    ("q_lens", q_lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"paged attention kernel takes float32 {name}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"paged attention kernel needs a contiguous "
+                             f"{name}")
+    if d > MAX_HEAD_DIM or d % 4:
+        raise ValueError(f"paged attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM} and a multiple of 4, got {d}")
+    scale = float(scale) if scale else d ** -0.5
+    # index vectors as contiguous int32 (the engine already hands them
+    # over so; other callers pay one small conversion)
+    tables = page_tables.to(torch.int32).contiguous()
+    kv_l = kv_lens.to(torch.int32).contiguous()
+    q_l = q_lens.to(torch.int32).contiguous()
+    out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
+    lib = load_library("paged_attention")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attention_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            tables.data_ptr(), kv_l.data_ptr(), q_l.data_ptr(),
+            out.data_ptr(), b, c, hq, hkv, d, ps, w, scale, stream)
+    if err:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err} "
+                           f"({lib.error_string(err).decode()})")
+    counts.kernel_launches += 1
+    return out[:, 0] if squeeze else out
+
+
+def paged_attention(q, k_pages, v_pages, page_tables, kv_lens,
+                    *, q_lens=None, scale: Optional[float] = None):
+    """Route on the device of ``q``: the plain version for a CPU tensor,
+    the hand-written kernel for a CUDA tensor (which launches or raises
+    — there is no fallback). ``q`` may be ``[B, Hq, D]`` (one token per
+    slot) or ``[B, C, Hq, D]`` with ``q_lens`` (a prefill chunk per
+    slot, causal within the chunk)."""
+    if q.device.type == "cpu":
+        counts.plain_calls += 1
+        return paged_attention_reference(q, k_pages, v_pages, page_tables,
+                                         kv_lens, q_lens=q_lens,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged attention runs on cpu (plain version) or "
+                         f"cuda (kernel), not {q.device}")
+    return _paged_attention_cuda(q, k_pages, v_pages, page_tables,
+                                 kv_lens, q_lens=q_lens, scale=scale)

@@ -1,0 +1,1327 @@
+"""Autoregressive decode serving: continuous batching over a paged KV
+cache, in PyTorch (the counterpart of ``paddle_tpu/serving/decode.py``).
+
+A request is a SEQUENCE of dependent steps (one per generated token),
+each step needs the sequence's whole KV history on the device, and
+sequences finish at ragged, data-dependent times. This engine does
+CONTINUOUS batching over FIXED batch shapes:
+
+  - the decode batch has a fixed slot layout — slot count padded to a
+    small ladder (``FLAGS['decode_slots']``), per-slot page-table width
+    padded to a derived ladder, chunk width padded to ``{1, chunk}`` —
+    and ``warm()`` runs every (slots, width, chunk) triple at load time.
+    The step runs eagerly (the JAX package jits it per shape); the
+    ladders are kept exactly, so step counts, padding and
+    ``steps_to_first_token`` equal the JAX engine's, and a later CUDA
+    graph per shape has its bound;
+  - every step consumes up to ``prefill_chunk`` PROMPT tokens plus one
+    generated token per decoding slot (chunked prefill, Sarathi-style
+    mixed batches): a P-token prompt completes prefill in
+    ``ceil(P / prefill_chunk)`` steps, and in-flight decodes never stall
+    behind a long prompt. New sequences are admitted into free slots
+    BETWEEN steps;
+  - K/V live in the preallocated paged pool (kv_cache.py): device memory
+    is bounded at construction, pages are reserved at admission (refusal
+    is an immediate structured ``ServerOverloaded``) and recycled at
+    completion, with prefix caching (copy-on-write tail pages) and
+    demand reservation (grow, preempt to host, restore bitwise);
+  - attention reads K/V through the page tables with the hand-written
+    ragged paged-attention kernel (``kernels/paged_attention.py``) on a
+    card, its plain PyTorch version on the CPU.
+
+The model is the spec'd decoder (embedding + N pre-norm transformer
+layers + tied-embedding logits, parameters drawn from numpy in
+``spec.seed`` — bitwise the JAX package's draws). Parameters are a plain
+dict of tensors with the JAX tree's layout; ``params_from_jax`` carries
+a JAX parameter tree across.
+
+Not ported yet (each raises ``NotImplementedError`` naming its slice):
+speculative decoding (``draft_spec`` / ``spec_k > 0``), the embeddings
+lane, mesh-sharded serving, and the autotuned ``"auto"`` ladders.
+Constrained decode and first-token top-k belong to the typed workloads,
+which are not ported either.
+
+Lifecycle mirrors the JAX engine so the SAME ModelRegistry hot-swaps
+decoders: ``stop(drain=True)`` finishes every admitted sequence then
+drops params and pools; a failed ``warm()`` stops the scheduler before
+re-raising so the registry's rollback leaks nothing.
+"""
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..distributed import faults as _faults
+from ..flags import FLAGS, effective_flag
+from ..kernels.paged_attention import paged_attention
+from ..observability import metrics as _metrics, tracing as _tracing
+from ..observability.log import get_logger
+from .engine import bucket_for as _bucket_for, resolve_bucket_spec
+from .errors import (DeadlineExceeded, EngineRetired, RequestTooLarge,
+                     ServerOverloaded, ServingError)
+from .kv_cache import GARBAGE_PAGE, HostSpillStore, PagedKvCache
+
+__all__ = ["DecoderSpec", "DecodeEngine", "build_decoder_params",
+           "params_from_jax", "decoder_step", "decoder_step_chunked",
+           "width_ladder", "sample_token", "validate_draft_spec"]
+
+_log = get_logger("serving")
+
+_m_requests = _metrics.counter("serving.decode.requests")
+_m_admitted = _metrics.counter("serving.decode.admitted")
+_m_completions = _metrics.counter("serving.decode.completions")
+_m_steps = _metrics.counter("serving.decode.steps")
+_m_tokens = _metrics.counter("serving.decode.tokens")
+_m_overloads = _metrics.counter("serving.decode.overloads")
+_m_deadline_miss = _metrics.counter("serving.decode.deadline_misses")
+_m_cancels = _metrics.counter("serving.decode.cancels")
+# one inc per DISTINCT (slots, width, chunk) shape the step runs — after
+# warm() this must never move again (the name is the JAX package's,
+# where each shape is one compile)
+_m_compiles = _metrics.counter("serving.decode.compiles")
+_m_step_ms = _metrics.histogram("serving.decode.step_ms")
+_m_queue_wait = _metrics.histogram("serving.decode.queue_wait_ms")
+_m_total = _metrics.histogram("serving.decode.total_ms")
+# live slots / slot bucket per step
+_m_occupancy = _metrics.histogram("serving.decode.occupancy")
+# chunked prefill: prompt tokens consumed via prefill grants, per-step
+# grant totals, and how many scheduler steps each request waited for
+# its FIRST generated token
+_m_prefill_tokens = _metrics.counter("serving.decode.prefill_tokens")
+_m_prefill_per_step = _metrics.histogram(
+    "serving.decode.prefill_tokens_per_step")
+_m_first_token_steps = _metrics.histogram(
+    "serving.decode.steps_to_first_token")
+# preempt+restore (demand-mode reservation): preemptions spill a
+# victim's pages to host and requeue it at the front; restores scatter
+# them back bitwise; demotions release a QUEUED reservation
+_m_preemptions = _metrics.counter("serving.kv.preemptions")
+_m_restores = _metrics.counter("serving.kv.restores")
+_m_demotions = _metrics.counter("serving.kv.demotions")
+# target-model invocations (warm included)
+_m_target_steps = _metrics.counter("serving.decode.target_steps")
+
+
+# --- the decoder model --------------------------------------------------
+
+class DecoderSpec:
+    """Architecture + identity of a decoder the engine can serve.
+    ``d_model == n_heads * head_dim`` (enforced); ``n_heads`` must be a
+    multiple of ``n_kv_heads`` (GQA). Params are DETERMINISTIC in
+    ``seed`` so two replicas loading the same spec serve bitwise the
+    same model — and tests can reference-check outputs."""
+
+    __slots__ = ("vocab", "d_model", "n_layers", "n_heads", "n_kv_heads",
+                 "head_dim", "seed", "eos_id")
+
+    def __init__(self, vocab: int = 64, d_model: int = 32,
+                 n_layers: int = 2, n_heads: int = 4,
+                 n_kv_heads: Optional[int] = None, seed: int = 0,
+                 eos_id: Optional[int] = None):
+        self.vocab = int(vocab)
+        self.d_model = int(d_model)
+        self.n_layers = int(n_layers)
+        self.n_heads = int(n_heads)
+        self.n_kv_heads = int(n_kv_heads if n_kv_heads is not None
+                              else n_heads)
+        if self.d_model % 2:
+            raise ValueError(f"d_model {d_model} must be even "
+                             f"(sinusoidal encoding pairs sin/cos halves)")
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model {d_model} not divisible by "
+                             f"n_heads {n_heads}")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"n_heads {n_heads} not a multiple of "
+                             f"n_kv_heads {self.n_kv_heads}")
+        self.head_dim = self.d_model // self.n_heads
+        self.seed = int(seed)
+        self.eos_id = None if eos_id is None else int(eos_id)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in
+                ("vocab", "d_model", "n_layers", "n_heads", "n_kv_heads",
+                 "seed", "eos_id")}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DecoderSpec":
+        allowed = ("vocab", "d_model", "n_layers", "n_heads",
+                   "n_kv_heads", "seed", "eos_id")
+        # reject, don't drop: a misspelled field silently deploying a
+        # default-architecture decoder is a wrong-model hot-swap
+        # (head_dim is derived — accepted only if consistent)
+        unknown = sorted(set(d) - set(allowed) - {"head_dim"})
+        if unknown:
+            raise ValueError(
+                f"unknown DecoderSpec field(s) {unknown}; "
+                f"valid: {sorted(allowed)}")
+        spec = cls(**{k: v for k, v in d.items() if k in allowed})
+        if "head_dim" in d and int(d["head_dim"]) != spec.head_dim:
+            raise ValueError(
+                f"head_dim {d['head_dim']} contradicts d_model "
+                f"{spec.d_model} / n_heads {spec.n_heads} = "
+                f"{spec.head_dim} — head_dim is derived, not free")
+        return spec
+
+
+def validate_draft_spec(target: DecoderSpec, draft: DecoderSpec):
+    """Cross-validate a speculative DRAFT decoder against its target: a
+    mismatched draft must fail at LOAD, typed and naming the field. The
+    draft proposes token ids the target scores, so the vocabularies must
+    be identical, and termination is decided on committed tokens, so
+    eos must agree; everything architectural is free."""
+    if draft.vocab != target.vocab:
+        raise ValueError(
+            f"draft/target DecoderSpec mismatch on field 'vocab': "
+            f"draft {draft.vocab} != target {target.vocab} — the draft "
+            f"proposes token ids the target must score")
+    if draft.eos_id != target.eos_id:
+        raise ValueError(
+            f"draft/target DecoderSpec mismatch on field 'eos_id': "
+            f"draft {draft.eos_id} != target {target.eos_id} — "
+            f"termination is decided on committed (target-verified) "
+            f"tokens, so the specs must agree on it")
+
+
+def build_decoder_params(spec: DecoderSpec, device=None) -> Dict[str, Any]:
+    """Deterministic parameter dict (seeded numpy draws, scaled-normal
+    init) — the same draws in the same order as the JAX package, so the
+    tensors are bitwise its arrays. ``device=None`` means the card."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(spec.seed)
+    dm, dh = spec.d_model, spec.head_dim
+
+    def mat(fan_in, *shape):
+        return torch.from_numpy(
+            (rng.randn(*shape) / math.sqrt(fan_in)).astype(np.float32)
+        ).to(dev)
+
+    def ln():
+        return (torch.ones(dm, dtype=torch.float32, device=dev),
+                torch.zeros(dm, dtype=torch.float32, device=dev))
+
+    params: Dict[str, Any] = {"tok_emb": mat(dm, spec.vocab, dm),
+                              "lnf": ln()}
+    for l in range(spec.n_layers):
+        params[f"layer{l}"] = {
+            "ln1": ln(),
+            "wq": mat(dm, dm, spec.n_heads * dh),
+            "wk": mat(dm, dm, spec.n_kv_heads * dh),
+            "wv": mat(dm, dm, spec.n_kv_heads * dh),
+            "wo": mat(dm, spec.n_heads * dh, dm),
+            "ln2": ln(),
+            "w1": mat(dm, dm, 4 * dm),
+            "w2": mat(4 * dm, 4 * dm, dm),
+        }
+    return params
+
+
+def params_from_jax(tree, device=None) -> Any:
+    """The JAX package's decoder parameter tree (dicts and tuples of
+    arrays, as ``paddle_tpu.serving.decode.build_decoder_params`` or a
+    checkpoint load returns it) as this package's parameters on
+    ``device``: each leaf goes through ``np.asarray`` and lands as a
+    float32-preserving torch tensor. The structure is kept as it is."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(params_from_jax(v, dev) for v in tree)
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def _params_to(tree, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_params_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _ln(x, gb):
+    g, b = gb
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    return (x - mu) / torch.sqrt(var + 1e-6) * g + b
+
+
+def _pos_encoding(positions, d_model):
+    """Sinusoidal [N, d_model] — unbounded positions, no learned table
+    to cap sequence length. ``freq`` is computed in float32, as the JAX
+    package does."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half)
+    ang = positions[:, None].to(torch.float32) * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def decoder_step_chunked(params, spec: DecoderSpec, tokens, positions,
+                         q_lens, k_pool, v_pool, page_tables, kv_lens,
+                         all_lanes: bool = False,
+                         return_hidden: bool = False):
+    """ONE mixed decode/prefill step for a fixed-slot batch. Each slot
+    carries up to C tokens of ITS sequence — a prefill chunk, a single
+    decode token at lane 0, or nothing — attending causally within the
+    chunk. Writes every valid lane's K/V into the paged pools IN PLACE
+    (dead lanes and dead slots write the garbage page), attends through
+    the page tables, returns ``(k_pool, v_pool, logits [B, vocab])``.
+
+    tokens/positions: [B, C] integer tensors, lane ``j`` of slot ``i``
+    valid iff ``j < q_lens[i]`` (invalid lanes: 0/0 — masked to the
+    garbage page, never trusted). kv_lens: [B] int32 — valid keys
+    INCLUDING this step's q_len tokens. All tensors live on the pools'
+    device.
+
+    Logits come back ONLY for each slot's newest lane (``q_len - 1``) —
+    the one position the scheduler ever samples from.
+    ``all_lanes=True`` returns every lane's logits ``[B, C, vocab]``
+    (the speculative-verify form) and ``return_hidden=True`` (requires
+    ``all_lanes``) also the final-norm hidden states ``[B, C, d_model]``
+    (the embedding/scoring form)."""
+    b, c = tokens.shape
+    ps = k_pool.shape[2]
+    dm, dh = spec.d_model, spec.head_dim
+    dev = k_pool.device
+    tokens = tokens.long()
+    positions = positions.long()
+    lane = torch.arange(c, device=dev)[None, :]            # [1, C]
+    valid = lane < q_lens.long()[:, None]                  # [B, C]
+    x = params["tok_emb"][tokens] * math.sqrt(dm) + \
+        _pos_encoding(positions.reshape(-1), dm).reshape(b, c, dm)
+    page_idx = positions // ps
+    # each lane's physical page: its slot's table row at the token's
+    # page index. Invalid lanes (j >= q_len, padded dead slots) are
+    # FORCED to the garbage page — a live slot's row 0 must never be
+    # clobbered by a dead lane's position-0 write
+    page = torch.where(valid,
+                       torch.gather(page_tables.long(), 1, page_idx),
+                       torch.full_like(page_idx, GARBAGE_PAGE))  # [B, C]
+    off = torch.where(valid, positions % ps, torch.zeros_like(positions))
+    for l in range(spec.n_layers):
+        lp = params[f"layer{l}"]
+        h = _ln(x, lp["ln1"])
+        q = (h @ lp["wq"]).reshape(b, c, spec.n_heads, dh)
+        k = (h @ lp["wk"]).reshape(b, c, spec.n_kv_heads, dh)
+        v = (h @ lp["wv"]).reshape(b, c, spec.n_kv_heads, dh)
+        # write the whole chunk's K/V, THEN attend: within the chunk,
+        # query j sees keys i <= j of the same chunk. In place on the
+        # pool (duplicate writes only ever hit the garbage page)
+        k_pool[l].index_put_((page, off), k.to(k_pool.dtype))
+        v_pool[l].index_put_((page, off), v.to(v_pool.dtype))
+        attn = paged_attention(q, k_pool[l], v_pool[l], page_tables,
+                               kv_lens, q_lens=q_lens)
+        x = x + attn.reshape(b, c, spec.n_heads * dh) @ lp["wo"]
+        h2 = _ln(x, lp["ln2"])
+        # jax.nn.gelu's default is the tanh approximation
+        x = x + F.gelu(h2 @ lp["w1"], approximate="tanh") @ lp["w2"]
+    if all_lanes:
+        h = _ln(x, params["lnf"])
+        logits = h @ params["tok_emb"].T
+        if return_hidden:
+            return k_pool, v_pool, logits, h
+        return k_pool, v_pool, logits
+    # unembed only each slot's newest lane (dead slots take lane 0 —
+    # garbage the scheduler never samples)
+    last = torch.clamp(q_lens.long() - 1, min=0)              # [B]
+    x_last = x[torch.arange(b, device=dev), last]             # [B, dm]
+    logits = _ln(x_last, params["lnf"]) @ params["tok_emb"].T
+    return k_pool, v_pool, logits
+
+
+def decoder_step(params, spec: DecoderSpec, tokens, positions,
+                 k_pool, v_pool, page_tables, kv_lens):
+    """The single-token step — the C=1 case of ``decoder_step_chunked``.
+    tokens/positions: [B] (dead slots: 0/0 with an all-garbage table
+    row); kv_lens: [B] int32 — valid keys INCLUDING this step's token
+    (0 = dead slot -> exact-zero attention output). Returns
+    ``(k_pool, v_pool, logits [B, vocab])``."""
+    q_lens = (kv_lens > 0).to(torch.int32)
+    return decoder_step_chunked(
+        params, spec, tokens[:, None], positions[:, None], q_lens,
+        k_pool, v_pool, page_tables, kv_lens)
+
+
+# --- sampling -----------------------------------------------------------
+
+def sample_token(logits_row, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0, position: int = 0) -> int:
+    """Sampling policy for ONE generated token: greedy argmax at
+    temperature 0 (the default), else temperature-scaled softmax over
+    the ``top_k`` highest logits (0 = full vocab), drawn from a numpy
+    rng derived ONLY from ``(seed, position)`` — the JAX package's draw,
+    bitwise, for the same logits row. Deterministic given the request's
+    seed and independent of batch composition, slot assignment, and
+    admission order."""
+    row = np.asarray(logits_row, np.float64)
+    if temperature <= 0.0:
+        return int(np.argmax(row))
+    row = row / float(temperature)
+    k = int(top_k)
+    if 0 < k < row.size:
+        kth = np.partition(row, -k)[-k]
+        row = np.where(row < kth, -np.inf, row)
+    row = row - row.max()
+    p = np.exp(row)
+    p /= p.sum()
+    rng = np.random.Generator(np.random.PCG64(np.random.SeedSequence(
+        [int(seed) & 0xFFFFFFFF, int(position)])))
+    return int(rng.choice(row.size, p=p))
+
+
+# --- ladders ------------------------------------------------------------
+
+def width_ladder(max_pages: int) -> List[int]:
+    """Page-table width buckets: powers of two up to (and always
+    including) the worst case — the second padded dimension of the
+    decode step's shape."""
+    if max_pages < 1:
+        raise ValueError(f"max_pages must be >= 1, got {max_pages}")
+    out, w = [], 1
+    while w < max_pages:
+        out.append(w)
+        w *= 2
+    out.append(max_pages)
+    return sorted(set(out))
+
+
+# --- requests / slots ---------------------------------------------------
+
+class _DecodeRequest:
+    __slots__ = ("prompt", "max_new", "deadline", "ev", "result", "error",
+                 "t_enq", "seq_id", "trace_ctx", "temperature", "top_k",
+                 "seed", "produced", "cached_tokens", "cow", "resume_pos",
+                 "published", "carry_steps", "carry_fts", "needs_alloc")
+
+    def __init__(self, prompt: np.ndarray, max_new: int,
+                 deadline: Optional[float], seq_id: int,
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0):
+        self.prompt = prompt
+        self.max_new = int(max_new)
+        self.deadline = deadline
+        self.ev = threading.Event()
+        self.result: Optional[Dict[str, Any]] = None
+        self.error: Optional[BaseException] = None
+        self.t_enq = time.monotonic()
+        self.seq_id = seq_id
+        self.trace_ctx = _tracing.wire_context()
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        # generated tokens, appended by the answer phase UNDER the
+        # engine's _cond — on the REQUEST (not the slot) so streaming
+        # readers see tokens the moment they exist
+        self.produced: List[int] = []
+        # prefix caching + preemption state — on the REQUEST because
+        # preemption round-trips a sequence through the queue:
+        # cached_tokens = prompt tokens answered from the prefix index;
+        # cow = the pending private copy of a shared partial page;
+        # resume_pos/carry_* = where a preempted sequence continues;
+        # needs_alloc = the reservation was surrendered and admission
+        # must re-reserve before taking a slot
+        self.cached_tokens = 0
+        self.cow: Optional[Dict[str, int]] = None
+        self.resume_pos: Optional[int] = None
+        self.published = False
+        self.carry_steps = 0
+        self.carry_fts: Optional[int] = None
+        self.needs_alloc = False
+
+    def fail(self, err: BaseException):
+        self.error = err
+        self.ev.set()
+
+
+class _Slot:
+    __slots__ = ("req", "pos", "pages_held", "steps", "first_token_steps",
+                 "pending_restore")
+
+    def __init__(self, req: _DecodeRequest, pages_held: int):
+        self.req = req
+        self.pos = 0                # tokens already written to the cache
+        self.pages_held = pages_held
+        self.steps = 0              # scheduler steps this slot has ridden
+        self.first_token_steps: Optional[int] = None
+        # a preempted sequence's spilled pages must scatter back into
+        # its fresh reservation BEFORE its next step (restore-before-
+        # step): set at re-admission, executed by _prepare
+        self.pending_restore = False
+
+    def token_at(self, idx: int) -> int:
+        """The sequence's token at absolute position ``idx``: a prompt
+        token, or a previously generated one."""
+        p = self.req.prompt
+        return (int(p[idx]) if idx < len(p)
+                else self.req.produced[idx - len(p)])
+
+
+# --- the engine ---------------------------------------------------------
+
+class DecodeEngine:
+    """Continuous-batching autoregressive decode over one loaded
+    decoder. Registry/server-compatible: ``name``/``version``/``kind``/
+    ``stats()``/``stop(drain=)`` mirror the JAX engine, so the same
+    ModelRegistry hot-swaps decoders with the same drain guarantee.
+    ``device=None`` means the card; it raises when there is none."""
+
+    kind = "decoder"
+
+    def __init__(self, spec: DecoderSpec, *, name: str = "decoder",
+                 version: int = 1,
+                 slots: Optional[Sequence[int]] = None,
+                 page_size: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 max_seq_len: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 params: Optional[Dict[str, Any]] = None,
+                 prefix_cache: Optional[bool] = None,
+                 reservation: Optional[str] = None,
+                 spill_dir: Optional[str] = None,
+                 draft_spec: Optional[Any] = None,
+                 spec_k: Optional[int] = None,
+                 mesh: Optional[Any] = None,
+                 embeddings: bool = False,
+                 warm: bool = True,
+                 device=None):
+        k = int(effective_flag("spec_k") if spec_k is None else spec_k)
+        if draft_spec is not None or k > 0:
+            raise NotImplementedError(
+                "speculative decoding (draft_spec / spec_k > 0) is not "
+                "ported to paddle_tpu_torch yet — it comes with the rest "
+                "of the decode-serving slice")
+        if embeddings:
+            raise NotImplementedError(
+                "the embeddings lane is not ported to paddle_tpu_torch "
+                "yet — it comes with the rest of the decode-serving slice")
+        if mesh:
+            raise NotImplementedError(
+                "mesh-sharded decode serving is not ported to "
+                "paddle_tpu_torch yet — it comes with the mesh and "
+                "parallel slice")
+        self.device = resolve_device(device)
+        self.name = str(name)
+        self.version = int(version)
+        self.spec = spec
+        # shares _step_mu with the step + shape set: the lock serializes
+        # every pool touch against retirement's drop
+        self._params = (build_decoder_params(spec, self.device)
+                        if params is None
+                        else _params_to(params, self.device))  # guarded-by: _step_mu
+        self._slot_ladder = resolve_bucket_spec(
+            FLAGS["decode_slots"] if slots is None else slots,
+            tunable_id="decode_slots", fallback="1,2,4")
+        self._max_slots = self._slot_ladder[-1]
+        ps = int(FLAGS["kv_page_size"] if page_size is None else page_size)
+        npages = int(FLAGS["kv_num_pages"] if num_pages is None
+                     else num_pages)
+        self.max_seq_len = int(FLAGS["decode_max_seq_len"]
+                               if max_seq_len is None else max_seq_len)
+        self._max_queue = int(FLAGS["serving_max_queue"]
+                              if max_queue is None
+                              else max_queue)  # guarded-by: _cond
+        # prefix caching + reservation policy: demand mode reserves the
+        # prompt's pages plus kv_decode_headroom pages at admission and
+        # grows mid-decode (preempting when the pool runs dry);
+        # worst_case reserves everything up front
+        self._prefix_on = bool(FLAGS["prefix_cache"]
+                               if prefix_cache is None else prefix_cache)
+        reservation = str(FLAGS["kv_reservation"]
+                          if reservation is None else reservation)
+        if reservation not in ("demand", "worst_case"):
+            raise ValueError(
+                f"reservation must be 'demand' or 'worst_case', "
+                f"got {reservation!r}")
+        self._reservation = reservation
+        self._headroom_pages = max(0, int(FLAGS["kv_decode_headroom"]))
+        self.cache = PagedKvCache(
+            spec.n_layers, spec.n_kv_heads, spec.head_dim,
+            page_size=ps, num_pages=npages,
+            label=f"{self.name}.v{self.version}",
+            prefix_cache=self._prefix_on, device=self.device)
+        # host refuge for preempted sequences' pages (kv_spill_dir
+        # moves it to disk); cleared at retirement — leaks nothing
+        self._spill = HostSpillStore(
+            spill_dir=spill_dir, label=f"{self.name}.v{self.version}")
+        w_max = self.cache.allocator.pages_for_tokens(self.max_seq_len)
+        self._width_ladder = width_ladder(w_max)
+        # chunked prefill: the per-step prompt-token budget AND the chunk
+        # width, clamped to the longest admissible prompt
+        # (max_seq_len - 1: max_new >= 1)
+        chunk = int(effective_flag("prefill_chunk")
+                    if prefill_chunk is None else prefill_chunk)
+        self._prefill_chunk = max(1, min(chunk, max(1,
+                                                    self.max_seq_len - 1)))
+        # pure-decode steps ride the C=1 shapes, steps carrying a
+        # prefill grant ride the C=chunk shapes
+        self._chunk_ladder = sorted({1, self._prefill_chunk})
+        self._cond = threading.Condition()
+        self._queue: List[_DecodeRequest] = []  # guarded-by: _cond
+        self._slots: List[_Slot] = []  # guarded-by: _cond
+        self._stopping = False  # guarded-by: _cond
+        self._released = False  # guarded-by: _cond
+        self._seq_counter = 0  # guarded-by: _cond
+        self._n_requests = 0  # guarded-by: _cond
+        self._n_steps = 0  # guarded-by: _cond
+        self._step_shapes: set = set()  # guarded-by: _step_mu
+        self._g_depth = _metrics.gauge(
+            f"serving.decode.queue_depth.{self.name}.v{self.version}")
+        # per-instance so a draining old version does not clobber the
+        # live engine's value
+        self._g_live = _metrics.gauge(
+            f"serving.decode.live_slots.{self.name}.v{self.version}")
+        # serializes warm() (caller thread) against live steps (the
+        # scheduler thread): every pool read/write must be atomic with
+        # respect to the other
+        self._step_mu = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"decode-{self.name}-v{self.version}")
+        self._thread.start()
+        if warm:
+            try:
+                self.warm()
+            except BaseException:
+                # failed warm is the registry's rollback path: the
+                # scheduler thread (and the params/pools it pins) must
+                # not outlive the failed deploy
+                self.stop(drain=False)
+                raise
+
+    # -- public surface ---------------------------------------------------
+    def warm(self):
+        """Run EVERY (slot-count, table-width, chunk) triple once on an
+        all-dead synthetic batch (writes land on the garbage page): the
+        first use of each shape (cuBLAS handles and heuristics, kernel
+        loads, the paged-attention library build) happens at load, not
+        under traffic."""
+        with _tracing.span("serving.decode.warmup", model=self.name,
+                           version=self.version):
+            for s in self._slot_ladder:
+                for w in self._width_ladder:
+                    for c in self._chunk_ladder:
+                        self._run_step_arrays(
+                            np.zeros((s, c), np.int32),
+                            np.zeros((s, c), np.int32),
+                            np.zeros(s, np.int32),
+                            np.full((s, w), GARBAGE_PAGE, np.int32),
+                            np.zeros(s, np.int32))
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
+               deadline_ms: Optional[float] = None,
+               temperature: float = 0.0, top_k: int = 0,
+               seed: int = 0) -> _DecodeRequest:
+        """Validate + reserve KV pages + enqueue. All refusals are
+        synchronous and typed: ``ServerOverloaded`` (queue full OR page
+        pool exhausted), ``RequestTooLarge`` (can't ever fit),
+        ``EngineRetired``, ``ValueError`` (bad tokens / bad sampling
+        params). ``temperature``/``top_k``/``seed`` select the sampling
+        policy per request (``sample_token``; 0.0 = greedy)."""
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if int(prompt.min()) < 0 or int(prompt.max()) >= self.spec.vocab:
+            raise ValueError(
+                f"prompt token ids must be in [0, {self.spec.vocab})")
+        max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = int(prompt.size) + max_new
+        if total > self.max_seq_len:
+            raise RequestTooLarge(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new}) = "
+                f"{total} exceeds max_seq_len {self.max_seq_len}")
+        if self._reservation == "demand" and \
+                self.cache.allocator.pages_for_tokens(total) > \
+                self.cache.num_pages - 1:
+            # demand mode admits beyond the worst case, so the ONLY hard
+            # bound is "could this sequence fit even alone, with everyone
+            # else preempted" — refuse up front if not (the growth
+            # path's progress guarantee depends on it)
+            raise RequestTooLarge(
+                f"worst case {total} tokens = "
+                f"{self.cache.allocator.pages_for_tokens(total)} pages "
+                f"exceeds the whole pool "
+                f"({self.cache.num_pages - 1} usable pages)")
+        temperature = float(temperature)
+        top_k = int(top_k)
+        if temperature < 0.0 or not math.isfinite(temperature):
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        deadline = (None if deadline_ms is None
+                    else time.monotonic() + float(deadline_ms) / 1e3)
+        with self._cond:
+            if self._stopping:
+                raise EngineRetired(
+                    f"decoder '{self.name}' v{self.version} is retiring")
+            if len(self._queue) >= self._max_queue:
+                _m_overloads.inc()
+                raise ServerOverloaded(
+                    f"decoder '{self.name}' queue is full "
+                    f"({self._max_queue} deep)")
+            self._seq_counter += 1
+            seq_id = self._seq_counter
+            try:
+                # reserve NOW: worst_case takes prompt+max_new, demand
+                # only the prompt plus a small decode headroom (growth
+                # and preemption own the tail). The refusal is typed and
+                # side-effect-free either way.
+                res = self._reserve_locked(seq_id, prompt, total)
+            except ServerOverloaded:
+                _m_overloads.inc()
+                raise
+            req = _DecodeRequest(prompt, max_new, deadline, seq_id,
+                                 temperature=temperature, top_k=top_k,
+                                 seed=seed)
+            req.cached_tokens = res["cached_tokens"]
+            req.cow = res["cow"]
+            self._queue.append(req)
+            self._n_requests += 1
+            self._g_depth.set(len(self._queue))
+            self._cond.notify()
+        _m_requests.inc()
+        return req
+
+    def generate(self, prompt: Sequence[int], max_new_tokens: int = 16,
+                 deadline_ms: Optional[float] = None,
+                 timeout: float = 300.0, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0) -> Dict[str, Any]:
+        """Blocking convenience: submit + wait. Returns
+        ``{"tokens": [...], "prompt_len": n, "version": v,
+        "steps_to_first_token": k, "cached_tokens": c, ...}``."""
+        req = self.submit(prompt, max_new_tokens, deadline_ms=deadline_ms,
+                          temperature=temperature, top_k=top_k, seed=seed)
+        if not req.ev.wait(timeout):
+            # withdraw before raising: an abandoned sequence must not
+            # keep its page reservation or burn further decode steps.
+            # cancel() returning False means the request finished in
+            # the wait-vs-cancel window — deliver that result
+            if self.cancel(req):
+                raise ServingError(
+                    f"generate on '{self.name}' timed out after "
+                    f"{timeout}s (decode scheduler wedged?)")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def cancel(self, req: _DecodeRequest,
+               msg: str = "abandoned by caller") -> bool:
+        """Withdraw a submitted request whose waiter gave up: frees its
+        KV pages now and fails it, so the scheduler drops the slot at
+        the next answer phase. A step already in flight still writes
+        through the page table it captured BEFORE the free — safe
+        because a re-allocated page's every position is rewritten by its
+        new owner in the same step that first attends to it
+        (write-before-attend); the NEXT table build degrades the
+        canceled row to the garbage page. Returns False if the request
+        already finished."""
+        with self._cond:
+            if req.ev.is_set():
+                return False
+            if req in self._queue:
+                self._queue.remove(req)
+                self._g_depth.set(len(self._queue))
+            _m_cancels.inc()
+            self._fail_locked(req, ServingError(
+                f"generate on '{self.name}' canceled: {msg}"))
+            self._cond.notify_all()
+            return True
+
+    def stream_tokens(self, req: _DecodeRequest, offset: int,
+                      timeout: float = 30.0) -> Dict[str, Any]:
+        """Incremental token read for streaming generate: block until
+        the sequence has tokens past ``offset`` (or it finished / failed
+        / the wait lapses), then return everything past it. A PURE
+        FUNCTION of (request state, offset), so a retransmitted stream
+        frame is safe to answer from the dedup cache OR by re-execution.
+
+        Returns ``{"tokens", "offset", "next_offset", "done"}`` plus
+        ``"result"`` once done; a failed request re-raises its typed
+        error. A timeout with no new tokens returns an empty chunk with
+        ``done=False`` — the caller polls again."""
+        offset = int(offset)
+        if offset < 0:
+            raise ValueError(f"stream offset must be >= 0, got {offset}")
+        deadline = time.monotonic() + float(timeout)
+        with self._cond:
+            while len(req.produced) <= offset and not req.ev.is_set():
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                # lint: allow-blocking — a bounded reader wait on the
+                # engine's own condition; the answer phase notifies on
+                # every step that produced a token
+                self._cond.wait(remaining)
+            toks = [int(t) for t in req.produced[offset:]]
+            done = req.ev.is_set()
+            err = req.error
+            result = req.result
+        if done and err is not None:
+            raise err
+        out: Dict[str, Any] = {"tokens": toks, "offset": offset,
+                               "next_offset": offset + len(toks),
+                               "done": done}
+        if done:
+            out["result"] = result
+        return out
+
+    def stop(self, drain: bool = True, timeout: float = 300.0):
+        """Refuse new work; ``drain`` completes every admitted AND
+        queued sequence first (the hot-swap drain guarantee), else all
+        are failed with EngineRetired. Then params and pools are dropped
+        so retirement releases the device memory."""
+        with self._cond:
+            self._stopping = True
+            if not drain:
+                for r in self._queue:
+                    self._fail_locked(r, EngineRetired(
+                        f"decoder '{self.name}' v{self.version} unloaded"))
+                self._queue.clear()
+                for s in self._slots:
+                    # a slot _complete()d mid-step may still be in
+                    # _slots (removal happens under _cond after the
+                    # step) — never overwrite a delivered result
+                    if not s.req.ev.is_set():
+                        self._fail_locked(s.req, EngineRetired(
+                            f"decoder '{self.name}' v{self.version} "
+                            "unloaded"))
+                    else:
+                        self.cache.allocator.free(s.req.seq_id)
+                self._slots = []
+                self._g_depth.set(0)
+            self._cond.notify_all()
+        self._thread.join(timeout)
+        if self._thread.is_alive():  # pragma: no cover - wedged scheduler
+            _log.error("decode scheduler for %s v%d did not exit in %.0fs",
+                       self.name, self.version, timeout)
+        with self._step_mu:
+            self._params = None
+            self.cache.release()
+        # any spills that survived the drain die with the engine
+        self._spill.clear()
+        with self._cond:
+            self._released = True
+            self._g_depth.set(0)
+            self._g_live.set(0)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._step_mu:
+            shapes = sorted(self._step_shapes)
+        with self._cond:
+            return {
+                "name": self.name,
+                "version": self.version,
+                "kind": self.kind,
+                "device": str(self.device),
+                "spec": self.spec.to_dict(),
+                "slots": list(self._slot_ladder),
+                "table_widths": list(self._width_ladder),
+                "prefill_chunk": self._prefill_chunk,
+                "chunk_ladder": list(self._chunk_ladder),
+                "page_size": self.cache.page_size,
+                "max_seq_len": self.max_seq_len,
+                "reservation": self._reservation,
+                "spec_k": 0,
+                "prefix_cache": self._prefix_on,
+                "prefix": self.cache.allocator.prefix_stats(),
+                "spilled_sequences": self._spill.count(),
+                "kv": self.cache.allocator.stats(),
+                "queue_depth": len(self._queue),
+                "live": len(self._slots),
+                "max_queue": self._max_queue,
+                "requests": self._n_requests,
+                "steps": self._n_steps,
+                # distinct step shapes run (the JAX engine's compiled
+                # shapes); never grows after warm()
+                "compiled_shapes": shapes,
+                "stopping": self._stopping,
+            }
+
+    # -- scheduler --------------------------------------------------------
+    def _reserve_locked(self, seq_id: int, prompt, total: int
+                        ) -> Dict[str, Any]:
+        """One reservation under the engine's policy: demand = prompt
+        pages + decode headroom (capped at the worst case), worst_case
+        = everything. Prefix caching maps the cached chain read-only
+        either way. Raises ``ServerOverloaded`` side-effect-free."""
+        if self._reservation == "demand":
+            reserve = min(total, len(prompt)
+                          + self._headroom_pages * self.cache.page_size)
+        else:
+            reserve = total
+        if self._prefix_on:
+            return self.cache.allocator.alloc_prefix(seq_id, prompt,
+                                                     reserve)
+        self.cache.allocator.alloc(seq_id, reserve)
+        return {"cached_tokens": 0, "cow": None}
+
+    def _fail_locked(self, req: _DecodeRequest, err: BaseException):
+        self.cache.allocator.free(req.seq_id)
+        if req.cow is not None:
+            # the COW source pin must not outlive the request
+            self.cache.allocator.release_cow(req.cow["key"])
+            req.cow = None
+        # a preempted request's host spill dies with it
+        self._spill.drop(req.seq_id)
+        req.fail(err)
+
+    def _drop_expired_locked(self, now: float):
+        keep = []
+        for r in self._queue:
+            if r.deadline is not None and now > r.deadline:
+                _m_deadline_miss.inc()
+                self._fail_locked(r, DeadlineExceeded(
+                    f"request to decoder '{self.name}' missed its "
+                    "deadline while queued"))
+            else:
+                keep.append(r)
+        if len(keep) != len(self._queue):
+            self._queue[:] = keep
+            self._g_depth.set(len(keep))
+
+    def _admit_locked(self):
+        """Move queued requests into free slots whenever a slot is free
+        — INTO the in-flight batch. A request whose reservation was
+        surrendered (preempted victims sit at the queue FRONT, demoted
+        reservations wherever they were) must re-reserve first; a
+        refusal leaves it queued."""
+        while self._queue and len(self._slots) < self._max_slots:
+            req = self._queue[0]
+            if req.ev.is_set():
+                # canceled / expired while queued — already failed
+                self._queue.pop(0)
+                continue
+            if req.needs_alloc:
+                total = len(req.prompt) + req.max_new
+                try:
+                    if req.resume_pos is not None:
+                        # restore-before-step: cover what was spilled
+                        # plus the decode headroom; prefix matching is
+                        # deliberately NOT consulted — the spill is the
+                        # bitwise truth
+                        reserve = min(total, max(req.resume_pos, 1)
+                                      + self._headroom_pages
+                                      * self.cache.page_size)
+                        self.cache.allocator.alloc(req.seq_id, reserve)
+                    else:
+                        res = self._reserve_locked(req.seq_id,
+                                                   req.prompt, total)
+                        req.cached_tokens = res["cached_tokens"]
+                        req.cow = res["cow"]
+                except ServerOverloaded:
+                    break
+                req.needs_alloc = False
+            self._queue.pop(0)
+            slot = _Slot(req,
+                         self.cache.allocator.held_pages(req.seq_id))
+            if req.resume_pos is not None:
+                slot.pos = req.resume_pos
+                slot.pending_restore = True
+                req.resume_pos = None
+            else:
+                # cached prompt pages are already written (and mapped):
+                # prefill starts at the first uncached token
+                slot.pos = req.cached_tokens
+            slot.steps = req.carry_steps
+            slot.first_token_steps = req.carry_fts
+            self._slots.append(slot)
+            _m_admitted.inc()
+            _m_queue_wait.observe((time.monotonic() - req.t_enq) * 1e3)
+        self._g_depth.set(len(self._queue))
+        self._g_live.set(len(self._slots))
+
+    def _next_live(self) -> Optional[List[_Slot]]:
+        # lint: allow-blocking — Condition.wait on the engine's own
+        # condition is the scheduler's idle state by design
+        with self._cond:
+            while True:
+                self._drop_expired_locked(time.monotonic())
+                self._admit_locked()
+                if self._slots:
+                    return list(self._slots)
+                if self._stopping and not self._queue:
+                    return None
+                # idle blocks untimed on submit()/stop() notifies; the
+                # timed wait survives only for a non-empty queue, whose
+                # deadlines need the poll
+                self._cond.wait(0.05 if self._queue else None)
+
+    def _loop(self):
+        while True:
+            live = self._next_live()
+            if live is None:
+                return
+            try:
+                self._step(live)
+            except BaseException as e:  # a broken step fails ITS slots
+                _log.error("decode step on %s v%d failed: %s: %s",
+                           self.name, self.version, type(e).__name__, e)
+                err = (e if isinstance(e, ServingError) else
+                       ServingError(f"{type(e).__name__}: {e}"))
+                with self._cond:
+                    for s in live:
+                        if not s.req.ev.is_set():
+                            self._fail_locked(s.req, err)
+                    self._slots = [s for s in self._slots
+                                   if s not in live]
+                    self._g_live.set(len(self._slots))
+                    self._cond.notify_all()
+
+    def _run_step_arrays(self, tokens, positions, q_lens, tables, lens):
+        """Shared by warm() and live steps: note a DISTINCT shape, move
+        the host arrays to the device, run the step (it updates the
+        pools in place), return the logits tensor."""
+        with self._step_mu:
+            key = (len(tokens), tables.shape[1], tokens.shape[1])
+            if key not in self._step_shapes:
+                self._step_shapes.add(key)
+                _m_compiles.inc()
+            _m_target_steps.inc()
+            dev = self.device
+            with torch.no_grad():
+                k, v, logits = decoder_step_chunked(
+                    self._params, self.spec,
+                    torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(positions).to(dev),
+                    torch.from_numpy(q_lens).to(dev),
+                    self.cache.k, self.cache.v,
+                    torch.from_numpy(tables).to(dev),
+                    torch.from_numpy(lens).to(dev))
+            self.cache.rebind(k, v)
+            return logits
+
+    def _prepare(self, live: List[_Slot]
+                 ) -> Tuple[List[_Slot], List[int]]:
+        """Pre-step phase (scheduler thread): execute pending COW copies
+        and preemption restores (device writes under ``_step_mu``), then
+        grow demand-mode reservations to cover this step's grants,
+        preempting/demoting when the pool runs dry. Returns the
+        (possibly shrunk) live list and its grants."""
+        cows: List[Tuple[int, int]] = []
+        restores = []
+        spills: Dict[int, Any] = {}
+        for s in live:
+            if s.pending_restore:
+                s.pending_restore = False
+                # pop (disk-backed spills np.load) stays outside _cond
+                spills[s.req.seq_id] = self._spill.pop(s.req.seq_id)
+        with self._cond:
+            # request state (cow, pages, spill ownership) is mutated by
+            # cancel()/_fail_locked under _cond — read it under _cond too
+            for s in live:
+                if s.req.ev.is_set():
+                    # canceled: pages already freed and any spill
+                    # dropped; the slot rides one last garbage-table step
+                    continue
+                spill = spills.get(s.req.seq_id)
+                if spill is not None:
+                    pages = self.cache.allocator.pages_of(s.req.seq_id)
+                    restores.append((pages[:spill[0].shape[1]], spill))
+                    _m_restores.inc()
+                if s.req.cow is not None:
+                    cows.append((s.req.cow["src"], s.req.cow["dst"]))
+                    # released before the device copy runs: safe, the
+                    # scheduler thread issues every device write, so an
+                    # evicted-and-reused src page cannot be rewritten
+                    # before copy_pages below reads it
+                    self.cache.allocator.release_cow(s.req.cow["key"])
+                    s.req.cow = None
+        if cows or restores:
+            with self._step_mu:
+                self.cache.copy_pages(cows)
+                for pages, spill in restores:
+                    self.cache.scatter_pages(pages, spill[0], spill[1])
+        while True:
+            grants = self._grants(live)
+            grower = None
+            for s, g in zip(live, grants):
+                if s.req.ev.is_set():
+                    continue  # canceled: pages gone, rides one last
+                    # step through the garbage table, answered nowhere
+                need = self.cache.allocator.pages_for_tokens(s.pos + g)
+                if need > s.pages_held:
+                    grower = (s, need - s.pages_held)
+                    break
+            if grower is None:
+                return live, grants
+            s, n = grower
+            try:
+                self.cache.allocator.grow(s.req.seq_id, n)
+                s.pages_held += n
+                continue
+            except ServerOverloaded:
+                pass
+            if self._reclaim_for_growth(s, live):
+                continue
+            # nothing reclaimable: the submit-time worst-case-fits-pool
+            # check makes this unreachable unless an external allocator
+            # user pins pages — fail typed rather than corrupt
+            with self._cond:
+                if not s.req.ev.is_set():
+                    _m_overloads.inc()
+                    self._fail_locked(s.req, ServerOverloaded(
+                        f"KV pool exhausted mid-decode for seq "
+                        f"{s.req.seq_id} with nothing left to preempt "
+                        "— external pages pinned?"))
+                self._slots = [x for x in self._slots if x is not s]
+                self._g_live.set(len(self._slots))
+            live = [x for x in live if x is not s]
+            if not live:
+                return live, []
+
+    def _reclaim_for_growth(self, grower: _Slot,
+                            live: List[_Slot]) -> bool:
+        """Make pages available for a live slot's growth: demote the
+        newest QUEUED reservation first (it has no computed work to
+        lose), else preempt the newest live slot other than the grower
+        (spill + requeue at the front). Mutates ``live`` in place when
+        it preempts. False = nothing left to take."""
+        with self._cond:
+            for req in reversed(self._queue):
+                if req.ev.is_set() or req.needs_alloc:
+                    continue
+                self.cache.allocator.free(req.seq_id)
+                if req.cow is not None:
+                    self.cache.allocator.release_cow(req.cow["key"])
+                    req.cow = None
+                req.cached_tokens = 0
+                req.needs_alloc = True
+                _m_demotions.inc()
+                return True
+        victim = None
+        for s in reversed(live):
+            if s is grower or s.req.ev.is_set():
+                continue
+            victim = s
+            break
+        if victim is None:
+            return False
+        self._preempt(victim)
+        live.remove(victim)
+        return True
+
+    def _preempt(self, victim: _Slot):
+        """Spill the victim's written pages to host (bitwise), free its
+        reservation, and requeue it at the FRONT so preemption cannot
+        become starvation. Restore scatters the spill into a fresh
+        reservation and the page table rebinds — the sequence's K/V
+        round-trips exactly."""
+        _faults.fire("serving.decode.preempt")
+        req = victim.req
+        with _tracing.span("serving.decode.preempt", model=self.name,
+                           version=self.version, seq=req.seq_id,
+                           tokens=victim.pos):
+            pages = self.cache.allocator.pages_of(req.seq_id)
+            n_keep = (self.cache.allocator.pages_for_tokens(victim.pos)
+                      if victim.pos else 0)
+            if n_keep:
+                with self._step_mu:
+                    arrays = self.cache.gather_pages(pages[:n_keep])
+                # put (disk-backed spills savez) stays outside the
+                # step mutex, same as the pop side in _prepare
+                self._spill.put(req.seq_id, *arrays)
+            self.cache.allocator.free(req.seq_id)
+            _m_preemptions.inc()
+            with self._cond:
+                self._slots = [x for x in self._slots if x is not victim]
+                if req.ev.is_set():
+                    # canceled/stopped while we spilled: nothing will
+                    # resume — drop the spill, leak nothing
+                    self._spill.drop(req.seq_id)
+                else:
+                    req.resume_pos = victim.pos
+                    req.carry_steps = victim.steps
+                    req.carry_fts = victim.first_token_steps
+                    req.needs_alloc = True
+                    self._queue.insert(0, req)
+                    self._g_depth.set(len(self._queue))
+                self._g_live.set(len(self._slots))
+
+    def _grants(self, live: List[_Slot]) -> List[int]:
+        """Token-budget scheduling (Sarathi-style): every slot past its
+        prompt gets its one decode token unconditionally — in-flight
+        decodes NEVER stall behind a prompt — while slots still in
+        prefill share a per-step budget of ``prefill_chunk`` prompt
+        tokens, granted in slot order. Every prefill slot is guaranteed
+        at least one token per step, so the budget caps the CHUNKS, not
+        progress."""
+        budget = self._prefill_chunk
+        grants = []
+        for s in live:
+            remaining_prompt = len(s.req.prompt) - s.pos
+            if remaining_prompt > 0:
+                g = max(1, min(remaining_prompt, budget))
+                budget = max(0, budget - g)
+            else:
+                g = 1
+            grants.append(g)
+        return grants
+
+    def _check_reservation(self, s: _Slot, end_tokens: int):
+        """The reservation (grown by _prepare in demand mode) must cover
+        every write a step performs. A real raise, not an assert:
+        writing through a page index past the reservation would corrupt
+        another sequence's pages. Canceled slots are exempt — their
+        table row is all-garbage, so their writes land on the garbage
+        page by construction."""
+        if not s.req.ev.is_set() and \
+                end_tokens > s.pages_held * self.cache.page_size:
+            raise ServingError(
+                f"chunk grant escaped seq {s.req.seq_id}'s page "
+                f"reservation ({end_tokens} tokens > "
+                f"{s.pages_held} pages x {self.cache.page_size})")
+
+    def _step(self, live: List[_Slot]):
+        # named chaos seam for the scheduler cadence (a
+        # `delay@serving.decode.step:*=0.004` plan simulates a slow
+        # decoder; `error@` fails the step's slots)
+        _faults.fire("serving.decode.step")
+        # restore-before-step, COW copies, demand-mode growth (may
+        # preempt/demote — the returned live list is authoritative)
+        live, grants = self._prepare(live)
+        if not live:
+            return
+        w_need = max(s.pages_held for s in live)
+        w_bucket = _bucket_for(self._width_ladder, w_need)
+        prefill_toks = sum(g for s, g in zip(live, grants)
+                           if s.pos < len(s.req.prompt))
+        t0 = time.perf_counter()
+        # one decode step joins the OLDEST live request's trace (a span
+        # has one parent); per-slot request spans live in the server
+        with _tracing.adopt(live[0].req.trace_ctx), \
+                _tracing.span("serving.decode.step", model=self.name,
+                              version=self.version, width=w_bucket,
+                              prefill_tokens=prefill_toks,
+                              live=len(live)):
+            s_bucket = _bucket_for(self._slot_ladder, len(live))
+            # pure-decode steps (and 1-token prefill tails) ride the C=1
+            # shapes; only steps carrying a real chunk pay the chunk
+            c_bucket = _bucket_for(self._chunk_ladder,
+                                   max(max(grants), 1))
+            tokens = np.zeros((s_bucket, c_bucket), np.int32)
+            positions = np.zeros((s_bucket, c_bucket), np.int32)
+            q_lens = np.zeros(s_bucket, np.int32)
+            lens = np.zeros(s_bucket, np.int32)
+            for i, (s, g) in enumerate(zip(live, grants)):
+                for j in range(g):
+                    tokens[i, j] = s.token_at(s.pos + j)
+                    positions[i, j] = s.pos + j
+                q_lens[i] = g
+                # keys INCLUDING this chunk; within it, query j attends
+                # only keys up to its own position
+                lens[i] = s.pos + g
+                self._check_reservation(s, int(lens[i]))
+            tables = self.cache.table_array(
+                [s.req.seq_id for s in live], w_bucket, rows=s_bucket)
+            logits = self._run_step_arrays(tokens, positions, q_lens,
+                                           tables, lens)
+            # the one host read of the step: [B, vocab] float32 — it
+            # synchronizes with the device
+            logits_np = logits.cpu().numpy()
+            # the greedy fast path for the whole batch; per-request
+            # sampling policies resolve per slot below
+            sampled = np.argmax(logits_np, axis=-1)
+        _m_step_ms.observe((time.perf_counter() - t0) * 1e3)
+        _m_steps.inc()
+        _m_occupancy.observe(len(live) / float(s_bucket))
+        _m_prefill_per_step.observe(prefill_toks)
+        if prefill_toks:
+            _m_prefill_tokens.inc(prefill_toks)
+        with self._cond:
+            self._n_steps += 1
+        now = time.monotonic()
+        done: List[_Slot] = []
+        # the whole answer phase holds _cond: stop(drain=False) fails
+        # requests under _cond, so check-ev-then-answer must be atomic
+        # with it or the two sides can each answer the same request
+        notes: Dict[int, int] = {}
+        produced_any = False
+        with self._cond:
+            for i, s in enumerate(live):
+                if s.req.ev.is_set():
+                    # already answered (stop(drain=False) or cancel
+                    # raced this step) — don't double-answer
+                    done.append(s)
+                    continue
+                s.steps += 1
+                g = grants[i]    # >= 1: every live slot progresses
+                s.pos += g
+                if self._prefix_on and not s.req.published and \
+                        s.pos >= len(s.req.prompt):
+                    # prompt K/V fully on the device as of THIS step:
+                    # publish the prompt pages into the prefix index
+                    # (metadata only; from here they are immutable)
+                    self.cache.allocator.publish(s.req.seq_id,
+                                                 s.req.prompt)
+                    s.req.published = True
+                tok = None
+                if s.pos >= len(s.req.prompt):
+                    # logits_np[i] is the slot's newest lane: prompt
+                    # token P-1 when the chunk just finished prefill,
+                    # else the decode token. s.pos is the new token's
+                    # absolute index — the (seed, position) pair
+                    tok = (int(sampled[i]) if s.req.temperature <= 0.0
+                           else sample_token(logits_np[i],
+                                             s.req.temperature,
+                                             s.req.top_k, s.req.seed,
+                                             s.pos))
+                    s.req.produced.append(tok)
+                    produced_any = True
+                    _m_tokens.inc()
+                    if s.first_token_steps is None:
+                        s.first_token_steps = s.steps
+                        _m_first_token_steps.observe(s.steps)
+                finished = (len(s.req.produced) >= s.req.max_new
+                            or (tok is not None
+                                and self.spec.eos_id is not None
+                                and tok == self.spec.eos_id))
+                notes[s.req.seq_id] = s.pos
+                if finished:
+                    # finished beats a lapsed deadline: the result is
+                    # fully paid for — deliver it rather than discard
+                    done.append(s)
+                    self._complete(s)
+                elif s.req.deadline is not None and now > s.req.deadline:
+                    _m_deadline_miss.inc()
+                    done.append(s)
+                    self._fail_locked(s.req, DeadlineExceeded(
+                        f"request to decoder '{self.name}' lapsed "
+                        f"mid-decode after {len(s.req.produced)} tokens"))
+            # one allocator-lock round-trip for the whole step; seqs
+            # freed by _complete/_fail above are skipped inside
+            self.cache.allocator.note_tokens_many(notes)
+            if done:
+                self._slots = [s for s in self._slots if s not in done]
+                self._g_live.set(len(self._slots))
+            if done or produced_any:
+                # wake completion waiters AND streaming readers
+                self._cond.notify_all()
+
+    def _complete(self, s: _Slot):
+        self.cache.allocator.free(s.req.seq_id)
+        _m_completions.inc()
+        _m_total.observe((time.monotonic() - s.req.t_enq) * 1e3)
+        s.req.result = {
+            "tokens": list(s.req.produced),
+            "prompt_len": int(len(s.req.prompt)),
+            "version": self.version,
+            # scheduler steps from admission to the first generated
+            # token (ceil(P/chunk) + co-riding; for a prefix-cache hit
+            # the suffix takes the prompt's place)
+            "steps_to_first_token": int(s.first_token_steps or s.steps),
+            # prompt tokens answered from the prefix index (0 = cold)
+            "cached_tokens": int(s.req.cached_tokens),
+            # speculative decoding is not ported: nothing proposed
+            "spec_proposed": 0,
+            "spec_accepted": 0,
+            "accept_rate": None,
+        }
+        s.req.ev.set()

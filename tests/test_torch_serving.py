@@ -1,0 +1,121 @@
+"""The port's serving front door (paddle_tpu_torch/serving server + client)
+against the JAX package's, on the CPU: load_decoder, buffered and
+streamed generate, every KV page back in the pool, the same tokens as the
+JAX server for the same spec and prompt, typed refusals for what is not
+ported yet — and the port's independence: neither the package nor
+chip_smoke.py imports jax or anything of paddle_tpu.
+"""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from paddle_tpu.serving import ServingClient as JaxClient
+from paddle_tpu.serving import ServingServer as JaxServer
+from paddle_tpu_torch.serving import ServingClient, ServingServer
+from paddle_tpu_torch.serving.errors import ServingError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPEC = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+            seed=11)
+LOAD = dict(slots=[1, 2], page_size=4, num_pages=64, max_seq_len=32,
+            prefill_chunk=8)
+PROMPT = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+
+
+@pytest.fixture
+def port_server():
+    srv = ServingServer(device="cpu")
+    cli = ServingClient(srv.serve())
+    try:
+        yield srv, cli
+    finally:
+        cli.close()
+        srv.shutdown()
+
+
+def test_generate_stream_and_pages_match_jax_server(port_server):
+    srv, cli = port_server
+    st = cli.load_decoder("gen", SPEC, **LOAD)
+    assert st["device"] == "cpu" and st["spec"]["seed"] == 11
+    buf = cli.generate("gen", PROMPT, max_new_tokens=8)
+    assert buf["version"] == 1 and len(buf["tokens"]) == 8
+    assert buf["steps_to_first_token"] == 2          # ceil(12 / 8)
+    stream = cli.generate("gen", PROMPT, max_new_tokens=8, stream=True)
+    assert list(stream) == buf["tokens"]
+    # the repeat is a prefix-cache hit: 11 of 12 prompt tokens cached
+    assert stream.result["cached_tokens"] == 11
+    assert cli.list_models()["gen"]["kv"]["pages_used"] == 0
+    rep = cli.load_report()["models"]["gen"]
+    assert rep["live_slots"] == 0 and rep["max_slots"] == 2
+    assert cli.health() == {"ok": True, "models": ["gen"]}
+
+    jsrv = JaxServer()
+    jcli = JaxClient(jsrv.serve())
+    try:
+        jcli.load_decoder("gen", SPEC, **LOAD)
+        ref = jcli.generate("gen", PROMPT, max_new_tokens=8)
+    finally:
+        jcli.close()
+        jsrv.shutdown()
+    assert buf["tokens"] == ref["tokens"]
+    assert buf["steps_to_first_token"] == ref["steps_to_first_token"]
+
+    # hot-swap to v2 of the same model: same tokens, old pool drained
+    cli.load_decoder("gen", SPEC, **LOAD)
+    again = cli.generate("gen", PROMPT, max_new_tokens=8)
+    assert again["version"] == 2 and again["tokens"] == buf["tokens"]
+    final = cli.unload_model("gen")
+    assert final["kv"]["pages_used"] == 0 and final["stopping"]
+
+
+def test_unported_methods_refuse_typed(port_server):
+    srv, cli = port_server
+    with pytest.raises(ServingError, match="not yet ported"):
+        cli.infer("m", {"x": [1.0]})
+    with pytest.raises(ServingError, match="not yet ported"):
+        cli.workload("m", {"kind": "embed", "prompt": [1]})
+    with pytest.raises(ServingError, match="not yet ported"):
+        cli.load_model("m", "/nonexistent")
+    with pytest.raises(RuntimeError, match="checkpoint slice"):
+        cli.load_decoder("m", checkpoint_dir="/nonexistent")
+    assert cli.list_models() == {}
+
+
+def test_server_without_device_needs_a_card(monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingServer()
+
+
+def test_port_imports_neither_jax_nor_paddle_tpu():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.kernels; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
+            "or m == 'paddle_tpu'); print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:import\s+(?:jax|jaxlib|paddle_tpu)\b(?!_torch)"
+    r"|from\s+(?:jax|jaxlib|paddle_tpu)\b(?!_torch))", re.M)
+
+
+def test_source_scan_finds_no_jax_or_paddle_tpu_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        assert not _IMPORT.search(src), path
+        assert "importlib" not in src or "jax" not in src, path
