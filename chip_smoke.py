@@ -10,23 +10,45 @@ and prints no result):
            (float32 matmuls in full float32, as the JAX package's
            matmul_precision='highest').
   build    compiles every kernel in paddle_tpu_torch/csrc with nvcc for
-           sm_90a, all sources at once, and prints the seconds.
-  kernels  holds each kernel against its plain PyTorch version on the
-           card on seeded cases (max abs error <= 1e-4; dead slots and
-           dead query lanes exactly 0), then times kernel, plain version
-           and one PyTorch library call at the serving phase's shapes
-           (CUDA events, L2 flushed before each launch, median of 25).
-  serve    the port's main path at GPT-2-medium width (24 layers,
-           d_model 1024, 16 heads, vocab 50257, seeded weights): a
-           ServingServer on the card, load_decoder, 8 concurrent
+           sm_90a, one process per source, all started together, and
+           prints the seconds.
+  kernels  holds the paged-attention kernel (K4) against its plain
+           PyTorch version on the card on seeded cases (max abs error
+           <= 1e-4; dead slots and dead query lanes exactly 0), then
+           times kernel, plain version and one PyTorch library call at
+           the serving phase's shapes (CUDA events, L2 flushed before
+           each launch, median of 25).
+  train kernels
+           the same for the training kernels: layer norm (K1), flash
+           forward (K2), flash dK/dV (K3a) and flash dQ (K3b) against
+           their plain versions (max abs error <= 1e-4 at unit-scale
+           inputs; causal and not, lengths that fit no tile, Sq != Sk,
+           head_dim 64 and 16), timed at the train phase's shapes beside
+           F.layer_norm and F.scaled_dot_product_attention (forward, and
+           its backward alone for K3a + K3b).
+  serve    the decode-serving main path at GPT-2-medium width (24
+           layers, d_model 1024, 16 heads, vocab 50257, seeded weights):
+           a ServingServer on the card, load_decoder, 8 concurrent
            generate requests, a repeated prompt (prefix-cache hit, same
            tokens), a streamed request (equals its buffered twin). The
            kernel counters are zeroed just before and read just after:
            every attention launch must have gone through the kernel
            (24 per engine step) and none through the plain version.
-  check    the same decoder step at full width (2 layers) on the card
-           and on the CPU (plain version): logits agree; and a small
-           engine decodes the same greedy tokens on both devices.
+  train    the Fluid training main path: Transformer-base (6+6 layers,
+           d_model 512, 8 heads, d_ff 2048, vocab 32000, max_len 512,
+           dropout 0.1, seq_parallel attention), Adam(1e-4), batch 16,
+           the startup program run on the card, 5 steps on one seeded
+           batch (transformer_bench.py's copy task). Counters zeroed
+           just before the steps and read just after: 30 layer-norm, 18
+           flash-forward, 18 dK/dV and 18 dQ launches per step, no plain
+           call; the loss finite and falling. Then one more step under
+           torch.profiler for the device's busy share.
+  check    the decoder step at full width (2 layers) on the card and on
+           the CPU: logits agree, and a small engine decodes the same
+           greedy tokens on both devices; then one Transformer training
+           step at full width (2+2 layers, dropout 0, batch 2) on the
+           card (kernels) and on the CPU (plain versions) from the same
+           parameters: the loss and every parameter gradient agree.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -180,7 +202,13 @@ def _bound(case, D):
     pairs = sum(int(kv[b] - ql[b] + j + 1) for b in range(B)
                 for j in range(int(ql[b])))
     flops = 4 * D * Hq * pairs
-    t_bytes = (kv_bytes + qo_bytes + idx_bytes) / HBM_BYTES_PER_S
+    return _bound_of(kv_bytes + qo_bytes + idx_bytes, flops)
+
+
+def _bound_of(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over HBM bandwidth
+    and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -285,6 +313,185 @@ def kernels_phase(torch):
     return max_err, timings
 
 
+# --- the training kernels (K1 layer norm, K2/K3a/K3b flash attention) ---
+
+# the train phase's shapes: Transformer-base, batch 16, length 512
+TRAIN_ROWS, D_MODEL, N_HEADS, SEQ = 16 * 512, 512, 8, 512
+
+
+def _randn(torch, rng, *shape):
+    import numpy as np
+
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+
+def _flash_case(torch, rng, bh, sq, sk, d, causal):
+    """Seeded q/k/v/dO on the card, and the saved LSE and delta from the
+    plain forward (the backward kernels' inputs)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v = (_randn(torch, rng, bh, s, d) for s in (sq, sk, sk))
+    do = _randn(torch, rng, bh, sq, d)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    delta = (do * o).sum(-1)
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta,
+                causal=causal, scale=scale)
+
+
+def _flash_pairs(sq, sk, causal):
+    """(query, key) pairs the function computes: all, or causal ones."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def _flash_bounds(bh, sq, sk, d, causal):
+    """Least time per kernel: each input read once and each output
+    written once over HBM bandwidth, against the f32 flops each pair of
+    (query, key) needs — 2 per multiply-add of the products, plus ~5 for
+    the scale, mask, exp and the softmax or ds arithmetic."""
+    pairs = bh * _flash_pairs(sq, sk, causal)
+    qo = bh * sq * d * 4
+    kv = bh * sk * d * 4
+    rows = bh * sq * 4
+    return {
+        "flash_fwd_f32": _bound_of(2 * qo + 2 * kv + rows,
+                                   pairs * (4 * d + 5)),
+        # reads q, k, v, dO, lse, delta; writes dK, dV
+        "flash_bwd_dkdv_f32": _bound_of(2 * qo + 4 * kv + 2 * rows,
+                                        pairs * (8 * d + 5)),
+        # reads q, k, v, dO, lse, delta; writes dQ
+        "flash_bwd_dq_f32": _bound_of(3 * qo + 2 * kv + 2 * rows,
+                                      pairs * (6 * d + 5)),
+    }
+
+
+def train_kernels_phase(torch):
+    """K1, K2, K3a and K3b against their plain versions on the card
+    (max abs error <= TOL at unit-scale inputs), then timed with their
+    plain versions and one library call at the train phase's shapes."""
+    phase("train kernels")
+    import numpy as np
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    rng = np.random.RandomState(2025)
+    errs = {fa.FWD: 0.0, fa.BWD_DKDV: 0.0, fa.BWD_DQ: 0.0, ln.KERNEL: 0.0}
+
+    def hold(kernel, what, got, want):
+        err = (got - want).abs().max().item()
+        if not torch.isfinite(got).all() or err > TOL:
+            raise RuntimeError(f"{kernel} {what}: max abs err {err:.3g} > "
+                               f"{TOL} (or not finite)")
+        errs[kernel] = max(errs[kernel], err)
+        return err
+
+    # K1: the train shape, and rows/width that fit no tile
+    for n, f in ((TRAIN_ROWS, D_MODEL), (37, 24), (5, 1000)):
+        x = _randn(torch, rng, n, f)
+        s, b = _randn(torch, rng, f), _randn(torch, rng, f)
+        got = ln._layer_norm_cuda(x, s, b, 1e-5)
+        want = ln.layer_norm_reference(x, s, b, 1e-5)
+        torch.cuda.synchronize()
+        e = [hold(ln.KERNEL, name, g, w)
+             for name, g, w in zip(("y", "mean", "rstd"), got, want)]
+        log(f"  layer_norm [{n}, {f}]: max abs err y/mean/rstd "
+            + " / ".join(f"{x:.3g}" for x in e))
+
+    # K2, K3a, K3b: causal and not; S not a multiple of the tiles;
+    # Sq != Sk both ways; head_dim 64 (the model's) and 16
+    cases = [(128, SEQ, SEQ, 64, False), (128, SEQ, SEQ, 64, True),
+             (6, 40, 40, 64, True), (6, 40, 72, 64, False),
+             (6, 40, 72, 64, True), (6, 100, 33, 16, True),
+             (6, 100, 33, 16, False)]
+    for bh, sq, sk, d, causal in cases:
+        c = _flash_case(torch, rng, bh, sq, sk, d, causal)
+        args = (c["q"], c["k"], c["v"])
+        o, lse = fa._fwd_cuda(*args, causal, c["scale"])
+        bargs = args + (c["do"], c["lse"], c["delta"], causal, c["scale"])
+        dk, dv = fa._bwd_dkdv_cuda(*bargs)
+        dq = fa._bwd_dq_cuda(*bargs)
+        rq, rk, rv = fa.flash_attention_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        e = [hold(fa.FWD, "O", o, c["o"]), hold(fa.FWD, "LSE", lse, c["lse"]),
+             hold(fa.BWD_DKDV, "dK", dk, rk), hold(fa.BWD_DKDV, "dV", dv, rv),
+             hold(fa.BWD_DQ, "dQ", dq, rq)]
+        log(f"  flash bh={bh} sq={sq} sk={sk} d={d} causal={causal}: max "
+            f"abs err O/LSE/dK/dV/dQ " + " / ".join(f"{x:.3g}" for x in e))
+
+    # timings at the train phase's shapes
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    rows = {}
+    x = _randn(torch, rng, TRAIN_ROWS, D_MODEL)
+    s, b = _randn(torch, rng, D_MODEL), _randn(torch, rng, D_MODEL)
+    n, f = x.shape
+    rows[ln.KERNEL] = {
+        "ms": _time_ms(torch, lambda: ln._layer_norm_cuda(x, s, b, 1e-5),
+                       flush),
+        "plain_ms": _time_ms(torch, lambda: ln.layer_norm_reference(
+            x, s, b, 1e-5), flush),
+        "library_ms": _time_ms(torch, lambda: F.layer_norm(
+            x, (f,), s, b, 1e-5), flush),
+        "shape": f"x [{n}, {f}] f32",
+    }
+    # ~8 flops an element; x read and y written, scale/bias read, two
+    # row statistics written
+    rows[ln.KERNEL]["bound_ms"], rows[ln.KERNEL]["bound_by"] = _bound_of(
+        (2 * n * f + 2 * f + 2 * n) * 4, 8 * n * f)
+
+    bh, d = 16 * N_HEADS, D_MODEL // N_HEADS
+    for causal in (False, True):
+        c = _flash_case(torch, rng, bh, SEQ, SEQ, d, causal)
+        args = (c["q"], c["k"], c["v"], causal, c["scale"])
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 causal, c["scale"])
+        # the library call: SDPA on [B, H, S, D], forward, and its
+        # backward alone (graph built once, retained)
+        q4, k4, v4 = (t.reshape(16, N_HEADS, SEQ, d).detach()
+                      .requires_grad_() for t in (c["q"], c["k"], c["v"]))
+        do4 = c["do"].reshape(16, N_HEADS, SEQ, d)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, is_causal=causal)
+        out4 = sdpa()
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out4, (q4, k4, v4), do4, retain_graph=True)
+        bounds = _flash_bounds(bh, SEQ, SEQ, d, causal)
+        timed = {
+            fa.FWD: (lambda: fa._fwd_cuda(*args),
+                     lambda: fa.flash_attention_fwd_reference(*args), sdpa),
+            fa.BWD_DKDV: (lambda: fa._bwd_dkdv_cuda(*bargs),
+                          lambda: fa.flash_attention_bwd_reference(*bargs),
+                          sdpa_bwd),
+            fa.BWD_DQ: (lambda: fa._bwd_dq_cuda(*bargs),
+                        lambda: fa.flash_attention_bwd_reference(*bargs),
+                        None),
+        }
+        for name, (kern, plain, lib) in timed.items():
+            row = {
+                "ms": _time_ms(torch, kern, flush),
+                "plain_ms": _time_ms(torch, plain, flush),
+                "library_ms": _time_ms(torch, lib, flush) if lib else None,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "shape": f"[BH={bh}, S={SEQ}, D={d}] f32 causal={causal}",
+            }
+            if name == fa.BWD_DKDV:
+                row["library_note"] = ("SDPA backward alone: computes dQ, "
+                                       "dK and dV (K3a + K3b together)")
+            if name == fa.BWD_DQ:
+                row["library_note"] = "counted with flash_bwd_dkdv_f32"
+                row["plain_note"] = ("the plain backward computes dQ, dK "
+                                     "and dV (K3a + K3b together)")
+            rows.setdefault(name, {})["causal" if causal else "full"] = row
+        del q4, k4, v4, out4
+    del flush
+    for name, row in rows.items():
+        log(f"  time {name}: " + json.dumps(row))
+    return errs, rows
+
+
 # --- serve ---------------------------------------------------------------
 
 def serve_phase(torch):
@@ -360,7 +567,8 @@ def serve_phase(torch):
                                "twin")
         models = clients[0].list_models()
         pages_used = models["gpt2m"]["kv"]["pages_used"]
-        launches, plain = pa.counts.kernel_launches, pa.counts.plain_calls
+        launches = pa.counts.kernel_launches[pa.KERNEL]
+        plain = pa.counts.plain_calls[pa.KERNEL]
         steps = steps_c.value() - steps0
         # the window ends here: the counts belong to the main path
         if pages_used != 0:
@@ -418,26 +626,7 @@ def profile_decode(torch, client, rng):
         t0 = time.perf_counter()
         client.generate("gpt2m", prompt, max_new_tokens=16)
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-
-    # device-side events only (kernels, memcpy/memset): an aten op's
-    # device time would count its kernels a second time
-    rows = [(ev.key, dev_us(ev), ev.count) for ev in prof.key_averages()
-            if str(getattr(ev, "device_type", "")).endswith("CUDA")]
-    rows = [r for r in rows if r[1] > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 1e3
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "busy_share": busy_ms / wall_ms if wall_ms else None,
-           "top": [{"name": k[:80], "device_ms": us / 1e3, "count": n}
-                   for k, us, n in rows[:10]]}
-    if not rows:
-        out["note"] = "profiler recorded no device time"
-    log("  profile " + json.dumps(out))
-    return out
+    return _device_summary(prof, wall_ms, "decode request")
 
 
 def host_read_ms(torch):
@@ -519,17 +708,258 @@ def check_phase(torch):
     log(f"  small engine: card and CPU tokens equal ({toks['cuda'][0]})")
 
 
+# --- train: the Fluid training main path ---------------------------------
+
+TRANSFORMER_BASE = dict(src_vocab=32000, trg_vocab=32000, max_len=SEQ,
+                        d_model=D_MODEL, n_heads=N_HEADS, d_ff=2048,
+                        n_layers=6, dropout=0.1, seq_parallel=True)
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
+
+
+def build_transformer(cfg_kw, lr):
+    """Main and startup programs of the Transformer with Adam(lr), built
+    with the port's fluid layers (seeded)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        cfg = transformer.TransformerConfig(**cfg_kw)
+        src = layers.data(name="src", shape=[cfg.max_len], dtype="int64")
+        trg = layers.data(name="trg", shape=[cfg.max_len], dtype="int64")
+        lbl = layers.data(name="lbl", shape=[cfg.max_len, 1], dtype="int64")
+        cost, _ = transformer.build_train(cfg, src, trg, lbl)
+        _, params_grads = fluid.optimizer.Adam(lr).minimize(cost)
+    return main, startup, cost, params_grads
+
+
+def copy_task_batch(batch, cfg_kw):
+    """transformer_bench.py's batch: seeded source ids, the target the
+    source shifted right by one, the labels the source."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    s = rng.randint(3, cfg_kw["src_vocab"],
+                    (batch, cfg_kw["max_len"])).astype(np.int64)
+    t = np.concatenate([np.zeros((batch, 1), np.int64), s[:, :-1]], axis=1)
+    return {"src": s, "trg": t, "lbl": s[:, :, None]}
+
+
+def _kernel_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    launches = {**ln.counts.kernel_launches, **fa.counts.kernel_launches}
+    plain = {**ln.counts.plain_calls, **fa.counts.plain_calls}
+    return launches, plain
+
+
+def _reset_kernel_counts():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    ln.counts.reset()
+    fa.counts.reset()
+
+
+def train_phase(torch):
+    phase("train")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    main, startup, cost, pg = build_transformer(TRANSFORMER_BASE, 1e-4)
+    build_s = time.perf_counter() - t0
+    exe, scope = fluid.Executor(), fluid.Scope()
+    if exe.device.type != "cuda":
+        raise RuntimeError(f"Executor() chose {exe.device}, not the card")
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    n_params = sum(int(np.prod(p.shape)) for p in
+                   main.global_block().all_parameters())
+    log(f"  built {len(main.global_block().ops)} ops in {build_s:.2f} s; "
+        f"startup ({len(startup.global_block().ops)} ops) on the card in "
+        f"{startup_s:.2f} s; {n_params} parameter values, "
+        f"{len(pg)} trained")
+    feed = copy_task_batch(TRAIN_BATCH, TRANSFORMER_BASE)
+
+    # the main path's window: counters to 0, the steps, counters read
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+    launches, plain = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the window ends here
+    want = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18}
+    for k, per_step in want.items():
+        if launches[k] != per_step * TRAIN_STEPS:
+            raise RuntimeError(f"{k}: {launches[k]} launches in "
+                               f"{TRAIN_STEPS} steps, want {per_step} a "
+                               f"step")
+    if any(plain.values()):
+        raise RuntimeError(f"plain versions ran on the card's main path: "
+                           f"{plain}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"losses not finite or not falling: {losses}")
+    p50 = statistics.median(step_ms[1:])
+    train = {
+        "config": "transformer-base 6+6L d512 h8 ff2048 vocab32000 "
+                  "len512 dropout0.1 adam1e-4 f32",
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "p50_step_ms_after_first": p50,
+        "tokens_per_s": TRAIN_BATCH * SEQ / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb,
+        "build_s": build_s, "startup_s": startup_s,
+        "kernel_launches": launches, "plain_calls": plain,
+    }
+    log("  train " + json.dumps(train))
+    train["profile"] = profile_step(torch, exe, main, feed, cost, scope)
+    return launches, train
+
+
+def profile_step(torch, exe, main, feed, cost, scope):
+    """One more training step under torch.profiler, after the main
+    path's counts were read: device time by kernel and the device's busy
+    share of the step's wall time. Reporting only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _device_summary(prof, wall_ms, "train step")
+
+
+def _device_summary(prof, wall_ms, what):
+    def dev_us(ev):
+        return getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0.0))
+
+    # device-side events only (kernels, memcpy/memset): an aten op's
+    # device time would count its kernels a second time
+    rows = [(ev.key, dev_us(ev), ev.count) for ev in prof.key_averages()
+            if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    rows = [r for r in rows if r[1] > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms if wall_ms else None,
+           "top": [{"name": k[:80], "device_ms": us / 1e3, "count": n}
+                   for k, us, n in rows[:12]]}
+    if not rows:
+        out["note"] = "profiler recorded no device time"
+    log(f"  profile {what} " + json.dumps(out))
+    return out
+
+
+def train_check_phase(torch):
+    """One training step of a 2+2-layer Transformer at full width, on the
+    card (kernels) and on the CPU (plain versions), from the same
+    parameters: loss within 1e-5 relative; each parameter gradient's max
+    abs difference within 1e-3 of its own max abs value (float32; cuBLAS
+    and the CPU sum in other orders, the kernels in another order than
+    the dense plain versions)."""
+    phase("train check")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    kw = dict(TRANSFORMER_BASE, n_layers=2, dropout=0.0)
+    main, startup, cost, pg = build_transformer(kw, 1e-4)
+    cpu_scope = fluid.Scope()
+    fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu_scope)
+    card_scope = fluid.Scope()
+    for n in cpu_scope.var_names():
+        card_scope.set_var(n, cpu_scope.find_var(n).cuda())
+    feed = copy_task_batch(2, kw)
+    fetch = [cost] + [g for _, g in pg]
+    out, deltas = {}, {}
+    for dev, scope in (("cuda", card_scope), ("cpu", cpu_scope)):
+        _reset_kernel_counts()
+        exe = fluid.Executor(fluid.CUDAPlace(0) if dev == "cuda"
+                             else fluid.CPUPlace())
+        out[dev] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        deltas[dev] = _kernel_counts()
+    per_step = {"layer_norm_f32": 10, "flash_fwd_f32": 6,
+                "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6}
+    if deltas["cuda"] != (per_step, dict.fromkeys(per_step, 0)) or \
+            deltas["cpu"] != (dict.fromkeys(per_step, 0), per_step):
+        raise RuntimeError(f"kernel/plain counts (card, cpu): {deltas}")
+    lc, lp = float(out["cuda"][0][0]), float(out["cpu"][0][0])
+    if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
+        raise RuntimeError(f"loss card {lc} vs cpu {lp}")
+    worst = 0.0
+    for (p, _), gc, gp in zip(pg, out["cuda"][1:], out["cpu"][1:]):
+        scale = float(np.abs(gp).max())
+        ratio = float(np.abs(gc - gp).max()) / scale if scale else \
+            float(np.abs(gc).max())
+        if not np.isfinite(gc).all() or ratio > 1e-3:
+            raise RuntimeError(f"gradient of {p.name}: card vs cpu max abs "
+                               f"diff / max abs {ratio:.3g} > 1e-3")
+        worst = max(worst, ratio)
+    log(f"  transformer 2+2L full width, batch 2: loss card {lc:.7f} cpu "
+        f"{lp:.7f}; {len(pg)} gradients agree, worst max-diff/max "
+        f"{worst:.3g}")
+    return {"loss_card": lc, "loss_cpu": lp, "grads": len(pg),
+            "worst_grad_rel_err": worst}
+
+
+def _kernel_row(name, source, replaces, launches, err, row, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], **extra}
+
+
 def main():
     import torch
 
     name, smi = device_phase(torch)
     build_phase()
     max_err, timings = kernels_phase(torch)
+    train_errs, train_rows = train_kernels_phase(torch)
     launches, serve = serve_phase(torch)
     read_ms = host_read_ms(torch)
     log(f"  host logits read [8, 50257] f32: {read_ms:.4f} ms (median)")
+    train_launches, train = train_phase(torch)
     check_phase(torch)
+    train["check"] = train_check_phase(torch)
     dec = timings["decode"]
+    fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
+    train_kernels = [
+        _kernel_row("layer_norm_f32", "paddle_tpu_torch/csrc/layer_norm.cu",
+                    "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42",
+                    train_launches["layer_norm_f32"],
+                    train_errs["layer_norm_f32"],
+                    train_rows["layer_norm_f32"], train=train),
+    ]
+    for kname, line in (("flash_fwd_f32", 111), ("flash_bwd_dkdv_f32", 295),
+                        ("flash_bwd_dq_f32", 320)):
+        rows = train_rows[kname]
+        row = dict(rows["full"])
+        if kname == "flash_bwd_dq_f32":
+            # one library call computes dQ, dK and dV: the K3a row's
+            row["library_ms"] = train_rows["flash_bwd_dkdv_f32"]["full"][
+                "library_ms"]
+        train_kernels.append(_kernel_row(
+            kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
+            train_errs[kname], row, shape=row["shape"],
+            causal=rows["causal"]))
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -550,7 +980,7 @@ def main():
         "prefill": timings["prefill"],
         "serve": serve,
         "host_logits_read_ms": read_ms,
-    }]}
+    }] + train_kernels}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,9 @@ FLAGS: Dict[str, Any] = {
     # speculative decoding proposals per slot per round; 0 = off (the
     # only value this package accepts so far)
     "spec_k": 0,
+    # program build: an emitter failing meta-tensor shape inference with
+    # an unexpected error raises instead of warning once per op type
+    "strict_shape_inference": False,
 }
 
 

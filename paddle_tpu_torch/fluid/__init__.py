@@ -1,0 +1,49 @@
+"""paddle_tpu_torch.fluid — the Fluid Program IR, layers, generic
+backward, optimizers and an eager Executor in PyTorch (the counterpart of
+``paddle_tpu.fluid``; reference python/paddle/fluid/__init__.py).
+
+Ported so far: what training the repo's Transformer (and fit_a_line)
+needs — Program/Block/Operator/Variable/Parameter with ``to_bytes`` /
+``parse_from_bytes`` in the JAX package's format, ``layers.data``,
+``fc``, ``embedding``, ``layer_norm``, ``dropout``, ``softmax``,
+``softmax_with_cross_entropy``, ``mean``, ``reshape``, ``transpose``,
+``matmul``, ``ring_attention``, ``elementwise_add``/``_sub``,
+``square_error_cost``, ``create_parameter``, ``fill_constant``,
+``assign``; ``append_backward``; ``SGD`` and ``Adam``; ``Executor``,
+``Scope``, ``scope_guard``. The executor runs on the card unless given
+``CPUPlace()`` (or ``"cpu"``).
+"""
+from . import core  # noqa: F401
+from . import ops as _ops  # registers the op emitters  # noqa: F401
+from . import (  # noqa: F401
+    backward,
+    enforce,
+    initializer,
+    layers,
+    optimizer,
+    param_attr,
+    unique_name,
+)
+from .backward import append_backward  # noqa: F401
+from .convert import params_from_jax  # noqa: F401
+from .core import CPUPlace, CUDAPlace  # noqa: F401
+from .enforce import EnforceNotMet  # noqa: F401
+from .executor import (  # noqa: F401
+    Executor,
+    Scope,
+    fetch_var,
+    global_scope,
+    scope_guard,
+)
+from .framework import (  # noqa: F401
+    Block,
+    Operator,
+    Parameter,
+    Program,
+    Variable,
+    default_main_program,
+    default_startup_program,
+    program_guard,
+)
+from .initializer import Constant, MSRA, Normal, Uniform, Xavier  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401

@@ -1,0 +1,259 @@
+"""Executor: runs a Program block op by op, eagerly, on one device — the
+counterpart of ``paddle_tpu/fluid/executor.py`` with the same ``run``
+contract (reference python/paddle/fluid/executor.py:181).
+
+  - The JAX package traces the block into one jitted XLA computation; here
+    each op's PyTorch emitter runs in program order on the executor's
+    device (the card unless the caller names the CPU), so the reference's
+    per-op dispatch loop (executor.cc:344) is what runs.
+  - Scope (reference scope.h:39) maps var name -> torch tensor. The block's
+    state splits as in the JAX package's ``_block_io`` / ``_lower``: state
+    read (read-only or read-write, from the scope), persistable state
+    written (back to the scope after the run), and fetches that must be
+    produced.
+  - Gradients: each forward op that a later ``<type>_grad`` op
+    differentiates runs once with autograd on, and the grad op consumes
+    that record (registry.exec_op_descs); every other op — the startup
+    program, the optimizer ops — runs under ``torch.no_grad()``.
+  - Feed/fetch: numpy in, numpy out (``return_numpy=False`` returns the
+    tensors, detached).
+
+Not ported yet: readers, save/load ops, send/recv transport and
+ParallelExecutor; a program holding such an op raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import time as _time
+import weakref
+import zlib
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..observability import metrics as _metrics, tracing as _tracing
+from . import core
+from .framework import Program, Variable, default_main_program
+from .registry import EmitCtx, exec_op_descs, fold_seed, plan_grad_records
+
+_m_step_ms = _metrics.histogram("executor.step_ms")
+
+_SKIP_OP_TYPES = frozenset({"feed", "fetch"})
+# host-side op types of the JAX executor (readers, io, pserver transport)
+_NOT_PORTED_OP_TYPES = frozenset({
+    "read", "send", "recv", "send_barrier", "send_vars", "prefetch", "save",
+    "save_combine", "load", "load_combine", "create_recordio_file_reader",
+    "open_files", "create_shuffle_reader", "create_batch_reader",
+    "create_double_buffer_reader", "create_multi_pass_reader",
+})
+
+
+class Scope:
+    """name -> tensor map (reference framework/scope.h:39)."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
+        self._vars: Dict[str, Any] = {}
+        self.parent = parent
+
+    def find_var(self, name: str):
+        s: Optional[Scope] = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s.parent
+        return None
+
+    def has_var(self, name: str) -> bool:
+        return self.find_var(name) is not None
+
+    def set_var(self, name: str, value):
+        self._vars[name] = value
+
+    def var_names(self):
+        return list(self._vars)
+
+
+_global_scope = Scope()
+
+# per-thread guard stack, as in the JAX package: a thread with no guards
+# of its own sees the process root scope
+_scope_tls = threading.local()
+
+
+def global_scope() -> Scope:
+    stack = getattr(_scope_tls, "stack", None)
+    return stack[-1] if stack else _global_scope
+
+
+@contextlib.contextmanager
+def scope_guard(scope: Scope):
+    stack = getattr(_scope_tls, "stack", None)
+    if stack is None:
+        stack = _scope_tls.stack = []
+    stack.append(scope)
+    try:
+        yield
+    finally:
+        # pop OUR frame by identity, unwinding frames the body left above
+        for i in range(len(stack) - 1, -1, -1):
+            if stack[i] is scope:
+                del stack[i:]
+                break
+
+
+def _to_numpy(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def fetch_var(name: str, scope: Optional[Scope] = None,
+              return_numpy: bool = True):
+    scope = scope or global_scope()
+    v = scope.find_var(name)
+    if v is None:
+        raise ValueError(f"var '{name}' not found in scope")
+    return _to_numpy(v) if return_numpy else v
+
+
+def _as_name(v) -> str:
+    return v.name if isinstance(v, Variable) else str(v)
+
+
+def _block_io(block, feed_names: set):
+    """Classify vars of a block: state read (from scope) and state written
+    (persistable -> survives the run)."""
+    produced = set(feed_names)
+    state_in: List[str] = []
+    state_out: List[str] = []
+    persistable = {
+        name for name, var in block.vars.items() if var.persistable
+    }
+    for op in block.ops:
+        if op.desc.type in _SKIP_OP_TYPES:
+            continue
+        for n in op.desc.input_names():
+            if n and n not in produced and n not in state_in:
+                state_in.append(n)
+        for n in op.desc.output_names():
+            if n:
+                produced.add(n)
+                if n in persistable and n not in state_out:
+                    state_out.append(n)
+    return state_in, state_out
+
+
+class _StepCounter:
+    def __init__(self):
+        self._n = 0
+
+    def next(self) -> int:
+        self._n += 1
+        return self._n
+
+
+_step_counter = _StepCounter()
+
+
+def _next_seed(program: Program) -> int:
+    """The run's root seed. A seeded program is deterministic (its own run
+    counter, salted with a content hash of the program so that startup and
+    main programs sharing one random_seed draw independent streams); seed
+    0 draws from a process-global counter (fresh randomness each run)."""
+    if program.random_seed:
+        if getattr(program, "_rng_salt_version", None) != program._version:
+            program._rng_salt = zlib.crc32(program.to_bytes())
+            program._rng_salt_version = program._version
+        program._rng_tick += 1
+        return fold_seed(fold_seed(program.random_seed, program._rng_salt),
+                         program._rng_tick)
+    return fold_seed(_step_counter.next(), 0)
+
+
+class Executor:
+    """Reference python/paddle/fluid/executor.py:181 — same run() contract.
+    ``place``: ``CPUPlace()``, ``CUDAPlace(i)``, a ``torch.device`` or a
+    device string; ``None`` means the card, and raises without one."""
+
+    def __init__(self, place=None):
+        self.place = place if place is not None else core.default_place()
+        self.device = core.as_device(self.place)
+        # per program (weakly keyed): (version, feed names) -> the block's
+        # ops, state split and grad-record plan
+        self._cache: "weakref.WeakKeyDictionary[Program, Dict[Any, Any]]" = (
+            weakref.WeakKeyDictionary()
+        )
+
+    def run(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[Sequence[Any]] = None,
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+        use_program_cache: bool = True,
+    ):
+        program = program or default_main_program()
+        t0 = _time.perf_counter()
+        with _tracing.span("executor.step", program_version=program._version):
+            out = self._run_body(program, feed or {}, fetch_list or [],
+                                 scope or global_scope(), return_numpy,
+                                 use_program_cache)
+        _m_step_ms.observe((_time.perf_counter() - t0) * 1000.0)
+        return out
+
+    def _entry(self, program, feed_names, use_program_cache):
+        key = (program._version, tuple(sorted(feed_names)))
+        prog_cache = self._cache.setdefault(program, {})
+        entry = prog_cache.get(key) if use_program_cache else None
+        if entry is None:
+            block = program.global_block()
+            bad = sorted({op.desc.type for op in block.ops
+                          if op.desc.type in _NOT_PORTED_OP_TYPES})
+            if bad:
+                raise NotImplementedError(
+                    f"op types {bad} (readers, io, transport) are not yet "
+                    "ported to paddle_tpu_torch's Executor")
+            ops = [op.desc for op in block.ops
+                   if op.desc.type not in _SKIP_OP_TYPES]
+            state_in, state_out = _block_io(block, set(feed_names))
+            entry = (ops, state_in, state_out, plan_grad_records(ops))
+            if use_program_cache:
+                prog_cache[key] = entry
+        return entry
+
+    def _run_body(self, program, feed, fetch_list, scope, return_numpy,
+                  use_program_cache):
+        dev = self.device
+        feeds = {k: (v if isinstance(v, torch.Tensor)
+                     else torch.as_tensor(np.asarray(v))).to(dev)
+                 for k, v in feed.items()}
+        ops, state_in, state_out, plan = self._entry(
+            program, list(feeds), use_program_cache)
+        missing = [n for n in state_in if not scope.has_var(n)]
+        if missing:
+            raise RuntimeError(
+                f"vars {missing} are read by the program but not "
+                "initialized in scope — run the startup program first or "
+                "feed them")
+        fetch_names = [_as_name(v) for v in fetch_list]
+        env: Dict[str, Any] = {n: scope.find_var(n) for n in state_in}
+        env.update(feeds)
+        ctx = EmitCtx(device=dev, root_seed=_next_seed(program),
+                      program=program)
+        exec_op_descs(ctx, ops, env, keep=frozenset(fetch_names), plan=plan)
+        for n in state_out:
+            if n in env:
+                scope.set_var(n, env[n].detach())
+        fetches = []
+        for n in fetch_names:
+            if n not in env:
+                raise ValueError(
+                    f"fetch target '{n}' was not produced by the block")
+            v = env[n].detach()
+            fetches.append(_to_numpy(v) if return_numpy else v)
+        return fetches
+
+    def close(self):
+        self._cache.clear()

@@ -1,0 +1,285 @@
+"""NN layer functions (reference python/paddle/fluid/layers/nn.py — fc:83,
+embedding:218, layer_norm:1597, dropout:876,
+softmax_with_cross_entropy:3165, ...): the ones the Transformer and
+fit_a_line programs call, copied from ``paddle_tpu/fluid/layers/nn.py``.
+The other layers are not ported yet."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..initializer import ConstantInitializer
+from ..layer_helper import LayerHelper
+
+__all__ = [
+    "fc", "embedding", "layer_norm", "dropout", "softmax",
+    "softmax_with_cross_entropy", "square_error_cost", "mean", "mul",
+    "matmul", "reshape", "transpose", "ring_attention", "elementwise_add",
+    "elementwise_sub",
+]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, is_test=False, name=None):
+    """Fully-connected (reference layers/nn.py:83): mul per input + sum +
+    bias + activation."""
+    helper = LayerHelper(
+        "fc", input=input, size=size, param_attr=param_attr,
+        bias_attr=bias_attr, act=act, name=name,
+    )
+    dtype = (input[0] if isinstance(input, (list, tuple)) else input).dtype
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = helper.multiple_param_attr(len(inputs))
+
+    mul_results = []
+    for inp, attr in zip(inputs, param_attrs):
+        input_shape = inp.shape
+        param_shape = [
+            int(np.prod(input_shape[num_flatten_dims:]))
+        ] + [size]
+        w = helper.create_parameter(attr, param_shape, dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [inp], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]}
+        )
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    out = helper.append_activation(pre_act)
+    if num_flatten_dims >= 2:
+        # time axis survives the flatten -> still a sequence
+        from .sequence import _propagate_lengths
+
+        _propagate_lengths(inputs[0], out)
+    return out
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """reference layers/nn.py:218 → lookup_table op."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, size, dtype)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = -1 if padding_idx is None else (
+        padding_idx if padding_idx >= 0 else size[0] + padding_idx
+    )
+    if input.shape is not None:
+        s = list(input.shape)
+        if s and s[-1] == 1:
+            s = s[:-1]  # the op squeezes the trailing ids dim
+        tmp.desc.shape = s + [size[1]]
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [tmp]},
+        attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
+               "padding_idx": padding_idx},
+    )
+    from .sequence import _propagate_lengths
+
+    _propagate_lengths(input, tmp)
+    return tmp
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
+               param_attr=None, bias_attr=None, act=None, name=None):
+    """reference layers/nn.py:1597."""
+    helper = LayerHelper(
+        "layer_norm", param_attr=param_attr, bias_attr=bias_attr, act=act,
+        name=name,
+    )
+    dtype = input.dtype
+    param_shape = [int(np.prod(input.shape[begin_norm_axis:]))]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            helper.param_attr, param_shape, dtype,
+            default_initializer=ConstantInitializer(1.0),
+        )
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(
+            helper.bias_attr, param_shape, dtype, is_bias=True
+        )
+        inputs["Bias"] = [b]
+    mean_out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    var_out = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="layer_norm",
+        inputs=inputs,
+        outputs={"Y": [out], "Mean": [mean_out], "Variance": [var_out]},
+        attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
+    )
+    return helper.append_activation(out)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """reference layers/nn.py:876."""
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob, "is_test": is_test,
+            "seed": seed if seed is not None else 0,
+        },
+    )
+    return out
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]}, outputs={"Out": [out]})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    """reference layers/nn.py:3165."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label},
+    )
+    return loss
+
+
+def square_error_cost(input, label):
+    """reference layers/nn.py (square_error_cost): (input-label)^2 via
+    elementwise_sub + square ops."""
+    helper = LayerHelper("square_error_cost")
+    minus_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="elementwise_sub",
+        inputs={"X": [input], "Y": [label]},
+        outputs={"Out": [minus_out]},
+    )
+    square_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="square", inputs={"X": [minus_out]}, outputs={"Out": [square_out]}
+    )
+    return square_out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="mul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims, "y_num_col_dims": y_num_col_dims},
+    )
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    """reference layers/nn.py:2458."""
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul",
+        inputs={"X": [x], "Y": [y]},
+        outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": alpha},
+    )
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=True, name=None):
+    """reference layers/nn.py:3354."""
+    helper = LayerHelper("reshape", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_shape = list(shape)
+    if x.shape is not None:
+        # 0 = copy this dim from input (reference reshape semantics)
+        out_shape = [
+            x.shape[i] if s == 0 and i < len(x.shape) else s
+            for i, s in enumerate(out_shape)
+        ]
+    out.desc.shape = out_shape
+    helper.append_op(
+        type="reshape", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"shape": list(shape)},
+    )
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="transpose", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def ring_attention(q, k, v, causal=False, scale=0.0, impl="ring",
+                   seq_axis="sp", batch_axis="dp", head_axis="", name=None):
+    """Fused flash attention. q/k/v: [batch, seq, heads, head_dim].
+
+    In the port this is single-device flash attention (the op's K2/K3
+    kernels); the mesh attrs (`impl`, `seq_axis`, `batch_axis`,
+    `head_axis`) are kept in the IR for the JAX package's sequence
+    parallelism, which is not ported yet.
+    """
+    helper = LayerHelper("ring_attention", name=name)
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    helper.append_op(
+        type="ring_attention",
+        inputs={"Q": [q], "K": [k], "V": [v]},
+        outputs={"Out": [out]},
+        attrs={"causal": causal, "scale": scale, "impl": impl,
+               "seq_axis": seq_axis, "batch_axis": batch_axis,
+               "head_axis": head_axis},
+    )
+    return out
+
+
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        if x.shape is not None:
+            # broadcast keeps x's shape (y broadcasts onto x in the
+            # reference's axis semantics) — lets downstream layers (fc)
+            # see dims at build time
+            out.desc.shape = list(x.shape)
+        helper.append_op(
+            type=op_type, inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+            attrs={"axis": axis},
+        )
+        return helper.append_activation(out)
+
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")

@@ -1,0 +1,72 @@
+"""Tensor layers (reference python/paddle/fluid/layers/tensor.py): the
+ones the Transformer program calls, copied from
+``paddle_tpu/fluid/layers/tensor.py``."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..framework import Variable
+from ..layer_helper import LayerHelper
+
+__all__ = ["create_parameter", "sums", "assign", "fill_constant"]
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+
+    helper = LayerHelper("create_parameter", name=name)
+    attr = ParamAttr.to_attr(attr)
+    if attr.name is None and name is not None:
+        attr.name = name
+    return helper.create_parameter(attr, shape, dtype, is_bias, default_initializer)
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    # elementwise over the time axis: sequence lengths survive
+    from .sequence import _propagate_lengths
+
+    for x in input:
+        _propagate_lengths(x, out)
+    return out
+
+
+def assign(input, output=None):
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(
+            dtype=input.dtype if isinstance(input, Variable) else "float32"
+        )
+    if isinstance(input, Variable):
+        helper.append_op(
+            type="assign", inputs={"X": [input]}, outputs={"Out": [output]}
+        )
+    else:
+        arr = np.asarray(input)
+        helper.append_op(
+            type="assign_value",
+            outputs={"Out": [output]},
+            attrs={
+                "shape": list(arr.shape),
+                "dtype": str(arr.dtype),
+                "values": arr.ravel().tolist(),
+            },
+        )
+    return output
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="fill_constant",
+        outputs={"Out": [out]},
+        attrs={"shape": list(shape), "dtype": out.dtype, "value": float(value)},
+    )
+    out.stop_gradient = True
+    return out

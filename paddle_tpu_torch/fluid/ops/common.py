@@ -1,0 +1,33 @@
+"""Shared helpers for op emitters."""
+from __future__ import annotations
+
+from ..core import as_torch_dtype
+
+
+def one(ins, slot):
+    lst = ins.get(slot) or []
+    return lst[0] if lst else None
+
+
+def many(ins, slot):
+    return [x for x in (ins.get(slot) or []) if x is not None]
+
+
+def bcast_y(x, y, axis: int):
+    """Paddle elementwise broadcast: Y's shape is a contiguous sub-sequence
+    of X's, aligned at `axis` (-1 = align trailing). Reference
+    operators/elementwise_op_function.h."""
+    if x.shape == y.shape:
+        return y
+    if axis == -1:
+        axis = x.ndim - y.ndim
+    # trim trailing size-1 dims of y (reference allows [..., 1] tails)
+    yshape = list(y.shape)
+    while yshape and yshape[-1] == 1 and len(yshape) > x.ndim - axis:
+        yshape.pop()
+    new_shape = [1] * axis + yshape + [1] * (x.ndim - axis - len(yshape))
+    return y.reshape(new_shape)
+
+
+def dtype_of(attrs, key="dtype", default="float32"):
+    return as_torch_dtype(attrs.get(key, default))

@@ -1,0 +1,54 @@
+"""GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
+matmul,sum,mean}_op.*). Plain large products stay ``torch.matmul``
+(cuBLAS on a card), as the JAX package leaves them to XLA."""
+from __future__ import annotations
+
+import math
+
+from ..registry import register_op
+from .common import many, one
+
+
+@register_op("mul", ref="paddle/fluid/operators/mul_op.cc")
+def mul(ctx, ins, attrs):
+    x, y = one(ins, "X"), one(ins, "Y")
+    xn = int(attrs.get("x_num_col_dims", 1))
+    yn = int(attrs.get("y_num_col_dims", 1))
+    x2 = x.reshape(math.prod(x.shape[:xn]), -1)
+    y2 = y.reshape(math.prod(y.shape[:yn]), -1)
+    out = x2 @ y2
+    return {"Out": out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))}
+
+
+@register_op("matmul", ref="paddle/fluid/operators/matmul_op.cc")
+def matmul(ctx, ins, attrs):
+    x, y = one(ins, "X"), one(ins, "Y")
+    tx = bool(attrs.get("transpose_X", False))
+    ty = bool(attrs.get("transpose_Y", False))
+    alpha = float(attrs.get("alpha", 1.0))
+    if x.ndim == 1:
+        x = x[None, :] if not tx else x[:, None]
+    if y.ndim == 1:
+        y = y[:, None] if not ty else y[None, :]
+    if tx:
+        x = x.transpose(-1, -2)
+    if ty:
+        y = y.transpose(-1, -2)
+    out = x @ y
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": out}
+
+
+@register_op("sum", ref="paddle/fluid/operators/sum_op.cc")
+def sum_op(ctx, ins, attrs):
+    xs = many(ins, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
+@register_op("mean", ref="paddle/fluid/operators/mean_op.cc")
+def mean(ctx, ins, attrs):
+    return {"Out": one(ins, "X").mean().reshape(1)}

@@ -1,7 +1,12 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version. Importing this package needs neither nvcc nor a card: a kernel
 builds at its first launch on a CUDA tensor."""
-from . import paged_attention  # noqa: F401
+from . import flash_attention, layer_norm, paged_attention  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention_bwd_reference,
+    flash_attention_fwd_reference,
+)
+from .layer_norm import layer_norm_reference  # noqa: F401
 from .paged_attention import (  # noqa: F401
     paged_attention_reference,
 )

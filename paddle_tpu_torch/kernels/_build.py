@@ -43,6 +43,22 @@ _SIGNATURES = {
         "paged_attention_f32": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
+    "layer_norm": {
+        # x, scale, bias, y, mean, rstd, N, F, eps, stream
+        "layer_norm_f32": ([_P] * 6 + [_I] * 2 + [_F, _P], _I),
+        "error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        # q, k, v, o, lse, BH, Sq, Sk, D, causal, scale, stream
+        "flash_fwd_f32": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+        # q, k, v, dout, lse, delta, dk, dv, BH, Sq, Sk, D, causal,
+        # scale, stream
+        "flash_bwd_dkdv_f32": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+        # q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D, causal, scale,
+        # stream
+        "flash_bwd_dq_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
+        "error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 
@@ -137,3 +153,18 @@ def load_library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _libs[name] = lib
         return lib
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call the C entry point ``fn`` of library ``name`` with ``args``
+    and the current stream of ``device``; raise if the launch failed
+    (the entry point returns cudaGetLastError() after its launch)."""
+    import torch
+
+    lib = load_library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

@@ -36,9 +36,9 @@ Two implementations of the same function:
 
 ``paged_attention`` routes on the tensor's device ONLY: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
-``counts`` tallies both (``kernel_launches`` once per launch,
-``plain_calls`` once per plain-version call through the router) so a
-run can show that its main path went through the kernel.
+``counts`` tallies both (``kernel_launches[KERNEL]`` once per launch,
+``plain_calls[KERNEL]`` once per plain-version call through the router)
+so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -46,29 +46,18 @@ from typing import Optional
 
 import torch
 
+from .counts import LaunchCounts
+
 NEG_INF = -1e30
 
 # head_dim bound of the kernel's register accumulators (8 floats a lane)
 MAX_HEAD_DIM = 256
 
 __all__ = ["paged_attention", "paged_attention_reference", "counts",
-           "NEG_INF", "MAX_HEAD_DIM"]
+           "KERNEL", "NEG_INF", "MAX_HEAD_DIM"]
 
-
-class _Counts:
-    """Launch tallies of the router. Plain ints: the decode engine's
-    single scheduler thread is the only caller on the serving path."""
-
-    def __init__(self):
-        self.kernel_launches = 0
-        self.plain_calls = 0
-
-    def reset(self):
-        self.kernel_launches = 0
-        self.plain_calls = 0
-
-
-counts = _Counts()
+KERNEL = "paged_attention_f32"
+counts = LaunchCounts(KERNEL)
 
 
 def _check_shapes(q, k_pages, v_pages, page_tables, kv_lens, q_lens):
@@ -161,7 +150,7 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
     a non-CUDA or mixed device, a dtype other than float32, a
     non-contiguous q or pool, a head_dim above ``MAX_HEAD_DIM`` or not
     a multiple of 4 (the kernel stages rows as float4)."""
-    from ._build import load_library
+    from ._build import launch
 
     b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
                                             page_tables, kv_lens, q_lens)
@@ -190,18 +179,10 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
     kv_l = kv_lens.to(torch.int32).contiguous()
     q_l = q_lens.to(torch.int32).contiguous()
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
-    lib = load_library("paged_attention")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.paged_attention_f32(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), kv_l.data_ptr(), q_l.data_ptr(),
-            out.data_ptr(), b, c, hq, hkv, d, ps, w, scale, stream)
-    if err:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
-                           f"error {err} "
-                           f"({lib.error_string(err).decode()})")
-    counts.kernel_launches += 1
+    launch("paged_attention", KERNEL, dev, q.data_ptr(), k_pages.data_ptr(),
+           v_pages.data_ptr(), tables.data_ptr(), kv_l.data_ptr(),
+           q_l.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, ps, w, scale)
+    counts.kernel_launches[KERNEL] += 1
     return out[:, 0] if squeeze else out
 
 
@@ -213,7 +194,7 @@ def paged_attention(q, k_pages, v_pages, page_tables, kv_lens,
     slot) or ``[B, C, Hq, D]`` with ``q_lens`` (a prefill chunk per
     slot, causal within the chunk)."""
     if q.device.type == "cpu":
-        counts.plain_calls += 1
+        counts.plain_calls[KERNEL] += 1
         return paged_attention_reference(q, k_pages, v_pages, page_tables,
                                          kv_lens, q_lens=q_lens,
                                          scale=scale)

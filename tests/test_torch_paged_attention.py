@@ -105,15 +105,15 @@ def test_plain_version_matches_jax_reference_and_pallas(name):
 
 def test_router_takes_plain_version_on_cpu_and_counts_it():
     q, kp, vp, tables, kv_lens, q_lens = _case(3, **CASES["chunk_gqa2_ps16"])
-    before_k = pa.counts.kernel_launches
-    before_p = pa.counts.plain_calls
+    before_k = pa.counts.kernel_launches[pa.KERNEL]
+    before_p = pa.counts.plain_calls[pa.KERNEL]
     args = [torch.from_numpy(a) for a in (q, kp, vp, tables, kv_lens)]
     out = pa.paged_attention(*args, q_lens=torch.from_numpy(q_lens))
     ref = pa.paged_attention_reference(*args,
                                        q_lens=torch.from_numpy(q_lens))
     assert torch.equal(out, ref)
-    assert pa.counts.plain_calls == before_p + 1
-    assert pa.counts.kernel_launches == before_k
+    assert pa.counts.plain_calls[pa.KERNEL] == before_p + 1
+    assert pa.counts.kernel_launches[pa.KERNEL] == before_k
 
 
 def test_shape_checks_refuse_bad_layouts():
@@ -142,4 +142,5 @@ def test_kernels_import_without_nvcc_and_build_fails_clearly(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FALLBACK", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.kernel_sources() == ["paged_attention"]
+    assert _build.kernel_sources() == ["flash_attention", "layer_norm",
+                                       "paged_attention"]

@@ -94,7 +94,8 @@ def test_server_without_device_needs_a_card(monkeypatch):
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.kernels; "
+            "paddle_tpu_torch.kernels, paddle_tpu_torch.fluid, "
+            "paddle_tpu_torch.models; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
