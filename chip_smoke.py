@@ -26,6 +26,15 @@ and prints no result):
            head_dim 64 and 16), timed at the train phase's shapes beside
            F.layer_norm and F.scaled_dot_product_attention (forward, and
            its backward alone for K3a + K3b).
+  infer kernels
+           the same for the fused conv + folded-BN + relu kernel (K5)
+           against its plain version (max abs error within 1e-4 of the
+           output's max at unit-scale inputs: the JAX tests' four
+           shapes with F and K that fit no tile, the 7x7/2 stem, a 1x1/2
+           projection, a res5 3x3, relu on and off), timed beside its
+           plain version and F.conv2d (cuDNN, TF32 off) + the same
+           epilogue at three batch-16 ResNet-50 shapes and summed over
+           the 53 convolutions of one batch-16 forward.
   serve    the decode-serving main path at GPT-2-medium width (24
            layers, d_model 1024, 16 heads, vocab 50257, seeded weights):
            a ServingServer on the card, load_decoder, 8 concurrent
@@ -49,6 +58,22 @@ and prints no result):
            step at full width (2+2 layers, dropout 0, batch 2) on the
            card (kernels) and on the CPU (plain versions) from the same
            parameters: the loss and every parameter gradient agree.
+
+  infer    the fused ResNet inference main path: ResNet-50 ImageNet
+           (224x224x3, 1000 classes, [3, 4, 6, 3] bottlenecks, 25.6M
+           parameters, float32; seeded weights, every conv's Scale/Shift
+           from fold_bn of seeded statistics), save_inference_model, a
+           ServingServer on the card, load_model with the [1, 2, 4, 8,
+           16] ladder, 24 concurrent infer requests of 1-4 images over
+           RPC. Counters zeroed just before the requests and read just
+           after: 53 K5 launches per executed batch, no plain call; every
+           answer equals a direct exe.run of its images. Then 10 bucket-16
+           requests for images/s, per-bucket compute ms, the feed's
+           host->device copy, and one profiled request.
+  infer check
+           ResNet-50 at batch 2 on the card (K5) and on the CPU (plain
+           version) from the same parameters: logits agree within 1e-4
+           of the largest |logit|.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}.
@@ -626,7 +651,7 @@ def profile_decode(torch, client, rng):
         t0 = time.perf_counter()
         client.generate("gpt2m", prompt, max_new_tokens=16)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_summary(prof, wall_ms, "decode request")
+    return _device_summary(prof.key_averages(), wall_ms, "decode request")
 
 
 def host_read_ms(torch):
@@ -840,17 +865,18 @@ def profile_step(torch, exe, main, feed, cost, scope):
         t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_summary(prof, wall_ms, "train step")
+    return _device_summary(prof.key_averages(), wall_ms, "train step")
 
 
-def _device_summary(prof, wall_ms, what):
+def _device_summary(events, wall_ms, what):
+    """Device time by entry of a profiler's ``key_averages()``."""
     def dev_us(ev):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
     # device-side events only (kernels, memcpy/memset): an aten op's
     # device time would count its kernels a second time
-    rows = [(ev.key, dev_us(ev), ev.count) for ev in prof.key_averages()
+    rows = [(ev.key, dev_us(ev), ev.count) for ev in events
             if str(getattr(ev, "device_type", "")).endswith("CUDA")]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])
@@ -917,6 +943,480 @@ def train_check_phase(torch):
             "worst_grad_rel_err": worst}
 
 
+# --- infer kernels: K5, the fused conv + folded-BN + relu ----------------
+
+# the infer phase: ResNet-50 ImageNet (He et al. 2016, Table 1,
+# "50-layer"; the repo's resnet_imagenet(depth=50)), 224x224x3, 1000
+# classes, float32; batches padded up to this ladder
+RESNET_IMAGE, RESNET_CLASSES = 224, 1000
+INFER_BUCKETS = [1, 2, 4, 8, 16]
+INFER_BATCH = INFER_BUCKETS[-1]
+CONVS_PER_FORWARD = 53
+
+
+def build_resnet50(seed):
+    """The port's fused ResNet-50 inference program (+ softmax), seeded:
+    (main, startup, logits, prob)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data(name="img",
+                          shape=[3, RESNET_IMAGE, RESNET_IMAGE],
+                          dtype="float32")
+        logits = resnet.resnet_imagenet(img, class_dim=RESNET_CLASSES,
+                                        depth=50, is_test=True, fused=True)
+        prob = layers.softmax(logits)
+    return main, startup, logits, prob
+
+
+def conv_census(main, batch):
+    """{(N, C, H, W, F, k, stride, padding, relu): count} over the
+    program's conv2d_bn_relu ops at batch ``batch``."""
+    blk = main.global_block()
+    out = {}
+    for op in blk.ops:
+        if op.type != "conv2d_bn_relu":
+            continue
+        _, c, h, w = blk.var(op.input("X")[0]).shape
+        f, _, k, _ = blk.var(op.input("Filter")[0]).shape
+        key = (batch, c, h, w, f, k, int(op.attr("stride")),
+               int(op.attr("padding")), bool(op.attr("relu")))
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _conv_work(n, c, h, w, f, k, s, p, relu):
+    """(bytes, flops) of one fused conv: x, w, scale and shift read once
+    and y written once; 2*M*K*F flops of the product plus 3 a value for
+    the affine and relu."""
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    m, kk = n * oh * ow, c * k * k
+    return (4 * (n * c * h * w + f * kk + 2 * f + n * f * oh * ow),
+            2 * m * kk * f + 3 * m * f)
+
+
+def _conv_bound(*shape):
+    """Least time for one fused conv (ms, what bounds it)."""
+    return _bound_of(*_conv_work(*shape))
+
+
+def _conv_case(torch, rng, n, c, h, w, f, k, s, p, relu):
+    """Seeded unit-scale x, w, scale, shift on the card."""
+    import numpy as np
+
+    x = _randn(torch, rng, n, c, h, w)
+    wt = torch.from_numpy((rng.randn(f, c, k, k) / np.sqrt(c * k * k))
+                          .astype(np.float32)).cuda()
+    sc = torch.from_numpy((rng.rand(f) + 0.5).astype(np.float32)).cuda()
+    sh = torch.from_numpy((rng.randn(f) * 0.1).astype(np.float32)).cuda()
+    return x, wt, sc, sh, s, p, relu
+
+
+def _conv_library(torch, x, w, sc, sh, s, p, relu):
+    """F.conv2d (cuDNN, TF32 off) and the same affine + relu: the
+    yardstick, never used by the port."""
+    import torch.nn.functional as F
+
+    sc4, sh4 = sc[None, :, None, None], sh[None, :, None, None]
+
+    def run():
+        y = F.conv2d(x, w, stride=s, padding=p) * sc4 + sh4
+        return torch.relu(y) if relu else y
+    return run
+
+
+def infer_kernels_phase(torch):
+    """K5 against its plain version on the card (max abs error within
+    TOL of the output's max at unit-scale inputs: the JAX tests' four
+    shapes, the stem, a 1x1/2 projection and a res5 3x3 at batch 2),
+    then timed beside its plain version and F.conv2d + epilogue at three
+    batch-16 shapes and summed over every convolution of one batch-16
+    ResNet-50 forward."""
+    phase("infer kernels")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
+
+    rng = np.random.RandomState(2026)
+    cases = {
+        "jax 3x3": (2, 8, 10, 10, 16, 3, 1, 1, True),
+        "jax 3x3/2 odd": (2, 8, 9, 9, 12, 3, 2, 0, True),
+        "jax 1x1 no relu": (2, 16, 7, 7, 32, 1, 1, 0, False),
+        "jax 5x5/2 F=7": (1, 3, 12, 12, 7, 5, 2, 2, True),
+        "stem 7x7/2": (2, 3, 224, 224, 64, 7, 2, 3, True),
+        "proj 1x1/2": (2, 256, 56, 56, 512, 1, 2, 0, False),
+        "res5 3x3": (2, 512, 7, 7, 512, 3, 1, 1, True),
+    }
+    max_err = worst_rel = 0.0
+    for name, shape in cases.items():
+        args = _conv_case(torch, rng, *shape)
+        got = k5._conv_cuda(*args)
+        want = k5.fused_conv_bn_relu_reference(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if got.shape != want.shape or not torch.isfinite(got).all() or \
+                rel > TOL:
+            raise RuntimeError(f"K5 case {name}: max abs err {err:.3g}, "
+                               f"{rel:.3g} of the output's max > {TOL}")
+        max_err, worst_rel = max(max_err, err), max(worst_rel, rel)
+        log(f"  conv {name} {shape}: max abs err {err:.3g} ({rel:.3g} of "
+            f"max)")
+
+    # each output sums its K products in one order whatever the batch:
+    # an image's rows are bitwise the same alone and inside a batch of 16
+    args = _conv_case(torch, rng, INFER_BATCH, 64, 56, 56, 64, 3, 1, 1,
+                      True)
+    whole = k5._conv_cuda(*args)
+    alone = k5._conv_cuda(args[0][5:6].contiguous(), *args[1:])
+    if not torch.equal(whole[5:6], alone):
+        raise RuntimeError("K5: an image's output differs between batch "
+                           "16 and batch 1")
+    log("  conv res2 3x3: image 5 bitwise equal at batch 16 and alone")
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+
+    def timed(shape):
+        """Times K5, its plain version and the library call on one
+        shape, after holding K5 against the plain version there."""
+        nonlocal max_err, worst_rel
+        args = _conv_case(torch, rng, *shape)
+        got = k5._conv_cuda(*args)
+        want = k5.fused_conv_bn_relu_reference(*args)
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not torch.isfinite(got).all() or rel > TOL:
+            raise RuntimeError(f"K5 at {shape}: max abs err {err:.3g}, "
+                               f"{rel:.3g} of the output's max > {TOL}")
+        max_err, worst_rel = max(max_err, err), max(worst_rel, rel)
+        del got, want
+        row = {
+            "ms": _time_ms(torch, lambda: k5._conv_cuda(*args), flush),
+            "plain_ms": _time_ms(torch, lambda:
+                                 k5.fused_conv_bn_relu_reference(*args),
+                                 flush),
+            "library_ms": _time_ms(torch, _conv_library(torch, *args),
+                                   flush),
+        }
+        row["bound_ms"], row["bound_by"] = _conv_bound(*shape)
+        return row
+
+    b = INFER_BATCH
+    rows = {}
+    for name, shape in (("stem 7x7/2 3->64", (b, 3, 224, 224, 64, 7, 2, 3,
+                                              True)),
+                        ("res2 3x3 64->64", (b, 64, 56, 56, 64, 3, 1, 1,
+                                             True)),
+                        ("res5 1x1 512->2048", (b, 512, 7, 7, 2048, 1, 1, 0,
+                                                False))):
+        rows[name] = dict(timed(shape), shape=list(shape))
+        log(f"  time {name}: " + json.dumps(rows[name]))
+
+    # every convolution of one batch-16 forward, by distinct shape
+    main, _, _, _ = build_resnet50(seed=1)
+    census = conv_census(main, b)
+    if sum(census.values()) != CONVS_PER_FORWARD:
+        raise RuntimeError(f"ResNet-50 has {sum(census.values())} fused "
+                           f"convs, want {CONVS_PER_FORWARD}")
+    fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    nbytes = flops = 0
+    for shape, n in census.items():
+        row = timed(shape)
+        for key in fwd:
+            fwd[key] += n * row[key]
+        work = _conv_work(*shape)
+        nbytes, flops = nbytes + n * work[0], flops + n * work[1]
+    fwd["bound_by"] = _bound_of(nbytes, flops)[1]
+    fwd["distinct_shapes"] = len(census)
+    fwd["convs"] = CONVS_PER_FORWARD
+    fwd["gflop"] = flops / 1e9
+    log(f"  time one batch-{b} forward, {CONVS_PER_FORWARD} convs in "
+        f"{len(census)} shapes: " + json.dumps(fwd))
+    del flush
+    return max_err, worst_rel, rows, fwd
+
+
+# --- infer: ResNet-50 fused inference served on the card ----------------
+
+def seeded_bn_fold(torch, main, scope, seed):
+    """Set every conv's Scale/Shift to fold_bn of seeded numpy
+    gamma/beta/mean/var, so the epilogue does real work. The last conv
+    of each residual branch (a relu=False conv fed by another conv) gets
+    gamma in [0.1, 0.3], the others in [0.5, 1.5] (the small-gamma
+    initialisation of a residual branch, Goyal et al. 2017): without
+    trained statistics the activations then stay near unit scale over
+    the 16 blocks instead of growing ~2x a block."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels.conv_bn_relu import fold_bn
+
+    rng = np.random.RandomState(seed)
+    producer = {}
+    n = 0
+    for op in main.global_block().ops:
+        for name in op.output("Out"):
+            producer[name] = op.type
+        if op.type != "conv2d_bn_relu":
+            continue
+        sname, bname = op.input("Scale")[0], op.input("Shift")[0]
+        f = scope.find_var(sname).shape[0]
+        branch_end = not op.attr("relu") and \
+            producer.get(op.input("X")[0]) == "conv2d_bn_relu"
+        gamma = (rng.rand(f) * 0.2 + 0.1 if branch_end
+                 else rng.rand(f) + 0.5).astype(np.float32)
+        beta = rng.randn(f).astype(np.float32) * 0.1
+        mean = rng.randn(f).astype(np.float32) * 0.1
+        var = rng.rand(f).astype(np.float32) + 0.5
+        sc, sh = fold_bn(gamma, beta, mean, var, 1e-5)
+        dev = scope.find_var(sname).device
+        scope.set_var(sname, sc.to(dev))
+        scope.set_var(bname, sh.to(dev))
+        n += 1
+    return n
+
+
+def _images(rng, n):
+    import numpy as np
+
+    return rng.randn(n, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32)
+
+
+def infer_phase(torch):
+    """The main path: save_inference_model, ServingServer (the card),
+    load_model with the [1, 2, 4, 8, 16] ladder, 24 concurrent infer
+    requests of 1-4 seeded images over RPC. Counters zeroed just before
+    the requests and read just after: 53 K5 launches per executed batch,
+    0 plain calls. Every answer equals a direct exe.run of its images:
+    probabilities within TOL of their max (K5 sums each output in one
+    order whatever the batch, but the fc's cuBLAS product may pick
+    another kernel for another row count), argmax equal."""
+    phase("infer")
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+
+    t0 = time.perf_counter()
+    main, startup, logits, prob = build_resnet50(seed=1)
+    build_s = time.perf_counter() - t0
+    exe, scope = fluid.Executor(), fluid.Scope()
+    if exe.device.type != "cuda":
+        raise RuntimeError(f"Executor() chose {exe.device}, not the card")
+    exe.run(startup, scope=scope)
+    folded = seeded_bn_fold(torch, main, scope, seed=2)
+    n_params = sum(int(np.prod(p.shape)) for p in
+                   main.global_block().all_parameters())
+    log(f"  built {len(main.global_block().ops)} ops in {build_s:.2f} s; "
+        f"{n_params} parameter values; {folded} convs' Scale/Shift set "
+        f"from fold_bn")
+    tmp = tempfile.mkdtemp(prefix="resnet50_")
+    srv = ServingServer()
+    clients = [ServingClient(srv.serve(), timeout=900.0) for _ in range(8)]
+    try:
+        t0 = time.perf_counter()
+        with fluid.scope_guard(scope):
+            fluid.save_inference_model(tmp, ["img"], [prob], exe, main)
+        save_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = clients[0].load_model("resnet50", tmp, buckets=INFER_BUCKETS)
+        load_s = time.perf_counter() - t0
+        log(f"  saved in {save_s:.2f} s; load+warm {load_s:.2f} s, "
+            f"buckets {st['buckets']}")
+
+        rng = np.random.RandomState(8)
+        sizes = [int(x) for x in rng.randint(1, 5, size=24)]
+        feeds = [_images(rng, n) for n in sizes]
+        results, errors = [None] * 24, []
+
+        def one(i):
+            try:
+                results[i] = clients[i % 8].infer("resnet50",
+                                                  {"img": feeds[i]})
+            except Exception as e:  # reported below, fails the phase
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+        # the main path's window: counters to 0, the requests, counters
+        # read
+        batches0 = clients[0].list_models()["resnet50"]["batches"]
+        tracing.trace_reset()
+        tracing.trace_enable()
+        k5.counts.reset()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(24)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        launches = k5.counts.kernel_launches[k5.KERNEL]
+        plain = k5.counts.plain_calls[k5.KERNEL]
+        batches = clients[0].list_models()["resnet50"]["batches"] - batches0
+        # the window ends here
+        if errors or any(r is None for r in results):
+            raise RuntimeError(f"concurrent infer failed: {errors}")
+        if launches != CONVS_PER_FORWARD * batches or batches == 0:
+            raise RuntimeError(f"K5 launches {launches} != "
+                               f"{CONVS_PER_FORWARD} x {batches} batches")
+        if plain != 0:
+            raise RuntimeError(f"plain version ran {plain} times on the "
+                               "card's main path")
+
+        # each answer against a direct run of the same images
+        worst = 0.0
+        for (out, ver), x in zip(results, feeds):
+            (direct,) = exe.run(main, feed={"img": x}, fetch_list=[prob],
+                                scope=scope)
+            got = out[0]
+            if got.shape != (x.shape[0], RESNET_CLASSES) or ver != 1 or \
+                    not np.isfinite(got).all():
+                raise RuntimeError(f"bad answer {got.shape} v{ver}")
+            rel = float(np.abs(got - direct).max() / direct.max())
+            if rel > TOL or not np.array_equal(got.argmax(-1),
+                                                     direct.argmax(-1)):
+                raise RuntimeError(f"served vs direct probabilities: "
+                                   f"{rel:.3g} of max, argmax "
+                                   f"{got.argmax(-1)} vs "
+                                   f"{direct.argmax(-1)}")
+            worst = max(worst, rel)
+        log(f"  24 requests ({sum(sizes)} images, sizes {sizes}) in "
+            f"{wall:.2f} s as {batches} batches: {launches} K5 launches, "
+            f"{plain} plain calls; answers vs direct run: worst "
+            f"{worst:.3g} of max, argmax equal")
+
+        # steady state at bucket 16 (10 batches), and every bucket once
+        # more so each has a compute-time sample
+        x16 = _images(rng, INFER_BATCH)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            clients[0].infer("resnet50", {"img": x16})
+        steady = time.perf_counter() - t0
+        for b in INFER_BUCKETS:
+            clients[0].infer("resnet50", {"img": x16[:b]})
+        tracing.trace_disable()
+        per_bucket = {}
+        for ev in tracing.trace_events():
+            if ev.get("name") == "serving.batch":
+                per_bucket.setdefault(ev["args"]["bucket"], []).append(
+                    ev["dur"] / 1e3)
+        infer = {
+            "config": "resnet50 imagenet fused (conv2d_bn_relu) 224x224x3 "
+                      "1000 classes f32, seeded weights, fold_bn "
+                      "Scale/Shift",
+            "parameters": n_params,
+            "build_s": build_s, "save_s": save_s, "load_warm_s": load_s,
+            "requests": 24, "images": sum(sizes), "request_sizes": sizes,
+            "batch_wall_s": wall, "batches": batches,
+            "kernel_launches": launches, "plain_calls": plain,
+            "worst_rel_vs_direct": worst,
+            "images_per_s_bucket16": 10 * INFER_BATCH / steady,
+            "p50_compute_ms_by_bucket": {
+                str(b): statistics.median(v)
+                for b, v in sorted(per_bucket.items())},
+            "batches_by_bucket": {str(b): len(v)
+                                  for b, v in sorted(per_bucket.items())},
+            "feed_h2d_ms_bucket16": feed_copy_ms(torch, x16),
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+        }
+        log("  infer " + json.dumps(infer))
+        infer["profile"] = profile_infer(torch, clients[1], x16)
+        return launches, infer, (main, logits, scope)
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def feed_copy_ms(torch, x):
+    """The executor's host->device copy of one batch's feed (pageable
+    numpy -> card), median of 25."""
+    times = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.as_tensor(x).to("cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def profile_infer(torch, client, x16):
+    """One more bucket-16 request under torch.profiler, after the main
+    path's counts were read: device time by kernel and the device's busy
+    share of the request's wall time. Reporting only. A first request
+    runs as the profiler's warm-up step, so the tracer is already
+    running when the measured request's feed copy and first K5 launch
+    start."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kept = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: kept.append(p.key_averages())
+                 ) as prof:
+        client.infer("resnet50", {"img": x16})
+        prof.step()
+        t0 = time.perf_counter()
+        client.infer("resnet50", {"img": x16})
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    if not kept:
+        raise RuntimeError("profiler kept no trace of the measured request")
+    return _device_summary(kept[0], wall_ms, "bucket-16 infer request")
+
+
+def infer_check_phase(torch, built):
+    """ResNet-50 at batch 2, 224x224, on the card (K5) and on the CPU
+    (plain version) from the same parameters: logits within TOL of the
+    largest |logit|."""
+    phase("infer check")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
+
+    main, logits, card_scope = built
+    cpu_scope = fluid.Scope()
+    for n in card_scope.var_names():
+        cpu_scope.set_var(n, card_scope.find_var(n).cpu())
+    x = _images(np.random.RandomState(9), 2)
+    out, counts = {}, {}
+    for dev, scope in (("cuda", card_scope), ("cpu", cpu_scope)):
+        k5.counts.reset()
+        exe = fluid.Executor(fluid.CUDAPlace(0) if dev == "cuda"
+                             else fluid.CPUPlace())
+        (out[dev],) = exe.run(main, feed={"img": x}, fetch_list=[logits],
+                              scope=scope)
+        counts[dev] = (k5.counts.kernel_launches[k5.KERNEL],
+                       k5.counts.plain_calls[k5.KERNEL])
+    if counts != {"cuda": (CONVS_PER_FORWARD, 0),
+                  "cpu": (0, CONVS_PER_FORWARD)}:
+        raise RuntimeError(f"K5 kernel/plain counts (card, cpu): {counts}")
+    lc, lp = out["cuda"], out["cpu"]
+    scale = float(np.abs(lp).max())
+    rel = float(np.abs(lc - lp).max()) / scale
+    if lc.shape != (2, RESNET_CLASSES) or not np.isfinite(lc).all() or \
+            rel > TOL:
+        raise RuntimeError(f"card vs CPU logits: {rel:.3g} of max |logit| "
+                           f"> {TOL} (or not finite)")
+    log(f"  resnet50 batch 2: card vs CPU logits max diff {rel:.3g} of "
+        f"max |logit| {scale:.4g}; argmax card {lc.argmax(-1)} cpu "
+        f"{lp.argmax(-1)}")
+    return {"rel_err": rel, "max_abs_logit": scale}
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -932,12 +1432,16 @@ def main():
     build_phase()
     max_err, timings = kernels_phase(torch)
     train_errs, train_rows = train_kernels_phase(torch)
+    k5_err, k5_rel, k5_rows, k5_fwd = infer_kernels_phase(torch)
     launches, serve = serve_phase(torch)
     read_ms = host_read_ms(torch)
     log(f"  host logits read [8, 50257] f32: {read_ms:.4f} ms (median)")
     train_launches, train = train_phase(torch)
     check_phase(torch)
     train["check"] = train_check_phase(torch)
+    infer_launches, infer, built = infer_phase(torch)
+    infer["check"] = infer_check_phase(torch, built)
+    del built
     dec = timings["decode"]
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
@@ -960,6 +1464,13 @@ def main():
             kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
             train_errs[kname], row, shape=row["shape"],
             causal=rows["causal"]))
+    infer_kernels = [_kernel_row(
+        "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+        "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",
+        infer_launches, k5_err, k5_fwd,
+        timed_as=f"sum over the {CONVS_PER_FORWARD} convolutions of one "
+                 f"batch-{INFER_BATCH} ResNet-50 forward",
+        max_rel_err=k5_rel, shapes=k5_rows, infer=infer)]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -980,7 +1491,7 @@ def main():
         "prefill": timings["prefill"],
         "serve": serve,
         "host_logits_read_ms": read_ms,
-    }] + train_kernels}
+    }] + train_kernels + infer_kernels}
     print(json.dumps(kernels), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

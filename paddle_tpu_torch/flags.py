@@ -1,4 +1,4 @@
-"""Runtime flags of the port — the keys the decode-serving path reads,
+"""Runtime flags of the port — the keys its ported paths read,
 with the same cold defaults as ``paddle_tpu/fluid/flags.py``. There is
 no kernel-routing flag: a kernel wrapper routes on its tensor's device
 alone (a CPU tensor takes the plain PyTorch version, a CUDA tensor the
@@ -13,6 +13,9 @@ FLAGS: Dict[str, Any] = {
     # admission bound: queue depth past which a request is rejected with
     # ServerOverloaded instead of queueing into unbounded latency
     "serving_max_queue": 64,
+    # batching timer: the oldest queued request waits at most this long
+    # for batch-mates before its (possibly underfull) batch launches
+    "serving_max_wait_ms": 5.0,
     # streaming generate: a token stream nobody polls for this many
     # seconds is presumed abandoned — the server cancels the sequence
     # (KV pages free immediately) and later continuations get a typed
@@ -55,6 +58,9 @@ FLAGS: Dict[str, Any] = {
     # program build: an emitter failing meta-tensor shape inference with
     # an unexpected error raises instead of warning once per op type
     "strict_shape_inference": False,
+    # mixed precision (bf16 conv/matmul operands): the port's kernels take
+    # float32 only, so an op that would honour it raises "not yet ported"
+    "amp": False,
 }
 
 

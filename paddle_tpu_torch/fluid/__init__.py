@@ -3,15 +3,17 @@ backward, optimizers and an eager Executor in PyTorch (the counterpart of
 ``paddle_tpu.fluid``; reference python/paddle/fluid/__init__.py).
 
 Ported so far: what training the repo's Transformer (and fit_a_line)
-needs — Program/Block/Operator/Variable/Parameter with ``to_bytes`` /
-``parse_from_bytes`` in the JAX package's format, ``layers.data``,
-``fc``, ``embedding``, ``layer_norm``, ``dropout``, ``softmax``,
+and serving the fused ResNet need — Program/Block/Operator/Variable/
+Parameter with ``to_bytes`` / ``parse_from_bytes`` in the JAX package's
+format, ``layers.data``, ``fc``, ``embedding``, ``conv2d_bn_relu``,
+``pool2d``, ``layer_norm``, ``dropout``, ``softmax``,
 ``softmax_with_cross_entropy``, ``mean``, ``reshape``, ``transpose``,
 ``matmul``, ``ring_attention``, ``elementwise_add``/``_sub``,
 ``square_error_cost``, ``create_parameter``, ``fill_constant``,
 ``assign``; ``append_backward``; ``SGD`` and ``Adam``; ``Executor``,
-``Scope``, ``scope_guard``. The executor runs on the card unless given
-``CPUPlace()`` (or ``"cpu"``).
+``Scope``, ``scope_guard``; ``io`` (``save_inference_model``,
+``load_inference_model``, ``save_vars``/``load_vars``). The executor
+runs on the card unless given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
@@ -19,6 +21,7 @@ from . import (  # noqa: F401
     backward,
     enforce,
     initializer,
+    io,
     layers,
     optimizer,
     param_attr,
@@ -46,4 +49,12 @@ from .framework import (  # noqa: F401
     program_guard,
 )
 from .initializer import Constant, MSRA, Normal, Uniform, Xavier  # noqa: F401
+from .io import (  # noqa: F401
+    load_inference_model,
+    load_params,
+    load_vars,
+    save_inference_model,
+    save_params,
+    save_vars,
+)
 from .param_attr import ParamAttr  # noqa: F401

@@ -17,13 +17,23 @@ contract (reference python/paddle/fluid/executor.py:181).
     program, the optimizer ops — runs under ``torch.no_grad()``.
   - Feed/fetch: numpy in, numpy out (``return_numpy=False`` returns the
     tensors, detached).
+  - Host io ops ``save``, ``save_combine``, ``load``, ``load_combine``
+    (reference operators/save_op.cc, load_combine_op.cc) run on the host
+    in program order, in the JAX package's file formats (``.npy`` per
+    var, ``.npz`` combined; ``_run_io_host_ops``). Each run of adjacent
+    io ops is checked whole before any file is written. The JAX executor
+    lowers a block to one XLA computation and so refuses an io op
+    sandwiched between device ops; the eager loop here has no such
+    restriction — an io op sees exactly the values the ops before it
+    produced. A load puts each tensor on the executor's device once.
 
-Not ported yet: readers, save/load ops, send/recv transport and
-ParallelExecutor; a program holding such an op raises.
+Not ported yet: readers, send/recv transport and ParallelExecutor; a
+program holding such an op raises.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time as _time
 import weakref
@@ -41,13 +51,15 @@ from .registry import EmitCtx, exec_op_descs, fold_seed, plan_grad_records
 _m_step_ms = _metrics.histogram("executor.step_ms")
 
 _SKIP_OP_TYPES = frozenset({"feed", "fetch"})
-# host-side op types of the JAX executor (readers, io, pserver transport)
+# host-side op types of the JAX executor not ported yet (readers,
+# pserver transport)
 _NOT_PORTED_OP_TYPES = frozenset({
-    "read", "send", "recv", "send_barrier", "send_vars", "prefetch", "save",
-    "save_combine", "load", "load_combine", "create_recordio_file_reader",
-    "open_files", "create_shuffle_reader", "create_batch_reader",
-    "create_double_buffer_reader", "create_multi_pass_reader",
+    "read", "send", "recv", "send_barrier", "send_vars", "prefetch",
+    "create_recordio_file_reader", "open_files", "create_shuffle_reader",
+    "create_batch_reader", "create_double_buffer_reader",
+    "create_multi_pass_reader",
 })
+_IO_OP_TYPES = frozenset({"save", "save_combine", "load", "load_combine"})
 
 
 class Scope:
@@ -115,6 +127,86 @@ def fetch_var(name: str, scope: Optional[Scope] = None,
     if v is None:
         raise ValueError(f"var '{name}' not found in scope")
     return _to_numpy(v) if return_numpy else v
+
+
+def _io_path(op_type: str, path: str) -> str:
+    """The actual on-disk path: numpy appends .npy/.npz when missing, so
+    normalize once here — save's overwrite check, load's lookup, and the
+    write all agree for any attr spelling."""
+    if op_type in ("save", "load"):
+        return path if path.endswith(".npy") else path + ".npy"
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _run_io_host_ops(ops, scope: Scope, device=None,
+                     env: Optional[Dict[str, Any]] = None):
+    """Execute save/load host ops (reference operators/save_op.cc,
+    load_combine_op.cc) — the JAX package's ``_run_io_host_ops``. Formats
+    match io.py: .npy per var, .npz combined. Every failure condition
+    (missing var, overwrite conflict) is checked BEFORE any file is
+    written, so an abort can't leave a partial checkpoint on disk. A save
+    reads ``env`` (this run's values) before ``scope``; a load sets the
+    scope (and ``env``) to a tensor on ``device``, moved there once.
+    Loads need a device; saves do not."""
+    env = {} if env is None else env
+
+    def lookup(n):
+        return env[n] if n in env else scope.find_var(n)
+
+    will_load = set()  # vars produced by earlier load ops in this group
+    for op in ops:
+        t = op.type
+        if t in ("load", "load_combine"):
+            if device is None:
+                raise ValueError(
+                    f"{t} op: a load needs the device its tensors go to — "
+                    "run it through an Executor")
+            will_load.update(op.outputs.get("Out", []))
+            continue
+        for n in op.inputs.get("X", []):
+            if lookup(n) is None and n not in will_load:
+                raise RuntimeError(
+                    f"save op: var '{n}' not found in scope — nothing "
+                    "was written")
+        path = _io_path(t, str(op.attrs["file_path"]))
+        if not op.attrs.get("overwrite", True) and os.path.exists(path):
+            raise RuntimeError(f"save op: '{path}' exists and "
+                               "overwrite=False — nothing was written")
+    for op in ops:
+        t = op.type
+        path = _io_path(t, str(op.attrs["file_path"]))
+        if t in ("save", "save_combine"):
+            names = op.inputs.get("X", [])
+            arrays = {n: _to_numpy(lookup(n)) for n in names}
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            if t == "save":
+                np.save(path, arrays[names[0]])
+            else:
+                np.savez(path, **arrays)
+            continue
+        names = op.outputs.get("Out", [])
+        if t == "load":
+            loaded = {names[0]: np.load(path)}
+        else:
+            with np.load(path) as payload:
+                loaded = {n: payload[n] for n in names}
+        for n, arr in loaded.items():
+            v = torch.from_numpy(np.array(arr, copy=True)).to(device)
+            env[n] = v
+            scope.set_var(n, v)
+
+
+def _segments(ops):
+    """Split an op list into maximal runs of host io ops and of the
+    others, in order: [(is_io, [op, ...]), ...]."""
+    out: List[Any] = []
+    for od in ops:
+        io = od.type in _IO_OP_TYPES
+        if out and out[-1][0] == io:
+            out[-1][1].append(od)
+        else:
+            out.append((io, [od]))
+    return out
 
 
 def _as_name(v) -> str:
@@ -213,12 +305,16 @@ class Executor:
                           if op.desc.type in _NOT_PORTED_OP_TYPES})
             if bad:
                 raise NotImplementedError(
-                    f"op types {bad} (readers, io, transport) are not yet "
+                    f"op types {bad} (readers, transport) are not yet "
                     "ported to paddle_tpu_torch's Executor")
             ops = [op.desc for op in block.ops
                    if op.desc.type not in _SKIP_OP_TYPES]
             state_in, state_out = _block_io(block, set(feed_names))
-            entry = (ops, state_in, state_out, plan_grad_records(ops))
+            # runs of io ops and of device ops, in order; each device
+            # run plans its own grad records
+            segments = [(io, seg, None if io else plan_grad_records(seg))
+                        for io, seg in _segments(ops)]
+            entry = (state_in, state_out, segments)
             if use_program_cache:
                 prog_cache[key] = entry
         return entry
@@ -229,7 +325,7 @@ class Executor:
         feeds = {k: (v if isinstance(v, torch.Tensor)
                      else torch.as_tensor(np.asarray(v))).to(dev)
                  for k, v in feed.items()}
-        ops, state_in, state_out, plan = self._entry(
+        state_in, state_out, segments = self._entry(
             program, list(feeds), use_program_cache)
         missing = [n for n in state_in if not scope.has_var(n)]
         if missing:
@@ -242,7 +338,12 @@ class Executor:
         env.update(feeds)
         ctx = EmitCtx(device=dev, root_seed=_next_seed(program),
                       program=program)
-        exec_op_descs(ctx, ops, env, keep=frozenset(fetch_names), plan=plan)
+        keep = frozenset(fetch_names)
+        for io, seg, plan in segments:
+            if io:
+                _run_io_host_ops(seg, scope, dev, env)
+            else:
+                exec_op_descs(ctx, seg, env, keep=keep, plan=plan)
         for n in state_out:
             if n in env:
                 scope.set_var(n, env[n].detach())

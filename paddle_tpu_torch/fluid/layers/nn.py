@@ -1,17 +1,18 @@
 """NN layer functions (reference python/paddle/fluid/layers/nn.py — fc:83,
-embedding:218, layer_norm:1597, dropout:876,
-softmax_with_cross_entropy:3165, ...): the ones the Transformer and
-fit_a_line programs call, copied from ``paddle_tpu/fluid/layers/nn.py``.
-The other layers are not ported yet."""
+embedding:218, pool2d:1455, layer_norm:1597, dropout:876,
+softmax_with_cross_entropy:3165, ...): the ones the Transformer,
+fit_a_line and fused ResNet inference programs call, copied from
+``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported yet."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "dropout", "softmax",
+    "fc", "embedding", "conv2d_bn_relu", "pool2d", "layer_norm", "dropout",
+    "softmax",
     "softmax_with_cross_entropy", "square_error_cost", "mean", "mul",
     "matmul", "reshape", "transpose", "ring_attention", "elementwise_add",
     "elementwise_sub",
@@ -88,6 +89,83 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
 
     _propagate_lengths(input, tmp)
     return tmp
+
+
+def conv2d_bn_relu(input, num_filters, filter_size, stride=1, padding=0,
+                   param_attr=None, scale_attr=None, shift_attr=None,
+                   relu=True, name=None):
+    """Fused conv + per-channel affine + relu — the inference-bn fold of
+    the ResNet hot chain (reference conv+bn fuse passes; alternate-kernel
+    axis conv_mkldnn_op.cc). Scale/Shift are learnable parameters here;
+    to run a trained conv+batch_norm pair through the fused op, assign
+    them the folded statistics (kernels.conv_bn_relu.fold_bn)."""
+    helper = LayerHelper("conv2d_bn_relu", param_attr=param_attr, name=name)
+    dtype = input.dtype
+    num_channels = int(input.shape[1])
+    kh, kw = (filter_size, filter_size) if isinstance(filter_size, int) \
+        else (int(filter_size[0]), int(filter_size[1]))
+    std = (2.0 / (kh * kw * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, [num_filters, num_channels, kh, kw], dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    scale = helper.create_parameter(
+        scale_attr, [num_filters], "float32",
+        default_initializer=ConstantInitializer(1.0))
+    shift = helper.create_parameter(
+        shift_attr, [num_filters], "float32", is_bias=True,
+        default_initializer=ConstantInitializer(0.0))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_bn_relu",
+        inputs={"X": [input], "Filter": [w], "Scale": [scale],
+                "Shift": [shift]},
+        outputs={"Out": [out]},
+        attrs={"stride": int(stride), "padding": int(padding),
+               "relu": bool(relu)},
+    )
+    return out
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, name=None):
+    """reference layers/nn.py:1455."""
+    helper = LayerHelper("pool2d", name=name)
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    if ceil_mode and not global_pooling:
+        # Deliberate divergence from the reference (pool_op.cc:33
+        # PoolOutputSize), as in the JAX package: a last window living
+        # entirely in right padding is clamped away (as torch does) — for
+        # padding > ksize/2 the output would be one element smaller than
+        # the reference's. Those configs are degenerate (a window of pure
+        # padding pools nothing), so reject them at build time rather
+        # than silently differ.
+        for k, p in zip(_pair(pool_size), _pair(pool_padding)):
+            if k > 0 and p * 2 > k:
+                raise ValueError(
+                    f"pool2d(ceil_mode=True) requires padding <= ksize/2 "
+                    f"(got ksize={k}, padding={p}): larger padding would "
+                    "create a final window made entirely of padding, where "
+                    "this backend's output size deliberately diverges from "
+                    "the reference's PoolOutputSize"
+                )
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "pooling_type": pool_type,
+            "ksize": _pair(pool_size),
+            "strides": _pair(pool_stride),
+            "paddings": _pair(pool_padding),
+            "global_pooling": global_pooling,
+            "ceil_mode": ceil_mode,
+        },
+    )
+    return out
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,

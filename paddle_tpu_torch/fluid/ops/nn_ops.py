@@ -1,11 +1,23 @@
-"""NN ops (reference paddle/fluid/operators/{layer_norm,softmax}_op.cc)."""
+"""NN ops (reference paddle/fluid/operators/{layer_norm,softmax,pool}_op.cc,
+conv_mkldnn_op.cc): the ones the Transformer and fused ResNet inference
+paths run. Layouts are NCHW, as in the JAX package."""
 from __future__ import annotations
 
-import torch
+import math
 
+import torch
+import torch.nn.functional as F
+
+from ...kernels.conv_bn_relu import fused_conv_bn_relu
 from ...kernels.layer_norm import fused_layer_norm
 from ..registry import register_op
 from .common import one
+
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return [int(x) for x in v]
+    return [int(v)] * n
 
 
 @register_op("layer_norm", ref="paddle/fluid/operators/layer_norm_op.cc")
@@ -20,6 +32,89 @@ def layer_norm(ctx, ins, attrs):
         eps=float(attrs.get("epsilon", 1e-5)),
         begin_norm_axis=int(attrs.get("begin_norm_axis", 1)))
     return {"Y": y, "Mean": mean, "Variance": var}
+
+
+@register_op("conv2d_bn_relu",
+             ref="paddle/fluid/operators/conv_mkldnn_op.cc (the "
+                 "alternate-kernel axis) + inference conv+bn fuse passes")
+def conv2d_bn_relu(ctx, ins, attrs):
+    """Fused conv + folded-bn affine + relu (the ResNet inference hot
+    chain). Scale/Shift are the per-output-channel folded statistics
+    (``kernels.conv_bn_relu.fold_bn``). Through the K5 router on every
+    device: the hand-written kernel on a card, its plain version on the
+    CPU — the function the JAX package computes with its Pallas kernel
+    under ``use_pallas_kernels=True`` and with XLA's conv otherwise.
+    There is no routing flag."""
+    from ...flags import FLAGS
+
+    if FLAGS["amp"]:
+        raise NotImplementedError(
+            "conv2d_bn_relu with FLAGS['amp'] (bf16 operands) is not yet "
+            "ported to paddle_tpu_torch: the K5 kernel takes float32 only")
+    out = fused_conv_bn_relu(
+        one(ins, "X"), one(ins, "Filter"), one(ins, "Scale"),
+        one(ins, "Shift"), stride=int(attrs.get("stride", 1)),
+        padding=int(attrs.get("padding", 0)),
+        relu=bool(attrs.get("relu", True)))
+    return {"Out": out}
+
+
+def _ceil_extra(dim, k, s, p):
+    """Extra hi-side padding so the window count matches ceil mode
+    (reference pool_op.cc PoolOutputSize with ceil_mode: one more output
+    when stride doesn't divide; the extra region is implicit padding).
+    Clamp: the last window must START inside input+left-padding — a window
+    living entirely in padding is dropped (torch clamps identically),
+    otherwise max pools emit -inf and exclusive avgs divide 0/0."""
+    span = dim + 2 * p - k
+    ceil_out = -(-span // s) + 1
+    if (ceil_out - 1) * s >= dim + p:
+        ceil_out -= 1
+    return max((ceil_out - 1) * s + k - (dim + 2 * p), 0)
+
+
+def _pool2d(x, pooling_type, ksize, strides, paddings, global_pooling,
+            exclusive, ceil_mode=False):
+    """The JAX package's ``_pool_nd`` for two spatial dims: max pooling
+    pads with -inf, average pooling sums the window and divides by the
+    count of real cells (``exclusive``) or by the window size."""
+    if global_pooling:
+        ksize = list(x.shape[2:4])
+        paddings = [0, 0]
+        strides = [1, 1]
+    extra = [_ceil_extra(x.shape[2 + i], ksize[i], strides[i], paddings[i])
+             if ceil_mode else 0 for i in range(2)]
+    # F.pad lists the last dim first: (w lo, w hi, h lo, h hi)
+    pad = (paddings[1], paddings[1] + extra[1],
+           paddings[0], paddings[0] + extra[0])
+    if pooling_type == "max":
+        low = (-math.inf if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        return F.max_pool2d(F.pad(x, pad, value=low), ksize, strides)
+
+    def window_sum(t):
+        return F.avg_pool2d(F.pad(t, pad), ksize, strides,
+                            divisor_override=1)
+
+    s = window_sum(x)
+    if exclusive:
+        return s / window_sum(torch.ones_like(x[:1, :1]))
+    return s / float(ksize[0] * ksize[1])
+
+
+@register_op("pool2d", ref="paddle/fluid/operators/pool_op.cc")
+def pool2d(ctx, ins, attrs):
+    out = _pool2d(
+        one(ins, "X"),
+        str(attrs.get("pooling_type", "max")),
+        _pair(attrs.get("ksize", [2, 2])),
+        _pair(attrs.get("strides", [1, 1])),
+        _pair(attrs.get("paddings", [0, 0])),
+        bool(attrs.get("global_pooling", False)),
+        bool(attrs.get("exclusive", True)),
+        ceil_mode=bool(attrs.get("ceil_mode", False)),
+    )
+    return {"Out": out}
 
 
 @register_op("softmax", ref="paddle/fluid/operators/softmax_op.cc")

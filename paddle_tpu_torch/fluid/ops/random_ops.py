@@ -1,4 +1,5 @@
-"""RNG ops (reference paddle/fluid/operators/{uniform_random,dropout}_op.*).
+"""RNG ops (reference paddle/fluid/operators/{uniform_random,
+gaussian_random,dropout}_op.*).
 Each op instance draws from ``ctx.rng(attrs)``: a generator seeded from
 the step seed and the op's seed attrs, so a replayed forward draws the
 same numbers (registry.EmitCtx.rng)."""
@@ -18,6 +19,16 @@ def uniform_random(ctx, ins, attrs):
     return {"Out": out.uniform_(float(attrs.get("min", -1.0)),
                                 float(attrs.get("max", 1.0)),
                                 generator=ctx.rng(attrs))}
+
+
+@register_op("gaussian_random", needs_rng=True,
+             ref="paddle/fluid/operators/gaussian_random_op.cc")
+def gaussian_random(ctx, ins, attrs):
+    shape = [int(s) for s in attrs["shape"]]
+    out = torch.empty(shape, dtype=dtype_of(attrs), device=ctx.device)
+    return {"Out": out.normal_(float(attrs.get("mean", 0.0)),
+                               float(attrs.get("std", 1.0)),
+                               generator=ctx.rng(attrs))}
 
 
 @register_op("dropout", needs_rng=True, ref="paddle/fluid/operators/dropout_op.cc")

@@ -50,11 +50,13 @@ def fold_seed(a: int, b: int) -> int:
 class EmitCtx:
     """Per-run context handed to emitters (role of the reference's
     ExecutionContext, operator.h:185): the device ops run on, RNG access,
-    execution mode, and the owning Program."""
+    execution mode, and the owning Program. ``device`` is required — the
+    executor passes its own, shape inference passes ``"meta"`` — so no
+    internal path can drift to the CPU by leaving it out."""
 
-    def __init__(self, device=None, root_seed: Optional[int] = None,
+    def __init__(self, device, root_seed: Optional[int] = None,
                  is_test: bool = False, program=None):
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
         self._root_seed = root_seed
         self.is_test = is_test
         self.program = program

@@ -59,6 +59,12 @@ _SIGNATURES = {
         "flash_bwd_dq_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
+    "conv_bn_relu": {
+        # x, w, scale, shift, y, N, C, H, W, F, KH, KW, stride, pad, OH,
+        # OW, relu, stream
+        "conv_bn_relu_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
+        "error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 

@@ -1,17 +1,21 @@
-"""paddle_tpu_torch.serving — decode serving in PyTorch.
+"""paddle_tpu_torch.serving — inference and decode serving in PyTorch.
 
-The counterpart of ``paddle_tpu.serving``'s decode path: a
-``DecodeEngine`` does continuous batching over a paged KV cache
-(``kv_cache.py``) with the hand-written ragged paged-attention kernel,
-behind a ``ModelRegistry`` that hot-swaps versions and a
-``ServingServer``/``ServingClient`` pair on the RPC transport
-(``generate``/``load_decoder`` and token streaming). The one-shot
-``InferenceEngine`` and the typed workloads wait for later slices.
+The counterpart of ``paddle_tpu.serving``: an ``InferenceEngine``
+batches one-shot requests into a bucket ladder over a saved Fluid
+program (``load_model``/``infer``; the fused ResNet runs the
+hand-written conv kernel), and a ``DecodeEngine`` does continuous
+batching over a paged KV cache (``kv_cache.py``) with the hand-written
+ragged paged-attention kernel (``load_decoder``/``generate`` and token
+streaming). Both sit behind a ``ModelRegistry`` that hot-swaps versions
+and a ``ServingServer``/``ServingClient`` pair on the RPC transport.
+``python -m paddle_tpu_torch.serving --serve --load NAME=DIR`` starts a
+server. The typed workloads wait for a later slice.
 """
 from .client import ServingClient, TokenStream
 from .decode import (DecodeEngine, DecoderSpec, build_decoder_params,
                      params_from_jax, sample_token, validate_draft_spec)
-from .engine import default_buckets, parse_buckets, resolve_bucket_spec
+from .engine import (InferenceEngine, default_buckets, parse_buckets,
+                     resolve_bucket_spec)
 from .errors import (DeadlineExceeded, EngineRetired, ModelNotFound,
                      RequestTooLarge, ServerOverloaded, ServingError,
                      StreamExpired)
@@ -20,7 +24,8 @@ from .registry import ModelRegistry
 from .server import ServingServer
 
 __all__ = [
-    "DecodeEngine", "DecoderSpec", "ModelRegistry", "ServingServer",
+    "DecodeEngine", "DecoderSpec", "InferenceEngine", "ModelRegistry",
+    "ServingServer",
     "ServingClient", "TokenStream", "PageAllocator", "PagedKvCache",
     "ServingError", "ServerOverloaded", "DeadlineExceeded",
     "ModelNotFound", "RequestTooLarge", "EngineRetired", "StreamExpired",

@@ -14,7 +14,7 @@ The contract a serving fleet needs from "deploy a new version":
   4. A failed load/warm raises BEFORE the flip: the registry is
      untouched and the old version keeps serving — rollback is the
      default, not a recovery procedure.
-  5. After retirement the engine releases its parameters and KV pools,
+  5. After retirement the engine releases its parameters (and KV pools),
      so many version flips must not accumulate device memory.
 """
 from __future__ import annotations
@@ -42,9 +42,9 @@ class ModelRegistry:
     """name -> live engine, with swap/unload lifecycle.
 
     Engine-kind-agnostic: anything with ``name``/``version``/``kind``/
-    ``stats()``/``stop(drain=)`` deploys here. In this package only the
-    DecodeEngine exists so far; the one-shot InferenceEngine will share
-    the registry (and its hot-swap drain guarantee) once it is ported."""
+    ``stats()``/``stop(drain=)`` deploys here — the one-shot
+    InferenceEngine and the DecodeEngine share it and its hot-swap drain
+    guarantee."""
 
     def __init__(self):
         self._mu = threading.Lock()

@@ -1,4 +1,5 @@
-"""ServingServer — the RPC front door of the decode-serving path.
+"""ServingServer — the RPC front door of the serving path: one-shot
+Fluid inference models and autoregressive decoders.
 
 Rides distributed/rpc.py (length-prefixed JSON + raw-segment framing),
 so serving inherits idempotency-token dedup, retry-safe clients,
@@ -6,8 +7,9 @@ per-method latency histograms, trace-context adoption, and named fault
 sites for chaos plans.
 
 Methods (all fire the `serving.<method>` fault site before running, so
-`PADDLE_TPU_FAULTS='error@serving.generate:0'` chaos plans reach them):
+`PADDLE_TPU_FAULTS='error@serving.infer:0'` chaos plans reach them):
 
+    infer(model, feeds, deadline_ms)   -> {model, version, outputs}
     generate(model, prompt, max_new_tokens, deadline_ms, ...)
                                        -> {model, version, tokens,
                                            prompt_len, ...}
@@ -18,6 +20,8 @@ Methods (all fire the `serving.<method>` fault site before running, so
                                            result?} — the pull half of
                                           STREAMING generate
     generate_stream_close(stream)      -> cancels an unfinished stream
+    load_model(model, dirname, ...)    -> engine stats (after the warm of
+                                          every bucket)
     load_decoder(model, spec, ...)     -> decode-engine stats (after the
                                           full slot/width/chunk warm)
     unload_model(model)                -> final engine stats
@@ -28,15 +32,18 @@ Methods (all fire the `serving.<method>` fault site before running, so
                                           signal
     health()                           -> {"ok": True, "models": [...]}
 
-``infer``, ``load_model`` and ``workload`` belong to parts of the JAX
-package that are not ported yet (the Fluid inference engine, the typed
-workloads): they answer with a typed ``ServingError`` saying so.
-``load_decoder(checkpoint_dir=...)`` raises ``NotImplementedError``
-until the checkpoint format is ported.
+``load_model`` serves a ``save_inference_model`` directory (written by
+this package or by the JAX one) through an ``InferenceEngine`` on the
+server's device; ``kind="exported"`` (a JAX StableHLO artifact) is
+refused with a typed ``ServingError``. ``workload`` belongs to the typed
+workloads, which are not ported yet: it answers with a typed
+``ServingError`` saying so. ``load_decoder(checkpoint_dir=...)`` raises
+``NotImplementedError`` until the checkpoint format is ported.
 
-Retry semantics: `generate` and the three stream methods ride the dedup
-cache — re-decoding a whole sequence on a retransmit would burn decode
-steps AND re-reserve KV pages, and a retransmitted
+Retry semantics: `infer`, `generate` and the three stream methods ride
+the dedup cache — a retransmit after a lost reply is answered from the
+cached response without re-running the batch (or re-decoding a whole
+sequence and re-reserving KV pages), and a retransmitted
 `generate_stream_start` must not admit a SECOND sequence. Each stream
 frame is a pure read of (stream state, client-owned offset), so a
 retransmitted frame is token-exact. `health`/`list_models`/`load_report`
@@ -54,17 +61,20 @@ is none; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 
 from ..distributed import faults as _faults
 from ..distributed.rpc import RpcServer
 from ..device import resolve_device
 from ..observability import metrics as _metrics, tracing as _tracing
 from ..observability.log import get_logger
+from .engine import InferenceEngine
 from .errors import (EngineRetired, ModelNotFound, ServerOverloaded,
                      ServingError, StreamExpired)
 from .registry import ModelRegistry
@@ -96,7 +106,7 @@ class ServingServer:
                  stream_ttl: Optional[float] = None, device=None):
         from ..flags import FLAGS
 
-        # every decoder this server loads lives here (None = the card)
+        # every model this server loads lives here (None = the card)
         self.device = resolve_device(device)
         self._registry = registry or ModelRegistry()
         # open token streams: stream id -> {req, engine,
@@ -128,9 +138,9 @@ class ServingServer:
             dedup_cap=dedup_cap,
             idempotent={"health", "list_models", "load_report"},
         )
-        # serializes load_decoder end-to-end: auto-versioning is a
-        # read-then-deploy sequence, and two concurrent deploys of one
-        # model racing it would mint duplicate version numbers (deploys
+        # serializes load_model/load_decoder end-to-end: auto-versioning
+        # is a read-then-deploy sequence, and two concurrent deploys of
+        # one model racing it would mint duplicate version numbers (deploys
         # are rare and warm-bound — serializing them costs nothing that
         # matters)
         self._load_mu = threading.Lock()
@@ -199,11 +209,21 @@ class ServingServer:
     def _not_ported(what: str, where: str):
         raise ServingError(
             f"{what} is not yet ported to paddle_tpu_torch ({where}) — "
-            "this server runs decoders: use load_decoder/generate")
+            "this server runs Fluid inference models and decoders")
 
     def _infer(self, model: str, feeds: Dict[str, Any],
                deadline_ms: Optional[float] = None) -> Dict[str, Any]:
-        self._not_ported("infer", "the Fluid inference engine")
+        with _tracing.span("serving.request", model=str(model)):
+            def run(engine):
+                outputs, version = engine.infer(
+                    feeds, deadline_ms=deadline_ms)
+                return {"model": str(model), "version": version,
+                        "outputs": [np.asarray(o) for o in outputs]}
+
+            return self._on_engine(
+                model, False,
+                "model '{model}' is a decoder — call generate, "
+                "not infer", run)
 
     def _generate(self, model: str, prompt: Sequence[int],
                   max_new_tokens: int = 16,
@@ -447,7 +467,35 @@ class ServingServer:
                     buckets: Optional[Sequence[int]] = None,
                     max_queue: Optional[int] = None,
                     max_wait_ms: Optional[float] = None) -> Dict[str, Any]:
-        self._not_ported("load_model", "the Fluid inference engine")
+        """Load + warm + atomically install `dirname` under `model`, on
+        this server's device. `kind`: 'program' (save_inference_model
+        dir) or 'auto' (sniff the artifact); 'exported' (a JAX StableHLO
+        export_compiled_model dir) is refused with a typed error."""
+        model = str(model)
+        if kind == "auto":
+            kind = ("exported"
+                    if os.path.exists(os.path.join(
+                        dirname, "__stablehlo__.bin"))
+                    else "program")
+        if kind == "exported":
+            InferenceEngine.from_exported_dir(dirname)  # raises typed
+        if kind != "program":
+            raise ValueError(f"load_model kind {kind!r}: want 'program', "
+                             "'exported' or 'auto'")
+        # lint: allow-blocking — the whole deploy (load + per-bucket warm
+        # + drain of the old engine) is deliberately serialized; see
+        # _load_mu above. infer traffic never takes this lock.
+        with self._load_mu:
+            version = self._resolve_version(model, version)
+
+            def build():
+                return InferenceEngine.from_inference_dir(
+                    dirname, name=model, version=version, buckets=buckets,
+                    max_queue=max_queue, max_wait_ms=max_wait_ms,
+                    device=self.device)
+
+            engine = self._registry.deploy(model, build)
+            return engine.stats()
 
     def _unload_model(self, model: str) -> Dict[str, Any]:
         return self._registry.unload(str(model))

@@ -142,5 +142,5 @@ def test_kernels_import_without_nvcc_and_build_fails_clearly(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FALLBACK", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.kernel_sources() == ["flash_attention", "layer_norm",
-                                       "paged_attention"]
+    assert _build.kernel_sources() == ["conv_bn_relu", "flash_attention",
+                                       "layer_norm", "paged_attention"]

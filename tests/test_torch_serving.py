@@ -15,7 +15,7 @@ import pytest
 from paddle_tpu.serving import ServingClient as JaxClient
 from paddle_tpu.serving import ServingServer as JaxServer
 from paddle_tpu_torch.serving import ServingClient, ServingServer
-from paddle_tpu_torch.serving.errors import ServingError
+from paddle_tpu_torch.serving.errors import ModelNotFound, ServingError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -72,12 +72,15 @@ def test_generate_stream_and_pages_match_jax_server(port_server):
 
 
 def test_unported_methods_refuse_typed(port_server):
+    """What is not ported refuses typed; infer/load_model (ported with
+    the inference engine) refuse an unknown model and a missing
+    directory the way the JAX server does."""
     srv, cli = port_server
-    with pytest.raises(ServingError, match="not yet ported"):
+    with pytest.raises(ModelNotFound):
         cli.infer("m", {"x": [1.0]})
     with pytest.raises(ServingError, match="not yet ported"):
         cli.workload("m", {"kind": "embed", "prompt": [1]})
-    with pytest.raises(ServingError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="does not exist"):
         cli.load_model("m", "/nonexistent")
     with pytest.raises(RuntimeError, match="checkpoint slice"):
         cli.load_decoder("m", checkpoint_dir="/nonexistent")
@@ -94,8 +97,9 @@ def test_server_without_device_needs_a_card(monkeypatch):
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.kernels, paddle_tpu_torch.fluid, "
-            "paddle_tpu_torch.models; "
+            "paddle_tpu_torch.serving.__main__, paddle_tpu_torch.kernels, "
+            "paddle_tpu_torch.fluid, paddle_tpu_torch.fluid.io, "
+            "paddle_tpu_torch.models.resnet; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -115,6 +119,12 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
     for root, _, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"paddle_tpu_torch/kernels/conv_bn_relu.py",
+            "paddle_tpu_torch/fluid/io.py",
+            "paddle_tpu_torch/models/resnet.py",
+            "paddle_tpu_torch/serving/engine.py",
+            "paddle_tpu_torch/serving/__main__.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
