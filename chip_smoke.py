@@ -22,10 +22,15 @@ and prints no result):
            the same for the training kernels: layer norm (K1), flash
            forward (K2), flash dK/dV (K3a) and flash dQ (K3b) against
            their plain versions (max abs error <= 1e-4 at unit-scale
-           inputs; causal and not, lengths that fit no tile, Sq != Sk,
-           head_dim 64 and 16), timed at the train phase's shapes beside
-           F.layer_norm and F.scaled_dot_product_attention (forward, and
-           its backward alone for K3a + K3b).
+           inputs; causal and not, lengths that fit no tile, Sq != Sk
+           both ways, head_dim 64, 16, 20 and 128); K3a and K3b twice on
+           the same inputs, bitwise equal; K3a/K3b, the plain backward
+           and SDPA's against float64 at the train shape and a 4x longer
+           sequence (max abs error, recorded, not held); timed at the
+           train phase's shapes beside F.layer_norm and SDPA pinned to
+           its memory-efficient backend (forward, and its backward alone for
+           K3a + K3b); the port's whole flash backward (delta + K3a +
+           K3b) and SDPA's backward in turns, with their ratio.
   infer kernels
            the same for the fused conv + folded-BN + relu kernel (K5)
            against its plain version (max abs error within 1e-4 of the
@@ -50,8 +55,9 @@ and prints no result):
            batch (transformer_bench.py's copy task). Counters zeroed
            just before the steps and read just after: 30 layer-norm, 18
            flash-forward, 18 dK/dV and 18 dQ launches per step, no plain
-           call; the loss finite and falling. Then one more step under
-           torch.profiler for the device's busy share.
+           call; the loss finite and falling. The embedding gradient
+           twice on the feed's ids, bitwise equal. Then one more step
+           under torch.profiler for the device's busy share.
   check    the decoder step at full width (2 layers) on the card and on
            the CPU: logits agree, and a small engine decodes the same
            greedy tokens on both devices; then one Transformer training
@@ -89,10 +95,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
-# float32 outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, float32
+# outside the tensor cores, and TF32 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 TOL = 1e-4
 
 GPT2_MEDIUM = dict(vocab=50257, d_model=1024, n_layers=24, n_heads=16,
@@ -371,31 +378,170 @@ def _flash_pairs(sq, sk, causal):
     return sum(min(i + 1, sk) for i in range(sq))
 
 
+# what the flash kernels' operations are timed against in ``bound_ms``
+FLASH_PEAK = ("products as 3xTF32 on the tensor cores (3 x flops over "
+              "495 TFLOP/s TF32 dense) + ~5 float32 flops a pair over "
+              "67 TFLOP/s")
+
+
 def _flash_bounds(bh, sq, sk, d, causal):
     """Least time per kernel: each input read once and each output
-    written once over HBM bandwidth, against the f32 flops each pair of
-    (query, key) needs — 2 per multiply-add of the products, plus ~5 for
-    the scale, mask, exp and the softmax or ds arithmetic."""
+    written once over HBM bandwidth, against the flops each (query, key)
+    pair needs — 2 per multiply-add of the products, plus ~5 for the
+    scale, mask, exp and the softmax or ds arithmetic. The card computes
+    float32-accurate products fastest as 3xTF32 on the tensor cores
+    (three TF32 products each, over the TF32 peak), and the ~5 on the
+    float32 ALUs: that is ``bound_ms``. ``bound_f32_ms`` counts every
+    flop over the float32 peak (the CUDA-core floor of a scalar kernel,
+    the bound before the backward ran on the tensor cores)."""
     pairs = bh * _flash_pairs(sq, sk, causal)
     qo = bh * sq * d * 4
     kv = bh * sk * d * 4
     rows = bh * sq * 4
-    return {
-        "flash_fwd_f32": _bound_of(2 * qo + 2 * kv + rows,
-                                   pairs * (4 * d + 5)),
-        # reads q, k, v, dO, lse, delta; writes dK, dV
-        "flash_bwd_dkdv_f32": _bound_of(2 * qo + 4 * kv + 2 * rows,
-                                        pairs * (8 * d + 5)),
-        # reads q, k, v, dO, lse, delta; writes dQ
-        "flash_bwd_dq_f32": _bound_of(3 * qo + 2 * kv + 2 * rows,
-                                      pairs * (6 * d + 5)),
-    }
+    out = {}
+    for name, nbytes, products in (
+            ("flash_fwd_f32", 2 * qo + 2 * kv + rows, 4 * d),
+            # reads q, k, v, dO, lse, delta; writes dK, dV
+            ("flash_bwd_dkdv_f32", 2 * qo + 4 * kv + 2 * rows, 8 * d),
+            # reads q, k, v, dO, lse, delta; writes dQ
+            ("flash_bwd_dq_f32", 3 * qo + 2 * kv + 2 * rows, 6 * d)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (pairs * 3 * products / TF32_FLOP_PER_S
+                 + pairs * 5 / F32_FLOP_PER_S)
+        out[name] = {
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_peak": FLASH_PEAK,
+            "bound_f32_ms": _bound_of(nbytes, pairs * (products + 5))[0]}
+    return out
+
+
+# The yardstick of the flash kernels, pinned: SDPA's memory-efficient
+# backend, the one PyTorch runs in float32 on this card (the flash and
+# cuDNN backends take fp16/bf16 only). Its products are 3xTF32 mma.sync
+# (gemm_kernel_utils.h: OpMultiplyAddFastF32), as K3a/K3b's.
+SDPA_LIBRARY = "sdpa efficient (3xTF32 mma.sync)"
+
+
+def _sdpa(torch, c, causal):
+    """(forward, backward) calls of SDPA, pinned to its memory-efficient
+    backend, on [B, H, S, D] views of a case: the yardstick, never used
+    by the port. The backward computes dQ, dK and dV from one retained
+    graph."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, s, d = 16, SEQ, c["q"].shape[-1]
+    q4, k4, v4 = (t.reshape(b, N_HEADS, s, d).detach().requires_grad_()
+                  for t in (c["q"], c["k"], c["v"]))
+    do4 = c["do"].reshape(b, N_HEADS, s, d)
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  is_causal=causal)
+    out4 = fwd()
+
+    def bwd():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                       retain_graph=True)
+    return fwd, bwd
+
+
+def _backward_in_turns(torch, fa, c, causal, sdpa_bwd, flush):
+    """The port's whole flash backward as ``_Flash.backward`` runs it
+    (delta = rowsum(dO * O), K3a, K3b) and SDPA's backward, timed in
+    turns port, SDPA, SDPA, port; each time the median of 25."""
+    def port():
+        delta = (c["do"] * c["o"]).sum(dim=-1)
+        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                      c["lse"], delta, causal, c["scale"])
+    calls = {"port": port, "sdpa": sdpa_bwd}
+    times = {who: [] for who in calls}
+    for who in ("port", "sdpa", "sdpa", "port"):
+        times[who].append(_time_ms(torch, calls[who], flush))
+    port_ms = statistics.mean(times["port"])
+    sdpa_ms = statistics.mean(times["sdpa"])
+    row = {"port_ms": port_ms, "sdpa_ms": sdpa_ms,
+           "ratio_port_over_sdpa": port_ms / sdpa_ms,
+           "turns_ms": times, "library": SDPA_LIBRARY}
+    log(f"  whole backward causal={causal}: port (delta + K3a + K3b) "
+        f"{port_ms:.4f} ms, SDPA efficient backward {sdpa_ms:.4f} ms, "
+        f"ratio {port_ms / sdpa_ms:.3f} (turns {json.dumps(times)})")
+    return row
+
+
+def _bwd_float64(torch, c, causal, lse=None, delta=None):
+    """(dQ, dK, dV) of a case in float64 by the dense formulas: from
+    q, k, v and dO alone, or from the given float32 LSE and delta (the
+    kernels' own inputs), which leaves only the backward's arithmetic."""
+    q, k, v, do = (c[n].double() for n in ("q", "k", "v", "do"))
+    s = q @ k.transpose(1, 2) * c["scale"]
+    if causal:
+        keep = (torch.arange(q.shape[1], device=q.device)[:, None]
+                >= torch.arange(k.shape[1], device=q.device)[None, :])
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1) if lse is None else lse.double()
+    p = torch.exp(s - lse[..., None])
+    if delta is None:
+        delta = (do * (p @ v)).sum(-1)
+    ds = p * (do @ v.transpose(1, 2) - delta.double()[..., None])
+    return (ds @ k * c["scale"], ds.transpose(1, 2) @ q * c["scale"],
+            p.transpose(1, 2) @ do)
+
+
+def _backward_vs_float64(torch, fa, rng):
+    """Max abs error of dQ/dK/dV against float64 at the train shape and
+    at a 4x longer sequence, full and causal: K3a/K3b and the plain
+    version, each from scratch (float32 LSE and delta from the plain
+    forward, as the kernels get them) and given the same LSE and delta;
+    SDPA's memory-efficient forward + backward from scratch."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for bh, s in ((16 * N_HEADS, SEQ), (2 * N_HEADS, 4 * SEQ)):
+        for causal in (False, True):
+            c = _flash_case(torch, rng, bh, s, s, D_MODEL // N_HEADS, causal)
+            bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                     causal, c["scale"])
+            exact = _bwd_float64(torch, c, causal)
+            given = _bwd_float64(torch, c, causal, c["lse"], c["delta"])
+            dk, dv = fa._bwd_dkdv_cuda(*bargs)
+            port = (fa._bwd_dq_cuda(*bargs), dk, dv)
+            plain = fa.flash_attention_bwd_reference(*bargs)
+            q4, k4, v4 = (c[n].reshape(bh // N_HEADS, N_HEADS, s, -1)
+                          .detach().requires_grad_() for n in "qkv")
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                    is_causal=causal)
+                sdpa = [g.reshape(bh, s, -1) for g in torch.autograd.grad(
+                    o4, (q4, k4, v4), c["do"].reshape(o4.shape))]
+
+            def err(got, want):
+                return [(g.double() - w).abs().max().item()
+                        for g, w in zip(got, want)]
+            row = {"max_abs_dq_dk_dv": [w.abs().max().item() for w in exact],
+                   "kernels": err(port, exact), "plain": err(plain, exact),
+                   "sdpa_efficient": err(sdpa, exact),
+                   "kernels_given_lse_delta": err(port, given),
+                   "plain_given_lse_delta": err(plain, given)}
+            key = f"BH={bh} S={s} {'causal' if causal else 'full'}"
+            out[key] = row
+            log(f"  vs float64, {key}: max abs err dQ/dK/dV "
+                + json.dumps(row))
+            del c, exact, given, port, plain, sdpa, o4
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_kernels_phase(torch):
     """K1, K2, K3a and K3b against their plain versions on the card
-    (max abs error <= TOL at unit-scale inputs), then timed with their
-    plain versions and one library call at the train phase's shapes."""
+    (max abs error <= TOL at unit-scale inputs), K3a/K3b launched twice
+    for bitwise-equal outputs and read against float64, then timed with
+    their plain versions and one library call at the train phase's
+    shapes, and the whole flash backward beside SDPA's in turns."""
     phase("train kernels")
     import numpy as np
     import torch.nn.functional as F
@@ -427,11 +573,15 @@ def train_kernels_phase(torch):
             + " / ".join(f"{x:.3g}" for x in e))
 
     # K2, K3a, K3b: causal and not; S not a multiple of the tiles;
-    # Sq != Sk both ways; head_dim 64 (the model's) and 16
+    # Sq != Sk both ways (causal with Sq > Sk too); head_dim 64 (the
+    # model's), 16, 20 (zero-padded k slice and head_dim tail) and 128
+    # (the largest bucket)
     cases = [(128, SEQ, SEQ, 64, False), (128, SEQ, SEQ, 64, True),
              (6, 40, 40, 64, True), (6, 40, 72, 64, False),
              (6, 40, 72, 64, True), (6, 100, 33, 16, True),
-             (6, 100, 33, 16, False)]
+             (6, 100, 33, 16, False), (6, 77, 50, 20, True),
+             (6, 50, 77, 20, False), (4, 200, 130, 128, True),
+             (4, 130, 200, 128, False), (8, 300, 170, 64, True)]
     for bh, sq, sk, d, causal in cases:
         c = _flash_case(torch, rng, bh, sq, sk, d, causal)
         args = (c["q"], c["k"], c["v"])
@@ -446,6 +596,20 @@ def train_kernels_phase(torch):
              hold(fa.BWD_DQ, "dQ", dq, rq)]
         log(f"  flash bh={bh} sq={sq} sk={sk} d={d} causal={causal}: max "
             f"abs err O/LSE/dK/dV/dQ " + " / ".join(f"{x:.3g}" for x in e))
+
+    # no atomics: two launches on the training shape's inputs give
+    # bitwise-equal dK, dV and dQ
+    for causal in (False, True):
+        c = _flash_case(torch, rng, 16 * N_HEADS, SEQ, SEQ, 64, causal)
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 causal, c["scale"])
+        first = fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+        second = fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise RuntimeError(f"K3a/K3b causal={causal}: two launches on "
+                               f"the same inputs differ")
+    log("  flash backward: two launches bitwise equal (full and causal)")
+    vs_float64 = _backward_vs_float64(torch, fa, rng)
 
     # timings at the train phase's shapes
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
@@ -468,21 +632,13 @@ def train_kernels_phase(torch):
         (2 * n * f + 2 * f + 2 * n) * 4, 8 * n * f)
 
     bh, d = 16 * N_HEADS, D_MODEL // N_HEADS
+    backward = {}
     for causal in (False, True):
         c = _flash_case(torch, rng, bh, SEQ, SEQ, d, causal)
         args = (c["q"], c["k"], c["v"], causal, c["scale"])
         bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
                  causal, c["scale"])
-        # the library call: SDPA on [B, H, S, D], forward, and its
-        # backward alone (graph built once, retained)
-        q4, k4, v4 = (t.reshape(16, N_HEADS, SEQ, d).detach()
-                      .requires_grad_() for t in (c["q"], c["k"], c["v"]))
-        do4 = c["do"].reshape(16, N_HEADS, SEQ, d)
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, is_causal=causal)
-        out4 = sdpa()
-        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            out4, (q4, k4, v4), do4, retain_graph=True)
+        sdpa, sdpa_bwd = _sdpa(torch, c, causal)
         bounds = _flash_bounds(bh, SEQ, SEQ, d, causal)
         timed = {
             fa.FWD: (lambda: fa._fwd_cuda(*args),
@@ -499,9 +655,11 @@ def train_kernels_phase(torch):
                 "ms": _time_ms(torch, kern, flush),
                 "plain_ms": _time_ms(torch, plain, flush),
                 "library_ms": _time_ms(torch, lib, flush) if lib else None,
-                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                **bounds[name],
                 "shape": f"[BH={bh}, S={SEQ}, D={d}] f32 causal={causal}",
             }
+            if lib:
+                row["library"] = SDPA_LIBRARY
             if name == fa.BWD_DKDV:
                 row["library_note"] = ("SDPA backward alone: computes dQ, "
                                        "dK and dV (K3a + K3b together)")
@@ -510,8 +668,12 @@ def train_kernels_phase(torch):
                 row["plain_note"] = ("the plain backward computes dQ, dK "
                                      "and dV (K3a + K3b together)")
             rows.setdefault(name, {})["causal" if causal else "full"] = row
-        del q4, k4, v4, out4
+        backward["causal" if causal else "full"] = _backward_in_turns(
+            torch, fa, c, causal, sdpa_bwd, flush)
+        del sdpa, sdpa_bwd
     del flush
+    rows[fa.BWD_DKDV]["whole_backward"] = backward
+    rows[fa.BWD_DKDV]["vs_float64"] = vs_float64
     for name, row in rows.items():
         log(f"  time {name}: " + json.dumps(row))
     return errs, rows
@@ -850,8 +1012,29 @@ def train_phase(torch):
         "kernel_launches": launches, "plain_calls": plain,
     }
     log("  train " + json.dumps(train))
+    _embedding_grad_repeats(torch, feed)
     train["profile"] = profile_step(torch, exe, main, feed, cost, scope)
     return launches, train
+
+
+def _embedding_grad_repeats(torch, feed):
+    """The step's one scatter with repeated indices is the embedding
+    gradient (every target sequence starts with id 0): two calls on the
+    feed's target ids must give bitwise-equal tables, as run-to-run
+    bitwise-equal losses need."""
+    from paddle_tpu_torch.fluid.ops import tensor_ops
+
+    ids = torch.from_numpy(feed["trg"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dy = torch.randn(*ids.shape, D_MODEL, device="cuda", generator=gen)
+    w = torch.zeros(TRANSFORMER_BASE["trg_vocab"], D_MODEL, device="cuda")
+    first, second = (tensor_ops._lookup_table_grad(
+        None, {"W": [w], "Ids": [ids]}, None, {"Out": [dy]}, {})["GRAD@W"]
+        for _ in range(2))
+    if not torch.equal(first, second):
+        raise RuntimeError("embedding gradient: two calls on the same ids "
+                           "differ")
+    log("  embedding gradient: two calls bitwise equal")
 
 
 def profile_step(torch, exe, main, feed, cost, scope):
@@ -1460,10 +1643,17 @@ def main():
             # one library call computes dQ, dK and dV: the K3a row's
             row["library_ms"] = train_rows["flash_bwd_dkdv_f32"]["full"][
                 "library_ms"]
+            row["library"] = SDPA_LIBRARY
+        extra = {key: row[key] for key in ("bound_f32_ms", "bound_peak",
+                                           "library")
+                 if key in row}
+        for key in ("whole_backward", "vs_float64"):
+            if key in rows:
+                extra[key] = rows[key]
         train_kernels.append(_kernel_row(
             kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
             train_errs[kname], row, shape=row["shape"],
-            causal=rows["causal"]))
+            causal=rows["causal"], **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
         "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",

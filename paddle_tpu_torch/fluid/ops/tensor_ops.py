@@ -66,7 +66,10 @@ def _lookup_table_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
     if padding_idx != -1:
         flat_dy = torch.where((flat_ids == padding_idx)[:, None],
                               torch.zeros_like(flat_dy), flat_dy)
-    dw = torch.zeros_like(w).index_add_(0, flat_ids, flat_dy)
+    # index_put_ with accumulate sorts the ids and sums each row in one
+    # order; index_add_ adds with atomics on the card, so repeated ids
+    # (every sequence's start token) changed the last bits from run to run
+    dw = torch.zeros_like(w).index_put_((flat_ids,), flat_dy, accumulate=True)
     return {"GRAD@W": dw, "GRAD@Ids": None}
 
 

@@ -44,7 +44,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 NEG_INF = -1e30
 FWD, BWD_DKDV, BWD_DQ = "flash_fwd_f32", "flash_bwd_dkdv_f32", \
     "flash_bwd_dq_f32"
-# head_dim bound of the kernels' register accumulators (4 floats a lane)
+# head_dim bound of the kernels (the largest head_dim bucket, 128)
 MAX_HEAD_DIM = 128
 counts = LaunchCounts(FWD, BWD_DKDV, BWD_DQ)
 

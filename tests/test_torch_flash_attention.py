@@ -7,6 +7,12 @@ causal and not, S = 40 with blocks of 16 (not a multiple of the block),
 Sq != Sk both ways, head_dim 16 and 64. Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
+
+The CUDA backward kernels (K3a, K3b) take their products on the tensor
+cores in 3xTF32; test_3xtf32_products_keep_float32_accuracy emulates
+that operand split on the CPU and pins why its products keep float32
+accuracy. The tensor core's own accumulation is not emulated: chip_smoke.py
+reads the kernels against float64 on the card.
 """
 import importlib
 
@@ -79,3 +85,82 @@ def test_routers_on_meta_and_kernel_refusals():
     wide = torch.empty(4, 40, 132, device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         tfa._fwd_cuda(wide, wide, wide, False, 0.25)
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on the float32 bit pattern: round to the top 19
+    bits, to nearest with ties away from zero."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """A tensor core reading a float32 as a .tf32 operand: the low 13
+    bits are dropped (truncation)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The backward kernels' product: float32 operands split as big =
+    rna(x), small = x - big (truncated as the tensor core reads it);
+    a_big b_big + a_big b_small + a_small b_big summed in float32."""
+    a, b = a.float(), b.float()
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    return (ab @ bb + (ab @ bs + as_ @ bb)).double()
+
+
+def _mm_tf32(a, b):
+    return (_tf32_rna(a.float()) @ _tf32_rna(b.float())).double()
+
+
+def _mm_f32(a, b):
+    return (a.float() @ b.float()).double()
+
+
+def _dense_bwd(q, k, v, do, lse, delta, causal, scale, mm):
+    """flash_attention_bwd_reference's dense formulas in float64, with
+    every product taken by ``mm``."""
+    s = mm(q, k.transpose(1, 2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p * tfa._causal_keep(q.shape[1], k.shape[1], q.device)
+    dv = mm(p.transpose(1, 2), do)
+    ds = p * (mm(do, v.transpose(1, 2)) - delta[..., None])
+    return mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_products_keep_float32_accuracy(causal):
+    """Why K3a/K3b may run their products on the tensor cores without a
+    new tolerance: with the 3xTF32 split, dQ/dK/dV at [2, 512, 64] stay
+    within 1e-6 (of max(1, |reference|)) of a float64 reference and
+    within 2x of plain float32 products, while one TF32 product per
+    multiply is at least 100x worse. Only the products differ: the
+    rest of the formulas runs in float64. Not modelled: the tensor
+    core's summation, which does not round to nearest; the kernels add
+    each streamed tile's sum to their accumulators with float32 adds so
+    that it cannot drift over a long sequence."""
+    rng = np.random.RandomState(0)
+    q, k, v, do = (torch.tensor(rng.randn(2, 512, 64).astype(np.float32))
+                   .double() for _ in range(4))
+    scale = 64 ** -0.5
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(~tfa._causal_keep(512, 512, s.device), -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    delta = (do * torch.matmul(torch.softmax(s, dim=-1), v)).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    ref = _dense_bwd(*args, torch.matmul)
+
+    def errs(mm):
+        return [float((g - r).abs().max()) for g, r in
+                zip(_dense_bwd(*args, mm), ref)]
+
+    split, one, f32 = errs(_mm_3xtf32), errs(_mm_tf32), errs(_mm_f32)
+    for name, r, e3, e1, ef in zip(("dQ", "dK", "dV"), ref, split, one,
+                                   f32):
+        top = max(1.0, float(r.abs().max()))
+        assert e3 <= 1e-6 * top, (name, e3, top)
+        assert e3 <= 2 * ef, (name, e3, ef)
+        assert e1 >= 100 * e3, (name, e1, e3)
