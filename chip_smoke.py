@@ -11,7 +11,8 @@ and prints no result):
            matmul_precision='highest').
   build    compiles every kernel in paddle_tpu_torch/csrc with nvcc for
            sm_90a, one process per source, all started together, and
-           prints the seconds.
+           prints the seconds and each kernel's ptxas registers, stack
+           and spills.
   kernels  holds the paged-attention kernel (K4) against its plain
            PyTorch version on the card on seeded cases (max abs error
            <= 1e-4; dead slots and dead query lanes exactly 0), then
@@ -23,23 +24,30 @@ and prints no result):
            forward (K2), flash dK/dV (K3a) and flash dQ (K3b) against
            their plain versions (max abs error <= 1e-4 at unit-scale
            inputs; causal and not, lengths that fit no tile, Sq != Sk
-           both ways, head_dim 64, 16, 20 and 128); K3a and K3b twice on
-           the same inputs, bitwise equal; K3a/K3b, the plain backward
-           and SDPA's against float64 at the train shape and a 4x longer
-           sequence (max abs error, recorded, not held); timed at the
-           train phase's shapes beside F.layer_norm and SDPA pinned to
-           its memory-efficient backend (forward, and its backward alone for
-           K3a + K3b); the port's whole flash backward (delta + K3a +
-           K3b) and SDPA's backward in turns, with their ratio.
+           both ways, head_dim 64, 16, 20 and 128); K2, K3a and K3b
+           twice on the same inputs, bitwise equal; K3a/K3b, the plain
+           backward and SDPA's against float64, then K2, the plain
+           forward and SDPA's forward (O and LSE) against float64, at
+           the train shape and a 4x longer sequence (max abs error,
+           recorded, not held); timed at the train phase's shapes beside
+           F.layer_norm and SDPA pinned to its memory-efficient backend
+           (forward, and its backward alone for K3a + K3b); K2 and SDPA's
+           forward, and the port's whole flash backward (delta + K3a +
+           K3b) and SDPA's backward, in turns, with their ratios.
   infer kernels
            the same for the fused conv + folded-BN + relu kernel (K5)
            against its plain version (max abs error within 1e-4 of the
            output's max at unit-scale inputs: the JAX tests' four
            shapes with F and K that fit no tile, the 7x7/2 stem, a 1x1/2
-           projection, a res5 3x3, relu on and off), timed beside its
-           plain version and F.conv2d (cuDNN, TF32 off) + the same
-           epilogue at three batch-16 ResNet-50 shapes and summed over
-           the 53 convolutions of one batch-16 forward.
+           projection, a res5 3x3, relu on and off); an image's output
+           bitwise the same alone and at batch 16, and two launches
+           bitwise equal; K5, its plain version and F.conv2d (cuDNN,
+           TF32 off) + the same epilogue against float64 at three
+           batch-16 shapes; timed (K5 and F.conv2d + epilogue in turns,
+           the plain version once) at those shapes and summed over the
+           53 convolutions of one batch-16 forward, with the ratio.
+           K5's bound_ms is its 3xTF32 tensor-core bound (bound_f32_ms
+           the CUDA-core one).
   serve    the decode-serving main path at GPT-2-medium width (24
            layers, d_model 1024, 16 heads, vocab 50257, seeded weights):
            a ServingServer on the card, load_decoder, 8 concurrent
@@ -153,11 +161,58 @@ def build_phase():
     secs = _build.build_all()
     log(f"built {sorted(secs)} in {time.perf_counter() - t0:.2f} s "
         f"(per source {secs})")
-    for name in secs:
-        rep = _build.ptxas_report(name)
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas = {name: ptxas_table(_build.ptxas_report(name)) for name in secs}
+    for name, table in ptxas.items():
+        for fn, row in table.items():
+            log(f"  ptxas {name}: {fn} " + json.dumps(row))
+    return ptxas
+
+
+def _kernel_name(mangled):
+    """``name<int args>`` of a mangled ``..._kernel`` entry point: the
+    length-prefixed name that ends in ``_kernel``, and the ``Li<n>E``
+    template arguments after it; the mangled name if there is none."""
+    import re
+
+    for i in range(len(mangled)):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            continue
+        end = i + m.end()
+        name = mangled[end:end + int(m.group())]
+        if name.endswith("_kernel") and name[:1].isalpha():
+            rest = mangled[end + len(name):]
+            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+            return name + ("<" + ",".join(re.findall(r"Li(-?\d+)E",
+                                                      args.group(1))) + ">"
+                           if args else "")
+    return mangled
+
+
+def ptxas_table(report):
+    """{kernel<template args>: {registers, spill_stores, spill_loads,
+    stack}} from what ``nvcc -Xptxas -v`` printed for one library."""
+    import re
+
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = _kernel_name(m.group(1))
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(stack=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 # --- kernels -------------------------------------------------------------
@@ -449,27 +504,67 @@ def _sdpa(torch, c, causal):
     return fwd, bwd
 
 
-def _backward_in_turns(torch, fa, c, causal, sdpa_bwd, flush):
-    """The port's whole flash backward as ``_Flash.backward`` runs it
-    (delta = rowsum(dO * O), K3a, K3b) and SDPA's backward, timed in
-    turns port, SDPA, SDPA, port; each time the median of 25."""
-    def port():
-        delta = (c["do"] * c["o"]).sum(dim=-1)
-        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
-                                      c["lse"], delta, causal, c["scale"])
-    calls = {"port": port, "sdpa": sdpa_bwd}
-    times = {who: [] for who in calls}
-    for who in ("port", "sdpa", "sdpa", "port"):
-        times[who].append(_time_ms(torch, calls[who], flush))
-    port_ms = statistics.mean(times["port"])
-    sdpa_ms = statistics.mean(times["sdpa"])
-    row = {"port_ms": port_ms, "sdpa_ms": sdpa_ms,
-           "ratio_port_over_sdpa": port_ms / sdpa_ms,
-           "turns_ms": times, "library": SDPA_LIBRARY}
-    log(f"  whole backward causal={causal}: port (delta + K3a + K3b) "
-        f"{port_ms:.4f} ms, SDPA efficient backward {sdpa_ms:.4f} ms, "
+def _in_turns(torch, first, second, flush):
+    """Two calls timed in turns first, second, second, first (each time
+    the median of 25): (first's mean, second's mean, the four times)."""
+    times = ([], [])
+    for i in (0, 1, 1, 0):
+        times[i].append(_time_ms(torch, (first, second)[i], flush))
+    return statistics.mean(times[0]), statistics.mean(times[1]), times
+
+
+def _vs_sdpa_in_turns(torch, port, sdpa, flush, what):
+    """The port's call and SDPA's in turns, logged with their ratio."""
+    port_ms, sdpa_ms, (tp, ts) = _in_turns(torch, port, sdpa, flush)
+    times = {"port": tp, "sdpa": ts}
+    log(f"  {what}: port {port_ms:.4f} ms, SDPA efficient {sdpa_ms:.4f} ms, "
         f"ratio {port_ms / sdpa_ms:.3f} (turns {json.dumps(times)})")
-    return row
+    return {"port_ms": port_ms, "sdpa_ms": sdpa_ms,
+            "ratio_port_over_sdpa": port_ms / sdpa_ms, "turns_ms": times,
+            "library": SDPA_LIBRARY}
+
+
+def _forward_vs_float64(torch, fa, rng):
+    """Max abs error of O and LSE against a float64 forward at the train
+    shape and at a 4x longer sequence, full and causal: K2, the plain
+    version and SDPA's memory-efficient forward."""
+    out = {}
+    for bh, s in ((16 * N_HEADS, SEQ), (2 * N_HEADS, 4 * SEQ)):
+        for causal in (False, True):
+            d = D_MODEL // N_HEADS
+            q, k, v = (_randn(torch, rng, bh, s, d) for _ in range(3))
+            scale = d ** -0.5
+            sc = q.double() @ k.double().transpose(1, 2) * scale
+            if causal:
+                keep = (torch.arange(s, device=q.device)[:, None]
+                        >= torch.arange(s, device=q.device)[None, :])
+                sc = sc.masked_fill(~keep, float("-inf"))
+            lse = torch.logsumexp(sc, -1)
+            o = torch.exp(sc - lse[..., None]) @ v.double()
+            del sc
+            got = {"kernel": fa._fwd_cuda(q, k, v, causal, scale),
+                   "plain": fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                             scale)}
+            q4, k4, v4 = (x.reshape(bh // N_HEADS, N_HEADS, s, d)
+                          for x in (q, k, v))
+            # the op behind SDPA's efficient backend, which returns LSE
+            efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+            o4, l4 = efficient(q4, k4, v4, None, True, 0.0, causal,
+                               scale=scale)[:2]
+            got["sdpa_efficient"] = (o4.reshape(bh, s, d),
+                                     l4.reshape(bh, -1)[:, :s])
+            row = {"max_abs_o_lse": [o.abs().max().item(),
+                                     lse.abs().max().item()]}
+            for who, (go, gl) in got.items():
+                row[who] = [(go.double() - o).abs().max().item(),
+                            (gl.double() - lse).abs().max().item()]
+            key = f"BH={bh} S={s} {'causal' if causal else 'full'}"
+            out[key] = row
+            log(f"  forward vs float64, {key}: max abs err O/LSE "
+                + json.dumps(row))
+            del q, k, v, o, lse, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bwd_float64(torch, c, causal, lse=None, delta=None):
@@ -598,18 +693,22 @@ def train_kernels_phase(torch):
             f"abs err O/LSE/dK/dV/dQ " + " / ".join(f"{x:.3g}" for x in e))
 
     # no atomics: two launches on the training shape's inputs give
-    # bitwise-equal dK, dV and dQ
+    # bitwise-equal O, LSE, dK, dV and dQ
     for causal in (False, True):
         c = _flash_case(torch, rng, 16 * N_HEADS, SEQ, SEQ, 64, causal)
         bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
                  causal, c["scale"])
-        first = fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
-        second = fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+        first, second = (
+            fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
+            + fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+            for _ in range(2))
         if not all(torch.equal(x, y) for x, y in zip(first, second)):
-            raise RuntimeError(f"K3a/K3b causal={causal}: two launches on "
-                               f"the same inputs differ")
-    log("  flash backward: two launches bitwise equal (full and causal)")
+            raise RuntimeError(f"K2/K3a/K3b causal={causal}: two launches "
+                               f"on the same inputs differ")
+    log("  flash forward and backward: two launches bitwise equal (full "
+        "and causal)")
     vs_float64 = _backward_vs_float64(torch, fa, rng)
+    fwd_vs_float64 = _forward_vs_float64(torch, fa, rng)
 
     # timings at the train phase's shapes
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
@@ -632,7 +731,7 @@ def train_kernels_phase(torch):
         (2 * n * f + 2 * f + 2 * n) * 4, 8 * n * f)
 
     bh, d = 16 * N_HEADS, D_MODEL // N_HEADS
-    backward = {}
+    backward, forward = {}, {}
     for causal in (False, True):
         c = _flash_case(torch, rng, bh, SEQ, SEQ, d, causal)
         args = (c["q"], c["k"], c["v"], causal, c["scale"])
@@ -668,12 +767,24 @@ def train_kernels_phase(torch):
                 row["plain_note"] = ("the plain backward computes dQ, dK "
                                      "and dV (K3a + K3b together)")
             rows.setdefault(name, {})["causal" if causal else "full"] = row
-        backward["causal" if causal else "full"] = _backward_in_turns(
-            torch, fa, c, causal, sdpa_bwd, flush)
+        def port_bwd():  # as _Flash.backward runs it
+            delta = (c["do"] * c["o"]).sum(dim=-1)
+            return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                          c["lse"], delta, causal,
+                                          c["scale"])
+        key = "causal" if causal else "full"
+        backward[key] = _vs_sdpa_in_turns(
+            torch, port_bwd, sdpa_bwd, flush,
+            f"whole backward (delta + K3a + K3b) causal={causal}")
+        forward[key] = _vs_sdpa_in_turns(
+            torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
+            f"forward (K2) causal={causal}")
         del sdpa, sdpa_bwd
     del flush
     rows[fa.BWD_DKDV]["whole_backward"] = backward
     rows[fa.BWD_DKDV]["vs_float64"] = vs_float64
+    rows[fa.FWD]["in_turns"] = forward
+    rows[fa.FWD]["vs_float64"] = fwd_vs_float64
     for name, row in rows.items():
         log(f"  time {name}: " + json.dumps(row))
     return errs, rows
@@ -1173,18 +1284,34 @@ def conv_census(main, batch):
 
 
 def _conv_work(n, c, h, w, f, k, s, p, relu):
-    """(bytes, flops) of one fused conv: x, w, scale and shift read once
-    and y written once; 2*M*K*F flops of the product plus 3 a value for
-    the affine and relu."""
+    """(bytes, product flops, epilogue flops) of one fused conv: x, w,
+    scale and shift read once and y written once; 2*M*K*F flops of the
+    product and 3 a value for the affine and relu."""
     oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
     m, kk = n * oh * ow, c * k * k
     return (4 * (n * c * h * w + f * kk + 2 * f + n * f * oh * ow),
-            2 * m * kk * f + 3 * m * f)
+            2 * m * kk * f, 3 * m * f)
 
 
-def _conv_bound(*shape):
-    """Least time for one fused conv (ms, what bounds it)."""
-    return _bound_of(*_conv_work(*shape))
+# what K5's operations are timed against in ``bound_ms``: the same peak
+# as the flash kernels' (FLASH_PEAK)
+CONV_PEAK = ("product as 3xTF32 on the tensor cores (3 x 2MKF over 495 "
+             "TFLOP/s TF32 dense) + 3MF epilogue flops over 67 TFLOP/s")
+
+
+def _conv_bounds(*shape):
+    """Least time for one fused conv: the bytes over HBM bandwidth
+    against the product as 3xTF32 on the tensor cores (three TF32
+    products over the TF32 peak, the card's fastest float32-accurate
+    product) plus the epilogue over the float32 peak: ``bound_ms``.
+    ``bound_f32_ms`` counts every flop over the float32 peak (the
+    CUDA-core floor of a scalar kernel)."""
+    nbytes, prod, epi = _conv_work(*shape)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * prod / TF32_FLOP_PER_S + epi / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_ms": _bound_of(nbytes, prod + epi)[0]}
 
 
 def _conv_case(torch, rng, n, c, h, w, f, k, s, p, relu):
@@ -1210,6 +1337,41 @@ def _conv_library(torch, x, w, sc, sh, s, p, relu):
         y = F.conv2d(x, w, stride=s, padding=p) * sc4 + sh4
         return torch.relu(y) if relu else y
     return run
+
+
+def _conv_vs_float64(torch, k5, rng):
+    """Max abs error of K5, its plain version and F.conv2d (cuDNN, TF32
+    off) + the epilogue against the same function in float64, at three
+    batch-16 shapes: the stem, a res2 3x3 and a res5 1x1."""
+    import torch.nn.functional as F
+
+    out = {}
+    b = INFER_BATCH
+    for name, shape in (("stem 7x7/2 3->64", (b, 3, 224, 224, 64, 7, 2, 3,
+                                              True)),
+                        ("res2 3x3 64->64", (b, 64, 56, 56, 64, 3, 1, 1,
+                                             True)),
+                        ("res5 1x1 512->2048", (b, 512, 7, 7, 2048, 1, 1, 0,
+                                                False))):
+        args = _conv_case(torch, rng, *shape)
+        x, w, sc, sh, st, pd, relu = args
+        exact = F.conv2d(x.double(), w.double(), stride=st, padding=pd) \
+            * sc.double()[None, :, None, None] \
+            + sh.double()[None, :, None, None]
+        if relu:
+            exact = torch.relu(exact)
+        got = {"kernel": k5._conv_cuda(*args),
+               "plain": k5.fused_conv_bn_relu_reference(*args),
+               "cudnn_f32": _conv_library(torch, *args)()}
+        row = {"max_abs_y": exact.abs().max().item()}
+        row.update({who: (y.double() - exact).abs().max().item()
+                    for who, y in got.items()})
+        out[name] = row
+        log(f"  conv vs float64, {name} batch {b}: max abs err "
+            + json.dumps(row))
+        del exact, got, args
+    torch.cuda.empty_cache()
+    return out
 
 
 def infer_kernels_phase(torch):
@@ -1251,7 +1413,8 @@ def infer_kernels_phase(torch):
             f"max)")
 
     # each output sums its K products in one order whatever the batch:
-    # an image's rows are bitwise the same alone and inside a batch of 16
+    # an image's rows are bitwise the same alone and inside a batch of
+    # 16; no atomics: two launches give bitwise-equal outputs
     args = _conv_case(torch, rng, INFER_BATCH, 64, 56, 56, 64, 3, 1, 1,
                       True)
     whole = k5._conv_cuda(*args)
@@ -1259,13 +1422,18 @@ def infer_kernels_phase(torch):
     if not torch.equal(whole[5:6], alone):
         raise RuntimeError("K5: an image's output differs between batch "
                            "16 and batch 1")
-    log("  conv res2 3x3: image 5 bitwise equal at batch 16 and alone")
+    if not torch.equal(whole, k5._conv_cuda(*args)):
+        raise RuntimeError("K5: two launches on the same inputs differ")
+    log("  conv res2 3x3: image 5 bitwise equal at batch 16 and alone; "
+        "two launches bitwise equal")
+    vs_float64 = _conv_vs_float64(torch, k5, rng)
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
 
     def timed(shape):
-        """Times K5, its plain version and the library call on one
-        shape, after holding K5 against the plain version there."""
+        """Times K5 and the library call in turns (K5, library, library,
+        K5) and the plain version once on one shape, after holding K5
+        against the plain version there."""
         nonlocal max_err, worst_rel
         args = _conv_case(torch, rng, *shape)
         got = k5._conv_cuda(*args)
@@ -1277,15 +1445,12 @@ def infer_kernels_phase(torch):
                                f"{rel:.3g} of the output's max > {TOL}")
         max_err, worst_rel = max(max_err, err), max(worst_rel, rel)
         del got, want
-        row = {
-            "ms": _time_ms(torch, lambda: k5._conv_cuda(*args), flush),
-            "plain_ms": _time_ms(torch, lambda:
-                                 k5.fused_conv_bn_relu_reference(*args),
-                                 flush),
-            "library_ms": _time_ms(torch, _conv_library(torch, *args),
-                                   flush),
-        }
-        row["bound_ms"], row["bound_by"] = _conv_bound(*shape)
+        row = dict(zip(("ms", "library_ms"), _in_turns(
+            torch, lambda: k5._conv_cuda(*args),
+            _conv_library(torch, *args), flush)))
+        row["plain_ms"] = _time_ms(
+            torch, lambda: k5.fused_conv_bn_relu_reference(*args), flush)
+        row.update(_conv_bounds(*shape))
         return row
 
     b = INFER_BATCH
@@ -1305,18 +1470,32 @@ def infer_kernels_phase(torch):
     if sum(census.values()) != CONVS_PER_FORWARD:
         raise RuntimeError(f"ResNet-50 has {sum(census.values())} fused "
                            f"convs, want {CONVS_PER_FORWARD}")
-    fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-    nbytes = flops = 0
+    fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_f32_ms"), 0.0)
+    nbytes = prod = epi = 0
+    by_shape = []
     for shape, n in census.items():
         row = timed(shape)
         for key in fwd:
             fwd[key] += n * row[key]
+        by_shape.append({"shape": list(shape), "count": n,
+                         **{k: row[k] for k in ("ms", "library_ms",
+                                                "bound_ms")}})
         work = _conv_work(*shape)
-        nbytes, flops = nbytes + n * work[0], flops + n * work[1]
-    fwd["bound_by"] = _bound_of(nbytes, flops)[1]
+        nbytes, prod, epi = (nbytes + n * work[0], prod + n * work[1],
+                             epi + n * work[2])
+    t_ops = 3 * prod / TF32_FLOP_PER_S + epi / F32_FLOP_PER_S
+    fwd["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S >= t_ops
+                       else "operations")
+    fwd["bound_peak"] = CONV_PEAK
+    fwd["ratio_port_over_cudnn"] = fwd["ms"] / fwd["library_ms"]
+    fwd["library"] = ("F.conv2d (cuDNN, TF32 off) + the affine and relu; "
+                      "each shape timed in turns K5, library, library, K5")
+    fwd["vs_float64"] = vs_float64
+    fwd["by_shape"] = by_shape
     fwd["distinct_shapes"] = len(census)
     fwd["convs"] = CONVS_PER_FORWARD
-    fwd["gflop"] = flops / 1e9
+    fwd["gflop"] = (prod + epi) / 1e9
     log(f"  time one batch-{b} forward, {CONVS_PER_FORWARD} convs in "
         f"{len(census)} shapes: " + json.dumps(fwd))
     del flush
@@ -1612,7 +1791,7 @@ def main():
     import torch
 
     name, smi = device_phase(torch)
-    build_phase()
+    ptxas = build_phase()
     max_err, timings = kernels_phase(torch)
     train_errs, train_rows = train_kernels_phase(torch)
     k5_err, k5_rel, k5_rows, k5_fwd = infer_kernels_phase(torch)
@@ -1647,9 +1826,11 @@ def main():
         extra = {key: row[key] for key in ("bound_f32_ms", "bound_peak",
                                            "library")
                  if key in row}
-        for key in ("whole_backward", "vs_float64"):
+        for key in ("whole_backward", "vs_float64", "in_turns"):
             if key in rows:
                 extra[key] = rows[key]
+        if kname == "flash_fwd_f32":  # the library's three kernels
+            extra["ptxas"] = ptxas.get("flash_attention")
         train_kernels.append(_kernel_row(
             kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
             train_errs[kname], row, shape=row["shape"],
@@ -1660,7 +1841,9 @@ def main():
         infer_launches, k5_err, k5_fwd,
         timed_as=f"sum over the {CONVS_PER_FORWARD} convolutions of one "
                  f"batch-{INFER_BATCH} ResNet-50 forward",
-        max_rel_err=k5_rel, shapes=k5_rows, infer=infer)]
+        bound_f32_ms=k5_fwd["bound_f32_ms"], bound_peak=CONV_PEAK,
+        forward=k5_fwd, max_rel_err=k5_rel, shapes=k5_rows,
+        ptxas=ptxas.get("conv_bn_relu"), infer=infer)]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",

@@ -15,33 +15,61 @@
 //
 // What bounds it on this card: operations. A ResNet-50 convolution does
 // 2*M*K*F flops on (x + w + y) bytes; at batch 16 that is 30-300 flops
-// per byte, far above the H100's ~20 float32 flops per byte of HBM
-// bandwidth, so the floor is 2*M*K*F / 67 TFLOP/s (float32 outside the
-// tensor cores; TF32 would change the numerics against the reference's
-// matmul_precision='highest'). The design:
-//   - implicit GEMM: the TPU kernel gets a patch matrix P [M, K] that
-//     XLA materialised in HBM; here each block gathers its patch tile
-//     straight from x by index math (a zero for a pad position), so P
-//     never exists (118 MB at the stem with batch 16);
-//   - one block of 256 threads computes a 64 (m) x 64 (f) output tile,
-//     looping over K in 16-wide slices staged in shared memory (the
-//     patch slice and the weight slice, the latter transposed to
-//     [k][f] with one float of padding); each thread keeps a 4 x 4
-//     register tile of accumulators, rows m0 + tm + 16*i and columns
-//     f0 + tf + 16*j, and runs scalar FMAs;
-//   - patch loads: a warp reads 32 consecutive m for one k, i.e.
-//     consecutive ow, so stride-1 loads coalesce; weight loads read 16
-//     consecutive k of a filter row;
-//   - the epilogue writes y straight in NCHW: consecutive m are
-//     consecutive (oh, ow), so a warp's stores coalesce along ow and no
+// per byte. The product runs on the tensor cores in 3xTF32 (tf32x3.cuh:
+// each operand split into a TF32 big part and the float32 rest, three
+// TF32 products summed in float32), float32-level accuracy at a third of
+// the TF32 rate, so the floor is 3 * 2*M*K*F / 495 TFLOP/s plus the
+// epilogue's 3*M*F flops over the 67 TFLOP/s float32 peak. The design:
+//   - implicit GEMM y[m, f] = sum_k P[m, k] w[f, k]: the TPU kernel gets
+//     a patch matrix P [M, K] that XLA materialised in HBM; here each
+//     block gathers its patch tiles straight from x by index math (a
+//     zero for a pad position), so P never exists (118 MB at the stem
+//     with batch 16);
+//   - a block computes a 64 (m) x 64 (f) output tile with two k-groups
+//     of 4 warps: group q sums the K slices q, q + 2, q + 4, ... and
+//     group 0 adds group 1's sums at the end. Each warp owns 32 x 32 of
+//     the tile (2 m16 x 4 n8 tiles of mma.sync m16n8k8): each split A
+//     fragment feeds 4 n-tiles and each split B fragment 2 m-tiles.
+//     Small tiles and the second k-group keep enough warps in flight at
+//     res4/res5 (M = 784 at batch 16: 13 x 8 blocks for F = 512). A
+//     trial on the card (PERF.md) measured 128 x 64 and 128 x 128 tiles
+//     and one or four k-groups: slower over a ResNet-50 forward;
+//   - K runs in slices of 32 (4 k-steps). A round of two slices (one a
+//     group) is staged by cp.async into one of two buffers: round i + 1
+//     loads while round i computes, one __syncthreads() a round. Patch
+//     slice: for each k of the slice, (c, i, j) is decomposed once by
+//     one warp into a small shared table; each thread keeps one m row
+//     (n, ih0, iw0) for the whole block and gathers 16 k of it with
+//     4-byte cp.async, a warp 32 consecutive m (consecutive ow,
+//     coalesced), zero-filled (src-size 0) outside the image and past M
+//     or K. Weight slice: 16-byte cp.async along k where K % 4 == 0
+//     (4-byte otherwise: the stem's K = 147), zero-filled past F or K;
+//   - shared layout: the patch slice k-major [32][64 + 8] (stride = 8
+//     mod 32) and the weight slice [64][32 + 4] (stride = 4 mod 32), so
+//     every fragment load hits 32 distinct banks and the gather's
+//     stores of 32 consecutive m do too;
+//   - fixed summation order per output: each slice's products sum in
+//     fresh fragments (the tensor core's own summation does not round
+//     to nearest), which join the group's accumulators by float32 adds;
+//     then group 0 adds group 1's accumulators. The slice width, the
+//     k-steps, the groups and the order of the three products are the
+//     same for every shape and tile, so an output's value does not
+//     depend on M (on how many images share the batch) or on where its
+//     row lands in a tile;
+//   - the epilogue applies scale, shift (two roundings, as the
+//     reference's separate multiply and add) and relu to the float32
+//     accumulator and writes y straight in NCHW: a store instruction
+//     covers 8 consecutive m (32 bytes) for each of 4 channels, so no
 //     transpose runs afterwards;
-//   - every output element sums k = 0, 1, ..., K-1 as one FMA chain, so
-//     its value does not depend on M (on how many images share the
-//     batch) or on the tile it lands in;
 //   - M, F and K that fit no tile are masked in the kernel (no padding
 //     copies).
-// Not done yet (later work): tensor cores (TF32 or bf16 wgmma), TMA or
-// cp.async double-buffering of the K slices, bf16 operands.
+// What holds it below that floor (PERF.md has the times): issue slots
+// (each 3-MMA product also costs the shared loads and integer/float ops
+// that split its fragments, and the gather's index math) and, at
+// res4/res5, the few warps in flight. Not done yet (later work): wgmma
+// (its TF32 operands come from shared memory, so 3xTF32 needs split
+// copies of each tile), TMA, larger warp tiles where registers allow
+// (fewer fragment splits per MMA), bf16 operands under amp.
 //
 // The kernel allocates nothing; the caller passes the output.
 // conv_bn_relu_f32 launches on the given stream and returns
@@ -50,123 +78,279 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kBM = 64;        // output rows (m = n, oh, ow) per block
-constexpr int kBF = 64;        // output channels per block
-constexpr int kBK = 16;        // reduction slice staged per step
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kT = 4;          // outputs per thread along m and along f
+using namespace tf32x3;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kBM = 64;        // output rows (m = n, oh, ow) a block
+constexpr int kBF = 64;        // output channels a block
+constexpr int kBK = 32;        // k slice: 4 k-steps of 8
+constexpr int kStages = 2;     // rounds of slices in shared memory at once
+constexpr int kWarpsM = 2;     // the warps of one k-group along m
+constexpr int kWarpsF = 2;     // and along f
+constexpr int kGroups = 2;     // k-groups: slice s goes to group s % 2
+constexpr int kGroupThreads = 32 * kWarpsM * kWarpsF;
+constexpr int kThreads = kGroups * kGroupThreads;
+constexpr int kMinBlocks = 512 / kThreads;  // an SM's blocks: <= 128 regs
+constexpr int kWM = kBM / kWarpsM;  // rows a warp (32)
+constexpr int kWF = kBF / kWarpsF;  // channels a warp (32)
+constexpr int kMT = kWM / 16;       // m16 tiles a warp
+constexpr int kNT = kWF / 8;        // n8 tiles a warp
+static_assert(kNT == 4, "mma3x4 issues four n-tiles at once");
+constexpr int kLDA = kBM + 8;  // patch slice [kBK][kLDA], k-major
+constexpr int kLDB = kBK + 4;  // weight slice [kBF][kLDB]
+constexpr int kA = kBK * kLDA;                // floats of a patch slice
+constexpr int kB = kBF * kLDB;                // floats of a weight slice
+constexpr int kSlice = kA + kB + 2 * kBK;     // + the slice's k table (int2)
+constexpr int kGather = kBK * kBM / kGroupThreads;  // patch values a thread
+constexpr int kBChunks = kBF * kBK / 4 / kGroupThreads;  // 16-byte loads
+constexpr int kBScalar = kBF * kBK / kGroupThreads;      // or 4-byte ones
+constexpr int kAcc = kMT * kNT * 4;  // accumulator floats a lane
+constexpr int kPastK = 0x4000 << 16;  // table entry past K: i out of range
+static_assert(kStages * kGroups * kSlice >= (kGroups - 1) * kBM * kBF,
+              "the k-groups' partial sums reuse the slice buffers");
+
+// The A fragment of k-step ks from a k-major slice (A[m][k] at
+// a[k * ld + m]), rows m0 .. m0 + 15, split into big and small parts.
+__device__ __forceinline__ void load_a_kmajor(const float* a, int ld, int ks,
+                                              int m0, int g, int t,
+                                              uint32_t (&ab)[4],
+                                              uint32_t (&as)[4]) {
+  const float* p = a + (8 * ks + t) * ld + m0 + g;
+  const float x[4] = {p[0], p[8], p[4 * ld], p[4 * ld + 8]};
+  split(x, ab, as);
+}
+
+// grid (ceil(M / 64), ceil(F / 64)). Both k-groups of 4 warps compute
+// the block's whole 64 x 64 output tile: group q sums the slices s = q,
+// q + 2, q + 4, ..., and group 0 adds group 1's sums at the end. A
+// round of kGroups slices is staged together, into one of kStages
+// buffers.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 conv_bn_relu_kernel(const float* __restrict__ x,
                     const float* __restrict__ w,
                     const float* __restrict__ scale,
                     const float* __restrict__ shift,
                     float* __restrict__ y,
                     int N, int C, int H, int W, int F, int KH, int KW,
-                    int stride, int pad, int OH, int OW, int relu) {
-  __shared__ float As[kBK][kBM];
-  __shared__ float Bs[kBK][kBF + 1];
+                    int stride, int pad, int OH, int OW, int relu,
+                    int w_vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int grp = tid / kGroupThreads;  // the thread's k-group
+  const int gt = tid % kGroupThreads;   // and its rank in the group
+  const int warp = gt / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int m0 = blockIdx.x * kBM;
   const int f0 = blockIdx.y * kBF;
   const int OHW = OH * OW;
   const int M = N * OHW;
   const int KHW = KH * KW;
   const int K = C * KHW;
+  const int n_slices = (K + kBK - 1) / kBK;
+  const int n_rounds = (n_slices + kGroups - 1) / kGroups;
 
-  // the one patch row this thread stages: m = m0 + t % 64, slice rows
-  // t / 64 + 4 * r (r = 0..3)
-  const int lm = t % kBM;
-  const int lk = t / kBM;
-  const int am = m0 + lm;
-  const bool am_ok = am < M;
-  const float* xb = x;
-  int ih0 = 0, iw0 = 0;
-  if (am_ok) {
-    const int n = am / OHW;
-    const int r = am - n * OHW;
+  // the one patch row this thread gathers: m = m0 + lm, slice columns
+  // kk0 + 2r; a row past M gets ih0 far out of range (every load 0)
+  const int lm = gt % kBM;
+  const int kk0 = gt / kBM;
+  int ih0 = -(1 << 29), iw0 = 0;
+  int64_t row = 0;  // offset of x[n, 0, ih0, iw0]
+  if (m0 + lm < M) {
+    const int n = (m0 + lm) / OHW;
+    const int r = (m0 + lm) - n * OHW;
     const int oh = r / OW;
-    const int ow = r - oh * OW;
-    xb = x + static_cast<int64_t>(n) * C * H * W;
     ih0 = oh * stride - pad;
-    iw0 = ow * stride - pad;
+    iw0 = (r - oh * OW) * stride - pad;
+    row = static_cast<int64_t>(n) * C * H * W +
+          static_cast<int64_t>(ih0) * W + iw0;
   }
 
-  const int tm = t % 16;  // this thread's m columns: tm + 16 * i
-  const int tf = t / 16;  // this thread's f columns: tf + 16 * j
-  float acc[kT][kT];
+  // each group stages the slice of a round that it computes, into its
+  // own slice buffer of the round's stage
+  auto slice_buf = [&](int round, int q) {
+    return smem + ((round % kStages) * kGroups + q) * kSlice;
+  };
+  // slice s's k table: (c*H + i)*W + j and (i << 16) | j for each k,
+  // written by the group's first warp ahead of the barrier that precedes
+  // its staging. c = k / KHW and i = rem / KW by a float reciprocal:
+  // exact while K < 2^22 (the host checks), as (k + 1/2) / KHW is at
+  // least 1 / (2 KHW) from an integer and the float product errs less
+  const float r_khw = 1.f / KHW, r_kw = 1.f / KW;
+  auto table = [&](int round) {
+    const int s = round * kGroups + grp;
+    if (gt >= kBK || s >= n_slices) return;
+    int2* tab = reinterpret_cast<int2*>(slice_buf(round, grp) + kA + kB);
+    const int k = s * kBK + gt;
+    int2 e = make_int2(0, kPastK);
+    if (k < K) {
+      const int c = static_cast<int>((k + 0.5f) * r_khw);
+      const int rem = k - c * KHW;
+      const int i = static_cast<int>((rem + 0.5f) * r_kw);
+      const int j = rem - i * KW;
+      e = make_int2((c * H + i) * W + j, (i << 16) | j);
+    }
+    tab[gt] = e;
+  };
+  auto stage = [&](int round) {
+    const int s = round * kGroups + grp;
+    if (s >= n_slices) return;
+    float* as = slice_buf(round, grp);
+    float* bs = as + kA;
+    const int2* tab = reinterpret_cast<const int2*>(bs + kB);
 #pragma unroll
-  for (int i = 0; i < kT; ++i)
+    for (int r = 0; r < kGather; ++r) {
+      const int kk = kk0 + r * (kGroupThreads / kBM);
+      const int2 e = tab[kk];
+      const int ih = ih0 + (e.y >> 16);
+      const int iw = iw0 + (e.y & 0xffff);
+      const bool ok = static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
+                      static_cast<unsigned>(iw) < static_cast<unsigned>(W);
+      cp_async4(as + kk * kLDA + lm, ok ? x + (row + e.x) : x, ok ? 4 : 0);
+    }
+    const int k0 = s * kBK;
+    if (w_vec) {
 #pragma unroll
-    for (int j = 0; j < kT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // patch slice: As[kk][mm] = P[m0 + mm, k0 + kk]
-#pragma unroll
-    for (int r = 0; r < kBK * kBM / kThreads; ++r) {
-      const int kk = lk + r * (kThreads / kBM);
-      const int k = k0 + kk;
-      float v = 0.f;
-      if (am_ok && k < K) {
-        const int c = k / KHW;
-        const int rem = k - c * KHW;
-        const int i = rem / KW;
-        const int ih = ih0 + i;
-        const int iw = iw0 + (rem - i * KW);
-        if (static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
-            static_cast<unsigned>(iw) < static_cast<unsigned>(W))
-          v = xb[(static_cast<int64_t>(c) * H + ih) * W + iw];
+      for (int r = 0; r < kBChunks; ++r) {
+        const int q = gt + r * kGroupThreads;
+        const int ff = q / (kBK / 4);
+        const int c = (q % (kBK / 4)) * 4;
+        const bool ok = f0 + ff < F && k0 + c < K;  // K % 4 == 0
+        cp_async16(bs + ff * kLDB + c,
+                   ok ? w + (static_cast<int64_t>(f0 + ff) * K + k0 + c) : w,
+                   ok ? 16 : 0);
       }
-      As[kk][lm] = v;
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < kBScalar; ++r) {
+        const int q = gt + r * kGroupThreads;
+        const int ff = q / kBK;
+        const int c = q % kBK;
+        const bool ok = f0 + ff < F && k0 + c < K;
+        cp_async4(bs + ff * kLDB + c,
+                  ok ? w + (static_cast<int64_t>(f0 + ff) * K + k0 + c) : w,
+                  ok ? 4 : 0);
+      }
     }
-    // weight slice: Bs[kk][ff] = w[f0 + ff, k0 + kk]
+  };
+
+  // prologue: the tables, then the first kStages - 1 rounds, one
+  // cp.async group each
+  for (int r = 0; r < kStages - 1 && r < n_rounds; ++r) table(r);
+  __syncthreads();
 #pragma unroll
-    for (int r = 0; r < kBK * kBF / kThreads; ++r) {
-      const int idx = t + r * kThreads;
-      const int kk = idx % kBK;
-      const int ff = idx / kBK;
-      const int k = k0 + kk;
-      const int f = f0 + ff;
-      Bs[kk][ff] = (f < F && k < K) ? w[static_cast<int64_t>(f) * K + k]
-                                    : 0.f;
+  for (int r = 0; r < kStages - 1; ++r) {
+    if (r < n_rounds) stage(r);
+    cp_async_commit();
+  }
+
+  const int wm = (warp / kWarpsF) * kWM;  // the warp's rows in the block
+  const int wf = (warp % kWarpsF) * kWF;  // and its channels
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int it = 0; it < n_rounds; ++it) {
+    const int next = it + kStages - 1;
+    // next's buffers last held round it - 1, whose tables were read when
+    // it was staged, before the previous barrier
+    if (next < n_rounds) table(next);
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // round it has landed; every warp is done with it - 1
+    if (next < n_rounds) stage(next);  // overlaps this round's math
+    cp_async_commit();
+    if (it * kGroups + grp >= n_slices) continue;  // past the last slice
+
+    const float* as = slice_buf(it, grp);
+    const float* bs = as + kA + wf * kLDB;
+    // the slice's products in fresh fragments, then float32 adds
+    float fr[kMT][kNT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fr[i][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 8; ++ks) {
+      uint32_t ab[kMT][4], am[kMT][4], bb[kNT][2], bsm[kNT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        load_a_kmajor(as, kLDA, ks, wm + 16 * i, g, t, ab[i], am[i]);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+        load_bt(bs, kLDB, j, ks, g, t, bb[j], bsm[j]);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        mma3x4(fr[i][0], fr[i][1], fr[i][2], fr[i][3], ab[i], am[i], ab[i],
+               am[i], ab[i], am[i], ab[i], am[i], bb, bsm);
     }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kT], b[kT];
+    for (int i = 0; i < kMT; ++i) add_tiles(acc[i], fr[i]);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every slice is consumed: the buffers are free
+
+  // groups 1.. hand their sums to group 0 through shared memory (lane
+  // order: no bank conflict), which adds them in group order: each
+  // output's summation order is fixed whatever the shape
+  if (grp > 0) {
+    float* part =
+        smem + ((grp - 1) * (kGroupThreads / 32) + warp) * 32 * kAcc;
 #pragma unroll
-      for (int i = 0; i < kT; ++i) a[i] = As[kk][tm + 16 * i];
+    for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int j = 0; j < kT; ++j) b[j] = Bs[kk][tf + 16 * j];
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int i = 0; i < kT; ++i)
+        for (int e = 0; e < 4; ++e)
+          part[((i * kNT + j) * 4 + e) * 32 + lane] = acc[i][j][e];
+  }
+  __syncthreads();
+  if (grp > 0) return;
 #pragma unroll
-        for (int j = 0; j < kT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int q = 1; q < kGroups; ++q) {
+    const float* p = smem + ((q - 1) * (kGroupThreads / 32) + warp) * 32 *
+                                kAcc;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] += p[((i * kNT + j) * 4 + e) * 32 + lane];
   }
 
   // epilogue: acc * scale + shift (two roundings, as the reference's
   // separate multiply and add), relu, one store into NCHW
 #pragma unroll
-  for (int i = 0; i < kT; ++i) {
-    const int m = m0 + tm + 16 * i;
-    if (m >= M) continue;
-    const int n = m / OHW;
-    const int r = m - n * OHW;
-    float* yb = y + static_cast<int64_t>(n) * F * OHW + r;
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kT; ++j) {
-      const int f = f0 + tf + 16 * j;
-      if (f >= F) continue;
-      float v = __fadd_rn(__fmul_rn(acc[i][j], scale[f]), shift[f]);
-      if (relu) v = fmaxf(v, 0.f);
-      yb[static_cast<int64_t>(f) * OHW] = v;
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+      const int n = m / OHW;
+      float* yb = y + static_cast<int64_t>(n) * F * OHW + (m - n * OHW);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = f0 + wf + 8 * j + 2 * t + e;
+          if (f >= F) continue;
+          float v = __fadd_rn(__fmul_rn(acc[i][j][2 * h + e], scale[f]),
+                              shift[f]);
+          if (relu) v = fmaxf(v, 0.f);
+          yb[static_cast<int64_t>(f) * OHW] = v;
+        }
     }
-  }
 }
 
 }  // namespace
@@ -181,17 +365,32 @@ int conv_bn_relu_f32(const void* x, const void* w, const void* scale,
   if (N < 0 || C <= 0 || H <= 0 || W <= 0 || F < 0 || KH <= 0 || KW <= 0 ||
       stride <= 0 || pad < 0 || OH < 0 || OW < 0)
     return cudaErrorInvalidValue;
+  // the k table packs (i << 16) | j, its past-K entry's i = 0x4000 must
+  // land below every image row (H + pad <= 0x4000), and its float
+  // division is exact for K < 2^22
+  if (KH >= 0x4000 || KW > 0xffff || H + pad > 0x4000 ||
+      static_cast<int64_t>(C) * KH * KW >= (1 << 22))
+    return cudaErrorInvalidValue;
   const int64_t M = static_cast<int64_t>(N) * OH * OW;
-  if (M > (int64_t{1} << 31) - kBM) return cudaErrorInvalidValue;
+  if (M > (int64_t{1} << 31) - kBM ||
+      static_cast<int64_t>(C) * H * W > (int64_t{1} << 31) - 1)
+    return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
                   static_cast<unsigned>((F + kBF - 1) / kBF));
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  conv_bn_relu_kernel<<<grid, kThreads, 0,
+  const int K = C * KH * KW;
+  const int w_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const size_t smem = sizeof(float) * kStages * kGroups * kSlice;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_bn_relu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  conv_bn_relu_kernel<<<grid, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<float*>(y), N, C, H, W, F, KH, KW, stride, pad, OH, OW,
-      relu);
+      relu, w_vec);
   return static_cast<int>(cudaGetLastError());
 }
 

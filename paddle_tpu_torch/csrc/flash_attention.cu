@@ -16,7 +16,7 @@
 //
 //   forward   s = scale * q.k, online softmax over key tiles, O = P V /
 //             max(l, FLT_MIN), lse = m + log(max(l, FLT_MIN)); masked
-//             scores take -1e30 and their probabilities are exactly 0.
+//             scores give probabilities of exactly 0.
 //   dK, dV    p = exp(s - lse) recomputed per (query, key) pair and set
 //             to 0 (not masked) on padded rows and columns;
 //             ds = p (dO.v - delta), dV = P^T dO, dK = scale * dS^T Q.
@@ -27,67 +27,65 @@
 // What bounds them on this card: operations. At the training shapes
 // (BH = 128, S = 512, D = 64) each kernel does 4-8 flops per byte of
 // q/k/v it must read, and each input tile is reused by every row of the
-// block. All kernels keep the S x S score matrix out of device memory,
-// read each operand tile once per block, use one block of 4 warps per
-// (batch-head, 64 rows) with 16 rows a warp, skip whole causal tiles
+// block. All three run their products (the forward two, dK/dV four, dQ
+// three) on the tensor cores in 3xTF32 (tf32x3.cuh), the arithmetic of
+// PyTorch's float32 memory-efficient attention; their floor is 3x the
+// products' flops over 495 TFLOP/s (TF32 dense) plus the exp and
+// softmax or ds arithmetic over the float32 peak of 67 TFLOP/s. All keep
+// the S x S score matrix out of device memory, use one block of 4 warps
+// per (batch-head, 64 rows) with 16 rows a warp, skip whole causal tiles
 // (the forward and dQ stop at the block's last row, dK/dV starts at the
 // tile holding its first key), mask the ragged edge inside the kernel
-// (no padding of the inputs) and never write rows past the end.
-//
-// The forward (K2) runs on scalar FMAs: its floor is the f32 flops over
-// 67 TFLOP/s. Lane j scores row j of a 32-row K/V tile against the
-// warp's 16 query rows; the accumulators (running max and sum, the
-// D-wide output rows) sit in registers, lane l holding columns l,
-// l + 32, ... Not done yet: tensor cores, cp.async tiles.
-//
-// The backward kernels (K3a dK/dV, K3b dQ) run their four (three)
-// products on the tensor cores in 3xTF32, the arithmetic of PyTorch's
-// float32 memory-efficient attention: each operand x is split into
-// big = tf32(x) and small = x - big (see split()), and a*b is summed as
-// a_big*b_big + a_big*b_small + a_small*b_big with mma.sync m16n8k8 into
-// float32 fragments (a single TF32 product would err ~1000x more). Their
-// floor is 3x the products' flops over 495 TFLOP/s (TF32 dense) plus the
-// exp and ds arithmetic over the f32 peak. The design:
-//   - warp w owns 16 rows of the block (keys in K3a, query rows in K3b)
-//     as the m16 side of every product; the other operand streams in
-//     tiles of BT = 64 rows (32 at head_dim bucket 128), staged with
-//     16-byte cp.async into two buffers: tile i + 1 loads while tile i
-//     computes, one __syncthreads() a tile;
+// (no padding of the inputs) and never write rows past the end. The
+// design:
+//   - warp w owns 16 rows of the block (query rows in the forward and
+//     dQ, keys in dK/dV) as the m16 side of every product; the other
+//     operand streams in tiles of BT = 64 rows (32 at head_dim bucket
+//     128), staged with 16-byte cp.async into two buffers: tile i + 1
+//     loads while tile i computes, one __syncthreads() a tile;
 //   - shared rows have stride D_pad + 4 = 4 (mod 32) floats, so every
 //     32-bit fragment load (row g = lane / 4, column t = lane % 4, or
 //     row 2t, column g) hits 32 distinct banks; head_dim is zero-padded
 //     to its bucket (32, 64, 128) in shared memory only, rows past the
 //     end are zero-filled (cp.async with src-size 0) and the store of
 //     the head_dim tail is masked;
-//   - P (K3a: P^T and dS^T; K3b: dS) goes from the accumulators of the
-//     score products into the A operand of the next product without a
-//     shuffle or a trip through shared memory: the accumulator holds
-//     columns 2t, 2t + 1 where the A fragment wants k = t, t + 4, so
-//     that product runs over a permuted k (A's t, t + 4 are the tile's
-//     2t, 2t + 1) and its B fragment loads rows 2t and 2t + 1 to match.
-//     This costs nothing and keeps shared memory for the tiles (two
-//     blocks an SM at head_dim 64);
-//   - operands are split when their fragments are loaded. The block's
-//     own 16-row A fragments (K/V in K3a, Q/dO in K3b) are reused by
-//     all BT / 8 n-tiles of a k-step, so their split is a small share;
-//     keeping them pre-split would take 64 more registers a lane or a
-//     second copy in shared memory (one block an SM);
+//   - a probability tile (forward: P; dK/dV: P^T and dS^T; dQ: dS) goes
+//     from the accumulators of the score products into the A operand of
+//     the next product without a shuffle or a trip through shared
+//     memory: the accumulator holds columns 2t, 2t + 1 where the A
+//     fragment wants k = t, t + 4, so that product runs over a permuted
+//     k (A's t, t + 4 are the tile's 2t, 2t + 1) and its B fragment
+//     loads rows 2t and 2t + 1 to match. This keeps shared memory for
+//     the tiles (two blocks an SM at head_dim 64);
+//   - operands are split when their fragments are loaded, but for the
+//     forward's own Q fragments: every key tile reuses them, so up to
+//     the 64 bucket they stay split in registers (64 a lane at 64); at
+//     128 they are split on load. The backward's own A fragments (K/V in
+//     dK/dV, Q/dO in dQ) are split on load: keeping them would take 64
+//     more registers a lane or a second copy in shared memory;
 //   - every product is issued as three phases over four independent
 //     accumulator tiles (small terms first), so no MMA waits on the one
 //     just before it;
 //   - the tensor core does not round the sum it writes to nearest, so
 //     an accumulator that every streamed tile adds into drifts, more
 //     the longer the sequence and the larger the output. The products
-//     that accumulate over tiles (dV, dK; dQ) collect each tile's sum in
-//     fresh fragments and add it to the accumulators with float32 adds,
-//     which round to nearest: dQ/dK/dV then err against float64 on the
-//     order of the plain float32 version (chip_smoke.py reads both
-//     against float64; PERF.md has the readings);
-//   - exp, the masks, ds = p (dp - delta) and the final scale stay in
-//     float32 on the ALUs: p = 2^(s scale log2(e) - lse log2(e)), one
-//     FFMA and one ex2; padded rows and columns get p = 0, and a tile
-//     with no edge and no causal diagonal in the warp's rows skips the
-//     mask;
+//     that accumulate over tiles (O; dV, dK; dQ) collect each tile's sum
+//     in fresh fragments and join the accumulators by float32 adds
+//     (forward: O = O alpha + O_tile, one FFMA, as O is rescaled each
+//     tile anyway), which round to nearest: the kernels then err
+//     against float64 on the order of the plain float32 version
+//     (chip_smoke.py reads both against float64; PERF.md has the
+//     readings);
+//   - exp, the masks, the softmax and ds arithmetic stay in float32 on
+//     the ALUs, in the exp2 domain: p = 2^(s scale log2(e) - m), one
+//     FFMA and one ex2. The forward keeps its running max m in those
+//     units and a row's scores in the 4 lanes of a quad, so the row max
+//     takes two shuffles (xor 1, 2) a tile, and the row sum none until
+//     the end (each lane sums its own columns; alpha is the quad's).
+//     Masked scores become -inf and give p = 0 exactly; padded rows and
+//     columns get p = 0 in the backward; a tile with no edge and no
+//     causal diagonal in the warp's rows skips the mask, and in the
+//     forward a causal tile wholly after the warp's rows is skipped;
 //   - no atomics: each output element is written once by one lane, and
 //     two launches on the same inputs give bitwise-equal outputs.
 // What holds them below that floor (PERF.md has the times): issue
@@ -104,79 +102,22 @@
 
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
+#include "tf32x3.cuh"
+
 namespace {
+
+using namespace tf32x3;
 
 constexpr int kWarps = 4;              // warps per block
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 16;       // rows each warp owns
 constexpr int kRows = kWarps * kRowsPerWarp;  // rows a block owns (64)
-constexpr int kTile = 32;              // forward: streamed rows a tile, 1 a lane
-constexpr float kNegInf = -1e30f;      // the reference's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy rows [r0, r0 + n) of a row-major [S, D] matrix into shared memory
-// with row stride ld, times mul; rows at or past S become zeros. D is a
-// multiple of 4 and the source is 16-byte aligned: float4 loads.
-__device__ __forceinline__ void stage(float* dst, int ld,
-                                      const float* __restrict__ src, int r0,
-                                      int n, int S, int D, float mul) {
-  const int d4 = D / 4;
-  for (int i = threadIdx.x; i < n * d4; i += kThreads) {
-    const int r = i / d4;
-    const int dd = (i % d4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S)
-      v = *reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(r0 + r) * D + dd);
-    float* o = dst + r * ld + dd;
-    o[0] = v.x * mul;
-    o[1] = v.y * mul;
-    o[2] = v.z * mul;
-    o[3] = v.w * mul;
-  }
-}
-
-// ------------------------------------------- backward: tensor-core tools
-// cp.async: 16 bytes (or 4) from global to shared memory, bypassing the
-// registers; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Stage rows [r0, r0 + n) of a row-major [S, D] matrix into shared
 // memory as n rows of DP floats with row stride ld: rows at or past S
@@ -207,222 +148,195 @@ __device__ __forceinline__ void stage_vec_async(float* dst,
   }
 }
 
-// 3xTF32: x = big + small; a*b ~ a_big*b_big + a_big*b_small +
-// a_small*b_big runs float32-accurate products on the tensor cores (the
-// dropped a_small*b_small is at most 2^-22 of the product). big is x
-// rounded to TF32, to nearest with ties away (the result of
-// cvt.rna.tf32.f32), by integer arithmetic: cvt runs at a quarter of the
-// integer rate on this card and was the kernels' bottleneck. small =
-// x - big is exact in float32 and |small| <= 2^-11 |x|; the tensor core
-// reads a .tf32 operand's top 19 bits, so small enters the product
-// truncated to TF32 (|error| < 2^-10 |small| <= 2^-21 |x|), as in
-// CUTLASS's fast-float32 products that PyTorch's float32 attention uses.
-template <int N>
-__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&big)[N],
-                                      uint32_t (&small)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    big[i] = (__float_as_uint(x[i]) + 0x1000u) & 0xffffe000u;
-    small[i] = __float_as_uint(x[i] - __uint_as_float(big[i]));
-  }
-}
-
-// d += a * b for one m16n8k8 TF32 tile, float32 accumulators. Fragments
-// (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4],
-// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1]. Not volatile: the compiler may interleave
-// independent products.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d_i += a_i * b_i in 3xTF32 for four independent tiles: the small
-// terms of all four first, then the big ones, so that no product waits
-// on the one issued just before it (an MMA's latency is many cycles).
-__device__ __forceinline__ void mma3x4(
-    float (&d0)[4], float (&d1)[4], float (&d2)[4], float (&d3)[4],
-    const uint32_t (&ab0)[4], const uint32_t (&as0)[4],
-    const uint32_t (&ab1)[4], const uint32_t (&as1)[4],
-    const uint32_t (&ab2)[4], const uint32_t (&as2)[4],
-    const uint32_t (&ab3)[4], const uint32_t (&as3)[4],
-    const uint32_t (&bb)[4][2], const uint32_t (&bs)[4][2]) {
-  mma_tf32(d0, as0, bb[0]);
-  mma_tf32(d1, as1, bb[1]);
-  mma_tf32(d2, as2, bb[2]);
-  mma_tf32(d3, as3, bb[3]);
-  mma_tf32(d0, ab0, bs[0]);
-  mma_tf32(d1, ab1, bs[1]);
-  mma_tf32(d2, ab2, bs[2]);
-  mma_tf32(d3, ab3, bs[3]);
-  mma_tf32(d0, ab0, bb[0]);
-  mma_tf32(d1, ab1, bb[1]);
-  mma_tf32(d2, ab2, bb[2]);
-  mma_tf32(d3, ab3, bb[3]);
-}
-
-// acc[i] += tile[i] for N accumulator tiles: float32 adds, rounded to
-// nearest (see the head comment).
-template <int N>
-__device__ __forceinline__ void add_tiles(float (*acc)[4],
-                                          const float (&tile)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] += tile[i][e];
-}
-
-// The A fragment of k-step ks from a 16-row slice of shared memory
-// (rows r, r + 8 at stride ld), split into big and small parts.
-__device__ __forceinline__ void load_a(const float* rows, int ld, int ks,
-                                       int g, int t, uint32_t (&ab)[4],
-                                       uint32_t (&as)[4]) {
-  const float* p = rows + g * ld + 8 * ks + t;
-  const float x[4] = {p[0], p[8 * ld], p[4], p[8 * ld + 4]};
-  split(x, ab, as);
-}
-
-// The B fragment of B = M^T for an [N][K]-stored M (score products:
-// n-tile j, k-step ks): b = M[8j + g][8ks + t], M[8j + g][8ks + t + 4].
-__device__ __forceinline__ void load_bt(const float* m, int ld, int j, int ks,
-                                        int g, int t, uint32_t (&bb)[2],
-                                        uint32_t (&bs)[2]) {
-  const float* p = m + (8 * j + g) * ld + 8 * ks + t;
-  const float x[2] = {p[0], p[4]};
-  split(x, bb, bs);
-}
-
-// The B fragment of a [K][N]-stored B whose k index is permuted as the
-// accumulator layout leaves it (see the head comment): k-step kk,
-// n-tile n: b = B[8kk + 2t][8n + g], B[8kk + 2t + 1][8n + g].
-__device__ __forceinline__ void load_bp(const float* m, int ld, int kk, int n,
-                                        int g, int t, uint32_t (&bb)[2],
-                                        uint32_t (&bs)[2]) {
-  const float* p = m + (8 * kk + 2 * t) * ld + 8 * n + g;
-  const float x[2] = {p[0], p[ld]};
-  split(x, bb, bs);
-}
-
-// An accumulator tile (P^T, dS^T or dS) as the A fragment of the next
-// product, k permuted: A's k = t, t + 4 are the tile's columns 2t, 2t+1.
-__device__ __forceinline__ void acc_as_a(const float (&c)[4],
-                                         uint32_t (&ab)[4],
-                                         uint32_t (&as)[4]) {
-  const float x[4] = {c[0], c[2], c[1], c[3]};
-  split(x, ab, as);
-}
-
 // ---------------------------------------------------------------- fwd
-// grid (BH, ceil(Sq / 64)). NE = accumulator floats per lane per row:
-// D <= 32 * NE.
-template <int NE>
+// grid (BH, ceil(Sq / 64)): the block owns 64 query rows, 16 a warp,
+// and streams key/value tiles of BT rows, double-buffered with
+// cp.async, up to its last row when causal. DP: head_dim padded up to
+// its bucket (32, 64 or 128); BT: 64, or 32 at DP = 128 (registers).
+template <int DP, int BT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int D,
                  int causal, float scale) {
+  constexpr int LD = DP + 4;
+  constexpr int KS = DP / 8;  // k-steps of S = Q K^T = n-tiles of O
+  constexpr int NT = BT / 8;  // n-tiles of S = k-steps of O += P V
+  constexpr bool kKeepQ = DP <= 64;  // Q's split fragments in registers
+  constexpr int QF = kKeepQ ? KS : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                     // [kRows][D], pre-scaled
-  float* ks = qs + kRows * D;           // [kTile][D + 1]
-  float* vs = ks + kTile * (D + 1);     // [kTile][D]
+  float* qs = smem;                  // [kRows][LD]
+  float* ks = qs + kRows * LD;       // [2][BT][LD]
+  float* vs = ks + 2 * BT * LD;      // [2][BT][LD]
 
   const int64_t bh = blockIdx.x;
   const int q0 = blockIdx.y * kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* qb = q + bh * Sq * D;
+  const int g = lane / 4, t = lane % 4;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
 
-  stage(qs, D, qb, q0, kRows, Sq, D, scale);
-
-  // the keys this block reads: all of them, or up to its last row
   const int n_keys = causal ? min(Sk, q0 + kRows) : Sk;
+  const int n_tiles = (n_keys + BT - 1) / BT;
+  auto stage_tile = [&](int it) {
+    const int b = it & 1;
+    stage_async<DP>(ks + b * BT * LD, LD, kb, it * BT, BT, Sk, D);
+    stage_async<DP>(vs + b * BT * LD, LD, vb, it * BT, BT, Sk, D);
+  };
+  stage_async<DP>(qs, LD, q + bh * Sq * D, q0, kRows, Sq, D);
+  if (n_tiles > 0) stage_tile(0);
+  cp_async_commit();
 
-  int limit[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NE];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int qpos = q0 + warp * kRowsPerWarp + i;
-    // a row past the end sees no key; a causal row sees keys <= qpos
-    limit[i] = qpos >= Sq ? -1 : (causal ? min(qpos, Sk - 1) : Sk - 1);
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < NE; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n_keys; t0 += kTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is ready)
-    stage(ks, D + 1, kb, t0, kTile, Sk, D, 1.f);
-    stage(vs, D, vb, t0, kTile, Sk, D, 1.f);
+  const int rw = warp * kRowsPerWarp;  // the warp's first row in the block
+  const int last = q0 + rw + kRowsPerWarp - 1;  // and its last row
+  const float* qw = qs + rw * LD;
+  uint32_t qbig[QF][4], qsml[QF][4];
+  if constexpr (kKeepQ) {
+    cp_async_wait_all();
     __syncthreads();
-
-    // scores: lane j scores key t0 + j against each of the warp's rows
-    const int t = t0 + lane;
-    float s[kRowsPerWarp];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const float* kr = ks + lane * (D + 1);
-    const float* qw = qs + warp * kRowsPerWarp * D;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        s[i] = fmaf(qw[i * D + d], kd, s[i]);
-    }
-
-    // online softmax: one max and one sum reduction per tile and row
-    float p[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const bool keep = t <= limit[i];
-      const float si = keep ? s[i] : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float alpha = expf(m[i] - m_new);
-      p[i] = keep ? expf(si - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < NE; ++e) acc[i][e] *= alpha;
-    }
-
-    // acc[row][d] += sum_j p[row][j] * V[j][d]; lane owns d = lane + 32e
-    const int n_here = min(kTile, n_keys - t0);
-    for (int j = 0; j < n_here; ++j) {
-      float vd[NE];
-#pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        const int d = lane + 32 * e;
-        vd[e] = d < D ? vs[j * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
-#pragma unroll
-        for (int e = 0; e < NE; ++e) acc[i][e] = fmaf(pj, vd[e], acc[i][e]);
-      }
-    }
+    for (int kk = 0; kk < QF; ++kk)
+      load_a(qw, LD, kk, g, t, qbig[kk], qsml[kk]);
   }
 
+  // the lane's rows g and g + 8: running max in units of
+  // s * scale * log2(e), the lane's share of the running sum, and the
+  // output accumulators (columns 8n + 2t, 8n + 2t + 1)
+  const float c = scale * kLog2e;
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float acc[KS][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int qpos = q0 + warp * kRowsPerWarp + i;
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it has landed; every warp is done with it - 1
+    if (it + 1 < n_tiles) stage_tile(it + 1);  // overlaps this tile's math
+    cp_async_commit();
+    const int t0 = it * BT;
+    if (causal && t0 > last) continue;  // no row of the warp sees the tile
+    const int b = it & 1;
+    const float* kt = ks + b * BT * LD;
+    const float* vt = vs + b * BT * LD;
+
+    // S = Q K^T: the warp's 16 rows x BT keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      if constexpr (kKeepQ) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qbig[kk][e];
+          as[e] = qsml[kk][e];
+        }
+      } else {
+        load_a(qw, LD, kk, g, t, ab, as);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 4) {
+        uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_bt(kt, LD, j + i, kk, g, t, bb[i], bs[i]);
+        mma3x4(s[j], s[j + 1], s[j + 2], s[j + 3], ab, as, ab, as, ab, as,
+               ab, as, bb, bs);
+      }
+    }
+
+    // masked scores become -inf (p = 0 exactly below); a tile with no
+    // key past Sk and no causal diagonal in the warp's rows skips this
+    if (!(t0 + BT <= Sk && (!causal || t0 + BT - 1 <= q0 + rw))) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + rw + g + (e & 2 ? 8 : 0);
+          const int kpos = t0 + 8 * j + 2 * t + (e & 1);
+          if (!(kpos < Sk && (!causal || kpos <= qpos))) s[j][e] = -INFINITY;
+        }
+    }
+
+    // online softmax: the row max over the quad's 4 lanes (2 shuffles),
+    // then p = 2^(s c - m), one FFMA and one ex2 a score
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * c);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[j][e], c, -m[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+
+    // O = O alpha + P V: the tile's P V in fresh fragments (k runs over
+    // the tile's keys, permuted), merged by one float32 FFMA an element
+    float to[KS][4];
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) to[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t pbig[4], psml[4];
+      acc_as_a(s[j], pbig, psml);
+#pragma unroll
+      for (int n = 0; n < KS; n += 4) {
+        uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_bp(vt, LD, j, n + i, g, t, bb[i], bs[i]);
+        mma3x4(to[n], to[n + 1], to[n + 2], to[n + 3], pbig, psml, pbig,
+               psml, pbig, psml, pbig, psml, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], to[n][e]);
+  }
+  cp_async_wait_all();
+
+  // the row sums over the quad's lanes, then one store an element;
+  // lse = (m + log2 l) ln 2 in natural-log units
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qpos = q0 + rw + g + 8 * h;
     if (qpos >= Sq) continue;
-    const float denom = fmaxf(l[i], FLT_MIN);
+    const float denom = fmaxf(sum, FLT_MIN);
     float* orow = o + (bh * Sq + qpos) * D;
 #pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      const int d = lane + 32 * e;
-      if (d < D) orow[d] = acc[i][e] / denom;
+    for (int n = 0; n < KS; ++n) {
+      const int d = 8 * n + 2 * t;  // D is a multiple of 4: d + 1 < D too
+      if (d < D)
+        *reinterpret_cast<float2*>(orow + d) = make_float2(
+            acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
     }
-    if (lane == 0) lse[bh * Sq + qpos] = m[i] + logf(denom);
+    if (t == 0) lse[bh * Sq + qpos] = (m[h] + log2f(denom)) * kLn2;
   }
 }
 
@@ -766,25 +680,27 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 size_t floats(size_t n) { return sizeof(float) * n; }
 
-template <int NE>
+// Streamed rows per tile: 64, or 32 at the 128 bucket, where the
+// accumulators (dK and dV in the backward; O and its per-tile sum in the
+// forward) take 128 registers a lane.
+template <int DP>
+constexpr int tile_rows() { return DP <= 64 ? 64 : 32; }
+
+template <int DP>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                        float* o, float* lse, int BH, int Sq, int Sk, int D,
                        int causal, float scale, cudaStream_t stream) {
-  const size_t smem = floats(static_cast<size_t>(kRows) * D
-                             + static_cast<size_t>(kTile) * (D + 1)
-                             + static_cast<size_t>(kTile) * D);
-  cudaError_t e = allow_smem(flash_fwd_kernel<NE>, smem);
+  constexpr int BT = tile_rows<DP>();
+  constexpr size_t LD = DP + 4;
+  const size_t smem = floats(kRows * LD + 4 * BT * LD);
+  auto kernel = flash_fwd_kernel<DP, BT>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(BH, (Sq + kRows - 1) / kRows);
-  flash_fwd_kernel<NE><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, lse, Sq, Sk, D, causal, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, Sq, Sk, D,
+                                           causal, scale);
   return cudaGetLastError();
 }
-
-// Streamed rows per backward tile: 64, or 32 at the 128 bucket, where
-// the dK and dV accumulators take 128 registers a lane.
-template <int DP>
-constexpr int bwd_tile() { return DP <= 64 ? 64 : 32; }
 
 template <int DP>
 cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
@@ -792,7 +708,7 @@ cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
                         const float* delta, float* dk, float* dv, int BH,
                         int Sq, int Sk, int D, int causal, float scale,
                         cudaStream_t stream) {
-  constexpr int BT = bwd_tile<DP>();
+  constexpr int BT = tile_rows<DP>();
   constexpr size_t LD = DP + 4;
   const size_t smem = floats(2 * kRows * LD + 4 * BT * LD + 4 * BT);
   auto kernel = flash_bwd_dkdv_kernel<DP, BT>;
@@ -809,7 +725,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse,
                       const float* delta, float* dq, int BH, int Sq, int Sk,
                       int D, int causal, float scale, cudaStream_t stream) {
-  constexpr int BT = bwd_tile<DP>();
+  constexpr int BT = tile_rows<DP>();
   constexpr size_t LD = DP + 4;
   const size_t smem = floats(2 * kRows * LD + 4 * BT * LD);
   auto kernel = flash_bwd_dq_kernel<DP, BT>;
@@ -836,19 +752,20 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   float scale, void* stream) {
   if (bad_shape(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return cudaSuccess;
-  auto fq = static_cast<const float*>(q);
-  auto fk = static_cast<const float*>(k);
-  auto fv = static_cast<const float*>(v);
-  auto fo = static_cast<float*>(o);
-  auto fl = static_cast<float*>(lse);
-  auto st = static_cast<cudaStream_t>(stream);
+  auto args = [&](auto launcher) {
+    return launcher(static_cast<const float*>(q),
+                    static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o),
+                    static_cast<float*>(lse), BH, Sq, Sk, D, causal, scale,
+                    static_cast<cudaStream_t>(stream));
+  };
   cudaError_t e;
   if (D <= 32)
-    e = launch_fwd<1>(fq, fk, fv, fo, fl, BH, Sq, Sk, D, causal, scale, st);
+    e = args(launch_fwd<32>);
   else if (D <= 64)
-    e = launch_fwd<2>(fq, fk, fv, fo, fl, BH, Sq, Sk, D, causal, scale, st);
+    e = args(launch_fwd<64>);
   else
-    e = launch_fwd<4>(fq, fk, fv, fo, fl, BH, Sq, Sk, D, causal, scale, st);
+    e = args(launch_fwd<128>);
   return static_cast<int>(e);
 }
 

@@ -4,8 +4,9 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
 ``ctypes``. The build happens at first use, from the sources in the
 checkout, into ``paddle_tpu_torch/_build/`` (listed in ``.gitignore``);
-the library's file name carries a digest of its source, so an edited
-kernel never loads a stale build. Nothing here runs at import.
+the library's file name carries a digest of its source and of the
+shared headers (``csrc/*.cuh``), so an edited kernel or header never
+loads a stale build. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -84,9 +85,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, named by a digest of its source and of every
+    header in ``csrc/`` (a source includes them by relative path), so an
+    edited header rebuilds every library."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

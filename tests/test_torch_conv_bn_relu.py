@@ -5,7 +5,9 @@ The JAX side runs its Pallas kernel in interpret mode, as its own tests
 do. Tolerances (float32; im2col GEMMs summed in other orders): forward
 2e-5, fold_bn 1e-6 relative, gradients 1e-4, the two SGD losses 1e-5
 relative. The CUDA kernel itself runs only on a card (chip_smoke.py's
-`infer kernels` phase holds it against this plain version)."""
+`infer kernels` phase holds it against this plain version);
+test_k5_arithmetic_emulated runs its arithmetic (3xTF32 products in
+slices of 32 k, two k-groups, a fixed summation order) on the CPU."""
 import types
 
 import jax
@@ -23,6 +25,7 @@ import paddle_tpu_torch.fluid as tfluid
 from paddle_tpu_torch.fluid import layers as tlayers
 from paddle_tpu_torch.fluid import unique_name as tunique
 from paddle_tpu_torch.kernels import conv_bn_relu as k5
+from test_torch_flash_attention import _tf32_rna, _tf32_trunc
 
 # (x shape, F, k, stride, padding, relu): the JAX tests' four shapes
 # (tests/test_pallas_kernels.py), a 1x1/2 projection, the 7x7/2 pad-3
@@ -187,3 +190,59 @@ def test_conv2d_bn_relu_op_trains_like_jax_pallas(jax_pallas_forced):
     np.testing.assert_allclose(losses["torch"], losses["jax"], rtol=1e-5)
     assert losses["torch"][1] < losses["torch"][0]
     assert k5.counts.plain_calls[k5.KERNEL] - before == 2
+
+
+def _k5_emulated(x, w, scale, shift, stride, padding, relu):
+    """K5's arithmetic on the CPU: the implicit GEMM in slices of 32 k;
+    each slice's three TF32 products (operands split as the kernel
+    splits them) summed exactly and rounded once to float32 (the tensor
+    core's truncating summation is not modelled); slice s's sum added in
+    float32 to the accumulator of k-group s % 2, then group 1's to group
+    0's; the affine in two roundings and relu. Returns NCHW float32."""
+    n, _, h, wd = x.shape
+    f, _, kh, kw = w.shape
+    oh, ow = k5.conv_out_hw(h, wd, kh, kw, stride, padding)
+    p = k5._patches(x.float(), kh, kw, stride, padding)
+    wt = w.float().reshape(f, -1)
+    pad = -p.shape[1] % 32
+    p, wt = (torch.nn.functional.pad(a, (0, pad)) for a in (p, wt))
+    pb, wb = _tf32_rna(p), _tf32_rna(wt)
+    ps, ws = _tf32_trunc(p - pb), _tf32_trunc(wt - wb)
+    acc = [torch.zeros(p.shape[0], f), torch.zeros(p.shape[0], f)]
+    for s in range(p.shape[1] // 32):
+        k = slice(32 * s, 32 * s + 32)
+        terms = [(ps, wb), (pb, ws), (pb, wb)]
+        fr = sum(a[:, k].double() @ b[:, k].double().T for a, b in terms)
+        acc[s % 2] = acc[s % 2] + fr.float()
+    y = (acc[0] + acc[1]) * scale.float() + shift.float()
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.reshape(n, oh, ow, f).permute(0, 3, 1, 2)
+
+
+# the stem (K = 147, not a multiple of 4 or 32), a strided 3x3 and a 1x1
+K5_EMULATED = [((4, 3, 30, 30), 8, 7, 2, 3, True),
+               ((4, 8, 9, 9), 12, 3, 2, 0, True),
+               ((4, 64, 7, 7), 32, 1, 1, 0, False)]
+
+
+@pytest.mark.parametrize("shape,f,k,stride,padding,relu", K5_EMULATED)
+def test_k5_arithmetic_emulated(shape, f, k, stride, padding, relu):
+    """K5's arithmetic keeps float32 accuracy and its batch
+    independence: within 2e-5 of a float64 convolution and of the JAX
+    kernel (Pallas, interpret mode), and an image's outputs are bitwise
+    the same at batch 4 and alone."""
+    arrs = _inputs(7, shape, f, k)
+    xt, wt, st, sh = (torch.from_numpy(a) for a in arrs)
+    got = _k5_emulated(xt, wt, st, sh, stride, padding, relu)
+    exact = torch.nn.functional.conv2d(
+        xt.double(), wt.double(), stride=stride, padding=padding) \
+        * st.double()[None, :, None, None] + sh.double()[None, :, None, None]
+    if relu:
+        exact = torch.clamp_min(exact, 0.0)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=0,
+                               atol=2e-5)
+    want = np.asarray(_jax_fwd(*arrs, stride, padding, relu))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    alone = _k5_emulated(xt[1:2], wt, st, sh, stride, padding, relu)
+    assert torch.equal(got[1:2], alone)

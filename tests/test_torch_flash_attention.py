@@ -8,13 +8,17 @@ Sq != Sk both ways, head_dim 16 and 64. Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
 
-The CUDA backward kernels (K3a, K3b) take their products on the tensor
+The CUDA kernels (K2, K3a, K3b) take their products on the tensor
 cores in 3xTF32; test_3xtf32_products_keep_float32_accuracy emulates
 that operand split on the CPU and pins why its products keep float32
-accuracy. The tensor core's own accumulation is not emulated: chip_smoke.py
+accuracy, and test_k2_algorithm_emulated runs K2's whole algorithm (key
+tiles of 64, split products, exp2-domain online softmax, each tile's
+P V merged by O = O alpha + O_tile) against float64 and the JAX kernel.
+The tensor core's own accumulation is not emulated: chip_smoke.py
 reads the kernels against float64 on the card.
 """
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -164,3 +168,68 @@ def test_3xtf32_products_keep_float32_accuracy(causal):
         assert e3 <= 1e-6 * top, (name, e3, top)
         assert e3 <= 2 * ef, (name, e3, ef)
         assert e1 >= 100 * e3, (name, e1, e3)
+
+
+def _mm3_f32(a, b):
+    """K2's product in float32: operands split as the kernels split
+    them, the three products (small terms first) summed in float32."""
+    a, b = a.float(), b.float()
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_trunc(a - ab), _tf32_trunc(b - bb)
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def _k2_emulated(q, k, v, causal, scale, tile=64):
+    """K2's algorithm on the CPU in float32: key tiles of ``tile``,
+    3xTF32 products, the running max m in units of s * scale * log2(e),
+    p = 2^(s c - m), masked scores -inf (p = 0), each tile's P V in fresh
+    fragments merged as O = O alpha + O_tile, lse = (m + log2 l) ln 2.
+    Returns (O, LSE)."""
+    bh, sq, d = q.shape
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    for t0 in range(0, k.shape[1], tile):
+        kt, vt = k[:, t0:t0 + tile], v[:, t0:t0 + tile]
+        s = _mm3_f32(q, kt.transpose(1, 2))
+        if causal:
+            kpos = torch.arange(t0, t0 + kt.shape[1])[None, :]
+            s = s.masked_fill(kpos > torch.arange(sq)[:, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3_f32(p, vt)
+        m = m_new
+    den = l.clamp(min=torch.finfo(torch.float32).tiny)
+    return acc / den, ((m + torch.log2(den)) * math.log(2.0))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k2_algorithm_emulated(causal):
+    """K2's arithmetic at [2, 512, 64] keeps float32 accuracy: O and LSE
+    err against float64 at most 4x the plain float32 version's error
+    (and under 1e-5), and agree with the JAX _fwd_kernel (Pallas,
+    interpret mode, 64-row blocks) within 5e-6."""
+    rng = np.random.RandomState(5 + causal)
+    q, k, v = (torch.tensor(rng.randn(2, 512, 64).astype(np.float32))
+               for _ in range(3))
+    scale = 64 ** -0.5
+    s = torch.matmul(q.double(), k.double().transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(~tfa._causal_keep(512, 512, s.device), -math.inf)
+    lse64 = torch.logsumexp(s, dim=-1)
+    o64 = torch.matmul(torch.exp(s - lse64[..., None]), v.double())
+    emu = _k2_emulated(q, k, v, causal, scale)
+    plain = tfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    jo, jlse = jfa._fwd_pallas(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                               scale, causal, 64, 64, True, None)
+    for name, got, ref, pl_, jx in (("O", emu[0], o64, plain[0], jo),
+                                    ("LSE", emu[1], lse64, plain[1], jlse)):
+        e_emu = float((got.double() - ref).abs().max())
+        e_plain = float((pl_.double() - ref).abs().max())
+        assert e_emu <= 4 * e_plain and e_emu < 1e-5, (name, e_emu, e_plain)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jx), rtol=0,
+                                   atol=5e-6, err_msg=name)
