@@ -182,8 +182,8 @@ def _kernel_name(mangled):
         name = mangled[end:end + int(m.group())]
         if name.endswith("_kernel") and name[:1].isalpha():
             rest = mangled[end + len(name):]
-            args = re.match(r"I((?:Li-?\d+E)+)E", rest)
-            return name + ("<" + ",".join(re.findall(r"Li(-?\d+)E",
+            args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
+            return name + ("<" + ",".join(re.findall(r"L[ib](-?\d+)E",
                                                       args.group(1))) + ">"
                            if args else "")
     return mangled
@@ -253,15 +253,26 @@ def _dead_rows(case, out):
     return out[mask]
 
 
+# cycles of torch.cuda._sleep queued after the L2 flush: ~1 ms at the
+# H100's clocks, longer than any wrapper's host work before its launch
+QUEUE_SLEEP_CYCLES = 2_000_000
+
+
 def _time_ms(torch, fn, flush, n=25, warmup=3):
     """Median device ms of one call, L2 flushed before each (the serving
-    step reads a layer's pool cold: 23 other layers ran in between)."""
+    step reads a layer's pool cold: 23 other layers ran in between). A
+    spin kernel queued after the flush keeps the card busy while the
+    host prepares the call, so the events time the call's kernels and
+    the gaps between them on the card, not the host's Python work
+    before its first launch (a wrapper's host time is read apart, see
+    ``_host_us``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -272,10 +283,34 @@ def _time_ms(torch, fn, flush, n=25, warmup=3):
     return statistics.median(times)
 
 
+def _host_us(torch, fn, n=200):
+    """Host microseconds of one call of a wrapper: the wall time of n
+    calls queued back to back, then one synchronize, over n (the host's
+    Python and launch work where it is longer than the card's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+# what K4's bound_ms counts: its decode path runs on the CUDA cores, its
+# chunk (prefill) path takes Q K^T and P V as 3xTF32 on the tensor cores
+PAGED_PEAK = ("bytes over 3.35 TB/s against float32 operations over 67 "
+              "TFLOP/s; bound_tf32x3_ms: the products as 3xTF32 (3 x 4D "
+              "flops a pair over 495 TFLOP/s) + ~5 float32 flops a pair "
+              "over 67 TFLOP/s")
+
+
 def _bound(case, D):
     """Least time for the function on these inputs: bytes each input
     read once (visible K/V only) and each output written once over HBM
-    bandwidth, against its float32 operations over the float32 peak."""
+    bandwidth, against its float32 operations over the float32 peak
+    (``bound_ms``, ``bound_by``); and the same bytes against the
+    products as 3xTF32 on the tensor cores plus ~5 float32 flops a
+    (query, key) pair (``bound_tf32x3_ms``, the chunk path's floor)."""
     import numpy as np
 
     B, Hq, Hkv = case["B"], case["Hq"], case["Hkv"]
@@ -286,10 +321,16 @@ def _bound(case, D):
     kv_bytes = 2 * int(kv.sum()) * Hkv * D * 4
     qo_bytes = 2 * B * C * Hq * D * 4
     idx_bytes = 4 * (B * case["W"] + 2 * B)
-    pairs = sum(int(kv[b] - ql[b] + j + 1) for b in range(B)
-                for j in range(int(ql[b])))
-    flops = 4 * D * Hq * pairs
-    return _bound_of(kv_bytes + qo_bytes + idx_bytes, flops)
+    pairs = Hq * sum(int(kv[b] - ql[b] + j + 1) for b in range(B)
+                     for j in range(int(ql[b])))
+    nbytes = kv_bytes + qo_bytes + idx_bytes
+    ms, by = _bound_of(nbytes, 4 * D * pairs)
+    t_tc = pairs * (3 * 4 * D / TF32_FLOP_PER_S + 5 / F32_FLOP_PER_S)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_tf32x3_ms": max(nbytes / HBM_BYTES_PER_S, t_tc) * 1e3,
+            "bound_tf32x3_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= t_tc
+                                else "operations"),
+            "bound_peak": PAGED_PEAK}
 
 
 def _bound_of(nbytes, flops):
@@ -327,7 +368,84 @@ def _library_call(torch, args, case):
     return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
 
 
+def _paged_float64(torch, args, scale=None):
+    """The paged-attention function in float64 (the plain version's
+    formulas on double copies): the accuracy yardstick."""
+    q, kp, vp, tables, kv_lens, q_lens = args
+    if q.ndim == 3:
+        q, q_lens = q[:, None], (kv_lens > 0).int()
+    B, C, Hq, D = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    T = tables.shape[1] * ps
+    k = kp.double()[tables.long()].reshape(B, T, Hkv, D)
+    v = vp.double()[tables.long()].reshape(B, T, Hkv, D)
+    k = k.repeat_interleave(Hq // Hkv, 2)
+    v = v.repeat_interleave(Hq // Hkv, 2)
+    s = torch.einsum("bchd,bthd->bcht", q.double() * (scale or D ** -0.5), k)
+    lane = torch.arange(C, device=q.device)[None, :]
+    limit = kv_lens.long()[:, None] - q_lens.long()[:, None] + lane
+    t = torch.arange(T, device=q.device)[None, None, :]
+    keep = ((t <= limit[:, :, None]) & (lane < q_lens.long()[:, None])
+            [:, :, None])[:, :, None, :]
+    s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, -1).nan_to_num(0.0)
+    o = torch.einsum("bcht,bthd->bchd", p, v)
+    return o[:, 0] if args[0].ndim == 3 else o
+
+
+def _paged_bitwise_checks(torch, pa, rng, base):
+    """The kernels' determinism, each a hard check: two launches on the
+    same inputs are bitwise equal; slot b launched alone equals slot b
+    of the B=8 batch; a decode slot (q_len 1) gives the same bits in a
+    C=1 launch and inside a C=64 launch beside prefilling slots (MHA and
+    GQA: the per-block path follows the slot's own q_len * rep)."""
+    kv8 = [1, 1024, 0, 517, 33, 800, 256, 999]
+    checks = []
+    for hkv in (16, 4):
+        for C, ql in ((None, None), (64, [64, 1, 0, 17, 1, 64, 1, 5])):
+            case = dict(base, B=8, C=C, Hq=16, Hkv=hkv,
+                        kv_lens=[max(k, q or 0) for k, q in
+                                 zip(kv8, ql or [0] * 8)], q_lens=ql)
+            args = _paged_case(torch, rng, **case)
+            first = pa.paged_attention(*args[:5], q_lens=args[5])
+            second = pa.paged_attention(*args[:5], q_lens=args[5])
+            if not torch.equal(first, second):
+                raise RuntimeError(f"K4 Hkv={hkv} C={C}: two launches "
+                                   f"differ")
+            for b in range(8):
+                alone = pa.paged_attention(
+                    args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
+                    args[4][b:b + 1],
+                    q_lens=None if args[5] is None else args[5][b:b + 1])
+                if not torch.equal(alone[0], first[b]):
+                    raise RuntimeError(f"K4 Hkv={hkv} C={C}: slot {b} "
+                                       f"alone differs from the batch")
+            checks.append(f"Hkv={hkv} C={C}: repeat and 8 slots alone")
+            if C is None:
+                continue
+            # the same slots as a C=1 decode step: q's lane 0, q_len 1
+            ones = torch.ones_like(args[5])
+            one = pa.paged_attention(args[0][:, :1].contiguous(),
+                                     *args[1:5], q_lens=ones)
+            dec = [b for b in range(8) if ql[b] == 1]
+            for b in dec:
+                if not torch.equal(one[b, 0], first[b, 0]):
+                    raise RuntimeError(f"K4 Hkv={hkv}: decode slot {b} "
+                                       f"differs between C=1 and C=64")
+            checks.append(f"Hkv={hkv}: decode slots {dec} C=1 == C=64")
+    torch.cuda.synchronize()
+    log("  K4 bitwise: " + "; ".join(checks))
+    return checks
+
+
 def kernels_phase(torch):
+    """K4 against its plain version on seeded cases (max abs error <=
+    TOL, dead rows exactly 0; head_dim 64, 18, 100, 256, 1 and 129, page
+    sizes 16, 5 and 3, MHA and GQA, decode and chunked), the bitwise determinism checks, then timed
+    at the serving shapes (decode B=8, the one-slot request B=1, GQA
+    decode, a C=64 prefill chunk): the kernel and SDPA on gathered K/V
+    in turns, the plain version once, both bounds, and the kernel's,
+    the plain version's and SDPA's error against float64."""
     phase("kernels")
     import numpy as np
 
@@ -347,8 +465,32 @@ def kernels_phase(torch):
         "gqa4_chunked": dict(base, B=4, C=64, Hq=16, Hkv=4,
                              kv_lens=[700, 64, 3, 0],
                              q_lens=[64, 50, 3, 0]),
+        # GQA decode at 16 and 8 rows a group (the decode path's limits)
+        "gqa16_single": dict(base, B=4, C=None, Hq=16, Hkv=1,
+                             kv_lens=[700, 1, 0, 1024], q_lens=None),
+        "d18_chunked": dict(base, D=18, B=4, C=8, Hq=4, Hkv=2,
+                            kv_lens=[300, 8, 0, 129],
+                            q_lens=[8, 3, 0, 1]),
+        "d18_single": dict(base, D=18, B=4, C=None, Hq=8, Hkv=8,
+                           kv_lens=[300, 8, 0, 1024], q_lens=None),
+        "d100_chunked": dict(base, D=100, B=4, C=33, Hq=8, Hkv=4,
+                             kv_lens=[500, 33, 0, 1000],
+                             q_lens=[33, 20, 0, 1]),
+        "d256_chunked": dict(base, D=256, B=3, C=16, Hq=8, Hkv=2,
+                             kv_lens=[400, 16, 1024],
+                             q_lens=[16, 2, 1]),
+        "d256_gqa8_single": dict(base, D=256, B=3, C=None, Hq=8, Hkv=1,
+                                 kv_lens=[400, 0, 1024], q_lens=None),
+        # head_dim 1 and 129; page sizes that divide no split or tile
+        "d1_ps3_chunked": dict(base, D=1, ps=3, W=100, B=3, C=20, Hq=4,
+                               Hkv=2, kv_lens=[290, 20, 1],
+                               q_lens=[20, 17, 1]),
+        "d129_ps5_chunked": dict(base, D=129, ps=5, W=60, B=3, C=7, Hq=6,
+                                 Hkv=3, kv_lens=[300, 7, 61],
+                                 q_lens=[7, 2, 1]),
     }
     max_err = 0.0
+    errors = {}
     for name, case in cases.items():
         args = _paged_case(torch, rng, **case)
         ref = pa.paged_attention_reference(*args[:5], q_lens=args[5])
@@ -367,16 +509,25 @@ def kernels_phase(torch):
             raise RuntimeError(f"kernel case {name}: max abs err {err:.3g} "
                                f"> {TOL}")
         max_err = max(max_err, err)
+        errors[name] = err
         log(f"  {name}: max abs err {err:.3g}, {dead.size} dead values "
             f"exactly 0")
+    bitwise = _paged_bitwise_checks(torch, pa, rng, base)
 
-    # timings at the serving phase's shapes: decode (C=1) and a prefill
-    # chunk (C=64), ragged kv_lens 512..1024, all slots live
+    # timings at the serving phase's shapes: decode (C=1) at B=8, the
+    # one-slot request (B=1, 1024 keys), GQA decode (Hkv=4) and a
+    # prefill chunk (C=64); ragged kv_lens 512..1024, all slots live.
+    # The kernel and SDPA on gathered K/V in turns (the means of two
+    # turns each), the plain version once.
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
     lens = [int(x) for x in rng.randint(512, 1025, size=8)]
     shapes = {
         "decode": dict(base, B=8, C=None, Hq=16, Hkv=16, P=513,
                        kv_lens=lens, q_lens=None),
+        "decode_b1": dict(base, B=1, C=None, Hq=16, Hkv=16, P=513,
+                          kv_lens=[1024], q_lens=None),
+        "decode_gqa4": dict(base, B=8, C=None, Hq=16, Hkv=4, P=513,
+                            kv_lens=lens, q_lens=None),
         "prefill": dict(base, B=8, C=64, Hq=16, Hkv=16, P=513,
                         kv_lens=lens, q_lens=[64] * 8),
     }
@@ -384,19 +535,34 @@ def kernels_phase(torch):
     for name, case in shapes.items():
         args = _paged_case(torch, rng, **case)
         kw = dict(q_lens=args[5])
-        row = {
-            "kernel_ms": _time_ms(torch, lambda: pa.paged_attention(
-                *args[:5], **kw), flush),
-            "plain_ms": _time_ms(torch, lambda: pa.paged_attention_reference(
-                *args[:5], **kw), flush),
-            "library_ms": _time_ms(torch, _library_call(torch, args, case),
-                                   flush),
-        }
-        row["bound_ms"], row["bound_by"] = _bound(case, 64)
-        row["kv_lens"] = lens
+        kern = lambda: pa.paged_attention(*args[:5], **kw)  # noqa: E731
+        lib = _library_call(torch, args, case)
+        k_ms, l_ms, turns = _in_turns(torch, kern, lib, flush)
+        row = {"kernel_ms": k_ms, "library_ms": l_ms,
+               "ratio_kernel_over_sdpa": k_ms / l_ms,
+               "turns_ms": {"kernel": turns[0], "sdpa": turns[1]},
+               "plain_ms": _time_ms(torch, lambda: pa.paged_attention_reference(
+                   *args[:5], **kw), flush)}
+        row.update(_bound(case, 64))
+        row["host_us"] = _host_us(torch, kern)
+        exact = _paged_float64(torch, args)
+        row["vs_float64"] = {
+            "kernel": (kern() - exact).abs().max().item(),
+            "plain": (pa.paged_attention_reference(*args[:5], **kw)
+                      - exact).abs().max().item(),
+            "sdpa": (lib().transpose(1, 2).reshape(exact.shape)
+                     - exact).abs().max().item()}
+        row["vs_plain"] = (kern() - pa.paged_attention_reference(
+            *args[:5], **kw)).abs().max().item()
+        row["kv_lens"] = case["kv_lens"]
+        row["shape"] = (f"B={case['B']} C={case['C'] or 1} Hq={case['Hq']} "
+                        f"Hkv={case['Hkv']} D=64 ps=16 W=64")
         timings[name] = row
         log(f"  time {name}: " + json.dumps(row))
+        del exact
     del flush
+    timings["errors"] = errors
+    timings["bitwise"] = bitwise
     return max_err, timings
 
 
@@ -478,7 +644,7 @@ def _flash_bounds(bh, sq, sk, d, causal):
 SDPA_LIBRARY = "sdpa efficient (3xTF32 mma.sync)"
 
 
-def _sdpa(torch, c, causal):
+def _sdpa(torch, c, causal, heads=N_HEADS):
     """(forward, backward) calls of SDPA, pinned to its memory-efficient
     backend, on [B, H, S, D] views of a case: the yardstick, never used
     by the port. The backward computes dQ, dK and dV from one retained
@@ -486,10 +652,11 @@ def _sdpa(torch, c, causal):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    b, s, d = 16, SEQ, c["q"].shape[-1]
-    q4, k4, v4 = (t.reshape(b, N_HEADS, s, d).detach().requires_grad_()
+    s, d = c["q"].shape[1], c["q"].shape[-1]
+    b = c["q"].shape[0] // heads
+    q4, k4, v4 = (t.reshape(b, heads, s, d).detach().requires_grad_()
                   for t in (c["q"], c["k"], c["v"]))
-    do4 = c["do"].reshape(b, N_HEADS, s, d)
+    do4 = c["do"].reshape(b, heads, s, d)
 
     def fwd():
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -669,14 +836,19 @@ def train_kernels_phase(torch):
 
     # K2, K3a, K3b: causal and not; S not a multiple of the tiles;
     # Sq != Sk both ways (causal with Sq > Sk too); head_dim 64 (the
-    # model's), 16, 20 (zero-padded k slice and head_dim tail) and 128
-    # (the largest bucket)
+    # model's), 16, 20 (zero-padded k slice and head_dim tail), 128 (the
+    # largest tensor-core bucket), 18 (zero-padded to 20 by the wrapper),
+    # 100, 1, and 256, 132 and 129 (the CUDA-core bucket)
     cases = [(128, SEQ, SEQ, 64, False), (128, SEQ, SEQ, 64, True),
              (6, 40, 40, 64, True), (6, 40, 72, 64, False),
              (6, 40, 72, 64, True), (6, 100, 33, 16, True),
              (6, 100, 33, 16, False), (6, 77, 50, 20, True),
              (6, 50, 77, 20, False), (4, 200, 130, 128, True),
-             (4, 130, 200, 128, False), (8, 300, 170, 64, True)]
+             (4, 130, 200, 128, False), (8, 300, 170, 64, True),
+             (6, 77, 50, 18, True), (6, 50, 77, 18, False),
+             (4, 90, 90, 100, True), (4, 200, 130, 256, True),
+             (4, 130, 200, 256, False), (3, 70, 70, 132, True),
+             (4, 33, 45, 1, True), (3, 60, 60, 129, False)]
     for bh, sq, sk, d, causal in cases:
         c = _flash_case(torch, rng, bh, sq, sk, d, causal)
         args = (c["q"], c["k"], c["v"])
@@ -780,7 +952,36 @@ def train_kernels_phase(torch):
             torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
             f"forward (K2) causal={causal}")
         del sdpa, sdpa_bwd
-    del flush
+    # head_dim 256 (d_model 512 with 2 heads): the CUDA-core bucket,
+    # forward and whole backward in turns with SDPA's
+    c = _flash_case(torch, rng, 16 * 2, SEQ, SEQ, 256, False)
+    args = (c["q"], c["k"], c["v"], False, c["scale"])
+    bounds = _flash_bounds(32, SEQ, SEQ, 256, False)
+    d256 = {"shape": f"[BH=32, S={SEQ}, D=256] f32 causal=False",
+            "bounds": bounds}
+
+    def port_bwd256():
+        delta = (c["do"] * c["o"]).sum(dim=-1)
+        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                      c["lse"], delta, False, c["scale"])
+    try:
+        sdpa, sdpa_bwd = _sdpa(torch, c, False, heads=2)
+        d256["forward"] = _vs_sdpa_in_turns(
+            torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
+            "forward (K2) head_dim 256")
+        d256["whole_backward"] = _vs_sdpa_in_turns(
+            torch, port_bwd256, sdpa_bwd, flush,
+            "whole backward (delta + K3a + K3b) head_dim 256")
+        del sdpa, sdpa_bwd
+    except RuntimeError as e:  # a yardstick only: the port's times stand
+        d256["sdpa_error"] = f"{type(e).__name__}: {e}"[:300]
+        d256["forward"] = {"port_ms": _time_ms(
+            torch, lambda: fa._fwd_cuda(*args), flush)}
+        d256["whole_backward"] = {"port_ms": _time_ms(torch, port_bwd256,
+                                                      flush)}
+    log("  head_dim 256: " + json.dumps(d256))
+    del flush, c
+    rows[fa.FWD]["head_dim_256"] = d256
     rows[fa.BWD_DKDV]["whole_backward"] = backward
     rows[fa.BWD_DKDV]["vs_float64"] = vs_float64
     rows[fa.FWD]["in_turns"] = forward
@@ -924,7 +1125,22 @@ def profile_decode(torch, client, rng):
         t0 = time.perf_counter()
         client.generate("gpt2m", prompt, max_new_tokens=16)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_summary(prof.key_averages(), wall_ms, "decode request")
+    events = prof.key_averages()
+    out = _device_summary(events, wall_ms, "decode request")
+    # K4's share: its split and merge kernels
+    k4 = [ev for ev in events
+          if str(getattr(ev, "device_type", "")).endswith("CUDA")
+          and ("paged_split_kernel" in ev.key
+               or "paged_merge_kernel" in ev.key)]
+    out["k4_device_ms"] = sum(
+        getattr(ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0))
+        for ev in k4) / 1e3
+    out["k4_launches"] = sum(ev.count for ev in k4)
+    log(f"  profile decode request: K4 {out['k4_device_ms']:.3f} ms of "
+        f"{out['device_busy_ms']:.3f} ms device busy "
+        f"({out['k4_launches']} kernel launches)")
+    return out
 
 
 def host_read_ms(torch):
@@ -1804,6 +2020,8 @@ def main():
     infer_launches, infer, built = infer_phase(torch)
     infer["check"] = infer_check_phase(torch, built)
     del built
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
     dec = timings["decode"]
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
@@ -1826,7 +2044,8 @@ def main():
         extra = {key: row[key] for key in ("bound_f32_ms", "bound_peak",
                                            "library")
                  if key in row}
-        for key in ("whole_backward", "vs_float64", "in_turns"):
+        for key in ("whole_backward", "vs_float64", "in_turns",
+                    "head_dim_256"):
             if key in rows:
                 extra[key] = rows[key]
         if kname == "flash_fwd_f32":  # the library's three kernels
@@ -1859,9 +2078,18 @@ def main():
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
+        "library": "sdpa on K/V gathered dense (the gather untimed), in "
+                   "turns with the kernel",
         "shape": "decode B=8 C=1 Hq=Hkv=16 D=64 ps=16 kv_lens "
                  + ",".join(str(x) for x in dec["kv_lens"]),
+        "split_keys": pa.SPLIT_KEYS,
         "prefill": timings["prefill"],
+        "decode_b1": timings["decode_b1"],
+        "decode_gqa4": timings["decode_gqa4"],
+        "decode_row": dec,
+        "case_errors": timings["errors"],
+        "bitwise": timings["bitwise"],
+        "ptxas": ptxas.get("paged_attention"),
         "serve": serve,
         "host_logits_read_ms": read_ms,
     }] + train_kernels + infer_kernels}

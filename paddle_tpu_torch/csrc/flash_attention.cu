@@ -96,6 +96,14 @@
 // tile), TMA, 32 rows a warp (each B fragment split once for two MMAs;
 // K3a's accumulators would not fit in registers), a persistent grid.
 //
+// head_dim: the tensor-core kernels take the buckets 32, 64 and 128;
+// head_dim 129..256 runs on CUDA-core kernels (flash_*_wide_kernel
+// below, 4 rows a warp), as the accumulators of a 16-row warp would not
+// fit in registers at 256 columns. Every entry point takes a head_dim
+// that is a multiple of 4 (16-byte staging); the wrapper
+// (kernels/flash_attention.py:pad_head_dim) zero-pads any other one,
+// which is exact, and passes the scale of the true head_dim.
+//
 // The kernels allocate nothing; the caller passes the outputs. Each C
 // entry point launches on the given stream and returns
 // cudaGetLastError().
@@ -669,6 +677,391 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
+// ------------------------------------------------------- the 256 bucket
+// head_dim 129..256 (a multiple of 4). The tensor-core kernels above keep
+// a 16-row warp's accumulators in registers; at 256 columns the output
+// alone would take 128 registers a lane (dK and dV 256). These kernels
+// run on the CUDA cores instead, 4 rows a warp (16 a block), and stream
+// the other operand in tiles of 32 rows, one row a lane while scoring:
+// lane j computes the scores of row j against the warp's 4 rows; lane l
+// holds output columns l, l + 32, ... (NE = 8 of them). Tiles read by
+// lane-row are padded by one float (no bank conflicts); the block's own
+// rows are read as broadcasts. Every sum is a float32 FMA chain in a
+// fixed order, so two launches give bitwise-equal outputs.
+constexpr int kWideRowsPerWarp = 4;
+constexpr int kWideRows = kWarps * kWideRowsPerWarp;  // 16 a block
+constexpr int kWideTile = 32;
+constexpr int kWideNE = 8;                            // D <= 256
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Rows [r0, r0 + n) of a row-major [S, D] matrix into shared memory with
+// row stride ld (float4 loads: D % 4 == 0); rows at or past S are zeros.
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* __restrict__ src,
+                                           int r0, int n, int S, int D) {
+  const int d4 = D / 4;
+  for (int i = threadIdx.x; i < n * d4; i += kThreads) {
+    const int r = i / d4;
+    const int dd = (i % d4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S)
+      v = *reinterpret_cast<const float4*>(
+          src + static_cast<int64_t>(r0 + r) * D + dd);
+    float* o = dst + r * ld + dd;
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    o[3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void stage_entries(float* dst,
+                                              const float* __restrict__ src,
+                                              int r0, int n, int S) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    dst[i] = r0 + i < S ? src[r0 + i] : 0.f;
+}
+
+// grid (BH, ceil(Sq / 16))
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int Sq, int Sk, int D,
+                      int causal, float scale) {
+  constexpr int R = kWideRowsPerWarp;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;                          // [16][D]
+  float* ks = qs + kWideRows * D;            // [32][D + 1]
+  float* vs = ks + kWideTile * (D + 1);      // [32][D]
+
+  const int64_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kWideRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float* kb = k + bh * Sk * D;
+  const float* vb = v + bh * Sk * D;
+  stage_rows(qs, D, q + bh * Sq * D, q0, kWideRows, Sq, D);
+
+  const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
+  const int rw = warp * R;
+  int limit[R];
+  float m[R], l[R], acc[R][kWideNE];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + rw + i;
+    limit[i] = qpos >= Sq ? -1 : (causal ? min(qpos, Sk - 1) : Sk - 1);
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
+    __syncthreads();  // the previous tile is consumed (and qs is ready)
+    stage_rows(ks, D + 1, kb, t0, kWideTile, Sk, D);
+    stage_rows(vs, D, vb, t0, kWideTile, Sk, D);
+    __syncthreads();
+
+    const int t = t0 + lane;
+    float s[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = 0.f;
+    const float* kr = ks + lane * (D + 1);
+    const float* qw = qs + rw * D;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float kd = kr[d];
+#pragma unroll
+      for (int i = 0; i < R; ++i) s[i] = fmaf(qw[i * D + d], kd, s[i]);
+    }
+
+    float p[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const bool keep = t <= limit[i];
+      const float si = keep ? s[i] * scale : -1e30f;
+      const float m_new = fmaxf(m[i], warp_max(si));
+      const float alpha = expf(m[i] - m_new);
+      p[i] = keep ? expf(si - m_new) : 0.f;
+      l[i] = l[i] * alpha + warp_sum(p[i]);
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) acc[i][e] *= alpha;
+    }
+
+    const int n_here = min(kWideTile, n_keys - t0);
+    for (int j = 0; j < n_here; ++j) {
+      float vd[kWideNE];
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) {
+        const int d = lane + 32 * e;
+        vd[e] = d < D ? vs[j * D + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], j);
+#pragma unroll
+        for (int e = 0; e < kWideNE; ++e)
+          acc[i][e] = fmaf(pj, vd[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + rw + i;
+    if (qpos >= Sq) continue;
+    const float denom = fmaxf(l[i], FLT_MIN);
+    float* orow = o + (bh * Sq + qpos) * D;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < D) orow[d] = acc[i][e] / denom;
+    }
+    if (lane == 0) lse[bh * Sq + qpos] = m[i] + logf(denom);
+  }
+}
+
+// grid (BH, ceil(Sk / 16)): the block owns 16 keys and streams query
+// tiles of 32 rows, from the first tile a causal key can see
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int Sq, int Sk, int D, int causal, float scale) {
+  constexpr int R = kWideRowsPerWarp;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ks = smem;                          // [16][D]
+  float* vs = ks + kWideRows * D;            // [16][D]
+  float* qs = vs + kWideRows * D;            // [32][D + 1]
+  float* dos = qs + kWideTile * (D + 1);     // [32][D + 1]
+  float* lses = dos + kWideTile * (D + 1);   // [32]
+  float* deltas = lses + kWideTile;          // [32]
+
+  const int64_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kWideRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float* qb = q + bh * Sq * D;
+  const float* dob = dout + bh * Sq * D;
+  stage_rows(ks, D, k + bh * Sk * D, k0, kWideRows, Sk, D);
+  stage_rows(vs, D, v + bh * Sk * D, k0, kWideRows, Sk, D);
+
+  float acc_k[R][kWideNE], acc_v[R][kWideNE];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+
+  const int kw = k0 + warp * R;  // the warp's first key
+  const int start = causal ? (k0 / kWideTile) * kWideTile : 0;
+  for (int t0 = start; t0 < Sq; t0 += kWideTile) {
+    __syncthreads();  // the previous tile is consumed (and ks/vs ready)
+    stage_rows(qs, D + 1, qb, t0, kWideTile, Sq, D);
+    stage_rows(dos, D + 1, dob, t0, kWideTile, Sq, D);
+    stage_entries(lses, lse + bh * Sq, t0, kWideTile, Sq);
+    stage_entries(deltas, delta + bh * Sq, t0, kWideTile, Sq);
+    __syncthreads();
+
+    // lane j: query row t0 + j against each of the warp's keys
+    const int qpos = t0 + lane;
+    float s[R], dp[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
+    const float* qr = qs + lane * (D + 1);
+    const float* dor = dos + lane * (D + 1);
+    const float* kwr = ks + warp * R * D;
+    const float* vwr = vs + warp * R * D;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qd = qr[d];
+      const float dod = dor[d];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = fmaf(qd, kwr[i * D + d], s[i]);
+        dp[i] = fmaf(dod, vwr[i * D + d], dp[i]);
+      }
+    }
+    const float lse_j = lses[lane];
+    const float delta_j = deltas[lane];
+    float p[R], ds[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int kpos = kw + i;
+      // padded rows and columns are zeroed, not just masked
+      const bool keep = qpos < Sq && kpos < Sk && (!causal || qpos >= kpos);
+      p[i] = keep ? expf(s[i] * scale - lse_j) : 0.f;
+      ds[i] = p[i] * (dp[i] - delta_j);
+    }
+
+    const int n_here = min(kWideTile, Sq - t0);
+    for (int j = 0; j < n_here; ++j) {
+      float qd[kWideNE], dod[kWideNE];
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) {
+        const int d = lane + 32 * e;
+        qd[e] = d < D ? qs[j * (D + 1) + d] : 0.f;
+        dod[e] = d < D ? dos[j * (D + 1) + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], j);
+        const float dsj = __shfl_sync(0xffffffffu, ds[i], j);
+#pragma unroll
+        for (int e = 0; e < kWideNE; ++e) {
+          acc_v[i][e] = fmaf(pj, dod[e], acc_v[i][e]);
+          acc_k[i][e] = fmaf(dsj, qd[e], acc_k[i][e]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kpos = kw + i;
+    if (kpos >= Sk) continue;
+    float* dkr = dk + (bh * Sk + kpos) * D;
+    float* dvr = dv + (bh * Sk + kpos) * D;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < D) {
+        dkr[d] = acc_k[i][e] * scale;
+        dvr[d] = acc_v[i][e];
+      }
+    }
+  }
+}
+
+// grid (BH, ceil(Sq / 16)): the block owns 16 query rows and streams
+// key tiles of 32 rows, up to its last row when causal
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int Sq, int Sk, int D,
+                         int causal, float scale) {
+  constexpr int R = kWideRowsPerWarp;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;                          // [16][D]
+  float* dos = qs + kWideRows * D;           // [16][D]
+  float* ks = dos + kWideRows * D;           // [32][D + 1]
+  float* vs = ks + kWideTile * (D + 1);      // [32][D + 1]
+  float* lses = vs + kWideTile * (D + 1);    // [16]
+  float* deltas = lses + kWideRows;          // [16]
+
+  const int64_t bh = blockIdx.x;
+  const int q0 = blockIdx.y * kWideRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float* kb = k + bh * Sk * D;
+  const float* vb = v + bh * Sk * D;
+  stage_rows(qs, D, q + bh * Sq * D, q0, kWideRows, Sq, D);
+  stage_rows(dos, D, dout + bh * Sq * D, q0, kWideRows, Sq, D);
+  stage_entries(lses, lse + bh * Sq, q0, kWideRows, Sq);
+  stage_entries(deltas, delta + bh * Sq, q0, kWideRows, Sq);
+
+  const int rw = warp * R;
+  float acc[R][kWideNE];
+  int limit[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + rw + i;
+    limit[i] = qpos >= Sq ? -1 : (causal ? min(qpos, Sk - 1) : Sk - 1);
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) acc[i][e] = 0.f;
+  }
+
+  const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
+  for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
+    __syncthreads();  // the previous tile is consumed (and qs/dos ready)
+    stage_rows(ks, D + 1, kb, t0, kWideTile, Sk, D);
+    stage_rows(vs, D + 1, vb, t0, kWideTile, Sk, D);
+    __syncthreads();
+
+    // lane j: key t0 + j against each of the warp's query rows
+    const int t = t0 + lane;
+    float s[R], dp[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
+    const float* kr = ks + lane * (D + 1);
+    const float* vr = vs + lane * (D + 1);
+    const float* qw = qs + rw * D;
+    const float* dow = dos + rw * D;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float kd = kr[d];
+      const float vd = vr[d];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        s[i] = fmaf(qw[i * D + d], kd, s[i]);
+        dp[i] = fmaf(dow[i * D + d], vd, dp[i]);
+      }
+    }
+    float ds[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const bool keep = t <= limit[i];
+      const float p = keep ? expf(s[i] * scale - lses[rw + i]) : 0.f;
+      ds[i] = p * (dp[i] - deltas[rw + i]);
+    }
+
+    const int n_here = min(kWideTile, n_keys - t0);
+    for (int j = 0; j < n_here; ++j) {
+      float kd[kWideNE];
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) {
+        const int d = lane + 32 * e;
+        kd[e] = d < D ? ks[j * (D + 1) + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float dsj = __shfl_sync(0xffffffffu, ds[i], j);
+#pragma unroll
+        for (int e = 0; e < kWideNE; ++e)
+          acc[i][e] = fmaf(dsj, kd[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qpos = q0 + rw + i;
+    if (qpos >= Sq) continue;
+    float* dqr = dq + (bh * Sq + qpos) * D;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < D) dqr[d] = acc[i][e] * scale;
+    }
+  }
+}
+
 // Opt in to more than 48 KB of dynamic shared memory where needed.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
@@ -737,10 +1130,58 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// head_dim: a multiple of 4 (float4 staging), at most 128
+// The 256 bucket (head_dim 129..256) on the CUDA-core kernels.
+cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
+                            float* o, float* lse, int BH, int Sq, int Sk,
+                            int D, int causal, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = floats(static_cast<size_t>(kWideRows) * D +
+                             static_cast<size_t>(kWideTile) * (2 * D + 1));
+  cudaError_t e = allow_smem(flash_fwd_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(BH, (Sq + kWideRows - 1) / kWideRows);
+  flash_fwd_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, Sq, Sk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkdv_wide(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* delta, float* dk, float* dv,
+                             int BH, int Sq, int Sk, int D, int causal,
+                             float scale, cudaStream_t stream) {
+  const size_t smem = floats(2 * static_cast<size_t>(kWideRows) * D +
+                             2 * static_cast<size_t>(kWideTile) * (D + 1) +
+                             2 * static_cast<size_t>(kWideTile));
+  cudaError_t e = allow_smem(flash_bwd_dkdv_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(BH, (Sk + kWideRows - 1) / kWideRows);
+  flash_bwd_dkdv_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wide(const float* q, const float* k, const float* v,
+                           const float* dout, const float* lse,
+                           const float* delta, float* dq, int BH, int Sq,
+                           int Sk, int D, int causal, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = floats(2 * static_cast<size_t>(kWideRows) * D +
+                             2 * static_cast<size_t>(kWideTile) * (D + 1) +
+                             2 * static_cast<size_t>(kWideRows));
+  cudaError_t e = allow_smem(flash_bwd_dq_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(BH, (Sq + kWideRows - 1) / kWideRows);
+  flash_bwd_dq_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, Sq, Sk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+// head_dim: a multiple of 4 (the wrapper zero-pads it to one), at most
+// 256; the grid's y dimension bounds the sequence lengths
 bool bad_shape(int BH, int Sq, int Sk, int D) {
-  return BH < 0 || Sq < 0 || Sk < 0 || D <= 0 || D > 128 || D % 4 ||
-         Sq > 65535 * kRows || Sk > 65535 * kRows;
+  return BH < 0 || Sq < 0 || Sk < 0 || D <= 0 || D > 256 || D % 4 ||
+         Sq > 65535 * kWideRows || Sk > 65535 * kWideRows;
 }
 
 }  // namespace
@@ -764,8 +1205,10 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
     e = args(launch_fwd<32>);
   else if (D <= 64)
     e = args(launch_fwd<64>);
-  else
+  else if (D <= 128)
     e = args(launch_fwd<128>);
+  else
+    e = args(launch_fwd_wide);
   return static_cast<int>(e);
 }
 
@@ -791,8 +1234,10 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
     e = args(launch_dkdv<32>);
   else if (D <= 64)
     e = args(launch_dkdv<64>);
-  else
+  else if (D <= 128)
     e = args(launch_dkdv<128>);
+  else
+    e = args(launch_dkdv_wide);
   return static_cast<int>(e);
 }
 
@@ -817,8 +1262,10 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
     e = args(launch_dq<32>);
   else if (D <= 64)
     e = args(launch_dq<64>);
-  else
+  else if (D <= 128)
     e = args(launch_dq<128>);
+  else
+    e = args(launch_dq_wide);
   return static_cast<int>(e);
 }
 

@@ -1,251 +1,667 @@
-// Ragged paged attention, float32, for Hopper (sm_90a).
+// Ragged paged attention, float32, for Hopper (sm_90a): split-K over the
+// keys (flash-decoding), a CUDA-core decode path and a 3xTF32
+// tensor-core chunked-prefill path, and a merge kernel.
 //
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/fluid/ops/pallas_kernels/paged_attention.py:_paged_kernel
+//   (body :168, launched by _paged_attention_pallas, pallas_call :268)
 // and computes the same function as the plain version
 //   paddle_tpu_torch/kernels/paged_attention.py:paged_attention_reference
 // over the same layouts: q [B, C, Hq, D], pools [P, page_size, Hkv, D],
 // page tables [B, W], kv_lens and q_lens [B] (int32), out [B, C, Hq, D].
-// Query lane j of slot b sees keys at positions <= kv_len - q_len + j;
-// dead slots (q_len == 0) and dead lanes (j >= q_len) give exact zeros;
-// query head h reads kv head h / (Hq / Hkv) (GQA).
+// Query lane j of slot b sees keys at positions <= kv_len - q_len + j
+// (and < W * page_size); dead slots (q_len == 0) and dead lanes
+// (j >= q_len) give exact zeros; query head h reads kv head h / (Hq /
+// Hkv) (GQA); a row's output is its P V over max(l, FLT_MIN). Any
+// head_dim from 1 to 256.
 //
-// What bounds it on this card: the bytes of K and V it reads. A decode
-// step does ~2 flops per byte of K/V, far below the H100's ~20 f32
-// flops per byte of HBM bandwidth, so the floor is (visible K/V bytes)
-// / 3.35 TB/s. The design reads fewer bytes and reads each byte once
-// per block:
-//   - The TPU kernel walks all W table entries of every slot, garbage
-//     padding included. Here a block loops only over the key positions
-//     its live query rows can see (ceil to 32-key tiles), so padded and
-//     invisible pages are never read.
-//   - One block per (slot b, kv head g, tile of 16 query rows). A query
-//     row is (chunk lane c, query head of group g); every row of the
-//     tile shares the kv head, so a K/V tile staged in shared memory
-//     once serves all C x (Hq/Hkv) rows of the group that the tile
-//     holds — what GQA buys.
-//   - Each 32-key tile is staged with coalesced float4 loads (a key's D
-//     floats are contiguous in the pool); K rows are padded by one
-//     float so the per-lane dot products read shared memory without
-//     bank conflicts.
-//   - Each warp owns up to 4 query rows and keeps their running max,
-//     running sum and D-wide accumulator in registers (online softmax,
-//     one max/sum reduction per 32-key tile). The final normalisation
-//     divides by max(l, FLT_MIN), as the reference does.
-// Not done yet (later work): cp.async/TMA double-buffering of tiles,
-// split-K over long contexts, bf16 pools.
+// The work of one (slot b, kv head g): its query rows are the
+// (lane c, head of group g) pairs, row r = c * rep + h % rep, the first
+// q_len * rep of them live. Its keys are cut into splits of `split`
+// keys by absolute position (split s holds keys [s * split, (s + 1) *
+// split)): the partition depends on the slot's own key positions and
+// the fixed split length only, never on B, W, C or the card.
 //
-// The kernel allocates nothing; the caller passes the output.
-// paged_attention_f32 launches on the given stream and returns
-// cudaGetLastError().
+//   paged_split_kernel  grid (B * Hkv, ceil(C * rep / 64), n_splits).
+//     Block (b, g, y, s) computes, for each of its live rows that sees a
+//     key of split s, the split's partial (m, l, acc[D]) of the online
+//     softmax (m in units of s * scale * log2(e)) and writes it to a
+//     scratch the wrapper allocates; a block whose split starts past the
+//     last key its rows see exits at once. Two paths, chosen from the
+//     slot's own live-row count q_len * rep (never from C, so a decode
+//     slot computes the same bits in a C = 1 launch and beside prefill
+//     chunks in a C = 64 launch):
+//     decode (q_len * rep <= 16; 8 at head_dim > 128): block y = 0 owns
+//       every live row, and its 4 warps take disjoint key sub-ranges of
+//       each 32-key tile (warp w keys 8w..8w+7), each warp with its own
+//       online-softmax state for every live row; 4 lanes score one key
+//       (float4 dot products, a 2-shuffle butterfly), a lane owns output
+//       columns lane + 32e. The four warps' states are merged in shared
+//       memory in the order 0, 1, 2, 3. No warp works on a dead row.
+//     chunk (more live rows): 64 rows a block, 16 a warp, on the tensor
+//       cores as K2 (flash_attention.cu): S = Q K^T and P V as 3xTF32
+//       mma.sync m16n8k8 (tf32x3.cuh), the online softmax on the score
+//       fragments in the exp2 domain (masked scores -inf, so p = 0
+//       exactly), each tile's P V in fresh fragments merged as
+//       O = O alpha + O_tile by float32 FMAs.
+//     Both paths gather each 32-key K/V tile through the page table with
+//     cp.async (16-byte copies when head_dim % 4 == 0, 4-byte copies
+//     otherwise; a key's D floats of head g are contiguous in the pool,
+//     so each key row's copies are coalesced) into a ring of 4 tile
+//     buffers (2 above the 64 bucket): the next 3 tiles' bytes are in
+//     flight while one is scored. The split's page-table reads are done
+//     first, all together,
+//     into a shared table of key offsets, so no copy waits on a table
+//     read. Columns
+//     head_dim..bucket are zero-filled in shared memory (buckets 32, 64,
+//     128, 256); keys past the block's last visible key are zero-filled
+//     and never read, so padded or invisible pages cost nothing.
+//   paged_merge_kernel  one warp a row: merges the row's partials of the
+//     splits it sees (weights exp2(m_s - M); M and l by fixed butterflies
+//     over the splits, each column in the order s = 0, 1, ...), divides
+//     by max(l, FLT_MIN) and writes O; a dead row gets exact zeros. No atomics anywhere, so two launches give bitwise-equal
+//     outputs, and a slot's output does not depend on the batch around
+//     it.
+//
+// What bounds it on this card. Decode (one query row per kv head, or a
+// few under GQA) does ~2 flops per byte of K/V: bytes-bound, its floor
+// is the visible K/V bytes over 3.35 TB/s. The earlier design reached
+// 1/17 of that: one block per (slot, kv head) walked 512-1024 keys in
+// order with synchronous loads (16 blocks for a one-slot request on 132
+// SMs).
+// Split-K gives 4 blocks per (slot, kv head) at 1024 keys (the wrapper's
+// splits are 256 keys), each block keeps up to 3 tiles in flight while
+// it scores one, and two blocks share an SM at head_dim 64. The chunk path (C = 64 prefill) does ~64 flops a byte under
+// MHA: operations-bound, on the tensor cores at 3x the TF32 rate, with
+// split-K so that even one slot fills the card. The merge reads and
+// writes n_splits * rows * D floats more: small at decode, at prefill
+// about as many bytes as Q and O.
+//
+// The kernels allocate nothing; the caller passes the output and the
+// scratch. paged_attention_f32 launches both kernels on the given stream
+// and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;              // warps per block
+using namespace tf32x3;
+
+constexpr int kWarps = 4;                  // warps per block
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;        // query rows each warp owns
-constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kKeys = 32;              // keys per staged tile (1 a lane)
-constexpr float kNegInf = -1e30f;      // the reference's NEG_INF
+constexpr int kRows = 64;                  // rows a chunk-path block owns
+constexpr int kTile = 32;                  // keys per staged tile
+constexpr int kKeysPerWarp = kTile / kWarps;    // decode path: 8
+constexpr int kParts = 32 / kKeysPerWarp;       // lanes scoring a key: 4
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+// K/V tile buffers in the ring: 4 up to the 64 bucket (3 tiles in flight
+// while one is scored), 2 above (shared memory)
+template <int DP>
+struct Ring {
+  static constexpr int kStages = DP <= 64 ? 4 : 2;
+  static constexpr int kLD = DP + 4;  // row stride: 4 (mod 32) floats
+  // floats before the key offsets: Q rows, then the K and V rings
+  static constexpr int kFloats = (kRows + 2 * kStages * kTile) * kLD;
+};
+
+// What one block of paged_split_kernel works on.
+struct Work {
+  const float* q;
+  const float* kp;
+  const float* vp;
+  const int* table;       // the slot's row of the page tables
+  float* part_ml;         // [n_splits][NR][2]: m, l
+  float* part_acc;        // [n_splits][NR][D]
+  int64_t NR;             // output rows B * C * Hq
+  int C, Hq, Hkv, D, ps, T, split;
+  int b, g, rep, q_len, kv_len, n_live, s, s0;
+  float c;                // scale * log2(e)
+};
+
+// The last key slot-row r sees (-1: none). Rows are lane-major, so the
+// limit never falls as r grows.
+__device__ __forceinline__ int row_limit(const Work& w, int r) {
+  if (r >= w.n_live) return -1;
+  return min(w.kv_len - w.q_len + r / w.rep, w.T - 1);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The output row of slot-row r: (b, lane r / rep, head g * rep + r % rep).
+__device__ __forceinline__ int64_t row_id(const Work& w, int r) {
+  return (static_cast<int64_t>(w.b) * w.C + r / w.rep) * w.Hq +
+         w.g * w.rep + r % w.rep;
 }
 
-// NE = accumulator floats per lane per row: head_dim <= 32 * NE.
-template <int NE>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k_pages,
-                       const float* __restrict__ v_pages,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ kv_lens,
-                       const int* __restrict__ q_lens,
-                       float* __restrict__ out,
-                       int C, int Hq, int Hkv, int D, int ps, int W,
-                       float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* vs = smem;                        // [kKeys][D]
-  float* ks = vs + kKeys * D;              // [kKeys][D + 1]
-  float* qs = ks + kKeys * (D + 1);        // [kRows][D], pre-scaled
+// One copy unit of a row into shared memory: 16 bytes at column 4 * part
+// (kVec), else 4 bytes at column `part`. A null source, or columns at or
+// past D, write zeros and read nothing (`any` is a valid address).
+template <bool kVec>
+__device__ __forceinline__ void copy_unit(float* dst_row,
+                                          const float* src_row, int part,
+                                          int D, const float* any) {
+  if constexpr (kVec) {
+    const int col = 4 * part;
+    const bool ok = src_row != nullptr && col < D;
+    cp_async16(dst_row + col, ok ? src_row + col : any, ok ? 16 : 0);
+  } else {
+    const bool ok = src_row != nullptr && part < D;
+    cp_async4(dst_row + part, ok ? src_row + part : any, ok ? 4 : 0);
+  }
+}
 
-  const int b = blockIdx.x / Hkv;
-  const int g = blockIdx.x % Hkv;
-  const int rep = Hq / Hkv;
-  const int n_rows = C * rep;
-  const int row0 = blockIdx.y * kRows;
+// Slot-rows [r0, r0 + n) of q into n shared rows (dead rows: zeros).
+template <int DP, bool kVec>
+__device__ __forceinline__ void stage_q(const Work& w, float* qs, int r0,
+                                        int n) {
+  constexpr int LD = DP + 4, U = kVec ? DP / 4 : DP;
+  for (int i = threadIdx.x; i < n * U; i += kThreads) {
+    const int rr = i / U;
+    const int r = r0 + rr;
+    const float* src = r < w.n_live ? w.q + row_id(w, r) * w.D : nullptr;
+    copy_unit<kVec>(qs + rr * LD, src, i % U, w.D, w.q);
+  }
+}
+
+// The split's key offsets into the pools (head g's row of key s0 + i),
+// -1 past `end`: one page-table read a key, all issued together, so no
+// tile's copies wait on a table read (the cp.async asm orders memory).
+__device__ __forceinline__ void key_offsets(const Work& w, int64_t* offs,
+                                            int end) {
+  for (int i = threadIdx.x; i < w.split; i += kThreads) {
+    const int t = w.s0 + i;
+    int64_t off = -1;
+    if (t < end) {
+      const int64_t page = w.table[t / w.ps];
+      off = ((page * w.ps + t % w.ps) * w.Hkv + w.g) * w.D;
+    }
+    offs[i] = off;
+  }
+}
+
+// Tile `it` of the split (its keys s0 + 32 it ..) into shared rows of K
+// and V; keys past the last visible one are zeros and are not read.
+template <int DP, bool kVec>
+__device__ __forceinline__ void stage_kv(const Work& w, float* ks,
+                                         float* vs, const int64_t* offs,
+                                         int it) {
+  constexpr int LD = DP + 4, U = kVec ? DP / 4 : DP;
+  for (int i = threadIdx.x; i < kTile * U; i += kThreads) {
+    const int key = i / U;
+    const int64_t off = offs[it * kTile + key];
+    copy_unit<kVec>(ks + key * LD, off >= 0 ? w.kp + off : nullptr, i % U,
+                    w.D, w.kp);
+    copy_unit<kVec>(vs + key * LD, off >= 0 ? w.vp + off : nullptr, i % U,
+                    w.D, w.kp);
+  }
+}
+
+// Q's rows and the split's key offsets, then the first kStages - 1
+// tiles (one commit group each; Q joins tile 0's).
+template <int DP, bool kVec>
+__device__ __forceinline__ void prologue(const Work& w, float* smem,
+                                         int r0, int nq, int n_keys,
+                                         int n_tiles) {
+  using R = Ring<DP>;
+  float* kb = smem + kRows * R::kLD;
+  float* vb = kb + R::kStages * kTile * R::kLD;
+  int64_t* offs = reinterpret_cast<int64_t*>(smem + R::kFloats);
+  stage_q<DP, kVec>(w, smem, r0, nq);
+  key_offsets(w, offs, w.s0 + n_keys);
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < R::kStages - 1; ++p) {
+    if (p < n_tiles)
+      stage_kv<DP, kVec>(w, kb + p * kTile * R::kLD, vb + p * kTile * R::kLD,
+                         offs, p);
+    cp_async_commit();
+  }
+}
+
+// Top of pipeline step `it`: tile it has landed and every warp is done
+// with tile it - 1, whose buffer then takes tile it + kStages - 1.
+template <int DP, bool kVec>
+__device__ __forceinline__ void advance(const Work& w, float* smem, int it,
+                                        int n_tiles) {
+  using R = Ring<DP>;
+  float* kb = smem + kRows * R::kLD;
+  float* vb = kb + R::kStages * kTile * R::kLD;
+  const int64_t* offs = reinterpret_cast<const int64_t*>(smem + R::kFloats);
+  cp_async_wait<R::kStages - 2>();
+  __syncthreads();
+  const int nt = it + R::kStages - 1;
+  if (nt < n_tiles) {
+    const int b = nt % R::kStages;
+    stage_kv<DP, kVec>(w, kb + b * kTile * R::kLD, vb + b * kTile * R::kLD,
+                       offs, nt);
+  }
+  cp_async_commit();
+}
+
+// ------------------------------------------------------------- decode
+// The slot's MR (>= n_live) rows, n_keys keys of split s from s0. Warp w
+// scores keys 8w..8w+7 of each tile: lane = 4 * key + part, part p sums
+// columns 4p + 16m .. +3 of the dot product.
+template <int DP, bool kVec, int MR>
+__device__ __forceinline__ void decode_path(const Work& w, float* smem,
+                                            int n_keys) {
+  using R = Ring<DP>;
+  constexpr int LD = R::kLD, NE = DP / 32, NM = DP / (4 * kParts);
+  float* qs = smem;                        // [MR][LD]
+  float* kb = qs + kRows * LD;             // [kStages][kTile][LD]
+  float* vb = kb + R::kStages * kTile * LD;  // [kStages][kTile][LD]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int kv_len = kv_lens[b];
-  const int q_len = q_lens[b];
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  prologue<DP, kVec>(w, smem, 0, MR, n_keys, n_tiles);
 
-  // the block's query rows, pre-scaled, into shared memory
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = row0 + i / D;
-    float val = 0.f;
-    if (r < n_rows) {
-      const int c = r / rep;
-      const int h = g * rep + r % rep;
-      val = q[((static_cast<int64_t>(b) * C + c) * Hq + h) * D + i % D]
-            * scale;
-    }
-    qs[i] = val;
-  }
-
-  // keys this block must read: up to the highest position any of its
-  // live rows sees (rows are lane-major, so the last live lane decides)
-  const int c_first = row0 / rep;
-  const int c_last = (min(row0 + kRows, n_rows) - 1) / rep;
-  const int c_hi = min(c_last, q_len - 1);
-  int n_keys = 0;
-  if (row0 < n_rows && c_first < q_len && c_hi >= 0)
-    n_keys = kv_len - q_len + c_hi + 1;
-  n_keys = max(0, min(n_keys, W * ps));
-
-  // per-row state, in registers
-  int limit[kRowsPerWarp];
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NE];
+  int limit[MR];
+  float m[MR], l[MR], acc[MR][NE];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = row0 + warp + kWarps * i;
-    const int c = r / rep;
-    // a dead row (past the chunk, or a dead lane) sees no key
-    limit[i] = (r < n_rows && c < q_len) ? kv_len - q_len + c : -1;
-    m[i] = kNegInf;
+  for (int i = 0; i < MR; ++i) {
+    limit[i] = row_limit(w, i);
+    m[i] = -1e30f;
     l[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < NE; ++e) acc[i][e] = 0.f;
   }
+  const int kj = warp * kKeysPerWarp + lane / kParts;  // the lane's key
+  const int part = lane % kParts;
 
-  const int d4 = D / 4;
-  const int64_t head_stride = D;
-  const int64_t tok_stride = static_cast<int64_t>(Hkv) * D;
-  const int* table = tables + static_cast<int64_t>(b) * W;
+  for (int it = 0; it < n_tiles; ++it) {
+    advance<DP, kVec>(w, smem, it, n_tiles);
+    const float* kt = kb + (it % R::kStages) * kTile * LD;
+    const float* vt = vb + (it % R::kStages) * kTile * LD;
+    const int t = w.s0 + it * kTile + kj;
 
-  for (int t0 = 0; t0 < n_keys; t0 += kKeys) {
-    __syncthreads();  // the previous tile is consumed (and qs is ready)
-    for (int i = threadIdx.x; i < kKeys * d4; i += kThreads) {
-      const int key = i / d4;
-      const int dd = (i % d4) * 4;
-      const int t = t0 + key;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kv;
-      if (t < n_keys) {
-        const int64_t page = table[t / ps];
-        const int64_t off = ((page * ps + t % ps) * tok_stride
-                             + g * head_stride + dd);
-        kv = *reinterpret_cast<const float4*>(k_pages + off);
-        vv = *reinterpret_cast<const float4*>(v_pages + off);
+    // the lane's share of q_i . k_t, then the sum over the key's 4 lanes
+    float s[MR];
+#pragma unroll
+    for (int i = 0; i < MR; ++i) s[i] = 0.f;
+    const float* kr = kt + kj * LD;
+#pragma unroll
+    for (int mm = 0; mm < NM; ++mm) {
+      const int d = 4 * (part + kParts * mm);
+      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+      for (int i = 0; i < MR; ++i) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + i * LD + d);
+        s[i] = fmaf(qv.x, kv.x, s[i]);
+        s[i] = fmaf(qv.y, kv.y, s[i]);
+        s[i] = fmaf(qv.z, kv.z, s[i]);
+        s[i] = fmaf(qv.w, kv.w, s[i]);
       }
-      // keys past n_keys stage zeros: p is 0 there, and 0 * 0 keeps
-      // the accumulator finite whatever the pool holds
-      float* kr = ks + key * (D + 1) + dd;
-      kr[0] = kv.x; kr[1] = kv.y; kr[2] = kv.z; kr[3] = kv.w;
-      *reinterpret_cast<float4*>(vs + key * D + dd) = vv;
-    }
-    __syncthreads();
-
-    // scores: lane j scores key t0 + j against each of the warp's rows
-    const int t = t0 + lane;
-    float s[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) s[i] = 0.f;
-    const float* kr = ks + lane * (D + 1);
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        s[i] = fmaf(qs[(warp + kWarps * i) * D + d], kd, s[i]);
     }
 
-    // online softmax: one max and one sum reduction per tile and row
-    float p[kRowsPerWarp];
+    // online softmax over the warp's 8 keys (lanes xor 4, 8, 16), in
+    // units of s * scale * log2(e); a masked key gives p = 0 exactly
+    float p[MR];
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const bool keep = t <= limit[i];
-      const float si = keep ? s[i] : kNegInf;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float alpha = expf(m[i] - m_new);
-      p[i] = keep ? expf(si - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p[i]);
+    for (int i = 0; i < MR; ++i) {
+      float x = s[i] + __shfl_xor_sync(0xffffffffu, s[i], 1);
+      x += __shfl_xor_sync(0xffffffffu, x, 2);
+      x = t <= limit[i] ? x * w.c : -INFINITY;
+      float mx = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      p[i] = exp2f(x - m_new);
+      float ps = p[i] + __shfl_xor_sync(0xffffffffu, p[i], 4);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 8);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+      l[i] = fmaf(l[i], alpha, ps);
       m[i] = m_new;
 #pragma unroll
       for (int e = 0; e < NE; ++e) acc[i][e] *= alpha;
     }
 
-    // acc[row][d] += sum_j p[row][j] * V[j][d]; lane owns d = lane + 32e
-    const int n_here = min(kKeys, n_keys - t0);
-    for (int j = 0; j < n_here; ++j) {
-      float pj[kRowsPerWarp];
+    // acc_i += sum over the warp's keys of p_i V; lane owns lane + 32e
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        pj[i] = __shfl_sync(0xffffffffu, p[i], j);
-      const float* vr = vs + j * D;
+    for (int jj = 0; jj < kKeysPerWarp; ++jj) {
+      const float* vr = vt + (warp * kKeysPerWarp + jj) * LD;
+      float vv[NE];
 #pragma unroll
-      for (int e = 0; e < NE; ++e) {
-        const int d = lane + 32 * e;
-        const float vd = d < D ? vr[d] : 0.f;
+      for (int e = 0; e < NE; ++e) vv[e] = vr[lane + 32 * e];
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          acc[i][e] = fmaf(pj[i], vd, acc[i][e]);
+      for (int i = 0; i < MR; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], jj * kParts);
+#pragma unroll
+        for (int e = 0; e < NE; ++e) acc[i][e] = fmaf(pj, vv[e], acc[i][e]);
       }
     }
   }
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with the tiles: reuse them
 
-  // emit: live rows normalise, dead rows are exact zeros
+  // the warps' states, merged in the order 0..3 into the split's partial
+  float* wm = kb;                          // [kWarps][MR]
+  float* wl = wm + kWarps * MR;            // [kWarps][MR]
+  float* wacc = wl + kWarps * MR;          // [kWarps][MR][DP]
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = row0 + warp + kWarps * i;
-    if (r >= n_rows) continue;
-    const int c = r / rep;
-    const int h = g * rep + r % rep;
-    float* o = out + ((static_cast<int64_t>(b) * C + c) * Hq + h) * D;
-    const float denom = fmaxf(l[i], FLT_MIN);
+  for (int i = 0; i < MR; ++i) {
+    if (lane == 0) {
+      wm[warp * MR + i] = m[i];
+      wl[warp * MR + i] = l[i];
+    }
 #pragma unroll
-    for (int e = 0; e < NE; ++e) {
-      const int d = lane + 32 * e;
-      if (d < D) o[d] = limit[i] >= 0 ? acc[i][e] / denom : 0.f;
+    for (int e = 0; e < NE; ++e)
+      wacc[(warp * MR + i) * DP + lane + 32 * e] = acc[i][e];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < MR * DP; idx += kThreads) {
+    const int i = idx / DP, d = idx % DP;
+    if (d >= w.D || row_limit(w, i) < w.s0) continue;
+    float M = wm[i];
+#pragma unroll
+    for (int v = 1; v < kWarps; ++v) M = fmaxf(M, wm[v * MR + i]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      const float wt = exp2f(wm[v * MR + i] - M);
+      L = fmaf(wl[v * MR + i], wt, L);
+      A = fmaf(wacc[(v * MR + i) * DP + d], wt, A);
+    }
+    const int64_t at = w.s * w.NR + row_id(w, i);
+    w.part_acc[at * w.D + d] = A;
+    if (d == 0) {
+      w.part_ml[2 * at] = M;
+      w.part_ml[2 * at + 1] = L;
     }
   }
 }
 
-template <int NE>
+// -------------------------------------------------------------- chunk
+// Slot-rows [r0, r0 + 64), 16 a warp (the m16 side of every product),
+// n_keys keys of split s from s0, in 32-key tiles.
+template <int DP, bool kVec>
+__device__ __forceinline__ void chunk_path(const Work& w, float* smem,
+                                           int r0, int n_keys) {
+  using R = Ring<DP>;
+  constexpr int LD = R::kLD;
+  constexpr int KS = DP / 8;               // k-steps of S = n-tiles of O
+  constexpr int NT = kTile / 8;            // n-tiles of S = k-steps of P V
+  constexpr int NC = KS < 8 ? KS : 8;      // O's n-tiles a fresh P V holds
+  float* qs = smem;                        // [kRows][LD]
+  float* kb = qs + kRows * LD;             // [kStages][kTile][LD]
+  float* vb = kb + R::kStages * kTile * LD;  // [kStages][kTile][LD]
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  prologue<DP, kVec>(w, smem, r0, kRows, n_keys, n_tiles);
+
+  const int rw = warp * 16;                // the warp's first row
+  const float* qw = qs + rw * LD;
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lim[h] = row_limit(w, r0 + rw + g + 8 * h);
+  // the last key any row of the warp sees
+  const int warp_hi = r0 + rw < w.n_live
+                          ? row_limit(w, min(r0 + rw + 15, w.n_live - 1))
+                          : -1;
+
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    advance<DP, kVec>(w, smem, it, n_tiles);
+    const int t0 = w.s0 + it * kTile;
+    if (t0 > warp_hi) continue;  // no row of the warp sees the tile
+    const float* kt = kb + (it % R::kStages) * kTile * LD;
+    const float* vt = vb + (it % R::kStages) * kTile * LD;
+
+    // S = Q K^T: the warp's 16 rows x 32 keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      load_a(qw, LD, kk, g, t, ab, as);
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) load_bt(kt, LD, i, kk, g, t, bb[i], bs[i]);
+      mma3x4(s[0], s[1], s[2], s[3], ab, as, ab, as, ab, as, ab, as, bb, bs);
+    }
+
+    // masked scores -inf; then the online softmax on the fragments: the
+    // row max over the quad's 4 lanes, p = 2^(s c - m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (t0 + 8 * j + 2 * t + (e & 1) > lim[e >> 1]) s[j][e] = -INFINITY;
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * w.c);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[j][e], w.c, -m[e >> 1]));
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+
+    // O = O alpha + P V: each tile's P V in fresh fragments (k over the
+    // tile's keys, permuted), NC n-tiles at a time, merged by FMAs
+#pragma unroll
+    for (int n0 = 0; n0 < KS; n0 += NC) {
+      float to[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) to[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t pbig[4], psml[4];
+        acc_as_a(s[j], pbig, psml);
+#pragma unroll
+        for (int n = 0; n < NC; n += 4) {
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            load_bp(vt, LD, j, n0 + n + i, g, t, bb[i], bs[i]);
+          mma3x4(to[n], to[n + 1], to[n + 2], to[n + 3], pbig, psml, pbig,
+                 psml, pbig, psml, pbig, psml, bb, bs);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n0 + n][e] = fmaf(acc[n0 + n][e], alpha[e >> 1], to[n][e]);
+    }
+  }
+  cp_async_wait_all();
+
+  // the split's partial of each row that sees one of its keys: the row
+  // sum over the quad's lanes, acc columns 8n + 2t, 8n + 2t + 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h] + __shfl_xor_sync(0xffffffffu, l[h], 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (lim[h] < w.s0) continue;  // dead, or sees no key of the split
+    const int64_t at = w.s * w.NR + row_id(w, r0 + rw + g + 8 * h);
+    float* a = w.part_acc + at * w.D;
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < w.D) a[d] = acc[n][2 * h];
+      if (d + 1 < w.D) a[d + 1] = acc[n][2 * h + 1];
+    }
+    if (t == 0) {
+      w.part_ml[2 * at] = m[h];
+      w.part_ml[2 * at + 1] = sum;
+    }
+  }
+}
+
+// grid (B * Hkv, ceil(C * rep / 64), n_splits); see the head comment.
+// DP: head_dim's bucket (32, 64, 128, 256); kVec: head_dim % 4 == 0.
+template <int DP, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+paged_split_kernel(const float* __restrict__ q,
+                   const float* __restrict__ k_pages,
+                   const float* __restrict__ v_pages,
+                   const int* __restrict__ tables,
+                   const int* __restrict__ kv_lens,
+                   const int* __restrict__ q_lens,
+                   float* __restrict__ part_ml, float* __restrict__ part_acc,
+                   int C, int Hq, int Hkv, int D, int ps, int W, int split,
+                   float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  Work w;
+  w.q = q;
+  w.kp = k_pages;
+  w.vp = v_pages;
+  w.part_ml = part_ml;
+  w.part_acc = part_acc;
+  w.C = C;
+  w.Hq = Hq;
+  w.Hkv = Hkv;
+  w.D = D;
+  w.ps = ps;
+  w.T = W * ps;
+  w.split = split;
+  w.b = blockIdx.x / Hkv;
+  w.g = blockIdx.x % Hkv;
+  w.NR = static_cast<int64_t>(gridDim.x / Hkv) * C * Hq;
+  w.table = tables + static_cast<int64_t>(w.b) * W;
+  w.rep = Hq / Hkv;
+  w.q_len = q_lens[w.b];
+  w.kv_len = kv_lens[w.b];
+  w.n_live = max(0, min(w.q_len, C)) * w.rep;
+  w.s = blockIdx.z;
+  w.s0 = w.s * split;
+  w.c = scale * kLog2e;
+
+  // live rows up to which a slot takes the decode path (at 256 columns
+  // 16 rows' accumulators would take 128 registers a lane)
+  constexpr int kDec = DP <= 128 ? 16 : 8;
+  if (w.n_live <= kDec) {
+    if (blockIdx.y != 0 || w.n_live == 0) return;
+    const int n_keys = min(row_limit(w, w.n_live - 1) + 1 - w.s0, split);
+    if (n_keys <= 0) return;  // the split starts past every visible key
+    if (w.n_live == 1)
+      decode_path<DP, kVec, 1>(w, smem, n_keys);
+    else if (w.n_live <= 4)
+      decode_path<DP, kVec, 4>(w, smem, n_keys);
+    else
+      decode_path<DP, kVec, kDec>(w, smem, n_keys);
+  } else {
+    const int r0 = blockIdx.y * kRows;
+    if (r0 >= w.n_live) return;
+    const int last = min(r0 + kRows, w.n_live) - 1;
+    const int n_keys = min(row_limit(w, last) + 1 - w.s0, split);
+    if (n_keys <= 0) return;
+    chunk_path<DP, kVec>(w, smem, r0, n_keys);
+  }
+}
+
+// grid ceil(NR / 4), one warp an output row: the row's partials of the
+// splits it sees. Lane s takes split s (s + 32, ... beyond 32 splits):
+// the max M and the sum of l_s 2^(m_s - M) by fixed butterflies, then
+// each column's sum of acc_s 2^(m_s - M) in the order s = 0, 1, ...;
+// dead rows get zeros. The order depends on the row's own split count
+// only.
+__global__ void __launch_bounds__(kThreads)
+paged_merge_kernel(const float* __restrict__ part_ml,
+                   const float* __restrict__ part_acc,
+                   const int* __restrict__ kv_lens,
+                   const int* __restrict__ q_lens, float* __restrict__ out,
+                   int64_t NR, int C, int Hq, int D, int T, int split,
+                   int n_splits) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps +
+                      threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= NR) return;
+  const int64_t b = row / (static_cast<int64_t>(C) * Hq);
+  const int c = static_cast<int>((row / Hq) % C);
+  const int q_len = q_lens[b];
+  int ns = 0;
+  if (c < q_len) {
+    const int limit = min(kv_lens[b] - q_len + c, T - 1);
+    if (limit >= 0) ns = min(limit / split + 1, n_splits);
+  }
+  float* o = out + row * D;
+  if (ns == 0) {
+    for (int d = lane; d < D; d += 32) o[d] = 0.f;
+    return;
+  }
+  const float* ml = part_ml + 2 * row;
+  const int64_t ml_stride = 2 * NR;
+  float M = -INFINITY;
+  for (int s = lane; s < ns; s += 32) M = fmaxf(M, ml[s * ml_stride]);
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, x));
+  float L = 0.f;
+  for (int s = lane; s < ns; s += 32)
+    L = fmaf(ml[s * ml_stride + 1], exp2f(ml[s * ml_stride] - M), L);
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) L += __shfl_xor_sync(0xffffffffu, L, x);
+  const float denom = fmaxf(L, FLT_MIN);
+  // lane s's weight 2^(m_s - M), shared by shuffles (up to 32 splits)
+  const float w_own = lane < ns ? exp2f(ml[lane * ml_stride] - M) : 0.f;
+  const float* a = part_acc + row * D;
+  const int64_t a_stride = NR * D;
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int d = d0 + lane;
+    float A = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < ns; ++s) {
+      const float wt = s < 32 ? __shfl_sync(0xffffffffu, w_own, s)
+                              : exp2f(ml[s * ml_stride] - M);
+      if (d < D) A = fmaf(a[s * a_stride + d], wt, A);
+    }
+    if (d < D) o[d] = A / denom;
+  }
+}
+
+template <int DP, bool kVec>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* tables, const int* kv_lens,
-                   const int* q_lens, float* out, int B, int C, int Hq,
-                   int Hkv, int D, int ps, int W, float scale,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kKeys) * D
-                       + static_cast<size_t>(kKeys) * (D + 1)
-                       + static_cast<size_t>(kRows) * D);
+                   const int* tables, const int* kv_lens, const int* q_lens,
+                   float* part_ml, float* part_acc, int B, int C, int Hq,
+                   int Hkv, int D, int ps, int W, int split, int n_splits,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Ring<DP>::kFloats +
+                      sizeof(int64_t) * static_cast<size_t>(split);
+  auto kernel = paged_split_kernel<DP, kVec>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<NE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int n_rows = C * (Hq / Hkv);
-  dim3 grid(B * Hkv, (n_rows + kRows - 1) / kRows);
-  paged_attention_kernel<NE><<<grid, kThreads, smem, stream>>>(
-      q, k, v, tables, kv_lens, q_lens, out, C, Hq, Hkv, D, ps, W, scale);
+  const int rep = Hq / Hkv;
+  dim3 grid(B * Hkv, (C * rep + kRows - 1) / kRows, n_splits);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, tables, kv_lens, q_lens,
+                                           part_ml, part_acc, C, Hq, Hkv, D,
+                                           ps, W, split, scale);
   return cudaGetLastError();
 }
 
@@ -253,15 +669,23 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 extern "C" {
 
+// part_ml: n_splits * B * C * Hq * 2 floats; part_acc: n_splits * B * C *
+// Hq * D floats; n_splits = ceil(W * page_size / split), split a
+// multiple of 32 up to 1024.
 int paged_attention_f32(const void* q, const void* k_pages,
                         const void* v_pages, const void* tables,
-                        const void* kv_lens, const void* q_lens, void* out,
-                        int B, int C, int Hq, int Hkv, int D, int ps, int W,
-                        float scale, void* stream) {
+                        const void* kv_lens, const void* q_lens,
+                        void* part_ml, void* part_acc, void* out, int B,
+                        int C, int Hq, int Hkv, int D, int ps, int W,
+                        int split, int n_splits, float scale, void* stream) {
   if (B == 0 || C == 0) return cudaSuccess;
-  if (D <= 0 || D > 256 || D % 4 || Hkv <= 0 || Hq % Hkv || ps <= 0 ||
-      W <= 0)
+  if (B < 0 || C < 0 || D <= 0 || D > 256 || Hkv <= 0 || Hq % Hkv ||
+      ps <= 0 || W <= 0 || split <= 0 || split % kTile || split > 1024 ||
+      static_cast<int64_t>(W) * ps > (int64_t{1} << 30) ||
+      n_splits != (W * ps + split - 1) / split || n_splits > 65535 ||
+      (C * (Hq / Hkv) + kRows - 1) / kRows > 65535)
     return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launcher) {
     return launcher(static_cast<const float*>(q),
                     static_cast<const float*>(k_pages),
@@ -269,19 +693,28 @@ int paged_attention_f32(const void* q, const void* k_pages,
                     static_cast<const int*>(tables),
                     static_cast<const int*>(kv_lens),
                     static_cast<const int*>(q_lens),
-                    static_cast<float*>(out), B, C, Hq, Hkv, D, ps, W,
-                    scale, static_cast<cudaStream_t>(stream));
+                    static_cast<float*>(part_ml),
+                    static_cast<float*>(part_acc), B, C, Hq, Hkv, D, ps, W,
+                    split, n_splits, scale, st);
   };
+  const bool vec = D % 4 == 0;
   cudaError_t e;
   if (D <= 32)
-    e = args(launch<1>);
+    e = vec ? args(launch<32, true>) : args(launch<32, false>);
   else if (D <= 64)
-    e = args(launch<2>);
+    e = vec ? args(launch<64, true>) : args(launch<64, false>);
   else if (D <= 128)
-    e = args(launch<4>);
+    e = vec ? args(launch<128, true>) : args(launch<128, false>);
   else
-    e = args(launch<8>);
-  return static_cast<int>(e);
+    e = vec ? args(launch<256, true>) : args(launch<256, false>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t NR = static_cast<int64_t>(B) * C * Hq;
+  paged_merge_kernel<<<static_cast<unsigned>((NR + kWarps - 1) / kWarps),
+                       kThreads, 0, st>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
+      static_cast<float*>(out), NR, C, Hq, D, W * ps, split, n_splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* error_string(int err) {

@@ -39,9 +39,10 @@ _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _mu
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_attention": {
-        # q, k_pages, v_pages, tables, kv_lens, q_lens, out,
-        # B, C, Hq, Hkv, D, page_size, W, scale, stream
-        "paged_attention_f32": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+        # q, k_pages, v_pages, tables, kv_lens, q_lens, part_ml,
+        # part_acc, out, B, C, Hq, Hkv, D, page_size, W, split, n_splits,
+        # scale, stream (launches the split kernel and the merge kernel)
+        "paged_attention_f32": ([_P] * 9 + [_I] * 9 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
     "layer_norm": {

@@ -18,7 +18,10 @@ Two implementations of each pass:
   - hand-written Hopper kernels in
     ``paddle_tpu_torch/csrc/flash_attention.cu``: ``flash_fwd_f32``
     (K2), ``flash_bwd_dkdv_f32`` (K3a) and ``flash_bwd_dq_f32`` (K3b),
-    built by ``nvcc`` at first use and bound with ``ctypes``.
+    built by ``nvcc`` at first use and bound with ``ctypes``. They take
+    every head_dim up to ``MAX_HEAD_DIM`` (256): up to 128 on the tensor
+    cores (3xTF32), above that on CUDA cores; a head_dim that is not a
+    multiple of 4 is zero-padded to one (``pad_head_dim``, exact).
 
 The routers ``flash_attention_fwd`` and ``flash_attention_bwd`` route on
 the tensor's device only: a CPU tensor takes the plain version (counted
@@ -44,8 +47,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 NEG_INF = -1e30
 FWD, BWD_DKDV, BWD_DQ = "flash_fwd_f32", "flash_bwd_dkdv_f32", \
     "flash_bwd_dq_f32"
-# head_dim bound of the kernels (the largest head_dim bucket, 128)
-MAX_HEAD_DIM = 128
+# head_dim bound of the kernels (the largest head_dim bucket, 256)
+MAX_HEAD_DIM = 256
 counts = LaunchCounts(FWD, BWD_DKDV, BWD_DQ)
 
 
@@ -112,10 +115,29 @@ def _check_cuda(**ts):
             raise ValueError(f"flash attention kernels need a contiguous, "
                              f"16-byte aligned {name}")
     d = ts["q"].shape[-1]
-    if d > MAX_HEAD_DIM or d % 4:
+    if d > MAX_HEAD_DIM:
         raise ValueError(f"flash attention kernels take head_dim <= "
-                         f"{MAX_HEAD_DIM} and a multiple of 4, got {d}")
+                         f"{MAX_HEAD_DIM}, got {d}")
     return dev
+
+
+def pad_head_dim(*ts):
+    """The kernels stage rows with 16-byte copies, so head_dim must be a
+    multiple of 4: zero columns are appended up to the next multiple.
+    This is exact: a zero column adds exact zeros to every dot product
+    (q.k, dO.v) and to delta = rowsum(dO * O), and the padded output
+    columns are sliced away. ``scale`` always comes from the true
+    head_dim (the caller passes it)."""
+    d = ts[0].shape[-1]
+    if d % 4 == 0:
+        return ts
+    pad = -d % 4
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in ts)
+
+
+def _unpad(d, *ts):
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous()
+                 for t in ts)
 
 
 def _fwd_cuda(q, k, v, causal: bool, scale: float):
@@ -124,13 +146,14 @@ def _fwd_cuda(q, k, v, causal: bool, scale: float):
     _check(q, k, v)
     dev = _check_cuda(q=q, k=k, v=v)
     bh, sq, d = q.shape
+    q, k, v = pad_head_dim(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=dev)
     launch("flash_attention", FWD, dev, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, sq, k.shape[1],
-           d, int(causal), float(scale))
+           q.shape[-1], int(causal), float(scale))
     counts.kernel_launches[FWD] += 1
-    return o, lse
+    return _unpad(d, o)[0], lse
 
 
 def _bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal: bool, scale: float):
@@ -139,13 +162,14 @@ def _bwd_dkdv_cuda(q, k, v, dout, lse, delta, causal: bool, scale: float):
     _check(q, k, v)
     dev = _check_cuda(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     bh, sq, d = q.shape
+    q, k, v, dout = pad_head_dim(q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     launch("flash_attention", BWD_DKDV, dev, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], d,
+           dk.data_ptr(), dv.data_ptr(), bh, sq, k.shape[1], q.shape[-1],
            int(causal), float(scale))
     counts.kernel_launches[BWD_DKDV] += 1
-    return dk, dv
+    return _unpad(d, dk, dv)
 
 
 def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, scale: float):
@@ -154,12 +178,14 @@ def _bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, scale: float):
     _check(q, k, v)
     dev = _check_cuda(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta)
     bh, sq, d = q.shape
+    q, k, v, dout = pad_head_dim(q, k, v, dout)
     dq = torch.empty_like(q)
     launch("flash_attention", BWD_DQ, dev, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-           dq.data_ptr(), bh, sq, k.shape[1], d, int(causal), float(scale))
+           dq.data_ptr(), bh, sq, k.shape[1], q.shape[-1], int(causal),
+           float(scale))
     counts.kernel_launches[BWD_DQ] += 1
-    return dq
+    return _unpad(d, dq)[0]
 
 
 def _plain_route(t, *kernels) -> bool:

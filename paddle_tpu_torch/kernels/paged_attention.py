@@ -30,9 +30,14 @@ Two implementations of the same function:
   - ``paged_attention_reference`` — the plain PyTorch version: gather
     ``k_pages[tables]``, repeat for GQA, mask, dense softmax. The CPU
     tests run it, and ``chip_smoke.py`` holds the kernel against it.
-  - ``_paged_attention_cuda`` — the hand-written Hopper kernel in
-    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only), built by
-    ``nvcc`` at first use and bound with ``ctypes``.
+  - ``_paged_attention_cuda`` — the hand-written Hopper kernels in
+    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only, any head_dim
+    up to 256), built by ``nvcc`` at first use and bound with
+    ``ctypes``: split-K over each slot's keys in fixed splits of
+    ``SPLIT_KEYS`` (a partial softmax state per split, into a scratch
+    allocated here), then a merge kernel that combines a row's partials
+    in a fixed order. One call of the C entry point launches both and
+    counts as one launch.
 
 ``paged_attention`` routes on the tensor's device ONLY: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -50,11 +55,15 @@ from .counts import LaunchCounts
 
 NEG_INF = -1e30
 
-# head_dim bound of the kernel's register accumulators (8 floats a lane)
+# head_dim bound of the kernel (its largest head_dim bucket)
 MAX_HEAD_DIM = 256
+# keys per split of the kernel's split-K: a slot's keys [s * SPLIT_KEYS,
+# (s + 1) * SPLIT_KEYS) form split s whatever the batch, table width or
+# chunk, so a slot's output never depends on what else is in the call
+SPLIT_KEYS = 256  # chosen by k4_splits.py on an H100 (PERF.md)
 
 __all__ = ["paged_attention", "paged_attention_reference", "counts",
-           "KERNEL", "NEG_INF", "MAX_HEAD_DIM"]
+           "KERNEL", "NEG_INF", "MAX_HEAD_DIM", "SPLIT_KEYS", "n_splits"]
 
 KERNEL = "paged_attention_f32"
 counts = LaunchCounts(KERNEL)
@@ -97,7 +106,8 @@ def _canon_chunked(q, kv_lens, q_lens):
     live (kv_len > 0)."""
     if q.ndim == 3:
         q = q[:, None]
-        q_lens = (kv_lens > 0).to(torch.int32)
+        # 1 where kv_len > 0, else 0: one device op on int32 lengths
+        q_lens = kv_lens.clamp(0, 1).to(torch.int32)
     return q, q_lens
 
 
@@ -144,12 +154,18 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, kv_lens,
     return o[:, 0] if squeeze else o
 
 
+def n_splits(table_width: int, page_size: int) -> int:
+    """Splits of the kernel's grid: enough for every key slot of a
+    table row. Known on the host, so no device value is read."""
+    return -(-table_width * page_size // SPLIT_KEYS)
+
+
 def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
                           *, q_lens=None, scale: Optional[float] = None):
-    """Launch the hand-written kernel. Raises on what it does not take:
+    """Launch the hand-written kernels. Raises on what they do not take:
     a non-CUDA or mixed device, a dtype other than float32, a
-    non-contiguous q or pool, a head_dim above ``MAX_HEAD_DIM`` or not
-    a multiple of 4 (the kernel stages rows as float4)."""
+    non-contiguous q or pool, a head_dim above ``MAX_HEAD_DIM``. Reads
+    no device value on the host (no sync)."""
     from ._build import launch
 
     b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
@@ -169,9 +185,9 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
         if not t.is_contiguous():
             raise ValueError(f"paged attention kernel needs a contiguous "
                              f"{name}")
-    if d > MAX_HEAD_DIM or d % 4:
+    if d > MAX_HEAD_DIM:
         raise ValueError(f"paged attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM} and a multiple of 4, got {d}")
+                         f"{MAX_HEAD_DIM}, got {d}")
     scale = float(scale) if scale else d ** -0.5
     # index vectors as contiguous int32 (the engine already hands them
     # over so; other callers pay one small conversion)
@@ -179,9 +195,15 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
     kv_l = kv_lens.to(torch.int32).contiguous()
     q_l = q_lens.to(torch.int32).contiguous()
     out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
+    # one scratch for each split's partial of every output row: (m, l)
+    # pairs, then acc[D] rows; only the splits a row sees are written
+    ns = n_splits(w, ps)
+    rows = ns * b * c * hq
+    scratch = torch.empty(rows * (2 + d), dtype=torch.float32, device=dev)
     launch("paged_attention", KERNEL, dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), tables.data_ptr(), kv_l.data_ptr(),
-           q_l.data_ptr(), out.data_ptr(), b, c, hq, hkv, d, ps, w, scale)
+           q_l.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * rows,
+           out.data_ptr(), b, c, hq, hkv, d, ps, w, SPLIT_KEYS, ns, scale)
     counts.kernel_launches[KERNEL] += 1
     return out[:, 0] if squeeze else out
 

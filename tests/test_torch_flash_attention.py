@@ -4,7 +4,9 @@ against the JAX package's Pallas kernels in interpret mode, on the CPU.
 On the CPU the routers run the plain versions of K2, K3a and K3b (the
 CUDA kernels are held against them on the card by chip_smoke.py). Cases:
 causal and not, S = 40 with blocks of 16 (not a multiple of the block),
-Sq != Sk both ways, head_dim 16 and 64. Tolerance: 5e-6 absolute on O,
+Sq != Sk both ways, head_dim 16, 64, 18 (not a multiple of 4: the card
+zero-pads it to 20, test_head_dim_padding_is_exact) and 256 (the largest
+bucket, CUDA-core kernels on the card). Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
 
@@ -32,7 +34,8 @@ jfa = importlib.import_module(
     "paddle_tpu.fluid.ops.pallas_kernels.flash_attention")
 
 TOL = 5e-6
-CASES = [(40, 40, 16), (40, 40, 64), (40, 24, 16), (24, 40, 64)]
+CASES = [(40, 40, 16), (40, 40, 64), (40, 24, 16), (24, 40, 64),
+         (40, 40, 18), (40, 24, 256)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -86,9 +89,44 @@ def test_routers_on_meta_and_kernel_refusals():
     assert tfa.counts.plain_calls == before
     with pytest.raises(TypeError, match="float32"):
         tfa._fwd_cuda(q.to(torch.bfloat16), k, k, False, 0.25)
-    wide = torch.empty(4, 40, 132, device="meta")
-    with pytest.raises(ValueError, match="head_dim"):
+    # every head_dim up to 256 passes the kernels' checks (132 and 18
+    # included); above 256 the wrapper refuses, naming the limit
+    for d in (132, 18, 256):
+        wide = torch.empty(4, 40, d, device="meta")
+        assert tfa._check_cuda(q=wide, k=wide, v=wide) == wide.device
+    wide = torch.empty(4, 40, 264, device="meta")
+    with pytest.raises(ValueError, match="head_dim <= 256"):
         tfa._fwd_cuda(wide, wide, wide, False, 0.25)
+
+
+@pytest.mark.parametrize("d", [18, 1, 131])
+def test_head_dim_padding_is_exact(d):
+    """The wrapper zero-pads a head_dim that is not a multiple of 4 before
+    launching the kernels and slices the outputs back, the scale from the
+    true head_dim: the zero columns add exact zeros to q.k, dO.v and
+    delta, so the plain forward and backward on the padded inputs give
+    the unpadded ones' values (to the float32 rounding of the products)."""
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.tensor(rng.randn(3, 20, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    qp, kp, vp, dop = tfa.pad_head_dim(q, k, v, do)
+    assert qp.shape[-1] % 4 == 0 and qp.shape[-1] - d < 4
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, True, scale)
+    op, lsep = tfa.flash_attention_fwd_reference(qp, kp, vp, True, scale)
+    delta = (do * o).sum(-1)
+    deltap = (dop * op).sum(-1)
+    np.testing.assert_allclose(delta.numpy(), deltap.numpy(), atol=1e-6)
+    grads = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta, True,
+                                              scale)
+    gradsp = tfa.flash_attention_bwd_reference(qp, kp, vp, dop, lsep,
+                                               deltap, True, scale)
+    for want, got in zip((o, lse) + grads,
+                         tfa._unpad(d, op) + (lsep,) + tfa._unpad(d, *gradsp)):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)
 
 
 def _tf32_rna(x):

@@ -5,13 +5,20 @@ interpret mode, on the same seeded numpy inputs.
 
 Tolerance: atol 1e-5, rtol 1e-5 in float32 — the same function, with
 sums taken in another order. Dead slots and dead query lanes must be
-exactly 0 in every implementation.
+exactly 0 in every implementation. Cases include head_dim 18 (not a
+multiple of 4) and 256 (the kernel's largest bucket) and a long context
+of five key splits.
 
-The hand-written CUDA kernel runs only on a card; ``chip_smoke.py``
-holds it against the plain version there. Here the router must take the
-plain version for CPU tensors and count it, and the kernels package must
-import with no nvcc in reach.
+The hand-written CUDA kernels run only on a card; ``chip_smoke.py``
+holds them against the plain version there. Here the router must take
+the plain version for CPU tensors and count it, the kernels package
+must import with no nvcc in reach, and ``test_split_k_algorithm_emulated``
+runs the kernels' split-K algorithm (fixed splits of SPLIT_KEYS keys,
+32-key tiles, online softmax in exp2 units, partials merged in split
+order) in float32 against the Pallas kernel, and shows that a slot's
+rows do not change, bitwise, with the batch around it.
 """
+import math
 import subprocess
 import sys
 
@@ -62,6 +69,17 @@ CASES = {
                             kv_lens=[33, 5, 40, 9], q_lens=[5, 5, 1, 0]),
     "chunk_gqa4_ps4": dict(B=2, C=8, Hq=8, Hkv=2, D=8, ps=4, W=6, P=20,
                            kv_lens=[23, 8], q_lens=[3, 8]),
+    # head_dim not a multiple of 4, and the largest bucket
+    "single_gqa2_d18": dict(B=3, C=None, Hq=4, Hkv=2, D=18, ps=4, W=6,
+                            P=20, kv_lens=[21, 0, 5], q_lens=None),
+    "chunk_mha_d18": dict(B=3, C=5, Hq=2, Hkv=2, D=18, ps=8, W=4, P=12,
+                          kv_lens=[30, 5, 0], q_lens=[5, 3, 0]),
+    "chunk_gqa2_d256": dict(B=2, C=3, Hq=4, Hkv=2, D=256, ps=8, W=3, P=8,
+                            kv_lens=[20, 2], q_lens=[3, 1]),
+    # a long context: W * ps = 1152 keys, five splits of SPLIT_KEYS
+    "chunk_long_ps16": dict(B=4, C=4, Hq=4, Hkv=2, D=16, ps=16, W=72,
+                            P=80, kv_lens=[1100, 257, 0, 768],
+                            q_lens=[4, 1, 0, 2]),
 }
 
 
@@ -125,6 +143,10 @@ def test_shape_checks_refuse_bad_layouts():
         pa.paged_attention(args[0][:, None], *args[1:])
     with pytest.raises(ValueError, match="not a multiple"):
         pa.paged_attention(args[0][:, :3], *args[1:])
+    wide = torch.zeros(4, 4, 264)
+    pool = torch.zeros(20, 4, 4, 264)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        pa._paged_attention_cuda(wide, pool, pool, *args[3:])
 
 
 def test_kernels_import_without_nvcc_and_build_fails_clearly(monkeypatch):
@@ -144,3 +166,120 @@ def test_kernels_import_without_nvcc_and_build_fails_clearly(monkeypatch):
         _build.build_all()
     assert _build.kernel_sources() == ["conv_bn_relu", "flash_attention",
                                        "layer_norm", "paged_attention"]
+
+
+LOG2E = 1.4426950408889634
+TILE = 32  # keys a kernel tile stages
+
+
+def _split_k_emulated(q, kp, vp, tables, kv_lens, q_lens, split=None):
+    """The kernels' algorithm on the CPU in float32 (numpy in, torch
+    out): each slot's keys in fixed splits of ``split`` keys by absolute
+    position; per split, per visible row, an online softmax over 32-key
+    tiles in units of s * scale * log2(e) (p = 2^(x - m)), giving a
+    partial (m, l, acc); the row's partials merged with weights
+    2^(m_s - M), then divided by max(l, FLT_MIN). Dead rows stay exact
+    zeros. Each slot is computed on its own, as a kernel block only ever
+    reads its own slot. Not emulated: the order of the kernels' float32
+    sums inside a tile (lane partials, butterflies, tensor-core
+    fragments), which chip_smoke.py holds to the plain version."""
+    split = split or pa.SPLIT_KEYS
+    q = torch.from_numpy(q)
+    squeeze = q.ndim == 3
+    if squeeze:
+        q = q[:, None]
+        q_lens = (np.asarray(kv_lens) > 0).astype(np.int32)
+    kp, vp = torch.from_numpy(kp), torch.from_numpy(vp)
+    B, C, Hq, D = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    T = tables.shape[1] * ps
+    heads = torch.arange(Hq) // (Hq // Hkv)
+    c = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for lane in range(min(int(q_lens[b]), C)):
+            limit = min(int(kv_lens[b]) - int(q_lens[b]) + lane, T - 1)
+            if limit < 0:
+                continue
+            parts = []
+            for s0 in range(0, limit + 1, split):
+                m = torch.full((Hq,), -1e30)
+                l = torch.zeros(Hq)
+                acc = torch.zeros(Hq, D)
+                for t0 in range(s0, min(s0 + split, limit + 1), TILE):
+                    t = torch.arange(t0, min(t0 + TILE, limit + 1))
+                    pages = torch.from_numpy(tables[b]).long()[t // ps]
+                    k = kp[pages, t % ps][:, heads]          # [n, Hq, D]
+                    v = vp[pages, t % ps][:, heads]
+                    x = torch.einsum("hd,nhd->hn", q[b, lane], k) * c
+                    m_new = torch.maximum(m, x.amax(-1))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.exp2(x - m_new[:, None])
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[:, None] + torch.einsum(
+                        "hn,nhd->hd", p, v)
+                    m = m_new
+                parts.append((m, l, acc))
+            M = torch.stack([pm for pm, _, _ in parts]).amax(0)
+            L = torch.zeros(Hq)
+            A = torch.zeros(Hq, D)
+            for pm, pl, pacc in parts:
+                wt = torch.exp2(pm - M)
+                L = L + pl * wt
+                A = A + pacc * wt[:, None]
+            out[b, lane] = A / torch.clamp(L, min=torch.finfo(
+                torch.float32).tiny)[:, None]
+    return out[:, 0] if squeeze else out
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_k_algorithm_emulated(name):
+    """The split-K partition, the per-split online softmax and the
+    fixed-order merge compute the Pallas kernel's function within 1e-6
+    (float32, unit-scale inputs), dead rows exactly 0. A slot computed
+    alone, with its table padded wider (more splits in the grid, none of
+    them read), gives bitwise the rows it gives inside the batch."""
+    case = CASES[name]
+    q, kp, vp, tables, kv_lens, q_lens = _case(7, **case)
+    got = _split_k_emulated(q, kp, vp, tables, kv_lens, q_lens).numpy()
+    jq = None if q_lens is None else jnp.asarray(q_lens)
+    pal = np.asarray(_paged_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(kv_lens), q_lens=jq,
+        interpret=True))
+    np.testing.assert_allclose(got, pal, rtol=0, atol=1e-6)
+    g4 = got if got.ndim == 4 else got[:, None]
+    assert np.all(g4[_dead_mask(case, g4.shape)] == 0.0)
+    for b in range(q.shape[0]):
+        wide = np.concatenate(
+            [tables[b:b + 1], np.zeros((1, 2 * pa.SPLIT_KEYS // case["ps"]),
+                                       np.int32)], axis=1)
+        alone = _split_k_emulated(
+            q[b:b + 1], kp, vp, wide, kv_lens[b:b + 1],
+            None if q_lens is None else q_lens[b:b + 1]).numpy()
+        assert np.array_equal(alone[0], got[b]), b
+
+
+def test_split_count_comes_from_the_table_width():
+    """The grid's split count is known on the host from W * page_size
+    (no device read), and covers every key slot of a table row."""
+    assert pa.SPLIT_KEYS % TILE == 0
+    case = CASES["chunk_long_ps16"]
+    assert pa.n_splits(case["W"], case["ps"]) >= 4
+    for w, ps in ((1, 4), (64, 16), (40, 16), (3, 8), (8, 16)):
+        ns = pa.n_splits(w, ps)
+        assert (ns - 1) * pa.SPLIT_KEYS < w * ps <= ns * pa.SPLIT_KEYS
+
+
+def test_kernel_path_reads_no_device_value_on_the_host():
+    """The wrapper runs 24 times an engine step: it sizes the grid and
+    the scratch from shapes the host knows (W * page_size) and never
+    reads a device value, which would synchronize with the card."""
+    import inspect
+
+    src = inspect.getsource(pa._paged_attention_cuda) + inspect.getsource(
+        pa._canon_chunked) + inspect.getsource(pa.n_splits)
+    for call in (".item(", ".cpu(", ".tolist(", ".numpy(", "int(kv",
+                 "max()"):
+        assert call not in src, call
