@@ -88,9 +88,41 @@ and prints no result):
            ResNet-50 at batch 2 on the card (K5) and on the CPU (plain
            version) from the same parameters: logits agree within 1e-4
            of the largest |logit|.
+  resnet train
+           the Fluid training main path of the image-classification
+           models: ResNet-50 ImageNet (as in infer, unfused: 53 conv2d on
+           cuDNN + 53 batch_norm), resnet.build_train, Momentum(0.01,
+           0.9), batch 32, the startup program run on the card, one
+           seeded batch copied to the card once, 5 steps through
+           Executor().run. Counters zeroed just before the steps and read
+           just after: no plain version ran; the losses finite; every
+           running mean and variance moved. The same step twice from the
+           same state: bitwise equal loss and scope. Step ms p50,
+           images/s, peak memory, the program's op census; steps with
+           the deterministic and with cuDNN's default convolution
+           algorithms in turns, and whether a default step repeats
+           bitwise; one profiled step.
+  resnet train check
+           one ResNet-50 training step at batch 2 on the card, on the
+           CPU and on the CPU in float64, from the same state and feed:
+           card vs CPU, the loss within 1e-4 relative and every updated
+           running statistic within 1e-4 of its tensor's largest
+           |value|. The gradients are not continuous at a relu's kink or
+           a max-pool tie, and float32 puts some values on the other
+           side (the CPU's float32 gradients miss float64 by ~1-2%), so
+           the card's gradients are held against float64: relative L2
+           error over all parameters within 3x the CPU float32's, each
+           tensor within 0.5 of its max; the largest errors recorded.
+  resnet fold
+           the trained network's conv filters and fold_bn of its
+           batch-norm statistics set into the fused ResNet-50 (53 pairs
+           onto 53 conv2d_bn_relu ops); a seeded batch of 16 through it
+           (53 K5 launches, no plain call) and through the unfused
+           test-mode network: logits within 1e-4 of the largest |logit|.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Every line before the last two is also
+written to smoke_out/chip_smoke.log.
 """
 import json
 import os
@@ -116,8 +148,15 @@ SERVE = dict(slots=[1, 2, 4, 8], page_size=16, num_pages=513,
              max_seq_len=1024, prefill_chunk=64)
 
 
+# every line the script prints also goes to this file (gitignored), whose
+# whole text outlives a tail of the output
+LOG_PATH = os.path.join(REPO, "smoke_out", "chip_smoke.log")
+
+
 def log(*a):
     print(*a, flush=True)
+    with open(LOG_PATH, "a") as f:
+        print(*a, file=f)
 
 
 def phase(name):
@@ -1262,20 +1301,27 @@ def copy_task_batch(batch, cfg_kw):
 
 
 def _kernel_counts():
+    """(launches, plain calls) of every kernel of the port, by name."""
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import paged_attention as pa
 
-    launches = {**ln.counts.kernel_launches, **fa.counts.kernel_launches}
-    plain = {**ln.counts.plain_calls, **fa.counts.plain_calls}
+    launches, plain = {}, {}
+    for mod in (ln, fa, pa, k5):
+        launches.update(mod.counts.kernel_launches)
+        plain.update(mod.counts.plain_calls)
     return launches, plain
 
 
 def _reset_kernel_counts():
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import paged_attention as pa
 
-    ln.counts.reset()
-    fa.counts.reset()
+    for mod in (ln, fa, pa, k5):
+        mod.counts.reset()
 
 
 def train_phase(torch):
@@ -1431,8 +1477,9 @@ def train_check_phase(torch):
         deltas[dev] = _kernel_counts()
     per_step = {"layer_norm_f32": 10, "flash_fwd_f32": 6,
                 "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6}
-    if deltas["cuda"] != (per_step, dict.fromkeys(per_step, 0)) or \
-            deltas["cpu"] != (dict.fromkeys(per_step, 0), per_step):
+    zero = dict.fromkeys(deltas["cuda"][0], 0)
+    if deltas["cuda"] != ({**zero, **per_step}, zero) or \
+            deltas["cpu"] != (zero, {**zero, **per_step}):
         raise RuntimeError(f"kernel/plain counts (card, cpu): {deltas}")
     lc, lp = float(out["cuda"][0][0]), float(out["cpu"][0][0])
     if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
@@ -1451,6 +1498,429 @@ def train_check_phase(torch):
         f"{worst:.3g}")
     return {"loss_card": lc, "loss_cpu": lp, "grads": len(pg),
             "worst_grad_rel_err": worst}
+
+
+# --- resnet train: ResNet-50 training through the Fluid Executor --------
+
+def logits_var(program):
+    """The name of the logits of an image-classification program: the
+    input of its softmax."""
+    return [op for op in program.global_block().ops
+            if op.type == "softmax"][-1].input("X")[0]
+
+
+def fold_trained_network(trained, scope, fused, fused_scope):
+    """Fill the fused inference program's parameters from a trained
+    network of the same model function (resnet.py builds the two forms
+    one to one): in program order, each conv2d + batch_norm pair gives one
+    conv2d_bn_relu op its Filter, and fold_bn of the batch norm's scale,
+    bias and running mean and variance its Scale/Shift; every other
+    parameter (the fc's) copies by name. Returns the number of pairs."""
+    from paddle_tpu_torch.kernels.conv_bn_relu import fold_bn
+
+    ops = trained.global_block().ops
+    bn_of = {op.input("X")[0]: op for op in ops if op.type == "batch_norm"}
+    pairs = [(op, bn_of[op.output("Output")[0]]) for op in ops
+             if op.type == "conv2d"]
+    convs = [op for op in fused.global_block().ops
+             if op.type == "conv2d_bn_relu"]
+    if len(pairs) != len(convs):
+        raise RuntimeError(f"{len(pairs)} conv2d + batch_norm pairs "
+                           f"against {len(convs)} conv2d_bn_relu ops")
+
+    def value(op, slot):
+        return scope.find_var(op.input(slot)[0])
+
+    def put(name, t):
+        old = fused_scope.find_var(name)
+        if tuple(old.shape) != tuple(t.shape):
+            raise RuntimeError(f"{name}: {tuple(t.shape)} into "
+                               f"{tuple(old.shape)}")
+        fused_scope.set_var(name, t.to(old.device))
+
+    folded = set()
+    for (conv, bn), op in zip(pairs, convs):
+        sc, sh = fold_bn(value(bn, "Scale"), value(bn, "Bias"),
+                         value(bn, "Mean"), value(bn, "Variance"),
+                         float(bn.attr("epsilon")))
+        for slot, t in (("Filter", value(conv, "Filter")), ("Scale", sc),
+                        ("Shift", sh)):
+            put(op.input(slot)[0], t)
+            folded.add(op.input(slot)[0])
+    for p in fused.global_block().all_parameters():
+        if p.name not in folded:
+            put(p.name, scope.find_var(p.name))
+    return len(pairs)
+
+
+# the resnet train phase: ResNet-50 ImageNet as in the infer phase, with
+# Momentum(0.01, 0.9) at batch 32 (bench.py:80, :625-636), 5 steps on one
+# seeded batch as bench.py's --use_fake_data
+RESNET_TRAIN_BATCH, RESNET_TRAIN_STEPS, RESNET_LR = 32, 5, 0.01
+# resnet train check: the card's gradients against float64 may err this
+# many times the CPU float32's (relative L2 over all parameters), and no
+# tensor by more than GRAD_TENSOR_MAX of its max (see the phase)
+GRAD_FACTOR, GRAD_TENSOR_MAX = 3, 0.5
+
+
+def build_resnet50_train(seed):
+    """The port's ResNet-50 training program, seeded: (main, startup,
+    test, cost, acc, params_grads); ``test`` is the for_test clone taken
+    before Momentum.minimize (the unfused inference network)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data(name="img",
+                          shape=[3, RESNET_IMAGE, RESNET_IMAGE],
+                          dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        cost, acc, _ = resnet.build_train(img, label,
+                                          class_dim=RESNET_CLASSES, depth=50)
+        test = main.clone(for_test=True)
+        _, pg = fluid.optimizer.Momentum(
+            learning_rate=RESNET_LR, momentum=0.9).minimize(cost)
+    return main, startup, test, cost, acc, pg
+
+
+def _bn_stats(program):
+    """[(running mean, running variance)] names, in program order."""
+    return [(op.output("MeanOut")[0], op.output("VarianceOut")[0])
+            for op in program.global_block().ops if op.type == "batch_norm"]
+
+
+def _scope_copy(fluid, scope):
+    out = fluid.Scope()
+    for n in scope.var_names():
+        out.set_var(n, scope.find_var(n).clone())
+    return out
+
+
+def _same_state(torch, a, b):
+    """Names whose tensors differ in any bit between two scopes."""
+    return [n for n in a.var_names()
+            if not torch.equal(a.find_var(n), b.find_var(n))]
+
+
+def _one_step(exe, main, feed, cost, scope):
+    import numpy as np
+
+    (loss,) = exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    return float(np.asarray(loss).reshape(-1)[0])
+
+
+def resnet_train_phase(torch):
+    """The Fluid training main path: ResNet-50 ImageNet at full width,
+    Momentum(0.01, 0.9), batch 32, the startup program run on the card,
+    one seeded batch copied to the card once, 5 steps. Counters zeroed
+    just before the steps and read just after: no plain version of any
+    kernel ran (this path runs none of K1-K5: its convolutions are
+    cuDNN's, as the JAX package leaves them to XLA). The losses finite,
+    every running mean and variance moved off its initial value. Then
+    from the state after the steps: the same step twice, bitwise equal
+    in loss and every scope tensor; steps with the convolutions' cuDNN
+    algorithms restricted to the deterministic ones (the port's choice)
+    and with cuDNN's default choice, 3 each in turns, timed, and whether
+    a default step repeats bitwise (recorded, not held); one step under
+    torch.profiler."""
+    phase("resnet train")
+    import contextlib
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.ops import nn_ops
+
+    t0 = time.perf_counter()
+    main, startup, test, cost, acc, pg = build_resnet50_train(seed=3)
+    build_s = time.perf_counter() - t0
+    exe, scope = fluid.Executor(), fluid.Scope()
+    if exe.device.type != "cuda":
+        raise RuntimeError(f"Executor() chose {exe.device}, not the card")
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    ops = [op.type for op in main.global_block().ops]
+    census = {
+        "ops": len(ops),
+        "forward": sum(1 for t in ops[:ops.index("fill_constant")]
+                       if t != "assign"),
+        "grad": sum(1 for t in ops if t.endswith("_grad")),
+        "grad_sums": ops.count("sum"),
+        "momentum": ops.count("momentum"),
+        "assign": ops.count("assign"),
+        "conv2d": ops.count("conv2d"), "batch_norm": ops.count("batch_norm"),
+    }
+    if (census["conv2d"], census["batch_norm"], census["momentum"]) != \
+            (CONVS_PER_FORWARD, CONVS_PER_FORWARD, len(pg)):
+        raise RuntimeError(f"ResNet-50 train program census {census}")
+    n_params = sum(int(np.prod(p.shape)) for p in
+                   main.global_block().all_parameters())
+    log(f"  built {len(ops)} ops in {build_s:.2f} s; startup "
+        f"({len(startup.global_block().ops)} ops) on the card in "
+        f"{startup_s:.2f} s; {n_params} parameter values, {len(pg)} "
+        f"trained; census {json.dumps(census)}")
+    stats = _bn_stats(main)
+    initial = {n: scope.find_var(n).clone() for pair in stats for n in pair}
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(RESNET_TRAIN_BATCH, 3, RESNET_IMAGE,
+                  RESNET_IMAGE).astype(np.float32)
+    y = rng.randint(0, RESNET_CLASSES, (RESNET_TRAIN_BATCH, 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feed = {"img": torch.from_numpy(x).cuda(),
+            "label": torch.from_numpy(y.astype(np.int64)).cuda()}
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t0) * 1e3
+
+    # the main path's window: counters to 0, the steps, counters read
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    losses, accs, step_ms = [], [], []
+    for _ in range(RESNET_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, a = exe.run(main, feed=feed, fetch_list=[cost, acc],
+                          scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(loss).reshape(-1)[0]))
+        accs.append(float(np.asarray(a).reshape(-1)[0]))
+    launches, plain = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the window ends here
+    if any(plain.values()):
+        raise RuntimeError(f"plain versions ran on the card's main path: "
+                           f"{plain}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite: {losses}")
+    still = [n for n, t in initial.items()
+             if torch.equal(scope.find_var(n), t)]
+    if still:
+        raise RuntimeError(f"{len(still)} running statistics never moved, "
+                           f"e.g. {still[:3]}")
+    p50 = statistics.median(step_ms[1:])
+    train = {
+        "config": "resnet-50 imagenet 224x224x3 1000 classes f32, "
+                  "momentum 0.01/0.9, fake data (one seeded batch)",
+        "batch": RESNET_TRAIN_BATCH, "steps": RESNET_TRAIN_STEPS,
+        "losses": losses, "accuracies": accs, "step_ms": step_ms,
+        "p50_step_ms_after_first": p50,
+        "images_per_s": RESNET_TRAIN_BATCH / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb, "feed_copy_ms": feed_ms,
+        "build_s": build_s, "startup_s": startup_s, "census": census,
+        "kernel_launches": launches, "plain_calls": plain,
+        "running_stats_moved": 2 * len(stats),
+    }
+    log("  resnet train " + json.dumps(train))
+
+    # the same step from the same state, twice: bitwise equal
+    after = _scope_copy(fluid, scope)
+    runs = []
+    for _ in range(2):
+        s = _scope_copy(fluid, after)
+        runs.append((_one_step(exe, main, feed, cost, s), s))
+    differ = _same_state(torch, runs[0][1], runs[1][1])
+    if runs[0][0] != runs[1][0] or differ:
+        raise RuntimeError(f"the same step twice: losses {runs[0][0]!r} "
+                           f"{runs[1][0]!r}; {len(differ)} scope tensors "
+                           f"differ, e.g. {differ[:3]}")
+    log(f"  the same step twice from the same state: loss "
+        f"{runs[0][0]!r}, {len(after.var_names())} scope tensors bitwise "
+        f"equal")
+    del runs
+
+    # the convolutions with cuDNN's default algorithm choice against the
+    # deterministic ones, in turns (3 steps each), and whether a default
+    # step repeats bitwise (recorded)
+    saved = nn_ops._conv_algorithms
+
+    def default_choice(x):
+        return contextlib.nullcontext()
+
+    turns = {"deterministic": [], "default": []}
+    s = _scope_copy(fluid, after)
+    try:
+        for order in (("deterministic", "default"),
+                      ("default", "deterministic"),
+                      ("deterministic", "default")):
+            for mode in order:
+                nn_ops._conv_algorithms = saved if mode == "deterministic" \
+                    else default_choice
+                t0 = time.perf_counter()
+                _one_step(exe, main, feed, cost, s)
+                turns[mode].append((time.perf_counter() - t0) * 1e3)
+        nn_ops._conv_algorithms = default_choice
+        again = [_scope_copy(fluid, after) for _ in range(2)]
+        free_losses = [_one_step(exe, main, feed, cost, t) for t in again]
+        free_differ = _same_state(torch, *again)
+    finally:
+        nn_ops._conv_algorithms = saved
+    del s, again
+    train["cudnn_algorithms_in_turns"] = {
+        "step_ms": turns,
+        "p50_step_ms": {k: statistics.median(v) for k, v in turns.items()},
+        "default_repeats_bitwise": free_losses[0] == free_losses[1]
+        and not free_differ,
+        "default_tensors_differing": len(free_differ),
+    }
+    log("  cuDNN algorithms, in turns " +
+        json.dumps(train["cudnn_algorithms_in_turns"]))
+    train["profile"] = profile_step(torch, exe, main, feed, cost,
+                                    _scope_copy(fluid, after))
+    del after
+    return train, (main, test, cost, pg, scope)
+
+
+def resnet_train_check_phase(torch, trained):
+    """One ResNet-50 training step at full width, batch 2, 224x224, from
+    the same state (the trained scope copied as numpy arrays) and the
+    same feed, on the card, on the CPU, and on the CPU in float64. Card
+    against CPU: the loss within TOL relative, every updated running mean
+    and variance within TOL of its tensor's largest |value|.
+
+    The parameter gradients cannot be held to TOL: a forward value
+    within float32 rounding of a relu's kink (or a max-pool tie) takes
+    the other side in another summation order, and the gradient is not
+    continuous there. The CPU's own float32 gradients miss float64 by
+    ~1-2% (relative L2 over all parameters) and by up to ~25% of one
+    tensor's max, the last stage's most (few positions a channel). So
+    they are held against float64: the card's relative L2 error over all
+    parameters within GRAD_FACTOR times the CPU float32's, each tensor
+    within GRAD_TENSOR_MAX of its max (a wrong gradient errs by ~100%).
+    The largest errors are recorded."""
+    phase("resnet train check")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    main, _, cost, pg, card_trained = trained
+    arrays = {n: card_trained.find_var(n).cpu().numpy()
+              for n in card_trained.var_names()}
+    rng = np.random.RandomState(4)
+    feed = {"img": rng.randn(2, 3, RESNET_IMAGE,
+                             RESNET_IMAGE).astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, (2, 1)).astype(np.int64)}
+    stats = [n for pair in _bn_stats(main) for n in pair]
+    out, secs, scopes = {}, {}, {}
+    for run, dev, dtype in (("cuda", "cuda", np.float32),
+                            ("cpu", "cpu", np.float32),
+                            ("cpu64", "cpu", np.float64)):
+        scopes[run] = fluid.Scope()
+        fluid.params_from_jax(
+            {n: a.astype(dtype) if a.dtype == np.float32 else a
+             for n, a in arrays.items()}, scopes[run], device=dev)
+        _reset_kernel_counts()
+        exe = fluid.Executor(fluid.CUDAPlace(0) if dev == "cuda"
+                             else fluid.CPUPlace())
+        t0 = time.perf_counter()
+        out[run] = [np.asarray(v, np.float64) for v in exe.run(
+            main, feed=dict(feed, img=feed["img"].astype(dtype)),
+            fetch_list=[cost] + [g for _, g in pg], scope=scopes[run])]
+        secs[run] = time.perf_counter() - t0
+        if any(_kernel_counts()[1].values()):
+            raise RuntimeError(f"a plain version ran on {run}")
+    lc, lp, l64 = (float(out[r][0][0]) for r in ("cuda", "cpu", "cpu64"))
+    if not np.isfinite(lc) or abs(lc - lp) > TOL * abs(lp):
+        raise RuntimeError(f"loss card {lc} vs cpu {lp}")
+
+    def rel(got, want):
+        scale = float(np.abs(want).max())
+        return float(np.abs(got - want).max()) / scale if scale else \
+            float(np.abs(got).max())
+
+    grads = {r: out[r][1:] for r in out}
+    per = [(p.name, rel(gc, g64), rel(gp, g64), rel(gc, gp))
+           for (p, _), gc, gp, g64 in zip(pg, grads["cuda"], grads["cpu"],
+                                          grads["cpu64"])]
+
+    def l2(run):
+        num = sum(float(np.square(g - w).sum())
+                  for g, w in zip(grads[run], grads["cpu64"]))
+        den = sum(float(np.square(w).sum()) for w in grads["cpu64"])
+        return (num / den) ** 0.5
+
+    stat_err = [(n, rel(scopes["cuda"].find_var(n).cpu().numpy(),
+                        scopes["cpu"].find_var(n).numpy())) for n in stats]
+    worst = {key: max(((e[i], e[0]) for e in per), default=None)
+             for i, key in ((1, "grad_card_vs_f64"), (2, "grad_cpu_vs_f64"),
+                            (3, "grad_card_vs_cpu"))}
+    worst["stat_card_vs_cpu"] = max((e, n) for n, e in stat_err)
+    # the five gradients whose card error is the largest multiple of the
+    # CPU float32's: (card vs f64, cpu vs f64, name)
+    worst["grad_ratio_top5"] = sorted(
+        ((e[1], e[2], e[0]) for e in per),
+        key=lambda t: -t[0] / max(t[1], 1e-30))[:5]
+    check = {"loss_card": lc, "loss_cpu": lp, "loss_cpu_f64": l64,
+             "grads": len(pg), "stats": len(stats), "worst": worst,
+             "grad_l2_rel_err_vs_f64": {"card": l2("cuda"), "cpu": l2("cpu")},
+             "cpu_step_s": secs["cpu"], "cpu_f64_step_s": secs["cpu64"]}
+    log("  resnet50 batch 2 card vs cpu " + json.dumps(check))
+    l2_card, l2_cpu = (check["grad_l2_rel_err_vs_f64"][k]
+                       for k in ("card", "cpu"))
+    if not l2_card <= GRAD_FACTOR * l2_cpu + 1e-6:
+        raise RuntimeError(f"gradients: card vs float64 {l2_card:.3g} "
+                           f"(relative L2 over all parameters), more than "
+                           f"{GRAD_FACTOR}x the CPU float32's {l2_cpu:.3g}")
+    for name, e_card, _, _ in per:
+        if not e_card <= GRAD_TENSOR_MAX:
+            raise RuntimeError(f"gradient of {name}: card vs float64 "
+                               f"{e_card:.3g} of max > {GRAD_TENSOR_MAX}")
+    for n, r in stat_err:
+        if r > TOL:
+            raise RuntimeError(f"running statistic {n}: card vs cpu {r:.3g}"
+                               f" of max > {TOL}")
+    return check
+
+
+def resnet_fold_phase(torch, trained):
+    """The trained network served through K5: fold_bn of each conv2d +
+    batch_norm pair's statistics into the fused program that
+    resnet_imagenet(depth=50, is_test=True, fused=True) builds (53 pairs
+    against 53 conv2d_bn_relu ops), then a seeded batch of 16 through the
+    fused program (counters zeroed just before and read just after: 53
+    K5 launches, no plain call) and through the unfused test-mode
+    network (cuDNN conv + batch_norm is_test): logits within TOL of the
+    largest |logit|."""
+    phase("resnet fold")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    _, test, _, _, scope = trained
+    fused, fstartup, flogits, _ = build_resnet50(seed=1)
+    exe, fscope = fluid.Executor(), fluid.Scope()
+    exe.run(fstartup, scope=fscope)
+    pairs = fold_trained_network(test, scope, fused, fscope)
+    if pairs != CONVS_PER_FORWARD:
+        raise RuntimeError(f"{pairs} folded pairs, want {CONVS_PER_FORWARD}")
+    rng = np.random.RandomState(10)
+    x = _images(rng, INFER_BATCH)
+    label = np.zeros((INFER_BATCH, 1), np.int64)
+    _reset_kernel_counts()
+    (got,) = exe.run(fused, feed={"img": x}, fetch_list=[flogits],
+                     scope=fscope)
+    launches, plain = _kernel_counts()
+    if launches["conv_bn_relu_f32"] != CONVS_PER_FORWARD or \
+            any(plain.values()):
+        raise RuntimeError(f"fused forward: launches {launches}, plain "
+                           f"{plain}")
+    (want,) = exe.run(test, feed={"img": x, "label": label},
+                      fetch_list=[logits_var(test)], scope=scope)
+    scale = float(np.abs(want).max())
+    rel = float(np.abs(got - want).max()) / scale
+    if got.shape != (INFER_BATCH, RESNET_CLASSES) or \
+            not np.isfinite(got).all() or rel > TOL:
+        raise RuntimeError(f"fused vs unfused logits: {rel:.3g} of max "
+                           f"|logit| > {TOL} (or not finite)")
+    fold = {"pairs": pairs, "launches": launches["conv_bn_relu_f32"],
+            "rel_err": rel, "max_abs_logit": scale,
+            "argmax_equal": bool((got.argmax(-1) == want.argmax(-1)).all())}
+    log("  resnet fold " + json.dumps(fold))
+    return fold
 
 
 # --- infer kernels: K5, the fused conv + folded-BN + relu ----------------
@@ -2006,6 +2476,8 @@ def _kernel_row(name, source, replaces, launches, err, row, **extra):
 def main():
     import torch
 
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    open(LOG_PATH, "w").close()
     name, smi = device_phase(torch)
     ptxas = build_phase()
     max_err, timings = kernels_phase(torch)
@@ -2020,6 +2492,10 @@ def main():
     infer_launches, infer, built = infer_phase(torch)
     infer["check"] = infer_check_phase(torch, built)
     del built
+    resnet_train, trained = resnet_train_phase(torch)
+    resnet_train["check"] = resnet_train_check_phase(torch, trained)
+    fold = resnet_fold_phase(torch, trained)
+    del trained
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]
@@ -2062,7 +2538,8 @@ def main():
                  f"batch-{INFER_BATCH} ResNet-50 forward",
         bound_f32_ms=k5_fwd["bound_f32_ms"], bound_peak=CONV_PEAK,
         forward=k5_fwd, max_rel_err=k5_rel, shapes=k5_rows,
-        ptxas=ptxas.get("conv_bn_relu"), infer=infer)]
+        ptxas=ptxas.get("conv_bn_relu"), infer=infer, resnet_fold=fold,
+        resnet_train=resnet_train)]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -2093,7 +2570,7 @@ def main():
         "serve": serve,
         "host_logits_read_ms": read_ms,
     }] + train_kernels + infer_kernels}
-    print(json.dumps(kernels), flush=True)
+    log(json.dumps(kernels))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

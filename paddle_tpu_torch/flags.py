@@ -10,6 +10,12 @@ from typing import Any, Dict
 __all__ = ["FLAGS", "set_flags", "get_flag", "effective_flag"]
 
 FLAGS: Dict[str, Any] = {
+    # numeric precision of float32 matmuls and convolutions in a run of
+    # the Executor, the JAX package's flag: 'highest' = full float32
+    # products (TF32 off in cuBLAS and cuDNN, whatever the caller's
+    # torch settings); 'high' and 'default' leave the caller's torch
+    # settings as they are (TF32 where the caller allowed it)
+    "matmul_precision": "highest",
     # admission bound: queue depth past which a request is rejected with
     # ServerOverloaded instead of queueing into unbounded latency
     "serving_max_queue": 64,

@@ -2,15 +2,18 @@
 backward, optimizers and an eager Executor in PyTorch (the counterpart of
 ``paddle_tpu.fluid``; reference python/paddle/fluid/__init__.py).
 
-Ported so far: what training the repo's Transformer (and fit_a_line)
-and serving the fused ResNet need — Program/Block/Operator/Variable/
-Parameter with ``to_bytes`` / ``parse_from_bytes`` in the JAX package's
-format, ``layers.data``, ``fc``, ``embedding``, ``conv2d_bn_relu``,
+Ported so far: what training the repo's Transformer (and fit_a_line),
+training ResNet, LeNet and VGG-16, and serving the fused ResNet need —
+Program/Block/Operator/Variable/Parameter with ``to_bytes`` /
+``parse_from_bytes`` in the JAX package's format, ``layers.data``,
+``fc``, ``embedding``, ``conv2d``, ``batch_norm``, ``conv2d_bn_relu``,
 ``pool2d``, ``layer_norm``, ``dropout``, ``softmax``,
-``softmax_with_cross_entropy``, ``mean``, ``reshape``, ``transpose``,
-``matmul``, ``ring_attention``, ``elementwise_add``/``_sub``,
-``square_error_cost``, ``create_parameter``, ``fill_constant``,
-``assign``; ``append_backward``; ``SGD`` and ``Adam``; ``Executor``,
+``softmax_with_cross_entropy``, ``accuracy``, ``topk``, ``mean``,
+``reshape``, ``transpose``, ``matmul``, ``ring_attention``,
+``elementwise_add``/``_sub``, ``square_error_cost``,
+``create_parameter``, ``fill_constant``, ``assign``; ``nets``
+(``simple_img_conv_pool``, ``img_conv_group``); ``append_backward``;
+``SGD``, ``Momentum`` and ``Adam``; ``Executor``,
 ``Scope``, ``scope_guard``; ``io`` (``save_inference_model``,
 ``load_inference_model``, ``save_vars``/``load_vars``). The executor
 runs on the card unless given ``CPUPlace()`` (or ``"cpu"``).
@@ -23,6 +26,7 @@ from . import (  # noqa: F401
     initializer,
     io,
     layers,
+    nets,
     optimizer,
     param_attr,
     unique_name,

@@ -9,7 +9,9 @@ CPU runs only when the caller names it (``TPUPlace`` is not ported).
 """
 from __future__ import annotations
 
+import contextlib
 import enum
+import threading
 
 import numpy as np
 import torch
@@ -113,3 +115,51 @@ def as_device(place) -> torch.device:
     if isinstance(place, Place):
         return place.device
     return resolve_device(place)
+
+
+class GlobalSwitch:
+    """A process-wide torch setting held at one value while any holder is
+    inside ``held()``: the value it had before the first holder entered
+    comes back when the last one leaves. Holders in several threads share
+    one hold, so one thread's exit cannot release another's."""
+
+    def __init__(self, get, set_, value):
+        self._get, self._set, self._value = get, set_, value
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = None
+
+    @contextlib.contextmanager
+    def held(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._get()
+                self._set(self._value)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._set(self._saved)
+
+
+def _get_tf32():
+    return (torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
+
+
+def _set_tf32(value):
+    torch.set_float32_matmul_precision(value[0])
+    torch.backends.cudnn.allow_tf32 = value[1]
+
+
+# full float32 products in cuBLAS and cuDNN (TF32 off): what the JAX
+# package's matmul_precision='highest' asks of XLA
+FULL_FLOAT32 = GlobalSwitch(_get_tf32, _set_tf32, ("highest", False))
+
+# cuDNN picks only deterministic convolution algorithms
+DETERMINISTIC_CUDNN = GlobalSwitch(
+    lambda: torch.backends.cudnn.deterministic,
+    lambda v: setattr(torch.backends.cudnn, "deterministic", v), True)

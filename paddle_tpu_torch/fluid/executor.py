@@ -17,6 +17,10 @@ contract (reference python/paddle/fluid/executor.py:181).
     program, the optimizer ops — runs under ``torch.no_grad()``.
   - Feed/fetch: numpy in, numpy out (``return_numpy=False`` returns the
     tensors, detached).
+  - Precision: a run honours ``FLAGS['matmul_precision']`` as the JAX
+    executor does (executor.py:654); under the default 'highest' no
+    cuBLAS or cuDNN product of the run takes TF32, whatever the caller's
+    torch settings, which are restored after the run.
   - Host io ops ``save``, ``save_combine``, ``load``, ``load_combine``
     (reference operators/save_op.cc, load_combine_op.cc) run on the host
     in program order, in the JAX package's file formats (``.npy`` per
@@ -236,6 +240,25 @@ def _block_io(block, feed_names: set):
     return state_in, state_out
 
 
+_MATMUL_PRECISIONS = ("highest", "high", "default")
+
+
+def _matmul_precision():
+    """The run's float32 product precision, as the JAX executor runs its
+    block under ``jax.default_matmul_precision(FLAGS['matmul_precision'])``:
+    'highest' holds TF32 off in cuBLAS and cuDNN for the run and then
+    restores the caller's settings; 'high' and 'default' leave them."""
+    from ..flags import FLAGS
+
+    value = FLAGS["matmul_precision"]
+    if value not in _MATMUL_PRECISIONS:
+        raise ValueError(f"FLAGS['matmul_precision'] = {value!r}; known: "
+                         f"{list(_MATMUL_PRECISIONS)}")
+    if value == "highest":
+        return core.FULL_FLOAT32.held()
+    return contextlib.nullcontext()
+
+
 class _StepCounter:
     def __init__(self):
         self._n = 0
@@ -288,7 +311,8 @@ class Executor:
     ):
         program = program or default_main_program()
         t0 = _time.perf_counter()
-        with _tracing.span("executor.step", program_version=program._version):
+        with _tracing.span("executor.step", program_version=program._version), \
+                _matmul_precision():
             out = self._run_body(program, feed or {}, fetch_list or [],
                                  scope or global_scope(), return_numpy,
                                  use_program_cache)

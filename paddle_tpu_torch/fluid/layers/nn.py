@@ -1,8 +1,10 @@
 """NN layer functions (reference python/paddle/fluid/layers/nn.py — fc:83,
-embedding:218, pool2d:1455, layer_norm:1597, dropout:876,
-softmax_with_cross_entropy:3165, ...): the ones the Transformer,
-fit_a_line and fused ResNet inference programs call, copied from
-``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported yet."""
+embedding:218, conv2d:1150, batch_norm:1508, pool2d:1455,
+layer_norm:1597, dropout:876, softmax_with_cross_entropy:3165, ...): the
+ones the Transformer, fit_a_line, the image-classification training
+(ResNet, LeNet, VGG) and fused ResNet inference programs call, copied
+from ``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported
+yet."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,8 +13,8 @@ from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "conv2d_bn_relu", "pool2d", "layer_norm", "dropout",
-    "softmax",
+    "fc", "embedding", "conv2d", "conv2d_bn_relu", "pool2d", "batch_norm",
+    "layer_norm", "dropout", "softmax", "accuracy", "topk",
     "softmax_with_cross_entropy", "square_error_cost", "mean", "mul",
     "matmul", "reshape", "transpose", "ring_attention", "elementwise_add",
     "elementwise_sub",
@@ -91,6 +93,47 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    """reference layers/nn.py:1150. Filter layout [out_c, in_c/groups, kh, kw]."""
+    helper = LayerHelper(
+        "conv2d", param_attr=param_attr, bias_attr=bias_attr, act=act, name=name
+    )
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    if num_channels % groups != 0:
+        raise ValueError("num_channels must be divisible by groups")
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+
+    filter_shape = [num_filters, num_channels // groups] + filter_size
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, filter_shape, dtype,
+        default_initializer=NormalInitializer(0.0, std),
+    )
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={
+            "strides": stride, "paddings": padding, "dilations": dilation,
+            "groups": groups, "use_cudnn": use_cudnn,
+        },
+    )
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
+
+
 def conv2d_bn_relu(input, num_filters, filter_size, stride=1, padding=0,
                    param_attr=None, scale_attr=None, shift_attr=None,
                    relu=True, name=None):
@@ -122,6 +165,24 @@ def conv2d_bn_relu(input, num_filters, filter_size, stride=1, padding=0,
         outputs={"Out": [out]},
         attrs={"stride": int(stride), "padding": int(padding),
                "relu": bool(relu)},
+    )
+    return out
+
+
+def _append_channel_bias(helper, pre_bias):
+    bias_attr = helper.bias_attr
+    if bias_attr is False:
+        return pre_bias
+    num_filters = pre_bias.shape[1]
+    b = helper.create_parameter(
+        bias_attr, [num_filters], pre_bias.dtype, is_bias=True
+    )
+    out = helper.create_variable_for_type_inference(pre_bias.dtype)
+    helper.append_op(
+        type="elementwise_add",
+        inputs={"X": [pre_bias], "Y": [b]},
+        outputs={"Out": [out]},
+        attrs={"axis": 1},
     )
     return out
 
@@ -166,6 +227,59 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
         },
     )
     return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=False):
+    """reference layers/nn.py:1508: creates scale/bias params + moving
+    mean/variance persistable stats updated in-place by the op."""
+    helper = LayerHelper(
+        "batch_norm", param_attr=param_attr, bias_attr=bias_attr, name=name
+    )
+    dtype = input.dtype
+    channels = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    shape = [channels]
+
+    scale = helper.create_parameter(
+        helper.param_attr, shape, dtype,
+        default_initializer=ConstantInitializer(1.0),
+    )
+    bias = helper.create_parameter(helper.bias_attr, shape, dtype, is_bias=True)
+
+    mean = helper.create_global_variable(
+        name=moving_mean_name, shape=shape, dtype=dtype, persistable=True
+    )
+    helper.set_variable_initializer(mean, ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        name=moving_variance_name, shape=shape, dtype=dtype, persistable=True
+    )
+    helper.set_variable_initializer(variance, ConstantInitializer(1.0))
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+
+    saved_mean = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype)
+
+    helper.append_op(
+        type="batch_norm",
+        inputs={
+            "X": [input], "Scale": [scale], "Bias": [bias],
+            "Mean": [mean], "Variance": [variance],
+        },
+        outputs={
+            "Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+            "SavedMean": [saved_mean], "SavedVariance": [saved_var],
+        },
+        attrs={
+            "momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+            "data_layout": data_layout,
+        },
+    )
+    helper.kwargs["act"] = act
+    return helper.append_activation(out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
@@ -254,6 +368,36 @@ def square_error_cost(input, label):
         type="square", inputs={"X": [minus_out]}, outputs={"Out": [square_out]}
     )
     return square_out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """reference layers/metric.py accuracy: top_k + accuracy op."""
+    helper = LayerHelper("accuracy")
+    topk_out, topk_indices = topk(input, k=k)
+    acc_out = helper.create_variable_for_type_inference(dtype="float32")
+    correct = correct or helper.create_variable_for_type_inference(dtype="int32")
+    total = total or helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices], "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct], "Total": [total]},
+    )
+    return acc_out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input]},
+        outputs={"Out": [values], "Indices": [indices]},
+        attrs={"k": k},
+    )
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
 
 
 def mean(x, name=None):

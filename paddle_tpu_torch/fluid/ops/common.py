@@ -13,6 +13,18 @@ def many(ins, slot):
     return [x for x in (ins.get(slot) or []) if x is not None]
 
 
+def refuse_amp(op):
+    """The JAX package casts this op's operands to bf16 under
+    FLAGS['amp']; the port computes float32 only, so it refuses the flag
+    rather than ignore it."""
+    from ...flags import FLAGS
+
+    if FLAGS["amp"]:
+        raise NotImplementedError(
+            f"{op} with FLAGS['amp'] (bf16 operands) is not yet ported to "
+            "paddle_tpu_torch: it computes float32 only")
+
+
 def bcast_y(x, y, axis: int):
     """Paddle elementwise broadcast: Y's shape is a contiguous sub-sequence
     of X's, aligned at `axis` (-1 = align trailing). Reference

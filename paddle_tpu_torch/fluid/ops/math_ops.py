@@ -6,24 +6,12 @@ from __future__ import annotations
 import math
 
 from ..registry import register_op
-from .common import many, one
-
-
-def _refuse_amp(op):
-    """The JAX package casts mul/matmul operands to bf16 under
-    FLAGS['amp']; the port computes float32 only, so it refuses the flag
-    rather than ignore it."""
-    from ...flags import FLAGS
-
-    if FLAGS["amp"]:
-        raise NotImplementedError(
-            f"{op} with FLAGS['amp'] (bf16 operands) is not yet ported to "
-            f"paddle_tpu_torch: it computes float32 only")
+from .common import many, one, refuse_amp
 
 
 @register_op("mul", ref="paddle/fluid/operators/mul_op.cc")
 def mul(ctx, ins, attrs):
-    _refuse_amp("mul")
+    refuse_amp("mul")
     x, y = one(ins, "X"), one(ins, "Y")
     xn = int(attrs.get("x_num_col_dims", 1))
     yn = int(attrs.get("y_num_col_dims", 1))
@@ -35,7 +23,7 @@ def mul(ctx, ins, attrs):
 
 @register_op("matmul", ref="paddle/fluid/operators/matmul_op.cc")
 def matmul(ctx, ins, attrs):
-    _refuse_amp("matmul")
+    refuse_amp("matmul")
     x, y = one(ins, "X"), one(ins, "Y")
     tx = bool(attrs.get("transpose_X", False))
     ty = bool(attrs.get("transpose_Y", False))

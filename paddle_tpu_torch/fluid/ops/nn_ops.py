@@ -1,8 +1,12 @@
-"""NN ops (reference paddle/fluid/operators/{layer_norm,softmax,pool}_op.cc,
-conv_mkldnn_op.cc): the ones the Transformer and fused ResNet inference
-paths run. Layouts are NCHW, as in the JAX package."""
+"""NN ops (reference paddle/fluid/operators/{conv,batch_norm,layer_norm,
+softmax,pool}_op.cc, conv_mkldnn_op.cc): the ones the Transformer, the
+image-classification training and the fused ResNet inference paths run.
+Layouts are NCHW, as in the JAX package. ``conv2d``, ``batch_norm`` and
+``pool2d`` are what the JAX package leaves to XLA: here cuDNN
+(``F.conv2d``) and PyTorch's own CUDA ops on a card."""
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -10,14 +14,95 @@ import torch.nn.functional as F
 
 from ...kernels.conv_bn_relu import fused_conv_bn_relu
 from ...kernels.layer_norm import fused_layer_norm
+from .. import core
 from ..registry import register_op
-from .common import one
+from .common import one, refuse_amp
 
 
 def _pair(v, n=2):
     if isinstance(v, (list, tuple)):
         return [int(x) for x in v]
     return [int(v)] * n
+
+
+def _conv_args(attrs):
+    return (_pair(attrs.get("strides", [1, 1])),
+            _pair(attrs.get("paddings", [0, 0])),
+            _pair(attrs.get("dilations", [1, 1])),
+            int(attrs.get("groups", 1) or 1))
+
+
+def _conv_algorithms(x):
+    """On a card, cuDNN's deterministic algorithms only: its default
+    choice may take a backward algorithm that sums with atomics, and the
+    same step from the same state must give bitwise the same result."""
+    if x.is_cuda:
+        return core.DETERMINISTIC_CUDNN.held()
+    return contextlib.nullcontext()
+
+
+def _conv2d_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
+    """dInput and dFilter in one ``convolution_backward`` call — what
+    autograd would call — under the forward's algorithm choice."""
+    x, w = fwd_ins["Input"][0], fwd_ins["Filter"][0]
+    strides, paddings, dilations, groups = _conv_args(attrs)
+    with _conv_algorithms(x):
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            out_grads["Output"][0], x, w, None, strides, paddings,
+            dilations, False, [0, 0], groups, [True, True, False])
+    return {"GRAD@Input": dx, "GRAD@Filter": dw}
+
+
+@register_op("conv2d", grad=_conv2d_grad,
+             ref="paddle/fluid/operators/conv_op.cc")
+def conv2d(ctx, ins, attrs):
+    """NCHW input, OIHW filter (``[F, C/groups, KH, KW]``), symmetric
+    padding, as the JAX package's ``conv_general_dilated``. cuDNN on a
+    card, in full float32 under the Executor's default
+    ``matmul_precision``."""
+    refuse_amp("conv2d")
+    x = one(ins, "Input")
+    strides, paddings, dilations, groups = _conv_args(attrs)
+    with _conv_algorithms(x):
+        out = F.conv2d(x, one(ins, "Filter"), None, strides, paddings,
+                       dilations, groups)
+    return {"Output": out}
+
+
+@register_op("batch_norm", no_grad=("Mean", "Variance"),
+             ref="paddle/fluid/operators/batch_norm_op.cc")
+def batch_norm(ctx, ins, attrs):
+    """The JAX package's five outputs. Training: Y normalised by the
+    batch's mean and biased variance; MeanOut/VarianceOut (the same
+    variables as Mean/Variance) ``stat * momentum + batch * (1 -
+    momentum)``; SavedMean the batch mean, SavedVariance the inverse std
+    ``1/sqrt(var + eps)``. ``is_test``: Y from Mean/Variance, which pass
+    through, and zero Saved*. ``F.batch_norm``'s own running update is
+    not used: it weights the batch by ``momentum`` and keeps the
+    unbiased variance. Only Y carries a gradient."""
+    x = one(ins, "X")
+    scale, bias = one(ins, "Scale"), one(ins, "Bias")
+    mean, var = one(ins, "Mean"), one(ins, "Variance")
+    eps = float(attrs.get("epsilon", 1e-5))
+    momentum = float(attrs.get("momentum", 0.9))
+    is_test = bool(attrs.get("is_test", False))
+    # channels at dim 1: NCHW as it is, NHWC (any rank) as [rows, C]
+    xc = x if str(attrs.get("data_layout", "NCHW")) == "NCHW" \
+        else x.reshape(-1, x.shape[-1])
+    if is_test:
+        y, _, _ = torch.native_batch_norm(xc, scale, bias, mean, var, False,
+                                          0.0, eps)
+        return {"Y": y.reshape(x.shape), "MeanOut": mean,
+                "VarianceOut": var, "SavedMean": torch.zeros_like(mean),
+                "SavedVariance": torch.zeros_like(var)}
+    y, batch_mean, inv_std = torch.native_batch_norm(
+        xc, scale, bias, None, None, True, 0.0, eps)
+    batch_mean, inv_std = batch_mean.detach(), inv_std.detach()
+    batch_var = inv_std.pow(-2) - eps
+    return {"Y": y.reshape(x.shape),
+            "MeanOut": mean * momentum + batch_mean * (1.0 - momentum),
+            "VarianceOut": var * momentum + batch_var * (1.0 - momentum),
+            "SavedMean": batch_mean, "SavedVariance": inv_std}
 
 
 @register_op("layer_norm", ref="paddle/fluid/operators/layer_norm_op.cc")
@@ -45,12 +130,7 @@ def conv2d_bn_relu(ctx, ins, attrs):
     CPU — the function the JAX package computes with its Pallas kernel
     under ``use_pallas_kernels=True`` and with XLA's conv otherwise.
     There is no routing flag."""
-    from ...flags import FLAGS
-
-    if FLAGS["amp"]:
-        raise NotImplementedError(
-            "conv2d_bn_relu with FLAGS['amp'] (bf16 operands) is not yet "
-            "ported to paddle_tpu_torch: the K5 kernel takes float32 only")
+    refuse_amp("conv2d_bn_relu")
     out = fused_conv_bn_relu(
         one(ins, "X"), one(ins, "Filter"), one(ins, "Scale"),
         one(ins, "Shift"), stride=int(attrs.get("stride", 1)),

@@ -1,7 +1,7 @@
 """Optimizer ops — device-side parameter updates (reference
-paddle/fluid/operators/{sgd,adam}_op.*). Each returns the new state; the
-executor writes it back to the scope. Dense gradients only (SelectedRows
-are not ported)."""
+paddle/fluid/operators/{sgd,momentum,adam}_op.*). Each returns the new
+state; the executor writes it back to the scope. Dense gradients only
+(SelectedRows are not ported)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +14,25 @@ from .common import one
 def sgd(ctx, ins, attrs):
     p, g, lr = one(ins, "Param"), one(ins, "Grad"), one(ins, "LearningRate")
     return {"ParamOut": p - lr.reshape(()) * g}
+
+
+@register_op("momentum", ref="paddle/fluid/operators/momentum_op.cc")
+def momentum(ctx, ins, attrs):
+    """``v' = mu * v + g``; ``p' = p - lr * v'``, or with Nesterov
+    ``p' = p - (g + mu * v') * lr``."""
+    p, g, v = one(ins, "Param"), one(ins, "Grad"), one(ins, "Velocity")
+    if g.layout != torch.strided:
+        raise NotImplementedError(
+            "momentum with a sparse (SelectedRows) gradient is not yet "
+            "ported to paddle_tpu_torch")
+    lr = one(ins, "LearningRate").reshape(())
+    mu = float(attrs.get("mu", 0.9))
+    v_new = mu * v + g
+    if bool(attrs.get("use_nesterov", False)):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": p_new, "VelocityOut": v_new}
 
 
 @register_op("adam", ref="paddle/fluid/operators/adam_op.cc")

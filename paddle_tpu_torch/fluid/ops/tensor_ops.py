@@ -1,5 +1,5 @@
 """Tensor-manipulation ops (reference paddle/fluid/operators/{reshape,
-transpose,fill_constant,assign,assign_value,lookup_table}_op.*)."""
+transpose,fill_constant,assign,assign_value,lookup_table,top_k}_op.*)."""
 from __future__ import annotations
 
 import numpy as np
@@ -88,3 +88,12 @@ def lookup_table(ctx, ins, attrs):
         out = torch.where((ids == padding_idx)[..., None],
                           torch.zeros_like(out), out)
     return {"Out": out}
+
+
+@register_op("top_k", ref="paddle/fluid/operators/top_k_op.cc")
+def top_k(ctx, ins, attrs):
+    """The k largest along the last dim, largest first, with int64
+    indices. Ties: ``jax.lax.top_k`` puts the lower index first;
+    ``torch.topk`` promises no order among equal values."""
+    vals, idx = torch.topk(one(ins, "X"), int(attrs["k"]), dim=-1)
+    return {"Out": vals, "Indices": idx}

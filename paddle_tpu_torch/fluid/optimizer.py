@@ -1,10 +1,11 @@
 """Optimizers — graph-building, the counterpart of
 ``paddle_tpu/fluid/optimizer.py`` (reference python/paddle/fluid/
-optimizer.py: Optimizer:34, minimize:224, SGD:250, Adam:361): minimize =
-append_backward + per-param device-side optimizer ops with accumulators.
+optimizer.py: Optimizer:34, minimize:224, SGD:250, Momentum:283,
+Adam:361): minimize = append_backward + per-param device-side optimizer
+ops with accumulators.
 
-Ported so far: the ``Optimizer`` base, ``SGDOptimizer`` and
-``AdamOptimizer``. Gradient clipping and weight-decay regularization are
+Ported so far: the ``Optimizer`` base, ``SGDOptimizer``,
+``MomentumOptimizer`` and ``AdamOptimizer``. Gradient clipping and weight-decay regularization are
 not ported: ``minimize`` runs with their defaults (none) and raises when a
 parameter or the optimizer asks for either. The other optimizers raise
 "not yet ported" when constructed.
@@ -148,6 +149,37 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Velocity": [velocity],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={
+                "ParamOut": [param_and_grad[0]],
+                "VelocityOut": [velocity],
+            },
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -198,13 +230,12 @@ def _not_ported(name: str):
     def make(*args, **kwargs):
         raise NotImplementedError(
             f"{name} is not yet ported to paddle_tpu_torch (ported: SGD, "
-            "Adam)")
+            "Momentum, Adam)")
 
     make.__name__ = name
     return make
 
 
-MomentumOptimizer = _not_ported("MomentumOptimizer")
 AdagradOptimizer = _not_ported("AdagradOptimizer")
 AdamaxOptimizer = _not_ported("AdamaxOptimizer")
 DecayedAdagradOptimizer = _not_ported("DecayedAdagradOptimizer")

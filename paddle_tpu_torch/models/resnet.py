@@ -2,20 +2,18 @@
 conv_bn_layer/shortcut/bottleneck/layer_warp structure), a copy of
 ``paddle_tpu/models/resnet.py`` on the port's layers.
 
-``fused=True`` builds every conv+bn(+relu) chain as the single
-``conv2d_bn_relu`` op (the K5 kernel on a card, its plain version on the
-CPU) — the inference-serving form, where bn is a frozen per-channel
-affine (reference inference conv+bn fuse passes / conv_mkldnn_op.cc).
-It is the form this package supports. ``fused=False`` needs the
-``conv2d`` and ``batch_norm`` layers, and ``build_train`` needs
-``accuracy``: they come with the ResNet training slice of the port and
-raise until then."""
+``fused=False`` (the training form) builds each chain as ``conv2d``
+(cuDNN on a card) + ``batch_norm``. ``fused=True`` builds every
+conv+bn(+relu) chain as the single ``conv2d_bn_relu`` op (the K5 kernel
+on a card, its plain version on the CPU) — the inference-serving form,
+where bn is a frozen per-channel affine (reference inference conv+bn
+fuse passes / conv_mkldnn_op.cc). The two forms of one model function
+pair one to one, in program order: a trained network's conv filters and
+``kernels.conv_bn_relu.fold_bn`` of its batch-norm statistics fill the
+fused form's Filter/Scale/Shift."""
 from __future__ import annotations
 
 from ..fluid import layers
-
-_TRAINING_SLICE = ("the ResNet training slice of paddle_tpu_torch (conv2d, "
-                   "batch_norm, Momentum, accuracy) is not yet ported")
 
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
@@ -24,9 +22,11 @@ def conv_bn_layer(input, ch_out, filter_size, stride, padding, act="relu",
         return layers.conv2d_bn_relu(
             input, num_filters=ch_out, filter_size=filter_size,
             stride=stride, padding=padding, relu=(act == "relu"))
-    raise NotImplementedError(
-        f"conv_bn_layer(fused=False): {_TRAINING_SLICE}; build the "
-        "inference form with fused=True")
+    conv = layers.conv2d(
+        input=input, num_filters=ch_out, filter_size=filter_size,
+        stride=stride, padding=padding, act=None, bias_attr=False,
+    )
+    return layers.batch_norm(input=conv, act=act, is_test=is_test)
 
 
 def shortcut(input, ch_out, stride, is_test=False, fused=False):
@@ -112,6 +112,12 @@ def resnet_cifar10(input, class_dim=10, depth=32, is_test=False,
 
 def build_train(img, label, class_dim=1000, depth=50, variant="imagenet",
                 is_test=False, fused=False):
-    """Returns (avg_cost, accuracy, prediction) in the JAX package; here
-    it raises until the ResNet training slice is ported."""
-    raise NotImplementedError(f"resnet.build_train: {_TRAINING_SLICE}")
+    """Returns (avg_cost, accuracy, prediction)."""
+    model = resnet_imagenet if variant == "imagenet" else resnet_cifar10
+    logits = model(img, class_dim=class_dim, depth=depth, is_test=is_test,
+                   fused=fused)
+    cost = layers.softmax_with_cross_entropy(logits=logits, label=label)
+    avg_cost = layers.mean(cost)
+    prediction = layers.softmax(logits)
+    acc = layers.accuracy(input=prediction, label=label)
+    return avg_cost, acc, prediction

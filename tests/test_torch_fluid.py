@@ -264,7 +264,7 @@ def test_not_ported_paths_raise():
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tlayers.embedding(ids, size=[10, 4], is_sparse=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfluid.optimizer.Momentum(0.1, momentum=0.9)
+        tfluid.optimizer.Adagrad(0.1)
     main.global_block().append_op(type="read", inputs={}, outputs={})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfluid.Executor("cpu").run(main)

@@ -172,14 +172,22 @@ def test_d_pool2d_matches_jax(kw):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-def test_unfused_and_training_forms_refuse():
+def test_unfused_and_training_forms_build():
+    """The unfused form (conv2d + batch_norm) and build_train build: 9
+    conv/bn pairs in resnet_cifar10(depth=8), and the training outputs
+    (cost, accuracy, prediction) with their shapes."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tunique.guard(), tfluid.program_guard(main, startup):
         img = tlayers.data(name="img", shape=[3, 32, 32], dtype="float32")
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tresnet.resnet_cifar10(img, depth=8, fused=False)
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tresnet.build_train(img, None)
+        label = tlayers.data(name="label", shape=[1], dtype="int64")
+        logits = tresnet.resnet_cifar10(img, depth=8, fused=False)
+        cost, acc, pred = tresnet.build_train(img, label, class_dim=10,
+                                              depth=8, variant="cifar")
+    types = [op.type for op in main.global_block().ops]
+    assert types.count("conv2d") == types.count("batch_norm") == 18
+    assert "conv2d_bn_relu" not in types
+    assert logits.shape == pred.shape == (-1, 10)
+    assert cost.shape == acc.shape == (1,) and acc.dtype == "float32"
 
 
 def test_io_save_load_vars_roundtrip(tmp_path):
