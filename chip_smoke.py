@@ -119,12 +119,47 @@ and prints no result):
            onto 53 conv2d_bn_relu ops); a seeded batch of 16 through it
            (53 K5 launches, no plain call) and through the unfused
            test-mode network: logits within 1e-4 of the largest |logit|.
+  amp kernels
+           K5's bfloat16 form (conv_bn_relu_bf16, FLAGS['amp']) against
+           its plain version (within one bfloat16 ulp of the output's
+           largest |value|) at the JAX tests' four shapes, the stem, a
+           projection and a res5 3x3 at batch 2, and every distinct
+           convolution of a batch-16 ResNet-50 forward; an image's output
+           bitwise the same alone and at batch 16, two launches bitwise
+           equal; timed at the 20 shapes in turns with F.conv2d in bf16
+           (cuDNN) + the affine and relu, summed over the 53 convs.
+  infer amp
+           the fused ResNet-50 artifact served over RPC at bucket 16
+           under FLAGS['amp']: 53 conv_bn_relu_bf16 launches per batch,
+           no float32 K5 launch, no plain call; images/s; the logits
+           against the float32 fused forward of the same artifact.
+  resnet train amp
+           resnet train under FLAGS['amp'] (bf16 conv2d and fc, float32
+           master weights): p50 step ms, images/s, peak memory, no plain
+           version, every parameter float32, the same step twice
+           bitwise equal, one profiled step; then the trained network
+           folded into the fused form and run under amp (53
+           conv_bn_relu_bf16 launches) against the unfused test-mode
+           network under amp.
+  resnet amp check
+           one batch-2 ResNet-50 training step under FLAGS['amp'] on the
+           card and on the CPU: the loss and every running statistic
+           within AMP_CHECK_U bfloat16 steps.
+  train amp
+           train under FLAGS['amp']: Transformer-base, 5 Adam steps, the
+           same launch counts as train (K1-K3b stay float32), the loss
+           falling, every parameter float32; p50 step ms, tokens/s.
+
+The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
+head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Every line before the last two is also
 written to smoke_out/chip_smoke.log.
 """
+import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -479,8 +514,9 @@ def _paged_bitwise_checks(torch, pa, rng, base):
 
 def kernels_phase(torch):
     """K4 against its plain version on seeded cases (max abs error <=
-    TOL, dead rows exactly 0; head_dim 64, 18, 100, 256, 1 and 129, page
-    sizes 16, 5 and 3, MHA and GQA, decode and chunked), the bitwise determinism checks, then timed
+    TOL, dead rows exactly 0; head_dim 64, 18, 100, 256, 1 and 129, and
+    264, 512 and 257 above 256, page sizes 16, 5 and 3, MHA and GQA,
+    decode and chunked), the bitwise determinism checks, then timed
     at the serving shapes (decode B=8, the one-slot request B=1, GQA
     decode, a C=64 prefill chunk): the kernel and SDPA on gathered K/V
     in turns, the plain version once, both bounds, and the kernel's,
@@ -527,6 +563,19 @@ def kernels_phase(torch):
         "d129_ps5_chunked": dict(base, D=129, ps=5, W=60, B=3, C=7, Hq=6,
                                  Hkv=3, kv_lens=[300, 7, 61],
                                  q_lens=[7, 2, 1]),
+        # head_dim above 256: the column-slice path, decode and chunked,
+        # MHA and GQA, a head_dim that is not a multiple of 4
+        "d264_chunked": dict(base, D=264, B=3, C=20, Hq=4, Hkv=2,
+                             kv_lens=[600, 20, 0], q_lens=[20, 5, 0]),
+        "d264_gqa4_single": dict(base, D=264, B=3, C=None, Hq=8, Hkv=2,
+                                 kv_lens=[1024, 0, 77], q_lens=None),
+        "d512_single": dict(base, D=512, B=4, C=None, Hq=4, Hkv=4,
+                            kv_lens=[1, 700, 0, 300], q_lens=None),
+        "d512_chunked": dict(base, D=512, B=2, C=9, Hq=2, Hkv=1,
+                             kv_lens=[513, 9], q_lens=[9, 4]),
+        "d257_ps3_chunked": dict(base, D=257, ps=3, W=100, B=2, C=5, Hq=2,
+                                 Hkv=1, kv_lens=[290, 5],
+                                 q_lens=[5, 1]),
     }
     max_err = 0.0
     errors = {}
@@ -555,7 +604,8 @@ def kernels_phase(torch):
 
     # timings at the serving phase's shapes: decode (C=1) at B=8, the
     # one-slot request (B=1, 1024 keys), GQA decode (Hkv=4) and a
-    # prefill chunk (C=64); ragged kv_lens 512..1024, all slots live.
+    # prefill chunk (C=64); decode at head_dim 264 and 512; ragged
+    # kv_lens 512..1024, all slots live.
     # The kernel and SDPA on gathered K/V in turns (the means of two
     # turns each), the plain version once.
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
@@ -569,6 +619,11 @@ def kernels_phase(torch):
                             kv_lens=lens, q_lens=None),
         "prefill": dict(base, B=8, C=64, Hq=16, Hkv=16, P=513,
                         kv_lens=lens, q_lens=[64] * 8),
+        # head_dim above 256 (the column-slice path): decode B=8, 4 heads
+        "decode_d264": dict(base, D=264, B=8, C=None, Hq=4, Hkv=4, P=513,
+                            kv_lens=lens, q_lens=None),
+        "decode_d512": dict(base, D=512, B=8, C=None, Hq=4, Hkv=4, P=513,
+                            kv_lens=lens, q_lens=None),
     }
     timings = {}
     for name, case in shapes.items():
@@ -582,7 +637,7 @@ def kernels_phase(torch):
                "turns_ms": {"kernel": turns[0], "sdpa": turns[1]},
                "plain_ms": _time_ms(torch, lambda: pa.paged_attention_reference(
                    *args[:5], **kw), flush)}
-        row.update(_bound(case, 64))
+        row.update(_bound(case, case["D"]))
         row["host_us"] = _host_us(torch, kern)
         exact = _paged_float64(torch, args)
         row["vs_float64"] = {
@@ -595,7 +650,7 @@ def kernels_phase(torch):
             *args[:5], **kw)).abs().max().item()
         row["kv_lens"] = case["kv_lens"]
         row["shape"] = (f"B={case['B']} C={case['C'] or 1} Hq={case['Hq']} "
-                        f"Hkv={case['Hkv']} D=64 ps=16 W=64")
+                        f"Hkv={case['Hkv']} D={case['D']} ps=16 W=64")
         timings[name] = row
         log(f"  time {name}: " + json.dumps(row))
         del exact
@@ -837,6 +892,48 @@ def _backward_vs_float64(torch, fa, rng):
     return out
 
 
+def _wide_flash_times(torch, fa, rng, dh, flush):
+    """K2 and the whole flash backward at [BH=32, S=SEQ, D=dh], each in
+    turns with SDPA's memory-efficient call (its time only where SDPA
+    takes the head_dim), with the bounds."""
+    c = _flash_case(torch, rng, 16 * 2, SEQ, SEQ, dh, False)
+    args = (c["q"], c["k"], c["v"], False, c["scale"])
+    row = {"shape": f"[BH=32, S={SEQ}, D={dh}] f32 causal=False",
+           "bounds": _flash_bounds(32, SEQ, SEQ, dh, False)}
+
+    def port_bwd():
+        delta = (c["do"] * c["o"]).sum(dim=-1)
+        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                      c["lse"], delta, False, c["scale"])
+    try:
+        sdpa, sdpa_bwd = _sdpa(torch, c, False, heads=2)
+        row["forward"] = _vs_sdpa_in_turns(
+            torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
+            f"forward (K2) head_dim {dh}")
+        row["whole_backward"] = _vs_sdpa_in_turns(
+            torch, port_bwd, sdpa_bwd, flush,
+            f"whole backward (delta + K3a + K3b) head_dim {dh}")
+        del sdpa, sdpa_bwd
+    except RuntimeError as e:  # a yardstick only: the port's times stand
+        row["sdpa_error"] = f"{type(e).__name__}: {e}"[:300]
+        row["forward"] = {"port_ms": _time_ms(
+            torch, lambda: fa._fwd_cuda(*args), flush)}
+        row["whole_backward"] = {"port_ms": _time_ms(torch, port_bwd,
+                                                     flush)}
+    # K3a and K3b alone, and the plain versions
+    bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
+             c["scale"])
+    row["dkdv_ms"] = _time_ms(torch, lambda: fa._bwd_dkdv_cuda(*bargs),
+                              flush)
+    row["dq_ms"] = _time_ms(torch, lambda: fa._bwd_dq_cuda(*bargs), flush)
+    row["plain_fwd_ms"] = _time_ms(
+        torch, lambda: fa.flash_attention_fwd_reference(*args), flush)
+    row["plain_bwd_ms"] = _time_ms(
+        torch, lambda: fa.flash_attention_bwd_reference(*bargs), flush)
+    log(f"  head_dim {dh}: " + json.dumps(row))
+    return row
+
+
 def train_kernels_phase(torch):
     """K1, K2, K3a and K3b against their plain versions on the card
     (max abs error <= TOL at unit-scale inputs), K3a/K3b launched twice
@@ -877,7 +974,8 @@ def train_kernels_phase(torch):
     # Sq != Sk both ways (causal with Sq > Sk too); head_dim 64 (the
     # model's), 16, 20 (zero-padded k slice and head_dim tail), 128 (the
     # largest tensor-core bucket), 18 (zero-padded to 20 by the wrapper),
-    # 100, 1, and 256, 132 and 129 (the CUDA-core bucket)
+    # 100, 1, and 256, 132 and 129 (the CUDA-core bucket); above 256, the
+    # column slices: 264 and 512, and 258 (padded to 260 by the wrapper)
     cases = [(128, SEQ, SEQ, 64, False), (128, SEQ, SEQ, 64, True),
              (6, 40, 40, 64, True), (6, 40, 72, 64, False),
              (6, 40, 72, 64, True), (6, 100, 33, 16, True),
@@ -887,7 +985,10 @@ def train_kernels_phase(torch):
              (6, 77, 50, 18, True), (6, 50, 77, 18, False),
              (4, 90, 90, 100, True), (4, 200, 130, 256, True),
              (4, 130, 200, 256, False), (3, 70, 70, 132, True),
-             (4, 33, 45, 1, True), (3, 60, 60, 129, False)]
+             (4, 33, 45, 1, True), (3, 60, 60, 129, False),
+             (4, 200, 130, 264, True), (3, 130, 200, 264, False),
+             (3, 90, 70, 512, True), (2, 70, 90, 512, False),
+             (2, 50, 50, 258, True)]
     for bh, sq, sk, d, causal in cases:
         c = _flash_case(torch, rng, bh, sq, sk, d, causal)
         args = (c["q"], c["k"], c["v"])
@@ -991,36 +1092,13 @@ def train_kernels_phase(torch):
             torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
             f"forward (K2) causal={causal}")
         del sdpa, sdpa_bwd
-    # head_dim 256 (d_model 512 with 2 heads): the CUDA-core bucket,
-    # forward and whole backward in turns with SDPA's
-    c = _flash_case(torch, rng, 16 * 2, SEQ, SEQ, 256, False)
-    args = (c["q"], c["k"], c["v"], False, c["scale"])
-    bounds = _flash_bounds(32, SEQ, SEQ, 256, False)
-    d256 = {"shape": f"[BH=32, S={SEQ}, D=256] f32 causal=False",
-            "bounds": bounds}
-
-    def port_bwd256():
-        delta = (c["do"] * c["o"]).sum(dim=-1)
-        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
-                                      c["lse"], delta, False, c["scale"])
-    try:
-        sdpa, sdpa_bwd = _sdpa(torch, c, False, heads=2)
-        d256["forward"] = _vs_sdpa_in_turns(
-            torch, lambda: fa._fwd_cuda(*args), sdpa, flush,
-            "forward (K2) head_dim 256")
-        d256["whole_backward"] = _vs_sdpa_in_turns(
-            torch, port_bwd256, sdpa_bwd, flush,
-            "whole backward (delta + K3a + K3b) head_dim 256")
-        del sdpa, sdpa_bwd
-    except RuntimeError as e:  # a yardstick only: the port's times stand
-        d256["sdpa_error"] = f"{type(e).__name__}: {e}"[:300]
-        d256["forward"] = {"port_ms": _time_ms(
-            torch, lambda: fa._fwd_cuda(*args), flush)}
-        d256["whole_backward"] = {"port_ms": _time_ms(torch, port_bwd256,
-                                                      flush)}
-    log("  head_dim 256: " + json.dumps(d256))
-    del flush, c
-    rows[fa.FWD]["head_dim_256"] = d256
+    # head_dim 256 (d_model 512 with 2 heads): the CUDA-core bucket; 264
+    # and 512 above it, in 256-column slices: forward and whole backward
+    # in turns with SDPA's
+    for dh in (256, 264, 512):
+        rows[fa.FWD][f"head_dim_{dh}"] = _wide_flash_times(torch, fa, rng,
+                                                            dh, flush)
+    del flush
     rows[fa.BWD_DKDV]["whole_backward"] = backward
     rows[fa.BWD_DKDV]["vs_float64"] = vs_float64
     rows[fa.FWD]["in_turns"] = forward
@@ -2465,6 +2543,482 @@ def infer_check_phase(torch, built):
     return {"rel_err": rel, "max_abs_logit": scale}
 
 
+# --- amp: mixed precision (FLAGS['amp']) --------------------------------
+
+# H100 SXM dense bf16 on the tensor cores (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
+# what conv_bn_relu_bf16's operations are timed against in ``bound_ms``
+AMP_CONV_PEAK = ("product in bf16 on the tensor cores (2MKF over 989 "
+                 "TFLOP/s dense) + 3MF epilogue flops over 67 TFLOP/s; bf16 "
+                 "x, w, y and float32 scale, shift over 3.35 TB/s")
+# conv_bn_relu_bf16 against its plain version: both round one float32
+# accumulator (summed in other orders) to bfloat16, so an output may land
+# one bfloat16 step apart: at most one ulp of the output's largest value
+AMP_ULPS = 1
+# bfloat16 resolution (relative) and the limits in its units: the card
+# against the CPU under amp (ResNet-50 batch 2: loss, running statistics)
+U = 2.0 ** -8
+AMP_CHECK_U = 8
+# amp logits against float32 ones over a whole ResNet-50 (53 layers, each
+# rounding its conv to bfloat16), of the largest |logit|
+AMP_LOGIT_TOL = 0.1
+
+
+@contextlib.contextmanager
+def amp_flag():
+    """FLAGS['amp'] on for the body, off again after."""
+    from paddle_tpu_torch.flags import FLAGS
+
+    saved = FLAGS["amp"]
+    FLAGS["amp"] = True
+    try:
+        yield
+    finally:
+        FLAGS["amp"] = saved
+
+
+def _amp_conv_work(n, c, h, w, f, k, s, p, relu):
+    """(bytes, product flops, epilogue flops) of one bfloat16 fused conv:
+    bfloat16 x and w read once and y written once, float32 scale and
+    shift read once."""
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    m, kk = n * oh * ow, c * k * k
+    return (2 * (n * c * h * w + f * kk + m * f) + 4 * 2 * f,
+            2 * m * kk * f, 3 * m * f)
+
+
+def _amp_conv_bound(nbytes, prod, epi):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = prod / BF16_FLOP_PER_S + epi / F32_FLOP_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _amp_conv_case(torch, rng, *shape):
+    """_conv_case's seeded inputs with x and w in bfloat16."""
+    x, w, sc, sh, s, p, relu = _conv_case(torch, rng, *shape)
+    return x.bfloat16(), w.bfloat16(), sc, sh, s, p, relu
+
+
+def _amp_conv_library(torch, x, w, sc, sh, s, p, relu):
+    """F.conv2d in bfloat16 (cuDNN) and the affine and relu in bfloat16:
+    the yardstick, never used by the port (it rounds the convolution to
+    bfloat16 before the affine, where K5 rounds once after it)."""
+    import torch.nn.functional as F
+
+    sc4 = sc.bfloat16()[None, :, None, None]
+    sh4 = sh.bfloat16()[None, :, None, None]
+
+    def run():
+        y = torch.addcmul(sh4, F.conv2d(x, w, stride=s, padding=p), sc4)
+        return torch.relu(y) if relu else y
+    return run
+
+
+def _hold_bf16(torch, k5, args, what):
+    """conv_bn_relu_bf16 against its plain version on ``args``: a
+    bfloat16 output of the plain version's shape, finite, within
+    AMP_ULPS ulps of the plain output's largest |value|. Returns (max abs
+    error, ulps, share of outputs that differ at all)."""
+    got = k5._conv_cuda(*args)
+    want = k5.fused_conv_bn_relu_reference(*args)
+    torch.cuda.synchronize()
+    vmax = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(vmax)) - 7) if vmax else 2.0 ** -133
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype != torch.bfloat16 or got.shape != want.shape or \
+            not torch.isfinite(got).all() or err > AMP_ULPS * ulp:
+        raise RuntimeError(f"K5 bf16 {what}: {got.dtype} {tuple(got.shape)},"
+                           f" max abs err {err:.3g} = {err / ulp:.3g} ulps "
+                           f"of the output's max > {AMP_ULPS}")
+    return err, err / ulp, (got != want).float().mean().item()
+
+
+def amp_kernels_phase(torch):
+    """conv_bn_relu_bf16 (K5's bfloat16 form) against its plain version
+    on the card (within AMP_ULPS bfloat16 ulps of the output's largest
+    |value|): the JAX tests' four shapes, the stem (2-byte weight loads:
+    K = 147), a 1x1/2 projection and a res5 3x3 at batch 2, then every
+    distinct convolution of a batch-16 ResNet-50 forward (20 shapes);
+    an image's output bitwise the same alone and at batch 16, two
+    launches bitwise equal; timed at the 20 shapes in turns with
+    F.conv2d in bfloat16 (cuDNN) + the affine and relu, the plain
+    version once, and summed over the 53 convolutions of the forward."""
+    phase("amp kernels")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
+
+    rng = np.random.RandomState(2027)
+    worst = {"max_abs_err": 0.0, "ulps": 0.0, "differing": 0.0}
+
+    def hold(args, what):
+        err, ulps, share = _hold_bf16(torch, k5, args, what)
+        for key, v in (("max_abs_err", err), ("ulps", ulps),
+                       ("differing", share)):
+            worst[key] = max(worst[key], v)
+        log(f"  conv bf16 {what}: max abs err {err:.3g} ({ulps:.3g} ulps "
+            f"of max), {share:.3g} of outputs differ")
+
+    for name, shape in (("jax 3x3", (2, 8, 10, 10, 16, 3, 1, 1, True)),
+                        ("jax 3x3/2 odd", (2, 8, 9, 9, 12, 3, 2, 0, True)),
+                        ("jax 1x1 no relu", (2, 16, 7, 7, 32, 1, 1, 0,
+                                             False)),
+                        ("jax 5x5/2 F=7", (1, 3, 12, 12, 7, 5, 2, 2, True)),
+                        ("stem 7x7/2", (2, 3, 224, 224, 64, 7, 2, 3, True)),
+                        ("proj 1x1/2", (2, 256, 56, 56, 512, 1, 2, 0,
+                                        False)),
+                        ("res5 3x3", (2, 512, 7, 7, 512, 3, 1, 1, True))):
+        hold(_amp_conv_case(torch, rng, *shape), f"{name} {shape}")
+
+    args = _amp_conv_case(torch, rng, INFER_BATCH, 64, 56, 56, 64, 3, 1, 1,
+                          True)
+    whole = k5._conv_cuda(*args)
+    alone = k5._conv_cuda(args[0][5:6].contiguous(), *args[1:])
+    if not torch.equal(whole[5:6], alone):
+        raise RuntimeError("K5 bf16: an image's output differs between "
+                           "batch 16 and batch 1")
+    if not torch.equal(whole, k5._conv_cuda(*args)):
+        raise RuntimeError("K5 bf16: two launches on the same inputs differ")
+    log("  conv bf16 res2 3x3: image 5 bitwise equal at batch 16 and alone; "
+        "two launches bitwise equal")
+    del whole, alone, args
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    main, _, _, _ = build_resnet50(seed=1)
+    census = conv_census(main, INFER_BATCH)
+    if sum(census.values()) != CONVS_PER_FORWARD:
+        raise RuntimeError(f"ResNet-50 has {sum(census.values())} fused "
+                           f"convs, want {CONVS_PER_FORWARD}")
+    fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    work = [0, 0, 0]
+    by_shape = []
+    for shape, n in census.items():
+        args = _amp_conv_case(torch, rng, *shape)
+        hold(args, f"{shape}")
+        row = dict(zip(("ms", "library_ms"), _in_turns(
+            torch, lambda: k5._conv_cuda(*args),
+            _amp_conv_library(torch, *args), flush)))
+        row["plain_ms"] = _time_ms(
+            torch, lambda: k5.fused_conv_bn_relu_reference(*args), flush)
+        w1 = _amp_conv_work(*shape)
+        row.update(_amp_conv_bound(*w1))
+        for key in fwd:
+            fwd[key] += n * row[key]
+        work = [a + n * b for a, b in zip(work, w1)]
+        by_shape.append({"shape": list(shape), "count": n,
+                         **{k: row[k] for k in ("ms", "library_ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by")}})
+        del args
+    fwd["bound_by"] = _amp_conv_bound(*work)["bound_by"]
+    fwd.update({
+        "bound_peak": AMP_CONV_PEAK,
+        "ratio_port_over_cudnn": fwd["ms"] / fwd["library_ms"],
+        "library": ("F.conv2d in bf16 (cuDNN) + the affine and relu in "
+                    "bf16; each shape timed in turns K5, library, library, "
+                    "K5"),
+        "by_shape": by_shape, "distinct_shapes": len(census),
+        "convs": CONVS_PER_FORWARD, "gflop": (work[1] + work[2]) / 1e9,
+        "max_err_bf16_ulps": worst["ulps"],
+        "max_share_differing": worst["differing"],
+    })
+    log(f"  time one batch-{INFER_BATCH} forward in bf16, "
+        f"{CONVS_PER_FORWARD} convs in {len(census)} shapes: "
+        + json.dumps(fwd))
+    del flush
+    return worst["max_abs_err"], fwd
+
+
+def infer_amp_phase(torch):
+    """The fused ResNet-50 artifact (as in infer, its logits the fetch
+    target) served over RPC under FLAGS['amp'] at bucket 16: the model
+    loaded and warmed under the flag, 10 requests of 16 seeded images.
+    Counters zeroed just before the requests and read just after: 53
+    conv_bn_relu_bf16 launches per executed batch, no float32 K5 launch,
+    no plain call. The amp logits against the float32 fused forward of
+    the same artifact on the same images: finite, within AMP_LOGIT_TOL
+    of the largest |logit|; argmax agreement recorded."""
+    phase("infer amp")
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+
+    main, startup, logits, _ = build_resnet50(seed=1)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    seeded_bn_fold(torch, main, scope, seed=2)
+    tmp = tempfile.mkdtemp(prefix="resnet50_amp_")
+    srv = ServingServer()
+    cli = ServingClient(srv.serve(), timeout=900.0)
+    try:
+        with fluid.scope_guard(scope):
+            fluid.save_inference_model(tmp, ["img"], [logits], exe, main)
+        x16 = _images(np.random.RandomState(11), INFER_BATCH)
+        with amp_flag():
+            t0 = time.perf_counter()
+            cli.load_model("resnet50_amp", tmp, buckets=[INFER_BATCH])
+            load_s = time.perf_counter() - t0
+            batches0 = cli.list_models()["resnet50_amp"]["batches"]
+            # the main path's window: counters to 0, the requests,
+            # counters read
+            _reset_kernel_counts()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                out, ver = cli.infer("resnet50_amp", {"img": x16})
+            steady = time.perf_counter() - t0
+            launches, plain = _kernel_counts()
+            batches = cli.list_models()["resnet50_amp"]["batches"] - batches0
+            # the window ends here
+    finally:
+        cli.close()
+        srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if batches == 0 or launches["conv_bn_relu_bf16"] != \
+            CONVS_PER_FORWARD * batches or launches["conv_bn_relu_f32"] or \
+            any(plain.values()):
+        raise RuntimeError(f"amp serving: {batches} batches, launches "
+                           f"{launches}, plain {plain}")
+    (want,) = exe.run(main, feed={"img": x16}, fetch_list=[logits],
+                      scope=scope)
+    got = out[0]
+    scale = float(np.abs(want).max())
+    rel = float(np.abs(got - want).max()) / scale
+    if got.shape != (INFER_BATCH, RESNET_CLASSES) or ver != 1 or \
+            not np.isfinite(got).all() or rel > AMP_LOGIT_TOL:
+        raise RuntimeError(f"amp logits vs float32: {rel:.3g} of max "
+                           f"|logit| > {AMP_LOGIT_TOL} (or not finite)")
+    infer = {
+        "config": "resnet50 imagenet fused 224x224x3 1000 classes, "
+                  "FLAGS['amp'] (K5 bf16), seeded weights, fold_bn "
+                  "Scale/Shift",
+        "load_warm_s": load_s, "batches": batches,
+        "kernel_launches": launches, "plain_calls": plain,
+        "images_per_s_bucket16": 10 * INFER_BATCH / steady,
+        "logits_rel_err_vs_f32": rel, "max_abs_logit": scale,
+        "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                  .mean()),
+    }
+    log("  infer amp " + json.dumps(infer))
+    return infer
+
+
+def resnet_train_amp_phase(torch):
+    """The resnet train main path under FLAGS['amp']: ResNet-50 ImageNet,
+    Momentum(0.01, 0.9), batch 32, 5 steps (conv2d and the fc in bf16,
+    float32 master weights). Counters zeroed just before the steps and
+    read just after: no plain version ran. The losses finite, every
+    running statistic moved, every parameter float32; the same step twice
+    from the same state bitwise equal in loss and scope; one profiled
+    step. Then the trained network's statistics folded into the fused
+    form and a seeded batch of 16 through it under amp: 53
+    conv_bn_relu_bf16 launches, no float32 K5 launch, no plain call; its
+    logits against the unfused test-mode network's under amp within
+    AMP_LOGIT_TOL of the largest |logit| (the two round to bfloat16 at
+    other places: the fused form after the folded affine, the unfused one
+    before its batch norm)."""
+    phase("resnet train amp")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, test, cost, acc, pg = build_resnet50_train(seed=3)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    stats = _bn_stats(main)
+    initial = {n: scope.find_var(n).clone() for pair in stats for n in pair}
+    rng = np.random.RandomState(0)
+    feed = {"img": torch.from_numpy(rng.randn(
+                RESNET_TRAIN_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE)
+                .astype(np.float32)).cuda(),
+            "label": torch.from_numpy(rng.randint(
+                0, RESNET_CLASSES, (RESNET_TRAIN_BATCH, 1))
+                .astype(np.int64)).cuda()}
+    with amp_flag():
+        # the main path's window: counters to 0, the steps, counters read
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        losses, step_ms = [], []
+        for _ in range(RESNET_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(_one_step(exe, main, feed, cost, scope))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, plain = _kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the window ends here
+        after = _scope_copy(fluid, scope)
+        runs = []
+        for _ in range(2):
+            s = _scope_copy(fluid, after)
+            runs.append((_one_step(exe, main, feed, cost, s), s))
+        differ = _same_state(torch, runs[0][1], runs[1][1])
+        profile = profile_step(torch, exe, main, feed, cost,
+                               _scope_copy(fluid, after))
+    if any(plain.values()) or not all(np.isfinite(losses)):
+        raise RuntimeError(f"amp steps: plain {plain}, losses {losses}")
+    still = [n for n, t in initial.items()
+             if torch.equal(scope.find_var(n), t)]
+    dtypes = {str(scope.find_var(p.name).dtype) for p, _ in pg}
+    if still or dtypes != {"torch.float32"}:
+        raise RuntimeError(f"amp steps: {len(still)} running statistics "
+                           f"never moved; parameter dtypes {dtypes}")
+    if runs[0][0] != runs[1][0] or differ:
+        raise RuntimeError(f"amp: the same step twice: losses {runs[0][0]!r}"
+                           f" {runs[1][0]!r}; {len(differ)} scope tensors "
+                           f"differ, e.g. {differ[:3]}")
+    del runs, after
+    p50 = statistics.median(step_ms[1:])
+    train = {
+        "config": "resnet-50 imagenet 224x224x3 1000 classes, FLAGS['amp'] "
+                  "(bf16 conv2d and fc, float32 master weights), momentum "
+                  "0.01/0.9, fake data (one seeded batch)",
+        "batch": RESNET_TRAIN_BATCH, "steps": RESNET_TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "p50_step_ms_after_first": p50,
+        "images_per_s": RESNET_TRAIN_BATCH / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb,
+        "kernel_launches": launches, "plain_calls": plain,
+        "same_step_twice_bitwise": True, "profile": profile,
+    }
+    log("  resnet train amp " + json.dumps(train))
+
+    fused, fstartup, flogits, _ = build_resnet50(seed=1)
+    fscope = fluid.Scope()
+    exe.run(fstartup, scope=fscope)
+    if fold_trained_network(test, scope, fused, fscope) != CONVS_PER_FORWARD:
+        raise RuntimeError("amp fold: pairs != 53")
+    x = _images(np.random.RandomState(10), INFER_BATCH)
+    with amp_flag():
+        _reset_kernel_counts()
+        (got,) = exe.run(fused, feed={"img": x}, fetch_list=[flogits],
+                         scope=fscope)
+        launches, plain = _kernel_counts()
+        (want,) = exe.run(test, feed={"img": x, "label": np.zeros(
+            (INFER_BATCH, 1), np.int64)}, fetch_list=[logits_var(test)],
+            scope=scope)
+    scale = float(np.abs(want).max())
+    rel = float(np.abs(got - want).max()) / scale
+    if launches["conv_bn_relu_bf16"] != CONVS_PER_FORWARD or \
+            launches["conv_bn_relu_f32"] or any(plain.values()) or \
+            not np.isfinite(got).all() or rel > AMP_LOGIT_TOL:
+        raise RuntimeError(f"amp fold: launches {launches}, plain {plain}, "
+                           f"fused vs unfused {rel:.3g} of max |logit|")
+    train["fold"] = {
+        "launches": launches["conv_bn_relu_bf16"], "rel_err": rel,
+        "max_abs_logit": scale,
+        "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                  .mean())}
+    log("  resnet fold amp " + json.dumps(train["fold"]))
+    return train, (main, test, cost, pg, scope)
+
+
+def resnet_amp_check_phase(torch, trained):
+    """One ResNet-50 training step under FLAGS['amp'] at batch 2, 224x224,
+    on the card and on the CPU from the same state and feed: the loss
+    within AMP_CHECK_U bfloat16 steps (relative), every updated running
+    mean and variance within AMP_CHECK_U steps of its tensor's largest
+    |value| (cuDNN and the CPU sum the bfloat16 products in other
+    orders, and a rounding that lands one step apart spreads through
+    each batch norm)."""
+    phase("resnet amp check")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    main, _, cost, _, card_trained = trained
+    arrays = {n: card_trained.find_var(n).cpu().numpy()
+              for n in card_trained.var_names()}
+    rng = np.random.RandomState(4)
+    feed = {"img": rng.randn(2, 3, RESNET_IMAGE,
+                             RESNET_IMAGE).astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, (2, 1)).astype(np.int64)}
+    stats = [n for pair in _bn_stats(main) for n in pair]
+    loss, scopes, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        scopes[dev] = fluid.Scope()
+        fluid.params_from_jax(arrays, scopes[dev], device=dev)
+        exe = fluid.Executor(fluid.CUDAPlace(0) if dev == "cuda"
+                             else fluid.CPUPlace())
+        t0 = time.perf_counter()
+        with amp_flag():
+            loss[dev] = _one_step(exe, main, feed, cost, scopes[dev])
+        secs[dev] = time.perf_counter() - t0
+    lc, lp = loss["cuda"], loss["cpu"]
+    loss_u = abs(lc - lp) / abs(lp) / U
+    stat_u = max((float(np.abs(scopes["cuda"].find_var(n).cpu().numpy()
+                              - scopes["cpu"].find_var(n).numpy()).max())
+                  / float(np.abs(scopes["cpu"].find_var(n).numpy()).max())
+                  / U, n) for n in stats)
+    check = {"loss_card": lc, "loss_cpu": lp, "loss_units": loss_u,
+             "worst_stat_units": stat_u, "stats": len(stats),
+             "cpu_step_s": secs["cpu"]}
+    log("  resnet50 amp batch 2 card vs cpu " + json.dumps(check))
+    if not np.isfinite(lc) or loss_u > AMP_CHECK_U or \
+            stat_u[0] > AMP_CHECK_U:
+        raise RuntimeError(f"amp card vs cpu: loss {loss_u:.3g} U, worst "
+                           f"statistic {stat_u[0]:.3g} U > {AMP_CHECK_U}")
+    return check
+
+
+def train_amp_phase(torch):
+    """The train main path under FLAGS['amp']: Transformer-base, Adam(1e-4),
+    batch 16, 5 steps on the card; the fc and attention projections in
+    bf16, K1, K2, K3a and K3b float32, as in the JAX package. Counters
+    zeroed just before the steps and read just after: 30 layer-norm and
+    18 each flash launches a step, no plain call; the loss finite and
+    falling; every parameter float32."""
+    phase("train amp")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    main, startup, cost, pg = build_transformer(TRANSFORMER_BASE, 1e-4)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = copy_task_batch(TRAIN_BATCH, TRANSFORMER_BASE)
+    with amp_flag():
+        # the main path's window: counters to 0, the steps, counters read
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        losses, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(_one_step(exe, main, feed, cost, scope))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, plain = _kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the window ends here
+        profile = profile_step(torch, exe, main, feed, cost, scope)
+    want = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18}
+    bad = {k: launches[k] for k, n in want.items()
+           if launches[k] != n * TRAIN_STEPS}
+    dtypes = {str(scope.find_var(p.name).dtype) for p, _ in pg}
+    if bad or any(plain.values()) or dtypes != {"torch.float32"}:
+        raise RuntimeError(f"train amp: launches {bad}, plain {plain}, "
+                           f"parameter dtypes {dtypes}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train amp: losses not finite or not falling: "
+                           f"{losses}")
+    p50 = statistics.median(step_ms[1:])
+    train = {
+        "config": "transformer-base 6+6L d512 h8 ff2048 vocab32000 len512 "
+                  "dropout0.1 adam1e-4, FLAGS['amp']",
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "losses": losses,
+        "step_ms": step_ms, "p50_step_ms_after_first": p50,
+        "tokens_per_s": TRAIN_BATCH * SEQ / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb,
+        "kernel_launches": launches, "plain_calls": plain,
+        "profile": profile,
+    }
+    log("  train amp " + json.dumps(train))
+    return train
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2496,6 +3050,12 @@ def main():
     resnet_train["check"] = resnet_train_check_phase(torch, trained)
     fold = resnet_fold_phase(torch, trained)
     del trained
+    amp_err, amp_fwd = amp_kernels_phase(torch)
+    infer_amp = infer_amp_phase(torch)
+    resnet_amp, trained = resnet_train_amp_phase(torch)
+    resnet_amp["check"] = resnet_amp_check_phase(torch, trained)
+    del trained
+    train_amp = train_amp_phase(torch)
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]
@@ -2521,7 +3081,7 @@ def main():
                                            "library")
                  if key in row}
         for key in ("whole_backward", "vs_float64", "in_turns",
-                    "head_dim_256"):
+                    "head_dim_256", "head_dim_264", "head_dim_512"):
             if key in rows:
                 extra[key] = rows[key]
         if kname == "flash_fwd_f32":  # the library's three kernels
@@ -2539,7 +3099,14 @@ def main():
         bound_f32_ms=k5_fwd["bound_f32_ms"], bound_peak=CONV_PEAK,
         forward=k5_fwd, max_rel_err=k5_rel, shapes=k5_rows,
         ptxas=ptxas.get("conv_bn_relu"), infer=infer, resnet_fold=fold,
-        resnet_train=resnet_train)]
+        resnet_train=resnet_train), _kernel_row(
+        "conv_bn_relu_bf16", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
+        "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",
+        infer_amp["kernel_launches"]["conv_bn_relu_bf16"], amp_err, amp_fwd,
+        timed_as=f"sum over the {CONVS_PER_FORWARD} convolutions of one "
+                 f"batch-{INFER_BATCH} ResNet-50 forward, FLAGS['amp']",
+        bound_peak=AMP_CONV_PEAK, forward=amp_fwd, infer_amp=infer_amp,
+        resnet_train_amp=resnet_amp, train_amp=train_amp)]
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -2563,6 +3130,8 @@ def main():
         "prefill": timings["prefill"],
         "decode_b1": timings["decode_b1"],
         "decode_gqa4": timings["decode_gqa4"],
+        "decode_d264": timings["decode_d264"],
+        "decode_d512": timings["decode_d512"],
         "decode_row": dec,
         "case_errors": timings["errors"],
         "bitwise": timings["bitwise"],

@@ -1,4 +1,6 @@
-// Fused conv2d + folded batch norm + relu, float32, for Hopper (sm_90a).
+// Fused conv2d + folded batch norm + relu for Hopper (sm_90a): float32
+// (conv_bn_relu_f32) and bfloat16 operands (conv_bn_relu_bf16, the
+// FLAGS['amp'] form; its design is at the bf16 kernel below).
 //
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:_gemm_epilogue_kernel
@@ -69,12 +71,13 @@
 // res4/res5, the few warps in flight. Not done yet (later work): wgmma
 // (its TF32 operands come from shared memory, so 3xTF32 needs split
 // copies of each tile), TMA, larger warp tiles where registers allow
-// (fewer fragment splits per MMA), bf16 operands under amp.
+// (fewer fragment splits per MMA).
 //
-// The kernel allocates nothing; the caller passes the output.
-// conv_bn_relu_f32 launches on the given stream and returns
+// The kernels allocate nothing; the caller passes the output. Each C
+// entry point launches on the given stream and returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -353,6 +356,367 @@ conv_bn_relu_kernel(const float* __restrict__ x,
     }
 }
 
+
+// ------------------------------------------------------------------ bf16
+// conv_bn_relu_bf16: the bfloat16 form of the TPU kernel, which under
+// FLAGS['amp'] takes bfloat16 x and w, accumulates the product in float32
+// (preferred_element_type), applies the float32 scale/shift and relu to
+// the accumulator and stores y in bfloat16 (acc.astype(y_ref.dtype),
+// conv_bn_relu.py:54). Same layouts as conv_bn_relu_f32, x, w and y
+// bfloat16, scale and shift float32.
+//
+// What bounds it on this card: operations. The product runs on the
+// tensor cores in bf16 (mma.sync m16n8k16, float32 accumulators), one
+// product where the float32 kernel takes three, so the floor is
+// 2*M*K*F / 989 TFLOP/s plus the epilogue's 3*M*F flops over 67 TFLOP/s;
+// a ResNet-50 convolution at batch 16 does 60-600 flops per byte of
+// bfloat16 x + w + y, above the card's ~295. The design keeps the
+// float32 kernel's tiling and order:
+//   - implicit GEMM, 64 (m) x 64 (f) output tiles, two k-groups of 4
+//     warps (group q sums the 32-wide k slices q, q + 2, ...), each warp
+//     32 x 32 of the tile (2 m16 x 4 n8 tiles), each slice's two k-steps
+//     summed in fresh fragments and added to the accumulators in
+//     float32, group 1's sums added by group 0 at the end: every output
+//     sums its K products in one order whatever the shape, so an image's
+//     output is bitwise the same alone and at batch 16;
+//   - the patch slice is stored k-major [32][64 + 8] (a warp's gather of
+//     32 consecutive m writes 64 consecutive bytes) and read as the A
+//     fragments with ldmatrix .trans; the weight slice [64][32 + 8] (k
+//     contiguous, as in w) with ldmatrix: rows at 144 and 80 bytes, so
+//     each 8-row phase of an ldmatrix hits 32 distinct banks;
+//   - a bfloat16 is 2 bytes, below cp.async's 4, so the patch gather
+//     loads through registers: the loads for round i + 1 are issued
+//     before round i's products and stored to shared memory after them.
+//     Weight slices use 16-byte cp.async along k where K % 8 == 0 (every
+//     ResNet-50 convolution but the stem's K = 147, which loads 2 bytes
+//     at a time); one __syncthreads() a round;
+//   - the epilogue applies scale, shift (two roundings) and relu to the
+//     float32 accumulator and rounds once to bfloat16, to nearest even
+//     (__float2bfloat16_rn), as XLA's convert does.
+// What holds it below that floor: the gather's index math and 2-byte
+// loads (16 a thread a round, against 16 MMAs a warp), and at
+// res4/res5 the few warps in flight. Not done yet: wgmma, TMA, 16-byte
+// gathers for 1x1 stride-1 convolutions.
+
+namespace bf16k {
+
+constexpr int kLDA = kBM + 8;                 // patch slice [kBK][kLDA]
+constexpr int kLDB = kBK + 8;                 // weight slice [kBF][kLDB]
+constexpr int kA = kBK * kLDA;                // halves of a patch slice
+constexpr int kB = kBF * kLDB;                // halves of a weight slice
+constexpr int kSlice = kA + kB + 4 * kBK;     // + the k table (int2)
+constexpr int kBChunks = kBF * kBK / 8 / kGroupThreads;  // 16-byte loads
+constexpr int kBScalar = kBF * kBK / kGroupThreads;      // or 2-byte ones
+static_assert(kSlice * 2 % 16 == 0, "slice buffers stay 16-byte aligned");
+static_assert(kStages * kGroups * kSlice * 2 >=
+                  (kGroups - 1) * kBM * kBF * 4,
+              "the k-groups' partial sums reuse the slice buffers");
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8. Plain: r[i] = matrix i's (row lane / 4, columns
+// 2 (lane % 4), +1); .trans: its (rows 2 (lane % 4), +1, column lane / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a * b for one m16n8k16 bf16 tile, float32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4), two bf16 a register, the
+// lower index in the low half: a = A[g][2t..], A[g+8][2t..],
+// A[g][2t+8..], A[g+8][2t+8..]; b = B[2t..][g], B[2t+8..][g]; d as in
+// mma_tf32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid (ceil(M / 64), ceil(F / 64)); see above. Round r holds slices
+// 2r (group 0) and 2r + 1 (group 1) in buffer r % 2.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+conv_bn_relu_bf16_kernel(const uint16_t* __restrict__ x,
+                         const uint16_t* __restrict__ w,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ shift,
+                         __nv_bfloat16* __restrict__ y,
+                         int N, int C, int H, int W, int F, int KH, int KW,
+                         int stride, int pad, int OH, int OW, int relu,
+                         int w_vec) {
+  extern __shared__ float4 smem4[];
+  uint16_t* smem = reinterpret_cast<uint16_t*>(smem4);
+
+  const int tid = threadIdx.x;
+  const int grp = tid / kGroupThreads;
+  const int gt = tid % kGroupThreads;
+  const int warp = gt / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int m0 = blockIdx.x * kBM;
+  const int f0 = blockIdx.y * kBF;
+  const int OHW = OH * OW;
+  const int M = N * OHW;
+  const int KHW = KH * KW;
+  const int K = C * KHW;
+  const int n_slices = (K + kBK - 1) / kBK;
+  const int n_rounds = (n_slices + kGroups - 1) / kGroups;
+
+  // the thread's patch row m = m0 + lm and slice columns kk0 + 2r, as in
+  // the float32 kernel
+  const int lm = gt % kBM;
+  const int kk0 = gt / kBM;
+  int ih0 = -(1 << 29), iw0 = 0;
+  int64_t row = 0;
+  if (m0 + lm < M) {
+    const int n = (m0 + lm) / OHW;
+    const int r = (m0 + lm) - n * OHW;
+    const int oh = r / OW;
+    ih0 = oh * stride - pad;
+    iw0 = (r - oh * OW) * stride - pad;
+    row = static_cast<int64_t>(n) * C * H * W +
+          static_cast<int64_t>(ih0) * W + iw0;
+  }
+
+  auto slice_buf = [&](int round) {
+    return smem + ((round % kStages) * kGroups + grp) * kSlice;
+  };
+  const float r_khw = 1.f / KHW, r_kw = 1.f / KW;
+  // the k table of the group's slice of a round, by its first warp
+  auto table = [&](int round) {
+    const int s = round * kGroups + grp;
+    if (gt >= kBK || s >= n_slices) return;
+    int2* tab = reinterpret_cast<int2*>(slice_buf(round) + kA + kB);
+    const int k = s * kBK + gt;
+    int2 e = make_int2(0, kPastK);
+    if (k < K) {
+      const int c = static_cast<int>((k + 0.5f) * r_khw);
+      const int rem = k - c * KHW;
+      const int i = static_cast<int>((rem + 0.5f) * r_kw);
+      const int j = rem - i * KW;
+      e = make_int2((c * H + i) * W + j, (i << 16) | j);
+    }
+    tab[gt] = e;
+  };
+  // the thread's patch values of a round's slice, into registers
+  uint16_t vals[kGather];
+  auto gather = [&](int round) {
+    const int s = round * kGroups + grp;
+    if (s >= n_slices) return;
+    const int2* tab =
+        reinterpret_cast<const int2*>(slice_buf(round) + kA + kB);
+#pragma unroll
+    for (int r = 0; r < kGather; ++r) {
+      const int2 e = tab[kk0 + r * (kGroupThreads / kBM)];
+      const int ih = ih0 + (e.y >> 16);
+      const int iw = iw0 + (e.y & 0xffff);
+      const bool ok = static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
+                      static_cast<unsigned>(iw) < static_cast<unsigned>(W);
+      vals[r] = ok ? __ldg(x + (row + e.x)) : uint16_t{0};
+    }
+  };
+  auto put = [&](int round) {
+    if (round * kGroups + grp >= n_slices) return;
+    uint16_t* as = slice_buf(round);
+#pragma unroll
+    for (int r = 0; r < kGather; ++r)
+      as[(kk0 + r * (kGroupThreads / kBM)) * kLDA + lm] = vals[r];
+  };
+  // the weight slice: 16-byte cp.async (committed by the caller), or
+  // 2-byte loads stored at once
+  auto weights = [&](int round) {
+    const int s = round * kGroups + grp;
+    if (s >= n_slices) return;
+    uint16_t* bs = slice_buf(round) + kA;
+    const int k0 = s * kBK;
+    if (w_vec) {
+#pragma unroll
+      for (int r = 0; r < kBChunks; ++r) {
+        const int q = gt + r * kGroupThreads;
+        const int ff = q / (kBK / 8);
+        const int c = (q % (kBK / 8)) * 8;
+        const bool ok = f0 + ff < F && k0 + c < K;  // K % 8 == 0
+        const uint16_t* src =
+            ok ? w + (static_cast<int64_t>(f0 + ff) * K + k0 + c) : w;
+        tf32x3::cp_async16(reinterpret_cast<float*>(bs + ff * kLDB + c),
+                           reinterpret_cast<const float*>(src), ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < kBScalar; ++r) {
+        const int q = gt + r * kGroupThreads;
+        const int ff = q / kBK;
+        const int c = q % kBK;
+        const bool ok = f0 + ff < F && k0 + c < K;
+        bs[ff * kLDB + c] =
+            ok ? __ldg(w + (static_cast<int64_t>(f0 + ff) * K + k0 + c))
+               : uint16_t{0};
+      }
+    }
+  };
+
+  // prologue: the tables of rounds 0 and 1, round 0's patches and weights
+  table(0);
+  if (n_rounds > 1) table(1);
+  __syncthreads();
+  gather(0);
+  put(0);
+  weights(0);
+  tf32x3::cp_async_commit();
+
+  const int wm = (warp / kWarpsF) * kWM;
+  const int wf = (warp % kWarpsF) * kWF;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // ldmatrix row addresses: lane l gives row l % 8 of matrix l / 8
+  const int mi = lane / 8, mr = lane % 8;
+
+  for (int it = 0; it < n_rounds; ++it) {
+    // round it has landed (its cp.async and every thread's stores);
+    // every warp is done with round it - 1, whose buffer takes it + 1
+    tf32x3::cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_rounds) {
+      weights(it + 1);
+      gather(it + 1);  // loads in flight during this round's products
+    }
+    tf32x3::cp_async_commit();
+    // round it + 2's table into this round's buffer: its own table was
+    // read by round it's gather, before the barrier above
+    if (it + 2 < n_rounds) table(it + 2);
+
+    if (it * kGroups + grp < n_slices) {
+      const uint16_t* as = slice_buf(it);
+      const uint16_t* bs = as + kA;
+      float fr[kMT][kNT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fr[i][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        uint32_t a[kMT][4], b[kNT / 2][4];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+          ldmatrix_x4_trans(
+              a[i], as + (16 * ks + 8 * (mi >> 1) + mr) * kLDA + wm +
+                        16 * i + 8 * (mi & 1));
+#pragma unroll
+        for (int jj = 0; jj < kNT / 2; ++jj)
+          ldmatrix_x4(b[jj], bs + (wf + 16 * jj + 8 * (mi >> 1) + mr) * kLDB +
+                                 16 * ks + 8 * (mi & 1));
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+            mma_bf16(fr[i][j], a[i], b[j / 2][2 * (j % 2)],
+                     b[j / 2][2 * (j % 2) + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) add_tiles(acc[i], fr[i]);
+    }
+    if (it + 1 < n_rounds) put(it + 1);
+  }
+  tf32x3::cp_async_wait_all();
+  __syncthreads();  // every slice is consumed: the buffers are free
+
+  // group 1 hands its sums to group 0, as in the float32 kernel
+  float* fsm = reinterpret_cast<float*>(smem4);
+  if (grp > 0) {
+    float* part = fsm + ((grp - 1) * (kGroupThreads / 32) + warp) * 32 * kAcc;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          part[((i * kNT + j) * 4 + e) * 32 + lane] = acc[i][j][e];
+  }
+  __syncthreads();
+  if (grp > 0) return;
+#pragma unroll
+  for (int q = 1; q < kGroups; ++q) {
+    const float* p = fsm + ((q - 1) * (kGroupThreads / 32) + warp) * 32 *
+                               kAcc;
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] += p[((i * kNT + j) * 4 + e) * 32 + lane];
+  }
+
+  // epilogue: acc * scale + shift, relu, one rounding to bfloat16
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + 16 * i + g + 8 * h;
+      if (m >= M) continue;
+      const int n = m / OHW;
+      __nv_bfloat16* yb = y + static_cast<int64_t>(n) * F * OHW + (m - n * OHW);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = f0 + wf + 8 * j + 2 * t + e;
+          if (f >= F) continue;
+          float v = __fadd_rn(__fmul_rn(acc[i][j][2 * h + e], scale[f]),
+                              shift[f]);
+          if (relu) v = fmaxf(v, 0.f);
+          yb[static_cast<int64_t>(f) * OHW] = __float2bfloat16_rn(v);
+        }
+    }
+}
+
+}  // namespace bf16k
+
+// The shapes both kernels take (the k table's packing, its float
+// division, 32-bit offsets) and their grid; false when out of range.
+bool conv_grid(int N, int C, int H, int W, int F, int KH, int KW, int stride,
+               int pad, int OH, int OW, dim3* grid) {
+  if (N < 0 || C <= 0 || H <= 0 || W <= 0 || F < 0 || KH <= 0 || KW <= 0 ||
+      stride <= 0 || pad < 0 || OH < 0 || OW < 0)
+    return false;
+  // the k table packs (i << 16) | j, its past-K entry's i = 0x4000 must
+  // land below every image row (H + pad <= 0x4000), and its float
+  // division is exact for K < 2^22
+  if (KH >= 0x4000 || KW > 0xffff || H + pad > 0x4000 ||
+      static_cast<int64_t>(C) * KH * KW >= (1 << 22))
+    return false;
+  const int64_t M = static_cast<int64_t>(N) * OH * OW;
+  if (M > (int64_t{1} << 31) - kBM ||
+      static_cast<int64_t>(C) * H * W > (int64_t{1} << 31) - 1)
+    return false;
+  *grid = dim3(static_cast<unsigned>((M + kBM - 1) / kBM),
+               static_cast<unsigned>((F + kBF - 1) / kBF));
+  return grid->y <= 65535;
+}
+
 }  // namespace
 
 extern "C" {
@@ -362,22 +726,9 @@ int conv_bn_relu_f32(const void* x, const void* w, const void* scale,
                      int F, int KH, int KW, int stride, int pad, int OH,
                      int OW, int relu, void* stream) {
   if (N == 0 || F == 0 || OH == 0 || OW == 0) return cudaSuccess;
-  if (N < 0 || C <= 0 || H <= 0 || W <= 0 || F < 0 || KH <= 0 || KW <= 0 ||
-      stride <= 0 || pad < 0 || OH < 0 || OW < 0)
+  dim3 grid;
+  if (!conv_grid(N, C, H, W, F, KH, KW, stride, pad, OH, OW, &grid))
     return cudaErrorInvalidValue;
-  // the k table packs (i << 16) | j, its past-K entry's i = 0x4000 must
-  // land below every image row (H + pad <= 0x4000), and its float
-  // division is exact for K < 2^22
-  if (KH >= 0x4000 || KW > 0xffff || H + pad > 0x4000 ||
-      static_cast<int64_t>(C) * KH * KW >= (1 << 22))
-    return cudaErrorInvalidValue;
-  const int64_t M = static_cast<int64_t>(N) * OH * OW;
-  if (M > (int64_t{1} << 31) - kBM ||
-      static_cast<int64_t>(C) * H * W > (int64_t{1} << 31) - 1)
-    return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
-                  static_cast<unsigned>((F + kBF - 1) / kBF));
-  if (grid.y > 65535) return cudaErrorInvalidValue;
   const int K = C * KH * KW;
   const int w_vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const size_t smem = sizeof(float) * kStages * kGroups * kSlice;
@@ -391,6 +742,30 @@ int conv_bn_relu_f32(const void* x, const void* w, const void* scale,
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<float*>(y), N, C, H, W, F, KH, KW, stride, pad, OH, OW,
       relu, w_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int conv_bn_relu_bf16(const void* x, const void* w, const void* scale,
+                      const void* shift, void* y, int N, int C, int H, int W,
+                      int F, int KH, int KW, int stride, int pad, int OH,
+                      int OW, int relu, void* stream) {
+  if (N == 0 || F == 0 || OH == 0 || OW == 0) return cudaSuccess;
+  dim3 grid;
+  if (!conv_grid(N, C, H, W, F, KH, KW, stride, pad, OH, OW, &grid))
+    return cudaErrorInvalidValue;
+  const int K = C * KH * KW;
+  const int w_vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const size_t smem = 2 * kStages * kGroups * bf16k::kSlice;
+  cudaError_t e = cudaFuncSetAttribute(
+      bf16k::conv_bn_relu_bf16_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bf16k::conv_bn_relu_bf16_kernel<<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(shift),
+      static_cast<__nv_bfloat16*>(y), N, C, H, W, F, KH, KW, stride, pad, OH,
+      OW, relu, w_vec);
   return static_cast<int>(cudaGetLastError());
 }
 

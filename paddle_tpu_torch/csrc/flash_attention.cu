@@ -97,9 +97,10 @@
 // K3a's accumulators would not fit in registers), a persistent grid.
 //
 // head_dim: the tensor-core kernels take the buckets 32, 64 and 128;
-// head_dim 129..256 runs on CUDA-core kernels (flash_*_wide_kernel
-// below, 4 rows a warp), as the accumulators of a 16-row warp would not
-// fit in registers at 256 columns. Every entry point takes a head_dim
+// every head_dim above 128 runs on CUDA-core kernels (flash_*_wide_kernel
+// below, 4 rows a warp; above 256 in 256-column slices of the output),
+// as the accumulators of a 16-row warp would not fit in registers at 256
+// columns. Every entry point takes a head_dim
 // that is a multiple of 4 (16-byte staging); the wrapper
 // (kernels/flash_attention.py:pad_head_dim) zero-pads any other one,
 // which is exact, and passes the scale of the true head_dim.
@@ -678,21 +679,33 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ------------------------------------------------------- the 256 bucket
-// head_dim 129..256 (a multiple of 4). The tensor-core kernels above keep
+// ------------------------------------------------------ the wide bucket
+// head_dim above 128 (a multiple of 4). The tensor-core kernels above keep
 // a 16-row warp's accumulators in registers; at 256 columns the output
 // alone would take 128 registers a lane (dK and dV 256). These kernels
 // run on the CUDA cores instead, 4 rows a warp (16 a block), and stream
 // the other operand in tiles of 32 rows, one row a lane while scoring:
 // lane j computes the scores of row j against the warp's 4 rows; lane l
-// holds output columns l, l + 32, ... (NE = 8 of them). Tiles read by
-// lane-row are padded by one float (no bank conflicts); the block's own
-// rows are read as broadcasts. Every sum is a float32 FMA chain in a
-// fixed order, so two launches give bitwise-equal outputs.
+// holds output columns l, l + 32, ... (NE = 8 of them, 256 in all).
+// Above 256 columns the grid's z axis cuts the output into 256-column
+// slices (O in the forward, dK and dV, dQ), one a block: every block
+// computes its scores (and dP = dO V^T) over the whole head_dim, in
+// 256-column chunks staged through shared memory in the order 0, 256,
+// ..., so every slice computes the same softmax (and dS) bit for bit,
+// then accumulates its own columns; the forward's slice 0 writes the
+// LSE. Up to 256 columns there is one slice and one chunk, and the
+// block's own rows stay in shared memory for the whole key loop: the
+// kernels' kSliced = false form, whose chunk loop the compiler removes
+// (a runtime loop there cost the 256 bucket registers and 60% more
+// time on the card, PERF.md PR 8). Tiles
+// read by lane-row are padded by one float (no bank conflicts); the
+// block's own rows are read as broadcasts. Every sum is a float32 FMA
+// chain in a fixed order, so two launches give bitwise-equal outputs.
 constexpr int kWideRowsPerWarp = 4;
 constexpr int kWideRows = kWarps * kWideRowsPerWarp;  // 16 a block
 constexpr int kWideTile = 32;
-constexpr int kWideNE = 8;                            // D <= 256
+constexpr int kWideNE = 8;
+constexpr int kWideChunk = 32 * kWideNE;              // 256 columns
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -708,19 +721,21 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows [r0, r0 + n) of a row-major [S, D] matrix into shared memory with
-// row stride ld (float4 loads: D % 4 == 0); rows at or past S are zeros.
-__device__ __forceinline__ void stage_rows(float* dst, int ld,
+// Rows [r0, r0 + n) and columns [c0, c0 + w) of a row-major [S, D]
+// matrix into shared memory with row stride ld (float4 loads: D, c0 and
+// w are multiples of 4); rows at or past S are zeros.
+__device__ __forceinline__ void stage_cols(float* dst, int ld,
                                            const float* __restrict__ src,
-                                           int r0, int n, int S, int D) {
-  const int d4 = D / 4;
-  for (int i = threadIdx.x; i < n * d4; i += kThreads) {
-    const int r = i / d4;
-    const int dd = (i % d4) * 4;
+                                           int r0, int n, int S, int D,
+                                           int c0, int w) {
+  const int w4 = w / 4;
+  for (int i = threadIdx.x; i < n * w4; i += kThreads) {
+    const int r = i / w4;
+    const int dd = (i % w4) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r0 + r < S)
       v = *reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(r0 + r) * D + dd);
+          src + static_cast<int64_t>(r0 + r) * D + c0 + dd);
     float* o = dst + r * ld + dd;
     o[0] = v.x;
     o[1] = v.y;
@@ -736,7 +751,8 @@ __device__ __forceinline__ void stage_entries(float* dst,
     dst[i] = r0 + i < S ? src[r0 + i] : 0.f;
 }
 
-// grid (BH, ceil(Sq / 16))
+// grid (BH, ceil(Sq / 16), ceil(D / 256))
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
@@ -744,19 +760,25 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
                       float* __restrict__ lse, int Sq, int Sk, int D,
                       int causal, float scale) {
   constexpr int R = kWideRowsPerWarp;
+  const int W = min(D, kWideChunk);          // a chunk's columns at most
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                          // [16][D]
-  float* ks = qs + kWideRows * D;            // [32][D + 1]
-  float* vs = ks + kWideTile * (D + 1);      // [32][D]
+  float* qs = smem;                          // [16][chunk]
+  float* ks = qs + kWideRows * W;            // [32][chunk + 1]
+  float* vs = ks + kWideTile * (W + 1);      // [32][slice]
 
   const int64_t bh = blockIdx.x;
   const int q0 = blockIdx.y * kWideRows;
+  // the block's output columns
+  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
+  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
+  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const float* qb = q + bh * Sq * D;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
-  stage_rows(qs, D, q + bh * Sq * D, q0, kWideRows, Sq, D);
+  if (!kSliced) stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
 
   const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
   const int rw = warp * R;
@@ -773,22 +795,27 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
   }
 
   for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
-    __syncthreads();  // the previous tile is consumed (and qs is ready)
-    stage_rows(ks, D + 1, kb, t0, kWideTile, Sk, D);
-    stage_rows(vs, D, vb, t0, kWideTile, Sk, D);
-    __syncthreads();
-
     const int t = t0 + lane;
     float s[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) s[i] = 0.f;
-    const float* kr = ks + lane * (D + 1);
-    const float* qw = qs + rw * D;
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int d0 = ci * kWideChunk;
+      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (kSliced) stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
+      stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
+      if (ci == n_chunks - 1)  // the last chunk: the V slice too
+        stage_cols(vs, cw, vb, t0, kWideTile, Sk, D, c0, cw);
+      __syncthreads();
+      const float* kr = ks + lane * (dw + 1);
+      const float* qw = qs + rw * dw;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
+      for (int d = 0; d < dw; ++d) {
+        const float kd = kr[d];
 #pragma unroll
-      for (int i = 0; i < R; ++i) s[i] = fmaf(qw[i * D + d], kd, s[i]);
+        for (int i = 0; i < R; ++i) s[i] = fmaf(qw[i * dw + d], kd, s[i]);
+      }
     }
 
     float p[R];
@@ -811,7 +838,7 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < kWideNE; ++e) {
         const int d = lane + 32 * e;
-        vd[e] = d < D ? vs[j * D + d] : 0.f;
+        vd[e] = d < cw ? vs[j * cw + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -828,18 +855,20 @@ flash_fwd_wide_kernel(const float* __restrict__ q,
     const int qpos = q0 + rw + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], FLT_MIN);
-    float* orow = o + (bh * Sq + qpos) * D;
+    float* orow = o + (bh * Sq + qpos) * D + c0;
 #pragma unroll
     for (int e = 0; e < kWideNE; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) orow[d] = acc[i][e] / denom;
+      if (d < cw) orow[d] = acc[i][e] / denom;
     }
-    if (lane == 0) lse[bh * Sq + qpos] = m[i] + logf(denom);
+    if (lane == 0 && c0 == 0) lse[bh * Sq + qpos] = m[i] + logf(denom);
   }
 }
 
-// grid (BH, ceil(Sk / 16)): the block owns 16 keys and streams query
-// tiles of 32 rows, from the first tile a causal key can see
+// grid (BH, ceil(Sk / 16), ceil(D / 256)): the block owns 16 keys and
+// streams query tiles of 32 rows, from the first tile a causal key can
+// see
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -850,23 +879,31 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
                            float* __restrict__ dk, float* __restrict__ dv,
                            int Sq, int Sk, int D, int causal, float scale) {
   constexpr int R = kWideRowsPerWarp;
+  const int W = min(D, kWideChunk);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem;                          // [16][D]
-  float* vs = ks + kWideRows * D;            // [16][D]
-  float* qs = vs + kWideRows * D;            // [32][D + 1]
-  float* dos = qs + kWideTile * (D + 1);     // [32][D + 1]
-  float* lses = dos + kWideTile * (D + 1);   // [32]
+  float* ks = smem;                          // [16][chunk]
+  float* vs = ks + kWideRows * W;            // [16][chunk]
+  float* qs = vs + kWideRows * W;            // [32][chunk + 1]
+  float* dos = qs + kWideTile * (W + 1);     // [32][chunk + 1]
+  float* lses = dos + kWideTile * (W + 1);   // [32]
   float* deltas = lses + kWideTile;          // [32]
 
   const int64_t bh = blockIdx.x;
   const int k0 = blockIdx.y * kWideRows;
+  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
+  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
+  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const float* qb = q + bh * Sq * D;
   const float* dob = dout + bh * Sq * D;
-  stage_rows(ks, D, k + bh * Sk * D, k0, kWideRows, Sk, D);
-  stage_rows(vs, D, v + bh * Sk * D, k0, kWideRows, Sk, D);
+  const float* kbh = k + bh * Sk * D;
+  const float* vbh = v + bh * Sk * D;
+  if (!kSliced) {
+    stage_cols(ks, D, kbh, k0, kWideRows, Sk, D, 0, D);
+    stage_cols(vs, D, vbh, k0, kWideRows, Sk, D, 0, D);
+  }
 
   float acc_k[R][kWideNE], acc_v[R][kWideNE];
 #pragma unroll
@@ -877,30 +914,39 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
   const int kw = k0 + warp * R;  // the warp's first key
   const int start = causal ? (k0 / kWideTile) * kWideTile : 0;
   for (int t0 = start; t0 < Sq; t0 += kWideTile) {
-    __syncthreads();  // the previous tile is consumed (and ks/vs ready)
-    stage_rows(qs, D + 1, qb, t0, kWideTile, Sq, D);
-    stage_rows(dos, D + 1, dob, t0, kWideTile, Sq, D);
-    stage_entries(lses, lse + bh * Sq, t0, kWideTile, Sq);
-    stage_entries(deltas, delta + bh * Sq, t0, kWideTile, Sq);
-    __syncthreads();
-
     // lane j: query row t0 + j against each of the warp's keys
     const int qpos = t0 + lane;
     float s[R], dp[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
-    const float* qr = qs + lane * (D + 1);
-    const float* dor = dos + lane * (D + 1);
-    const float* kwr = ks + warp * R * D;
-    const float* vwr = vs + warp * R * D;
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int d0 = ci * kWideChunk;
+      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (kSliced) {
+        stage_cols(ks, dw, kbh, k0, kWideRows, Sk, D, d0, dw);
+        stage_cols(vs, dw, vbh, k0, kWideRows, Sk, D, d0, dw);
+      }
+      stage_cols(qs, dw + 1, qb, t0, kWideTile, Sq, D, d0, dw);
+      stage_cols(dos, dw + 1, dob, t0, kWideTile, Sq, D, d0, dw);
+      if (ci == 0) {
+        stage_entries(lses, lse + bh * Sq, t0, kWideTile, Sq);
+        stage_entries(deltas, delta + bh * Sq, t0, kWideTile, Sq);
+      }
+      __syncthreads();
+      const float* qr = qs + lane * (dw + 1);
+      const float* dor = dos + lane * (dw + 1);
+      const float* kwr = ks + warp * R * dw;
+      const float* vwr = vs + warp * R * dw;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d];
-      const float dod = dor[d];
+      for (int d = 0; d < dw; ++d) {
+        const float qd = qr[d];
+        const float dod = dor[d];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        s[i] = fmaf(qd, kwr[i * D + d], s[i]);
-        dp[i] = fmaf(dod, vwr[i * D + d], dp[i]);
+        for (int i = 0; i < R; ++i) {
+          s[i] = fmaf(qd, kwr[i * dw + d], s[i]);
+          dp[i] = fmaf(dod, vwr[i * dw + d], dp[i]);
+        }
       }
     }
     const float lse_j = lses[lane];
@@ -915,14 +961,24 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
       ds[i] = p[i] * (dp[i] - delta_j);
     }
 
+    // the block's columns of the tile's Q and dO rows: the last chunk
+    // when there is one, else staged anew
+    int ld = D + 1;
+    if (kSliced) {
+      __syncthreads();
+      stage_cols(qs, cw + 1, qb, t0, kWideTile, Sq, D, c0, cw);
+      stage_cols(dos, cw + 1, dob, t0, kWideTile, Sq, D, c0, cw);
+      __syncthreads();
+      ld = cw + 1;
+    }
     const int n_here = min(kWideTile, Sq - t0);
     for (int j = 0; j < n_here; ++j) {
       float qd[kWideNE], dod[kWideNE];
 #pragma unroll
       for (int e = 0; e < kWideNE; ++e) {
         const int d = lane + 32 * e;
-        qd[e] = d < D ? qs[j * (D + 1) + d] : 0.f;
-        dod[e] = d < D ? dos[j * (D + 1) + d] : 0.f;
+        qd[e] = d < cw ? qs[j * ld + d] : 0.f;
+        dod[e] = d < cw ? dos[j * ld + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -941,12 +997,12 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
   for (int i = 0; i < R; ++i) {
     const int kpos = kw + i;
     if (kpos >= Sk) continue;
-    float* dkr = dk + (bh * Sk + kpos) * D;
-    float* dvr = dv + (bh * Sk + kpos) * D;
+    float* dkr = dk + (bh * Sk + kpos) * D + c0;
+    float* dvr = dv + (bh * Sk + kpos) * D + c0;
 #pragma unroll
     for (int e = 0; e < kWideNE; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) {
+      if (d < cw) {
         dkr[d] = acc_k[i][e] * scale;
         dvr[d] = acc_v[i][e];
       }
@@ -954,8 +1010,9 @@ flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
   }
 }
 
-// grid (BH, ceil(Sq / 16)): the block owns 16 query rows and streams
-// key tiles of 32 rows, up to its last row when causal
+// grid (BH, ceil(Sq / 16), ceil(D / 256)): the block owns 16 query rows
+// and streams key tiles of 32 rows, up to its last row when causal
+template <bool kSliced>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -966,23 +1023,31 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
                          float* __restrict__ dq, int Sq, int Sk, int D,
                          int causal, float scale) {
   constexpr int R = kWideRowsPerWarp;
+  const int W = min(D, kWideChunk);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                          // [16][D]
-  float* dos = qs + kWideRows * D;           // [16][D]
-  float* ks = dos + kWideRows * D;           // [32][D + 1]
-  float* vs = ks + kWideTile * (D + 1);      // [32][D + 1]
-  float* lses = vs + kWideTile * (D + 1);    // [16]
+  float* qs = smem;                          // [16][chunk]
+  float* dos = qs + kWideRows * W;           // [16][chunk]
+  float* ks = dos + kWideRows * W;           // [32][chunk + 1]
+  float* vs = ks + kWideTile * (W + 1);      // [32][chunk + 1]
+  float* lses = vs + kWideTile * (W + 1);    // [16]
   float* deltas = lses + kWideRows;          // [16]
 
   const int64_t bh = blockIdx.x;
   const int q0 = blockIdx.y * kWideRows;
+  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
+  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
+  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const float* qb = q + bh * Sq * D;
+  const float* dob = dout + bh * Sq * D;
   const float* kb = k + bh * Sk * D;
   const float* vb = v + bh * Sk * D;
-  stage_rows(qs, D, q + bh * Sq * D, q0, kWideRows, Sq, D);
-  stage_rows(dos, D, dout + bh * Sq * D, q0, kWideRows, Sq, D);
+  if (!kSliced) {
+    stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
+    stage_cols(dos, D, dob, q0, kWideRows, Sq, D, 0, D);
+  }
   stage_entries(lses, lse + bh * Sq, q0, kWideRows, Sq);
   stage_entries(deltas, delta + bh * Sq, q0, kWideRows, Sq);
 
@@ -999,28 +1064,35 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
 
   const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
   for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
-    __syncthreads();  // the previous tile is consumed (and qs/dos ready)
-    stage_rows(ks, D + 1, kb, t0, kWideTile, Sk, D);
-    stage_rows(vs, D + 1, vb, t0, kWideTile, Sk, D);
-    __syncthreads();
-
     // lane j: key t0 + j against each of the warp's query rows
     const int t = t0 + lane;
     float s[R], dp[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
-    const float* kr = ks + lane * (D + 1);
-    const float* vr = vs + lane * (D + 1);
-    const float* qw = qs + rw * D;
-    const float* dow = dos + rw * D;
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int d0 = ci * kWideChunk;
+      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+      __syncthreads();  // the previous chunk or tile is consumed
+      if (kSliced) {
+        stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
+        stage_cols(dos, dw, dob, q0, kWideRows, Sq, D, d0, dw);
+      }
+      stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
+      stage_cols(vs, dw + 1, vb, t0, kWideTile, Sk, D, d0, dw);
+      __syncthreads();
+      const float* kr = ks + lane * (dw + 1);
+      const float* vr = vs + lane * (dw + 1);
+      const float* qw = qs + rw * dw;
+      const float* dow = dos + rw * dw;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d];
-      const float vd = vr[d];
+      for (int d = 0; d < dw; ++d) {
+        const float kd = kr[d];
+        const float vd = vr[d];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        s[i] = fmaf(qw[i * D + d], kd, s[i]);
-        dp[i] = fmaf(dow[i * D + d], vd, dp[i]);
+        for (int i = 0; i < R; ++i) {
+          s[i] = fmaf(qw[i * dw + d], kd, s[i]);
+          dp[i] = fmaf(dow[i * dw + d], vd, dp[i]);
+        }
       }
     }
     float ds[R];
@@ -1031,13 +1103,22 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
       ds[i] = p * (dp[i] - deltas[rw + i]);
     }
 
+    // the block's columns of the tile's K rows: the last chunk when
+    // there is one, else staged anew
+    int ld = D + 1;
+    if (kSliced) {
+      __syncthreads();
+      stage_cols(ks, cw + 1, kb, t0, kWideTile, Sk, D, c0, cw);
+      __syncthreads();
+      ld = cw + 1;
+    }
     const int n_here = min(kWideTile, n_keys - t0);
     for (int j = 0; j < n_here; ++j) {
       float kd[kWideNE];
 #pragma unroll
       for (int e = 0; e < kWideNE; ++e) {
         const int d = lane + 32 * e;
-        kd[e] = d < D ? ks[j * (D + 1) + d] : 0.f;
+        kd[e] = d < cw ? ks[j * ld + d] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
@@ -1053,11 +1134,11 @@ flash_bwd_dq_wide_kernel(const float* __restrict__ q,
   for (int i = 0; i < R; ++i) {
     const int qpos = q0 + rw + i;
     if (qpos >= Sq) continue;
-    float* dqr = dq + (bh * Sq + qpos) * D;
+    float* dqr = dq + (bh * Sq + qpos) * D + c0;
 #pragma unroll
     for (int e = 0; e < kWideNE; ++e) {
       const int d = lane + 32 * e;
-      if (d < D) dqr[d] = acc[i][e] * scale;
+      if (d < cw) dqr[d] = acc[i][e] * scale;
     }
   }
 }
@@ -1130,58 +1211,73 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The 256 bucket (head_dim 129..256) on the CUDA-core kernels.
+// The wide bucket (head_dim above 128) on the CUDA-core kernels: W, a
+// chunk's columns (head_dim up to 256), sizes the shared memory; the
+// grid's z axis takes the 256-column output slices.
+size_t chunk_cols(int D) {
+  return static_cast<size_t>(D < kWideChunk ? D : kWideChunk);
+}
+
+dim3 wide_grid(int BH, int S, int D) {
+  return dim3(BH, (S + kWideRows - 1) / kWideRows,
+              (D + kWideChunk - 1) / kWideChunk);
+}
+
+template <bool kSliced>
 cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
                             float* o, float* lse, int BH, int Sq, int Sk,
                             int D, int causal, float scale,
                             cudaStream_t stream) {
-  const size_t smem = floats(static_cast<size_t>(kWideRows) * D +
-                             static_cast<size_t>(kWideTile) * (2 * D + 1));
-  cudaError_t e = allow_smem(flash_fwd_wide_kernel, smem);
+  const size_t W = chunk_cols(D);
+  const size_t smem = floats(kWideRows * W + kWideTile * (2 * W + 1));
+  auto kernel = flash_fwd_wide_kernel<kSliced>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(BH, (Sq + kWideRows - 1) / kWideRows);
-  flash_fwd_wide_kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(
       q, k, v, o, lse, Sq, Sk, D, causal, scale);
   return cudaGetLastError();
 }
 
+template <bool kSliced>
 cudaError_t launch_dkdv_wide(const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, float* dk, float* dv,
                              int BH, int Sq, int Sk, int D, int causal,
                              float scale, cudaStream_t stream) {
-  const size_t smem = floats(2 * static_cast<size_t>(kWideRows) * D +
-                             2 * static_cast<size_t>(kWideTile) * (D + 1) +
-                             2 * static_cast<size_t>(kWideTile));
-  cudaError_t e = allow_smem(flash_bwd_dkdv_wide_kernel, smem);
+  const size_t W = chunk_cols(D);
+  const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
+                             2 * kWideTile);
+  auto kernel = flash_bwd_dkdv_wide_kernel<kSliced>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(BH, (Sk + kWideRows - 1) / kWideRows);
-  flash_bwd_dkdv_wide_kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<wide_grid(BH, Sk, D), kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Sk, D, causal, scale);
   return cudaGetLastError();
 }
 
+template <bool kSliced>
 cudaError_t launch_dq_wide(const float* q, const float* k, const float* v,
                            const float* dout, const float* lse,
                            const float* delta, float* dq, int BH, int Sq,
                            int Sk, int D, int causal, float scale,
                            cudaStream_t stream) {
-  const size_t smem = floats(2 * static_cast<size_t>(kWideRows) * D +
-                             2 * static_cast<size_t>(kWideTile) * (D + 1) +
-                             2 * static_cast<size_t>(kWideRows));
-  cudaError_t e = allow_smem(flash_bwd_dq_wide_kernel, smem);
+  const size_t W = chunk_cols(D);
+  const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
+                             2 * kWideRows);
+  auto kernel = flash_bwd_dq_wide_kernel<kSliced>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(BH, (Sq + kWideRows - 1) / kWideRows);
-  flash_bwd_dq_wide_kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, Sq, Sk, D, causal, scale);
   return cudaGetLastError();
 }
 
-// head_dim: a multiple of 4 (the wrapper zero-pads it to one), at most
-// 256; the grid's y dimension bounds the sequence lengths
+// head_dim: a multiple of 4 (the wrapper zero-pads it to one); the
+// grid's y and z dimensions bound the sequence lengths and head_dim
 bool bad_shape(int BH, int Sq, int Sk, int D) {
-  return BH < 0 || Sq < 0 || Sk < 0 || D <= 0 || D > 256 || D % 4 ||
-         Sq > 65535 * kWideRows || Sk > 65535 * kWideRows;
+  return BH < 0 || Sq < 0 || Sk < 0 || D <= 0 || D % 4 ||
+         Sq > 65535 * kWideRows || Sk > 65535 * kWideRows ||
+         D > 65535 * kWideChunk;
 }
 
 }  // namespace
@@ -1207,8 +1303,10 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
     e = args(launch_fwd<64>);
   else if (D <= 128)
     e = args(launch_fwd<128>);
+  else if (D <= kWideChunk)
+    e = args(launch_fwd_wide<false>);
   else
-    e = args(launch_fwd_wide);
+    e = args(launch_fwd_wide<true>);
   return static_cast<int>(e);
 }
 
@@ -1236,8 +1334,10 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
     e = args(launch_dkdv<64>);
   else if (D <= 128)
     e = args(launch_dkdv<128>);
+  else if (D <= kWideChunk)
+    e = args(launch_dkdv_wide<false>);
   else
-    e = args(launch_dkdv_wide);
+    e = args(launch_dkdv_wide<true>);
   return static_cast<int>(e);
 }
 
@@ -1264,8 +1364,10 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
     e = args(launch_dq<64>);
   else if (D <= 128)
     e = args(launch_dq<128>);
+  else if (D <= kWideChunk)
+    e = args(launch_dq_wide<false>);
   else
-    e = args(launch_dq_wide);
+    e = args(launch_dq_wide<true>);
   return static_cast<int>(e);
 }
 

@@ -13,7 +13,8 @@
 // (and < W * page_size); dead slots (q_len == 0) and dead lanes
 // (j >= q_len) give exact zeros; query head h reads kv head h / (Hq /
 // Hkv) (GQA); a row's output is its P V over max(l, FLT_MIN). Any
-// head_dim from 1 to 256.
+// head_dim: up to 256 on the two paths below, above 256 on a third
+// (paged_wide_kernel).
 //
 // The work of one (slot b, kv head g): its query rows are the
 // (lane c, head of group g) pairs, row r = c * rep + h % rep, the first
@@ -56,6 +57,17 @@
 //     head_dim..bucket are zero-filled in shared memory (buckets 32, 64,
 //     128, 256); keys past the block's last visible key are zero-filled
 //     and never read, so padded or invisible pages cost nothing.
+//   paged_wide_kernel  head_dim above 256, grid (B * Hkv, ceil(C * rep /
+//     16) * n_slices, n_splits): the CUDA-core kernels' accumulators
+//     would not fit in registers, so a block computes one 256-column
+//     slice of the output (the y axis carries the slices) for 16 rows,
+//     4 a warp, lane j scoring key j of each 32-key tile, lane l owning
+//     the slice's columns l, l + 32, ...; every block computes its
+//     scores over the whole head_dim in 256-column chunks (Q rows and K
+//     tile staged through shared memory by plain loads, through the
+//     split's shared offsets table), in the order 0, 256, ..., so every
+//     slice computes the same (m, l) bit for bit; slice 0 writes them.
+//     Any q_len * rep; masked keys give p = 0 exactly, as above.
 //   paged_merge_kernel  one warp a row: merges the row's partials of the
 //     splits it sees (weights exp2(m_s - M); M and l by fixed butterflies
 //     over the splits, each column in the order s = 0, 1, ...), divides
@@ -665,6 +677,204 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------- wide
+// head_dim above 256; see the head comment.
+constexpr int kWideRows = 16;                  // rows a block, 4 a warp
+constexpr int kWideRowsPerWarp = kWideRows / kWarps;
+constexpr int kWideChunk = 256;                // columns a chunk or slice
+constexpr int kWideNE = kWideChunk / 32;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+paged_wide_kernel(const float* __restrict__ q,
+                  const float* __restrict__ k_pages,
+                  const float* __restrict__ v_pages,
+                  const int* __restrict__ tables,
+                  const int* __restrict__ kv_lens,
+                  const int* __restrict__ q_lens,
+                  float* __restrict__ part_ml, float* __restrict__ part_acc,
+                  int C, int Hq, int Hkv, int D, int ps, int W, int split,
+                  float scale, int n_slices) {
+  constexpr int R = kWideRowsPerWarp;
+  extern __shared__ float4 smem4[];
+  Work w;
+  w.q = q;
+  w.kp = k_pages;
+  w.vp = v_pages;
+  w.part_ml = part_ml;
+  w.part_acc = part_acc;
+  w.C = C;
+  w.Hq = Hq;
+  w.Hkv = Hkv;
+  w.D = D;
+  w.ps = ps;
+  w.T = W * ps;
+  w.split = split;
+  w.b = blockIdx.x / Hkv;
+  w.g = blockIdx.x % Hkv;
+  w.NR = static_cast<int64_t>(gridDim.x / Hkv) * C * Hq;
+  w.table = tables + static_cast<int64_t>(w.b) * W;
+  w.rep = Hq / Hkv;
+  w.q_len = q_lens[w.b];
+  w.kv_len = kv_lens[w.b];
+  w.n_live = max(0, min(w.q_len, C)) * w.rep;
+  w.s = blockIdx.z;
+  w.s0 = w.s * split;
+  w.c = scale * kLog2e;
+
+  const int slice = blockIdx.y % n_slices;
+  const int r0 = (blockIdx.y / n_slices) * kWideRows;
+  if (r0 >= w.n_live) return;
+  const int n_keys = min(
+      row_limit(w, min(r0 + kWideRows, w.n_live) - 1) + 1 - w.s0, split);
+  if (n_keys <= 0) return;  // the split starts past every visible key
+  const int c0 = slice * kWideChunk;           // the block's columns
+  const int cw = min(kWideChunk, D - c0);
+
+  int64_t* offs = reinterpret_cast<int64_t*>(smem4);       // [split]
+  float* qs = reinterpret_cast<float*>(offs + split);      // [16][256]
+  float* ks = qs + kWideRows * kWideChunk;                 // [32][257]
+  float* vs = ks + kTile * (kWideChunk + 1);               // [32][256]
+  key_offsets(w, offs, w.s0 + n_keys);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rw = warp * R;                     // the warp's rows in qs
+  int lim[R];
+  float m[R], l[R], acc[R][kWideNE];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    lim[i] = row_limit(w, r0 + rw + i);
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) acc[i][e] = 0.f;
+  }
+
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t* to = offs + it * kTile;
+    float s[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) s[i] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kWideChunk) {
+      const int dw = min(kWideChunk, D - d0);
+      __syncthreads();  // the offsets are written; the last chunk is read
+      for (int i = threadIdx.x; i < kWideRows * dw; i += kThreads) {
+        const int rr = i / dw, d = i % dw;
+        const int r = r0 + rr;
+        qs[rr * dw + d] = r < w.n_live ? q[row_id(w, r) * D + d0 + d] : 0.f;
+      }
+      for (int i = threadIdx.x; i < kTile * dw; i += kThreads) {
+        const int key = i / dw, d = i % dw;
+        const int64_t off = to[key];
+        ks[key * (dw + 1) + d] = off >= 0 ? k_pages[off + d0 + d] : 0.f;
+      }
+      if (d0 + kWideChunk >= D) {  // the last chunk: the V slice too
+        for (int i = threadIdx.x; i < kTile * cw; i += kThreads) {
+          const int key = i / cw, d = i % cw;
+          const int64_t off = to[key];
+          vs[key * cw + d] = off >= 0 ? v_pages[off + c0 + d] : 0.f;
+        }
+      }
+      __syncthreads();
+      const float* kr = ks + lane * (dw + 1);
+      const float* qw = qs + rw * dw;
+#pragma unroll 4
+      for (int d = 0; d < dw; ++d) {
+        const float kd = kr[d];
+#pragma unroll
+        for (int i = 0; i < R; ++i) s[i] = fmaf(qw[i * dw + d], kd, s[i]);
+      }
+    }
+
+    // online softmax in units of s * scale * log2(e); a masked key gives
+    // p = 0 exactly
+    const int t = w.s0 + it * kTile + lane;
+    float p[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float x = t <= lim[i] ? s[i] * w.c : -INFINITY;
+      const float m_new = fmaxf(m[i], warp_max(x));
+      const float alpha = exp2f(m[i] - m_new);
+      p[i] = exp2f(x - m_new);
+      l[i] = fmaf(l[i], alpha, warp_sum(p[i]));
+      m[i] = m_new;
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) acc[i][e] *= alpha;
+    }
+    const int n_here = min(kTile, n_keys - it * kTile);
+    for (int j = 0; j < n_here; ++j) {
+      float vd[kWideNE];
+#pragma unroll
+      for (int e = 0; e < kWideNE; ++e) {
+        const int d = lane + 32 * e;
+        vd[e] = d < cw ? vs[j * cw + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], j);
+#pragma unroll
+        for (int e = 0; e < kWideNE; ++e)
+          acc[i][e] = fmaf(pj, vd[e], acc[i][e]);
+      }
+    }
+  }
+
+  // the split's partial of each row that sees one of its keys
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (lim[i] < w.s0) continue;  // dead, or sees no key of the split
+    const int64_t at = w.s * w.NR + row_id(w, r0 + rw + i);
+    float* a = w.part_acc + at * D + c0;
+#pragma unroll
+    for (int e = 0; e < kWideNE; ++e) {
+      const int d = lane + 32 * e;
+      if (d < cw) a[d] = acc[i][e];
+    }
+    if (slice == 0 && lane == 0) {
+      w.part_ml[2 * at] = m[i];
+      w.part_ml[2 * at + 1] = l[i];
+    }
+  }
+}
+
+cudaError_t launch_wide(const float* q, const float* k, const float* v,
+                        const int* tables, const int* kv_lens,
+                        const int* q_lens, float* part_ml, float* part_acc,
+                        int B, int C, int Hq, int Hkv, int D, int ps, int W,
+                        int split, int n_splits, float scale,
+                        cudaStream_t stream) {
+  const size_t smem =
+      sizeof(int64_t) * static_cast<size_t>(split) +
+      sizeof(float) * (kWideRows * kWideChunk + kTile * (2 * kWideChunk + 1));
+  cudaError_t e = cudaFuncSetAttribute(
+      paged_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int n_slices = (D + kWideChunk - 1) / kWideChunk;
+  const int blocks = (C * (Hq / Hkv) + kWideRows - 1) / kWideRows;
+  dim3 grid(B * Hkv, blocks * n_slices, n_splits);
+  paged_wide_kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, v, tables, kv_lens, q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps,
+      W, split, scale, n_slices);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -679,11 +889,13 @@ int paged_attention_f32(const void* q, const void* k_pages,
                         int C, int Hq, int Hkv, int D, int ps, int W,
                         int split, int n_splits, float scale, void* stream) {
   if (B == 0 || C == 0) return cudaSuccess;
-  if (B < 0 || C < 0 || D <= 0 || D > 256 || Hkv <= 0 || Hq % Hkv ||
+  if (B < 0 || C < 0 || D <= 0 || Hkv <= 0 || Hq % Hkv ||
       ps <= 0 || W <= 0 || split <= 0 || split % kTile || split > 1024 ||
       static_cast<int64_t>(W) * ps > (int64_t{1} << 30) ||
       n_splits != (W * ps + split - 1) / split || n_splits > 65535 ||
-      (C * (Hq / Hkv) + kRows - 1) / kRows > 65535)
+      (C * (Hq / Hkv) + kRows - 1) / kRows > 65535 ||
+      static_cast<int64_t>((C * (Hq / Hkv) + kWideRows - 1) / kWideRows) *
+              ((D + kWideChunk - 1) / kWideChunk) > 65535)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launcher) {
@@ -705,8 +917,10 @@ int paged_attention_f32(const void* q, const void* k_pages,
     e = vec ? args(launch<64, true>) : args(launch<64, false>);
   else if (D <= 128)
     e = vec ? args(launch<128, true>) : args(launch<128, false>);
-  else
+  else if (D <= 256)
     e = vec ? args(launch<256, true>) : args(launch<256, false>);
+  else
+    e = args(launch_wide);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t NR = static_cast<int64_t>(B) * C * Hq;
   paged_merge_kernel<<<static_cast<unsigned>((NR + kWarps - 1) / kWarps),

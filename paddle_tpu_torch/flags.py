@@ -64,8 +64,9 @@ FLAGS: Dict[str, Any] = {
     # program build: an emitter failing meta-tensor shape inference with
     # an unexpected error raises instead of warning once per op type
     "strict_shape_inference": False,
-    # mixed precision (bf16 conv/matmul operands): the port's kernels take
-    # float32 only, so an op that would honour it raises "not yet ported"
+    # mixed precision: mul, matmul, conv2d and conv2d_bn_relu cast their
+    # float32 operands to bf16 (float32 accumulation, one rounding) and
+    # restore the result to float32; master weights stay float32
     "amp": False,
 }
 

@@ -159,6 +159,14 @@ def _set_tf32(value):
 # package's matmul_precision='highest' asks of XLA
 FULL_FLOAT32 = GlobalSwitch(_get_tf32, _set_tf32, ("highest", False))
 
+# cuBLAS reduces the partial sums of a bfloat16 product in float32 and
+# rounds once (PyTorch's default lets it reduce in bfloat16): what XLA
+# does with a bfloat16 dot, whatever the matmul precision
+F32_BF16_REDUCTION = GlobalSwitch(
+    lambda: torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+    lambda v: setattr(torch.backends.cuda.matmul,
+                      "allow_bf16_reduced_precision_reduction", v), False)
+
 # cuDNN picks only deterministic convolution algorithms
 DETERMINISTIC_CUDNN = GlobalSwitch(
     lambda: torch.backends.cudnn.deterministic,

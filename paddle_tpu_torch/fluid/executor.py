@@ -20,7 +20,10 @@ contract (reference python/paddle/fluid/executor.py:181).
   - Precision: a run honours ``FLAGS['matmul_precision']`` as the JAX
     executor does (executor.py:654); under the default 'highest' no
     cuBLAS or cuDNN product of the run takes TF32, whatever the caller's
-    torch settings, which are restored after the run.
+    torch settings, which are restored after the run. Every run also
+    holds cuBLAS's bfloat16 products to float32 reductions
+    (``core.F32_BF16_REDUCTION``; they run under FLAGS['amp']), as XLA
+    accumulates a bfloat16 dot, and restores the caller's setting.
   - Host io ops ``save``, ``save_combine``, ``load``, ``load_combine``
     (reference operators/save_op.cc, load_combine_op.cc) run on the host
     in program order, in the JAX package's file formats (``.npy`` per
@@ -312,7 +315,7 @@ class Executor:
         program = program or default_main_program()
         t0 = _time.perf_counter()
         with _tracing.span("executor.step", program_version=program._version), \
-                _matmul_precision():
+                _matmul_precision(), core.F32_BF16_REDUCTION.held():
             out = self._run_body(program, feed or {}, fetch_list or [],
                                  scope or global_scope(), return_numpy,
                                  use_program_cache)

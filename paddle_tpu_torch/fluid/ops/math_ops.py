@@ -1,29 +1,30 @@
 """GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
 matmul,sum,mean}_op.*). Plain large products stay ``torch.matmul``
-(cuBLAS on a card), as the JAX package leaves them to XLA."""
+(cuBLAS on a card), as the JAX package leaves them to XLA; under
+FLAGS['amp'] ``mul`` and ``matmul`` multiply bfloat16 operands and
+restore the result to float32 (``amp_operands``)."""
 from __future__ import annotations
 
 import math
 
 from ..registry import register_op
-from .common import many, one, refuse_amp
+from .common import amp_operands, many, one, restored
 
 
 @register_op("mul", ref="paddle/fluid/operators/mul_op.cc")
 def mul(ctx, ins, attrs):
-    refuse_amp("mul")
     x, y = one(ins, "X"), one(ins, "Y")
     xn = int(attrs.get("x_num_col_dims", 1))
     yn = int(attrs.get("y_num_col_dims", 1))
     x2 = x.reshape(math.prod(x.shape[:xn]), -1)
     y2 = y.reshape(math.prod(y.shape[:yn]), -1)
-    out = x2 @ y2
+    x2, y2, restore = amp_operands(x2, y2)
+    out = restored(x2 @ y2, restore)
     return {"Out": out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))}
 
 
 @register_op("matmul", ref="paddle/fluid/operators/matmul_op.cc")
 def matmul(ctx, ins, attrs):
-    refuse_amp("matmul")
     x, y = one(ins, "X"), one(ins, "Y")
     tx = bool(attrs.get("transpose_X", False))
     ty = bool(attrs.get("transpose_Y", False))
@@ -36,7 +37,8 @@ def matmul(ctx, ins, attrs):
         x = x.transpose(-1, -2)
     if ty:
         y = y.transpose(-1, -2)
-    out = x @ y
+    x, y, restore = amp_operands(x, y)
+    out = restored(x @ y, restore)
     if alpha != 1.0:
         out = out * alpha
     return {"Out": out}

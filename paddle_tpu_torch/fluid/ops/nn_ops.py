@@ -3,7 +3,9 @@ softmax,pool}_op.cc, conv_mkldnn_op.cc): the ones the Transformer, the
 image-classification training and the fused ResNet inference paths run.
 Layouts are NCHW, as in the JAX package. ``conv2d``, ``batch_norm`` and
 ``pool2d`` are what the JAX package leaves to XLA: here cuDNN
-(``F.conv2d``) and PyTorch's own CUDA ops on a card."""
+(``F.conv2d``) and PyTorch's own CUDA ops on a card. Under
+FLAGS['amp'] ``conv2d`` and ``conv2d_bn_relu`` take bfloat16 operands
+(``amp_operands``), as the JAX package's do."""
 from __future__ import annotations
 
 import contextlib
@@ -16,7 +18,7 @@ from ...kernels.conv_bn_relu import fused_conv_bn_relu
 from ...kernels.layer_norm import fused_layer_norm
 from .. import core
 from ..registry import register_op
-from .common import one, refuse_amp
+from .common import amp_operands, one, restored
 
 
 def _pair(v, n=2):
@@ -43,14 +45,19 @@ def _conv_algorithms(x):
 
 def _conv2d_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
     """dInput and dFilter in one ``convolution_backward`` call — what
-    autograd would call — under the forward's algorithm choice."""
-    x, w = fwd_ins["Input"][0], fwd_ins["Filter"][0]
+    autograd would call — under the forward's algorithm choice. Under
+    FLAGS['amp'] it runs on the forward's bfloat16 operands with the
+    cotangent rounded to bfloat16, and dInput and dFilter come back
+    float32: the JAX ``vjp`` through the casts of ``amp_operands``."""
+    x, w, restore = amp_operands(fwd_ins["Input"][0], fwd_ins["Filter"][0])
+    dy = out_grads["Output"][0].to(x.dtype)
     strides, paddings, dilations, groups = _conv_args(attrs)
     with _conv_algorithms(x):
         dx, dw, _ = torch.ops.aten.convolution_backward(
-            out_grads["Output"][0], x, w, None, strides, paddings,
-            dilations, False, [0, 0], groups, [True, True, False])
-    return {"GRAD@Input": dx, "GRAD@Filter": dw}
+            dy, x, w, None, strides, paddings, dilations, False, [0, 0],
+            groups, [True, True, False])
+    return {"GRAD@Input": restored(dx, restore),
+            "GRAD@Filter": restored(dw, restore)}
 
 
 @register_op("conv2d", grad=_conv2d_grad,
@@ -59,14 +66,13 @@ def conv2d(ctx, ins, attrs):
     """NCHW input, OIHW filter (``[F, C/groups, KH, KW]``), symmetric
     padding, as the JAX package's ``conv_general_dilated``. cuDNN on a
     card, in full float32 under the Executor's default
-    ``matmul_precision``."""
-    refuse_amp("conv2d")
-    x = one(ins, "Input")
+    ``matmul_precision``; under FLAGS['amp'] in bfloat16 (float32
+    accumulation), the output restored to float32."""
+    x, w, restore = amp_operands(one(ins, "Input"), one(ins, "Filter"))
     strides, paddings, dilations, groups = _conv_args(attrs)
     with _conv_algorithms(x):
-        out = F.conv2d(x, one(ins, "Filter"), None, strides, paddings,
-                       dilations, groups)
-    return {"Output": out}
+        out = F.conv2d(x, w, None, strides, paddings, dilations, groups)
+    return {"Output": restored(out, restore)}
 
 
 @register_op("batch_norm", no_grad=("Mean", "Variance"),
@@ -129,14 +135,23 @@ def conv2d_bn_relu(ctx, ins, attrs):
     device: the hand-written kernel on a card, its plain version on the
     CPU — the function the JAX package computes with its Pallas kernel
     under ``use_pallas_kernels=True`` and with XLA's conv otherwise.
-    There is no routing flag."""
-    refuse_amp("conv2d_bn_relu")
+    There is no routing flag.
+
+    Under FLAGS['amp'] X and Filter go to bfloat16 (``amp_operands``)
+    and K5's bfloat16 form runs: the product accumulates in float32, the
+    float32 Scale/Shift affine and the relu apply to the accumulator, and
+    the output rounds once to bfloat16, then is restored to float32. That
+    is the JAX package's Pallas branch (``use_pallas_kernels=True``,
+    ``paddle_tpu/fluid/ops/nn_ops.py:72-80``); its XLA branch rounds the
+    convolution's output to bfloat16 before the affine instead, a
+    different function that the port does not compute."""
+    x, w, restore = amp_operands(one(ins, "X"), one(ins, "Filter"))
     out = fused_conv_bn_relu(
-        one(ins, "X"), one(ins, "Filter"), one(ins, "Scale"),
-        one(ins, "Shift"), stride=int(attrs.get("stride", 1)),
+        x, w, one(ins, "Scale"), one(ins, "Shift"),
+        stride=int(attrs.get("stride", 1)),
         padding=int(attrs.get("padding", 0)),
         relu=bool(attrs.get("relu", True)))
-    return {"Out": out}
+    return {"Out": restored(out, restore)}
 
 
 def _ceil_extra(dim, k, s, p):

@@ -63,8 +63,10 @@ _SIGNATURES = {
     },
     "conv_bn_relu": {
         # x, w, scale, shift, y, N, C, H, W, F, KH, KW, stride, pad, OH,
-        # OW, relu, stream
+        # OW, relu, stream (float32 x, w, y; scale and shift float32)
         "conv_bn_relu_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
+        # the same with bfloat16 x, w and y
+        "conv_bn_relu_bf16": ([_P] * 5 + [_I] * 12 + [_P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -5,30 +5,38 @@
 ``y = act(conv2d(x, w, stride, padding) * scale + shift)`` in NCHW, with
 ``scale``/``shift`` the frozen batch-norm statistics folded into one
 per-output-channel affine (``fold_bn``) and ``act`` relu or the
-identity. Two implementations of the forward (float32):
+identity. Two implementations of the forward, for float32 ``x``/``w``
+and for bfloat16 ``x``/``w`` (``FLAGS['amp']``; ``scale``/``shift`` stay
+float32):
 
   - ``fused_conv_bn_relu_reference`` — the plain PyTorch version, what
     the TPU kernel computes: im2col with ``F.unfold`` in the channel-major
     patch order of the JAX ``_patches`` (``P [M, K]``, ``M = N*OH*OW``,
     ``K = C*KH*KW``), then ``P @ Wt``, then ``* scale + shift``, then
-    relu. The CPU tests run it, ``chip_smoke.py`` holds the kernel
-    against it, and build-time shape inference runs it on ``meta``
-    tensors.
-  - ``_conv_cuda`` — the hand-written Hopper kernel ``conv_bn_relu_f32``
-    in ``paddle_tpu_torch/csrc/conv_bn_relu.cu`` (K5), an implicit GEMM
-    that gathers its patch tiles straight from ``x``; built by ``nvcc``
+    relu, all on the float32 accumulator (bfloat16 operands upcast
+    exactly), then one rounding to ``x``'s dtype. The CPU tests run it,
+    ``chip_smoke.py`` holds the kernels against it, and build-time shape
+    inference runs it on ``meta`` tensors.
+  - ``_conv_cuda`` — the hand-written Hopper kernels (K5) in
+    ``paddle_tpu_torch/csrc/conv_bn_relu.cu``: ``conv_bn_relu_f32``
+    (3xTF32) for float32 and ``conv_bn_relu_bf16`` (bf16 ``mma.sync``,
+    float32 accumulation, a bfloat16 output) for bfloat16, implicit GEMMs
+    that gather their patch tiles straight from ``x``; built by ``nvcc``
     at first use and bound with ``ctypes``.
 
 ``fused_conv_bn_relu_fwd`` routes on the tensor's device only: a CPU
-tensor takes the plain version (counted in ``counts.plain_calls``), a
-CUDA tensor launches the kernel (``counts.kernel_launches``) or raises, a
-``meta`` tensor takes the plain version uncounted.
+tensor takes the plain version (counted in ``counts.plain_calls`` under
+the kernel of its dtype), a CUDA tensor launches the kernel of its dtype
+(``counts.kernel_launches``) or raises, a ``meta`` tensor takes the
+plain version uncounted.
 
 The backward is PyTorch code on every device, as the JAX package's is
 jnp under ``custom_vjp`` (``_fused_conv_bwd``): one shared GEMM
 ``A = Pᵀ·dZ`` gives both the weight and the scale cotangents, and dx goes
-through the adjoint of unfold (``F.fold``). ``fused_conv_bn_relu`` wraps
-the routed forward and that backward in one ``autograd.Function``.
+through the adjoint of unfold (``F.fold``), with ``dP`` rounded to the
+patches' dtype first, as the JAX backward rounds it.
+``fused_conv_bn_relu`` wraps the routed forward and that backward in one
+``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -41,10 +49,24 @@ from .counts import LaunchCounts
 
 __all__ = ["fused_conv_bn_relu", "fused_conv_bn_relu_fwd",
            "fused_conv_bn_relu_reference", "fused_conv_bn_relu_backward",
-           "fold_bn", "conv_out_hw", "counts", "KERNEL"]
+           "fold_bn", "conv_out_hw", "counts", "KERNEL", "KERNEL_BF16",
+           "kernel_for"]
 
 KERNEL = "conv_bn_relu_f32"
-counts = LaunchCounts(KERNEL)
+KERNEL_BF16 = "conv_bn_relu_bf16"
+# the kernel of each operand dtype
+_KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
+counts = LaunchCounts(KERNEL, KERNEL_BF16)
+
+
+def kernel_for(x, w):
+    """The kernel's name for operands ``x``/``w``: float32 or bfloat16,
+    the same for both; raises for any other dtype."""
+    name = _KERNELS.get(x.dtype)
+    if name is None or w.dtype != x.dtype:
+        raise TypeError(f"fused conv kernels take float32 or bfloat16 x "
+                        f"and w of one dtype, got {x.dtype} and {w.dtype}")
+    return name
 
 
 def conv_out_hw(h: int, w: int, kh: int, kw: int, stride: int,
@@ -88,28 +110,32 @@ def fused_conv_bn_relu_reference(x, w, scale, shift, stride: int,
 
 
 def _conv_cuda(x, w, scale, shift, stride: int, padding: int, relu: bool):
-    """Launch the hand-written kernel. Raises on what it does not take: a
-    device other than the one CUDA device of ``x``, a dtype other than
-    float32, a non-contiguous operand."""
+    """Launch the hand-written kernel of the operands' dtype:
+    ``conv_bn_relu_f32`` for float32 ``x``/``w``, ``conv_bn_relu_bf16``
+    (a bfloat16 ``y``) for bfloat16 ones; ``scale``/``shift`` are float32
+    for both. Raises on what they do not take: a device other than the
+    one CUDA device of ``x``, another dtype, a non-contiguous operand."""
     from ._build import launch
 
     _check(x, w, scale, shift)
+    kernel = kernel_for(x, w)
     for name, t in (("x", x), ("w", w), ("scale", scale), ("shift", shift)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused conv kernel takes float32 {name}, got "
-                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"fused conv kernel needs a contiguous {name}")
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused conv kernels take float32 {name}, got "
+                            f"{t.dtype}")
     n, c, h, wd = x.shape
     f, _, kh, kw = w.shape
     oh, ow = conv_out_hw(h, wd, kh, kw, stride, padding)
-    y = torch.empty((n, f, oh, ow), dtype=torch.float32, device=x.device)
-    launch("conv_bn_relu", KERNEL, x.device, x.data_ptr(), w.data_ptr(),
+    y = torch.empty((n, f, oh, ow), dtype=x.dtype, device=x.device)
+    launch("conv_bn_relu", kernel, x.device, x.data_ptr(), w.data_ptr(),
            scale.data_ptr(), shift.data_ptr(), y.data_ptr(), n, c, h, wd, f,
            kh, kw, int(stride), int(padding), oh, ow, int(bool(relu)))
-    counts.kernel_launches[KERNEL] += 1
+    counts.kernel_launches[kernel] += 1
     return y
 
 
@@ -122,7 +148,7 @@ def fused_conv_bn_relu_fwd(x, w, scale, shift, stride: int, padding: int,
     if kind == "cuda":
         return _conv_cuda(x, w, scale, shift, stride, padding, relu)
     if kind == "cpu":
-        counts.plain_calls[KERNEL] += 1
+        counts.plain_calls[_KERNELS.get(x.dtype, KERNEL)] += 1
     elif kind != "meta":
         raise ValueError(f"fused conv runs on cpu (plain version) or cuda "
                          f"(kernel), not {x.device}")
@@ -135,8 +161,10 @@ def fused_conv_bn_relu_backward(x, w, scale, y, dy, stride: int,
     """``(dx, dw, dscale, dshift)`` — the JAX package's ``_fused_conv_bwd``
     in PyTorch. One shared GEMM ``A = Pᵀ·dZ [K, F]`` gives
     ``dW = A * scale`` and ``dscale = sum_k Wt * A`` (the forward GEMM is
-    never recomputed); ``dx`` folds ``dP = dZ·scale·W`` back through the
-    adjoint of unfold."""
+    never recomputed); ``dx`` folds ``dP = dZ·scale·W``, rounded to x's
+    dtype as the JAX backward rounds it (``dp.astype(p.dtype)``), back
+    through the adjoint of unfold in float32, and rounds once more at the
+    end. For float32 operands both roundings are the identity."""
     n, _, h, wd = x.shape
     f, _, kh, kw = w.shape
     dz = dy.float()
@@ -150,7 +178,7 @@ def fused_conv_bn_relu_backward(x, w, scale, y, dy, stride: int,
     dscale = (wt * a).sum(dim=0)
     dshift = dz.sum(dim=0)
     dw = (a * s32[None, :]).T.reshape(w.shape)
-    dp = (dz * s32[None, :]) @ wt.T  # [M, K]
+    dp = ((dz * s32[None, :]) @ wt.T).to(x.dtype).float()  # [M, K]
     k = dp.shape[1]
     dx = F.fold(dp.reshape(n, -1, k).transpose(1, 2), (h, wd), (kh, kw),
                 padding=padding, stride=stride)

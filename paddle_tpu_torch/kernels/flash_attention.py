@@ -19,9 +19,10 @@ Two implementations of each pass:
     ``paddle_tpu_torch/csrc/flash_attention.cu``: ``flash_fwd_f32``
     (K2), ``flash_bwd_dkdv_f32`` (K3a) and ``flash_bwd_dq_f32`` (K3b),
     built by ``nvcc`` at first use and bound with ``ctypes``. They take
-    every head_dim up to ``MAX_HEAD_DIM`` (256): up to 128 on the tensor
-    cores (3xTF32), above that on CUDA cores; a head_dim that is not a
-    multiple of 4 is zero-padded to one (``pad_head_dim``, exact).
+    every head_dim: up to 128 on the tensor cores (3xTF32), above that on
+    CUDA cores (above 256 each block computes one 256-column slice of
+    the output); a head_dim that is not a multiple of 4 is zero-padded to
+    one (``pad_head_dim``, exact).
 
 The routers ``flash_attention_fwd`` and ``flash_attention_bwd`` route on
 the tensor's device only: a CPU tensor takes the plain version (counted
@@ -42,13 +43,11 @@ from .counts import LaunchCounts
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_reference", "flash_attention_bwd_reference",
-           "counts", "FWD", "BWD_DKDV", "BWD_DQ", "MAX_HEAD_DIM", "NEG_INF"]
+           "counts", "FWD", "BWD_DKDV", "BWD_DQ", "NEG_INF"]
 
 NEG_INF = -1e30
 FWD, BWD_DKDV, BWD_DQ = "flash_fwd_f32", "flash_bwd_dkdv_f32", \
     "flash_bwd_dq_f32"
-# head_dim bound of the kernels (the largest head_dim bucket, 256)
-MAX_HEAD_DIM = 256
 counts = LaunchCounts(FWD, BWD_DKDV, BWD_DQ)
 
 
@@ -114,10 +113,6 @@ def _check_cuda(**ts):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash attention kernels need a contiguous, "
                              f"16-byte aligned {name}")
-    d = ts["q"].shape[-1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash attention kernels take head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {d}")
     return dev
 
 

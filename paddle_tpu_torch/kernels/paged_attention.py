@@ -31,9 +31,10 @@ Two implementations of the same function:
     ``k_pages[tables]``, repeat for GQA, mask, dense softmax. The CPU
     tests run it, and ``chip_smoke.py`` holds the kernel against it.
   - ``_paged_attention_cuda`` — the hand-written Hopper kernels in
-    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only, any head_dim
-    up to 256), built by ``nvcc`` at first use and bound with
-    ``ctypes``: split-K over each slot's keys in fixed splits of
+    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only, any
+    head_dim; above 256 on a CUDA-core path whose blocks each compute
+    one 256-column slice of the output), built by ``nvcc`` at first use
+    and bound with ``ctypes``: split-K over each slot's keys in fixed splits of
     ``SPLIT_KEYS`` (a partial softmax state per split, into a scratch
     allocated here), then a merge kernel that combines a row's partials
     in a fixed order. One call of the C entry point launches both and
@@ -55,15 +56,13 @@ from .counts import LaunchCounts
 
 NEG_INF = -1e30
 
-# head_dim bound of the kernel (its largest head_dim bucket)
-MAX_HEAD_DIM = 256
 # keys per split of the kernel's split-K: a slot's keys [s * SPLIT_KEYS,
 # (s + 1) * SPLIT_KEYS) form split s whatever the batch, table width or
 # chunk, so a slot's output never depends on what else is in the call
 SPLIT_KEYS = 256  # chosen by k4_splits.py on an H100 (PERF.md)
 
 __all__ = ["paged_attention", "paged_attention_reference", "counts",
-           "KERNEL", "NEG_INF", "MAX_HEAD_DIM", "SPLIT_KEYS", "n_splits"]
+           "KERNEL", "NEG_INF", "SPLIT_KEYS", "n_splits"]
 
 KERNEL = "paged_attention_f32"
 counts = LaunchCounts(KERNEL)
@@ -164,8 +163,8 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
                           *, q_lens=None, scale: Optional[float] = None):
     """Launch the hand-written kernels. Raises on what they do not take:
     a non-CUDA or mixed device, a dtype other than float32, a
-    non-contiguous q or pool, a head_dim above ``MAX_HEAD_DIM``. Reads
-    no device value on the host (no sync)."""
+    non-contiguous q or pool. Reads no device value on the host (no
+    sync)."""
     from ._build import launch
 
     b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
@@ -185,9 +184,6 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
         if not t.is_contiguous():
             raise ValueError(f"paged attention kernel needs a contiguous "
                              f"{name}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"paged attention kernel takes head_dim <= "
-                         f"{MAX_HEAD_DIM}, got {d}")
     scale = float(scale) if scale else d ** -0.5
     # index vectors as contiguous int32 (the engine already hands them
     # over so; other callers pay one small conversion)

@@ -121,20 +121,6 @@ def test_router_cpu_counted_meta_uncounted_other_raises():
         k5.fused_conv_bn_relu_fwd(other, w, scale, shift, 1, 1, True)
 
 
-def test_amp_flag_refused_by_the_op():
-    from paddle_tpu_torch.flags import FLAGS
-
-    main, startup = tfluid.Program(), tfluid.Program()
-    FLAGS["amp"] = True
-    try:
-        with tunique.guard(), tfluid.program_guard(main, startup):
-            x = tlayers.data(name="x", shape=[3, 8, 8], dtype="float32")
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                tlayers.conv2d_bn_relu(x, num_filters=4, filter_size=3)
-    finally:
-        FLAGS["amp"] = False
-
-
 def _build_tiny(fluid, layers, unique_name):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 4

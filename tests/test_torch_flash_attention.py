@@ -5,8 +5,9 @@ On the CPU the routers run the plain versions of K2, K3a and K3b (the
 CUDA kernels are held against them on the card by chip_smoke.py). Cases:
 causal and not, S = 40 with blocks of 16 (not a multiple of the block),
 Sq != Sk both ways, head_dim 16, 64, 18 (not a multiple of 4: the card
-zero-pads it to 20, test_head_dim_padding_is_exact) and 256 (the largest
-bucket, CUDA-core kernels on the card). Tolerance: 5e-6 absolute on O,
+zero-pads it to 20, test_head_dim_padding_is_exact), 256 (the largest
+bucket, CUDA-core kernels on the card) and 264 (above 256: the card's
+CUDA-core kernels compute it in 256-column slices). Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
 
@@ -35,7 +36,7 @@ jfa = importlib.import_module(
 
 TOL = 5e-6
 CASES = [(40, 40, 16), (40, 40, 64), (40, 24, 16), (24, 40, 64),
-         (40, 40, 18), (40, 24, 256)]
+         (40, 40, 18), (40, 24, 256), (24, 40, 264)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -89,14 +90,20 @@ def test_routers_on_meta_and_kernel_refusals():
     assert tfa.counts.plain_calls == before
     with pytest.raises(TypeError, match="float32"):
         tfa._fwd_cuda(q.to(torch.bfloat16), k, k, False, 0.25)
-    # every head_dim up to 256 passes the kernels' checks (132 and 18
-    # included); above 256 the wrapper refuses, naming the limit
-    for d in (132, 18, 256):
+    # every head_dim passes the kernels' checks (132 and 18 included, and
+    # 264 and 512 above 256, which the card computes in column slices);
+    # the meta and CPU routes take head_dim 264
+    for d in (132, 18, 256, 264, 512):
         wide = torch.empty(4, 40, d, device="meta")
         assert tfa._check_cuda(q=wide, k=wide, v=wide) == wide.device
     wide = torch.empty(4, 40, 264, device="meta")
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        tfa._fwd_cuda(wide, wide, wide, False, 0.25)
+    o, lse = tfa.flash_attention_fwd(wide, wide, wide, False, 0.25)
+    assert (o.shape, lse.shape) == ((4, 40, 264), (4, 40))
+    assert tfa.counts.plain_calls == before
+    cpu = torch.ones(2, 5, 264)
+    o, lse = tfa.flash_attention_fwd(cpu, cpu, cpu, True, 0.25)
+    assert o.shape == (2, 5, 264) and torch.equal(o, cpu)
+    assert tfa.counts.plain_calls[tfa.FWD] == before[tfa.FWD] + 1
 
 
 @pytest.mark.parametrize("d", [18, 1, 131])

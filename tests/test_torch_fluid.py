@@ -334,31 +334,3 @@ def test_shape_inference_rejects_warns_or_raises(monkeypatch):
     monkeypatch.setitem(FLAGS, "strict_shape_inference", True)
     with pytest.raises(RuntimeError, match="strict_shape_inference"):
         blk.append_op(type=name, inputs={"X": [x]}, outputs={"Out": ["y"]})
-
-
-@pytest.mark.parametrize("op", ["mul", "matmul"])
-def test_amp_flag_refused_by_mul_and_matmul(op):
-    """The JAX package casts mul/matmul operands to bf16 under
-    FLAGS['amp']; the port computes float32 only, so building either op
-    with the flag on raises "not yet ported" instead of silently
-    computing float32. With the flag off the same build succeeds."""
-    from paddle_tpu_torch.flags import FLAGS
-
-    def build():
-        main, startup = tfluid.Program(), tfluid.Program()
-        with tunique.guard(), tfluid.program_guard(main, startup):
-            x = tlayers.data(name="x", shape=[8], dtype="float32")
-            y = tlayers.data(name="y", shape=[8], dtype="float32")
-            if op == "mul":
-                w = tlayers.create_parameter(shape=[8, 4], dtype="float32")
-                return tlayers.mul(x, w)
-            return tlayers.matmul(x, y, transpose_y=True)
-
-    FLAGS["amp"] = True
-    try:
-        with pytest.raises(NotImplementedError,
-                           match=f"{op} .*not yet ported"):
-            build()
-    finally:
-        FLAGS["amp"] = False
-    assert build() is not None

@@ -6,8 +6,9 @@ interpret mode, on the same seeded numpy inputs.
 Tolerance: atol 1e-5, rtol 1e-5 in float32 — the same function, with
 sums taken in another order. Dead slots and dead query lanes must be
 exactly 0 in every implementation. Cases include head_dim 18 (not a
-multiple of 4) and 256 (the kernel's largest bucket) and a long context
-of five key splits.
+multiple of 4), 256 (the kernel's largest bucket), 264 (above 256: the
+card's CUDA-core path computes it in 256-column slices) and a long
+context of five key splits.
 
 The hand-written CUDA kernels run only on a card; ``chip_smoke.py``
 holds them against the plain version there. Here the router must take
@@ -76,6 +77,11 @@ CASES = {
                           kv_lens=[30, 5, 0], q_lens=[5, 3, 0]),
     "chunk_gqa2_d256": dict(B=2, C=3, Hq=4, Hkv=2, D=256, ps=8, W=3, P=8,
                             kv_lens=[20, 2], q_lens=[3, 1]),
+    # head_dim above 256
+    "chunk_gqa2_d264": dict(B=3, C=3, Hq=4, Hkv=2, D=264, ps=8, W=5, P=12,
+                            kv_lens=[35, 3, 0], q_lens=[3, 2, 0]),
+    "single_mha_d264": dict(B=2, C=None, Hq=2, Hkv=2, D=264, ps=4, W=6,
+                            P=14, kv_lens=[0, 22], q_lens=None),
     # a long context: W * ps = 1152 keys, five splits of SPLIT_KEYS
     "chunk_long_ps16": dict(B=4, C=4, Hq=4, Hkv=2, D=16, ps=16, W=72,
                             P=80, kv_lens=[1100, 257, 0, 768],
@@ -143,10 +149,14 @@ def test_shape_checks_refuse_bad_layouts():
         pa.paged_attention(args[0][:, None], *args[1:])
     with pytest.raises(ValueError, match="not a multiple"):
         pa.paged_attention(args[0][:, :3], *args[1:])
-    wide = torch.zeros(4, 4, 264)
-    pool = torch.zeros(20, 4, 4, 264)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        pa._paged_attention_cuda(wide, pool, pool, *args[3:])
+    # head_dim above 256 is taken: the CPU route and the plain version
+    # on meta tensors give the output's shape
+    wide = torch.ones(4, 4, 264)
+    pool = torch.ones(20, 4, 4, 264)
+    out = pa.paged_attention(wide, pool, pool, *args[3:])
+    assert out.shape == (4, 4, 264)
+    meta = [t.to("meta") for t in (wide, pool, pool, *args[3:])]
+    assert pa.paged_attention_reference(*meta).shape == (4, 4, 264)
 
 
 def test_kernels_import_without_nvcc_and_build_fails_clearly(monkeypatch):

@@ -133,20 +133,6 @@ def test_a_conv2d_matches_jax(case):
     assert out["Output"].shape == (n, f, oh, oh)
 
 
-def test_a_conv2d_refuses_amp(monkeypatch):
-    """The JAX package casts conv2d's operands to bf16 under
-    FLAGS['amp']; the port's conv2d computes float32 only and refuses
-    the flag at build time."""
-    from paddle_tpu_torch.flags import FLAGS
-
-    monkeypatch.setitem(FLAGS, "amp", True)
-    main, startup = tfluid.Program(), tfluid.Program()
-    with tunique.guard(), tfluid.program_guard(main, startup):
-        x = tlayers.data(name="x", shape=[3, 8, 8], dtype="float32")
-        with pytest.raises(NotImplementedError, match="conv2d .*not yet"):
-            tlayers.conv2d(x, num_filters=4, filter_size=3)
-
-
 BNS = [  # shape, layout, is_test
     ((3, 4, 5, 6), "NCHW", False),
     ((3, 4, 5, 6), "NCHW", True),
