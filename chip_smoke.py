@@ -150,6 +150,30 @@ and prints no result):
            same launch counts as train (K1-K3b stay float32), the loss
            falling, every parameter float32; p50 step ms, tokens/s.
 
+  bf16 kernels
+           the bfloat16 forms of K2, K3a and K3b (flash_fwd_bf16,
+           flash_bwd_dkdv_bf16, flash_bwd_dq_bf16: the TPU kernels'
+           bfloat16 branch) against their plain bf16 versions: O, dQ, dK,
+           dV within BF16_FLASH_ULPS ulp of the tensor's max and at most
+           BF16_FLASH_SHARE of the elements differing, LSE within TOL;
+           full and causal, Sq != Sk, Sk = 200, head_dim 8, 64, 72, 128,
+           136, 256, 264; two launches bitwise equal; timed at [BH=128,
+           S=512, D=64] full and causal and [BH=8, S=2048 and 4096, D=64]
+           causal beside their bounds, K2 and the whole backward in turns
+           with SDPA's flash backend in bf16.
+  flash bf16 bench
+           the JAX flash benchmark's configuration through the port's
+           flash_attention: bf16 [1, S, 8, 64], S 2048 and 4096, causal,
+           forward + backward of sum(out), in turns with the float32
+           kernels on the same values (one launch of each bf16 kernel).
+  train bf16 attn
+           the slice's Fluid path: Transformer-base's self-attention
+           layer (x [16, 512, 512], three fc, cast to bf16, causal
+           ring_attention, cast back, fc, squared error), Adam(1e-4), 5
+           steps on the card: 5 launches of each bf16 kernel, no f32 flash
+           launch, no plain call; losses against the port's CPU route
+           and against the same program without the casts.
+
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512.
 
@@ -242,10 +266,16 @@ def build_phase():
     return ptxas
 
 
+# template arguments of a mangled kernel name: an int or bool literal,
+# float, or __nv_bfloat16
+_TEMPLATE_ARG = r"L[ib](-?\d+)E|(f)|\d+(__nv_bfloat16)"
+
+
 def _kernel_name(mangled):
-    """``name<int args>`` of a mangled ``..._kernel`` entry point: the
-    length-prefixed name that ends in ``_kernel``, and the ``Li<n>E``
-    template arguments after it; the mangled name if there is none."""
+    """``name<args>`` of a mangled ``..._kernel`` entry point: the
+    length-prefixed name that ends in ``_kernel``, and the template
+    arguments after it (``Li<n>E``, ``Lb<n>E``, ``f`` for float,
+    ``13__nv_bfloat16``); the mangled name if there is none."""
     import re
 
     for i in range(len(mangled)):
@@ -256,10 +286,12 @@ def _kernel_name(mangled):
         name = mangled[end:end + int(m.group())]
         if name.endswith("_kernel") and name[:1].isalpha():
             rest = mangled[end + len(name):]
-            args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
-            return name + ("<" + ",".join(re.findall(r"L[ib](-?\d+)E",
-                                                      args.group(1))) + ">"
-                           if args else "")
+            args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", rest)
+            if not args:
+                return name
+            vals = [n or ("float" if f else "bf16") for n, f, _ in
+                    re.findall(_TEMPLATE_ARG, args.group(1))]
+            return f"{name}<{','.join(vals)}>"
     return mangled
 
 
@@ -738,11 +770,11 @@ def _flash_bounds(bh, sq, sk, d, causal):
 SDPA_LIBRARY = "sdpa efficient (3xTF32 mma.sync)"
 
 
-def _sdpa(torch, c, causal, heads=N_HEADS):
-    """(forward, backward) calls of SDPA, pinned to its memory-efficient
-    backend, on [B, H, S, D] views of a case: the yardstick, never used
-    by the port. The backward computes dQ, dK and dV from one retained
-    graph."""
+def _sdpa(torch, c, causal, heads=N_HEADS, backend="EFFICIENT_ATTENTION"):
+    """(forward, backward) calls of SDPA, pinned to one backend (its
+    memory-efficient one unless named), on [B, H, S, D] views of a case:
+    the yardstick, never used by the port. The backward computes dQ, dK
+    and dV from one retained graph."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -751,15 +783,16 @@ def _sdpa(torch, c, causal, heads=N_HEADS):
     q4, k4, v4 = (t.reshape(b, heads, s, d).detach().requires_grad_()
                   for t in (c["q"], c["k"], c["v"]))
     do4 = c["do"].reshape(b, heads, s, d)
+    pinned = getattr(SDPBackend, backend)
 
     def fwd():
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel(pinned):
             return F.scaled_dot_product_attention(q4, k4, v4,
                                                   is_causal=causal)
     out4 = fwd()
 
     def bwd():
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel(pinned):
             return torch.autograd.grad(out4, (q4, k4, v4), do4,
                                        retain_graph=True)
     return fwd, bwd
@@ -1386,9 +1419,10 @@ def _kernel_counts():
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     launches, plain = {}, {}
-    for mod in (ln, fa, pa, k5):
-        launches.update(mod.counts.kernel_launches)
-        plain.update(mod.counts.plain_calls)
+    for tally in (ln.counts, fa.counts, fa.counts_bf16, pa.counts,
+                  k5.counts):
+        launches.update(tally.kernel_launches)
+        plain.update(tally.plain_calls)
     return launches, plain
 
 
@@ -1398,8 +1432,9 @@ def _reset_kernel_counts():
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
 
-    for mod in (ln, fa, pa, k5):
-        mod.counts.reset()
+    for tally in (ln.counts, fa.counts, fa.counts_bf16, pa.counts,
+                  k5.counts):
+        tally.reset()
 
 
 def train_phase(torch):
@@ -2615,6 +2650,15 @@ def _amp_conv_library(torch, x, w, sc, sh, s, p, relu):
     return run
 
 
+def _bf16_ulps(got, want):
+    """(max abs error, in bf16 ulps of want's largest |value|, share of
+    elements that differ)."""
+    vmax = want.float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(vmax)) - 7) if vmax else 2.0 ** -133
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / ulp, (got != want).float().mean().item()
+
+
 def _hold_bf16(torch, k5, args, what):
     """conv_bn_relu_bf16 against its plain version on ``args``: a
     bfloat16 output of the plain version's shape, finite, within
@@ -2623,15 +2667,13 @@ def _hold_bf16(torch, k5, args, what):
     got = k5._conv_cuda(*args)
     want = k5.fused_conv_bn_relu_reference(*args)
     torch.cuda.synchronize()
-    vmax = want.float().abs().max().item()
-    ulp = 2.0 ** (math.floor(math.log2(vmax)) - 7) if vmax else 2.0 ** -133
-    err = (got.float() - want.float()).abs().max().item()
+    err, ulps, share = _bf16_ulps(got, want)
     if got.dtype != torch.bfloat16 or got.shape != want.shape or \
-            not torch.isfinite(got).all() or err > AMP_ULPS * ulp:
+            not torch.isfinite(got).all() or ulps > AMP_ULPS:
         raise RuntimeError(f"K5 bf16 {what}: {got.dtype} {tuple(got.shape)},"
-                           f" max abs err {err:.3g} = {err / ulp:.3g} ulps "
+                           f" max abs err {err:.3g} = {ulps:.3g} ulps "
                            f"of the output's max > {AMP_ULPS}")
-    return err, err / ulp, (got != want).float().mean().item()
+    return err, ulps, share
 
 
 def amp_kernels_phase(torch):
@@ -3019,6 +3061,386 @@ def train_amp_phase(torch):
     return train
 
 
+# --- bf16 attention: the bfloat16 forms of K2, K3a, K3b ----------------
+
+# bfloat16 kernels against their plain versions on the card: both round
+# the same float32 values to bfloat16 and their float32 sums run in other
+# orders, so an element may land one bfloat16 step apart near a rounding
+# boundary: at most BF16_FLASH_ULPS ulps of the tensor's largest |value|,
+# and at most BF16_FLASH_SHARE of the elements differing at all
+BF16_FLASH_ULPS = 1
+BF16_FLASH_SHARE = 0.01
+FLASH_BF16_PEAK = ("products in bf16 on the tensor cores (flops over 989 "
+                   "TFLOP/s dense) + ~5 float32 flops a pair over 67 "
+                   "TFLOP/s; bf16 q/k/v/dO/outputs and float32 lse/delta "
+                   "over 3.35 TB/s")
+SDPA_FLASH_LIBRARY = "sdpa flash backend, bf16"
+# benchmarks/flash_attention_bench.py: B=1, H=8, D=64, causal, bf16
+FLASH_BENCH_HEADS, FLASH_BENCH_D, FLASH_BENCH_SEQS = 8, 64, (2048, 4096)
+# train bf16 attn: bf16 against the same program in float32, of the f32
+# loss (q, k, v and the attention output rounded to bfloat16)
+BF16_ATTN_LOSS_U = 8
+# ... and the card against the port's CPU route (the same function;
+# float32 sums in other orders, a bfloat16 element may round the other way)
+BF16_ATTN_CPU_RTOL = 1e-4
+
+
+def _flash_bf16_bounds(bh, sq, sk, d, causal):
+    """``_flash_bounds``' count with bf16 q, k, v, dO and outputs (2 bytes)
+    and float32 lse and delta, the products over the bf16 tensor-core
+    peak and ~5 float32 flops a pair over the float32 peak."""
+    pairs = bh * _flash_pairs(sq, sk, causal)
+    qo, kv, rows = bh * sq * d * 2, bh * sk * d * 2, bh * sq * 4
+    out = {}
+    for name, nbytes, products in (
+            ("flash_fwd_bf16", 2 * qo + 2 * kv + rows, 4 * d),
+            ("flash_bwd_dkdv_bf16", 2 * qo + 4 * kv + 2 * rows, 8 * d),
+            ("flash_bwd_dq_bf16", 3 * qo + 2 * kv + 2 * rows, 6 * d)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (pairs * products / BF16_FLOP_PER_S
+                 + pairs * 5 / F32_FLOP_PER_S)
+        out[name] = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "bound_peak": FLASH_BF16_PEAK}
+    return out
+
+
+def _flash_bf16_case(torch, rng, bh, sq, sk, d, causal):
+    """_flash_case in bfloat16: seeded q/k/v/dO, the plain bf16 forward's
+    O and LSE, delta from the bf16 O as _Flash.backward computes it."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v = (_randn(torch, rng, bh, s, d).bfloat16() for s in (sq, sk, sk))
+    do = _randn(torch, rng, bh, sq, d).bfloat16()
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    return dict(q=q, k=k, v=v, do=do, o=o, lse=lse, delta=delta,
+                causal=causal, scale=scale)
+
+
+def bf16_kernels_phase(torch):
+    """flash_fwd_bf16 (K2), flash_bwd_dkdv_bf16 (K3a) and flash_bwd_dq_bf16
+    (K3b) against their plain bf16 versions on the card: O, dQ, dK, dV
+    bfloat16 within BF16_FLASH_ULPS ulps of the tensor's max with at most
+    BF16_FLASH_SHARE of the elements differing, LSE float32 within TOL;
+    full and causal, Sq != Sk both ways, Sk = 200 (a partial 128-key
+    softmax block), head_dim 8, 64, 72, 128 (tensor cores), 136, 256, 264
+    (CUDA cores; 264 in 256-column slices); two launches bitwise equal.
+    Timed at Transformer-base's attention ([BH=128, S=512, D=64], full and
+    causal) and the flash benchmark's ([BH=8, S=2048, 4096, D=64],
+    causal): each kernel and the plain versions, K2 and SDPA's flash
+    forward in turns, the whole backward (delta + K3a + K3b) and SDPA's
+    flash backward in turns, beside the bounds."""
+    phase("bf16 kernels")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    rng = np.random.RandomState(2029)
+    names = (fa.FWD_BF16, fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16)
+    worst = {n: {"max_abs_err": 0.0, "ulps": 0.0, "differing": 0.0}
+             for n in names}
+
+    def hold(kernel, what, got, want):
+        err, ulps, share = _bf16_ulps(got, want)
+        if got.dtype != torch.bfloat16 or got.shape != want.shape or \
+                not torch.isfinite(got.float()).all() or \
+                ulps > BF16_FLASH_ULPS or share > BF16_FLASH_SHARE:
+            raise RuntimeError(
+                f"{kernel} {what}: {got.dtype} {tuple(got.shape)}, max abs "
+                f"err {err:.3g} = {ulps:.3g} ulps of the max (> "
+                f"{BF16_FLASH_ULPS}?), {share:.3g} of elements differ (> "
+                f"{BF16_FLASH_SHARE}?)")
+        w = worst[kernel]
+        for key, x in (("max_abs_err", err), ("ulps", ulps),
+                       ("differing", share)):
+            w[key] = max(w[key], x)
+        return ulps, share
+
+    cases = [(4, 256, 256, 64, False), (4, 256, 256, 64, True),
+             (4, 200, 136, 8, True), (4, 136, 200, 72, False),
+             (4, 256, 200, 72, True), (2, 300, 200, 128, True),
+             (2, 200, 300, 128, False), (2, 200, 300, 136, False),
+             (2, 150, 200, 256, True), (2, 200, 150, 264, False),
+             (2, 256, 200, 264, True), (128, SEQ, SEQ, 64, False),
+             (128, SEQ, SEQ, 64, True)]
+    for bh, sq, sk, d, causal in cases:
+        c = _flash_bf16_case(torch, rng, bh, sq, sk, d, causal)
+        o, lse = fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 causal, c["scale"])
+        dk, dv = fa._bwd_dkdv_cuda(*bargs)
+        dq = fa._bwd_dq_cuda(*bargs)
+        rq, rk, rv = fa.flash_attention_bwd_reference(*bargs)
+        torch.cuda.synchronize()
+        lse_err = (lse - c["lse"]).abs().max().item()
+        if lse.dtype != torch.float32 or lse_err > TOL:
+            raise RuntimeError(f"{fa.FWD_BF16} LSE: max abs err "
+                               f"{lse_err:.3g} > {TOL}")
+        got = [hold(fa.FWD_BF16, "O", o, c["o"]),
+               hold(fa.BWD_DQ_BF16, "dQ", dq, rq),
+               hold(fa.BWD_DKDV_BF16, "dK", dk, rk),
+               hold(fa.BWD_DKDV_BF16, "dV", dv, rv)]
+        log(f"  flash bf16 bh={bh} sq={sq} sk={sk} d={d} causal={causal}: "
+            f"LSE max abs err {lse_err:.3g}; O/dQ/dK/dV ulps of max, share "
+            f"differing " + " / ".join(f"{u:.3g} {s:.3g}" for u, s in got))
+
+    for causal in (False, True):
+        c = _flash_bf16_case(torch, rng, 128, SEQ, SEQ, 64, causal)
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 causal, c["scale"])
+        first, second = (
+            fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
+            + fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+            for _ in range(2))
+        if not all(torch.equal(x, y) for x, y in zip(first, second)):
+            raise RuntimeError(f"bf16 K2/K3a/K3b causal={causal}: two "
+                               f"launches on the same inputs differ")
+    log("  flash bf16 forward and backward: two launches bitwise equal "
+        "(full and causal)")
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    rows = {n: {} for n in names}
+    for bh, s, causal in ((128, SEQ, False), (128, SEQ, True),
+                          (8, 2048, True), (8, 4096, True)):
+        d = 64
+        c = _flash_bf16_case(torch, rng, bh, s, s, d, causal)
+        args = (c["q"], c["k"], c["v"], causal, c["scale"])
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 causal, c["scale"])
+        bounds = _flash_bf16_bounds(bh, s, s, d, causal)
+        sdpa, sdpa_bwd = _sdpa(torch, c, causal, backend="FLASH_ATTENTION")
+
+        def port_bwd():  # as _Flash.backward runs it
+            delta = (c["do"].float() * c["o"].float()).sum(dim=-1)
+            return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                          c["lse"], delta, causal,
+                                          c["scale"])
+        key = f"bh{bh}_s{s}_{'causal' if causal else 'full'}"
+        shape = f"[BH={bh}, S={s}, D={d}] bf16 causal={causal}"
+        fwd_ms, sdpa_ms, fwd_turns = _in_turns(
+            torch, lambda: fa._fwd_cuda(*args), sdpa, flush)
+        bwd_ms, sdpa_bwd_ms, bwd_turns = _in_turns(torch, port_bwd,
+                                                   sdpa_bwd, flush)
+        plain_bwd = _time_ms(
+            torch, lambda: fa.flash_attention_bwd_reference(*bargs), flush)
+        timed = {
+            fa.FWD_BF16: (fwd_ms, _time_ms(
+                torch, lambda: fa.flash_attention_fwd_reference(*args),
+                flush), sdpa_ms),
+            fa.BWD_DKDV_BF16: (_time_ms(
+                torch, lambda: fa._bwd_dkdv_cuda(*bargs), flush),
+                plain_bwd, sdpa_bwd_ms),
+            fa.BWD_DQ_BF16: (_time_ms(
+                torch, lambda: fa._bwd_dq_cuda(*bargs), flush), plain_bwd,
+                sdpa_bwd_ms),
+        }
+        for name, (ms, plain_ms, lib_ms) in timed.items():
+            rows[name][key] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library": SDPA_FLASH_LIBRARY, **bounds[name],
+                "shape": shape}
+        rows[fa.FWD_BF16][key]["in_turns"] = {
+            "port_ms": fwd_ms, "sdpa_ms": sdpa_ms,
+            "ratio_port_over_sdpa": fwd_ms / sdpa_ms, "turns_ms": fwd_turns}
+        rows[fa.BWD_DKDV_BF16][key]["whole_backward"] = {
+            "port_ms": bwd_ms, "sdpa_ms": sdpa_bwd_ms,
+            "ratio_port_over_sdpa": bwd_ms / sdpa_bwd_ms,
+            "turns_ms": bwd_turns,
+            "note": "delta + K3a + K3b against SDPA's flash backward "
+                    "(dQ, dK, dV), in turns"}
+        rows[fa.BWD_DKDV_BF16][key]["library_note"] = \
+            "SDPA backward: computes dQ, dK and dV (K3a + K3b together)"
+        rows[fa.BWD_DQ_BF16][key]["library_note"] = \
+            "counted with flash_bwd_dkdv_bf16"
+        for name in (fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16):
+            rows[name][key]["plain_note"] = ("the plain backward computes "
+                                             "dQ, dK and dV together")
+        log(f"  time {shape}: K2 {fwd_ms:.4f} ms vs SDPA flash "
+            f"{sdpa_ms:.4f} (ratio {fwd_ms / sdpa_ms:.3f}); whole backward "
+            f"{bwd_ms:.4f} vs {sdpa_bwd_ms:.4f} (ratio "
+            f"{bwd_ms / sdpa_bwd_ms:.3f}); K3a "
+            f"{timed[fa.BWD_DKDV_BF16][0]:.4f}, K3b "
+            f"{timed[fa.BWD_DQ_BF16][0]:.4f}; bounds "
+            + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names))
+        del sdpa, sdpa_bwd, c
+    del flush
+    for name in names:
+        rows[name]["worst_vs_plain"] = worst[name]
+        log(f"  time {name}: " + json.dumps(rows[name]))
+    return {n: worst[n]["max_abs_err"] for n in names}, rows
+
+
+def flash_bf16_bench_phase(torch):
+    """The JAX flash benchmark's configuration (flash_attention_bench.py:
+    B=1, H=8, D=64, causal, bf16, q = k = v from seed 0) through the
+    port's entry point flash_attention: forward + backward of
+    sum(out.float()), timed with CUDA events (L2 flushed), in turns with
+    the float32 kernels on the same values widened. The bf16 kernels'
+    launch counts show the entry point went through them."""
+    phase("flash bf16 bench")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    out = {}
+    for s in FLASH_BENCH_SEQS:
+        x = np.random.RandomState(0).randn(1, s, FLASH_BENCH_HEADS,
+                                           FLASH_BENCH_D)
+        base = torch.from_numpy(x.astype(np.float32)).cuda()
+        by_dtype = {}
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (base.to(dt).requires_grad_() for _ in range(3))
+
+            def step(q=q, k=k, v=v):
+                o = fa.flash_attention(q, k, v, causal=True)
+                return torch.autograd.grad(o.float().sum(), (q, k, v))
+            by_dtype[dt] = step
+        _reset_kernel_counts()
+        grads = by_dtype[torch.bfloat16]()
+        torch.cuda.synchronize()
+        launches, plain = _kernel_counts()
+        want = {fa.FWD_BF16: 1, fa.BWD_DKDV_BF16: 1, fa.BWD_DQ_BF16: 1}
+        if {n: launches[n] for n in want} != want or any(plain.values()) \
+                or any(launches[n] for n in (fa.FWD, fa.BWD_DKDV,
+                                              fa.BWD_DQ)):
+            raise RuntimeError(f"flash bf16 bench S={s}: launches "
+                               f"{launches}, plain {plain}")
+        if not all(g.dtype == torch.bfloat16 and torch.isfinite(
+                g.float()).all() for g in grads):
+            raise RuntimeError(f"flash bf16 bench S={s}: gradients not "
+                               f"finite bf16")
+        bf_ms, f32_ms, turns = _in_turns(torch, by_dtype[torch.bfloat16],
+                                         by_dtype[torch.float32], flush)
+        out[s] = {"shape": f"[1, {s}, {FLASH_BENCH_HEADS}, "
+                           f"{FLASH_BENCH_D}] causal",
+                  "fwd_bwd_ms_bf16": bf_ms, "fwd_bwd_ms_f32": f32_ms,
+                  "ratio_bf16_over_f32": bf_ms / f32_ms, "turns_ms": turns}
+        log(f"  flash bf16 bench S={s}: forward + backward bf16 "
+            f"{bf_ms:.4f} ms, f32 kernels {f32_ms:.4f} ms (in turns)")
+    del flush
+    return out
+
+
+def build_bf16_attention(heads, seq, dh, bf16, lr):
+    """Transformer-base's self-attention layer as a Fluid program
+    (models/transformer.py _mha, seq_parallel form): q, k, v fc
+    projections without bias (num_flatten_dims=2) reshaped to [B, S, H,
+    dh], cast to bfloat16 (unless ``bf16`` is False), causal
+    ring_attention, cast back, reshape, the output fc, a squared-error
+    loss against a target, Adam(lr). Returns (main, startup, cost)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+
+    d = heads * dh
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[seq, d], dtype="float32")
+        y = layers.data(name="y", shape=[seq, d], dtype="float32")
+
+        def proj(inp, pname):
+            return layers.fc(input=inp, size=d, num_flatten_dims=2,
+                             bias_attr=False, param_attr=fluid.ParamAttr(
+                                 name=f"attn.{pname}.w"))
+        qkv = [layers.reshape(proj(x, n), shape=[0, 0, heads, dh])
+               for n in "qkv"]
+        if bf16:
+            qkv = [layers.cast(t, "bfloat16") for t in qkv]
+        ctx = layers.ring_attention(*qkv, causal=True)
+        if bf16:
+            ctx = layers.cast(ctx, "float32")
+        out = proj(layers.reshape(ctx, shape=[0, 0, d]), "out")
+        cost = layers.mean(layers.square_error_cost(input=out, label=y))
+        fluid.optimizer.Adam(lr).minimize(cost)
+    return main, startup, cost
+
+
+def train_bf16_attn_phase(torch):
+    """The slice's Fluid path: Transformer-base's self-attention layer at
+    full width (x [16, 512, 512], 8 heads of 64, causal) with its
+    attention core cast to bfloat16, Adam(1e-4), 5 steps on the card on
+    one seeded batch. Counters zeroed just before the steps and read just
+    after: 5 launches of each bf16 flash kernel, no float32 flash launch,
+    no plain call; one more step profiled. Then the same 5 steps from the
+    same state on the port's CPU route (losses within BF16_ATTN_CPU_RTOL) and of the same
+    program without the casts on the card (float32 attention; losses
+    within BF16_ATTN_LOSS_U bf16 steps, U = 2^-8, relative)."""
+    phase("train bf16 attn")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    heads, dh = N_HEADS, D_MODEL // N_HEADS
+    main, startup, cost = build_bf16_attention(heads, SEQ, dh, True, 1e-4)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope, f32_scope = fluid.Scope(), _scope_copy(fluid, scope)
+    for n in scope.var_names():
+        cpu_scope.set_var(n, scope.find_var(n).cpu())
+    rng = np.random.RandomState(4)
+    feed = {k: rng.randn(TRAIN_BATCH, SEQ, D_MODEL).astype(np.float32)
+            for k in ("x", "y")}
+    dfeed = {k: torch.from_numpy(v).cuda() for k, v in feed.items()}
+
+    # the main path's window: counters to 0, the steps, counters read
+    torch.cuda.reset_peak_memory_stats()
+    _reset_kernel_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(_one_step(exe, main, dfeed, cost, scope))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, plain = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the window ends here
+    want = {fa.FWD_BF16: TRAIN_STEPS, fa.BWD_DKDV_BF16: TRAIN_STEPS,
+            fa.BWD_DQ_BF16: TRAIN_STEPS, fa.FWD: 0, fa.BWD_DKDV: 0,
+            fa.BWD_DQ: 0}
+    if {n: launches[n] for n in want} != want or any(plain.values()):
+        raise RuntimeError(f"train bf16 attn: launches {launches}, plain "
+                           f"{plain}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train bf16 attn: losses not finite or not "
+                           f"falling: {losses}")
+    profile = profile_step(torch, exe, main, dfeed, cost, scope)
+
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_losses = [_one_step(cpu_exe, main, feed, cost, cpu_scope)
+                  for _ in range(TRAIN_STEPS)]
+    cpu_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    main32, _, cost32 = build_bf16_attention(heads, SEQ, dh, False, 1e-4)
+    f32_losses = [_one_step(exe, main32, dfeed, cost32, f32_scope)
+                  for _ in range(TRAIN_STEPS)]
+    f32_u = max(abs(a - b) / abs(b) for a, b in zip(losses, f32_losses)) / U
+    if cpu_rel > BF16_ATTN_CPU_RTOL or f32_u > BF16_ATTN_LOSS_U:
+        raise RuntimeError(
+            f"train bf16 attn: losses {losses}; CPU route {cpu_losses} "
+            f"(max rel {cpu_rel:.3g} > {BF16_ATTN_CPU_RTOL}?); f32 program "
+            f"{f32_losses} ({f32_u:.3g} U > {BF16_ATTN_LOSS_U}?)")
+    p50 = statistics.median(step_ms[1:])
+    out = {
+        "config": "transformer-base self-attention layer (d512 h8 dh64 "
+                  "causal), q/k/v cast to bf16 around ring_attention, "
+                  "fc out, squared error, adam1e-4",
+        "batch": TRAIN_BATCH, "seq": SEQ, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "p50_step_ms_after_first": p50,
+        "tokens_per_s": TRAIN_BATCH * SEQ / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb,
+        "kernel_launches": launches, "plain_calls": plain,
+        "losses_cpu_route": cpu_losses, "max_rel_vs_cpu": cpu_rel,
+        "losses_f32_program": f32_losses, "max_u_vs_f32": f32_u,
+        "profile": profile,
+    }
+    log("  train bf16 attn " + json.dumps(out))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3056,6 +3478,9 @@ def main():
     resnet_amp["check"] = resnet_amp_check_phase(torch, trained)
     del trained
     train_amp = train_amp_phase(torch)
+    bf16_errs, bf16_rows = bf16_kernels_phase(torch)
+    bench_bf16 = flash_bf16_bench_phase(torch)
+    train_bf16 = train_bf16_attn_phase(torch)
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]
@@ -3107,6 +3532,25 @@ def main():
                  f"batch-{INFER_BATCH} ResNet-50 forward, FLAGS['amp']",
         bound_peak=AMP_CONV_PEAK, forward=amp_fwd, infer_amp=infer_amp,
         resnet_train_amp=resnet_amp, train_amp=train_amp)]
+    bf16_src = "paddle_tpu_torch/csrc/flash_attention_bf16.cuh"
+    for kname, line in (("flash_fwd_bf16", 111), ("flash_bwd_dkdv_bf16", 295),
+                        ("flash_bwd_dq_bf16", 320)):
+        rows = bf16_rows[kname]
+        row = dict(rows["bh128_s512_full"])
+        if kname == "flash_bwd_dq_bf16":
+            # one library call computes dQ, dK and dV: the K3a row's
+            row["library_ms"] = bf16_rows["flash_bwd_dkdv_bf16"][
+                "bh128_s512_full"]["library_ms"]
+        extra = {key: rows[key] for key in rows if key != "bh128_s512_full"}
+        if kname == "flash_fwd_bf16":
+            extra["ptxas"] = ptxas.get("flash_attention")
+            extra["flash_bf16_bench"] = bench_bf16
+            extra["train_bf16_attn"] = train_bf16
+        train_kernels.append(_kernel_row(
+            kname, bf16_src, f"{fa_py}:{line} (the bf16 branch)",
+            train_bf16["kernel_launches"][kname], bf16_errs[kname], row,
+            shape=row["shape"], library=row["library"],
+            bound_peak=row["bound_peak"], **extra))
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",

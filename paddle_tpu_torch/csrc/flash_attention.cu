@@ -1,5 +1,7 @@
 // Flash attention, float32, for Hopper (sm_90a): the forward pass and
-// the two kernels of the backward pass.
+// the two kernels of the backward pass. The bfloat16 forms
+// (flash_attention_bf16.cuh, included at the end) build into the same
+// library.
 //
 // Replaces the Pallas TPU kernels of
 //   paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py
@@ -98,7 +100,8 @@
 //
 // head_dim: the tensor-core kernels take the buckets 32, 64 and 128;
 // every head_dim above 128 runs on CUDA-core kernels (flash_*_wide_kernel
-// below, 4 rows a warp; above 256 in 256-column slices of the output),
+// in flash_wide.cuh, 4 rows a warp; above 256 in 256-column slices of
+// the output),
 // as the accumulators of a 16-row warp would not fit in registers at 256
 // columns. Every entry point takes a head_dim
 // that is a multiple of 4 (16-byte staging); the wrapper
@@ -115,11 +118,18 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_wide.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace tf32x3;
+using flash_wide::allow_smem;
+using flash_wide::floats;
+using flash_wide::kWideChunk;
+using flash_wide::launch_dkdv_wide;
+using flash_wide::launch_dq_wide;
+using flash_wide::launch_fwd_wide;
 
 constexpr int kWarps = 4;              // warps per block
 constexpr int kThreads = kWarps * 32;
@@ -678,482 +688,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-
-// ------------------------------------------------------ the wide bucket
-// head_dim above 128 (a multiple of 4). The tensor-core kernels above keep
-// a 16-row warp's accumulators in registers; at 256 columns the output
-// alone would take 128 registers a lane (dK and dV 256). These kernels
-// run on the CUDA cores instead, 4 rows a warp (16 a block), and stream
-// the other operand in tiles of 32 rows, one row a lane while scoring:
-// lane j computes the scores of row j against the warp's 4 rows; lane l
-// holds output columns l, l + 32, ... (NE = 8 of them, 256 in all).
-// Above 256 columns the grid's z axis cuts the output into 256-column
-// slices (O in the forward, dK and dV, dQ), one a block: every block
-// computes its scores (and dP = dO V^T) over the whole head_dim, in
-// 256-column chunks staged through shared memory in the order 0, 256,
-// ..., so every slice computes the same softmax (and dS) bit for bit,
-// then accumulates its own columns; the forward's slice 0 writes the
-// LSE. Up to 256 columns there is one slice and one chunk, and the
-// block's own rows stay in shared memory for the whole key loop: the
-// kernels' kSliced = false form, whose chunk loop the compiler removes
-// (a runtime loop there cost the 256 bucket registers and 60% more
-// time on the card, PERF.md PR 8). Tiles
-// read by lane-row are padded by one float (no bank conflicts); the
-// block's own rows are read as broadcasts. Every sum is a float32 FMA
-// chain in a fixed order, so two launches give bitwise-equal outputs.
-constexpr int kWideRowsPerWarp = 4;
-constexpr int kWideRows = kWarps * kWideRowsPerWarp;  // 16 a block
-constexpr int kWideTile = 32;
-constexpr int kWideNE = 8;
-constexpr int kWideChunk = 32 * kWideNE;              // 256 columns
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows [r0, r0 + n) and columns [c0, c0 + w) of a row-major [S, D]
-// matrix into shared memory with row stride ld (float4 loads: D, c0 and
-// w are multiples of 4); rows at or past S are zeros.
-__device__ __forceinline__ void stage_cols(float* dst, int ld,
-                                           const float* __restrict__ src,
-                                           int r0, int n, int S, int D,
-                                           int c0, int w) {
-  const int w4 = w / 4;
-  for (int i = threadIdx.x; i < n * w4; i += kThreads) {
-    const int r = i / w4;
-    const int dd = (i % w4) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S)
-      v = *reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(r0 + r) * D + c0 + dd);
-    float* o = dst + r * ld + dd;
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
-    o[3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void stage_entries(float* dst,
-                                              const float* __restrict__ src,
-                                              int r0, int n, int S) {
-  for (int i = threadIdx.x; i < n; i += kThreads)
-    dst[i] = r0 + i < S ? src[r0 + i] : 0.f;
-}
-
-// grid (BH, ceil(Sq / 16), ceil(D / 256))
-template <bool kSliced>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int Sq, int Sk, int D,
-                      int causal, float scale) {
-  constexpr int R = kWideRowsPerWarp;
-  const int W = min(D, kWideChunk);          // a chunk's columns at most
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                          // [16][chunk]
-  float* ks = qs + kWideRows * W;            // [32][chunk + 1]
-  float* vs = ks + kWideTile * (W + 1);      // [32][slice]
-
-  const int64_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kWideRows;
-  // the block's output columns
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* qb = q + bh * Sq * D;
-  const float* kb = k + bh * Sk * D;
-  const float* vb = v + bh * Sk * D;
-  if (!kSliced) stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
-
-  const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
-  const int rw = warp * R;
-  int limit[R];
-  float m[R], l[R], acc[R][kWideNE];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + rw + i;
-    limit[i] = qpos >= Sq ? -1 : (causal ? min(qpos, Sk - 1) : Sk - 1);
-    m[i] = -1e30f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
-    const int t = t0 + lane;
-    float s[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) s[i] = 0.f;
-    for (int ci = 0; ci < n_chunks; ++ci) {
-      const int d0 = ci * kWideChunk;
-      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
-      __syncthreads();  // the previous chunk or tile is consumed
-      if (kSliced) stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
-      stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
-      if (ci == n_chunks - 1)  // the last chunk: the V slice too
-        stage_cols(vs, cw, vb, t0, kWideTile, Sk, D, c0, cw);
-      __syncthreads();
-      const float* kr = ks + lane * (dw + 1);
-      const float* qw = qs + rw * dw;
-#pragma unroll 4
-      for (int d = 0; d < dw; ++d) {
-        const float kd = kr[d];
-#pragma unroll
-        for (int i = 0; i < R; ++i) s[i] = fmaf(qw[i * dw + d], kd, s[i]);
-      }
-    }
-
-    float p[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const bool keep = t <= limit[i];
-      const float si = keep ? s[i] * scale : -1e30f;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float alpha = expf(m[i] - m_new);
-      p[i] = keep ? expf(si - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < kWideNE; ++e) acc[i][e] *= alpha;
-    }
-
-    const int n_here = min(kWideTile, n_keys - t0);
-    for (int j = 0; j < n_here; ++j) {
-      float vd[kWideNE];
-#pragma unroll
-      for (int e = 0; e < kWideNE; ++e) {
-        const int d = lane + 32 * e;
-        vd[e] = d < cw ? vs[j * cw + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
-#pragma unroll
-        for (int e = 0; e < kWideNE; ++e)
-          acc[i][e] = fmaf(pj, vd[e], acc[i][e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + rw + i;
-    if (qpos >= Sq) continue;
-    const float denom = fmaxf(l[i], FLT_MIN);
-    float* orow = o + (bh * Sq + qpos) * D + c0;
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) {
-      const int d = lane + 32 * e;
-      if (d < cw) orow[d] = acc[i][e] / denom;
-    }
-    if (lane == 0 && c0 == 0) lse[bh * Sq + qpos] = m[i] + logf(denom);
-  }
-}
-
-// grid (BH, ceil(Sk / 16), ceil(D / 256)): the block owns 16 keys and
-// streams query tiles of 32 rows, from the first tile a causal key can
-// see
-template <bool kSliced>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_wide_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           const float* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv,
-                           int Sq, int Sk, int D, int causal, float scale) {
-  constexpr int R = kWideRowsPerWarp;
-  const int W = min(D, kWideChunk);
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem;                          // [16][chunk]
-  float* vs = ks + kWideRows * W;            // [16][chunk]
-  float* qs = vs + kWideRows * W;            // [32][chunk + 1]
-  float* dos = qs + kWideTile * (W + 1);     // [32][chunk + 1]
-  float* lses = dos + kWideTile * (W + 1);   // [32]
-  float* deltas = lses + kWideTile;          // [32]
-
-  const int64_t bh = blockIdx.x;
-  const int k0 = blockIdx.y * kWideRows;
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* qb = q + bh * Sq * D;
-  const float* dob = dout + bh * Sq * D;
-  const float* kbh = k + bh * Sk * D;
-  const float* vbh = v + bh * Sk * D;
-  if (!kSliced) {
-    stage_cols(ks, D, kbh, k0, kWideRows, Sk, D, 0, D);
-    stage_cols(vs, D, vbh, k0, kWideRows, Sk, D, 0, D);
-  }
-
-  float acc_k[R][kWideNE], acc_v[R][kWideNE];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
-
-  const int kw = k0 + warp * R;  // the warp's first key
-  const int start = causal ? (k0 / kWideTile) * kWideTile : 0;
-  for (int t0 = start; t0 < Sq; t0 += kWideTile) {
-    // lane j: query row t0 + j against each of the warp's keys
-    const int qpos = t0 + lane;
-    float s[R], dp[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
-    for (int ci = 0; ci < n_chunks; ++ci) {
-      const int d0 = ci * kWideChunk;
-      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
-      __syncthreads();  // the previous chunk or tile is consumed
-      if (kSliced) {
-        stage_cols(ks, dw, kbh, k0, kWideRows, Sk, D, d0, dw);
-        stage_cols(vs, dw, vbh, k0, kWideRows, Sk, D, d0, dw);
-      }
-      stage_cols(qs, dw + 1, qb, t0, kWideTile, Sq, D, d0, dw);
-      stage_cols(dos, dw + 1, dob, t0, kWideTile, Sq, D, d0, dw);
-      if (ci == 0) {
-        stage_entries(lses, lse + bh * Sq, t0, kWideTile, Sq);
-        stage_entries(deltas, delta + bh * Sq, t0, kWideTile, Sq);
-      }
-      __syncthreads();
-      const float* qr = qs + lane * (dw + 1);
-      const float* dor = dos + lane * (dw + 1);
-      const float* kwr = ks + warp * R * dw;
-      const float* vwr = vs + warp * R * dw;
-#pragma unroll 4
-      for (int d = 0; d < dw; ++d) {
-        const float qd = qr[d];
-        const float dod = dor[d];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          s[i] = fmaf(qd, kwr[i * dw + d], s[i]);
-          dp[i] = fmaf(dod, vwr[i * dw + d], dp[i]);
-        }
-      }
-    }
-    const float lse_j = lses[lane];
-    const float delta_j = deltas[lane];
-    float p[R], ds[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kpos = kw + i;
-      // padded rows and columns are zeroed, not just masked
-      const bool keep = qpos < Sq && kpos < Sk && (!causal || qpos >= kpos);
-      p[i] = keep ? expf(s[i] * scale - lse_j) : 0.f;
-      ds[i] = p[i] * (dp[i] - delta_j);
-    }
-
-    // the block's columns of the tile's Q and dO rows: the last chunk
-    // when there is one, else staged anew
-    int ld = D + 1;
-    if (kSliced) {
-      __syncthreads();
-      stage_cols(qs, cw + 1, qb, t0, kWideTile, Sq, D, c0, cw);
-      stage_cols(dos, cw + 1, dob, t0, kWideTile, Sq, D, c0, cw);
-      __syncthreads();
-      ld = cw + 1;
-    }
-    const int n_here = min(kWideTile, Sq - t0);
-    for (int j = 0; j < n_here; ++j) {
-      float qd[kWideNE], dod[kWideNE];
-#pragma unroll
-      for (int e = 0; e < kWideNE; ++e) {
-        const int d = lane + 32 * e;
-        qd[e] = d < cw ? qs[j * ld + d] : 0.f;
-        dod[e] = d < cw ? dos[j * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
-        const float dsj = __shfl_sync(0xffffffffu, ds[i], j);
-#pragma unroll
-        for (int e = 0; e < kWideNE; ++e) {
-          acc_v[i][e] = fmaf(pj, dod[e], acc_v[i][e]);
-          acc_k[i][e] = fmaf(dsj, qd[e], acc_k[i][e]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kpos = kw + i;
-    if (kpos >= Sk) continue;
-    float* dkr = dk + (bh * Sk + kpos) * D + c0;
-    float* dvr = dv + (bh * Sk + kpos) * D + c0;
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) {
-      const int d = lane + 32 * e;
-      if (d < cw) {
-        dkr[d] = acc_k[i][e] * scale;
-        dvr[d] = acc_v[i][e];
-      }
-    }
-  }
-}
-
-// grid (BH, ceil(Sq / 16), ceil(D / 256)): the block owns 16 query rows
-// and streams key tiles of 32 rows, up to its last row when causal
-template <bool kSliced>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, int Sq, int Sk, int D,
-                         int causal, float scale) {
-  constexpr int R = kWideRowsPerWarp;
-  const int W = min(D, kWideChunk);
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                          // [16][chunk]
-  float* dos = qs + kWideRows * W;           // [16][chunk]
-  float* ks = dos + kWideRows * W;           // [32][chunk + 1]
-  float* vs = ks + kWideTile * (W + 1);      // [32][chunk + 1]
-  float* lses = vs + kWideTile * (W + 1);    // [16]
-  float* deltas = lses + kWideRows;          // [16]
-
-  const int64_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kWideRows;
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* qb = q + bh * Sq * D;
-  const float* dob = dout + bh * Sq * D;
-  const float* kb = k + bh * Sk * D;
-  const float* vb = v + bh * Sk * D;
-  if (!kSliced) {
-    stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
-    stage_cols(dos, D, dob, q0, kWideRows, Sq, D, 0, D);
-  }
-  stage_entries(lses, lse + bh * Sq, q0, kWideRows, Sq);
-  stage_entries(deltas, delta + bh * Sq, q0, kWideRows, Sq);
-
-  const int rw = warp * R;
-  float acc[R][kWideNE];
-  int limit[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + rw + i;
-    limit[i] = qpos >= Sq ? -1 : (causal ? min(qpos, Sk - 1) : Sk - 1);
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) acc[i][e] = 0.f;
-  }
-
-  const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
-  for (int t0 = 0; t0 < n_keys; t0 += kWideTile) {
-    // lane j: key t0 + j against each of the warp's query rows
-    const int t = t0 + lane;
-    float s[R], dp[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
-    for (int ci = 0; ci < n_chunks; ++ci) {
-      const int d0 = ci * kWideChunk;
-      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
-      __syncthreads();  // the previous chunk or tile is consumed
-      if (kSliced) {
-        stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
-        stage_cols(dos, dw, dob, q0, kWideRows, Sq, D, d0, dw);
-      }
-      stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
-      stage_cols(vs, dw + 1, vb, t0, kWideTile, Sk, D, d0, dw);
-      __syncthreads();
-      const float* kr = ks + lane * (dw + 1);
-      const float* vr = vs + lane * (dw + 1);
-      const float* qw = qs + rw * dw;
-      const float* dow = dos + rw * dw;
-#pragma unroll 4
-      for (int d = 0; d < dw; ++d) {
-        const float kd = kr[d];
-        const float vd = vr[d];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          s[i] = fmaf(qw[i * dw + d], kd, s[i]);
-          dp[i] = fmaf(dow[i * dw + d], vd, dp[i]);
-        }
-      }
-    }
-    float ds[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const bool keep = t <= limit[i];
-      const float p = keep ? expf(s[i] * scale - lses[rw + i]) : 0.f;
-      ds[i] = p * (dp[i] - deltas[rw + i]);
-    }
-
-    // the block's columns of the tile's K rows: the last chunk when
-    // there is one, else staged anew
-    int ld = D + 1;
-    if (kSliced) {
-      __syncthreads();
-      stage_cols(ks, cw + 1, kb, t0, kWideTile, Sk, D, c0, cw);
-      __syncthreads();
-      ld = cw + 1;
-    }
-    const int n_here = min(kWideTile, n_keys - t0);
-    for (int j = 0; j < n_here; ++j) {
-      float kd[kWideNE];
-#pragma unroll
-      for (int e = 0; e < kWideNE; ++e) {
-        const int d = lane + 32 * e;
-        kd[e] = d < cw ? ks[j * ld + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float dsj = __shfl_sync(0xffffffffu, ds[i], j);
-#pragma unroll
-        for (int e = 0; e < kWideNE; ++e)
-          acc[i][e] = fmaf(dsj, kd[e], acc[i][e]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qpos = q0 + rw + i;
-    if (qpos >= Sq) continue;
-    float* dqr = dq + (bh * Sq + qpos) * D + c0;
-#pragma unroll
-    for (int e = 0; e < kWideNE; ++e) {
-      const int d = lane + 32 * e;
-      if (d < cw) dqr[d] = acc[i][e] * scale;
-    }
-  }
-}
-
-// Opt in to more than 48 KB of dynamic shared memory where needed.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-size_t floats(size_t n) { return sizeof(float) * n; }
-
 // Streamed rows per tile: 64, or 32 at the 128 bucket, where the
 // accumulators (dK and dV in the backward; O and its per-tile sum in the
 // forward) take 128 registers a lane.
@@ -1211,75 +745,6 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The wide bucket (head_dim above 128) on the CUDA-core kernels: W, a
-// chunk's columns (head_dim up to 256), sizes the shared memory; the
-// grid's z axis takes the 256-column output slices.
-size_t chunk_cols(int D) {
-  return static_cast<size_t>(D < kWideChunk ? D : kWideChunk);
-}
-
-dim3 wide_grid(int BH, int S, int D) {
-  return dim3(BH, (S + kWideRows - 1) / kWideRows,
-              (D + kWideChunk - 1) / kWideChunk);
-}
-
-template <bool kSliced>
-cudaError_t launch_fwd_wide(const float* q, const float* k, const float* v,
-                            float* o, float* lse, int BH, int Sq, int Sk,
-                            int D, int causal, float scale,
-                            cudaStream_t stream) {
-  const size_t W = chunk_cols(D);
-  const size_t smem = floats(kWideRows * W + kWideTile * (2 * W + 1));
-  auto kernel = flash_fwd_wide_kernel<kSliced>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(
-      q, k, v, o, lse, Sq, Sk, D, causal, scale);
-  return cudaGetLastError();
-}
-
-template <bool kSliced>
-cudaError_t launch_dkdv_wide(const float* q, const float* k, const float* v,
-                             const float* dout, const float* lse,
-                             const float* delta, float* dk, float* dv,
-                             int BH, int Sq, int Sk, int D, int causal,
-                             float scale, cudaStream_t stream) {
-  const size_t W = chunk_cols(D);
-  const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
-                             2 * kWideTile);
-  auto kernel = flash_bwd_dkdv_wide_kernel<kSliced>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<wide_grid(BH, Sk, D), kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Sq, Sk, D, causal, scale);
-  return cudaGetLastError();
-}
-
-template <bool kSliced>
-cudaError_t launch_dq_wide(const float* q, const float* k, const float* v,
-                           const float* dout, const float* lse,
-                           const float* delta, float* dq, int BH, int Sq,
-                           int Sk, int D, int causal, float scale,
-                           cudaStream_t stream) {
-  const size_t W = chunk_cols(D);
-  const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
-                             2 * kWideRows);
-  auto kernel = flash_bwd_dq_wide_kernel<kSliced>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, Sq, Sk, D, causal, scale);
-  return cudaGetLastError();
-}
-
-// head_dim: a multiple of 4 (the wrapper zero-pads it to one); the
-// grid's y and z dimensions bound the sequence lengths and head_dim
-bool bad_shape(int BH, int Sq, int Sk, int D) {
-  return BH < 0 || Sq < 0 || Sk < 0 || D <= 0 || D % 4 ||
-         Sq > 65535 * kWideRows || Sk > 65535 * kWideRows ||
-         D > 65535 * kWideChunk;
-}
-
 }  // namespace
 
 extern "C" {
@@ -1287,7 +752,8 @@ extern "C" {
 int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                   void* lse, int BH, int Sq, int Sk, int D, int causal,
                   float scale, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
+  if (flash_wide::bad_shape(BH, Sq, Sk, D, 4))
+    return cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return cudaSuccess;
   auto args = [&](auto launcher) {
     return launcher(static_cast<const float*>(q),
@@ -1304,9 +770,9 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
   else if (D <= 128)
     e = args(launch_fwd<128>);
   else if (D <= kWideChunk)
-    e = args(launch_fwd_wide<false>);
+    e = args(launch_fwd_wide<float, false>);
   else
-    e = args(launch_fwd_wide<true>);
+    e = args(launch_fwd_wide<float, true>);
   return static_cast<int>(e);
 }
 
@@ -1314,7 +780,8 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int BH, int Sq, int Sk, int D,
                        int causal, float scale, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
+  if (flash_wide::bad_shape(BH, Sq, Sk, D, 4))
+    return cudaErrorInvalidValue;
   if (BH == 0 || Sk == 0) return cudaSuccess;
   auto args = [&](auto launcher) {
     return launcher(static_cast<const float*>(q),
@@ -1335,9 +802,9 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
   else if (D <= 128)
     e = args(launch_dkdv<128>);
   else if (D <= kWideChunk)
-    e = args(launch_dkdv_wide<false>);
+    e = args(launch_dkdv_wide<float, false>);
   else
-    e = args(launch_dkdv_wide<true>);
+    e = args(launch_dkdv_wide<float, true>);
   return static_cast<int>(e);
 }
 
@@ -1345,7 +812,8 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int BH, int Sq, int Sk, int D, int causal,
                      float scale, void* stream) {
-  if (bad_shape(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
+  if (flash_wide::bad_shape(BH, Sq, Sk, D, 4))
+    return cudaErrorInvalidValue;
   if (BH == 0 || Sq == 0) return cudaSuccess;
   auto args = [&](auto launcher) {
     return launcher(static_cast<const float*>(q),
@@ -1365,9 +833,9 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   else if (D <= 128)
     e = args(launch_dq<128>);
   else if (D <= kWideChunk)
-    e = args(launch_dq_wide<false>);
+    e = args(launch_dq_wide<float, false>);
   else
-    e = args(launch_dq_wide<true>);
+    e = args(launch_dq_wide<float, true>);
   return static_cast<int>(e);
 }
 
@@ -1376,3 +844,7 @@ const char* error_string(int err) {
 }
 
 }  // extern "C"
+
+// flash_fwd_bf16, flash_bwd_dkdv_bf16, flash_bwd_dq_bf16: the bfloat16
+// forms, in this library
+#include "flash_attention_bf16.cuh"

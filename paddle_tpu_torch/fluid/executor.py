@@ -16,7 +16,10 @@ contract (reference python/paddle/fluid/executor.py:181).
     that record (registry.exec_op_descs); every other op — the startup
     program, the optimizer ops — runs under ``torch.no_grad()``.
   - Feed/fetch: numpy in, numpy out (``return_numpy=False`` returns the
-    tensors, detached).
+    tensors, detached). numpy has no bfloat16 type here, so a bfloat16
+    fetch comes back as its exact float32 widening (the JAX executor
+    returns the bfloat16 array; ``return_numpy=False`` returns the
+    bfloat16 tensor).
   - Precision: a run honours ``FLAGS['matmul_precision']`` as the JAX
     executor does (executor.py:654); under the default 'highest' no
     cuBLAS or cuDNN product of the run takes TF32, whatever the caller's
@@ -127,13 +130,24 @@ def _to_numpy(v):
         else np.asarray(v)
 
 
+def _fetched_numpy(v):
+    """A fetched value as numpy: a bfloat16 tensor as its exact float32
+    widening (numpy has no bfloat16 type without ml_dtypes), any other
+    as itself."""
+    if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+        v = v.float()
+    return _to_numpy(v)
+
+
 def fetch_var(name: str, scope: Optional[Scope] = None,
               return_numpy: bool = True):
+    """The scope's value of ``name``: numpy (a bfloat16 value as its
+    exact float32 widening), or the tensor with ``return_numpy=False``."""
     scope = scope or global_scope()
     v = scope.find_var(name)
     if v is None:
         raise ValueError(f"var '{name}' not found in scope")
-    return _to_numpy(v) if return_numpy else v
+    return _fetched_numpy(v) if return_numpy else v
 
 
 def _io_path(op_type: str, path: str) -> str:
@@ -380,7 +394,7 @@ class Executor:
                 raise ValueError(
                     f"fetch target '{n}' was not produced by the block")
             v = env[n].detach()
-            fetches.append(_to_numpy(v) if return_numpy else v)
+            fetches.append(_fetched_numpy(v) if return_numpy else v)
         return fetches
 
     def close(self):

@@ -8,7 +8,7 @@ import numpy as np
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "sums", "assign", "fill_constant"]
+__all__ = ["create_parameter", "cast", "sums", "assign", "fill_constant"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -20,6 +20,18 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     if attr.name is None and name is not None:
         attr.name = name
     return helper.create_parameter(attr, shape, dtype, is_bias, default_initializer)
+
+
+def cast(x, dtype):
+    from ..core import convert_dtype
+
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"in_dtype": x.dtype, "out_dtype": convert_dtype(dtype)},
+    )
+    return out
 
 
 def sums(input, out=None):

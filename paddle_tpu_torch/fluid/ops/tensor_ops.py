@@ -1,5 +1,5 @@
 """Tensor-manipulation ops (reference paddle/fluid/operators/{reshape,
-transpose,fill_constant,assign,assign_value,lookup_table,top_k}_op.*)."""
+transpose,cast,fill_constant,assign,assign_value,lookup_table,top_k}_op.*)."""
 from __future__ import annotations
 
 import numpy as np
@@ -21,6 +21,14 @@ def reshape(ctx, ins, attrs):
 @register_op("transpose", ref="paddle/fluid/operators/transpose_op.cc")
 def transpose(ctx, ins, attrs):
     return {"Out": one(ins, "X").permute([int(a) for a in attrs["axis"]])}
+
+
+@register_op("cast", ref="paddle/fluid/operators/cast_op.cc")
+def cast(ctx, ins, attrs):
+    """X in ``out_dtype`` (to nearest even into bfloat16). Its gradient
+    is the generic one: autograd through ``Tensor.to`` casts the output's
+    gradient back to X's dtype, as the JAX package's ``astype`` VJP."""
+    return {"Out": one(ins, "X").to(dtype_of(attrs, "out_dtype"))}
 
 
 @register_op("assign", ref="paddle/fluid/operators/assign_op.cc")

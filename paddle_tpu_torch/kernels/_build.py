@@ -59,6 +59,11 @@ _SIGNATURES = {
         # q, k, v, dout, lse, delta, dq, BH, Sq, Sk, D, causal, scale,
         # stream
         "flash_bwd_dq_f32": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
+        # the same arguments with bfloat16 q, k, v, dout and outputs (lse
+        # and delta float32)
+        "flash_fwd_bf16": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
+        "flash_bwd_dkdv_bf16": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
+        "flash_bwd_dq_bf16": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
     "conv_bn_relu": {
