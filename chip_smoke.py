@@ -24,13 +24,19 @@ and prints no result):
            forward (K2), flash dK/dV (K3a) and flash dQ (K3b) against
            their plain versions (max abs error <= 1e-4 at unit-scale
            inputs; causal and not, lengths that fit no tile, Sq != Sk
-           both ways, head_dim 64, 16, 20 and 128); K2, K3a and K3b
+           both ways, head_dim 64, 16, 20 and 128), the backward's delta
+           pass (flash_delta) within DELTA_RTOL of the largest |delta|;
+           K1's bfloat16 form (y within BF16_FLASH_ULPS of the max, mean
+           and rstd within 1e-4), and a Fluid program that casts to
+           bfloat16 before layer_norm run on the card (one K1 bf16
+           launch) and on the CPU, outputs agreeing; K2, K3a and K3b
            twice on the same inputs, bitwise equal; K3a/K3b, the plain
            backward and SDPA's against float64, then K2, the plain
            forward and SDPA's forward (O and LSE) against float64, at
            the train shape and a 4x longer sequence (max abs error,
            recorded, not held); timed at the train phase's shapes beside
-           F.layer_norm and SDPA pinned to its memory-efficient backend
+           F.layer_norm (float32 and bf16), torch.linalg.vecdot (the
+           delta) and SDPA pinned to its memory-efficient backend
            (forward, and its backward alone for K3a + K3b); K2 and SDPA's
            forward, and the port's whole flash backward (delta + K3a +
            K3b) and SDPA's backward, in turns, with their ratios.
@@ -62,8 +68,8 @@ and prints no result):
            the startup program run on the card, 5 steps on one seeded
            batch (transformer_bench.py's copy task). Counters zeroed
            just before the steps and read just after: 30 layer-norm, 18
-           flash-forward, 18 dK/dV and 18 dQ launches per step, no plain
-           call; the loss finite and falling. The embedding gradient
+           flash-forward, 18 delta, 18 dK/dV and 18 dQ launches per step,
+           no plain call; the loss finite and falling. The embedding gradient
            twice on the feed's ids, bitwise equal. Then one more step
            under torch.profiler for the device's busy share.
   check    the decoder step at full width (2 layers) on the card and on
@@ -156,11 +162,16 @@ and prints no result):
            bfloat16 branch) against their plain bf16 versions: O, dQ, dK,
            dV within BF16_FLASH_ULPS ulp of the tensor's max and at most
            BF16_FLASH_SHARE of the elements differing, LSE within TOL;
-           full and causal, Sq != Sk, Sk = 200, head_dim 8, 64, 72, 128,
-           136, 256, 264; two launches bitwise equal; timed at [BH=128,
-           S=512, D=64] full and causal and [BH=8, S=2048 and 4096, D=64]
-           causal beside their bounds, K2 and the whole backward in turns
-           with SDPA's flash backend in bf16.
+           full and causal, Sq != Sk, Sk = 200 and 77, heads of 150 rows,
+           head_dim 8, 64, 72, 128, 136, 256, 264 (K3a and K3b up to
+           head_dim 64 are the wgmma + TMA kernels; their worst case is
+           logged beside the earlier mma.sync kernels'); the delta kernel
+           on every case's bf16 dO and O; two launches bitwise equal;
+           timed at [BH=128, S=512,
+           D=64] full and causal and [BH=8, S=2048 and 4096, D=64]
+           causal beside their bounds (the delta too), K2 and the whole
+           backward (delta + K3a + K3b) in turns with SDPA's flash
+           backend in bf16; the backward wrappers' host time a call.
   flash bf16 bench
            the JAX flash benchmark's configuration through the port's
            flash_attention: bf16 [1, S, 8, 64], S 2048 and 4096, causal,
@@ -170,8 +181,9 @@ and prints no result):
            the slice's Fluid path: Transformer-base's self-attention
            layer (x [16, 512, 512], three fc, cast to bf16, causal
            ring_attention, cast back, fc, squared error), Adam(1e-4), 5
-           steps on the card: 5 launches of each bf16 kernel, no f32 flash
-           launch, no plain call; losses against the port's CPU route
+           steps on the card: 5 launches of each bf16 kernel and of the
+           delta, no f32 flash launch, no plain call; losses against the
+           port's CPU route
            and against the same program without the casts.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
@@ -286,7 +298,10 @@ def _kernel_name(mangled):
         name = mangled[end:end + int(m.group())]
         if name.endswith("_kernel") and name[:1].isalpha():
             rest = mangled[end + len(name):]
-            args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", rest)
+            # the kernel's own literal arguments, or those of the first
+            # class template among its arguments (a Cfg<...> shape)
+            args = re.match(rf"I((?:{_TEMPLATE_ARG})+)E", rest) or \
+                re.match(rf"IN[^E]*?I((?:{_TEMPLATE_ARG})+)E", rest)
             if not args:
                 return name
             vals = [n or ("float" if f else "bf16") for n, f, _ in
@@ -934,8 +949,8 @@ def _wide_flash_times(torch, fa, rng, dh, flush):
     row = {"shape": f"[BH=32, S={SEQ}, D={dh}] f32 causal=False",
            "bounds": _flash_bounds(32, SEQ, SEQ, dh, False)}
 
-    def port_bwd():
-        delta = (c["do"] * c["o"]).sum(dim=-1)
+    def port_bwd():  # as _Flash.backward runs it
+        delta = fa.flash_delta(c["do"], c["o"])
         return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
                                       c["lse"], delta, False, c["scale"])
     try:
@@ -967,6 +982,110 @@ def _wide_flash_times(torch, fa, rng, dh, flush):
     return row
 
 
+# the delta kernel against its plain version: float32 products summed in
+# another order, within DELTA_RTOL of the largest |delta|
+DELTA_RTOL = 1e-6
+
+
+def _hold_delta(torch, c, errs):
+    """flash_delta on a case's dO and O against the plain version."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    got = fa._delta_cuda(c["do"], c["o"])
+    want = fa.flash_delta_reference(c["do"], c["o"])
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    if got.dtype != torch.float32 or not torch.isfinite(got).all() or \
+            rel > DELTA_RTOL:
+        raise RuntimeError(f"{fa.DELTA} {tuple(c['do'].shape)} "
+                           f"{c['do'].dtype}: max abs err {err:.3g} = "
+                           f"{rel:.3g} of the max (> {DELTA_RTOL}?)")
+    errs[fa.DELTA] = max(errs.get(fa.DELTA, 0.0), err)
+    return rel
+
+
+def _delta_row(torch, c, flush, what):
+    """flash_delta timed beside the plain version (and, in float32, one
+    library call of the same function), with its bound: dO and O read,
+    delta written, one multiply-add an element."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    do, o = c["do"], c["o"]
+    rows, d = do.numel() // do.shape[-1], do.shape[-1]
+    row = {
+        "ms": _time_ms(torch, lambda: fa._delta_cuda(do, o), flush),
+        "plain_ms": _time_ms(
+            torch, lambda: fa.flash_delta_reference(do, o), flush),
+        "library_ms": None,
+        "shape": f"dO, O {list(do.shape)} {what}",
+        "host_us": _host_us(torch, lambda: fa._delta_cuda(do[:1], o[:1])),
+    }
+    if do.dtype == torch.float32:  # one call of the same function
+        row["library_ms"] = _time_ms(
+            torch, lambda: torch.linalg.vecdot(do, o), flush)
+        row["library"] = "torch.linalg.vecdot (float32)"
+    else:
+        row["library_note"] = ("no single PyTorch call: a bf16 product "
+                               "rounds to bf16 before a float32 sum")
+    row["bound_ms"], row["bound_by"] = _bound_of(
+        2 * rows * d * do.element_size() + 4 * rows, 2 * rows * d)
+    return row
+
+
+def _ln_bf16_program(torch):
+    """A Fluid program that casts to bfloat16 before layer_norm (float32
+    feed x [TRAIN_BATCH, SEQ, D_MODEL] -> cast -> layer_norm over the last
+    axis, bf16 scale and bias -> cast back -> mean), run once on the card
+    and once on the CPU from the same startup values: one K1 bf16 launch
+    on the card and one plain call on the CPU; the output within
+    BF16_FLASH_ULPS of its max with at most BF16_FLASH_SHARE differing,
+    the mean within one bf16 ulp of the output's max."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    main, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[SEQ, D_MODEL], dtype="float32")
+        y = layers.layer_norm(layers.cast(x, "bfloat16"), begin_norm_axis=2)
+        out = layers.cast(y, "float32")
+        loss = layers.mean(out)
+    feed = {"x": np.random.RandomState(6).randn(
+        TRAIN_BATCH, SEQ, D_MODEL).astype(np.float32)}
+    got, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        exe, scope = fluid.Executor(dev), fluid.Scope()
+        exe.run(startup, scope=scope)
+        _reset_kernel_counts()
+        got[dev] = exe.run(main, feed=feed, fetch_list=[out, loss],
+                           scope=scope)
+        counts[dev] = (dict(ln.counts.kernel_launches),
+                       dict(ln.counts.plain_calls))
+    if counts["cuda"][0][ln.KERNEL_BF16] != 1 or \
+            any(counts["cuda"][1].values()) or \
+            counts["cpu"][1][ln.KERNEL_BF16] != 1:
+        raise RuntimeError(f"layer norm bf16 program: counts (card, cpu) "
+                           f"{counts}")
+    (oc, lc), (op, lp) = got["cuda"], got["cpu"]
+    err, ulps, share = _bf16_ulps(torch.from_numpy(oc), torch.from_numpy(op))
+    ulp = err / ulps if ulps else 2.0 ** (math.floor(math.log2(
+        float(np.abs(op).max()))) - 7)
+    loss_err = abs(float(lc[0]) - float(lp[0]))
+    if not np.isfinite(oc).all() or ulps > BF16_FLASH_ULPS or \
+            share > BF16_FLASH_SHARE or loss_err > ulp:
+        raise RuntimeError(f"layer norm bf16 program: card vs CPU output "
+                           f"{ulps:.3g} ulps of max, {share:.3g} differing, "
+                           f"mean {lc} vs {lp}")
+    out = {"x": [TRAIN_BATCH, SEQ, D_MODEL], "ulps_vs_cpu": ulps,
+           "differing_vs_cpu": share, "mean_card": float(lc[0]),
+           "mean_cpu": float(lp[0]), "launches": counts["cuda"][0]}
+    log("  layer norm bf16 program (cast -> layer_norm -> cast -> mean), "
+        "card vs CPU: " + json.dumps(out))
+    return out
+
+
 def train_kernels_phase(torch):
     """K1, K2, K3a and K3b against their plain versions on the card
     (max abs error <= TOL at unit-scale inputs), K3a/K3b launched twice
@@ -981,7 +1100,8 @@ def train_kernels_phase(torch):
     from paddle_tpu_torch.kernels import layer_norm as ln
 
     rng = np.random.RandomState(2025)
-    errs = {fa.FWD: 0.0, fa.BWD_DKDV: 0.0, fa.BWD_DQ: 0.0, ln.KERNEL: 0.0}
+    errs = {fa.FWD: 0.0, fa.BWD_DKDV: 0.0, fa.BWD_DQ: 0.0, ln.KERNEL: 0.0,
+            ln.KERNEL_BF16: 0.0, fa.DELTA: 0.0}
 
     def hold(kernel, what, got, want):
         err = (got - want).abs().max().item()
@@ -1002,6 +1122,30 @@ def train_kernels_phase(torch):
              for name, g, w in zip(("y", "mean", "rstd"), got, want)]
         log(f"  layer_norm [{n}, {f}]: max abs err y/mean/rstd "
             + " / ".join(f"{x:.3g}" for x in e))
+
+    # K1's bfloat16 form: y within BF16_FLASH_ULPS of the plain version's
+    # max with at most BF16_FLASH_SHARE of it differing (both round the
+    # same float32 value once, summed in other orders); mean and rstd
+    # float32 within TOL
+    for n, f in ((TRAIN_ROWS, D_MODEL), (37, 24), (5, 1000)):
+        x = _randn(torch, rng, n, f).bfloat16()
+        s, b = (_randn(torch, rng, f).bfloat16() for _ in range(2))
+        got = ln._layer_norm_cuda(x, s, b, 1e-5)
+        want = ln.layer_norm_reference(x, s, b, 1e-5)
+        torch.cuda.synchronize()
+        err, ulps, share = _bf16_ulps(got[0], want[0])
+        if got[0].dtype != torch.bfloat16 or ulps > BF16_FLASH_ULPS or \
+                share > BF16_FLASH_SHARE:
+            raise RuntimeError(f"{ln.KERNEL_BF16} y [{n}, {f}]: "
+                               f"{got[0].dtype}, {ulps:.3g} ulps of the "
+                               f"max, {share:.3g} of elements differ")
+        errs[ln.KERNEL_BF16] = max(errs[ln.KERNEL_BF16], err)
+        e = [hold(ln.KERNEL_BF16, name, g, w) for name, g, w in
+             zip(("mean", "rstd"), got[1:], want[1:])]
+        log(f"  layer_norm bf16 [{n}, {f}]: y {ulps:.3g} ulps of max, "
+            f"{share:.3g} differing; max abs err mean/rstd "
+            + " / ".join(f"{x:.3g}" for x in e))
+    ln_program = _ln_bf16_program(torch)
 
     # K2, K3a, K3b: causal and not; S not a multiple of the tiles;
     # Sq != Sk both ways (causal with Sq > Sk too); head_dim 64 (the
@@ -1030,6 +1174,7 @@ def train_kernels_phase(torch):
         dk, dv = fa._bwd_dkdv_cuda(*bargs)
         dq = fa._bwd_dq_cuda(*bargs)
         rq, rk, rv = fa.flash_attention_bwd_reference(*bargs)
+        _hold_delta(torch, c, errs)
         torch.cuda.synchronize()
         e = [hold(fa.FWD, "O", o, c["o"]), hold(fa.FWD, "LSE", lse, c["lse"]),
              hold(fa.BWD_DKDV, "dK", dk, rk), hold(fa.BWD_DKDV, "dV", dv, rv),
@@ -1074,6 +1219,22 @@ def train_kernels_phase(torch):
     # row statistics written
     rows[ln.KERNEL]["bound_ms"], rows[ln.KERNEL]["bound_by"] = _bound_of(
         (2 * n * f + 2 * f + 2 * n) * 4, 8 * n * f)
+    xb, sb, bb = x.bfloat16(), s.bfloat16(), b.bfloat16()
+    rows[ln.KERNEL_BF16] = {
+        "ms": _time_ms(torch, lambda: ln._layer_norm_cuda(xb, sb, bb, 1e-5),
+                       flush),
+        "plain_ms": _time_ms(torch, lambda: ln.layer_norm_reference(
+            xb, sb, bb, 1e-5), flush),
+        "library_ms": _time_ms(torch, lambda: F.layer_norm(
+            xb, (f,), sb, bb, 1e-5), flush),
+        "library": "F.layer_norm on bf16 (y only)",
+        "shape": f"x [{n}, {f}] bf16",
+        "host_us": _host_us(torch, lambda: ln._layer_norm_cuda(
+            xb[:4], sb, bb, 1e-5)),
+        "program": ln_program,
+    }
+    rows[ln.KERNEL_BF16]["bound_ms"], rows[ln.KERNEL_BF16]["bound_by"] = \
+        _bound_of((2 * n * f + 2 * f) * 2 + 2 * n * 4, 8 * n * f)
 
     bh, d = 16 * N_HEADS, D_MODEL // N_HEADS
     backward, forward = {}, {}
@@ -1084,6 +1245,8 @@ def train_kernels_phase(torch):
                  causal, c["scale"])
         sdpa, sdpa_bwd = _sdpa(torch, c, causal)
         bounds = _flash_bounds(bh, SEQ, SEQ, d, causal)
+        if not causal:
+            rows[fa.DELTA] = _delta_row(torch, c, flush, "f32")
         timed = {
             fa.FWD: (lambda: fa._fwd_cuda(*args),
                      lambda: fa.flash_attention_fwd_reference(*args), sdpa),
@@ -1113,7 +1276,7 @@ def train_kernels_phase(torch):
                                      "and dV (K3a + K3b together)")
             rows.setdefault(name, {})["causal" if causal else "full"] = row
         def port_bwd():  # as _Flash.backward runs it
-            delta = (c["do"] * c["o"]).sum(dim=-1)
+            delta = fa.flash_delta(c["do"], c["o"])
             return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
                                           c["lse"], delta, causal,
                                           c["scale"])
@@ -1419,8 +1582,8 @@ def _kernel_counts():
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     launches, plain = {}, {}
-    for tally in (ln.counts, fa.counts, fa.counts_bf16, pa.counts,
-                  k5.counts):
+    for tally in (ln.counts, fa.counts, fa.counts_bf16, fa.counts_delta,
+                  pa.counts, k5.counts):
         launches.update(tally.kernel_launches)
         plain.update(tally.plain_calls)
     return launches, plain
@@ -1432,8 +1595,8 @@ def _reset_kernel_counts():
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
 
-    for tally in (ln.counts, fa.counts, fa.counts_bf16, pa.counts,
-                  k5.counts):
+    for tally in (ln.counts, fa.counts, fa.counts_bf16, fa.counts_delta,
+                  pa.counts, k5.counts):
         tally.reset()
 
 
@@ -1474,7 +1637,8 @@ def train_phase(torch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the window ends here
     want = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
-            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18}
+            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+            "flash_delta": 18}
     for k, per_step in want.items():
         if launches[k] != per_step * TRAIN_STEPS:
             raise RuntimeError(f"{k}: {launches[k]} launches in "
@@ -1589,7 +1753,8 @@ def train_check_phase(torch):
         out[dev] = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
         deltas[dev] = _kernel_counts()
     per_step = {"layer_norm_f32": 10, "flash_fwd_f32": 6,
-                "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6}
+                "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6,
+                "flash_delta": 6}
     zero = dict.fromkeys(deltas["cuda"][0], 0)
     if deltas["cuda"] != ({**zero, **per_step}, zero) or \
             deltas["cpu"] != (zero, {**zero, **per_step}):
@@ -3011,7 +3176,7 @@ def train_amp_phase(torch):
     batch 16, 5 steps on the card; the fc and attention projections in
     bf16, K1, K2, K3a and K3b float32, as in the JAX package. Counters
     zeroed just before the steps and read just after: 30 layer-norm and
-    18 each flash launches a step, no plain call; the loss finite and
+    18 each flash launches (the delta's too) a step, no plain call; the loss finite and
     falling; every parameter float32."""
     phase("train amp")
     import numpy as np
@@ -3036,7 +3201,8 @@ def train_amp_phase(torch):
         # the window ends here
         profile = profile_step(torch, exe, main, feed, cost, scope)
     want = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
-            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18}
+            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+            "flash_delta": 18}
     bad = {k: launches[k] for k, n in want.items()
            if launches[k] != n * TRAIN_STEPS}
     dtypes = {str(scope.find_var(p.name).dtype) for p, _ in pg}
@@ -3075,6 +3241,10 @@ FLASH_BF16_PEAK = ("products in bf16 on the tensor cores (flops over 989 "
                    "TFLOP/s; bf16 q/k/v/dO/outputs and float32 lse/delta "
                    "over 3.35 TB/s")
 SDPA_FLASH_LIBRARY = "sdpa flash backend, bf16"
+# what the earlier mma.sync forms of K3a/K3b bf16 reached against the
+# plain versions at the first 13 cases: recorded beside each backward
+# kernel's worst case (not a gate)
+MMA_SYNC_BF16_ULPS, MMA_SYNC_BF16_SHARE = 0.5, 0.0036
 # benchmarks/flash_attention_bench.py: B=1, H=8, D=64, causal, bf16
 FLASH_BENCH_HEADS, FLASH_BENCH_D, FLASH_BENCH_SEQS = 8, 64, (2048, 4096)
 # train bf16 attn: bf16 against the same program in float32, of the f32
@@ -3083,6 +3253,27 @@ BF16_ATTN_LOSS_U = 8
 # ... and the card against the port's CPU route (the same function;
 # float32 sums in other orders, a bfloat16 element may round the other way)
 BF16_ATTN_CPU_RTOL = 1e-4
+
+
+# the bf16 kernels phase's cases (BH, Sq, Sk, head_dim, causal), drawn in
+# this order from one RandomState(BF16_FLASH_SEED) by _flash_bf16_case
+# (flash_bf16_bwd_vs_old.py replays them)
+BF16_FLASH_SEED = 2029
+BF16_FLASH_CASES = [
+    (4, 256, 256, 64, False), (4, 256, 256, 64, True),
+    (4, 200, 136, 8, True), (4, 136, 200, 72, False),
+    (4, 256, 200, 72, True), (2, 300, 200, 128, True),
+    (2, 200, 300, 128, False), (2, 200, 300, 136, False),
+    (2, 150, 200, 256, True), (2, 200, 150, 264, False),
+    (2, 256, 200, 264, True), (128, SEQ, SEQ, 64, False),
+    (128, SEQ, SEQ, 64, True),
+    # a key length that fits no tile; heads of 150 rows, the last ending
+    # inside a 64-row tile (the TMA maps' edges)
+    (3, 256, 77, 64, False), (5, 150, 150, 64, True)]
+# the timed shapes (BH, S, causal) at head_dim 64: Transformer-base's
+# attention and the flash benchmark's
+BF16_FLASH_TIMED = ((128, SEQ, False), (128, SEQ, True), (8, 2048, True),
+                    (8, 4096, True))
 
 
 def _flash_bf16_bounds(bh, sq, sk, d, causal):
@@ -3138,10 +3329,11 @@ def bf16_kernels_phase(torch):
 
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    rng = np.random.RandomState(2029)
+    rng = np.random.RandomState(BF16_FLASH_SEED)
     names = (fa.FWD_BF16, fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16)
     worst = {n: {"max_abs_err": 0.0, "ulps": 0.0, "differing": 0.0}
              for n in names}
+    delta_errs = {}
 
     def hold(kernel, what, got, want):
         err, ulps, share = _bf16_ulps(got, want)
@@ -3159,15 +3351,9 @@ def bf16_kernels_phase(torch):
             w[key] = max(w[key], x)
         return ulps, share
 
-    cases = [(4, 256, 256, 64, False), (4, 256, 256, 64, True),
-             (4, 200, 136, 8, True), (4, 136, 200, 72, False),
-             (4, 256, 200, 72, True), (2, 300, 200, 128, True),
-             (2, 200, 300, 128, False), (2, 200, 300, 136, False),
-             (2, 150, 200, 256, True), (2, 200, 150, 264, False),
-             (2, 256, 200, 264, True), (128, SEQ, SEQ, 64, False),
-             (128, SEQ, SEQ, 64, True)]
-    for bh, sq, sk, d, causal in cases:
+    for bh, sq, sk, d, causal in BF16_FLASH_CASES:
         c = _flash_bf16_case(torch, rng, bh, sq, sk, d, causal)
+        _hold_delta(torch, c, delta_errs)
         o, lse = fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
         bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
                  causal, c["scale"])
@@ -3200,11 +3386,26 @@ def bf16_kernels_phase(torch):
                                f"launches on the same inputs differ")
     log("  flash bf16 forward and backward: two launches bitwise equal "
         "(full and causal)")
+    for n in (fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16):
+        w = worst[n]
+        w["within_mma_sync_marks"] = (w["ulps"] <= MMA_SYNC_BF16_ULPS and
+                                      w["differing"] <= MMA_SYNC_BF16_SHARE)
+        log(f"  {n}: worst {w['ulps']:.3g} ulps of the max, "
+            f"{w['differing']:.3g} of elements differing (the mma.sync "
+            f"kernels': {MMA_SYNC_BF16_ULPS}, {MMA_SYNC_BF16_SHARE}); "
+            f"within: {w['within_mma_sync_marks']}")
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-    rows = {n: {} for n in names}
-    for bh, s, causal in ((128, SEQ, False), (128, SEQ, True),
-                          (8, 2048, True), (8, 4096, True)):
+    rows = {n: {} for n in names + (fa.DELTA,)}
+    # the wrappers' host time a call (encoding the TMA maps included), at
+    # a shape whose kernels take less
+    c = _flash_bf16_case(torch, rng, 1, 64, 64, 64, False)
+    bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
+             c["scale"])
+    host_us = {fa.BWD_DKDV_BF16: _host_us(
+        torch, lambda: fa._bwd_dkdv_cuda(*bargs)), fa.BWD_DQ_BF16: _host_us(
+        torch, lambda: fa._bwd_dq_cuda(*bargs))}
+    for bh, s, causal in BF16_FLASH_TIMED:
         d = 64
         c = _flash_bf16_case(torch, rng, bh, s, s, d, causal)
         args = (c["q"], c["k"], c["v"], causal, c["scale"])
@@ -3214,7 +3415,7 @@ def bf16_kernels_phase(torch):
         sdpa, sdpa_bwd = _sdpa(torch, c, causal, backend="FLASH_ATTENTION")
 
         def port_bwd():  # as _Flash.backward runs it
-            delta = (c["do"].float() * c["o"].float()).sum(dim=-1)
+            delta = fa.flash_delta(c["do"], c["o"])
             return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
                                           c["lse"], delta, causal,
                                           c["scale"])
@@ -3258,19 +3459,26 @@ def bf16_kernels_phase(torch):
         for name in (fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16):
             rows[name][key]["plain_note"] = ("the plain backward computes "
                                              "dQ, dK and dV together")
+            rows[name][key]["host_us"] = host_us[name]
+        rows[fa.DELTA][key] = _delta_row(torch, c, flush, "bf16")
         log(f"  time {shape}: K2 {fwd_ms:.4f} ms vs SDPA flash "
             f"{sdpa_ms:.4f} (ratio {fwd_ms / sdpa_ms:.3f}); whole backward "
             f"{bwd_ms:.4f} vs {sdpa_bwd_ms:.4f} (ratio "
             f"{bwd_ms / sdpa_bwd_ms:.3f}); K3a "
             f"{timed[fa.BWD_DKDV_BF16][0]:.4f}, K3b "
-            f"{timed[fa.BWD_DQ_BF16][0]:.4f}; bounds "
-            + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names))
+            f"{timed[fa.BWD_DQ_BF16][0]:.4f}, delta "
+            f"{rows[fa.DELTA][key]['ms']:.4f}; bounds "
+            + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names)
+            + f" / {rows[fa.DELTA][key]['bound_ms']:.4f}")
         del sdpa, sdpa_bwd, c
     del flush
     for name in names:
         rows[name]["worst_vs_plain"] = worst[name]
+    for name in rows:
         log(f"  time {name}: " + json.dumps(rows[name]))
-    return {n: worst[n]["max_abs_err"] for n in names}, rows
+    errs = {n: worst[n]["max_abs_err"] for n in names}
+    errs[fa.DELTA] = delta_errs[fa.DELTA]
+    return errs, rows
 
 
 def flash_bf16_bench_phase(torch):
@@ -3303,7 +3511,8 @@ def flash_bf16_bench_phase(torch):
         grads = by_dtype[torch.bfloat16]()
         torch.cuda.synchronize()
         launches, plain = _kernel_counts()
-        want = {fa.FWD_BF16: 1, fa.BWD_DKDV_BF16: 1, fa.BWD_DQ_BF16: 1}
+        want = {fa.FWD_BF16: 1, fa.BWD_DKDV_BF16: 1, fa.BWD_DQ_BF16: 1,
+                fa.DELTA: 1}
         if {n: launches[n] for n in want} != want or any(plain.values()) \
                 or any(launches[n] for n in (fa.FWD, fa.BWD_DKDV,
                                               fa.BWD_DQ)):
@@ -3399,8 +3608,8 @@ def train_bf16_attn_phase(torch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # the window ends here
     want = {fa.FWD_BF16: TRAIN_STEPS, fa.BWD_DKDV_BF16: TRAIN_STEPS,
-            fa.BWD_DQ_BF16: TRAIN_STEPS, fa.FWD: 0, fa.BWD_DKDV: 0,
-            fa.BWD_DQ: 0}
+            fa.BWD_DQ_BF16: TRAIN_STEPS, fa.DELTA: TRAIN_STEPS, fa.FWD: 0,
+            fa.BWD_DKDV: 0, fa.BWD_DQ: 0}
     if {n: launches[n] for n in want} != want or any(plain.values()):
         raise RuntimeError(f"train bf16 attn: launches {launches}, plain "
                            f"{plain}")
@@ -3486,12 +3695,21 @@ def main():
     dec = timings["decode"]
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
+    ln_bf16 = train_rows["layer_norm_bf16"]
     train_kernels = [
         _kernel_row("layer_norm_f32", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42",
                     train_launches["layer_norm_f32"],
                     train_errs["layer_norm_f32"],
                     train_rows["layer_norm_f32"], train=train),
+        _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
+                    "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
+                    "(bf16 x, widened on load at :17)",
+                    ln_bf16["program"]["launches"]["layer_norm_bf16"],
+                    train_errs["layer_norm_bf16"], ln_bf16,
+                    launches_from="the cast -> layer_norm program",
+                    shape=ln_bf16["shape"], library=ln_bf16["library"],
+                    host_us=ln_bf16["host_us"], program=ln_bf16["program"]),
     ]
     for kname, line in (("flash_fwd_f32", 111), ("flash_bwd_dkdv_f32", 295),
                         ("flash_bwd_dq_f32", 320)):
@@ -3546,11 +3764,25 @@ def main():
             extra["ptxas"] = ptxas.get("flash_attention")
             extra["flash_bf16_bench"] = bench_bf16
             extra["train_bf16_attn"] = train_bf16
+        src = bf16_src if kname == "flash_fwd_bf16" else (
+            "paddle_tpu_torch/csrc/flash_bwd_wgmma.cuh (head_dim <= 64; "
+            "above, flash_attention_bf16.cuh)")
         train_kernels.append(_kernel_row(
-            kname, bf16_src, f"{fa_py}:{line} (the bf16 branch)",
+            kname, src, f"{fa_py}:{line} (the bf16 branch)",
             train_bf16["kernel_launches"][kname], bf16_errs[kname], row,
             shape=row["shape"], library=row["library"],
             bound_peak=row["bound_peak"], **extra))
+    delta = bf16_rows["flash_delta"]
+    train_kernels.append(_kernel_row(
+        "flash_delta", "paddle_tpu_torch/csrc/flash_delta.cuh",
+        f"{fa_py}:280 (the jnp delta of _flash_bwd; no pallas_call)",
+        train_bf16["kernel_launches"]["flash_delta"],
+        max(bf16_errs["flash_delta"], train_errs["flash_delta"]),
+        delta["bh128_s512_full"], shape=delta["bh128_s512_full"]["shape"],
+        library_note=delta["bh128_s512_full"]["library_note"],
+        launches_train_f32=train_launches["flash_delta"],
+        f32=train_rows["flash_delta"],
+        **{k: v for k, v in delta.items() if k != "bh128_s512_full"}))
     kernels = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",

@@ -1,7 +1,8 @@
 // Flash attention, float32, for Hopper (sm_90a): the forward pass and
 // the two kernels of the backward pass. The bfloat16 forms
-// (flash_attention_bf16.cuh, included at the end) build into the same
-// library.
+// (flash_attention_bf16.cuh, included at the end, with its wgmma backward
+// in flash_bwd_wgmma.cuh) and the backward's delta pass (flash_delta.cuh)
+// build into the same library.
 //
 // Replaces the Pallas TPU kernels of
 //   paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py
@@ -848,3 +849,5 @@ const char* error_string(int err) {
 // flash_fwd_bf16, flash_bwd_dkdv_bf16, flash_bwd_dq_bf16: the bfloat16
 // forms, in this library
 #include "flash_attention_bf16.cuh"
+// flash_delta: the backward's delta = rowsum(dO * O), float32 or bfloat16
+#include "flash_delta.cuh"

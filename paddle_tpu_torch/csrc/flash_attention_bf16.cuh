@@ -45,9 +45,10 @@
 //     max is taken, so the running max moves where the JAX kernel's does.
 //     K and V have one buffer each: V of tile i loads (16-byte cp.async)
 //     while its scores are computed, K of tile i + 1 while P V runs;
-//   - the backward kernels stream tiles of 64 rows (32 at the 128 bucket:
-//     registers), double-buffered with cp.async (Q, dO, lse and delta in
-//     dK/dV; K and V in dQ);
+//   - the backward kernels (here for head_dim 65-128 only: up to 64 they
+//     are the wgmma kernels of flash_bwd_wgmma.cuh) stream tiles of 32
+//     rows (registers), double-buffered with cp.async (Q, dO, lse and
+//     delta in dK/dV; K and V in dQ);
 //   - a score tile's accumulator layout is the A-fragment layout of the
 //     next product (m16n8k16: the lane holds rows g, g + 8 and columns
 //     2t, 2t + 1 of each n8 tile; A holds the same rows and columns 2t,
@@ -69,9 +70,9 @@
 //     scores become -inf and give p = 0 exactly;
 //   - no atomics: each output element is written once by one lane, and
 //     two launches on the same inputs give bitwise-equal outputs.
-// Not done yet (PERF.md has the times): wgmma, TMA, warp specialisation,
-// a persistent grid; 128-key forward tiles leave one or two blocks an SM
-// at the 128 bucket.
+// Not done yet (PERF.md has the times): wgmma and TMA in the forward and
+// in the backward's 128 bucket, warp specialisation, a persistent grid;
+// 128-key forward tiles leave one or two blocks an SM at the 128 bucket.
 //
 // head_dim above 128 runs on the CUDA-core kernels of flash_wide.cuh,
 // instantiated for bfloat16 (the same function, bf16 loads widened to
@@ -90,6 +91,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_wide.cuh"
 #include "tf32x3.cuh"
 
@@ -755,10 +757,9 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
 
 size_t halves(size_t n) { return sizeof(uint16_t) * n; }
 
-// Streamed rows per backward tile: 64, or 32 at the 128 bucket, where
-// the accumulators (dK and dV) take 128 registers a lane.
-template <int DP>
-constexpr int tile_rows() { return DP <= 64 ? 64 : 32; }
+// Streamed rows per backward tile (the 128 bucket: the accumulators, dK
+// and dV, take 128 registers a lane).
+constexpr int kBwdTile = 32;
 
 template <int DP>
 cudaError_t launch_fwd(const uint16_t* q, const uint16_t* k,
@@ -783,7 +784,7 @@ cudaError_t launch_dkdv(const uint16_t* q, const uint16_t* k,
                         __nv_bfloat16* dk, __nv_bfloat16* dv, int BH, int Sq,
                         int Sk, int D, int causal, float scale,
                         cudaStream_t stream) {
-  constexpr int BT = tile_rows<DP>();
+  constexpr int BT = kBwdTile;
   constexpr size_t LD = DP + 8;
   const size_t smem = halves((2 * kRows + 4 * BT) * LD) +
                       sizeof(float) * 4 * BT;
@@ -802,7 +803,7 @@ cudaError_t launch_dq(const uint16_t* q, const uint16_t* k,
                       const float* lse, const float* delta,
                       __nv_bfloat16* dq, int BH, int Sq, int Sk, int D,
                       int causal, float scale, cudaStream_t stream) {
-  constexpr int BT = tile_rows<DP>();
+  constexpr int BT = kBwdTile;
   constexpr size_t LD = DP + 8;
   const size_t smem = halves((2 * kRows + 4 * BT) * LD);
   auto kernel = flash_bwd_dq_bf16_kernel<DP, BT>;
@@ -879,10 +880,10 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                     Sk, D, causal, scale, s);
   };
   cudaError_t e;
-  if (D <= 32)
-    e = tc(flash_bf16::launch_dkdv<32>);
-  else if (D <= 64)
-    e = tc(flash_bf16::launch_dkdv<64>);
+  if (D <= 64)
+    e = flash_wgmma::launch_dkdv<flash_wgmma::DkdvCfg>(
+        q, k, v, dout, l, dl, static_cast<Bf*>(dk), static_cast<Bf*>(dv), BH,
+        Sq, Sk, D, causal, scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_dkdv<128>);
   else if (D <= flash_wide::kWideChunk)
@@ -916,10 +917,10 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                     scale, s);
   };
   cudaError_t e;
-  if (D <= 32)
-    e = tc(flash_bf16::launch_dq<32>);
-  else if (D <= 64)
-    e = tc(flash_bf16::launch_dq<64>);
+  if (D <= 64)
+    e = flash_wgmma::launch_dq<flash_wgmma::DqCfg>(
+        q, k, v, dout, l, dl, static_cast<Bf*>(dq), BH, Sq, Sk, D, causal,
+        scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_dq<128>);
   else if (D <= flash_wide::kWideChunk)

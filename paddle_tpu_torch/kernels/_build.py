@@ -48,6 +48,8 @@ _SIGNATURES = {
     "layer_norm": {
         # x, scale, bias, y, mean, rstd, N, F, eps, stream
         "layer_norm_f32": ([_P] * 6 + [_I] * 2 + [_F, _P], _I),
+        # the same with bfloat16 x, scale, bias and y
+        "layer_norm_bf16": ([_P] * 6 + [_I] * 2 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
@@ -64,6 +66,8 @@ _SIGNATURES = {
         "flash_fwd_bf16": ([_P] * 5 + [_I] * 5 + [_F, _P], _I),
         "flash_bwd_dkdv_bf16": ([_P] * 8 + [_I] * 5 + [_F, _P], _I),
         "flash_bwd_dq_bf16": ([_P] * 7 + [_I] * 5 + [_F, _P], _I),
+        # dout, o, delta, rows, D, bf16, stream (delta = rowsum(dO * O))
+        "flash_delta": ([_P] * 3 + [_I] * 3 + [_P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
     "conv_bn_relu": {

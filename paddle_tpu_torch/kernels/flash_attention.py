@@ -31,7 +31,15 @@ Two implementations of each pass:
     ``mma.sync``), above that on CUDA cores (``csrc/flash_wide.cuh``;
     above 256 each block computes one 256-column slice of the output); a
     head_dim that is not a multiple of 4 (float32) or 8 (bfloat16) is
-    zero-padded to one (``pad_head_dim``, exact).
+    zero-padded to one (``pad_head_dim``, exact). The bfloat16 backward
+    up to head_dim 64 runs on ``wgmma`` fed by TMA
+    (``csrc/flash_bwd_wgmma.cuh``).
+
+The backward's ``delta = rowsum(dO * O)`` (float32) is one pass too:
+``flash_delta`` (``csrc/flash_delta.cuh``, in the same library) on a
+card, ``flash_delta_reference`` on the CPU; it counts in
+``counts_delta``. It stands for the JAX ``_flash_bwd``'s jnp line, which
+XLA fuses; it replaces no TPU kernel.
 
 The routers ``flash_attention_fwd`` and ``flash_attention_bwd`` route on
 the tensor's device only: a CPU tensor takes the plain version (counted
@@ -54,7 +62,8 @@ from .counts import LaunchCounts
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_reference", "flash_attention_bwd_reference",
            "counts", "counts_bf16", "FWD", "BWD_DKDV", "BWD_DQ", "FWD_BF16",
-           "BWD_DKDV_BF16", "BWD_DQ_BF16", "BLOCK_K", "NEG_INF"]
+           "BWD_DKDV_BF16", "BWD_DQ_BF16", "BLOCK_K", "NEG_INF",
+           "flash_delta", "flash_delta_reference", "counts_delta", "DELTA"]
 
 NEG_INF = -1e30
 FWD, BWD_DKDV, BWD_DQ = "flash_fwd_f32", "flash_bwd_dkdv_f32", \
@@ -63,6 +72,8 @@ FWD_BF16, BWD_DKDV_BF16, BWD_DQ_BF16 = "flash_fwd_bf16", \
     "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16"
 counts = LaunchCounts(FWD, BWD_DKDV, BWD_DQ)
 counts_bf16 = LaunchCounts(FWD_BF16, BWD_DKDV_BF16, BWD_DQ_BF16)
+DELTA = "flash_delta"
+counts_delta = LaunchCounts(DELTA)
 # the bfloat16 forward's softmax block: the JAX flash_attention's default
 # block_k, the one layers.ring_attention runs (a shorter key sequence is
 # one block)
@@ -322,9 +333,48 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool,
     return dq, dk, dv
 
 
+def flash_delta_reference(dout, o):
+    """The plain delta: ``rowsum(dO * O)`` in float32 over the last dim
+    (bfloat16 inputs widened, so each product is exact)."""
+    return (dout.float() * o.float()).sum(dim=-1)
+
+
+def _delta_cuda(dout, o):
+    from ._build import launch
+
+    if dout.shape != o.shape:
+        raise ValueError(f"flash delta takes dout and o of one shape; got "
+                         f"{tuple(dout.shape)}, {tuple(o.shape)}")
+    dev = _check_cuda(dout=dout, o=o)
+    dout, o = pad_head_dim(dout, o)
+    d = dout.shape[-1]
+    delta = torch.empty(dout.shape[:-1], dtype=torch.float32, device=dev)
+    launch("flash_attention", DELTA, dev, dout.data_ptr(), o.data_ptr(),
+           delta.data_ptr(), delta.numel(), d,
+           int(dout.dtype == torch.bfloat16))
+    counts_delta.kernel_launches[DELTA] += 1
+    return delta
+
+
+def flash_delta(dout, o):
+    """``delta = rowsum(dO * O)``, float32, of the backward: the plain
+    version on the CPU (counted) and on ``meta`` (uncounted), the
+    ``flash_delta`` kernel on a card (launches or raises)."""
+    kind = dout.device.type
+    if kind == "cuda":
+        return _delta_cuda(dout, o)
+    if kind == "cpu":
+        counts_delta.plain_calls[DELTA] += 1
+    elif kind != "meta":
+        raise ValueError(f"flash delta runs on cpu (plain version) or cuda "
+                         f"(kernel), not {dout.device}")
+    return flash_delta_reference(dout, o)
+
+
 class _Flash(torch.autograd.Function):
     """[BH, S, D] attention; saves q, k, v, O and LSE for the backward,
-    which computes delta = rowsum(dO * O) and launches K3a then K3b."""
+    which computes delta = rowsum(dO * O) (``flash_delta``) and launches
+    K3a then K3b."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -337,7 +387,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        delta = (dout.float() * o.float()).sum(dim=-1)
+        delta = flash_delta(dout, o)
         dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse, delta,
                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None

@@ -1,21 +1,24 @@
 """Layer norm over the trailing dims — the counterpart of
 ``paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py`` (``fused_layer_norm``).
 
-Two implementations of the forward over rows ``x [N, F]`` (float32):
+Two implementations of the forward over rows ``x [N, F]`` (float32 or
+bfloat16; scale and bias of x's dtype):
 
   - ``layer_norm_reference`` — the plain PyTorch version: mean, biased
     variance of ``x - mean``, ``rstd = 1 / sqrt(var + eps)``, normalize,
-    scale and bias; returns ``(y, mean, rstd)``. The CPU tests run it,
+    scale and bias, in float32 (bfloat16 inputs widened), ``y`` rounded
+    once to x's dtype; returns ``(y, mean, rstd)``. The CPU tests run it,
     ``chip_smoke.py`` holds the kernel against it, and build-time shape
     inference runs it on ``meta`` tensors.
-  - ``_layer_norm_cuda`` — the hand-written Hopper kernel
-    ``layer_norm_f32`` in ``paddle_tpu_torch/csrc/layer_norm.cu`` (K1),
-    built by ``nvcc`` at first use and bound with ``ctypes``.
+  - ``_layer_norm_cuda`` — the hand-written Hopper kernel (K1) in
+    ``paddle_tpu_torch/csrc/layer_norm.cu``: ``layer_norm_f32``, and its
+    bfloat16 form ``layer_norm_bf16``, built by ``nvcc`` at first use and
+    bound with ``ctypes``.
 
 ``layer_norm_fwd`` routes on the tensor's device only: a CPU tensor takes
-the plain version (counted in ``counts.plain_calls``), a CUDA tensor
-launches the kernel (``counts.kernel_launches``) or raises, a ``meta``
-tensor takes the plain version uncounted.
+the plain version (counted in ``counts.plain_calls`` under the kernel of
+its dtype), a CUDA tensor launches the kernel (``counts.kernel_launches``)
+or raises, a ``meta`` tensor takes the plain version uncounted.
 
 The backward is PyTorch code on every device (``layer_norm_backward``),
 as the JAX package's is jnp under ``custom_vjp``: ``fused_layer_norm``
@@ -30,10 +33,12 @@ import torch
 from .counts import LaunchCounts
 
 __all__ = ["fused_layer_norm", "layer_norm_fwd", "layer_norm_reference",
-           "layer_norm_backward", "counts", "KERNEL"]
+           "layer_norm_backward", "counts", "KERNEL", "KERNEL_BF16"]
 
-KERNEL = "layer_norm_f32"
-counts = LaunchCounts(KERNEL)
+KERNEL, KERNEL_BF16 = "layer_norm_f32", "layer_norm_bf16"
+counts = LaunchCounts(KERNEL, KERNEL_BF16)
+# the kernel of each dtype it takes
+_KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
 
 
 def _check(x, scale, bias):
@@ -61,28 +66,31 @@ def layer_norm_reference(x, scale, bias, eps: float):
 
 
 def _layer_norm_cuda(x, scale, bias, eps: float):
-    """Launch the hand-written kernel. Raises on what it does not take: a
-    device other than the one CUDA device of ``x``, a dtype other than
-    float32, a non-contiguous operand."""
+    """Launch the hand-written kernel of x's dtype. Raises on what it does
+    not take: a device other than the one CUDA device of ``x``, x, scale
+    and bias not of one dtype, float32 or bfloat16, a non-contiguous
+    operand."""
     from ._build import launch
 
     _check(x, scale, bias)
+    kernel = _KERNELS.get(x.dtype)
+    if kernel is None or scale.dtype != x.dtype or bias.dtype != x.dtype:
+        raise TypeError(f"layer norm kernel takes x, scale and bias of one "
+                        f"dtype, float32 or bfloat16; got x {x.dtype}, "
+                        f"scale {scale.dtype}, bias {bias.dtype}")
     for name, t in (("x", x), ("scale", scale), ("bias", bias)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"layer norm kernel takes float32 {name}, got "
-                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"layer norm kernel needs a contiguous {name}")
     n, f = x.shape
     y = torch.empty_like(x)
     mean = torch.empty(n, dtype=torch.float32, device=x.device)
     rstd = torch.empty(n, dtype=torch.float32, device=x.device)
-    launch("layer_norm", KERNEL, x.device, x.data_ptr(), scale.data_ptr(),
+    launch("layer_norm", kernel, x.device, x.data_ptr(), scale.data_ptr(),
            bias.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
            n, f, float(eps))
-    counts.kernel_launches[KERNEL] += 1
+    counts.kernel_launches[kernel] += 1
     return y, mean, rstd
 
 
@@ -94,7 +102,7 @@ def layer_norm_fwd(x, scale, bias, eps: float):
     if kind == "cuda":
         return _layer_norm_cuda(x, scale, bias, eps)
     if kind == "cpu":
-        counts.plain_calls[KERNEL] += 1
+        counts.plain_calls[_KERNELS.get(x.dtype, KERNEL)] += 1
     elif kind != "meta":
         raise ValueError(f"layer norm runs on cpu (plain version) or cuda "
                          f"(kernel), not {x.device}")

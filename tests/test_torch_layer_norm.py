@@ -61,5 +61,6 @@ def test_router_meta_is_uncounted_and_other_devices_raise():
     y, m, r = tln.layer_norm_fwd(x, s, s, 1e-5)
     assert (y.shape, m.shape, r.shape) == ((6, 8), (6,), (6,))
     assert tln.counts.plain_calls == before
-    with pytest.raises(TypeError, match="float32"):
-        tln._layer_norm_cuda(x.to(torch.bfloat16), s, s, 1e-5)
+    # the kernel takes float32 and bfloat16 rows; float16 is refused
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tln._layer_norm_cuda(x.half(), s.half(), s.half(), 1e-5)

@@ -115,7 +115,10 @@ _IMPORT = re.compile(
 
 
 def test_source_scan_finds_no_jax_or_paddle_tpu_import():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py and the card-side A/B scripts at the repo's root
+    files = [os.path.join(REPO, n) for n in (
+        "chip_smoke.py", "flash_bf16_bwd_vs_old.py", "flash_wide_vs_old.py",
+        "k4_splits.py", "k4_vs_old.py", "k5_tiles.py")]
     for root, _, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
