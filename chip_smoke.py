@@ -3241,6 +3241,8 @@ FLASH_BF16_PEAK = ("products in bf16 on the tensor cores (flops over 989 "
                    "TFLOP/s; bf16 q/k/v/dO/outputs and float32 lse/delta "
                    "over 3.35 TB/s")
 SDPA_FLASH_LIBRARY = "sdpa flash backend, bf16"
+# the ptxas name of K2 bf16's wgmma body (csrc/flash_fwd_wgmma.cuh)
+WGMMA_FWD_KERNEL = "fwd_kernel<2>"
 # what the earlier mma.sync forms of K3a/K3b bf16 reached against the
 # plain versions at the first 13 cases: recorded beside each backward
 # kernel's worst case (not a gate)
@@ -3402,7 +3404,10 @@ def bf16_kernels_phase(torch):
     c = _flash_bf16_case(torch, rng, 1, 64, 64, 64, False)
     bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
              c["scale"])
-    host_us = {fa.BWD_DKDV_BF16: _host_us(
+    host_us = {fa.FWD_BF16: _host_us(
+        torch, lambda: fa._fwd_cuda(c["q"], c["k"], c["v"], False,
+                                    c["scale"])),
+               fa.BWD_DKDV_BF16: _host_us(
         torch, lambda: fa._bwd_dkdv_cuda(*bargs)), fa.BWD_DQ_BF16: _host_us(
         torch, lambda: fa._bwd_dq_cuda(*bargs))}
     for bh, s, causal in BF16_FLASH_TIMED:
@@ -3446,6 +3451,7 @@ def bf16_kernels_phase(torch):
         rows[fa.FWD_BF16][key]["in_turns"] = {
             "port_ms": fwd_ms, "sdpa_ms": sdpa_ms,
             "ratio_port_over_sdpa": fwd_ms / sdpa_ms, "turns_ms": fwd_turns}
+        rows[fa.FWD_BF16][key]["host_us"] = host_us[fa.FWD_BF16]
         rows[fa.BWD_DKDV_BF16][key]["whole_backward"] = {
             "port_ms": bwd_ms, "sdpa_ms": sdpa_bwd_ms,
             "ratio_port_over_sdpa": bwd_ms / sdpa_bwd_ms,
@@ -3750,7 +3756,6 @@ def main():
                  f"batch-{INFER_BATCH} ResNet-50 forward, FLAGS['amp']",
         bound_peak=AMP_CONV_PEAK, forward=amp_fwd, infer_amp=infer_amp,
         resnet_train_amp=resnet_amp, train_amp=train_amp)]
-    bf16_src = "paddle_tpu_torch/csrc/flash_attention_bf16.cuh"
     for kname, line in (("flash_fwd_bf16", 111), ("flash_bwd_dkdv_bf16", 295),
                         ("flash_bwd_dq_bf16", 320)):
         rows = bf16_rows[kname]
@@ -3762,11 +3767,15 @@ def main():
         extra = {key: rows[key] for key in rows if key != "bh128_s512_full"}
         if kname == "flash_fwd_bf16":
             extra["ptxas"] = ptxas.get("flash_attention")
+            # the wgmma body that head_dim <= 64 runs
+            extra["ptxas_wgmma_body"] = ptxas.get(
+                "flash_attention", {}).get(WGMMA_FWD_KERNEL)
             extra["flash_bf16_bench"] = bench_bf16
             extra["train_bf16_attn"] = train_bf16
-        src = bf16_src if kname == "flash_fwd_bf16" else (
-            "paddle_tpu_torch/csrc/flash_bwd_wgmma.cuh (head_dim <= 64; "
-            "above, flash_attention_bf16.cuh)")
+        src = ("paddle_tpu_torch/csrc/" + (
+            "flash_fwd_wgmma.cuh" if kname == "flash_fwd_bf16" else
+            "flash_bwd_wgmma.cuh") + " (head_dim <= 64; above, "
+            "flash_attention_bf16.cuh)")
         train_kernels.append(_kernel_row(
             kname, src, f"{fa_py}:{line} (the bf16 branch)",
             train_bf16["kernel_launches"][kname], bf16_errs[kname], row,

@@ -1,8 +1,8 @@
 // Flash attention, float32, for Hopper (sm_90a): the forward pass and
 // the two kernels of the backward pass. The bfloat16 forms
-// (flash_attention_bf16.cuh, included at the end, with its wgmma backward
-// in flash_bwd_wgmma.cuh) and the backward's delta pass (flash_delta.cuh)
-// build into the same library.
+// (flash_attention_bf16.cuh, included at the end, with its wgmma forward
+// and backward in flash_fwd_wgmma.cuh and flash_bwd_wgmma.cuh) and the
+// backward's delta pass (flash_delta.cuh) build into the same library.
 //
 // Replaces the Pallas TPU kernels of
 //   paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py

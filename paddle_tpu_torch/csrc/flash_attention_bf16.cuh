@@ -33,8 +33,10 @@
 // (BH = 128, S = 512, D = 64) the products run on the tensor cores at the
 // bf16 rate (989 TFLOP/s dense), and the exp and softmax or ds arithmetic
 // (~5 float32 flops a (query, key) pair) on the float32 ALUs at
-// 67 TFLOP/s, which at head_dim 64 takes longer than the products. The
-// design (head_dim up to 128):
+// 67 TFLOP/s, which at head_dim 64 takes longer than the products. Up to
+// head_dim 64 all three are wgmma kernels fed by TMA
+// (flash_fwd_wgmma.cuh, flash_bwd_wgmma.cuh). The design here (head_dim
+// 65-128):
 //   - one block of 4 warps per (batch-head, 64 rows), 16 rows a warp as
 //     the m16 side of every product (query rows in the forward and dQ,
 //     keys in dK/dV); products are mma.sync m16n8k16 bf16 with float32
@@ -45,10 +47,9 @@
 //     max is taken, so the running max moves where the JAX kernel's does.
 //     K and V have one buffer each: V of tile i loads (16-byte cp.async)
 //     while its scores are computed, K of tile i + 1 while P V runs;
-//   - the backward kernels (here for head_dim 65-128 only: up to 64 they
-//     are the wgmma kernels of flash_bwd_wgmma.cuh) stream tiles of 32
-//     rows (registers), double-buffered with cp.async (Q, dO, lse and
-//     delta in dK/dV; K and V in dQ);
+//   - the backward kernels stream tiles of 32 rows (registers),
+//     double-buffered with cp.async (Q, dO, lse and delta in dK/dV; K
+//     and V in dQ);
 //   - a score tile's accumulator layout is the A-fragment layout of the
 //     next product (m16n8k16: the lane holds rows g, g + 8 and columns
 //     2t, 2t + 1 of each n8 tile; A holds the same rows and columns 2t,
@@ -70,9 +71,9 @@
 //     scores become -inf and give p = 0 exactly;
 //   - no atomics: each output element is written once by one lane, and
 //     two launches on the same inputs give bitwise-equal outputs.
-// Not done yet (PERF.md has the times): wgmma and TMA in the forward and
-// in the backward's 128 bucket, warp specialisation, a persistent grid;
-// 128-key forward tiles leave one or two blocks an SM at the 128 bucket.
+// Not done yet (PERF.md has the times): wgmma and TMA at the 128 bucket,
+// warp specialisation, a persistent grid; 128-key forward tiles leave
+// one or two blocks an SM there.
 //
 // head_dim above 128 runs on the CUDA-core kernels of flash_wide.cuh,
 // instantiated for bfloat16 (the same function, bf16 loads widened to
@@ -92,6 +93,7 @@
 #include <type_traits>
 
 #include "flash_bwd_wgmma.cuh"
+#include "flash_fwd_wgmma.cuh"
 #include "flash_wide.cuh"
 #include "tf32x3.cuh"
 
@@ -248,7 +250,8 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* row,
 // ---------------------------------------------------------------- fwd
 // grid (BH, ceil(Sq / 64)): the block owns 64 query rows, 16 a warp, and
 // streams key/value tiles of 128 (the softmax block) up to its last row
-// when causal. DP: head_dim padded up to its bucket (32, 64 or 128).
+// when causal. DP: head_dim padded up to its bucket (128 alone: up to 64
+// the forward is flash_fwd_wgmma.cuh's).
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
@@ -262,8 +265,6 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
   constexpr int NO = DP / 8;        // n-tiles of O
   constexpr int NT = kBlockK / 8;   // n-tiles of S (16)
   constexpr int KP = kBlockK / 16;  // k-steps of O += P V (8)
-  constexpr bool kKeepQ = DP <= 64;  // Q's fragments stay in registers
-  constexpr int QF = kKeepQ ? KS : 1;
   // n-tiles of O whose tile sums are held at once (registers at 128)
   constexpr int NF = NO < 8 ? NO : 8;
   extern __shared__ float4 smem4[];
@@ -288,13 +289,6 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
   const int rw = warp * kRowsPerWarp;  // the warp's first row in the block
   const int last = q0 + rw + kRowsPerWarp - 1;  // and its last row
   const uint16_t* qw = qs + rw * LD;
-  uint32_t qf[QF][4];
-  if constexpr (kKeepQ) {
-    cp_async_wait_all();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < QF; ++kk) load_a<LD>(qw, kk, lane, qf[kk]);
-  }
 
   // the lane's rows g and g + 8: running max in units of
   // s * scale * log2(e), the lane's share of the running sum, and the
@@ -325,12 +319,7 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t a[4];
-        if constexpr (kKeepQ) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-        } else {
-          load_a<LD>(qw, kk, lane, a);
-        }
+        load_a<LD>(qw, kk, lane, a);
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t b[4];
@@ -842,10 +831,10 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                     static_cast<float*>(lse), BH, Sq, Sk, D, causal, scale, s);
   };
   cudaError_t e;
-  if (D <= 32)
-    e = tc(flash_bf16::launch_fwd<32>);
-  else if (D <= 64)
-    e = tc(flash_bf16::launch_fwd<64>);
+  if (D <= 64)
+    e = flash_wgmma::launch_fwd<flash_wgmma::FwdRing>(
+        q, k, v, static_cast<Bf*>(o), static_cast<float*>(lse), BH, Sq, Sk,
+        D, causal, scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_fwd<128>);
   else if (D <= flash_wide::kWideChunk)

@@ -114,10 +114,20 @@ def batch_norm(ctx, ins, attrs):
 @register_op("layer_norm", ref="paddle/fluid/operators/layer_norm_op.cc")
 def layer_norm(ctx, ins, attrs):
     """Through the K1 router on every device: the hand-written kernel on
-    a card, its plain version on the CPU (the JAX package takes its
-    Pallas kernel single-device when kernels are enabled, jnp otherwise
-    — the same function). Mean and Variance are [rows] over the leading
-    dims, the variance rebuilt from the kernel's rstd."""
+    a card, its plain version on the CPU. Mean and Variance are [rows]
+    over the leading dims, the variance rebuilt from the kernel's rstd.
+
+    This is the JAX package's kernel branch, its Pallas ``_ln_kernel``
+    (``paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:16-24``), which
+    the JAX op takes single-device when kernels are enabled
+    (``paddle_tpu/fluid/ops/nn_ops.py:296-302``): on float32 the jnp
+    branch computes the same function. On bfloat16 X, Scale and Bias it
+    does not: the port widens to float32, normalizes, rounds Y once to
+    bfloat16 and returns float32 Mean and Variance; the jnp branch the
+    JAX op takes at its default flags off a TPU (``:304-318``) computes
+    in bfloat16 and returns bfloat16 Y, Mean and Variance, a third of Y
+    a bfloat16 step or so apart and less accurate against float64
+    (``tests/test_torch_bf16_routes.py``)."""
     y, mean, var = fused_layer_norm(
         one(ins, "X"), one(ins, "Scale"), one(ins, "Bias"),
         eps=float(attrs.get("epsilon", 1e-5)),
@@ -142,9 +152,14 @@ def conv2d_bn_relu(ctx, ins, attrs):
     float32 Scale/Shift affine and the relu apply to the accumulator, and
     the output rounds once to bfloat16, then is restored to float32. That
     is the JAX package's Pallas branch (``use_pallas_kernels=True``,
-    ``paddle_tpu/fluid/ops/nn_ops.py:72-80``); its XLA branch rounds the
-    convolution's output to bfloat16 before the affine instead, a
-    different function that the port does not compute."""
+    ``paddle_tpu/fluid/ops/nn_ops.py:69-80``, ``_gemm_epilogue_kernel``
+    at ``paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:49-54``).
+    Its XLA branch, which the JAX op takes at its default flags
+    (``nn_ops.py:82-94``), rounds the convolution's output to bfloat16
+    before the affine instead: a different function (half the outputs
+    apart by under a bfloat16 ulp of the max, as accurate against
+    float64; ``tests/test_torch_bf16_routes.py``) that the port does not
+    compute."""
     x, w, restore = amp_operands(one(ins, "X"), one(ins, "Filter"))
     out = fused_conv_bn_relu(
         x, w, one(ins, "Scale"), one(ins, "Shift"),

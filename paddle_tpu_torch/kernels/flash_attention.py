@@ -31,9 +31,9 @@ Two implementations of each pass:
     ``mma.sync``), above that on CUDA cores (``csrc/flash_wide.cuh``;
     above 256 each block computes one 256-column slice of the output); a
     head_dim that is not a multiple of 4 (float32) or 8 (bfloat16) is
-    zero-padded to one (``pad_head_dim``, exact). The bfloat16 backward
-    up to head_dim 64 runs on ``wgmma`` fed by TMA
-    (``csrc/flash_bwd_wgmma.cuh``).
+    zero-padded to one (``pad_head_dim``, exact). The bfloat16 forward
+    and backward up to head_dim 64 run on ``wgmma`` fed by TMA
+    (``csrc/flash_fwd_wgmma.cuh``, ``csrc/flash_bwd_wgmma.cuh``).
 
 The backward's ``delta = rowsum(dO * O)`` (float32) is one pass too:
 ``flash_delta`` (``csrc/flash_delta.cuh``, in the same library) on a
