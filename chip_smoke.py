@@ -130,15 +130,21 @@ and prints no result):
            its plain version (within one bfloat16 ulp of the output's
            largest |value|) at the JAX tests' four shapes, the stem, a
            projection and a res5 3x3 at batch 2, and every distinct
-           convolution of a batch-16 ResNet-50 forward; an image's output
-           bitwise the same alone and at batch 16, two launches bitwise
-           equal; timed at the 20 shapes in turns with F.conv2d in bf16
-           (cuDNN) + the affine and relu, summed over the 53 convs.
+           convolution of a batch-16 ResNet-50 forward (each with its
+           plan's body and split); an image's output bitwise the same
+           alone and at batch 16, two launches bitwise equal, at res2 3x3
+           and at every shape on a wgmma body or split; timed at the 20
+           shapes in turns with F.conv2d in bf16 (cuDNN) + the affine and
+           relu, summed over the 53 convs; the split combine
+           (conv_split_combine_bf16) bitwise against its plain version
+           and timed.
   infer amp
            the fused ResNet-50 artifact served over RPC at bucket 16
            under FLAGS['amp']: 53 conv_bn_relu_bf16 launches per batch,
-           no float32 K5 launch, no plain call; images/s; the logits
-           against the float32 fused forward of the same artifact.
+           a conv_split_combine_bf16 launch per split convolution, no
+           float32 K5 launch, no plain call; images/s; one profiled
+           request (busy share, K5 bf16's device ms); the logits against
+           the float32 fused forward of the same artifact.
   resnet train amp
            resnet train under FLAGS['amp'] (bf16 conv2d and fc, float32
            master weights): p50 step ms, images/s, peak memory, no plain
@@ -1701,8 +1707,10 @@ def profile_step(torch, exe, main, feed, cost, scope):
     return _device_summary(prof.key_averages(), wall_ms, "train step")
 
 
-def _device_summary(events, wall_ms, what):
-    """Device time by entry of a profiler's ``key_averages()``."""
+def _device_summary(events, wall_ms, what, part=None):
+    """Device time by entry of a profiler's ``key_averages()``; with
+    ``part`` (name substrings), also the device ms of the entries whose
+    name holds one of them (``part_ms``)."""
     def dev_us(ev):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
@@ -1718,6 +1726,10 @@ def _device_summary(events, wall_ms, what):
            "busy_share": busy_ms / wall_ms if wall_ms else None,
            "top": [{"name": k[:80], "device_ms": us / 1e3, "count": n}
                    for k, us, n in rows[:12]]}
+    if part:
+        out["part"] = list(part)
+        out["part_ms"] = sum(us for k, us, _ in rows
+                             if any(p in k for p in part)) / 1e3
     if not rows:
         out["note"] = "profiler recorded no device time"
     log(f"  profile {what} " + json.dumps(out))
@@ -2678,13 +2690,14 @@ def feed_copy_ms(torch, x):
     return statistics.median(times)
 
 
-def profile_infer(torch, client, x16):
+def profile_infer(torch, client, x16, model="resnet50", part=None,
+                  what="bucket-16 infer request"):
     """One more bucket-16 request under torch.profiler, after the main
     path's counts were read: device time by kernel and the device's busy
-    share of the request's wall time. Reporting only. A first request
-    runs as the profiler's warm-up step, so the tracer is already
-    running when the measured request's feed copy and first K5 launch
-    start."""
+    share of the request's wall time (and the device ms of the kernels
+    named by ``part``). Reporting only. A first request runs as the
+    profiler's warm-up step, so the tracer is already running when the
+    measured request's feed copy and first K5 launch start."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     kept = []
@@ -2692,15 +2705,15 @@ def profile_infer(torch, client, x16):
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: kept.append(p.key_averages())
                  ) as prof:
-        client.infer("resnet50", {"img": x16})
+        client.infer(model, {"img": x16})
         prof.step()
         t0 = time.perf_counter()
-        client.infer("resnet50", {"img": x16})
+        client.infer(model, {"img": x16})
         wall_ms = (time.perf_counter() - t0) * 1e3
         prof.step()
     if not kept:
         raise RuntimeError("profiler kept no trace of the measured request")
-    return _device_summary(kept[0], wall_ms, "bucket-16 infer request")
+    return _device_summary(kept[0], wall_ms, what, part)
 
 
 def infer_check_phase(torch, built):
@@ -2800,6 +2813,27 @@ def _amp_conv_case(torch, rng, *shape):
     return x.bfloat16(), w.bfloat16(), sc, sh, s, p, relu
 
 
+# the seed of the amp kernels phase's batch-16 census inputs
+# (amp_census_cases; k5_bf16_vs_old.py replays them)
+AMP_CENSUS_SEED = 2031
+
+
+def amp_census_cases(torch):
+    """(shape, count, _amp_conv_case args) for every distinct fused
+    convolution of a batch-16 ResNet-50 forward, in census order, drawn
+    from one RandomState(AMP_CENSUS_SEED)."""
+    import numpy as np
+
+    main, _, _, _ = build_resnet50(seed=1)
+    census = conv_census(main, INFER_BATCH)
+    if sum(census.values()) != CONVS_PER_FORWARD:
+        raise RuntimeError(f"ResNet-50 has {sum(census.values())} fused "
+                           f"convs, want {CONVS_PER_FORWARD}")
+    rng = np.random.RandomState(AMP_CENSUS_SEED)
+    for shape, n in census.items():
+        yield shape, n, _amp_conv_case(torch, rng, *shape)
+
+
 def _amp_conv_library(torch, x, w, sc, sh, s, p, relu):
     """F.conv2d in bfloat16 (cuDNN) and the affine and relu in bfloat16:
     the yardstick, never used by the port (it rounds the convolution to
@@ -2841,16 +2875,81 @@ def _hold_bf16(torch, k5, args, what):
     return err, ulps, share
 
 
+# the device-side names of K5 bf16's kernels in a profile: the wgmma
+# bodies, the mma.sync body, the split combine
+K5_BF16_PROFILE_NAMES = ("conv_kernel<", "conv_bn_relu_bf16_kernel",
+                         "split_combine_kernel")
+
+
+def _bitwise_bf16(torch, k5, args, what):
+    """An image's output bitwise the same at the args' batch and alone,
+    and two launches on the same inputs bitwise equal."""
+    whole = k5._conv_cuda(*args)
+    img = min(5, args[0].shape[0] - 1)
+    alone = k5._conv_cuda(args[0][img:img + 1].contiguous(), *args[1:])
+    if not torch.equal(whole[img:img + 1], alone):
+        raise RuntimeError(f"K5 bf16 {what}: image {img}'s output differs "
+                           f"between batch {args[0].shape[0]} and alone")
+    if not torch.equal(whole, k5._conv_cuda(*args)):
+        raise RuntimeError(f"K5 bf16 {what}: two launches on the same "
+                           f"inputs differ")
+
+
+def _combine_row(torch, k5, rng, flush, shape):
+    """conv_split_combine_bf16 held against its plain version on seeded
+    float32 partials of the plan of ``shape`` (the same sums in the same
+    order: bitwise equal), then timed beside it; its bound: the partials
+    read once and y written once over HBM bandwidth."""
+    import numpy as np
+
+    n, c, h, w, f, k, s, p, relu = shape
+    plan = k5._plan(c, h, w, f, k, k, s, p)
+    oh, ow = k5.conv_out_hw(h, w, k, k, s, p)
+    m = n * oh * ow
+    mpad = -(-m // 4) * 4
+    ws = torch.from_numpy(rng.randn(plan.splits, f, mpad)
+                          .astype(np.float32)).cuda()
+    sc = torch.from_numpy((rng.rand(f) + 0.5).astype(np.float32)).cuda()
+    sh = torch.from_numpy((rng.randn(f) * 0.1).astype(np.float32)).cuda()
+    got = k5._combine_cuda(ws, sc, sh, n, oh, ow, relu)
+    want = k5.split_combine_reference(ws, sc, sh, n, oh, ow, relu)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise RuntimeError(f"split combine at {shape}: max abs err {err:.3g}"
+                           f" against its plain version (want bitwise)")
+    nbytes = 4 * plan.splits * f * mpad + 2 * m * f + 8 * f
+    row = {"shape": list(shape), "splits": plan.splits,
+           "partials": [plan.splits, f, mpad], "max_abs_err": err,
+           "ms": _time_ms(torch, lambda: k5._combine_cuda(ws, sc, sh, n, oh,
+                                                          ow, relu), flush),
+           "plain_ms": _time_ms(torch, lambda: k5.split_combine_reference(
+               ws, sc, sh, n, oh, ow, relu), flush),
+           "library_ms": None,
+           "library_note": "no one PyTorch call sums the partials in order "
+                           "and applies the epilogue"}
+    row["bound_ms"], row["bound_by"] = _bound_of(nbytes,
+                                                 (plan.splits + 2) * m * f)
+    row["host_us"] = _host_us(torch, lambda: k5._combine_cuda(
+        ws, sc, sh, n, oh, ow, relu))
+    log("  split combine " + json.dumps(row))
+    return row
+
+
 def amp_kernels_phase(torch):
     """conv_bn_relu_bf16 (K5's bfloat16 form) against its plain version
     on the card (within AMP_ULPS bfloat16 ulps of the output's largest
     |value|): the JAX tests' four shapes, the stem (2-byte weight loads:
     K = 147), a 1x1/2 projection and a res5 3x3 at batch 2, then every
-    distinct convolution of a batch-16 ResNet-50 forward (20 shapes);
-    an image's output bitwise the same alone and at batch 16, two
-    launches bitwise equal; timed at the 20 shapes in turns with
-    F.conv2d in bfloat16 (cuDNN) + the affine and relu, the plain
-    version once, and summed over the 53 convolutions of the forward."""
+    distinct convolution of a batch-16 ResNet-50 forward (20 shapes, each
+    with its plan's body and split); an image's output bitwise the same
+    alone and at batch 16, and two launches bitwise equal, at res2 3x3
+    and at every shape whose plan takes a wgmma body or splits K; timed
+    at the 20 shapes in turns with F.conv2d in bfloat16 (cuDNN) + the
+    affine and relu, the plain version once, and summed over the 53
+    convolutions of the forward. The split combine
+    (conv_split_combine_bf16) held bitwise against its plain version and
+    timed at res5 3x3."""
     phase("amp kernels")
     import numpy as np
 
@@ -2880,29 +2979,23 @@ def amp_kernels_phase(torch):
 
     args = _amp_conv_case(torch, rng, INFER_BATCH, 64, 56, 56, 64, 3, 1, 1,
                           True)
-    whole = k5._conv_cuda(*args)
-    alone = k5._conv_cuda(args[0][5:6].contiguous(), *args[1:])
-    if not torch.equal(whole[5:6], alone):
-        raise RuntimeError("K5 bf16: an image's output differs between "
-                           "batch 16 and batch 1")
-    if not torch.equal(whole, k5._conv_cuda(*args)):
-        raise RuntimeError("K5 bf16: two launches on the same inputs differ")
+    _bitwise_bf16(torch, k5, args, "res2 3x3")
     log("  conv bf16 res2 3x3: image 5 bitwise equal at batch 16 and alone; "
         "two launches bitwise equal")
-    del whole, alone, args
+    del args
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
-    main, _, _, _ = build_resnet50(seed=1)
-    census = conv_census(main, INFER_BATCH)
-    if sum(census.values()) != CONVS_PER_FORWARD:
-        raise RuntimeError(f"ResNet-50 has {sum(census.values())} fused "
-                           f"convs, want {CONVS_PER_FORWARD}")
     fwd = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     work = [0, 0, 0]
-    by_shape = []
-    for shape, n in census.items():
-        args = _amp_conv_case(torch, rng, *shape)
-        hold(args, f"{shape}")
+    by_shape, bitwise = [], []
+    census = {}
+    for shape, n, args in amp_census_cases(torch):
+        census[shape] = n
+        plan = k5.plan_for(args[0].shape, args[1].shape, args[4], args[5])
+        hold(args, f"{shape} {tuple(plan)}")
+        if plan.body != "mma" or plan.splits > 1:
+            _bitwise_bf16(torch, k5, args, f"{shape}")
+            bitwise.append(list(shape))
         row = dict(zip(("ms", "library_ms"), _in_turns(
             torch, lambda: k5._conv_cuda(*args),
             _amp_conv_library(torch, *args), flush)))
@@ -2914,10 +3007,15 @@ def amp_kernels_phase(torch):
             fwd[key] += n * row[key]
         work = [a + n * b for a, b in zip(work, w1)]
         by_shape.append({"shape": list(shape), "count": n,
+                         "body": plan.body, "splits": plan.splits,
+                         "tile": [64, plan.bn],
                          **{k: row[k] for k in ("ms", "library_ms",
                                                 "plain_ms", "bound_ms",
                                                 "bound_by")}})
         del args
+    log(f"  conv bf16: an image bitwise equal at batch {INFER_BATCH} and "
+        f"alone, two launches bitwise equal, at the {len(bitwise)} shapes "
+        f"on a wgmma body or split: {json.dumps(bitwise)}")
     fwd["bound_by"] = _amp_conv_bound(*work)["bound_by"]
     fwd.update({
         "bound_peak": AMP_CONV_PEAK,
@@ -2929,23 +3027,32 @@ def amp_kernels_phase(torch):
         "convs": CONVS_PER_FORWARD, "gflop": (work[1] + work[2]) / 1e9,
         "max_err_bf16_ulps": worst["ulps"],
         "max_share_differing": worst["differing"],
+        "bitwise_shapes": bitwise,
+        "split_convs_per_forward": sum(
+            n for shape, n in census.items()
+            if k5._plan(*shape[1:6], shape[5], *shape[6:8]).splits > 1),
     })
     log(f"  time one batch-{INFER_BATCH} forward in bf16, "
         f"{CONVS_PER_FORWARD} convs in {len(census)} shapes: "
         + json.dumps(fwd))
+    combine = _combine_row(torch, k5, rng, flush,
+                           (INFER_BATCH, 512, 7, 7, 512, 3, 1, 1, True))
     del flush
-    return worst["max_abs_err"], fwd
+    return worst["max_abs_err"], fwd, combine
 
 
-def infer_amp_phase(torch):
+def infer_amp_phase(torch, split_convs):
     """The fused ResNet-50 artifact (as in infer, its logits the fetch
     target) served over RPC under FLAGS['amp'] at bucket 16: the model
     loaded and warmed under the flag, 10 requests of 16 seeded images.
     Counters zeroed just before the requests and read just after: 53
-    conv_bn_relu_bf16 launches per executed batch, no float32 K5 launch,
-    no plain call. The amp logits against the float32 fused forward of
-    the same artifact on the same images: finite, within AMP_LOGIT_TOL
-    of the largest |logit|; argmax agreement recorded."""
+    conv_bn_relu_bf16 launches per executed batch and ``split_convs``
+    conv_split_combine_bf16 launches (the convolutions whose plan splits
+    K), no float32 K5 launch, no plain call. Then one more request
+    profiled (reporting only: the device's busy share and K5 bf16's
+    device ms). The amp logits against the float32 fused forward of the
+    same artifact on the same images: finite, within AMP_LOGIT_TOL of the
+    largest |logit|; argmax agreement recorded."""
     phase("infer amp")
     import shutil
     import tempfile
@@ -2981,13 +3088,17 @@ def infer_amp_phase(torch):
             launches, plain = _kernel_counts()
             batches = cli.list_models()["resnet50_amp"]["batches"] - batches0
             # the window ends here
+            profile = profile_infer(torch, cli, x16, model="resnet50_amp",
+                                    part=K5_BF16_PROFILE_NAMES,
+                                    what="bucket-16 amp infer request")
     finally:
         cli.close()
         srv.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     if batches == 0 or launches["conv_bn_relu_bf16"] != \
-            CONVS_PER_FORWARD * batches or launches["conv_bn_relu_f32"] or \
-            any(plain.values()):
+            CONVS_PER_FORWARD * batches or \
+            launches["conv_split_combine_bf16"] != split_convs * batches or \
+            launches["conv_bn_relu_f32"] or any(plain.values()):
         raise RuntimeError(f"amp serving: {batches} batches, launches "
                            f"{launches}, plain {plain}")
     (want,) = exe.run(main, feed={"img": x16}, fetch_list=[logits],
@@ -3009,6 +3120,7 @@ def infer_amp_phase(torch):
         "logits_rel_err_vs_f32": rel, "max_abs_logit": scale,
         "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
                                   .mean()),
+        "profile": profile,
     }
     log("  infer amp " + json.dumps(infer))
     return infer
@@ -3687,8 +3799,8 @@ def main():
     resnet_train["check"] = resnet_train_check_phase(torch, trained)
     fold = resnet_fold_phase(torch, trained)
     del trained
-    amp_err, amp_fwd = amp_kernels_phase(torch)
-    infer_amp = infer_amp_phase(torch)
+    amp_err, amp_fwd, amp_combine = amp_kernels_phase(torch)
+    infer_amp = infer_amp_phase(torch, amp_fwd["split_convs_per_forward"])
     resnet_amp, trained = resnet_train_amp_phase(torch)
     resnet_amp["check"] = resnet_amp_check_phase(torch, trained)
     del trained
@@ -3755,7 +3867,16 @@ def main():
         timed_as=f"sum over the {CONVS_PER_FORWARD} convolutions of one "
                  f"batch-{INFER_BATCH} ResNet-50 forward, FLAGS['amp']",
         bound_peak=AMP_CONV_PEAK, forward=amp_fwd, infer_amp=infer_amp,
-        resnet_train_amp=resnet_amp, train_amp=train_amp)]
+        resnet_train_amp=resnet_amp, train_amp=train_amp,
+        ptxas=ptxas.get("conv_bn_relu")), _kernel_row(
+        "conv_split_combine_bf16", "paddle_tpu_torch/csrc/conv_wgmma.cuh",
+        "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69 (the "
+        "epilogue of a conv_bn_relu_bf16 launch whose plan splits K)",
+        infer_amp["kernel_launches"]["conv_split_combine_bf16"],
+        amp_combine["max_abs_err"], amp_combine,
+        shape=amp_combine["shape"], partials=amp_combine["partials"],
+        library_note=amp_combine["library_note"],
+        host_us=amp_combine["host_us"])]
     for kname, line in (("flash_fwd_bf16", 111), ("flash_bwd_dkdv_bf16", 295),
                         ("flash_bwd_dq_bf16", 320)):
         rows = bf16_rows[kname]

@@ -1,6 +1,7 @@
 // Fused conv2d + folded batch norm + relu for Hopper (sm_90a): float32
 // (conv_bn_relu_f32) and bfloat16 operands (conv_bn_relu_bf16, the
-// FLAGS['amp'] form; its design is at the bf16 kernel below).
+// FLAGS['amp'] form, and conv_split_combine_bf16, its split-K combine;
+// their design is at the bf16 kernel below and in conv_wgmma.cuh).
 //
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:_gemm_epilogue_kernel
@@ -81,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "conv_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -365,38 +367,44 @@ conv_bn_relu_kernel(const float* __restrict__ x,
 // conv_bn_relu.py:54). Same layouts as conv_bn_relu_f32, x, w and y
 // bfloat16, scale and shift float32.
 //
-// What bounds it on this card: operations. The product runs on the
-// tensor cores in bf16 (mma.sync m16n8k16, float32 accumulators), one
-// product where the float32 kernel takes three, so the floor is
-// 2*M*K*F / 989 TFLOP/s plus the epilogue's 3*M*F flops over 67 TFLOP/s;
-// a ResNet-50 convolution at batch 16 does 60-600 flops per byte of
-// bfloat16 x + w + y, above the card's ~295. The design keeps the
-// float32 kernel's tiling and order:
-//   - implicit GEMM, 64 (m) x 64 (f) output tiles, two k-groups of 4
-//     warps (group q sums the 32-wide k slices q, q + 2, ...), each warp
-//     32 x 32 of the tile (2 m16 x 4 n8 tiles), each slice's two k-steps
-//     summed in fresh fragments and added to the accumulators in
-//     float32, group 1's sums added by group 0 at the end: every output
-//     sums its K products in one order whatever the shape, so an image's
-//     output is bitwise the same alone and at batch 16;
-//   - the patch slice is stored k-major [32][64 + 8] (a warp's gather of
-//     32 consecutive m writes 64 consecutive bytes) and read as the A
-//     fragments with ldmatrix .trans; the weight slice [64][32 + 8] (k
-//     contiguous, as in w) with ldmatrix: rows at 144 and 80 bytes, so
-//     each 8-row phase of an ldmatrix hits 32 distinct banks;
-//   - a bfloat16 is 2 bytes, below cp.async's 4, so the patch gather
-//     loads through registers: the loads for round i + 1 are issued
-//     before round i's products and stored to shared memory after them.
-//     Weight slices use 16-byte cp.async along k where K % 8 == 0 (every
-//     ResNet-50 convolution but the stem's K = 147, which loads 2 bytes
-//     at a time); one __syncthreads() a round;
-//   - the epilogue applies scale, shift (two roundings) and relu to the
-//     float32 accumulator and rounds once to bfloat16, to nearest even
-//     (__float2bfloat16_rn), as XLA's convert does.
-// What holds it below that floor: the gather's index math and 2-byte
-// loads (16 a thread a round, against 16 MMAs a warp), and at
-// res4/res5 the few warps in flight. Not done yet: wgmma, TMA, 16-byte
-// gathers for 1x1 stride-1 convolutions.
+// What bounds it on this card: at batch 16, bytes for most ResNet-50
+// convolutions and operations for the 3x3s (chip_smoke.py's bound: the
+// product over 989 TFLOP/s bf16 and the epilogue over 67 TFLOP/s against
+// x, w, y over 3.35 TB/s): 2-12 us of work each. A plan, one pure
+// function of the shape (C, H, W, F, KH, KW, stride, pad) in the wrapper
+// (kernels/conv_bn_relu.py:_plan), picks the body, the split of K and the
+// tile; never of N or M, so an image's output is bitwise the same
+// whatever batch it is served in. Bodies:
+//   - "gather" (stride 1, any KH x KW and padding) and "1x1" (1x1,
+//     stride 1, no padding), K a multiple of 8: wgmma m64nNk16 with the
+//     weight tiles by TMA from a warp of their own, the patch tiles
+//     gathered by 256 threads into swizzled shared memory, K optionally
+//     split into S parts whose float32 partials split_combine_kernel adds
+//     in split order (conv_wgmma.cuh has the design);
+//   - "mma" (the stem, K = 147: no whole 16-byte TMA weight rows; and the
+//     strided 1x1 reductions and projections, where it is already faster
+//     than cuDNN or level with the wgmma bodies): the mma.sync body
+//     below, this kernel's first form.
+// The mma.sync body: implicit GEMM, 64 (m) x 64 (f) output tiles, two
+// k-groups of 4 warps (group q sums the 32-wide k slices q, q + 2, ...),
+// each warp 32 x 32 of the tile (2 m16 x 4 n8 tiles), each slice's two
+// k-steps summed in fresh fragments and added to the accumulators in
+// float32, group 1's sums added by group 0 at the end; the patch slice
+// stored k-major [32][64 + 8] and read with ldmatrix .trans, the weight
+// slice [64][32 + 8] with ldmatrix; the gather through registers (2-byte
+// loads for round i + 1 issued before round i's products), weights by
+// 16-byte cp.async where K % 8 == 0 (2-byte loads at the stem).
+// Both bodies apply scale, shift (two roundings) and relu to the float32
+// accumulator and round once to bfloat16, to nearest even
+// (__float2bfloat16_rn), as XLA's convert does.
+// What still holds the wgmma bodies at 2-10% of their bound (PERF.md has
+// the times): each stage is a serial chain in every block — the gather's
+// index math and 2-byte loads (x is NCHW, so a patch row is 2-byte
+// strided for every k), the block-wide wait for the stage's stores, the
+// products, the release — and the two blocks an SM do not hide each
+// other's chains: on an H100 a batch-1 call took about as long as a
+// batch-16 one. A pure TMA patch tile from an NHWC copy of x
+// (transposes of x and w a call) ran slower end to end (PERF.md).
 
 namespace bf16k {
 
@@ -746,13 +754,21 @@ int conv_bn_relu_f32(const void* x, const void* w, const void* scale,
 }
 
 int conv_bn_relu_bf16(const void* x, const void* w, const void* scale,
-                      const void* shift, void* y, int N, int C, int H, int W,
-                      int F, int KH, int KW, int stride, int pad, int OH,
-                      int OW, int relu, void* stream) {
+                      const void* shift, void* y, void* ws, int N, int C,
+                      int H, int W, int F, int KH, int KW, int stride, int pad,
+                      int OH, int OW, int relu, int body, int splits, int bn,
+                      void* stream) {
   if (N == 0 || F == 0 || OH == 0 || OW == 0) return cudaSuccess;
   dim3 grid;
   if (!conv_grid(N, C, H, W, F, KH, KW, stride, pad, OH, OW, &grid))
     return cudaErrorInvalidValue;
+  if (body != 0)  // the plan's wgmma bodies
+    return static_cast<int>(conv_wgmma::launch(
+        body, splits, bn, x, w, static_cast<const float*>(scale),
+        static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y),
+        static_cast<float*>(ws), N, C, H, W, F, KH, KW, stride, pad, OH, OW,
+        relu, static_cast<cudaStream_t>(stream)));
+  if (splits != 1 || bn != 64) return cudaErrorInvalidValue;
   const int K = C * KH * KW;
   const int w_vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const size_t smem = 2 * kStages * kGroups * bf16k::kSlice;
@@ -767,6 +783,18 @@ int conv_bn_relu_bf16(const void* x, const void* w, const void* scale,
       static_cast<__nv_bfloat16*>(y), N, C, H, W, F, KH, KW, stride, pad, OH,
       OW, relu, w_vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// y from the float32 partials of a split launch of conv_bn_relu_bf16
+// (ws [splits][F][M rounded up to 4]): summed in split order, then the
+// epilogue, rounded once to bfloat16.
+int conv_split_combine_bf16(const void* ws, const void* scale,
+                            const void* shift, void* y, int M, int F,
+                            int OHW, int splits, int relu, void* stream) {
+  return static_cast<int>(conv_wgmma::launch_combine(
+      static_cast<const float*>(ws), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(y), M, F,
+      OHW, splits, relu, static_cast<cudaStream_t>(stream)));
 }
 
 const char* error_string(int err) {

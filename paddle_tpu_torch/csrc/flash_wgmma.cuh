@@ -4,7 +4,11 @@
 // swizzle, the shared-memory matrix descriptors, the wgmma forms, the
 // exp2 and bfloat16 packing of the probability tiles, the output store
 // and the host's tensor-map encoding. flash_bwd_wgmma.cuh (dK/dV, dQ) and
-// flash_fwd_wgmma.cuh (the forward) build their kernels from these.
+// flash_fwd_wgmma.cuh (the forward) build their kernels from these;
+// conv_wgmma.cuh (K5's bfloat16 form) takes the barriers, descriptors and
+// encoder, and the forms marked for it below (a 2-D TMA map and load,
+// products with an MN-major A, waits that leave groups in flight, the
+// proxy fence for tiles written by threads).
 //
 // Layout facts every kernel relies on:
 //   - a block is one warpgroup (128 threads); warp w owns rows 16w ..
@@ -117,6 +121,24 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-D map at (column c0, row c1) into dst (conv_wgmma.cuh)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// make this thread's st.shared writes visible to the async proxy (wgmma
+// reads its shared operands through it): after the writes, before the
+// mbarrier arrive that publishes them (conv_wgmma.cuh)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --------------------------------------------------------------- wgmma
 // Shared-memory matrix descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets (16-byte units). K-major tiles (rows
@@ -156,6 +178,13 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// wait until at most N committed groups are still in flight
+// (conv_wgmma.cuh)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that writes it
 template <int N>
@@ -187,6 +216,7 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #define FW_SS ", %32, %33, p, 1, 1, 0, 0;\n"
 #define FW_SS128 ", %64, %65, p, 1, 1, 0, 0;\n"
 #define FW_RS ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+#define FW_TA ", %32, %33, p, 1, 1, 1, 0;\n"
 
 // d = A B (kAcc false: the old d is not read) or d += A B for one
 // 64 x 64 x 16 step, A and B from shared memory, both K-major.
@@ -257,6 +287,32 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
   }
 }
 
+// d += A B for one 64 x 64 x 16 step: A MN-major (m contiguous, wgmma's
+// transpose bit for A) and B K-major, both from shared memory
+// (conv_wgmma.cuh; d accumulates in place)
+__device__ __forceinline__ void wgmma_ta64(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FW_D32 FW_TA
+      "}\n"
+      : FW_D(FW_IN, d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// the same for a 64 x 32 x 16 step with A MN-major
+__device__ __forceinline__ void wgmma_ta32(float (&d)[16], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : FW_D8(FW_IN, d, 0), FW_D8(FW_IN, d, 8)
+      : "l"(a), "l"(b), "r"(1));
+}
+
 #undef FW_D32
 #undef FW_D64
 #undef FW_D8
@@ -267,6 +323,7 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
 #undef FW_SS
 #undef FW_SS128
 #undef FW_RS
+#undef FW_TA
 
 // d = A B over head_dim (kSteps k-steps): A the warpgroup's 64 rows, B a
 // box's 64 rows, both K-major [rows][64] tiles
@@ -390,6 +447,29 @@ cudaError_t encode_rows(CUtensorMap* map, const void* p, int BH, int S,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a [outer, inner] bfloat16 matrix (inner contiguous; inner * 2 bytes a
+// multiple of 16, p 16-byte aligned) as a 2-D map of box_inner x
+// box_outer boxes with 128-byte swizzle; elements outside the matrix load
+// as zeros (conv_wgmma.cuh's weight tiles)
+cudaError_t encode_2d(CUtensorMap* map, const void* p, int inner, int outer,
+                      int box_inner, int box_outer) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(p), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -74,8 +74,13 @@ _SIGNATURES = {
         # x, w, scale, shift, y, N, C, H, W, F, KH, KW, stride, pad, OH,
         # OW, relu, stream (float32 x, w, y; scale and shift float32)
         "conv_bn_relu_f32": ([_P] * 5 + [_I] * 12 + [_P], _I),
-        # the same with bfloat16 x, w and y
-        "conv_bn_relu_bf16": ([_P] * 5 + [_I] * 12 + [_P], _I),
+        # x, w, scale, shift, y, ws, N, C, H, W, F, KH, KW, stride, pad,
+        # OH, OW, relu, body, splits, bn, stream: bfloat16 x, w and y;
+        # the plan's body, splits and tile (kernels/conv_bn_relu.py:
+        # _plan); ws the float32 split partials (null when splits == 1)
+        "conv_bn_relu_bf16": ([_P] * 6 + [_I] * 15 + [_P], _I),
+        # ws, scale, shift, y, M, F, OHW, splits, relu, stream
+        "conv_split_combine_bf16": ([_P] * 4 + [_I] * 5 + [_P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
 }

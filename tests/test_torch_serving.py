@@ -118,7 +118,7 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
     # chip_smoke.py and the card-side A/B scripts at the repo's root
     files = [os.path.join(REPO, n) for n in (
         "chip_smoke.py", "flash_bf16_bwd_vs_old.py", "flash_wide_vs_old.py",
-        "k4_splits.py", "k4_vs_old.py", "k5_tiles.py")]
+        "k4_splits.py", "k4_vs_old.py", "k5_tiles.py", "k5_bf16_vs_old.py")]
     for root, _, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
