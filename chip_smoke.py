@@ -192,6 +192,37 @@ and prints no result):
            port's CPU route
            and against the same program without the casts.
 
+  fit_a_line
+           the data input stack's first path, the verify recipe:
+           dataset.uci_housing.train() -> paddle_tpu_torch.batch(20) ->
+           fluid.DataFeeder -> fc -> square_error_cost -> SGD(0.01), 5
+           epochs on the card and, from the same initial parameters, on
+           the CPU executor: losses within 1e-5 relative step by step,
+           the last at most a tenth of the first; p50 step ms, steps/s.
+  lstm train
+           stacked_dynamic_lstm (models/stacked_lstm.py) at full width:
+           emb 512, hid 512 (an LSTM of H 128), 3 stacked, imdb's
+           5147-word dictionary, 2 classes, Adam(1e-3), batch 32 from
+           dataset.imdb.train() through DataFeeder (T pads to 128), 8
+           steps on the card and on the CPU from the same parameters:
+           losses finite and within LSTM_LOSS_RTOL, the step-1 gradients
+           of the LSTM weights within LSTM_GRAD_TOL of their max; p50
+           step ms, real words/s, peak memory, one profiled step (busy
+           share, largest entries, device launches).
+  resnet recordio
+           the resnet train phase's ResNet-50 fed by bench.py:583-628's
+           in-graph pipeline (open_recordio_file -> multi_pass ->
+           batch(32, drop_last) -> double_buffer(2) -> read_file) over a
+           recordio file of uint8 images (bench.py:596-612) in the run's
+           temporary directory: both passes (10 steps) in turns with
+           the same batches fed as numpy dicts to a copy of the same
+           state, losses and state bitwise equal; then EOFException,
+           reset_reader rewinds; p50 step ms of each feed, and the
+           host-to-device copy of a profiled step (its stream, time and
+           overlap with kernels on the compute stream).
+  No kernel of the port lies on these three paths: their counts are
+  zeroed and read around each main path to show no plain version ran.
+
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512.
 
@@ -3768,6 +3799,489 @@ def train_bf16_attn_phase(torch):
     return out
 
 
+# --- the data input stack and the padded-sequence path -------------------
+
+# fit_a_line: the verify recipe (uci_housing -> batch 20 -> DataFeeder ->
+# SGD(0.01), 5 epochs); card vs CPU losses within FIT_RTOL, the last loss
+# at most FIT_DROP of the first
+FIT_BATCH, FIT_EPOCHS, FIT_LR, FIT_RTOL, FIT_DROP = 20, 5, 0.01, 1e-5, 0.1
+# the stacked LSTM at paddle_tpu/models/stacked_lstm.py's full width (emb
+# 512, hid 512: an LSTM of H = 128 on a 512-wide projection, 3 stacked),
+# imdb's dictionary, batch 32 (benchmarks/fluid_suite_bench.py:12-14),
+# Adam(1e-3), 8 steps. Tolerance, card vs CPU (float32, TF32 off): cuBLAS
+# and the CPU sum each product in another order (~1e-7 relative), the
+# recurrence carries the difference through 128 steps and 3 layers, and
+# Adam's first steps move every weight by about lr whatever its
+# gradient's size, so a near-zero gradient of the other sign moves its
+# weight by 2 lr. The one-step Transformer check holds 1e-5 on the loss
+# and 1e-3 of each gradient's max; over 8 steps the losses get 1e-4.
+LSTM = dict(emb_dim=512, hid_dim=512, stacked_num=3, class_dim=2)
+LSTM_BATCH, LSTM_STEPS, LSTM_LR = 32, 8, 1e-3
+LSTM_LOSS_RTOL, LSTM_GRAD_TOL = 1e-4, 1e-3
+# resnet recordio: bench.py:583-628's pipeline over a file of uint8
+# images (bench.py:596-612), 5 batches of 32 a pass, 2 passes
+RIO_BATCHES, RIO_PASSES = 5, 2
+
+
+def _cpu_scope(fluid, scope):
+    """A CPU copy of every tensor in ``scope``."""
+    out = fluid.Scope()
+    for n in scope.var_names():
+        v = scope.find_var(n)
+        if hasattr(v, "detach"):
+            out.set_var(n, v.detach().cpu().clone())
+    return out
+
+
+def _card_executor(fluid):
+    exe = fluid.Executor()
+    if exe.device.type != "cuda":
+        raise RuntimeError(f"Executor() chose {exe.device}, not the card")
+    return exe
+
+
+def _held_window(run):
+    """The main path's window: every kernel count to 0, ``run()``, the
+    counts read. No plain version may run on the card."""
+    _reset_kernel_counts()
+    out = run()
+    launches, plain = _kernel_counts()
+    if any(plain.values()):
+        raise RuntimeError(f"plain versions ran on the card's main path: "
+                           f"{plain}")
+    return out, {k: v for k, v in launches.items() if v}
+
+
+def _timed_steps(exe, program, feeds, fetch, scope):
+    import numpy as np
+
+    losses, ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+    return losses, ms
+
+
+def _rel_err(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def fit_a_line_phase(torch):
+    """The verify recipe on the card: uci_housing.train() ->
+    paddle_tpu_torch.batch(..., 20) -> fluid.DataFeeder -> fc ->
+    square_error_cost -> mean -> SGD(0.01), 5 epochs; the same feeds
+    through the CPU executor from the same initial parameters. Held: the
+    losses step by step within FIT_RTOL relative, the last loss at most
+    FIT_DROP of the first."""
+    phase("fit_a_line")
+    import paddle_tpu_torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[13], dtype="float32")
+        y = layers.data(name="y", shape=[1], dtype="float32")
+        pred = layers.fc(input=x, size=1)
+        cost = layers.mean(layers.square_error_cost(input=pred, label=y))
+        fluid.optimizer.SGD(learning_rate=FIT_LR).minimize(cost)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = _cpu_scope(fluid, scope)
+    reader = paddle_tpu_torch.batch(
+        paddle_tpu_torch.dataset.uci_housing.train(), batch_size=FIT_BATCH)
+    feeder = fluid.DataFeeder(place=fluid.CUDAPlace(0), feed_list=[x, y],
+                              program=main)
+    feeds = [feeder.feed(data) for _ in range(FIT_EPOCHS)
+             for data in reader()]
+
+    def run():
+        return _timed_steps(exe, main, feeds, [cost], scope)
+
+    (losses, ms), launches = _held_window(run)
+    cpu_losses, _ = _timed_steps(fluid.Executor(fluid.CPUPlace()), main,
+                                    feeds, [cost], cpu_scope)
+    err = _rel_err(losses, cpu_losses)
+    if err > FIT_RTOL:
+        raise RuntimeError(f"fit_a_line card vs CPU losses differ by {err} "
+                           f"relative (> {FIT_RTOL})")
+    if not losses[-1] <= FIT_DROP * losses[0]:
+        raise RuntimeError(f"fit_a_line loss {losses[0]} -> {losses[-1]}: "
+                           f"not below {FIT_DROP} of the first")
+    p50 = statistics.median(ms[1:])
+    out = {"config": "fit_a_line: uci_housing (synthetic, 404 rows) fc 13->1"
+                     f" SGD({FIT_LR}) batch {FIT_BATCH}, {FIT_EPOCHS} epochs",
+           "steps": len(feeds), "loss_first": losses[0],
+           "loss_last": losses[-1], "max_rel_err_vs_cpu": err,
+           "p50_step_ms": p50, "steps_per_s": 1e3 / p50,
+           "kernel_launches": launches}
+    log("  fit_a_line " + json.dumps(out))
+    return out
+
+
+def _build_stacked_lstm(seed, dict_dim):
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import stacked_lstm
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        words = layers.data(name="words", shape=[1], dtype="int64",
+                            lod_level=1)
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        cost, acc, _ = stacked_lstm.build(words, label, dict_dim=dict_dim,
+                                          **LSTM)
+        fluid.optimizer.Adam(LSTM_LR).minimize(cost)
+    weights = [op.input("Weight")[0] for op in main.global_block().ops
+               if op.type == "lstm"]
+    return main, startup, cost, [words, label], weights
+
+
+def _device_launches(events):
+    """Kernel launches (and copies) in a profile: the count of its
+    device-side entries."""
+    return sum(ev.count for ev in events
+               if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+
+
+def lstm_train_phase(torch):
+    """stacked_dynamic_lstm at full width on the card: models/
+    stacked_lstm.build (emb 512, hid 512 -> H 128, 3 stacked, imdb's
+    5147-word dictionary, 2 classes), Adam(1e-3), batch 32 from
+    paddle_tpu_torch.batch(dataset.imdb.train(), 32) through DataFeeder
+    (lengths 8-119: T pads to 128), 8 steps; the same feeds on the CPU
+    executor from the card's initial parameters. Held: losses finite and
+    within LSTM_LOSS_RTOL relative, the step-1 gradients of the three
+    LSTM weights within LSTM_GRAD_TOL of each one's largest |value|.
+    Logged: p50 step ms (steps 2-8), words/s (real tokens: the sum of
+    @LEN), one profiled step's busy share, largest entries and launches,
+    peak memory."""
+    phase("lstm train")
+    import numpy as np
+
+    import paddle_tpu_torch
+    import paddle_tpu_torch.fluid as fluid
+
+    imdb = paddle_tpu_torch.dataset.imdb
+    main, startup, cost, feed_vars, weights = _build_stacked_lstm(
+        11, imdb.VOCAB_SIZE)
+    grads = [w + "@GRAD" for w in weights]
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = _cpu_scope(fluid, scope)
+    feeder = fluid.DataFeeder(place=fluid.CUDAPlace(0), feed_list=feed_vars,
+                              program=main)
+    reader = paddle_tpu_torch.batch(imdb.train(), LSTM_BATCH)
+    feeds = []
+    for data in reader():
+        feeds.append(feeder.feed(data))
+        if len(feeds) == LSTM_STEPS + 1:
+            break
+    T = {f["words"].shape[1] for f in feeds}
+    if T != {128}:
+        raise RuntimeError(f"imdb batches padded to T = {T}, want 128")
+    words = [int(f["words@LEN"].sum()) for f in feeds]
+
+    def steps(ex, sc):
+        losses, ms, step1 = [], [], None
+        for i, feed in enumerate(feeds[:LSTM_STEPS]):
+            t0 = time.perf_counter()
+            out = ex.run(main, feed=feed, scope=sc,
+                         fetch_list=[cost] + (grads if i == 0 else []))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if i == 0:
+                step1 = [np.asarray(g) for g in out[1:]]
+        return losses, ms, step1
+
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ms, g_card), launches = _held_window(lambda: steps(exe, scope))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    cpu_losses, _, g_cpu = steps(fluid.Executor(fluid.CPUPlace()), cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"lstm losses not finite: {losses}")
+    err = _rel_err(losses, cpu_losses)
+    if err > LSTM_LOSS_RTOL:
+        raise RuntimeError(f"lstm card vs CPU losses differ by {err} "
+                           f"relative (> {LSTM_LOSS_RTOL}): {losses} vs "
+                           f"{cpu_losses}")
+    grad_err = {}
+    for name, a, b in zip(grads, g_card, g_cpu):
+        grad_err[name] = float(np.abs(a - b).max() / np.abs(b).max())
+        if not grad_err[name] <= LSTM_GRAD_TOL:
+            raise RuntimeError(f"{name}: card vs CPU differ by "
+                               f"{grad_err[name]} of its max")
+    p50 = statistics.median(ms[1:])
+    mean_words = statistics.mean(words[1:LSTM_STEPS])
+    out = {"config": "stacked_dynamic_lstm imdb dict 5147 emb 512 hid 512 "
+                     "(H 128) x3, 2 classes, Adam(1e-3), batch 32, T 128",
+           "steps": LSTM_STEPS, "losses": losses, "cpu_losses": cpu_losses,
+           "max_rel_err_vs_cpu": err, "step1_grad_err_of_max": grad_err,
+           "step_ms": ms, "p50_step_ms_after_first": p50,
+           "real_tokens_a_step": words[:LSTM_STEPS],
+           "words_per_s": mean_words / (p50 / 1e3),
+           "peak_memory_allocated_gb": peak_gb,
+           "cpu_8_steps_s": cpu_s, "kernel_launches": launches}
+    log("  lstm train " + json.dumps(out))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feeds[LSTM_STEPS], fetch_list=[cost], scope=scope)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    out["profile"] = _device_summary(events, wall_ms, "lstm train step")
+    out["profile"]["device_launches_a_step"] = _device_launches(events)
+    log(f"  lstm train step: {out['profile']['device_launches_a_step']} "
+        "device launches (kernels and copies)")
+    return out
+
+
+def _write_image_records(path, n):
+    """n samples of a uint8 [3*224*224] image and an int64 [1] label, from
+    RandomState(0), into a recordio file: bench.py:596-612's file."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.recordio_writer import (
+        convert_reader_to_recordio_file)
+
+    rng0 = np.random.RandomState(0)
+
+    def samples():
+        for _ in range(n):
+            yield (rng0.randint(0, 256, size=(3 * RESNET_IMAGE
+                                              * RESNET_IMAGE,)).astype(
+                       np.uint8),
+                   rng0.randint(0, RESNET_CLASSES, size=(1,)).astype(
+                       np.int64))
+
+    return convert_reader_to_recordio_file(path, samples)
+
+
+def _build_resnet50_reader(seed, path):
+    """resnet.build_train fed by bench.py:583-628's in-graph pipeline, or
+    (``path`` None) by data vars; the same parameter names either way."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    reader = None
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        if path:
+            reader = layers.open_recordio_file(
+                path, shapes=[[3, RESNET_IMAGE, RESNET_IMAGE], [1]],
+                dtypes=["float32", "int64"])
+            reader = layers.multi_pass(reader, pass_num=RIO_PASSES)
+            reader = layers.batch(reader, batch_size=RESNET_TRAIN_BATCH,
+                                  drop_last=True)
+            reader = layers.double_buffer(reader, capacity=2)
+            img, label = layers.read_file(reader)
+        else:
+            img = layers.data(name="img",
+                              shape=[3, RESNET_IMAGE, RESNET_IMAGE],
+                              dtype="float32")
+            label = layers.data(name="label", shape=[1], dtype="int64")
+        cost, _, _ = resnet.build_train(img, label, class_dim=RESNET_CLASSES,
+                                        depth=50)
+        fluid.optimizer.Momentum(learning_rate=RESNET_LR,
+                                 momentum=0.9).minimize(cost)
+    return main, startup, cost, reader, img
+
+
+def _trace_streams(path):
+    """From a chrome trace: the host-to-device copies and the kernels,
+    each as (start us, end us, stream)."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    copies, kernels = [], []
+    for ev in events:
+        if ev.get("ph") != "X" or "dur" not in ev:
+            continue
+        span = (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]),
+                (ev.get("args") or {}).get("stream"))
+        if ev.get("cat") == "gpu_memcpy" and "HtoD" in ev.get("name", ""):
+            copies.append(span)
+        elif ev.get("cat") == "kernel":
+            kernels.append(span)
+    return copies, kernels
+
+
+def _copy_overlap(copies, kernels):
+    """Each copy's time, and how much of it some kernel on another stream
+    ran beside."""
+    total = overlap = 0.0
+    for a, b, s in copies:
+        total += b - a
+        cuts = sorted((max(a, ka), min(b, kb)) for ka, kb, ks in kernels
+                      if ks != s and kb > a and ka < b)
+        end = a
+        for x, y in cuts:
+            x = max(x, end)
+            if y > x:
+                overlap += y - x
+                end = y
+    return {"copies": len(copies), "copy_ms": total / 1e3,
+            "copy_streams": sorted({str(s) for _, _, s in copies}),
+            "kernel_streams": sorted({str(s) for _, _, s in kernels}),
+            "overlap_ms": overlap / 1e3,
+            "overlap_share": overlap / total if total else None}
+
+
+def resnet_recordio_phase(torch):
+    """The resnet train phase's ResNet-50 (batch 32, Momentum(0.01, 0.9),
+    deterministic cuDNN algorithms) fed by bench.py:583-628's in-graph
+    pipeline: open_recordio_file(shapes [[3,224,224],[1]], float32/int64)
+    -> multi_pass(2) -> batch(32, drop_last) -> double_buffer(2) ->
+    read_file, over a recordio file of 5 x 32 uint8 images written as
+    bench.py:596-612 does (under the run's temporary directory, removed
+    at exit). Held: the same 5 batches, decoded on the host and fed as
+    numpy dicts to a copy of the same initial state, in turns with the
+    pipeline's steps through both passes: bitwise-equal losses, and every
+    parameter, running statistic and velocity bitwise equal after them;
+    then EOFException; reset_reader rewinds (the next batch is the first
+    batch again). Logged: p50 step ms of each feed (steps 2-10), two
+    profiled pipeline steps' host-to-device copies and how far kernels
+    on another stream overlap them."""
+    phase("resnet recordio")
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import core, layers
+    from paddle_tpu_torch.native.recordio import read_all
+
+    tmp = tempfile.mkdtemp(prefix="resnet_recordio_")
+    scope = fluid.Scope()
+    try:
+        path = os.path.join(tmp, "imgs.recordio")
+        n = RIO_BATCHES * RESNET_TRAIN_BATCH
+        t0 = time.perf_counter()
+        _write_image_records(path, n)
+        write_s = time.perf_counter() - t0
+        main, startup, cost, reader, img = _build_resnet50_reader(5, path)
+        dmain, _, dcost, _, _ = _build_resnet50_reader(5, None)
+        exe = _card_executor(fluid)
+        exe.run(startup, scope=scope)
+        dscope = fluid.Scope()
+        for name in scope.var_names():
+            v = scope.find_var(name)
+            if isinstance(v, torch.Tensor):
+                dscope.set_var(name, v.clone())
+        state = [name for name in dscope.var_names()]
+        samples = [pickle.loads(r) for r in read_all(path)]
+        batches = []
+        for b in range(RIO_BATCHES):
+            part = samples[b * RESNET_TRAIN_BATCH:(b + 1) * RESNET_TRAIN_BATCH]
+            batches.append({
+                "img": np.stack([s[0] for s in part]).reshape(
+                    -1, 3, RESNET_IMAGE, RESNET_IMAGE).astype(np.float32),
+                "label": np.stack([s[1] for s in part])})
+        del samples
+
+        def in_turns():
+            """Every pass of the file, each pipeline step beside the
+            dict step of the same batch, which of the two goes first
+            alternating: rows of ((pipeline ms, loss), (dict ms,
+            loss))."""
+            rows = []
+            for i, feed in enumerate(batches * RIO_PASSES):
+                pair = [(main, cost, scope, None),
+                        (dmain, dcost, dscope, feed)]
+                row = {}
+                for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+                    prog, c, sc, fd = pair[k]
+                    t0 = time.perf_counter()
+                    (loss,) = exe.run(prog, feed=fd, fetch_list=[c],
+                                      scope=sc)
+                    row[k] = ((time.perf_counter() - t0) * 1e3,
+                              float(np.asarray(loss).reshape(-1)[0]))
+                rows.append((row[0], row[1]))
+            return rows
+
+        rows, launches = _held_window(in_turns)
+        losses = [r[0][1] for r in rows]
+        if [r[1][1] for r in rows] != losses:
+            raise RuntimeError(f"pipeline vs dict losses differ: {rows}")
+        differ = [nm for nm in state if not torch.equal(
+            scope.find_var(nm), dscope.find_var(nm))]
+        if differ:
+            raise RuntimeError(f"after {len(rows)} steps {len(differ)} "
+                               f"state tensors differ, e.g. {differ[:3]}")
+        log(f"  {len(rows)} steps in turns ({RIO_PASSES} passes of "
+            f"{RIO_BATCHES} batches): losses bitwise equal {losses}; "
+            f"{len(state)} state tensors bitwise equal")
+        try:
+            exe.run(main, fetch_list=[cost], scope=scope)
+        except core.EOFException:
+            pass
+        else:
+            raise RuntimeError("the reader did not end after "
+                               f"{RIO_PASSES} passes")
+        layers.reset_reader(reader, scope)
+        (again,) = exe.run(main, fetch_list=[img], scope=scope)
+        if not np.array_equal(again, batches[0]["img"]):
+            raise RuntimeError("reset_reader: the next batch is not the "
+                               "first")
+        log(f"  the file's {RIO_PASSES} passes read, then EOFException; "
+            "after reset_reader the first batch again")
+        from torch.profiler import ProfilerActivity, profile
+
+        # the double buffer's threads finish their prefetch first; then
+        # each of the two profiled steps' pops starts one transfer (the
+        # profiler may drop a copy issued before the first step's
+        # kernels: the second step's falls well inside the window)
+        time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                exe.run(main, fetch_list=[cost], scope=scope)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        trace = os.path.join(os.path.dirname(LOG_PATH),
+                             "resnet_recordio_trace.json")
+        prof.export_chrome_trace(trace)
+        overlap = _copy_overlap(*_trace_streams(trace))
+        prof_sum = _device_summary(prof.key_averages(), wall_ms,
+                                   "resnet recordio, two steps")
+    finally:
+        for name in scope.var_names():  # the double buffer's threads
+            if isinstance(scope.find_var(name), fluid.readers.HostReader):
+                scope.find_var(name).close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"config": "resnet-50 imagenet f32 momentum 0.01/0.9 batch 32, "
+                     "recordio of uint8 images -> multi_pass(2) -> batch(32)"
+                     " -> double_buffer(2) -> read_file",
+           "records": n, "write_s": write_s, "losses": losses,
+           "pipeline_step_ms": [r[0][0] for r in rows],
+           "dict_step_ms": [r[1][0] for r in rows],
+           # p50 of steps 2-5 (the first picks cuDNN's algorithms)
+           "p50_pipeline_ms": statistics.median(r[0][0] for r in rows[1:]),
+           "p50_dict_ms": statistics.median(r[1][0] for r in rows[1:]),
+           "pipeline_faster_in_pairs": sum(r[0][0] < r[1][0]
+                                           for r in rows[1:]),
+           "h2d_in_two_profiled_steps": overlap, "profile": prof_sum,
+           "kernel_launches": launches}
+    log("  resnet recordio " + json.dumps(out))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3808,6 +4322,14 @@ def main():
     bf16_errs, bf16_rows = bf16_kernels_phase(torch)
     bench_bf16 = flash_bf16_bench_phase(torch)
     train_bf16 = train_bf16_attn_phase(torch)
+    data_paths = {"fit_a_line": fit_a_line_phase(torch),
+                  "lstm_train": lstm_train_phase(torch),
+                  "resnet_recordio": resnet_recordio_phase(torch)}
+    log("  data input paths (no kernel of the port on them) " +
+        json.dumps({k: {m: v[m] for m in v if m in (
+            "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
+            "words_per_s", "p50_pipeline_ms", "p50_dict_ms")}
+            for k, v in data_paths.items()}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

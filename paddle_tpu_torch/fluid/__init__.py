@@ -15,8 +15,14 @@ Program/Block/Operator/Variable/Parameter with ``to_bytes`` /
 (``simple_img_conv_pool``, ``img_conv_group``); ``append_backward``;
 ``SGD``, ``Momentum`` and ``Adam``; ``Executor``,
 ``Scope``, ``scope_guard``; ``io`` (``save_inference_model``,
-``load_inference_model``, ``save_vars``/``load_vars``). The executor
-runs on the card unless given ``CPUPlace()`` (or ``"cpu"``).
+``load_inference_model``, ``save_vars``/``load_vars``); the data input
+stack: ``DataFeeder``, the reader layers (``open_recordio_file``,
+``open_files``, ``shuffle``, ``batch``, ``multi_pass``,
+``double_buffer``, ``read_file``, ``reset_reader``) run by the
+executor's host pre-pass (``readers.py``), ``recordio_writer``; the
+padded-sequence path: ``dynamic_lstm``, ``sequence_pool``,
+``sequence_first_step``/``_last_step``. The executor runs on the card
+unless given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
@@ -29,11 +35,14 @@ from . import (  # noqa: F401
     nets,
     optimizer,
     param_attr,
+    readers,
+    recordio_writer,
     unique_name,
 )
 from .backward import append_backward  # noqa: F401
 from .convert import params_from_jax  # noqa: F401
 from .core import CPUPlace, CUDAPlace  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
 from .enforce import EnforceNotMet  # noqa: F401
 from .executor import (  # noqa: F401
     Executor,

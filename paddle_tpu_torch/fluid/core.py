@@ -19,6 +19,12 @@ import torch
 from ..device import resolve_device
 
 
+class EOFException(Exception):
+    """End of a reader's data stream (reference fluid.core.EOFException,
+    thrown by read_op when the underlying reader is exhausted). Catch it
+    around Executor.run and reset the reader / end the pass."""
+
+
 class VarType(enum.Enum):
     # mirrors framework.proto VarType.Type (reference framework.proto:94)
     LOD_TENSOR = "lod_tensor"

@@ -37,8 +37,17 @@ contract (reference python/paddle/fluid/executor.py:181).
     restriction — an io op sees exactly the values the ops before it
     produced. A load puts each tensor on the executor's device once.
 
-Not ported yet: readers, send/recv transport and ParallelExecutor; a
-program holding such an op raises.
+  - Reader ops (reference operators/reader/) run as the JAX package's
+    host pre-pass (``_run_reader_host_ops``): creation ops (re)build the
+    host reader stack of ``readers.py`` into the scope, ``read`` pops one
+    batch into the step's feeds (a ``(padded, lengths)`` pair into
+    ``name`` and ``name@LEN``) and raises ``core.EOFException`` at the
+    end of the data. A batch that a double buffer copied to the card on
+    its own stream carries an event: the executor's stream waits on it
+    before the step's first op runs.
+
+Not ported yet: send/recv transport and ParallelExecutor; a program
+holding such an op raises.
 """
 from __future__ import annotations
 
@@ -56,19 +65,19 @@ import torch
 from ..observability import metrics as _metrics, tracing as _tracing
 from . import core
 from .framework import Program, Variable, default_main_program
+from .readers import READER_CREATE_OP_TYPES, DeviceBatch, create_host_reader
 from .registry import EmitCtx, exec_op_descs, fold_seed, plan_grad_records
 
 _m_step_ms = _metrics.histogram("executor.step_ms")
 
 _SKIP_OP_TYPES = frozenset({"feed", "fetch"})
-# host-side op types of the JAX executor not ported yet (readers,
-# pserver transport)
+# host-side op types of the JAX executor not ported yet (pserver
+# transport)
 _NOT_PORTED_OP_TYPES = frozenset({
-    "read", "send", "recv", "send_barrier", "send_vars", "prefetch",
-    "create_recordio_file_reader", "open_files", "create_shuffle_reader",
-    "create_batch_reader", "create_double_buffer_reader",
-    "create_multi_pass_reader",
+    "send", "recv", "send_barrier", "send_vars", "prefetch",
 })
+# reader ops: the host pre-pass runs them, the op loop never does
+_READER_OP_TYPES = READER_CREATE_OP_TYPES | {"read"}
 _IO_OP_TYPES = frozenset({"save", "save_combine", "load", "load_combine"})
 
 
@@ -234,9 +243,82 @@ def _as_name(v) -> str:
     return v.name if isinstance(v, Variable) else str(v)
 
 
+def _conform_slot(block, name: str, slot):
+    """Reshape/cast a popped host batch to the declared out-var desc (the
+    role DataFeeder's converters play on the feed path): record files
+    store flat samples (e.g. mnist's 784-vector), the graph declares
+    [-1, 1, 28, 28]. A tensor from a double buffer was conformed in its
+    decode thread already."""
+    if isinstance(slot, torch.Tensor):
+        return slot
+    var = block._var_recursive(name)
+    if var is None or var.shape is None:
+        return slot
+    shape = list(var.shape)
+    if shape.count(-1) <= 1 and tuple(shape) != tuple(slot.shape):
+        slot = slot.reshape(shape)
+    want = np.dtype(core.convert_dtype(var.dtype)
+                    if var.dtype != "bfloat16" else "float32")
+    if slot.dtype != want:
+        slot = slot.astype(want)
+    return slot
+
+
+def _run_reader_host_ops(block, reader_ops, scope: Scope, device):
+    """Host pre-pass over a block's reader ops (the JAX package's
+    ``_run_reader_host_ops``; reference executor.cc runs reader ops as
+    ordinary OperatorBase). Creation ops (re)build the host reader stack
+    into scope — so re-running the startup program resets the pipeline,
+    like the reference's ReInit — with ``device`` as the double buffer's
+    target. `read` ops pop one minibatch each. Returns (feeds, the
+    popped batches that carry a copy event). Raises core.EOFException at
+    end of data."""
+    feeds: Dict[str, Any] = {}
+    copied: List[DeviceBatch] = []
+    for op in reader_ops:
+        t = op.desc.type
+        if t in READER_CREATE_OP_TYPES:
+            out_name = op.desc.outputs["Out"][0]
+            inner_names = op.desc.inputs.get("UnderlyingReader") or []
+            inner = scope.find_var(inner_names[0]) if inner_names else None
+            old = scope.find_var(out_name)
+            if old is not None and hasattr(old, "close"):
+                old.close()  # free prefetch threads / file handles
+            out_var = block._var_recursive(out_name)
+            slots = out_var.desc.reader_slots if out_var is not None else None
+            scope.set_var(out_name, create_host_reader(
+                t, op.desc.attrs, inner, slots=slots, device=device))
+            continue
+        reader_name = op.desc.inputs["Reader"][0]
+        reader = scope.find_var(reader_name)
+        if reader is None or not hasattr(reader, "read_next"):
+            raise RuntimeError(
+                f"reader var '{reader_name}' has no host reader in scope — "
+                "run the startup program first")
+        try:
+            sample = reader.read_next()
+        except StopIteration:
+            raise core.EOFException(
+                f"reader '{reader_name}' is exhausted") from None
+        out_names = op.desc.outputs["Out"]
+        if len(sample) != len(out_names):
+            raise ValueError(
+                f"reader '{reader_name}' produced {len(sample)} slots, the "
+                f"read op declares {len(out_names)}")
+        if getattr(sample, "ready", None) is not None:
+            copied.append(sample)
+        for name, slot in zip(out_names, sample):
+            if isinstance(slot, tuple):  # (padded, lengths) ragged pair
+                feeds[name], feeds[name + "@LEN"] = slot
+            else:
+                feeds[name] = _conform_slot(block, name, slot)
+    return feeds, copied
+
+
 def _block_io(block, feed_names: set):
     """Classify vars of a block: state read (from scope) and state written
-    (persistable -> survives the run)."""
+    (persistable -> survives the run). Reader ops are the host pre-pass's:
+    they neither read nor write the device state."""
     produced = set(feed_names)
     state_in: List[str] = []
     state_out: List[str] = []
@@ -244,7 +326,8 @@ def _block_io(block, feed_names: set):
         name for name, var in block.vars.items() if var.persistable
     }
     for op in block.ops:
-        if op.desc.type in _SKIP_OP_TYPES:
+        if op.desc.type in _SKIP_OP_TYPES or \
+                op.desc.type in _READER_OP_TYPES:
             continue
         for n in op.desc.input_names():
             if n and n not in produced and n not in state_in:
@@ -346,10 +429,11 @@ class Executor:
                           if op.desc.type in _NOT_PORTED_OP_TYPES})
             if bad:
                 raise NotImplementedError(
-                    f"op types {bad} (readers, transport) are not yet "
+                    f"op types {bad} (pserver transport) are not yet "
                     "ported to paddle_tpu_torch's Executor")
             ops = [op.desc for op in block.ops
-                   if op.desc.type not in _SKIP_OP_TYPES]
+                   if op.desc.type not in _SKIP_OP_TYPES
+                   and op.desc.type not in _READER_OP_TYPES]
             state_in, state_out = _block_io(block, set(feed_names))
             # runs of io ops and of device ops, in order; each device
             # run plans its own grad records
@@ -363,9 +447,30 @@ class Executor:
     def _run_body(self, program, feed, fetch_list, scope, return_numpy,
                   use_program_cache):
         dev = self.device
+        block = program.global_block()
+        # the block's reader ops, per program version: a reader-less
+        # program pays one dict lookup a step
+        prog_cache = self._cache.setdefault(program, {})
+        reader_ops = prog_cache.get(("readers", program._version))
+        if reader_ops is None:
+            reader_ops = [op for op in block.ops
+                          if op.desc.type in _READER_OP_TYPES]
+            prog_cache[("readers", program._version)] = reader_ops
+        with _tracing.span("executor.reader"):
+            reader_feeds, copied = _run_reader_host_ops(
+                block, reader_ops, scope, dev)
         feeds = {k: (v if isinstance(v, torch.Tensor)
                      else torch.as_tensor(np.asarray(v))).to(dev)
-                 for k, v in feed.items()}
+                 for k, v in {**feed, **reader_feeds}.items()}
+        if copied:
+            # the batches were copied on the double buffer's stream: this
+            # stream waits for the copies before its first op, and the
+            # allocator learns that this stream uses the tensors
+            stream = torch.cuda.current_stream(dev)
+            for batch in copied:
+                stream.wait_event(batch.ready)
+                for t in batch.tensors():
+                    t.record_stream(stream)
         state_in, state_out, segments = self._entry(
             program, list(feeds), use_program_cache)
         missing = [n for n in state_in if not scope.has_var(n)]

@@ -265,7 +265,7 @@ def test_not_ported_paths_raise():
             tlayers.embedding(ids, size=[10, 4], is_sparse=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfluid.optimizer.Adagrad(0.1)
-    main.global_block().append_op(type="read", inputs={}, outputs={})
+    main.global_block().append_op(type="send", inputs={}, outputs={})
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfluid.Executor("cpu").run(main)
 

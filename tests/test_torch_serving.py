@@ -99,7 +99,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.serving.__main__, paddle_tpu_torch.kernels, "
             "paddle_tpu_torch.fluid, paddle_tpu_torch.fluid.io, "
-            "paddle_tpu_torch.models.resnet; "
+            "paddle_tpu_torch.models.resnet, paddle_tpu_torch.reader, "
+            "paddle_tpu_torch.reader.creator, paddle_tpu_torch.dataset, "
+            "paddle_tpu_torch.fluid.readers, "
+            "paddle_tpu_torch.fluid.data_feeder, "
+            "paddle_tpu_torch.models.stacked_lstm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
