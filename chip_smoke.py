@@ -62,6 +62,43 @@ and prints no result):
            kernel counters are zeroed just before and read just after:
            every attention launch must have gone through the kernel
            (24 per engine step) and none through the plain version.
+  spec serve
+           speculative decoding at GPT-2-medium width over the RPC front
+           door, spec_k 4: a spec-off engine, one with a GPT-2-small-width
+           draft (vocab 50257, d768, 12 layers, 12 heads, its own seed)
+           and one whose draft is the target's own spec. For each draft
+           the kernel counts are zeroed just before its load and read
+           after its 8 concurrent serve-phase prompts (32 new tokens
+           each): K4 launches == 24 x target steps + (12 or 24) x draft
+           steps, no plain call, every page back. Tokens are held against
+           the serve phase's under the margin rule (MARGIN_REL); the
+           target's own spec accepts >= 95% of proposals and, the 8
+           requests sent one at a time, takes fewer target steps than
+           spec-off (each rejection logged with its margin). Tokens/s,
+           acceptance, target and draft steps, p50 verify and draft-step
+           ms and peak memory in turns (off, small, self on the serve
+           prompts, then self, small, off on fresh ones); the serve
+           prompts once more under seeded sampling (temperature 1,
+           top-k 40), held by the draw margin (DRAW_MARGIN); one
+           profiled spec request.
+  workloads
+           a GPT-2-medium engine with the prefix cache and the embed lane
+           over the workload RPC: a constrained request (a finite regex
+           language, every token in it, finished by the automaton), an
+           embed of a 512-token prompt (embedding and logprobs within
+           1e-4 of max|.| of the same request on a CPU engine from the
+           same parameters), live_slots 0 during an 8-request embed
+           churn, a beam of k 4 over a 300-token prompt (shared prompt
+           pages; each beam an independent greedy decode of prompt +
+           [head] on a cacheless engine, margin rule). K4 launches == 24
+           x (target + embed steps), no plain call.
+  checkpoint
+           save_decoder_checkpoint of that engine's parameters into a
+           temporary directory (removed afterwards), load_decoder(
+           checkpoint_dir=) over RPC: the loaded parameters, an all-lanes
+           pass's logits and the greedy tokens on three prompts bitwise
+           the spec-dict engine's, a flipped byte refused naming the
+           tensor; save_s, load_s, bytes.
   train    the Fluid training main path: Transformer-base (6+6 layers,
            d_model 512, 8 heads, d_ff 2048, vocab 32000, max_len 512,
            dropout 0.1, seq_parallel attention), Adam(1e-4), batch 16,
@@ -224,7 +261,10 @@ and prints no result):
   zeroed and read around each main path to show no plain version ran.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
-head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512.
+head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
+the kernels phase holds K4 at the speculative shapes (the verify chunk,
+the draft's catch-up and single-token steps, an embed chunk) and times
+the verify and draft-step shapes.
 
 The last lines are the kernels JSON line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Every line before the last two is also
@@ -596,6 +636,9 @@ def _paged_bitwise_checks(torch, pa, rng, base):
     return checks
 
 
+SPEC_K4_CASES = ("verify", "draft_catchup", "draft_single", "embed_chunk")
+
+
 def kernels_phase(torch):
     """K4 against its plain version on seeded cases (max abs error <=
     TOL, dead rows exactly 0; head_dim 64, 18, 100, 256, 1 and 129, and
@@ -660,11 +703,29 @@ def kernels_phase(torch):
         "d257_ps3_chunked": dict(base, D=257, ps=3, W=100, B=2, C=5, Hq=2,
                                  Hkv=1, kv_lens=[290, 5],
                                  q_lens=[5, 1]),
+        # the speculative serving shapes (drawn from their own
+        # RandomState, so the cases above and the timed rows below keep
+        # their inputs): the target's verify chunk (spec_k 4 + 1 lanes),
+        # the GPT-2-small draft's catch-up chunk and single-token steps
+        # on its 12-head pages, and an embed chunk of a 512-key prompt
+        "verify": dict(base, B=8, C=5, Hq=16, Hkv=16,
+                       kv_lens=[517, 1024, 0, 40, 5, 803, 256, 999],
+                       q_lens=[5, 5, 0, 3, 5, 1, 5, 2]),
+        "draft_catchup": dict(base, B=8, C=2, Hq=12, Hkv=12,
+                              kv_lens=[517, 1024, 0, 40, 2, 803, 256, 1],
+                              q_lens=[2, 1, 0, 2, 2, 1, 2, 1]),
+        "draft_single": dict(base, B=8, C=None, Hq=12, Hkv=12,
+                             kv_lens=[518, 1021, 0, 41, 3, 804, 257, 2],
+                             q_lens=None),
+        "embed_chunk": dict(base, B=3, C=64, Hq=16, Hkv=16,
+                            kv_lens=[512, 64, 0], q_lens=[64, 64, 0]),
     }
+    spec_rng = np.random.RandomState(2028)
     max_err = 0.0
     errors = {}
     for name, case in cases.items():
-        args = _paged_case(torch, rng, **case)
+        args = _paged_case(torch, spec_rng if name in SPEC_K4_CASES
+                           else rng, **case)
         ref = pa.paged_attention_reference(*args[:5], q_lens=args[5])
         out = pa.paged_attention(*args[:5], q_lens=args[5])
         torch.cuda.synchronize()
@@ -708,6 +769,12 @@ def kernels_phase(torch):
                             kv_lens=lens, q_lens=None),
         "decode_d512": dict(base, D=512, B=8, C=None, Hq=4, Hkv=4, P=513,
                             kv_lens=lens, q_lens=None),
+        # speculative serving: the target's verify chunk (spec_k 4 + 1
+        # lanes) and the GPT-2-small draft's single-token step
+        "verify": dict(base, B=8, C=5, Hq=16, Hkv=16, P=513,
+                       kv_lens=lens, q_lens=[5] * 8),
+        "draft_decode": dict(base, B=8, C=None, Hq=12, Hkv=12, P=513,
+                             kv_lens=lens, q_lens=None),
     }
     timings = {}
     for name, case in shapes.items():
@@ -735,6 +802,7 @@ def kernels_phase(torch):
         row["kv_lens"] = case["kv_lens"]
         row["shape"] = (f"B={case['B']} C={case['C'] or 1} Hq={case['Hq']} "
                         f"Hkv={case['Hkv']} D={case['D']} ps=16 W=64")
+        row["q_lens"] = case["q_lens"]
         timings[name] = row
         log(f"  time {name}: " + json.dumps(row))
         del exact
@@ -1455,14 +1523,18 @@ def serve_phase(torch):
         }
         log("  serve " + json.dumps(serve))
         serve["profile"] = profile_decode(torch, clients[2], rng)
-        return launches, serve
+        # the spec serve phase holds its tokens against these
+        ref = {"prompts": prompts,
+               "tokens": [r["tokens"] for r in results]}
+        return launches, serve, ref
     finally:
         for c in clients:
             c.close()
         srv.shutdown()
 
 
-def profile_decode(torch, client, rng):
+def profile_decode(torch, client, rng, model="gpt2m",
+                   what="decode request"):
     """One more request (a 512-token prompt, 16 new tokens) under
     torch.profiler, after the main path's counts were read: device time
     by kernel, and the device's busy share of the request's wall time.
@@ -1473,10 +1545,13 @@ def profile_decode(torch, client, rng):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        client.generate("gpt2m", prompt, max_new_tokens=16)
+        res = client.generate(model, prompt, max_new_tokens=16)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    out = _device_summary(events, wall_ms, "decode request")
+    out = _device_summary(events, wall_ms, what)
+    out["result"] = {k: res.get(k) for k in (
+        "spec_proposed", "spec_accepted", "accept_rate",
+        "steps_to_first_token")}
     # K4's share: its split and merge kernels
     k4 = [ev for ev in events
           if str(getattr(ev, "device_type", "")).endswith("CUDA")
@@ -1487,7 +1562,7 @@ def profile_decode(torch, client, rng):
                 getattr(ev, "self_cuda_time_total", 0.0))
         for ev in k4) / 1e3
     out["k4_launches"] = sum(ev.count for ev in k4)
-    log(f"  profile decode request: K4 {out['k4_device_ms']:.3f} ms of "
+    log(f"  profile {what}: K4 {out['k4_device_ms']:.3f} ms of "
         f"{out['device_busy_ms']:.3f} ms device busy "
         f"({out['k4_launches']} kernel launches)")
     return out
@@ -1503,6 +1578,795 @@ def host_read_ms(torch):
         x.cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+# --- spec serve, workloads, checkpoint: the rest of decode serving -------
+
+# the draft: GPT-2-small widths (Radford et al. 2019, Table 2: d768, 12
+# layers; 12 heads as in the released config), seeded apart from the
+# target
+GPT2_SMALL = dict(vocab=50257, d_model=768, n_layers=12, n_heads=12,
+                  n_kv_heads=12, seed=1)
+SPEC_K = 4
+# the margin rule: card-side greedy tokens are held equal up to the first
+# position whose spec-off top-2 logit margin is below MARGIN_REL x the
+# row's max |logit| (K4's chunked and single-token forms, and cuBLAS at
+# M = B vs B x C, do not round alike: an argmax may flip at a near-tie)
+MARGIN_REL = 1e-4
+# its sampled counterpart: a seeded draw is held up to the first position
+# whose uniform draw lies within DRAW_MARGIN of an edge of its token's
+# interval of the spec-off cumulative distribution (a float32 logit
+# error of ~1e-6 relative moves those edges by ~1e-6)
+DRAW_MARGIN = 1e-5
+
+
+def _concurrent(clients, model, prompts, max_new, seeds=None, **kw):
+    """One generate per prompt, all at once over the RPC front door
+    (``seeds``: one sampling seed a request): (results, wall seconds).
+    Any failure fails the phase."""
+    results = [None] * len(prompts)
+    errors = []
+
+    def one(i):
+        try:
+            results[i] = clients[i % len(clients)].generate(
+                model, prompts[i], max_new_tokens=max_new,
+                **(kw if seeds is None else dict(kw, seed=seeds[i])))
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"{model} request {i}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - t0
+    if errors or any(r is None for r in results):
+        raise RuntimeError(f"concurrent generate failed: {errors}")
+    return results, wall
+
+
+def _all_lanes(torch, engine, seq, chunk=64):
+    """A chunked all-lanes pass of the engine's own decoder over ``seq``
+    on its device, into a pool of its own (outside every counted
+    window): yields (start, logits [c, vocab]) a chunk at a time."""
+    from paddle_tpu_torch.serving import decode as td
+
+    spec, params, dev = engine.spec, engine._params, engine.device
+    n, ps = len(seq), 16
+    pages = -(-n // ps)
+    shape = (spec.n_layers, pages + 1, ps, spec.n_kv_heads, spec.head_dim)
+    k = torch.zeros(shape, device=dev)
+    v = torch.zeros(shape, device=dev)
+    table = torch.arange(1, pages + 1, dtype=torch.int32,
+                         device=dev)[None]
+    with torch.no_grad():
+        for start in range(0, n, chunk):
+            c = min(chunk, n - start)
+            tok = torch.tensor([seq[start:start + c]], dtype=torch.int32,
+                               device=dev)
+            pos = torch.arange(start, start + c, dtype=torch.int32,
+                               device=dev)[None]
+            one = torch.tensor([c], dtype=torch.int32, device=dev)
+            _, _, lg = td.decoder_step_chunked(
+                params, spec, tok, pos, one, k, v, table,
+                torch.tensor([start + c], dtype=torch.int32,
+                             device=dev), all_lanes=True)
+            yield start, lg[0]
+
+
+def _margins(torch, engine, prompt, tokens, sampling=None):
+    """The margin of the logits row behind each generated token, from
+    ``_all_lanes`` over prompt + tokens: greedy, the relative top-2
+    margin (top1 - top2) / max|logit|; with ``sampling`` (temperature,
+    top_k, seed), the replayed draw's distance from its token's interval
+    edges (0 where the replay picks another token)."""
+    from paddle_tpu_torch.serving import decode as td
+
+    seq = list(prompt) + list(tokens)
+    n, P = len(seq), len(prompt)
+    rel = []
+    for start, lg in _all_lanes(torch, engine, seq[:-1]):
+        lo = max(P - 1, start)
+        hi = min(n - 1, start + lg.shape[0])
+        if lo >= hi:
+            continue
+        rows = lg[lo - start:hi - start]
+        if sampling is None:
+            top2 = torch.topk(rows, 2, dim=-1).values
+            m = (top2[:, 0] - top2[:, 1]) / rows.abs().amax(-1)
+            rel += m.cpu().tolist()
+            continue
+        for j, row in enumerate(rows.cpu().numpy()):
+            g = lo + j + 1 - P          # generated token index
+            tok, m = td.sample_draw_margin(row, *sampling, lo + j + 1)
+            if m < 0:
+                raise RuntimeError(
+                    f"sample_draw_margin's replay lies outside token "
+                    f"{tok}'s interval (margin {m:.3g}): it no longer "
+                    "matches sample_token")
+            rel.append(m if tok == tokens[g] else 0.0)
+    return rel
+
+
+def _hold_tokens(what, ref, got, rel, cuts, threshold=MARGIN_REL):
+    """The margin rule: ``got`` equals ``ref`` up to the first position
+    whose spec-off margin is below ``threshold``; a difference before it
+    fails. Cut comparisons are appended to ``cuts``."""
+    cut = next((i for i, m in enumerate(rel) if m < threshold), len(ref))
+    if got[:cut] != ref[:cut]:
+        first = next(i for i in range(cut) if got[i] != ref[i])
+        raise RuntimeError(
+            f"{what}: token {first} differs ({got[first]} vs {ref[first]}) "
+            f"before the first near-tie (position {cut}); margin there "
+            f"{rel[first]:.3g}")
+    if cut < len(ref):
+        cuts.append({"what": what, "cut_at": cut, "margin": rel[cut],
+                     "tokens_differ_after": got[cut:] != ref[cut:]})
+    return cut
+
+
+# the seeded decoders re-emit their input token (their own embedding
+# outscores every other), so greedy tokens hardly depend on the rest of
+# the weights: the speculative and beam paths are also held by the
+# logits rows their target calls returned, each within LOGIT_REL x the
+# row's max |logit| of a chunked all-lanes pass over the final sequence
+LOGIT_REL = 1e-4
+
+
+class _LogitTap:
+    """Records every logits row an engine's target calls return (the
+    newest lane of a plain or prefill step, every lane of a verify), with
+    its position and the lane tokens that led to it. It keeps views of
+    the returned tensors and launches nothing; ``close`` unhooks."""
+
+    def __init__(self, engine):
+        self.rows = []
+        self._engine = engine
+        for name, all_lanes in (("_run_step_arrays", False),
+                                ("_run_verify_arrays", True)):
+            setattr(engine, name, self._tap(getattr(engine, name),
+                                            all_lanes))
+
+    def _tap(self, orig, all_lanes):
+        def tap(*arrays):
+            lg = orig(*arrays)
+            tokens, positions, q_lens = arrays[:3]
+            for b, q in enumerate(int(x) for x in q_lens):
+                if q == 0:        # a dead row
+                    continue
+                for j in (range(q) if all_lanes else range(q - 1, q)):
+                    self.rows.append((
+                        int(positions[b, 0]),
+                        tuple(int(t) for t in tokens[b, :j + 1]),
+                        lg[b, j] if all_lanes else lg[b]))
+            return lg
+        return tap
+
+    def close(self):
+        for name in ("_run_step_arrays", "_run_verify_arrays"):
+            self._engine.__dict__.pop(name, None)
+
+
+def _hold_logits(torch, what, rows, seqs, prompt_lens, refs,
+                 rel=LOGIT_REL):
+    """Every recorded row whose lane tokens lie on one of ``seqs`` (a
+    lane after a rejected proposal lies on none) within ``rel`` x
+    max|row| of that sequence's reference row ``refs[i][position]``, and
+    every generated token's row compared."""
+    covered = [set() for _ in seqs]
+    compared, worst = 0, 0.0
+    for p0, toks, row in rows:
+        p = p0 + len(toks) - 1
+        errs = [(((row - refs[i][p]).abs().max()
+                  / refs[i][p].abs().max()).item(), i)
+                for i, sq in enumerate(seqs)
+                if p < len(sq) and tuple(sq[p0:p + 1]) == toks]
+        if not errs:
+            continue
+        best = min(errs)[0]
+        if best > rel:
+            raise RuntimeError(
+                f"{what}: the logits row at position {p} is {best:.3g} "
+                f"x max|logit| from the reference (> {rel})")
+        for err, i in errs:
+            if err <= rel:
+                covered[i].add(p)
+        compared += 1
+        worst = max(worst, best)
+    for i, (sq, n) in enumerate(zip(seqs, prompt_lens)):
+        missing = [p for p in range(n - 1, len(sq) - 1)
+                   if p not in covered[i]]
+        if missing:
+            raise RuntimeError(f"{what}: sequence {i}: no logits row "
+                               f"compared at positions {missing[:8]}")
+    return {"rows_compared": compared, "worst_rel": worst}
+
+
+def _references(torch, engine, seqs):
+    """The all-lanes logits [len, vocab] of each sequence."""
+    return [torch.cat([lg for _, lg in _all_lanes(torch, engine, sq)])
+            for sq in seqs]
+
+
+def _spans(model, name):
+    from paddle_tpu_torch.observability import tracing
+
+    return [ev["dur"] / 1e3 for ev in tracing.trace_events()
+            if ev.get("name") == name
+            and ev.get("args", {}).get("model") == model]
+
+
+def _k4_window(pa, what, launches_per, counters_delta):
+    """K4's launches in a counted window against the engines' own step
+    counters: launches == sum(layers x steps), no plain call."""
+    launches = pa.counts.kernel_launches[pa.KERNEL]
+    plain = pa.counts.plain_calls[pa.KERNEL]
+    want = sum(n * counters_delta[c] for c, n in launches_per.items())
+    if launches != want or launches == 0:
+        raise RuntimeError(f"{what}: K4 launches {launches} != {want} "
+                           f"({launches_per} x {counters_delta})")
+    if plain != 0:
+        raise RuntimeError(f"{what}: the plain version ran {plain} times "
+                           "on the card's main path")
+    return {"kernel_launches": launches, "plain_calls": plain,
+            "expected": want, "steps": counters_delta}
+
+
+def spec_serve_phase(torch, ref):
+    """Speculative decoding at GPT-2-medium width over the RPC front
+    door: a GPT-2-small draft and the target's own spec as a draft,
+    against spec-off, in turns."""
+    phase("spec serve")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import metrics, tracing
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+
+    ctr = {c: metrics.counter(c) for c in (
+        "serving.decode.target_steps", "serving.decode.spec.draft_steps")}
+    prompts_a, ref_tokens = ref["prompts"], ref["tokens"]
+    rng = np.random.RandomState(8)
+    prompts_b = [[int(t) for t in rng.randint(0, 50257, size=len(p))]
+                 for p in prompts_a]
+    models = {"off": None, "small": GPT2_SMALL, "self": GPT2_MEDIUM}
+    srv = ServingServer()
+    addr = srv.serve()
+    clients = [ServingClient(addr, timeout=900.0) for _ in range(8)]
+    cuts = []
+    rejections = []
+    runs = []
+    sampled_runs = []
+    windows = {}
+    logits_held = {}
+    # what the self draft's rejections are logged against
+    cur = {"run": None}
+    try:
+        def snap():
+            return {c: m.value() for c, m in ctr.items()}
+
+        def delta(before):
+            return {c: ctr[c].value() - before[c] for c in ctr}
+
+        def run(model, prompts, rows=runs, **gen):
+            tracing.trace_reset()
+            tracing.trace_enable()
+            torch.cuda.reset_peak_memory_stats()
+            before = snap()
+            cur["run"] = (f"{model} {'A' if prompts is prompts_a else 'B'}"
+                          f"{' sampled' if gen else ''}")
+            results, wall = _concurrent(clients, model, prompts, 32, **gen)
+            tracing.trace_disable()
+            d = delta(before)
+            prop = sum(r["spec_proposed"] for r in results)
+            acc = sum(r["spec_accepted"] for r in results)
+            verify = _spans(model, "serving.decode.spec.verify")
+            draft = _spans(model, "serving.decode.spec.draft")
+            steps = _spans(model, "serving.decode.step")
+            row = {"model": model, "prompts": "A" if prompts is prompts_a
+                   else "B", "wall_s": wall,
+                   "tokens_per_s": sum(len(r["tokens"]) for r in results)
+                   / wall,
+                   "target_steps": d["serving.decode.target_steps"],
+                   "draft_steps": d["serving.decode.spec.draft_steps"],
+                   "proposed": prop, "accepted": acc,
+                   "accept_rate": acc / prop if prop else None,
+                   "rounds": len(verify),
+                   "p50_step_ms": statistics.median(steps),
+                   "p50_verify_ms": (statistics.median(verify)
+                                     if verify else None),
+                   "p50_draft_round_ms": (statistics.median(draft)
+                                          if draft else None),
+                   "draft_steps_per_round": (
+                       d["serving.decode.spec.draft_steps"] / len(draft)
+                       if draft else None),
+                   "peak_memory_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9}
+            if row["p50_draft_round_ms"] is not None:
+                row["p50_draft_step_ms"] = (row["p50_draft_round_ms"]
+                                            / row["draft_steps_per_round"])
+            if gen:
+                row["sampling"] = dict(gen, seeds=f"{gen['seeds'][0]}..")
+            rows.append(row)
+            log(f"  run {model} ({row['prompts']}{', sampled' if gen else ''}"
+                f"): " + json.dumps(row))
+            return results
+
+        def load(model):
+            kw = dict(SERVE)
+            if models[model] is not None:
+                kw.update(draft_spec=models[model], spec_k=SPEC_K)
+            t0 = time.perf_counter()
+            st = clients[0].load_decoder(model, GPT2_MEDIUM, **kw)
+            log(f"  load+warm {model} {time.perf_counter() - t0:.2f} s; "
+                f"{len(st['compiled_shapes'])} step shapes, spec_k "
+                f"{st['spec_k']}")
+            return srv.registry.get(model)
+
+        off = load("off")
+        margins_a = [_margins(torch, off, p, t)
+                     for p, t in zip(prompts_a, ref_tokens)]
+        res_off_a = run("off", prompts_a)
+        for i, r in enumerate(res_off_a):
+            _hold_tokens(f"off A[{i}] vs serve", ref_tokens[i],
+                         r["tokens"], margins_a[i], cuts)
+        for model, draft_layers in (("small", GPT2_SMALL["n_layers"]),
+                                    ("self", GPT2_MEDIUM["n_layers"])):
+            # the counted window: load + warm + the first traffic
+            pa.counts.reset()
+            before = snap()
+            eng = load(model)
+            if model == "self":
+                index = {tuple(p): i for ps in (prompts_a, prompts_b)
+                         for i, p in enumerate(ps)}
+                orig = eng._spec_substep
+
+                def logged(slots, w, orig=orig):
+                    out = orig(slots, w)
+                    for s in slots:
+                        committed, ke, acc = out[id(s)]
+                        if acc < ke:
+                            i = index.get(tuple(s.req.prompt))
+                            g = s.pos + 1 + acc - len(s.req.prompt)
+                            rejections.append({"run": cur["run"],
+                                               "prompt": i, "token": g})
+                    return out
+
+                eng._spec_substep = logged
+            tap = _LogitTap(eng)
+            results = run(model, prompts_a)
+            pages = clients[0].list_models()[model]["kv"]["pages_used"]
+            if pages != 0:
+                raise RuntimeError(f"{model}: pages_used {pages} != 0")
+            windows[model] = _k4_window(
+                pa, f"spec serve {model}",
+                {"serving.decode.target_steps": GPT2_MEDIUM["n_layers"],
+                 "serving.decode.spec.draft_steps": draft_layers},
+                delta(before))
+            tap.close()
+            seqs = [p + r["tokens"] for p, r in zip(prompts_a, results)]
+            logits_held[model] = _hold_logits(
+                torch, f"spec serve {model}", tap.rows, seqs,
+                [len(p) for p in prompts_a], _references(torch, off, seqs))
+            del tap
+            log(f"  logits {model}: " + json.dumps(logits_held[model]))
+            for i, r in enumerate(results):
+                _hold_tokens(f"{model} A[{i}] vs serve", ref_tokens[i],
+                             r["tokens"], margins_a[i], cuts)
+            log(f"  window {model}: " + json.dumps(windows[model]))
+        self_a = runs[-1]
+        # the trade, one request at a time as a lone user sends them (the
+        # prompts are in each engine's prefix cache by now: mostly
+        # decode), in turns: a verify round commits up to spec_k + 1
+        # tokens for one target step (with 8 requests at once, a verify
+        # beside a prefill chunk is a second target call of its round:
+        # see the runs' counts)
+        alone_runs = []
+        for m in ("off", "small", "self", "self", "small", "off"):
+            cur["run"] = f"{m} A alone"
+            before = snap()
+            t0 = time.perf_counter()
+            for i, p in enumerate(prompts_a):
+                r = clients[0].generate(m, p, max_new_tokens=32)
+                _hold_tokens(f"{m} A[{i}] alone vs serve", ref_tokens[i],
+                             r["tokens"], margins_a[i], cuts)
+            wall = time.perf_counter() - t0
+            d = delta(before)
+            alone_runs.append({
+                "model": m, "wall_s": wall, "tokens_per_s": 256 / wall,
+                "target_steps": d["serving.decode.target_steps"],
+                "draft_steps": d["serving.decode.spec.draft_steps"]})
+            log(f"  alone {m}: " + json.dumps(alone_runs[-1]))
+        alone = {m: {"tokens_per_s": statistics.mean(
+                         r["tokens_per_s"] for r in alone_runs
+                         if r["model"] == m),
+                     "target_steps": next(r["target_steps"]
+                                          for r in alone_runs
+                                          if r["model"] == m)}
+                 for m in models}
+        log(f"  the 8 requests one at a time: " + json.dumps(alone))
+        if not alone["self"]["target_steps"] < alone["off"]["target_steps"]:
+            raise RuntimeError(
+                f"self draft: {alone['self']['target_steps']} target "
+                f"steps for the 8 requests alone, not fewer than "
+                f"spec-off's {alone['off']['target_steps']}")
+        if self_a["accept_rate"] < 0.95:
+            raise RuntimeError(f"self draft accepted {self_a['accepted']} "
+                               f"of {self_a['proposed']} (< 0.95)")
+        # the second turn, on fresh prompts, in reverse order
+        res_b = {m: run(m, prompts_b) for m in ("self", "small", "off")}
+        margins_b = [_margins(torch, off, p, r["tokens"])
+                     for p, r in zip(prompts_b, res_b["off"])]
+        for m in ("self", "small"):
+            for i, r in enumerate(res_b[m]):
+                _hold_tokens(f"{m} B[{i}] vs off B", res_b["off"][i]["tokens"],
+                             r["tokens"], margins_b[i], cuts)
+        # seeded sampling (temperature 1, top-k 40, a seed a request): the
+        # draft's proposals now meet the target's own draws, so rejection
+        # and rollback run at full width; tokens held by the draw margin
+        samp = dict(temperature=1.0, top_k=40,
+                    seeds=[1000 + i for i in range(8)])
+        res_s = {m: run(m, prompts_a, rows=sampled_runs, **samp)
+                 for m in ("off", "small", "self")}
+        margins_s = [_margins(torch, off, p, r["tokens"],
+                              sampling=(1.0, 40, 1000 + i))
+                     for i, (p, r) in enumerate(zip(prompts_a,
+                                                    res_s["off"]))]
+        held = [_hold_tokens(f"{m} A[{i}] sampled vs off",
+                             res_s["off"][i]["tokens"], r["tokens"],
+                             margins_s[i], cuts, threshold=DRAW_MARGIN)
+                for m in ("small", "self") for i, r in enumerate(res_s[m])]
+        # a replay that drifted from the engine's draw would cut early
+        # and compare nothing
+        total = 2 * sum(len(r["tokens"]) for r in res_s["off"])
+        if min(held) == 0 or sum(held) < 0.75 * total:
+            raise RuntimeError(f"sampled holds cut too early: {held}")
+        if sampled_runs[2]["accept_rate"] < 0.95:
+            raise RuntimeError(
+                f"self draft, sampled: accepted {sampled_runs[2]['accepted']}"
+                f" of {sampled_runs[2]['proposed']} (< 0.95)")
+        margins = {"self A": margins_a, "self A alone": margins_a,
+                   "self B": margins_b, "self A sampled": margins_s}
+        for r in rejections:
+            rel = margins.get(r["run"])
+            i, g = r["prompt"], r["token"]
+            r["margin"] = (rel[i][g] if rel is not None and i is not None
+                           and 0 <= g < len(rel[i]) else None)
+            log(f"  self-draft rejection: " + json.dumps(r))
+        for c in cuts:
+            log("  margin rule cut: " + json.dumps(c))
+        summary = {}
+        for m in models:
+            rows = [r for r in runs if r["model"] == m]
+            summary[m] = {
+                "tokens_per_s_turns": [r["tokens_per_s"] for r in rows],
+                "tokens_per_s": statistics.mean(r["tokens_per_s"]
+                                                for r in rows),
+                "accept_rate": [r["accept_rate"] for r in rows],
+                "target_steps": [r["target_steps"] for r in rows],
+                "draft_steps": [r["draft_steps"] for r in rows],
+                "p50_step_ms": [r["p50_step_ms"] for r in rows],
+                "p50_verify_ms": [r["p50_verify_ms"] for r in rows],
+                "p50_draft_step_ms": [r.get("p50_draft_step_ms")
+                                      for r in rows],
+                "peak_memory_allocated_gb": max(
+                    r["peak_memory_allocated_gb"] for r in rows),
+                "kv_pool_gb": (srv.registry.get(m).cache.hbm_bytes + (
+                    srv.registry.get(m)._draft_cache.hbm_bytes
+                    if srv.registry.get(m)._draft_cache is not None
+                    else 0)) / 1e9}
+        log("  spec_off_vs_on " + json.dumps(summary))
+        # what the seeded random decoders emit: the share of generated
+        # tokens that repeat the prompt's last token (where both models
+        # repeat it, any draft agrees with the target)
+        gen = [t for r in ref_tokens for t in r]
+        copies = sum(t == p[-1] for p, r in zip(prompts_a, ref_tokens)
+                     for t in r) / len(gen)
+        log(f"  spec-off tokens repeating the prompt's last token: "
+            f"{copies:.4f} of {len(gen)}")
+        profile = profile_decode(torch, clients[2], rng, model="small",
+                                 what="spec request (GPT-2-small draft)")
+        return {"spec_off_vs_on": summary, "runs": runs,
+                "sampled_runs": sampled_runs,
+                "alone": alone, "alone_runs": alone_runs,
+                "share_repeating_last_prompt_token": copies,
+                "windows": windows, "margin_cuts": cuts,
+                "logits_held": logits_held,
+                "self_draft_rejections": rejections, "profile": profile,
+                "draft": GPT2_SMALL, "spec_k": SPEC_K}
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+
+
+# a finite language of four tokens (two choices at each of the first
+# three positions): the automaton stops after the fourth
+WORKLOAD_MASK = "( 464 | 318 ) ( 1049 | 11 | 257 ) [ 5 6 7 ] 13"
+
+
+def workloads_phase(torch):
+    """The typed workloads over the workload RPC on a GPT-2-medium
+    engine with the prefix cache and the embed lane, then decoder
+    checkpoints on the same server."""
+    phase("workloads")
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import metrics
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+    from paddle_tpu_torch.serving import decode as td
+    from paddle_tpu_torch.serving.workloads import TokenMaskSpec
+
+    ctr = {c: metrics.counter(c) for c in (
+        "serving.decode.target_steps", "serving.decode.embed.steps")}
+    rng = np.random.RandomState(9)
+    srv = ServingServer()
+    addr = srv.serve()
+    clients = [ServingClient(addr, timeout=900.0) for _ in range(4)]
+    cli = clients[0]
+    out = {}
+    cuts = []
+    try:
+        pa.counts.reset()
+        before = {c: m.value() for c, m in ctr.items()}
+        t0 = time.perf_counter()
+        cli.load_decoder("gpt2w", GPT2_MEDIUM, prefix_cache=True,
+                         embeddings=True, **SERVE)
+        out["load_warm_s"] = time.perf_counter() - t0
+        eng = srv.registry.get("gpt2w")
+        # constrained: every token in the language, finished by the
+        # automaton before max_new
+        mask = TokenMaskSpec.regex(WORKLOAD_MASK)
+        t0 = time.perf_counter()
+        con = cli.constrained("gpt2w", [int(t) for t in
+                                        rng.randint(0, 50257, 100)],
+                              mask, max_new_tokens=16)
+        con_s = time.perf_counter() - t0
+        auto = mask.compile()
+        state = auto.start
+        for t in con["tokens"]:
+            if not auto.allowed(state, 50257)[t]:
+                raise RuntimeError(f"constrained token {t} outside the "
+                                   f"language: {con['tokens']}")
+            state = auto.step(state, t)
+        if len(con["tokens"]) != 4 or not auto.accepting(state) or \
+                auto.allowed(state, 50257).any():
+            raise RuntimeError(f"constrained decode did not finish with "
+                               f"the automaton: {con['tokens']}")
+        # embed of a 512-token prompt
+        eprompt = [int(t) for t in rng.randint(0, 50257, 512)]
+        t0 = time.perf_counter()
+        emb = cli.embed("gpt2w", eprompt)
+        embed_s = time.perf_counter() - t0
+        # beam: k 4 over a 300-token prompt
+        bprompt = [int(t) for t in rng.randint(0, 50257, 300)]
+        tap = _LogitTap(eng)
+        t0 = time.perf_counter()
+        beam = cli.beam("gpt2w", bprompt, k=4, max_new_tokens=16)
+        beam_s = time.perf_counter() - t0
+        tap.close()
+        # an embed churn, live_slots sampled during it
+        live = metrics.gauge("serving.decode.live_slots.gpt2w.v1")
+        seen, stop = [], threading.Event()
+
+        def probe():
+            while not stop.is_set():
+                seen.append(live.value())
+                time.sleep(0.001)
+
+        th = threading.Thread(target=probe)
+        th.start()
+        churn_prompts = [[int(t) for t in rng.randint(0, 50257, 64 * i)]
+                         for i in range(1, 9)]
+        churn = [None] * 8
+
+        def one(i):
+            churn[i] = clients[i % 4].embed("gpt2w", churn_prompts[i])
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(8)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(900)
+        churn_s = time.perf_counter() - t0
+        stop.set()
+        th.join(30)
+        if any(c is None for c in churn):
+            raise RuntimeError("embed churn: a request failed")
+        if not seen or max(seen) != 0:
+            raise RuntimeError(f"live_slots moved during the embed churn "
+                               f"(max {max(seen) if seen else None})")
+        pages = cli.list_models()["gpt2w"]["kv"]["pages_used"]
+        if pages != 0:
+            raise RuntimeError(f"workloads: pages_used {pages} != 0")
+        out["window"] = _k4_window(
+            pa, "workloads",
+            {"serving.decode.target_steps": GPT2_MEDIUM["n_layers"],
+             "serving.decode.embed.steps": GPT2_MEDIUM["n_layers"]},
+            {c: ctr[c].value() - before[c] for c in ctr})
+        log("  window workloads: " + json.dumps(out["window"]))
+
+        # the embed against the same request on the CPU (the plain
+        # version), from the same parameters
+        cpu = td.DecodeEngine(eng.spec, name="gpt2w-cpu", slots=[1],
+                              page_size=16, num_pages=40,
+                              max_seq_len=1024, prefill_chunk=64,
+                              embeddings=True, params=eng._params,
+                              warm=False, device="cpu")
+        try:
+            t0 = time.perf_counter()
+            emb_cpu = cpu.embed(eprompt)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            cpu.stop()
+        errs = {}
+        for key in ("embedding", "logprobs"):
+            a = np.asarray(emb[key], np.float64)
+            b = np.asarray(emb_cpu[key], np.float64)
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise RuntimeError(f"embed {key}: shape {a.shape} vs "
+                                   f"{b.shape} or not finite")
+            errs[key] = float(np.abs(a - b).max() / np.abs(b).max())
+            if errs[key] > 1e-4:
+                raise RuntimeError(f"embed {key}: card vs CPU "
+                                   f"{errs[key]:.3g} of max|.| > 1e-4")
+        # beam: shared pages, and each beam an independent greedy decode
+        # of prompt + [head] (the margin rule)
+        if beam["shared_prompt_pages"] <= 0 or len(beam["beams"]) != 4:
+            raise RuntimeError(f"beam: {len(beam['beams'])} beams, "
+                               f"{beam['shared_prompt_pages']} shared "
+                               "pages")
+        seqs = [bprompt + b for b in beam["beams"]]
+        beam_logits = _hold_logits(torch, "beam", tap.rows, seqs,
+                                   [len(bprompt)] * 4,
+                                   _references(torch, eng, seqs))
+        del tap
+        log("  logits beam: " + json.dumps(beam_logits))
+        cli.load_decoder("gpt2-cold", GPT2_MEDIUM, prefix_cache=False,
+                         **SERVE)
+        cold = srv.registry.get("gpt2-cold")
+        for i, b in enumerate(beam["beams"]):
+            ind = cli.generate("gpt2-cold", bprompt + [b[0]],
+                               max_new_tokens=15)["tokens"]
+            _hold_tokens(f"beam {i} vs independent", ind, b[1:],
+                         _margins(torch, cold, bprompt + [b[0]], ind),
+                         cuts)
+        out.update({
+            "constrained": {"tokens": con["tokens"], "s": con_s,
+                            "pattern": WORKLOAD_MASK},
+            "embed": {"prompt_len": 512, "s": embed_s,
+                      "tokens_per_s": 512 / embed_s,
+                      "steps": emb["steps"], "cpu_s": cpu_s,
+                      "card_vs_cpu_rel_err": errs},
+            "embed_churn": {"requests": 8, "tokens": 64 * 36,
+                            "s": churn_s,
+                            "tokens_per_s": 64 * 36 / churn_s,
+                            "live_slots_max": max(seen),
+                            "samples": len(seen)},
+            "beam": {"k": 4, "prompt_len": 300, "max_new_tokens": 16,
+                     "s": beam_s, "tokens_per_s": 4 * 16 / beam_s,
+                     "shared_prompt_pages": beam["shared_prompt_pages"],
+                     "cached_tokens": beam["cached_tokens"],
+                     "logits_held": beam_logits},
+            "margin_cuts": cuts})
+        log("  workloads " + json.dumps(out))
+        out["checkpoint"] = checkpoint_phase(torch, srv, clients, eng, rng)
+        return out
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+
+
+def _params_equal(torch, got, want, what, path=""):
+    """Two parameter trees bitwise equal, tensor by tensor."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise RuntimeError(f"{what}: parameter keys differ at "
+                               f"'{path}'")
+        for k in want:
+            _params_equal(torch, got[k], want[k], what, f"{path}/{k}")
+    elif isinstance(want, (tuple, list)):
+        if len(got) != len(want):
+            raise RuntimeError(f"{what}: '{path}' has {len(got)} parts, "
+                               f"not {len(want)}")
+        for n, (g, w) in enumerate(zip(got, want)):
+            _params_equal(torch, g, w, what, f"{path}/{n}")
+    elif not torch.equal(got, want):
+        raise RuntimeError(f"{what}: tensor '{path}' not bitwise equal")
+
+
+def checkpoint_phase(torch, srv, clients, eng, rng):
+    """save_decoder_checkpoint of the workloads engine's GPT-2-medium
+    parameters to a temporary directory (removed afterwards),
+    load_decoder(checkpoint_dir=) over RPC: the loaded parameters and an
+    all-lanes pass's logits bitwise those of the spec-dict engine, its
+    tokens too; a flipped byte failing with the tensor named."""
+    phase("checkpoint")
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.checkpoint import (CheckpointCorruptError,
+                                             read_manifest,
+                                             save_decoder_checkpoint)
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import metrics
+
+    cli = clients[0]
+    ctr = {c: metrics.counter(c) for c in (
+        "serving.decode.target_steps", "serving.decode.embed.steps")}
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save_decoder_checkpoint(d, eng.spec, params=eng._params)
+        save_s = time.perf_counter() - t0
+        m = read_manifest(d)
+        nbytes = sum(int(t["nbytes"]) for t in m["tensors"])
+        pa.counts.reset()
+        before = {c: m.value() for c, m in ctr.items()}
+        t0 = time.perf_counter()
+        cli.load_decoder("gpt2ck", checkpoint_dir=d, prefix_cache=True,
+                         embeddings=True, **SERVE)
+        load_s = time.perf_counter() - t0
+        prompts = [[int(t) for t in rng.randint(0, 50257, n)]
+                   for n in (37, 300, 700)]
+        got = [cli.generate("gpt2ck", p, max_new_tokens=16) for p in prompts]
+        window = _k4_window(
+            pa, "checkpoint", dict.fromkeys(ctr, GPT2_MEDIUM["n_layers"]),
+            {c: ctr[c].value() - before[c] for c in ctr})
+        want = [cli.generate("gpt2w", p, max_new_tokens=16)
+                for p in prompts]
+        for g, w in zip(got, want):
+            if g["tokens"] != w["tokens"] or g["cached_tokens"] or \
+                    w["cached_tokens"]:
+                raise RuntimeError(
+                    f"checkpoint engine tokens {g['tokens']} != spec-dict "
+                    f"engine's {w['tokens']} (cached {g['cached_tokens']}, "
+                    f"{w['cached_tokens']})")
+        # the weights on the card, and the numbers they give: the tokens
+        # of the seed-built decoder hardly depend on them
+        ck = srv.registry.get("gpt2ck")
+        _params_equal(torch, ck._params, eng._params, "checkpoint engine")
+        seq = prompts[1] + want[1]["tokens"]
+        lg_ck = torch.cat([lg for _, lg in _all_lanes(torch, ck, seq)])
+        lg_w = torch.cat([lg for _, lg in _all_lanes(torch, eng, seq)])
+        if not torch.equal(lg_ck, lg_w):
+            raise RuntimeError(
+                "checkpoint engine: all-lanes logits not bitwise the "
+                "spec-dict engine's (max abs diff "
+                f"{(lg_ck - lg_w).abs().max().item():.3g})")
+        del lg_ck, lg_w
+        victim = f"layer{eng.spec.n_layers // 2}/w2"
+        ent = next(t for t in m["tensors"] if t["name"] == victim)
+        with open(os.path.join(d, m["payload"]), "r+b") as f:
+            f.seek(ent["offset"] + 1000)
+            b = f.read(1)
+            f.seek(ent["offset"] + 1000)
+            f.write(bytes([b[0] ^ 0x04]))
+        try:
+            cli.load_decoder("gpt2bad", checkpoint_dir=d, **SERVE)
+        except CheckpointCorruptError as e:
+            if victim not in str(e):
+                raise RuntimeError(f"corruption error names no tensor: {e}")
+            named = str(e)
+        else:
+            raise RuntimeError("a flipped byte loaded without an error")
+        out = {"save_s": save_s, "load_warm_s": load_s,
+               "tensor_bytes": nbytes, "tensors": len(m["tensors"]),
+               "save_gb_per_s": nbytes / save_s / 1e9,
+               "tokens_bitwise_equal": True, "params_bitwise_equal": True,
+               "all_lanes_logits_bitwise_equal": len(seq),
+               "window": window, "corrupt_error": named[:200]}
+        log("  checkpoint " + json.dumps(out))
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 # --- check against the plain path ----------------------------------------
@@ -4300,9 +5164,11 @@ def main():
     max_err, timings = kernels_phase(torch)
     train_errs, train_rows = train_kernels_phase(torch)
     k5_err, k5_rel, k5_rows, k5_fwd = infer_kernels_phase(torch)
-    launches, serve = serve_phase(torch)
+    launches, serve, serve_ref = serve_phase(torch)
     read_ms = host_read_ms(torch)
     log(f"  host logits read [8, 50257] f32: {read_ms:.4f} ms (median)")
+    spec = spec_serve_phase(torch, serve_ref)
+    workloads = workloads_phase(torch)
     train_launches, train = train_phase(torch)
     check_phase(torch)
     train["check"] = train_check_phase(torch)
@@ -4333,6 +5199,11 @@ def main():
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]
+    per_target = serve["kernel_launches"] / serve["target_steps_total"]
+    small = spec["windows"]["small"]
+    per_draft = ((small["kernel_launches"] - per_target
+                  * small["steps"]["serving.decode.target_steps"])
+                 / small["steps"]["serving.decode.spec.draft_steps"])
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
     ln_bf16 = train_rows["layer_norm_bf16"]
@@ -4460,6 +5331,16 @@ def main():
         "decode_gqa4": timings["decode_gqa4"],
         "decode_d264": timings["decode_d264"],
         "decode_d512": timings["decode_d512"],
+        "verify": timings["verify"],
+        "draft_decode": timings["draft_decode"],
+        "launches_per_target_step": per_target,
+        "launches_per_draft_step": per_draft,
+        "launches_per_step_from": "the serve window's launches over its "
+                                  "target steps; the small-draft window's "
+                                  "launches less that x its target steps, "
+                                  "over its draft steps",
+        "spec_serve": spec,
+        "workloads": workloads,
         "decode_row": dec,
         "case_errors": timings["errors"],
         "bitwise": timings["bitwise"],

@@ -1,0 +1,163 @@
+"""Decoder checkpoints: persist/restore the ``DecoderSpec`` /
+``decoder_step`` parameter-tree contract (the counterpart of
+``paddle_tpu/checkpoint/decoder.py``; the two packages read each other's
+checkpoints).
+
+``save_decoder_checkpoint`` writes the spec into the manifest's meta
+and the parameter tree into the payload; ``load_decoder_checkpoint``
+restores both and VALIDATES the tensor set against the spec before
+anything touches a device — a missing, extra, or wrong-shape tensor is
+a typed error naming the tensor, never a shape error three layers into
+``decoder_step``. Round-trips are bitwise: a loaded decoder serves
+exactly the tokens the saving engine served."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from .errors import CheckpointError
+from .format import _flatten, load_checkpoint_tree, save_checkpoint_tree
+
+__all__ = ["save_decoder_checkpoint", "load_decoder_checkpoint",
+           "expected_decoder_tensors", "decoder_checkpoint_mesh"]
+
+
+def expected_decoder_tensors(spec) -> Dict[str, Tuple[int, ...]]:
+    """Flat ``{name: shape}`` the decoder param-tree contract implies
+    for ``spec`` — computed analytically (no parameter draws), so
+    validation is cheap even for models whose seed-build would not be.
+    The names mirror ``build_decoder_params``'s tree under the
+    ``format._flatten`` scheme (tuples index as ``/0``, ``/1``)."""
+    dm, dh = spec.d_model, spec.head_dim
+    out: Dict[str, Tuple[int, ...]] = {
+        "tok_emb": (spec.vocab, dm),
+        "lnf/0": (dm,),
+        "lnf/1": (dm,),
+    }
+    for l in range(spec.n_layers):
+        p = f"layer{l}"
+        out[f"{p}/ln1/0"] = (dm,)
+        out[f"{p}/ln1/1"] = (dm,)
+        out[f"{p}/wq"] = (dm, spec.n_heads * dh)
+        out[f"{p}/wk"] = (dm, spec.n_kv_heads * dh)
+        out[f"{p}/wv"] = (dm, spec.n_kv_heads * dh)
+        out[f"{p}/wo"] = (spec.n_heads * dh, dm)
+        out[f"{p}/ln2/0"] = (dm,)
+        out[f"{p}/ln2/1"] = (dm,)
+        out[f"{p}/w1"] = (dm, 4 * dm)
+        out[f"{p}/w2"] = (4 * dm, dm)
+    return out
+
+
+def save_decoder_checkpoint(dirname: str, spec,
+                            params: Optional[Dict[str, Any]] = None,
+                            step: Optional[int] = None,
+                            base_manifest: Optional[str] = None,
+                            mesh_axes: Optional[Any] = None,
+                            mesh_rules: Optional[Any] = None,
+                            shard_axis: Optional[str] = None) -> str:
+    """Persist a decoder (spec + parameter tree) as a manifest
+    checkpoint. ``params=None`` saves the spec's deterministic
+    seed-built tree (built on the CPU); an engine passes its own tree of
+    tensors (read back from any device). ``step`` (optional) rides the
+    meta. ``base_manifest`` names a prior decoder checkpoint DIRECTORY:
+    only tensors whose crc32 differs from the base are written — the
+    rest become base references the loader follows.
+
+    ``mesh_axes`` / ``mesh_rules`` / ``shard_axis`` record a serving
+    mesh or write the sharded layout; both need the mesh layer, which is
+    not ported yet, and raise ``NotImplementedError``."""
+    if mesh_axes is not None or mesh_rules is not None or \
+            shard_axis is not None:
+        raise NotImplementedError(
+            "save_decoder_checkpoint(mesh_axes= / mesh_rules= / "
+            "shard_axis=) needs the mesh layer, which paddle_tpu_torch "
+            "does not port yet — it comes with the mesh and parallel "
+            "slice; save without them")
+    if params is None:
+        from ..serving.decode import build_decoder_params
+
+        params = build_decoder_params(spec, device="cpu")
+    meta: Dict[str, Any] = {"kind": "decoder", "spec": spec.to_dict()}
+    if step is not None:
+        meta["step"] = int(step)
+    return save_checkpoint_tree(dirname, params, meta=meta,
+                                base=base_manifest)
+
+
+def decoder_checkpoint_mesh(dirname: str) -> Optional[Dict[str, Any]]:
+    """The mesh a decoder checkpoint RECORDED at export (``{"spec":
+    MeshSpec dict, "rules": ShardingRules dict}``), or None for
+    single-chip artifacts. Reads only the manifest — no payload I/O."""
+    from .format import read_manifest
+
+    manifest = read_manifest(dirname)
+    meta = manifest.get("meta") or {}
+    return meta.get("mesh")
+
+
+def load_decoder_checkpoint(dirname: str, verify: bool = True,
+                            device=None):
+    """Restore ``(DecoderSpec, params)`` from a decoder checkpoint
+    (either package's, monolithic or sharded). The params come back as
+    float32 torch tensors on ``device`` (None = the card; it raises
+    without one), ready for ``DecodeEngine(..., params=)``; the tensor
+    set is validated against the spec FIRST (names, shapes, float32),
+    so a wrong-model or hand-edited checkpoint fails with the offending
+    tensor named."""
+    import torch
+
+    from ..device import resolve_device
+    from ..serving.decode import DecoderSpec
+
+    dev = resolve_device(device)
+    tree, manifest = load_checkpoint_tree(dirname, verify=verify)
+    meta = manifest.get("meta") or {}
+    if meta.get("kind") != "decoder":
+        raise CheckpointError(
+            f"'{dirname}' is a {meta.get('kind') or 'generic'} "
+            "checkpoint, not a decoder checkpoint (no DecoderSpec in "
+            "its meta)")
+    spec = DecoderSpec.from_dict(dict(meta["spec"]))
+
+    # validate the FLAT view against the analytic contract before any
+    # device transfer
+    flat, _skel = _flatten(tree)
+    want = expected_decoder_tensors(spec)
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise CheckpointError(
+            f"decoder checkpoint '{dirname}' does not match its spec's "
+            f"parameter contract: missing {missing or 'none'}, "
+            f"unexpected {extra or 'none'}")
+    for name, shape in want.items():
+        got = tuple(flat[name].shape)
+        if got != shape:
+            raise CheckpointError(
+                f"tensor '{name}' in '{dirname}' has shape {got}, "
+                f"spec requires {shape}")
+        dt = np.dtype(flat[name].dtype)
+        if dt != np.float32:
+            # refuse, don't downcast: a float64 (or quantized) tree
+            # squeezed into float32 would serve other tokens than the
+            # saved model's — the bitwise round trip dies without a
+            # named error
+            raise CheckpointError(
+                f"tensor '{name}' in '{dirname}' is {dt}, the decoder "
+                f"contract serves float32 — convert at save time, "
+                "never implicitly at deploy")
+
+    def to_device(node):
+        if isinstance(node, dict):
+            return {k: to_device(v) for k, v in node.items()}
+        if isinstance(node, tuple):
+            return tuple(to_device(v) for v in node)
+        if isinstance(node, list):
+            return [to_device(v) for v in node]
+        # the loaded arrays are read-only views over the mmap'd payload:
+        # copy out before handing them to torch
+        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+
+    return spec, to_device(tree)

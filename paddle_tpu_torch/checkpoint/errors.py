@@ -1,6 +1,6 @@
 """Typed checkpoint errors, kept apart from the on-disk format so the
-serving client can map them back from the wire before the checkpoint
-format itself is ported."""
+serving client can map them back from the wire without importing it.
+The whole package raises these two types."""
 from __future__ import annotations
 
 from typing import Optional

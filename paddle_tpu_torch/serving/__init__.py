@@ -6,10 +6,13 @@ program (``load_model``/``infer``; the fused ResNet runs the
 hand-written conv kernel), and a ``DecodeEngine`` does continuous
 batching over a paged KV cache (``kv_cache.py``) with the hand-written
 ragged paged-attention kernel (``load_decoder``/``generate`` and token
-streaming). Both sit behind a ``ModelRegistry`` that hot-swaps versions
-and a ``ServingServer``/``ServingClient`` pair on the RPC transport.
+streaming), speculative decoding with a draft decoder, and the typed
+workloads (``workloads/``: constrained, embed, beam) over it. Both sit
+behind a ``ModelRegistry`` that hot-swaps versions and a
+``ServingServer``/``ServingClient`` pair on the RPC transport; decoders
+deploy from a spec or a checkpoint (``paddle_tpu_torch.checkpoint``).
 ``python -m paddle_tpu_torch.serving --serve --load NAME=DIR`` starts a
-server. The typed workloads wait for a later slice.
+server.
 """
 from .client import ServingClient, TokenStream
 from .decode import (DecodeEngine, DecoderSpec, build_decoder_params,

@@ -35,11 +35,30 @@ layers + tied-embedding logits, parameters drawn from numpy in
 dict of tensors with the JAX tree's layout; ``params_from_jax`` carries
 a JAX parameter tree across.
 
+SPECULATIVE DECODING: with a small DRAFT decoder attached
+(``draft_spec``/``draft_params`` + ``spec_k > 0``) every decoding slot
+advances up to ``spec_k + 1`` tokens per scheduler round for ONE target
+step: the draft proposes ``spec_k`` tokens (a <= 2-lane catch-up chunk,
+then single-token steps, on its own ladder), the target verifies all
+``k + 1`` positions in one ``decoder_step_chunked(all_lanes=True)``
+call, and the committed tokens are the target's own per-(seed,
+position) choices along the longest agreeing prefix — the tokens the
+non-speculative engine emits. The draft's pool MIRRORS the target's page
+geometry (one allocator, the same page ids and tables), so growth,
+rejected-suffix rollback (``PageAllocator.shrink``), copy-on-write,
+preemption spill and restore stay one mechanism.
+
+THE TYPED WORKLOADS: ``submit(mask=)`` constrains generation to a
+``TokenMaskSpec`` language (disallowed logits to -inf before the same
+per-(seed, position) choice), ``topk_first`` returns the first generated
+position's token order (the beam fork point, ``workloads/beam.py``), and
+the EMBEDDINGS lane (``embeddings=True``, ``submit_embed``/``embed``)
+runs prompt-only requests through the chunked prefill in slots of its
+own — mean-pooled final hidden states and per-token logprobs, no decode
+slot taken.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-speculative decoding (``draft_spec`` / ``spec_k > 0``), the embeddings
-lane, mesh-sharded serving, and the autotuned ``"auto"`` ladders.
-Constrained decode and first-token top-k belong to the typed workloads,
-which are not ported either.
+mesh-sharded serving and the autotuned ``"auto"`` ladders.
 
 Lifecycle mirrors the JAX engine so the SAME ModelRegistry hot-swaps
 decoders: ``stop(drain=True)`` finishes every admitted sequence then
@@ -70,7 +89,8 @@ from .kv_cache import GARBAGE_PAGE, HostSpillStore, PagedKvCache
 
 __all__ = ["DecoderSpec", "DecodeEngine", "build_decoder_params",
            "params_from_jax", "decoder_step", "decoder_step_chunked",
-           "width_ladder", "sample_token", "validate_draft_spec"]
+           "width_ladder", "sample_token", "sample_draw_margin",
+           "validate_draft_spec"]
 
 _log = get_logger("serving")
 
@@ -105,8 +125,24 @@ _m_first_token_steps = _metrics.histogram(
 _m_preemptions = _metrics.counter("serving.kv.preemptions")
 _m_restores = _metrics.counter("serving.kv.restores")
 _m_demotions = _metrics.counter("serving.kv.demotions")
-# target-model invocations (warm included)
+# target-model invocations: one per plain/prefill step AND one per
+# verify chunk (warm included)
 _m_target_steps = _metrics.counter("serving.decode.target_steps")
+# draft-model invocations (propose + prefill shadowing, warm included)
+_m_draft_steps = _metrics.counter("serving.decode.spec.draft_steps")
+# proposed == accepted + rejected, always; accept_rate observes each
+# finished request's ratio
+_m_spec_proposed = _metrics.counter("serving.decode.spec.proposed")
+_m_spec_accepted = _metrics.counter("serving.decode.spec.accepted")
+_m_spec_rejected = _metrics.counter("serving.decode.spec.rejected")
+_m_spec_accept_rate = _metrics.histogram(
+    "serving.decode.spec.accept_rate")
+# the workload layer: tokens chosen under a mask automaton; embed-lane
+# requests, steps (warm included) and prompt tokens
+_m_masked_tokens = _metrics.counter("serving.decode.masked_tokens")
+_m_embed_requests = _metrics.counter("serving.decode.embed.requests")
+_m_embed_steps = _metrics.counter("serving.decode.embed.steps")
+_m_embed_tokens = _metrics.counter("serving.decode.embed.tokens")
 
 
 # --- the decoder model --------------------------------------------------
@@ -363,6 +399,13 @@ def sample_token(logits_row, temperature: float = 0.0, top_k: int = 0,
     row = np.asarray(logits_row, np.float64)
     if temperature <= 0.0:
         return int(np.argmax(row))
+    p = _sampling_probs(row, temperature, top_k)
+    return int(_draw_rng(seed, position).choice(p.size, p=p))
+
+
+def _sampling_probs(row, temperature, top_k):
+    """The temperature-scaled, top-k-masked softmax ``sample_token``
+    draws from (float64)."""
     row = row / float(temperature)
     k = int(top_k)
     if 0 < k < row.size:
@@ -371,9 +414,33 @@ def sample_token(logits_row, temperature: float = 0.0, top_k: int = 0,
     row = row - row.max()
     p = np.exp(row)
     p /= p.sum()
-    rng = np.random.Generator(np.random.PCG64(np.random.SeedSequence(
+    return p
+
+
+def _draw_rng(seed, position):
+    return np.random.Generator(np.random.PCG64(np.random.SeedSequence(
         [int(seed) & 0xFFFFFFFF, int(position)])))
-    return int(rng.choice(row.size, p=p))
+
+
+def sample_draw_margin(logits_row, temperature: float, top_k: int,
+                       seed: int, position: int):
+    """``sample_token``'s sampled draw on one logits row, with how close
+    it came to picking another token: ``(token, margin)``, the margin
+    being the distance of the draw's uniform variate from the nearer
+    edge of ``token``'s interval of the cumulative distribution. A
+    negative margin means the variate lies outside that interval: the
+    replay here no longer matches ``sample_token``'s draw."""
+    if temperature <= 0.0:
+        raise ValueError("sample_draw_margin needs temperature > 0")
+    token = sample_token(logits_row, temperature, top_k, seed, position)
+    p = _sampling_probs(np.asarray(logits_row, np.float64), temperature,
+                        top_k)
+    # Generator.choice(p=) draws one uniform and searches the cumsum
+    cdf = np.cumsum(p)
+    cdf /= cdf[-1]
+    u = _draw_rng(seed, position).random()
+    lo = cdf[token - 1] if token else 0.0
+    return token, float(min(u - lo, cdf[token] - u))
 
 
 # --- ladders ------------------------------------------------------------
@@ -392,17 +459,22 @@ def width_ladder(max_pages: int) -> List[int]:
     return sorted(set(out))
 
 
+
+
 # --- requests / slots ---------------------------------------------------
 
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "deadline", "ev", "result", "error",
                  "t_enq", "seq_id", "trace_ctx", "temperature", "top_k",
                  "seed", "produced", "cached_tokens", "cow", "resume_pos",
-                 "published", "carry_steps", "carry_fts", "needs_alloc")
+                 "published", "carry_steps", "carry_fts", "needs_alloc",
+                 "resume_dpos", "spec_proposed", "spec_accepted",
+                 "mask", "mask_state", "want_topk", "first_topk")
 
     def __init__(self, prompt: np.ndarray, max_new: int,
                  deadline: Optional[float], seq_id: int,
-                 temperature: float = 0.0, top_k: int = 0, seed: int = 0):
+                 temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                 mask: Optional[Any] = None, want_topk: int = 0):
         self.prompt = prompt
         self.max_new = int(max_new)
         self.deadline = deadline
@@ -433,6 +505,20 @@ class _DecodeRequest:
         self.carry_steps = 0
         self.carry_fts: Optional[int] = None
         self.needs_alloc = False
+        # speculative decoding: the draft pool's valid-write watermark
+        # carried through preemption (mirrors resume_pos), and the
+        # request's propose/accept tallies
+        self.resume_dpos: Optional[int] = None
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        # constrained decode: a compiled MaskAutomaton and its state, on
+        # the request so the state survives preemption; want_topk asks
+        # for the FIRST generated position's top-k token order
+        # (first_topk) — the beam fork point
+        self.mask = mask
+        self.mask_state = mask.start if mask is not None else 0
+        self.want_topk = int(want_topk)
+        self.first_topk: Optional[List[int]] = None
 
     def fail(self, err: BaseException):
         self.error = err
@@ -441,7 +527,7 @@ class _DecodeRequest:
 
 class _Slot:
     __slots__ = ("req", "pos", "pages_held", "steps", "first_token_steps",
-                 "pending_restore")
+                 "pending_restore", "dpos")
 
     def __init__(self, req: _DecodeRequest, pages_held: int):
         self.req = req
@@ -453,6 +539,12 @@ class _Slot:
         # its fresh reservation BEFORE its next step (restore-before-
         # step): set at re-admission, executed by _prepare
         self.pending_restore = False
+        # positions validly written to the DRAFT pool. Invariant:
+        # pos - 1 <= dpos <= pos — the draft lags by at most one
+        # committed token (after a fully-accepted round it never fed its
+        # own last proposal), so the next round catches up with a <= 2-
+        # lane chunk before proposing
+        self.dpos = 0
 
     def token_at(self, idx: int) -> int:
         """The sequence's token at absolute position ``idx``: a prompt
@@ -460,6 +552,48 @@ class _Slot:
         p = self.req.prompt
         return (int(p[idx]) if idx < len(p)
                 else self.req.produced[idx - len(p)])
+
+
+class _EmbedRequest:
+    """A prompt-only embedding/scoring request: reserved at submit with
+    ``max_new = 0`` (exactly the prompt's pages), prefilled by the same
+    chunked step, and NEVER occupying a decode slot — the embed lane
+    has its own slot list and gauge. Carries ``cow``/``seq_id``/``fail``
+    so ``_fail_locked`` treats both request classes alike."""
+
+    __slots__ = ("prompt", "deadline", "ev", "result", "error", "t_enq",
+                 "seq_id", "trace_ctx", "cow", "hidden_sum", "logprobs")
+
+    def __init__(self, prompt: np.ndarray, deadline: Optional[float],
+                 seq_id: int, d_model: int):
+        self.prompt = prompt
+        self.deadline = deadline
+        self.ev = threading.Event()
+        self.result: Optional[Dict[str, Any]] = None
+        self.error: Optional[BaseException] = None
+        self.t_enq = time.monotonic()
+        self.seq_id = seq_id
+        self.trace_ctx = _tracing.wire_context()
+        self.cow: Optional[Dict[str, int]] = None
+        # float64 running sum of final-norm hidden states (mean-pooled
+        # at completion) and the per-token logprobs (position p scores
+        # prompt[p+1]), both appended by the embed answer phase
+        self.hidden_sum = np.zeros(d_model, np.float64)
+        self.logprobs: List[float] = []
+
+    def fail(self, err: BaseException):
+        self.error = err
+        self.ev.set()
+
+
+class _EmbedSlot:
+    __slots__ = ("req", "pos", "pages_held", "steps")
+
+    def __init__(self, req: _EmbedRequest, pages_held: int):
+        self.req = req
+        self.pos = 0                # prompt tokens already prefilled
+        self.pages_held = pages_held
+        self.steps = 0
 
 
 # --- the engine ---------------------------------------------------------
@@ -486,21 +620,12 @@ class DecodeEngine:
                  reservation: Optional[str] = None,
                  spill_dir: Optional[str] = None,
                  draft_spec: Optional[Any] = None,
+                 draft_params: Optional[Dict[str, Any]] = None,
                  spec_k: Optional[int] = None,
                  mesh: Optional[Any] = None,
                  embeddings: bool = False,
                  warm: bool = True,
                  device=None):
-        k = int(effective_flag("spec_k") if spec_k is None else spec_k)
-        if draft_spec is not None or k > 0:
-            raise NotImplementedError(
-                "speculative decoding (draft_spec / spec_k > 0) is not "
-                "ported to paddle_tpu_torch yet — it comes with the rest "
-                "of the decode-serving slice")
-        if embeddings:
-            raise NotImplementedError(
-                "the embeddings lane is not ported to paddle_tpu_torch "
-                "yet — it comes with the rest of the decode-serving slice")
         if mesh:
             raise NotImplementedError(
                 "mesh-sharded decode serving is not ported to "
@@ -562,9 +687,57 @@ class DecodeEngine:
         # pure-decode steps ride the C=1 shapes, steps carrying a
         # prefill grant ride the C=chunk shapes
         self._chunk_ladder = sorted({1, self._prefill_chunk})
+        # speculative decoding: spec_k resolves as the JAX engine's does
+        # (explicit arg, else the flag; 0 = off). Only an EXPLICIT
+        # spec_k without a draft is a caller error — a flag-sourced one
+        # leaves draftless engines plain
+        if isinstance(draft_spec, dict):
+            draft_spec = DecoderSpec.from_dict(draft_spec)
+        k_spec = int(effective_flag("spec_k")
+                     if spec_k is None else spec_k)
+        if k_spec < 0:
+            raise ValueError(f"spec_k must be >= 0, got {k_spec}")
+        if k_spec > 0 and draft_spec is None and spec_k is not None:
+            raise ValueError(
+                f"spec_k {k_spec} needs a draft decoder — pass "
+                "draft_spec (or draft_checkpoint_dir through the "
+                "server)")
+        if draft_spec is not None:
+            validate_draft_spec(spec, draft_spec)
+        if draft_spec is None:
+            k_spec = 0
+        # the verify chunk writes through pos + k: never past the
+        # sequence cap (k_eff clamps per slot; this bounds the ladder)
+        self._spec_k = max(0, min(k_spec, self.max_seq_len - 2))
+        self._draft_spec = draft_spec if self._spec_k else None
+        if self._spec_k:
+            self._verify_lanes = self._spec_k + 1
+            # draft calls: C=1 singles, a <= 2-lane catch-up chunk after
+            # a fully-accepted round, and the prefill chunks it shadows
+            self._draft_chunk_ladder = sorted({1, 2, self._prefill_chunk})
+            self._draft_params = (
+                build_decoder_params(draft_spec, self.device)
+                if draft_params is None
+                else _params_to(draft_params,
+                                self.device))  # guarded-by: _step_mu
+            self._draft_cache = PagedKvCache(
+                draft_spec.n_layers, draft_spec.n_kv_heads,
+                draft_spec.head_dim, page_size=ps, num_pages=npages,
+                allocator=self.cache.allocator,
+                device=self.device)  # guarded-by: _step_mu
+        else:
+            self._verify_lanes = 0
+            self._draft_chunk_ladder = []
+            self._draft_params = None  # guarded-by: _step_mu
+            self._draft_cache = None  # guarded-by: _step_mu
+        # embeddings/scoring lane: opt-in because it warms its own
+        # all-lane step family (slots x widths x chunks)
+        self._embed_on = bool(embeddings)
         self._cond = threading.Condition()
         self._queue: List[_DecodeRequest] = []  # guarded-by: _cond
         self._slots: List[_Slot] = []  # guarded-by: _cond
+        self._embed_queue: List[_EmbedRequest] = []  # guarded-by: _cond
+        self._embed_slots: List[_EmbedSlot] = []  # guarded-by: _cond
         self._stopping = False  # guarded-by: _cond
         self._released = False  # guarded-by: _cond
         self._seq_counter = 0  # guarded-by: _cond
@@ -577,6 +750,10 @@ class DecodeEngine:
         # live engine's value
         self._g_live = _metrics.gauge(
             f"serving.decode.live_slots.{self.name}.v{self.version}")
+        # embed occupancy is its OWN gauge: embeddings completing with
+        # live_slots untouched is the zero-decode-slot proof
+        self._g_embed = _metrics.gauge(
+            f"serving.decode.embed_slots.{self.name}.v{self.version}")
         # serializes warm() (caller thread) against live steps (the
         # scheduler thread): every pool read/write must be atomic with
         # respect to the other
@@ -596,34 +773,71 @@ class DecodeEngine:
                 raise
 
     # -- public surface ---------------------------------------------------
+    @property
+    def spec_k(self) -> int:
+        """Draft proposals per decoding slot per round (0 = speculation
+        off — no draft loaded)."""
+        return self._spec_k
+
+    @property
+    def draft_spec(self) -> Optional[DecoderSpec]:
+        return self._draft_spec
+
+    @property
+    def embeddings_enabled(self) -> bool:
+        return self._embed_on
+
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        return self._prefix_on
+
     def warm(self):
         """Run EVERY (slot-count, table-width, chunk) triple once on an
         all-dead synthetic batch (writes land on the garbage page): the
         first use of each shape (cuBLAS handles and heuristics, kernel
         loads, the paged-attention library build) happens at load, not
-        under traffic."""
+        under traffic. With a draft attached the ``spec_k + 1`` verify
+        entry and the draft's own {1, 2, chunk} ladder run too; with the
+        embed lane on, its all-lane + hidden family."""
         with _tracing.span("serving.decode.warmup", model=self.name,
                            version=self.version):
             for s in self._slot_ladder:
                 for w in self._width_ladder:
+                    def dead(c):
+                        return (np.zeros((s, c), np.int32),
+                                np.zeros((s, c), np.int32),
+                                np.zeros(s, np.int32),
+                                np.full((s, w), GARBAGE_PAGE, np.int32),
+                                np.zeros(s, np.int32))
+
                     for c in self._chunk_ladder:
-                        self._run_step_arrays(
-                            np.zeros((s, c), np.int32),
-                            np.zeros((s, c), np.int32),
-                            np.zeros(s, np.int32),
-                            np.full((s, w), GARBAGE_PAGE, np.int32),
-                            np.zeros(s, np.int32))
+                        self._run_step_arrays(*dead(c))
+                    if self._spec_k:
+                        self._run_verify_arrays(*dead(self._verify_lanes))
+                        for c in self._draft_chunk_ladder:
+                            self._run_draft_arrays(*dead(c))
+                    if self._embed_on:
+                        for c in self._chunk_ladder:
+                            self._run_embed_arrays(*dead(c))
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
                deadline_ms: Optional[float] = None,
                temperature: float = 0.0, top_k: int = 0,
-               seed: int = 0) -> _DecodeRequest:
+               seed: int = 0, mask: Optional[Any] = None,
+               topk_first: int = 0) -> _DecodeRequest:
         """Validate + reserve KV pages + enqueue. All refusals are
         synchronous and typed: ``ServerOverloaded`` (queue full OR page
         pool exhausted), ``RequestTooLarge`` (can't ever fit),
         ``EngineRetired``, ``ValueError`` (bad tokens / bad sampling
         params). ``temperature``/``top_k``/``seed`` select the sampling
-        policy per request (``sample_token``; 0.0 = greedy)."""
+        policy per request (``sample_token``; 0.0 = greedy).
+
+        ``mask`` constrains generation to a ``TokenMaskSpec`` language
+        (spec object, its wire dict, or a compiled ``MaskAutomaton``):
+        disallowed logits go to -inf BEFORE the per-(seed, position)
+        choice, and the sequence finishes when the automaton has no
+        further transition. ``topk_first`` asks for the first generated
+        position's top-k token order in the result (``first_topk``)."""
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -656,6 +870,12 @@ class DecodeEngine:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
+        topk_first = int(topk_first)
+        if topk_first < 0 or topk_first > self.spec.vocab:
+            raise ValueError(
+                f"topk_first must be in [0, {self.spec.vocab}], got "
+                f"{topk_first}")
+        automaton = None if mask is None else self._compile_mask(mask)
         deadline = (None if deadline_ms is None
                     else time.monotonic() + float(deadline_ms) / 1e3)
         with self._cond:
@@ -680,7 +900,8 @@ class DecodeEngine:
                 raise
             req = _DecodeRequest(prompt, max_new, deadline, seq_id,
                                  temperature=temperature, top_k=top_k,
-                                 seed=seed)
+                                 seed=seed, mask=automaton,
+                                 want_topk=topk_first)
             req.cached_tokens = res["cached_tokens"]
             req.cow = res["cow"]
             self._queue.append(req)
@@ -690,30 +911,115 @@ class DecodeEngine:
         _m_requests.inc()
         return req
 
+    def _compile_mask(self, mask):
+        from .workloads.masks import MaskAutomaton, TokenMaskSpec
+
+        if isinstance(mask, dict):
+            mask = TokenMaskSpec.from_dict(mask)
+        if isinstance(mask, TokenMaskSpec):
+            automaton = mask.compile()
+        elif isinstance(mask, MaskAutomaton):
+            automaton = mask
+        else:
+            raise ValueError(
+                f"mask must be a TokenMaskSpec, its wire dict, or a "
+                f"MaskAutomaton, got {type(mask).__name__}")
+        if automaton.max_token() >= self.spec.vocab:
+            raise ValueError(
+                f"mask names token id {automaton.max_token()}, outside "
+                f"this decoder's vocab [0, {self.spec.vocab})")
+        if not automaton.allowed(automaton.start, self.spec.vocab).any():
+            raise ValueError("mask allows no first token")
+        return automaton
+
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 16,
                  deadline_ms: Optional[float] = None,
                  timeout: float = 300.0, temperature: float = 0.0,
-                 top_k: int = 0, seed: int = 0) -> Dict[str, Any]:
+                 top_k: int = 0, seed: int = 0,
+                 mask: Optional[Any] = None,
+                 topk_first: int = 0) -> Dict[str, Any]:
         """Blocking convenience: submit + wait. Returns
         ``{"tokens": [...], "prompt_len": n, "version": v,
         "steps_to_first_token": k, "cached_tokens": c, ...}``."""
         req = self.submit(prompt, max_new_tokens, deadline_ms=deadline_ms,
-                          temperature=temperature, top_k=top_k, seed=seed)
+                          temperature=temperature, top_k=top_k, seed=seed,
+                          mask=mask, topk_first=topk_first)
+        return self._wait(req, timeout, "generate")
+
+    def _wait(self, req, timeout: float, what: str) -> Dict[str, Any]:
         if not req.ev.wait(timeout):
             # withdraw before raising: an abandoned sequence must not
-            # keep its page reservation or burn further decode steps.
+            # keep its page reservation or burn further steps.
             # cancel() returning False means the request finished in
             # the wait-vs-cancel window — deliver that result
             if self.cancel(req):
                 raise ServingError(
-                    f"generate on '{self.name}' timed out after "
+                    f"{what} on '{self.name}' timed out after "
                     f"{timeout}s (decode scheduler wedged?)")
         if req.error is not None:
             raise req.error
         return req.result
 
-    def cancel(self, req: _DecodeRequest,
-               msg: str = "abandoned by caller") -> bool:
+    def submit_embed(self, prompt: Sequence[int],
+                     deadline_ms: Optional[float] = None
+                     ) -> _EmbedRequest:
+        """Enqueue a prompt-only embedding/scoring request. Reservation
+        is the reserve-at-admission math with ``max_new = 0``: exactly
+        the prompt's pages, taken NOW, typed ``ServerOverloaded`` on
+        refusal. The request rides the chunked prefill in the embed
+        lane and never holds a decode slot."""
+        if not self._embed_on:
+            raise ServingError(
+                f"decoder '{self.name}' was loaded without "
+                "embeddings=True — the embed lane's step shapes are not "
+                "warmed")
+        prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if int(prompt.min()) < 0 or int(prompt.max()) >= self.spec.vocab:
+            raise ValueError(
+                f"prompt token ids must be in [0, {self.spec.vocab})")
+        if int(prompt.size) > self.max_seq_len:
+            raise RequestTooLarge(
+                f"prompt ({prompt.size}) exceeds max_seq_len "
+                f"{self.max_seq_len}")
+        deadline = (None if deadline_ms is None
+                    else time.monotonic() + float(deadline_ms) / 1e3)
+        with self._cond:
+            if self._stopping:
+                raise EngineRetired(
+                    f"decoder '{self.name}' v{self.version} is retiring")
+            if len(self._embed_queue) >= self._max_queue:
+                _m_overloads.inc()
+                raise ServerOverloaded(
+                    f"decoder '{self.name}' embed queue is full "
+                    f"({self._max_queue} deep)")
+            self._seq_counter += 1
+            seq_id = self._seq_counter
+            try:
+                self.cache.allocator.alloc(seq_id, int(prompt.size))
+            except ServerOverloaded:
+                _m_overloads.inc()
+                raise
+            req = _EmbedRequest(prompt, deadline, seq_id,
+                                self.spec.d_model)
+            self._embed_queue.append(req)
+            self._n_requests += 1
+            self._cond.notify()
+        _m_embed_requests.inc()
+        return req
+
+    def embed(self, prompt: Sequence[int],
+              deadline_ms: Optional[float] = None,
+              timeout: float = 300.0) -> Dict[str, Any]:
+        """Blocking convenience: submit_embed + wait. Returns
+        ``{"embedding": [d_model floats] (mean-pooled final hidden
+        states), "logprobs": [P-1 floats] (position p scores
+        prompt[p+1]), "prompt_len": P, "version": v, "steps": n}``."""
+        return self._wait(self.submit_embed(prompt, deadline_ms=deadline_ms),
+                          timeout, "embed")
+
+    def cancel(self, req, msg: str = "abandoned by caller") -> bool:
         """Withdraw a submitted request whose waiter gave up: frees its
         KV pages now and fails it, so the scheduler drops the slot at
         the next answer phase. A step already in flight still writes
@@ -726,7 +1032,10 @@ class DecodeEngine:
         with self._cond:
             if req.ev.is_set():
                 return False
-            if req in self._queue:
+            if isinstance(req, _EmbedRequest):
+                if req in self._embed_queue:
+                    self._embed_queue.remove(req)
+            elif req in self._queue:
                 self._queue.remove(req)
                 self._g_depth.set(len(self._queue))
             _m_cancels.inc()
@@ -773,29 +1082,34 @@ class DecodeEngine:
             out["result"] = result
         return out
 
+    def set_max_queue(self, n: int):
+        with self._cond:
+            self._max_queue = max(1, int(n))
+
     def stop(self, drain: bool = True, timeout: float = 300.0):
         """Refuse new work; ``drain`` completes every admitted AND
         queued sequence first (the hot-swap drain guarantee), else all
-        are failed with EngineRetired. Then params and pools are dropped
-        so retirement releases the device memory."""
+        are failed with EngineRetired. Then params and pools (the
+        draft's too) are dropped so retirement releases the device
+        memory."""
         with self._cond:
             self._stopping = True
             if not drain:
-                for r in self._queue:
-                    self._fail_locked(r, EngineRetired(
-                        f"decoder '{self.name}' v{self.version} unloaded"))
+                gone = f"decoder '{self.name}' v{self.version} unloaded"
+                for r in self._queue + self._embed_queue:
+                    self._fail_locked(r, EngineRetired(gone))
                 self._queue.clear()
-                for s in self._slots:
-                    # a slot _complete()d mid-step may still be in
-                    # _slots (removal happens under _cond after the
-                    # step) — never overwrite a delivered result
+                self._embed_queue.clear()
+                for s in self._slots + self._embed_slots:
+                    # a slot completed mid-step may still be listed
+                    # (removal happens under _cond after the step) —
+                    # never overwrite a delivered result
                     if not s.req.ev.is_set():
-                        self._fail_locked(s.req, EngineRetired(
-                            f"decoder '{self.name}' v{self.version} "
-                            "unloaded"))
+                        self._fail_locked(s.req, EngineRetired(gone))
                     else:
                         self.cache.allocator.free(s.req.seq_id)
                 self._slots = []
+                self._embed_slots = []
                 self._g_depth.set(0)
             self._cond.notify_all()
         self._thread.join(timeout)
@@ -804,6 +1118,12 @@ class DecodeEngine:
                        self.name, self.version, timeout)
         with self._step_mu:
             self._params = None
+            self._draft_params = None
+            if self._draft_cache is not None:
+                # shared allocator: retire() is idempotent; the draft
+                # pool's memory frees with its own k/v drop
+                self._draft_cache.release()
+                self._draft_cache = None
             self.cache.release()
         # any spills that survived the drain die with the engine
         self._spill.clear()
@@ -811,6 +1131,7 @@ class DecodeEngine:
             self._released = True
             self._g_depth.set(0)
             self._g_live.set(0)
+            self._g_embed.set(0)
 
     def stats(self) -> Dict[str, Any]:
         with self._step_mu:
@@ -829,13 +1150,18 @@ class DecodeEngine:
                 "page_size": self.cache.page_size,
                 "max_seq_len": self.max_seq_len,
                 "reservation": self._reservation,
-                "spec_k": 0,
+                "spec_k": self._spec_k,
+                "draft": (self._draft_spec.to_dict()
+                          if self._draft_spec is not None else None),
                 "prefix_cache": self._prefix_on,
                 "prefix": self.cache.allocator.prefix_stats(),
                 "spilled_sequences": self._spill.count(),
                 "kv": self.cache.allocator.stats(),
                 "queue_depth": len(self._queue),
                 "live": len(self._slots),
+                "embeddings": self._embed_on,
+                "embed_queue": len(self._embed_queue),
+                "live_embed": len(self._embed_slots),
                 "max_queue": self._max_queue,
                 "requests": self._n_requests,
                 "steps": self._n_steps,
@@ -863,7 +1189,7 @@ class DecodeEngine:
         self.cache.allocator.alloc(seq_id, reserve)
         return {"cached_tokens": 0, "cow": None}
 
-    def _fail_locked(self, req: _DecodeRequest, err: BaseException):
+    def _fail_locked(self, req, err: BaseException):
         self.cache.allocator.free(req.seq_id)
         if req.cow is not None:
             # the COW source pin must not outlive the request
@@ -874,25 +1200,26 @@ class DecodeEngine:
         req.fail(err)
 
     def _drop_expired_locked(self, now: float):
-        keep = []
-        for r in self._queue:
-            if r.deadline is not None and now > r.deadline:
-                _m_deadline_miss.inc()
-                self._fail_locked(r, DeadlineExceeded(
-                    f"request to decoder '{self.name}' missed its "
-                    "deadline while queued"))
-            else:
-                keep.append(r)
-        if len(keep) != len(self._queue):
-            self._queue[:] = keep
-            self._g_depth.set(len(keep))
+        for queue in (self._queue, self._embed_queue):
+            keep = []
+            for r in queue:
+                if r.deadline is not None and now > r.deadline:
+                    _m_deadline_miss.inc()
+                    self._fail_locked(r, DeadlineExceeded(
+                        f"request to decoder '{self.name}' missed its "
+                        "deadline while queued"))
+                else:
+                    keep.append(r)
+            queue[:] = keep
+        self._g_depth.set(len(self._queue))
 
     def _admit_locked(self):
         """Move queued requests into free slots whenever a slot is free
         — INTO the in-flight batch. A request whose reservation was
         surrendered (preempted victims sit at the queue FRONT, demoted
         reservations wherever they were) must re-reserve first; a
-        refusal leaves it queued."""
+        refusal leaves it queued. Embed requests fill the embed lane's
+        own slots (reserved at submit: admission is bookkeeping)."""
         while self._queue and len(self._slots) < self._max_slots:
             req = self._queue[0]
             if req.ev.is_set():
@@ -924,87 +1251,147 @@ class DecodeEngine:
                          self.cache.allocator.held_pages(req.seq_id))
             if req.resume_pos is not None:
                 slot.pos = req.resume_pos
+                # the draft pool restores from the same spill; its
+                # watermark resumes where preemption froze it
+                slot.dpos = (req.resume_dpos
+                             if req.resume_dpos is not None
+                             else req.resume_pos)
                 slot.pending_restore = True
                 req.resume_pos = None
+                req.resume_dpos = None
             else:
-                # cached prompt pages are already written (and mapped):
-                # prefill starts at the first uncached token
+                # cached prompt pages are already written (and mapped)
+                # in BOTH pools: prefill starts at the first uncached
+                # token
                 slot.pos = req.cached_tokens
+                slot.dpos = req.cached_tokens
             slot.steps = req.carry_steps
             slot.first_token_steps = req.carry_fts
             self._slots.append(slot)
             _m_admitted.inc()
             _m_queue_wait.observe((time.monotonic() - req.t_enq) * 1e3)
+        while self._embed_queue and \
+                len(self._embed_slots) < self._max_slots:
+            ereq = self._embed_queue.pop(0)
+            if ereq.ev.is_set():
+                continue
+            self._embed_slots.append(_EmbedSlot(
+                ereq, self.cache.allocator.held_pages(ereq.seq_id)))
+            _m_admitted.inc()
+            _m_queue_wait.observe((time.monotonic() - ereq.t_enq) * 1e3)
         self._g_depth.set(len(self._queue))
         self._g_live.set(len(self._slots))
+        self._g_embed.set(len(self._embed_slots))
 
-    def _next_live(self) -> Optional[List[_Slot]]:
+    def _next_live(self
+                   ) -> Optional[Tuple[List[_Slot], List[_EmbedSlot]]]:
         # lint: allow-blocking — Condition.wait on the engine's own
         # condition is the scheduler's idle state by design
         with self._cond:
             while True:
                 self._drop_expired_locked(time.monotonic())
                 self._admit_locked()
-                if self._slots:
-                    return list(self._slots)
-                if self._stopping and not self._queue:
+                if self._slots or self._embed_slots:
+                    return list(self._slots), list(self._embed_slots)
+                queued = self._queue or self._embed_queue
+                if self._stopping and not queued:
                     return None
                 # idle blocks untimed on submit()/stop() notifies; the
                 # timed wait survives only for a non-empty queue, whose
                 # deadlines need the poll
-                self._cond.wait(0.05 if self._queue else None)
+                self._cond.wait(0.05 if queued else None)
 
     def _loop(self):
         while True:
-            live = self._next_live()
-            if live is None:
+            nxt = self._next_live()
+            if nxt is None:
                 return
+            live, elive = nxt
             try:
-                self._step(live)
+                if live:
+                    self._step(live)
+                if elive:
+                    # the embed lane runs AFTER the decode step each
+                    # round: decode tokens never stall behind scoring
+                    self._embed_step(elive)
             except BaseException as e:  # a broken step fails ITS slots
                 _log.error("decode step on %s v%d failed: %s: %s",
                            self.name, self.version, type(e).__name__, e)
                 err = (e if isinstance(e, ServingError) else
                        ServingError(f"{type(e).__name__}: {e}"))
                 with self._cond:
-                    for s in live:
+                    for s in live + elive:
                         if not s.req.ev.is_set():
                             self._fail_locked(s.req, err)
                     self._slots = [s for s in self._slots
                                    if s not in live]
+                    self._embed_slots = [s for s in self._embed_slots
+                                         if s not in elive]
                     self._g_live.set(len(self._slots))
+                    self._g_embed.set(len(self._embed_slots))
                     self._cond.notify_all()
 
-    def _run_step_arrays(self, tokens, positions, q_lens, tables, lens):
-        """Shared by warm() and live steps: note a DISTINCT shape, move
-        the host arrays to the device, run the step (it updates the
-        pools in place), return the logits tensor."""
+    def _run(self, family: str, counter, params, spec, cache, arrays,
+             **step_kw):
+        """One model call, shared by warm() and live steps: note a
+        DISTINCT shape (tagged with its family whenever a second family
+        exists, as the JAX engine tags its compiled shapes), move the
+        host arrays to the device, run the step (it updates ``cache``'s
+        pools in place) and return what follows the pools: the logits,
+        and with ``return_hidden`` the hidden states."""
+        tokens, positions, q_lens, tables, lens = arrays
         with self._step_mu:
             key = (len(tokens), tables.shape[1], tokens.shape[1])
+            if family != "target" or self._spec_k or self._embed_on:
+                key = (family,) + key
             if key not in self._step_shapes:
                 self._step_shapes.add(key)
                 _m_compiles.inc()
-            _m_target_steps.inc()
+            counter.inc()
             dev = self.device
             with torch.no_grad():
-                k, v, logits = decoder_step_chunked(
-                    self._params, self.spec,
-                    torch.from_numpy(tokens).to(dev),
-                    torch.from_numpy(positions).to(dev),
-                    torch.from_numpy(q_lens).to(dev),
-                    self.cache.k, self.cache.v,
-                    torch.from_numpy(tables).to(dev),
-                    torch.from_numpy(lens).to(dev))
-            self.cache.rebind(k, v)
-            return logits
+                out = decoder_step_chunked(
+                    params, spec, *(torch.from_numpy(a).to(dev) for a in
+                                    (tokens, positions, q_lens)),
+                    cache.k, cache.v, torch.from_numpy(tables).to(dev),
+                    torch.from_numpy(lens).to(dev), **step_kw)
+            cache.rebind(out[0], out[1])
+            return out[2] if len(out) == 3 else out[2:]
+
+    def _run_step_arrays(self, *arrays):
+        """The target's plain/prefill step: newest-lane logits [B, V]."""
+        return self._run("target", _m_target_steps, self._params,
+                         self.spec, self.cache, arrays)
+
+    def _run_verify_arrays(self, *arrays):
+        """The speculative-verify target call: same pools, all-lane
+        logits ``[B, C, vocab]`` (C = spec_k + 1). One target step
+        scores every proposal plus the bonus position."""
+        return self._run("verify", _m_target_steps, self._params,
+                         self.spec, self.cache, arrays, all_lanes=True)
+
+    def _run_draft_arrays(self, *arrays):
+        """One DRAFT step (propose singles, catch-up chunks, prefill
+        shadowing) against the mirrored draft pool — the same page
+        tables as the target, newest-lane logits."""
+        return self._run("draft", _m_draft_steps, self._draft_params,
+                         self._draft_spec, self._draft_cache, arrays)
+
+    def _run_embed_arrays(self, *arrays):
+        """One EMBED step: the all-lane + hidden form against the target
+        pool — every lane's logits ``[B, C, vocab]`` (per-token scoring)
+        and final-norm hidden states ``[B, C, d_model]`` (pooling)."""
+        return self._run("embed", _m_embed_steps, self._params,
+                         self.spec, self.cache, arrays, all_lanes=True,
+                         return_hidden=True)
 
     def _prepare(self, live: List[_Slot]
                  ) -> Tuple[List[_Slot], List[int]]:
         """Pre-step phase (scheduler thread): execute pending COW copies
-        and preemption restores (device writes under ``_step_mu``), then
-        grow demand-mode reservations to cover this step's grants,
-        preempting/demoting when the pool runs dry. Returns the
-        (possibly shrunk) live list and its grants."""
+        and preemption restores (device writes under ``_step_mu``, in
+        both pools), then grow demand-mode reservations to cover this
+        step's grants, preempting/demoting when the pool runs dry.
+        Returns the (possibly shrunk) live list and its grants."""
         cows: List[Tuple[int, int]] = []
         restores = []
         spills: Dict[int, Any] = {}
@@ -1037,8 +1424,15 @@ class DecodeEngine:
         if cows or restores:
             with self._step_mu:
                 self.cache.copy_pages(cows)
+                if self._draft_cache is not None:
+                    # the draft pool mirrors every page move: a COW tail
+                    # or restored spill must be valid in BOTH pools
+                    self._draft_cache.copy_pages(cows)
                 for pages, spill in restores:
                     self.cache.scatter_pages(pages, spill[0], spill[1])
+                    if self._draft_cache is not None and len(spill) == 4:
+                        self._draft_cache.scatter_pages(
+                            pages, spill[2], spill[3])
         while True:
             grants = self._grants(live)
             grower = None
@@ -1109,7 +1503,8 @@ class DecodeEngine:
         return True
 
     def _preempt(self, victim: _Slot):
-        """Spill the victim's written pages to host (bitwise), free its
+        """Spill the victim's written pages to host (bitwise, the
+        mirrored draft pool's with them in one put), free its
         reservation, and requeue it at the FRONT so preemption cannot
         become starvation. Restore scatters the spill into a fresh
         reservation and the page table rebinds — the sequence's K/V
@@ -1120,11 +1515,17 @@ class DecodeEngine:
                            version=self.version, seq=req.seq_id,
                            tokens=victim.pos):
             pages = self.cache.allocator.pages_of(req.seq_id)
+            # only committed tokens spill: victim.pos is the post-
+            # rollback watermark, so a speculative round's rejected
+            # writes never reach the host
             n_keep = (self.cache.allocator.pages_for_tokens(victim.pos)
                       if victim.pos else 0)
             if n_keep:
                 with self._step_mu:
                     arrays = self.cache.gather_pages(pages[:n_keep])
+                    if self._draft_cache is not None:
+                        arrays = arrays + self._draft_cache.gather_pages(
+                            pages[:n_keep])
                 # put (disk-backed spills savez) stays outside the
                 # step mutex, same as the pop side in _prepare
                 self._spill.put(req.seq_id, *arrays)
@@ -1138,12 +1539,25 @@ class DecodeEngine:
                     self._spill.drop(req.seq_id)
                 else:
                     req.resume_pos = victim.pos
+                    req.resume_dpos = victim.dpos
                     req.carry_steps = victim.steps
                     req.carry_fts = victim.first_token_steps
                     req.needs_alloc = True
                     self._queue.insert(0, req)
                     self._g_depth.set(len(self._queue))
                 self._g_live.set(len(self._slots))
+
+    def _k_eff(self, s: _Slot) -> int:
+        """Draft proposals this slot can use THIS round: capped by
+        spec_k and by how many tokens the sequence may still commit (a
+        verify round commits up to k_eff + 1, which must not overshoot
+        max_new). Masked requests never ride speculation: the draft
+        proposes from unmasked logits."""
+        if not self._spec_k or s.req.ev.is_set() or \
+                s.pos < len(s.req.prompt) or s.req.mask is not None:
+            return 0
+        total = len(s.req.prompt) + s.req.max_new
+        return max(0, min(self._spec_k, total - s.pos - 2))
 
     def _grants(self, live: List[_Slot]) -> List[int]:
         """Token-budget scheduling (Sarathi-style): every slot past its
@@ -1152,7 +1566,9 @@ class DecodeEngine:
         prefill share a per-step budget of ``prefill_chunk`` prompt
         tokens, granted in slot order. Every prefill slot is guaranteed
         at least one token per step, so the budget caps the CHUNKS, not
-        progress."""
+        progress. With speculation on a decoding slot's grant is the
+        positions its VERIFY chunk writes, ``1 + k_eff``, so demand-
+        mode growth covers the whole speculative write range first."""
         budget = self._prefill_chunk
         grants = []
         for s in live:
@@ -1161,9 +1577,40 @@ class DecodeEngine:
                 g = max(1, min(remaining_prompt, budget))
                 budget = max(0, budget - g)
             else:
-                g = 1
+                g = 1 + self._k_eff(s)
             grants.append(g)
         return grants
+
+    def _choose(self, row, req: _DecodeRequest, position: int) -> int:
+        """THE deterministic per-(seed, position) token choice on one
+        logits row: greedy argmax at temperature 0, else the seeded
+        ``sample_token`` draw. Draft proposals AND the verify acceptance
+        walk both use it, so a committed token is always what the
+        non-speculative engine would emit at that position from those
+        logits."""
+        if req.temperature <= 0.0:
+            return int(np.argmax(row))
+        return sample_token(row, req.temperature, req.top_k, req.seed,
+                            position)
+
+    def _masked_choice(self, req: _DecodeRequest, row,
+                       position: int) -> Tuple[int, bool]:
+        """Constrained decode's per-token core: disallowed lanes to
+        -inf, THE SAME per-(seed, position) choice the unconstrained
+        path makes, then advance the automaton. Returns ``(token,
+        exhausted)``; exhausted = no further transition — the sequence
+        finishes regardless of max_new."""
+        allowed = req.mask.allowed(req.mask_state, self.spec.vocab)
+        masked = np.where(allowed, np.asarray(row, np.float64), -np.inf)
+        tok = self._choose(masked, req, position)
+        ns = req.mask.step(req.mask_state, tok)
+        # an allowed token always has a transition; a dead step of a
+        # buggy automaton counts as exhaustion
+        if ns is None:
+            return tok, True
+        req.mask_state = ns
+        _m_masked_tokens.inc()
+        return tok, not req.mask.allowed(ns, self.spec.vocab).any()
 
     def _check_reservation(self, s: _Slot, end_tokens: int):
         """The reservation (grown by _prepare in demand mode) must cover
@@ -1179,6 +1626,111 @@ class DecodeEngine:
                 f"reservation ({end_tokens} tokens > "
                 f"{s.pages_held} pages x {self.cache.page_size})")
 
+    @staticmethod
+    def _batch(s_bucket: int, c: int):
+        return (np.zeros((s_bucket, c), np.int32),
+                np.zeros((s_bucket, c), np.int32),
+                np.zeros(s_bucket, np.int32), np.zeros(s_bucket, np.int32))
+
+    def _spec_substep(self, slots: List[_Slot], w_bucket: int
+                      ) -> Dict[int, Tuple[List[int], int, int]]:
+        """Propose-then-verify for this round's DECODING slots. The
+        draft runs ``k`` batched steps on its own ladder — one catch-up
+        chunk (the committed tokens it hasn't ingested, <= 2 lanes,
+        ending with the pending token) that yields proposal d_1, then
+        k-1 singles — and the target verifies all k+1 positions in ONE
+        all-lane chunked call. Acceptance is the deterministic walk:
+        lane j's target choice either equals proposal d_{j+1} (accept,
+        continue) or replaces it (the bonus/correction token, stop).
+        Returns {id(slot): (committed tokens, k_eff, accepted)} for the
+        answer phase; nothing here touches request/slot state."""
+        _faults.fire("serving.decode.spec")
+        s_bucket = _bucket_for(self._slot_ladder, len(slots))
+        keff = [self._k_eff(s) for s in slots]
+        for s, ke in zip(slots, keff):
+            # the verify chunk writes positions pos .. pos+ke
+            self._check_reservation(s, s.pos + ke + 1)
+        tables = self.cache.table_array(
+            [s.req.seq_id for s in slots], w_bucket, rows=s_bucket)
+        proposals: List[List[int]] = [[] for _ in slots]
+        with _tracing.span("serving.decode.spec.draft", model=self.name,
+                           version=self.version, slots=s_bucket,
+                           k=self._spec_k):
+            # catch-up + first proposal: feed each slot the committed
+            # tokens its draft pool lacks (positions dpos..pos — the
+            # last is the pending token), newest-lane logits -> d_1
+            gaps = [s.pos - s.dpos for s in slots]
+            c1 = _bucket_for(self._draft_chunk_ladder,
+                             max(g + 1 for g in gaps))
+            tokens, positions, q_lens, lens = self._batch(s_bucket, c1)
+            for i, s in enumerate(slots):
+                if keff[i] < 1:
+                    continue  # bonus-only slot: no proposals needed
+                g = gaps[i] + 1
+                for j in range(g):
+                    tokens[i, j] = s.token_at(s.dpos + j)
+                    positions[i, j] = s.dpos + j
+                q_lens[i] = g
+                lens[i] = s.dpos + g        # == s.pos + 1
+            if int(q_lens.max(initial=0)) > 0:
+                lg = self._run_draft_arrays(
+                    tokens, positions, q_lens, tables, lens).cpu().numpy()
+                for i, s in enumerate(slots):
+                    if keff[i] >= 1:
+                        proposals[i].append(self._choose(
+                            lg[i], s.req, s.pos + 1))
+                # singles: feed d_{j-1}, propose d_j
+                for j in range(2, self._spec_k + 1):
+                    if not any(ke >= j for ke in keff):
+                        break
+                    tokens, positions, q_lens, lens = self._batch(
+                        s_bucket, 1)
+                    for i, s in enumerate(slots):
+                        if keff[i] >= j:
+                            tokens[i, 0] = proposals[i][j - 2]
+                            positions[i, 0] = s.pos + j - 1
+                            q_lens[i] = 1
+                            lens[i] = s.pos + j
+                    lg = self._run_draft_arrays(
+                        tokens, positions, q_lens, tables,
+                        lens).cpu().numpy()
+                    for i, s in enumerate(slots):
+                        if keff[i] >= j:
+                            proposals[i].append(self._choose(
+                                lg[i], s.req, s.pos + j))
+        # verify: ONE target call over [pending, d_1..d_k] at the FIXED
+        # spec_k+1 chunk entry; lane j's logits are the target's
+        # distribution for position pos+1+j
+        with _tracing.span("serving.decode.spec.verify",
+                           model=self.name, version=self.version,
+                           slots=s_bucket, lanes=self._verify_lanes):
+            tokens, positions, q_lens, lens = self._batch(
+                s_bucket, self._verify_lanes)
+            for i, s in enumerate(slots):
+                tokens[i, 0] = s.token_at(s.pos)
+                positions[i, 0] = s.pos
+                for j, d in enumerate(proposals[i]):
+                    tokens[i, 1 + j] = d
+                    positions[i, 1 + j] = s.pos + 1 + j
+                q_lens[i] = 1 + keff[i]
+                lens[i] = s.pos + 1 + keff[i]
+            lg = self._run_verify_arrays(
+                tokens, positions, q_lens, tables,
+                lens).cpu().numpy()                      # [B, C, V]
+        out: Dict[int, Tuple[List[int], int, int]] = {}
+        for i, s in enumerate(slots):
+            committed: List[int] = []
+            accepted = 0
+            for j in range(keff[i] + 1):
+                choice = self._choose(lg[i, j], s.req, s.pos + 1 + j)
+                committed.append(choice)
+                if j < keff[i] and proposals[i][j] == choice:
+                    accepted += 1      # d_{j+1} accepted — keep going
+                else:
+                    break              # bonus/correction token: stop
+            out[id(s)] = (committed, keff[i], accepted)
+        return out
+
     def _step(self, live: List[_Slot]):
         # named chaos seam for the scheduler cadence (a
         # `delay@serving.decode.step:*=0.004` plan simulates a slow
@@ -1189,49 +1741,77 @@ class DecodeEngine:
         live, grants = self._prepare(live)
         if not live:
             return
+        # split the round: decoding slots with a draft attached ride the
+        # propose/verify path; prefill chunks (and everything when
+        # speculation is off) ride the chunked step
+        spec_rows = [i for i, s in enumerate(live)
+                     if self._spec_k and not s.req.ev.is_set()
+                     and s.pos >= len(s.req.prompt)
+                     and s.req.mask is None]
+        spec_set = set(spec_rows)
+        plain_rows = [i for i in range(len(live)) if i not in spec_set]
         w_need = max(s.pages_held for s in live)
         w_bucket = _bucket_for(self._width_ladder, w_need)
-        prefill_toks = sum(g for s, g in zip(live, grants)
-                           if s.pos < len(s.req.prompt))
+        prefill_toks = sum(grants[i] for i in plain_rows
+                           if live[i].pos < len(live[i].req.prompt))
         t0 = time.perf_counter()
+        logits_np = sampled = None
+        plain_row_of: Dict[int, int] = {}
+        spec_out: Dict[int, Tuple[List[int], int, int]] = {}
         # one decode step joins the OLDEST live request's trace (a span
         # has one parent); per-slot request spans live in the server
         with _tracing.adopt(live[0].req.trace_ctx), \
                 _tracing.span("serving.decode.step", model=self.name,
                               version=self.version, width=w_bucket,
                               prefill_tokens=prefill_toks,
+                              spec_slots=len(spec_rows),
                               live=len(live)):
-            s_bucket = _bucket_for(self._slot_ladder, len(live))
-            # pure-decode steps (and 1-token prefill tails) ride the C=1
-            # shapes; only steps carrying a real chunk pay the chunk
-            c_bucket = _bucket_for(self._chunk_ladder,
-                                   max(max(grants), 1))
-            tokens = np.zeros((s_bucket, c_bucket), np.int32)
-            positions = np.zeros((s_bucket, c_bucket), np.int32)
-            q_lens = np.zeros(s_bucket, np.int32)
-            lens = np.zeros(s_bucket, np.int32)
-            for i, (s, g) in enumerate(zip(live, grants)):
-                for j in range(g):
-                    tokens[i, j] = s.token_at(s.pos + j)
-                    positions[i, j] = s.pos + j
-                q_lens[i] = g
-                # keys INCLUDING this chunk; within it, query j attends
-                # only keys up to its own position
-                lens[i] = s.pos + g
-                self._check_reservation(s, int(lens[i]))
-            tables = self.cache.table_array(
-                [s.req.seq_id for s in live], w_bucket, rows=s_bucket)
-            logits = self._run_step_arrays(tokens, positions, q_lens,
+            if plain_rows:
+                ps_slots = [live[i] for i in plain_rows]
+                ps_grants = [grants[i] for i in plain_rows]
+                s_bucket = _bucket_for(self._slot_ladder, len(ps_slots))
+                # pure-decode steps (and 1-token prefill tails) ride the
+                # C=1 shapes; only steps carrying a real chunk pay the
+                # chunk
+                c_bucket = _bucket_for(self._chunk_ladder,
+                                       max(max(ps_grants), 1))
+                tokens, positions, q_lens, lens = self._batch(
+                    s_bucket, c_bucket)
+                for i, (s, g) in enumerate(zip(ps_slots, ps_grants)):
+                    plain_row_of[id(s)] = i
+                    for j in range(g):
+                        tokens[i, j] = s.token_at(s.pos + j)
+                        positions[i, j] = s.pos + j
+                    q_lens[i] = g
+                    # keys INCLUDING this chunk; within it, query j
+                    # attends only keys up to its own position
+                    lens[i] = s.pos + g
+                    self._check_reservation(s, int(lens[i]))
+                tables = self.cache.table_array(
+                    [s.req.seq_id for s in ps_slots], w_bucket,
+                    rows=s_bucket)
+                logits = self._run_step_arrays(tokens, positions,
+                                               q_lens, tables, lens)
+                if self._spec_k:
+                    # the draft shadows every prefill chunk so its
+                    # mirrored pool tracks the committed sequence
+                    # (logits discarded; its watermark advances in the
+                    # answer phase with pos)
+                    self._run_draft_arrays(tokens, positions, q_lens,
                                            tables, lens)
-            # the one host read of the step: [B, vocab] float32 — it
-            # synchronizes with the device
-            logits_np = logits.cpu().numpy()
-            # the greedy fast path for the whole batch; per-request
-            # sampling policies resolve per slot below
-            sampled = np.argmax(logits_np, axis=-1)
+                # the one host read of the step: [B, vocab] float32 — it
+                # synchronizes with the device
+                logits_np = logits.cpu().numpy()
+                # the greedy fast path for the whole batch; per-request
+                # sampling policies resolve per slot below
+                sampled = np.argmax(logits_np, axis=-1)
+            if spec_rows:
+                spec_out = self._spec_substep(
+                    [live[i] for i in spec_rows], w_bucket)
         _m_step_ms.observe((time.perf_counter() - t0) * 1e3)
         _m_steps.inc()
-        _m_occupancy.observe(len(live) / float(s_bucket))
+        _m_occupancy.observe(
+            len(live) / float(_bucket_for(self._slot_ladder, len(live))))
         _m_prefill_per_step.observe(prefill_toks)
         if prefill_toks:
             _m_prefill_tokens.inc(prefill_toks)
@@ -1244,6 +1824,7 @@ class DecodeEngine:
         # with it or the two sides can each answer the same request
         notes: Dict[int, int] = {}
         produced_any = False
+        n_proposed = n_accepted = 0
         with self._cond:
             for i, s in enumerate(live):
                 if s.req.ev.is_set():
@@ -1252,37 +1833,98 @@ class DecodeEngine:
                     done.append(s)
                     continue
                 s.steps += 1
-                g = grants[i]    # >= 1: every live slot progresses
-                s.pos += g
-                if self._prefix_on and not s.req.published and \
-                        s.pos >= len(s.req.prompt):
-                    # prompt K/V fully on the device as of THIS step:
-                    # publish the prompt pages into the prefix index
-                    # (metadata only; from here they are immutable)
-                    self.cache.allocator.publish(s.req.seq_id,
-                                                 s.req.prompt)
-                    s.req.published = True
-                tok = None
-                if s.pos >= len(s.req.prompt):
-                    # logits_np[i] is the slot's newest lane: prompt
-                    # token P-1 when the chunk just finished prefill,
-                    # else the decode token. s.pos is the new token's
-                    # absolute index — the (seed, position) pair
-                    tok = (int(sampled[i]) if s.req.temperature <= 0.0
-                           else sample_token(logits_np[i],
-                                             s.req.temperature,
-                                             s.req.top_k, s.req.seed,
-                                             s.pos))
-                    s.req.produced.append(tok)
-                    produced_any = True
-                    _m_tokens.inc()
-                    if s.first_token_steps is None:
-                        s.first_token_steps = s.steps
-                        _m_first_token_steps.observe(s.steps)
-                finished = (len(s.req.produced) >= s.req.max_new
-                            or (tok is not None
-                                and self.spec.eos_id is not None
-                                and tok == self.spec.eos_id))
+                finished = False
+                if id(s) in spec_out:
+                    committed, ke, acc = spec_out[id(s)]
+                    pos_old = s.pos
+                    s.req.spec_proposed += ke
+                    s.req.spec_accepted += acc
+                    n_proposed += ke
+                    n_accepted += acc
+                    for tok in committed:
+                        s.pos += 1
+                        s.req.produced.append(tok)
+                        produced_any = True
+                        _m_tokens.inc()
+                        if s.first_token_steps is None:
+                            s.first_token_steps = s.steps
+                            _m_first_token_steps.observe(s.steps)
+                        if (len(s.req.produced) >= s.req.max_new
+                                or (self.spec.eos_id is not None
+                                    and tok == self.spec.eos_id)):
+                            # tokens past an accepted eos are discarded:
+                            # the committed walk ends here
+                            finished = True
+                            break
+                    if ke > 0 and not finished:
+                        # draft validity watermark: the draft wrote
+                        # through pos_old+ke-1 and tokens are committed
+                        # through pos_old+acc — a fully-accepted round
+                        # leaves it one token behind, anything else
+                        # re-syncs
+                        s.dpos = pos_old + min(ke - 1, acc) + 1
+                    if not finished and self._reservation == "demand":
+                        # ROLLBACK: any page grown for this verify chunk
+                        # that now holds ONLY rejected positions goes
+                        # straight back to the pool; coverage for the
+                        # pending token's next write (pos itself) stays
+                        need = self.cache.allocator.pages_for_tokens(
+                            s.pos + 1)
+                        if s.pages_held > need:
+                            s.pages_held -= self.cache.allocator.shrink(
+                                s.req.seq_id, s.pages_held - need)
+                else:
+                    g = grants[i]    # >= 1: every live slot progresses
+                    s.pos += g
+                    if self._prefix_on and not s.req.published and \
+                            s.pos >= len(s.req.prompt):
+                        # prompt K/V fully on the device as of THIS step:
+                        # publish the prompt pages into the prefix index
+                        # (metadata only; from here they are immutable)
+                        self.cache.allocator.publish(s.req.seq_id,
+                                                     s.req.prompt)
+                        s.req.published = True
+                    if self._spec_k:
+                        # the draft shadowed this chunk lane for lane
+                        s.dpos = s.pos
+                    tok = None
+                    mask_done = False
+                    if s.pos >= len(s.req.prompt):
+                        # logits_np[row] is the slot's newest lane:
+                        # prompt token P-1 when the chunk just finished
+                        # prefill, else the decode token. s.pos is the
+                        # new token's absolute index — the (seed,
+                        # position) pair
+                        row = plain_row_of[id(s)]
+                        if s.req.want_topk and s.req.first_topk is None:
+                            # the beam fork point: the first generated
+                            # position's token order by logit, stable-
+                            # sorted so ties break deterministically
+                            order = np.argsort(
+                                -np.asarray(logits_np[row], np.float64),
+                                kind="stable")
+                            s.req.first_topk = [
+                                int(t) for t in order[:s.req.want_topk]]
+                        if s.req.mask is not None:
+                            tok, mask_done = self._masked_choice(
+                                s.req, logits_np[row], s.pos)
+                        else:
+                            tok = (int(sampled[row])
+                                   if s.req.temperature <= 0.0
+                                   else sample_token(
+                                       logits_np[row], s.req.temperature,
+                                       s.req.top_k, s.req.seed, s.pos))
+                        s.req.produced.append(tok)
+                        produced_any = True
+                        _m_tokens.inc()
+                        if s.first_token_steps is None:
+                            s.first_token_steps = s.steps
+                            _m_first_token_steps.observe(s.steps)
+                    finished = (len(s.req.produced) >= s.req.max_new
+                                or mask_done
+                                or (tok is not None
+                                    and self.spec.eos_id is not None
+                                    and tok == self.spec.eos_id))
                 notes[s.req.seq_id] = s.pos
                 if finished:
                     # finished beats a lapsed deadline: the result is
@@ -1304,24 +1946,140 @@ class DecodeEngine:
             if done or produced_any:
                 # wake completion waiters AND streaming readers
                 self._cond.notify_all()
+        if n_proposed:
+            _m_spec_proposed.inc(n_proposed)
+            _m_spec_accepted.inc(n_accepted)
+            _m_spec_rejected.inc(n_proposed - n_accepted)
 
     def _complete(self, s: _Slot):
         self.cache.allocator.free(s.req.seq_id)
         _m_completions.inc()
         _m_total.observe((time.monotonic() - s.req.t_enq) * 1e3)
-        s.req.result = {
-            "tokens": list(s.req.produced),
-            "prompt_len": int(len(s.req.prompt)),
+        req = s.req
+        req.result = {
+            "tokens": list(req.produced),
+            "prompt_len": int(len(req.prompt)),
             "version": self.version,
             # scheduler steps from admission to the first generated
             # token (ceil(P/chunk) + co-riding; for a prefix-cache hit
             # the suffix takes the prompt's place)
             "steps_to_first_token": int(s.first_token_steps or s.steps),
             # prompt tokens answered from the prefix index (0 = cold)
-            "cached_tokens": int(s.req.cached_tokens),
-            # speculative decoding is not ported: nothing proposed
-            "spec_proposed": 0,
-            "spec_accepted": 0,
-            "accept_rate": None,
+            "cached_tokens": int(req.cached_tokens),
+            # draft proposals this request saw and the share the target
+            # accepted (None = no speculative round touched it)
+            "spec_proposed": int(req.spec_proposed),
+            "spec_accepted": int(req.spec_accepted),
+            "accept_rate": (round(req.spec_accepted / req.spec_proposed, 4)
+                            if req.spec_proposed else None),
+        }
+        if req.want_topk:
+            # the beam fork point rides the result only when asked for
+            req.result["first_topk"] = list(req.first_topk or [])
+        if req.spec_proposed:
+            _m_spec_accept_rate.observe(req.spec_accepted
+                                        / req.spec_proposed)
+        req.ev.set()
+
+    # -- the embed lane ---------------------------------------------------
+    def _embed_step(self, live: List[_EmbedSlot]):
+        """One chunked-prefill step for the embedding/scoring lane: the
+        same token budget, page tables and ladders as generation, but
+        the all-lane + hidden step form, and nothing is sampled — every
+        lane feeds the pooled-hidden accumulator and the per-token
+        logprobs. Decode slots are untouched (a separate slot list)."""
+        _faults.fire("serving.decode.embed")
+        budget = self._prefill_chunk
+        grants = []
+        for s in live:
+            remaining = len(s.req.prompt) - s.pos
+            g = max(1, min(remaining, budget))
+            budget = max(0, budget - g)
+            grants.append(g)
+        s_bucket = _bucket_for(self._slot_ladder, len(live))
+        c_bucket = _bucket_for(self._chunk_ladder, max(grants))
+        w_bucket = _bucket_for(self._width_ladder,
+                               max(s.pages_held for s in live))
+        tokens, positions, q_lens, lens = self._batch(s_bucket, c_bucket)
+        with self._cond:
+            for i, (s, g) in enumerate(zip(live, grants)):
+                if s.req.ev.is_set():
+                    continue  # canceled: pages freed, all-garbage row
+                for j in range(g):
+                    tokens[i, j] = int(s.req.prompt[s.pos + j])
+                    positions[i, j] = s.pos + j
+                q_lens[i] = g
+                lens[i] = s.pos + g
+                if int(lens[i]) > s.pages_held * self.cache.page_size:
+                    raise ServingError(
+                        f"embed chunk grant escaped seq "
+                        f"{s.req.seq_id}'s page reservation")
+        tables = self.cache.table_array(
+            [s.req.seq_id for s in live], w_bucket, rows=s_bucket)
+        t0 = time.perf_counter()
+        with _tracing.adopt(live[0].req.trace_ctx), \
+                _tracing.span("serving.decode.embed", model=self.name,
+                              version=self.version, width=w_bucket,
+                              live=len(live)):
+            logits, hidden = self._run_embed_arrays(
+                tokens, positions, q_lens, tables, lens)
+            logits_np = logits.cpu().numpy()  # [B, C, vocab]
+            hidden_np = hidden.cpu().numpy()  # [B, C, d_model]
+        _m_step_ms.observe((time.perf_counter() - t0) * 1e3)
+        now = time.monotonic()
+        done: List[_EmbedSlot] = []
+        notes: Dict[int, int] = {}
+        with self._cond:
+            self._n_steps += 1
+            for i, s in enumerate(live):
+                if s.req.ev.is_set():
+                    done.append(s)
+                    continue
+                s.steps += 1
+                g = grants[i]
+                prompt = s.req.prompt
+                s.req.hidden_sum += np.asarray(
+                    hidden_np[i, :g], np.float64).sum(axis=0)
+                lg = np.asarray(logits_np[i, :g], np.float64)
+                # float64 log-softmax per lane; lane j (absolute
+                # position pos+j) scores the NEXT prompt token — the
+                # final lane has no successor inside the prompt
+                mx = lg.max(axis=-1)
+                lse = mx + np.log(np.exp(lg - mx[:, None]).sum(axis=-1))
+                for j in range(g):
+                    nxt = s.pos + j + 1
+                    if nxt < len(prompt):
+                        s.req.logprobs.append(
+                            float(lg[j, int(prompt[nxt])] - lse[j]))
+                s.pos += g
+                _m_embed_tokens.inc(g)
+                notes[s.req.seq_id] = s.pos
+                if s.pos >= len(prompt):
+                    done.append(s)
+                    self._complete_embed(s)
+                elif s.req.deadline is not None and now > s.req.deadline:
+                    _m_deadline_miss.inc()
+                    done.append(s)
+                    self._fail_locked(s.req, DeadlineExceeded(
+                        f"embed request to decoder '{self.name}' "
+                        f"lapsed mid-prefill at {s.pos} tokens"))
+            self.cache.allocator.note_tokens_many(notes)
+            if done:
+                self._embed_slots = [s for s in self._embed_slots
+                                     if s not in done]
+                self._g_embed.set(len(self._embed_slots))
+                self._cond.notify_all()
+
+    def _complete_embed(self, s: _EmbedSlot):
+        self.cache.allocator.free(s.req.seq_id)
+        _m_completions.inc()
+        _m_total.observe((time.monotonic() - s.req.t_enq) * 1e3)
+        p = len(s.req.prompt)
+        s.req.result = {
+            "embedding": [float(x) for x in s.req.hidden_sum / p],
+            "logprobs": list(s.req.logprobs),
+            "prompt_len": p,
+            "version": self.version,
+            "steps": int(s.steps),
         }
         s.req.ev.set()

@@ -855,14 +855,29 @@ class PagedKvCache:
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
                  *, page_size: int, num_pages: int, dtype=None,
                  label: Optional[str] = None, prefix_cache: bool = False,
-                 device=None):
+                 allocator: Optional[PageAllocator] = None, device=None):
         import torch
 
         self.num_layers = int(num_layers)
         self.num_kv_heads = int(num_kv_heads)
         self.head_dim = int(head_dim)
-        self.allocator = PageAllocator(num_pages, page_size, label=label,
-                                       prefix_cache=prefix_cache)
+        # a speculative DRAFT pool MIRRORS its target's page geometry:
+        # pass the target's allocator and the two pools share one set of
+        # page ids and tables — one reservation, one free, one set of
+        # occupancy gauges; only the per-page payload shape
+        # (layers/heads/dim) differs
+        if allocator is not None:
+            if (allocator.num_pages != int(num_pages)
+                    or allocator.page_size != int(page_size)):
+                raise ValueError(
+                    f"shared allocator geometry "
+                    f"({allocator.num_pages}x{allocator.page_size}) != "
+                    f"pool geometry ({num_pages}x{page_size})")
+            self.allocator = allocator
+        else:
+            self.allocator = PageAllocator(num_pages, page_size,
+                                           label=label,
+                                           prefix_cache=prefix_cache)
         self.dtype = torch.float32 if dtype is None else dtype
         shape = (self.num_layers, int(num_pages), int(page_size),
                  self.num_kv_heads, self.head_dim)

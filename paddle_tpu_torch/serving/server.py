@@ -22,8 +22,15 @@ Methods (all fire the `serving.<method>` fault site before running, so
     generate_stream_close(stream)      -> cancels an unfinished stream
     load_model(model, dirname, ...)    -> engine stats (after the warm of
                                           every bucket)
-    load_decoder(model, spec, ...)     -> decode-engine stats (after the
-                                          full slot/width/chunk warm)
+    workload(model, workload)          -> one typed workload: generate,
+                                          constrained, embed or beam
+                                          (serving/workloads)
+    load_decoder(model, spec, ...,
+                 checkpoint_dir=)      -> decode-engine stats (after the
+                                          full slot/width/chunk warm);
+                                          checkpoint_dir deploys real
+                                          weights from a verified
+                                          manifest checkpoint
     unload_model(model)                -> final engine stats
     list_models()                      -> {name: stats}
     load_report()                      -> structured per-model load
@@ -35,13 +42,11 @@ Methods (all fire the `serving.<method>` fault site before running, so
 ``load_model`` serves a ``save_inference_model`` directory (written by
 this package or by the JAX one) through an ``InferenceEngine`` on the
 server's device; ``kind="exported"`` (a JAX StableHLO artifact) is
-refused with a typed ``ServingError``. ``workload`` belongs to the typed
-workloads, which are not ported yet: it answers with a typed
-``ServingError`` saying so. ``load_decoder(checkpoint_dir=...)`` raises
-``NotImplementedError`` until the checkpoint format is ported.
+refused with a typed ``ServingError``. ``load_decoder(mesh_axes=...)``
+raises ``NotImplementedError`` until the mesh layer is ported.
 
-Retry semantics: `infer`, `generate` and the three stream methods ride
-the dedup cache — a retransmit after a lost reply is answered from the
+Retry semantics: `infer`, `generate`, `workload` and the three stream
+methods ride the dedup cache — a retransmit after a lost reply is answered from the
 cached response without re-running the batch (or re-decoding a whole
 sequence and re-reserving KV pages), and a retransmitted
 `generate_stream_start` must not admit a SECOND sequence. Each stream
@@ -205,12 +210,6 @@ class ServingServer:
             f"model '{model}' kept retiring across "
             f"{self._SWAP_RETRIES} resubmits — deploy storm?")
 
-    @staticmethod
-    def _not_ported(what: str, where: str):
-        raise ServingError(
-            f"{what} is not yet ported to paddle_tpu_torch ({where}) — "
-            "this server runs Fluid inference models and decoders")
-
     def _infer(self, model: str, feeds: Dict[str, Any],
                deadline_ms: Optional[float] = None) -> Dict[str, Any]:
         with _tracing.span("serving.request", model=str(model)):
@@ -250,7 +249,22 @@ class ServingServer:
 
     def _workload(self, model: str, workload: Dict[str, Any]
                   ) -> Dict[str, Any]:
-        self._not_ported("workload", "the typed serving workloads")
+        """Typed-workload dispatch: one RPC, one ``kind`` field
+        selecting generate/constrained/embed/beam. Parse STRICTLY before
+        touching any engine (an unknown kind or misspelled field must
+        refuse, not silently decode unconstrained), then run under the
+        same swap-resubmit contract as _generate. Not in the transport's
+        idempotent set: a retransmit after a lost reply is answered from
+        the dedup cache, not recomputed."""
+        from .workloads import parse_workload, run_workload
+
+        w = parse_workload(workload)
+        return self._on_engine(
+            model, True,
+            "model '{model}' is not a decoder — workloads need a "
+            "DecodeEngine",
+            lambda engine: {"model": str(model),
+                            **run_workload(engine, w)})
 
     # -- streaming generate -----------------------------------------------
     def _sweep_streams(self):
@@ -396,6 +410,41 @@ class ServingServer:
                 f"auto-assign v{live + 1}")
         return version
 
+    def _resolve_decoder_artifact(self, what: str, spec, checkpoint_dir):
+        """One rule for (spec dict, checkpoint_dir) -> (DecoderSpec,
+        params), shared by the target and the speculative draft: a
+        checkpoint loads real weights (onto this server's device) and
+        its saved spec, a bare spec builds the deterministic seed
+        decoder, and giving both cross-validates — a contradiction is a
+        wrong-model deploy, refused before any warm."""
+        from .decode import DecoderSpec
+
+        if checkpoint_dir is not None:
+            from ..checkpoint import (decoder_checkpoint_mesh,
+                                      load_decoder_checkpoint)
+
+            mesh = decoder_checkpoint_mesh(str(checkpoint_dir))
+            if mesh is not None:
+                # the JAX server would shard the engine over the mesh
+                # the checkpoint recorded; the port has no mesh layer
+                # yet, so the same weights serve from this one device
+                _log.info("%s checkpoint %s records mesh %s: deployed "
+                          "unsharded on %s", what, checkpoint_dir,
+                          mesh.get("spec"), self.device)
+            use_spec, params = load_decoder_checkpoint(
+                str(checkpoint_dir), device=self.device)
+            if spec is not None:
+                want = DecoderSpec.from_dict(dict(spec))
+                if want.to_dict() != use_spec.to_dict():
+                    raise ValueError(
+                        f"{what} spec given to load_decoder contradicts "
+                        f"checkpoint '{checkpoint_dir}': "
+                        f"{want.to_dict()} != {use_spec.to_dict()}")
+            return use_spec, params
+        if spec is None:
+            return None, None
+        return DecoderSpec.from_dict(dict(spec)), None
+
     def _load_decoder(self, model: str,
                       spec: Optional[Dict[str, Any]] = None,
                       version: Optional[int] = None,
@@ -415,30 +464,31 @@ class ServingServer:
                       embeddings: bool = False
                       ) -> Dict[str, Any]:
         """Build + warm (every slot/width/chunk shape) + atomically
-        install a DecodeEngine on this server's device, from a spec dict
-        (the deterministic seed-built decoder). Hot-swapping a decoder
-        drains the old engine — every in-flight SEQUENCE finishes on its
-        own KV cache before the old pool releases. The arguments keep
-        the JAX server's order; the ones whose parts are not ported yet
-        (checkpoints, speculative drafts, meshes, the embeddings lane)
-        raise ``NotImplementedError`` when given."""
-        from .decode import DecodeEngine, DecoderSpec
+        install a DecodeEngine on this server's device. ``checkpoint_dir``
+        loads REAL weights (and the spec) from a manifest checkpoint
+        (checksum-verified, a typed error naming the tensor on
+        corruption); ``spec`` alone deploys the deterministic seed-built
+        decoder; giving both cross-validates. ``draft_spec`` /
+        ``draft_checkpoint_dir`` attach a speculative DRAFT decoder the
+        same way (same vocab/eos as the target, refused typed naming the
+        field) and ``spec_k`` pins the proposals per round. Hot-swapping
+        a decoder drains the old engine — every in-flight SEQUENCE
+        finishes on its own KV cache before the old pool releases.
+        ``mesh_axes`` raises ``NotImplementedError`` (the mesh slice)."""
+        from .decode import DecodeEngine
 
-        if checkpoint_dir is not None or draft_checkpoint_dir is not None:
-            raise NotImplementedError(
-                "loading a decoder from checkpoint_dir is not ported to "
-                "paddle_tpu_torch yet — it comes with the checkpoint slice; "
-                "deploy from a spec dict")
         if mesh_axes:
             raise NotImplementedError(
                 "mesh_axes: mesh-sharded decode serving is not ported to "
                 "paddle_tpu_torch yet (the mesh and parallel slice)")
-        if spec is None:
-            raise ValueError("load_decoder needs a spec dict")
         model = str(model)
-        use_spec = DecoderSpec.from_dict(dict(spec))
-        use_draft = (None if draft_spec is None
-                     else DecoderSpec.from_dict(dict(draft_spec)))
+        use_spec, params = self._resolve_decoder_artifact(
+            "target", spec, checkpoint_dir)
+        if use_spec is None:
+            raise ValueError(
+                "load_decoder needs a spec dict or a checkpoint_dir")
+        use_draft, draft_params = self._resolve_decoder_artifact(
+            "draft", draft_spec, draft_checkpoint_dir)
         # lint: allow-blocking — deploys serialize end-to-end; see
         # _load_mu above. generate traffic never takes this lock.
         with self._load_mu:
@@ -446,7 +496,7 @@ class ServingServer:
 
             def build():
                 return DecodeEngine(
-                    use_spec, name=model,
+                    use_spec, name=model, params=params,
                     version=version, slots=slots, page_size=page_size,
                     num_pages=num_pages, max_seq_len=max_seq_len,
                     max_queue=max_queue, prefill_chunk=prefill_chunk,
@@ -454,7 +504,7 @@ class ServingServer:
                                   else bool(prefix_cache)),
                     reservation=(None if reservation is None
                                  else str(reservation)),
-                    draft_spec=use_draft,
+                    draft_spec=use_draft, draft_params=draft_params,
                     spec_k=(None if spec_k is None else int(spec_k)),
                     embeddings=bool(embeddings), device=self.device)
 

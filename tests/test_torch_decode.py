@@ -148,6 +148,20 @@ def test_sample_token_draws_equal_jax():
         assert td.sample_token(row, **kw) == jd.sample_token(row, **kw)
 
 
+def test_sample_draw_margin_replays_sample_token():
+    rng = np.random.RandomState(1)
+    for i in range(40):
+        row = rng.randn(64).astype(np.float32) * 3
+        kw = dict(temperature=float(rng.choice([0.7, 1.0, 1.3])),
+                  top_k=int(rng.choice([0, 1, 5, 40])),
+                  seed=int(rng.randint(0, 2 ** 31)), position=i)
+        tok, margin = td.sample_draw_margin(row, **kw)
+        assert tok == td.sample_token(row, **kw)
+        assert margin >= 0.0
+    with pytest.raises(ValueError):
+        td.sample_draw_margin(row, 0.0, 0, 0, 0)
+
+
 # --- the engines --------------------------------------------------------
 
 COUNTERS = ("serving.kv.page_allocs", "serving.kv.page_frees",
@@ -275,10 +289,6 @@ def test_engine_refuses_unported_options_and_missing_card(monkeypatch):
         td.validate_draft_spec(spec, td.DecoderSpec(**dict(SPEC, vocab=32)))
     with pytest.raises(ValueError, match="unknown DecoderSpec field"):
         td.DecoderSpec.from_dict(dict(SPEC, nheads=4))
-    with pytest.raises(NotImplementedError, match="speculative"):
-        td.DecodeEngine(spec, spec_k=2, device="cpu", warm=False)
-    with pytest.raises(NotImplementedError, match="embeddings"):
-        td.DecodeEngine(spec, embeddings=True, device="cpu", warm=False)
     with pytest.raises(NotImplementedError, match="mesh"):
         td.DecodeEngine(spec, mesh="tp=2", device="cpu", warm=False)
     with pytest.raises(NotImplementedError, match="autotune"):

@@ -72,18 +72,20 @@ def test_generate_stream_and_pages_match_jax_server(port_server):
 
 
 def test_unported_methods_refuse_typed(port_server):
-    """What is not ported refuses typed; infer/load_model (ported with
-    the inference engine) refuse an unknown model and a missing
-    directory the way the JAX server does."""
+    """What is not ported refuses typed (mesh-sharded serving, the
+    sharded checkpoint write); infer/load_model refuse an unknown model
+    and a missing directory the way the JAX server does."""
     srv, cli = port_server
     with pytest.raises(ModelNotFound):
         cli.infer("m", {"x": [1.0]})
-    with pytest.raises(ServingError, match="not yet ported"):
-        cli.workload("m", {"kind": "embed", "prompt": [1]})
     with pytest.raises(RuntimeError, match="does not exist"):
         cli.load_model("m", "/nonexistent")
-    with pytest.raises(RuntimeError, match="checkpoint slice"):
-        cli.load_decoder("m", checkpoint_dir="/nonexistent")
+    with pytest.raises(RuntimeError, match="mesh and parallel slice"):
+        cli.load_decoder("m", SPEC, mesh_axes="tp=2", **LOAD)
+    from paddle_tpu_torch.checkpoint import save_sharded_checkpoint
+    with pytest.raises(NotImplementedError, match="mesh and parallel"):
+        save_sharded_checkpoint("/nonexistent", {}, shard_axis="tp",
+                                mesh_spec="tp=2", rules=None)
     assert cli.list_models() == {}
 
 
@@ -103,7 +105,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.reader.creator, paddle_tpu_torch.dataset, "
             "paddle_tpu_torch.fluid.readers, "
             "paddle_tpu_torch.fluid.data_feeder, "
-            "paddle_tpu_torch.models.stacked_lstm; "
+            "paddle_tpu_torch.models.stacked_lstm, "
+            "paddle_tpu_torch.serving.workloads, "
+            "paddle_tpu_torch.checkpoint, "
+            "paddle_tpu_torch.checkpoint.__main__; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -131,7 +136,14 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/fluid/io.py",
             "paddle_tpu_torch/models/resnet.py",
             "paddle_tpu_torch/serving/engine.py",
-            "paddle_tpu_torch/serving/__main__.py"} <= rel
+            "paddle_tpu_torch/serving/__main__.py",
+            "paddle_tpu_torch/serving/workloads/masks.py",
+            "paddle_tpu_torch/serving/workloads/base.py",
+            "paddle_tpu_torch/serving/workloads/beam.py",
+            "paddle_tpu_torch/checkpoint/format.py",
+            "paddle_tpu_torch/checkpoint/sharded.py",
+            "paddle_tpu_torch/checkpoint/decoder.py",
+            "paddle_tpu_torch/checkpoint/__main__.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
