@@ -257,7 +257,25 @@ and prints no result):
            reset_reader rewinds; p50 step ms of each feed, and the
            host-to-device copy of a profiled step (its stream, time and
            overlap with kernels on the compute stream).
-  No kernel of the port lies on these three paths: their counts are
+  dynamic rnn
+           the reference suite's stacked_lstm as
+           benchmarks/fluid_suite_bench.py:115-162 builds it
+           (models/seq2seq.dynamic_rnn_lstm): embedding 512 over 5147
+           words, fc 512 tanh, a DynamicRNN whose LSTM cell is four
+           fc-gate pairs with hidden 512, softmax over 2, Adam(1e-3),
+           batch 32 cropped to 100 words, 5 steps on the card and on
+           the CPU from the same parameters (losses within
+           LSTM_LOSS_RTOL, step-1 gradients within LSTM_GRAD_TOL of
+           their max), then one ragged batch (lengths 20-100) held alike
+           with the DynamicRNN's output 0 past each length; p50 step
+           ms, real words/s, peak memory, one profiled step.
+  seq2seq  the book's machine translation at width 512 (wmt14's
+           30000 words, batch 16 through batch + DataFeeder): 5 Adam
+           steps card vs CPU as above; the While beam decode (beam 3,
+           MAX_LEN 32) on the trained scope, ids and parents against a
+           CPU run under the margin rule, decode ms, loop iterations and
+           host syncs; one step of seq_to_seq_net card vs CPU.
+  No kernel of the port lies on these five paths: their counts are
   zeroed and read around each main path to show no plain version ran.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
@@ -5146,6 +5164,369 @@ def resnet_recordio_phase(torch):
     return out
 
 
+# dynamic rnn: benchmarks/fluid_suite_bench.py:115-162's stacked_lstm at
+# full width (embedding 512 over imdb's 5147 words, fc 512 tanh, the
+# DynamicRNN LSTM cell of four fc-gate pairs with hidden 512, softmax over
+# 2), Adam(1e-3), batch 32 cropped to 100 words; 5 steps on the card and
+# on the CPU, then one ragged batch (lengths 20-100). Held as lstm train:
+# losses within LSTM_LOSS_RTOL, step-1 gradients within LSTM_GRAD_TOL of
+# each one's largest |value|.
+DRNN = dict(vocab=5147, emb_dim=512, hidden=512)
+DRNN_BATCH, DRNN_CROP, DRNN_STEPS, DRNN_LR = 32, 100, 5, 1e-3
+DRNN_RAGGED = (20, 100)  # the ragged batch's shortest and longest
+# seq2seq: the book's machine-translation programs at width 512
+# (WORD_DIM 512, HIDDEN 512, wmt14's 30000-word dictionary), batch 16 from
+# dataset.wmt14.train through batch + DataFeeder, Adam(1e-3), 5 steps;
+# the While beam decode (beam 3, MAX_LEN 32) on the trained scope, card
+# against CPU under the margin rule (MARGIN_REL x max|score|); one step
+# of seq_to_seq_net at the same widths.
+S2S = dict(dict_size=30000, word_dim=512, hidden=512)
+S2S_BATCH, S2S_STEPS, S2S_LR, S2S_BEAM, S2S_MAX_LEN = 16, 5, 1e-3, 3, 32
+
+
+def _param_grads(program):
+    return [p.name + "@GRAD" for p in program.global_block().all_parameters()
+            if program.global_block().has_var(p.name + "@GRAD")]
+
+
+def _grad_errs(names, card, cpu):
+    """Each gradient's max |card - cpu| over its own max |cpu|; raises
+    past LSTM_GRAD_TOL."""
+    import numpy as np
+
+    errs = {}
+    for name, a, b in zip(names, card, cpu):
+        errs[name] = float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                     1e-30))
+        if not errs[name] <= LSTM_GRAD_TOL:
+            raise RuntimeError(f"{name}: card vs CPU differ by "
+                               f"{errs[name]} of its max")
+    return errs
+
+
+def _steps_card_cpu(torch, exe, main, feeds, fetch, grads, scope,
+                    cpu_scope):
+    """``feeds`` on the card (kernel counts held, timed) and then on the
+    CPU from ``cpu_scope``: losses within LSTM_LOSS_RTOL, step-1
+    gradients within LSTM_GRAD_TOL of their max. Returns (card losses,
+    step ms, CPU losses, gradient errors, launches, peak GB)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    def steps(ex, sc):
+        losses, ms, step1 = [], [], None
+        for i, feed in enumerate(feeds):
+            t0 = time.perf_counter()
+            out = ex.run(main, feed=feed, scope=sc,
+                         fetch_list=[fetch] + (grads if i == 0 else []))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
+            if i == 0:
+                step1 = [np.asarray(g) for g in out[1:]]
+        return losses, ms, step1
+
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ms, g_card), launches = _held_window(lambda: steps(exe, scope))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cpu_losses, _, g_cpu = steps(fluid.Executor(fluid.CPUPlace()), cpu_scope)
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite: {losses}")
+    err = _rel_err(losses, cpu_losses)
+    if err > LSTM_LOSS_RTOL:
+        raise RuntimeError(f"card vs CPU losses differ by {err} relative "
+                           f"(> {LSTM_LOSS_RTOL}): {losses} vs {cpu_losses}")
+    return (losses, ms, cpu_losses, err, _grad_errs(grads, g_card, g_cpu),
+            launches, peak_gb)
+
+
+def _profiled(torch, exe, main, feed, fetch, scope, what):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[fetch], scope=scope)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    out = _device_summary(events, wall_ms, what)
+    out["device_launches"] = _device_launches(events)
+    return out
+
+
+def dynamic_rnn_phase(torch):
+    """benchmarks/fluid_suite_bench.py:115-162's program through
+    models/seq2seq.dynamic_rnn_lstm at full width (embedding 512 over
+    5147 words, fc 512 tanh, a DynamicRNN whose LSTM cell is four pairs
+    of fc gates with hidden 512, sequence_last_step, softmax over 2,
+    cross_entropy), Adam(1e-3), batch 32 cropped to 100 words (the
+    suite's fixed-length feed), 5 steps on the card and on the CPU from
+    the same parameters: losses within LSTM_LOSS_RTOL relative, the
+    step-1 gradient of every parameter within LSTM_GRAD_TOL of its max.
+    Then one ragged batch (lengths 20-100) from a copy of the trained
+    state on both: loss and gradients held alike, the DynamicRNN's
+    output exactly 0 past each length. Logged: p50 step ms (steps 2-5),
+    real words/s (the sum of @LEN), one profiled step's busy share and
+    device launches, peak memory."""
+    phase("dynamic rnn")
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import seq2seq
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 13
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        words = layers.data(name="words", shape=[1], dtype="int64",
+                            lod_level=1)
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        cost = seq2seq.dynamic_rnn_lstm(layers, words, label, **DRNN)
+        fluid.optimizer.Adam(DRNN_LR).minimize(cost)
+    rnn_out = [op.output("Out")[0] for op in main.global_block().ops
+               if op.type == "dynamic_recurrent"][0]
+    grads = _param_grads(main)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = _cpu_scope(fluid, scope)
+    rng = np.random.RandomState(2029)
+
+    def batch(lengths):
+        return {"words": rng.randint(0, DRNN["vocab"], (
+                    DRNN_BATCH, DRNN_CROP, 1)).astype(np.int64),
+                "words@LEN": np.asarray(lengths, np.int32),
+                "label": rng.randint(0, 2, (DRNN_BATCH, 1)).astype(
+                    np.int64)}
+
+    feeds = [batch([DRNN_CROP] * DRNN_BATCH) for _ in range(DRNN_STEPS + 1)]
+    (losses, ms, cpu_losses, err, grad_err, launches,
+     peak_gb) = _steps_card_cpu(torch, exe, main, feeds[:DRNN_STEPS], cost,
+                                grads, scope, cpu_scope)
+    p50 = statistics.median(ms[1:])
+    words = DRNN_BATCH * DRNN_CROP
+    out = {"config": "suite stacked_lstm: DynamicRNN LSTM cell (4 fc-gate "
+                     "pairs), emb 512 over 5147 words, hidden 512, 2 "
+                     "classes, Adam(1e-3), batch 32, crop 100",
+           "steps": DRNN_STEPS, "losses": losses, "cpu_losses": cpu_losses,
+           "max_rel_err_vs_cpu": err,
+           "step1_grad_err_of_max_worst": max(grad_err.values()),
+           "step1_grads_held": len(grad_err), "step_ms": ms,
+           "p50_step_ms_after_first": p50,
+           "words_per_s": words / (p50 / 1e3),
+           "peak_memory_allocated_gb": peak_gb,
+           "kernel_launches": launches}
+    # the ragged batch, card and CPU from the same trained state
+    lo, hi = DRNN_RAGGED
+    ragged = batch(np.concatenate([[lo, hi], rng.randint(
+        lo, hi + 1, DRNN_BATCH - 2)]))
+    cpu_scope = _cpu_scope(fluid, scope)
+    fetch = [cost, rnn_out] + grads
+    card = exe.run(main, feed=ragged, fetch_list=fetch, scope=scope)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=ragged, fetch_list=fetch, scope=cpu_scope)
+    r_err = _rel_err(card[0], cpu[0])
+    if r_err > LSTM_LOSS_RTOL:
+        raise RuntimeError(f"ragged batch: card vs CPU loss {card[0]} vs "
+                           f"{cpu[0]} ({r_err} relative)")
+    r_grad = _grad_errs(grads, card[2:], cpu[2:])
+    pad = np.arange(DRNN_CROP)[None, :] >= ragged["words@LEN"][:, None]
+    if np.asarray(card[1])[pad].any():
+        raise RuntimeError("DynamicRNN output is not 0 past a length")
+    out["ragged"] = {"lengths_min_max": [int(ragged["words@LEN"].min()),
+                                         int(ragged["words@LEN"].max())],
+                     "loss": float(np.asarray(card[0]).reshape(-1)[0]),
+                     "rel_err_vs_cpu": r_err,
+                     "grad_err_of_max_worst": max(r_grad.values())}
+    log("  dynamic rnn " + json.dumps(out))
+    out["profile"] = _profiled(torch, exe, main, feeds[DRNN_STEPS], cost,
+                               scope, "dynamic rnn step")
+    log(f"  dynamic rnn step: {out['profile']['device_launches']} device "
+        "launches (kernels and copies)")
+    return out
+
+
+def _decode_held(card, cpu):
+    """Card against CPU beam decode under the margin rule. For each batch
+    row, steps are compared from the first on: ids and parents bitwise
+    until the first step where they differ; there the card's and the
+    CPU's selected scores must agree within MARGIN_REL x max|score| (a
+    near tie reordered, not a wrong score), the position is named, and
+    the row's later steps (a different path) are not compared. Final
+    sentences of rows never cut must be bitwise equal; scores within
+    MARGIN_REL x max|score| everywhere compared."""
+    import numpy as np
+
+    (c_ids, c_sc, c_par, c_sent), (p_ids, p_sc, p_par, p_sent) = card, cpu
+    # step 0 holds the fed start scores (-1e9 lanes): not a decode score
+    tol = MARGIN_REL * float(np.abs(p_sc[1:]).max())
+    T, B = c_ids.shape[0], c_ids.shape[1]
+    cuts, compared = [], 0
+    for b in range(B):
+        for t in range(1, T):
+            same = (np.array_equal(c_ids[t, b], p_ids[t, b])
+                    and np.array_equal(c_par[t, b], p_par[t, b]))
+            gap = float(np.abs(c_sc[t, b] - p_sc[t, b]).max())
+            if same:
+                if gap > tol:
+                    raise RuntimeError(f"decode row {b} step {t}: scores "
+                                       f"differ by {gap} (> {tol})")
+                compared += 1
+                continue
+            if gap > tol:
+                raise RuntimeError(
+                    f"decode row {b} step {t}: ids {c_ids[t, b]} vs "
+                    f"{p_ids[t, b]}, parents {c_par[t, b]} vs "
+                    f"{p_par[t, b]}, and scores differ by {gap} (> {tol}): "
+                    "not a near tie")
+            cuts.append({"row": b, "step": t, "score_gap": gap})
+            break
+    cut_rows = {c["row"] for c in cuts}
+    for b in range(B):
+        if b not in cut_rows and not np.array_equal(c_sent[b], p_sent[b]):
+            raise RuntimeError(f"decode row {b}: sentences differ")
+    return {"positions_compared": compared, "cuts": cuts, "tol": tol}
+
+
+def seq2seq_phase(torch):
+    """The book's machine-translation programs through models/seq2seq at
+    width 512 (WORD_DIM 512, HIDDEN 512, wmt14's 30000-word dictionary).
+    Train: mt_train (dynamic_lstm encoder, DynamicRNN decoder, masked
+    cross-entropy), Adam(1e-3), batch 16 from dataset.wmt14.train
+    through paddle_tpu_torch.batch and DataFeeder, 5 steps on the card
+    and on the CPU from the same parameters, held as dynamic rnn.
+    Decode: mt_decode (an unbounded While over tensor arrays, beam 3,
+    MAX_LEN 32) on the card's trained scope and on a CPU copy of it: ids
+    and parents under the margin rule (_decode_held); decode ms, loop
+    iterations and host syncs (the fluid.* counters). seq_to_seq_net
+    (tests/test_rnn_encoder_decoder.py:65-105) at the same widths: one
+    step on the card and on the CPU, loss and gradients held alike."""
+    phase("seq2seq")
+    import numpy as np
+
+    import paddle_tpu_torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.observability import metrics
+
+    def build(fn, lr=S2S_LR):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 17
+        with unique_name.guard(), fluid.program_guard(main, startup):
+            out = fn()
+            if lr:
+                fluid.optimizer.Adam(lr).minimize(out)
+        return main, startup, out
+
+    reader = paddle_tpu_torch.batch(
+        paddle_tpu_torch.dataset.wmt14.train(S2S["dict_size"]), S2S_BATCH)
+
+    def wmt_feeds(main, names, n, slots=None):
+        """The reader's first ``n`` batches through a DataFeeder of
+        ``names`` (fed from the sample ``slots``, all by default)."""
+        feeder = fluid.DataFeeder(place=fluid.CUDAPlace(0), feed_list=names,
+                                  program=main)
+        feeds = []
+        for data in reader():
+            if slots is not None:
+                data = [tuple(d[k] for k in slots) for d in data]
+            feeds.append(feeder.feed(data))
+            if len(feeds) == n:
+                return feeds
+
+    out = {"config": "machine translation: wmt14 dict 30000, word 512, "
+                     "hidden 512, batch 16, Adam(1e-3); beam 3, MAX_LEN 32"}
+    main, startup, cost = build(lambda: seq2seq.mt_train(
+        layers, batch=S2S_BATCH, **S2S))
+    grads = _param_grads(main)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = _cpu_scope(fluid, scope)
+    names = ["src_word_id", "target_language_word",
+             "target_language_next_word"]
+    feeds = wmt_feeds(main, names, S2S_STEPS + 1)
+    (losses, ms, cpu_losses, err, grad_err, launches,
+     peak_gb) = _steps_card_cpu(torch, exe, main, feeds[:S2S_STEPS], cost,
+                                grads, scope, cpu_scope)
+    p50 = statistics.median(ms[1:])
+    words = [int(f["target_language_word@LEN"].sum()) for f in feeds]
+    out["train"] = {
+        "steps": S2S_STEPS, "losses": losses, "cpu_losses": cpu_losses,
+        "max_rel_err_vs_cpu": err,
+        "step1_grad_err_of_max_worst": max(grad_err.values()),
+        "step1_grads_held": len(grad_err), "step_ms": ms,
+        "p50_step_ms_after_first": p50,
+        "T": int(feeds[0]["target_language_word"].shape[1]),
+        "target_words_per_s": statistics.mean(words[1:S2S_STEPS])
+        / (p50 / 1e3),
+        "peak_memory_allocated_gb": peak_gb, "kernel_launches": launches}
+    out["train"]["profile"] = _profiled(torch, exe, main, feeds[S2S_STEPS],
+                                        cost, scope, "seq2seq train step")
+    log("  seq2seq train " + json.dumps(out["train"]))
+
+    # the beam decode on the trained scope, card and a CPU copy of it
+    dmain, dstartup, (ids, scores, arrays) = build(lambda: seq2seq.mt_decode(
+        layers, batch=S2S_BATCH, beam=S2S_BEAM, max_len=S2S_MAX_LEN, **S2S),
+        lr=0)
+    for v in dmain.global_block().vars.values():
+        if v.persistable and not scope.has_var(v.name):
+            raise RuntimeError(f"decode reads {v.name}, not trained")
+    (dfeed,) = wmt_feeds(dmain, ["src_word_id"], 1, slots=[0])
+    dfeed.update(seq2seq.decode_init(S2S_BATCH, S2S_BEAM))
+    fetch = list(arrays) + [ids, scores]
+    iters = metrics.counter("fluid.while.iterations")
+    syncs = metrics.counter("fluid.control_flow.host_syncs")
+    cpu_scope = _cpu_scope(fluid, scope)
+    exe.run(dmain, feed=dfeed, fetch_list=fetch, scope=scope)  # warm
+
+    def decode():
+        i0, s0 = iters.value(), syncs.value()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe.run(dmain, feed=dfeed, fetch_list=fetch, scope=scope)
+        return ((time.perf_counter() - t0) * 1e3, got,
+                iters.value() - i0, syncs.value() - s0)
+
+    (dec_ms, card, n_iter, n_sync), d_launches = _held_window(decode)
+    cpu = fluid.Executor(fluid.CPUPlace()).run(
+        dmain, feed=dfeed, fetch_list=fetch, scope=cpu_scope)
+    card = [np.asarray(v) for v in card]
+    cpu = [np.asarray(v) for v in cpu]
+    if card[3].shape != (S2S_BATCH, S2S_BEAM, S2S_MAX_LEN + 1):
+        raise RuntimeError(f"decode ids shape {card[3].shape}")
+    if not np.isfinite(card[4]).all() or \
+            (np.diff(card[4], axis=1) > 0).any():
+        raise RuntimeError("decode scores not finite or not best first")
+    held = _decode_held(card[:3] + [card[3]], cpu[:3] + [cpu[3]])
+    out["decode"] = {"ms": dec_ms, "loop_iterations": n_iter,
+                     "host_syncs": n_sync, "kernel_launches": d_launches,
+                     "held": held,
+                     "best_scores_row0": card[4][0].tolist()}
+    out["decode"]["profile"] = _profiled(torch, exe, dmain, dfeed, ids,
+                                         scope, "seq2seq decode")
+    log("  seq2seq decode " + json.dumps(out["decode"]))
+
+    # seq_to_seq_net, one step on the card and on the CPU
+    smain, sstartup, scost = build(lambda: seq2seq.seq_to_seq_net(
+        layers, batch=S2S_BATCH, **S2S))
+    sgrads = _param_grads(smain)
+    sscope = fluid.Scope()
+    exe.run(sstartup, scope=sscope)
+    s_cpu = _cpu_scope(fluid, sscope)
+    sfeeds = wmt_feeds(smain, ["source_sequence", "target_sequence",
+                               "label_sequence"], 1)
+    (s_losses, s_ms, s_cpu_losses, s_err, s_grad, s_launches,
+     _) = _steps_card_cpu(torch, exe, smain, sfeeds, scost, sgrads, sscope,
+                          s_cpu)
+    out["seq_to_seq_net"] = {
+        "loss": s_losses[0], "cpu_loss": s_cpu_losses[0],
+        "rel_err_vs_cpu": s_err, "grads_held": len(s_grad),
+        "grad_err_of_max_worst": max(s_grad.values()), "step_ms": s_ms[0],
+        "kernel_launches": s_launches}
+    log("  seq_to_seq_net " + json.dumps(out["seq_to_seq_net"]))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5191,11 +5572,23 @@ def main():
     data_paths = {"fit_a_line": fit_a_line_phase(torch),
                   "lstm_train": lstm_train_phase(torch),
                   "resnet_recordio": resnet_recordio_phase(torch)}
+    control_flow = {"dynamic_rnn": dynamic_rnn_phase(torch),
+                    "seq2seq": seq2seq_phase(torch)}
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
             "words_per_s", "p50_pipeline_ms", "p50_dict_ms")}
             for k, v in data_paths.items()}))
+    log("  control-flow paths (no kernel of the port on them) " +
+        json.dumps({
+            "dynamic_rnn": {m: control_flow["dynamic_rnn"][m] for m in (
+                "p50_step_ms_after_first", "words_per_s")},
+            "seq2seq_train": {m: control_flow["seq2seq"]["train"][m] for m
+                              in ("p50_step_ms_after_first",
+                                  "target_words_per_s")},
+            "seq2seq_decode": {m: control_flow["seq2seq"]["decode"][m]
+                               for m in ("ms", "loop_iterations",
+                                         "host_syncs")}}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

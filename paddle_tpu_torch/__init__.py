@@ -5,8 +5,10 @@ neither it nor ``jax``. It ports decode serving (the paged KV cache, the
 continuous-batching ``DecodeEngine``, the RPC server and client), fused
 ResNet inference serving, and Fluid training (``paddle_tpu_torch.fluid``:
 the Program IR, layers, backward, optimizers, an eager Executor, the
-data input stack of ``DataFeeder`` and in-graph readers) of the
-Transformer, ResNet-50, LeNet, VGG-16, fit_a_line and the stacked LSTM.
+data input stack of ``DataFeeder`` and in-graph readers, control flow
+and beam search) of the Transformer, ResNet-50, LeNet, VGG-16,
+fit_a_line, the stacked LSTM, the DynamicRNN LSTM and the book's
+machine translation.
 Every TPU kernel on those paths is rewritten by hand in CUDA C++ for
 Hopper (``csrc/``). ``reader``, ``dataset`` and ``batch`` are the JAX
 package's top-level data helpers. Entry points run on the card unless

@@ -68,6 +68,10 @@ FLAGS: Dict[str, Any] = {
     # float32 operands to bf16 (float32 accumulation, one rounding) and
     # restore the result to float32; master weights stay float32
     "amp": False,
+    # tally while-loop body evaluations (fluid/ops/control_flow.py
+    # step_evals): T a loop of T iterations, max_steps a bounded loop;
+    # the gradient replays no iteration
+    "count_while_step_evals": False,
 }
 
 

@@ -21,8 +21,12 @@ stack: ``DataFeeder``, the reader layers (``open_recordio_file``,
 ``double_buffer``, ``read_file``, ``reset_reader``) run by the
 executor's host pre-pass (``readers.py``), ``recordio_writer``; the
 padded-sequence path: ``dynamic_lstm``, ``sequence_pool``,
-``sequence_first_step``/``_last_step``. The executor runs on the card
-unless given ``CPUPlace()`` (or ``"cpu"``).
+``sequence_first_step``/``_last_step``; control flow: ``While``,
+``ConditionalBlock``, ``Switch``, ``IfElse``, ``StaticRNN``,
+``DynamicRNN``, the tensor arrays, ``beam_search`` and
+``beam_search_decode``, with the activation, compare, logical and
+reduce layers. The executor runs on the card unless given
+``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401

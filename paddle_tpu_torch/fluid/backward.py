@@ -23,7 +23,10 @@ from .framework import Parameter, Program, Variable, grad_var_name
 from .registry import FWD_META_ATTR, OPS
 
 # op types that never participate in differentiation (the JAX package's
-# list; control-flow ops, differentiable there, are not ported yet)
+# list). Control flow IS differentiable: `while` (bounded or not),
+# `recurrent`, `dynamic_recurrent`, `ifelse` and `conditional_block` take
+# the generic grad — autograd through the loop their forward recorded
+# (ops/control_flow.py) — never a silently missing gradient term.
 _NON_DIFF_OPS = {
     "feed", "fetch", "fill_constant", "gaussian_random", "uniform_random",
     "sgd", "momentum", "adam", "adamax", "adagrad", "adadelta", "rmsprop",

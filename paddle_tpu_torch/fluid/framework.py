@@ -207,6 +207,11 @@ class Operator:
         if custom is not None:
             custom(self.desc, self.block)
             return
+        if any(k.endswith("_block") for k in self.desc.attrs):
+            # a control-flow op resolves its sub-blocks through an
+            # executor's Program; its layer sets the output shapes
+            # (the JAX package's inference gives up on these ops too)
+            return
         ins = {}
         for slot, names in self.desc.inputs.items():
             lst = []

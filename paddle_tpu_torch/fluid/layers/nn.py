@@ -2,7 +2,8 @@
 embedding:218, conv2d:1150, batch_norm:1508, pool2d:1455,
 layer_norm:1597, dropout:876, softmax_with_cross_entropy:3165, ...): the
 ones the Transformer, fit_a_line, the image-classification training
-(ResNet, LeNet, VGG) and fused ResNet inference programs call, copied
+(ResNet, LeNet, VGG), fused ResNet inference and the control-flow
+programs (DynamicRNN LSTM, machine translation, seq2seq) call, copied
 from ``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported
 yet."""
 from __future__ import annotations
@@ -17,7 +18,10 @@ __all__ = [
     "layer_norm", "dropout", "softmax", "accuracy", "topk",
     "softmax_with_cross_entropy", "square_error_cost", "mean", "mul",
     "matmul", "reshape", "transpose", "ring_attention", "elementwise_add",
-    "elementwise_sub",
+    "elementwise_sub", "elementwise_mul", "elementwise_div",
+    "elementwise_max", "elementwise_min", "elementwise_pow",
+    "cross_entropy", "reduce_sum", "reduce_mean", "reduce_max",
+    "reduce_min", "reduce_prod", "scale", "expand",
 ]
 
 
@@ -339,6 +343,19 @@ def softmax(input, use_cudnn=True, name=None):
     return out
 
 
+def cross_entropy(input, label, soft_label=False):
+    """reference layers/nn.py:922."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label},
+    )
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False):
     """reference layers/nn.py:3165."""
     helper = LayerHelper("softmax_with_cross_entropy")
@@ -484,6 +501,51 @@ def ring_attention(q, k, v, causal=False, scale=0.0, impl="ring",
     return out
 
 
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            dims = dim if isinstance(dim, (list, tuple)) else [dim]
+            attrs = {"dim": list(dims), "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(
+            type=op_type, inputs={"X": [input]}, outputs={"Out": [out]}, attrs=attrs
+        )
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="scale", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"scale": scale, "bias": bias, "bias_after_scale": bias_after_scale},
+    )
+    return helper.append_activation(out)
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"expand_times": list(expand_times)},
+    )
+    return out
+
+
 def _elementwise_layer(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, act=act, name=name)
@@ -505,3 +567,8 @@ def _elementwise_layer(op_type):
 
 elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
+elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")

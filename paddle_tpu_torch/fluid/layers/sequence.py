@@ -1,6 +1,7 @@
 """Sequence layer functions — the reference's LoD-consuming layers
-(dynamic_lstm nn.py:277, sequence_pool, sequence_first_step/last_step) on
-the padded+lengths representation, copied from
+(dynamic_lstm nn.py:277, sequence_pool, sequence_first_step/last_step,
+sequence_mask, beam_search, beam_search_decode) and batch_gather on the
+padded+lengths representation, copied from
 ``paddle_tpu/fluid/layers/sequence.py`` (the other sequence layers are not
 ported yet).
 
@@ -16,7 +17,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "dynamic_lstm", "sequence_pool", "sequence_first_step",
-    "sequence_last_step", "seq_lengths_of",
+    "sequence_last_step", "seq_lengths_of", "sequence_mask", "batch_gather",
+    "beam_search", "beam_search_decode",
 ]
 
 LEN_SUFFIX = "@LEN"
@@ -104,3 +106,74 @@ def sequence_first_step(input):
 
 def sequence_last_step(input):
     return _seq_pool(input, "last")
+
+
+def sequence_mask(x, maxlen=None, maxlen_ref=None, dtype="int64"):
+    """mask[i, t] = t < x[i] (reference-era sequence padding mask). Provide
+    `maxlen` (static) or `maxlen_ref` (a padded [N, T, ...] var whose
+    time extent supplies it at run time)."""
+    helper = LayerHelper("sequence_mask")
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [x]}
+    if maxlen_ref is not None:
+        inputs["MaxLenRef"] = [maxlen_ref]
+    helper.append_op(
+        type="sequence_mask", inputs=inputs, outputs={"Y": [out]},
+        attrs={"maxlen": -1 if maxlen is None else int(maxlen),
+               "out_dtype": dtype},
+    )
+    return out
+
+
+def batch_gather(x, index):
+    """x [B, K, ...], index [B, K'] -> [B, K', ...]: per-batch gather on
+    axis 1 (beam-search parent selection)."""
+    helper = LayerHelper("batch_gather")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    if x.shape is not None and index.shape is not None:
+        out.desc.shape = list(index.shape[:2]) + list(x.shape[2:])
+    helper.append_op(
+        type="batch_gather", inputs={"X": [x], "Index": [index]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id, ids=None,
+                level=0):
+    """One beam expansion step over fixed [B, beam] state (reference
+    beam_search_op.cc keeps beams as LoD levels and shrinks finished ones;
+    here finished beams are frozen — see ops/beam_search_ops.py). `scores`
+    are this step's log-probs [B, beam, V]."""
+    helper = LayerHelper("beam_search")
+    sel_ids = helper.create_variable_for_type_inference("int64")
+    sel_scores = helper.create_variable_for_type_inference(scores.dtype)
+    parent = helper.create_variable_for_type_inference("int32")
+    inputs = {"PreIds": [pre_ids], "PreScores": [pre_scores],
+              "Scores": [scores]}
+    if ids is not None:
+        inputs["Ids"] = [ids]
+    helper.append_op(
+        type="beam_search", inputs=inputs,
+        outputs={"SelectedIds": [sel_ids], "SelectedScores": [sel_scores],
+                 "ParentIdx": [parent]},
+        attrs={"beam_size": int(beam_size), "end_id": int(end_id),
+               "level": int(level)},
+    )
+    return sel_ids, sel_scores, parent
+
+
+def beam_search_decode(ids, scores, parents, beam_size=None, end_id=0):
+    """Backtrack stacked per-step beam selections ([T, B, beam] each) into
+    sentences [B, beam, T] + final scores [B, beam] (reference
+    beam_search_decode_op.cc)."""
+    helper = LayerHelper("beam_search_decode")
+    sent_ids = helper.create_variable_for_type_inference("int64")
+    sent_scores = helper.create_variable_for_type_inference(scores.dtype)
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids], "Scores": [scores], "Parents": [parents]},
+        outputs={"SentenceIds": [sent_ids], "SentenceScores": [sent_scores]},
+        attrs={"end_id": int(end_id)},
+    )
+    return sent_ids, sent_scores

@@ -1,5 +1,5 @@
 """Tensor layers (reference python/paddle/fluid/layers/tensor.py): the
-ones the Transformer program calls, copied from
+ones the Transformer and the control-flow programs call, copied from
 ``paddle_tpu/fluid/layers/tensor.py``."""
 from __future__ import annotations
 
@@ -8,7 +8,9 @@ import numpy as np
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "sums", "assign", "fill_constant"]
+__all__ = ["create_parameter", "cast", "concat", "sums", "assign",
+           "fill_constant", "fill_constant_batch_size_like", "ones",
+           "zeros"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -30,6 +32,16 @@ def cast(x, dtype):
     helper.append_op(
         type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
         attrs={"in_dtype": x.dtype, "out_dtype": convert_dtype(dtype)},
+    )
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(
+        type="concat", inputs={"X": input}, outputs={"Out": [out]},
+        attrs={"axis": axis},
     )
     return out
 
@@ -82,3 +94,28 @@ def fill_constant(shape, dtype, value, force_cpu=False, out=None):
     )
     out.stop_gradient = True
     return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value, input_dim_idx=0,
+                                  output_dim_idx=0):
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={
+            "shape": list(shape), "dtype": out.dtype, "value": float(value),
+            "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx,
+        },
+    )
+    out.stop_gradient = True
+    return out
+
+
+def ones(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=1.0)
+
+
+def zeros(shape, dtype, force_cpu=False):
+    return fill_constant(shape=shape, dtype=dtype, value=0.0)

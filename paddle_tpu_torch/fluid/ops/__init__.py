@@ -1,12 +1,18 @@
 """Op emitters of the port, registered at import (the counterpart of
 ``paddle_tpu/fluid/ops``). So far: the ops of the Transformer training
 path, of fit_a_line, of the image-classification training path (ResNet,
-LeNet, VGG), of the fused ResNet inference path and of the stacked LSTM
-(``sequence_pool``, ``lstm``). Any other op type
-raises "no emitter registered ... (not yet ported)" when a program
-containing it is built or run."""
+LeNet, VGG), of the fused ResNet inference path, of the stacked LSTM
+(``sequence_pool``, ``lstm``), the activations, comparisons and
+reductions, and Fluid control flow (``while``, ``conditional_block``,
+``recurrent``, ``ifelse``, ``dynamic_recurrent``, the tensor arrays)
+with beam search. Any other op type raises "no emitter registered ...
+(not yet ported)" when a program containing it is built or run."""
 from . import (  # noqa: F401
+    activations,
     attention_ops,
+    beam_search_ops,
+    compare_ops,
+    control_flow,
     elementwise,
     loss_ops,
     math_ops,
@@ -14,6 +20,7 @@ from . import (  # noqa: F401
     nn_ops,
     optimizer_ops,
     random_ops,
+    reduce_ops,
     sequence_ops,
     tensor_ops,
 )

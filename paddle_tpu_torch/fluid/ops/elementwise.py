@@ -1,7 +1,9 @@
-"""Elementwise ops with Paddle axis-broadcast semantics (reference
-paddle/fluid/operators/elementwise_*_op.cc, activation_op.cc). Gradients
+"""Elementwise binary ops with Paddle axis-broadcast semantics (reference
+paddle/fluid/operators/elementwise_*_op.cc, elementwise_op_function.h)
+— the counterpart of ``paddle_tpu/fluid/ops/elementwise.py``. Gradients
 come from the generic path: autograd sum-reduces broadcast dims, as the
-reference's grad does."""
+reference's grad does. The unary activations live in
+``activations.py``."""
 from __future__ import annotations
 
 import torch
@@ -19,15 +21,10 @@ def _binary(name, fn):
     return _op
 
 
-def _unary(name, fn):
-    @register_op(name, ref="paddle/fluid/operators/activation_op.cc")
-    def _op(ctx, ins, attrs, _fn=fn):
-        return {"Out": _fn(one(ins, "X"))}
-
-    return _op
-
-
 _binary("elementwise_add", torch.add)
 _binary("elementwise_sub", torch.sub)
-_unary("relu", torch.relu)
-_unary("square", torch.square)
+_binary("elementwise_mul", torch.mul)
+_binary("elementwise_div", torch.div)
+_binary("elementwise_max", torch.maximum)
+_binary("elementwise_min", torch.minimum)
+_binary("elementwise_pow", torch.pow)

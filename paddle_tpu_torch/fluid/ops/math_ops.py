@@ -1,11 +1,13 @@
 """GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
-matmul,sum,mean}_op.*). Plain large products stay ``torch.matmul``
+matmul,sum,mean,scale,cum,sign}_op.*). Plain large products stay ``torch.matmul``
 (cuBLAS on a card), as the JAX package leaves them to XLA; under
 FLAGS['amp'] ``mul`` and ``matmul`` multiply bfloat16 operands and
 restore the result to float32 (``amp_operands``)."""
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..registry import register_op
 from .common import amp_operands, many, one, restored
@@ -56,3 +58,32 @@ def sum_op(ctx, ins, attrs):
 @register_op("mean", ref="paddle/fluid/operators/mean_op.cc")
 def mean(ctx, ins, attrs):
     return {"Out": one(ins, "X").mean().reshape(1)}
+
+
+@register_op("scale", ref="paddle/fluid/operators/scale_op.cc")
+def scale(ctx, ins, attrs):
+    x = one(ins, "X")
+    s = float(attrs.get("scale", 1.0))
+    b = float(attrs.get("bias", 0.0))
+    if bool(attrs.get("bias_after_scale", True)):
+        return {"Out": x * s + b}
+    return {"Out": (x + b) * s}
+
+
+@register_op("cumsum", ref="paddle/fluid/operators/cum_op.h")
+def cumsum(ctx, ins, attrs):
+    x = one(ins, "X")
+    axis = int(attrs.get("axis", -1))
+    if bool(attrs.get("reverse", False)):
+        out = torch.flip(torch.cumsum(torch.flip(x, [axis]), dim=axis),
+                         [axis])
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if bool(attrs.get("exclusive", False)):
+        out = out - x
+    return {"Out": out}
+
+
+@register_op("sign", ref="paddle/fluid/operators/sign_op.cc")
+def sign(ctx, ins, attrs):
+    return {"Out": torch.sign(one(ins, "X"))}

@@ -1,6 +1,7 @@
 """Sequence ops on the padded + lengths representation — the counterpart
 of ``paddle_tpu/fluid/ops/sequence_ops.py`` (``_mask``, ``sequence_pool``,
-``lstm``), computed with torch ops.
+``lstm``, ``lod_rank_table``, ``reorder_lod_tensor_by_rank``), computed
+with torch ops.
 
 A "sequence batch" is a padded dense tensor [N, T, ...] plus a lengths
 vector [N] (int32) carried in the companion variable `<name>@LEN` (see
@@ -9,7 +10,8 @@ layers/sequence.py); masking replaces the reference's LoD offset tables
 ``jax.lax.scan``; here the same recurrence is a Python loop over the time
 steps, and the generic autograd grad differentiates it.
 
-Reference op files: sequence_pool_op.cc, lstm_op.cc (+math/lstm_compute).
+Reference op files: sequence_pool_op.cc, lstm_op.cc (+math/lstm_compute),
+lod_rank_table_op.cc, reorder_lod_tensor_by_rank_op.cc.
 """
 from __future__ import annotations
 
@@ -128,3 +130,20 @@ def lstm(ctx, ins, attrs):
     mask = _mask(lengths, T, x.dtype)[:, :, None]
     return {"Hidden": hidden * mask, "Cell": cell * mask,
             "BatchGate": x, "BatchCellPreAct": cell}
+
+
+@register_op("lod_rank_table", no_grad=("X", "Lengths"),
+             ref="paddle/fluid/operators/lod_rank_table_op.cc")
+def lod_rank_table(ctx, ins, attrs):
+    """The permutation that sorts the batch by DESCENDING length, ties in
+    batch order (the reference's LoDRankTable; the JAX package's
+    ``argsort(-lengths, stable=True)``), int32."""
+    lengths = one(ins, "Lengths").to(torch.int32)
+    return {"Out": torch.argsort(-lengths, stable=True).to(torch.int32)}
+
+
+@register_op("reorder_lod_tensor_by_rank", no_grad=("RankTable",),
+             ref="paddle/fluid/operators/reorder_lod_tensor_by_rank_op.cc")
+def reorder_lod_tensor_by_rank(ctx, ins, attrs):
+    x, rank = one(ins, "X"), one(ins, "RankTable")
+    return {"Out": x.index_select(0, rank.long())}

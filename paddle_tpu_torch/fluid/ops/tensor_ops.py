@@ -1,12 +1,15 @@
 """Tensor-manipulation ops (reference paddle/fluid/operators/{reshape,
-transpose,cast,fill_constant,assign,assign_value,lookup_table,top_k}_op.*)."""
+transpose,concat,split,cast,fill_constant,assign,assign_value,
+lookup_table,top_k,expand,...}_op.*) — the counterpart of
+``paddle_tpu/fluid/ops/tensor_ops.py`` for the ops the port's paths
+run."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..registry import register_op
-from .common import dtype_of, one
+from .common import dtype_of, many, one
 
 
 @register_op("reshape", ref="paddle/fluid/operators/reshape_op.cc")
@@ -23,6 +26,25 @@ def transpose(ctx, ins, attrs):
     return {"Out": one(ins, "X").permute([int(a) for a in attrs["axis"]])}
 
 
+@register_op("concat", ref="paddle/fluid/operators/concat_op.cc")
+def concat(ctx, ins, attrs):
+    return {"Out": torch.cat(many(ins, "X"), dim=int(attrs.get("axis", 0)))}
+
+
+@register_op("split", ref="paddle/fluid/operators/split_op.cc")
+def split(ctx, ins, attrs):
+    x = one(ins, "X")
+    axis = int(attrs.get("axis", 0))
+    sections = [int(s) for s in attrs.get("sections") or []]
+    if not sections:
+        num = int(attrs.get("num", 0))
+        if x.shape[axis] % num:
+            raise ValueError(f"split: dim {axis} of extent {x.shape[axis]} "
+                             f"does not divide into {num} equal parts")
+        sections = [x.shape[axis] // num] * num
+    return {"Out": list(torch.split(x, sections, dim=axis))}
+
+
 @register_op("cast", ref="paddle/fluid/operators/cast_op.cc")
 def cast(ctx, ins, attrs):
     """X in ``out_dtype`` (to nearest even into bfloat16). Its gradient
@@ -37,15 +59,21 @@ def assign(ctx, ins, attrs):
     return {"Out": one(ins, "X")}
 
 
-@register_op("assign_value", ref="paddle/fluid/operators/assign_value_op.cc")
-def assign_value(ctx, ins, attrs):
+def _literal(ctx, values, attrs):
+    """The attr's flat ``values`` as a tensor of the attrs' shape and
+    dtype on the op's device."""
     dtype = dtype_of(attrs)
     shape = [int(s) for s in attrs["shape"]]
     if ctx.device.type == "meta":
-        return {"Out": torch.empty(shape, dtype=dtype, device="meta")}
-    vals = np.asarray(attrs["values"], dtype=np.float64 if dtype.is_floating_point
+        return torch.empty(shape, dtype=dtype, device="meta")
+    vals = np.asarray(values, dtype=np.float64 if dtype.is_floating_point
                       else np.int64).reshape(shape)
-    return {"Out": torch.as_tensor(vals).to(device=ctx.device, dtype=dtype)}
+    return torch.as_tensor(vals).to(device=ctx.device, dtype=dtype)
+
+
+@register_op("assign_value", ref="paddle/fluid/operators/assign_value_op.cc")
+def assign_value(ctx, ins, attrs):
+    return {"Out": _literal(ctx, attrs["values"], attrs)}
 
 
 @register_op("fill_constant", ref="paddle/fluid/operators/fill_constant_op.cc")
@@ -53,6 +81,143 @@ def fill_constant(ctx, ins, attrs):
     shape = [int(s) for s in attrs["shape"]]
     return {"Out": torch.full(shape, float(attrs.get("value", 0.0)),
                               dtype=dtype_of(attrs), device=ctx.device)}
+
+
+@register_op("fill_constant_batch_size_like",
+             ref="paddle/fluid/operators/fill_constant_batch_size_like_op.cc")
+def fill_constant_batch_size_like(ctx, ins, attrs):
+    inp = one(ins, "Input")
+    shape = [int(s) for s in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        inp.shape[int(attrs.get("input_dim_idx", 0))]
+    return {"Out": torch.full(shape, float(attrs.get("value", 0.0)),
+                              dtype=dtype_of(attrs), device=ctx.device)}
+
+
+@register_op("fill_zeros_like",
+             ref="paddle/fluid/operators/fill_zeros_like_op.cc")
+def fill_zeros_like(ctx, ins, attrs):
+    return {"Out": torch.zeros_like(one(ins, "X"))}
+
+
+@register_op("fill", ref="paddle/fluid/operators/fill_op.cc")
+def fill(ctx, ins, attrs):
+    """Out holds the literal values of the ``value`` attr."""
+    return {"Out": _literal(ctx, attrs["value"], attrs)}
+
+
+@register_op("shape", ref="paddle/fluid/operators/shape_op.cc")
+def shape_op(ctx, ins, attrs):
+    return {"Out": torch.tensor(list(one(ins, "Input").shape),
+                                dtype=torch.int64, device=ctx.device)}
+
+
+@register_op("increment", ref="paddle/fluid/operators/increment_op.cc")
+def increment(ctx, ins, attrs):
+    """X + step in X's dtype, out of place (the layer names X as the
+    output, so the new value takes X's name)."""
+    x = one(ins, "X")
+    step = float(attrs.get("step", 1.0))
+    return {"Out": x + (step if x.is_floating_point() else int(step))}
+
+
+@register_op("expand", ref="paddle/fluid/operators/expand_op.cc")
+def expand(ctx, ins, attrs):
+    return {"Out": one(ins, "X").tile([int(t) for t in attrs["expand_times"]])}
+
+
+@register_op("sequence_mask", no_grad=("X", "MaxLenRef"),
+             ref="paddle/fluid/operators/sequence_ops (era: created for "
+                 "padding)")
+def sequence_mask(ctx, ins, attrs):
+    """Y[i, t] = t < X[i], over ``maxlen`` columns or the time extent of
+    the padded MaxLenRef [N, T, ...]."""
+    x = one(ins, "X")
+    maxlen = int(attrs.get("maxlen", -1))
+    if maxlen < 0 and ins.get("MaxLenRef"):
+        maxlen = ins["MaxLenRef"][0].shape[1]
+    if maxlen < 0:
+        raise ValueError("sequence_mask requires a static `maxlen` attr (or "
+                         "a MaxLenRef input)")
+    rng = torch.arange(maxlen, device=x.device)
+    return {"Y": (rng[None, :] < x[:, None]).to(
+        dtype_of(attrs, "out_dtype", "int64"))}
+
+
+@register_op("batch_gather", no_grad=("Index",),
+             ref="paddle/fluid/operators (beam parent gather; "
+                 "take_along_axis)")
+def batch_gather(ctx, ins, attrs):
+    """X [B, K, ...], Index [B, K'] -> Out [B, K', ...]: a gather along
+    axis 1 per batch row (beam search's parent states)."""
+    x, idx = one(ins, "X"), one(ins, "Index")
+    idx = idx.long().reshape(tuple(idx.shape) + (1,) * (x.ndim - 2))
+    return {"Out": torch.take_along_dim(
+        x, idx.expand(tuple(idx.shape[:2]) + tuple(x.shape[2:])), dim=1)}
+
+
+@register_op("max_sequence_len", no_grad=("Lengths",),
+             ref="paddle/fluid/operators/max_sequence_len_op.cc")
+def max_sequence_len(ctx, ins, attrs):
+    """The batch's longest length, int32 [1], from the lengths companion
+    (the JAX package's op; the reference reads its LoDRankTable)."""
+    lengths = one(ins, "Lengths")
+    if lengths is None:
+        raise ValueError(
+            "max_sequence_len needs the Lengths input — build it with "
+            "layers.max_sequence_len(x) on a sequence var")
+    return {"Out": lengths.max().reshape(1).to(torch.int32)}
+
+
+@register_op("lod_tensor_to_array", no_grad=("RankTable",),
+             ref="paddle/fluid/operators/lod_tensor_to_array_op.cc")
+def lod_tensor_to_array(ctx, ins, attrs):
+    """[N, T, ...] -> the time-major array [T, N, ...]."""
+    return {"Out": one(ins, "X").transpose(0, 1)}
+
+
+@register_op("array_to_lod_tensor", no_grad=("RankTable",),
+             ref="paddle/fluid/operators/array_to_lod_tensor_op.cc")
+def array_to_lod_tensor(ctx, ins, attrs):
+    """The inverse of lod_tensor_to_array: [T, N, ...] -> [N, T, ...]."""
+    return {"Out": one(ins, "X").transpose(0, 1)}
+
+
+def _print(x, attrs, phase):
+    summarize = int(attrs.get("summarize", 20))
+    head = x.detach().reshape(-1)
+    n = head.numel() if summarize < 0 else min(summarize, head.numel())
+    parts = [str(attrs.get("message") or ""), f"[{phase}]",
+             f"shape={tuple(x.shape)} dtype={x.dtype}"]
+    if x.is_floating_point():
+        xf = x.detach().float()
+        parts.append(f"min={xf.min().item()} max={xf.max().item()} "
+                     f"mean={xf.mean().item()} "
+                     f"nan={int(torch.isnan(xf).sum().item())}")
+    parts.append(f"data[:{n}]={head[:n].tolist()}")
+    print(" ".join(p for p in parts if p), flush=True)
+
+
+def _print_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
+    g = out_grads["Out"][0]
+    if g is not None and attrs.get("print_phase", "both") in ("backward",
+                                                             "both"):
+        _print(g, attrs, "backward")
+    return {"GRAD@In": g}
+
+
+@register_op("print", grad=_print_grad,
+             ref="paddle/fluid/operators/print_op.cc")
+def print_op(ctx, ins, attrs):
+    """A tensor tap: In passes through unchanged, and each run prints its
+    shape, dtype, statistics and first ``summarize`` values on the host
+    (one device sync). The custom grad passes the gradient through, and
+    prints it under print_phase 'backward' or 'both'."""
+    x = one(ins, "In")
+    if ctx.device.type != "meta" and \
+            attrs.get("print_phase", "both") in ("forward", "both"):
+        _print(x, attrs, "forward")
+    return {"Out": x}
 
 
 def _squeezed_ids(ids):

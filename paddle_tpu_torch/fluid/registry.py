@@ -227,10 +227,7 @@ def exec_op_descs(ctx: EmitCtx, op_descs, env: Dict[str, Any],
                     if n not in keep:
                         env.pop(n, None)
                 continue
-            ins = {
-                slot: [env.get(n) if n else None for n in names]
-                for slot, names in od.inputs.items()
-            }
+            ins = _op_ins(od, env)
             if od.type.endswith("_grad") and FWD_META_ATTR in od.attrs:
                 fwd = plan.get(idx)
                 outs = run_grad(ctx, ins, od.attrs,
@@ -241,11 +238,34 @@ def exec_op_descs(ctx: EmitCtx, op_descs, env: Dict[str, Any],
                                                        od.attrs)
             else:
                 outs = run_forward(ctx, od.type, ins, od.attrs)
-            for slot, names in od.outputs.items():
-                vals = outs.get(slot, [])
-                for i, n in enumerate(names):
-                    if n and i < len(vals) and vals[i] is not None:
-                        env[n] = vals[i]
+            _store_outs(od, outs, env)
+
+
+def _op_ins(od, env):
+    return {slot: [env.get(n) if n else None for n in names]
+            for slot, names in od.inputs.items()}
+
+
+def _store_outs(od, outs, env):
+    for slot, names in od.outputs.items():
+        vals = outs.get(slot, [])
+        for i, n in enumerate(names):
+            if n and i < len(vals) and vals[i] is not None:
+                env[n] = vals[i]
+
+
+def run_sub_block(ctx: EmitCtx, op_descs, env: Dict[str, Any]):
+    """Run a control-flow op's sub-block (forward ops only) into env,
+    eagerly and in order, in the CALLER's grad mode: under the
+    ``forward_with_grad`` of a control-flow op that a grad op
+    differentiates, autograd records every op of every iteration, so the
+    gradients of the values the block reads (a parameter read only
+    inside a loop) flow back through the one recorded graph."""
+    for od in op_descs:
+        if od.type in ("feed", "fetch"):
+            continue
+        _store_outs(od, run_forward(ctx, od.type, _op_ins(od, env),
+                                    od.attrs), env)
 
 
 def run_grad(ctx: EmitCtx, ins: Dict[str, List[Any]], attrs: Dict[str, Any],
