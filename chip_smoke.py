@@ -277,6 +277,31 @@ and prints no result):
            host syncs; one step of seq_to_seq_net card vs CPU.
   No kernel of the port lies on these five paths: their counts are
   zeroed and read around each main path to show no plain version ran.
+  train recipe
+           Transformer-base (as train) trained with Adam on
+           noam_decay(512, 4000), GradientClipByGlobalNorm(1.0) and
+           L2Decay(1e-4): 5 steps without and 5 with recompute (each
+           layer a Recompute region) from the same parameters — K1 30
+           and 60, K2 18 and 36, K3a/K3b/delta 18 launches a step, no
+           plain call; p50 step ms, tokens/s, peak memory (lower with
+           recompute), one profiled step each, then RECIPE_TURNS steps
+           of each in turns with the train phase's Adam-only program;
+           the fetched rate on noam's float64 curve
+           within RECIPE_LR_RTOL. The recipe at 2+2 layers, dropout 0,
+           batch 2, with and without recompute: one step card vs CPU
+           (as train check, on the clipped and decayed gradients the
+           optimizer gets; the raw ones reported), 3 steps of each on
+           the card, losses within RECIPE_RC_RTOL and step-1 gradients
+           within RECIPE_RC_GRAD_TOL of their max (bitwise or not,
+           printed). fit_a_line's
+           program under SGD, Momentum, Adam, Adagrad, Adamax,
+           DecayedAdagrad, Adadelta, RMSProp and Ftrl (the weight at
+           ParamAttr(learning_rate=0.5)), 3 steps card vs CPU within
+           RECIPE_OPT_RTOL of each parameter's max; ModelAverage's
+           apply() against the CPU's and restore() bitwise. A resume:
+           3 steps, save_checkpoint, load_checkpoint into a fresh
+           scope, 2 steps, bitwise the straight 5 (losses, rates,
+           every persistable); bytes, save_s, load_s.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -2606,7 +2631,7 @@ def _embedding_grad_repeats(torch, feed):
     log("  embedding gradient: two calls bitwise equal")
 
 
-def profile_step(torch, exe, main, feed, cost, scope):
+def profile_step(torch, exe, main, feed, cost, scope, what="train step"):
     """One more training step under torch.profiler, after the main
     path's counts were read: device time by kernel and the device's busy
     share of the step's wall time. Reporting only."""
@@ -2617,7 +2642,7 @@ def profile_step(torch, exe, main, feed, cost, scope):
         t0 = time.perf_counter()
         exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return _device_summary(prof.key_averages(), wall_ms, "train step")
+    return _device_summary(prof.key_averages(), wall_ms, what)
 
 
 def _device_summary(events, wall_ms, what, part=None):
@@ -2687,15 +2712,8 @@ def train_check_phase(torch):
     lc, lp = float(out["cuda"][0][0]), float(out["cpu"][0][0])
     if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
         raise RuntimeError(f"loss card {lc} vs cpu {lp}")
-    worst = 0.0
-    for (p, _), gc, gp in zip(pg, out["cuda"][1:], out["cpu"][1:]):
-        scale = float(np.abs(gp).max())
-        ratio = float(np.abs(gc - gp).max()) / scale if scale else \
-            float(np.abs(gc).max())
-        if not np.isfinite(gc).all() or ratio > 1e-3:
-            raise RuntimeError(f"gradient of {p.name}: card vs cpu max abs "
-                               f"diff / max abs {ratio:.3g} > 1e-3")
-        worst = max(worst, ratio)
+    worst = _worst_grad(pg, out["cuda"][1:], out["cpu"][1:], 1e-3,
+                        "card vs cpu")["worst_rel_err"]
     log(f"  transformer 2+2L full width, batch 2: loss card {lc:.7f} cpu "
         f"{lp:.7f}; {len(pg)} gradients agree, worst max-diff/max "
         f"{worst:.3g}")
@@ -4734,16 +4752,24 @@ def _held_window(run):
     return out, {k: v for k, v in launches.items() if v}
 
 
-def _timed_steps(exe, program, feeds, fetch, scope):
+def _run_steps(exe, program, feeds, fetch, scope):
+    """One run a feed: the fetches of every step as numpy arrays, and
+    each step's host ms."""
     import numpy as np
 
-    losses, ms = [], []
+    out, ms = [], []
     for feed in feeds:
         t0 = time.perf_counter()
-        out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+        got = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
         ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(np.asarray(out[0]).reshape(-1)[0]))
-    return losses, ms
+        out.append([np.asarray(v) for v in got])
+    return out, ms
+
+
+def _timed_steps(exe, program, feeds, fetch, scope):
+    """(the first fetch of each step as a float, each step's ms)."""
+    out, ms = _run_steps(exe, program, feeds, fetch, scope)
+    return [float(o[0].reshape(-1)[0]) for o in out], ms
 
 
 def _rel_err(a, b):
@@ -5527,6 +5553,414 @@ def seq2seq_phase(torch):
     return out
 
 
+# train recipe: Transformer-base trained with the whole training recipe —
+# noam_decay(512, 4000), global-norm clipping at 1.0, L2 decay 1e-4, Adam
+# — with recompute (each encoder and decoder layer one Recompute region)
+# and without; fit_a_line's program under each optimizer; a resume from
+# save_checkpoint.
+RECIPE_NOAM, RECIPE_CLIP, RECIPE_L2 = (D_MODEL, 4000), 1.0, 1e-4
+RECIPE_STEPS, RECIPE_CHECK_STEPS, RECIPE_RESUME_AT = 5, 3, 3
+RECIPE_TURNS = 6           # in-turns steps of each program
+RECIPE_LR_RTOL = 1e-6      # fetched rate against noam's closed form
+RECIPE_RC_RTOL = 1e-6      # recompute vs plain losses on the card
+RECIPE_RC_GRAD_TOL = 1e-5  # ... and step-1 gradients, of their max
+RECIPE_OPT_RTOL = 1e-6     # card vs CPU parameters, of their max
+RECIPE_OPTIMIZERS = {
+    "SGD": {}, "Momentum": {"momentum": 0.9}, "Adam": {}, "Adagrad": {},
+    "Adamax": {}, "DecayedAdagrad": {}, "Adadelta": {},
+    "RMSProp": {"momentum": 0.5}, "Ftrl": {"l1": 0.01, "l2": 0.01}}
+# per step of Transformer-base (6+6 layers): 30 layer norms and 18
+# attentions; with recompute each region's forward runs again in backward
+RECIPE_LAUNCHES = {
+    False: {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+            "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+            "flash_delta": 18},
+    True: {"layer_norm_f32": 60, "flash_fwd_f32": 36,
+           "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+           "flash_delta": 18}}
+
+
+def build_recipe(cfg_kw, recompute):
+    """The Transformer with the recipe: set_gradient_clip(
+    GradientClipByGlobalNorm), Adam(noam_decay, regularization=L2Decay).
+    Returns (main, startup, cost, params_grads, learning-rate var)."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        cfg = transformer.TransformerConfig(recompute=recompute, **cfg_kw)
+        src = layers.data(name="src", shape=[cfg.max_len], dtype="int64")
+        trg = layers.data(name="trg", shape=[cfg.max_len], dtype="int64")
+        lbl = layers.data(name="lbl", shape=[cfg.max_len, 1], dtype="int64")
+        cost, _ = transformer.build_train(cfg, src, trg, lbl)
+        fluid.set_gradient_clip(
+            fluid.GradientClipByGlobalNorm(RECIPE_CLIP))
+        lr = layers.noam_decay(*RECIPE_NOAM)
+        _, pg = fluid.optimizer.Adam(
+            learning_rate=lr,
+            regularization=fluid.regularizer.L2Decay(RECIPE_L2)).minimize(cost)
+    return main, startup, cost, pg, lr
+
+
+def noam_rate(step):
+    """noam_decay's rate at 1-based ``step``, in float64."""
+    d, warm = RECIPE_NOAM
+    return d ** -0.5 * min(step ** -0.5, step * warm ** -1.5)
+
+
+def _recipe_timing(torch, fluid, feed):
+    """Part 1: five steps of Transformer-base without recompute, then
+    five with, from the same parameters, each window with only its own
+    model's state on the card (launches, p50, peak memory, one profiled
+    step); then RECIPE_TURNS steps of each in turns, beside the train
+    phase's program (Adam at a constant rate, no clip, no decay), each
+    form first in its turn, every state on the card, for step times
+    taken side by side."""
+    import numpy as np
+
+    out, params, models = {}, None, {}
+    for recompute in (False, True):
+        key = "recompute" if recompute else "plain"
+        t0 = time.perf_counter()
+        main, startup, cost, pg, lr = build_recipe(TRANSFORMER_BASE,
+                                                   recompute)
+        build_s = time.perf_counter() - t0
+        exe, scope = _card_executor(fluid), fluid.Scope()
+        exe.run(startup, scope=scope)
+        if params is None:
+            params = {p.name: scope.find_var(p.name).clone()
+                      for p in main.global_block().all_parameters()}
+        for n, v in params.items():
+            scope.set_var(n, v.clone())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (steps, ms), launches = _held_window(lambda: _run_steps(
+            exe, main, [feed] * RECIPE_STEPS, [cost, lr], scope))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {k: v * RECIPE_STEPS for k, v in
+                RECIPE_LAUNCHES[recompute].items()}
+        if launches != want:
+            raise RuntimeError(f"recompute={recompute}: launches {launches}"
+                               f" in {RECIPE_STEPS} steps, want {want}")
+        losses = [float(s[0].reshape(-1)[0]) for s in steps]
+        rates = [float(s[1].reshape(-1)[0]) for s in steps]
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"recipe losses not finite: {losses}")
+        rate_err = max(abs(r - noam_rate(i + 1)) / noam_rate(i + 1)
+                       for i, r in enumerate(rates))
+        if rate_err > RECIPE_LR_RTOL:
+            raise RuntimeError(f"learning rate {rates} off noam's curve by "
+                               f"{rate_err} relative")
+        p50 = statistics.median(ms[1:])
+        out[key] = {
+            "losses": losses, "rates": rates,
+            "rate_max_rel_err_vs_noam": rate_err, "step_ms": ms,
+            "p50_step_ms_after_first": p50,
+            "tokens_per_s": TRAIN_BATCH * SEQ / (p50 / 1e3),
+            "peak_memory_allocated_gb": peak_gb, "build_s": build_s,
+            "ops": len(main.global_block().ops),
+            "launches_per_step": {k: v // RECIPE_STEPS
+                                  for k, v in launches.items()}}
+        log(f"  recipe {key} " + json.dumps(out[key]))
+        out[key]["profile"] = profile_step(torch, exe, main, feed, cost,
+                                           scope, f"recipe {key} step")
+        models[key] = [main, startup, cost, exe, scope]
+        if not recompute:
+            models[key][4] = None  # the next window holds one model
+            del scope
+    if not out["recompute"]["peak_memory_allocated_gb"] < \
+            out["plain"]["peak_memory_allocated_gb"]:
+        raise RuntimeError("recompute did not lower peak memory: "
+                           f"{out['recompute']['peak_memory_allocated_gb']}"
+                           f" vs {out['plain']['peak_memory_allocated_gb']}"
+                           " GB")
+    # in turns: the two recipe forms and the train phase's program (Adam
+    # at a constant rate, no clip, no decay) from the same parameters
+    main, startup, cost, _ = build_transformer(TRANSFORMER_BASE, 1e-4)
+    models["adam_only"] = [main, startup, cost, models["plain"][3], None]
+    for key in ("plain", "adam_only"):
+        m = models[key]
+        m[4] = fluid.Scope()
+        m[3].run(m[1], scope=m[4])
+        for n, v in params.items():
+            m[4].set_var(n, v.clone())
+    # the Adam-only program's first run (untimed, as each window's first)
+    _run_steps(models["plain"][3], main, [feed], [cost],
+               models["adam_only"][4])
+    order = ["plain", "recompute", "adam_only"]
+    turns = {k: [] for k in order}
+    for i in range(RECIPE_TURNS):
+        for key in order[i % 3:] + order[:i % 3]:
+            main, _, cost, exe, scope = models[key]
+            _, ms = _run_steps(exe, main, [feed], [cost], scope)
+            turns[key] += ms
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    out["in_turns"] = {
+        "step_ms": turns, "median_ms": med,
+        "ratio_recompute_over_plain": med["recompute"] / med["plain"],
+        "ratio_plain_over_adam_only": med["plain"] / med["adam_only"],
+        "ops": {"adam_only": len(models["adam_only"][0].global_block().ops),
+                "plain": out["plain"]["ops"],
+                "recompute": out["recompute"]["ops"]}}
+    log("  recipe in turns " + json.dumps(out["in_turns"]))
+    return out
+
+
+def _recipe_check(torch, fluid):
+    """Part 2: the recipe at 2+2 layers, full width, dropout 0, batch 2,
+    with recompute and without: one step on the card and on the CPU
+    from the same state, held as train check (the loss within 1e-5
+    relative; each gradient the optimizer gets, clipped and decayed,
+    within 1e-3 of its max; the raw gradients reported beside them);
+    then RECIPE_CHECK_STEPS steps on the card with recompute on and off:
+    losses within RECIPE_RC_RTOL, step-1 gradients within
+    RECIPE_RC_GRAD_TOL of their max."""
+    import numpy as np
+
+    kw = dict(TRANSFORMER_BASE, n_layers=2, dropout=0.0)
+    feed = copy_task_batch(2, kw)
+    per_step = {
+        True: {"layer_norm_f32": 20, "flash_fwd_f32": 12,
+               "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6,
+               "flash_delta": 6},
+        False: {"layer_norm_f32": 10, "flash_fwd_f32": 6,
+                "flash_bwd_dkdv_f32": 6, "flash_bwd_dq_f32": 6,
+                "flash_delta": 6}}
+    start, out, runs, grads = None, {}, {}, {}
+    for recompute in (True, False):
+        key = "recompute" if recompute else "plain"
+        main, startup, cost, pg, lr = build_recipe(kw, recompute)
+        if start is None:
+            cpu0 = fluid.Scope()
+            fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu0)
+            start = fluid.Scope()
+            for n in cpu0.var_names():
+                start.set_var(n, cpu0.find_var(n).cuda())
+        fetch = ([cost] + [g for _, g in pg]
+                 + [p.name + "@GRAD" for p, _ in pg])
+        (card,), launches = _held_window(lambda: _run_steps(
+            _card_executor(fluid), main, [feed], fetch,
+            _scope_copy(fluid, start))[0])
+        if launches != per_step[recompute]:
+            raise RuntimeError(f"2+2 recipe step, recompute={recompute}: "
+                               f"launches {launches}, want "
+                               f"{per_step[recompute]}")
+        (cpu,), _ = _run_steps(fluid.Executor(fluid.CPUPlace()), main,
+                               [feed], fetch, _cpu_scope(fluid, start))
+        lc, lp = float(card[0][0]), float(cpu[0][0])
+        if not np.isfinite(lc) or abs(lc - lp) > 1e-5 * abs(lp):
+            raise RuntimeError(f"recipe loss card {lc} vs cpu {lp}")
+        n = len(pg)
+        out[key] = {
+            "loss_card": lc, "loss_cpu": lp, "grads": n,
+            "optimizer_grads_card_vs_cpu": _worst_grad(
+                pg, card[1:1 + n], cpu[1:1 + n], 1e-3, "card vs cpu"),
+            "raw_grads_card_vs_cpu": _worst_grad(
+                pg, card[1 + n:], cpu[1 + n:], 1e-3, "raw, card vs cpu"),
+            "launches_per_step": launches}
+        scope = _scope_copy(fluid, start)
+        steps, _ = _run_steps(
+            _card_executor(fluid), main, [feed] * RECIPE_CHECK_STEPS,
+            [cost] + [g for _, g in pg], scope)
+        runs[recompute] = [float(st[0][0]) for st in steps]
+        grads[recompute] = steps[0][1:]
+    rc_err = _rel_err(runs[True], runs[False])
+    if rc_err > RECIPE_RC_RTOL:
+        raise RuntimeError(f"recompute vs plain losses on the card differ by"
+                           f" {rc_err} relative: {runs}")
+    out.update({
+        "recompute_losses": runs[True], "plain_losses": runs[False],
+        "recompute_vs_plain_max_rel_err": rc_err,
+        "recompute_vs_plain_bitwise": runs[True] == runs[False],
+        "recompute_vs_plain_step1_grads": _worst_grad(
+            pg, grads[True], grads[False], RECIPE_RC_GRAD_TOL,
+            "recompute vs plain")})
+    log("  recipe check " + json.dumps(out))
+    return out
+
+
+def _worst_grad(pg, got, want, tol, what):
+    """The largest max|got - want| / max|want| over the gradients (and its
+    parameter), raising past ``tol``; whether every one is bitwise."""
+    import numpy as np
+
+    worst, name = 0.0, None
+    for (p, _), a, b in zip(pg, got, want):
+        scale = float(np.abs(b).max())
+        ratio = (float(np.abs(a - b).max()) / scale if scale
+                 else float(np.abs(a).max()))
+        if not np.isfinite(a).all() or ratio > tol:
+            raise RuntimeError(f"gradient of {p.name}, {what}: max abs diff "
+                               f"/ max abs {ratio:.3g} > {tol}")
+        if ratio >= worst:
+            worst, name = ratio, p.name
+    return {"worst_rel_err": worst, "param": name,
+            "bitwise": all(np.array_equal(a, b) for a, b in zip(got, want))}
+
+
+def _fit_a_line_program(fluid, layers, unique_name, optimizer, kw,
+                        average=False):
+    """fit_a_line's program, its weight at ParamAttr(learning_rate=0.5);
+    with ``average``, ModelAverage over it."""
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 7
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[13], dtype="float32")
+        y = layers.data(name="y", shape=[1], dtype="float32")
+        pred = layers.fc(input=x, size=1, param_attr=fluid.ParamAttr(
+            name="fit.w", learning_rate=0.5), bias_attr="fit.b")
+        cost = layers.mean(layers.square_error_cost(input=pred, label=y))
+        getattr(fluid.optimizer, optimizer)(learning_rate=FIT_LR,
+                                            **kw).minimize(cost)
+        avg = (fluid.optimizer.ModelAverage(0.5, min_average_window=2,
+                                            max_average_window=10)
+               if average else None)
+    return main, startup, cost, avg
+
+
+def _recipe_optimizers(torch, fluid):
+    """Part 3: each optimizer, three steps of fit_a_line's program on the
+    card and on the CPU from the same state (the weight at a per-parameter
+    rate of 0.5): every parameter within RECIPE_OPT_RTOL of its max; then
+    ModelAverage's apply() and restore() on the card."""
+    import numpy as np
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.fluid import layers, unique_name
+
+    batches = list(paddle_tpu_torch.batch(
+        paddle_tpu_torch.dataset.uci_housing.train(),
+        batch_size=FIT_BATCH)())[:RECIPE_CHECK_STEPS]
+    feeds = [{"x": np.array([r[0] for r in b], np.float32),
+              "y": np.array([r[1] for r in b], np.float32).reshape(-1, 1)}
+             for b in batches]
+    out = {}
+    for name, kw in list(RECIPE_OPTIMIZERS.items()) + [("ModelAverage",
+                                                       None)]:
+        main, startup, cost, avg = _fit_a_line_program(
+            fluid, layers, unique_name, "SGD" if kw is None else name,
+            kw or {}, average=kw is None)
+        exe, scope = _card_executor(fluid), fluid.Scope()
+        exe.run(startup, scope=scope)
+        cpu_scope = _cpu_scope(fluid, scope)
+        (card, _), _ = _held_window(lambda: _run_steps(
+            exe, main, feeds, [cost], scope))
+        _run_steps(fluid.Executor(fluid.CPUPlace()), main, feeds,
+                      [cost], cpu_scope)
+        errs = {}
+        for n in ("fit.w", "fit.b"):
+            a, b = scope.find_var(n).cpu(), cpu_scope.find_var(n)
+            errs[n] = float((a - b).abs().max() / b.abs().max())
+            if not errs[n] <= RECIPE_OPT_RTOL:
+                raise RuntimeError(f"{name}: {n} card vs CPU differ by "
+                                   f"{errs[n]} of its max")
+        row = {"param_max_rel_err": errs,
+               "losses": [float(s[0][0]) for s in card]}
+        if avg is not None:
+            live = {n: scope.find_var(n).clone() for n in ("fit.w", "fit.b")}
+            with fluid.scope_guard(cpu_scope):
+                with avg.apply(fluid.Executor(fluid.CPUPlace())):
+                    cpu_avg = cpu_scope.find_var("fit.w").clone()
+            with fluid.scope_guard(scope), avg.apply(exe):
+                card_avg = scope.find_var("fit.w").cpu()
+            err = float((card_avg - cpu_avg).abs().max()
+                        / cpu_avg.abs().max())
+            if err > RECIPE_OPT_RTOL or torch.equal(card_avg,
+                                                     live["fit.w"].cpu()):
+                raise RuntimeError(f"ModelAverage.apply on the card: "
+                                   f"{err} vs CPU, or no average")
+            for n, v in live.items():
+                if not torch.equal(scope.find_var(n), v):
+                    raise RuntimeError(f"ModelAverage.restore: {n} is not "
+                                       "bitwise the live value")
+            row.update(averaged_max_rel_err_vs_cpu=err,
+                       restored_bitwise=True)
+        out[name] = row
+    log("  recipe optimizers " + json.dumps(out))
+    return out
+
+
+def _recipe_resume(torch, fluid):
+    """Part 4: the 2+2 recipe at dropout 0: three steps, save_checkpoint,
+    a fresh scope, load_checkpoint, two more steps; losses, rates and
+    every persistable bitwise the uninterrupted five steps."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    kw = dict(TRANSFORMER_BASE, n_layers=2, dropout=0.0)
+    feeds = [copy_task_batch(2, kw)] * RECIPE_STEPS
+    main, startup, cost, _, lr = build_recipe(kw, True)
+    exe, start = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=start)
+    straight_scope = _scope_copy(fluid, start)
+    straight, _ = _run_steps(exe, main, feeds, [cost, lr], straight_scope)
+    first = _scope_copy(fluid, start)
+    resumed, _ = _run_steps(exe, main, feeds[:RECIPE_RESUME_AT],
+                               [cost, lr], first)
+    d = tempfile.mkdtemp(prefix="recipe_ck_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = fluid.io.save_checkpoint(d, main, step=RECIPE_RESUME_AT,
+                                        scope=first)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        del first
+        second = fluid.Scope()
+        t0 = time.perf_counter()
+        step = fluid.io.load_checkpoint(d, main, scope=second)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if step != RECIPE_RESUME_AT:
+        raise RuntimeError(f"load_checkpoint gave step {step}")
+    more, _ = _run_steps(exe, main, feeds[RECIPE_RESUME_AT:], [cost, lr],
+                            second)
+    resumed += more
+    for i, (a, b) in enumerate(zip(straight, resumed)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"resumed step {i + 1} differs: {a} vs {b}")
+    names = [n for n, v in main.global_block().vars.items()
+             if v.persistable and straight_scope.find_var(n) is not None]
+    differ = [n for n in names
+              if not torch.equal(straight_scope.find_var(n),
+                                 second.find_var(n))]
+    if differ:
+        raise RuntimeError(f"resumed state differs in {differ[:5]}")
+    out = {"steps": RECIPE_STEPS, "saved_at": RECIPE_RESUME_AT,
+           "losses": [float(s[0][0]) for s in straight],
+           "rates": [float(s[1].reshape(-1)[0]) for s in straight],
+           "persistables_bitwise": len(names), "bytes": nbytes,
+           "save_s": save_s, "load_s": load_s}
+    log("  recipe resume " + json.dumps(out))
+    return out
+
+
+def train_recipe_phase(torch):
+    """Transformer-base (TRANSFORMER_BASE, batch TRAIN_BATCH) trained
+    with noam_decay, global-norm clipping, L2 decay and Adam, with and
+    without recompute; the recipe card vs CPU; fit_a_line under every
+    optimizer and ModelAverage; a resume from save_checkpoint."""
+    phase("train recipe")
+    import paddle_tpu_torch.fluid as fluid
+
+    feed = copy_task_batch(TRAIN_BATCH, TRANSFORMER_BASE)
+    out = {"config": "transformer-base 6+6L d512 h8 ff2048 vocab32000 "
+                     "len512 dropout0.1 batch16, Adam(noam_decay(512, "
+                     "4000)), GradientClipByGlobalNorm(1.0), L2Decay(1e-4)"}
+    out["timing"] = _recipe_timing(torch, fluid, feed)
+    out["check"] = _recipe_check(torch, fluid)
+    out["optimizers"] = _recipe_optimizers(torch, fluid)
+    out["resume"] = _recipe_resume(torch, fluid)
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5574,6 +6008,7 @@ def main():
                   "resnet_recordio": resnet_recordio_phase(torch)}
     control_flow = {"dynamic_rnn": dynamic_rnn_phase(torch),
                     "seq2seq": seq2seq_phase(torch)}
+    recipe = train_recipe_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -5589,6 +6024,12 @@ def main():
             "seq2seq_decode": {m: control_flow["seq2seq"]["decode"][m]
                                for m in ("ms", "loop_iterations",
                                          "host_syncs")}}))
+    log("  train recipe " + json.dumps({
+        **{key: {m: recipe["timing"][key][m] for m in (
+            "p50_step_ms_after_first", "tokens_per_s",
+            "peak_memory_allocated_gb")}
+           for key in ("plain", "recompute")},
+        "in_turns": recipe["timing"]["in_turns"]["median_ms"]}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]
@@ -5600,12 +6041,21 @@ def main():
     fa_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     fa_py = "paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py"
     ln_bf16 = train_rows["layer_norm_bf16"]
+    # launches a step of Transformer-base under the recipe, with and
+    # without recompute (train recipe phase)
+    recipe_launches = {
+        k: {"plain": recipe["timing"]["plain"]["launches_per_step"][k],
+            "recompute": recipe["timing"]["recompute"][
+                "launches_per_step"][k]}
+        for k in RECIPE_LAUNCHES[True]}
     train_kernels = [
         _kernel_row("layer_norm_f32", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42",
                     train_launches["layer_norm_f32"],
                     train_errs["layer_norm_f32"],
-                    train_rows["layer_norm_f32"], train=train),
+                    train_rows["layer_norm_f32"], train=train,
+                    recipe_launches_per_step=recipe_launches[
+                        "layer_norm_f32"], train_recipe=recipe),
         _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
                     "(bf16 x, widened on load at :17)",
@@ -5636,7 +6086,8 @@ def main():
         train_kernels.append(_kernel_row(
             kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
             train_errs[kname], row, shape=row["shape"],
-            causal=rows["causal"], **extra))
+            causal=rows["causal"],
+            recipe_launches_per_step=recipe_launches[kname], **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
         "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",
@@ -5697,6 +6148,7 @@ def main():
         delta["bh128_s512_full"], shape=delta["bh128_s512_full"]["shape"],
         library_note=delta["bh128_s512_full"]["library_note"],
         launches_train_f32=train_launches["flash_delta"],
+        recipe_launches_per_step=recipe_launches["flash_delta"],
         f32=train_rows["flash_delta"],
         **{k: v for k, v in delta.items() if k != "bh128_s512_full"}))
     kernels = {"kernels": [{

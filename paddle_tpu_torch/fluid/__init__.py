@@ -13,9 +13,15 @@ Program/Block/Operator/Variable/Parameter with ``to_bytes`` /
 ``elementwise_add``/``_sub``, ``square_error_cost``,
 ``create_parameter``, ``fill_constant``, ``assign``; ``nets``
 (``simple_img_conv_pool``, ``img_conv_group``); ``append_backward``;
-``SGD``, ``Momentum`` and ``Adam``; ``Executor``,
-``Scope``, ``scope_guard``; ``io`` (``save_inference_model``,
-``load_inference_model``, ``save_vars``/``load_vars``); the data input
+the optimizers (``SGD``, ``Momentum``, ``Adam``, ``Adagrad``,
+``Adamax``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``, ``Ftrl``,
+``ModelAverage``) with gradient clipping (``clip``), weight decay
+(``regularizer``), per-parameter learning rates and the LR schedules
+(``layers.exponential_decay`` ... ``noam_decay``); ``layers.Recompute``;
+``average.WeightedAverage``; ``Executor``, ``Scope``, ``scope_guard``;
+``io`` (``save_inference_model``, ``load_inference_model``,
+``save_vars``/``load_vars``, ``save_persistables``/``load_persistables``
+in both forms, ``save_checkpoint``/``load_checkpoint``); the data input
 stack: ``DataFeeder``, the reader layers (``open_recordio_file``,
 ``open_files``, ``shuffle``, ``batch``, ``multi_pass``,
 ``double_buffer``, ``read_file``, ``reset_reader``) run by the
@@ -31,7 +37,9 @@ reduce layers. The executor runs on the card unless given
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
 from . import (  # noqa: F401
+    average,
     backward,
+    clip,
     enforce,
     initializer,
     io,
@@ -41,9 +49,17 @@ from . import (  # noqa: F401
     param_attr,
     readers,
     recordio_writer,
+    regularizer,
     unique_name,
 )
 from .backward import append_backward  # noqa: F401
+from .clip import (  # noqa: F401
+    ErrorClipByValue,
+    GradientClipByGlobalNorm,
+    GradientClipByNorm,
+    GradientClipByValue,
+    set_gradient_clip,
+)
 from .convert import params_from_jax  # noqa: F401
 from .core import CPUPlace, CUDAPlace  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
@@ -67,11 +83,15 @@ from .framework import (  # noqa: F401
 )
 from .initializer import Constant, MSRA, Normal, Uniform, Xavier  # noqa: F401
 from .io import (  # noqa: F401
+    load_checkpoint,
     load_inference_model,
     load_params,
+    load_persistables,
     load_vars,
+    save_checkpoint,
     save_inference_model,
     save_params,
+    save_persistables,
     save_vars,
 )
 from .param_attr import ParamAttr  # noqa: F401

@@ -1,32 +1,42 @@
 """Model persistence (reference python/paddle/fluid/io.py: save_vars:66,
 save_params:132, load_*:158-234, save_inference_model:298,
 load_inference_model:383) — the counterpart of ``paddle_tpu/fluid/io.py``
-with the same artifact: a ``__model__`` file holding the serialized
-(pruned) ProgramDesc in the JAX package's bytes, ``__meta__.json`` with
-the feed and fetch names, and the parameters in one ``__params__.npz``
-(the save_combine path) or one ``.npy`` per var (the save_vars path). A
-directory saved by either package loads in the other.
+with the same artifacts, each readable by either package:
+
+  - an inference model: a ``__model__`` file holding the serialized
+    (pruned) ProgramDesc in the JAX package's bytes, ``__meta__.json``
+    with the feed and fetch names, and the parameters in one
+    ``__params__.npz`` (the save_combine path) or one ``.npy`` per var
+    (the save_vars path);
+  - ``save_persistables`` without a ``filename``: a checkpoint manifest
+    (``checkpoint/format.py``: crc32-indexed raw segments, atomic
+    commit), its meta ``{"kind": "persistables", "step": step}``;
+  - ``save_checkpoint``: ``ckpt_<step>.npz`` with a ``META`` file that
+    names it and holds its crc32, committed by an atomic rename and
+    rotated to ``max_to_keep`` payloads.
 
 Persistence is a program of ``save``/``load`` ops run by an Executor, as
 in the reference. Saving needs no device: ``executor=None`` runs the save
 ops on the host directly (``executor._run_io_host_ops``), never through a
 fresh ``Executor()`` (which would mean the card). Loading puts each
-tensor on the given executor's device, once.
+tensor on the given executor's device (``load_checkpoint``: on
+``device``, the card unless told otherwise), once.
 
-Not ported yet (each raises ``NotImplementedError``): the manifest form
-of ``save_persistables``/``load_persistables`` (it needs the checkpoint
-format), ``save_checkpoint``/``load_checkpoint``/``latest_checkpoint_step``
-and ``export_compiled_model``/``load_exported_model`` (a StableHLO
-artifact is JAX's).
+Not ported (each raises ``NotImplementedError``):
+``export_compiled_model``/``load_exported_model`` (a StableHLO artifact
+is JAX's).
 """
 from __future__ import annotations
 
 import json
 import os
+import zlib
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from . import core
 from .executor import Scope, _run_io_host_ops, global_scope
 from .framework import Parameter, Program, Variable, default_main_program
 
@@ -132,18 +142,41 @@ def save_params(executor, dirname, main_program=None, filename=None):
               filename=filename)
 
 
+def _host_array(val) -> np.ndarray:
+    """A scope value as a host numpy array (a tensor on any device is
+    read back)."""
+    if isinstance(val, torch.Tensor):
+        return val.detach().cpu().numpy()
+    return np.asarray(val)
+
+
 def save_persistables(executor, dirname, main_program=None, filename=None,
                       scope: Optional[Scope] = None, step: int = 0):
-    """Persist every persistable var into ``filename`` (the save_combine
-    ``.npz`` path). The JAX package writes a checkpoint manifest when no
-    ``filename`` is given; that form is not ported yet."""
-    if filename is None:
-        raise NotImplementedError(
-            "save_persistables without a filename writes a checkpoint "
-            "manifest in the JAX package; the checkpoint format is not yet "
-            "ported to paddle_tpu_torch — pass filename= for the .npz form")
-    save_vars(executor, dirname, main_program, scope=scope,
-              predicate=is_persistable, filename=filename)
+    """Persist every persistable var. With ``filename`` the save_combine
+    (``.npz``) path runs; WITHOUT one, the vars are written as a
+    checkpoint manifest (``checkpoint/format.py``: per-tensor raw
+    segments indexed by dtype/shape/offset/crc32, committed
+    tmp + fsync + atomic rename), byte-compatible with the JAX package's
+    (var names with '/' stored as '__'). ``load_persistables`` reads
+    either form."""
+    if filename is not None:
+        save_vars(executor, dirname, main_program, scope=scope,
+                  predicate=is_persistable, filename=filename)
+        return
+    from ..checkpoint.format import save_checkpoint_tree
+
+    main_program = main_program or default_main_program()
+    scope = scope or global_scope()
+    arrays = {}
+    for v in _collect(main_program, is_persistable):
+        val = scope.find_var(v.name)
+        if val is None:
+            raise RuntimeError(
+                f"persistable var '{v.name}' not initialized in scope — "
+                "run the startup program before saving")
+        arrays[v.name.replace("/", "__")] = _host_array(val)
+    save_checkpoint_tree(dirname, arrays,
+                         meta={"kind": "persistables", "step": int(step)})
 
 
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
@@ -168,14 +201,38 @@ def load_params(executor, dirname, main_program=None, filename=None):
               filename=filename)
 
 
+def _to_device(arr, device) -> torch.Tensor:
+    # the loaders hand out read-only views (mmap, npz): copy once
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
 def load_persistables(executor, dirname, main_program=None, filename=None,
                       scope: Optional[Scope] = None):
-    """Inverse of save_persistables (the ``.npz`` form)."""
-    if filename is None:
-        raise NotImplementedError(
-            "load_persistables without a filename reads a checkpoint "
-            "manifest in the JAX package; the checkpoint format is not yet "
-            "ported to paddle_tpu_torch — pass filename= for the .npz form")
+    """Inverse of save_persistables: reads the manifest form when the
+    directory holds one (checksum-verified), else the per-var / ``.npz``
+    op path; the tensors go to ``executor``'s device."""
+    from ..checkpoint.format import MANIFEST_NAME, load_checkpoint_arrays
+
+    if filename is None and \
+            os.path.exists(os.path.join(dirname, MANIFEST_NAME)):
+        if executor is None:
+            raise ValueError(
+                "load_persistables needs the Executor whose device the "
+                "loaded tensors go to")
+        main_program = main_program or default_main_program()
+        scope = scope or global_scope()
+        arrays, _manifest = load_checkpoint_arrays(dirname, verify=True)
+        persistables = _collect(main_program, is_persistable)
+        missing = sorted(v.name for v in persistables
+                         if v.name.replace("/", "__") not in arrays)
+        if missing:
+            raise IOError(
+                f"checkpoint manifest in '{dirname}' lacks persistable "
+                f"var(s) {missing} that the program requires")
+        for v in persistables:
+            scope.set_var(v.name, _to_device(
+                arrays[v.name.replace("/", "__")], executor.device))
+        return
     load_vars(executor, dirname, main_program, scope=scope,
               predicate=is_persistable, filename=filename)
 
@@ -293,11 +350,93 @@ def _not_ported(what: str, why: str):
     return fn
 
 
-save_checkpoint = _not_ported("save_checkpoint", "the checkpoint slice")
-load_checkpoint = _not_ported("load_checkpoint", "the checkpoint slice")
-latest_checkpoint_step = _not_ported("latest_checkpoint_step",
-                                     "the checkpoint slice")
 export_compiled_model = _not_ported(
     "export_compiled_model", "its artifact is JAX StableHLO")
 load_exported_model = _not_ported(
     "load_exported_model", "its artifact is JAX StableHLO")
+
+
+# --- checkpoint/resume with integrity check (Go pserver capability,
+#     go/pserver/service.go:119-227) ------------------------------------
+def save_checkpoint(dirname, main_program=None, step: int = 0,
+                    scope: Optional[Scope] = None, max_to_keep: int = 3):
+    """Write every persistable var of ``main_program`` found in ``scope``
+    (parameters, optimizer accumulators, the LR schedule's step counter)
+    to ``ckpt_<step>.npz``, then commit ``META`` (step, payload, crc32)
+    by an atomic rename; keep the newest ``max_to_keep`` payloads, never
+    dropping the one ``META`` names. The JAX package's format: either
+    package resumes from the other's."""
+    main_program = main_program or default_main_program()
+    scope = scope or global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    payload_path = os.path.join(dirname, f"ckpt_{step}.npz")
+    arrays = {}
+    for v in _collect(main_program, is_persistable):
+        val = scope.find_var(v.name)
+        if val is not None:
+            arrays[v.name] = _host_array(val)
+    np.savez(payload_path, **arrays)
+    with open(payload_path, "rb") as f:
+        crc = zlib.crc32(f.read())
+    meta = {"step": step, "payload": os.path.basename(payload_path),
+            "crc32": crc}
+    tmp = os.path.join(dirname, "META.tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, os.path.join(dirname, "META"))
+    if max_to_keep > 0:
+        def _step_of(f):
+            try:
+                return int(f[5:-4])
+            except ValueError:
+                return None
+
+        current = os.path.basename(payload_path)
+        ckpts = sorted(
+            (f for f in os.listdir(dirname)
+             if f.startswith("ckpt_") and f.endswith(".npz")
+             and _step_of(f) is not None and f != current),
+            key=_step_of,
+        )
+        for old in ckpts[:-(max_to_keep - 1) or len(ckpts)]:
+            os.remove(os.path.join(dirname, old))
+    return payload_path
+
+
+def latest_checkpoint_step(dirname) -> Optional[int]:
+    """Step of the checkpoint the directory holds, or None when it holds
+    no (intact) one. Recognizes both forms: ``META`` (save_checkpoint)
+    and a checkpoint manifest whose meta carries a step
+    (save_persistables, save_decoder_checkpoint(step=))."""
+    try:
+        with open(os.path.join(dirname, "META")) as f:
+            return int(json.load(f)["step"])
+    except (OSError, ValueError, KeyError):
+        pass
+    try:
+        from ..checkpoint.format import read_manifest
+
+        step = (read_manifest(dirname).get("meta") or {}).get("step")
+        return None if step is None else int(step)
+    except (IOError, ValueError):
+        return None
+
+
+def load_checkpoint(dirname, main_program=None,
+                    scope: Optional[Scope] = None, device=None):
+    """Verify the payload ``META`` names against its crc32 and set every
+    var it holds in ``scope``, on ``device`` (None: the card, or a
+    raise). Returns the checkpoint's step."""
+    scope = scope or global_scope()
+    dev = core.as_device(device)
+    with open(os.path.join(dirname, "META")) as f:
+        meta = json.load(f)
+    payload_path = os.path.join(dirname, meta["payload"])
+    with open(payload_path, "rb") as f:
+        data = f.read()
+    if zlib.crc32(data) != meta["crc32"]:
+        raise IOError(f"checkpoint {payload_path} is corrupt (crc mismatch)")
+    with np.load(payload_path) as payload:
+        for name in payload.files:
+            scope.set_var(name, _to_device(payload[name], dev))
+    return meta["step"]

@@ -2,12 +2,13 @@
 python/paddle/fluid/layers/control_flow.py: StaticRNN:383, While:608,
 ConditionalBlock:1106, Switch:1163, IfElse:1252, DynamicRNN:1354,
 array_write:889, array_read:1017, less_than:953, increment) — a copy of
-``paddle_tpu/fluid/layers/control_flow.py`` minus ``Recompute``,
-``get_places`` and ``ParallelDo`` (not ported yet). The programs they
+``paddle_tpu/fluid/layers/control_flow.py`` minus ``get_places`` and
+``ParallelDo`` (not ported yet). The programs they
 build are the JAX package's, byte for byte.
 
 Each of these layers records its sub-block and appends one op (``while``,
-``conditional_block``, ``ifelse``, ``recurrent``, ``dynamic_recurrent``)
+``conditional_block``, ``ifelse``, ``recurrent``, ``dynamic_recurrent``,
+``recompute``)
 that lists every outer var the block reads as an input; the executor
 runs the block eagerly (ops/control_flow.py), and every one of these
 ops is differentiable.
@@ -20,7 +21,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = [
     "While", "StaticRNN", "DynamicRNN", "IfElse", "ConditionalBlock",
-    "Switch", "increment", "array_write", "array_read", "array_length",
+    "Switch", "Recompute", "increment", "array_write", "array_read", "array_length",
     "create_array", "less_than", "equal", "zeros_like_array", "Print",
     "lod_rank_table", "reorder_lod_tensor_by_rank", "max_sequence_len",
 ]
@@ -736,3 +737,90 @@ class StaticRNN:
         if len(self._out_vars) == 1:
             return self._out_vars[0]
         return self._out_vars
+
+
+class Recompute:
+    """Gradient rematerialization region (the JAX package's
+    ``layers.Recompute``; the 2018 reference has no equivalent — its
+    memory story is memory_optimization_transpiler reuse). Ops built
+    inside ``block()`` run as one ``recompute`` op: their activations are
+    NOT kept for backward; the backward pass re-runs the region instead
+    (``torch.utils.checkpoint``), trading FLOPs for device memory.
+
+        rc = layers.Recompute()
+        with rc.block():
+            h = layers.fc(x, size=4096, act="relu")
+            h = layers.fc(h, size=4096, act="relu")
+        h = rc.output(h)
+
+    The replay draws the same dropout masks (the per-op generators of
+    ``EmitCtx.rng``). Gradients equal the plain program's up to the order
+    in which autograd sums a value the region fans out."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("recompute", name=name)
+        self._sub = None
+        self._parent = None
+
+    @contextlib.contextmanager
+    def block(self):
+        main = self.helper.main_program
+        self._parent = main.current_block()
+        self._sub = main.create_block()
+        try:
+            yield
+        finally:
+            main.rollback()
+
+    def output(self, *out_vars):
+        """Completes the region; returns parent-block vars mirroring
+        `out_vars` (one var -> one var, several -> tuple). Writes the
+        region makes to OUTER vars (assign/increment into a parent var)
+        are carried out as additional op outputs so post-region readers
+        see the updated values."""
+        if self._sub is None:
+            raise RuntimeError("Recompute.output() must follow block()")
+        if not out_vars:
+            raise ValueError("Recompute.output() needs at least one var")
+        sub, parent = self._sub, self._parent
+        reads = _outer_reads(sub, parent)
+        # the JAX package cannot differentiate an unbounded `while` inside
+        # its checkpointed region and refuses one at build time; so does
+        # the port, which builds the same programs
+        for op in sub.ops:
+            if op.desc.type == "while" and not op.desc.attrs.get("max_steps"):
+                raise ValueError(
+                    "Recompute region contains a While without max_steps — "
+                    "its gradient cannot be taken inside the region; give "
+                    "the loop max_steps or move it outside the region")
+        produced = {n for op in sub.ops for n in op.desc.output_names() if n}
+        for v in out_vars:
+            if v.name not in produced and v.name not in reads:
+                raise ValueError(
+                    f"Recompute.output(): '{v.name}' is neither produced "
+                    "nor read by the region — pass a var computed inside "
+                    "block()")
+        # outer vars the region writes IN PLACE: carried out name-for-name
+        outer_written = [
+            n for n in produced
+            if n not in sub.vars and parent._var_recursive(n) is not None
+        ]
+        outs = []
+        for i, v in enumerate(out_vars):
+            outs.append(parent.create_var(
+                name=f"{self.helper.name}.out{i}", dtype=v.dtype,
+                shape=list(v.shape) if v.shape is not None else None,
+            ))
+        parent.append_op(
+            type="recompute",
+            inputs={"X": reads},
+            outputs={"Out": outs + [parent._var_recursive(n)
+                                    for n in sorted(outer_written)]},
+            attrs={
+                "sub_block": sub.idx,
+                "x_var_names": reads,
+                "out_var_names": [v.name for v in out_vars]
+                                 + sorted(outer_written),
+            },
+        )
+        return outs[0] if len(outs) == 1 else tuple(outs)

@@ -21,7 +21,8 @@ __all__ = [
     "elementwise_sub", "elementwise_mul", "elementwise_div",
     "elementwise_max", "elementwise_min", "elementwise_pow",
     "cross_entropy", "reduce_sum", "reduce_mean", "reduce_max",
-    "reduce_min", "reduce_prod", "scale", "expand",
+    "reduce_min", "reduce_prod", "scale", "expand", "clip", "clip_by_norm",
+    "autoincreased_step_counter",
 ]
 
 
@@ -524,6 +525,48 @@ reduce_mean = _reduce_layer("reduce_mean")
 reduce_max = _reduce_layer("reduce_max")
 reduce_min = _reduce_layer("reduce_min")
 reduce_prod = _reduce_layer("reduce_prod")
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"min": min, "max": max},
+    )
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="clip_by_norm", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"max_norm": max_norm},
+    )
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """reference layers/nn.py:3323 — a persistable int64 counter, set to
+    ``begin - 1`` by the startup program and incremented by an
+    ``increment`` op prepended to the main program's global block, so
+    every op of a step reads the step's value; it drives the LR
+    schedules."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_global_variable(
+        name=counter_name, dtype="int64", shape=[1], persistable=True
+    )
+    helper.set_variable_initializer(counter, ConstantInitializer(begin - 1))
+    helper.main_program.global_block().prepend_op(
+        type="increment",
+        inputs={"X": [counter]},
+        outputs={"Out": [counter]},
+        attrs={"step": float(step)},
+    )
+    counter.stop_gradient = True
+    return counter
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):

@@ -8,7 +8,7 @@ import numpy as np
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "cast", "concat", "sums", "assign",
+__all__ = ["create_parameter", "create_global_var", "cast", "concat", "sums", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones",
            "zeros"]
 
@@ -22,6 +22,19 @@ def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
     if attr.name is None and name is not None:
         attr.name = name
     return helper.create_parameter(attr, shape, dtype, is_bias, default_initializer)
+
+
+def create_global_var(shape, value, dtype, persistable=False, force_cpu=False,
+                      name=None):
+    """A global-block var set to ``value`` by the startup program."""
+    from ..initializer import ConstantInitializer
+
+    helper = LayerHelper("global_var", name=name)
+    var = helper.create_global_variable(
+        dtype=dtype, shape=shape, persistable=persistable, name=name
+    )
+    helper.set_variable_initializer(var, ConstantInitializer(value))
+    return var
 
 
 def cast(x, dtype):

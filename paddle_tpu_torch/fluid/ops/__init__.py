@@ -4,8 +4,9 @@ path, of fit_a_line, of the image-classification training path (ResNet,
 LeNet, VGG), of the fused ResNet inference path, of the stacked LSTM
 (``sequence_pool``, ``lstm``), the activations, comparisons and
 reductions, and Fluid control flow (``while``, ``conditional_block``,
-``recurrent``, ``ifelse``, ``dynamic_recurrent``, the tensor arrays)
-with beam search. Any other op type raises "no emitter registered ...
+``recurrent``, ``ifelse``, ``dynamic_recurrent``, the tensor arrays,
+``recompute``) with beam search, the clip ops and every optimizer op of
+the JAX package (dense gradients). Any other op type raises "no emitter registered ...
 (not yet ported)" when a program containing it is built or run."""
 from . import (  # noqa: F401
     activations,

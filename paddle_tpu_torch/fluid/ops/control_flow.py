@@ -308,3 +308,39 @@ def slice_op(ctx, ins, attrs):
         e = e + dim if e < 0 else min(e, dim)
         idx[ax] = slice(s, e)
     return {"Out": x[tuple(idx)]}
+
+
+@register_op("recompute",
+             ref="the JAX package's recompute op (jax.checkpoint); the "
+                 "2018 reference's memory lever is "
+                 "memory_optimization_transpiler reuse instead")
+def recompute_op(ctx, ins, attrs):
+    """Run the sub-block as one activation-rematerialization region.
+
+    Under autograd (the ``forward_with_grad`` of a recompute op that a
+    grad op differentiates) the block runs inside
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: every
+    tensor its ops save for backward (the kernels' ``save_for_backward``
+    included) is dropped, and the grad op's ``torch.autograd.grad`` runs
+    the block's forward a second time to rebuild them, so the record
+    keeps only the region's inputs and outputs. The replay draws the same
+    dropout masks: ``EmitCtx.rng`` seeds a fresh generator from the step
+    seed and the op's seed attrs on every call, so the global RNG state
+    that ``preserve_rng_state`` would save and restore is never read
+    (it is off). Without autograd the block simply runs."""
+    ops = _sub_op_descs(ctx, attrs)
+    x_names = list(attrs["x_var_names"])
+    out_names = list(attrs["out_var_names"])
+    xs = list(ins.get("X", []))
+
+    def region(*vals):
+        env = dict(zip(x_names, vals))
+        run_sub_block(ctx, ops, env)
+        return tuple(env[n] for n in out_names)
+
+    if not torch.is_grad_enabled():
+        return {"Out": list(region(*xs))}
+    from torch.utils.checkpoint import checkpoint
+
+    return {"Out": list(checkpoint(region, *xs, use_reentrant=False,
+                                   preserve_rng_state=False))}

@@ -1,5 +1,5 @@
 """GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
-matmul,sum,mean,scale,cum,sign}_op.*). Plain large products stay ``torch.matmul``
+matmul,sum,mean,scale,cum,sign,clip,clip_by_norm,squared_l2_norm}_op.*). Plain large products stay ``torch.matmul``
 (cuBLAS on a card), as the JAX package leaves them to XLA; under
 FLAGS['amp'] ``mul`` and ``matmul`` multiply bfloat16 operands and
 restore the result to float32 (``amp_operands``)."""
@@ -87,3 +87,36 @@ def cumsum(ctx, ins, attrs):
 @register_op("sign", ref="paddle/fluid/operators/sign_op.cc")
 def sign(ctx, ins, attrs):
     return {"Out": torch.sign(one(ins, "X"))}
+
+
+def _dense(x, op_type):
+    """The clip ops take dense tensors; a sparse (SelectedRows) gradient
+    raises, as the port's ``momentum`` does."""
+    if x.layout != torch.strided:
+        raise NotImplementedError(
+            f"{op_type} of a sparse (SelectedRows) tensor is not yet ported "
+            "to paddle_tpu_torch")
+    return x
+
+
+@register_op("clip", ref="paddle/fluid/operators/clip_op.cc")
+def clip(ctx, ins, attrs):
+    x = _dense(one(ins, "X"), "clip")
+    return {"Out": torch.clamp(x, float(attrs["min"]), float(attrs["max"]))}
+
+
+@register_op("clip_by_norm", ref="paddle/fluid/operators/clip_by_norm_op.cc")
+def clip_by_norm(ctx, ins, attrs):
+    """``x * max_norm / ||x||`` where the L2 norm exceeds ``max_norm``,
+    else ``x``."""
+    x = _dense(one(ins, "X"), "clip_by_norm")
+    max_norm = float(attrs["max_norm"])
+    norm = torch.sqrt(torch.sum(x * x))
+    return {"Out": torch.where(norm > max_norm, x * (max_norm / norm), x)}
+
+
+@register_op("squared_l2_norm",
+             ref="paddle/fluid/operators/squared_l2_norm_op.cc")
+def squared_l2_norm(ctx, ins, attrs):
+    x = _dense(one(ins, "X"), "squared_l2_norm")
+    return {"Out": torch.sum(x * x).reshape(1)}

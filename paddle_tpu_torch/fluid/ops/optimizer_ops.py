@@ -1,7 +1,9 @@
 """Optimizer ops — device-side parameter updates (reference
-paddle/fluid/operators/{sgd,momentum,adam}_op.*). Each returns the new
-state; the executor writes it back to the scope. Dense gradients only
-(SelectedRows are not ported)."""
+paddle/fluid/operators/{sgd,momentum,adam,adagrad,adamax,adadelta,rmsprop,
+decayed_adagrad,ftrl,proximal_gd,proximal_adagrad,average_accumulates}_op.*),
+the counterpart of ``paddle_tpu/fluid/ops/optimizer_ops.py``. Each returns
+the new state; the executor writes it back to the scope. Dense gradients
+only: a sparse (SelectedRows) gradient raises (not ported)."""
 from __future__ import annotations
 
 import torch
@@ -10,22 +12,31 @@ from ..registry import register_op
 from .common import one
 
 
+def _dense_grad(ins, op_type):
+    g = one(ins, "Grad")
+    if g.layout != torch.strided:
+        raise NotImplementedError(
+            f"{op_type} with a sparse (SelectedRows) gradient is not yet "
+            "ported to paddle_tpu_torch")
+    return g
+
+
+def _lr(ins):
+    return one(ins, "LearningRate").reshape(())
+
+
 @register_op("sgd", ref="paddle/fluid/operators/sgd_op.cc")
 def sgd(ctx, ins, attrs):
-    p, g, lr = one(ins, "Param"), one(ins, "Grad"), one(ins, "LearningRate")
-    return {"ParamOut": p - lr.reshape(()) * g}
+    return {"ParamOut": one(ins, "Param") - _lr(ins) * one(ins, "Grad")}
 
 
 @register_op("momentum", ref="paddle/fluid/operators/momentum_op.cc")
 def momentum(ctx, ins, attrs):
     """``v' = mu * v + g``; ``p' = p - lr * v'``, or with Nesterov
     ``p' = p - (g + mu * v') * lr``."""
-    p, g, v = one(ins, "Param"), one(ins, "Grad"), one(ins, "Velocity")
-    if g.layout != torch.strided:
-        raise NotImplementedError(
-            "momentum with a sparse (SelectedRows) gradient is not yet "
-            "ported to paddle_tpu_torch")
-    lr = one(ins, "LearningRate").reshape(())
+    p, g, v = one(ins, "Param"), _dense_grad(ins, "momentum"), \
+        one(ins, "Velocity")
+    lr = _lr(ins)
     mu = float(attrs.get("mu", 0.9))
     v_new = mu * v + g
     if bool(attrs.get("use_nesterov", False)):
@@ -40,7 +51,7 @@ def adam(ctx, ins, attrs):
     p, g = one(ins, "Param"), one(ins, "Grad")
     m1, m2 = one(ins, "Moment1"), one(ins, "Moment2")
     b1p, b2p = one(ins, "Beta1Pow"), one(ins, "Beta2Pow")
-    lr = one(ins, "LearningRate").reshape(())
+    lr = _lr(ins)
     b1 = float(attrs.get("beta1", 0.9))
     b2 = float(attrs.get("beta2", 0.999))
     eps = float(attrs.get("epsilon", 1e-8))
@@ -51,4 +62,166 @@ def adam(ctx, ins, attrs):
     return {
         "ParamOut": pn, "Moment1Out": m1n, "Moment2Out": m2n,
         "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2,
+    }
+
+
+@register_op("adagrad", ref="paddle/fluid/operators/adagrad_op.cc")
+def adagrad(ctx, ins, attrs):
+    p, g, m = one(ins, "Param"), _dense_grad(ins, "adagrad"), \
+        one(ins, "Moment")
+    eps = float(attrs.get("epsilon", 1e-6))
+    mn = m + g * g
+    return {"ParamOut": p - _lr(ins) * g / (torch.sqrt(mn) + eps),
+            "MomentOut": mn}
+
+
+@register_op("decayed_adagrad",
+             ref="paddle/fluid/operators/decayed_adagrad_op.cc")
+def decayed_adagrad(ctx, ins, attrs):
+    p, g, m = one(ins, "Param"), _dense_grad(ins, "decayed_adagrad"), \
+        one(ins, "Moment")
+    decay = float(attrs.get("decay", 0.95))
+    eps = float(attrs.get("epsilon", 1e-6))
+    mn = decay * m + (1 - decay) * g * g
+    return {"ParamOut": p - _lr(ins) * g / (torch.sqrt(mn) + eps),
+            "MomentOut": mn}
+
+
+@register_op("adadelta", ref="paddle/fluid/operators/adadelta_op.cc")
+def adadelta(ctx, ins, attrs):
+    p, g = one(ins, "Param"), _dense_grad(ins, "adadelta")
+    avg_sq_g = one(ins, "AvgSquaredGrad")
+    avg_sq_u = one(ins, "AvgSquaredUpdate")
+    rho = float(attrs.get("rho", 0.95))
+    eps = float(attrs.get("epsilon", 1e-6))
+    asg = rho * avg_sq_g + (1 - rho) * g * g
+    update = -torch.sqrt((avg_sq_u + eps) / (asg + eps)) * g
+    asu = rho * avg_sq_u + (1 - rho) * update * update
+    return {"ParamOut": p + update, "AvgSquaredGradOut": asg,
+            "AvgSquaredUpdateOut": asu}
+
+
+@register_op("adamax", ref="paddle/fluid/operators/adamax_op.cc")
+def adamax(ctx, ins, attrs):
+    """The reference's adamax_op.h: eps joins the DECAYED norm before the
+    max, and the step divides by the new norm with no further eps."""
+    p, g = one(ins, "Param"), _dense_grad(ins, "adamax")
+    m, inf = one(ins, "Moment"), one(ins, "InfNorm")
+    b1p = one(ins, "Beta1Pow").reshape(())
+    b1 = float(attrs.get("beta1", 0.9))
+    b2 = float(attrs.get("beta2", 0.999))
+    eps = float(attrs.get("epsilon", 1e-8))
+    mn = b1 * m + (1 - b1) * g
+    infn = torch.maximum(torch.abs(g), b2 * inf + eps)
+    pn = p - (_lr(ins) / (1 - b1p)) * mn / infn
+    return {"ParamOut": pn, "MomentOut": mn, "InfNormOut": infn}
+
+
+@register_op("rmsprop", ref="paddle/fluid/operators/rmsprop_op.cc")
+def rmsprop(ctx, ins, attrs):
+    p, g = one(ins, "Param"), _dense_grad(ins, "rmsprop")
+    ms, mom = one(ins, "MeanSquare"), one(ins, "Moment")
+    decay = float(attrs.get("decay", 0.9))
+    mu = float(attrs.get("momentum", 0.0))
+    eps = float(attrs.get("epsilon", 1e-10))
+    msn = decay * ms + (1 - decay) * g * g
+    momn = mu * mom + _lr(ins) * g / torch.sqrt(msn + eps)
+    return {"ParamOut": p - momn, "MeanSquareOut": msn, "MomentOut": momn}
+
+
+@register_op("ftrl", ref="paddle/fluid/operators/ftrl_op.cc")
+def ftrl(ctx, ins, attrs):
+    """The reference's ftrl_op.h, with its two branches on ``lr_power``
+    (square roots at -0.5, powers otherwise)."""
+    p, g = one(ins, "Param"), _dense_grad(ins, "ftrl")
+    sq, lin = one(ins, "SquaredAccumulator"), one(ins, "LinearAccumulator")
+    lr = _lr(ins)
+    l1 = float(attrs.get("l1", 0.0))
+    l2 = float(attrs.get("l2", 0.0))
+    power = float(attrs.get("lr_power", -0.5))
+    new_sq = sq + g * g
+    if power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+        denom = torch.sqrt(new_sq) / lr + 2 * l2
+    else:
+        sigma = (torch.pow(new_sq, -power) - torch.pow(sq, -power)) / lr
+        denom = torch.pow(new_sq, -power) / lr + 2 * l2
+    new_lin = lin + g - sigma * p
+    pre = torch.clamp(new_lin, -l1, l1) - new_lin
+    return {"ParamOut": pre / denom, "SquaredAccumOut": new_sq,
+            "LinearAccumOut": new_lin}
+
+
+def _proximal(prox, lr, l1, l2):
+    return (torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1, min=0.0)
+            / (1.0 + lr * l2))
+
+
+@register_op("proximal_gd", ref="paddle/fluid/operators/proximal_gd_op.cc")
+def proximal_gd(ctx, ins, attrs):
+    p, g = one(ins, "Param"), _dense_grad(ins, "proximal_gd")
+    lr = _lr(ins)
+    return {"ParamOut": _proximal(p - lr * g, lr,
+                                  float(attrs.get("l1", 0.0)),
+                                  float(attrs.get("l2", 0.0)))}
+
+
+@register_op("proximal_adagrad",
+             ref="paddle/fluid/operators/proximal_adagrad_op.cc")
+def proximal_adagrad(ctx, ins, attrs):
+    p, g, m = one(ins, "Param"), _dense_grad(ins, "proximal_adagrad"), \
+        one(ins, "Moment")
+    mn = m + g * g
+    lr_t = _lr(ins) / torch.sqrt(mn)
+    return {"ParamOut": _proximal(p - lr_t * g, lr_t,
+                                  float(attrs.get("l1", 0.0)),
+                                  float(attrs.get("l2", 0.0))),
+            "MomentOut": mn}
+
+
+@register_op("average_accumulates", no_grad=("Param",),
+             ref="paddle/fluid/operators/average_accumulates_op.cc")
+def average_accumulates(ctx, ins, attrs):
+    """ModelAverage's accumulator update, the JAX package's branch logic
+    as ``torch.where`` (no host read): ``sum_1`` gathers the parameter
+    each step; every ``max_average_window`` updates it folds into
+    ``sum_2``; when the window closes (at least ``min_average_window``
+    accumulated, and at least ``average_window`` x updates) the sums
+    move to ``sum_3`` and the counters reset. The counters are int64
+    (the JAX package, without x64, holds them as int32); the window
+    compares in float32, as there."""
+    param = one(ins, "Param")
+    sum_1, sum_2, sum_3 = one(ins, "Sum1"), one(ins, "Sum2"), one(ins, "Sum3")
+    num_acc = one(ins, "NumAccumulates").reshape(()).to(torch.int64)
+    old_num_acc = one(ins, "OldNumAccumulates").reshape(()).to(torch.int64)
+    num_upd = one(ins, "NumUpdates").reshape(()).to(torch.int64)
+    avg_window = float(attrs.get("average_window", 0.0))
+    max_avg_win = int(attrs.get("max_average_window", 2 ** 31 - 1))
+    min_avg_win = int(attrs.get("min_average_window", 10000))
+
+    num_upd = num_upd + 1
+    num_acc = num_acc + 1
+    sum_1 = sum_1 + param
+
+    zero = torch.zeros_like(sum_1)
+    fold = num_upd % max_avg_win == 0
+    sum_2 = torch.where(fold, sum_2 + sum_1, sum_2)
+    sum_1 = torch.where(fold, zero, sum_1)
+
+    window = torch.minimum(
+        torch.tensor(float(max_avg_win), dtype=torch.float32,
+                     device=num_upd.device),
+        num_upd.to(torch.float32) * avg_window)
+    close = (num_acc >= min_avg_win) & (num_acc.to(torch.float32) >= window)
+    sum_3 = torch.where(close, sum_1 + sum_2, sum_3)
+    sum_1 = torch.where(close, zero, sum_1)
+    sum_2 = torch.where(close, zero, sum_2)
+    old_num_acc = torch.where(close, num_acc, old_num_acc)
+    num_acc = torch.where(close, torch.zeros_like(num_acc), num_acc)
+
+    return {
+        "SumOut1": sum_1, "SumOut2": sum_2, "SumOut3": sum_3,
+        "NumAccumulatesOut": num_acc.reshape(1),
+        "OldNumAccumulatesOut": old_num_acc.reshape(1),
+        "NumUpdatesOut": num_upd.reshape(1),
     }

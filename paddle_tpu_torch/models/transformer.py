@@ -6,8 +6,10 @@ transformer.py``.
 
 With ``seq_parallel=True`` attention is the fused ``ring_attention`` op,
 which the port runs as single-device flash attention (the K2/K3 kernels on
-a card); the decoder's self-attention is causal through the op. The mesh
-and recompute options of the JAX model are not ported yet.
+a card); the decoder's self-attention is causal through the op. With
+``recompute=True`` each encoder and decoder layer is one ``Recompute``
+region (its activations rebuilt in backward). The mesh options of the JAX
+model are not ported yet.
 """
 from __future__ import annotations
 
@@ -151,11 +153,14 @@ def _embed(cfg, ids, vocab, name):
 
 
 def _maybe_recompute(cfg, layer_fn, x):
-    if cfg.recompute:
-        raise NotImplementedError(
-            "TransformerConfig.recompute (layers.Recompute) is not yet "
-            "ported to paddle_tpu_torch")
-    return layer_fn(x)
+    """Wrap one transformer layer in a Recompute region when
+    cfg.recompute (activation remat: backward re-runs the layer)."""
+    if not cfg.recompute:
+        return layer_fn(x)
+    rc = layers.Recompute()
+    with rc.block():
+        out = layer_fn(x)
+    return rc.output(out)
 
 
 def encoder(cfg: TransformerConfig, src_ids):
