@@ -302,6 +302,26 @@ and prints no result):
            3 steps, save_checkpoint, load_checkpoint into a fresh
            scope, 2 steps, bitwise the straight 5 (losses, rates,
            every persistable); bytes, save_s, load_s.
+  text book
+           the book's text chapters, each built with the port's fluid
+           layers, fed from the port's datasets through DataFeeder and
+           trained TEXT_STEPS steps: label semantic roles (conll05;
+           word_dim 32, mark_dim 5, hidden 512, depth 8 alternating
+           is_reverse, linear_chain_crf, SGD; batch 10), word2vec
+           (imikolov; N 5, emb 32, hidden 256, one shared embedding;
+           batch 32), sentiment conv (imdb; two sequence_conv_pools,
+           emb 32, hid 32, sqrt pool; batch 32), the recommender system
+           (movielens; the towers 200 wide joined by cos_sim; batch 32),
+           and a CTC program (fc over [32, 100, 512] into 96 classes,
+           warpctc, SGD; ctc_greedy_decoder + edit_distance). Each: p50
+           step ms over steps 2-5, real tokens/s (the sum of the @LEN
+           companions), peak memory, no plain version; one profiled
+           step's device launches and busy share; then TEXT_CHECK_STEPS
+           steps at batch TEXT_CHECK_BATCH from the trained state on the
+           card and on the CPU (losses within LSTM_LOSS_RTOL) and the
+           test program's Viterbi path or edit distances on both, equal
+           up to near ties under MARGIN_REL. No kernel of the port lies
+           on these paths.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -5961,6 +5981,478 @@ def train_recipe_phase(torch):
     return out
 
 
+# text book: the book's four text chapters and a CTC program, each
+# trained TEXT_STEPS steps from its dataset through DataFeeder, then
+# TEXT_CHECK_STEPS steps at batch TEXT_CHECK_BATCH card vs CPU from the
+# trained state (losses within LSTM_LOSS_RTOL; the Viterbi path and the
+# CTC edit distances equal up to near ties under MARGIN_REL)
+TEXT_STEPS, TEXT_CHECK_STEPS, TEXT_CHECK_BATCH = 5, 2, 4
+# label semantic roles at the reference chapter's widths in the repo's
+# program (tests/test_book_more.py:206): its LSTMs take fc(hidden * 4)
+SRL = dict(word_dim=32, mark_dim=5, hidden=512, depth=8, lr=1e-2)
+SRL_BATCH = 10
+W2V = dict(emb=32, hidden=256, n=5, lr=5e-3)    # reference chapter's widths
+SENTIMENT = dict(emb=32, hid=32, lr=2e-3)
+RECOMMENDER = dict(combined=200, lr=0.2)        # the book chapter's towers
+TEXT_BATCH = 32
+# an OCR line recogniser's shape: [32, 100, 512] column features into 95
+# symbols and the blank 0, labels of 1-24 symbols
+CTC = dict(feat=512, classes=96, lr=1e-3)
+CTC_T, CTC_LABELS = 100, (1, 25)
+
+
+def port_pkg():
+    """The port's modules, as the chapter build functions take them."""
+    import types
+
+    import paddle_tpu_torch
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, nets, unique_name
+
+    return types.SimpleNamespace(paddle=paddle_tpu_torch, fluid=fluid,
+                                 layers=layers, nets=nets,
+                                 unique_name=unique_name)
+
+
+def _chapter(pkg, seed, body):
+    """main, startup and the test clone (taken before ``minimize``) of
+    the program ``body(layers)`` builds; body returns (cost, feed vars,
+    extras, optimizer)."""
+    fluid = pkg.fluid
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.unique_name.guard(), fluid.program_guard(main, startup):
+        cost, feeds, extra, opt = body(pkg.layers)
+        test = main.clone(for_test=True)
+        opt.minimize(cost)
+    return dict(main=main, startup=startup, test=test, cost=cost,
+                feeds=feeds, **extra)
+
+
+def build_word2vec(pkg, emb, hidden, n, lr):
+    """tests/test_book.py:76: N-1 words through one shared embedding
+    (``shared_w``), concat, fc(hidden, sigmoid), fc over the imikolov
+    dictionary, softmax cross-entropy, Adam(lr). Dense embeddings."""
+    dict_size = len(pkg.paddle.dataset.imikolov.build_dict())
+
+    def body(layers):
+        words = [layers.data(name=f"word_{i}", shape=[1], dtype="int64")
+                 for i in range(n - 1)]
+        nxt = layers.data(name="next_word", shape=[1], dtype="int64")
+        embeds = [layers.embedding(
+            input=w, size=[dict_size, emb],
+            param_attr=pkg.fluid.ParamAttr(name="shared_w")) for w in words]
+        h = layers.fc(input=layers.concat(input=embeds, axis=1),
+                      size=hidden, act="sigmoid")
+        cost = layers.mean(layers.softmax_with_cross_entropy(
+            logits=layers.fc(input=h, size=dict_size), label=nxt))
+        return (cost, words + [nxt], {"shared": "shared_w"},
+                pkg.fluid.optimizer.Adam(learning_rate=lr))
+
+    return _chapter(pkg, 13, body)
+
+
+def build_sentiment_conv(pkg, emb, hid, lr):
+    """tests/test_book.py:124: imdb words, an embedding, two
+    sequence_conv_pools (filter 3 and 4, tanh, sqrt pool), fc over 2
+    classes, Adam(lr)."""
+    dict_dim = len(pkg.paddle.dataset.imdb.word_dict())
+
+    def body(layers):
+        data = layers.data(name="words", shape=[1], dtype="int64",
+                           lod_level=1)
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        e = layers.embedding(input=data, size=[dict_dim, emb])
+        convs = [pkg.nets.sequence_conv_pool(
+            input=e, num_filters=hid, filter_size=k, act="tanh",
+            pool_type="sqrt") for k in (3, 4)]
+        logits = layers.fc(input=layers.concat(input=convs, axis=1), size=2)
+        cost = layers.mean(layers.softmax_with_cross_entropy(
+            logits=logits, label=label))
+        return (cost, [data, label], {},
+                pkg.fluid.optimizer.Adam(learning_rate=lr))
+
+    return _chapter(pkg, 17, body)
+
+
+def build_recommender(pkg, combined, lr):
+    """tests/test_book_more.py:122: the user tower (id 32, gender, age,
+    job 16 each, fc(combined, tanh)) and the movie tower (id 32, the
+    category embeddings' sum pool, the title's sequence_conv_pool, fc(
+    combined, tanh)) joined by cos_sim, scaled by 5, square error on the
+    score, SGD(lr)."""
+    ml = pkg.paddle.dataset.movielens
+
+    def body(layers):
+        def tower_id(name, size, width, table):
+            v = layers.data(name=name, shape=[1], dtype="int64")
+            e = layers.embedding(input=v, size=[size, width],
+                                 param_attr=pkg.fluid.ParamAttr(name=table))
+            return v, layers.fc(input=e, size=width)
+
+        def seq(name):
+            return layers.data(name=name, shape=[1], dtype="int64",
+                               lod_level=1)
+
+        uid, usr_fc = tower_id("user_id", ml.max_user_id() + 1, 32,
+                               "user_table")
+        gender, gender_fc = tower_id("gender_id", 2, 16, "gender_table")
+        age, age_fc = tower_id("age_id", len(ml.age_table()), 16,
+                               "age_table")
+        job, job_fc = tower_id("job_id", ml.max_job_id() + 1, 16,
+                               "job_table")
+        usr = layers.fc(input=layers.concat(
+            input=[usr_fc, gender_fc, age_fc, job_fc], axis=1),
+            size=combined, act="tanh")
+        mov_id, mov_fc = tower_id("movie_id", ml.max_movie_id() + 1, 32,
+                                  "movie_table")
+        category, title = seq("category_id"), seq("movie_title")
+        cat_pool = layers.sequence_pool(input=layers.embedding(
+            input=category, size=[len(ml.movie_categories()), 32]),
+            pool_type="sum")
+        title_conv = pkg.nets.sequence_conv_pool(
+            input=layers.embedding(input=title, size=[
+                len(ml.get_movie_title_dict()), 32]),
+            num_filters=32, filter_size=3, act="tanh", pool_type="sum")
+        mov = layers.fc(input=layers.concat(
+            input=[mov_fc, cat_pool, title_conv], axis=1), size=combined,
+            act="tanh")
+        score = layers.data(name="score", shape=[1], dtype="float32")
+        cost = layers.mean(layers.square_error_cost(
+            input=layers.scale(x=layers.cos_sim(X=usr, Y=mov), scale=5.0),
+            label=score))
+        return (cost, [uid, gender, age, job, mov_id, category, title,
+                       score], {}, pkg.fluid.optimizer.SGD(learning_rate=lr))
+
+    return _chapter(pkg, 47, body)
+
+
+SRL_SLOTS = ("word_data", "ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+             "ctx_p1_data", "ctx_p2_data")
+
+
+def build_srl(pkg, word_dim, mark_dim, hidden, depth, lr):
+    """tests/test_book_more.py:206: 8 feature slots (the six word slots
+    share the embedding ``emb``) summed through fcs into ``depth`` stacked
+    dynamic_lstms of H ``hidden`` (alternating is_reverse), a
+    linear_chain_crf over conll05's labels (transition ``crfw``), SGD(lr);
+    crf_decoding reads ``crfw``."""
+    c5 = pkg.paddle.dataset.conll05
+
+    def body(layers):
+        def seq(name):
+            return layers.data(name=name, shape=[1], dtype="int64",
+                               lod_level=1)
+
+        def fc(x, size):
+            return layers.fc(input=x, size=size, num_flatten_dims=2)
+
+        word_slots = [seq(s) for s in SRL_SLOTS]
+        predicate, mark, target = (seq("verb_data"), seq("mark_data"),
+                                   seq("target"))
+        embs = [layers.embedding(input=w, size=[c5.WORD_DICT_LEN, word_dim],
+                                 param_attr=pkg.fluid.ParamAttr(name="emb"))
+                for w in word_slots]
+        embs.append(layers.embedding(input=predicate,
+                                     size=[c5.PRED_DICT_LEN, word_dim]))
+        embs.append(layers.embedding(input=mark, size=[2, mark_dim]))
+        mix = layers.sums(input=[fc(e, hidden) for e in embs])
+        lstm, _ = layers.dynamic_lstm(input=fc(mix, hidden * 4),
+                                      size=hidden * 4)
+        for i in range(1, depth):
+            mix = layers.sums(input=[fc(mix, hidden), fc(lstm, hidden)])
+            lstm, _ = layers.dynamic_lstm(input=fc(mix, hidden * 4),
+                                          size=hidden * 4,
+                                          is_reverse=(i % 2 == 1))
+        feature = layers.sums(input=[fc(mix, c5.LABEL_DICT_LEN),
+                                     fc(lstm, c5.LABEL_DICT_LEN)])
+        cost = layers.mean(layers.linear_chain_crf(
+            input=feature, label=target,
+            param_attr=pkg.fluid.ParamAttr(name="crfw")))
+        decode = layers.crf_decoding(
+            input=feature, param_attr=pkg.fluid.ParamAttr(name="crfw"))
+        return (cost, word_slots + [predicate, mark, target],
+                {"shared": "emb", "decode": decode, "emission": feature,
+                 "transition": "crfw"},
+                pkg.fluid.optimizer.SGD(learning_rate=lr))
+
+    return _chapter(pkg, 53, body)
+
+
+def build_ctc(pkg, feat, classes, lr):
+    """fc over a [N, T, feat] sequence into ``classes`` (blank 0), the
+    warpctc loss, SGD(lr); ctc_greedy_decoder and edit_distance against
+    the labels (their 0 padding ignored)."""
+    def body(layers):
+        x = layers.data(name="feat", shape=[feat], dtype="float32",
+                        lod_level=1)
+        label = layers.data(name="label", shape=[1], dtype="int64",
+                            lod_level=1)
+        logits = layers.fc(input=x, size=classes, num_flatten_dims=2)
+        cost = layers.mean(layers.warpctc(input=logits, label=label,
+                                          blank=0))
+        dist, _ = layers.edit_distance(
+            input=layers.ctc_greedy_decoder(input=logits, blank=0),
+            label=label, ignored_tokens=[0])
+        return (cost, [x, label], {"decode": dist, "logits": logits},
+                pkg.fluid.optimizer.SGD(learning_rate=lr))
+
+    return _chapter(pkg, 61, body)
+
+
+def ctc_samples(seed, n, t_range, l_range, feat, classes):
+    """Seeded (features [T, feat], labels [[l], ...]) pairs: each label a
+    run of symbols 1..classes-1 that the frames hint at, T drawn from
+    ``t_range`` and the label's length from ``l_range``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    proj = rng.randn(classes, feat).astype(np.float32)
+    out = []
+    for _ in range(n):
+        T = int(rng.randint(*t_range))
+        lab = rng.randint(1, classes, int(rng.randint(*l_range)))
+        frames = np.repeat(lab, int(np.ceil(T / len(lab))))[:T]
+        x = proj[frames] + rng.randn(T, feat).astype(np.float32)
+        out.append((x.astype(np.float32), [[int(v)] for v in lab]))
+    return out
+
+
+def ctc_feed(samples, T):
+    """A feed dict of ``samples`` padded to exactly T frames."""
+    import numpy as np
+
+    feat = np.zeros((len(samples), T, samples[0][0].shape[1]), np.float32)
+    L = max(len(s[1]) for s in samples)
+    label = np.zeros((len(samples), L, 1), np.int64)
+    for i, (x, lab) in enumerate(samples):
+        feat[i, :len(x)] = x
+        label[i, :len(lab)] = lab
+    return {"feat": feat,
+            "feat@LEN": np.array([len(s[0]) for s in samples], np.int32),
+            "label": label,
+            "label@LEN": np.array([len(s[1]) for s in samples], np.int32)}
+
+
+def _seq_tokens(feed, keys):
+    """Real tokens of a feed: the sum of the @LEN companions ``keys``;
+    with none (word2vec), one token an id slot."""
+    import numpy as np
+
+    if keys:
+        return sum(int(np.asarray(feed[k]).sum()) for k in keys)
+    return sum(int(np.prod(v.shape)) for v in feed.values())
+
+
+def _viterbi_score(em, trans, path):
+    """The CRF score of ``path`` [T] over em [T, D], transition [D+2, D]."""
+    s = trans[0, path[0]] + em[0, path[0]] + trans[1, path[-1]]
+    for t in range(1, len(path)):
+        s += trans[2 + path[t - 1], path[t]] + em[t, path[t]]
+    return float(s)
+
+
+def _hold_viterbi(card, cpu, lengths):
+    """Card vs CPU Viterbi paths: equal, or the card's path scores within
+    MARGIN_REL x |best| of the CPU's best under the CPU's emission and
+    transition (a near tie, logged)."""
+    import numpy as np
+
+    (c_path,), (p_path, em, trans) = card, cpu
+    trans = trans.astype(np.float64)
+    ties = []
+    for i, ln in enumerate(np.asarray(lengths)):
+        a, b = c_path[i, :ln], p_path[i, :ln]
+        if np.array_equal(a, b) and not c_path[i, ln:].any():
+            continue
+        best = _viterbi_score(em[i].astype(np.float64), trans, b)
+        alt = _viterbi_score(em[i].astype(np.float64), trans, a)
+        gap = best - alt
+        if not 0 <= gap <= MARGIN_REL * abs(best):
+            raise RuntimeError(f"viterbi row {i}: card path {a.tolist()} "
+                               f"vs CPU {b.tolist()}, score gap {gap}: not "
+                               "a near tie")
+        ties.append({"row": i, "score_gap": gap})
+    return {"rows_compared": len(c_path), "near_ties": ties}
+
+
+def _hold_ctc_decode(card, cpu, lengths):
+    """Card vs CPU edit distances: equal on every row whose frames' argmax
+    agree; where a frame's argmax differs, the CPU's top-two logit gap
+    there must be within MARGIN_REL x max|logit| (a near tie, logged)."""
+    import numpy as np
+
+    (c_dist, c_logits), (p_dist, p_logits) = card, cpu
+    tol = MARGIN_REL * float(np.abs(p_logits).max())
+    ties = []
+    for i, ln in enumerate(np.asarray(lengths)):
+        flips = np.nonzero(c_logits[i, :ln].argmax(-1)
+                           != p_logits[i, :ln].argmax(-1))[0]
+        if len(flips) == 0:
+            if c_dist[i, 0] != p_dist[i, 0]:
+                raise RuntimeError(f"ctc row {i}: edit distance "
+                                   f"{c_dist[i, 0]} vs {p_dist[i, 0]} with "
+                                   "the same frame argmax")
+            continue
+        top2 = np.sort(p_logits[i, flips], axis=-1)[:, -2:]
+        gap = float((top2[:, 1] - top2[:, 0]).max())
+        if gap > tol:
+            raise RuntimeError(f"ctc row {i}: frame argmax differs at "
+                               f"{flips.tolist()} with a logit gap {gap} "
+                               f"(> {tol})")
+        ties.append({"row": i, "frames": flips.tolist(), "gap": gap})
+    return {"rows_compared": len(c_dist), "near_ties": ties, "tol": tol}
+
+
+def _text_chapter(torch, name, built, feeds, check_feeds, config,
+                  token_keys):
+    """One chapter on the card: TEXT_STEPS steps in the held window
+    (p50 of steps 2-5, real tokens/s over ``token_keys``, peak memory),
+    one profiled step,
+    then TEXT_CHECK_STEPS small-batch steps from the trained state on
+    the card and on the CPU (losses within LSTM_LOSS_RTOL), and the test
+    program's decode (Viterbi path or CTC edit distances) on both."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    main, cost = built["main"], built["cost"]
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(built["startup"], scope=scope)
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ms), launches = _held_window(
+        lambda: _timed_steps(exe, main, feeds[:TEXT_STEPS], [cost], scope))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{name}: losses not finite: {losses}")
+    p50 = statistics.median(ms[1:])
+    tokens = [_seq_tokens(f, token_keys) for f in feeds[:TEXT_STEPS]]
+    batch = len(next(iter(feeds[0].values())))
+    out = {"config": config, "steps": TEXT_STEPS, "losses": losses,
+           "step_ms": ms, "p50_step_ms_after_first": p50,
+           "tokens": list(token_keys) or "one an id slot",
+           "tokens_a_step": tokens,
+           "tokens_per_s": statistics.mean(tokens[1:]) / (p50 / 1e3),
+           "samples_per_s": batch / (p50 / 1e3),
+           "peak_memory_allocated_gb": peak_gb, "kernel_launches": launches}
+    prof = _profiled(torch, exe, main, feeds[TEXT_STEPS], cost, scope,
+                     f"{name} step")
+    out["device_launches_a_step"] = prof["device_launches"]
+    out["busy_share"] = prof["busy_share"]
+    out["profile"] = prof
+
+    # card vs CPU from the trained state, at a small batch
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu_scope = _cpu_scope(fluid, scope)
+    card_l, _ = _timed_steps(exe, main, check_feeds[:-1], [cost], scope)
+    cpu_l, _ = _timed_steps(cpu_exe, main, check_feeds[:-1], [cost],
+                            cpu_scope)
+    err = _rel_err(card_l, cpu_l)
+    if err > LSTM_LOSS_RTOL:
+        raise RuntimeError(f"{name}: card vs CPU losses {card_l} vs "
+                           f"{cpu_l} ({err} relative)")
+    out["check"] = {"batch": TEXT_CHECK_BATCH, "card_losses": card_l,
+                    "cpu_losses": cpu_l, "max_rel_err": err}
+    if "decode" in built:
+        feed, test = check_feeds[-1], built["test"]
+        if "transition" in built:  # the Viterbi path
+            fetch = [built["decode"], built["emission"], built["transition"]]
+            lens = feed[SRL_SLOTS[0] + "@LEN"]
+            hold, card_fetch = _hold_viterbi, fetch[:1]
+        else:  # the CTC edit distances
+            fetch = [built["decode"], built["logits"]]
+            lens = feed["feat@LEN"]
+            hold, card_fetch = _hold_ctc_decode, fetch
+        card = exe.run(test, feed=feed, fetch_list=card_fetch, scope=scope)
+        cpu = cpu_exe.run(test, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        out["check"]["decode"] = hold([np.asarray(v) for v in card],
+                                      [np.asarray(v) for v in cpu], lens)
+        out["check"]["decoded"] = np.asarray(card[0]).reshape(
+            len(lens), -1)[:, :8].tolist()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  text book {name} " + json.dumps(out))
+    return out
+
+
+def _reader_feeds(fluid, built, reader, n):
+    """The first ``n`` batches of ``reader`` through a DataFeeder onto
+    the card."""
+    feeder = fluid.DataFeeder(place=fluid.CUDAPlace(0),
+                              feed_list=built["feeds"],
+                              program=built["main"])
+    feeds = []
+    for data in reader():
+        feeds.append(feeder.feed(data))
+        if len(feeds) == n:
+            return feeds
+    raise RuntimeError(f"reader gave {len(feeds)} batches, want {n}")
+
+
+def text_book_phase(torch):
+    """The book's text chapters on the card at their widths: label
+    semantic roles (SRL, batch SRL_BATCH), word2vec (W2V), sentiment conv
+    (SENTIMENT) and the recommender system (RECOMMENDER), each fed by its
+    dataset through DataFeeder, and the CTC program (CTC) on seeded
+    [32, 100, 512] batches; see _text_chapter for what each holds."""
+    phase("text book")
+    import paddle_tpu_torch.fluid as fluid
+
+    pkg = port_pkg()
+    ds, batch = pkg.paddle.dataset, pkg.paddle.batch
+    n, k = TEXT_STEPS + 1, TEXT_CHECK_STEPS + 1
+    w2v_dict = ds.imikolov.build_dict()
+    out = {}
+    for name, built, reader, check_reader, config, token_keys in (
+            ("srl", build_srl(pkg, **SRL),
+             batch(ds.conll05.train(), SRL_BATCH),
+             batch(ds.conll05.test(), TEXT_CHECK_BATCH),
+             f"label semantic roles: conll05, {SRL} (LSTM H = hidden), "
+             f"CRF over 67 labels, batch {SRL_BATCH}",
+             [SRL_SLOTS[0] + "@LEN"]),
+            ("word2vec", build_word2vec(pkg, **W2V),
+             batch(ds.imikolov.train(w2v_dict, W2V["n"]), TEXT_BATCH),
+             batch(ds.imikolov.test(w2v_dict, W2V["n"]), TEXT_CHECK_BATCH),
+             f"word2vec: imikolov dict {len(w2v_dict)}, {W2V}, Adam, "
+             f"batch {TEXT_BATCH}", []),
+            ("sentiment_conv", build_sentiment_conv(pkg, **SENTIMENT),
+             batch(ds.imdb.train(), TEXT_BATCH),
+             batch(ds.imdb.test(), TEXT_CHECK_BATCH),
+             f"sentiment conv: imdb, two sequence_conv_pool (filter 3, 4; "
+             f"sqrt), {SENTIMENT}, Adam, batch {TEXT_BATCH}",
+             ["words@LEN"]),
+            ("recommender", build_recommender(pkg, **RECOMMENDER),
+             batch(ds.movielens.train(), TEXT_BATCH),
+             batch(ds.movielens.test(), TEXT_CHECK_BATCH),
+             f"recommender: movielens towers joined by cos_sim, "
+             f"{RECOMMENDER}, SGD, batch {TEXT_BATCH}",
+             ["category_id@LEN", "movie_title@LEN"])):
+        out[name] = _text_chapter(
+            torch, name, built, _reader_feeds(fluid, built, reader, n),
+            _reader_feeds(fluid, built, check_reader, k), config,
+            token_keys)
+    samples = ctc_samples(2031, TEXT_BATCH * n + TEXT_CHECK_BATCH * k,
+                          (CTC_T * 3 // 5, CTC_T + 1), CTC_LABELS,
+                          CTC["feat"], CTC["classes"])
+    feeds = [ctc_feed(samples[i * TEXT_BATCH:(i + 1) * TEXT_BATCH], CTC_T)
+             for i in range(n)]
+    rest = samples[TEXT_BATCH * n:]
+    check = [ctc_feed(rest[i * TEXT_CHECK_BATCH:(i + 1) * TEXT_CHECK_BATCH],
+                      CTC_T) for i in range(k)]
+    out["ctc"] = _text_chapter(
+        torch, "ctc", build_ctc(pkg, **CTC), feeds, check,
+        f"ctc: fc over [{TEXT_BATCH}, {CTC_T}, {CTC['feat']}] into "
+        f"{CTC['classes']} classes (blank 0), labels of {CTC_LABELS[0]}-"
+        f"{CTC_LABELS[1] - 1} symbols, warpctc, SGD({CTC['lr']}); "
+        "ctc_greedy_decoder + edit_distance", ["feat@LEN"])
+    log("  text book " + json.dumps({
+        key: {m: v[m] for m in ("p50_step_ms_after_first", "tokens_per_s",
+                                "device_launches_a_step", "busy_share",
+                                "peak_memory_allocated_gb", "seconds")}
+        for key, v in out.items()}))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6009,6 +6501,7 @@ def main():
     control_flow = {"dynamic_rnn": dynamic_rnn_phase(torch),
                     "seq2seq": seq2seq_phase(torch)}
     recipe = train_recipe_phase(torch)
+    text_book = text_book_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -6030,6 +6523,10 @@ def main():
             "peak_memory_allocated_gb")}
            for key in ("plain", "recompute")},
         "in_turns": recipe["timing"]["in_turns"]["median_ms"]}))
+    log("  text book paths (no kernel of the port on them) " + json.dumps({
+        k: {m: v[m] for m in ("p50_step_ms_after_first", "tokens_per_s",
+                              "device_launches_a_step", "busy_share")}
+        for k, v in text_book.items()}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

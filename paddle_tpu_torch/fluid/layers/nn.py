@@ -3,9 +3,10 @@ embedding:218, conv2d:1150, batch_norm:1508, pool2d:1455,
 layer_norm:1597, dropout:876, softmax_with_cross_entropy:3165, ...): the
 ones the Transformer, fit_a_line, the image-classification training
 (ResNet, LeNet, VGG), fused ResNet inference and the control-flow
-programs (DynamicRNN LSTM, machine translation, seq2seq) call, copied
-from ``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported
-yet."""
+programs (DynamicRNN LSTM, machine translation, seq2seq) and the text
+chapters (``lstm_unit``, ``cos_sim``, ``edit_distance``, ``chunk_eval``,
+``warpctc``, ``row_conv``, ``im2sequence``) call, copied from
+``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported yet."""
 from __future__ import annotations
 
 import numpy as np
@@ -22,7 +23,8 @@ __all__ = [
     "elementwise_max", "elementwise_min", "elementwise_pow",
     "cross_entropy", "reduce_sum", "reduce_mean", "reduce_max",
     "reduce_min", "reduce_prod", "scale", "expand", "clip", "clip_by_norm",
-    "autoincreased_step_counter",
+    "autoincreased_step_counter", "im2sequence", "cos_sim", "edit_distance",
+    "chunk_eval", "warpctc", "row_conv", "lstm_unit",
 ]
 
 
@@ -615,3 +617,153 @@ elementwise_div = _elementwise_layer("elementwise_div")
 elementwise_max = _elementwise_layer("elementwise_max")
 elementwise_min = _elementwise_layer("elementwise_min")
 elementwise_pow = _elementwise_layer("elementwise_pow")
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    helper = LayerHelper("im2sequence", name=name)
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    # paddings normalize to [up, left, down, right] (reference
+    # im2sequence_op.cc): scalar -> same all round, [ph, pw] -> symmetric
+    if not isinstance(padding, (list, tuple)):
+        padding = [padding] * 4
+    elif len(padding) == 2:
+        padding = [padding[0], padding[1], padding[0], padding[1]]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="im2sequence", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"kernels": _pair(filter_size), "strides": _pair(stride),
+               "paddings": list(padding)},
+    )
+    return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(
+        type="cos_sim", inputs={"X": [X], "Y": [Y]},
+        outputs={"Out": [out], "XNorm": [xnorm], "YNorm": [ynorm]},
+    )
+    return out
+
+
+def edit_distance(input, label, normalized=False, ignored_tokens=None,
+                  name=None):
+    """reference layers/nn.py edit_distance — returns (distances [N,1],
+    sequence_num [1]). `ignored_tokens` filtering is folded into the op via
+    the attr (dense layout: ignored tokens must be padding-equivalent)."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    seq_num = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(
+        type="edit_distance",
+        inputs={"Hyps": [input], "Refs": [label]},
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": normalized,
+               "ignored_tokens": list(ignored_tokens or [])},
+    )
+    return out, seq_num
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """reference layers/nn.py chunk_eval — returns (precision, recall,
+    f1_score, num_infer_chunks, num_label_chunks, num_correct_chunks)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference(dtype="float32")
+    recall = helper.create_variable_for_type_inference(dtype="float32")
+    f1_score = helper.create_variable_for_type_inference(dtype="float32")
+    num_infer_chunks = helper.create_variable_for_type_inference(dtype="int64")
+    num_label_chunks = helper.create_variable_for_type_inference(dtype="int64")
+    num_correct_chunks = helper.create_variable_for_type_inference(dtype="int64")
+    inputs = {"Inference": [input], "Label": [label]}
+    if seq_length is not None:
+        inputs["SeqLength"] = [seq_length]
+    helper.append_op(
+        type="chunk_eval",
+        inputs=inputs,
+        outputs={
+            "Precision": [precision],
+            "Recall": [recall],
+            "F1-Score": [f1_score],
+            "NumInferChunks": [num_infer_chunks],
+            "NumLabelChunks": [num_label_chunks],
+            "NumCorrectChunks": [num_correct_chunks],
+        },
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": list(excluded_chunk_types or [])},
+    )
+    return (precision, recall, f1_score, num_infer_chunks, num_label_chunks,
+            num_correct_chunks)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss (reference layers/nn.py:2726 -> warpctc op, which links
+    warp-ctc; here the emitter computes the exact CTC forward in log
+    space). input: [N, T, C] raw logits; label: [N, L] padded. Returns
+    per-example loss [N, 1]."""
+    from .sequence import seq_lengths_of
+
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Logits": [input], "Label": [label]}
+    in_len = seq_lengths_of(input)
+    if in_len is not None:
+        inputs["LogitsLength"] = [in_len]
+    lab_len = seq_lengths_of(label)
+    if lab_len is not None:
+        inputs["LabelLength"] = [lab_len]
+    helper.append_op(
+        type="warpctc", inputs=inputs,
+        outputs={"Loss": [loss], "WarpCTCGrad": [grad]},
+        attrs={"blank": int(blank), "norm_by_times": bool(norm_by_times)},
+    )
+    return loss
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    """Lookahead row convolution (reference layers/nn.py row_conv, the
+    DeepSpeech2 streaming op): out[t] = sum_k x[t+k] w[k]."""
+    from .sequence import _propagate_lengths, seq_lengths_of
+
+    helper = LayerHelper("row_conv", param_attr=param_attr, act=act)
+    filter_shape = [int(future_context_size) + 1, int(input.shape[-1])]
+    w = helper.create_parameter(helper.param_attr, shape=filter_shape,
+                                dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"X": [input], "Filter": [w]}
+    lens = seq_lengths_of(input)
+    if lens is not None:
+        inputs["Lengths"] = [lens]
+    helper.append_op(type="row_conv", inputs=inputs,
+                     outputs={"Out": [out]})
+    _propagate_lengths(input, out)
+    return helper.append_activation(out)
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step (reference layers/nn.py lstm_unit): projects
+    [x_t, h_prev] to the 4H gates with an fc, then applies the fused cell.
+    Returns (hidden_t, cell_t)."""
+    helper = LayerHelper("lstm_unit_layer", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    size = int(cell_t_prev.shape[-1])
+    gates = fc(input=[x_t, hidden_t_prev], size=4 * size,
+               param_attr=param_attr, bias_attr=bias_attr)
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [gates], "C_prev": [cell_t_prev]},
+        outputs={"C": [c], "H": [h]},
+        attrs={"forget_bias": float(forget_bias)},
+    )
+    return h, c

@@ -10,7 +10,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["create_parameter", "create_global_var", "cast", "concat", "sums", "assign",
            "fill_constant", "fill_constant_batch_size_like", "ones",
-           "zeros"]
+           "zeros", "argmax"]
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -132,3 +132,12 @@ def ones(shape, dtype, force_cpu=False):
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(shape=shape, dtype=dtype, value=0.0)
+
+
+def argmax(x, axis=0):
+    """int64 index of the largest value along ``axis`` (op ``arg_max``)."""
+    helper = LayerHelper("arg_max")
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out

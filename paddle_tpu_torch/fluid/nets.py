@@ -1,12 +1,12 @@
 """Composite network helpers (reference python/paddle/fluid/nets.py): the
-image-classification ones, copied from ``paddle_tpu/fluid/nets.py``.
-``glu``, ``scaled_dot_product_attention`` and ``sequence_conv_pool`` are
-not ported yet."""
+image-classification ones and the text chapters' ``sequence_conv_pool``,
+copied from ``paddle_tpu/fluid/nets.py``. ``glu`` and
+``scaled_dot_product_attention`` are not ported yet."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -58,3 +58,14 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
         input=tmp, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride,
     )
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """reference python/paddle/fluid/nets.py sequence_conv_pool — text-conv
+    building block used by the sentiment book chapter."""
+    conv_out = layers.sequence_conv(
+        input=input, num_filters=num_filters, filter_size=filter_size,
+        param_attr=param_attr, act=act,
+    )
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

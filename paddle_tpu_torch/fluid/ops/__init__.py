@@ -6,7 +6,10 @@ LeNet, VGG), of the fused ResNet inference path, of the stacked LSTM
 reductions, and Fluid control flow (``while``, ``conditional_block``,
 ``recurrent``, ``ifelse``, ``dynamic_recurrent``, the tensor arrays,
 ``recompute``) with beam search, the clip ops and every optimizer op of
-the JAX package (dense gradients). Any other op type raises "no emitter registered ...
+the JAX package (dense gradients), and the recurrent, sequence, CRF, CTC
+and text-metric ops of the book's text chapters (``gru``, ``lstmp``, the
+LoD family, ``linear_chain_crf``, ``warpctc``, ``edit_distance``,
+``chunk_eval``, ...). Any other op type raises "no emitter registered ...
 (not yet ported)" when a program containing it is built or run."""
 from . import (  # noqa: F401
     activations,
@@ -14,6 +17,8 @@ from . import (  # noqa: F401
     beam_search_ops,
     compare_ops,
     control_flow,
+    crf_ops,
+    ctc_ops,
     elementwise,
     loss_ops,
     math_ops,
@@ -24,4 +29,5 @@ from . import (  # noqa: F401
     reduce_ops,
     sequence_ops,
     tensor_ops,
+    vision_ops,
 )

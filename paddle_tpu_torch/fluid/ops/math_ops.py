@@ -1,5 +1,5 @@
 """GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
-matmul,sum,mean,scale,cum,sign,clip,clip_by_norm,squared_l2_norm}_op.*). Plain large products stay ``torch.matmul``
+matmul,sum,mean,scale,cum,sign,clip,clip_by_norm,squared_l2_norm,cos_sim}_op.*). Plain large products stay ``torch.matmul``
 (cuBLAS on a card), as the JAX package leaves them to XLA; under
 FLAGS['amp'] ``mul`` and ``matmul`` multiply bfloat16 operands and
 restore the result to float32 (``amp_operands``)."""
@@ -120,3 +120,14 @@ def clip_by_norm(ctx, ins, attrs):
 def squared_l2_norm(ctx, ins, attrs):
     x = _dense(one(ins, "X"), "squared_l2_norm")
     return {"Out": torch.sum(x * x).reshape(1)}
+
+
+@register_op("cos_sim", ref="paddle/fluid/operators/cos_sim_op.cc")
+def cos_sim(ctx, ins, attrs):
+    """Row-wise cosine similarity over the last axis, with both norms."""
+    x, y = one(ins, "X"), one(ins, "Y")
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}
+

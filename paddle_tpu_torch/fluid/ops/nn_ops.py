@@ -1,6 +1,7 @@
 """NN ops (reference paddle/fluid/operators/{conv,batch_norm,layer_norm,
-softmax,pool}_op.cc, conv_mkldnn_op.cc): the ones the Transformer, the
-image-classification training and the fused ResNet inference paths run.
+softmax,pool,sequence_softmax,im2sequence}_op.cc, conv_mkldnn_op.cc): the
+ones the Transformer, the image-classification training, the fused ResNet
+inference and the text paths run.
 Layouts are NCHW, as in the JAX package. ``conv2d``, ``batch_norm`` and
 ``pool2d`` are what the JAX package leaves to XLA: here cuDNN
 (``F.conv2d``) and PyTorch's own CUDA ops on a card. Under
@@ -230,3 +231,35 @@ def pool2d(ctx, ins, attrs):
 @register_op("softmax", ref="paddle/fluid/operators/softmax_op.cc")
 def softmax(ctx, ins, attrs):
     return {"Out": torch.softmax(one(ins, "X"), dim=-1)}
+
+
+@register_op("sequence_softmax", no_grad=("Lengths",),
+             ref="paddle/fluid/operators/sequence_softmax_op.cc")
+def sequence_softmax(ctx, ins, attrs):
+    """Softmax within each sequence over the time axis; padded positions get
+    zero probability (the reference softmaxes per LoD segment)."""
+    x = one(ins, "X")
+    lengths = one(ins, "Lengths")
+    if lengths is None:
+        return {"Out": torch.softmax(x, dim=1 if x.ndim > 1 else 0)}
+    valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+             < lengths[:, None])
+    valid = valid.reshape(tuple(valid.shape) + (1,) * (x.ndim - 2))
+    out = torch.softmax(x.masked_fill(~valid, float("-inf")), dim=1)
+    return {"Out": torch.where(valid, out, torch.zeros_like(out))}
+
+
+@register_op("im2sequence", ref="paddle/fluid/operators/im2sequence_op.cc")
+def im2sequence(ctx, ins, attrs):
+    """Image patches as a sequence: X [N, C, H, W] -> [N * oh * ow,
+    C * kh * kw], each row one patch (channel-major, as the JAX op's
+    ``conv_general_dilated_patches``); paddings [up, left, down, right]."""
+    x = one(ins, "X")
+    kernels = _pair(attrs.get("kernels", [1, 1]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    up, left, down, right = [int(p) for p in
+                             attrs.get("paddings", [0, 0, 0, 0])]
+    x = F.pad(x, (left, right, up, down))
+    patches = F.unfold(x, kernels, stride=strides)  # [N, C*kh*kw, L]
+    return {"Out": patches.transpose(1, 2).reshape(-1, patches.shape[1])}
+

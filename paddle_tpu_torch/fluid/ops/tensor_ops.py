@@ -1,6 +1,6 @@
 """Tensor-manipulation ops (reference paddle/fluid/operators/{reshape,
 transpose,concat,split,cast,fill_constant,assign,assign_value,
-lookup_table,top_k,expand,...}_op.*) — the counterpart of
+lookup_table,top_k,arg_max,expand,...}_op.*) — the counterpart of
 ``paddle_tpu/fluid/ops/tensor_ops.py`` for the ops the port's paths
 run."""
 from __future__ import annotations
@@ -270,3 +270,12 @@ def top_k(ctx, ins, attrs):
     ``torch.topk`` promises no order among equal values."""
     vals, idx = torch.topk(one(ins, "X"), int(attrs["k"]), dim=-1)
     return {"Out": vals, "Indices": idx}
+
+
+@register_op("arg_max", no_grad=("X",),
+             ref="paddle/fluid/operators/arg_minmax (era: argmax via top_k)")
+def arg_max(ctx, ins, attrs):
+    """int64 index of the largest value along ``axis``; a tie goes to the
+    lowest index, as ``jnp.argmax``'s does."""
+    return {"Out": torch.argmax(one(ins, "X"), dim=int(attrs.get("axis", 0)))}
+
