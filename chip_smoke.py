@@ -322,6 +322,26 @@ and prints no result):
            test program's Viterbi path or edit distances on both, equal
            up to near ties under MARGIN_REL. No kernel of the port lies
            on these paths.
+  vision   the image and vision slice: AlexNet and GoogLeNet (224x224,
+           1000 classes) and SmallNet (32x32, 10) at batch 128, the
+           reference benchmark suite's configurations, VISION_STEPS
+           Momentum steps on seeded images (p50 step ms over steps 2-5,
+           images/s, peak memory, one profiled step's launches, busy
+           share and largest device entries), then test-mode logits
+           card vs CPU at batch 2 within VISION_LOGIT_TOL; SSD300 (VGG-16,
+           8732 priors, 21 classes, batch 8, 8 seeded boxes an image,
+           ssd_loss, Momentum) the same way, its inference program's
+           detection_output (nms 0.45, top 400, keep 200) and
+           detection_map on the trained state, the post-processing alone
+           timed with its launches and held against the CPU on the same
+           head outputs (detections under the margin rule, mAP on the
+           card's detections bitwise); from the trained state at batch 2
+           card vs CPU, the inference program's detections under the
+           margin rule (mAP bitwise where no row was cut), then
+           SSD_CHECK_STEPS steps (losses within LSTM_LOSS_RTOL); every op
+           of the slice card vs CPU at its path's shapes, forward and gradient (VISION_OP_TOL,
+           LSTM_GRAD_TOL; index outputs equal). No kernel of the port
+           lies on these paths.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -6453,6 +6473,666 @@ def text_book_phase(torch):
     return out
 
 
+# vision: the legacy benchmark suite's image models at the reference's
+# published configurations (BASELINE.md:9-12, from its
+# benchmark/README.md:33-61: batch 128; AlexNet and GoogLeNet at 224x224
+# into 1000 classes, SmallNet at 32x32 into 10), Momentum(0.01, 0.9) as
+# tests/test_models.py trains them; VISION_STEPS steps on seeded images,
+# then the test-mode logits card vs CPU at VISION_CHECK_BATCH
+VISION_MODELS = {"alexnet": (224, 1000), "googlenet": (224, 1000),
+                 "smallnet": (32, 10)}
+VISION_BATCH, VISION_STEPS, VISION_CHECK_BATCH = 128, 5, 2
+VISION_LOGIT_TOL = 1e-4   # card vs CPU logits, of the largest |logit|
+# SSD300 (Liu et al. 2016, Fig. 2 and Sec. 3: VGG-16 through conv5_3,
+# pool5 3x3/1, conv6 3x3 dilation 6 and conv7 1x1 at 1024, the extras
+# conv8-conv11; maps 38, 19, 10, 5, 3, 1; conv4_3 L2-normalized with a
+# learned scale from 20), VOC's 21 classes, 8 seeded boxes an image,
+# Momentum(1e-3, 0.9); detection_output at nms 0.45, top 400, keep 200
+SSD = dict(size=300, classes=21, gt=8, batch=8, lr=1e-3)
+SSD_PRIORS = 8732
+SSD_CHECK_BATCH, SSD_CHECK_STEPS = 2, 2
+SSD_NMS = dict(nms_threshold=0.45, nms_top_k=400, keep_top_k=200)
+# card vs CPU of each new op on the same inputs: float outputs within
+# VISION_OP_TOL of the tensor's largest |value| (cuDNN and the CPU's
+# convolutions sum in other orders), input gradients within
+# LSTM_GRAD_TOL of theirs; index outputs (Mask, Argmax, matches, the
+# NMS rows' labels, mined indices) exactly equal
+VISION_OP_TOL = 1e-4
+# detections card vs CPU: labels equal row by row and boxes within
+# DET_BOX_TOL (normalised coordinates) up to the first row where the
+# two differ; there the scores must agree within MARGIN_REL x the
+# largest score (a near tie reordered), and that image's later rows are
+# not compared
+DET_BOX_TOL = 1e-4
+# the device the vision phase's feeds and op cases go to (a CPU
+# rehearsal sets "cpu")
+CARD = "cuda"
+
+
+def _vision_image_model(pkg, name, hw, classes):
+    from paddle_tpu_torch.models import alexnet, googlenet, smallnet
+
+    model = {"alexnet": alexnet, "googlenet": googlenet,
+             "smallnet": smallnet}[name]
+
+    def body(layers):
+        img = layers.data(name="img", shape=[3, hw, hw], dtype="float32")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        cost, _, _ = model.build_train(img, label, class_dim=classes)
+        return cost, [img, label], {}, pkg.fluid.optimizer.Momentum(
+            learning_rate=0.01, momentum=0.9)
+
+    return _chapter(pkg, 2031, body)
+
+
+def _vision_feed(torch, rng, batch, hw, classes, device):
+    """Seeded images and labels, as tensors on ``device``."""
+    return {"img": torch.from_numpy(rng.randn(batch, 3, hw, hw).astype(
+                "float32")).to(device),
+            "label": torch.from_numpy(rng.randint(
+                0, classes, (batch, 1)).astype("int64")).to(device)}
+
+
+def _train_window(torch, exe, main, feeds, cost, scope, batch):
+    """The held window over ``feeds``: losses finite, p50 of steps 2-5,
+    images/s and peak memory."""
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ms), launches = _held_window(
+        lambda: _timed_steps(exe, main, feeds, [cost], scope))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"losses not finite: {losses}")
+    p50 = statistics.median(ms[1:])
+    return {"losses": losses, "step_ms": ms,
+            "p50_step_ms_after_first": p50, "images_per_s": batch / (p50 / 1e3),
+            "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "kernel_launches": launches}
+
+
+def _vision_model_run(torch, name):
+    """One image model: VISION_STEPS training steps on the card, one
+    profiled step, then the test clone's logits on the card and on the
+    CPU from the trained state."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    hw, classes = VISION_MODELS[name]
+    built = _vision_image_model(port_pkg(), name, hw, classes)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(built["startup"], scope=scope)
+    rng = np.random.RandomState(7)
+    feeds = [_vision_feed(torch, rng, VISION_BATCH, hw, classes, CARD)
+             for _ in range(VISION_STEPS + 1)]
+    out = {"config": f"{name}: {hw}x{hw}, {classes} classes, batch "
+                     f"{VISION_BATCH}, Momentum(0.01, 0.9)"}
+    out.update(_train_window(torch, exe, built["main"], feeds[:-1],
+                             built["cost"], scope, VISION_BATCH))
+    prof = _profiled(torch, exe, built["main"], feeds[-1], built["cost"],
+                     scope, f"vision {name} step")
+    out["device_launches_a_step"] = prof["device_launches"]
+    out["busy_share"] = prof["busy_share"]
+    out["profile"] = prof
+    check = _vision_feed(torch, rng, VISION_CHECK_BATCH, hw, classes, "cpu")
+    logits = logits_var(built["test"])
+    card = np.asarray(exe.run(built["test"], feed=check, fetch_list=[logits],
+                              scope=scope)[0])
+    cpu = np.asarray(fluid.Executor(fluid.CPUPlace()).run(
+        built["test"], feed=check, fetch_list=[logits],
+        scope=_cpu_scope(fluid, scope))[0])
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    if not err <= VISION_LOGIT_TOL:
+        raise RuntimeError(f"{name}: card vs CPU test logits differ by "
+                           f"{err} of the max (> {VISION_LOGIT_TOL})")
+    out["check"] = {"batch": VISION_CHECK_BATCH, "logits_rel_err": err,
+                    "shape": list(card.shape)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  vision {name} " + json.dumps(out))
+    return out
+
+
+def build_ssd300(pkg, seed=2031):
+    """SSD300 from the port's fluid layers (see SSD): the training
+    program (mean ssd_loss, Momentum); the inference program, a test
+    clone of the forward with ``detection_output`` and ``detection_map``
+    appended, and the forward's clone alone; the post-processing alone as two programs that take
+    their inputs as data (``det``: the heads' outputs to detections,
+    ``amap``: detections to mAP)."""
+    fluid, layers = pkg.fluid, pkg.layers
+    size, classes, g = SSD["size"], SSD["classes"], SSD["gt"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+
+    def conv(x, ch, k=3, s=1, p=1, d=1):
+        return layers.conv2d(x, num_filters=ch, filter_size=k, stride=s,
+                             padding=p, dilation=d, act="relu")
+
+    with pkg.unique_name.guard(), fluid.program_guard(main, startup):
+        img = layers.data(name="img", shape=[3, size, size], dtype="float32")
+        x = img
+        for n, ch in ((2, 64), (2, 128), (3, 256), (3, 512)):
+            for _ in range(n):
+                x = conv(x, ch)
+            if ch == 512:
+                conv4_3 = x
+            x = layers.pool2d(x, pool_size=2, pool_stride=2,
+                              ceil_mode=(ch == 256))      # 75 -> 38
+        for _ in range(3):
+            x = conv(x, 512)
+        x = layers.pool2d(x, pool_size=3, pool_stride=1, pool_padding=1)
+        x = conv(x, 1024, p=6, d=6)
+        conv7 = conv(x, 1024, k=1, p=0)
+        scale = layers.create_parameter(
+            [512], "float32", name="conv4_3_norm_scale",
+            default_initializer=fluid.initializer.ConstantInitializer(20.0))
+        maps = [layers.elementwise_mul(layers.l2_normalize(conv4_3, axis=1),
+                                       scale, axis=1), conv7]
+        x = conv7
+        for mid, ch, s, p in ((256, 512, 2, 1), (128, 256, 2, 1),
+                              (128, 256, 1, 0), (128, 256, 1, 0)):
+            x = conv(conv(x, mid, k=1, p=0), ch, s=s, p=p)
+            maps.append(x)
+        loc, conf, box, var = layers.multi_box_head(
+            maps, img, base_size=size, num_classes=classes,
+            aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2.], [2.]],
+            min_ratio=20, max_ratio=90, flip=True, kernel_size=3, pad=1)
+        infer = main.clone(for_test=True)
+        forward = main.clone(for_test=True)
+        gt_box = layers.data(name="gt_box", shape=[g, 4], dtype="float32")
+        gt_label = layers.data(name="gt_label", shape=[g], dtype="int64")
+        cost = layers.mean(layers.ssd_loss(loc, conf, gt_box, gt_label, box,
+                                           var))
+        fluid.optimizer.Momentum(learning_rate=SSD["lr"],
+                                 momentum=0.9).minimize(cost)
+    with pkg.unique_name.guard(), fluid.program_guard(infer, startup):
+        gt = layers.data(name="gt", shape=[g, 6], dtype="float32")
+        dets = layers.detection_output(loc, conf, box, var, **SSD_NMS)
+        m_ap = layers.detection_map(dets, gt, class_num=classes)
+    det = fluid.Program()
+    with pkg.unique_name.guard(), fluid.program_guard(det, fluid.Program()):
+        d_in = [layers.data(name=n, shape=[SSD_PRIORS, w], dtype="float32",
+                            append_batch_size=(n in ("loc", "conf")))
+                for n, w in (("loc", 4), ("conf", classes), ("box", 4),
+                             ("var", 4))]
+        d_out = layers.detection_output(*d_in, **SSD_NMS)
+    amap = fluid.Program()
+    with pkg.unique_name.guard(), fluid.program_guard(amap, fluid.Program()):
+        m_out = layers.detection_map(
+            layers.data(name="dets", shape=[SSD_NMS["keep_top_k"], 6],
+                        dtype="float32"),
+            layers.data(name="gt", shape=[g, 6], dtype="float32"),
+            class_num=classes)
+    return dict(main=main, startup=startup, infer=infer, forward=forward,
+                cost=cost, loc=loc,
+                conf=conf, box=box, var=var, dets=dets, map=m_ap, det=det,
+                det_out=d_out, amap=amap, map_out=m_out,
+                priors=int(box.shape[0]))
+
+
+def ssd_feed(torch, rng, batch, device):
+    """Seeded images and ground truth: SSD["gt"] boxes an image (sides
+    0.05-0.5 of the image), labels 1-20; ``gt`` is the detection_map
+    label (label, box, difficult 0)."""
+    import numpy as np
+
+    g = SSD["gt"]
+    lo = rng.uniform(0.0, 0.5, (batch, g, 2)).astype(np.float32)
+    wh = rng.uniform(0.05, 0.5, (batch, g, 2)).astype(np.float32)
+    box = np.concatenate([lo, lo + wh], axis=-1)
+    label = rng.randint(1, SSD["classes"], (batch, g)).astype(np.int64)
+    gt = np.concatenate([label[..., None].astype(np.float32), box,
+                         np.zeros((batch, g, 1), np.float32)], axis=-1)
+    img = rng.randn(batch, 3, SSD["size"], SSD["size"]).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in (
+        ("img", img), ("gt_box", box), ("gt_label", label), ("gt", gt))}
+
+
+def _hold_detections(card, cpu):
+    """Detections [B, K, 6] card against CPU under the margin rule (see
+    DET_BOX_TOL). Returns the rows compared, where rows were cut, and
+    the largest score and box differences over the rows compared."""
+    import numpy as np
+
+    tol = MARGIN_REL * float(np.abs(cpu[..., 1]).max())
+    cuts, compared, score_err, box_err = [], 0, 0.0, 0.0
+    for b in range(cpu.shape[0]):
+        for r in range(cpu.shape[1]):
+            gap = float(abs(card[b, r, 1] - cpu[b, r, 1]))
+            boxes = float(np.abs(card[b, r, 2:] - cpu[b, r, 2:]).max())
+            if card[b, r, 0] == cpu[b, r, 0] and boxes <= DET_BOX_TOL \
+                    and gap <= tol:
+                compared += 1
+                score_err, box_err = max(score_err, gap), max(box_err, boxes)
+                continue
+            if gap > tol:
+                raise RuntimeError(
+                    f"detections image {b} row {r}: card {card[b, r]} vs "
+                    f"CPU {cpu[b, r]}, scores {gap} apart (> {tol}): not "
+                    "a near tie")
+            cuts.append({"image": b, "row": r, "score_gap": gap,
+                         "card": card[b, r].tolist(),
+                         "cpu": cpu[b, r].tolist()})
+            break
+    return {"rows_compared": compared, "cuts": cuts, "tol": tol,
+            "max_score_diff": score_err, "max_box_diff": box_err,
+            "kept_rows": int((cpu[..., 0] >= 0).sum())}
+
+
+def _ssd_post(torch, exe, built, heads, gt, scope):
+    """The post-processing alone on the card: detection_output on the
+    heads' outputs and detection_map on its detections, each its own
+    program, host ms of a second run (it ends in a fetch) and device
+    launches of a profiled one; then the same two on the CPU on the same
+    inputs. detection_output's softmax and decode (exp) round apart on
+    the two devices, so its detections are held under the margin rule;
+    detection_map on the card's detections is bitwise the CPU's."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    out, results = {}, {}
+    for key, program, fetch in (("detection_output", built["det"],
+                                 built["det_out"]),
+                                ("detection_map", built["amap"],
+                                 built["map_out"])):
+        feed = heads if key == "detection_output" else {
+            "dets": results["detection_output"], "gt": gt}
+        card = np.asarray(exe.run(program, feed=feed, fetch_list=[fetch],
+                                  scope=scope)[0])
+        t0 = time.perf_counter()  # the second run: the program prepared
+        exe.run(program, feed=feed, fetch_list=[fetch], scope=scope)
+        out[key + "_ms"] = (time.perf_counter() - t0) * 1e3
+        prof = _profiled(torch, exe, program, feed, fetch, scope,
+                         f"vision ssd300 {key}")
+        out[key + "_launches"] = prof["device_launches"]
+        cpu = np.asarray(fluid.Executor(fluid.CPUPlace()).run(
+            program, feed=feed, fetch_list=[fetch], scope=fluid.Scope())[0])
+        if key == "detection_output":
+            out["same_inputs_held"] = _hold_detections(card, cpu)
+        elif not np.array_equal(card, cpu):
+            raise RuntimeError(f"ssd300 detection_map on the same "
+                               f"detections: card {card} vs CPU {cpu}")
+        results[key] = card
+    out["post_ms"] = out["detection_output_ms"] + out["detection_map_ms"]
+    return out, results["detection_output"], results["detection_map"]
+
+
+def _ssd_run(torch):
+    """SSD300 on the card: VISION_STEPS training steps in the held
+    window, one profiled step, the inference program (detection_output,
+    detection_map) on the trained state, the post-processing alone
+    timed and held against the CPU on the same inputs (_ssd_post), then
+    from the trained state at SSD_CHECK_BATCH, card vs CPU: the
+    inference program's detections under the margin rule (DET_BOX_TOL)
+    and its mAP bitwise where no row was cut, then SSD_CHECK_STEPS
+    training steps (losses within LSTM_LOSS_RTOL)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    built = build_ssd300(port_pkg())
+    if built["priors"] != SSD_PRIORS:
+        raise RuntimeError(f"SSD300 has {built['priors']} priors, not "
+                           f"{SSD_PRIORS}")
+    log(f"  vision ssd300 priors {built['priors']}")
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(built["startup"], scope=scope)
+    rng = np.random.RandomState(11)
+    batch = SSD["batch"]
+    feeds = [ssd_feed(torch, rng, batch, CARD)
+             for _ in range(VISION_STEPS + 1)]
+    out = {"config": f"SSD300 (VGG-16, 6 maps, {SSD_PRIORS} priors), "
+                     f"{SSD['classes']} classes, {SSD['gt']} boxes an "
+                     f"image, batch {batch}, Momentum({SSD['lr']}, 0.9); "
+                     f"detection_output {SSD_NMS}", "priors": SSD_PRIORS}
+    train_feeds = [{k: f[k] for k in ("img", "gt_box", "gt_label")}
+                   for f in feeds]
+    out.update(_train_window(torch, exe, built["main"], train_feeds[:-1],
+                             built["cost"], scope, batch))
+    prof = _profiled(torch, exe, built["main"], train_feeds[-1],
+                     built["cost"], scope, "vision ssd300 step")
+    out["device_launches_a_step"] = prof["device_launches"]
+    out["busy_share"] = prof["busy_share"]
+    out["profile"] = prof
+
+    # the inference program on the trained state, then its heads'
+    # outputs through the post-processing alone, card and CPU
+    infer_feed = {"img": feeds[-1]["img"], "gt": feeds[-1]["gt"]}
+    fetch = [built[k] for k in ("loc", "conf", "box", "var", "dets", "map")]
+    loc, conf, box, var, dets, m_ap = exe.run(built["infer"],
+                                              feed=infer_feed, scope=scope,
+                                              fetch_list=fetch)
+    t1 = time.perf_counter()  # the second run: the program prepared
+    exe.run(built["infer"], feed=infer_feed, scope=scope,
+            fetch_list=[built["map"]])
+    infer_ms = (time.perf_counter() - t1) * 1e3
+    exe.run(built["forward"], feed={"img": infer_feed["img"]}, scope=scope,
+            fetch_list=[built["conf"]])
+    t1 = time.perf_counter()
+    exe.run(built["forward"], feed={"img": infer_feed["img"]}, scope=scope,
+            fetch_list=[built["conf"]])
+    forward_ms = (time.perf_counter() - t1) * 1e3
+    prof = _profiled(torch, exe, built["infer"], infer_feed, built["map"],
+                     scope, "vision ssd300 inference")
+    post, card_dets, card_map = _ssd_post(
+        torch, exe, built, {"loc": loc, "conf": conf, "box": box,
+                            "var": var}, feeds[-1]["gt"].cpu().numpy(), scope)
+    if not (np.array_equal(card_dets, np.asarray(dets))
+            and np.array_equal(card_map, np.asarray(m_ap))):
+        raise RuntimeError("ssd300: the post-processing alone and inside "
+                           "the inference program differ")
+    post.update({"inference_ms": infer_ms, "forward_ms": forward_ms,
+                 "inference_launches": prof["device_launches"],
+                 "inference_busy_share": prof["busy_share"],
+                 "post_share": post["post_ms"] / (post["post_ms"]
+                                                  + forward_ms),
+                 "kept_detections": int((card_dets[..., 0] >= 0).sum()),
+                 "map": float(np.asarray(m_ap).reshape(-1)[0])})
+    out["post"] = post
+
+    # card vs CPU from the trained state at a small batch: the inference
+    # program's detections and mAP from the same parameters, then
+    # SSD_CHECK_STEPS training steps
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), _cpu_scope(
+        fluid, scope)
+    check = [ssd_feed(torch, rng, SSD_CHECK_BATCH, "cpu")
+             for _ in range(SSD_CHECK_STEPS + 1)]
+    check_infer = {"img": check[-1]["img"], "gt": check[-1]["gt"]}
+    fetch = [built["dets"], built["map"]]
+    card_out = exe.run(built["infer"], feed=check_infer, fetch_list=fetch,
+                       scope=scope)
+    t1 = time.perf_counter()
+    cpu_out = cpu_exe.run(built["infer"], feed=check_infer, fetch_list=fetch,
+                          scope=cpu_scope)
+    held = _hold_detections(np.asarray(card_out[0]), np.asarray(cpu_out[0]))
+    maps = [float(np.asarray(v).reshape(-1)[0])
+            for v in (card_out[1], cpu_out[1])]
+    if not held["cuts"] and maps[0] != maps[1]:
+        raise RuntimeError(f"ssd300: equal detections but mAP {maps[0]} "
+                           f"(card) vs {maps[1]} (CPU)")
+    check_train = [{k: f[k] for k in ("img", "gt_box", "gt_label")}
+                   for f in check[:-1]]
+    card_l, _ = _timed_steps(exe, built["main"], check_train,
+                             [built["cost"]], scope)
+    cpu_l, _ = _timed_steps(cpu_exe, built["main"], check_train,
+                            [built["cost"]], cpu_scope)
+    cpu_s = time.perf_counter() - t1
+    err = _rel_err(card_l, cpu_l)
+    if err > LSTM_LOSS_RTOL:
+        raise RuntimeError(f"ssd300: card vs CPU losses {card_l} vs {cpu_l} "
+                           f"({err} relative)")
+    out["check"] = {"batch": SSD_CHECK_BATCH, "card_losses": card_l,
+                    "cpu_losses": cpu_l, "max_rel_err": err,
+                    "detections": held, "map_card": maps[0],
+                    "map_cpu": maps[1], "map_held": not held["cuts"],
+                    "cpu_seconds": cpu_s}
+    out["seconds"] = time.perf_counter() - t0
+    log("  vision ssd300 " + json.dumps(out))
+    return out
+
+
+def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=()):
+    """One op on the card and on the CPU on the same inputs: float
+    outputs within VISION_OP_TOL of their max, ``index_outs`` equal, the
+    gradients of ``diff`` for seeded cotangents within LSTM_GRAD_TOL of
+    their max. Returns the worst errors and the card's forward ms (host
+    clock, synchronised; the median of 5 after the checked call)."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.registry import (
+        FWD_META_ATTR, EmitCtx, forward_with_grad, run_forward, run_grad)
+
+    def run(device):
+        ctx = EmitCtx(device=device, root_seed=1)
+        tins = {s: [torch.from_numpy(v).to(device)] for s, v in ins.items()}
+        if not diff:
+            outs = run_forward(ctx, op, tins, attrs)
+            return {s: v[0].cpu().numpy() for s, v in outs.items()}, {}
+        outs, record = forward_with_grad(ctx, op, tins, attrs)
+        rng = np.random.RandomState(3)
+        dys = {s: rng.randn(*v[0].shape).astype(np.float32)
+               for s, v in outs.items() if v[0].is_floating_point()
+               and s not in index_outs}
+        meta = {FWD_META_ATTR: {"type": op, "attrs": attrs,
+                                "in_slots": list(ins),
+                                "out_slots": list(outs)}}
+        gins = dict(tins)
+        gins.update({"Out@" + s: v for s, v in outs.items()})
+        gins.update({"GRAD@" + s: [torch.from_numpy(d).to(device)]
+                     for s, d in dys.items()})
+        grads = run_grad(ctx, gins, meta, record)
+        return ({s: v[0].detach().cpu().numpy() for s, v in outs.items()},
+                {s[5:]: v[0].cpu().numpy() for s, v in grads.items()
+                 if s[5:] in diff and v and v[0] is not None})
+
+    def forward_ms():
+        ctx = EmitCtx(device=CARD, root_seed=1)
+        tins = {s: [torch.from_numpy(v).to(CARD)] for s, v in ins.items()}
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_forward(ctx, op, tins, attrs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms)
+
+    card, card_g = run(CARD)
+    cpu, cpu_g = run("cpu")
+    errs = {}
+    for s, want in cpu.items():
+        got = card[s]
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"{op} {s}: card {got.shape} {got.dtype} vs "
+                               f"CPU {want.shape} {want.dtype}")
+        if s in index_outs or want.dtype.kind in "iub":
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"{op} {s}: card and CPU differ")
+            continue
+        fin = np.isfinite(want)
+        if not np.array_equal(fin, np.isfinite(got)) or not np.array_equal(
+                got[~fin], want[~fin]):
+            raise RuntimeError(f"{op} {s}: card and CPU differ off the "
+                               "finite values")
+        scale = float(np.abs(want[fin]).max()) if fin.any() else 0.0
+        errs[s] = float(np.abs(got[fin] - want[fin]).max()) / (scale or 1.0)
+        if not errs[s] <= VISION_OP_TOL:
+            raise RuntimeError(f"{op} {s}: card vs CPU {errs[s]} of the max "
+                               f"(> {VISION_OP_TOL})")
+    for s in diff:
+        want, got = cpu_g[s], card_g[s]
+        err = float(np.abs(got - want).max()) / (
+            float(np.abs(want).max()) or 1.0)
+        errs["grad " + s] = err
+        if not err <= LSTM_GRAD_TOL:
+            raise RuntimeError(f"{op} grad {s}: card vs CPU {err} of the max "
+                               f"(> {LSTM_GRAD_TOL})")
+    return {"errs": errs, "card_forward_ms": forward_ms()}
+
+
+def _boxes_np(rng, *lead, hi=1.0):
+    import numpy as np
+
+    lo = rng.uniform(0.0, hi, lead + (2,)).astype(np.float32)
+    wh = rng.uniform(0.02, 0.4, lead + (2,)).astype(np.float32)
+    return np.concatenate([lo, lo + wh], axis=-1)
+
+
+def vision_op_cases(rng):
+    """(name, op, inputs, attrs, differentiable slots, index outputs) at
+    the shapes the image and SSD paths give the ops."""
+    import numpy as np
+
+    def randn(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    vol = randn(2, 64, 16, 56, 56)
+    pool_in = randn(32, 64, 112, 112)
+    pooled = np.asarray(rng.randn(32, 64, 56, 56), np.float32)
+    # the positions a 2x2/2 indexed pool of [112, 112] records: one per
+    # window, so no two values land on one cell
+    wins = rng.randint(0, 2, (2, 32, 64, 56, 56))
+    rows = np.arange(56)[:, None] * 2 + wins[0]
+    cols = np.arange(56)[None, :] * 2 + wins[1]
+    positions = (rows * 112 + cols).astype(np.int32)
+    rois = np.concatenate([rng.randint(0, 2, (128, 1)).astype(np.float32),
+                           _boxes_np(rng, 128, hi=0.6) * 300], axis=1)
+    prior = _boxes_np(rng, SSD_PRIORS)
+    pvar = np.tile(np.array([0.1, 0.1, 0.2, 0.2], np.float32),
+                   (SSD_PRIORS, 1))
+    gtb = _boxes_np(rng, 8, 8, hi=0.5)
+    iou = np.asarray(rng.rand(8, 8, SSD_PRIORS) * 0.8, np.float32)
+    match = np.where(rng.rand(8, SSD_PRIORS) < 0.02,
+                     rng.randint(0, 8, (8, SSD_PRIORS)), -1).astype(np.int32)
+    det = np.full((8, 200, 6), -1.0, np.float32)
+    det[:, :150, 0] = rng.randint(1, 21, (8, 150))
+    det[:, :150, 1] = rng.rand(8, 150)
+    det[:, :150, 2:] = _boxes_np(rng, 8, 150, hi=0.6)
+    gt = np.concatenate([rng.randint(1, 21, (8, 8, 1)).astype(np.float32),
+                         gtb, np.zeros((8, 8, 1), np.float32)], axis=-1)
+    return [
+        ("conv2d_transpose [8,256,32,32] -> 128, k4 s2 p1",
+         "conv2d_transpose", {"Input": randn(8, 256, 32, 32),
+                              "Filter": randn(256, 128, 4, 4) * 0.05},
+         {"strides": [2, 2], "paddings": [1, 1]}, ["Input", "Filter"], ()),
+        ("conv3d [2,64,16,56,56] -> 64, k3 p1", "conv3d",
+         {"Input": vol, "Filter": randn(64, 64, 3, 3, 3) * 0.05},
+         {"paddings": [1, 1, 1]}, ["Input", "Filter"], ()),
+        ("conv3d_transpose [2,64,16,56,56] -> 32, k3 p1",
+         "conv3d_transpose", {"Input": vol,
+                              "Filter": randn(64, 32, 3, 3, 3) * 0.05},
+         {"paddings": [1, 1, 1]}, ["Input", "Filter"], ()),
+        ("depthwise_conv2d [32,256,56,56] k3 p1", "depthwise_conv2d",
+         {"Input": randn(32, 256, 56, 56), "Filter": randn(256, 1, 3, 3)},
+         {"paddings": [1, 1]}, ["Input", "Filter"], ()),
+        ("lrn [128,96,54,54] n5 (AlexNet's norm1)", "lrn",
+         {"X": randn(128, 96, 54, 54)},
+         {"n": 5, "k": 1.0, "alpha": 1e-4, "beta": 0.75}, ["X"], ()),
+        ("l2_normalize [8,512,38,38] axis 1 (SSD's conv4_3)",
+         "l2_normalize", {"X": randn(8, 512, 38, 38)}, {"axis": 1}, ["X"],
+         ()),
+        ("pad [8,64,56,56] by 1", "pad", {"X": pooled[:8]},
+         {"paddings": [0, 0, 0, 0, 1, 1, 1, 1], "pad_value": 0.0}, ["X"],
+         ()),
+        ("crop [8,64,56,56] -> 54x54 at 1,1", "crop", {"X": pooled[:8]},
+         {"offsets": [0, 0, 1, 1], "shape": [-1, 64, 54, 54]}, ["X"], ()),
+        ("maxout [32,256,28,28] groups 2", "maxout",
+         {"X": randn(32, 256, 28, 28)}, {"groups": 2}, ["X"], ()),
+        ("pool3d max [2,64,16,56,56] k2 s2", "pool3d", {"X": vol},
+         {"pooling_type": "max", "ksize": [2, 2, 2], "strides": [2, 2, 2]},
+         ["X"], ()),
+        ("pool3d avg exclusive [2,64,16,56,56] k3 s2 p1 ceil", "pool3d",
+         {"X": vol}, {"pooling_type": "avg", "ksize": [3, 3, 3],
+                      "strides": [2, 2, 2], "paddings": [1, 1, 1],
+                      "ceil_mode": True}, ["X"], ()),
+        ("max_pool2d_with_index [32,64,112,112] k3 s2 p1",
+         "max_pool2d_with_index", {"X": pool_in},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]}, ["X"],
+         ("Mask",)),
+        ("max_pool3d_with_index [2,64,16,56,56] k2 s2",
+         "max_pool3d_with_index", {"X": vol},
+         {"ksize": [2, 2, 2], "strides": [2, 2, 2]}, ["X"], ("Mask",)),
+        ("unpool [32,64,56,56] -> 112x112", "unpool",
+         {"X": pooled, "Indices": positions},
+         {"ksize": [2, 2], "strides": [2, 2]}, ["X"], ()),
+        ("spp [8,256,13,13] height 3 max", "spp",
+         {"X": randn(8, 256, 13, 13)},
+         {"pyramid_height": 3, "pooling_type": "max"}, ["X"], ()),
+        ("roi_pool 128 ROIs on [2,512,38,38], 7x7, scale 38/300",
+         "roi_pool", {"X": randn(2, 512, 38, 38), "ROIs": rois},
+         {"pooled_height": 7, "pooled_width": 7,
+          "spatial_scale": 38.0 / 300}, ["X"], ("Argmax",)),
+        ("bilinear_interp [8,256,32,32] -> 64x64", "bilinear_interp",
+         {"X": randn(8, 256, 32, 32)}, {"out_h": 64, "out_w": 64}, ["X"],
+         ()),
+        ("nearest_interp [8,256,32,32] -> 64x64", "nearest_interp",
+         {"X": randn(8, 256, 32, 32)}, {"out_h": 64, "out_w": 64}, ["X"],
+         ()),
+        ("smooth_l1_loss [8,8732,4]", "smooth_l1_loss",
+         {"X": randn(8, SSD_PRIORS, 4), "Y": randn(8, SSD_PRIORS, 4)}, {},
+         ["X", "Y"], ()),
+        ("huber_loss [8,8732,4]", "huber_loss",
+         {"X": randn(8, SSD_PRIORS, 4), "Y": randn(8, SSD_PRIORS, 4)}, {},
+         ["X", "Y"], ()),
+        ("iou_similarity [8,8,4] x [8732,4]", "iou_similarity",
+         {"X": gtb, "Y": prior}, {}, [], ()),
+        ("prior_box 38x38 map of a 300 image", "prior_box",
+         {"Input": np.zeros((1, 1, 38, 38), np.float32),
+          "Image": np.zeros((1, 1, 300, 300), np.float32)},
+         {"min_sizes": [30.0], "max_sizes": [60.0], "aspect_ratios": [2.0],
+          "flip": True, "clip": False}, [], ()),
+        ("box_coder encode [8,8732,4] paired", "box_coder",
+         {"PriorBox": prior, "PriorBoxVar": pvar,
+          "TargetBox": _boxes_np(rng, 8, SSD_PRIORS)},
+         {"code_type": "encode_center_size"}, [], ()),
+        ("box_coder decode [8,8732,4]", "box_coder",
+         {"PriorBox": prior, "PriorBoxVar": pvar,
+          "TargetBox": randn(8, SSD_PRIORS, 4)},
+         {"code_type": "decode_center_size"}, [], ()),
+        ("bipartite_match [8,8,8732] per_prediction", "bipartite_match",
+         {"DistMat": iou}, {"match_type": "per_prediction",
+                            "dist_threshold": 0.5}, [],
+         ("ColToRowMatchIndices", "ColToRowMatchDist")),
+        ("target_assign [8,8,4] by [8,8732]", "target_assign",
+         {"X": gtb, "MatchIndices": match}, {"mismatch_value": 0}, [],
+         ("Out", "OutWeight")),
+        ("mine_hard_examples [8,8732]", "mine_hard_examples",
+         {"ClsLoss": np.asarray(rng.rand(8, SSD_PRIORS), np.float32),
+          "MatchIndices": match,
+          "MatchDist": np.asarray(rng.rand(8, SSD_PRIORS), np.float32)},
+         {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5}, [],
+         ("NegIndices", "UpdatedMatchIndices")),
+        ("multiclass_nms [8,8732] x 21 classes, top 400, keep 200",
+         "multiclass_nms",
+         {"BBoxes": _boxes_np(rng, 8, SSD_PRIORS),
+          "Scores": np.asarray(rng.rand(8, 21, SSD_PRIORS) ** 4,
+                               np.float32)},
+         dict(SSD_NMS, score_threshold=0.01), [], ("Out",)),
+        ("detection_map [8,200,6] vs [8,8,6]", "detection_map",
+         {"DetectRes": det, "Label": gt}, {"class_num": 21}, [],
+         ("MAP",)),
+    ]
+
+
+def vision_ops_phase(torch):
+    """Every op of the slice, card against CPU (see VISION_OP_TOL), each
+    at a shape its path gives it; the card's forward ms beside it."""
+    import numpy as np
+
+    rng = np.random.RandomState(2031)
+    out = {}
+    for name, op, ins, attrs, diff, index_outs in vision_op_cases(rng):
+        out[name] = _op_card_cpu(torch, op, ins, attrs, diff, index_outs)
+        out[name]["op"] = op
+    ops = {v["op"] for v in out.values()}
+    log("  vision ops " + json.dumps(out))
+    return {"cases": len(out), "op_types": len(ops),
+            "worst": max(e for v in out.values() for e in v["errs"].values()
+                         ) if out else None, "by_case": out}
+
+
+def vision_phase(torch):
+    """The image and vision slice on the card: AlexNet, GoogLeNet and
+    SmallNet at the reference's benchmark configurations, SSD300 with
+    its post-processing, and every new op card against CPU."""
+    phase("vision")
+    t0 = time.perf_counter()
+    out = {name: _vision_model_run(torch, name) for name in VISION_MODELS}
+    out["ssd300"] = _ssd_run(torch)
+    out["ops"] = vision_ops_phase(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log("  vision " + json.dumps({
+        k: {m: v[m] for m in ("p50_step_ms_after_first", "images_per_s",
+                              "device_launches_a_step", "busy_share",
+                              "peak_memory_allocated_gb", "seconds")}
+        for k, v in out.items() if k in VISION_MODELS or k == "ssd300"}))
+    log("  vision ssd300 post " + json.dumps(out["ssd300"]["post"]))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -6502,6 +7182,7 @@ def main():
                     "seq2seq": seq2seq_phase(torch)}
     recipe = train_recipe_phase(torch)
     text_book = text_book_phase(torch)
+    vision = vision_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -6527,6 +7208,10 @@ def main():
         k: {m: v[m] for m in ("p50_step_ms_after_first", "tokens_per_s",
                               "device_launches_a_step", "busy_share")}
         for k, v in text_book.items()}))
+    log("  vision paths (no kernel of the port on them) " + json.dumps({
+        k: {m: v[m] for m in ("p50_step_ms_after_first", "images_per_s",
+                              "device_launches_a_step", "busy_share")}
+        for k, v in vision.items() if k in VISION_MODELS or k == "ssd300"}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

@@ -5,7 +5,9 @@ ones the Transformer, fit_a_line, the image-classification training
 (ResNet, LeNet, VGG), fused ResNet inference and the control-flow
 programs (DynamicRNN LSTM, machine translation, seq2seq) and the text
 chapters (``lstm_unit``, ``cos_sim``, ``edit_distance``, ``chunk_eval``,
-``warpctc``, ``row_conv``, ``im2sequence``) call, copied from
+``warpctc``, ``row_conv``, ``im2sequence``) and the image and detection
+programs (``conv2d_transpose``, ``lrn``, ``pad``, ``l2_normalize``,
+``smooth_l1``, ``split``) call, copied from
 ``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported yet."""
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ __all__ = [
     "cross_entropy", "reduce_sum", "reduce_mean", "reduce_max",
     "reduce_min", "reduce_prod", "scale", "expand", "clip", "clip_by_norm",
     "autoincreased_step_counter", "im2sequence", "cos_sim", "edit_distance",
-    "chunk_eval", "warpctc", "row_conv", "lstm_unit",
+    "chunk_eval", "warpctc", "row_conv", "lstm_unit", "conv2d_transpose",
+    "lrn", "pad", "l2_normalize", "smooth_l1", "split",
 ]
 
 
@@ -192,6 +195,59 @@ def _append_channel_bias(helper, pre_bias):
         attrs={"axis": 1},
     )
     return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """reference layers/nn.py:1710. Filter layout [in_c, out_c/groups,
+    kh, kw] (the conv_transpose convention — conv2d's is flipped). With
+    no ``filter_size``, the filter that gives ``output_size``."""
+    helper = LayerHelper(
+        "conv2d_transpose", param_attr=param_attr, bias_attr=bias_attr,
+        act=act, name=name,
+    )
+    dtype = input.dtype
+
+    def _pair(v):
+        return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is None")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1,
+        ]
+    else:
+        filter_size = _pair(filter_size)
+    groups = groups or 1
+    if num_filters % groups != 0:
+        raise ValueError("num_filters must be divisible by groups")
+    if input.shape[1] % groups != 0:
+        raise ValueError(
+            f"input channels ({input.shape[1]}) must be divisible by "
+            f"groups ({groups})")
+    filter_shape = [input.shape[1], num_filters // groups] + filter_size
+    w = helper.create_parameter(helper.param_attr, filter_shape, dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups},
+    )
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
@@ -767,3 +823,75 @@ def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
         attrs={"forget_bias": float(forget_bias)},
     )
     return h, c
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper("split", name=name)
+    dim = dim if dim >= 0 else len(input.shape) + dim
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = 0
+        sections = list(num_or_sections)
+    n_out = num if num else len(sections)
+    outs = [
+        helper.create_variable_for_type_inference(input.dtype)
+        for _ in range(n_out)
+    ]
+    helper.append_op(
+        type="split", inputs={"X": [input]}, outputs={"Out": outs},
+        attrs={"num": num, "sections": sections, "axis": dim},
+    )
+    return outs
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="l2_normalize", inputs={"X": [x]},
+        outputs={"Out": [out], "Norm": [norm]},
+        attrs={"axis": axis, "epsilon": epsilon},
+    )
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(
+        type="smooth_l1_loss", inputs=inputs,
+        outputs={"Diff": [diff], "Out": [out]},
+        attrs={"sigma": sigma if sigma is not None else 1.0},
+    )
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper("lrn", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="lrn", inputs={"X": [input]},
+        outputs={"Out": [out], "MidOut": [mid]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta},
+    )
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"paddings": list(paddings), "pad_value": float(pad_value)},
+    )
+    return out

@@ -1,12 +1,13 @@
 """Composite network helpers (reference python/paddle/fluid/nets.py): the
-image-classification ones and the text chapters' ``sequence_conv_pool``,
-copied from ``paddle_tpu/fluid/nets.py``. ``glu`` and
-``scaled_dot_product_attention`` are not ported yet."""
+image-classification ones, ``glu``, ``scaled_dot_product_attention`` and
+the text chapters' ``sequence_conv_pool``, copied from
+``paddle_tpu/fluid/nets.py``."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+           "scaled_dot_product_attention", "sequence_conv_pool"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -58,6 +59,45 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
         input=tmp, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride,
     )
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: the first half of ``dim`` times the sigmoid of
+    the second."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """reference nets.py:345 — multi-head scaled dot-product attention on
+    [batch, seq, dim] tensors."""
+    if not (len(queries.shape) == len(keys.shape) == len(values.shape) == 3):
+        raise ValueError("inputs must be 3-D [batch, seq, dim]")
+    d_k = queries.shape[-1] // num_heads
+
+    def _split_heads(x):
+        if num_heads == 1:
+            return x
+        reshaped = layers.reshape(
+            x, shape=[0, 0, num_heads, x.shape[-1] // num_heads]
+        )
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def _combine_heads(x):
+        if num_heads == 1:
+            return x
+        t = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(t, shape=[0, 0, t.shape[2] * t.shape[3]])
+
+    q, k, v = _split_heads(queries), _split_heads(keys), _split_heads(values)
+    scaled_q = layers.scale(q, scale=d_k ** -0.5)
+    product = layers.matmul(scaled_q, k, transpose_y=True)
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate)
+    ctx = layers.matmul(weights, v)
+    return _combine_heads(ctx)
 
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,

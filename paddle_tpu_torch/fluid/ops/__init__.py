@@ -9,7 +9,11 @@ reductions, and Fluid control flow (``while``, ``conditional_block``,
 the JAX package (dense gradients), and the recurrent, sequence, CRF, CTC
 and text-metric ops of the book's text chapters (``gru``, ``lstmp``, the
 LoD family, ``linear_chain_crf``, ``warpctc``, ``edit_distance``,
-``chunk_eval``, ...). Any other op type raises "no emitter registered ...
+``chunk_eval``, ...), and the image and vision breadth (the conv
+transposes, ``conv3d``, ``depthwise_conv2d``, the 3-D and indexed pools,
+``unpool``, ``lrn``, ``spp``, ``roi_pool``, the resizes) with the SSD
+detection ops (``prior_box``, ``box_coder``, ``bipartite_match``,
+``multiclass_nms``, ``detection_map``, ...). Any other op type raises "no emitter registered ...
 (not yet ported)" when a program containing it is built or run."""
 from . import (  # noqa: F401
     activations,
@@ -19,6 +23,7 @@ from . import (  # noqa: F401
     control_flow,
     crf_ops,
     ctc_ops,
+    detection_ops,
     elementwise,
     loss_ops,
     math_ops,

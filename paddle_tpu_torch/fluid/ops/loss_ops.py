@@ -1,5 +1,6 @@
 """Loss ops (reference paddle/fluid/operators/cross_entropy_op.cc,
-softmax_with_cross_entropy_op.cc)."""
+softmax_with_cross_entropy_op.cc, smooth_l1_loss_op.cc,
+huber_loss_op.cc)."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +42,35 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
         loss = -torch.take_along_dim(
             logp, _squeeze_label(label)[..., None].long(), dim=-1)
     return {"Softmax": torch.exp(logp), "Loss": loss}
+
+
+@register_op("smooth_l1_loss", no_grad=("InsideWeight", "OutsideWeight"),
+             ref="paddle/fluid/operators/smooth_l1_loss_op.cc")
+def smooth_l1_loss(ctx, ins, attrs):
+    """Per-row sum of the smooth L1 of (X - Y) * InsideWeight at sigma,
+    times OutsideWeight: Out [N, 1], Diff the weighted difference."""
+    x, y = one(ins, "X"), one(ins, "Y")
+    iw, ow = one(ins, "InsideWeight"), one(ins, "OutsideWeight")
+    sigma = float(attrs.get("sigma", 1.0))
+    s2 = sigma * sigma
+    d = x - y
+    if iw is not None:
+        d = d * iw
+    ad = torch.abs(d)
+    diff = torch.where(ad < 1.0 / s2, 0.5 * s2 * d * d, ad - 0.5 / s2)
+    if ow is not None:
+        diff = diff * ow
+    out = diff.reshape(diff.shape[0], -1).sum(dim=1, keepdim=True)
+    return {"Out": out, "Diff": d}
+
+
+@register_op("huber_loss", ref="paddle/fluid/operators/huber_loss_op.cc")
+def huber_loss(ctx, ins, attrs):
+    """Elementwise Huber loss of the residual Y - X at ``delta``; the
+    residual is the second output (``ssd_loss``'s location loss)."""
+    x, y = one(ins, "X"), one(ins, "Y")
+    delta = float(attrs.get("delta", 1.0))
+    r = y - x
+    ar = torch.abs(r)
+    out = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": out, "Residual": r}

@@ -1,12 +1,13 @@
-"""NN ops (reference paddle/fluid/operators/{conv,batch_norm,layer_norm,
-softmax,pool,sequence_softmax,im2sequence}_op.cc, conv_mkldnn_op.cc): the
-ones the Transformer, the image-classification training, the fused ResNet
-inference and the text paths run.
-Layouts are NCHW, as in the JAX package. ``conv2d``, ``batch_norm`` and
-``pool2d`` are what the JAX package leaves to XLA: here cuDNN
-(``F.conv2d``) and PyTorch's own CUDA ops on a card. Under
-FLAGS['amp'] ``conv2d`` and ``conv2d_bn_relu`` take bfloat16 operands
-(``amp_operands``), as the JAX package's do."""
+"""NN ops (reference paddle/fluid/operators/{conv,conv_transpose,
+batch_norm,layer_norm,softmax,pool,lrn,norm,sequence_softmax,
+im2sequence}_op.cc, conv_mkldnn_op.cc): the ones the Transformer, the
+image-classification and detection training, the fused ResNet inference
+and the text paths run.
+Layouts are NC(D)HW, as in the JAX package. The convolutions,
+``batch_norm`` and the pools are what the JAX package leaves to XLA:
+here cuDNN (``F.conv*``) and PyTorch's own CUDA ops on a card. Under
+FLAGS['amp'] every convolution and ``conv2d_bn_relu`` take bfloat16
+operands (``amp_operands``), as the JAX package's do."""
 from __future__ import annotations
 
 import contextlib
@@ -28,10 +29,10 @@ def _pair(v, n=2):
     return [int(v)] * n
 
 
-def _conv_args(attrs):
-    return (_pair(attrs.get("strides", [1, 1])),
-            _pair(attrs.get("paddings", [0, 0])),
-            _pair(attrs.get("dilations", [1, 1])),
+def _conv_args(attrs, nd=2):
+    return (_pair(attrs.get("strides", [1] * nd), nd),
+            _pair(attrs.get("paddings", [0] * nd), nd),
+            _pair(attrs.get("dilations", [1] * nd), nd),
             int(attrs.get("groups", 1) or 1))
 
 
@@ -44,36 +45,97 @@ def _conv_algorithms(x):
     return contextlib.nullcontext()
 
 
-def _conv2d_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
-    """dInput and dFilter in one ``convolution_backward`` call — what
-    autograd would call — under the forward's algorithm choice. Under
-    FLAGS['amp'] it runs on the forward's bfloat16 operands with the
-    cotangent rounded to bfloat16, and dInput and dFilter come back
-    float32: the JAX ``vjp`` through the casts of ``amp_operands``."""
-    x, w, restore = amp_operands(fwd_ins["Input"][0], fwd_ins["Filter"][0])
-    dy = out_grads["Output"][0].to(x.dtype)
-    strides, paddings, dilations, groups = _conv_args(attrs)
+def _conv_operands(ins, attrs, nd, depthwise):
+    """Input and Filter through ``amp_operands``, the restore dtype and
+    the (strides, paddings, dilations, groups) of the op; a depthwise
+    conv takes one group a channel, as the JAX op does."""
+    x, w, restore = amp_operands(one(ins, "Input"), one(ins, "Filter"))
+    strides, paddings, dilations, groups = _conv_args(attrs, nd)
+    if depthwise:
+        groups = x.shape[1]
+    return x, w, restore, (strides, paddings, dilations, groups)
+
+
+def _conv_grad(nd, transposed=False, depthwise=False):
+    """The grad emitter of a convolution op: dInput and dFilter in one
+    ``convolution_backward`` call — what autograd would call — under the
+    forward's algorithm choice. Under FLAGS['amp'] it runs on the
+    forward's bfloat16 operands with the cotangent rounded to bfloat16,
+    and dInput and dFilter come back float32: the JAX ``vjp`` through
+    the casts of ``amp_operands``."""
+    def grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
+        x, w, restore, (strides, paddings, dilations, groups) = \
+            _conv_operands(fwd_ins, attrs, nd, depthwise)
+        dy = out_grads["Output"][0].to(x.dtype)
+        with _conv_algorithms(x):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                dy, x, w, None, strides, paddings, dilations, transposed,
+                [0] * nd, groups, [True, True, False])
+        return {"GRAD@Input": restored(dx, restore),
+                "GRAD@Filter": restored(dw, restore)}
+    return grad
+
+
+def _conv(ins, attrs, nd, depthwise=False):
+    """NC(D)HW input, O I/groups (D)HW filter, symmetric padding, as the
+    JAX package's ``conv_general_dilated``: cuDNN on a card, in full
+    float32 under the Executor's default ``matmul_precision``; under
+    FLAGS['amp'] in bfloat16 (float32 accumulation), the output restored
+    to float32."""
+    x, w, restore, args = _conv_operands(ins, attrs, nd, depthwise)
+    conv = F.conv2d if nd == 2 else F.conv3d
     with _conv_algorithms(x):
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            dy, x, w, None, strides, paddings, dilations, False, [0, 0],
-            groups, [True, True, False])
-    return {"GRAD@Input": restored(dx, restore),
-            "GRAD@Filter": restored(dw, restore)}
+        out = conv(x, w, None, *args)
+    return {"Output": restored(out, restore)}
 
 
-@register_op("conv2d", grad=_conv2d_grad,
+@register_op("conv2d", grad=_conv_grad(2),
              ref="paddle/fluid/operators/conv_op.cc")
 def conv2d(ctx, ins, attrs):
-    """NCHW input, OIHW filter (``[F, C/groups, KH, KW]``), symmetric
-    padding, as the JAX package's ``conv_general_dilated``. cuDNN on a
-    card, in full float32 under the Executor's default
-    ``matmul_precision``; under FLAGS['amp'] in bfloat16 (float32
-    accumulation), the output restored to float32."""
-    x, w, restore = amp_operands(one(ins, "Input"), one(ins, "Filter"))
-    strides, paddings, dilations, groups = _conv_args(attrs)
+    """NCHW input, OIHW filter (``[F, C/groups, KH, KW]``); see
+    ``_conv``."""
+    return _conv(ins, attrs, 2)
+
+
+@register_op("depthwise_conv2d", grad=_conv_grad(2, depthwise=True),
+             ref="paddle/fluid/operators/conv_op.cc (depthwise)")
+def depthwise_conv2d(ctx, ins, attrs):
+    """conv2d with one group a channel, whatever ``groups`` says (the
+    JAX op sets it from the input)."""
+    return _conv(ins, attrs, 2, depthwise=True)
+
+
+@register_op("conv3d", grad=_conv_grad(3),
+             ref="paddle/fluid/operators/conv_op.cc")
+def conv3d(ctx, ins, attrs):
+    return _conv(ins, attrs, 3)
+
+
+def _conv_transpose_nd(ins, attrs, nd):
+    """conv{2,3}d_transpose: the adjoint of the convolution, filter
+    ``[in_c, out_c/groups, *k]`` (the reference's layout, which is
+    ``F.conv_transpose{2,3}d``'s own), output extent ``(in - 1) * s - 2p
+    + d * (k - 1) + 1``. The JAX package builds it from a dilated
+    correlation with the flipped filter; cuDNN computes the same
+    function."""
+    x, w, restore, (strides, paddings, dilations, groups) = \
+        _conv_operands(ins, attrs, nd, False)
+    conv = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
     with _conv_algorithms(x):
-        out = F.conv2d(x, w, None, strides, paddings, dilations, groups)
+        out = conv(x, w, None, strides, paddings, 0, groups, dilations)
     return {"Output": restored(out, restore)}
+
+
+@register_op("conv2d_transpose", grad=_conv_grad(2, transposed=True),
+             ref="paddle/fluid/operators/conv_transpose_op.cc")
+def conv2d_transpose(ctx, ins, attrs):
+    return _conv_transpose_nd(ins, attrs, 2)
+
+
+@register_op("conv3d_transpose", grad=_conv_grad(3, transposed=True),
+             ref="paddle/fluid/operators/conv_transpose_op.cc")
+def conv3d_transpose(ctx, ins, attrs):
+    return _conv_transpose_nd(ins, attrs, 3)
 
 
 @register_op("batch_norm", no_grad=("Mean", "Variance"),
@@ -184,38 +246,44 @@ def _ceil_extra(dim, k, s, p):
     return max((ceil_out - 1) * s + k - (dim + 2 * p), 0)
 
 
-def _pool2d(x, pooling_type, ksize, strides, paddings, global_pooling,
-            exclusive, ceil_mode=False):
-    """The JAX package's ``_pool_nd`` for two spatial dims: max pooling
-    pads with -inf, average pooling sums the window and divides by the
-    count of real cells (``exclusive``) or by the window size."""
+def _pool_nd(x, pooling_type, ksize, strides, paddings, global_pooling,
+             exclusive, ceil_mode=False):
+    """The JAX package's ``_pool_nd`` over the spatial dims of x [N, C,
+    *spatial] (two or three): max pooling pads with -inf, average
+    pooling sums the window and divides by the count of real cells
+    (``exclusive``) or by the window size. The padding is explicit, so
+    any padding works (``F.max_pool*d`` refuses more than half the
+    window)."""
+    nd = x.ndim - 2
     if global_pooling:
-        ksize = list(x.shape[2:4])
-        paddings = [0, 0]
-        strides = [1, 1]
+        ksize = list(x.shape[2:])
+        paddings = [0] * nd
+        strides = [1] * nd
     extra = [_ceil_extra(x.shape[2 + i], ksize[i], strides[i], paddings[i])
-             if ceil_mode else 0 for i in range(2)]
-    # F.pad lists the last dim first: (w lo, w hi, h lo, h hi)
-    pad = (paddings[1], paddings[1] + extra[1],
-           paddings[0], paddings[0] + extra[0])
+             if ceil_mode else 0 for i in range(nd)]
+    # F.pad lists the last dim first: (w lo, w hi, h lo, h hi, ...)
+    pad = []
+    for i in reversed(range(nd)):
+        pad += [paddings[i], paddings[i] + extra[i]]
     if pooling_type == "max":
         low = (-math.inf if x.is_floating_point()
                else torch.iinfo(x.dtype).min)
-        return F.max_pool2d(F.pad(x, pad, value=low), ksize, strides)
+        max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+        return max_pool(F.pad(x, pad, value=low), ksize, strides)
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
 
     def window_sum(t):
-        return F.avg_pool2d(F.pad(t, pad), ksize, strides,
-                            divisor_override=1)
+        return avg_pool(F.pad(t, pad), ksize, strides, divisor_override=1)
 
     s = window_sum(x)
     if exclusive:
         return s / window_sum(torch.ones_like(x[:1, :1]))
-    return s / float(ksize[0] * ksize[1])
+    return s / float(math.prod(ksize))
 
 
 @register_op("pool2d", ref="paddle/fluid/operators/pool_op.cc")
 def pool2d(ctx, ins, attrs):
-    out = _pool2d(
+    out = _pool_nd(
         one(ins, "X"),
         str(attrs.get("pooling_type", "max")),
         _pair(attrs.get("ksize", [2, 2])),
@@ -247,6 +315,39 @@ def sequence_softmax(ctx, ins, attrs):
     valid = valid.reshape(tuple(valid.shape) + (1,) * (x.ndim - 2))
     out = torch.softmax(x.masked_fill(~valid, float("-inf")), dim=1)
     return {"Out": torch.where(valid, out, torch.zeros_like(out))}
+
+
+@register_op("lrn", ref="paddle/fluid/operators/lrn_op.cc")
+def lrn(ctx, ins, attrs):
+    """Local response norm across channels, as the JAX op: Out = X /
+    MidOut^beta, MidOut = k + alpha * (the sum of x^2 over n channels,
+    the window padded (n // 2, n - 1 - n // 2) so an even n keeps the
+    channel count). ``alpha`` is not divided by ``n``, which
+    ``F.local_response_norm`` does. The op's default ``k`` is 2.0; the
+    layer passes 1.0."""
+    x = one(ins, "X")
+    n = int(attrs.get("n", 5))
+    k = float(attrs.get("k", 2.0))
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    half = n // 2
+    sq = F.pad(torch.square(x), (0, 0, 0, 0, half, n - 1 - half))
+    acc = F.avg_pool3d(sq[:, None], (n, 1, 1), 1, divisor_override=1)[:, 0]
+    mid = k + alpha * acc
+    return {"Out": x / torch.pow(mid, beta), "MidOut": mid}
+
+
+@register_op("l2_normalize", ref="paddle/fluid/operators/norm_op.cc")
+def l2_normalize(ctx, ins, attrs):
+    """X over its L2 norm along ``axis``, the norm held at ``epsilon``
+    from below by ``torch.maximum`` (a tie splits the gradient, as
+    ``jnp.maximum``'s does)."""
+    x = one(ins, "X")
+    axis = int(attrs.get("axis", -1))
+    eps = float(attrs.get("epsilon", 1e-10))
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=axis, keepdim=True))
+    return {"Out": x / torch.maximum(norm, norm.new_tensor(eps)),
+            "Norm": norm}
 
 
 @register_op("im2sequence", ref="paddle/fluid/operators/im2sequence_op.cc")

@@ -126,6 +126,33 @@ def expand(ctx, ins, attrs):
     return {"Out": one(ins, "X").tile([int(t) for t in attrs["expand_times"]])}
 
 
+@register_op("pad", ref="paddle/fluid/operators/pad_op.cc")
+def pad(ctx, ins, attrs):
+    """``paddings`` [before_0, after_0, before_1, ...] per dim, filled
+    with ``pad_value``."""
+    x = one(ins, "X")
+    p = [int(v) for v in attrs["paddings"]]
+    pairs = []
+    for d in reversed(range(x.ndim)):  # F.pad lists the last dim first
+        pairs += [p[2 * d], p[2 * d + 1]]
+    return {"Out": torch.nn.functional.pad(
+        x, pairs, value=float(attrs.get("pad_value", 0.0)))}
+
+
+@register_op("crop", ref="paddle/fluid/operators/crop_op.cc")
+def crop(ctx, ins, attrs):
+    """The ``shape`` window at ``offsets``; a -1 in ``shape`` keeps the
+    rest of that dim. Offsets clamp so the window fits, as
+    ``jax.lax.dynamic_slice``'s do."""
+    x = one(ins, "X")
+    offsets = [int(v) for v in attrs.get("offsets", [0] * x.ndim)]
+    shape = [x.shape[d] - offsets[d] if int(v) == -1 else int(v)
+             for d, v in enumerate(attrs["shape"])]
+    for d, (o, n) in enumerate(zip(offsets, shape)):
+        x = x.narrow(d, min(max(o, 0), x.shape[d] - n), n)
+    return {"Out": x}
+
+
 @register_op("sequence_mask", no_grad=("X", "MaxLenRef"),
              ref="paddle/fluid/operators/sequence_ops (era: created for "
                  "padding)")

@@ -1,16 +1,202 @@
-"""Vision-file ops (reference paddle/fluid/operators/{row_conv,lstmp}_op.*):
-the counterpart of ``paddle_tpu/fluid/ops/vision_ops.py`` for the two ops
-the text paths run, ``row_conv`` and ``lstmp``. As in the JAX package's
-``lstm``, the recurrence is a Python loop over the time steps (the JAX op's
-``lax.scan``) and its gradient is autograd's; on ``meta`` (shape
-inference) it returns the output shapes without stepping."""
+"""Vision-file ops (reference paddle/fluid/operators/{maxout,unpool,spp,
+roi_pool,row_conv,lstmp,pool_with_index,bilinear_interp}_op.* and
+pool_op.cc's 3-D path): the counterpart of
+``paddle_tpu/fluid/ops/vision_ops.py``. The pools, resizes and ROI pool
+are dense NC(D)HW with static shapes, batched over every image and ROI
+(no host loop); the index outputs come from PyTorch's max pools with
+their indices, mapped back to the unpadded positions. As in the JAX
+package's ``lstm``, ``lstmp``'s recurrence is a Python loop over the
+time steps (the JAX op's ``lax.scan``) and its gradient is autograd's;
+on ``meta`` (shape inference) it returns the output shapes without
+stepping."""
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from ..registry import register_op
 from .common import one
+from .nn_ops import _pool_nd
 from .sequence_ops import _ACTS, _full_lengths, _mask
+
+
+@register_op("maxout", ref="paddle/fluid/operators/maxout_op.cc")
+def maxout(ctx, ins, attrs):
+    """The max over each run of ``groups`` channels. ``amax`` splits the
+    gradient evenly among tied entries, as ``jnp.max``'s does."""
+    x = one(ins, "X")  # [N, C, H, W]
+    groups = int(attrs["groups"])
+    n, c, h, w = x.shape
+    return {"Out": x.reshape(n, c // groups, groups, h, w).amax(dim=2)}
+
+
+def _tuple_n(v, n):
+    v = list(v) if isinstance(v, (list, tuple)) else [v]
+    if len(v) == 1:
+        v = v * n
+    return [int(a) for a in v]
+
+
+def _pool_args(x, attrs, nd):
+    """(ksize, strides, paddings) of a pool op; a global pool's window is
+    the whole map."""
+    if bool(attrs.get("global_pooling", False)):
+        return list(x.shape[2:]), [1] * nd, [0] * nd
+    return (_tuple_n(attrs.get("ksize", [2] * nd), nd),
+            _tuple_n(attrs.get("strides", [1] * nd), nd),
+            _tuple_n(attrs.get("paddings", [0] * nd), nd))
+
+
+@register_op("pool3d", ref="paddle/fluid/operators/pool_op.cc")
+def pool3d(ctx, ins, attrs):
+    x = one(ins, "X")  # [N, C, D, H, W]
+    return {"Out": _pool_nd(
+        x, str(attrs.get("pooling_type", "max")),
+        _tuple_n(attrs.get("ksize", [2, 2, 2]), 3),
+        _tuple_n(attrs.get("strides", [1, 1, 1]), 3),
+        _tuple_n(attrs.get("paddings", [0, 0, 0]), 3),
+        bool(attrs.get("global_pooling", False)),
+        bool(attrs.get("exclusive", True)),
+        ceil_mode=bool(attrs.get("ceil_mode", False)))}
+
+
+def _max_pool_with_index(x, ksize, strides, paddings):
+    """(pooled, Mask) over the spatial dims of x [N, C, *spatial]: Mask
+    holds the flat position of each window's max over the UNPADDED
+    spatial dims (row-major), int32, and -1 for a window that lies wholly
+    in padding (its value -inf). The first position of a tie wins, as in
+    the JAX op's reduce. The padding is explicit (-inf), and the
+    positions pad with -1, so PyTorch's indices into the padded map
+    translate back by one gather."""
+    nd = x.ndim - 2
+    pad = []
+    for i in reversed(range(nd)):
+        pad += [paddings[i], paddings[i]]
+    spatial = x.shape[2:]
+    pos = torch.arange(math.prod(spatial), dtype=torch.int32,
+                       device=x.device).reshape(spatial)
+    pos = F.pad(pos[None, None], pad, value=-1).reshape(-1)
+    max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    vals, idx = max_pool(F.pad(x, pad, value=-math.inf), ksize, strides,
+                         return_indices=True)
+    return vals, pos[idx]
+
+
+@register_op("max_pool2d_with_index",
+             ref="paddle/fluid/operators/pool_with_index_op.cc")
+def max_pool2d_with_index(ctx, ins, attrs):
+    x = one(ins, "X")
+    vals, mask = _max_pool_with_index(x, *_pool_args(x, attrs, 2))
+    return {"Out": vals, "Mask": mask}
+
+
+@register_op("max_pool3d_with_index",
+             ref="paddle/fluid/operators/pool_with_index_op.cc")
+def max_pool3d_with_index(ctx, ins, attrs):
+    """Mask holds flat D*H*W positions."""
+    x = one(ins, "X")  # [N, C, D, H, W]
+    vals, mask = _max_pool_with_index(x, *_pool_args(x, attrs, 3))
+    return {"Out": vals, "Mask": mask}
+
+
+@register_op("unpool", no_grad=("Indices",),
+             ref="paddle/fluid/operators/unpool_op.cc")
+def unpool(ctx, ins, attrs):
+    """Max-unpool: each pooled value written (``set``) at its flat H*W
+    position, the positions clipped into the map as the JAX op clips
+    them; where two land on one cell, either may win, in both
+    packages."""
+    x = one(ins, "X")                 # [N, C, h, w]
+    indices = one(ins, "Indices")     # [N, C, h, w] flat H*W positions
+    ksize = _tuple_n(attrs.get("ksize", [2, 2]), 2)
+    strides = _tuple_n(attrs.get("strides", ksize), 2)
+    paddings = _tuple_n(attrs.get("paddings", [0, 0]), 2)
+    n, c, h, w = x.shape
+    H = (h - 1) * strides[0] - 2 * paddings[0] + ksize[0]
+    W = (w - 1) * strides[1] - 2 * paddings[1] + ksize[1]
+    flat_i = indices.reshape(n, c, h * w).long().clamp(0, H * W - 1)
+    out = x.new_zeros((n, c, H * W)).scatter(2, flat_i,
+                                              x.reshape(n, c, h * w))
+    return {"Out": out.reshape(n, c, H, W)}
+
+
+@register_op("spp", ref="paddle/fluid/operators/spp_op.cc")
+def spp(ctx, ins, attrs):
+    """Spatial pyramid pooling: the flattened pools at 1x1 .. 2^(L-1)
+    square bins, concatenated; window ceil(H / bins), padding
+    (k * bins - H + 1) // 2, which can exceed half the window on a small
+    map (``_pool_nd`` pads explicitly), averages inclusive."""
+    x = one(ins, "X")
+    levels = int(attrs.get("pyramid_height", 3))
+    ptype = str(attrs.get("pooling_type", "max"))
+    n, _, h, w = x.shape
+    outs = []
+    for level in range(levels):
+        bins = 2 ** level
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        pooled = _pool_nd(x, ptype, [kh, kw], [kh, kw], [ph, pw], False,
+                          False)
+        outs.append(pooled.reshape(n, -1))
+    return {"Out": torch.cat(outs, dim=1)}
+
+
+def _bin_masks(lo_roi, scale, extent, pooled):
+    """[R, pooled, extent] membership of each map row (column) in each
+    ROI's bins: ROI edges rounded half to even, the bin size (edge + 1
+    cells, at least 1) / pooled in float32, bin b covering [lo +
+    floor(b * size), lo + ceil((b + 1) * size)) clipped to the map."""
+    lo = torch.round(lo_roi[0] * scale).to(torch.int32)
+    hi = torch.round(lo_roi[1] * scale).to(torch.int32)
+    size = torch.clamp(hi - lo + 1, min=1).to(torch.float32)
+    # a tensor divisor: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, which can move a bin edge
+    size = size / size.new_tensor(float(pooled))
+    b = torch.arange(pooled, dtype=torch.float32,
+                     device=lo.device)[None, :]
+    start = (lo[:, None] + torch.floor(b * size[:, None])).to(torch.int32)
+    end = (lo[:, None] + torch.ceil((b + 1) * size[:, None])).to(torch.int32)
+    cells = torch.arange(extent, device=lo.device)[None, None, :]
+    return ((cells >= start.clamp(0, extent)[:, :, None])
+            & (cells < end.clamp(0, extent)[:, :, None]))
+
+
+@register_op("roi_pool", no_grad=("ROIs",),
+             ref="paddle/fluid/operators/roi_pool_op.cc")
+def roi_pool(ctx, ins, attrs):
+    """Max-pool each ROI [R, 5] (batch index, x1, y1, x2, y2 in input
+    scale) into a pooled_height x pooled_width grid, all ROIs at once
+    with bin masks; an empty bin gives 0. The bin max is taken over the
+    columns (a loop over the pooled width) and then the rows: the same
+    maximum as the JAX op's one masked max over both, and with ``amax``
+    the same gradient but where a bin's maximum is tied across rows.
+    Argmax is all zero, int32, as in the JAX op."""
+    x = one(ins, "X")  # [N, C, H, W]
+    rois = one(ins, "ROIs")
+    pooled_h = int(attrs.get("pooled_height", 1))
+    pooled_w = int(attrs.get("pooled_width", 1))
+    scale = float(attrs.get("spatial_scale", 1.0))
+    _, c, h, w = x.shape
+    r = rois.shape[0]
+    argmax = torch.zeros((r, c, pooled_h, pooled_w), dtype=torch.int32,
+                         device=x.device)
+    if x.device.type == "meta":
+        return {"Out": x.new_empty((r, c, pooled_h, pooled_w)),
+                "Argmax": argmax}
+    h_in = _bin_masks((rois[:, 2], rois[:, 4]), scale, h, pooled_h)
+    w_in = _bin_masks((rois[:, 1], rois[:, 3]), scale, w, pooled_w)
+    fmap = x[rois[:, 0].to(torch.int64)]  # [R, C, H, W]
+    neg = torch.tensor(-math.inf, dtype=x.dtype, device=x.device)
+    cols = torch.stack(
+        [torch.where(w_in[:, j, None, None, :], fmap, neg).amax(dim=3)
+         for j in range(pooled_w)], dim=3)             # [R, C, H, pw]
+    out = torch.where(h_in[:, None, :, :, None], cols[:, :, None],
+                      neg).amax(dim=3)                 # [R, C, ph, pw]
+    return {"Out": torch.where(torch.isfinite(out), out,
+                               torch.zeros_like(out)),
+            "Argmax": argmax}
 
 
 @register_op("row_conv", no_grad=("Lengths",),
@@ -102,3 +288,49 @@ def lstmp(ctx, ins, attrs):
             "Cell": torch.where(valid, cell, torch.zeros_like(cell)),
             "BatchedProjection": proj, "BatchedCell": cell,
             "BatchedInput": x, "BatchedHidden": cell, "OrderedP0": r0}
+
+
+def _align_corners_axis(x, out_n, axis):
+    """One spatial axis resampled with the reference's align-corners
+    ratio (in - 1) / (out - 1) in float32: corners map to corners; a side
+    of 1 reads index 0."""
+    in_n = x.shape[axis]
+    if out_n == in_n:
+        return x
+    if out_n == 1 or in_n == 1:
+        return x.index_select(axis, torch.zeros(out_n, dtype=torch.int64,
+                                                device=x.device))
+    src = torch.arange(out_n, dtype=torch.float32,
+                       device=x.device) * ((in_n - 1) / (out_n - 1))
+    lo = torch.floor(src).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=in_n - 1)
+    shape = [1] * x.ndim
+    shape[axis] = out_n
+    frac = (src - lo).to(x.dtype).reshape(shape)
+    return (x.index_select(axis, lo) * (1 - frac)
+            + x.index_select(axis, hi) * frac)
+
+
+@register_op("bilinear_interp",
+             ref="paddle/fluid/operators/bilinear_interp_op.cc")
+def bilinear_interp(ctx, ins, attrs):
+    """Bilinear resize of NCHW maps to (out_h, out_w), align-corners
+    (bilinear_interp_op.h: ratio (in - 1) / (out - 1)), as two separable
+    lerps."""
+    x = one(ins, "X")
+    out = _align_corners_axis(x, int(attrs["out_h"]), 2)
+    return {"Out": _align_corners_axis(out, int(attrs["out_w"]), 3)}
+
+
+@register_op("nearest_interp",
+             ref="paddle/fluid/operators/math/unpooling.cc (legacy upsample)")
+def nearest_interp(ctx, ins, attrs):
+    """Nearest-neighbour resize of NCHW maps to (out_h, out_w): source
+    row i * in // out in integers (``F.interpolate`` multiplies by a
+    float scale and can pick the next row at an exact boundary)."""
+    x = one(ins, "X")
+    out_h, out_w = int(attrs["out_h"]), int(attrs["out_w"])
+    h, w = x.shape[2], x.shape[3]
+    hi = torch.arange(out_h, device=x.device) * h // out_h
+    wi = torch.arange(out_w, device=x.device) * w // out_w
+    return {"Out": x.index_select(2, hi).index_select(3, wi)}

@@ -40,6 +40,9 @@ NEW_OPS = {
     "ctc_align", "edit_distance", "chunk_eval", "arg_max",
 }
 OPS_BEFORE = 129  # op types the port's own modules registered before
+# op types the image and vision slice registered after this one
+# (tests/test_torch_detection.py holds them)
+OPS_AFTER = 27
 
 
 def _as_list(v):
@@ -137,7 +140,7 @@ def test_registry_gains_the_slice_op_types():
            if info.forward.__module__.startswith("paddle_tpu_torch.")}
     assert NEW_OPS <= set(JAX_OPS)
     assert NEW_OPS <= own, sorted(NEW_OPS - own)
-    assert len(own) == OPS_BEFORE + len(NEW_OPS)
+    assert len(own) == OPS_BEFORE + len(NEW_OPS) + OPS_AFTER
     tested = {case[0] for case in CASES} | {"arg_max"}
     assert tested == NEW_OPS, sorted(NEW_OPS - tested)
 
