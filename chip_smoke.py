@@ -6874,10 +6874,39 @@ def _ssd_run(torch):
     return out
 
 
-def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=()):
+def _card_value(torch, v, device):
+    """An op input on ``device``: a numpy array, a list of them (a
+    multi-tensor slot) or ("selected_rows", rows, value, height)."""
+    from paddle_tpu_torch.fluid.selected_rows import SelectedRows
+
+    if isinstance(v, list):
+        return [_card_value(torch, a, device)[0] for a in v]
+    if isinstance(v, tuple) and v[0] == "selected_rows":
+        return [SelectedRows(torch.from_numpy(v[1]).to(device),
+                             torch.from_numpy(v[2]).to(device), v[3])]
+    return [torch.from_numpy(v).to(device)]
+
+
+def _flat_outs(outs):
+    """An op's outputs as {name: numpy}: a slot of several tensors as
+    name[i], a SelectedRows as its .rows and .value."""
+    flat = {}
+    for s, vals in outs.items():
+        for i, v in enumerate(vals):
+            key = s if len(vals) == 1 else f"{s}[{i}]"
+            if hasattr(v, "rows"):
+                flat[key + ".rows"] = v.rows.detach().cpu().numpy()
+                flat[key + ".value"] = v.value.detach().cpu().numpy()
+            else:
+                flat[key] = v.detach().cpu().numpy()
+    return flat
+
+
+def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=(),
+                 tol=VISION_OP_TOL, grad_tol=LSTM_GRAD_TOL):
     """One op on the card and on the CPU on the same inputs: float
-    outputs within VISION_OP_TOL of their max, ``index_outs`` equal, the
-    gradients of ``diff`` for seeded cotangents within LSTM_GRAD_TOL of
+    outputs within ``tol`` of their max, ``index_outs`` equal, the
+    gradients of ``diff`` for seeded cotangents within ``grad_tol`` of
     their max. Returns the worst errors and the card's forward ms (host
     clock, synchronised; the median of 5 after the checked call)."""
     import numpy as np
@@ -6887,10 +6916,9 @@ def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=()):
 
     def run(device):
         ctx = EmitCtx(device=device, root_seed=1)
-        tins = {s: [torch.from_numpy(v).to(device)] for s, v in ins.items()}
+        tins = {s: _card_value(torch, v, device) for s, v in ins.items()}
         if not diff:
-            outs = run_forward(ctx, op, tins, attrs)
-            return {s: v[0].cpu().numpy() for s, v in outs.items()}, {}
+            return _flat_outs(run_forward(ctx, op, tins, attrs)), {}
         outs, record = forward_with_grad(ctx, op, tins, attrs)
         rng = np.random.RandomState(3)
         dys = {s: rng.randn(*v[0].shape).astype(np.float32)
@@ -6904,13 +6932,13 @@ def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=()):
         gins.update({"GRAD@" + s: [torch.from_numpy(d).to(device)]
                      for s, d in dys.items()})
         grads = run_grad(ctx, gins, meta, record)
-        return ({s: v[0].detach().cpu().numpy() for s, v in outs.items()},
+        return (_flat_outs(outs),
                 {s[5:]: v[0].cpu().numpy() for s, v in grads.items()
                  if s[5:] in diff and v and v[0] is not None})
 
     def forward_ms():
         ctx = EmitCtx(device=CARD, root_seed=1)
-        tins = {s: [torch.from_numpy(v).to(CARD)] for s, v in ins.items()}
+        tins = {s: _card_value(torch, v, CARD) for s, v in ins.items()}
         ms = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -6939,17 +6967,17 @@ def _op_card_cpu(torch, op, ins, attrs, diff, index_outs=()):
                                "finite values")
         scale = float(np.abs(want[fin]).max()) if fin.any() else 0.0
         errs[s] = float(np.abs(got[fin] - want[fin]).max()) / (scale or 1.0)
-        if not errs[s] <= VISION_OP_TOL:
+        if not errs[s] <= tol:
             raise RuntimeError(f"{op} {s}: card vs CPU {errs[s]} of the max "
-                               f"(> {VISION_OP_TOL})")
+                               f"(> {tol})")
     for s in diff:
         want, got = cpu_g[s], card_g[s]
         err = float(np.abs(got - want).max()) / (
             float(np.abs(want).max()) or 1.0)
         errs["grad " + s] = err
-        if not err <= LSTM_GRAD_TOL:
+        if not err <= grad_tol:
             raise RuntimeError(f"{op} grad {s}: card vs CPU {err} of the max "
-                               f"(> {LSTM_GRAD_TOL})")
+                               f"(> {grad_tol})")
     return {"errs": errs, "card_forward_ms": forward_ms()}
 
 
@@ -7133,6 +7161,564 @@ def vision_phase(torch):
     return out
 
 
+# sparse: the JAX package's large-vocabulary program
+# (tests/test_selected_rows.py:121-156): embedding(is_sparse=True) of D
+# 64, batch 64, fc 32 relu, fc 16, softmax cross-entropy, Adam(0.01), at V
+# 100,000 as there and at 1,000,000 (a 256 MB table) sparse and dense in
+# turns; SGD, Momentum, Adam and Adagrad at 100,000. Ids from a seeded
+# Zipf law (s = SPARSE_ZIPF_S) over V, so rows repeat within a batch as
+# words do; labels id % 16
+SPARSE = dict(dim=64, batch=64, fc=32, classes=16, lr=0.01)
+SPARSE_VOCABS = (100_000, 1_000_000)
+SPARSE_OPTIMIZERS = ("sgd", "momentum", "adam", "adagrad")
+SPARSE_STEPS = 6          # held steps a program (p50 over steps 2-6)
+SPARSE_TURNS = 5          # sparse/dense step pairs at V 1,000,000
+SPARSE_ZIPF_S = 1.0
+# word2vec at a real vocabulary: the book's N-gram model at the text book
+# phase's widths (W2V: N 5, emb 32, hidden 256, Adam), one shared sparse
+# embedding over 100,000 words, batch 32, three heads
+W2V_BIG = dict(vocab=100_000, batch=32)
+W2V_HEADS = ("softmax", "nce", "hsigmoid")
+# held on the card: each new op and its gradient against the CPU within
+# SPARSE_OP_TOL of the tensor's max; a sparse SGD step's parameters
+# against the dense step's within SPARSE_SGD_TOL of their max (SGD is
+# linear in the gradient); nce's Cost against the plain formula on the
+# card's own SampleLabels within SPARSE_OP_TOL relative; the random ops'
+# statistics over RANDOM_DRAWS draws within RANDOM_TOL
+SPARSE_OP_TOL = 1e-5
+SPARSE_SGD_TOL = 1e-5
+RANDOM_DRAWS = 1_000_000
+RANDOM_TOL = 3e-3
+
+
+def _zipf_ids(rng, vocab, shape):
+    """Ids in [0, vocab) with P(k) proportional to 1 / (k + 1)^s."""
+    import numpy as np
+
+    cdf = np.cumsum(1.0 / np.arange(1, vocab + 1) ** SPARSE_ZIPF_S)
+    u = rng.rand(*shape) * cdf[-1]
+    return np.minimum(np.searchsorted(cdf, u), vocab - 1).astype(np.int64)
+
+
+def _optimizer(fluid, name, lr):
+    opt = fluid.optimizer
+    return {"sgd": lambda: opt.SGD(learning_rate=lr),
+            "momentum": lambda: opt.Momentum(learning_rate=lr, momentum=0.9),
+            "adam": lambda: opt.Adam(learning_rate=lr),
+            "adagrad": lambda: opt.Adagrad(learning_rate=lr)}[name]()
+
+
+def build_sparse_embedding(pkg, vocab, is_sparse, optimizer, dim, batch, fc,
+                           classes, lr):
+    """tests/test_selected_rows.py:121's program: ids -> embedding
+    ``sparse_emb`` [vocab, dim] -> fc(fc, relu) -> fc(classes) ->
+    softmax cross-entropy -> mean."""
+    def body(layers):
+        ids = layers.data(name="ids", shape=[1], dtype="int64")
+        label = layers.data(name="label", shape=[1], dtype="int64")
+        emb = layers.embedding(input=ids, size=[vocab, dim],
+                               is_sparse=is_sparse, param_attr="sparse_emb")
+        h = layers.fc(input=emb, size=fc, act="relu")
+        cost = layers.mean(layers.softmax_with_cross_entropy(
+            logits=layers.fc(input=h, size=classes), label=label))
+        return cost, [ids, label], {"table": "sparse_emb"}, _optimizer(
+            pkg.fluid, optimizer, lr)
+
+    return _chapter(pkg, 11, body)
+
+
+def build_word2vec_head(pkg, vocab, head, emb, hidden, n, lr):
+    """The book's N-gram model (tests/test_book.py:76) over ``vocab``
+    words: N-1 words through one shared sparse embedding, concat,
+    fc(hidden, sigmoid), then the ``head``: a softmax fc over the
+    vocabulary, ``nce`` (its default 10 uniform negatives) or
+    ``hsigmoid``; Adam(lr)."""
+    def body(layers):
+        words = [layers.data(name=f"word_{i}", shape=[1], dtype="int64")
+                 for i in range(n - 1)]
+        nxt = layers.data(name="next_word", shape=[1], dtype="int64")
+        embeds = [layers.embedding(
+            input=w, size=[vocab, emb], is_sparse=True,
+            param_attr=pkg.fluid.ParamAttr(name="shared_w")) for w in words]
+        h = layers.fc(input=layers.concat(input=embeds, axis=1),
+                      size=hidden, act="sigmoid")
+        if head == "softmax":
+            cost = layers.softmax_with_cross_entropy(
+                logits=layers.fc(input=h, size=vocab), label=nxt)
+        elif head == "nce":
+            cost = layers.nce(input=h, label=nxt, num_total_classes=vocab)
+        else:
+            cost = layers.hsigmoid(input=h, label=nxt, num_classes=vocab)
+        return (layers.mean(cost), words + [nxt], {"table": "shared_w"},
+                pkg.fluid.optimizer.Adam(learning_rate=lr))
+
+    return _chapter(pkg, 13, body)
+
+
+def _sparse_feed(torch, rng, vocab, keys, label_key, batch):
+    """A feed on the card: Zipf ids for each of ``keys``; the label slot
+    ``label_key`` the first id % 16 (SPARSE) when it is not a key. The
+    held windows repeat one batch, as tests/test_selected_rows.py:146
+    does, so the loss must fall."""
+    f = {k: _zipf_ids(rng, vocab, (batch, 1)) for k in keys}
+    if label_key not in f:
+        f[label_key] = f[keys[0]] % SPARSE["classes"]
+    return {k: torch.from_numpy(v).to(CARD) for k, v in f.items()}
+
+
+def _grad_shape(exe, built, feed, scope):
+    """One step fetching the table's gradient: its shape ([N, D] for a
+    SelectedRows, [V, D] dense) and whether it came back SelectedRows."""
+    from paddle_tpu_torch.fluid.selected_rows import is_selected_rows
+
+    (g,) = exe.run(built["main"], feed=feed,
+                   fetch_list=[built["table"] + "@GRAD"], scope=scope)
+    v = g.value if is_selected_rows(g) else g
+    return list(v.shape), is_selected_rows(g)
+
+
+def _sparse_program_run(torch, name, built, feeds, config, grad_shape):
+    """SPARSE_STEPS held steps (p50 over steps 2-N, peak memory, and the
+    peak above the memory held before the window), one profiled step,
+    one step fetching the table's gradient: a SelectedRows of
+    ``grad_shape``, or dense where that is None. The loss must fall."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    t0 = time.perf_counter()
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(built["startup"], scope=scope)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (losses, ms), launches = _held_window(lambda: _timed_steps(
+        exe, built["main"], feeds[:SPARSE_STEPS], [built["cost"]], scope))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: losses not finite and falling: "
+                           f"{losses}")
+    p50 = statistics.median(ms[1:])
+    batch = len(feeds[0][next(iter(feeds[0]))])
+    out = {"config": config, "losses": losses, "step_ms": ms,
+           "p50_step_ms_after_first": p50,
+           "samples_per_s": batch / (p50 / 1e3),
+           "peak_memory_allocated_gb": peak / 1e9,
+           "peak_above_state_gb": (peak - before) / 1e9,
+           "kernel_launches": launches}
+    prof = _profiled(torch, exe, built["main"], feeds[SPARSE_STEPS],
+                     built["cost"], scope, f"sparse {name} step")
+    out["device_launches_a_step"] = prof["device_launches"]
+    out["busy_share"] = prof["busy_share"]
+    out["profile"] = prof
+    shape, is_sr = _grad_shape(exe, built, feeds[SPARSE_STEPS + 1], scope)
+    if (is_sr, shape if is_sr else None) != (grad_shape is not None,
+                                             grad_shape):
+        raise RuntimeError(f"{name}: the table's gradient is "
+                           f"{'SelectedRows' if is_sr else 'dense'} "
+                           f"{shape}, want {grad_shape or 'dense'}")
+    out["table_grad"] = {"selected_rows": is_sr, "shape": shape}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  sparse {name} " + json.dumps(out))
+    return out, exe, scope
+
+
+def _sparse_vs_dense_1m(torch):
+    """V 1,000,000 with Adam: the sparse and the dense program, each in
+    its own window (peak memory above the state held before it), then
+    SPARSE_TURNS steps of each in turns."""
+    import numpy as np
+
+    vocab = SPARSE_VOCABS[1]
+    pkg, rng = port_pkg(), np.random.RandomState(1)
+    feeds = [_sparse_feed(torch, rng, vocab, ["ids"], "label",
+                          SPARSE["batch"])] * (SPARSE_STEPS + 2 + SPARSE_TURNS)
+    out, runs = {}, {}
+    for sparse in (True, False):
+        key = "sparse" if sparse else "dense"
+        built = build_sparse_embedding(pkg, vocab, sparse, "adam", **SPARSE)
+        out[key], exe, scope = _sparse_program_run(
+            torch, f"v{vocab}_{key}", built, feeds,
+            f"V {vocab}, is_sparse={sparse}, Adam, {SPARSE}",
+            [SPARSE["batch"], SPARSE["dim"]] if sparse else None)
+        runs[key] = (exe, built, scope)
+    turns = {"sparse": [], "dense": []}
+    for feed in feeds[SPARSE_STEPS + 2:]:
+        for key in ("sparse", "dense"):
+            exe, built, scope = runs[key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(built["main"], feed=feed, fetch_list=[built["cost"]],
+                    scope=scope)
+            turns[key].append((time.perf_counter() - t0) * 1e3)
+    out["in_turns_ms"] = turns
+    out["in_turns_median_ms"] = {k: statistics.median(v)
+                                 for k, v in turns.items()}
+    out["dense_over_sparse"] = (out["in_turns_median_ms"]["dense"]
+                                / out["in_turns_median_ms"]["sparse"])
+    log("  sparse v1m in turns " + json.dumps(
+        {k: out[k] for k in ("in_turns_median_ms", "dense_over_sparse")}))
+    return out
+
+
+def _sparse_sgd_held(torch):
+    """From one start at V 100,000: one sparse and one dense SGD step on
+    the same Zipf batch; every parameter within SPARSE_SGD_TOL of its
+    max. Then a sparse Adam step repeated from one state: bitwise."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    vocab, pkg = SPARSE_VOCABS[0], port_pkg()
+    feed = _sparse_feed(torch, np.random.RandomState(2), vocab, ["ids"],
+                        "label", SPARSE["batch"])
+    params = {}
+    for sparse in (True, False):
+        built = build_sparse_embedding(pkg, vocab, sparse, "sgd", **SPARSE)
+        exe, scope = _card_executor(fluid), fluid.Scope()
+        exe.run(built["startup"], scope=scope)
+        exe.run(built["main"], feed=feed, fetch_list=[built["cost"]],
+                scope=scope)
+        params[sparse] = {p.name: scope.find_var(p.name).cpu().numpy()
+                          for p in built["main"].global_block()
+                          .all_parameters()}
+    errs = {n: float(np.abs(params[True][n] - params[False][n]).max()
+                     / (np.abs(params[False][n]).max() or 1.0))
+            for n in params[True]}
+    if not max(errs.values()) <= SPARSE_SGD_TOL:
+        raise RuntimeError(f"sparse vs dense SGD step: {errs} (> "
+                           f"{SPARSE_SGD_TOL} of the max)")
+    built = build_sparse_embedding(pkg, vocab, True, "adam", **SPARSE)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(built["startup"], scope=scope)
+    start = _scope_copy(fluid, scope)
+    after = []
+    for _ in range(2):
+        scope = _scope_copy(fluid, start)
+        exe.run(built["main"], feed=feed, fetch_list=[built["cost"]],
+                scope=scope)
+        after.append(scope)
+    differ = _same_state(torch, after[0], after[1])
+    if differ:
+        raise RuntimeError(f"a sparse Adam step repeated from one state "
+                           f"differs in {differ}")
+    ids = feed["ids"].cpu().numpy().reshape(-1)
+    return {"sgd_sparse_vs_dense_rel_err": errs,
+            "adam_repeat_bitwise": True,
+            "batch_ids": int(ids.size),
+            "batch_unique_ids": int(np.unique(ids).size)}
+
+
+def sparse_op_cases(rng):
+    """(case, op, ins, attrs, diff slots, index outputs) of every op of
+    the slice that is not a random draw, at a small size."""
+    import numpy as np
+
+    f32 = np.float32
+
+    def randn(*shape, scale=1.0):
+        return (scale * rng.randn(*shape)).astype(f32)
+
+    def ids(*v):
+        return np.array(v, np.int64)
+
+    sr = ("selected_rows", ids(7, 0, 3, 9, 3, 5), randn(6, 4), 10)
+    k = 1000
+    return [
+        ("gather", "gather", {"X": randn(64, 8), "Index": ids(
+            *rng.randint(0, 64, 32))}, {}, ["X"], ()),
+        ("scatter", "scatter", {"X": randn(64, 8), "Ids": ids(
+            *rng.permutation(64)[:16]), "Updates": randn(16, 8)}, {},
+         ["X", "Updates"], ()),
+        ("one_hot", "one_hot", {"X": ids(*rng.randint(-1, 12, 40))[:, None]},
+         {"depth": 10}, [], ()),
+        ("multiplex", "multiplex", {"X": [randn(32, 8) for _ in range(3)],
+                                    "Ids": ids(*rng.randint(0, 3, 32))[
+                                        :, None]}, {}, [], ()),
+        ("label_smooth", "label_smooth", {"X": np.eye(16, dtype=f32)[
+            rng.randint(0, 16, 32)]}, {"epsilon": 0.1}, ["X"], ()),
+        ("is_empty", "is_empty", {"X": np.zeros((4, 0), f32)}, {}, [], ()),
+        ("arg_min", "arg_min", {"X": rng.randint(-3, 4, (16, 12)).astype(
+            f32)}, {"axis": 1}, [], ()),
+        ("reverse", "reverse", {"X": randn(4, 6, 5)}, {"axis": [0, 2]},
+         ["X"], ()),
+        ("split_ids", "split_ids", {"Ids": ids(*rng.randint(0, 100, 40))[
+            :, None]}, {"num_shards": 4}, [], ()),
+        ("split_selected_rows", "split_selected_rows", {"X": sr},
+         {"height_sections": [3, 4, 3]}, [], ()),
+        ("l1_norm", "l1_norm", {"X": randn(32, 16)}, {}, ["X"], ()),
+        ("minus", "minus", {"X": randn(32, 16), "Y": randn(32, 16)}, {},
+         ["X", "Y"], ()),
+        ("sigmoid_cross_entropy_with_logits",
+         "sigmoid_cross_entropy_with_logits",
+         {"X": randn(32, 16, scale=3.0), "Label": rng.rand(32, 16).astype(
+             f32)}, {}, ["X"], ()),
+        ("log_loss", "log_loss", {"Predicted": rng.uniform(
+            0.05, 0.95, (32, 1)).astype(f32), "Labels": rng.randint(
+            0, 2, (32, 1)).astype(f32)}, {"epsilon": 1e-4}, ["Predicted"],
+         ()),
+        ("hinge_loss", "hinge_loss", {"Logits": randn(32, 1, scale=2.0),
+                                      "Labels": rng.randint(0, 2, (32, 1))
+                                      .astype(f32)}, {}, ["Logits"], ()),
+        ("rank_loss", "rank_loss", {"Label": rng.randint(0, 2, (32, 1))
+                                    .astype(f32), "Left": randn(32, 1),
+                                    "Right": randn(32, 1)}, {},
+         ["Left", "Right"], ()),
+        ("margin_rank_loss", "margin_rank_loss", {
+            "Label": np.where(rng.rand(32, 1) > 0.5, 1, -1).astype(f32),
+            "X1": randn(32, 1), "X2": randn(32, 1)}, {"margin": 0.1},
+         ["X1", "X2"], ()),
+        ("squared_l2_distance", "squared_l2_distance", {
+            "X": randn(32, 16), "Y": randn(32, 16)}, {}, ["X", "Y"], ()),
+        ("modified_huber_loss", "modified_huber_loss", {
+            "X": randn(32, 1, scale=2.0), "Y": rng.randint(0, 2, (32, 1))
+            .astype(f32)}, {}, ["X"], ()),
+        ("hierarchical_sigmoid", "hierarchical_sigmoid", {
+            "X": randn(32, 64), "W": randn(k - 1, 64, scale=0.1),
+            "Label": ids(*rng.randint(0, k, 32))[:, None],
+            "Bias": randn(k - 1, scale=0.1)}, {"num_classes": k},
+         ["X", "W", "Bias"], ()),
+        ("lambda_cost", "lambda_cost", {
+            "X": randn(8, 12), "Score": rng.randint(0, 4, (8, 12)).astype(
+                f32), "Lengths": rng.randint(2, 13, 8).astype(np.int32)},
+         {"NDCG_num": 5}, ["X"], ()),
+        ("scale_sub_region", "scale_sub_region", {
+            "X": randn(2, 3, 8, 8), "Indices": np.array(
+                [[1, 2, 2, 6, 3, 8], [2, 3, 1, 4, 1, 1]], np.int32)},
+         {"value": 2.0}, ["X"], ()),
+        ("norm", "norm", {"X": randn(2, 16, 8, 8), "Scale": rng.uniform(
+            0.5, 2, 16).astype(f32)}, {"epsilon": 1e-10}, ["X", "Scale"],
+         ()),
+        ("conv_shift", "conv_shift", {"X": randn(16, 32), "Y": randn(16, 5)},
+         {}, ["X", "Y"], ()),
+        ("bilinear_tensor_product", "bilinear_tensor_product", {
+            "X": randn(16, 8), "Y": randn(16, 6), "Weight": randn(4, 8, 6),
+            "Bias": randn(1, 4)}, {}, ["X", "Y", "Weight", "Bias"], ()),
+        ("auc", "auc", {"Out": np.stack([1 - (u := rng.rand(256).astype(
+            f32)), u], 1), "Label": rng.randint(0, 2, (256, 1)).astype(
+            np.int64)}, {"num_thresholds": 200}, [], ()),
+        ("precision_recall", "precision_recall", {
+            "MaxProbs": rng.rand(64, 1).astype(f32),
+            "Indices": ids(*rng.randint(0, 5, 64))[:, None],
+            "Labels": ids(*rng.randint(0, 5, 64))[:, None],
+            "StatesInfo": rng.randint(0, 5, (5, 4)).astype(f32)},
+         {"class_number": 5}, [], ()),
+        ("positive_negative_pair", "positive_negative_pair", {
+            "Score": rng.randint(0, 5, (64, 1)).astype(f32),
+            "Label": rng.randint(0, 3, (64, 1)).astype(f32),
+            "QueryID": ids(*rng.randint(0, 4, 64))[:, None]}, {}, [], ()),
+    ]
+
+
+def _nce_held(torch):
+    """``nce`` on the card (V 100,000, 10 negatives, [32, 256] inputs):
+    Cost against the plain formula in float64 on the card's own
+    SampleLabels, and the draws in range."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.registry import EmitCtx, run_forward
+
+    rng = np.random.RandomState(5)
+    v, d, n, k = W2V_BIG["vocab"], W2V["hidden"], W2V_BIG["batch"], 10
+    x = (rng.randn(n, d) * 0.1).astype(np.float32)
+    w = (rng.randn(v, d) * 0.1).astype(np.float32)
+    b = (rng.randn(v) * 0.1).astype(np.float32)
+    label = rng.randint(0, v, (n, 1)).astype(np.int64)
+    outs = run_forward(EmitCtx(device=CARD, root_seed=7), "nce", {
+        "Input": [torch.from_numpy(x).to(CARD)],
+        "Weight": [torch.from_numpy(w).to(CARD)],
+        "Bias": [torch.from_numpy(b).to(CARD)],
+        "Label": [torch.from_numpy(label).to(CARD)]},
+        {"num_total_classes": v, "num_neg_samples": k, "__rng_seed__": 1})
+    samples = outs["SampleLabels"][0].cpu().numpy()
+    cost = outs["Cost"][0].cpu().numpy()
+    if samples.min() < 0 or samples.max() >= v or not np.array_equal(
+            samples[:, :1], label):
+        raise RuntimeError("nce: SampleLabels out of range or without the "
+                           "true class first")
+    logits = np.einsum("nd,nsd->ns", x.astype(np.float64),
+                       w[samples].astype(np.float64)) + b[samples]
+    adj = logits - np.log(k / v)
+    t = np.zeros_like(adj)
+    t[:, 0] = 1.0
+    want = np.sum(np.logaddexp(adj, 0) - t * adj, axis=1, keepdims=True)
+    err = _rel_err(cost, want)
+    if not err <= SPARSE_OP_TOL:
+        raise RuntimeError(f"nce: Cost vs the formula on its own samples "
+                           f"{err} relative (> {SPARSE_OP_TOL})")
+    return {"cost_rel_err": err, "distinct_negatives": int(
+        np.unique(samples[:, 1:]).size), "negatives": int(samples[:, 1:].size)}
+
+
+def _random_held(torch):
+    """The card's draws by their distribution over RANDOM_DRAWS samples:
+    the batch-size-like uniform and gaussian (mean, standard deviation,
+    range), sampling_id (each category's frequency, none on a zero)."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.registry import EmitCtx, run_forward
+
+    ctx = EmitCtx(device=CARD, root_seed=9)
+    like = torch.zeros(RANDOM_DRAWS // 1000, 3, device=CARD)
+    out = {}
+    for op, attrs, mean, std in (
+            ("uniform_random_batch_size_like",
+             {"shape": [-1, 1000], "min": -2.0, "max": 4.0}, 1.0,
+             6 / math.sqrt(12)),
+            ("gaussian_random_batch_size_like",
+             {"shape": [-1, 1000], "mean": 0.5, "std": 2.0}, 0.5, 2.0)):
+        x = run_forward(ctx, op, {"Input": [like]}, {
+            **attrs, "__rng_seed__": 1})["Out"][0]
+        got = {"mean": float(x.mean()), "std": float(x.std()),
+               "min": float(x.min()), "max": float(x.max()),
+               "shape": list(x.shape)}
+        if (abs(got["mean"] - mean) > RANDOM_TOL * std
+                or abs(got["std"] - std) > RANDOM_TOL * std
+                or got["shape"] != [RANDOM_DRAWS // 1000, 1000]
+                or ("min" in attrs and not (
+                    attrs["min"] <= got["min"] and got["max"] < attrs["max"]))):
+            raise RuntimeError(f"{op}: {got} against mean {mean} std {std}")
+        out[op] = got
+    probs = np.array([[0.1, 0.2, 0.0, 0.7], [2.0, 1.0, 1.0, 0.0]],
+                     np.float32)
+    half = RANDOM_DRAWS // 2
+    x = torch.from_numpy(np.repeat(probs, half, axis=0)).to(CARD)
+    ids = run_forward(ctx, "sampling_id", {"X": [x]}, {
+        "__rng_seed__": 2})["Out"][0].cpu().numpy()
+    freqs = []
+    for r, row in enumerate(probs):
+        freq = np.bincount(ids[r * half:(r + 1) * half], minlength=4) / half
+        if np.abs(freq - row / row.sum()).max() > RANDOM_TOL or \
+                freq[row == 0].sum() != 0:
+            raise RuntimeError(f"sampling_id: row {r} frequencies {freq} "
+                               f"against {row / row.sum()}")
+        freqs.append(freq.tolist())
+    out["sampling_id"] = {"frequencies": freqs,
+                          "want": (probs / probs.sum(1, keepdims=True))
+                          .tolist()}
+    return out
+
+
+def _metrics_held(torch):
+    """fluid.evaluator.Accuracy over three batches on the card and on the
+    CPU (equal), and fluid.metrics' Auc and ChunkEvaluator fed from a
+    program's softmax and chunk_eval on each (within SPARSE_OP_TOL; the
+    chunk counts equal)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, metrics, unique_name
+
+    rng = np.random.RandomState(6)
+    feeds = [{"scores": rng.randn(64, 2).astype(np.float32),
+              "label": rng.randint(0, 2, (64, 1)).astype(np.int64),
+              "inf": rng.randint(0, 5, (16, 12)).astype(np.int64),
+              "lab": rng.randint(0, 5, (16, 12)).astype(np.int64)}
+             for _ in range(3)]
+    results = {}
+    for device in (CARD, "cpu"):
+        main, startup, scope = fluid.Program(), fluid.Program(), \
+            fluid.Scope()
+        with fluid.scope_guard(scope), unique_name.guard():
+            with fluid.program_guard(main, startup):
+                scores = layers.data(name="scores", shape=[2],
+                                     dtype="float32")
+                label = layers.data(name="label", shape=[1], dtype="int64")
+                inf = layers.data(name="inf", shape=[12], dtype="int64")
+                lab = layers.data(name="lab", shape=[12], dtype="int64")
+                probs = layers.softmax(scores)
+                ev = fluid.evaluator.Accuracy(input=scores, label=label)
+                chunks = layers.chunk_eval(input=inf, label=lab,
+                                           chunk_scheme="IOB",
+                                           num_chunk_types=2)
+            exe = fluid.Executor(device)
+            exe.run(startup)
+            ev.reset(exe)
+            auc, chunk = metrics.Auc(), metrics.ChunkEvaluator()
+            for feed in feeds:
+                got = exe.run(main, feed=feed,
+                              fetch_list=[probs] + list(chunks[3:]))
+                auc.update(np.asarray(got[0]), feed["label"])
+                chunk.update(*[int(np.asarray(v).reshape(-1)[0])
+                               for v in got[1:]])
+            results[device] = {
+                "accuracy": float(np.asarray(ev.eval(exe)).reshape(-1)[0]),
+                "auc": float(auc.eval()),
+                "chunk": [float(v) for v in chunk.eval()],
+                "chunk_counts": [chunk.num_infer_chunks,
+                                 chunk.num_label_chunks,
+                                 chunk.num_correct_chunks]}
+    card, cpu = results[CARD], results["cpu"]
+    if card["accuracy"] != cpu["accuracy"] or \
+            card["chunk_counts"] != cpu["chunk_counts"] or \
+            _rel_err([card["auc"]] + card["chunk"],
+                     [cpu["auc"]] + cpu["chunk"]) > SPARSE_OP_TOL:
+        raise RuntimeError(f"evaluator/metrics: card {card} vs CPU {cpu}")
+    return results
+
+
+def sparse_phase(torch):
+    """The sixteenth slice on the card: sparse embeddings at 100,000 and
+    1,000,000 rows (SPARSE), word2vec over 100,000 words with a softmax,
+    an nce and an hsigmoid head (W2V_BIG), and the held checks: every
+    new op card vs CPU, the evaluator and metrics, a sparse SGD step
+    against the dense one, a repeated sparse step bitwise, nce's Cost on
+    its own samples, the random ops by distribution."""
+    phase("sparse")
+    import numpy as np
+
+    t0 = time.perf_counter()
+    pkg, out = port_pkg(), {}
+    vocab = SPARSE_VOCABS[0]
+    feeds = [_sparse_feed(torch, np.random.RandomState(0), vocab, ["ids"],
+                          "label", SPARSE["batch"])] * (SPARSE_STEPS + 2)
+    for opt in SPARSE_OPTIMIZERS:
+        built = build_sparse_embedding(pkg, vocab, True, opt, **SPARSE)
+        out[f"v{vocab}_{opt}"] = _sparse_program_run(
+            torch, f"v{vocab}_{opt}", built, feeds,
+            f"V {vocab}, is_sparse=True, {opt}, {SPARSE}",
+            [SPARSE["batch"], SPARSE["dim"]])[0]
+    out["v1m"] = _sparse_vs_dense_1m(torch)
+    rng = np.random.RandomState(4)
+    keys = [f"word_{i}" for i in range(W2V["n"] - 1)] + ["next_word"]
+    w2v_feeds = [_sparse_feed(torch, rng, W2V_BIG["vocab"], keys,
+                              "next_word", W2V_BIG["batch"])] * (
+        SPARSE_STEPS + 2)
+    for head in W2V_HEADS:
+        built = build_word2vec_head(pkg, W2V_BIG["vocab"], head, **W2V)
+        run = _sparse_program_run(
+            torch, f"word2vec_{head}", built, w2v_feeds,
+            f"word2vec N-gram over {W2V_BIG['vocab']} words, {W2V}, "
+            f"sparse shared embedding, {head} head, batch "
+            f"{W2V_BIG['batch']}",
+            # the N-1 lookups' rows, concatenated by the gradient's sum
+            [W2V_BIG["batch"] * (W2V["n"] - 1), W2V["emb"]])[0]
+        run["words_per_s"] = run["samples_per_s"]  # one predicted word each
+        out[f"word2vec_{head}"] = run
+    held = {"sgd_and_repeat": _sparse_sgd_held(torch),
+            "nce": _nce_held(torch), "random": _random_held(torch),
+            "metrics": _metrics_held(torch)}
+    rng = np.random.RandomState(2031)
+    ops = {}
+    for name, op, ins, attrs, diff, index_outs in sparse_op_cases(rng):
+        ops[name] = _op_card_cpu(torch, op, ins, attrs, diff, index_outs,
+                                 tol=SPARSE_OP_TOL, grad_tol=SPARSE_OP_TOL)
+    held["ops"] = {"cases": len(ops), "worst": max(
+        e for v in ops.values() for e in v["errs"].values()), "by_case": ops}
+    log("  sparse held " + json.dumps(held))
+    out["held"] = held
+    out["seconds"] = time.perf_counter() - t0
+    log("  sparse " + json.dumps({
+        k: {m: v.get(m) for m in (
+            "p50_step_ms_after_first", "samples_per_s",
+            "device_launches_a_step", "busy_share",
+            "peak_memory_allocated_gb", "peak_above_state_gb",
+            "table_grad")}
+        for k, v in out.items()
+        if isinstance(v, dict) and "p50_step_ms_after_first" in v}))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7183,6 +7769,7 @@ def main():
     recipe = train_recipe_phase(torch)
     text_book = text_book_phase(torch)
     vision = vision_phase(torch)
+    sparse = sparse_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -7212,6 +7799,16 @@ def main():
         k: {m: v[m] for m in ("p50_step_ms_after_first", "images_per_s",
                               "device_launches_a_step", "busy_share")}
         for k, v in vision.items() if k in VISION_MODELS or k == "ssd300"}))
+    log("  sparse paths (no kernel of the port on them) " + json.dumps({
+        **{k: {m: v[m] for m in ("p50_step_ms_after_first",
+                                 "device_launches_a_step", "busy_share",
+                                 "peak_memory_allocated_gb")}
+           for k, v in sparse.items()
+           if isinstance(v, dict) and "p50_step_ms_after_first" in v},
+        "v1m": {k: {m: sparse["v1m"][k][m] for m in (
+            "p50_step_ms_after_first", "peak_above_state_gb")}
+            for k in ("sparse", "dense")},
+        "v1m_in_turns_ms": sparse["v1m"]["in_turns_median_ms"]}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

@@ -31,8 +31,12 @@ padded-sequence path: ``dynamic_lstm``, ``sequence_pool``,
 ``ConditionalBlock``, ``Switch``, ``IfElse``, ``StaticRNN``,
 ``DynamicRNN``, the tensor arrays, ``beam_search`` and
 ``beam_search_decode``, with the activation, compare, logical and
-reduce layers. The executor runs on the card unless given
-``CPUPlace()`` (or ``"cpu"``).
+reduce layers; the text, image and detection layers; SelectedRows
+gradients (``embedding(is_sparse=True)``, ``selected_rows``) through
+every optimizer, the rest of the op library's layers (``nce``,
+``hsigmoid``, ...), ``evaluator``, ``metrics``, ``default_scope_funcs``,
+``calc_gradient`` and ``WeightNormParamAttr``. The executor runs on the
+card unless given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
@@ -40,19 +44,23 @@ from . import (  # noqa: F401
     average,
     backward,
     clip,
+    default_scope_funcs,
     enforce,
+    evaluator,
     initializer,
     io,
     layers,
+    metrics,
     nets,
     optimizer,
     param_attr,
     readers,
     recordio_writer,
     regularizer,
+    selected_rows,
     unique_name,
 )
-from .backward import append_backward  # noqa: F401
+from .backward import append_backward, calc_gradient  # noqa: F401
 from .clip import (  # noqa: F401
     ErrorClipByValue,
     GradientClipByGlobalNorm,
@@ -94,4 +102,6 @@ from .io import (  # noqa: F401
     save_persistables,
     save_vars,
 )
-from .param_attr import ParamAttr  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+
+Tensor = None  # runtime tensors are torch.Tensors; alias kept for API scripts

@@ -19,7 +19,12 @@ contract (reference python/paddle/fluid/executor.py:181).
     tensors, detached). numpy has no bfloat16 type here, so a bfloat16
     fetch comes back as its exact float32 widening (the JAX executor
     returns the bfloat16 array; ``return_numpy=False`` returns the
-    bfloat16 tensor).
+    bfloat16 tensor). A SelectedRows value (a sparse ``lookup_table``'s
+    gradient) flows through the env as itself and is fetched as a
+    SelectedRows, as the JAX executor returns it: with numpy ``rows``
+    and ``value`` under ``return_numpy=True`` (its ``to_dense()`` is
+    then numpy too), with detached tensors otherwise. A SelectedRows
+    feed goes to the device as one.
   - Precision: a run honours ``FLAGS['matmul_precision']`` as the JAX
     executor does (executor.py:654); under the default 'highest' no
     cuBLAS or cuDNN product of the run takes TF32, whatever the caller's
@@ -67,6 +72,7 @@ from . import core
 from .framework import Program, Variable, default_main_program
 from .readers import READER_CREATE_OP_TYPES, DeviceBatch, create_host_reader
 from .registry import EmitCtx, exec_op_descs, fold_seed, plan_grad_records
+from .selected_rows import SelectedRows, is_selected_rows
 
 _m_step_ms = _metrics.histogram("executor.step_ms")
 
@@ -105,6 +111,9 @@ class Scope:
     def var_names(self):
         return list(self._vars)
 
+    def new_scope(self) -> "Scope":
+        return Scope(parent=self)
+
 
 _global_scope = Scope()
 
@@ -141,17 +150,33 @@ def _to_numpy(v):
 
 def _fetched_numpy(v):
     """A fetched value as numpy: a bfloat16 tensor as its exact float32
-    widening (numpy has no bfloat16 type without ml_dtypes), any other
-    as itself."""
+    widening (numpy has no bfloat16 type without ml_dtypes), a
+    SelectedRows as one with numpy rows and value, any other as
+    itself."""
+    if is_selected_rows(v):
+        return SelectedRows(_fetched_numpy(v.rows), _fetched_numpy(v.value),
+                            v.height)
     if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
         v = v.float()
     return _to_numpy(v)
 
 
+def _as_feed(v, device):
+    """A feed value as a tensor (or a SelectedRows) on ``device``."""
+    if is_selected_rows(v):
+        return SelectedRows(_as_feed(v.rows, device), _as_feed(v.value,
+                                                               device),
+                            v.height)
+    if not isinstance(v, torch.Tensor):
+        v = torch.as_tensor(np.asarray(v))
+    return v.to(device)
+
+
 def fetch_var(name: str, scope: Optional[Scope] = None,
               return_numpy: bool = True):
     """The scope's value of ``name``: numpy (a bfloat16 value as its
-    exact float32 widening), or the tensor with ``return_numpy=False``."""
+    exact float32 widening, a SelectedRows with numpy fields), or the
+    tensor with ``return_numpy=False``."""
     scope = scope or global_scope()
     v = scope.find_var(name)
     if v is None:
@@ -459,8 +484,7 @@ class Executor:
         with _tracing.span("executor.reader"):
             reader_feeds, copied = _run_reader_host_ops(
                 block, reader_ops, scope, dev)
-        feeds = {k: (v if isinstance(v, torch.Tensor)
-                     else torch.as_tensor(np.asarray(v))).to(dev)
+        feeds = {k: _as_feed(v, dev)
                  for k, v in {**feed, **reader_feeds}.items()}
         if copied:
             # the batches were copied on the double buffer's stream: this
@@ -493,8 +517,13 @@ class Executor:
         for n in state_out:
             if n in env:
                 scope.set_var(n, env[n].detach())
+        # a program of host ops alone (none, or readers and io) fetches
+        # from the scope, as the JAX executor's host-only path does
+        host_only = all(io for io, _, _ in segments)
         fetches = []
         for n in fetch_names:
+            if n not in env and host_only and scope.has_var(n):
+                env[n] = scope.find_var(n)
             if n not in env:
                 raise ValueError(
                     f"fetch target '{n}' was not produced by the block")

@@ -7,8 +7,12 @@ programs (DynamicRNN LSTM, machine translation, seq2seq) and the text
 chapters (``lstm_unit``, ``cos_sim``, ``edit_distance``, ``chunk_eval``,
 ``warpctc``, ``row_conv``, ``im2sequence``) and the image and detection
 programs (``conv2d_transpose``, ``lrn``, ``pad``, ``l2_normalize``,
-``smooth_l1``, ``split``) call, copied from
-``paddle_tpu/fluid/layers/nn.py``. The other layers are not ported yet."""
+``smooth_l1``, ``split``) call, and the rest of Fluid's layers over the
+ops the port has (``nce``, ``hsigmoid``, ``one_hot``, ``label_smooth``,
+``sigmoid_cross_entropy_with_logits``, ``multiplex``, ``prelu``,
+``dot_product_attention``, ``lookup_table``), copied from
+``paddle_tpu/fluid/layers/nn.py``. Still to port: ``moe`` (its op goes
+with the mesh layer)."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,7 +31,9 @@ __all__ = [
     "reduce_min", "reduce_prod", "scale", "expand", "clip", "clip_by_norm",
     "autoincreased_step_counter", "im2sequence", "cos_sim", "edit_distance",
     "chunk_eval", "warpctc", "row_conv", "lstm_unit", "conv2d_transpose",
-    "lrn", "pad", "l2_normalize", "smooth_l1", "split",
+    "lrn", "pad", "l2_normalize", "smooth_l1", "split", "one_hot",
+    "lookup_table", "label_smooth", "sigmoid_cross_entropy_with_logits",
+    "prelu", "hsigmoid", "dot_product_attention", "nce", "multiplex",
 ]
 
 
@@ -893,5 +899,141 @@ def pad(x, paddings, pad_value=0.0, name=None):
     helper.append_op(
         type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
         attrs={"paddings": list(paddings), "pad_value": float(pad_value)},
+    )
+    return out
+
+
+lookup_table = embedding
+
+
+def one_hot(input, depth):
+    """reference layers/nn.py:3284."""
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op(
+        type="one_hot", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"depth": depth},
+    )
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32", name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(
+        type="label_smooth", inputs=inputs, outputs={"Out": [out]},
+        attrs={"epsilon": float(epsilon)},
+    )
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": [x], "Label": [label]},
+        outputs={"Out": [out]},
+    )
+    return out
+
+
+def prelu(x, mode="all", param_attr=None, name=None):
+    """mode: 'all' (one alpha), 'channel' (alpha per channel, dim 1),
+    'element' (alpha per element of x.shape[1:]) — reference prelu_op.cc."""
+    helper = LayerHelper("prelu", param_attr=param_attr, name=name)
+    if mode == "channel":
+        alpha_shape = [int(x.shape[1])]
+    elif mode == "element":
+        alpha_shape = [int(d) for d in x.shape[1:]]
+    else:
+        alpha_shape = [1]
+    alpha = helper.create_parameter(
+        helper.param_attr, alpha_shape, x.dtype,
+        default_initializer=ConstantInitializer(0.25),
+    )
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+        outputs={"Out": [out]}, attrs={"mode": mode},
+    )
+    return out
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid cost over a complete binary tree of
+    `num_classes` leaves (reference hierarchical_sigmoid_op.cc + legacy
+    trainer_config_helpers hsigmoid): O(log K) per sample instead of a
+    K-way softmax. Returns Cost [N, 1]."""
+    helper = LayerHelper("hsigmoid", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    d = int(input.shape[-1])
+    w = helper.create_parameter(helper.param_attr,
+                                [num_classes - 1, d], input.dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if bias_attr is not False:
+        b = helper.create_parameter(helper.bias_attr, [num_classes - 1],
+                                    input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="hierarchical_sigmoid", inputs=inputs,
+        outputs={"Cost": [cost]}, attrs={"num_classes": num_classes},
+    )
+    return cost
+
+
+def dot_product_attention(querys, keys, values):
+    """reference nets.py scaled_dot_product_attention (simplified)."""
+    product = matmul(querys, keys, transpose_y=True)
+    attn = softmax(product)
+    return matmul(attn, values), attn
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None):
+    """Noise-contrastive estimation loss (reference layers/nn.py:2836 ->
+    nce op). Returns per-example cost [N, 1]."""
+    helper = LayerHelper("nce", param_attr=param_attr, bias_attr=bias_attr)
+    dim = int(input.shape[-1])
+    weight = helper.create_parameter(
+        helper.param_attr, shape=[int(num_total_classes), dim],
+        dtype=input.dtype)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(input.dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    inputs = {"Input": [input], "Label": [label], "Weight": [weight]}
+    if helper.bias_attr is not False:  # bias_attr=False opts out
+        inputs["Bias"] = [helper.create_parameter(
+            helper.bias_attr, shape=[int(num_total_classes)],
+            dtype=input.dtype, is_bias=True)]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    n_neg = 10 if num_neg_samples is None else int(num_neg_samples)
+    if n_neg < 1:
+        raise ValueError(f"num_neg_samples must be >= 1, got {n_neg}")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": n_neg},
+    )
+    return cost
+
+
+def multiplex(inputs, index):
+    """Row-wise select among candidate tensors by per-row index (reference
+    layers/nn.py multiplex -> multiplex op)."""
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(
+        type="multiplex",
+        inputs={"X": list(inputs), "Ids": [index]},
+        outputs={"Out": [out]},
     )
     return out

@@ -1,6 +1,7 @@
-"""Tensor layers (reference python/paddle/fluid/layers/tensor.py): the
-ones the Transformer and the control-flow programs call, copied from
-``paddle_tpu/fluid/layers/tensor.py``."""
+"""Tensor layers (reference python/paddle/fluid/layers/tensor.py),
+copied from ``paddle_tpu/fluid/layers/tensor.py``. ``save``, ``load``,
+``save_combine`` and ``load_combine`` append the host io ops that the
+executor runs in program order."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,9 +9,19 @@ import numpy as np
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat", "sums", "assign",
-           "fill_constant", "fill_constant_batch_size_like", "ones",
-           "zeros", "argmax"]
+__all__ = [
+    "create_tensor", "create_parameter", "create_global_var", "cast", "concat",
+    "sums", "assign", "fill_constant", "fill_constant_batch_size_like",
+    "ones", "zeros", "argmin", "argmax",
+    "save", "save_combine", "load", "load_combine",
+]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    helper = LayerHelper("create_tensor", name=name)
+    return helper.create_variable(
+        name=helper.name if name else None, dtype=dtype, persistable=persistable
+    )
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -134,10 +145,58 @@ def zeros(shape, dtype, force_cpu=False):
     return fill_constant(shape=shape, dtype=dtype, value=0.0)
 
 
+def argmin(x, axis=0):
+    """int64 index of the smallest value along ``axis`` (op ``arg_min``)."""
+    return _arg_min_max("arg_min", x, axis)
+
+
 def argmax(x, axis=0):
     """int64 index of the largest value along ``axis`` (op ``arg_max``)."""
-    helper = LayerHelper("arg_max")
+    return _arg_min_max("arg_max", x, axis)
+
+
+def _arg_min_max(op_type, x, axis):
+    helper = LayerHelper(op_type)
     out = helper.create_variable_for_type_inference(dtype="int64")
-    helper.append_op(type="arg_max", inputs={"X": [x]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
+    helper.append_op(
+        type=op_type, inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"axis": axis},
+    )
     return out
+
+
+def save(x, file_path, overwrite=True):
+    """Emit an in-graph save op for one var (reference layers/tensor.py
+    save -> save_op.cc; runs host-side at the program's edge)."""
+    helper = LayerHelper("save")
+    helper.main_program.current_block().append_op(
+        "save", inputs={"X": [x]}, outputs={},
+        attrs={"file_path": str(file_path), "overwrite": bool(overwrite)},
+    )
+
+
+def save_combine(x, file_path, overwrite=True):
+    """Save several vars into one file (reference save_combine_op.cc)."""
+    helper = LayerHelper("save_combine")
+    helper.main_program.current_block().append_op(
+        "save_combine", inputs={"X": list(x)}, outputs={},
+        attrs={"file_path": str(file_path), "overwrite": bool(overwrite)},
+    )
+
+
+def load(out, file_path):
+    """Emit an in-graph load op into `out` (reference load_op.cc)."""
+    helper = LayerHelper("load")
+    helper.main_program.current_block().append_op(
+        "load", inputs={}, outputs={"Out": [out]},
+        attrs={"file_path": str(file_path)},
+    )
+
+
+def load_combine(out, file_path):
+    """Load several vars from one file (reference load_combine_op.cc)."""
+    helper = LayerHelper("load_combine")
+    helper.main_program.current_block().append_op(
+        "load_combine", inputs={}, outputs={"Out": list(out)},
+        attrs={"file_path": str(file_path)},
+    )

@@ -13,8 +13,14 @@ LoD family, ``linear_chain_crf``, ``warpctc``, ``edit_distance``,
 transposes, ``conv3d``, ``depthwise_conv2d``, the 3-D and indexed pools,
 ``unpool``, ``lrn``, ``spp``, ``roi_pool``, the resizes) with the SSD
 detection ops (``prior_box``, ``box_coder``, ``bipartite_match``,
-``multiclass_nms``, ``detection_map``, ...). Any other op type raises "no emitter registered ...
-(not yet ported)" when a program containing it is built or run."""
+``multiclass_nms``, ``detection_map``, ...), and the rest of Fluid's
+op library: SelectedRows gradients (a sparse ``lookup_table``'s, taken
+by ``sum``, the clip ops and every optimizer op), the losses
+(``nce``, ``hierarchical_sigmoid``, ``lambda_cost``, ...), sampling,
+the gather/scatter family and the ranking and metric ops (``auc``,
+``precision_recall``, ``positive_negative_pair``). Any other op type
+raises "no emitter registered ... (not yet ported)" when a program
+containing it is built or run."""
 from . import (  # noqa: F401
     activations,
     attention_ops,
@@ -28,6 +34,7 @@ from . import (  # noqa: F401
     loss_ops,
     math_ops,
     metric_ops,
+    nce_op,
     nn_ops,
     optimizer_ops,
     random_ops,

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..registry import register_op
+from ..selected_rows import SelectedRows, is_selected_rows
 from .common import bcast_y, one
 
 
@@ -16,6 +17,14 @@ def _binary(name, fn):
     @register_op(name, ref="paddle/fluid/operators/elementwise_op_function.h")
     def _op(ctx, ins, attrs, _fn=fn):
         x, y = one(ins, "X"), one(ins, "Y")
+        if (is_selected_rows(x) and y.ndim <= 1 and y.numel() == 1
+                and _fn in (torch.mul, torch.div)):
+            # a sparse gradient times a scalar (global-norm clipping,
+            # per-parameter rates): row by row equals the dense op only
+            # for f(0) = 0 that distributes over duplicate rows' sums,
+            # so mul and div alone
+            return {"Out": SelectedRows(x.rows, _fn(x.value, y.reshape(())),
+                                        x.height)}
         return {"Out": _fn(x, bcast_y(x, y, int(attrs.get("axis", -1))))}
 
     return _op

@@ -1,5 +1,7 @@
 """GEMM-family + misc math ops (reference paddle/fluid/operators/{mul,
-matmul,sum,mean,scale,cum,sign,clip,clip_by_norm,squared_l2_norm,cos_sim}_op.*). Plain large products stay ``torch.matmul``
+matmul,sum,mean,scale,cum,sign,minus,clip,clip_by_norm,squared_l2_norm,
+l1_norm,cos_sim}_op.*). ``sum`` and the clip ops take SelectedRows
+gradients as the JAX package's do. Plain large products stay ``torch.matmul``
 (cuBLAS on a card), as the JAX package leaves them to XLA; under
 FLAGS['amp'] ``mul`` and ``matmul`` multiply bfloat16 operands and
 restore the result to float32 (``amp_operands``)."""
@@ -10,6 +12,7 @@ import math
 import torch
 
 from ..registry import register_op
+from ..selected_rows import SelectedRows, add_any, is_selected_rows
 from .common import amp_operands, many, one, restored
 
 
@@ -48,10 +51,13 @@ def matmul(ctx, ins, attrs):
 
 @register_op("sum", ref="paddle/fluid/operators/sum_op.cc")
 def sum_op(ctx, ins, attrs):
+    """Dense and SelectedRows terms as the reference's sum_op
+    (math/selected_rows_functor.cc): all sparse stays sparse (rows
+    concatenated), mixed densifies by a scatter-add."""
     xs = many(ins, "X")
     out = xs[0]
     for x in xs[1:]:
-        out = out + x
+        out = add_any(out, x)
     return {"Out": out}
 
 
@@ -89,37 +95,57 @@ def sign(ctx, ins, attrs):
     return {"Out": torch.sign(one(ins, "X"))}
 
 
-def _dense(x, op_type):
-    """The clip ops take dense tensors; a sparse (SelectedRows) gradient
-    raises, as the port's ``momentum`` does."""
-    if x.layout != torch.strided:
-        raise NotImplementedError(
-            f"{op_type} of a sparse (SelectedRows) tensor is not yet ported "
-            "to paddle_tpu_torch")
-    return x
+@register_op("minus", ref="paddle/fluid/operators/minus_op.cc")
+def minus(ctx, ins, attrs):
+    return {"Out": one(ins, "X") - one(ins, "Y")}
 
 
 @register_op("clip", ref="paddle/fluid/operators/clip_op.cc")
 def clip(ctx, ins, attrs):
-    x = _dense(one(ins, "X"), "clip")
-    return {"Out": torch.clamp(x, float(attrs["min"]), float(attrs["max"]))}
+    """Elementwise clamp to [min, max]. A SelectedRows merges first, so
+    a repeated row clips its sum, and the masked duplicate entries stay
+    0 even where the range leaves out 0."""
+    x = one(ins, "X")
+    lo, hi = float(attrs["min"]), float(attrs["max"])
+    if is_selected_rows(x):
+        rows, merged, mask = x.merged()
+        maskb = mask.reshape((-1,) + (1,) * (merged.ndim - 1))
+        return {"Out": SelectedRows(rows, maskb * torch.clamp(merged, lo, hi),
+                                    x.height)}
+    return {"Out": torch.clamp(x, lo, hi)}
+
+
+def _clipped(x, max_norm):
+    norm = torch.sqrt(torch.sum(x * x))
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)
 
 
 @register_op("clip_by_norm", ref="paddle/fluid/operators/clip_by_norm_op.cc")
 def clip_by_norm(ctx, ins, attrs):
     """``x * max_norm / ||x||`` where the L2 norm exceeds ``max_norm``,
-    else ``x``."""
-    x = _dense(one(ins, "X"), "clip_by_norm")
+    else ``x``; a SelectedRows merges first (the merged norm is the
+    dense one)."""
+    x = one(ins, "X")
     max_norm = float(attrs["max_norm"])
-    norm = torch.sqrt(torch.sum(x * x))
-    return {"Out": torch.where(norm > max_norm, x * (max_norm / norm), x)}
+    if is_selected_rows(x):
+        rows, merged, _ = x.merged()
+        return {"Out": SelectedRows(rows, _clipped(merged, max_norm),
+                                    x.height)}
+    return {"Out": _clipped(x, max_norm)}
 
 
 @register_op("squared_l2_norm",
              ref="paddle/fluid/operators/squared_l2_norm_op.cc")
 def squared_l2_norm(ctx, ins, attrs):
-    x = _dense(one(ins, "X"), "squared_l2_norm")
+    x = one(ins, "X")
+    if is_selected_rows(x):
+        x = x.merged()[1]
     return {"Out": torch.sum(x * x).reshape(1)}
+
+
+@register_op("l1_norm", ref="paddle/fluid/operators/l1_norm_op.cc")
+def l1_norm(ctx, ins, attrs):
+    return {"Out": torch.sum(torch.abs(one(ins, "X"))).reshape(1)}
 
 
 @register_op("cos_sim", ref="paddle/fluid/operators/cos_sim_op.cc")

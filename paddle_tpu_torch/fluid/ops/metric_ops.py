@@ -1,7 +1,8 @@
-"""Metric ops (reference paddle/fluid/operators/{accuracy,edit_distance,
-chunk_eval}_op.*): the counterpart of ``paddle_tpu/fluid/ops/metric_ops.py``
-for the ops ported so far. ``edit_distance`` and ``chunk_eval`` work on
-the whole batch at once, as the JAX package's ``vmap``-ed forms do."""
+"""Metric ops (reference paddle/fluid/operators/{accuracy,auc,
+edit_distance,chunk_eval,precision_recall,positive_negative_pair}_op.*):
+the counterpart of ``paddle_tpu/fluid/ops/metric_ops.py``.
+``edit_distance`` and ``chunk_eval`` work on the whole batch at once, as
+the JAX package's ``vmap``-ed forms do."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +28,39 @@ def accuracy(ctx, ins, attrs):
         "Total": torch.full((1,), n, dtype=torch.int32,
                             device=indices.device),
     }
+
+
+def _auc_thresholds(num_t, device):
+    """``jnp.linspace(0, 1, num_t)`` bit for bit: XLA computes i / (n - 1)
+    as i times the float32 reciprocal of n - 1, and ends on 1.0. A score
+    exactly on a threshold then falls on the JAX op's side of it."""
+    if num_t < 2:
+        return torch.zeros(num_t, dtype=torch.float32, device=device)
+    recip = torch.tensor(1.0 / (num_t - 1), dtype=torch.float32,
+                         device=device)
+    t = torch.arange(num_t, dtype=torch.float32, device=device) * recip
+    t[-1] = 1.0
+    return t
+
+
+@register_op("auc", no_grad=("Out", "Indices", "Label"),
+             ref="paddle/fluid/operators/auc_op.cc")
+def auc(ctx, ins, attrs):
+    """One batch's ROC AUC: TPR and FPR at ``num_thresholds`` levels in
+    [0, 1] (a score counts positive when above a level), joined by the
+    trapezoid rule. Out's column 1 is the positive score (a [N, 2]
+    softmax), else Out itself."""
+    out, label = one(ins, "Out"), one(ins, "Label")
+    num_t = int(attrs.get("num_thresholds", 200))
+    pos_score = out[:, 1] if out.ndim == 2 and out.shape[1] >= 2 \
+        else out.reshape(-1)
+    lab = label.reshape(-1).to(torch.bool)
+    pred = pos_score[None, :] > _auc_thresholds(num_t, out.device)[:, None]
+    tp = (pred & lab[None, :]).sum(dim=1).to(torch.float32)
+    fp = (pred & ~lab[None, :]).sum(dim=1).to(torch.float32)
+    tpr = tp / torch.clamp(lab.sum(), min=1)
+    fpr = fp / torch.clamp((~lab).sum(), min=1)
+    return {"AUC": (-torch.trapezoid(tpr, fpr)).reshape(1)}
 
 
 def _pack_tokens(x, lengths, ignored):
@@ -175,3 +209,86 @@ def chunk_eval(ctx, ins, attrs):
         "NumLabelChunks": num_label.reshape(1),
         "NumCorrectChunks": num_correct.reshape(1),
     }
+
+
+def _prf(st):
+    """Macro (per-class mean) and micro precision, recall and F1 of
+    per-class [tp, fp, tn, fn] rows."""
+    tp, fp, fn = st[:, 0], st[:, 1], st[:, 3]
+
+    def ratio(a, b):
+        return torch.where(b > 0, a / torch.clamp(b, min=1e-12),
+                           torch.zeros_like(a))
+
+    prec, rec = ratio(tp, tp + fp), ratio(tp, tp + fn)
+    f1 = ratio(2 * prec * rec, prec + rec)
+    stp, sfp, sfn = tp.sum(), fp.sum(), fn.sum()
+    mprec, mrec = ratio(stp, stp + sfp), ratio(stp, stp + sfn)
+    mf1 = ratio(2 * mprec * mrec, mprec + mrec)
+    return torch.stack([prec.mean(), rec.mean(), f1.mean(), mprec, mrec,
+                        mf1])
+
+
+@register_op("precision_recall",
+             no_grad=("MaxProbs", "Indices", "Labels", "Weights",
+                      "StatesInfo"),
+             ref="paddle/fluid/operators/precision_recall_op.cc")
+def precision_recall(ctx, ins, attrs):
+    """Per-class weighted TP/FP/TN/FN of a batch and, through StatesInfo,
+    of every batch so far; macro and micro precision, recall and F1 of
+    each: BatchMetrics [6], AccumMetrics [6], AccumStatesInfo [C, 4]."""
+    pred = one(ins, "Indices").reshape(-1).long()
+    lab = one(ins, "Labels").reshape(-1).long()
+    weights = one(ins, "Weights")
+    states = one(ins, "StatesInfo")
+    cls = torch.arange(int(attrs["class_number"]), device=pred.device)[:, None]
+    w = (weights.reshape(-1).to(torch.float32) if weights is not None
+         else torch.ones(pred.shape, dtype=torch.float32,
+                         device=pred.device))[None, :]
+    is_pred, is_lab = pred[None, :] == cls, lab[None, :] == cls
+    zero = torch.zeros_like(w)
+
+    def count(m):
+        return torch.where(m, w, zero).sum(dim=1)
+
+    batch = torch.stack([count(is_pred & is_lab), count(is_pred & ~is_lab),
+                         count(~is_pred & ~is_lab), count(~is_pred & is_lab)],
+                        dim=1)
+    accum = batch if states is None else batch + states
+    return {"BatchMetrics": _prf(batch), "AccumMetrics": _prf(accum),
+            "AccumStatesInfo": accum}
+
+
+@register_op("positive_negative_pair",
+             no_grad=("Score", "Label", "QueryID", "AccumulatePositivePair",
+                      "AccumulateNegativePair", "AccumulateNeutralPair",
+                      "Weight"),
+             ref="paddle/fluid/operators/positive_negative_pair_op.cc")
+def positive_negative_pair(ctx, ins, attrs):
+    """Ranking pairs a query: a pair of one query's items with different
+    labels counts positive when the scores order it as the labels do,
+    negative when inverted, neutral on a score tie, each weighted by the
+    mean of its two weights; added to the Accumulate* inputs when given.
+    [N, N] masks over the batch (the reference loops a query at a time
+    on the host)."""
+    score, label = one(ins, "Score"), one(ins, "Label")
+    acc = [one(ins, "Accumulate" + k + "Pair")
+           for k in ("Positive", "Negative", "Neutral")]
+    weight = one(ins, "Weight")
+    s = score if score.ndim == 1 else score[:, int(attrs.get("column", -1))]
+    lb = label.reshape(-1)
+    q = one(ins, "QueryID").reshape(-1)
+    w = weight.reshape(-1) if weight is not None else torch.ones_like(s)
+    upper = torch.triu(torch.ones(q.shape[0], q.shape[0], dtype=torch.bool,
+                                  device=q.device), diagonal=1)
+    cares = (q[:, None] == q[None, :]) & (lb[:, None] != lb[None, :]) & upper
+    ds = s[:, None] - s[None, :]
+    dl = lb[:, None] - lb[None, :]
+    pw = 0.5 * (w[:, None] + w[None, :])
+    zero = torch.zeros_like(pw)
+    pairs = [torch.where(cares & m, pw, zero).sum()
+             for m in (ds * dl > 0, ds * dl < 0, ds == 0)]
+    if acc[0] is not None:
+        pairs = [p + a.reshape(()) for p, a in zip(pairs, acc)]
+    return dict(zip(("PositivePair", "NegativePair", "NeutralPair"),
+                    (p.reshape(1) for p in pairs)))

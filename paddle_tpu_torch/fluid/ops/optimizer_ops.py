@@ -2,23 +2,44 @@
 paddle/fluid/operators/{sgd,momentum,adam,adagrad,adamax,adadelta,rmsprop,
 decayed_adagrad,ftrl,proximal_gd,proximal_adagrad,average_accumulates}_op.*),
 the counterpart of ``paddle_tpu/fluid/ops/optimizer_ops.py``. Each returns
-the new state; the executor writes it back to the scope. Dense gradients
-only: a sparse (SelectedRows) gradient raises (not ported)."""
+the new state; the executor writes it back to the scope.
+
+A SelectedRows gradient (a sparse ``lookup_table``'s): ``sgd`` adds it
+row by row; ``momentum``, ``adam`` and ``adagrad`` update only the
+merged rows through the first-occurrence mask (the reference's MergeAdd
+before its sparse kernels; a bare scatter of per-entry deltas would
+apply a repeated row's moment update twice); every other op densifies
+it, as the JAX package's ``_dense_grad`` does."""
 from __future__ import annotations
 
 import torch
 
 from ..registry import register_op
+from ..selected_rows import is_selected_rows
 from .common import one
 
 
-def _dense_grad(ins, op_type):
+def _sparse_grad(ins):
+    """The merged SelectedRows gradient ``(rows, value, mask)``, the mask
+    shaped to broadcast over a row, or None for a dense gradient."""
     g = one(ins, "Grad")
-    if g.layout != torch.strided:
-        raise NotImplementedError(
-            f"{op_type} with a sparse (SelectedRows) gradient is not yet "
-            "ported to paddle_tpu_torch")
-    return g
+    if not is_selected_rows(g):
+        return None
+    rows, gm, mask = g.merged()
+    return rows, gm, mask.reshape((-1,) + (1,) * (gm.ndim - 1))
+
+
+def _dense_grad(ins):
+    """The gradient, densified where it is a SelectedRows (correct, but
+    without the memory win: the reference falls back so for optimizers
+    with no SelectedRows kernel)."""
+    g = one(ins, "Grad")
+    return g.to_dense() if is_selected_rows(g) else g
+
+
+def _rows_add(x, rows, delta):
+    """x with ``delta`` added at ``rows`` (one order, repeatable)."""
+    return x.index_put((rows,), delta, accumulate=True)
 
 
 def _lr(ins):
@@ -27,19 +48,37 @@ def _lr(ins):
 
 @register_op("sgd", ref="paddle/fluid/operators/sgd_op.cc")
 def sgd(ctx, ins, attrs):
-    return {"ParamOut": one(ins, "Param") - _lr(ins) * one(ins, "Grad")}
+    p, g = one(ins, "Param"), one(ins, "Grad")
+    if is_selected_rows(g):
+        # linear in g: a scatter-add takes repeated rows as they come
+        # (reference sgd_op.h's SelectedRows branch)
+        return {"ParamOut": _rows_add(p, g.rows, -_lr(ins) * g.value.to(
+            p.dtype))}
+    return {"ParamOut": p - _lr(ins) * g}
 
 
 @register_op("momentum", ref="paddle/fluid/operators/momentum_op.cc")
 def momentum(ctx, ins, attrs):
     """``v' = mu * v + g``; ``p' = p - lr * v'``, or with Nesterov
     ``p' = p - (g + mu * v') * lr``."""
-    p, g, v = one(ins, "Param"), _dense_grad(ins, "momentum"), \
-        one(ins, "Velocity")
+    p, g, v = one(ins, "Param"), one(ins, "Grad"), one(ins, "Velocity")
     lr = _lr(ins)
     mu = float(attrs.get("mu", 0.9))
+    nesterov = bool(attrs.get("use_nesterov", False))
+    sparse = _sparse_grad(ins)
+    if sparse is not None:
+        rows, gm, mask = sparse
+        v_rows, p_rows = v[rows], p[rows]
+        v_new_rows = mu * v_rows + gm
+        if nesterov:
+            p_new_rows = p_rows - (gm + mu * v_new_rows) * lr
+        else:
+            p_new_rows = p_rows - lr * v_new_rows
+        return {"ParamOut": _rows_add(p, rows, mask * (p_new_rows - p_rows)),
+                "VelocityOut": _rows_add(v, rows,
+                                         mask * (v_new_rows - v_rows))}
     v_new = mu * v + g
-    if bool(attrs.get("use_nesterov", False)):
+    if nesterov:
         p_new = p - (g + mu * v_new) * lr
     else:
         p_new = p - lr * v_new
@@ -56,6 +95,21 @@ def adam(ctx, ins, attrs):
     b2 = float(attrs.get("beta2", 0.999))
     eps = float(attrs.get("epsilon", 1e-8))
     lr_t = lr * torch.sqrt(1 - b2p.reshape(())) / (1 - b1p.reshape(()))
+    sparse = _sparse_grad(ins)
+    if sparse is not None:
+        # lazy sparse Adam (reference SparseAdamFunctor, adam_op.h): the
+        # moments and the parameter move on the batch's rows only
+        rows, gm, mask = sparse
+        m1r, m2r, pr = m1[rows], m2[rows], p[rows]
+        m1n = b1 * m1r + (1 - b1) * gm
+        m2n = b2 * m2r + (1 - b2) * gm * gm
+        pn = pr - lr_t * m1n / (torch.sqrt(m2n) + eps)
+        return {
+            "ParamOut": _rows_add(p, rows, mask * (pn - pr)),
+            "Moment1Out": _rows_add(m1, rows, mask * (m1n - m1r)),
+            "Moment2Out": _rows_add(m2, rows, mask * (m2n - m2r)),
+            "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2,
+        }
     m1n = b1 * m1 + (1 - b1) * g
     m2n = b2 * m2 + (1 - b2) * g * g
     pn = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
@@ -67,9 +121,16 @@ def adam(ctx, ins, attrs):
 
 @register_op("adagrad", ref="paddle/fluid/operators/adagrad_op.cc")
 def adagrad(ctx, ins, attrs):
-    p, g, m = one(ins, "Param"), _dense_grad(ins, "adagrad"), \
-        one(ins, "Moment")
+    p, g, m = one(ins, "Param"), one(ins, "Grad"), one(ins, "Moment")
     eps = float(attrs.get("epsilon", 1e-6))
+    sparse = _sparse_grad(ins)
+    if sparse is not None:
+        rows, gm, mask = sparse
+        mr, pr = m[rows], p[rows]
+        mn = mr + gm * gm
+        pn = pr - _lr(ins) * gm / (torch.sqrt(mn) + eps)
+        return {"ParamOut": _rows_add(p, rows, mask * (pn - pr)),
+                "MomentOut": _rows_add(m, rows, mask * (mn - mr))}
     mn = m + g * g
     return {"ParamOut": p - _lr(ins) * g / (torch.sqrt(mn) + eps),
             "MomentOut": mn}
@@ -78,7 +139,7 @@ def adagrad(ctx, ins, attrs):
 @register_op("decayed_adagrad",
              ref="paddle/fluid/operators/decayed_adagrad_op.cc")
 def decayed_adagrad(ctx, ins, attrs):
-    p, g, m = one(ins, "Param"), _dense_grad(ins, "decayed_adagrad"), \
+    p, g, m = one(ins, "Param"), _dense_grad(ins), \
         one(ins, "Moment")
     decay = float(attrs.get("decay", 0.95))
     eps = float(attrs.get("epsilon", 1e-6))
@@ -89,7 +150,7 @@ def decayed_adagrad(ctx, ins, attrs):
 
 @register_op("adadelta", ref="paddle/fluid/operators/adadelta_op.cc")
 def adadelta(ctx, ins, attrs):
-    p, g = one(ins, "Param"), _dense_grad(ins, "adadelta")
+    p, g = one(ins, "Param"), _dense_grad(ins)
     avg_sq_g = one(ins, "AvgSquaredGrad")
     avg_sq_u = one(ins, "AvgSquaredUpdate")
     rho = float(attrs.get("rho", 0.95))
@@ -105,7 +166,7 @@ def adadelta(ctx, ins, attrs):
 def adamax(ctx, ins, attrs):
     """The reference's adamax_op.h: eps joins the DECAYED norm before the
     max, and the step divides by the new norm with no further eps."""
-    p, g = one(ins, "Param"), _dense_grad(ins, "adamax")
+    p, g = one(ins, "Param"), _dense_grad(ins)
     m, inf = one(ins, "Moment"), one(ins, "InfNorm")
     b1p = one(ins, "Beta1Pow").reshape(())
     b1 = float(attrs.get("beta1", 0.9))
@@ -119,7 +180,7 @@ def adamax(ctx, ins, attrs):
 
 @register_op("rmsprop", ref="paddle/fluid/operators/rmsprop_op.cc")
 def rmsprop(ctx, ins, attrs):
-    p, g = one(ins, "Param"), _dense_grad(ins, "rmsprop")
+    p, g = one(ins, "Param"), _dense_grad(ins)
     ms, mom = one(ins, "MeanSquare"), one(ins, "Moment")
     decay = float(attrs.get("decay", 0.9))
     mu = float(attrs.get("momentum", 0.0))
@@ -133,7 +194,7 @@ def rmsprop(ctx, ins, attrs):
 def ftrl(ctx, ins, attrs):
     """The reference's ftrl_op.h, with its two branches on ``lr_power``
     (square roots at -0.5, powers otherwise)."""
-    p, g = one(ins, "Param"), _dense_grad(ins, "ftrl")
+    p, g = one(ins, "Param"), _dense_grad(ins)
     sq, lin = one(ins, "SquaredAccumulator"), one(ins, "LinearAccumulator")
     lr = _lr(ins)
     l1 = float(attrs.get("l1", 0.0))
@@ -159,7 +220,7 @@ def _proximal(prox, lr, l1, l2):
 
 @register_op("proximal_gd", ref="paddle/fluid/operators/proximal_gd_op.cc")
 def proximal_gd(ctx, ins, attrs):
-    p, g = one(ins, "Param"), _dense_grad(ins, "proximal_gd")
+    p, g = one(ins, "Param"), _dense_grad(ins)
     lr = _lr(ins)
     return {"ParamOut": _proximal(p - lr * g, lr,
                                   float(attrs.get("l1", 0.0)),
@@ -169,7 +230,7 @@ def proximal_gd(ctx, ins, attrs):
 @register_op("proximal_adagrad",
              ref="paddle/fluid/operators/proximal_adagrad_op.cc")
 def proximal_adagrad(ctx, ins, attrs):
-    p, g, m = one(ins, "Param"), _dense_grad(ins, "proximal_adagrad"), \
+    p, g, m = one(ins, "Param"), _dense_grad(ins), \
         one(ins, "Moment")
     mn = m + g * g
     lr_t = _lr(ins) / torch.sqrt(mn)

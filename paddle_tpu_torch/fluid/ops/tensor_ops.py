@@ -1,14 +1,15 @@
 """Tensor-manipulation ops (reference paddle/fluid/operators/{reshape,
 transpose,concat,split,cast,fill_constant,assign,assign_value,
-lookup_table,top_k,arg_max,expand,...}_op.*) — the counterpart of
-``paddle_tpu/fluid/ops/tensor_ops.py`` for the ops the port's paths
-run."""
+lookup_table,one_hot,top_k,arg_max,expand,gather,scatter,multiplex,
+split_ids,split_selected_rows,...}_op.*) — the counterpart of
+``paddle_tpu/fluid/ops/tensor_ops.py``."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..registry import register_op
+from ..selected_rows import SelectedRows, is_selected_rows
 from .common import dtype_of, many, one
 
 
@@ -254,8 +255,12 @@ def _squeezed_ids(ids):
 
 
 def _lookup_table_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
-    """Dense grad W: the rows' output gradients scatter-added into a zero
-    table (the JAX package's dense path, ``jnp.take``'s vjp)."""
+    """Grad W. With ``is_sparse`` a SelectedRows of the batch's ids and
+    their rows' output gradients (padding rows zeroed) that never builds
+    the dense [V, D] gradient (reference lookup_table_grad's SelectedRows
+    kernel; the optimizer ops apply it row by row). Dense: the rows'
+    output gradients scatter-added into a zero table (``jnp.take``'s
+    vjp)."""
     w, ids = fwd_ins["W"][0], fwd_ins["Ids"][0]
     dy = out_grads["Out"][0]
     if dy is None:
@@ -266,6 +271,9 @@ def _lookup_table_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
     if padding_idx != -1:
         flat_dy = torch.where((flat_ids == padding_idx)[:, None],
                               torch.zeros_like(flat_dy), flat_dy)
+    if bool(attrs.get("is_sparse", False)):
+        return {"GRAD@W": SelectedRows(flat_ids, flat_dy, w.shape[0]),
+                "GRAD@Ids": None}
     # index_put_ with accumulate sorts the ids and sums each row in one
     # order; index_add_ adds with atomics on the card, so repeated ids
     # (every sequence's start token) changed the last bits from run to run
@@ -276,10 +284,6 @@ def _lookup_table_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
 @register_op("lookup_table", no_grad=("Ids",), grad=_lookup_table_grad,
              ref="paddle/fluid/operators/lookup_table_op.cc")
 def lookup_table(ctx, ins, attrs):
-    if bool(attrs.get("is_sparse", False)):
-        raise NotImplementedError(
-            "lookup_table is_sparse=True (SelectedRows gradients) is not "
-            "yet ported to paddle_tpu_torch")
     w, ids = one(ins, "W"), one(ins, "Ids")
     padding_idx = int(attrs.get("padding_idx", -1))
     ids = _squeezed_ids(ids)
@@ -306,3 +310,114 @@ def arg_max(ctx, ins, attrs):
     lowest index, as ``jnp.argmax``'s does."""
     return {"Out": torch.argmax(one(ins, "X"), dim=int(attrs.get("axis", 0)))}
 
+
+
+@register_op("arg_min", no_grad=("X",),
+             ref="paddle/fluid/operators/arg_minmax (era: argmin via top_k)")
+def arg_min(ctx, ins, attrs):
+    """int64 index of the smallest value along ``axis``; a tie goes to
+    the lowest index, as ``jnp.argmin``'s does."""
+    return {"Out": torch.argmin(one(ins, "X"), dim=int(attrs.get("axis", 0)))}
+
+
+@register_op("one_hot", ref="paddle/fluid/operators/one_hot_op.cc")
+def one_hot(ctx, ins, attrs):
+    """float32 rows with a 1 at each id (a trailing ids dim of 1
+    squeezed); an id outside [0, depth) gives a zero row, as
+    ``jax.nn.one_hot``'s does."""
+    x = _squeezed_ids(one(ins, "X"))
+    depth = int(attrs["depth"])
+    return {"Out": (x[..., None] == torch.arange(depth, device=x.device)
+                    ).to(torch.float32)}
+
+
+@register_op("gather", no_grad=("Index",),
+             ref="paddle/fluid/operators/gather_op.cc")
+def gather(ctx, ins, attrs):
+    """The rows of X at Index (a trailing index dim of 1 squeezed)."""
+    return {"Out": one(ins, "X")[_squeezed_ids(one(ins, "Index"))]}
+
+
+@register_op("scatter", no_grad=("Ids",),
+             ref="paddle/fluid/operators/scatter_op.cc")
+def scatter(ctx, ins, attrs):
+    """X with the rows at Ids overwritten by Updates (out of place). With
+    a repeated id neither package says which update lands."""
+    x, updates = one(ins, "X"), one(ins, "Updates")
+    return {"Out": x.index_put((_squeezed_ids(one(ins, "Ids")),), updates)}
+
+
+@register_op("multiplex", no_grad=("Ids",),
+             ref="paddle/fluid/operators/multiplex_op.cc")
+def multiplex(ctx, ins, attrs):
+    """Row i of the output is row i of ``X[Ids[i]]``."""
+    xs = torch.stack(many(ins, "X"), dim=0)
+    ids = _squeezed_ids(one(ins, "Ids"))
+    idx = ids.reshape((1, -1) + (1,) * (xs.ndim - 2)).expand(
+        (1,) + tuple(xs.shape[1:]))
+    return {"Out": torch.take_along_dim(xs, idx, dim=0)[0]}
+
+
+@register_op("label_smooth", ref="paddle/fluid/operators/label_smooth_op.cc")
+def label_smooth(ctx, ins, attrs):
+    """``(1 - eps) * X + eps * PriorDist``, or ``eps / K`` over the last
+    dim's K classes without a prior."""
+    x = one(ins, "X")
+    eps = float(attrs.get("epsilon", 0.0))
+    dist = one(ins, "PriorDist")
+    if dist is not None:
+        return {"Out": (1 - eps) * x + eps * dist}
+    return {"Out": (1 - eps) * x + eps / x.shape[-1]}
+
+
+@register_op("is_empty", ref="paddle/fluid/operators/is_empty_op.cc")
+def is_empty(ctx, ins, attrs):
+    """A bool scalar: X holds no element."""
+    return {"Out": torch.tensor(one(ins, "X").numel() == 0,
+                                device=ctx.device)}
+
+
+@register_op("reverse", ref="paddle/fluid/operators (reverse capability)")
+def reverse(ctx, ins, attrs):
+    axes = attrs.get("axis", [0])
+    if not isinstance(axes, (list, tuple)):
+        axes = [axes]
+    return {"Out": torch.flip(one(ins, "X"), [int(a) for a in axes])}
+
+
+@register_op("split_ids", no_grad=("Ids",),
+             ref="paddle/fluid/operators/split_ids_op.cc")
+def split_ids(ctx, ins, attrs):
+    """Ids to ``num_shards`` shards by ``id % num_shards`` (the pserver
+    sharding rule of a distributed embedding). Static shapes, as in the
+    JAX package: each shard keeps the input's extent, -1 where the id
+    belongs to another shard."""
+    ids = one(ins, "Ids").reshape(-1)
+    n = int(attrs["num_shards"])
+    return {"Out": [torch.where(ids % n == s, ids, torch.full_like(ids, -1))
+                    for s in range(n)]}
+
+
+@register_op("split_selected_rows", no_grad=("X",),
+             ref="paddle/fluid/operators/split_selected_rows_op.cc")
+def split_selected_rows(ctx, ins, attrs):
+    """A SelectedRows split by contiguous row sections
+    (``height_sections``), as the reference ships a sparse gradient to
+    the pservers that own each slice of the table. Static shapes: every
+    output keeps the input's N entries, a row outside its section reads
+    -1 with a zero value."""
+    x = one(ins, "X")
+    sections = [int(s) for s in attrs["height_sections"]]
+    if not is_selected_rows(x):
+        raise ValueError("split_selected_rows expects a SelectedRows input")
+    outs = []
+    start = 0
+    for sec in sections:
+        in_sec = (x.rows >= start) & (x.rows < start + sec)
+        rows = torch.where(in_sec, x.rows - start, torch.full_like(x.rows, -1))
+        vals = torch.where(
+            in_sec.reshape((-1,) + (1,) * (x.value.ndim - 1)), x.value,
+            torch.zeros_like(x.value))
+        outs.append(SelectedRows(rows, vals, sec))
+        start += sec
+    return {"Out": outs}

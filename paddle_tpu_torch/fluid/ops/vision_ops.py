@@ -1,5 +1,6 @@
-"""Vision-file ops (reference paddle/fluid/operators/{maxout,unpool,spp,
-roi_pool,row_conv,lstmp,pool_with_index,bilinear_interp}_op.* and
+"""Vision-file ops (reference paddle/fluid/operators/{maxout,norm,unpool,
+spp,roi_pool,row_conv,conv_shift,bilinear_tensor_product,lstmp,
+pool_with_index,bilinear_interp,sampling_id}_op.* and
 pool_op.cc's 3-D path): the counterpart of
 ``paddle_tpu/fluid/ops/vision_ops.py``. The pools, resizes and ROI pool
 are dense NC(D)HW with static shapes, batched over every image and ROI
@@ -334,3 +335,53 @@ def nearest_interp(ctx, ins, attrs):
     hi = torch.arange(out_h, device=x.device) * h // out_h
     wi = torch.arange(out_w, device=x.device) * w // out_w
     return {"Out": x.index_select(2, hi).index_select(3, wi)}
+
+
+@register_op("norm", ref="paddle/fluid/operators/norm_op.cc")
+def norm(ctx, ins, attrs):
+    """Cross-channel L2 normalisation with a learned scale a channel
+    (SSD's conv4_3 norm layer): X [N, C, H, W], Scale [C]."""
+    x, scale = one(ins, "X"), one(ins, "Scale")
+    eps = float(attrs.get("epsilon", 1e-10))
+    l2 = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True) + eps)
+    return {"Out": x / l2 * scale.reshape(1, -1, 1, 1)}
+
+
+@register_op("conv_shift", ref="paddle/fluid/operators/conv_shift_op.cc")
+def conv_shift(ctx, ins, attrs):
+    """Circular 1-D correlation (the Neural Turing Machine's shift): X
+    [B, M], Y [B, N] with N odd and N <= M;
+    out[b, i] = sum_j x[b, (i + j - N // 2) mod M] y[b, j]."""
+    x, y = one(ins, "X"), one(ins, "Y")
+    m, n = x.shape[1], y.shape[1]
+    idx = (torch.arange(m, device=x.device)[:, None]
+           + torch.arange(n, device=x.device)[None, :] - n // 2) % m
+    return {"Out": torch.einsum("bmn,bn->bm", x[:, idx], y)}
+
+
+@register_op("bilinear_tensor_product",
+             ref="paddle/fluid/operators/bilinear_tensor_product_op.cc")
+def bilinear_tensor_product(ctx, ins, attrs):
+    """out[:, k] = x W_k y^T + bias: X [B, M], Y [B, N], Weight
+    [K, M, N], Bias [1, K]."""
+    x, y, w = one(ins, "X"), one(ins, "Y"), one(ins, "Weight")
+    bias = one(ins, "Bias")
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    if bias is not None:
+        out = out + bias.reshape(1, -1)
+    return {"Out": out}
+
+
+@register_op("sampling_id", needs_rng=True,
+             ref="paddle/fluid/operators/sampling_id_op.cc")
+def sampling_id(ctx, ins, attrs):
+    """One int64 index a row, drawn from the row's distribution X (rows
+    need not sum to 1): the Gumbel-max draw of ``jax.random.categorical``
+    over log(max(X, 1e-30)), from ``ctx.rng``."""
+    x = one(ins, "X")
+    logits = torch.log(torch.clamp(x.to(torch.float32), min=1e-30))
+    u = torch.rand(logits.shape, generator=ctx.rng(attrs),
+                   device=ctx.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return {"Out": torch.argmax(logits + gumbel, dim=-1)}

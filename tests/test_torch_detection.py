@@ -58,6 +58,9 @@ NEW_OPS = {
     "smooth_l1_loss",
 }
 OPS_BEFORE = 153  # op types the port's own modules registered before
+# op types the rest-of-Fluid slice registered after this one
+# (tests/test_torch_fluid_rest.py holds them)
+OPS_AFTER = 32
 
 
 def test_a_registry_gains_the_slice_op_types():
@@ -68,7 +71,7 @@ def test_a_registry_gains_the_slice_op_types():
     assert len(NEW_OPS) == 27
     assert NEW_OPS <= set(JAX_OPS)
     assert NEW_OPS <= own, sorted(NEW_OPS - own)
-    assert len(own) == OPS_BEFORE + len(NEW_OPS) == 180
+    assert len(own) == OPS_BEFORE + len(NEW_OPS) + OPS_AFTER == 212
 
 
 def _port(op, ins, attrs):

@@ -231,15 +231,30 @@ def test_a_clip_op_matches_jax_with_gradient(op, attrs, scale):
 
 
 def test_a_sparse_gradient_raises():
+    """A SelectedRows gradient is taken by the clip and optimizer ops
+    (tests/test_torch_selected_rows.py holds them against the JAX
+    package); what still raises is a sparse op given a dense tensor and
+    a sum of SelectedRows of different heights."""
+    from paddle_tpu_torch.fluid.selected_rows import SelectedRows
+
     ctx = EmitCtx(device="cpu", root_seed=1)
-    g = torch.eye(3).to_sparse()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_forward(ctx, "clip", {"X": [g]}, {"min": 0.0, "max": 1.0})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_forward(ctx, "adagrad", {
-            "Param": [torch.zeros(3, 3)], "Grad": [g],
-            "Moment": [torch.zeros(3, 3)],
-            "LearningRate": [torch.ones(1)]}, {})
+    g = SelectedRows(torch.tensor([0, 2, 0]), torch.ones(3, 3), 3)
+    clipped = run_forward(ctx, "clip", {"X": [g]},
+                          {"min": 0.0, "max": 1.0})["Out"][0]
+    np.testing.assert_array_equal(clipped.to_dense().numpy(),
+                                  np.array([[1, 1, 1], [0, 0, 0], [1, 1, 1]],
+                                           np.float32))
+    moved = run_forward(ctx, "adagrad", {
+        "Param": [torch.zeros(3, 3)], "Grad": [g],
+        "Moment": [torch.zeros(3, 3)],
+        "LearningRate": [torch.ones(1)]}, {})["ParamOut"][0]
+    assert (moved[1] == 0).all() and (moved[0] < 0).all()
+    with pytest.raises(ValueError, match="expects a SelectedRows"):
+        run_forward(ctx, "split_selected_rows", {"X": [torch.eye(3)]},
+                    {"height_sections": [1, 2]})
+    with pytest.raises(ValueError, match="heights differ"):
+        run_forward(ctx, "sum", {"X": [g, SelectedRows(
+            torch.tensor([1]), torch.ones(1, 3), 4)]}, {})
 
 
 # --- programs built and run by both packages --------------------------------
