@@ -7719,6 +7719,320 @@ def sparse_phase(torch):
     return out
 
 
+# --- parallel: ParallelExecutor on a DTensor mesh --------------------------
+
+PARALLEL_STEPS = 5
+PARALLEL_LOSS_RTOL = 1e-5   # each ParallelExecutor loss against the plain's
+PARALLEL_SMALL_RTOL = 1e-4  # small programs: card vs CPU, relative
+PARALLEL_LAUNCHES = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+                     "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+                     "flash_delta": 18}
+# layers.moe at the Transformer's widths: 16 sequences of 512 tokens
+MOE = dict(d_model=512, experts=8, d_ff=2048, batch=16, seq=512, lr=1e-3,
+           aux=0.01)
+PDO = dict(width=512, batch=256, lr=1e-3)        # the ParallelDo MLP
+DIST_EMB = dict(vocab=100_000, dim=64, batch=256, lr=0.1)  # transpiler
+SMALL_STEPS = 3
+
+
+def _pe(fluid, scope, main, cost, mesh, plan, device=None):
+    """A ParallelExecutor over ``scope`` (the scope it runs on is the
+    one active when it is built)."""
+    with fluid.scope_guard(scope):
+        return fluid.ParallelExecutor(loss_name=cost.name,
+                                      main_program=main, mesh=mesh,
+                                      sharding_plan=plan, device=device)
+
+
+def _collective_counts():
+    from paddle_tpu_torch.observability import metrics
+
+    snap = metrics.snapshot("mesh.")
+    return {k[len("mesh.collectives."):]: v for k, v in snap.items()
+            if k.startswith("mesh.collectives.")}
+
+
+def _profiled_call(torch, run, what):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    out = _device_summary(events, wall_ms, what)
+    out["device_launches"] = _device_launches(events)
+    return out
+
+
+def _transformer_ways(torch):
+    """Transformer-base (TRANSFORMER_BASE, batch TRAIN_BATCH, Adam) three
+    ways in turns from one startup state and one step seed: the plain
+    Executor, a ParallelExecutor under plan_data_parallel() on dp=1, and
+    one under transformer_rules() on dp=1,tp=1,fsdp=1. Each run is the
+    main path's window (counts to 0 before, read after)."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.mesh import transformer_rules
+    from paddle_tpu_torch.parallel import plan_data_parallel
+
+    feed = copy_task_batch(TRAIN_BATCH, TRANSFORMER_BASE)
+    # one program each: each run advances its own program's step seed,
+    # so step i draws the same dropout masks on every way
+    built = {w: build_transformer(TRANSFORMER_BASE, 1e-4)
+             for w in ("plain", "pe_dp", "pe_rules")}
+    exe = _card_executor(fluid)
+    base = fluid.Scope()
+    exe.run(built["plain"][1], scope=base)
+    scopes = {}
+    for w in built:
+        scopes[w] = fluid.Scope()
+        for n in base.var_names():
+            scopes[w].set_var(n, base.find_var(n).detach().clone())
+    del base
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    runners = {"plain": lambda: exe.run(built["plain"][0], feed=feed,
+                                        fetch_list=[built["plain"][2]],
+                                        scope=scopes["plain"])}
+    pes = {
+        "pe_dp": _pe(fluid, scopes["pe_dp"], built["pe_dp"][0],
+                     built["pe_dp"][2], "dp=1", plan_data_parallel()),
+        "pe_rules": _pe(fluid, scopes["pe_rules"], built["pe_rules"][0],
+                        built["pe_rules"][2], "dp=1,tp=1,fsdp=1",
+                        transformer_rules()),
+    }
+    for w, pe in pes.items():
+        if pe.device.type != CARD:
+            raise RuntimeError(f"ParallelExecutor() chose {pe.device}, "
+                               "not the card")
+        runners[w] = (lambda pe=pe, w=w: pe.run(
+            fetch_list=[built[w][2]], feed=feed))
+    coll0 = _collective_counts()
+    res = {w: {"losses": [], "step_ms": [], "launches": [], "peak_gb": 0.0}
+           for w in runners}
+    for _ in range(PARALLEL_STEPS):
+        for w, run in runners.items():
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (loss,), launches = _held_window(run)
+            res[w]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            res[w]["losses"].append(float(np.asarray(loss).reshape(-1)[0]))
+            res[w]["launches"].append(launches)
+            res[w]["peak_gb"] = max(res[w]["peak_gb"],
+                                    torch.cuda.max_memory_allocated() / 1e9)
+    collectives = {k: v - coll0.get(k, 0)
+                   for k, v in _collective_counts().items()}
+    plain = res["plain"]
+    for w, r in res.items():
+        for i, launches in enumerate(r["launches"]):
+            for k, per_step in PARALLEL_LAUNCHES.items():
+                if launches.get(k, 0) != per_step:
+                    raise RuntimeError(
+                        f"{w} step {i + 1}: {k} launched "
+                        f"{launches.get(k, 0)} times, want {per_step} (the "
+                        "plain step's)")
+        r["p50_step_ms_after_first"] = statistics.median(r["step_ms"][1:])
+        r["tokens_per_s"] = TRAIN_BATCH * SEQ / (
+            r["p50_step_ms_after_first"] / 1e3)
+        r["launches_per_step"] = r.pop("launches")[-1]
+        if not all(np.isfinite(r["losses"])):
+            raise RuntimeError(f"{w}: losses not finite: {r['losses']}")
+        if w == "plain":
+            continue
+        r["loss_rel_err"] = _rel_err(r["losses"], plain["losses"])
+        r["bitwise"] = r["losses"] == plain["losses"]
+        if r["loss_rel_err"] > PARALLEL_LOSS_RTOL:
+            raise RuntimeError(
+                f"{w}: losses {r['losses']} vs the plain step's "
+                f"{plain['losses']}: {r['loss_rel_err']} relative "
+                f"(> {PARALLEL_LOSS_RTOL})")
+        r["step_ratio_p50"] = (r["p50_step_ms_after_first"]
+                               / plain["p50_step_ms_after_first"])
+        r["step_ratio_in_turns"] = statistics.median(
+            a / b for a, b in zip(r["step_ms"][1:], plain["step_ms"][1:]))
+        r["first_step_ms"] = r["step_ms"][0]
+    w = scopes["pe_rules"].find_var("enc0.self.q.w")
+    m = next(scopes["pe_rules"].find_var(n)
+             for n in scopes["pe_rules"].var_names()
+             if n.startswith("enc0.self.q.w_moment1"))
+    placements = {"enc0.self.q.w": str(tuple(w.placements)),
+                  "enc0.self.q.w_moment1": str(tuple(m.placements))}
+    for w_ in res:
+        res[w_]["profile"] = _profiled_call(torch, runners[w_],
+                                            f"parallel {w_} step")
+    return {"ways": res, "collectives": collectives,
+            "placements": placements, "state_gb": state_gb,
+            "config": "transformer-base 6+6L d512 h8 ff2048 vocab32000 "
+                      "len512 dropout0.1 adam1e-4 f32, batch "
+                      f"{TRAIN_BATCH}"}
+
+
+def _card_vs_cpu(torch, fluid, built, feeds, mesh, plan, what):
+    """SMALL_STEPS steps of a program under a card ParallelExecutor and
+    under the CPU's plain Executor from the same startup state: the
+    fetched losses (relative) and the card's p50 step ms."""
+    import numpy as np
+
+    main, startup, cost = built[:3]
+    card = fluid.Scope()
+    _card_executor(fluid).run(startup, scope=card)
+    cpu = _cpu_scope(fluid, card)
+    pe = _pe(fluid, card, main, cost, mesh, plan)
+    got, ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        (loss,), launches = _held_window(
+            lambda: pe.run(fetch_list=[cost], feed=feed))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got.append(float(np.asarray(loss).reshape(-1)[0]))
+    exe = fluid.Executor(fluid.CPUPlace())
+    want = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[cost],
+                                     scope=cpu)[0]).reshape(-1)[0])
+            for feed in feeds]
+    err = _rel_err(got, want)
+    if not all(np.isfinite(got)) or err > PARALLEL_SMALL_RTOL:
+        raise RuntimeError(f"{what}: card {got} vs CPU {want}: {err} "
+                           f"relative (> {PARALLEL_SMALL_RTOL})")
+    return {"losses": got, "cpu_losses": want, "rel_err": err,
+            "step_ms": ms, "p50_step_ms_after_first":
+                statistics.median(ms[1:]), "kernel_launches": launches,
+            "scope": card}
+
+
+def _build_moe(pkg, d_model, experts, d_ff, batch, seq, lr, aux):
+    fluid, layers, unique_name = pkg.fluid, pkg.layers, pkg.unique_name
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 17
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[seq, d_model], dtype="float32")
+        y = layers.data(name="y", shape=[seq, d_model], dtype="float32")
+        out, aux_loss = layers.moe(x, num_experts=experts, d_ff=d_ff,
+                                   name="moe0")
+        cost = layers.elementwise_add(
+            layers.mean(layers.square_error_cost(input=out, label=y)),
+            layers.scale(aux_loss, scale=aux))
+        fluid.optimizer.Adam(learning_rate=lr).minimize(cost)
+    return main, startup, cost
+
+
+def _build_parallel_do(pkg, width, batch, lr):
+    fluid, layers, unique_name = pkg.fluid, pkg.layers, pkg.unique_name
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 19
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[width], dtype="float32")
+        y = layers.data(name="y", shape=[1], dtype="float32")
+        places = layers.get_places()
+        pd = layers.ParallelDo(places)
+        with pd.do():
+            x_, y_ = pd.read_input(x), pd.read_input(y)
+            h = layers.fc(input=x_, size=width, act="relu")
+            p = layers.fc(input=h, size=1)
+            pd.write_output(layers.square_error_cost(input=p, label=y_))
+        cost = layers.mean(pd())
+        fluid.optimizer.SGD(learning_rate=lr).minimize(cost)
+    return main, startup, cost
+
+
+def _build_dist_embedding(pkg, vocab, dim, batch, lr):
+    fluid, layers, unique_name = pkg.fluid, pkg.layers, pkg.unique_name
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 23
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        ids = layers.data(name="ids", shape=[1], dtype="int64")
+        lbl = layers.data(name="lbl", shape=[1], dtype="int64")
+        emb = layers.embedding(ids, size=[vocab, dim], is_distributed=True,
+                               param_attr=fluid.ParamAttr(name="table"))
+        logits = layers.fc(input=emb, size=16)
+        cost = layers.mean(layers.softmax_with_cross_entropy(
+            logits=logits, label=lbl))
+        fluid.optimizer.SGD(learning_rate=lr).minimize(cost)
+    return main, startup, cost
+
+
+def _parallel_small(torch):
+    """layers.moe under plan_moe_ep() on dp=1,ep=1, a ParallelDo program,
+    and a DistributeTranspiler -> mesh()/sharding_plan() run: each on the
+    card under a ParallelExecutor against the CPU's plain Executor."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.parallel import plan_data_parallel, plan_moe_ep
+
+    pkg = port_pkg()
+    out = {}
+    rng = np.random.RandomState(5)
+    shape = (MOE["batch"], MOE["seq"], MOE["d_model"])
+    moe_feeds = [{"x": rng.randn(*shape).astype(np.float32),
+                  "y": rng.randn(*shape).astype(np.float32)}
+                 for _ in range(SMALL_STEPS)]
+    r = _card_vs_cpu(torch, fluid, _build_moe(pkg, **MOE), moe_feeds,
+                     "dp=1,ep=1", plan_moe_ep(), "moe")
+    w1 = r.pop("scope").find_var("moe0.experts.w1")
+    r["experts_w1_placements"] = str(tuple(w1.placements))
+    r["config"] = f"layers.moe {MOE}, plan_moe_ep() on dp=1,ep=1"
+    out["moe"] = r
+    pdo_feeds = []
+    for _ in range(SMALL_STEPS):
+        x = rng.randn(PDO["batch"], PDO["width"]).astype(np.float32)
+        pdo_feeds.append({"x": x, "y": x[:, :1] * 0.5})
+    r = _card_vs_cpu(torch, fluid, _build_parallel_do(pkg, **PDO),
+                     pdo_feeds, "dp=1", plan_data_parallel(), "parallel_do")
+    r.pop("scope")
+    r["config"] = f"ParallelDo MLP {PDO}, plan_data_parallel() on dp=1"
+    out["parallel_do"] = r
+    built = _build_dist_embedding(pkg, **DIST_EMB)
+    t = fluid.DistributeTranspiler()
+    t.transpile(trainer_id=0, program=built[0], startup_program=built[1],
+                trainers=1)
+    emb_feeds = [{"ids": rng.randint(0, DIST_EMB["vocab"],
+                                     (DIST_EMB["batch"], 1)).astype(np.int64),
+                  "lbl": rng.randint(0, 16, (DIST_EMB["batch"], 1)).astype(
+                      np.int64)} for _ in range(SMALL_STEPS)]
+    r = _card_vs_cpu(torch, fluid, built, emb_feeds, t.mesh(devices=CARD),
+                     t.sharding_plan(), "transpiler")
+    table = r.pop("scope").find_var("table")
+    r["table_placements"] = str(tuple(table.placements))
+    r["config"] = (f"is_distributed embedding {DIST_EMB} -> "
+                   "DistributeTranspiler.mesh()/sharding_plan()")
+    out["transpiler"] = r
+    return out
+
+
+def parallel_phase(torch):
+    """The seventeenth slice on the card: the Transformer NMT under
+    ParallelExecutor (one card: a mesh of one device, the whole DTensor
+    path), against the plain Executor in turns; then layers.moe,
+    ParallelDo and the DistributeTranspiler handles, card vs CPU."""
+    phase("parallel")
+    t0 = time.perf_counter()
+    out = {"transformer": _transformer_ways(torch)}
+    log("  parallel transformer " + json.dumps({
+        "ways": {w: {m: r.get(m) for m in (
+            "p50_step_ms_after_first", "tokens_per_s", "step_ratio_p50",
+            "step_ratio_in_turns", "first_step_ms", "loss_rel_err",
+            "bitwise", "peak_gb", "launches_per_step")}
+            | {"profile": {m: r["profile"].get(m) for m in (
+                "wall_ms", "device_busy_ms", "busy_share",
+                "device_launches")}}
+            for w, r in out["transformer"]["ways"].items()},
+        "collectives": out["transformer"]["collectives"],
+        "placements": out["transformer"]["placements"]}))
+    out["small"] = _parallel_small(torch)
+    log("  parallel small " + json.dumps(out["small"]))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  parallel phase {out['seconds']:.1f} s")
+    return out
+
+
+def _parallel_launches(parallel, kname):
+    """A kernel's launches a step on each way of the parallel phase."""
+    return {w: r["launches_per_step"].get(kname, 0)
+            for w, r in parallel["transformer"]["ways"].items()}
+
+
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -7770,6 +8084,7 @@ def main():
     text_book = text_book_phase(torch)
     vision = vision_phase(torch)
     sparse = sparse_phase(torch)
+    parallel = parallel_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -7834,7 +8149,9 @@ def main():
                     train_errs["layer_norm_f32"],
                     train_rows["layer_norm_f32"], train=train,
                     recipe_launches_per_step=recipe_launches[
-                        "layer_norm_f32"], train_recipe=recipe),
+                        "layer_norm_f32"], train_recipe=recipe,
+                    parallel_launches_per_step=_parallel_launches(
+                        parallel, "layer_norm_f32"), parallel=parallel),
         _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
                     "(bf16 x, widened on load at :17)",
@@ -7866,7 +8183,9 @@ def main():
             kname, fa_src, f"{fa_py}:{line}", train_launches[kname],
             train_errs[kname], row, shape=row["shape"],
             causal=rows["causal"],
-            recipe_launches_per_step=recipe_launches[kname], **extra))
+            recipe_launches_per_step=recipe_launches[kname],
+            parallel_launches_per_step=_parallel_launches(parallel, kname),
+            **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
         "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",

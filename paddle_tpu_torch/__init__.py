@@ -8,7 +8,8 @@ the Program IR, layers, backward, optimizers, an eager Executor, the
 data input stack of ``DataFeeder`` and in-graph readers, control flow
 and beam search) of the Transformer, ResNet-50, LeNet, VGG-16,
 fit_a_line, the stacked LSTM, the DynamicRNN LSTM and the book's
-machine translation.
+machine translation, and the mesh layer (``mesh``, ``parallel``:
+``fluid.ParallelExecutor`` on a DTensor ``DeviceMesh``).
 Every TPU kernel on those paths is rewritten by hand in CUDA C++ for
 Hopper (``csrc/``). ``reader``, ``dataset`` and ``batch`` are the JAX
 package's top-level data helpers. Entry points run on the card unless

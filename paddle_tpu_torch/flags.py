@@ -72,6 +72,13 @@ FLAGS: Dict[str, Any] = {
     # step_evals): T a loop of T iterations, max_steps a bounded loop;
     # the gradient replays no iteration
     "count_while_step_evals": False,
+    # default training mesh: '' = a ParallelExecutor built with no mesh=
+    # runs data parallel over the process group's world (one rank a
+    # device); an axes string ('dp=2,tp=2,fsdp=2') makes that executor
+    # train on the named mesh. Pair with a ShardingRules plan
+    # (mesh.transformer_rules gives the dp x tp x fsdp layout of the
+    # Transformer)
+    "mesh_axes": "",
 }
 
 

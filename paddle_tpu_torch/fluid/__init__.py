@@ -35,8 +35,11 @@ reduce layers; the text, image and detection layers; SelectedRows
 gradients (``embedding(is_sparse=True)``, ``selected_rows``) through
 every optimizer, the rest of the op library's layers (``nce``,
 ``hsigmoid``, ...), ``evaluator``, ``metrics``, ``default_scope_funcs``,
-``calc_gradient`` and ``WeightNormParamAttr``. The executor runs on the
-card unless given ``CPUPlace()`` (or ``"cpu"``).
+``calc_gradient`` and ``WeightNormParamAttr``; ``ParallelExecutor`` on a
+DTensor mesh (data-parallel, tensor-parallel and fully sharded plans),
+``get_places``/``ParallelDo``, ``layers.moe`` and the
+``DistributeTranspiler`` facade. The executor runs on the card unless
+given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
@@ -45,6 +48,7 @@ from . import (  # noqa: F401
     backward,
     clip,
     default_scope_funcs,
+    distribute_transpiler,
     enforce,
     evaluator,
     initializer,
@@ -53,6 +57,7 @@ from . import (  # noqa: F401
     metrics,
     nets,
     optimizer,
+    parallel_executor,
     param_attr,
     readers,
     recordio_writer,
@@ -71,6 +76,7 @@ from .clip import (  # noqa: F401
 from .convert import params_from_jax  # noqa: F401
 from .core import CPUPlace, CUDAPlace  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
+from .distribute_transpiler import DistributeTranspiler  # noqa: F401
 from .enforce import EnforceNotMet  # noqa: F401
 from .executor import (  # noqa: F401
     Executor,
@@ -102,6 +108,7 @@ from .io import (  # noqa: F401
     save_persistables,
     save_vars,
 )
+from .parallel_executor import ParallelExecutor  # noqa: F401
 from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
 
 Tensor = None  # runtime tensors are torch.Tensors; alias kept for API scripts

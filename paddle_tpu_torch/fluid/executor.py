@@ -51,8 +51,14 @@ contract (reference python/paddle/fluid/executor.py:181).
     its own stream carries an event: the executor's stream waits on it
     before the step's first op runs.
 
-Not ported yet: send/recv transport and ParallelExecutor; a program
-holding such an op raises.
+  - State a ParallelExecutor left in the scope as DTensors is read
+    whole (``full_tensor()``, a collective every rank of the mesh runs),
+    as the JAX executor reads sharded arrays; the run writes plain
+    tensors back. ``fetch_var`` reads such a var whole too.
+
+Not ported yet: the send/recv transport; a program holding such an op
+raises. ``ParallelExecutor`` (``parallel_executor.py``) runs a block on a
+DTensor mesh.
 """
 from __future__ import annotations
 
@@ -143,7 +149,38 @@ def scope_guard(scope: Scope):
                 break
 
 
+def whole(v):
+    """A scope value as a plain tensor: a DTensor (state a
+    ParallelExecutor sharded) gathered whole — a collective that every
+    rank of its mesh must run — any other value as itself."""
+    if type(v) is not torch.Tensor and isinstance(v, torch.Tensor) and \
+            hasattr(v, "full_tensor") and hasattr(v, "device_mesh"):
+        return v.full_tensor()
+    return v
+
+
+def is_writer() -> bool:
+    """Whether this process writes files a save produces: rank 0 of an
+    initialized process group (every rank gathers the values; one
+    writes), or a process with none."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
+
+
+def writers_done():
+    """Every rank waits here until rank 0 has written (a barrier in a
+    world of more than one rank)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_numpy(v):
+    v = whole(v)
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
         else np.asarray(v)
 
@@ -181,6 +218,7 @@ def fetch_var(name: str, scope: Optional[Scope] = None,
     v = scope.find_var(name)
     if v is None:
         raise ValueError(f"var '{name}' not found in scope")
+    v = whole(v)
     return _fetched_numpy(v) if return_numpy else v
 
 
@@ -200,7 +238,9 @@ def _run_io_host_ops(ops, scope: Scope, device=None,
     match io.py: .npy per var, .npz combined. Every failure condition
     (missing var, overwrite conflict) is checked BEFORE any file is
     written, so an abort can't leave a partial checkpoint on disk. A save
-    reads ``env`` (this run's values) before ``scope``; a load sets the
+    reads ``env`` (this run's values) before ``scope``, DTensors whole;
+    in a process group every rank gathers and rank 0 writes, and every
+    rank waits for the files before the next load or the return; a load sets the
     scope (and ``env``) to a tensor on ``device``, moved there once.
     Loads need a device; saves do not."""
     env = {} if env is None else env
@@ -227,18 +267,25 @@ def _run_io_host_ops(ops, scope: Scope, device=None,
         if not op.attrs.get("overwrite", True) and os.path.exists(path):
             raise RuntimeError(f"save op: '{path}' exists and "
                                "overwrite=False — nothing was written")
+    saved = False
     for op in ops:
         t = op.type
         path = _io_path(t, str(op.attrs["file_path"]))
         if t in ("save", "save_combine"):
             names = op.inputs.get("X", [])
             arrays = {n: _to_numpy(lookup(n)) for n in names}
+            saved = True
+            if not is_writer():
+                continue
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             if t == "save":
                 np.save(path, arrays[names[0]])
             else:
                 np.savez(path, **arrays)
             continue
+        if saved:
+            writers_done()
+            saved = False
         names = op.outputs.get("Out", [])
         if t == "load":
             loaded = {names[0]: np.load(path)}
@@ -249,6 +296,8 @@ def _run_io_host_ops(ops, scope: Scope, device=None,
             v = torch.from_numpy(np.array(arr, copy=True)).to(device)
             env[n] = v
             scope.set_var(n, v)
+    if saved:
+        writers_done()
 
 
 def _segments(ops):
@@ -504,7 +553,8 @@ class Executor:
                 "initialized in scope — run the startup program first or "
                 "feed them")
         fetch_names = [_as_name(v) for v in fetch_list]
-        env: Dict[str, Any] = {n: scope.find_var(n) for n in state_in}
+        env: Dict[str, Any] = {n: whole(scope.find_var(n))
+                               for n in state_in}
         env.update(feeds)
         ctx = EmitCtx(device=dev, root_seed=_next_seed(program),
                       program=program)
@@ -523,7 +573,7 @@ class Executor:
         fetches = []
         for n in fetch_names:
             if n not in env and host_only and scope.has_var(n):
-                env[n] = scope.find_var(n)
+                env[n] = whole(scope.find_var(n))
             if n not in env:
                 raise ValueError(
                     f"fetch target '{n}' was not produced by the block")

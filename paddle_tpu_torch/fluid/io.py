@@ -16,7 +16,10 @@ with the same artifacts, each readable by either package:
     rotated to ``max_to_keep`` payloads.
 
 Persistence is a program of ``save``/``load`` ops run by an Executor, as
-in the reference. Saving needs no device: ``executor=None`` runs the save
+in the reference. A scope a ParallelExecutor trained holds DTensors: the
+saves write the full tensors (the bytes a single-device scope holding the
+same values writes); every rank gathers, rank 0 writes and every rank
+waits on a barrier. Saving needs no device: ``executor=None`` runs the save
 ops on the host directly (``executor._run_io_host_ops``), never through a
 fresh ``Executor()`` (which would mean the card). Loading puts each
 tensor on the given executor's device (``load_checkpoint``: on
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 
 from . import core
-from .executor import Scope, _run_io_host_ops, global_scope
+from .executor import (Scope, _run_io_host_ops, global_scope, is_writer,
+                       whole, writers_done)
 from .framework import Parameter, Program, Variable, default_main_program
 
 __all__ = [
@@ -144,7 +148,8 @@ def save_params(executor, dirname, main_program=None, filename=None):
 
 def _host_array(val) -> np.ndarray:
     """A scope value as a host numpy array (a tensor on any device is
-    read back)."""
+    read back; a DTensor whole, which every rank of its mesh runs)."""
+    val = whole(val)
     if isinstance(val, torch.Tensor):
         return val.detach().cpu().numpy()
     return np.asarray(val)
@@ -175,8 +180,10 @@ def save_persistables(executor, dirname, main_program=None, filename=None,
                 f"persistable var '{v.name}' not initialized in scope — "
                 "run the startup program before saving")
         arrays[v.name.replace("/", "__")] = _host_array(val)
-    save_checkpoint_tree(dirname, arrays,
-                         meta={"kind": "persistables", "step": int(step)})
+    if is_writer():
+        save_checkpoint_tree(dirname, arrays,
+                             meta={"kind": "persistables", "step": int(step)})
+    writers_done()
 
 
 def load_vars(executor, dirname, main_program=None, vars=None, predicate=None,
@@ -272,10 +279,12 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         "feed_names": list(feeded_var_names),
         "fetch_names": _names(target_vars),
     }
-    with open(os.path.join(dirname, model_filename or MODEL_FILENAME), "wb") as f:
-        f.write(pruned.to_bytes())
-    with open(os.path.join(dirname, "__meta__.json"), "w") as f:
-        json.dump(meta, f)
+    if is_writer():
+        with open(os.path.join(dirname, model_filename or MODEL_FILENAME),
+                  "wb") as f:
+            f.write(pruned.to_bytes())
+        with open(os.path.join(dirname, "__meta__.json"), "w") as f:
+            json.dump(meta, f)
     params = [v for v in pruned.list_vars() if isinstance(v, Parameter) or v.persistable]
     save_vars(None, dirname, main_program, vars=params,
               filename=params_filename or PARAMS_FILENAME)
@@ -375,6 +384,9 @@ def save_checkpoint(dirname, main_program=None, step: int = 0,
         val = scope.find_var(v.name)
         if val is not None:
             arrays[v.name] = _host_array(val)
+    if not is_writer():
+        writers_done()
+        return payload_path
     np.savez(payload_path, **arrays)
     with open(payload_path, "rb") as f:
         crc = zlib.crc32(f.read())
@@ -400,6 +412,7 @@ def save_checkpoint(dirname, main_program=None, step: int = 0,
         )
         for old in ckpts[:-(max_to_keep - 1) or len(ckpts)]:
             os.remove(os.path.join(dirname, old))
+    writers_done()
     return payload_path
 
 

@@ -2,13 +2,12 @@
 python/paddle/fluid/layers/control_flow.py: StaticRNN:383, While:608,
 ConditionalBlock:1106, Switch:1163, IfElse:1252, DynamicRNN:1354,
 array_write:889, array_read:1017, less_than:953, increment) — a copy of
-``paddle_tpu/fluid/layers/control_flow.py`` minus ``get_places`` and
-``ParallelDo`` (not ported yet). The programs they
-build are the JAX package's, byte for byte.
+``paddle_tpu/fluid/layers/control_flow.py``. The programs they build are
+the JAX package's, byte for byte.
 
 Each of these layers records its sub-block and appends one op (``while``,
 ``conditional_block``, ``ifelse``, ``recurrent``, ``dynamic_recurrent``,
-``recompute``)
+``recompute``, ``parallel_do``)
 that lists every outer var the block reads as an input; the executor
 runs the block eagerly (ops/control_flow.py), and every one of these
 ops is differentiable.
@@ -24,6 +23,7 @@ __all__ = [
     "Switch", "Recompute", "increment", "array_write", "array_read", "array_length",
     "create_array", "less_than", "equal", "zeros_like_array", "Print",
     "lod_rank_table", "reorder_lod_tensor_by_rank", "max_sequence_len",
+    "get_places", "ParallelDo",
 ]
 
 
@@ -327,6 +327,124 @@ class ConditionalBlock:
                     "out_var_names": carried,
                 },
             )
+
+
+def get_places(device_count=0, device_type=None):
+    """reference layers/device.py get_places / operators/get_places_op.cc:
+    a PLACE_LIST var naming the devices a ParallelDo spreads over. Here a
+    place is a mesh position, so the var is an int32 [n] of device indices
+    (0 = the active ParallelExecutor mesh's size at run time, else the
+    count of the run's device kind). `device_type` is accepted for API
+    parity and ignored — the mesh decides."""
+    helper = LayerHelper("get_places")
+    out = helper.create_variable_for_type_inference("int32")
+    out.stop_gradient = True
+    helper.append_op(
+        type="get_places", inputs={}, outputs={"Out": [out]},
+        attrs={"device_count": int(device_count or 0)},
+    )
+    return out
+
+
+class ParallelDo:
+    """reference layers/control_flow.py:234 + operators/parallel_do_op.cc:115
+    — data-parallel region: the reference splits the batch across places,
+    re-runs the sub-block per device on threads, and all-reduces grads.
+
+    Semantics (the JAX package's): the captured sub-block runs ONCE over
+    the full batch; sharding the batch axis across the mesh
+    (ParallelExecutor, DTensor) then yields exactly the reference's
+    split-run-allreduce — DTensor inserts the collectives. The region is
+    differentiable through the generic grad op, so grads flow with no
+    ParallelDo-specific grad machinery (the reference needed NCCL op
+    inserts in backward.py).
+
+    Usage (reference API):
+        places = layers.get_places()
+        pd = layers.ParallelDo(places)
+        with pd.do():
+            x_ = pd.read_input(x)
+            loss = net(x_)
+            pd.write_output(loss)
+        loss, = pd()
+    """
+
+    def __init__(self, places, use_nccl=False, name=None):
+        self.helper = LayerHelper("parallel_do", name=name)
+        self.places = places
+        self.use_nccl = use_nccl  # parity only: collectives come from DTensor
+        self._inputs = []   # (outer Variable, sub-block placeholder)
+        self._outputs = []  # sub-block Variables registered by write_output
+        self._sub = None
+        self._parent = None
+        self._result_vars = None
+
+    def read_input(self, var):
+        if self._sub is None:
+            raise RuntimeError("read_input() must be called inside do()")
+        placeholder = self._sub.create_var(
+            name=f"{var.name}@PDO", shape=var.shape, dtype=var.dtype,
+            lod_level=getattr(var, "lod_level", 0),
+        )
+        self._inputs.append((var, placeholder))
+        return placeholder
+
+    def write_output(self, var):
+        if self._sub is None:
+            raise RuntimeError("write_output() must be called inside do()")
+        self._outputs.append(var)
+
+    @contextlib.contextmanager
+    def do(self):
+        main = self.helper.main_program
+        self._parent = main.current_block()
+        self._sub = main.create_block()
+        try:
+            yield
+        except BaseException:
+            # body failed: surface the user's exception untouched; don't
+            # append an op over the half-built sub-block
+            main.rollback()
+            raise
+        else:
+            main.rollback()
+            if not self._outputs:
+                raise ValueError("ParallelDo region wrote no outputs — "
+                                 "call pd.write_output(var) inside do()")
+            sub, parent = self._sub, self._parent
+            placeholder_names = [p.name for _, p in self._inputs]
+            reads = _outer_reads(sub, parent, exclude=placeholder_names)
+            # parent-scope result vars mirror the registered sub-block vars
+            # (shapes known from the traced body -> downstream layers keep
+            # build-time shape inference)
+            self._result_vars = [
+                parent.create_var(
+                    name=f"{o.name}@PDO_OUT", shape=o.shape, dtype=o.dtype,
+                )
+                for o in self._outputs
+            ]
+            parent.append_op(
+                type="parallel_do",
+                inputs={
+                    "Places": [self.places],
+                    "Inputs": [v for v, _ in self._inputs],
+                    "X": reads,
+                },
+                outputs={"Out": self._result_vars},
+                attrs={
+                    "sub_block": sub.idx,
+                    "input_var_names": placeholder_names,
+                    "x_var_names": reads,
+                    "out_var_names": [o.name for o in self._outputs],
+                },
+            )
+
+    def __call__(self):
+        if self._result_vars is None:
+            raise RuntimeError("ParallelDo has no results — call pd() after "
+                               "a completed `with pd.do():` region")
+        outs = self._result_vars
+        return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 class Switch:

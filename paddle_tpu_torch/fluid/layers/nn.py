@@ -10,9 +10,8 @@ programs (``conv2d_transpose``, ``lrn``, ``pad``, ``l2_normalize``,
 ``smooth_l1``, ``split``) call, and the rest of Fluid's layers over the
 ops the port has (``nce``, ``hsigmoid``, ``one_hot``, ``label_smooth``,
 ``sigmoid_cross_entropy_with_logits``, ``multiplex``, ``prelu``,
-``dot_product_attention``, ``lookup_table``), copied from
-``paddle_tpu/fluid/layers/nn.py``. Still to port: ``moe`` (its op goes
-with the mesh layer)."""
+``dot_product_attention``, ``lookup_table``) and ``moe``, copied from
+``paddle_tpu/fluid/layers/nn.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -34,6 +33,7 @@ __all__ = [
     "lrn", "pad", "l2_normalize", "smooth_l1", "split", "one_hot",
     "lookup_table", "label_smooth", "sigmoid_cross_entropy_with_logits",
     "prelu", "hsigmoid", "dot_product_attention", "nce", "multiplex",
+    "moe",
 ]
 
 
@@ -548,10 +548,10 @@ def ring_attention(q, k, v, causal=False, scale=0.0, impl="ring",
                    seq_axis="sp", batch_axis="dp", head_axis="", name=None):
     """Fused flash attention. q/k/v: [batch, seq, heads, head_dim].
 
-    In the port this is single-device flash attention (the op's K2/K3
-    kernels); the mesh attrs (`impl`, `seq_axis`, `batch_axis`,
-    `head_axis`) are kept in the IR for the JAX package's sequence
-    parallelism, which is not ported yet.
+    Flash attention (the op's K2/K3 kernels). Under a ParallelExecutor
+    mesh the kernels run on `(batch_axis, None, head_axis, None)` shards;
+    a mesh holding `seq_axis` (`impl` ring / ulysses sequence
+    parallelism) raises until the next slice ports it.
     """
     helper = LayerHelper("ring_attention", name=name)
     out = helper.create_variable_for_type_inference(dtype=q.dtype)
@@ -1037,3 +1037,40 @@ def multiplex(inputs, index):
         outputs={"Out": [out]},
     )
     return out
+
+
+def moe(input, num_experts, d_ff, capacity_factor=1.25, ep_axis="ep",
+        name=None):
+    """Mixture-of-experts FFN layer (Switch-style top-1 routing, moe_ffn op).
+
+    input: [..., d]. Creates router weights [d, E] and expert weight stacks
+    `<name>.experts.w1` [E, d, d_ff] / `<name>.experts.w2` [E, d_ff, d];
+    under a ParallelExecutor mesh with `ep_axis` (plan_moe_ep) the expert
+    stacks shard over it. Returns (out, aux_loss) — add a small multiple of
+    aux_loss to the training loss for load balancing. The JAX package's
+    capability extension; no 2018 reference counterpart.
+    """
+    helper = LayerHelper("moe", name=name)
+    dtype = input.dtype
+    d = input.shape[-1]
+    base = name or helper.name or "moe"
+    from ..param_attr import ParamAttr
+
+    router_w = helper.create_parameter(
+        ParamAttr(name=f"{base}.router.w"), [d, num_experts], dtype
+    )
+    w1 = helper.create_parameter(
+        ParamAttr(name=f"{base}.experts.w1"), [num_experts, d, d_ff], dtype
+    )
+    w2 = helper.create_parameter(
+        ParamAttr(name=f"{base}.experts.w2"), [num_experts, d_ff, d], dtype
+    )
+    out = helper.create_variable_for_type_inference(dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input], "RouterW": [router_w], "W1": [w1], "W2": [w2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": capacity_factor, "ep_axis": ep_axis},
+    )
+    return out, aux

@@ -1,9 +1,10 @@
-"""Fused attention op (the counterpart of
+"""Fused attention and mixture-of-experts ops (the counterpart of
 ``paddle_tpu/fluid/ops/attention_ops.py``)."""
 from __future__ import annotations
 
 from ...kernels.flash_attention import flash_attention
 from ..registry import register_op
+from . import mesh_ops
 from .common import one
 
 
@@ -12,12 +13,19 @@ from .common import one
 def ring_attention(ctx, ins, attrs):
     """Q/K/V: [B, S, H, D], float32 or bfloat16 (one dtype; bfloat16
     values come from the ``cast`` op). Attrs: causal (bool), scale (float
-    or 0 = 1/sqrt(D)); impl, seq_axis, batch_axis and head_axis name the
-    mesh axes of sequence parallelism, which is not ported yet (the port
-    has no mesh): the op is single-device flash attention — the K2 kernel
-    forward and K3a/K3b backward of Q's dtype on a card (bfloat16: the
-    TPU kernels' bfloat16 branch, Out bfloat16), their plain versions on
-    the CPU. There is no sequence-length routing threshold.
+    or 0 = 1/sqrt(D)); impl, seq_axis, batch_axis and head_axis name mesh
+    axes. The op is flash attention — the K2 kernel forward and K3a/K3b
+    backward of Q's dtype on a card (bfloat16: the TPU kernels' bfloat16
+    branch, Out bfloat16), their plain versions on the CPU. There is no
+    sequence-length routing threshold.
+
+    Under a ParallelExecutor mesh without ``seq_axis`` (dp / dp x tp
+    runs) the kernels run through ``local_map`` on ``(batch_axis, None,
+    head_axis, None)`` shards, as the JAX op runs its Pallas kernel in a
+    ``shard_map`` (``paddle_tpu/fluid/ops/attention_ops.py:66-95``); an
+    axis the mesh lacks or that does not divide stays whole. A mesh that
+    holds ``seq_axis`` (ring / Ulysses sequence parallelism) raises
+    ``NotImplementedError``: it comes with the next slice.
 
     On bfloat16 Q/K/V the op computes the JAX package's kernel branch:
     the Pallas kernels' ``lowp`` function
@@ -36,7 +44,45 @@ def ring_attention(ctx, ins, attrs):
     ``jax.default_backend() == "tpu"`` and a threshold measured on a
     TPU v5e; neither transfers to a card, and the port's kernels are
     ports of the Pallas kernels."""
-    return {"Out": flash_attention(
-        one(ins, "Q"), one(ins, "K"), one(ins, "V"),
-        causal=bool(attrs.get("causal", False)),
-        scale=float(attrs.get("scale", 0.0)) or None)}
+    from ...parallel.api import current_mesh
+
+    q, k, v = one(ins, "Q"), one(ins, "K"), one(ins, "V")
+    causal = bool(attrs.get("causal", False))
+    scale = float(attrs.get("scale", 0.0)) or None
+    mesh = current_mesh()
+    if mesh_ops.mesh_operands(mesh, q, k, v):
+        seq_axis = attrs.get("seq_axis", "sp")
+        if seq_axis in mesh.mesh_dim_names:
+            raise NotImplementedError(
+                f"ring_attention over mesh axis '{seq_axis}' (sequence "
+                "parallelism, ring and ulysses) is not ported yet: it comes "
+                "with the next slice (parallel/sequence_parallel.py)")
+        return {"Out": mesh_ops.flash_attention(
+            mesh, q, k, v, causal, scale,
+            attrs.get("batch_axis", "") or None,
+            attrs.get("head_axis", "") or None)}
+    return {"Out": flash_attention(q, k, v, causal=causal, scale=scale)}
+
+
+@register_op("moe_ffn", no_grad=(), ref="(TPU-native capability extension)")
+def moe_ffn_op(ctx, ins, attrs):
+    """Mixture-of-experts FFN (Switch-style top-1, dense dispatch). Inputs:
+    X [.., d], RouterW [d, E], W1 [E, d, ff], W2 [E, ff, d]. Outputs: Out,
+    AuxLoss (load-balancing loss — add a multiple of it to the model loss).
+    Under a ParallelExecutor mesh holding attr ``ep_axis`` the dispatched
+    activations shard over it (``parallel.moe``) and DTensor inserts the
+    collectives."""
+    from ...parallel.api import current_mesh
+    from ...parallel.moe import moe_ffn
+
+    x = one(ins, "X")
+    router_w, w1, w2 = one(ins, "RouterW"), one(ins, "W1"), one(ins, "W2")
+    ep_axis = attrs.get("ep_axis", "ep")
+    mesh = current_mesh()
+    if mesh is not None and ep_axis not in mesh.mesh_dim_names:
+        mesh = None
+    out, aux = moe_ffn(
+        x, router_w, w1, w2, mesh=mesh, ep_axis=ep_axis,
+        capacity_factor=float(attrs.get("capacity_factor", 1.25)),
+    )
+    return {"Out": out, "AuxLoss": aux}

@@ -344,3 +344,45 @@ def recompute_op(ctx, ins, attrs):
 
     return {"Out": list(checkpoint(region, *xs, use_reentrant=False,
                                    preserve_rng_state=False))}
+
+
+@register_op("get_places", no_grad=(),
+             ref="paddle/fluid/operators/get_places_op.cc")
+def get_places(ctx, ins, attrs):
+    """Device indices for a ParallelDo region: int32 ``[0..n)``. A place
+    is a mesh position, so with ``device_count`` 0 the count is the
+    active ParallelExecutor mesh's size, else the count of the run's
+    device kind (the cards; 1 on the CPU). The JAX op returns
+    ``jax.device_count()``, 8 on the CPU tests' virtual mesh: a decided
+    difference (the port's CPU is one device)."""
+    from ...parallel.api import current_mesh
+
+    n = int(attrs.get("device_count", 0) or 0)
+    if n == 0:
+        mesh = current_mesh()
+        if mesh is not None:
+            n = int(mesh.size())
+        elif ctx.device.type == "cuda":
+            n = torch.cuda.device_count()
+        else:
+            n = 1
+    return {"Out": torch.arange(n, dtype=torch.int32, device=ctx.device)}
+
+
+@register_op("parallel_do", no_grad=("Places",),
+             ref="paddle/fluid/operators/parallel_do_op.cc:115")
+def parallel_do(ctx, ins, attrs):
+    """Data-parallel region (reference: SplitTensorAndMoveTensorToScopes +
+    per-place threads + NCCL grad all-reduce, parallel_do_op.cc:39,115).
+
+    The sub-block runs ONCE over the whole batch; under a
+    ParallelExecutor mesh its batch-sharded DTensors make that the
+    reference's split-run-allreduce, with DTensor inserting the
+    collectives. The region is a function of (Inputs, X), so the generic
+    grad op differentiates it; the Places input only sizes the mesh and
+    carries no gradient."""
+    ops = _sub_op_descs(ctx, attrs)
+    env = dict(zip(list(attrs["x_var_names"]), ins.get("X", [])))
+    env.update(zip(list(attrs["input_var_names"]), ins.get("Inputs", [])))
+    run_sub_block(ctx, ops, env)
+    return {"Out": [env[n] for n in list(attrs["out_var_names"])]}

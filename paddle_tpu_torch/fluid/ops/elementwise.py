@@ -2,7 +2,8 @@
 paddle/fluid/operators/elementwise_*_op.cc, elementwise_op_function.h)
 — the counterpart of ``paddle_tpu/fluid/ops/elementwise.py``. Gradients
 come from the generic path: autograd sum-reduces broadcast dims, as the
-reference's grad does. The unary activations live in
+reference's grad does. Under a ParallelExecutor mesh the result takes
+X's layout (``mesh_ops.conform``). The unary activations live in
 ``activations.py``."""
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from ..registry import register_op
 from ..selected_rows import SelectedRows, is_selected_rows
 from .common import bcast_y, one
+from .mesh_ops import conform
 
 
 def _binary(name, fn):
@@ -25,7 +27,9 @@ def _binary(name, fn):
             # so mul and div alone
             return {"Out": SelectedRows(x.rows, _fn(x.value, y.reshape(())),
                                         x.height)}
-        return {"Out": _fn(x, bcast_y(x, y, int(attrs.get("axis", -1))))}
+        # under a ParallelExecutor mesh Y takes X's layout
+        y = conform(bcast_y(x, y, int(attrs.get("axis", -1))), x)
+        return {"Out": _fn(x, y)}
 
     return _op
 

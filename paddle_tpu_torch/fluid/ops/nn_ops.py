@@ -190,11 +190,23 @@ def layer_norm(ctx, ins, attrs):
     JAX op takes at its default flags off a TPU (``:304-318``) computes
     in bfloat16 and returns bfloat16 Y, Mean and Variance, a third of Y
     a bfloat16 step or so apart and less accurate against float64
-    (``tests/test_torch_bf16_routes.py``)."""
-    y, mean, var = fused_layer_norm(
-        one(ins, "X"), one(ins, "Scale"), one(ins, "Bias"),
-        eps=float(attrs.get("epsilon", 1e-5)),
-        begin_norm_axis=int(attrs.get("begin_norm_axis", 1)))
+    (``tests/test_torch_bf16_routes.py``).
+
+    Under a ParallelExecutor mesh the kernel runs through ``local_map``
+    on the row shards (``mesh_ops.layer_norm``): X keeps its batch
+    sharding, Scale and Bias are replicated."""
+    from ...parallel.api import current_mesh
+    from . import mesh_ops
+
+    x, scale, bias = one(ins, "X"), one(ins, "Scale"), one(ins, "Bias")
+    eps = float(attrs.get("epsilon", 1e-5))
+    begin = int(attrs.get("begin_norm_axis", 1))
+    mesh = current_mesh()
+    if mesh_ops.mesh_operands(mesh, x, scale, bias):
+        y, mean, var = mesh_ops.layer_norm(mesh, x, scale, bias, eps, begin)
+    else:
+        y, mean, var = fused_layer_norm(x, scale, bias, eps=eps,
+                                        begin_norm_axis=begin)
     return {"Y": y, "Mean": mean, "Variance": var}
 
 
@@ -222,13 +234,26 @@ def conv2d_bn_relu(ctx, ins, attrs):
     before the affine instead: a different function (half the outputs
     apart by under a bfloat16 ulp of the max, as accurate against
     float64; ``tests/test_torch_bf16_routes.py``) that the port does not
-    compute."""
+    compute.
+
+    Under a ParallelExecutor mesh the kernel runs through ``local_map``
+    on the batch shards of X (``mesh_ops.conv_bn_relu``), Filter, Scale
+    and Shift replicated."""
+    from ...parallel.api import current_mesh
+    from . import mesh_ops
+
     x, w, restore = amp_operands(one(ins, "X"), one(ins, "Filter"))
-    out = fused_conv_bn_relu(
-        x, w, one(ins, "Scale"), one(ins, "Shift"),
-        stride=int(attrs.get("stride", 1)),
-        padding=int(attrs.get("padding", 0)),
-        relu=bool(attrs.get("relu", True)))
+    scale, shift = one(ins, "Scale"), one(ins, "Shift")
+    stride = int(attrs.get("stride", 1))
+    padding = int(attrs.get("padding", 0))
+    relu = bool(attrs.get("relu", True))
+    mesh = current_mesh()
+    if mesh_ops.mesh_operands(mesh, x, w, scale, shift):
+        out = mesh_ops.conv_bn_relu(mesh, x, w, scale, shift, stride,
+                                    padding, relu)
+    else:
+        out = fused_conv_bn_relu(x, w, scale, shift, stride=stride,
+                                 padding=padding, relu=relu)
     return {"Out": restored(out, restore)}
 
 

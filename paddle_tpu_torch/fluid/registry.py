@@ -75,6 +75,11 @@ class EmitCtx:
         gen.manual_seed(fold_seed(self._root_seed, seed * 1000003 + op_seed))
         return gen
 
+    def op_info(self, op_type: str) -> "OpInfo":
+        """The emitters this run takes for ``op_type`` (a ParallelExecutor
+        run's context wraps some for its mesh)."""
+        return get_op_info(op_type)
+
 
 class OpInfo:
     def __init__(
@@ -148,7 +153,7 @@ def _is_diff(x) -> bool:
 
 
 def run_forward(ctx: EmitCtx, op_type: str, ins, attrs) -> Dict[str, List[Any]]:
-    info = get_op_info(op_type)
+    info = ctx.op_info(op_type)
     return normalize_outs(info.forward(ctx, ins, attrs))
 
 
@@ -162,7 +167,7 @@ def forward_with_grad(ctx: EmitCtx, op_type: str, ins, attrs):
     outside the op's ``no_grad`` slots becomes a detached leaf that
     requires grad. Returns ``(outs, record)``; ``run_grad`` consumes the
     record."""
-    info = get_op_info(op_type)
+    info = ctx.op_info(op_type)
     cur = {s: list(lst) for s, lst in ins.items()}
     paths, leaves = [], []
     for s, lst in cur.items():
@@ -284,7 +289,7 @@ def run_grad(ctx: EmitCtx, ins: Dict[str, List[Any]], attrs: Dict[str, Any],
     one the forward is replayed from the grad op's inputs.
     """
     meta = attrs[FWD_META_ATTR]
-    info = get_op_info(meta["type"])
+    info = ctx.op_info(meta["type"])
     fwd_attrs = dict(meta["attrs"])
     fwd_ins = {s: list(ins.get(s, [])) for s in meta["in_slots"]}
 

@@ -4,12 +4,15 @@ built from the port's fluid layers with static shapes (fixed max_len,
 padding masks instead of LoD) — a copy of ``paddle_tpu/models/
 transformer.py``.
 
-With ``seq_parallel=True`` attention is the fused ``ring_attention`` op,
-which the port runs as single-device flash attention (the K2/K3 kernels on
-a card); the decoder's self-attention is causal through the op. With
-``recompute=True`` each encoder and decoder layer is one ``Recompute``
-region (its activations rebuilt in backward). The mesh options of the JAX
-model are not ported yet.
+This is the flagship model for multi-device sharding: fc weights shard on
+the hidden axis (tensor parallel), feeds on batch (data parallel) — see
+``paddle_tpu_torch.parallel.plan_transformer_tp`` and
+``paddle_tpu_torch.mesh.transformer_rules``. With ``seq_parallel=True``
+attention is the fused ``ring_attention`` op (the K2/K3 kernels on a
+card); the decoder's self-attention is causal through the op, and under a
+ParallelExecutor mesh the op keeps batch on ``dp`` and heads on
+``tp_axis``. With ``recompute=True`` each encoder and decoder layer is one
+``Recompute`` region (its activations rebuilt in backward).
 """
 from __future__ import annotations
 
@@ -33,17 +36,20 @@ class TransformerConfig:
     n_layers: int = 2
     dropout: float = 0.1
     is_test: bool = False
-    # fused attention: the ring_attention op (single-device flash
-    # attention in the port; sequence-sharded over `sp_axis` of a mesh in
-    # the JAX package). Attention-prob dropout is skipped in this mode
-    # (flash attention never materializes the probs).
+    # fused attention: the ring_attention op (flash attention; its
+    # sequence-sharded form over `sp_axis` of a mesh comes with the next
+    # slice). Attention-prob dropout is skipped in this mode (flash
+    # attention never materializes the probs).
     seq_parallel: bool = False
     sp_impl: str = "ring"
     sp_axis: str = "sp"
-    # the tensor-parallel mesh axis the op keeps heads on (JAX package)
+    # Megatron TP axis: the q/k/v projections are column-parallel under
+    # plan_transformer_tp, so their [N,L,H,dh] reshape arrives with H
+    # sharded over tp; the fused attention op keeps heads on that axis
+    # inside its local_map
     tp_axis: str = "tp"
-    # activation rematerialization (a layers.Recompute region per layer
-    # in the JAX package): not ported yet, True raises
+    # activation rematerialization: wrap each encoder/decoder layer in a
+    # layers.Recompute region (torch.utils.checkpoint)
     recompute: bool = False
 
 

@@ -108,7 +108,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.models.stacked_lstm, "
             "paddle_tpu_torch.serving.workloads, "
             "paddle_tpu_torch.checkpoint, "
-            "paddle_tpu_torch.checkpoint.__main__; "
+            "paddle_tpu_torch.checkpoint.__main__, "
+            "paddle_tpu_torch.mesh, paddle_tpu_torch.mesh.__main__, "
+            "paddle_tpu_torch.parallel, "
+            "paddle_tpu_torch.fluid.parallel_executor; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
