@@ -342,6 +342,27 @@ and prints no result):
            of the slice card vs CPU at its path's shapes, forward and gradient (VISION_OP_TOL,
            LSTM_GRAD_TOL; index outputs equal). No kernel of the port
            lies on these paths.
+  mesh serve
+           after parallel: (a) K4 on bf16 pages against its plain
+           version (max abs <= BF16_PAGED_TOL, unit-scale inputs),
+           bitwise across repeats, timed (decode B=8, prefill C=64,
+           verify C=5) with its plain version and SDPA on the K/V
+           gathered and widened to float32, in turns; bf16 q returns
+           bf16 within a bf16 ulp; (b) the serve phase's GPT-2-medium
+           decoder stepped through a bf16 PagedKvCache on the card and
+           the CPU (logits within BF16_POOL_LOGIT_REL, tokens equal, K4
+           bf16 24 launches a step); (c) load_decoder(mesh_axes="tp=1")
+           beside the unsharded engine (MESH_SERVE), 8 concurrent
+           requests to each in MESH_TURNS turns: tokens held equal,
+           24 K4 launches a target step through local_map, p50 step
+           ms, peak memory, K4 through local_map against the direct
+           call in turns; (d) save_decoder_checkpoint(mesh_axes="tp=1",
+           shard_axis="tp") of the sharded engine and a load that
+           deploys sharded (save_s, load_s, bytes); (e) Transformer-base
+           with seq_parallel under plan_sequence_parallel() on dp=1,sp=1,
+           ring and Ulysses, against the plain Executor's losses
+           (SP_LOSS_RTOL), SP_STEPS steps in turns; (f) a Pipeline
+           region (PIPE) on pp=1, card vs CPU.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -8027,10 +8048,578 @@ def parallel_phase(torch):
     return out
 
 
+# --- mesh serve: K4 on bf16 pages, the mesh-sharded decode engine, ---
+# --- sharded checkpoints, sequence parallelism and GPipe regions     ---
+
+# the sharded engine and its unsharded twin: the serve phase's geometry
+# on the slot ladder's ends (the warm runs every shape of both)
+MESH_SERVE = dict(slots=[1, 8], page_size=16, num_pages=513,
+                  max_seq_len=1024, prefill_chunk=64)
+MESH_NEW = 32            # new tokens a request
+MESH_TURNS = 2           # turns of (sharded, unsharded) request batches
+BF16_PAGED_TOL = 5e-6    # K4 bf16 against its plain version (unit-scale)
+# card vs CPU logits through a bf16 pool, of the row's max |logit|: a K/V
+# row computed on the card and on the CPU may round to neighbouring bf16
+# values (one ulp, 2^-8 relative, in a few of 64 columns)
+BF16_POOL_LOGIT_REL = 1e-3
+BF16_POOL_STEPS = 4      # a 64-token prefill chunk, then 3 decode steps
+SP_STEPS = 5             # Transformer-base steps a way (the parallel
+# phase's); its losses against the plain step's: float32 attention math
+# against K2/K3's 3xTF32, 1.3e-6 apart in a probe (dropout 0: a program
+# with another `impl` attr draws other dropout masks, its step seed
+# folding in the program)
+SP_LOSS_RTOL = 1e-5
+SP_DROPOUT = 0.0         # tests/test_sequence_parallel.py:191's
+PIPE = dict(width=512, stages=4, batch=64, micro=4, lr=0.05, steps=3)
+PIPE_RTOL = 1e-4         # the region's losses, card vs CPU (relative)
+PAGED_BF16_PEAK = ("bf16 K/V page bytes + float32 Q/O over 3.35 TB/s "
+                   "against float32 operations over 67 TFLOP/s")
+
+
+def _bf16_cases():
+    """K4 bf16's timed shapes (the kernel table's): decode B=8
+    Hq=Hkv=16 D=64, a C=64 prefill chunk, the verify chunk B=8 C=5."""
+    import numpy as np
+
+    rng = np.random.RandomState(2031)
+    lens = [int(x) for x in rng.randint(512, 1025, size=8)]
+    base = dict(D=64, ps=16, W=64, P=513, Hq=16, Hkv=16, B=8)
+    return {"decode": dict(base, C=None, kv_lens=lens, q_lens=None),
+            "prefill": dict(base, C=64, kv_lens=lens, q_lens=[64] * 8),
+            "verify": dict(base, C=5, kv_lens=lens, q_lens=[5] * 8)}
+
+
+def _paged_bf16_kernel(torch, pa):
+    """(a) K4 on bf16 pages against its plain version on the card (max
+    abs within BF16_PAGED_TOL; dead rows 0), bitwise across repeats, at
+    the table's shapes; timed with its plain version and with SDPA on
+    the K/V gathered and widened to float32 (the gather untimed), in
+    turns; bound: the bf16 page bytes plus float32 Q/O."""
+    import numpy as np
+
+    rng = np.random.RandomState(2032)
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    rows, max_err = {}, 0.0
+    for name, case in _bf16_cases().items():
+        args = list(_paged_case(torch, rng, **case))
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+        kw = dict(q_lens=args[5])
+        kern = lambda: pa.paged_attention(*args[:5], **kw)  # noqa: E731
+        ref = pa.paged_attention_reference(*args[:5], **kw)
+        out = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if out.dtype != torch.float32 or not torch.isfinite(out).all():
+            raise RuntimeError(f"K4 bf16 {name}: {out.dtype} output, "
+                               "finite " f"{bool(torch.isfinite(out).all())}")
+        if err > BF16_PAGED_TOL:
+            raise RuntimeError(f"K4 bf16 {name}: max abs err {err:.3g} > "
+                               f"{BF16_PAGED_TOL}")
+        if not torch.equal(out, again):
+            raise RuntimeError(f"K4 bf16 {name}: two launches differ")
+        max_err = max(max_err, err)
+        wide = (args[0], args[1].float(), args[2].float(), *args[3:])
+        lib = _library_call(torch, wide, case)
+        k_ms, l_ms, turns = _in_turns(torch, kern, lib, flush)
+        row = {"ms": k_ms, "library_ms": l_ms,
+               "ratio_kernel_over_sdpa": k_ms / l_ms,
+               "turns_ms": {"kernel": turns[0], "sdpa": turns[1]},
+               "plain_ms": _time_ms(torch, lambda: pa.paged_attention_reference(
+                   *args[:5], **kw), flush),
+               "max_abs_err": err, "bitwise_repeat": True,
+               "host_us": _host_us(torch, kern)}
+        bound = _bound(case, case["D"])
+        # the pages move as bf16: half the K/V bytes of the f32 bound
+        kv = np.asarray(case["kv_lens"], np.int64)
+        kv_bytes = 2 * int(kv.sum()) * case["Hkv"] * case["D"]
+        C = case["C"] or 1
+        nbytes = kv_bytes + 2 * case["B"] * C * case["Hq"] * case["D"] * 4 \
+            + 4 * (case["B"] * case["W"] + 2 * case["B"])
+        flops = 4 * case["D"] * case["Hq"] * sum(
+            int(kv[b] - (case["q_lens"] or [1] * 8)[b] + j + 1)
+            for b in range(case["B"])
+            for j in range((case["q_lens"] or [1] * 8)[b]))
+        row["bound_ms"], row["bound_by"] = _bound_of(nbytes, flops)
+        row["bound_f32_pages_ms"] = bound["bound_ms"]
+        row["bound_peak"] = PAGED_BF16_PEAK
+        row["shape"] = (f"B={case['B']} C={C} Hq={case['Hq']} "
+                        f"Hkv={case['Hkv']} D={case['D']} ps=16 W=64, bf16 "
+                        "pages, f32 q")
+        row["kv_lens"] = case["kv_lens"]
+        rows[name] = row
+        log(f"  K4 bf16 {name}: " + json.dumps(row))
+    # bf16 q too: the output takes q's dtype
+    case = _bf16_cases()["decode"]
+    args = list(_paged_case(torch, rng, **case))
+    args[0], args[1], args[2] = (args[0].bfloat16(), args[1].bfloat16(),
+                                 args[2].bfloat16())
+    out = pa.paged_attention(*args[:5])
+    ref = pa.paged_attention_reference(*args[:5])
+    if out.dtype != torch.bfloat16:
+        raise RuntimeError(f"K4 bf16 q: output {out.dtype}, not bf16")
+    ulp = (out.float() - ref.float()).abs().max().item() / \
+        ref.float().abs().max().item() * 256
+    if ulp > 1.0:
+        raise RuntimeError(f"K4 bf16 q: {ulp:.2f} bf16 ulps of max|O| from "
+                           "the plain version")
+    rows["bf16_q_ulps_of_max"] = ulp
+    del flush
+    return max_err, rows
+
+
+def _bf16_pool_steps(torch, pa):
+    """(b) The serve phase's GPT-2-medium decoder stepped through a
+    bfloat16 ``PagedKvCache`` by ``decoder_step_chunked`` (a 64-token
+    prefill chunk beside a 40-token one, then greedy decode steps) on
+    the card and on the CPU: logits within BF16_POOL_LOGIT_REL of the
+    row's max, the same greedy tokens; K4 bf16 launched 24 times a step,
+    the plain version never."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import decode as td
+    from paddle_tpu_torch.serving.kv_cache import PagedKvCache
+
+    spec = td.DecoderSpec(**GPT2_MEDIUM)
+    rng = np.random.RandomState(2033)
+    prompts = [[int(t) for t in rng.randint(0, spec.vocab, n)]
+               for n in (64, 40)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = td.build_decoder_params(spec, device=dev)
+        cache = PagedKvCache(spec.n_layers, spec.n_kv_heads, spec.head_dim,
+                             page_size=16, num_pages=16,
+                             dtype=torch.bfloat16, device=dev)
+        tables = np.array([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], np.int32)
+        tokens = np.zeros((2, 64), np.int32)
+        positions = np.zeros((2, 64), np.int32)
+        for b, p in enumerate(prompts):
+            tokens[b, :len(p)] = p
+            positions[b, :len(p)] = np.arange(len(p))
+        q_lens = np.array([len(p) for p in prompts], np.int32)
+        kv_lens = q_lens.copy()
+        logits, toks = [], []
+        pa.counts.reset()
+        t0 = time.perf_counter()
+        for _ in range(BF16_POOL_STEPS):
+            with torch.no_grad():
+                k, v, lg = td.decoder_step_chunked(
+                    params, spec, *(torch.from_numpy(a).to(dev) for a in (
+                        tokens, positions, q_lens)), cache.k, cache.v,
+                    torch.from_numpy(tables).to(dev),
+                    torch.from_numpy(kv_lens).to(dev))
+            cache.rebind(k, v)
+            lg = lg.float().cpu()
+            logits.append(lg)
+            nxt = lg.argmax(-1).numpy()
+            toks.append([int(x) for x in nxt])
+            tokens = nxt[:, None].astype(np.int32)
+            positions = kv_lens[:, None].astype(np.int32)
+            q_lens = np.ones(2, np.int32)
+            kv_lens = kv_lens + 1
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"logits": logits, "tokens": toks,
+                    "s": time.perf_counter() - t0,
+                    "launches": pa.counts.kernel_launches[pa.KERNEL_BF16],
+                    "plain": pa.counts.plain_calls[pa.KERNEL_BF16]}
+        del params, cache
+    card, cpu = out["cuda"], out["cpu"]
+    if card["launches"] != 24 * BF16_POOL_STEPS or card["plain"]:
+        raise RuntimeError(f"bf16 pool: K4 bf16 launches {card['launches']} "
+                           f"!= 24 x {BF16_POOL_STEPS}, plain "
+                           f"{card['plain']}")
+    worst = max(((a - b).abs().amax(-1) / b.abs().amax(-1)).max().item()
+                for a, b in zip(card["logits"], cpu["logits"]))
+    if worst > BF16_POOL_LOGIT_REL:
+        raise RuntimeError(f"bf16 pool: card logits {worst:.3g} x max|logit|"
+                           f" from the CPU's (> {BF16_POOL_LOGIT_REL})")
+    if card["tokens"] != cpu["tokens"]:
+        raise RuntimeError(f"bf16 pool: card tokens {card['tokens']} != "
+                           f"CPU {cpu['tokens']}")
+    res = {"steps": BF16_POOL_STEPS, "worst_logit_rel": worst,
+           "tokens": card["tokens"], "k4_bf16_launches": card["launches"],
+           "launches_per_step": card["launches"] / BF16_POOL_STEPS,
+           "card_s": card["s"], "cpu_s": cpu["s"],
+           "pool": "bf16 [24, 16, 16, 16, 64]"}
+    log("  bf16 pool " + json.dumps(res))
+    return res
+
+
+def _local_map_k4_us(torch, mesh_engine, plain_engine):
+    """K4 at the decode shape (B=8, 16 heads, 1024 keys) through the
+    sharded engine's ``mesh_ops.paged_attention`` (the pool write and K4
+    inside ``local_map``) and through the unsharded step's
+    ``write_and_attend``, wall microseconds a call (n calls queued, one
+    synchronize), in turns."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid.ops import mesh_ops
+    from paddle_tpu_torch.serving.decode import write_and_attend
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    rng = np.random.RandomState(2034)
+    mesh = mesh_engine.cache.mesh
+    B, H, D = 8, 16, 64
+    tables = torch.arange(1, 65, dtype=torch.int32,
+                          device="cuda").repeat(B, 1)
+    kv = torch.full((B,), 1024, dtype=torch.int32, device="cuda")
+    ql = torch.ones(B, dtype=torch.int32, device="cuda")
+    # the writes land on the garbage page, as a dead lane's do
+    page = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    off = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    q, k, v = (torch.from_numpy(rng.randn(B, 1, H, D).astype(np.float32))
+               .cuda() for _ in range(3))
+    pl = [Shard(2) if isinstance(p, Shard) else Replicate()
+          for p in mesh_engine.cache.placements]
+    qd, kd, vd = (DTensor.from_local(t, mesh, pl, run_check=False)
+                  for t in (q, k, v))
+    mk, mv = mesh_engine.cache.k, mesh_engine.cache.v
+    pk, pv = plain_engine.cache.k, plain_engine.cache.v
+
+    def sharded():
+        return mesh_ops.paged_attention(mesh, qd, kd, vd, mk, mv, 0, page,
+                                        off, tables, kv, ql)
+
+    def plain():
+        return write_and_attend(q, k, v, pk, pv, 0, page, off, tables, kv,
+                                ql)
+
+    turns = {"local_map": [], "direct": []}
+    with torch.no_grad():
+        for name in ("local_map", "direct", "direct", "local_map"):
+            turns[name].append(_host_us(
+                torch, sharded if name == "local_map" else plain))
+    return {"local_map_us": statistics.mean(turns["local_map"]),
+            "direct_us": statistics.mean(turns["direct"]),
+            "turns_us": turns,
+            "shape": "decode B=8 H=16 D=64, 1024 keys, the pool write "
+                     "and K4 of one layer"}
+
+
+def _mesh_engines(torch, pa):
+    """(c) ``load_decoder(mesh_axes="tp=1")`` at GPT-2-medium beside the
+    unsharded engine on one server: 8 concurrent requests to each, in
+    turns; tokens held equal (the margin rule; bitwise reported), K4
+    launches a target step through local_map (24), p50 decode step ms
+    of both, peak memory of the sharded one; and (d) its parameters
+    saved with ``save_decoder_checkpoint(mesh_axes="tp=1",
+    shard_axis="tp")`` and deployed back sharded from the recorded
+    mesh."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.checkpoint import (read_manifest,
+                                             save_decoder_checkpoint)
+    from paddle_tpu_torch.observability import metrics, tracing
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+
+    steps_c = metrics.counter("serving.decode.target_steps")
+    srv = ServingServer()
+    addr = srv.serve()
+    clients = [ServingClient(addr, timeout=900.0) for _ in range(8)]
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        pa.counts.reset()
+        t0 = time.perf_counter()
+        st = clients[0].load_decoder("gpt2tp", GPT2_MEDIUM,
+                                     mesh_axes="tp=1", **MESH_SERVE)
+        load_s = time.perf_counter() - t0
+        peak_load = torch.cuda.max_memory_allocated() / 1e9
+        if st["mesh"] != {"tp": 1}:
+            raise RuntimeError(f"mesh engine stats mesh {st['mesh']}")
+        clients[0].load_decoder("gpt2one", GPT2_MEDIUM, mesh_axes="",
+                                **MESH_SERVE)
+        rng = np.random.RandomState(2035)
+        lens = [int(x) for x in rng.randint(32, 901, size=8)]
+        prompts = [[int(t) for t in rng.randint(0, 50257, n)]
+                   for n in lens]
+        tracing.trace_reset()
+        tracing.trace_enable()
+        got = {"gpt2tp": [], "gpt2one": []}
+        windows = {"gpt2tp": [], "gpt2one": []}
+        walls = {"gpt2tp": [], "gpt2one": []}
+        for turn in range(MESH_TURNS):
+            for model in (("gpt2tp", "gpt2one") if turn % 2 == 0
+                          else ("gpt2one", "gpt2tp")):
+                pa.counts.reset()
+                s0 = steps_c.value()
+                torch.cuda.reset_peak_memory_stats()
+                res, wall = _concurrent(clients, model, prompts, MESH_NEW)
+                windows[model].append({
+                    "steps": steps_c.value() - s0,
+                    "launches": pa.counts.kernel_launches[pa.KERNEL],
+                    "plain": pa.counts.plain_calls[pa.KERNEL],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+                walls[model].append(wall)
+                got[model].append([r["tokens"] for r in res])
+        tracing.trace_disable()
+        for model, ws in windows.items():
+            for w in ws:
+                if w["launches"] != 24 * w["steps"] or w["plain"] or \
+                        not w["steps"]:
+                    raise RuntimeError(
+                        f"{model}: K4 launches {w['launches']} != 24 x "
+                        f"{w['steps']} target steps (plain {w['plain']})")
+        eng = srv.registry.get("gpt2tp")
+        ref_eng = srv.registry.get("gpt2one")
+        ref = got["gpt2one"][0]
+        cuts = []
+        bitwise = True
+        for tokens in got["gpt2tp"] + got["gpt2one"][1:]:
+            for i, (p, r, g) in enumerate(zip(prompts, ref, tokens)):
+                if g != r:
+                    bitwise = False
+                    _hold_tokens(f"mesh engine request {i}", r, g,
+                                 _margins(torch, ref_eng, p, r), cuts)
+        dec = {m: [ms for ms in _spans(m, "serving.decode.step")]
+               for m in got}
+        mesh_rec = {
+            "load_warm_s": load_s,
+            "warm_shapes": len(st["compiled_shapes"]),
+            "tokens_bitwise": bitwise, "margin_cuts": cuts,
+            "k4_launches_per_target_step": windows["gpt2tp"][0]["launches"]
+            / windows["gpt2tp"][0]["steps"],
+            "windows": windows, "walls_s": walls,
+            "p50_step_ms": {m: statistics.median(v) for m, v in dec.items()},
+            "step_ratio_p50": statistics.median(dec["gpt2tp"])
+            / statistics.median(dec["gpt2one"]),
+            "tokens_per_s": {m: len(prompts) * MESH_NEW
+                             / statistics.median(w)
+                             for m, w in walls.items()},
+            "peak_gb_load": peak_load,
+            "kv_bytes": eng.cache.hbm_bytes,
+            "kv_device_bytes": eng.cache.device_bytes,
+            "pool_placements": [repr(p) for p in eng.cache.placements],
+            "wq_placements": [repr(p) for p in
+                              eng._params["layer0"]["wq"].placements]}
+        mesh_rec["k4_local_map"] = _local_map_k4_us(torch, eng, ref_eng)
+        log("  mesh engine " + json.dumps(mesh_rec))
+
+        # (d) the sharded engine's parameters saved sharded, deployed back
+        t0 = time.perf_counter()
+        save_decoder_checkpoint(d, eng.spec, params=eng._params,
+                                mesh_axes="tp=1", shard_axis="tp")
+        save_s = time.perf_counter() - t0
+        m = read_manifest(d)
+        nbytes = sum(int(s["nbytes"]) for t in m["tensors"]
+                     for s in t["segments"])
+        t0 = time.perf_counter()
+        st2 = clients[0].load_decoder("gpt2ck", checkpoint_dir=d,
+                                      **MESH_SERVE)
+        ck_load_s = time.perf_counter() - t0
+        if st2["mesh"] != {"tp": 1}:
+            raise RuntimeError(f"the recorded mesh deployed as {st2['mesh']}")
+        again = clients[0].generate("gpt2ck", prompts[0],
+                                    max_new_tokens=MESH_NEW)["tokens"]
+        if again != ref[0]:
+            _hold_tokens("checkpoint engine", ref[0], again,
+                         _margins(torch, ref_eng, prompts[0], ref[0]), cuts)
+        ck = {"save_s": save_s, "load_warm_s": ck_load_s, "bytes": nbytes,
+              "shards": m["shards"], "payloads": len(m["payloads"]),
+              "deployed_mesh": st2["mesh"],
+              "tokens_equal": again == ref[0]}
+        log("  mesh checkpoint " + json.dumps(ck))
+        for model in ("gpt2tp", "gpt2one", "gpt2ck"):
+            clients[0].unload_model(model)
+        return mesh_rec, ck
+    finally:
+        for c in clients:
+            c.close()
+        srv.shutdown()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _sp_transformer(torch):
+    """(e) Transformer-base (the parallel phase's program, seq_parallel)
+    under ParallelExecutor on dp=1,sp=1 with plan_sequence_parallel(),
+    ring and Ulysses, against the plain Executor from one state, SP_STEPS
+    steps in turns: losses, p50 step ms and ratios. On one card the
+    sequence axis holds one rank: ring_attention runs the ring's float32
+    math (no kernel, as the JAX package's sequence path), no P2P."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.parallel import plan_sequence_parallel
+
+    cfg = dict(TRANSFORMER_BASE, dropout=SP_DROPOUT)
+    feed = copy_task_batch(TRAIN_BATCH, cfg)
+    built = {"plain": build_transformer(cfg, 1e-4),
+             "ring": build_transformer(cfg, 1e-4),
+             "ulysses": build_transformer(dict(cfg, sp_impl="ulysses"),
+                                          1e-4)}
+    exe = _card_executor(fluid)
+    base = fluid.Scope()
+    exe.run(built["plain"][1], scope=base)
+    scopes = {}
+    for w in built:
+        scopes[w] = fluid.Scope()
+        for n in base.var_names():
+            scopes[w].set_var(n, base.find_var(n).detach().clone())
+    del base
+    runners = {"plain": lambda: exe.run(built["plain"][0], feed=feed,
+                                        fetch_list=[built["plain"][2]],
+                                        scope=scopes["plain"])}
+    for w in ("ring", "ulysses"):
+        pe = _pe(fluid, scopes[w], built[w][0], built[w][2], "dp=1,sp=1",
+                 plan_sequence_parallel())
+        runners[w] = (lambda pe=pe, w=w: pe.run(fetch_list=[built[w][2]],
+                                                feed=feed))
+    res = {w: {"losses": [], "step_ms": []} for w in runners}
+    for _ in range(SP_STEPS):
+        for w, run in runners.items():
+            t0 = time.perf_counter()
+            (loss,), launches = _held_window(run)
+            res[w]["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            res[w]["losses"].append(float(np.asarray(loss).reshape(-1)[0]))
+            res[w]["launches"] = launches
+    for w, r in res.items():
+        r["p50_step_ms_after_first"] = statistics.median(r["step_ms"][1:])
+        if not np.isfinite(r["losses"]).all():
+            raise RuntimeError(f"sp {w}: losses {r['losses']}")
+        if w == "plain":
+            continue
+        r["loss_rel_err"] = _rel_err(r["losses"], res["plain"]["losses"])
+        if r["loss_rel_err"] > SP_LOSS_RTOL:
+            raise RuntimeError(
+                f"sp {w}: losses {r['losses']} vs the plain step's "
+                f"{res['plain']['losses']} ({r['loss_rel_err']:.3g} > "
+                f"{SP_LOSS_RTOL})")
+        r["step_ratio_in_turns"] = statistics.median(
+            a / b for a, b in zip(r["step_ms"][1:],
+                                  res["plain"]["step_ms"][1:]))
+        r["first_step_ms"] = r["step_ms"][0]
+    res["attention_vs_k2"] = _ring_vs_k2(torch)
+    log("  sp transformer " + json.dumps(res))
+    return res
+
+
+def _ring_vs_k2(torch):
+    """The ring's float32 math (one rank, no collective) and K2 on the
+    same [16, 512, 8, 64] causal Q/K/V: max abs difference, and each
+    against float64."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+    from paddle_tpu_torch.parallel.sequence_parallel import (
+        ring_attention_shard)
+
+    rng = np.random.RandomState(2037)
+    q, k, v = (torch.from_numpy(rng.randn(TRAIN_BATCH, SEQ, N_HEADS,
+                                          D_MODEL // N_HEADS)
+                                .astype(np.float32)).cuda()
+               for _ in range(3))
+    with torch.no_grad():
+        ring = ring_attention_shard(q, k, v, None, True)
+        k2 = flash_attention(q, k, v, causal=True)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * \
+            (q.shape[-1] ** -0.5)
+        s = s.masked_fill(~torch.ones(SEQ, SEQ, dtype=torch.bool,
+                                      device="cuda").tril(), float("-inf"))
+        exact = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                             v.double())
+    return {"ring_vs_k2": (ring - k2).abs().max().item(),
+            "ring_vs_float64": (ring - exact).abs().max().item(),
+            "k2_vs_float64": (k2 - exact).abs().max().item()}
+
+
+def _build_pipe(pkg, width, stages, micro, lr):
+    fluid, layers = pkg.fluid, pkg.layers
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 37
+    with pkg.unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[width], dtype="float32")
+        y = layers.data(name="y", shape=[width], dtype="float32")
+        pipe = layers.Pipeline(x, n_microbatches=micro)
+        with pipe.block():
+            h = pipe.input
+            for s in range(stages):
+                h = layers.fc(input=h, size=width, act="tanh")
+                if s < stages - 1:
+                    h = pipe.cut(h)
+        out = pipe.output(h)
+        cost = layers.mean(layers.square_error_cost(input=out, label=y))
+        fluid.optimizer.SGD(learning_rate=lr).minimize(cost)
+    return main, startup, cost
+
+
+def _pipeline_region(torch):
+    """(f) A ``layers.Pipeline`` region (PIPE: 512 wide, 4 stages of fc +
+    tanh, 4 microbatches, SGD) under a ParallelExecutor on pp=1 (the
+    stages in sequence) on the card, against the CPU's plain Executor
+    from the same state: losses within PIPE_RTOL."""
+    import numpy as np
+
+    feeds = []
+    rng = np.random.RandomState(2036)
+    for _ in range(PIPE["steps"]):
+        x = rng.rand(PIPE["batch"], PIPE["width"]).astype(np.float32)
+        feeds.append({"x": x, "y": np.tanh(x[:, ::-1].copy())})
+    built = _build_pipe(port_pkg(), PIPE["width"], PIPE["stages"],
+                        PIPE["micro"], PIPE["lr"])
+    out = _card_vs_cpu(torch, port_pkg().fluid, built, feeds, "pp=1", None,
+                       "pipeline region")
+    del out["scope"]
+    if out["rel_err"] > PIPE_RTOL:
+        raise RuntimeError(f"pipeline region: card vs CPU losses "
+                           f"{out['rel_err']:.3g} > {PIPE_RTOL}")
+    log("  pipeline region " + json.dumps(out))
+    return out
+
+
+def mesh_serve_phase(torch):
+    """The eighteenth slice on the card: K4 on bf16 pages (a), a
+    GPT-2-medium decoder through a bf16 pool (b), the mesh-sharded
+    decode engine on tp=1 beside the unsharded one (c) and its sharded
+    checkpoint (d), the seq_parallel Transformer on dp=1,sp=1 (e), a
+    GPipe region on pp=1 (f). One card: every mesh is a mesh of one
+    device; the CPU tests hold the multi-rank behaviour."""
+    phase("mesh serve")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    t0 = time.perf_counter()
+    out = {}
+    out["k4_bf16_err"], out["k4_bf16"] = _paged_bf16_kernel(torch, pa)
+    out["bf16_pool"] = _bf16_pool_steps(torch, pa)
+    out["engine"], out["checkpoint"] = _mesh_engines(torch, pa)
+    out["sp_transformer"] = _sp_transformer(torch)
+    out["pipeline"] = _pipeline_region(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  mesh serve phase {out['seconds']:.1f} s")
+    return out
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
             for w, r in parallel["transformer"]["ways"].items()}
+
+
+def _k4_bf16_row(mesh_serve):
+    """K4 on bf16 pages: timed at decode B=8 (its prefill and verify
+    rows beside), launches from the bf16 pool's window (mesh serve
+    phase)."""
+    k4b = mesh_serve["k4_bf16"]
+    dec = k4b["decode"]
+    pool = mesh_serve["bf16_pool"]
+    return _kernel_row(
+        "paged_attention_bf16", "paddle_tpu_torch/csrc/paged_attention.cu",
+        "paddle_tpu/fluid/ops/pallas_kernels/paged_attention.py:268 (bf16 "
+        "pages, widened to float32 on load at :188-190)",
+        pool["k4_bf16_launches"], mesh_serve["k4_bf16_err"], dec,
+        launches_from=f"a GPT-2-medium decoder stepped {pool['steps']} "
+                      "times through a bf16 PagedKvCache",
+        library="sdpa on K/V gathered and widened to float32 (the gather "
+                "untimed), in turns with the kernel",
+        shape=dec["shape"], bound_peak=dec["bound_peak"],
+        prefill=k4b["prefill"], verify=k4b["verify"],
+        bf16_q_ulps_of_max=k4b["bf16_q_ulps_of_max"], bf16_pool=pool,
+        mesh_serve={k: mesh_serve[k] for k in (
+            "engine", "checkpoint", "sp_transformer", "pipeline",
+            "seconds")})
 
 
 def _kernel_row(name, source, replaces, launches, err, row, **extra):
@@ -8085,6 +8674,7 @@ def main():
     vision = vision_phase(torch)
     sparse = sparse_phase(torch)
     parallel = parallel_phase(torch)
+    mesh_serve = mesh_serve_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -8290,7 +8880,10 @@ def main():
         "ptxas": ptxas.get("paged_attention"),
         "serve": serve,
         "host_logits_read_ms": read_ms,
-    }] + train_kernels + infer_kernels}
+        "mesh_engine": {k: mesh_serve["engine"][k] for k in (
+            "k4_launches_per_target_step", "p50_step_ms", "step_ratio_p50",
+            "tokens_bitwise", "k4_local_map")},
+    }, _k4_bf16_row(mesh_serve)] + train_kernels + infer_kernels}
     log(json.dumps(kernels))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

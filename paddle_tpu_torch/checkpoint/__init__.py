@@ -10,8 +10,9 @@ views, and corruption fails with the tensor NAMED.
 ``save_decoder_checkpoint`` / ``load_decoder_checkpoint`` target the
 serving ``DecoderSpec`` / ``decoder_step`` contract so
 ``load_decoder(checkpoint_dir=...)`` deploys real weights. Sharded
-checkpoints (one payload per mesh shard) load; writing them needs the
-mesh layer, not ported yet.
+checkpoints (one payload per mesh shard, ``save_sharded_checkpoint`` or
+``save_decoder_checkpoint(mesh_axes=, shard_axis=)``) write and load;
+a decoder saved with ``mesh_axes`` deploys sharded over that mesh.
 
     python -m paddle_tpu_torch.checkpoint inspect DIR   # manifest summary
     python -m paddle_tpu_torch.checkpoint verify DIR    # full checksum pass

@@ -65,16 +65,15 @@ def save_decoder_checkpoint(dirname: str, spec,
     only tensors whose crc32 differs from the base are written — the
     rest become base references the loader follows.
 
-    ``mesh_axes`` / ``mesh_rules`` / ``shard_axis`` record a serving
-    mesh or write the sharded layout; both need the mesh layer, which is
-    not ported yet, and raise ``NotImplementedError``."""
-    if mesh_axes is not None or mesh_rules is not None or \
-            shard_axis is not None:
-        raise NotImplementedError(
-            "save_decoder_checkpoint(mesh_axes= / mesh_rules= / "
-            "shard_axis=) needs the mesh layer, which paddle_tpu_torch "
-            "does not port yet — it comes with the mesh and parallel "
-            "slice; save without them")
+    ``mesh_axes`` RECORDS the serving mesh in the manifest meta —
+    ``load_decoder(checkpoint_dir=)`` then deploys the engine sharded as
+    exported; ``mesh_rules`` overrides the default
+    ``mesh.decoder_rules``. ``shard_axis`` additionally writes the
+    SHARDED payload layout (one file per shard of that mesh axis, merged
+    manifest); it requires ``mesh_axes`` and is incompatible with
+    ``base_manifest`` (delta chains are a monolithic-layout feature).
+    A sharded engine's params (DTensors) are gathered whole first, a
+    collective every rank of the mesh must join."""
     if params is None:
         from ..serving.decode import build_decoder_params
 
@@ -82,8 +81,41 @@ def save_decoder_checkpoint(dirname: str, spec,
     meta: Dict[str, Any] = {"kind": "decoder", "spec": spec.to_dict()}
     if step is not None:
         meta["step"] = int(step)
+    if shard_axis is not None and mesh_axes is None:
+        raise CheckpointError(
+            "shard_axis needs mesh_axes — the shard count is that mesh "
+            "axis's size")
+    if mesh_axes is not None:
+        from ..mesh import MeshSpec, ShardingRules, decoder_rules
+
+        ms = MeshSpec.coerce(mesh_axes)
+        rules = ShardingRules.coerce(mesh_rules, default=decoder_rules)
+        if shard_axis is not None:
+            if base_manifest is not None:
+                raise CheckpointError(
+                    "sharded decoder checkpoints do not support "
+                    "base_manifest deltas — save monolithic or full")
+            from .sharded import save_sharded_checkpoint
+
+            # the JAX package hands the splitter its tree after a
+            # jax.tree_util map, which orders every dict's keys: the same
+            # order here keeps the bytes equal
+            return save_sharded_checkpoint(
+                dirname, _sorted_tree(params), shard_axis=str(shard_axis),
+                mesh_spec=ms, rules=rules, meta=meta)
+        meta["mesh"] = {"spec": ms.to_dict(), "rules": rules.to_dict()}
     return save_checkpoint_tree(dirname, params, meta=meta,
                                 base=base_manifest)
+
+
+def _sorted_tree(tree):
+    """``tree`` with every dict's keys in sorted order (tuples and lists
+    kept as they are)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_sorted_tree(v) for v in tree)
+    return tree
 
 
 def decoder_checkpoint_mesh(dirname: str) -> Optional[Dict[str, Any]]:

@@ -110,7 +110,10 @@ def _flatten(tree, prefix: str = "", out: Optional[OrderedDict] = None):
             skels.append(s)
         return out, {("t" if isinstance(tree, tuple) else "l"): skels}
     # leaf: anything numpy can view as an n-d array of a plain dtype;
-    # a torch tensor (on any device) is read back to the host first
+    # a torch tensor (on any device) is read back to the host first, a
+    # DTensor whole (a collective: every rank of its mesh flattens it)
+    if hasattr(tree, "full_tensor"):
+        tree = tree.full_tensor()
     if hasattr(tree, "detach"):
         tree = tree.detach().cpu().numpy()
     arr = np.asarray(tree)

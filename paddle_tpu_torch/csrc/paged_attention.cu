@@ -1,6 +1,6 @@
-// Ragged paged attention, float32, for Hopper (sm_90a): split-K over the
-// keys (flash-decoding), a CUDA-core decode path and a 3xTF32
-// tensor-core chunked-prefill path, and a merge kernel.
+// Ragged paged attention on float32 or bfloat16 pages, for Hopper
+// (sm_90a): split-K over the keys (flash-decoding), a CUDA-core decode
+// path and a 3xTF32 tensor-core chunked-prefill path, and a merge kernel.
 //
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/fluid/ops/pallas_kernels/paged_attention.py:_paged_kernel
@@ -89,10 +89,22 @@
 // writes n_splits * rows * D floats more: small at decode, at prefill
 // about as many bytes as Q and O.
 //
+// bfloat16 pages (paged_attention_bf16; the Pallas kernel's astype on
+// load, :188-190): every kernel is templated on the page element type.
+// A bf16 key row is read as 16-bit values (8 bytes, 4 columns, a load
+// when head_dim % 4 == 0, else one value), widened to float32 in
+// registers and stored into the same float32 shared tiles, so the paths
+// above and their arithmetic are the f32 form's; the loads are plain
+// loads, not cp.async (which cannot widen), so a bf16 tile is in shared
+// memory when its loads return. Q and the output are float32 or bfloat16
+// on either page type (q_bf16): Q widens as it is staged, the merge
+// rounds O to nearest even as it writes it (the output takes Q's dtype).
+//
 // The kernels allocate nothing; the caller passes the output and the
-// scratch. paged_attention_f32 launches both kernels on the given stream
-// and returns cudaGetLastError().
+// scratch. paged_attention_f32 and paged_attention_bf16 launch both
+// kernels on the given stream and return cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cmath>
@@ -122,11 +134,15 @@ struct Ring {
   static constexpr int kFloats = (kRows + 2 * kStages * kTile) * kLD;
 };
 
-// What one block of paged_split_kernel works on.
+using bf16 = __nv_bfloat16;
+
+// What one block of paged_split_kernel works on. q is float32 or bf16
+// (q_bf16); the pools are float32 or bf16 (the kernels' template TK).
 struct Work {
-  const float* q;
-  const float* kp;
-  const float* vp;
+  const void* q;
+  const void* kp;
+  const void* vp;
+  bool q_bf16;
   const int* table;       // the slot's row of the page tables
   float* part_ml;         // [n_splits][NR][2]: m, l
   float* part_acc;        // [n_splits][NR][D]
@@ -149,9 +165,11 @@ __device__ __forceinline__ int64_t row_id(const Work& w, int r) {
          w.g * w.rep + r % w.rep;
 }
 
-// One copy unit of a row into shared memory: 16 bytes at column 4 * part
-// (kVec), else 4 bytes at column `part`. A null source, or columns at or
-// past D, write zeros and read nothing (`any` is a valid address).
+// One copy unit of a row into float32 shared memory: 4 columns at
+// column 4 * part (kVec), else 1 column at column `part`. A null source,
+// or columns at or past D, write zeros and read nothing. float32 rows go
+// by cp.async (`any` is a valid address for the zero-fill); bf16 rows by
+// a plain 8-byte (or 2-byte) load, widened in registers.
 template <bool kVec>
 __device__ __forceinline__ void copy_unit(float* dst_row,
                                           const float* src_row, int part,
@@ -166,17 +184,50 @@ __device__ __forceinline__ void copy_unit(float* dst_row,
   }
 }
 
+template <bool kVec>
+__device__ __forceinline__ void copy_unit(float* dst_row,
+                                          const bf16* src_row, int part,
+                                          int D, const bf16*) {
+  if constexpr (kVec) {
+    const int col = 4 * part;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (src_row != nullptr && col < D) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src_row + col);
+      const float2 lo =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 hi =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      f = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    *reinterpret_cast<float4*>(dst_row + col) = f;
+  } else {
+    dst_row[part] = src_row != nullptr && part < D
+                        ? __bfloat162float(src_row[part])
+                        : 0.f;
+  }
+}
+
 // Slot-rows [r0, r0 + n) of q into n shared rows (dead rows: zeros).
-template <int DP, bool kVec>
-__device__ __forceinline__ void stage_q(const Work& w, float* qs, int r0,
-                                        int n) {
+template <int DP, bool kVec, typename TQ>
+__device__ __forceinline__ void stage_q_as(const Work& w, float* qs, int r0,
+                                           int n) {
   constexpr int LD = DP + 4, U = kVec ? DP / 4 : DP;
+  const TQ* q = static_cast<const TQ*>(w.q);
   for (int i = threadIdx.x; i < n * U; i += kThreads) {
     const int rr = i / U;
     const int r = r0 + rr;
-    const float* src = r < w.n_live ? w.q + row_id(w, r) * w.D : nullptr;
-    copy_unit<kVec>(qs + rr * LD, src, i % U, w.D, w.q);
+    const TQ* src = r < w.n_live ? q + row_id(w, r) * w.D : nullptr;
+    copy_unit<kVec>(qs + rr * LD, src, i % U, w.D, q);
   }
+}
+
+template <int DP, bool kVec>
+__device__ __forceinline__ void stage_q(const Work& w, float* qs, int r0,
+                                        int n) {
+  if (w.q_bf16)
+    stage_q_as<DP, kVec, bf16>(w, qs, r0, n);
+  else
+    stage_q_as<DP, kVec, float>(w, qs, r0, n);
 }
 
 // The split's key offsets into the pools (head g's row of key s0 + i),
@@ -197,24 +248,26 @@ __device__ __forceinline__ void key_offsets(const Work& w, int64_t* offs,
 
 // Tile `it` of the split (its keys s0 + 32 it ..) into shared rows of K
 // and V; keys past the last visible one are zeros and are not read.
-template <int DP, bool kVec>
+template <int DP, bool kVec, typename TK>
 __device__ __forceinline__ void stage_kv(const Work& w, float* ks,
                                          float* vs, const int64_t* offs,
                                          int it) {
   constexpr int LD = DP + 4, U = kVec ? DP / 4 : DP;
+  const TK* kp = static_cast<const TK*>(w.kp);
+  const TK* vp = static_cast<const TK*>(w.vp);
   for (int i = threadIdx.x; i < kTile * U; i += kThreads) {
     const int key = i / U;
     const int64_t off = offs[it * kTile + key];
-    copy_unit<kVec>(ks + key * LD, off >= 0 ? w.kp + off : nullptr, i % U,
-                    w.D, w.kp);
-    copy_unit<kVec>(vs + key * LD, off >= 0 ? w.vp + off : nullptr, i % U,
-                    w.D, w.kp);
+    copy_unit<kVec>(ks + key * LD, off >= 0 ? kp + off : nullptr, i % U,
+                    w.D, kp);
+    copy_unit<kVec>(vs + key * LD, off >= 0 ? vp + off : nullptr, i % U,
+                    w.D, kp);
   }
 }
 
 // Q's rows and the split's key offsets, then the first kStages - 1
 // tiles (one commit group each; Q joins tile 0's).
-template <int DP, bool kVec>
+template <int DP, bool kVec, typename TK>
 __device__ __forceinline__ void prologue(const Work& w, float* smem,
                                          int r0, int nq, int n_keys,
                                          int n_tiles) {
@@ -228,15 +281,15 @@ __device__ __forceinline__ void prologue(const Work& w, float* smem,
 #pragma unroll
   for (int p = 0; p < R::kStages - 1; ++p) {
     if (p < n_tiles)
-      stage_kv<DP, kVec>(w, kb + p * kTile * R::kLD, vb + p * kTile * R::kLD,
-                         offs, p);
+      stage_kv<DP, kVec, TK>(w, kb + p * kTile * R::kLD,
+                             vb + p * kTile * R::kLD, offs, p);
     cp_async_commit();
   }
 }
 
 // Top of pipeline step `it`: tile it has landed and every warp is done
 // with tile it - 1, whose buffer then takes tile it + kStages - 1.
-template <int DP, bool kVec>
+template <int DP, bool kVec, typename TK>
 __device__ __forceinline__ void advance(const Work& w, float* smem, int it,
                                         int n_tiles) {
   using R = Ring<DP>;
@@ -248,8 +301,8 @@ __device__ __forceinline__ void advance(const Work& w, float* smem, int it,
   const int nt = it + R::kStages - 1;
   if (nt < n_tiles) {
     const int b = nt % R::kStages;
-    stage_kv<DP, kVec>(w, kb + b * kTile * R::kLD, vb + b * kTile * R::kLD,
-                       offs, nt);
+    stage_kv<DP, kVec, TK>(w, kb + b * kTile * R::kLD,
+                           vb + b * kTile * R::kLD, offs, nt);
   }
   cp_async_commit();
 }
@@ -258,7 +311,7 @@ __device__ __forceinline__ void advance(const Work& w, float* smem, int it,
 // The slot's MR (>= n_live) rows, n_keys keys of split s from s0. Warp w
 // scores keys 8w..8w+7 of each tile: lane = 4 * key + part, part p sums
 // columns 4p + 16m .. +3 of the dot product.
-template <int DP, bool kVec, int MR>
+template <int DP, bool kVec, int MR, typename TK>
 __device__ __forceinline__ void decode_path(const Work& w, float* smem,
                                             int n_keys) {
   using R = Ring<DP>;
@@ -269,7 +322,7 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_tiles = (n_keys + kTile - 1) / kTile;
-  prologue<DP, kVec>(w, smem, 0, MR, n_keys, n_tiles);
+  prologue<DP, kVec, TK>(w, smem, 0, MR, n_keys, n_tiles);
 
   int limit[MR];
   float m[MR], l[MR], acc[MR][NE];
@@ -285,7 +338,7 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
   const int part = lane % kParts;
 
   for (int it = 0; it < n_tiles; ++it) {
-    advance<DP, kVec>(w, smem, it, n_tiles);
+    advance<DP, kVec, TK>(w, smem, it, n_tiles);
     const float* kt = kb + (it % R::kStages) * kTile * LD;
     const float* vt = vb + (it % R::kStages) * kTile * LD;
     const int t = w.s0 + it * kTile + kj;
@@ -390,7 +443,7 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
 // -------------------------------------------------------------- chunk
 // Slot-rows [r0, r0 + 64), 16 a warp (the m16 side of every product),
 // n_keys keys of split s from s0, in 32-key tiles.
-template <int DP, bool kVec>
+template <int DP, bool kVec, typename TK>
 __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
                                            int r0, int n_keys) {
   using R = Ring<DP>;
@@ -405,7 +458,7 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_tiles = (n_keys + kTile - 1) / kTile;
-  prologue<DP, kVec>(w, smem, r0, kRows, n_keys, n_tiles);
+  prologue<DP, kVec, TK>(w, smem, r0, kRows, n_keys, n_tiles);
 
   const int rw = warp * 16;                // the warp's first row
   const float* qw = qs + rw * LD;
@@ -425,7 +478,7 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    advance<DP, kVec>(w, smem, it, n_tiles);
+    advance<DP, kVec, TK>(w, smem, it, n_tiles);
     const int t0 = w.s0 + it * kTile;
     if (t0 > warp_hi) continue;  // no row of the warp sees the tile
     const float* kt = kb + (it % R::kStages) * kTile * LD;
@@ -532,12 +585,13 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
 }
 
 // grid (B * Hkv, ceil(C * rep / 64), n_splits); see the head comment.
-// DP: head_dim's bucket (32, 64, 128, 256); kVec: head_dim % 4 == 0.
-template <int DP, bool kVec>
+// DP: head_dim's bucket (32, 64, 128, 256); kVec: head_dim % 4 == 0;
+// TK: the pools' element type (float or bf16).
+template <int DP, bool kVec, typename TK>
 __global__ void __launch_bounds__(kThreads)
-paged_split_kernel(const float* __restrict__ q,
-                   const float* __restrict__ k_pages,
-                   const float* __restrict__ v_pages,
+paged_split_kernel(const void* __restrict__ q, bool q_bf16,
+                   const TK* __restrict__ k_pages,
+                   const TK* __restrict__ v_pages,
                    const int* __restrict__ tables,
                    const int* __restrict__ kv_lens,
                    const int* __restrict__ q_lens,
@@ -548,6 +602,7 @@ paged_split_kernel(const float* __restrict__ q,
   float* smem = reinterpret_cast<float*>(smem4);
   Work w;
   w.q = q;
+  w.q_bf16 = q_bf16;
   w.kp = k_pages;
   w.vp = v_pages;
   w.part_ml = part_ml;
@@ -579,18 +634,18 @@ paged_split_kernel(const float* __restrict__ q,
     const int n_keys = min(row_limit(w, w.n_live - 1) + 1 - w.s0, split);
     if (n_keys <= 0) return;  // the split starts past every visible key
     if (w.n_live == 1)
-      decode_path<DP, kVec, 1>(w, smem, n_keys);
+      decode_path<DP, kVec, 1, TK>(w, smem, n_keys);
     else if (w.n_live <= 4)
-      decode_path<DP, kVec, 4>(w, smem, n_keys);
+      decode_path<DP, kVec, 4, TK>(w, smem, n_keys);
     else
-      decode_path<DP, kVec, kDec>(w, smem, n_keys);
+      decode_path<DP, kVec, kDec, TK>(w, smem, n_keys);
   } else {
     const int r0 = blockIdx.y * kRows;
     if (r0 >= w.n_live) return;
     const int last = min(r0 + kRows, w.n_live) - 1;
     const int n_keys = min(row_limit(w, last) + 1 - w.s0, split);
     if (n_keys <= 0) return;
-    chunk_path<DP, kVec>(w, smem, r0, n_keys);
+    chunk_path<DP, kVec, TK>(w, smem, r0, n_keys);
   }
 }
 
@@ -599,14 +654,23 @@ paged_split_kernel(const float* __restrict__ q,
 // the max M and the sum of l_s 2^(m_s - M) by fixed butterflies, then
 // each column's sum of acc_s 2^(m_s - M) in the order s = 0, 1, ...;
 // dead rows get zeros. The order depends on the row's own split count
-// only.
+// only. out is float32, or bf16 (out_bf16: each value rounded to nearest
+// even as it is written).
+__device__ __forceinline__ void put(void* out, int64_t i, float v,
+                                    bool out_bf16) {
+  if (out_bf16)
+    static_cast<bf16*>(out)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(out)[i] = v;
+}
+
 __global__ void __launch_bounds__(kThreads)
 paged_merge_kernel(const float* __restrict__ part_ml,
                    const float* __restrict__ part_acc,
                    const int* __restrict__ kv_lens,
-                   const int* __restrict__ q_lens, float* __restrict__ out,
-                   int64_t NR, int C, int Hq, int D, int T, int split,
-                   int n_splits) {
+                   const int* __restrict__ q_lens, void* __restrict__ out,
+                   bool out_bf16, int64_t NR, int C, int Hq, int D, int T,
+                   int split, int n_splits) {
   const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps +
                       threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -619,9 +683,9 @@ paged_merge_kernel(const float* __restrict__ part_ml,
     const int limit = min(kv_lens[b] - q_len + c, T - 1);
     if (limit >= 0) ns = min(limit / split + 1, n_splits);
   }
-  float* o = out + row * D;
+  const int64_t o = row * D;
   if (ns == 0) {
-    for (int d = lane; d < D; d += 32) o[d] = 0.f;
+    for (int d = lane; d < D; d += 32) put(out, o + d, 0.f, out_bf16);
     return;
   }
   const float* ml = part_ml + 2 * row;
@@ -650,19 +714,19 @@ paged_merge_kernel(const float* __restrict__ part_ml,
                               : exp2f(ml[s * ml_stride] - M);
       if (d < D) A = fmaf(a[s * a_stride + d], wt, A);
     }
-    if (d < D) o[d] = A / denom;
+    if (d < D) put(out, o + d, A / denom, out_bf16);
   }
 }
 
-template <int DP, bool kVec>
-cudaError_t launch(const float* q, const float* k, const float* v,
+template <int DP, bool kVec, typename TK>
+cudaError_t launch(const void* q, bool q_bf16, const TK* k, const TK* v,
                    const int* tables, const int* kv_lens, const int* q_lens,
                    float* part_ml, float* part_acc, int B, int C, int Hq,
                    int Hkv, int D, int ps, int W, int split, int n_splits,
                    float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Ring<DP>::kFloats +
                       sizeof(int64_t) * static_cast<size_t>(split);
-  auto kernel = paged_split_kernel<DP, kVec>;
+  auto kernel = paged_split_kernel<DP, kVec, TK>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -671,9 +735,9 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   }
   const int rep = Hq / Hkv;
   dim3 grid(B * Hkv, (C * rep + kRows - 1) / kRows, n_splits);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, tables, kv_lens, q_lens,
-                                           part_ml, part_acc, C, Hq, Hkv, D,
-                                           ps, W, split, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(q, q_bf16, k, v, tables, kv_lens,
+                                           q_lens, part_ml, part_acc, C, Hq,
+                                           Hkv, D, ps, W, split, scale);
   return cudaGetLastError();
 }
 
@@ -699,10 +763,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename TK>
 __global__ void __launch_bounds__(kThreads)
-paged_wide_kernel(const float* __restrict__ q,
-                  const float* __restrict__ k_pages,
-                  const float* __restrict__ v_pages,
+paged_wide_kernel(const void* __restrict__ q, bool q_bf16,
+                  const TK* __restrict__ k_pages,
+                  const TK* __restrict__ v_pages,
                   const int* __restrict__ tables,
                   const int* __restrict__ kv_lens,
                   const int* __restrict__ q_lens,
@@ -713,6 +781,7 @@ paged_wide_kernel(const float* __restrict__ q,
   extern __shared__ float4 smem4[];
   Work w;
   w.q = q;
+  w.q_bf16 = q_bf16;
   w.kp = k_pages;
   w.vp = v_pages;
   w.part_ml = part_ml;
@@ -777,18 +846,22 @@ paged_wide_kernel(const float* __restrict__ q,
       for (int i = threadIdx.x; i < kWideRows * dw; i += kThreads) {
         const int rr = i / dw, d = i % dw;
         const int r = r0 + rr;
-        qs[rr * dw + d] = r < w.n_live ? q[row_id(w, r) * D + d0 + d] : 0.f;
+        const int64_t at = row_id(w, r) * D + d0 + d;
+        qs[rr * dw + d] =
+            r >= w.n_live ? 0.f
+            : q_bf16      ? widen(static_cast<const bf16*>(q)[at])
+                          : static_cast<const float*>(q)[at];
       }
       for (int i = threadIdx.x; i < kTile * dw; i += kThreads) {
         const int key = i / dw, d = i % dw;
         const int64_t off = to[key];
-        ks[key * (dw + 1) + d] = off >= 0 ? k_pages[off + d0 + d] : 0.f;
+        ks[key * (dw + 1) + d] = off >= 0 ? widen(k_pages[off + d0 + d]) : 0.f;
       }
       if (d0 + kWideChunk >= D) {  // the last chunk: the V slice too
         for (int i = threadIdx.x; i < kTile * cw; i += kThreads) {
           const int key = i / cw, d = i % cw;
           const int64_t off = to[key];
-          vs[key * cw + d] = off >= 0 ? v_pages[off + c0 + d] : 0.f;
+          vs[key * cw + d] = off >= 0 ? widen(v_pages[off + c0 + d]) : 0.f;
         }
       }
       __syncthreads();
@@ -853,7 +926,8 @@ paged_wide_kernel(const float* __restrict__ q,
   }
 }
 
-cudaError_t launch_wide(const float* q, const float* k, const float* v,
+template <typename TK>
+cudaError_t launch_wide(const void* q, bool q_bf16, const TK* k, const TK* v,
                         const int* tables, const int* kv_lens,
                         const int* q_lens, float* part_ml, float* part_acc,
                         int B, int C, int Hq, int Hkv, int D, int ps, int W,
@@ -863,31 +937,26 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v,
       sizeof(int64_t) * static_cast<size_t>(split) +
       sizeof(float) * (kWideRows * kWideChunk + kTile * (2 * kWideChunk + 1));
   cudaError_t e = cudaFuncSetAttribute(
-      paged_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_wide_kernel<TK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int n_slices = (D + kWideChunk - 1) / kWideChunk;
   const int blocks = (C * (Hq / Hkv) + kWideRows - 1) / kWideRows;
   dim3 grid(B * Hkv, blocks * n_slices, n_splits);
-  paged_wide_kernel<<<grid, kThreads, smem, stream>>>(
-      q, k, v, tables, kv_lens, q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps,
+  paged_wide_kernel<TK><<<grid, kThreads, smem, stream>>>(
+      q, q_bf16, k, v, tables, kv_lens, q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps,
       W, split, scale, n_slices);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// part_ml: n_splits * B * C * Hq * 2 floats; part_acc: n_splits * B * C *
-// Hq * D floats; n_splits = ceil(W * page_size / split), split a
-// multiple of 32 up to 1024.
-int paged_attention_f32(const void* q, const void* k_pages,
-                        const void* v_pages, const void* tables,
-                        const void* kv_lens, const void* q_lens,
-                        void* part_ml, void* part_acc, void* out, int B,
-                        int C, int Hq, int Hkv, int D, int ps, int W,
-                        int split, int n_splits, float scale, void* stream) {
+// Checks the arguments, launches the split kernel of D's bucket on TK
+// pools, then the merge kernel.
+template <typename TK>
+int run(const void* q, const void* k_pages, const void* v_pages,
+        const void* tables, const void* kv_lens, const void* q_lens,
+        void* part_ml, void* part_acc, void* out, int B, int C, int Hq,
+        int Hkv, int D, int ps, int W, int split, int n_splits, int q_bf16,
+        float scale, void* stream) {
   if (B == 0 || C == 0) return cudaSuccess;
   if (B < 0 || C < 0 || D <= 0 || Hkv <= 0 || Hq % Hkv ||
       ps <= 0 || W <= 0 || split <= 0 || split % kTile || split > 1024 ||
@@ -898,10 +967,10 @@ int paged_attention_f32(const void* q, const void* k_pages,
               ((D + kWideChunk - 1) / kWideChunk) > 65535)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const bool qb = q_bf16 != 0;
   auto args = [&](auto launcher) {
-    return launcher(static_cast<const float*>(q),
-                    static_cast<const float*>(k_pages),
-                    static_cast<const float*>(v_pages),
+    return launcher(q, qb, static_cast<const TK*>(k_pages),
+                    static_cast<const TK*>(v_pages),
                     static_cast<const int*>(tables),
                     static_cast<const int*>(kv_lens),
                     static_cast<const int*>(q_lens),
@@ -912,23 +981,56 @@ int paged_attention_f32(const void* q, const void* k_pages,
   const bool vec = D % 4 == 0;
   cudaError_t e;
   if (D <= 32)
-    e = vec ? args(launch<32, true>) : args(launch<32, false>);
+    e = vec ? args(launch<32, true, TK>) : args(launch<32, false, TK>);
   else if (D <= 64)
-    e = vec ? args(launch<64, true>) : args(launch<64, false>);
+    e = vec ? args(launch<64, true, TK>) : args(launch<64, false, TK>);
   else if (D <= 128)
-    e = vec ? args(launch<128, true>) : args(launch<128, false>);
+    e = vec ? args(launch<128, true, TK>) : args(launch<128, false, TK>);
   else if (D <= 256)
-    e = vec ? args(launch<256, true>) : args(launch<256, false>);
+    e = vec ? args(launch<256, true, TK>) : args(launch<256, false, TK>);
   else
-    e = args(launch_wide);
+    e = args(launch_wide<TK>);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t NR = static_cast<int64_t>(B) * C * Hq;
   paged_merge_kernel<<<static_cast<unsigned>((NR + kWarps - 1) / kWarps),
                        kThreads, 0, st>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
-      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens),
-      static_cast<float*>(out), NR, C, Hq, D, W * ps, split, n_splits);
+      static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens), out,
+      qb, NR, C, Hq, D, W * ps, split, n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// part_ml: n_splits * B * C * Hq * 2 floats; part_acc: n_splits * B * C *
+// Hq * D floats; n_splits = ceil(W * page_size / split), split a
+// multiple of 32 up to 1024. q and out are bf16 when q_bf16, else
+// float32; the pools float32 (paged_attention_f32) or bf16
+// (paged_attention_bf16).
+int paged_attention_f32(const void* q, const void* k_pages,
+                        const void* v_pages, const void* tables,
+                        const void* kv_lens, const void* q_lens,
+                        void* part_ml, void* part_acc, void* out, int B,
+                        int C, int Hq, int Hkv, int D, int ps, int W,
+                        int split, int n_splits, int q_bf16, float scale,
+                        void* stream) {
+  return run<float>(q, k_pages, v_pages, tables, kv_lens, q_lens, part_ml,
+                    part_acc, out, B, C, Hq, Hkv, D, ps, W, split, n_splits,
+                    q_bf16, scale, stream);
+}
+
+int paged_attention_bf16(const void* q, const void* k_pages,
+                         const void* v_pages, const void* tables,
+                         const void* kv_lens, const void* q_lens,
+                         void* part_ml, void* part_acc, void* out, int B,
+                         int C, int Hq, int Hkv, int D, int ps, int W,
+                         int split, int n_splits, int q_bf16, float scale,
+                         void* stream) {
+  return run<bf16>(q, k_pages, v_pages, tables, kv_lens, q_lens, part_ml,
+                   part_acc, out, B, C, Hq, Hkv, D, ps, W, split, n_splits,
+                   q_bf16, scale, stream);
 }
 
 const char* error_string(int err) {

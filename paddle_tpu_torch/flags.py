@@ -79,6 +79,13 @@ FLAGS: Dict[str, Any] = {
     # (mesh.transformer_rules gives the dp x tp x fsdp layout of the
     # Transformer)
     "mesh_axes": "",
+    # default SERVING mesh for DecodeEngine/load_decoder: '' = one
+    # device; an axes string makes one decode replica SPAN the process
+    # group's ranks — params shard per mesh.decoder_rules and the paged
+    # KV pool shards over the kv-head axis. A checkpoint that RECORDS a
+    # mesh (save_decoder_checkpoint(mesh_axes=)) wins over this default;
+    # an explicit load_decoder(mesh_axes=) wins over both
+    "serving_mesh_axes": "",
 }
 
 

@@ -550,8 +550,9 @@ def ring_attention(q, k, v, causal=False, scale=0.0, impl="ring",
 
     Flash attention (the op's K2/K3 kernels). Under a ParallelExecutor
     mesh the kernels run on `(batch_axis, None, head_axis, None)` shards;
-    a mesh holding `seq_axis` (`impl` ring / ulysses sequence
-    parallelism) raises until the next slice ports it.
+    a mesh holding `seq_axis` runs sequence parallelism, `impl` 'ring'
+    (K/V blocks rotate over the axis's ranks) or 'ulysses' (all-to-all
+    heads <-> sequence).
     """
     helper = LayerHelper("ring_attention", name=name)
     out = helper.create_variable_for_type_inference(dtype=q.dtype)

@@ -18,7 +18,8 @@ op library: SelectedRows gradients (a sparse ``lookup_table``'s, taken
 by ``sum``, the clip ops and every optimizer op), the losses
 (``nce``, ``hierarchical_sigmoid``, ``lambda_cost``, ...), sampling,
 the gather/scatter family and the ranking and metric ops (``auc``,
-``precision_recall``, ``positive_negative_pair``). Any other op type
+``precision_recall``, ``positive_negative_pair``), and the GPipe
+region ops ``pipeline`` and ``pipeline_cut``. Any other op type
 raises "no emitter registered ... (not yet ported)" when a program
 containing it is built or run."""
 from . import (  # noqa: F401
@@ -37,6 +38,7 @@ from . import (  # noqa: F401
     nce_op,
     nn_ops,
     optimizer_ops,
+    pipeline_op,
     random_ops,
     reduce_ops,
     sequence_ops,

@@ -24,8 +24,12 @@ def ring_attention(ctx, ins, attrs):
     head_axis, None)`` shards, as the JAX op runs its Pallas kernel in a
     ``shard_map`` (``paddle_tpu/fluid/ops/attention_ops.py:66-95``); an
     axis the mesh lacks or that does not divide stays whole. A mesh that
-    holds ``seq_axis`` (ring / Ulysses sequence parallelism) raises
-    ``NotImplementedError``: it comes with the next slice.
+    holds ``seq_axis`` runs sequence parallelism, as the JAX op does
+    there (``:96-112``): ``parallel.sequence_parallel_attention`` with
+    ``impl`` ring or ulysses, in float32 PyTorch math (no kernel, as in
+    the JAX package), batch kept on ``batch_axis`` and heads on
+    ``head_axis`` where they divide (and, under Ulysses, where the local
+    head count still divides over the sequence axis).
 
     On bfloat16 Q/K/V the op computes the JAX package's kernel branch:
     the Pallas kernels' ``lowp`` function
@@ -53,15 +57,38 @@ def ring_attention(ctx, ins, attrs):
     if mesh_ops.mesh_operands(mesh, q, k, v):
         seq_axis = attrs.get("seq_axis", "sp")
         if seq_axis in mesh.mesh_dim_names:
-            raise NotImplementedError(
-                f"ring_attention over mesh axis '{seq_axis}' (sequence "
-                "parallelism, ring and ulysses) is not ported yet: it comes "
-                "with the next slice (parallel/sequence_parallel.py)")
+            return {"Out": _sequence_parallel(mesh, q, k, v, causal, scale,
+                                              seq_axis, attrs)}
         return {"Out": mesh_ops.flash_attention(
             mesh, q, k, v, causal, scale,
             attrs.get("batch_axis", "") or None,
             attrs.get("head_axis", "") or None)}
     return {"Out": flash_attention(q, k, v, causal=causal, scale=scale)}
+
+
+def _sequence_parallel(mesh, q, k, v, causal, scale, seq_axis, attrs):
+    """The JAX op's mesh branch (``attention_ops.py:96-112``): a batch or
+    head axis the mesh lacks or that does not divide is demoted to
+    replication, and so is a head axis whose local head count Ulysses
+    could not split again over the sequence axis."""
+    from ...parallel.sequence_parallel import sequence_parallel_attention
+
+    impl = attrs.get("impl", "ring")
+    sizes = dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+    batch_axis = attrs.get("batch_axis", "") or None
+    if batch_axis is not None and (batch_axis not in sizes
+                                   or q.shape[0] % sizes[batch_axis]):
+        batch_axis = None
+    head_axis = attrs.get("head_axis", "") or None
+    if head_axis is not None and (head_axis not in sizes
+                                  or q.shape[2] % sizes[head_axis]):
+        head_axis = None
+    if (head_axis is not None and impl == "ulysses"
+            and (q.shape[2] // sizes[head_axis]) % sizes[seq_axis]):
+        head_axis = None
+    return sequence_parallel_attention(
+        q, k, v, mesh, seq_axis=seq_axis, batch_axis=batch_axis,
+        head_axis=head_axis, causal=causal, scale=scale, impl=impl)
 
 
 @register_op("moe_ffn", no_grad=(), ref="(TPU-native capability extension)")

@@ -21,11 +21,31 @@ def mul(ctx, ins, attrs):
     x, y = one(ins, "X"), one(ins, "Y")
     xn = int(attrs.get("x_num_col_dims", 1))
     yn = int(attrs.get("y_num_col_dims", 1))
-    x2 = x.reshape(math.prod(x.shape[:xn]), -1)
     y2 = y.reshape(math.prod(y.shape[:yn]), -1)
-    x2, y2, restore = amp_operands(x2, y2)
-    out = restored(x2 @ y2, restore)
+    if xn >= 2 and _sequence_sharded(x):
+        # under sequence parallelism dim 1 of the activations (and of
+        # their gradients) is sharded, and DTensor (torch 2.11) may not
+        # flatten it into rows behind dim 0, forward or in a view's
+        # backward: the product is batched over dim 0, the other leading
+        # dims its rows, and the output needs no view
+        lead = tuple(x.shape[:xn])
+        x3 = x.reshape(lead[0], math.prod(lead[1:]), -1)
+        x3, y3, restore = amp_operands(x3, y2)
+        out = restored(torch.bmm(
+            x3, y3.unsqueeze(0).expand(lead[0], *y3.shape)), restore)
+    else:
+        x2 = x.reshape(math.prod(x.shape[:xn]), -1)
+        x2, y2, restore = amp_operands(x2, y2)
+        out = restored(x2 @ y2, restore)
     return {"Out": out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:]))}
+
+
+def _sequence_sharded(x) -> bool:
+    """True for a DTensor operand of a run whose plan splits feeds on
+    ``[batch, seq]`` over a mesh that holds the sequence axis."""
+    from ...parallel.api import current_seq_axis
+
+    return hasattr(x, "placements") and current_seq_axis() is not None
 
 
 @register_op("matmul", ref="paddle/fluid/operators/matmul_op.cc")

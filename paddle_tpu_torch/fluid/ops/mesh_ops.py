@@ -2,7 +2,8 @@
 kernels — the counterpart of the JAX ops' ``shard_map`` around a Pallas
 kernel (``paddle_tpu/fluid/ops/attention_ops.py:66-95``).
 
-A ParallelExecutor run hands the ops DTensors. A kernel takes plain
+A ParallelExecutor run (or a mesh-sharded decode step) hands the ops
+DTensors. A kernel takes plain
 tensors, so each op below redistributes its operands to the placement
 its kernel can compute locally and runs the kernel's wrapper on every
 rank's local shards through ``torch.distributed.tensor.experimental.
@@ -116,6 +117,37 @@ def flash_attention(mesh, q, k, v, causal: bool, scale: Optional[float],
                        in_grad_placements=(pl, pl, pl), device_mesh=mesh,
                        redistribute_inputs=True)
     return mapped(q, k, v)
+
+
+def paged_attention(mesh, q, k, v, k_pool, v_pool, layer: int, page, off,
+                    page_tables, kv_lens, q_lens):
+    """K4 on each rank's kv heads, for a mesh-sharded decode step: the
+    pools ``[layers, pages, page_size, kv_heads, head_dim]`` are sharded
+    on the kv-head dim; q ``[B, C, Hq, D]`` and the step's new k/v
+    ``[B, C, Hkv, D]`` take the same split of their head dim (a rank's
+    query heads are the groups of its kv heads, so GQA stays local).
+    Inside ``local_map`` each rank writes its heads of k/v into its slice
+    of layer ``layer`` (pages ``page``, offsets ``off``) and runs K4 on
+    that slice through the (replicated, plain) page tables; the output
+    comes back sharded on its head dim. No collective runs inside."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ...serving.decode import write_and_attend
+
+    pool_pl = tuple(k_pool.placements)
+    head_pl = tuple(Shard(2) if isinstance(p, Shard) and p.dim == 3
+                    else Replicate() for p in pool_pl)
+
+    def fn(qs, ks, vs, kp, vp):
+        return write_and_attend(qs, ks, vs, kp, vp, layer, page, off,
+                                page_tables, kv_lens, q_lens)
+
+    mapped = local_map(fn, out_placements=list(head_pl),
+                       in_placements=(head_pl, head_pl, head_pl, pool_pl,
+                                      pool_pl),
+                       device_mesh=mesh, redistribute_inputs=True)
+    return mapped(q, k, v, k_pool, v_pool)
 
 
 def conv_bn_relu(mesh, x, w, scale, shift, stride: int, padding: int,

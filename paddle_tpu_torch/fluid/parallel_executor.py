@@ -404,12 +404,6 @@ class ParallelExecutor:
                               (int(s) for s in mesh.shape)))
         self._plan = sharding_plan or ShardingPlan(
             batch_axis=mesh.mesh_dim_names[0])
-        if (getattr(self._plan, "seq_axis", None)
-                and self._plan.seq_axis in self._axes):
-            raise NotImplementedError(
-                f"sequence parallelism over mesh axis "
-                f"'{self._plan.seq_axis}' is not ported yet (the next "
-                "slice: parallel/sequence_parallel.py)")
         self._rank_device = _rank_device(self.device)
         note_mesh(mesh, label="parallel_executor")
         self._scope = (share_vars_from._scope if share_vars_from is not None
@@ -578,7 +572,8 @@ class ParallelExecutor:
         with contextlib.ExitStack() as stack:
             for p in probes:
                 stack.enter_context(p)
-            stack.enter_context(mesh_context(self._mesh))
+            stack.enter_context(mesh_context(
+                self._mesh, getattr(self._plan, "seq_axis", None)))
             stack.enter_context(implicit_replication())
             for io, seg, plan in segments:
                 if io:

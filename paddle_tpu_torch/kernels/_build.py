@@ -41,8 +41,10 @@ _SIGNATURES = {
     "paged_attention": {
         # q, k_pages, v_pages, tables, kv_lens, q_lens, part_ml,
         # part_acc, out, B, C, Hq, Hkv, D, page_size, W, split, n_splits,
-        # scale, stream (launches the split kernel and the merge kernel)
-        "paged_attention_f32": ([_P] * 9 + [_I] * 9 + [_F, _P], _I),
+        # q_bf16, scale, stream (launches the split kernel and the merge
+        # kernel); float32 pools, or bfloat16 ones
+        "paged_attention_f32": ([_P] * 9 + [_I] * 10 + [_F, _P], _I),
+        "paged_attention_bf16": ([_P] * 9 + [_I] * 10 + [_F, _P], _I),
         "error_string": ([_I], ctypes.c_char_p),
     },
     "layer_norm": {

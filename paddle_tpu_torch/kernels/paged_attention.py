@@ -31,8 +31,9 @@ Two implementations of the same function:
     ``k_pages[tables]``, repeat for GQA, mask, dense softmax. The CPU
     tests run it, and ``chip_smoke.py`` holds the kernel against it.
   - ``_paged_attention_cuda`` — the hand-written Hopper kernels in
-    ``paddle_tpu_torch/csrc/paged_attention.cu`` (f32 only, any
-    head_dim; above 256 on a CUDA-core path whose blocks each compute
+    ``paddle_tpu_torch/csrc/paged_attention.cu`` (float32 or bfloat16
+    pages, widened to float32 as they load; float32 or bfloat16 q, the
+    output in q's dtype; float32 arithmetic; any head_dim; above 256 on a CUDA-core path whose blocks each compute
     one 256-column slice of the output), built by ``nvcc`` at first use
     and bound with ``ctypes``: split-K over each slot's keys in fixed splits of
     ``SPLIT_KEYS`` (a partial softmax state per split, into a scratch
@@ -42,9 +43,10 @@ Two implementations of the same function:
 
 ``paged_attention`` routes on the tensor's device ONLY: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
-``counts`` tallies both (``kernel_launches[KERNEL]`` once per launch,
-``plain_calls[KERNEL]`` once per plain-version call through the router)
-so a run can show that its main path went through the kernel.
+``counts`` tallies both (``kernel_launches[name]`` once per launch,
+``plain_calls[name]`` once per plain-version call through the router,
+``name`` ``KERNEL`` for float32 pages and ``KERNEL_BF16`` for bfloat16
+pages) so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -62,10 +64,26 @@ NEG_INF = -1e30
 SPLIT_KEYS = 256  # chosen by k4_splits.py on an H100 (PERF.md)
 
 __all__ = ["paged_attention", "paged_attention_reference", "counts",
-           "KERNEL", "NEG_INF", "SPLIT_KEYS", "n_splits"]
+           "KERNEL", "KERNEL_BF16", "NEG_INF", "SPLIT_KEYS", "n_splits",
+           "kernel_of"]
 
 KERNEL = "paged_attention_f32"
-counts = LaunchCounts(KERNEL)
+KERNEL_BF16 = "paged_attention_bf16"
+counts = LaunchCounts(KERNEL, KERNEL_BF16)
+
+# the pools' dtypes the kernels take, by kernel name; q and the output
+# are float32 or bfloat16 with either
+_PAGE_KERNELS = {torch.float32: KERNEL, torch.bfloat16: KERNEL_BF16}
+
+
+def kernel_of(k_pages) -> str:
+    """The kernel (and counts entry) that serves pools of this dtype;
+    raises naming any other dtype."""
+    try:
+        return _PAGE_KERNELS[k_pages.dtype]
+    except KeyError:
+        raise TypeError(f"paged attention takes float32 or bfloat16 "
+                        f"pages, got {k_pages.dtype}") from None
 
 
 def _check_shapes(q, k_pages, v_pages, page_tables, kv_lens, q_lens):
@@ -114,8 +132,9 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, kv_lens,
                               *, q_lens=None,
                               scale: Optional[float] = None):
     """The plain version: gather the pages, mask causally past each
-    query's visibility limit, dense softmax. Same signature and
-    semantics as the kernel; returns the same rank as ``q``."""
+    query's visibility limit, dense softmax in float32 (bf16 pages and
+    q widened first). Same signature and semantics as the kernel;
+    returns the same rank and dtype as ``q``."""
     b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
                                             page_tables, kv_lens, q_lens)
     squeeze = q.ndim == 3
@@ -162,9 +181,10 @@ def n_splits(table_width: int, page_size: int) -> int:
 def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
                           *, q_lens=None, scale: Optional[float] = None):
     """Launch the hand-written kernels. Raises on what they do not take:
-    a non-CUDA or mixed device, a dtype other than float32, a
-    non-contiguous q or pool. Reads no device value on the host (no
-    sync)."""
+    a non-CUDA or mixed device, pools other than float32 or bfloat16
+    (or K and V of two dtypes), q other than float32 or bfloat16, a
+    non-contiguous or misaligned q or pool. Reads no device value on the
+    host (no sync)."""
     from ._build import launch
 
     b, c, hq, d, ps, hkv, w = _check_shapes(q, k_pages, v_pages,
@@ -177,30 +197,40 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
                     ("q_lens", q_lens)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    kernel = kernel_of(k_pages)
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"paged attention takes k_pages and v_pages of one "
+                        f"dtype, got {k_pages.dtype} and {v_pages.dtype}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"paged attention kernel takes float32 or bfloat16 "
+                        f"q, got {q.dtype}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"paged attention kernel takes float32 {name}, "
-                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"paged attention kernel needs a contiguous "
                              f"{name}")
+        # rows of 4-column units load as one 16-byte (float32) or 8-byte
+        # (bfloat16) access when head_dim % 4 == 0
+        if d % 4 == 0 and t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"paged attention kernel needs {name} aligned "
+                             f"to {4 * t.element_size()} bytes")
     scale = float(scale) if scale else d ** -0.5
     # index vectors as contiguous int32 (the engine already hands them
     # over so; other callers pay one small conversion)
     tables = page_tables.to(torch.int32).contiguous()
     kv_l = kv_lens.to(torch.int32).contiguous()
     q_l = q_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, c, hq, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, c, hq, d), dtype=q.dtype, device=dev)
     # one scratch for each split's partial of every output row: (m, l)
     # pairs, then acc[D] rows; only the splits a row sees are written
     ns = n_splits(w, ps)
     rows = ns * b * c * hq
     scratch = torch.empty(rows * (2 + d), dtype=torch.float32, device=dev)
-    launch("paged_attention", KERNEL, dev, q.data_ptr(), k_pages.data_ptr(),
+    launch("paged_attention", kernel, dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), tables.data_ptr(), kv_l.data_ptr(),
            q_l.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * rows,
-           out.data_ptr(), b, c, hq, hkv, d, ps, w, SPLIT_KEYS, ns, scale)
-    counts.kernel_launches[KERNEL] += 1
+           out.data_ptr(), b, c, hq, hkv, d, ps, w, SPLIT_KEYS, ns,
+           int(q.dtype == torch.bfloat16), scale)
+    counts.kernel_launches[kernel] += 1
     return out[:, 0] if squeeze else out
 
 
@@ -212,7 +242,8 @@ def paged_attention(q, k_pages, v_pages, page_tables, kv_lens,
     slot) or ``[B, C, Hq, D]`` with ``q_lens`` (a prefill chunk per
     slot, causal within the chunk)."""
     if q.device.type == "cpu":
-        counts.plain_calls[KERNEL] += 1
+        counts.plain_calls[KERNEL_BF16 if k_pages.dtype == torch.bfloat16
+                           else KERNEL] += 1
         return paged_attention_reference(q, k_pages, v_pages, page_tables,
                                          kv_lens, q_lens=q_lens,
                                          scale=scale)

@@ -11,8 +11,8 @@ sharding as one serializable object pair, on ``torch.distributed``
     round-tripping;
   - stock rule sets: ``transformer_rules()`` (dp x tp x fsdp training
     over the Fluid Transformer's param names), ``decoder_rules()``
-    (tensor-parallel rules over the serving decoder's param tree; the
-    port's mesh-sharded decode comes with the next slice);
+    (tensor-parallel rules over the serving decoder's param tree, which
+    ``DecodeEngine(mesh=)`` serves on);
   - observability (``observe.py``): mesh gauges, per-collective-kind
     counters, ``mesh_status()``.
 

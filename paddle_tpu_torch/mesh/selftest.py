@@ -1,14 +1,18 @@
 """Mesh selftest (``python -m paddle_tpu_torch.mesh --selftest``): proves
-the layer's core promises without pytest — spec/rules round-trips, and in
-a spawned gloo world of 8 CPU ranks (a torch process drives one device)
-a sharded train step on dp=2 x tp=2 x fsdp=2 matching the single-device
+the layer's core promises without pytest — spec/rules round-trips; in a
+spawned gloo world of 8 CPU ranks (a torch process drives one device) a
+sharded train step on dp=2 x tp=2 x fsdp=2 matching the single-device
 step, with the weight sharded by its rule, collectives counted and the
-mesh in ``mesh_status()``. The JAX selftest's decode and sharded
-checkpoint cases come with the port's mesh-sharded decode (next slice).
+mesh in ``mesh_status()``; in a world of 2, a tp=2 decode engine serving
+the single-device engine's tokens with half the kv heads a rank, and the
+indivisible-kv-heads refusal; a decoder checkpoint written sharded over
+tp=2, loaded whole and shard by shard, a corrupt shard named. The JAX
+selftest's ``/statusz`` case waits for the port's debug server.
 """
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 
 import numpy as np
@@ -166,10 +170,124 @@ def _case_sharded_train_parity():
         {"dp": 2, "tp": 2, "fsdp": 2}, r["meshes"]
 
 
+def _decode_rank_main(rank, path, out_path):
+    """One rank of the sharded-decode case: rank 0 generates on tp=2 and
+    on one device; every rank records its pool's local kv heads."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{path}",
+                            rank=rank, world_size=2)
+    try:
+        from ..serving.decode import DecodeEngine, DecoderSpec
+
+        spec = DecoderSpec(vocab=32, d_model=32, n_heads=4, n_kv_heads=4,
+                           n_layers=1)
+        kw = dict(slots=[1], num_pages=16, page_size=4, max_seq_len=16,
+                  device="cpu")
+        e1 = DecodeEngine(spec, name="st-mesh", mesh="tp=2", **kw)
+        result = {"local_heads": int(e1.cache.local_pools()[0].shape[3])}
+        try:
+            if rank == 0:
+                result["out"] = e1.generate([3, 5, 7], max_new_tokens=5)
+                result["out2"] = e1.generate([1, 2], max_new_tokens=4)
+                result["mesh"] = e1.stats()["mesh"]
+        finally:
+            e1.stop(drain=True)
+        if rank == 0:
+            e0 = DecodeEngine(spec, name="st-ref", mesh="", **kw)
+            result["ref"] = e0.generate([3, 5, 7], max_new_tokens=5)
+            e0.stop(drain=True)
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _case_sharded_decode():
+    """A tp=2 engine (2 gloo CPU ranks) serves the single-device engine's
+    tokens with half the kv heads a rank; indivisible kv heads are
+    refused."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from ..serving.decode import DecodeEngine, DecoderSpec
+
+    d = tempfile.mkdtemp(prefix="mesh_selftest_decode_")
+    out = os.path.join(d, "result.json")
+    try:
+        ctx = mp.spawn(_decode_rank_main,
+                       args=(os.path.join(d, "store"), out), nprocs=2,
+                       join=False)
+        join_world(ctx, 300)
+        rs = []
+        for r in range(2):
+            with open(f"{out}.{r}") as f:
+                rs.append(json.load(f))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    r0 = rs[0]
+    assert r0["out"]["tokens"] == r0["ref"]["tokens"], (r0["out"], r0["ref"])
+    assert r0["out2"]["tokens"]
+    assert r0["mesh"] == {"tp": 2}
+    assert [r["local_heads"] for r in rs] == [2, 2]
+    try:
+        DecodeEngine(DecoderSpec(vocab=32, d_model=48, n_heads=6,
+                                 n_kv_heads=3, n_layers=1),
+                     name="st-bad", mesh="tp=2", warm=False, device="cpu")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("indivisible kv heads not refused")
+
+
+def _case_sharded_checkpoint():
+    from ..checkpoint import (CheckpointCorruptError,
+                              load_decoder_checkpoint,
+                              load_sharded_checkpoint,
+                              save_decoder_checkpoint)
+    from ..serving.decode import DecoderSpec, build_decoder_params
+
+    spec = DecoderSpec(vocab=32, d_model=32, n_heads=4, n_kv_heads=4,
+                       n_layers=1)
+    params = build_decoder_params(spec, device="cpu")
+    d = tempfile.mkdtemp(prefix="mesh_selftest_ck_")
+    try:
+        save_decoder_checkpoint(d, spec, params, mesh_axes="tp=2",
+                                shard_axis="tp")
+        shard_files = [n for n in os.listdir(d) if ".s" in n]
+        assert len(shard_files) == 2, shard_files
+        _, loaded = load_decoder_checkpoint(d, device="cpu")
+        want = params["layer0"]["wk"].numpy()
+        assert np.array_equal(loaded["layer0"]["wk"].numpy(), want)
+        tree1, _ = load_sharded_checkpoint(d, shard=1)
+        assert np.array_equal(np.asarray(tree1["layer0"]["wk"]),
+                              want[:, want.shape[1] // 2:])
+        victim = os.path.join(
+            d, [n for n in shard_files if ".s1." in n][0])
+        with open(victim, "r+b") as f:
+            f.seek(80)
+            f.write(b"\xff\xfe\xfd")
+        try:
+            load_decoder_checkpoint(d, device="cpu")
+        except CheckpointCorruptError as e:
+            assert e.tensor and ".s1." in str(e), e
+        else:
+            raise AssertionError("corrupt shard not named")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 CASES = [
     ("spec_roundtrip", _case_spec_roundtrip),
     ("rules", _case_rules),
     ("sharded_train_parity", _case_sharded_train_parity),
+    ("sharded_decode", _case_sharded_decode),
+    ("sharded_checkpoint", _case_sharded_checkpoint),
 ]
 
 

@@ -384,10 +384,12 @@ def _tree_map_named(tree, fn, prefix: str = ""):
     return fn(prefix[:-1] if prefix.endswith("/") else prefix, tree)
 
 
-def shard_param_tree(tree, mesh, rules: ShardingRules):
-    """``distribute_tensor`` (from rank 0) every leaf of a param tree per
-    its name-matched rule over ``mesh`` (a ``DeviceMesh`` with dim
-    names). Indivisible dims replicate when ``rules.best_effort`` (else a
+def shard_param_tree(tree, mesh, rules: ShardingRules,
+                     src_data_rank: Optional[int] = 0):
+    """``distribute_tensor`` (from rank ``src_data_rank``; None: each rank
+    cuts its shards from its own copy, no collective) every leaf of a
+    param tree per its name-matched rule over ``mesh`` (a ``DeviceMesh``
+    with dim names). Indivisible dims replicate when ``rules.best_effort`` (else a
     typed error naming the tensor) — the ParallelExecutor divisibility
     discipline applied to param trees. Returns the same tree structure
     with DTensors on the mesh's device type."""
@@ -424,6 +426,6 @@ def shard_param_tree(tree, mesh, rules: ShardingRules):
             spec = P()
         return distribute_tensor(t.to(mesh.device_type), mesh,
                                  spec_to_placements(spec, names),
-                                 src_data_rank=0)
+                                 src_data_rank=src_data_rank)
 
     return _tree_map_named(tree, put)

@@ -11,7 +11,8 @@ the hidden axis (tensor parallel), feeds on batch (data parallel) — see
 attention is the fused ``ring_attention`` op (the K2/K3 kernels on a
 card); the decoder's self-attention is causal through the op, and under a
 ParallelExecutor mesh the op keeps batch on ``dp`` and heads on
-``tp_axis``. With ``recompute=True`` each encoder and decoder layer is one
+``tp_axis``; a mesh with ``sp_axis`` under ``plan_sequence_parallel()``
+shards the sequence too and runs ring or Ulysses attention. With ``recompute=True`` each encoder and decoder layer is one
 ``Recompute`` region (its activations rebuilt in backward).
 """
 from __future__ import annotations
@@ -36,10 +37,11 @@ class TransformerConfig:
     n_layers: int = 2
     dropout: float = 0.1
     is_test: bool = False
-    # fused attention: the ring_attention op (flash attention; its
-    # sequence-sharded form over `sp_axis` of a mesh comes with the next
-    # slice). Attention-prob dropout is skipped in this mode (flash
-    # attention never materializes the probs).
+    # fused attention: the ring_attention op (flash attention; under a
+    # mesh holding `sp_axis` — plan_sequence_parallel() — ring or Ulysses
+    # sequence parallelism by `sp_impl`). Attention-prob dropout is
+    # skipped in this mode (flash attention never materializes the
+    # probs).
     seq_parallel: bool = False
     sp_impl: str = "ring"
     sp_axis: str = "sp"

@@ -86,14 +86,24 @@ def current_mesh():
     return getattr(_mesh_tls, "mesh", None)
 
 
+def current_seq_axis():
+    """The sequence axis of the active run's plan when its mesh holds it
+    (feeds split on ``[batch, seq]``), else None."""
+    mesh = current_mesh()
+    axis = getattr(_mesh_tls, "seq_axis", None)
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()):
+        return None
+    return axis
+
+
 @contextlib.contextmanager
-def mesh_context(mesh):
-    prev = current_mesh()
-    _mesh_tls.mesh = mesh
+def mesh_context(mesh, seq_axis=None):
+    prev = current_mesh(), getattr(_mesh_tls, "seq_axis", None)
+    _mesh_tls.mesh, _mesh_tls.seq_axis = mesh, seq_axis
     try:
         yield mesh
     finally:
-        _mesh_tls.mesh = prev
+        _mesh_tls.mesh, _mesh_tls.seq_axis = prev
 
 
 def make_mesh(axes: Dict[str, int], devices=None):
@@ -230,7 +240,7 @@ def plan_fsdp(batch_axis: str = "dp", shard_axis: Optional[str] = None
 def plan_sequence_parallel(batch_axis: str = "dp",
                            seq_axis: str = "sp") -> ShardingPlan:
     """Context parallelism: feeds shard on [batch, seq]; params replicated.
-    Attention itself must use a sequence-parallel op (ring/ulysses). The
-    port's sequence parallelism comes with the next slice: a
-    ParallelExecutor run under this plan raises."""
+    Attention itself must use a sequence-parallel op (``ring_attention``
+    with ``impl`` ring or ulysses, ``parallel/sequence_parallel.py``);
+    pointwise and fc layers run on the sequence shards under DTensor."""
     return ShardingPlan(batch_axis=batch_axis, seq_axis=seq_axis)

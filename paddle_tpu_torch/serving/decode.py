@@ -57,8 +57,19 @@ runs prompt-only requests through the chunked prefill in slots of its
 own — mean-pooled final hidden states and per-token logprobs, no decode
 slot taken.
 
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-mesh-sharded serving and the autotuned ``"auto"`` ladders.
+MESH-SHARDED serving (``mesh="tp=2"``, or ``FLAGS['serving_mesh_axes']``):
+one engine spans the process group's ranks. Parameters shard per
+``mesh.decoder_rules`` (DTensors), the paged pool over the kv-head axis,
+K4 runs through ``local_map`` on each rank's kv heads
+(``fluid/ops/mesh_ops.paged_attention``), logits come back replicated.
+Every rank builds the same engine; rank 0 takes the requests and its
+scheduler drives every rank in lockstep (``lockstep.py``). Every engine
+feature runs sharded: chunked prefill, prefix caching, preemption,
+speculation (the draft shards under the same rules), the typed workloads
+and the embed lane.
+
+Not ported yet: the autotuned ``"auto"`` ladders (``NotImplementedError``
+naming the autotune layer).
 
 Lifecycle mirrors the JAX engine so the SAME ModelRegistry hot-swaps
 decoders: ``stop(drain=True)`` finishes every admitted sequence then
@@ -70,6 +81,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -86,6 +98,7 @@ from .engine import bucket_for as _bucket_for, resolve_bucket_spec
 from .errors import (DeadlineExceeded, EngineRetired, RequestTooLarge,
                      ServerOverloaded, ServingError)
 from .kv_cache import GARBAGE_PAGE, HostSpillStore, PagedKvCache
+from .lockstep import Lockstep, lockstep_for
 
 __all__ = ["DecoderSpec", "DecodeEngine", "build_decoder_params",
            "params_from_jax", "decoder_step", "decoder_step_chunked",
@@ -322,15 +335,44 @@ def decoder_step_chunked(params, spec: DecoderSpec, tokens, positions,
     (the speculative-verify form) and ``return_hidden=True`` (requires
     ``all_lanes``) also the final-norm hidden states ``[B, C, d_model]``
     (the embedding/scoring form)."""
+    mesh = _pool_mesh(k_pool)
+    if mesh is None:
+        return _step_body(params, spec, tokens, positions, q_lens, k_pool,
+                          v_pool, page_tables, kv_lens, all_lanes,
+                          return_hidden, None)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    # DTensor params and pools: the host-side index tensors join as
+    # replicated operands; logits and hidden states come back whole
+    with implicit_replication(), warnings.catch_warnings():
+        # the one-slot batch's [1] index tensors replicate as any other
+        warnings.filterwarnings("ignore", message="Found a non-scalar")
+        out = _step_body(params, spec, tokens, positions, q_lens, k_pool,
+                         v_pool, page_tables, kv_lens, all_lanes,
+                         return_hidden, mesh)
+    return out[:2] + tuple(t.full_tensor() for t in out[2:])
+
+
+def _pool_mesh(pool):
+    """The ``DeviceMesh`` of a sharded (DTensor) pool, else None."""
+    from torch.distributed.tensor import DTensor
+
+    return pool.device_mesh if isinstance(pool, DTensor) else None
+
+
+def _step_body(params, spec, tokens, positions, q_lens, k_pool, v_pool,
+               page_tables, kv_lens, all_lanes, return_hidden, mesh):
     b, c = tokens.shape
     ps = k_pool.shape[2]
     dm, dh = spec.d_model, spec.head_dim
-    dev = k_pool.device
+    dev = tokens.device
     tokens = tokens.long()
     positions = positions.long()
     lane = torch.arange(c, device=dev)[None, :]            # [1, C]
     valid = lane < q_lens.long()[:, None]                  # [B, C]
-    x = params["tok_emb"][tokens] * math.sqrt(dm) + \
+    # F.embedding: the same rows as indexing, and DTensor's vocab-row
+    # sharded lookup under a mesh
+    x = F.embedding(tokens, params["tok_emb"]) * math.sqrt(dm) + \
         _pos_encoding(positions.reshape(-1), dm).reshape(b, c, dm)
     page_idx = positions // ps
     # each lane's physical page: its slot's table row at the token's
@@ -349,11 +391,17 @@ def decoder_step_chunked(params, spec: DecoderSpec, tokens, positions,
         v = (h @ lp["wv"]).reshape(b, c, spec.n_kv_heads, dh)
         # write the whole chunk's K/V, THEN attend: within the chunk,
         # query j sees keys i <= j of the same chunk. In place on the
-        # pool (duplicate writes only ever hit the garbage page)
-        k_pool[l].index_put_((page, off), k.to(k_pool.dtype))
-        v_pool[l].index_put_((page, off), v.to(v_pool.dtype))
-        attn = paged_attention(q, k_pool[l], v_pool[l], page_tables,
-                               kv_lens, q_lens=q_lens)
+        # pool (duplicate writes only ever hit the garbage page); under
+        # a mesh each rank writes and reads its own kv heads
+        if mesh is None:
+            attn = write_and_attend(q, k, v, k_pool, v_pool, l, page, off,
+                                    page_tables, kv_lens, q_lens)
+        else:
+            from ..fluid.ops import mesh_ops
+
+            attn = mesh_ops.paged_attention(
+                mesh, q, k, v, k_pool, v_pool, l, page, off, page_tables,
+                kv_lens, q_lens)
         x = x + attn.reshape(b, c, spec.n_heads * dh) @ lp["wo"]
         h2 = _ln(x, lp["ln2"])
         # jax.nn.gelu's default is the tanh approximation
@@ -370,6 +418,17 @@ def decoder_step_chunked(params, spec: DecoderSpec, tokens, positions,
     x_last = x[torch.arange(b, device=dev), last]             # [B, dm]
     logits = _ln(x_last, params["lnf"]) @ params["tok_emb"].T
     return k_pool, v_pool, logits
+
+
+def write_and_attend(q, k, v, k_pool, v_pool, layer, page, off,
+                     page_tables, kv_lens, q_lens):
+    """One layer's pool write and K4: the chunk's K/V rows into pages
+    ``page`` at offsets ``off`` of layer ``layer`` (cast to the pool's
+    dtype), then ragged paged attention of ``q`` through the tables."""
+    k_pool[layer].index_put_((page, off), k.to(k_pool.dtype))
+    v_pool[layer].index_put_((page, off), v.to(v_pool.dtype))
+    return paged_attention(q, k_pool[layer], v_pool[layer], page_tables,
+                           kv_lens, q_lens=q_lens)
 
 
 def decoder_step(params, spec: DecoderSpec, tokens, positions,
@@ -623,23 +682,51 @@ class DecodeEngine:
                  draft_params: Optional[Dict[str, Any]] = None,
                  spec_k: Optional[int] = None,
                  mesh: Optional[Any] = None,
+                 mesh_rules: Optional[Any] = None,
                  embeddings: bool = False,
                  warm: bool = True,
                  device=None):
-        if mesh:
-            raise NotImplementedError(
-                "mesh-sharded decode serving is not ported to "
-                "paddle_tpu_torch yet — it comes with the mesh and "
-                "parallel slice")
         self.device = resolve_device(device)
         self.name = str(name)
         self.version = int(version)
         self.spec = spec
+        # mesh-sharded serving: one replica SPANS the process group's
+        # ranks. `mesh` is a MeshSpec / axes dict / "tp=2" string (None
+        # reads FLAGS['serving_mesh_axes']; '' = one device). Params
+        # shard per name-matched `mesh_rules` (default
+        # mesh.decoder_rules) and the paged KV pool over the kv-head axis
+        # — the axis the wk/wv rules put on their column dim. Rank 0
+        # leads; the other ranks replay its device operations
+        mesh_arg = FLAGS["serving_mesh_axes"] if mesh is None else mesh
+        self._mesh_spec = None
+        self._mesh = None
+        self._mesh_rules = None
+        self._kv_head_axes = None
+        self._lockstep: Optional[Lockstep] = None
+        if mesh_arg:
+            from ..fluid.parallel_executor import _rank_device
+            from ..mesh import (MeshSpec, ShardingRules, decoder_rules,
+                                note_mesh)
+
+            self._mesh_spec = MeshSpec.coerce(mesh_arg)
+            rules = ShardingRules.coerce(mesh_rules,
+                                         default=decoder_rules)
+            self._mesh_rules = rules
+            self._kv_head_axes = self._kv_pool_axes(rules)
+            self._check_kv_divisible("target", spec)
+            if isinstance(draft_spec, dict):
+                draft_spec = DecoderSpec.from_dict(draft_spec)
+            if draft_spec is not None:
+                self._check_kv_divisible("draft", draft_spec)
+            self._lockstep = lockstep_for(self._mesh_spec, self.device)
+            self._mesh = self._lockstep.mesh
+            self.device = _rank_device(self.device)
+            note_mesh(self._mesh, label=f"decode:{name}.v{version}")
         # shares _step_mu with the step + shape set: the lock serializes
         # every pool touch against retirement's drop
-        self._params = (build_decoder_params(spec, self.device)
-                        if params is None
-                        else _params_to(params, self.device))  # guarded-by: _step_mu
+        self._params = self._place_params(
+            build_decoder_params(spec, self.device) if params is None
+            else params)  # guarded-by: _step_mu
         self._slot_ladder = resolve_bucket_spec(
             FLAGS["decode_slots"] if slots is None else slots,
             tunable_id="decode_slots", fallback="1,2,4")
@@ -670,7 +757,8 @@ class DecodeEngine:
             spec.n_layers, spec.n_kv_heads, spec.head_dim,
             page_size=ps, num_pages=npages,
             label=f"{self.name}.v{self.version}",
-            prefix_cache=self._prefix_on, device=self.device)
+            prefix_cache=self._prefix_on, mesh=self._mesh,
+            shard_spec=self._pool_spec(), device=self.device)
         # host refuge for preempted sequences' pages (kv_spill_dir
         # moves it to disk); cleared at retirement — leaks nothing
         self._spill = HostSpillStore(
@@ -715,15 +803,15 @@ class DecodeEngine:
             # draft calls: C=1 singles, a <= 2-lane catch-up chunk after
             # a fully-accepted round, and the prefill chunks it shadows
             self._draft_chunk_ladder = sorted({1, 2, self._prefill_chunk})
-            self._draft_params = (
+            self._draft_params = self._place_params(
                 build_decoder_params(draft_spec, self.device)
                 if draft_params is None
-                else _params_to(draft_params,
-                                self.device))  # guarded-by: _step_mu
+                else draft_params)  # guarded-by: _step_mu
             self._draft_cache = PagedKvCache(
                 draft_spec.n_layers, draft_spec.n_kv_heads,
                 draft_spec.head_dim, page_size=ps, num_pages=npages,
-                allocator=self.cache.allocator,
+                allocator=self.cache.allocator, mesh=self._mesh,
+                shard_spec=self._pool_spec(),
                 device=self.device)  # guarded-by: _step_mu
         else:
             self._verify_lanes = 0
@@ -758,11 +846,19 @@ class DecodeEngine:
         # scheduler thread): every pool read/write must be atomic with
         # respect to the other
         self._step_mu = threading.Lock()
+        # the leader's spill drops not yet sent to the followers
+        self._follower_drops: List[int] = []  # guarded-by: _cond
+        # a follower rank: no scheduler; the mesh's replay thread runs the
+        # leader's operations until its stop sets this
+        self._replayed_stop = threading.Event()
+        follower = self._lockstep is not None and not self._lockstep.leader
+        self._eid = (self._lockstep.register(self)
+                     if self._lockstep is not None else None)
         self._thread = threading.Thread(
-            target=self._loop, daemon=True,
-            name=f"decode-{self.name}-v{self.version}")
+            target=self._replayed_stop.wait if follower else self._loop,
+            daemon=True, name=f"decode-{self.name}-v{self.version}")
         self._thread.start()
-        if warm:
+        if warm and not follower:
             try:
                 self.warm()
             except BaseException:
@@ -791,6 +887,131 @@ class DecodeEngine:
     def prefix_cache_enabled(self) -> bool:
         return self._prefix_on
 
+    @property
+    def mesh_spec(self):
+        """The MeshSpec this engine spans (None = one device)."""
+        return self._mesh_spec
+
+    @property
+    def is_follower(self) -> bool:
+        """True on a rank other than 0 of a sharded engine: it takes no
+        requests and replays rank 0's device operations."""
+        return self._lockstep is not None and not self._lockstep.leader
+
+    def _place_params(self, tree):
+        """A parameter tree on this engine's device: sharded per the
+        mesh rules (each rank cuts its shards from its own copy — every
+        rank builds the same tree — so no collective runs), else moved
+        whole."""
+        tree = _params_to(tree, self.device)
+        if self._mesh is None:
+            return tree
+        from ..mesh import shard_param_tree
+
+        return shard_param_tree(tree, self._mesh, self._mesh_rules,
+                                src_data_rank=None)
+
+    @staticmethod
+    def _kv_pool_axes(rules):
+        """The mesh axes sharding the KV-HEAD dim of the paged pool:
+        whatever the rules put on the COLUMN dim of the K projection
+        (wk's columns reshape to [kv_heads, head_dim], so a tp-sharded
+        wk writes tp-sharded kv heads — the pool must shard the same
+        way or every step pays a reshard)."""
+        spec = tuple(rules.spec_for("layer0/wk", 2))
+        entry = spec[1] if len(spec) > 1 else None
+        if entry is None:
+            return None
+        return tuple(entry) if isinstance(entry, (tuple, list)) \
+            else (str(entry),)
+
+    def _kv_shard_degree(self) -> int:
+        if not self._kv_head_axes:
+            return 1
+        for a in self._kv_head_axes:
+            # typed here: axis_size would KeyError from deep inside
+            # construction, breaking the ValueError discipline every
+            # other load_decoder misconfiguration follows
+            if a not in self._mesh_spec:
+                raise ValueError(
+                    f"decoder rules shard kv heads over axis {a!r}, "
+                    f"which mesh {self._mesh_spec} does not have — add "
+                    "the axis or pass matching mesh_rules")
+        return int(np.prod([self._mesh_spec.axis_size(a)
+                            for a in self._kv_head_axes]))
+
+    def _check_kv_divisible(self, what: str, spec: DecoderSpec):
+        deg = self._kv_shard_degree()
+        if deg > 1 and spec.n_kv_heads % deg:
+            raise ValueError(
+                f"{what} decoder has {spec.n_kv_heads} kv heads, not "
+                f"divisible by the mesh kv-head shard degree {deg} "
+                f"(axes {self._kv_head_axes} of {self._mesh_spec}) — "
+                "resize the mesh or the model's kv heads")
+
+    def _pool_spec(self):
+        """PartitionSpec of the paged pools ([layers, pages, page_size,
+        kv_heads, head_dim] — kv-head axis sharded, the rest
+        replicated); None when unsharded."""
+        if self._mesh is None:
+            return None
+        from ..parallel.api import PartitionSpec
+
+        ax = self._kv_head_axes
+        return PartitionSpec(
+            None, None, None,
+            (ax if ax is None or len(ax) > 1 else ax[0]), None)
+
+    def _device_op(self, op: str, payload: Any, run):
+        """Run a device operation. On the leader of a sharded engine it is
+        announced to every follower first, with the step count and the
+        spill drops since the last message, both under the mesh's lock
+        (``lockstep.py``); elsewhere it simply runs."""
+        if self._lockstep is None or not self._lockstep.leader:
+            return run()
+        with self._cond:
+            drops, self._follower_drops = self._follower_drops, []
+            steps = self._n_steps
+        return self._lockstep.issue(self._eid, op, payload, steps, drops,
+                                    run)
+
+    def _replay(self, op: str, payload: Any, steps: int, drops):
+        """A follower's half: one operation the leader announced, run on
+        this rank's shards (called by the mesh's replay thread)."""
+        with self._cond:
+            # the leader's scheduler-step count, so this rank's
+            # serving.decode.steps tracks the leader's
+            if steps > self._n_steps:
+                _m_steps.inc(steps - self._n_steps)
+                self._n_steps = steps
+        try:
+            if op == "run":
+                family, arrays, step_kw = payload
+                self._run(family, arrays, **step_kw)
+            elif op == "pages":
+                cows, restores = payload
+                with self._step_mu:
+                    self._move_pages(cows, [
+                        (pages, self._spill.pop(seq_id))
+                        for seq_id, pages in restores])
+            elif op == "spill":
+                seq_id, pages = payload
+                self._spill.put(seq_id, *self._gather_spill(pages))
+        except BaseException as e:  # the leader fails the slots
+            _log.error("decode follower %s v%d: %s failed: %s: %s",
+                       self.name, self.version, op, type(e).__name__, e)
+        for seq_id in drops:
+            self._spill.drop(seq_id)
+        if op == "stop":
+            self._replayed_stop.set()
+
+    def _refuse_follower(self):
+        if self.is_follower:
+            raise ServingError(
+                f"decoder '{self.name}' v{self.version} on rank "
+                f"{self._lockstep.rank} follows rank 0's scheduler: "
+                "requests go to rank 0")
+
     def warm(self):
         """Run EVERY (slot-count, table-width, chunk) triple once on an
         all-dead synthetic batch (writes land on the garbage page): the
@@ -798,7 +1019,10 @@ class DecodeEngine:
         loads, the paged-attention library build) happens at load, not
         under traffic. With a draft attached the ``spec_k + 1`` verify
         entry and the draft's own {1, 2, chunk} ladder run too; with the
-        embed lane on, its all-lane + hidden family."""
+        embed lane on, its all-lane + hidden family. A follower rank
+        warms by replaying the leader's warm: here it does nothing."""
+        if self.is_follower:
+            return
         with _tracing.span("serving.decode.warmup", model=self.name,
                            version=self.version):
             for s in self._slot_ladder:
@@ -838,6 +1062,7 @@ class DecodeEngine:
         choice, and the sequence finishes when the automaton has no
         further transition. ``topk_first`` asks for the first generated
         position's top-k token order in the result (``first_topk``)."""
+        self._refuse_follower()
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -968,6 +1193,7 @@ class DecodeEngine:
         the prompt's pages, taken NOW, typed ``ServerOverloaded`` on
         refusal. The request rides the chunked prefill in the embed
         lane and never holds a decode slot."""
+        self._refuse_follower()
         if not self._embed_on:
             raise ServingError(
                 f"decoder '{self.name}' was loaded without "
@@ -1091,7 +1317,9 @@ class DecodeEngine:
         queued sequence first (the hot-swap drain guarantee), else all
         are failed with EngineRetired. Then params and pools (the
         draft's too) are dropped so retirement releases the device
-        memory."""
+        memory. On a follower rank of a sharded engine ``stop`` waits
+        (up to ``timeout``) for the leader's own stop to end the
+        replay, then releases this rank's shards."""
         with self._cond:
             self._stopping = True
             if not drain:
@@ -1113,6 +1341,11 @@ class DecodeEngine:
                 self._g_depth.set(0)
             self._cond.notify_all()
         self._thread.join(timeout)
+        if self._thread.is_alive() and self.is_follower:
+            # the replay still runs on this rank's pools: keep them
+            raise ServingError(
+                f"decoder '{self.name}' v{self.version}: rank 0 did not "
+                f"stop its engine within {timeout:.0f} s")
         if self._thread.is_alive():  # pragma: no cover - wedged scheduler
             _log.error("decode scheduler for %s v%d did not exit in %.0fs",
                        self.name, self.version, timeout)
@@ -1169,6 +1402,8 @@ class DecodeEngine:
                 # shapes); never grows after warm()
                 "compiled_shapes": shapes,
                 "stopping": self._stopping,
+                "mesh": (dict(self._mesh_spec.axes)
+                         if self._mesh_spec is not None else None),
             }
 
     # -- scheduler --------------------------------------------------------
@@ -1195,8 +1430,11 @@ class DecodeEngine:
             # the COW source pin must not outlive the request
             self.cache.allocator.release_cow(req.cow["key"])
             req.cow = None
-        # a preempted request's host spill dies with it
+        # a preempted request's host spill dies with it (the followers'
+        # shares with their next message)
         self._spill.drop(req.seq_id)
+        if self._lockstep is not None:
+            self._follower_drops.append(req.seq_id)
         req.fail(err)
 
     def _drop_expired_locked(self, now: float):
@@ -1305,6 +1543,9 @@ class DecodeEngine:
         while True:
             nxt = self._next_live()
             if nxt is None:
+                # drained (or failed by stop(drain=False)): release the
+                # followers' replay
+                self._device_op("stop", None, lambda: None)
                 return
             live, elive = nxt
             try:
@@ -1331,58 +1572,68 @@ class DecodeEngine:
                     self._g_embed.set(len(self._embed_slots))
                     self._cond.notify_all()
 
-    def _run(self, family: str, counter, params, spec, cache, arrays,
-             **step_kw):
-        """One model call, shared by warm() and live steps: note a
-        DISTINCT shape (tagged with its family whenever a second family
-        exists, as the JAX engine tags its compiled shapes), move the
-        host arrays to the device, run the step (it updates ``cache``'s
-        pools in place) and return what follows the pools: the logits,
-        and with ``return_hidden`` the hidden states."""
-        tokens, positions, q_lens, tables, lens = arrays
+    def _run(self, family: str, arrays, **step_kw):
+        """One model call of ``family`` (target, verify, draft, embed),
+        shared by warm() and live steps: announced to the followers of a
+        sharded engine, then run under the step mutex (``_run_locked``).
+        Returns what follows the pools: the logits, and with
+        ``return_hidden`` the hidden states."""
         with self._step_mu:
-            key = (len(tokens), tables.shape[1], tokens.shape[1])
-            if family != "target" or self._spec_k or self._embed_on:
-                key = (family,) + key
-            if key not in self._step_shapes:
-                self._step_shapes.add(key)
-                _m_compiles.inc()
-            counter.inc()
-            dev = self.device
-            with torch.no_grad():
-                out = decoder_step_chunked(
-                    params, spec, *(torch.from_numpy(a).to(dev) for a in
-                                    (tokens, positions, q_lens)),
-                    cache.k, cache.v, torch.from_numpy(tables).to(dev),
-                    torch.from_numpy(lens).to(dev), **step_kw)
-            cache.rebind(out[0], out[1])
-            return out[2] if len(out) == 3 else out[2:]
+            return self._device_op(
+                "run", (family, arrays, step_kw),
+                lambda: self._run_locked(family, arrays, step_kw))
+
+    def _run_locked(self, family, arrays, step_kw):
+        """Note a DISTINCT shape (tagged with its family whenever a second
+        family exists, as the JAX engine tags its compiled shapes), move
+        the host arrays to the device and run the step (it updates the
+        family's pools in place). Caller holds ``_step_mu``."""
+        counter = _m_draft_steps if family == "draft" else \
+            _m_embed_steps if family == "embed" else _m_target_steps
+        tokens, positions, q_lens, tables, lens = arrays
+        if family == "draft":
+            params, spec, cache = (self._draft_params, self._draft_spec,
+                                   self._draft_cache)
+        else:
+            params, spec, cache = self._params, self.spec, self.cache
+        key = (len(tokens), tables.shape[1], tokens.shape[1])
+        if family != "target" or self._spec_k or self._embed_on:
+            key = (family,) + key
+        if key not in self._step_shapes:
+            self._step_shapes.add(key)
+            _m_compiles.inc()
+        counter.inc()
+        dev = self.device
+        with torch.no_grad():
+            out = decoder_step_chunked(
+                params, spec, *(torch.from_numpy(a).to(dev) for a in
+                                (tokens, positions, q_lens)),
+                cache.k, cache.v, torch.from_numpy(tables).to(dev),
+                torch.from_numpy(lens).to(dev), **step_kw)
+        cache.rebind(out[0], out[1])
+        return out[2] if len(out) == 3 else out[2:]
 
     def _run_step_arrays(self, *arrays):
         """The target's plain/prefill step: newest-lane logits [B, V]."""
-        return self._run("target", _m_target_steps, self._params,
-                         self.spec, self.cache, arrays)
+        return self._run("target", arrays)
 
     def _run_verify_arrays(self, *arrays):
         """The speculative-verify target call: same pools, all-lane
         logits ``[B, C, vocab]`` (C = spec_k + 1). One target step
         scores every proposal plus the bonus position."""
-        return self._run("verify", _m_target_steps, self._params,
-                         self.spec, self.cache, arrays, all_lanes=True)
+        return self._run("verify", arrays, all_lanes=True)
 
     def _run_draft_arrays(self, *arrays):
         """One DRAFT step (propose singles, catch-up chunks, prefill
         shadowing) against the mirrored draft pool — the same page
         tables as the target, newest-lane logits."""
-        return self._run("draft", _m_draft_steps, self._draft_params,
-                         self._draft_spec, self._draft_cache, arrays)
+        return self._run("draft", arrays)
 
     def _run_embed_arrays(self, *arrays):
         """One EMBED step: the all-lane + hidden form against the target
         pool — every lane's logits ``[B, C, vocab]`` (per-token scoring)
         and final-norm hidden states ``[B, C, d_model]`` (pooling)."""
-        return self._run("embed", _m_embed_steps, self._params,
-                         self.spec, self.cache, arrays, all_lanes=True,
+        return self._run("embed", arrays, all_lanes=True,
                          return_hidden=True)
 
     def _prepare(self, live: List[_Slot]
@@ -1394,6 +1645,7 @@ class DecodeEngine:
         Returns the (possibly shrunk) live list and its grants."""
         cows: List[Tuple[int, int]] = []
         restores = []
+        restored: List[Tuple[int, List[int]]] = []
         spills: Dict[int, Any] = {}
         for s in live:
             if s.pending_restore:
@@ -1412,6 +1664,7 @@ class DecodeEngine:
                 if spill is not None:
                     pages = self.cache.allocator.pages_of(s.req.seq_id)
                     restores.append((pages[:spill[0].shape[1]], spill))
+                    restored.append((s.req.seq_id, restores[-1][0]))
                     _m_restores.inc()
                 if s.req.cow is not None:
                     cows.append((s.req.cow["src"], s.req.cow["dst"]))
@@ -1423,16 +1676,10 @@ class DecodeEngine:
                     s.req.cow = None
         if cows or restores:
             with self._step_mu:
-                self.cache.copy_pages(cows)
-                if self._draft_cache is not None:
-                    # the draft pool mirrors every page move: a COW tail
-                    # or restored spill must be valid in BOTH pools
-                    self._draft_cache.copy_pages(cows)
-                for pages, spill in restores:
-                    self.cache.scatter_pages(pages, spill[0], spill[1])
-                    if self._draft_cache is not None and len(spill) == 4:
-                        self._draft_cache.scatter_pages(
-                            pages, spill[2], spill[3])
+                # the followers copy the same pages and restore their own
+                # shares of the spills
+                self._device_op("pages", (cows, restored),
+                                lambda: self._move_pages(cows, restores))
         while True:
             grants = self._grants(live)
             grower = None
@@ -1470,6 +1717,29 @@ class DecodeEngine:
             live = [x for x in live if x is not s]
             if not live:
                 return live, []
+
+    def _move_pages(self, cows, restores):
+        """COW copies and spill restores into both pools (caller holds
+        ``_step_mu``): the draft pool mirrors every page move — a COW
+        tail or restored spill must be valid in BOTH pools."""
+        self.cache.copy_pages(cows)
+        if self._draft_cache is not None:
+            self._draft_cache.copy_pages(cows)
+        for pages, spill in restores:
+            if spill is None:
+                continue
+            self.cache.scatter_pages(pages, spill[0], spill[1])
+            if self._draft_cache is not None and len(spill) == 4:
+                self._draft_cache.scatter_pages(pages, spill[2], spill[3])
+
+    def _gather_spill(self, pages):
+        """A preemption's page contents (caller may not hold
+        ``_step_mu``): ``(k, v)``, plus the mirrored draft pool's."""
+        with self._step_mu:
+            arrays = self.cache.gather_pages(pages)
+            if self._draft_cache is not None:
+                arrays = arrays + self._draft_cache.gather_pages(pages)
+        return arrays
 
     def _reclaim_for_growth(self, grower: _Slot,
                             live: List[_Slot]) -> bool:
@@ -1521,11 +1791,10 @@ class DecodeEngine:
             n_keep = (self.cache.allocator.pages_for_tokens(victim.pos)
                       if victim.pos else 0)
             if n_keep:
-                with self._step_mu:
-                    arrays = self.cache.gather_pages(pages[:n_keep])
-                    if self._draft_cache is not None:
-                        arrays = arrays + self._draft_cache.gather_pages(
-                            pages[:n_keep])
+                # every follower spills its share of the same pages
+                arrays = self._device_op(
+                    "spill", (req.seq_id, pages[:n_keep]),
+                    lambda: self._gather_spill(pages[:n_keep]))
                 # put (disk-backed spills savez) stays outside the
                 # step mutex, same as the pop side in _prepare
                 self._spill.put(req.seq_id, *arrays)
@@ -1537,6 +1806,8 @@ class DecodeEngine:
                     # canceled/stopped while we spilled: nothing will
                     # resume — drop the spill, leak nothing
                     self._spill.drop(req.seq_id)
+                    if self._lockstep is not None:
+                        self._follower_drops.append(req.seq_id)
                 else:
                     req.resume_pos = victim.pos
                     req.resume_dpos = victim.dpos

@@ -845,17 +845,27 @@ class PagedKvCache:
     decode step and the page moves update the two tensors IN PLACE;
     ``rebind`` survives as the shape check a step's result must pass.
 
+    MESH-SHARDED pools (``mesh=`` a ``DeviceMesh``, ``shard_spec=`` a
+    ``PartitionSpec`` over the five dims, the kv-head dim sharded): K
+    and V are DTensors whose every rank holds its kv heads' slice of
+    every page. ``hbm_bytes`` stays the GLOBAL budget, as in the JAX
+    package; ``device_bytes`` is one rank's share. The page moves act on
+    each rank's local slice (the engine replays them on every rank), so
+    a spill holds this rank's heads only.
+
     The page-move helpers (``copy_pages`` for copy-on-write,
     ``gather_pages`` / ``scatter_pages`` for preemption spill/restore)
     are in-place ``index_select`` / ``index_copy_`` on the page axis —
     the ENGINE serializes them with live steps under its step mutex,
-    the same discipline ``warm()`` follows.
+    the same discipline ``warm()`` follows. A bfloat16 pool spills its
+    raw bits as int16 arrays (numpy has no bfloat16).
     """
 
     def __init__(self, num_layers: int, num_kv_heads: int, head_dim: int,
                  *, page_size: int, num_pages: int, dtype=None,
                  label: Optional[str] = None, prefix_cache: bool = False,
-                 allocator: Optional[PageAllocator] = None, device=None):
+                 allocator: Optional[PageAllocator] = None,
+                 mesh=None, shard_spec=None, device=None):
         import torch
 
         self.num_layers = int(num_layers)
@@ -881,8 +891,27 @@ class PagedKvCache:
         self.dtype = torch.float32 if dtype is None else dtype
         shape = (self.num_layers, int(num_pages), int(page_size),
                  self.num_kv_heads, self.head_dim)
-        self.k = torch.zeros(shape, dtype=self.dtype, device=device)
-        self.v = torch.zeros(shape, dtype=self.dtype, device=device)
+        self.mesh = None
+        self.placements = None
+        if mesh is not None and shard_spec is not None:
+            from torch.distributed.tensor import DTensor
+
+            from ..parallel.api import spec_to_placements
+
+            self.mesh = mesh
+            self.placements = spec_to_placements(
+                shard_spec, tuple(mesh.mesh_dim_names))
+            local = _local_shape(shape, mesh, self.placements)
+            self.k, self.v = (
+                DTensor.from_local(
+                    torch.zeros(local, dtype=self.dtype, device=device),
+                    mesh, self.placements, run_check=False,
+                    shape=torch.Size(shape),
+                    stride=torch.empty(shape, device="meta").stride())
+                for _ in range(2))
+        else:
+            self.k = torch.zeros(shape, dtype=self.dtype, device=device)
+            self.v = torch.zeros(shape, dtype=self.dtype, device=device)
 
     @property
     def page_size(self) -> int:
@@ -894,8 +923,22 @@ class PagedKvCache:
 
     @property
     def hbm_bytes(self) -> int:
-        """The preallocated KV budget: fixed at construction."""
+        """The preallocated KV budget over every device: fixed at
+        construction."""
         return 2 * self.k.numel() * self.k.element_size()
+
+    @property
+    def device_bytes(self) -> int:
+        """One device's share of ``hbm_bytes`` (all of it unsharded)."""
+        return 2 * self._local(self.k).numel() * self.k.element_size()
+
+    def local_pools(self):
+        """This rank's (K, V) tensors: the local kv-head slices of a
+        sharded pool, else the pools themselves."""
+        return self._local(self.k), self._local(self.v)
+
+    def _local(self, t):
+        return t.to_local() if self.mesh is not None else t
 
     def rebind(self, k, v):
         """Adopt the pools a decode step returned. Shape-checked: the
@@ -912,7 +955,7 @@ class PagedKvCache:
         import torch
 
         return torch.as_tensor(np.asarray(list(pages), np.int64),
-                               device=self.k.device)
+                               device=self._local(self.k).device)
 
     def copy_pages(self, pairs: Sequence[Tuple[int, int]]):
         """Copy-on-write: duplicate page contents src -> dst, in place
@@ -927,18 +970,26 @@ class PagedKvCache:
             raise ServingError("KV pools released — engine retired")
         src = self._index([p[0] for p in pairs])
         dst = self._index([p[1] for p in pairs])
-        self.k.index_copy_(1, dst, self.k.index_select(1, src))
-        self.v.index_copy_(1, dst, self.v.index_select(1, src))
+        for t in self.local_pools():
+            t.index_copy_(1, dst, t.index_select(1, src))
 
     def gather_pages(self, pages: Sequence[int]
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Read page contents to host (preemption spill): bitwise
-        copies of ``[layers, len(pages), page_size, heads, dim]``."""
+        copies of ``[layers, len(pages), page_size, heads, dim]`` (this
+        rank's heads of a sharded pool; int16 bits of a bfloat16 one)."""
+        import torch
+
         if self.k is None:
             raise ServingError("KV pools released — engine retired")
         idx = self._index(pages)
-        return (self.k.index_select(1, idx).cpu().numpy(),
-                self.v.index_select(1, idx).cpu().numpy())
+        out = []
+        for t in self.local_pools():
+            g = t.index_select(1, idx).cpu()
+            if g.dtype == torch.bfloat16:
+                g = g.view(torch.int16)
+            out.append(g.numpy())
+        return out[0], out[1]
 
     def scatter_pages(self, pages: Sequence[int], k: np.ndarray,
                       v: np.ndarray):
@@ -955,10 +1006,11 @@ class PagedKvCache:
             raise ServingError(
                 f"spill restore shape mismatch: {k.shape[1]} spilled "
                 f"pages vs {idx.shape[0]} target pages")
-        self.k.index_copy_(1, idx, torch.from_numpy(np.asarray(k)).to(
-            self.k.device, self.k.dtype))
-        self.v.index_copy_(1, idx, torch.from_numpy(np.asarray(v)).to(
-            self.v.device, self.v.dtype))
+        for t, a in zip(self.local_pools(), (k, v)):
+            src = torch.from_numpy(np.asarray(a))
+            if t.dtype == torch.bfloat16 and src.dtype == torch.int16:
+                src = src.view(torch.bfloat16)
+            t.index_copy_(1, idx, src.to(t.device, t.dtype))
 
     def table_array(self, seq_ids: Sequence[int], width: int,
                     rows: Optional[int] = None) -> np.ndarray:
@@ -974,3 +1026,17 @@ class PagedKvCache:
         self.k = None
         self.v = None
         self.allocator.retire()
+
+
+def _local_shape(shape, mesh, placements) -> Tuple[int, ...]:
+    """One rank's slice of ``shape`` under ``placements`` (each sharded
+    dim divides evenly: the engine checks it first)."""
+    out = list(shape)
+    for size, p in zip(mesh.shape, placements):
+        dim = getattr(p, "dim", None)
+        if dim is not None:
+            if out[dim] % int(size):
+                raise ValueError(f"pool dim {dim} ({shape[dim]}) does not "
+                                 f"divide over {int(size)} devices")
+            out[dim] //= int(size)
+    return tuple(out)

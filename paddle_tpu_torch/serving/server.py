@@ -43,7 +43,10 @@ Methods (all fire the `serving.<method>` fault site before running, so
 this package or by the JAX one) through an ``InferenceEngine`` on the
 server's device; ``kind="exported"`` (a JAX StableHLO artifact) is
 refused with a typed ``ServingError``. ``load_decoder(mesh_axes=...)``
-raises ``NotImplementedError`` until the mesh layer is ported.
+serves one decoder sharded over the process group's ranks (every rank
+runs the same deploy; rank 0 answers the requests); a checkpoint that
+records a mesh deploys sharded over it unless ``mesh_axes`` says
+otherwise (``''`` pins one device).
 
 Retry semantics: `infer`, `generate`, `workload` and the three stream
 methods ride the dedup cache — a retransmit after a lost reply is answered from the
@@ -412,27 +415,22 @@ class ServingServer:
 
     def _resolve_decoder_artifact(self, what: str, spec, checkpoint_dir):
         """One rule for (spec dict, checkpoint_dir) -> (DecoderSpec,
-        params), shared by the target and the speculative draft: a
-        checkpoint loads real weights (onto this server's device) and
-        its saved spec, a bare spec builds the deterministic seed
-        decoder, and giving both cross-validates — a contradiction is a
-        wrong-model deploy, refused before any warm."""
+        params, mesh_meta), shared by the target and the speculative
+        draft: a checkpoint loads real weights (onto this server's
+        device) and its saved spec, a bare spec builds the deterministic
+        seed decoder, and giving both cross-validates — a contradiction
+        is a wrong-model deploy, refused before any warm. ``mesh_meta``
+        is the mesh the checkpoint RECORDED at export (None for
+        one-device artifacts or bare specs)."""
         from .decode import DecoderSpec
 
         if checkpoint_dir is not None:
             from ..checkpoint import (decoder_checkpoint_mesh,
                                       load_decoder_checkpoint)
 
-            mesh = decoder_checkpoint_mesh(str(checkpoint_dir))
-            if mesh is not None:
-                # the JAX server would shard the engine over the mesh
-                # the checkpoint recorded; the port has no mesh layer
-                # yet, so the same weights serve from this one device
-                _log.info("%s checkpoint %s records mesh %s: deployed "
-                          "unsharded on %s", what, checkpoint_dir,
-                          mesh.get("spec"), self.device)
             use_spec, params = load_decoder_checkpoint(
                 str(checkpoint_dir), device=self.device)
+            mesh_meta = decoder_checkpoint_mesh(str(checkpoint_dir))
             if spec is not None:
                 want = DecoderSpec.from_dict(dict(spec))
                 if want.to_dict() != use_spec.to_dict():
@@ -440,10 +438,10 @@ class ServingServer:
                         f"{what} spec given to load_decoder contradicts "
                         f"checkpoint '{checkpoint_dir}': "
                         f"{want.to_dict()} != {use_spec.to_dict()}")
-            return use_spec, params
+            return use_spec, params, mesh_meta
         if spec is None:
-            return None, None
-        return DecoderSpec.from_dict(dict(spec)), None
+            return None, None, None
+        return DecoderSpec.from_dict(dict(spec)), None, None
 
     def _load_decoder(self, model: str,
                       spec: Optional[Dict[str, Any]] = None,
@@ -474,21 +472,30 @@ class ServingServer:
         field) and ``spec_k`` pins the proposals per round. Hot-swapping
         a decoder drains the old engine — every in-flight SEQUENCE
         finishes on its own KV cache before the old pool releases.
-        ``mesh_axes`` raises ``NotImplementedError`` (the mesh slice)."""
+        ``mesh_axes`` shards the engine over the process group's ranks
+        (every rank runs this same deploy; rank 0 takes the requests).
+        The mesh resolves as the JAX server's: an explicit ``mesh_axes``
+        wins (``''`` pins one device), else the mesh the checkpoint
+        recorded (with its rules), else ``FLAGS['serving_mesh_axes']``."""
         from .decode import DecodeEngine
 
-        if mesh_axes:
-            raise NotImplementedError(
-                "mesh_axes: mesh-sharded decode serving is not ported to "
-                "paddle_tpu_torch yet (the mesh and parallel slice)")
         model = str(model)
-        use_spec, params = self._resolve_decoder_artifact(
+        use_spec, params, ckpt_mesh = self._resolve_decoder_artifact(
             "target", spec, checkpoint_dir)
         if use_spec is None:
             raise ValueError(
                 "load_decoder needs a spec dict or a checkpoint_dir")
-        use_draft, draft_params = self._resolve_decoder_artifact(
+        use_draft, draft_params, _ = self._resolve_decoder_artifact(
             "draft", draft_spec, draft_checkpoint_dir)
+        mesh_arg: Optional[Any] = None
+        mesh_rules_arg: Optional[Any] = None
+        if mesh_axes is not None:
+            mesh_arg = str(mesh_axes)
+        elif ckpt_mesh is not None:
+            from ..mesh import MeshSpec
+
+            mesh_arg = MeshSpec.from_dict(ckpt_mesh["spec"])
+            mesh_rules_arg = ckpt_mesh.get("rules")
         # lint: allow-blocking — deploys serialize end-to-end; see
         # _load_mu above. generate traffic never takes this lock.
         with self._load_mu:
@@ -506,6 +513,7 @@ class ServingServer:
                                  else str(reservation)),
                     draft_spec=use_draft, draft_params=draft_params,
                     spec_k=(None if spec_k is None else int(spec_k)),
+                    mesh=mesh_arg, mesh_rules=mesh_rules_arg,
                     embeddings=bool(embeddings), device=self.device)
 
             engine = self._registry.deploy(model, build)
@@ -581,6 +589,9 @@ class ServingServer:
                 entry["max_seq_len"] = st["max_seq_len"]
                 # speculative proposals per round (0 = off)
                 entry["spec_k"] = st.get("spec_k", 0)
+                # a mesh-sharded replica: the axes this one engine spans
+                if st.get("mesh"):
+                    entry["mesh"] = st["mesh"]
                 # prefix-cache warmth: the MRU depth-1
                 # chain digests let a FleetRouter recognize a replica
                 # whose cache already covers a request's prefix —

@@ -157,17 +157,25 @@ def test_corruption_names_the_tensor_and_float64_is_refused(tmp_path):
                              meta=_manifest(d64)["meta"])
     with pytest.raises(tck.CheckpointError, match="rogue"):
         tck.load_decoder_checkpoint(d64, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tck.save_decoder_checkpoint(str(tmp_path / "m"),
-                                    td.DecoderSpec(**SPEC),
-                                    mesh_axes="tp=2", shard_axis="tp")
+    # the sharded write side: one payload a shard, the mesh recorded,
+    # the tree bitwise; a shard axis with no mesh is refused
+    dm = str(tmp_path / "m")
+    tck.save_decoder_checkpoint(dm, td.DecoderSpec(**SPEC),
+                                mesh_axes="tp=2", shard_axis="tp")
+    assert len(_manifest(dm)["payloads"]) == 2
+    _, back = tck.load_decoder_checkpoint(dm, device="cpu")
+    _assert_params_equal(back, td.build_decoder_params(
+        td.DecoderSpec(**SPEC), device="cpu"))
+    with pytest.raises(tck.CheckpointError, match="needs mesh_axes"):
+        tck.save_decoder_checkpoint(dm, td.DecoderSpec(**SPEC),
+                                    shard_axis="tp")
 
 
 def test_jax_sharded_checkpoint_loads_and_deploys_in_port(tmp_path):
     """A decoder the JAX package saved sharded over a tp=2 mesh (one
     payload per shard, a recorded mesh) loads in the port — whole and
-    shard by shard — and deploys on one device with the tokens of the
-    seed-built decoder."""
+    shard by shard — and deploys on one device (``mesh_axes=''`` over
+    the recorded mesh) with the tokens of the seed-built decoder."""
     jspec = jd.DecoderSpec(**SPEC)
     d = str(tmp_path / "sharded")
     jck.save_decoder_checkpoint(d, jspec, jd.build_decoder_params(jspec),
@@ -187,7 +195,7 @@ def test_jax_sharded_checkpoint_loads_and_deploys_in_port(tmp_path):
     srv = ServingServer(device="cpu")
     cli = ServingClient(srv.serve())
     try:
-        cli.load_decoder("m", checkpoint_dir=d, **LOAD)
+        cli.load_decoder("m", checkpoint_dir=d, mesh_axes="", **LOAD)
         cli.load_decoder("seed", SPEC, **LOAD)
         out = cli.generate("m", [3, 5, 7], max_new_tokens=6)
         assert out["tokens"] == cli.generate(

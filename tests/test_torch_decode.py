@@ -289,7 +289,9 @@ def test_engine_refuses_unported_options_and_missing_card(monkeypatch):
         td.validate_draft_spec(spec, td.DecoderSpec(**dict(SPEC, vocab=32)))
     with pytest.raises(ValueError, match="unknown DecoderSpec field"):
         td.DecoderSpec.from_dict(dict(SPEC, nheads=4))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh of two devices needs a world of two ranks (the sharded
+    # engine itself: tests/test_torch_mesh_serving.py)
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
         td.DecodeEngine(spec, mesh="tp=2", device="cpu", warm=False)
     with pytest.raises(NotImplementedError, match="autotune"):
         td.DecodeEngine(spec, slots="auto", device="cpu", warm=False)

@@ -9,8 +9,9 @@ store under ``tmp_path``, one thread each) fed the JAX startup's state as
 ``.npz`` files: ``moe_ffn`` dense against sharded on dp=2 x ep=2,
 ``layers.moe`` trained under ``plan_moe_ep``, an ``is_distributed``
 embedding under the transpiler's ``mesh()``/``sharding_plan()``,
-``shard_param_tree``, ``get_places`` under a mesh, and the refusals (a
-mesh larger than the world, a sequence-parallel mesh). This file imports
+``shard_param_tree``, ``get_places`` under a mesh, a refusal (a mesh
+larger than the world) and a sequence-parallel mesh's executor and op
+running. This file imports
 only numpy, torch and pytest at the top, so the ranks never import jax.
 Tolerances: sharded against the port's single run rtol 1e-5; against the
 JAX run rtol 2e-5.
@@ -564,14 +565,13 @@ def _rank_refusals(pkg):
         pkg.mesh.MeshSpec.parse("dp=8").build("cpu")
     except ValueError as e:
         out["size"] = str(e)
-    # a sequence-parallel mesh: the plan, and the op
-    try:
-        pkg.fluid.ParallelExecutor(
-            use_cuda=False, mesh="dp=2,sp=2",
-            sharding_plan=pkg.parallel.plan_sequence_parallel(),
-            main_program=pkg.fluid.Program())
-    except NotImplementedError as e:
-        out["plan"] = str(e)
+    # a sequence-parallel mesh: the plan builds an executor, and the op
+    # runs (their parity: tests/test_torch_sequence_parallel.py)
+    spe = pkg.fluid.ParallelExecutor(
+        use_cuda=False, mesh="dp=2,sp=2",
+        sharding_plan=pkg.parallel.plan_sequence_parallel(),
+        main_program=pkg.fluid.Program())
+    out["plan"] = spe._plan.seq_axis
     cfg = pkg.transformer.TransformerConfig(
         src_vocab=16, trg_vocab=16, max_len=4, d_model=8, n_heads=2, d_ff=8,
         n_layers=1, dropout=0.0, seq_parallel=True)
@@ -588,11 +588,8 @@ def _rank_refusals(pkg):
         pe = fluid.ParallelExecutor(use_cuda=False, main_program=main,
                                     mesh="dp=2,sp=2")
     ids = np.ones((4, 4), np.int64)
-    try:
-        pe.run(fetch_list=[cost], feed={"src": ids, "trg": ids,
-                                        "lbl": ids[:, :, None]})
-    except NotImplementedError as e:
-        out["op"] = str(e)
+    out["op"] = _loss(pe.run(fetch_list=[cost], feed={
+        "src": ids, "trg": ids, "lbl": ids[:, :, None]})[0])
     # get_places under a mesh: the mesh's size
     main, startup = fluid.Program(), fluid.Program()
     with pkg.unique_name.guard(), fluid.program_guard(main, startup):
@@ -714,11 +711,11 @@ def test_shard_param_tree_by_name(world):
 
 def test_mesh_refusals_and_get_places(world):
     """A mesh larger than the world raises naming both; a sequence-parallel
-    plan and a ring_attention under a mesh holding its seq_axis raise,
-    naming the next slice; get_places under a mesh gives the mesh's
-    devices."""
+    plan builds its executor and a ring_attention under a mesh holding its
+    seq_axis runs (their parity is tests/test_torch_sequence_parallel.py);
+    get_places under a mesh gives the mesh's devices."""
     r = world.port["refusals"]
     assert "needs 8 devices, have 4" in r["size"]
-    assert "next slice" in r["plan"]
-    assert "next slice" in r["op"] and "ring_attention" in r["op"]
+    assert r["plan"] == "sp"
+    assert np.isfinite(r["op"])
     assert r["places"] == [0, 1, 2, 3]

@@ -72,18 +72,19 @@ def test_generate_stream_and_pages_match_jax_server(port_server):
 
 
 def test_unported_methods_refuse_typed(port_server):
-    """What is not ported refuses typed (mesh-sharded serving, the
-    sharded checkpoint write); infer/load_model refuse an unknown model
-    and a missing directory the way the JAX server does."""
+    """Misconfigured deploys and saves refuse typed (a mesh larger than
+    the process group's world, a sharded save with no rules);
+    infer/load_model refuse an unknown model and a missing directory the
+    way the JAX server does."""
     srv, cli = port_server
     with pytest.raises(ModelNotFound):
         cli.infer("m", {"x": [1.0]})
     with pytest.raises(RuntimeError, match="does not exist"):
         cli.load_model("m", "/nonexistent")
-    with pytest.raises(RuntimeError, match="mesh and parallel slice"):
+    with pytest.raises(RuntimeError, match="needs 2 processes"):
         cli.load_decoder("m", SPEC, mesh_axes="tp=2", **LOAD)
     from paddle_tpu_torch.checkpoint import save_sharded_checkpoint
-    with pytest.raises(NotImplementedError, match="mesh and parallel"):
+    with pytest.raises(TypeError, match="mesh rules required"):
         save_sharded_checkpoint("/nonexistent", {}, shard_axis="tp",
                                 mesh_spec="tp=2", rules=None)
     assert cli.list_models() == {}
@@ -111,6 +112,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.checkpoint.__main__, "
             "paddle_tpu_torch.mesh, paddle_tpu_torch.mesh.__main__, "
             "paddle_tpu_torch.parallel, "
+            "paddle_tpu_torch.parallel.sequence_parallel, "
+            "paddle_tpu_torch.parallel.pipeline, "
+            "paddle_tpu_torch.fluid.ops.pipeline_op, "
+            "paddle_tpu_torch.fluid.layers.pipeline, "
+            "paddle_tpu_torch.serving.lockstep, "
             "paddle_tpu_torch.fluid.parallel_executor; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
@@ -124,6 +130,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
 _IMPORT = re.compile(
     r"^\s*(?:import\s+(?:jax|jaxlib|paddle_tpu)\b(?!_torch)"
     r"|from\s+(?:jax|jaxlib|paddle_tpu)\b(?!_torch))", re.M)
+# a NotImplementedError that names the mesh layer as missing: it and its
+# serving, checkpoint, sequence-parallel and pipeline parts are ported
+_MESH_RAISE = re.compile(
+    r"NotImplementedError\((?:[^()]|\([^()]*\))*?"
+    r"(mesh layer|mesh and parallel|mesh-sharded|sharded checkpoint"
+    r"|sequence parallel|pipeline|next slice)", re.S | re.I)
 
 
 def test_source_scan_finds_no_jax_or_paddle_tpu_import():
@@ -146,9 +158,15 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/checkpoint/format.py",
             "paddle_tpu_torch/checkpoint/sharded.py",
             "paddle_tpu_torch/checkpoint/decoder.py",
-            "paddle_tpu_torch/checkpoint/__main__.py"} <= rel
+            "paddle_tpu_torch/checkpoint/__main__.py",
+            "paddle_tpu_torch/serving/lockstep.py",
+            "paddle_tpu_torch/parallel/sequence_parallel.py",
+            "paddle_tpu_torch/parallel/pipeline.py",
+            "paddle_tpu_torch/fluid/ops/pipeline_op.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
         assert not _IMPORT.search(src), path
         assert "importlib" not in src or "jax" not in src, path
+        assert not _MESH_RAISE.search(src), (path, _MESH_RAISE.search(
+            src).group(0)[:200])

@@ -43,8 +43,9 @@ OPS_BEFORE = 129  # op types the port's own modules registered before
 # op types the later slices registered: 27 of image and vision
 # (tests/test_torch_detection.py holds them), 32 of the rest of Fluid
 # (tests/test_torch_fluid_rest.py), 3 of the mesh layer (get_places,
-# parallel_do, moe_ffn: tests/test_torch_mesh.py)
-OPS_AFTER = 27 + 32 + 3
+# parallel_do, moe_ffn: tests/test_torch_mesh.py), 2 of the pipeline
+# region (pipeline, pipeline_cut: tests/test_torch_pipeline.py)
+OPS_AFTER = 27 + 32 + 3 + 2
 
 
 def _as_list(v):
