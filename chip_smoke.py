@@ -363,6 +363,24 @@ and prints no result):
            ring and Ulysses, against the plain Executor's losses
            (SP_LOSS_RTOL), SP_STEPS steps in turns; (f) a Pipeline
            region (PIPE) on pp=1, card vs CPU.
+  pserver  after mesh serve, parameter-server training with the trainer
+           and the pservers as threads of this process on the one card:
+           (a) Transformer-base (dropout 0) transpiled onto two sync
+           pservers whose Adam runs on the card, PSERVER_STEPS steps in
+           turns with the plain Executor from the same state (losses
+           within PSERVER_LOSS_RTOL; K1/K2/K3a/K3b 30/18/18/18 launches
+           a trainer step; p50 step ms, tokens/s, RPC bytes a step
+           against the parameter bytes, executor.send/recv ms, a
+           profiled step's busy share); (b) the sparse phase's V
+           1,000,000 program with its table is_distributed on one async
+           pserver, on the card and on the CPU from the same state
+           (losses within PSERVER_SPARSE_RTOL; bytes a step against the
+           table's; p50 step ms beside the in-process sparse step in
+           turns); (c) memory_optimize + release_memory on the fused
+           ResNet-50 at a static batch of 16 (logits bitwise equal, peak
+           memory of each in turns beside estimate_peak_bytes); (d) one
+           Transformer-base step under fluid.profiler, whose exported
+           trace must name K1-K3b's kernels.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -3216,19 +3234,22 @@ INFER_BATCH = INFER_BUCKETS[-1]
 CONVS_PER_FORWARD = 53
 
 
-def build_resnet50(seed):
+def build_resnet50(seed, batch=None):
     """The port's fused ResNet-50 inference program (+ softmax), seeded:
-    (main, startup, logits, prob)."""
+    (main, startup, logits, prob). ``batch`` fixes the image feed's
+    batch, so every activation has a static shape (memory_optimize
+    reuses only those)."""
     import paddle_tpu_torch.fluid as fluid
     from paddle_tpu_torch.fluid import layers, unique_name
     from paddle_tpu_torch.models import resnet
 
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed
+    shape = [3, RESNET_IMAGE, RESNET_IMAGE]
     with unique_name.guard(), fluid.program_guard(main, startup):
         img = layers.data(name="img",
-                          shape=[3, RESNET_IMAGE, RESNET_IMAGE],
-                          dtype="float32")
+                          shape=shape if batch is None else [batch] + shape,
+                          dtype="float32", append_batch_size=batch is None)
         logits = resnet.resnet_imagenet(img, class_dim=RESNET_CLASSES,
                                         depth=50, is_test=True, fused=True)
         prob = layers.softmax(logits)
@@ -7230,15 +7251,17 @@ def _optimizer(fluid, name, lr):
 
 
 def build_sparse_embedding(pkg, vocab, is_sparse, optimizer, dim, batch, fc,
-                           classes, lr):
+                           classes, lr, is_distributed=False):
     """tests/test_selected_rows.py:121's program: ids -> embedding
     ``sparse_emb`` [vocab, dim] -> fc(fc, relu) -> fc(classes) ->
-    softmax cross-entropy -> mean."""
+    softmax cross-entropy -> mean. ``is_distributed`` marks the table
+    for a pserver's row-granular prefetch."""
     def body(layers):
         ids = layers.data(name="ids", shape=[1], dtype="int64")
         label = layers.data(name="label", shape=[1], dtype="int64")
         emb = layers.embedding(input=ids, size=[vocab, dim],
-                               is_sparse=is_sparse, param_attr="sparse_emb")
+                               is_sparse=is_sparse, param_attr="sparse_emb",
+                               is_distributed=is_distributed)
         h = layers.fc(input=emb, size=fc, act="relu")
         cost = layers.mean(layers.softmax_with_cross_entropy(
             logits=layers.fc(input=h, size=classes), label=label))
@@ -8592,6 +8615,396 @@ def mesh_serve_phase(torch):
     return out
 
 
+# --- pserver: parameter-server training --------------------------------------
+
+# (a) Transformer-base through two pservers: the train phase's config with
+# dropout 0 (the trainer program's bytes differ from the plain program's,
+# and so would its dropout masks), batch TRAIN_BATCH, Adam(1e-4), sync,
+# one trainer; PSERVER_STEPS steps of the plain Executor and of the
+# trainer in turns from the same state. The losses are held within
+# PSERVER_LOSS_RTOL: the same forward and backward kernels on the same
+# parameters, and the same Adam op on the same card, applied on the
+# pserver to the gradient that went to the host and back unchanged.
+PSERVER_STEPS = 5
+PSERVER_LOSS_RTOL = 1e-6
+PSERVER_LAUNCHES = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+                    "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18}
+# (b) the sparse phase's program at V 1,000,000 (SPARSE, Adam) with the
+# table is_distributed on one async pserver; the card's losses against
+# the port's on the CPU from the same state within PSERVER_SPARSE_RTOL
+PSERVER_SPARSE_STEPS = 6
+PSERVER_SPARSE_RTOL = 1e-5
+# (c) memory_optimize + release_memory on the fused ResNet-50 at a static
+# batch of INFER_BATCH, plain and rewritten in PSERVER_MEM_TURNS turns
+PSERVER_MEM_TURNS = 3
+# (d) the kernels the profiler's exported trace must name
+PSERVER_TRACE_KERNELS = ("layer_norm_kernel", "flash_fwd_kernel",
+                         "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rpc_bytes():
+    """(bytes sent, bytes received) by this process's RPC clients."""
+    from paddle_tpu_torch.observability import metrics
+
+    snap = metrics.snapshot("rpc.client.bytes_")
+    return snap["rpc.client.bytes_out"], snap["rpc.client.bytes_in"]
+
+
+def _span_ms(names):
+    """Host ms of the buffered trace spans of each name."""
+    from paddle_tpu_torch.observability import tracing
+
+    out = {n: 0.0 for n in names}
+    for ev in tracing.trace_events():
+        if ev.get("ph") == "X" and ev["name"] in out:
+            out[ev["name"]] += ev["dur"] / 1e3
+    return out
+
+
+def _pservers(fluid, main, startup, n, sync, device, init=None):
+    """Transpile (trainer 0 of 1) onto ``n`` loopback endpoints and start
+    their pservers on ``device``; with ``init``, every var of a pserver's
+    scope that ``init`` names is set to that value."""
+    import torch
+
+    eps = [f"127.0.0.1:{_free_port()}" for _ in range(n)]
+    t = fluid.DistributeTranspiler()
+    t.transpile(trainer_id=0, program=main, startup_program=startup,
+                pservers=",".join(eps), trainers=1, sync_mode=sync)
+    servers = []
+    try:
+        for ep in eps:
+            servers.append(t.start_pserver(
+                ep, port=int(ep.rsplit(":", 1)[1]), device=device))
+        for ps in servers:
+            for name in ps._scope.var_names():
+                if init is not None and name in init:
+                    ps._scope.set_var(name, torch.as_tensor(
+                        init[name]).to(device).clone())
+    except Exception:
+        for ps in servers:
+            ps.shutdown()
+        raise
+    return t, servers
+
+
+def _pserver_transformer(torch):
+    """(a): the step, its bytes, its transport ms and its launches."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.observability import tracing
+
+    cfg = dict(TRANSFORMER_BASE, dropout=0.0)
+    main, startup, cost, pg = build_transformer(cfg, 1e-4)
+    feed = copy_task_batch(TRAIN_BATCH, cfg)
+    exe, plain_scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=plain_scope)
+    init = {n: plain_scope.find_var(n).clone()
+            for n in plain_scope.var_names()
+            if isinstance(plain_scope.find_var(n), torch.Tensor)}
+    param_bytes = sum(init[p.name].numel() * init[p.name].element_size()
+                      for p, _ in pg)
+    t0 = time.perf_counter()
+    t, servers = _pservers(fluid, main, startup, 2, True, CARD, init)
+    start_s = time.perf_counter() - t0
+    try:
+        owned = {ep: ps.owned_params() for ep, ps in
+                 zip(t.pserver_endpoints, servers)}
+        if not all(owned.values()) or any(
+                ps.device.type != CARD for ps in servers):
+            raise RuntimeError(f"pservers: {owned}")
+        trainer = t.get_trainer_program(send_recv=True)
+        kinds = [op.type for op in trainer.global_block().ops]
+        if kinds[0] != "recv" or kinds[-1] != "send" or "adam" in kinds:
+            raise RuntimeError(f"trainer program ops {kinds[:3]} ... "
+                               f"{kinds[-3:]}")
+        tscope = fluid.Scope()
+        exe.run(startup, scope=tscope)
+        losses = {"plain": [], "pserver": []}
+        ms = {"plain": [], "pserver": []}
+        sent, recvd, launches, spans = [], [], [], []
+        tracing.trace_enable()
+        for _ in range(PSERVER_STEPS):
+            for way, prog, scope in (("plain", main, plain_scope),
+                                     ("pserver", trainer, tscope)):
+                if way == "pserver":
+                    _reset_kernel_counts()
+                    b0 = _rpc_bytes()
+                    tracing.trace_reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (loss,) = exe.run(prog, feed=feed, fetch_list=[cost],
+                                  scope=scope)
+                ms[way].append((time.perf_counter() - t0) * 1e3)
+                losses[way].append(float(np.asarray(loss).reshape(-1)[0]))
+                if way == "pserver":
+                    b1 = _rpc_bytes()
+                    sent.append(b1[0] - b0[0])
+                    recvd.append(b1[1] - b0[1])
+                    spans.append(_span_ms(("executor.recv",
+                                           "executor.send")))
+                    got, plain = _kernel_counts()
+                    if any(plain.values()):
+                        raise RuntimeError(f"plain versions ran on the "
+                                           f"card's main path: {plain}")
+                    launches.append({k: got.get(k, 0)
+                                     for k in PSERVER_LAUNCHES})
+        tracing.trace_disable()
+        for step in launches:
+            if step != PSERVER_LAUNCHES:
+                raise RuntimeError(f"pserver trainer step launches {step}, "
+                                   f"want {PSERVER_LAUNCHES}")
+        err = _rel_err(losses["pserver"], losses["plain"])
+        if not err <= PSERVER_LOSS_RTOL or not all(
+                np.isfinite(losses["pserver"])):
+            raise RuntimeError(f"pserver losses {losses['pserver']} against "
+                               f"the plain {losses['plain']}: rel err {err}")
+        stats = [ps.stats() for ps in servers]
+        if sum(st["steps"] for st in stats) != PSERVER_STEPS * len(pg):
+            raise RuntimeError(f"pserver applies {stats}, want "
+                               f"{len(pg)} a step")
+        p50 = statistics.median(ms["pserver"][1:])
+        out = {
+            "config": "transformer-base (the train phase's, dropout 0), "
+                      f"batch {TRAIN_BATCH}, Adam(1e-4), 2 pservers on the "
+                      "card in this process, sync, 1 trainer",
+            "pservers_start_s": start_s,
+            "owned_params": {ep: len(v) for ep, v in owned.items()},
+            "losses": losses, "loss_max_rel_err": err,
+            "step_ms": ms, "p50_step_ms_after_first": p50,
+            "plain_p50_step_ms_after_first": statistics.median(
+                ms["plain"][1:]),
+            "pserver_over_plain_p50": p50 / statistics.median(
+                ms["plain"][1:]),
+            "tokens_per_s": TRAIN_BATCH * SEQ / (p50 / 1e3),
+            "param_bytes": param_bytes,
+            "rpc_bytes_sent_a_step": sent, "rpc_bytes_received_a_step": recvd,
+            "sent_over_param_bytes": statistics.median(sent) / param_bytes,
+            "received_over_param_bytes": statistics.median(recvd)
+            / param_bytes,
+            "transport_ms_a_step": spans,
+            "launches_per_step": launches[-1], "pserver_stats": stats,
+        }
+        out["profile"] = profile_step(torch, exe, trainer, feed, cost, tscope,
+                                      "pserver trainer step")
+        out["fluid_profiler"] = _fluid_profiled_step(
+            torch, exe, main, feed, cost, plain_scope)
+    finally:
+        for ps in servers:
+            ps.shutdown()
+    log("  pserver transformer " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("profile",)}))
+    return out
+
+
+def _fluid_profiled_step(torch, exe, main, feed, cost, scope):
+    """(d): one plain Transformer-base step under fluid.profiler; the
+    exported trace must name K1, K2, K3a and K3b."""
+    import paddle_tpu_torch.fluid as fluid
+
+    path = os.path.join(REPO, "smoke_out", "pserver_profile.json")
+    t0 = time.perf_counter()
+    with fluid.profiler.profiler("All", profile_path=path):
+        with fluid.profiler.RecordEvent("transformer_step"):
+            exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    named = {k: sum(1 for ev in events if k in str(ev.get("name", ""))
+                    and ev.get("cat") == "kernel")
+             for k in PSERVER_TRACE_KERNELS}
+    spans = {k: sum(1 for ev in events if ev.get("name") == k)
+             for k in ("transformer_step", "executor.step")}
+    if not all(named.values()) or not all(spans.values()):
+        raise RuntimeError(f"fluid.profiler trace names {named} {spans}")
+    out = {"path": os.path.relpath(path, REPO), "events": len(events),
+           "kernel_events": named, "spans": spans, "wall_ms": wall_ms,
+           "bytes": os.path.getsize(path)}
+    log("  pserver fluid.profiler " + json.dumps(out))
+    return out
+
+
+def _pserver_sparse(torch):
+    """(b): the V 1,000,000 table on one async pserver, card and CPU from
+    the same state, and the in-process sparse step in turns."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+
+    pkg, vocab = port_pkg(), SPARSE_VOCABS[1]
+    rng = np.random.RandomState(5)
+    feeds = []
+    for _ in range(PSERVER_SPARSE_STEPS):
+        ids = _zipf_ids(rng, vocab, (SPARSE["batch"], 1))
+        feeds.append({"ids": ids, "label": ids % SPARSE["classes"]})
+    runs, init = {}, None
+    for device in ("cpu", CARD):
+        built = build_sparse_embedding(pkg, vocab, True, "adam",
+                                       is_distributed=True, **SPARSE)
+        t, (ps,) = _pservers(fluid, built["main"], built["startup"], 1,
+                             False, device, init)
+        try:
+            if init is None:
+                init = {n: ps._scope.find_var(n).clone()
+                        for n in ps._scope.var_names()
+                        if isinstance(ps._scope.find_var(n), torch.Tensor)}
+            prog = t.get_trainer_program(send_recv=True)
+            kinds = [op.type for op in prog.global_block().ops]
+            if kinds[0] != "prefetch" or kinds[-1] != "send":
+                raise RuntimeError(f"sparse trainer ops {kinds}")
+            exe, scope = fluid.Executor(device), fluid.Scope()
+            exe.run(t.get_trainer_startup_program(), scope=scope)
+            if scope.find_var("sparse_emb") is not None:
+                raise RuntimeError("the trainer holds the table")
+            run = {"losses": [], "step_ms": [], "bytes_a_step": []}
+            inproc = None
+            if device == CARD:
+                inproc = build_sparse_embedding(pkg, vocab, True, "adam",
+                                                **SPARSE)
+                iscope = fluid.Scope()
+                exe.run(inproc["startup"], scope=iscope)
+                for n, v in init.items():
+                    if iscope.find_var(n) is not None:
+                        iscope.set_var(n, v.to(device).clone())
+                run["inproc_losses"], run["inproc_step_ms"] = [], []
+            for feed in feeds:
+                b0 = _rpc_bytes()
+                if device == CARD:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (loss,) = exe.run(prog, feed=feed, fetch_list=[
+                    built["cost"]], scope=scope)
+                run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                b1 = _rpc_bytes()
+                run["bytes_a_step"].append(b1[0] - b0[0] + b1[1] - b0[1])
+                run["losses"].append(float(np.asarray(loss).reshape(-1)[0]))
+                if inproc is not None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (loss,) = exe.run(inproc["main"], feed=feed, fetch_list=[
+                        inproc["cost"]], scope=iscope)
+                    run["inproc_step_ms"].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    run["inproc_losses"].append(
+                        float(np.asarray(loss).reshape(-1)[0]))
+            run["stats"] = ps.stats()
+            runs[device] = run
+        finally:
+            ps.shutdown()
+    card, cpu = runs[CARD], runs["cpu"]
+    err = _rel_err(card["losses"], cpu["losses"])
+    if not err <= PSERVER_SPARSE_RTOL or not all(np.isfinite(card["losses"])):
+        raise RuntimeError(f"sparse pserver losses card {card['losses']} vs "
+                           f"cpu {cpu['losses']}: rel err {err}")
+    rows = [int(np.unique(f["ids"]).size) for f in feeds]
+    table_bytes = vocab * SPARSE["dim"] * 4
+    st = card["stats"]
+    if st["prefetch_rows"] != PSERVER_SPARSE_STEPS * SPARSE["batch"] or \
+            st["full_pull_rows"] >= vocab // 50:
+        raise RuntimeError(f"sparse pserver traffic {st}")
+    p50 = statistics.median(card["step_ms"][1:])
+    out = {"config": f"V {vocab} x {SPARSE['dim']}, is_distributed, Adam, "
+                     f"{SPARSE}, 1 async pserver in this process",
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "card_vs_cpu_max_rel_err": err,
+           "inproc_losses": card["inproc_losses"],
+           "pserver_vs_inproc_max_rel_err": _rel_err(
+               card["losses"], card["inproc_losses"]),
+           "step_ms": card["step_ms"], "p50_step_ms_after_first": p50,
+           "inproc_step_ms": card["inproc_step_ms"],
+           "inproc_p50_step_ms_after_first": statistics.median(
+               card["inproc_step_ms"][1:]),
+           "cpu_p50_step_ms_after_first": statistics.median(
+               cpu["step_ms"][1:]),
+           "bytes_a_step": card["bytes_a_step"], "table_bytes": table_bytes,
+           "bytes_over_table": statistics.median(card["bytes_a_step"])
+           / table_bytes,
+           "unique_ids_a_step": rows, "ids_a_step": SPARSE["batch"],
+           "pserver_stats": st}
+    log("  pserver sparse " + json.dumps(out))
+    return out
+
+
+def _pserver_memory(torch):
+    """(c): memory_optimize + release_memory on the fused ResNet-50 at a
+    static batch: logits equal, peak device memory of each program in
+    turns beside estimate_peak_bytes."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import memory_optimization_transpiler as mot
+
+    plain, startup, logits, prob = build_resnet50(1, INFER_BATCH)
+    opt, _, ologits, oprob = build_resnet50(1, INFER_BATCH)
+    skip = {ologits.name, oprob.name}
+    merged = fluid.memory_optimize(opt, skip_opt_set=skip)
+    deleted = fluid.release_memory(opt, skip_opt_set=skip)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    seeded_bn_fold(torch, plain, scope, seed=2)
+    feed = {"img": torch.from_numpy(_images(np.random.RandomState(3),
+                                            INFER_BATCH)).to(CARD)}
+    peaks = {"plain": [], "rewritten": []}
+    got, launches = {}, {}
+    for _ in range(PSERVER_MEM_TURNS):
+        for way, prog, var in (("plain", plain, logits),
+                               ("rewritten", opt, ologits)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            (out, run_launches) = _held_window(lambda: exe.run(
+                prog, feed=feed, fetch_list=[var], scope=scope))
+            torch.cuda.synchronize()
+            peaks[way].append((torch.cuda.max_memory_allocated() - base)
+                              / 1e9)
+            got[way], launches[way] = out[0], run_launches
+    diff = float(np.abs(got["rewritten"] - got["plain"]).max())
+    if diff != 0.0 or launches["rewritten"] != launches["plain"]:
+        raise RuntimeError(f"memory_optimize changed the logits (max abs "
+                           f"{diff}) or the launches {launches}")
+    out = {"batch": INFER_BATCH, "merged_vars": merged,
+           "delete_var_ops": deleted,
+           "estimate_peak_gb": {"plain": mot.estimate_peak_bytes(plain) / 1e9,
+                                "rewritten": mot.estimate_peak_bytes(opt)
+                                / 1e9},
+           "peak_above_state_gb": peaks,
+           "median_peak_above_state_gb": {
+               k: statistics.median(v) for k, v in peaks.items()},
+           "logits_max_abs_diff": diff, "launches": launches["plain"]}
+    log("  pserver memory_optimize " + json.dumps(out))
+    return out
+
+
+def pserver_phase(torch):
+    """The nineteenth slice on the card: parameter-server training, with
+    the trainer and the pservers as threads of this process on the one
+    card. (a) Transformer-base through two sync pservers against the
+    plain Executor in turns; (b) a V 1,000,000 distributed table on an
+    async pserver, card against the CPU, beside the in-process sparse
+    step; (c) memory_optimize + release_memory on ResNet-50 inference;
+    (d) one Transformer-base step under fluid.profiler, its trace naming
+    K1-K3b."""
+    phase("pserver")
+    t0 = time.perf_counter()
+    out = {"transformer": _pserver_transformer(torch),
+           "sparse": _pserver_sparse(torch),
+           "memory_optimize": _pserver_memory(torch)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  pserver phase {out['seconds']:.1f} s")
+    return out
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
@@ -8675,6 +9088,7 @@ def main():
     sparse = sparse_phase(torch)
     parallel = parallel_phase(torch)
     mesh_serve = mesh_serve_phase(torch)
+    pserver = pserver_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -8741,7 +9155,10 @@ def main():
                     recipe_launches_per_step=recipe_launches[
                         "layer_norm_f32"], train_recipe=recipe,
                     parallel_launches_per_step=_parallel_launches(
-                        parallel, "layer_norm_f32"), parallel=parallel),
+                        parallel, "layer_norm_f32"), parallel=parallel,
+                    pserver_launches_per_step=pserver["transformer"][
+                        "launches_per_step"]["layer_norm_f32"],
+                    pserver=pserver),
         _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
                     "(bf16 x, widened on load at :17)",
@@ -8775,6 +9192,8 @@ def main():
             causal=rows["causal"],
             recipe_launches_per_step=recipe_launches[kname],
             parallel_launches_per_step=_parallel_launches(parallel, kname),
+            pserver_launches_per_step=pserver["transformer"][
+                "launches_per_step"][kname],
             **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",

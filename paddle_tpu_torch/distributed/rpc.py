@@ -25,6 +25,7 @@ from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from . import faults as _faults
 from ..observability import metrics as _metrics, tracing as _tracing
@@ -78,12 +79,33 @@ _m_srv_errors = _metrics.counter("rpc.server.errors")
 _m_srv_dedup = _metrics.counter("rpc.server.dedup_hits")
 
 
+def _host(t):
+    """A tensor as host numpy: a torch tensor (a CUDA one included) by one
+    explicit device-to-host copy, numpy as itself."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()  # the one DtoH copy of this tensor
+    return np.asarray(t)
+
+
 def to_wire(obj, segs: Optional[list] = None):
-    """JSON-encode numpy arrays. With `segs` (a list to append to),
-    tensor bytes become out-of-band raw segments referenced by index;
-    without it they inline as base64 (legacy/small-frame form). No
-    sparse (SelectedRows) tensors travel on the serving wire, so this
-    copy has no branch for them."""
+    """JSON-encode numpy arrays, torch tensors and SelectedRows. With
+    `segs` (a list to append to), tensor bytes become out-of-band raw
+    segments referenced by index; without it they inline as base64
+    (legacy/small-frame form). A torch tensor, on the card or not, goes
+    to host numpy by one explicit copy (``_host``) and then rides as the
+    array would, so a frame carries the JAX package's bytes for the same
+    values; a SelectedRows' rows and value go the same way, one copy
+    each."""
+    from ..fluid.selected_rows import is_selected_rows
+
+    if is_selected_rows(obj):
+        return {"__sr__": {
+            "rows": to_wire(_host(obj.rows), segs),
+            "value": to_wire(_host(obj.value), segs),
+            "height": int(obj.height),
+        }}
+    if isinstance(obj, torch.Tensor):
+        obj = _host(obj)
     if isinstance(obj, np.ndarray):
         arr = np.ascontiguousarray(obj)
         spec = {"dtype": str(arr.dtype), "shape": list(arr.shape)}
@@ -105,10 +127,15 @@ def from_wire(obj, segs: Optional[list] = None, copy: bool = True):
     tensor as a fresh writable array. ``copy=False`` returns NON-
     WRITEABLE views straight over the frame's segment bytes — zero
     receive-side copies, the right mode for read-path results
-    (get_param pulls) that are immediately consumed by tensor math; callers that need to mutate in place must copy themselves
+    (get_param pulls) that are immediately consumed by tensor math;
+    callers that need to mutate in place must copy themselves
     (numpy raises on write, so misuse is loud, never silent
     corruption). The view pins its frame's bytes alive exactly as long
-    as the array — same peak memory as the copy, minus the copy."""
+    as the array — same peak memory as the copy, minus the copy. A
+    SelectedRows decodes with numpy rows and value: the receiver's
+    Executor places it on its own device when it is fed."""
+    from ..fluid.selected_rows import SelectedRows
+
     if isinstance(obj, dict):
         if "__nd__" in obj and len(obj) == 1:
             spec = obj["__nd__"]
@@ -125,10 +152,25 @@ def from_wire(obj, segs: Optional[list] = None, copy: bool = True):
             # frombuffer over immutable bytes is already read-only; the
             # copy is what makes it writable (and owner of its memory)
             return arr.copy() if copy else arr
+        if "__sr__" in obj and len(obj) == 1:
+            spec = obj["__sr__"]
+            return SelectedRows(
+                from_wire(spec["rows"], segs, copy),
+                from_wire(spec["value"], segs, copy),
+                int(spec["height"]),
+            )
         return {k: from_wire(v, segs, copy) for k, v in obj.items()}
     if isinstance(obj, list):
         return [from_wire(v, segs, copy) for v in obj]
     return obj
+
+
+def _no_delay(sock):
+    """TCP_NODELAY on a connection: a message is a header write and then
+    its segments' writes, and Nagle's algorithm held each small write
+    after the first for the peer's delayed ACK (~40 ms a call on
+    loopback)."""
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
 
 
 def read_frame(rfile, max_frame: int = MAX_FRAME) -> Optional[dict]:
@@ -517,6 +559,7 @@ class RpcServer:
         class TrackedHandler(Handler):
             def setup(self):
                 super().setup()
+                _no_delay(self.connection)
                 self.server.track(self.connection, True)
 
             def finish(self):
@@ -675,6 +718,7 @@ class RpcClient:
             self._sock = socket.create_connection(
                 self._addr, timeout=self._connect_timeout)
             self._sock.settimeout(self._timeout)
+            _no_delay(self._sock)
             self._rfile = self._sock.makefile("rb")
             self._wfile = self._sock.makefile("wb")
         r0, w0 = _meter.read, _meter.written

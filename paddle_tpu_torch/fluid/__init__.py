@@ -38,7 +38,12 @@ every optimizer, the rest of the op library's layers (``nce``,
 ``calc_gradient`` and ``WeightNormParamAttr``; ``ParallelExecutor`` on a
 DTensor mesh (data-parallel, tensor-parallel and fully sharded plans),
 ``get_places``/``ParallelDo``, ``layers.moe`` and the
-``DistributeTranspiler`` facade. The executor runs on the card unless
+``DistributeTranspiler`` facade, with parameter-server training: the
+executor runs the transpiler's ``send``/``recv``/``prefetch`` ops
+against ``start_pserver``'s servers (``layers.Send``, ``Recv``,
+``ListenAndServ``); the tool modules ``memory_optimization_transpiler``
+(``memory_optimize``, ``release_memory``), ``profiler``, ``debugger``,
+``graphviz`` and ``net_drawer``. The executor runs on the card unless
 given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
@@ -59,13 +64,19 @@ from . import (  # noqa: F401
     optimizer,
     parallel_executor,
     param_attr,
+    profiler,
     readers,
     recordio_writer,
     regularizer,
     selected_rows,
     unique_name,
 )
+from .memory_optimization_transpiler import (  # noqa: F401
+    memory_optimize,
+    release_memory,
+)
 from .backward import append_backward, calc_gradient  # noqa: F401
+from . import debugger, graphviz, net_drawer  # noqa: F401
 from .clip import (  # noqa: F401
     ErrorClipByValue,
     GradientClipByGlobalNorm,

@@ -25,10 +25,10 @@ Sparse embedding sharding (the pserver path's one unique capability,
 doc/fluid/design/dist_train/distributed_lookup_table_design.md) maps to
 plan rules sharding the embedding table rows over the mesh.
 
-The reference flow itself (`get_trainer_program(send_recv=True)` builds
-the program with `send`/`recv`/`prefetch` ops) runs against parameter
-servers: the port's Executor refuses those ops and `start_pserver`
-raises until the pserver transport is ported (with fleet).
+The reference flow itself runs too: `get_trainer_program(send_recv=True)`
+builds the program with `send`/`recv`/`prefetch` ops, which the port's
+Executor runs as host ops around the step, against the parameter servers
+that `start_pserver` serves (distributed/param_server.py).
 """
 from __future__ import annotations
 
@@ -129,10 +129,9 @@ class DistributeTranspiler:
         send_recv=True builds the REFERENCE flow (transpile:136): optimize
         ops move to the pserver; the trainer program gets a `recv` op up
         front (pull current params) and a `send` op at the end (push
-        gradients) — host RPC ops around the step (send_op.cc /
-        recv_op.cc) that the port's Executor refuses until the pserver
-        transport is ported. With sync_mode a send_barrier op follows the
-        send (send_barrier_op.cc)."""
+        gradients) — host RPC ops the Executor runs around the step
+        (send_op.cc / recv_op.cc). With sync_mode a send_barrier op
+        follows the send (send_barrier_op.cc)."""
         if not send_recv:
             return self._program
         if not self.param_assignment:
@@ -312,15 +311,27 @@ class DistributeTranspiler:
 
     def start_pserver(self, endpoint: str, host: str = "127.0.0.1",
                       port: int = 0, sync_mode: Optional[bool] = None,
-                      **server_kwargs):
-        """reference listen_and_serv_op.cc:78 — serve this endpoint's
-        pserver program pair. Not ported: the port has no parameter
-        server yet (it comes with fleet and the rest of distributed/)."""
-        raise NotImplementedError(
-            "DistributeTranspiler.start_pserver: the parameter server is "
-            "not ported to paddle_tpu_torch yet (fleet and distributed/); "
-            "train SPMD with ParallelExecutor(mesh=t.mesh(), "
-            "sharding_plan=t.sharding_plan())")
+                      device=None, **server_kwargs):
+        """Build this endpoint's pserver program pair and serve it
+        (reference listen_and_serv_op.cc:78 behind trainer RPC). Returns
+        the running ParameterServer; its .address is what trainers dial.
+        `device`: where the pserver's optimizer runs and its state lives
+        (None: the card, raising without one). Extra kwargs
+        (heartbeat_timeout, barrier_timeout, ...) pass through to the
+        ParameterServer constructor."""
+        from ..distributed.param_server import ParameterServer
+
+        pp = self.get_pserver_program(endpoint)
+        ps = ParameterServer(
+            pp,
+            self.get_startup_program(endpoint, pp),
+            trainers=self.trainers,
+            sync_mode=self.sync_mode if sync_mode is None else sync_mode,
+            device=device,
+            **server_kwargs,
+        )
+        ps.serve(host, port)
+        return ps
 
     def _owned_params(self, endpoint: str) -> List[str]:
         return [n for n, ep in self.param_assignment.items() if ep == endpoint]

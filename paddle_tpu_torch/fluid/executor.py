@@ -56,9 +56,22 @@ contract (reference python/paddle/fluid/executor.py:181).
     as the JAX executor reads sharded arrays; the run writes plain
     tensors back. ``fetch_var`` reads such a var whole too.
 
-Not ported yet: the send/recv transport; a program holding such an op
-raises. ``ParallelExecutor`` (``parallel_executor.py``) runs a block on a
-DTensor mesh.
+  - Parameter-server transport ops (reference send_op.cc, recv_op.cc,
+    prefetch_op.cc, send_barrier_op.cc), as the JAX executor runs them
+    around its jitted step: ``recv`` pulls parameters into the scope
+    before the step (``executor.recv``), ``prefetch`` pulls the batch's
+    unique rows of a distributed table into a sub-table feed
+    (``executor.prefetch``), and after the step ``send`` / ``send_vars``
+    push the gradients, ``send_barrier`` waits for the sync round, and a
+    send's ``get_vars`` pull the updated parameters (``executor.send``).
+    The gradients are read out of the env after the op loop (the
+    trainer's program has no optimizer ops: they run on the pservers),
+    each by one device-to-host copy, and so one host sync. A program of
+    transport ops alone sends the values of its feeds and scope, as the
+    JAX executor's host-only branch does. ``ParallelExecutor``
+    (``parallel_executor.py``), which runs a block on a DTensor mesh,
+    refuses these ops, as the JAX package has no pserver training under
+    a mesh.
 """
 from __future__ import annotations
 
@@ -83,13 +96,15 @@ from .selected_rows import SelectedRows, is_selected_rows
 _m_step_ms = _metrics.histogram("executor.step_ms")
 
 _SKIP_OP_TYPES = frozenset({"feed", "fetch"})
-# host-side op types of the JAX executor not ported yet (pserver
-# transport)
-_NOT_PORTED_OP_TYPES = frozenset({
-    "send", "recv", "send_barrier", "send_vars", "prefetch",
-})
+# parameter-server transport: host ops around the op loop, never in it
+# (send_vars is the reference's async-send variant, send_vars_op.cc —
+# the same transport, no barrier follows it)
+_SEND_OP_TYPES = frozenset({"send", "send_vars", "send_barrier"})
+DIST_OP_TYPES = _SEND_OP_TYPES | {"recv", "prefetch"}
 # reader ops: the host pre-pass runs them, the op loop never does
 _READER_OP_TYPES = READER_CREATE_OP_TYPES | {"read"}
+# ops the op loop never runs
+_HOST_OP_TYPES = _SKIP_OP_TYPES | _READER_OP_TYPES | DIST_OP_TYPES
 _IO_OP_TYPES = frozenset({"save", "save_combine", "load", "load_combine"})
 
 
@@ -391,8 +406,8 @@ def _run_reader_host_ops(block, reader_ops, scope: Scope, device):
 
 def _block_io(block, feed_names: set):
     """Classify vars of a block: state read (from scope) and state written
-    (persistable -> survives the run). Reader ops are the host pre-pass's:
-    they neither read nor write the device state."""
+    (persistable -> survives the run). Reader and transport ops are host
+    ops: they neither read nor write the device state."""
     produced = set(feed_names)
     state_in: List[str] = []
     state_out: List[str] = []
@@ -400,8 +415,7 @@ def _block_io(block, feed_names: set):
         name for name, var in block.vars.items() if var.persistable
     }
     for op in block.ops:
-        if op.desc.type in _SKIP_OP_TYPES or \
-                op.desc.type in _READER_OP_TYPES:
+        if op.desc.type in _HOST_OP_TYPES:
             continue
         for n in op.desc.input_names():
             if n and n not in produced and n not in state_in:
@@ -412,6 +426,187 @@ def _block_io(block, feed_names: set):
                 if n in persistable and n not in state_out:
                     state_out.append(n)
     return state_in, state_out
+
+
+def _dist_host_ops(block):
+    """(send ops, recv ops, prefetch ops) of a block, cached per program
+    version (the JAX executor's ``_dist_host_ops``)."""
+    program = block.program
+    cached = getattr(program, "_dist_ops_cache", None)
+    if cached is None or cached[0] != program._version:
+        sends = [op for op in block.ops if op.desc.type in _SEND_OP_TYPES]
+        recvs = [op for op in block.ops if op.desc.type == "recv"]
+        prefetches = [op for op in block.ops if op.desc.type == "prefetch"]
+        program._dist_ops_cache = cached = (
+            program._version, sends, recvs, prefetches)
+    return cached[1], cached[2], cached[3]
+
+
+def _pulled(arr, device):
+    """A pulled parameter (a read-only view over its RPC frame) as a
+    tensor on ``device``: one host-to-device copy."""
+    return torch.tensor(arr, device=device)
+
+
+def _run_recv_ops(recv_ops, scope: Scope, device):
+    """Pull current param values from their pservers into scope BEFORE the
+    step (reference recv_op.cc + concat on the trainer)."""
+    from ..distributed.param_server import get_client
+
+    for op in recv_ops:
+        eps = op.desc.attrs.get("endpoints", {})
+        for name in op.desc.outputs.get("Out", []):
+            ep = eps.get(name)
+            if ep is None:
+                raise ValueError(f"recv op has no endpoint for '{name}'")
+            scope.set_var(name, _pulled(get_client(ep).call(
+                "get_param", name, copy_result=False), device))
+
+
+def _run_prefetch_ops(prefetch_ops, feeds: Dict[str, Any], scope: Scope,
+                      device):
+    """Row-granular embedding prefetch (reference prefetch_op.cc): pull
+    ONLY the batch's unique rows from the pserver into a sub-table fed to
+    the step, plus locally-remapped ids. The sub-table is padded to the
+    flat id count, so its shape depends only on the batch's. The
+    unique-id map is stashed in scope for the send op to translate the
+    SelectedRows grad rows back to global before the push. Ids fed as a
+    card tensor come to the host by one copy."""
+    from ..distributed.param_server import get_client
+    from ..distributed.rpc import _host
+
+    for op in prefetch_ops:
+        attrs = op.desc.attrs
+        ids_name = op.desc.inputs["Ids"][0]
+        sub_name = op.desc.outputs["Out"][0]
+        remap_name = op.desc.outputs["Remap"][0]
+        ids = feeds.get(ids_name)
+        if ids is None:
+            raise RuntimeError(
+                f"prefetch op needs '{ids_name}' in the feed (ids must be "
+                "host-visible to pull their rows)")
+        ids = _host(ids)
+        flat = ids.reshape(-1).astype(np.int64)
+        uniq, inverse = np.unique(flat, return_inverse=True)
+        cap = max(1, flat.size)
+        pad_fill = uniq[0] if uniq.size else 0
+        uniq_padded = np.full((cap,), pad_fill, dtype=np.int64)
+        uniq_padded[:uniq.size] = uniq
+        sub = _pulled(get_client(attrs["endpoint"]).call(
+            "get_rows", attrs["param"], uniq_padded, copy_result=False),
+            device)
+        padding_idx = int(attrs.get("padding_idx", -1))
+        if padding_idx != -1:
+            # the op-level padding zeroing was disabled at transpile time;
+            # zero the padding id's row here instead (each unique id owns
+            # exactly one row, so this is equivalent)
+            pos = np.searchsorted(uniq, padding_idx)
+            if pos < uniq.size and uniq[pos] == padding_idx:
+                sub[int(pos)] = 0
+        feeds[sub_name] = sub
+        feeds[remap_name] = inverse.reshape(ids.shape).astype(np.int64)
+        scope.set_var(f"{attrs['param']}@PREFETCH_IDS", uniq_padded)
+
+
+def _sent_values(names, env: Dict[str, Any], scope: Scope):
+    """The values the send ops push: this run's (a gradient the op loop
+    computed, or a feed), else the scope's."""
+    vals = {}
+    for n in names:
+        v = env.get(n)
+        if v is None:
+            v = scope.find_var(n)
+        if v is None:
+            raise RuntimeError(
+                f"send op: var '{n}' has no value (no op of the program "
+                "produces it, and it is neither fed nor in the scope)")
+        vals[n] = v
+    return vals
+
+
+def _run_send_ops(send_ops, values: Dict[str, Any], scope: Scope, device):
+    """Push computed gradients to their pservers AFTER the step (reference
+    send_op.cc AsyncSendVariable; send_barrier_op for sync rounds). Each
+    gradient comes to the host by one device-to-host copy (a
+    SelectedRows' rows and value, one each). The barrier waits on the
+    round number the pushes were assigned to, over a DEDICATED
+    connection — on the shared channel a blocking barrier would starve
+    other trainer threads' pushes to the same endpoint."""
+    from ..distributed.param_server import get_client, note_barrier_reply
+    from ..distributed.rpc import _host
+
+    push_round: Dict[str, int] = {}  # endpoint -> round of this step's sends
+    for op in send_ops:
+        attrs = op.desc.attrs
+        if op.desc.type == "send_barrier":
+            tid = int(attrs.get("trainer_id", 0))
+            for ep in attrs.get("endpoints", []):
+                # trainer_id rides along so the pserver's failure detector
+                # refreshes THIS trainer's heartbeat lease while it waits —
+                # a parked trainer must never be evicted as dead, or its
+                # pending pushes would be withdrawn from the round
+                resp = get_client(ep, channel=f"barrier.{tid}").call(
+                    "barrier", push_round.get(ep), tid)
+                note_barrier_reply(ep, tid, resp)
+            continue
+        eps = attrs.get("endpoints", {})
+        params = attrs.get("params", {})
+        sparse_remap = attrs.get("sparse_remap", {})
+        trainer_id = int(attrs.get("trainer_id", 0))
+        for gname in op.desc.inputs.get("X", []):
+            v = values[gname]
+            if is_selected_rows(v):
+                v = SelectedRows(_host(v.rows), _host(v.value), v.height)
+            else:
+                v = _host(v)
+            if gname in sparse_remap and is_selected_rows(v):
+                # prefetched table: grad rows are LOCAL sub-table indices;
+                # translate back to global ids (and drop padding-id rows —
+                # the reference zeroes their grad) before the push
+                info = sparse_remap[gname]
+                idmap = scope.find_var(f"{info['param']}@PREFETCH_IDS")
+                if idmap is None:
+                    raise RuntimeError(
+                        f"send op: no prefetch id map for '{info['param']}' "
+                        "— did the prefetch op run this step?")
+                rows = idmap[v.rows.astype(np.int64)]
+                vals = v.value
+                pad = int(info.get("padding_idx", -1))
+                if pad != -1:
+                    keep = rows != pad
+                    rows, vals = rows[keep], vals[keep]
+                v = SelectedRows(rows.astype(np.int64), vals,
+                                 int(info["vocab"]))
+            elif gname in sparse_remap:
+                # a remapped grad that arrives dense is [batch-ids, dim]
+                # sub-table shaped — pushing it against the [vocab, dim]
+                # pserver param would fail (or mis-apply) far from the
+                # cause; fail HERE with the cause named
+                info = sparse_remap[gname]
+                raise RuntimeError(
+                    f"send op: grad '{gname}' for prefetched table "
+                    f"'{info['param']}' arrived dense (shape "
+                    f"{v.shape}) but must be SelectedRows over local "
+                    "sub-table rows — the lookup_table grad emitter fell "
+                    "back to a dense gradient")
+            resp = get_client(eps[gname]).call(
+                "push_grad", params.get(gname, gname), v, trainer_id)
+            ep = eps[gname]
+            if ep not in push_round and isinstance(resp, dict):
+                push_round[ep] = resp.get("round")
+        # the reference send op's get_vars: pull AFTER this op's pushes —
+        # and after the round they joined has APPLIED (a sync server only
+        # merges once every trainer pushed; barrier is a no-op on async)
+        recv_eps = attrs.get("recv_endpoints", {})
+        out_names = op.desc.outputs.get("Out", [])
+        if out_names:
+            for ep in {recv_eps[n] for n in out_names}:
+                if ep in push_round:
+                    get_client(ep, channel=f"barrier.{trainer_id}").call(
+                        "barrier", push_round[ep], trainer_id)
+            for name in out_names:
+                scope.set_var(name, _pulled(get_client(recv_eps[name]).call(
+                    "get_param", name, copy_result=False), device))
 
 
 _MATMUL_PRECISIONS = ("highest", "high", "default")
@@ -499,15 +694,8 @@ class Executor:
         entry = prog_cache.get(key) if use_program_cache else None
         if entry is None:
             block = program.global_block()
-            bad = sorted({op.desc.type for op in block.ops
-                          if op.desc.type in _NOT_PORTED_OP_TYPES})
-            if bad:
-                raise NotImplementedError(
-                    f"op types {bad} (pserver transport) are not yet "
-                    "ported to paddle_tpu_torch's Executor")
             ops = [op.desc for op in block.ops
-                   if op.desc.type not in _SKIP_OP_TYPES
-                   and op.desc.type not in _READER_OP_TYPES]
+                   if op.desc.type not in _HOST_OP_TYPES]
             state_in, state_out = _block_io(block, set(feed_names))
             # runs of io ops and of device ops, in order; each device
             # run plans its own grad records
@@ -533,8 +721,15 @@ class Executor:
         with _tracing.span("executor.reader"):
             reader_feeds, copied = _run_reader_host_ops(
                 block, reader_ops, scope, dev)
-        feeds = {k: _as_feed(v, dev)
-                 for k, v in {**feed, **reader_feeds}.items()}
+        host_feeds = {**feed, **reader_feeds}
+        send_ops, recv_ops, prefetch_ops = _dist_host_ops(block)
+        if recv_ops:
+            with _tracing.span("executor.recv"):
+                _run_recv_ops(recv_ops, scope, dev)
+        if prefetch_ops:
+            with _tracing.span("executor.prefetch"):
+                _run_prefetch_ops(prefetch_ops, host_feeds, scope, dev)
+        feeds = {k: _as_feed(v, dev) for k, v in host_feeds.items()}
         if copied:
             # the batches were copied on the double buffer's stream: this
             # stream waits for the copies before its first op, and the
@@ -558,7 +753,9 @@ class Executor:
         env.update(feeds)
         ctx = EmitCtx(device=dev, root_seed=_next_seed(program),
                       program=program)
-        keep = frozenset(fetch_names)
+        sent = [n for op in send_ops for n in op.desc.inputs.get("X", [])
+                if n]
+        keep = frozenset(fetch_names) | frozenset(sent)
         for io, seg, plan in segments:
             if io:
                 _run_io_host_ops(seg, scope, dev, env)
@@ -567,6 +764,10 @@ class Executor:
         for n in state_out:
             if n in env:
                 scope.set_var(n, env[n].detach())
+        if send_ops:
+            with _tracing.span("executor.send"):
+                _run_send_ops(send_ops, _sent_values(sent, env, scope),
+                              scope, dev)
         # a program of host ops alone (none, or readers and io) fetches
         # from the scope, as the JAX executor's host-only path does
         host_only = all(io for io, _, _ in segments)

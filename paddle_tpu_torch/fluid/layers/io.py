@@ -10,10 +10,13 @@ startup IS the reset, like the reference's ReInit); the MAIN program
 carries only the `read` op, which the Executor resolves as a host
 pre-pass into the step's feeds (readers.py). `double_buffer` is the async
 rung: its threads overlap batch decode and the host-to-card copy with
-the card's compute. ``Send``, ``Recv`` and ``ListenAndServ`` (the
-parameter-server transport) are not ported yet.
+the card's compute. ``Send``, ``Recv`` and ``ListenAndServ`` are the
+parameter-server transport's layers, with the JAX package's op types
+and attrs.
 """
 from __future__ import annotations
+
+import contextlib
 
 from .. import core, unique_name
 from ..framework import default_main_program, default_startup_program
@@ -22,6 +25,7 @@ from ..layer_helper import LayerHelper
 __all__ = [
     "data", "open_recordio_file", "open_files", "shuffle", "batch",
     "double_buffer", "multi_pass", "read_file", "reset_reader",
+    "Send", "Recv", "ListenAndServ",
 ]
 
 
@@ -212,3 +216,157 @@ def reset_reader(reader, scope=None):
                          f"'{getattr(reader, 'name', reader)}' — run the "
                          "startup program first")
     obj.reset()
+
+def _epmap(endpoints):
+    if isinstance(endpoints, (list, tuple)):
+        eps = [str(e) for e in endpoints if e]
+    else:
+        eps = [e for e in str(endpoints).split(",") if e]
+    if not eps:
+        raise ValueError("Send/Recv need at least one endpoint")
+    return eps
+
+
+def Send(endpoints, send_vars, get_vars=None, trainer_id=0):
+    """Send layer (reference layers/io.py:173 -> send_op.cc): push
+    `send_vars` to the pserver(s), optionally pulling `get_vars` back
+    (AFTER the push — the executor barriers a sync round first). Each var
+    maps round-robin onto the endpoints (list or comma string); a var
+    named `<param>@GRAD` pushes to the server's `<param>` slot, and a
+    get_var pulls from the endpoint its gradient was pushed to. Multiple
+    sync trainers must pass their own trainer_id."""
+    epmap = _epmap(endpoints)
+    helper = LayerHelper("Send")
+    block = helper.main_program.current_block()
+    names = [v.name if hasattr(v, "name") else str(v) for v in send_vars]
+    get_names = [v.name if hasattr(v, "name") else str(v)
+                 for v in (get_vars or [])]
+    send_eps = {n: epmap[i % len(epmap)] for i, n in enumerate(names)}
+    params = {n: n.split("@GRAD")[0] for n in names}
+    # a pulled param lives wherever its gradient went; names not among the
+    # pushed params fall back to round robin
+    param_home = {params[n]: send_eps[n] for n in names}
+    block.append_op(
+        "send", inputs={"X": names}, outputs={"Out": get_names},
+        attrs={
+            "endpoints": send_eps,
+            "params": params,
+            "recv_endpoints": {
+                n: param_home.get(n, epmap[i % len(epmap)])
+                for i, n in enumerate(get_names)},
+            "trainer_id": int(trainer_id),
+        },
+    )
+
+
+def Recv(endpoints, get_vars):
+    """Recv layer (reference layers/io.py:205 -> recv_op.cc): pull current
+    values of `get_vars` from their pservers into scope before the step."""
+    epmap = _epmap(endpoints)
+    helper = LayerHelper("Recv")
+    block = helper.main_program.current_block()
+    names = [v.name if hasattr(v, "name") else str(v) for v in get_vars]
+    block.append_op(
+        "recv", inputs={}, outputs={"Out": names},
+        attrs={"endpoints": {n: epmap[i % len(epmap)]
+                             for i, n in enumerate(names)}},
+    )
+
+
+class ListenAndServ:
+    """Server-side wrapper (reference layers/io.py:107 ListenAndServ over
+    listen_and_serv_op): capture a block of optimize ops with `do()`, then
+    `run(scope)` serves them behind the ParameterServer RPC service — the
+    op that never returns becomes a service object.
+
+        serv = ListenAndServ("127.0.0.1:6174", inputs=[w], fan_in=1)
+        with serv.do():
+            layers.sgd-style optimize ops over (param, grad)
+        ps = serv.run(scope)   # serves until ps.shutdown()
+    """
+
+    def __init__(self, endpoint, inputs=None, fan_in=1,
+                 optimizer_mode=True):
+        self.helper = LayerHelper("listen_and_serv")
+        self.endpoint = str(endpoint)
+        self.inputs = list(inputs or [])
+        self.fan_in = int(fan_in)
+        self.optimizer_mode = optimizer_mode
+        self._sub = None
+
+    @contextlib.contextmanager
+    def do(self):
+        main = self.helper.main_program
+        self._sub = main.create_block()
+        try:
+            yield
+        finally:
+            main.rollback()
+
+    def get_params_and_grads(self):
+        """(param names, grad names) captured in the block (reference
+        get_params_and_grads)."""
+        params, grads = [], []
+        for op in self._sub.ops:
+            ins = op.desc.inputs
+            if self.optimizer_mode:
+                if "Param" in ins and "Grad" in ins:
+                    params.append(ins["Param"][0])
+                    grads.append(ins["Grad"][0])
+            else:
+                for names in ins.values():
+                    params.extend(names)
+                    grads.extend(names)
+        return params, grads
+
+    def _build_server_program(self):
+        from ..framework import Program
+
+        prog = Program()
+        block = prog.global_block()
+        params, _ = self.get_params_and_grads()
+        parent = self.helper.main_program.global_block()
+        needed = set(params)
+        for op in self._sub.ops:
+            needed.update(n for n in op.desc.input_names() if n)
+            needed.update(n for n in op.desc.output_names() if n)
+        for n in needed:
+            src = self._sub._var_recursive(n) or parent._var_recursive(n)
+            v = block.create_var(
+                name=n,
+                shape=list(src.shape) if src is not None and src.shape
+                else None,
+                dtype=src.dtype if src is not None else "float32",
+                persistable=True,
+            )
+            if n in params:
+                v.desc.is_parameter = True
+        import copy as _copy
+
+        from ..framework import Operator
+
+        for op in self._sub.ops:
+            new = Operator.__new__(Operator)
+            new.block = block
+            new.desc = _copy.deepcopy(op.desc)
+            block.ops.append(new)
+        prog._bump_version()
+        return prog
+
+    def run(self, scope=None, port=None, device=None):
+        """Serve the captured block (returns the live ParameterServer —
+        call .shutdown() to stop). Params initialize from `scope` (default:
+        the current global scope, i.e. the builder's own state); the
+        optimize ops run on `device` (None: the card, raising without
+        one)."""
+        from ...distributed.param_server import ParameterServer
+        from ..executor import global_scope
+
+        prog = self._build_server_program()
+        ps = ParameterServer(prog, trainers=self.fan_in,
+                             sync_mode=self.fan_in > 1,
+                             scope=scope or global_scope(), device=device)
+        if port is None:
+            port = int(self.endpoint.rsplit(":", 1)[1])
+        ps.serve(port=port)
+        return ps

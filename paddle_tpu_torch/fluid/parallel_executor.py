@@ -74,7 +74,7 @@ from ..device import resolve_device
 from ..observability import metrics as _metrics, tracing as _tracing
 from .enforce import throw_on
 from . import core
-from .executor import (Executor, _as_feed, _as_name, _fetched_numpy,
+from .executor import (DIST_OP_TYPES, Executor, _as_feed, _as_name, _fetched_numpy,
                        _matmul_precision, _next_seed, _run_io_host_ops,
                        global_scope)
 from .framework import Program, default_main_program
@@ -374,6 +374,14 @@ class ParallelExecutor:
             device = "cpu"
         self.device = resolve_device(device)
         self._program = main_program or default_main_program()
+        dist_ops = sorted({op.desc.type for op in
+                           self._program.global_block().ops
+                           if op.desc.type in DIST_OP_TYPES})
+        if dist_ops:
+            raise NotImplementedError(
+                f"ParallelExecutor: op types {dist_ops} (parameter-server "
+                "transport) run under the plain Executor only — the JAX "
+                "package has no pserver training under a mesh either")
         self._loss_name = loss_name
         dtype = self.device.type
         if mesh is None:

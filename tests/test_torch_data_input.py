@@ -482,7 +482,13 @@ def test_g_double_buffer_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_g_transport_ops_still_refused():
+    """The plain Executor runs the transport ops now
+    (tests/test_torch_pserver.py); one that sends a var with no value is
+    refused before any RPC, and the ParallelExecutor refuses them all."""
     main = tfluid.Program()
-    main.global_block().append_op(type="send", inputs={}, outputs={})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    main.global_block().append_op(type="send", inputs={"X": ["g"]},
+                                  outputs={})
+    with pytest.raises(RuntimeError, match="send op: var 'g' has no value"):
         tfluid.Executor("cpu").run(main)
+    with pytest.raises(NotImplementedError, match="parameter-server"):
+        tfluid.ParallelExecutor(use_cuda=False, main_program=main)

@@ -373,23 +373,67 @@ def test_distribute_transpiler_facade_matches_jax():
 
 
 def test_transpiler_send_recv_program_is_refused_by_the_executor():
-    """The reference flow builds (send/recv around the step) and the
-    port's Executor refuses its transport ops; start_pserver raises."""
-    pkg = _port()
-    main, startup, cost = _transpiler_mlp(pkg)
-    t = pkg.fluid.DistributeTranspiler()
-    t.transpile(trainer_id=0, program=main, startup_program=startup,
-                pservers="ps0:6174", trainers=1)
-    prog = t.get_trainer_program(send_recv=True)
-    types_ = [op.desc.type for op in prog.global_block().ops]
-    assert types_[0] == "recv" and types_[-1] == "send"
-    exe = pkg.fluid.Executor(pkg.fluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="pserver transport"):
-        exe.run(prog, feed={"x": np.zeros((2, 4), np.float32),
-                            "y": np.zeros((2, 1), np.float32)},
-                fetch_list=[cost])
-    with pytest.raises(NotImplementedError, match="parameter server"):
-        t.start_pserver("ps0:6174")
+    """The reference flow (send/recv around the step) used to be refused
+    by the port's Executor; it now runs against start_pserver's
+    pservers on the CPU, with the JAX package's losses (rtol 1e-5) and
+    pserver parameters (rtol 1e-6, atol 1e-7: the two packages' products
+    round apart by an ulp) on the same feeds and the JAX pserver's
+    initial state. The ParallelExecutor still refuses it."""
+    import socket
+
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    feeds = []
+    rng = np.random.RandomState(3)
+    for _ in range(4):
+        x = rng.randn(6, 4).astype(np.float32)
+        feeds.append({"x": x, "y": x.sum(1, keepdims=True) * 0.5})
+    out, init = {}, None
+    for side, pkg in (("jax", _jax()), ("port", _port())):
+        main, startup, cost = _transpiler_mlp(pkg)
+        # a seeded JAX startup: the pservers' initial state, and so the
+        # loss curve, is the same in every run
+        main.random_seed = startup.random_seed = 11
+        ep = f"127.0.0.1:{free_port()}"
+        t = pkg.fluid.DistributeTranspiler()
+        t.transpile(trainer_id=0, program=main, startup_program=startup,
+                    pservers=ep, trainers=1)
+        prog = t.get_trainer_program(send_recv=True)
+        types_ = [op.desc.type for op in prog.global_block().ops]
+        assert types_[0] == "recv" and types_[-1] == "send"
+        kw = {} if side == "jax" else {"device": "cpu"}
+        ps = t.start_pserver(ep, port=int(ep.rsplit(":", 1)[1]), **kw)
+        try:
+            if side == "jax":
+                init = {n: np.array(ps._scope.find_var(n))
+                        for n in ps._scope.var_names()}
+                exe = pkg.fluid.Executor(pkg.fluid.CPUPlace())
+            else:
+                for n, v in init.items():
+                    ps._scope.set_var(n, torch.tensor(v))
+                exe = pkg.fluid.Executor(pkg.fluid.CPUPlace())
+                with pytest.raises(NotImplementedError,
+                                   match="parameter-server"):
+                    pkg.fluid.ParallelExecutor(use_cuda=False,
+                                               main_program=prog)
+            scope = pkg.fluid.Scope()
+            exe.run(startup, scope=scope)
+            losses = [_loss(exe.run(prog, feed=f, fetch_list=[cost],
+                                    scope=scope)[0]) for f in feeds]
+            out[side] = (losses, {p: np.array(ps.get_param(p))
+                                  for p in ps.owned_params()})
+        finally:
+            ps.shutdown()
+    np.testing.assert_allclose(out["port"][0], out["jax"][0], rtol=1e-5)
+    assert out["port"][0][-1] < out["port"][0][0]
+    for p, want in out["jax"][1].items():
+        np.testing.assert_allclose(out["port"][1][p], want, rtol=1e-6,
+                                   atol=1e-7)
 
 
 # --- the mesh cases (one spawned world of 4) --------------------------------
