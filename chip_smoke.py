@@ -381,6 +381,35 @@ and prints no result):
            memory of each in turns beside estimate_peak_bytes); (d) one
            Transformer-base step under fluid.profiler, whose exported
            trace must name K1-K3b's kernels.
+  fleet    after pserver, the serving control plane (paddle_tpu_torch
+           fleet, autotune, debug server, timeline) at the serve phase's
+           width: (a) a seeded GPT-2-medium checkpoint rolled out by a
+           RolloutDriver, canary r0, to two in-process ServingServers
+           joined to a FleetController by FleetMembers; (b) the serve
+           phase's 8 prompts (32 new tokens) through a FleetRouter at
+           once: tokens bitwise the serve phase's, K4 24 launches a
+           target step; tokens/s in turns (FLEET_TURNS) of a router at
+           the default scrape TTLs, the TTL-0 router, direct
+           ServingClient calls to r0, and direct calls split over r0 and
+           r1, with each side's decode step spans; the default router's
+           added p50 ms a request against direct calls, and the route
+           ms of each router; (c) each replica alone while the other's
+           pool is pinned full (24 K4 launches a target step each), both
+           full: a shed; (e) a skewed ResNet-50 request-size stream and
+           decode bursts through the static ladders,
+           seed_cache_from_observed into a scoped cache, then
+           slots="auto" and buckets="auto" versions fleet-wide: both
+           replicas resolve the cached ladders; expected padding waste
+           and images/s of the auto and static ladders in turns, 53 K5
+           launches a batch; (d) r1 killed mid-FleetTokenStream, the
+           stream resumed on r0 with the same tokens; (f) a
+           ReplicaLauncher spawns `python -m paddle_tpu_torch.fleet
+           --replica --device cuda` from a scale intent: it converges
+           from the intent log to the same auto ladders, answers a routed
+           request with the same tokens and leaves on SIGTERM (exit 0);
+           (g) the debug server's /statusz (fleet, mesh, serving, device
+           sections) and /metrics (fleet_*, autotune_*), and `timeline`
+           merge of this process's and the replica's trace shards.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -9005,6 +9034,551 @@ def pserver_phase(torch):
     return out
 
 
+# --- the serving fleet ---------------------------------------------------
+
+FLEET_LEASE = 10.0       # replica lease (s); in-process members beat 0.5 s
+FLEET_NEW = 32           # new tokens a routed request (the serve phase's)
+FLEET_TURNS = 2          # turns of each side / of (static, auto)
+FLEET_LATENCY = 40       # sequential 4-token requests a side (p50)
+FLEET_SHORT = 16         # prompt tokens of the turns' and bursts' requests
+# a ResNet-50 request-size stream (images a request) constructed to
+# exercise the ladder DP, not drawn from users' traffic: lumpy, so the
+# geometric 1/2/4/8/16 ladder pads most requests
+FLEET_SIZES = (1, 3, 3, 5, 5, 5, 6, 6, 6, 6, 12, 12)
+FLEET_STREAM = 40        # requests of that stream (>= 32: enough to derive)
+# concurrent decode requests a burst: the slot demand slots="auto" learns
+FLEET_BURSTS = (3, 3, 6, 3, 6, 3, 3, 6, 3, 6)
+FLEET_AUTO_BUCKETS = 3   # entries a derived ladder may have
+FLEET_PIN = 990001       # sequence id that pins a replica's KV pool
+
+
+def _fleet_counts(mod):
+    """(kernel launches, plain calls) of K4 (``pa``) or K5 (``k5``)."""
+    return (mod.counts.kernel_launches[mod.KERNEL],
+            mod.counts.plain_calls[mod.KERNEL])
+
+
+def _fleet_engines(servers, model):
+    return [srv.registry.get(model) for srv in servers]
+
+
+def _logged(cmd, path):
+    """A replica command whose output is appended to ``path``."""
+    return ["bash", "-c", 'exec "$@" >> "$0" 2>&1', path] + list(cmd)
+
+
+def _get_json(addr, path):
+    import urllib.request
+
+    host, port = addr
+    with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                timeout=60) as r:
+        body = r.read().decode()
+    return json.loads(body) if path != "/metrics" else body
+
+
+def fleet_phase(torch, serve_ref):
+    """The serving control plane on the card: a FleetController, two
+    in-process ServingServers joined by FleetMembers, a FleetRouter, a
+    RolloutDriver, the autotune layer, a ReplicaLauncher's replica
+    process, the debug server and the timeline tool, at the serve
+    phase's width (GPT-2-medium, page 16, 513 pages, chunk 64) and the
+    infer phase's fused ResNet-50."""
+    phase("fleet")
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch import autotune
+    from paddle_tpu_torch.checkpoint import save_decoder_checkpoint
+    from paddle_tpu_torch.fleet import (FleetController, FleetMember,
+                                        FleetRouter, ReplicaLauncher,
+                                        RolloutDriver, decoder_artifact,
+                                        model_artifact)
+    from paddle_tpu_torch.kernels import conv_bn_relu as k5
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import (debug_server, metrics,
+                                                timeline, tracing)
+    from paddle_tpu_torch.serving import (ServerOverloaded, ServingClient,
+                                          ServingServer)
+    from paddle_tpu_torch.serving.decode import DecoderSpec
+
+    t_phase = time.perf_counter()
+    layers = GPT2_MEDIUM["n_layers"]  # K4 launches a target step
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    prompts, ref = serve_ref["prompts"], serve_ref["tokens"]
+    rng = np.random.RandomState(23)
+    out = {}
+
+    def fresh(n):
+        return [[int(t) for t in rng.randint(0, GPT2_MEDIUM["vocab"],
+                                             FLEET_SHORT)]
+                for _ in range(n)]
+
+    def counter(name):
+        return metrics.counter(name).value()
+
+    stack = contextlib.ExitStack()
+    try:
+        # the debug server first: every server and the controller below
+        # registers its /statusz section when it serves
+        dbg = debug_server.ensure_shared(device=CARD)
+        stack.callback(debug_server.stop_shared)
+        tracing.trace_reset()
+        tracing.trace_enable()
+        stack.callback(tracing.trace_disable)
+
+        # (a) rollout: checkpoint -> canary r0 -> gate -> intent -> r1
+        ck = os.path.join(tmp, "gpt2m")
+        t0 = time.perf_counter()
+        save_decoder_checkpoint(ck, DecoderSpec(**GPT2_MEDIUM))
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+        ctl = FleetController(lease_ttl=FLEET_LEASE)
+        addr = ctl.serve()
+        stack.callback(ctl.shutdown)
+        servers, members = [], []
+        for i in range(2):
+            srv = ServingServer(device=CARD)
+            srv.serve()
+            stack.callback(srv.shutdown, drain=False)
+            servers.append(srv)
+            m = FleetMember(srv, addr, replica_id=f"r{i}",
+                            beat_interval=0.5)
+            stack.callback(m.stop, deregister=False)
+            members.append(m)
+        tracing.set_process_label("chip_smoke fleet")
+        if not all(m.wait_registered(60.0) for m in members):
+            raise RuntimeError("replicas did not register")
+        # scrape TTL 0: every routing reads the replicas' load reports
+        # anew, which the pinned-pool, shed, failover and spawn steps need
+        router = FleetRouter(addr, scrape_ttl=0.0, replica_ttl=0.0,
+                             timeout=900.0)
+        stack.callback(router.close)
+        # the router a deployment runs: FLAGS' scrape TTL, the default
+        # replica TTL
+        router_default = FleetRouter(addr, timeout=900.0)
+        stack.callback(router_default.close)
+        drv = RolloutDriver(addr, timeout=900.0)
+        t0 = time.perf_counter()
+        s1 = drv.rollout(
+            "gpt2m", decoder_artifact(checkpoint_dir=ck, **SERVE),
+            canary="r0", converge_timeout=600.0,
+            probe=lambda cli: cli.generate("gpt2m", prompts[0][:16],
+                                           max_new_tokens=2))
+        out["rollout_s"] = time.perf_counter() - t0
+        if sorted(s1["converged"]) != ["r0", "r1"] or s1["skipped"]:
+            raise RuntimeError(f"rollout did not converge: {s1}")
+        log(f"  rollout gpt2m v{s1['version']} canary {s1['canary']} -> "
+            f"{s1['converged']} in {out['rollout_s']:.2f} s (checkpoint "
+            f"saved in {out['checkpoint_save_s']:.2f} s)")
+
+        def steps():
+            return [e.stats()["steps"]
+                    for e in _fleet_engines(servers, "gpt2m")]
+
+        def routed():
+            return [counter(f"fleet.routed.r{i}") for i in range(2)]
+
+        # (b) the serve phase's 8 prompts through the router at once
+        s0, rt0 = steps(), routed()
+        pa.counts.reset()
+        results, wall = _concurrent([router], "gpt2m", prompts, FLEET_NEW)
+        launches, plain = _fleet_counts(pa)
+        d_steps = [b - a for a, b in zip(s0, steps())]
+        d_routed = [b - a for a, b in zip(rt0, routed())]
+        # the window ends here
+        got = [r["tokens"] for r in results]
+        if got != ref:
+            bad = [i for i, (g, w) in enumerate(zip(got, ref)) if g != w]
+            raise RuntimeError(f"router tokens differ from the serve "
+                               f"phase's on prompts {bad}")
+        if launches != layers * sum(d_steps) or launches == 0 or plain:
+            raise RuntimeError(f"K4 launches {launches} != {layers} x "
+                               f"{d_steps} target steps (plain {plain})")
+        out["routing"] = {"wall_s": wall,
+                          "tokens_per_s": 8 * FLEET_NEW / wall,
+                          "routed": d_routed, "target_steps": d_steps,
+                          "k4_launches": launches,
+                          "tokens_bitwise_serve_phase": True}
+        log(f"  8 routed requests: {d_routed} to r0/r1, tokens bitwise "
+            f"the serve phase's, {launches} K4 launches = {layers} x "
+            f"{sum(d_steps)} target steps, {wall:.2f} s")
+
+        # the routers against direct ServingClient calls, in turns: to
+        # r0 alone, and split over r0 and r1 (the TTL-0 router's split)
+        direct = [ServingClient(servers[0].address, timeout=900.0)
+                  for _ in range(8)]
+        direct_r1 = [ServingClient(servers[1].address, timeout=900.0)
+                     for _ in range(4)]
+        for c in direct + direct_r1:
+            stack.callback(c.close)
+        sides = {"router": [router_default], "router_ttl0": [router],
+                 "direct": direct,
+                 "direct_split": [c for pair in zip(direct[:4], direct_r1)
+                                  for c in pair]}
+        turns = {k: {"tokens_per_s": [], "target_steps_r0_r1": [],
+                     "routed_r0_r1": [], "step_ms_p50": [],
+                     "steps_by_engine_thread": []} for k in sides}
+
+        def last_ts():
+            return max((e["ts"] for e in tracing.trace_events()),
+                       default=0.0)
+
+        for t in range(FLEET_TURNS):
+            order = list(sides) if t % 2 == 0 else list(sides)[::-1]
+            for side in order:
+                s0, rt0, ts0 = steps(), routed(), last_ts()
+                _r, w = _concurrent(sides[side], "gpt2m", fresh(8),
+                                    FLEET_NEW)
+                # the window's decode steps, by scheduler thread (one a
+                # busy engine)
+                by_tid = {}
+                for ev in tracing.trace_events():
+                    if ev["ts"] > ts0 and \
+                            ev.get("name") == "serving.decode.step" and \
+                            ev["args"].get("model") == "gpt2m":
+                        by_tid.setdefault(ev["tid"], []).append(
+                            ev["dur"] / 1e3)
+                rec = turns[side]
+                rec["tokens_per_s"].append(8 * FLEET_NEW / w)
+                rec["target_steps_r0_r1"].append(
+                    [b - a for a, b in zip(s0, steps())])
+                rec["routed_r0_r1"].append(
+                    [b - a for a, b in zip(rt0, routed())])
+                rec["step_ms_p50"].append(statistics.median(
+                    [d for v in by_tid.values() for d in v]))
+                rec["steps_by_engine_thread"].append(
+                    sorted((len(v) for v in by_tid.values()), reverse=True))
+        # sequential 4-token requests: each router's route ms (the
+        # ranking alone, from fleet.route_ms's exact sum) and the
+        # default router's added p50 against direct calls to r0
+        lat = {"router": [], "router_ttl0": [], "direct": []}
+        route = {"router": [], "router_ttl0": []}
+        hist = metrics.histogram("fleet.route_ms")
+        for i in range(FLEET_LATENCY):
+            for side in (list(lat) if i % 2 == 0 else list(lat)[::-1]):
+                cli = sides[side][0]
+                (p,) = fresh(1)
+                h0 = hist.value()["sum"]
+                t0 = time.perf_counter()
+                cli.generate("gpt2m", p, max_new_tokens=4)
+                lat[side].append((time.perf_counter() - t0) * 1e3)
+                if side in route:
+                    route[side].append(hist.value()["sum"] - h0)
+
+        def pct(v, q):
+            v = sorted(v)
+            return v[min(len(v) - 1, int(q * len(v)))]
+
+        out["router_vs_direct"] = {
+            "turns": turns,
+            "p50_request_ms": {k: statistics.median(v)
+                               for k, v in lat.items()},
+            "p25_p75_request_ms": {k: [pct(v, 0.25), pct(v, 0.75)]
+                                   for k, v in lat.items()},
+            "added_p50_ms": {k: statistics.median(lat[k])
+                             - statistics.median(lat["direct"])
+                             for k in route},
+            "route_ms_p50": {k: statistics.median(v)
+                             for k, v in route.items()},
+            "route_ms_p95": {k: pct(v, 0.95) for k, v in route.items()},
+            "requests_a_side": FLEET_LATENCY,
+        }
+        log("  routers vs direct (in turns) " +
+            json.dumps(out["router_vs_direct"]))
+
+        # (c) decode-aware routing: each replica alone takes the traffic
+        # while the other's pool is pinned full; both full -> shed
+        allocs = [e.cache.allocator for e in _fleet_engines(servers,
+                                                            "gpt2m")]
+
+        def pin(i):
+            a = allocs[i]
+            a.alloc(FLEET_PIN + i, a.pages_free * a.page_size)
+
+        def unpin(i):
+            allocs[i].free(FLEET_PIN + i)
+
+        per_replica = {}
+        for full, free in ((0, 1), (1, 0)):
+            pin(full)
+            try:
+                s0, rt0 = steps(), routed()
+                pa.counts.reset()
+                res, _w = _concurrent([router], "gpt2m", prompts[:4], 8)
+                launches, plain = _fleet_counts(pa)
+                d_steps = [b - a for a, b in zip(s0, steps())]
+                d_routed = [b - a for a, b in zip(rt0, routed())]
+            finally:
+                unpin(full)
+            if d_routed[full] or d_routed[free] != 4 or d_steps[full]:
+                raise RuntimeError(f"pinned r{full} still took work: "
+                                   f"routed {d_routed}, steps {d_steps}")
+            if launches != layers * d_steps[free] or launches == 0 or plain:
+                raise RuntimeError(f"r{free}: K4 launches {launches} != "
+                                   f"{layers} x {d_steps[free]} (plain "
+                                   f"{plain})")
+            if [r["tokens"] for r in res] != [t[:8] for t in ref[:4]]:
+                raise RuntimeError(f"r{free}'s tokens differ")
+            per_replica[f"r{free}"] = {
+                "k4_launches": launches, "target_steps": d_steps[free],
+                "k4_per_target_step": launches / d_steps[free]}
+        pin(0)
+        pin(1)
+        sheds = counter("fleet.sheds")
+        try:
+            router.generate("gpt2m", prompts[0], max_new_tokens=8)
+        except ServerOverloaded:
+            pass
+        else:
+            raise RuntimeError("both pools full and the router did not "
+                               "shed")
+        finally:
+            unpin(0)
+            unpin(1)
+        if counter("fleet.sheds") != sheds + 1:
+            raise RuntimeError("the shed was not counted")
+        out["per_replica"] = per_replica
+        log("  pinned-pool routing " + json.dumps(per_replica) +
+            "; both pinned: shed (fleet.sheds +1)")
+
+        # (e) auto ladders: a skewed stream through the static ladders,
+        # seed_cache_from_observed, then "auto" versions fleet-wide
+        main, startup, _logits, prob = build_resnet50(seed=1)
+        exe, scope = fluid.Executor(CARD), fluid.Scope()
+        exe.run(startup, scope=scope)
+        seeded_bn_fold(torch, main, scope, seed=2)
+        rdir = os.path.join(tmp, "resnet50")
+        with fluid.scope_guard(scope):
+            fluid.save_inference_model(rdir, ["img"], [prob], exe, main)
+        del exe, scope
+        autotune.reset_histograms()
+        cache_dir = os.path.join(tmp, "autotune")
+        cache = stack.enter_context(autotune.scoped(cache_dir))
+        drv.rollout("resnet50s", model_artifact(
+            rdir, buckets=INFER_BUCKETS, max_wait_ms=0.0),
+            converge_timeout=600.0)
+        srng = np.random.RandomState(29)
+        sizes = [int(x) for x in srng.choice(FLEET_SIZES, FLEET_STREAM)]
+        images = [_images(srng, n) for n in sizes]
+        for x in images:
+            router.infer("resnet50s", {"img": x})
+        for n in FLEET_BURSTS:
+            _concurrent([router], "gpt2m", fresh(n), 4)
+        seeded = autotune.seed_cache_from_observed(
+            max_buckets=FLEET_AUTO_BUCKETS)
+        hist = autotune.histogram("serving_buckets")
+        t0 = time.perf_counter()
+        s2 = drv.rollout(
+            "gpt2m", decoder_artifact(checkpoint_dir=ck,
+                                      **dict(SERVE, slots="auto")),
+            canary="r1", converge_timeout=600.0)
+        out["rollout_auto_s"] = time.perf_counter() - t0
+        drv.rollout("resnet50", model_artifact(rdir, buckets="auto",
+                                               max_wait_ms=0.0),
+                    converge_timeout=600.0)
+        slots = [e.stats()["slots"]
+                 for e in _fleet_engines(servers, "gpt2m")]
+        buckets = [e.stats()["buckets"]
+                   for e in _fleet_engines(servers, "resnet50")]
+        if slots[0] != slots[1] or slots[0] != seeded["decode_slots"] or \
+                buckets[0] != buckets[1] or \
+                buckets[0] != seeded["serving_buckets"]:
+            raise RuntimeError(f"replicas resolved different ladders: "
+                               f"slots {slots}, buckets {buckets}, cache "
+                               f"{seeded}")
+        waste = {"static": autotune.expected_padding_waste(hist,
+                                                           INFER_BUCKETS),
+                 "auto": autotune.expected_padding_waste(hist, buckets[0])}
+        ips = {"static": [], "auto": []}
+        engines = (_fleet_engines(servers, "resnet50s")
+                   + _fleet_engines(servers, "resnet50"))
+        b0 = sum(e.stats()["batches"] for e in engines)
+        k5.counts.reset()
+        for t in range(FLEET_TURNS):
+            for side in (("static", "auto") if t % 2 == 0
+                         else ("auto", "static")):
+                model = "resnet50s" if side == "static" else "resnet50"
+                t0 = time.perf_counter()
+                for x in images:
+                    router.infer(model, {"img": x})
+                ips[side].append(sum(sizes) / (time.perf_counter() - t0))
+        k5_launches, k5_plain = _fleet_counts(k5)
+        batches = sum(e.stats()["batches"] for e in engines) - b0
+        # each batch's compute (feeds to the card, the op loop, fetches)
+        # by model and bucket, from the engines' serving.batch spans
+        batch_ms = {}
+        for ev in tracing.trace_events():
+            if ev.get("name") == "serving.batch" and \
+                    ev["args"].get("model") in ("resnet50s", "resnet50"):
+                batch_ms.setdefault(f"{ev['args']['model']}:"
+                                    f"{ev['args']['bucket']}", []).append(
+                    ev["dur"] / 1e3)
+        if k5_launches != CONVS_PER_FORWARD * batches or k5_plain:
+            raise RuntimeError(f"K5 launches {k5_launches} != "
+                               f"{CONVS_PER_FORWARD} x {batches} batches "
+                               f"(plain {k5_plain})")
+        out["auto"] = {
+            "decode_slots": slots[0], "resnet_buckets": buckets[0],
+            "static_buckets": INFER_BUCKETS, "seeded": seeded,
+            "request_sizes": sizes, "expected_padding_waste": waste,
+            "images_per_s": ips,
+            "p50_batch_ms": {k: statistics.median(v)
+                             for k, v in sorted(batch_ms.items())},
+            "batches_by_bucket": {k: len(v)
+                                  for k, v in sorted(batch_ms.items())},
+            "k5_launches": k5_launches,
+            "batches": batches, "k5_per_batch": k5_launches / batches,
+            "rollout_auto_s": out["rollout_auto_s"],
+            "cache_path": os.path.basename(cache.path)}
+        log("  auto ladders " + json.dumps(out["auto"]))
+
+        # (d) failover: r1 dies mid-stream, the stream resumes on r0
+        p = prompts[1]
+        want = router.generate("gpt2m", p, max_new_tokens=FLEET_NEW)[
+            "tokens"]
+        allocs = [e.cache.allocator for e in _fleet_engines(servers,
+                                                            "gpt2m")]
+        fo, rs = counter("fleet.failovers"), counter("fleet.stream.resumes")
+        pin(0)
+        try:
+            st = router.generate("gpt2m", p, max_new_tokens=FLEET_NEW,
+                                 stream=True)
+        finally:
+            unpin(0)
+        if st.replica != "r1":
+            raise RuntimeError(f"the stream started on {st.replica}")
+        head = [next(st) for _ in range(4)]
+        servers[1].kill()
+        members[1].stop(deregister=False)
+        toks = head + list(st)
+        servers[1].shutdown(drain=False)
+        ctl._evict("r1")  # the operator's cleanup of the dead replica
+        if toks != want or counter("fleet.failovers") != fo + 1 or \
+                counter("fleet.stream.resumes") != rs + 1:
+            raise RuntimeError(f"failover stream: tokens equal "
+                               f"{toks == want}, failovers "
+                               f"{counter('fleet.failovers') - fo}, "
+                               f"resumes "
+                               f"{counter('fleet.stream.resumes') - rs}")
+        out["failover"] = {"tokens_equal": True, "killed_after": 4,
+                           "failovers": 1, "stream_resumes": 1}
+        log(f"  r1 killed after 4 streamed tokens: resumed on r0, "
+            f"{FLEET_NEW} tokens equal the buffered request's")
+
+        # (f) a replica process from a scale intent
+        trace_dir = os.path.join(tmp, "traces")
+        os.makedirs(trace_dir)
+        child_log = os.path.join(REPO, "smoke_out", "fleet_replica.log")
+        open(child_log, "w").close()
+        ln = ReplicaLauncher(
+            addr, grace=60.0, backoff=0.5, start=False, device=CARD,
+            command_factory=lambda rid: _logged(ln._default_command(rid),
+                                                child_log),
+            env={"PADDLE_TPU_AUTOTUNE_DIR": cache_dir,
+                 "PADDLE_TPU_TRACE": "1", "PADDLE_TPU_TRACE_DIR": trace_dir})
+        stack.callback(ln.stop)
+        t0 = time.perf_counter()
+        ctl._add_scale_intent("scale_up", {"replica_id": "r2"})
+        ln.poll_once()
+        child = {}
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline:
+            if ln.stats()["replicas"]["r2"]["crashes"]:
+                raise RuntimeError("the replica process crashed; see "
+                                   "smoke_out/fleet_replica.log")
+            rep = ctl._list_replicas().get("r2")
+            if rep is not None:
+                cli = ServingClient(tuple(rep["endpoint"]), retries=0)
+                try:
+                    child = cli.list_models()
+                except (ConnectionError, OSError, RuntimeError):
+                    child = {}
+                finally:
+                    cli.close()
+                if {"gpt2m", "resnet50", "resnet50s"} <= set(child):
+                    break
+            time.sleep(0.2)
+        else:
+            raise RuntimeError(f"the replica process did not converge "
+                               f"(models {sorted(child)})")
+        spawn_s = time.perf_counter() - t0
+        if child["gpt2m"]["slots"] != slots[0] or \
+                child["resnet50"]["buckets"] != buckets[0] or \
+                child["gpt2m"]["version"] != s2["version"]:
+            raise RuntimeError(f"the replica process resolved "
+                               f"{child['gpt2m']['slots']} / "
+                               f"{child['resnet50']['buckets']}")
+        allocs = [e.cache.allocator for e in _fleet_engines(servers[:1],
+                                                            "gpt2m")]
+        r2 = counter("fleet.routed.r2")
+        pin(0)
+        try:
+            got = router.generate("gpt2m", p, max_new_tokens=FLEET_NEW)
+        finally:
+            unpin(0)
+        if got["tokens"] != want or counter("fleet.routed.r2") != r2 + 1:
+            raise RuntimeError("the replica process answered other tokens")
+        proc = ln._procs["r2"]["proc"]
+        ctl._add_scale_intent("scale_down", {"replica_id": "r2"})
+        ln.poll_once()
+        rc = proc.wait(120)
+        if rc != 0 or "r2" in ctl._list_replicas():
+            raise RuntimeError(f"the replica process left with {rc}")
+        out["spawned"] = {"spawn_to_serving_s": spawn_s,
+                          "models": sorted(child), "exit_code": rc,
+                          "slots": child["gpt2m"]["slots"],
+                          "tokens_equal": True}
+        log(f"  replica process r2: spawn to serving {spawn_s:.2f} s "
+            f"(converged {sorted(child)} from the intent log, slots "
+            f"{child['gpt2m']['slots']}), answered a routed request with "
+            f"the same tokens, SIGTERM -> exit {rc}, deregistered")
+
+        # (g) the debug server and the merged timeline
+        st = _get_json(dbg.address, "/statusz")
+        text = _get_json(dbg.address, "/metrics")
+        need = [f"fleet:{addr[1]}", "mesh", "device",
+                f"serving:{servers[0].address[1]}"]
+        if not all(k in st for k in need) or \
+                st["device"]["device"] != CARD or \
+                "fleet_routed_r0" not in text or \
+                "autotune_cache_hits" not in text:
+            raise RuntimeError(f"/statusz keys {sorted(st)}; /metrics "
+                               "lacks fleet_ or autotune_ names")
+        parent = tracing.trace_export(os.path.join(tmp, "parent.json"))
+        shards = [parent] + sorted(
+            os.path.join(trace_dir, f) for f in os.listdir(trace_dir))
+        merged = timeline.merge_shards(shards)
+        names = sorted({e["args"]["name"] for e in merged["traceEvents"]
+                        if e.get("ph") == "M"
+                        and e.get("name") == "process_name"})
+        if len(shards) != 2 or len(names) != 2 or \
+                "chip_smoke fleet" not in names:
+            raise RuntimeError(f"merged timeline names {names} from "
+                               f"{len(shards)} shards")
+        out["debug"] = {
+            "statusz_sections": sorted(st),
+            "fleet_replicas": sorted(st[f"fleet:{addr[1]}"]["replicas"]),
+            "metrics_lines": len(text.splitlines()),
+            "timeline_processes": names,
+            "timeline_spans": sum(1 for e in merged["traceEvents"]
+                                  if e.get("ph") == "X")}
+        log("  debug server and timeline " + json.dumps(out["debug"]))
+        out["peak_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"  fleet phase {out['seconds']:.1f} s, peak memory "
+            f"{out['peak_memory_allocated_gb']:.2f} GB")
+        return out
+    finally:
+        stack.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
@@ -9089,6 +9663,7 @@ def main():
     parallel = parallel_phase(torch)
     mesh_serve = mesh_serve_phase(torch)
     pserver = pserver_phase(torch)
+    fleet = fleet_phase(torch, serve_ref)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -9204,7 +9779,9 @@ def main():
         bound_f32_ms=k5_fwd["bound_f32_ms"], bound_peak=CONV_PEAK,
         forward=k5_fwd, max_rel_err=k5_rel, shapes=k5_rows,
         ptxas=ptxas.get("conv_bn_relu"), infer=infer, resnet_fold=fold,
-        resnet_train=resnet_train), _kernel_row(
+        resnet_train=resnet_train, fleet_launches=fleet["auto"][
+            "k5_launches"], fleet_batches=fleet["auto"]["batches"]),
+        _kernel_row(
         "conv_bn_relu_bf16", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
         "paddle_tpu/fluid/ops/pallas_kernels/conv_bn_relu.py:69",
         infer_amp["kernel_launches"]["conv_bn_relu_bf16"], amp_err, amp_fwd,
@@ -9302,6 +9879,7 @@ def main():
         "mesh_engine": {k: mesh_serve["engine"][k] for k in (
             "k4_launches_per_target_step", "p50_step_ms", "step_ratio_p50",
             "tokens_bitwise", "k4_local_map")},
+        "fleet": fleet,
     }, _k4_bf16_row(mesh_serve)] + train_kernels + infer_kernels}
     log(json.dumps(kernels))
     print(smi, flush=True)

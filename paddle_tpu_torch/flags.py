@@ -5,6 +5,7 @@ alone (a CPU tensor takes the plain PyTorch version, a CUDA tensor the
 hand-written kernel)."""
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 __all__ = ["FLAGS", "set_flags", "get_flag", "effective_flag"]
@@ -86,6 +87,59 @@ FLAGS: Dict[str, Any] = {
     # mesh (save_decoder_checkpoint(mesh_axes=)) wins over this default;
     # an explicit load_decoder(mesh_axes=) wins over both
     "serving_mesh_axes": "",
+    # cost-model-driven autotuning (paddle_tpu_torch/autotune). False =
+    # every knob is exactly its hand-set FLAGS default; True = tunable
+    # knobs (prefill_chunk, spec_k) read through the tuning cache per
+    # DEVICE KIND (the FLAGS constants demote to cold-cache defaults),
+    # and the executor logs per-shape step timings into it. "auto"
+    # serving ladders resolve through the cache either way
+    "autotune": False,
+    # where the tuning cache persists (tuning_cache.json, atomic
+    # tmp-write+rename). Seeded from PADDLE_TPU_AUTOTUNE_DIR; '' =
+    # in-memory only. Read once, when the process cache is first created
+    # (autotune.get_cache)
+    "autotune_dir": os.environ.get("PADDLE_TPU_AUTOTUNE_DIR", ""),
+    # serving fleet (paddle_tpu_torch/fleet). Replica lease TTL in
+    # seconds: a replica that misses heartbeats for this long is evicted
+    # from the routing table (members beat at ttl/3)
+    "fleet_lease_ttl": 5.0,
+    # router-side load-report cache TTL in seconds: how stale a scraped
+    # per-replica load report (free KV pages, queue depths) may be
+    # before the next routing decision re-scrapes
+    "fleet_scrape_ttl": 0.25,
+    # autoscale policy loop (fleet/policy.py): evaluation cadence in
+    # seconds; a scale decision needs `fleet_policy_beats` CONSECUTIVE
+    # ticks of the same verdict, and after any action the loop holds
+    # still for `fleet_policy_cooldown` ticks
+    "fleet_policy_interval": 0.5,
+    "fleet_policy_beats": 3,
+    "fleet_policy_cooldown": 8,
+    # scale-UP floors: intent when fleet-wide free KV pages OR queue
+    # headroom sits below these for `beats` consecutive ticks
+    "fleet_free_page_floor": 8,
+    "fleet_headroom_floor": 2,
+    # scale-DOWN hysteresis margin: the fleet MINUS the drain victim
+    # must retain margin x both scale-up floors (the dead band that
+    # keeps a boundary load from flapping the fleet)
+    "fleet_scale_margin": 2.0,
+    # replica-count bounds the policy loop may never cross
+    "fleet_min_replicas": 1,
+    "fleet_max_replicas": 4,
+    # replica-launcher crash-restart backoff base in seconds (doubles
+    # per consecutive crash, capped launcher-side)
+    "fleet_launcher_backoff": 0.25,
+    # intent signing + deploy-path allowlist (fleet/auth.py). Key '' =
+    # open mode (unsigned intents); the PADDLE_TPU_FLEET_KEY env var
+    # wins over the flag so launcher-spawned replica subprocesses
+    # inherit it. The allowlist is a ':'-separated list of absolute dir
+    # prefixes every checkpoint_dir/dirname/draft_checkpoint_dir payload
+    # path must resolve under (PADDLE_TPU_FLEET_ALLOW env wins; '' =
+    # unrestricted)
+    "fleet_intent_key": "",
+    # previous fleet key, ACCEPTED (verify-only) during a key rotation
+    # window (PADDLE_TPU_FLEET_KEY_PREV env wins)
+    "fleet_intent_key_prev": "",
+    "fleet_intent_allowlist": "",
 }
 
 
@@ -101,7 +155,13 @@ def get_flag(name: str):
 
 
 def effective_flag(name: str):
-    """A tunable knob's effective value. The JAX package reads these
-    through a per-device tuning cache; until the autotune layer is
-    ported the cold FLAGS default is the answer."""
-    return FLAGS[name]
+    """A tunable knob's EFFECTIVE value: the FLAGS entry is the
+    cold-cache default; with FLAGS['autotune'] on, a measured/derived/
+    override record for this device kind in the tuning cache wins (each
+    resolution counts autotune.cache.hits/misses)."""
+    base = FLAGS[name]
+    if not FLAGS["autotune"]:
+        return base
+    from .autotune import tuned_value
+
+    return tuned_value(name, default=base)

@@ -86,6 +86,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..flags import FLAGS
 from ..observability import metrics as _metrics, tracing as _tracing
 from . import core
 from .framework import Program, Variable, default_main_program
@@ -685,13 +686,30 @@ class Executor:
             out = self._run_body(program, feed or {}, fetch_list or [],
                                  scope or global_scope(), return_numpy,
                                  use_program_cache)
-        _m_step_ms.observe((_time.perf_counter() - t0) * 1000.0)
+        step_ms = (_time.perf_counter() - t0) * 1000.0
+        _m_step_ms.observe(step_ms)
+        if FLAGS["autotune"] and return_numpy and \
+                not getattr(self, "_last_run_built", True):
+            # feed the tuning cache's per-shape step log so a repeat
+            # session can skip re-measuring this (program, feed-shape)
+            # pair. Runs that built the program's plan are excluded, and
+            # so are return_numpy=False runs: only the fetch to numpy
+            # waits for the card, so without it the wall clock measures
+            # the launches, not the step
+            from ..autotune.measure import note_step_timing
+
+            try:
+                note_step_timing("executor.step", program, feed or {},
+                                 step_ms)
+            except Exception:  # the log is evidence, the run is not
+                pass
         return out
 
     def _entry(self, program, feed_names, use_program_cache):
         key = (program._version, tuple(sorted(feed_names)))
         prog_cache = self._cache.setdefault(program, {})
         entry = prog_cache.get(key) if use_program_cache else None
+        self._last_run_built = entry is None
         if entry is None:
             block = program.global_block()
             ops = [op.desc for op in block.ops

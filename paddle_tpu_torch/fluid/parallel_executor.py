@@ -50,13 +50,15 @@ Counters (the JAX package's names): ``parallel_executor.step_ms``,
 ``paddle_tpu_torch.mesh.observe``. The JAX package counts collectives in
 the compiled HLO; the port counts what ``CommDebugMode`` records on the
 first step of each program signature. ``collect_cost=True`` fills
-``last_cost_analysis['flops']`` from ``FlopCounterMode`` on that step and
-``bytes_accessed`` with -1 ("not available", the JAX package's value).
+``last_cost_analysis['flops']`` from ``autotune.CostProbe`` (the one
+cost counter of the port) on that step and ``bytes_accessed`` with -1
+("not available", the JAX package's value).
 
 ``device``: ``None`` means the card (a raise without one);
 ``use_cuda=False`` with no ``device`` means the CPU (the reference's
 CPUPlace). Not ported: the JAX package's multi-host form, where each
-process feeds only its local shard (it comes with fleet).
+process feeds only its local shard (it comes with the rest of
+``distributed/``).
 """
 from __future__ import annotations
 
@@ -574,9 +576,9 @@ class ParallelExecutor:
 
             probes.append(CommDebugMode())
             if self._collect_cost:
-                from torch.utils.flop_counter import FlopCounterMode
+                from ..autotune.measure import CostProbe
 
-                probes.append(FlopCounterMode(display=False))
+                probes.append(CostProbe(count_bytes=False))
         with contextlib.ExitStack() as stack:
             for p in probes:
                 stack.enter_context(p)
@@ -600,8 +602,8 @@ class ParallelExecutor:
                     counts[kind] = counts.get(kind, 0) + int(n)
             entry["collectives"] = note_sharded_compile(counts)
             if self._collect_cost:
-                entry["cost"] = {"flops": float(
-                    probes[1].get_total_flops()), "bytes_accessed": -1.0}
+                entry["cost"] = {"flops": probes[1].flops,
+                                 "bytes_accessed": -1.0}
         self.last_cost_analysis = entry["cost"]
         sharded_step_counter().inc()
         if return_numpy:

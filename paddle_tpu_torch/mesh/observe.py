@@ -15,9 +15,10 @@ status payload.
   - ``mesh.sharded_steps`` counts sharded step dispatches, and the
     executor's step span carries ``collectives=``.
 
-``mesh_status()`` returns the JAX package's ``/statusz`` mesh section
-payload. Serving it over HTTP waits for the port's
-``observability/debug_server.py`` (the outer layers, still to port).
+``mesh_status()`` returns the ``/statusz`` mesh section payload, which
+the shared debug server (``observability/debug_server.py``) registers
+under ``mesh`` when it starts; it reads the live table, so it shows
+every mesh noted before or after.
 """
 from __future__ import annotations
 

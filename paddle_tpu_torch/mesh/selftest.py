@@ -7,7 +7,9 @@ mesh in ``mesh_status()``; in a world of 2, a tp=2 decode engine serving
 the single-device engine's tokens with half the kv heads a rank, and the
 indivisible-kv-heads refusal; a decoder checkpoint written sharded over
 tp=2, loaded whole and shard by shard, a corrupt shard named. The JAX
-selftest's ``/statusz`` case waits for the port's debug server.
+selftest's ``/statusz`` case reads the meshes its own process built; here
+the ranks are spawned processes, so the parent's table stays empty
+(``tests/test_torch_debug_timeline.py`` holds the mesh section instead).
 """
 from __future__ import annotations
 

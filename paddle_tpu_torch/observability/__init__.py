@@ -7,6 +7,12 @@ such as ``serving.decode.steps`` read the same in both packages.
   - `metrics`: always-on counter/gauge/histogram registry with dict
     snapshot + Prometheus text export.
   - `log`: the `paddle_tpu_torch.*` logger tree (PADDLE_TPU_LOG_LEVEL).
+  - `timeline`: `python -m paddle_tpu_torch.observability.timeline
+    trace.json` prints a top-N span summary; `merge` aligns per-process
+    shards (PADDLE_TPU_TRACE_DIR) onto one clock; `--selftest`.
+  - `debug_server`: stdlib HTTP live introspection (/healthz /metrics
+    /tracez /statusz); PADDLE_TPU_DEBUG_PORT attaches it to a serving
+    server or fleet controller without code changes.
 """
 from . import metrics, tracing  # noqa: F401
 from .log import get_logger  # noqa: F401

@@ -11,8 +11,8 @@ of the default ladder), prints the endpoint and serves until ctrl-c.
 Clients call it with ``ServingClient((host, port)).infer(NAME, feeds)``.
 
 ``--selftest`` is the JAX package's in-process end-to-end check; it
-drives parts not ported yet (StableHLO exports and autotune ladders),
-so here it says so and exits non-zero.
+drives StableHLO exports, which are not ported, so here it says so and
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -22,10 +22,9 @@ import time
 
 SELFTEST_NOT_PORTED = (
     "paddle_tpu_torch.serving --selftest is not yet ported: the JAX "
-    "package's selftest drives StableHLO exports and autotune ladders, "
-    "which wait for later slices of the port. Use "
-    "`python3 chip_smoke.py` on a card, or the tests/test_torch_*.py "
-    "suites on the CPU.")
+    "package's selftest drives StableHLO exports, which wait for a later "
+    "slice of the port. Use `python3 chip_smoke.py` on a card, or the "
+    "tests/test_torch_*.py suites on the CPU.")
 
 
 def main(argv=None) -> int:

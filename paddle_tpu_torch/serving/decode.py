@@ -68,8 +68,10 @@ feature runs sharded: chunked prefill, prefix caching, preemption,
 speculation (the draft shards under the same rules), the typed workloads
 and the embed lane.
 
-Not ported yet: the autotuned ``"auto"`` ladders (``NotImplementedError``
-naming the autotune layer).
+``slots="auto"`` resolves at load through the autotune layer from the
+slot demand every submit records (``decode_slots``); submits and embeds
+also record their prompt lengths (``prefill_chunk``), as the JAX engine
+does.
 
 Lifecycle mirrors the JAX engine so the SAME ModelRegistry hot-swaps
 decoders: ``stop(drain=True)`` finishes every admitted sequence then
@@ -88,6 +90,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..autotune.ladder import observe as _observe_shape
 from ..device import resolve_device
 from ..distributed import faults as _faults
 from ..flags import FLAGS, effective_flag
@@ -1132,7 +1135,14 @@ class DecodeEngine:
             self._queue.append(req)
             self._n_requests += 1
             self._g_depth.set(len(self._queue))
+            # instantaneous concurrency demand — what slots="auto"
+            # derives its ladder from (observed outside the lock)
+            demand = len(self._queue) + len(self._slots)
             self._cond.notify()
+        _observe_shape("decode_slots", demand)
+        # the prompt-length histogram a prefill_chunk tuner derives its
+        # crossover from
+        _observe_shape("prefill_chunk", int(prompt.size))
         _m_requests.inc()
         return req
 
@@ -1232,6 +1242,7 @@ class DecodeEngine:
             self._embed_queue.append(req)
             self._n_requests += 1
             self._cond.notify()
+        _observe_shape("prefill_chunk", int(prompt.size))
         _m_embed_requests.inc()
         return req
 

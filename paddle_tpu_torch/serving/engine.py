@@ -35,9 +35,10 @@ Mechanics:
 One load path: `from_inference_dir` loads a pruned Program through
 `load_inference_model` into a PRIVATE Executor + Scope on the engine's
 device (the card unless the caller names the CPU). `from_exported_dir`
-raises a typed ServingError: an exported artifact is JAX StableHLO. The
-``"auto"`` ladder (and the shape observer feeding it) needs the
-autotune layer, which is not ported yet.
+raises a typed ServingError: an exported artifact is JAX StableHLO.
+``buckets="auto"`` resolves at load through the autotune layer
+(``autotune/ladder.py``), fed by the row count every request records at
+admission.
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..autotune.ladder import observe as _observe_shape
+from ..flags import FLAGS
 from ..observability import metrics as _metrics, tracing as _tracing
 from ..observability.log import get_logger
 from .errors import (DeadlineExceeded, EngineRetired, RequestTooLarge,
@@ -89,14 +92,19 @@ def _is_auto(spec) -> bool:
 
 def resolve_bucket_spec(spec, *, tunable_id: str = "serving_buckets",
                         fallback: str = _STATIC_BUCKETS) -> List[int]:
-    """Parse a literal ladder (``"1,2,4"`` or an int sequence). The
-    ``"auto"`` ladder, derived from observed traffic and a per-device
-    tuning cache, arrives with the autotune slice of the port."""
+    """``"auto"`` resolves through the tuner: a cached derived ladder
+    for this device kind, else a ladder derived from the observed
+    request-shape histogram, else the static default — the operator's
+    FLAGS ladder when one is set (``tunable_id`` doubles as the FLAGS
+    key), the shipped ``fallback`` otherwise. Anything else parses as a
+    literal ladder. Resolution happens ONCE, at engine load (before
+    ``warm()``) — the ladder is fixed after warm."""
     if _is_auto(spec):
-        raise NotImplementedError(
-            f"{tunable_id}='auto' resolves through the autotune layer, "
-            "which paddle_tpu_torch does not port yet (the autotune "
-            f"slice) — pass a literal ladder such as {fallback!r}")
+        from ..autotune.ladder import resolve_ladder
+
+        flag_val = FLAGS.get(tunable_id, fallback)
+        base = fallback if _is_auto(flag_val) else flag_val
+        return resolve_ladder(tunable_id, default=parse_buckets(base))
     return parse_buckets(spec)
 
 
@@ -359,6 +367,11 @@ class InferenceEngine:
             arrs[spec.name] = a
         if not rows:
             raise ValueError("empty request (zero rows)")
+        # the tuner's shape recorder: every VALID request's row count —
+        # including ones the incumbent ladder is about to refuse, or a
+        # future auto-derived ladder could never learn to grow past the
+        # current top bucket; deliberately outside the engine lock
+        _observe_shape("serving_buckets", rows)
         if rows > self._max_batch:
             raise RequestTooLarge(
                 f"request of {rows} rows exceeds model '{self.name}' "

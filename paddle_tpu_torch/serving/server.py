@@ -80,7 +80,8 @@ import numpy as np
 from ..distributed import faults as _faults
 from ..distributed.rpc import RpcServer
 from ..device import resolve_device
-from ..observability import metrics as _metrics, tracing as _tracing
+from ..observability import debug_server as _debug, metrics as _metrics, \
+    tracing as _tracing
 from ..observability.log import get_logger
 from .engine import InferenceEngine
 from .errors import (EngineRetired, ModelNotFound, ServerOverloaded,
@@ -173,6 +174,14 @@ class ServingServer:
         addr = self._rpc.serve(host, port)
         _tracing.set_process_label(f"serving:{addr[1]}")
         _log.info("serving server listening on %s:%d", *addr)
+        # live introspection: PADDLE_TPU_DEBUG_PORT attaches the shared
+        # debug server; /statusz grows a "serving:<port>" section
+        # (models, versions, bucket ladders, queue depths, transport).
+        # Per-INSTANCE name: two servers in one process must not clobber
+        # each other's section (or deregister the survivor's on shutdown)
+        _debug.maybe_serve_from_env(device=self.device)
+        self._status_name = f"serving:{addr[1]}"
+        _debug.add_status(self._status_name, self._status)
         return addr
 
     @property
@@ -180,6 +189,7 @@ class ServingServer:
         return self._rpc.address
 
     def shutdown(self, drain: bool = True):
+        _debug.remove_status(getattr(self, "_status_name", None))
         self._rpc.shutdown()
         self._registry.unload_all(drain=drain)
 
@@ -190,7 +200,12 @@ class ServingServer:
         drained or unloaded: engines keep whatever they were doing,
         answers go nowhere. The fleet chaos tests kill replicas with
         this; a FleetRouter must fail the traffic over."""
+        _debug.remove_status(getattr(self, "_status_name", None))
         self._rpc.kill()
+
+    def _status(self) -> Dict[str, Any]:
+        return {"models": self._registry.stats(),
+                "rpc": self._rpc.stats()}
 
     # -- handlers ---------------------------------------------------------
     def _on_engine(self, model: str, want_decoder: bool, mismatch: str,

@@ -293,8 +293,20 @@ def test_engine_refuses_unported_options_and_missing_card(monkeypatch):
     # engine itself: tests/test_torch_mesh_serving.py)
     with pytest.raises(RuntimeError, match="needs 2 processes"):
         td.DecodeEngine(spec, mesh="tp=2", device="cpu", warm=False)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        td.DecodeEngine(spec, slots="auto", device="cpu", warm=False)
+    # slots="auto" resolves through the autotune layer: a cached ladder
+    # for this device kind, else the static default on no traffic
+    from paddle_tpu_torch import autotune
+
+    autotune.reset_histograms()
+    with autotune.scoped() as cache:
+        eng = td.DecodeEngine(spec, slots="auto", device="cpu", warm=False)
+        assert eng.stats()["slots"] == [1, 2, 4]
+        eng.stop()
+        cache.put("decode_slots", [1, 3], shape_key="ladder",
+                  source="derived")
+        eng = td.DecodeEngine(spec, slots="auto", device="cpu", warm=False)
+        assert eng.stats()["slots"] == [1, 3]
+        eng.stop()
     # no device means the card: with none present it raises, never
     # drifting to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

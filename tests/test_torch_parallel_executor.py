@@ -19,9 +19,10 @@ statistics; the train/test ``share_vars_from`` pair; ``FLAGS['mesh_axes']``;
 ``ParallelDo`` under the executor; ``fluid.io`` from the sharded scope
 (the bytes of a single-device scope holding the same values); and
 ``plan_transformer_tp`` on dp=2 x tp=2 (world 4); a mesh of one device
-starting its own group (world 1). Tolerances: the sharded
+starting its own group (world 1); ``collect_cost``'s flops on the MLP at
+dp=8 and dp=1 (world 1) against XLA's. Tolerances: the sharded
 run against the port's single run rtol 1e-5; against the JAX run rtol
-2e-5.
+2e-5; the flops rtol 0.1 (``COST_RTOL``'s comment says why).
 """
 import json
 import os
@@ -34,6 +35,13 @@ import torch
 SELF_RTOL = 1e-5     # the port's sharded run against its single run
 JAX_RTOL = 2e-5      # ... against the JAX package's sharded run
 JOIN_TIMEOUT_S = 600
+# collect_cost's flops against XLA's cost analysis, once the product that
+# only the port runs is taken out (test_collect_cost_flops_against_xla):
+# the rest differs by the elementwise accounting. XLA counts the optimized
+# HLO's element ops (compares, selects, reduction adds); CostProbe counts
+# one flop an output element of the arithmetic aten ops. On the MLP that
+# is ~6.5% of the total.
+COST_RTOL = 0.1
 
 
 # --- the program builders, one body for either package --------------------
@@ -200,6 +208,11 @@ CASES = {
     "transformer_dropout": (build_transformer_dropout, {},
                             _transformer_feeds, "dp=2,tp=2",
                             "plan_transformer_tp", 4),
+    # collect_cost=True on both sides (the cases named cost_*)
+    "cost_mlp": (build_mlp, dict(seed=13), lambda: _mlp_feeds(2, 64),
+                 "dp=8", None, 8),
+    "cost_mlp_one": (build_mlp, dict(seed=13), lambda: _mlp_feeds(2, 64),
+                     "dp=1", None, 1),
 }
 
 
@@ -251,12 +264,13 @@ def _jax_run(name, job):
         try:
             pe = pkg.fluid.ParallelExecutor(
                 use_cuda=False, loss_name=cost.name, main_program=main,
-                mesh=mesh, sharding_plan=_plan(pkg, plan))
+                mesh=mesh, sharding_plan=_plan(pkg, plan),
+                collect_cost=name.startswith("cost_"))
         finally:
             pkg.set_flags({"mesh_axes": ""})
         losses = [_loss(pe.run(fetch_list=[cost], feed=f)[0])
                   for f in feeds]
-        extra = {}
+        extra = {"cost": pe.last_cost_analysis}
         if name == "resnet":
             extra = {n: np.asarray(scope.find_var(n))
                      for n in _bn_names(main)}
@@ -330,13 +344,15 @@ def _rank_case(pkg, name, job, rank):
         try:
             pe = pkg.fluid.ParallelExecutor(
                 use_cuda=False, loss_name=cost.name, main_program=main,
-                mesh=mesh, sharding_plan=_plan(pkg, plan))
+                mesh=mesh, sharding_plan=_plan(pkg, plan),
+                collect_cost=name.startswith("cost_"))
         finally:
             pkg.set_flags({"mesh_axes": ""})
         extra["mesh"] = dict(zip(pe.mesh.mesh_dim_names,
                                  (int(s) for s in pe.mesh.shape)))
         losses = [_loss(pe.run(fetch_list=[cost], feed=f)[0])
                   for f in feeds]
+        extra["cost"] = pe.last_cost_analysis
         if name == "dp_mlp":
             # the train/test pair: a for_test clone run through a second
             # executor that shares the first one's scope
@@ -626,6 +642,37 @@ def test_dropout_masks_match_the_single_step(runs):
     got = runs.port["transformer_dropout"]
     single, _, _ = _port_single("transformer_dropout", runs.job)
     _close(got["losses"], single, SELF_RTOL, "vs the port's single run")
+
+
+def test_collect_cost_flops_against_xla(runs):
+    """``collect_cost=True``: ``last_cost_analysis['flops']`` is
+    ``autotune.CostProbe``'s count of the first step's dispatched ops:
+    FlopCounterMode's matmul flops plus one an output element of each
+    elementwise arithmetic op (the JAX figure is XLA's, elementwise
+    included); ``bytes_accessed`` is -1 (not counted). Two differences
+    are decided, not tolerated:
+      - the port's generic grad path differentiates every floating
+        input of a recorded op, the fed ``x`` included, so its step runs
+        the first fc's input-gradient product (2 x rows x 16 x 32), which
+        XLA drops as dead;
+      - the port counts the step at the DTensor level: the global step,
+        the same figure at dp=8 as at dp=1; XLA's is per device.
+    Beyond the dead product, the flops agree within ``COST_RTOL``."""
+    one, eight = runs.port["cost_mlp_one"], runs.port["cost_mlp"]
+    jax_losses_one, jax_one = runs.jax["cost_mlp_one"]
+    _jax_losses_eight, jax_eight = runs.jax["cost_mlp"]
+    _close(one["losses"], jax_losses_one, JAX_RTOL, "dp=1 vs JAX")
+    _close(eight["losses"], one["losses"], SELF_RTOL, "dp=8 vs dp=1")
+    assert one["mesh"] == {"dp": 1} and eight["mesh"] == {"dp": 8}
+    assert one["cost"]["bytes_accessed"] == -1.0
+    assert eight["cost"] == one["cost"]
+    rows = len(_mlp_feeds(1, 64)[0]["x"])
+    dead = 2 * rows * 16 * 32
+    np.testing.assert_allclose(one["cost"]["flops"] - dead,
+                               jax_one["cost"]["flops"], rtol=COST_RTOL)
+    # XLA's figure is the per-device executable's: an eighth of the
+    # products at dp=8, the replicated update whole
+    assert jax_eight["cost"]["flops"] < jax_one["cost"]["flops"] / 4
 
 
 def test_a_mesh_of_one_device_starts_its_own_group(tmp_path):

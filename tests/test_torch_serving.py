@@ -117,7 +117,11 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.fluid.ops.pipeline_op, "
             "paddle_tpu_torch.fluid.layers.pipeline, "
             "paddle_tpu_torch.serving.lockstep, "
-            "paddle_tpu_torch.fluid.parallel_executor; "
+            "paddle_tpu_torch.fluid.parallel_executor, "
+            "paddle_tpu_torch.autotune, paddle_tpu_torch.autotune.__main__, "
+            "paddle_tpu_torch.fleet, paddle_tpu_torch.fleet.__main__, "
+            "paddle_tpu_torch.observability.debug_server, "
+            "paddle_tpu_torch.observability.timeline; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -136,6 +140,10 @@ _MESH_RAISE = re.compile(
     r"NotImplementedError\((?:[^()]|\([^()]*\))*?"
     r"(mesh layer|mesh and parallel|mesh-sharded|sharded checkpoint"
     r"|sequence parallel|pipeline|next slice)", re.S | re.I)
+# a NotImplementedError that names the autotune layer as missing: the
+# "auto" ladders resolve through paddle_tpu_torch/autotune
+_AUTOTUNE_RAISE = re.compile(
+    r"NotImplementedError\((?:[^()]|\([^()]*\))*?autotune", re.S | re.I)
 
 
 def test_source_scan_finds_no_jax_or_paddle_tpu_import():
@@ -162,7 +170,21 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/serving/lockstep.py",
             "paddle_tpu_torch/parallel/sequence_parallel.py",
             "paddle_tpu_torch/parallel/pipeline.py",
-            "paddle_tpu_torch/fluid/ops/pipeline_op.py"} <= rel
+            "paddle_tpu_torch/fluid/ops/pipeline_op.py",
+            "paddle_tpu_torch/autotune/cache.py",
+            "paddle_tpu_torch/autotune/ladder.py",
+            "paddle_tpu_torch/autotune/measure.py",
+            "paddle_tpu_torch/autotune/__main__.py",
+            "paddle_tpu_torch/fleet/auth.py",
+            "paddle_tpu_torch/fleet/controller.py",
+            "paddle_tpu_torch/fleet/member.py",
+            "paddle_tpu_torch/fleet/router.py",
+            "paddle_tpu_torch/fleet/rollout.py",
+            "paddle_tpu_torch/fleet/policy.py",
+            "paddle_tpu_torch/fleet/launcher.py",
+            "paddle_tpu_torch/fleet/__main__.py",
+            "paddle_tpu_torch/observability/debug_server.py",
+            "paddle_tpu_torch/observability/timeline.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -170,3 +192,4 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
         assert "importlib" not in src or "jax" not in src, path
         assert not _MESH_RAISE.search(src), (path, _MESH_RAISE.search(
             src).group(0)[:200])
+        assert not _AUTOTUNE_RAISE.search(src), path
