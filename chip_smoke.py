@@ -410,6 +410,28 @@ and prints no result):
            (g) the debug server's /statusz (fleet, mesh, serving, device
            sections) and /metrics (fleet_*, autotune_*), and `timeline`
            merge of this process's and the replica's trace shards.
+  elastic  after fleet, elastic cloud training at the train phase's
+           widths: (a) a LeaseServer and two ElectedMaster candidates
+           (threads of this process) over one snapshot serve
+           ELASTIC_SHARDS recordio shards, each a seeded copy-task batch
+           (one record a sequence), with an ELASTIC_LEASE task lease;
+           (b) two trainer processes (`chip_smoke.py --elastic-trainer`)
+           on the card, each with a WorkerRegistry slot, the master
+           found by tcp_endpoint_resolver, Transformer-base in an
+           ElasticTrainer: ELASTIC_STEPS steps a task, a checkpoint a
+           task, K1/K2/K3a/K3b/delta 30/18/18/18/18 launches a step and
+           no plain call (held in the trainer); (c) the victim is
+           SIGKILLed holding its second lease, the task requeues when
+           the lease expires, a replacement resumes from the victim's
+           checkpoint and drains the pass: every record finished exactly
+           once, the replacement's first-task losses bitwise an Executor
+           here that loads the same checkpoint and runs the same batch,
+           the registry lists it; (d) a Go producer reads a fresh pass
+           through cloud_reader, stages each batch in BuddyAllocator
+           arena views and sends it through a native Channel to
+           ELASTIC_CHANNEL_STEPS Executor steps here: losses bitwise the
+           same batches fed directly, the arena clean. Seconds of each
+           part and the total.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -2614,12 +2636,12 @@ def build_transformer(cfg_kw, lr):
     return main, startup, cost, params_grads
 
 
-def copy_task_batch(batch, cfg_kw):
+def copy_task_batch(batch, cfg_kw, seed=0):
     """transformer_bench.py's batch: seeded source ids, the target the
     source shifted right by one, the labels the source."""
     import numpy as np
 
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     s = rng.randint(3, cfg_kw["src_vocab"],
                     (batch, cfg_kw["max_len"])).astype(np.int64)
     t = np.concatenate([np.zeros((batch, 1), np.int64), s[:, :-1]], axis=1)
@@ -9579,6 +9601,506 @@ def fleet_phase(torch, serve_ref):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- elastic: the elastic cloud training path -------------------------------
+
+ELASTIC_SHARDS = 8       # recordio shards, one copy-task batch each
+ELASTIC_BATCH = TRAIN_BATCH  # 512-token sequences (records) a shard
+ELASTIC_STEPS = 2        # Executor steps a leased task
+ELASTIC_LEASE = 20.0     # the master's task lease (s); the phase logs a
+                         # healthy trainer's longest hold against it
+ELASTIC_T0_TASKS = 3     # tasks the first trainer takes before it leaves
+ELASTIC_HOLD_AT = 2      # the victim is killed holding its 2nd task
+ELASTIC_CHANNEL_STEPS = 4
+ELASTIC_LAUNCHES = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+                    "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+                    "flash_delta": 18}
+
+
+def _elastic_rows(path):
+    """A shard's records (record id, src, trg, lbl rows): the record ids
+    and the Transformer feed they make."""
+    import pickle
+
+    import numpy as np
+
+    from paddle_tpu_torch.native.recordio import read_all
+
+    rows = [pickle.loads(r) for r in read_all(path)]
+    return [int(r[0]) for r in rows], _rows_feed(rows)
+
+
+def _rows_feed(rows):
+    import numpy as np
+
+    return {"src": np.stack([r[1] for r in rows]),
+            "trg": np.stack([r[2] for r in rows]),
+            "lbl": np.stack([r[3] for r in rows])[:, :, None]}
+
+
+def _write_elastic_shards(work):
+    """ELASTIC_SHARDS recordio files; shard i holds copy_task_batch's
+    rows under seed 100 + i, one record a sequence."""
+    import pickle
+
+    from paddle_tpu_torch.native.recordio import RecordIOWriter
+
+    paths = []
+    for i in range(ELASTIC_SHARDS):
+        b = copy_task_batch(ELASTIC_BATCH, TRANSFORMER_BASE, seed=100 + i)
+        p = os.path.join(work, f"shard-{i}.recordio")
+        w = RecordIOWriter(p)
+        for j in range(ELASTIC_BATCH):
+            w.write(pickle.dumps((i * ELASTIC_BATCH + j, b["src"][j],
+                                  b["trg"][j], b["lbl"][j, :, 0])))
+        w.close()
+        paths.append(p)
+    return paths
+
+
+def elastic_trainer_main(cfg):
+    """One trainer process of the elastic phase (``chip_smoke.py
+    --elastic-trainer <json>``): register, lease tasks from the elected
+    master (found through the lease server), train each task's batch for
+    ELASTIC_STEPS Executor steps on ``cfg['device']`` (the card) inside
+    an ElasticTrainer that checkpoints every task. Each step's kernel
+    launches are held to ELASTIC_LAUNCHES with no plain call (on the CPU,
+    where a rehearsal runs, the plain calls instead with no launch).
+    Events go to ``cfg['log']`` as ``TAG {json}`` lines."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.distributed import (ElasticTrainer, MasterClient,
+                                              WorkerRegistry)
+    from paddle_tpu_torch.distributed.tcp_lease import tcp_endpoint_resolver
+
+    events = open(cfg["log"], "a", buffering=1)
+
+    def emit(tag, **kw):
+        events.write(f"{tag} {json.dumps(dict(kw, t=time.time()))}\n")
+
+    rids, trained = {}, []
+
+    class Client(MasterClient):
+        def task_finished(self, task_id, epoch=None):
+            ok = super().task_finished(task_id, epoch)
+            emit("FINISHED", task=task_id, epoch=epoch, ok=ok,
+                 rids=rids[task_id])
+            return ok
+
+    client = Client(addr_resolver=tcp_endpoint_resolver(
+        tuple(cfg["lease_addr"]), "master"), timeout=300,
+        reconnect_retries=30, reconnect_backoff=0.2)
+    reg = WorkerRegistry(cfg["registry"], cfg["id"], ttl=120)
+    main, startup, cost, _ = build_transformer(cfg["model"], 1e-4)
+    exe, scope = fluid.Executor(cfg["device"]), fluid.Scope()
+    on_card = exe.device.type == "cuda"
+    exe.run(startup, scope=scope)
+    trainer = ElasticTrainer(client, cfg["ckpt"], main_program=main,
+                             scope=scope, registry=reg, max_to_keep=2,
+                             device=exe.device, idle_timeout=300)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resumed = trainer.maybe_resume()
+    emit("READY", resumed=resumed, resume_s=time.perf_counter() - t0,
+         since_spawn_s=time.time() - cfg["spawn_t"])
+
+    def train(task):
+        ids, feed = _elastic_rows(task.paths[0])
+        rids[task.id] = ids
+        emit("LEASED", task=task.id, epoch=task.epoch)
+        if len(trained) + 1 == cfg.get("hold_at"):
+            emit("HOLDING", task=task.id, epoch=task.epoch, rids=ids)
+            time.sleep(3600)  # the phase SIGKILLs this process here
+        losses, step_ms = [], []
+        _reset_kernel_counts()
+        for _ in range(ELASTIC_STEPS):
+            t0 = time.perf_counter()
+            (loss,) = exe.run(main, feed=feed, fetch_list=[cost],
+                              scope=scope)
+            losses.append(float(np.asarray(loss).reshape(-1)[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches, plain = _kernel_counts()
+        if not on_card:
+            launches, plain = plain, launches
+        launches = {k: v for k, v in launches.items() if v}
+        want = {k: n * ELASTIC_STEPS for k, n in cfg["launches"].items()}
+        if launches != want or any(plain.values()):
+            raise RuntimeError(f"trainer {cfg['id']} on {exe.device}: "
+                               f"{launches} (want {want}), the other "
+                               f"route {plain}")
+        trained.append(task.id)
+        emit("TASK", task=task.id, epoch=task.epoch, losses=losses,
+             step_ms=step_ms, launches=launches,
+             plain=sum(plain.values()),
+             since_spawn_s=time.time() - cfg["spawn_t"])
+
+    stats = trainer.run_pass(train, should_stop=lambda: bool(
+        cfg.get("max_tasks")) and len(trained) >= cfg["max_tasks"])
+    emit("EXIT", stats=stats, peak_gb=(
+        torch.cuda.max_memory_allocated() / 1e9 if on_card else None))
+    return 0
+
+
+def _events(path, tag):
+    """The ``tag`` events of a trainer's log, in order."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln[len(tag) + 1:]) for ln in f
+                if ln.startswith(tag + " ")]
+
+
+def _wait_event(path, tag, procs, deadline_s=300):
+    """The first ``tag`` event of a log; fails as soon as a trainer
+    process exits non-zero."""
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        got = _events(path, tag)
+        if got:
+            return got[0]
+        for w, p in procs.items():
+            if p.poll() not in (None, 0):
+                raise RuntimeError(f"trainer {w} exited {p.returncode} "
+                                   f"(smoke_out/elastic-{w}.log)")
+        time.sleep(0.05)
+    raise RuntimeError(f"no {tag} event in {path} within {deadline_s} s")
+
+
+def _elastic_reference(fluid, ckpt_dir, path):
+    """A fresh Transformer-base program in this process: startup on the
+    card, the checkpoint loaded, ELASTIC_STEPS steps on one shard."""
+    import numpy as np
+
+    main, startup, cost, _ = build_transformer(TRANSFORMER_BASE, 1e-4)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    step = fluid.io.load_checkpoint(ckpt_dir, main, scope=scope,
+                                    device=exe.device)
+    _, feed = _elastic_rows(path)
+    losses = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[cost],
+                                       scope=scope)[0]).reshape(-1)[0])
+              for _ in range(ELASTIC_STEPS)]
+    return step, losses
+
+
+def _elastic_channel(fluid, paths, master_ep):
+    """(d): a Go producer reads the shards through cloud_reader from a
+    fresh pass, stages each batch in BuddyAllocator arena views and
+    sends it through a native Channel; this thread runs
+    ELASTIC_CHANNEL_STEPS Executor steps on the card from what it
+    receives. The same batches read from their shards and fed directly
+    to a twin program from the same state: losses bitwise equal."""
+    import numpy as np
+
+    from paddle_tpu_torch.fluid import concurrency as cc
+    from paddle_tpu_torch.native import BuddyAllocator
+    from paddle_tpu_torch.reader.creator import cloud_reader
+
+    L = TRANSFORMER_BASE["max_len"]
+    # three staged arrays a batch, each bumped a block level by the guard
+    arena = BuddyAllocator(8 * ELASTIC_BATCH * L * 8, guard="always")
+    ch = cc.make_channel(capacity=0)
+    staged = []
+
+    def producer():
+        gen = cloud_reader(paths, master_ep)()
+        rows, sent = [], 0
+        try:
+            for rec in gen:
+                rows.append(rec)
+                if len(rows) < ELASTIC_BATCH:
+                    continue
+                views = {k: arena.alloc(ELASTIC_BATCH * L, "int64")
+                         for k in ("src", "trg", "lbl")}
+                for i, k in enumerate(("src", "trg", "lbl")):
+                    views[k][:] = np.stack([r[i + 1] for r in rows]
+                                           ).reshape(-1)
+                staged.append(arena.memory_usage())
+                ok = cc.channel_send(ch, {
+                    "rids": [int(r[0]) for r in rows],
+                    **{k: v.reshape(ELASTIC_BATCH, L)
+                       for k, v in views.items()}})
+                for v in views.values():
+                    arena.free(v)
+                rows, sent = [], sent + 1
+                if not ok or sent == ELASTIC_CHANNEL_STEPS:
+                    break
+        finally:
+            gen.close()  # the pass is abandoned: its lease goes back
+            cc.channel_close(ch)
+
+    main_a, startup, cost_a, _ = build_transformer(TRANSFORMER_BASE, 1e-4)
+    main_b, _, cost_b, _ = build_transformer(TRANSFORMER_BASE, 1e-4)
+    exe, scope_a, scope_b = _card_executor(fluid), fluid.Scope(), \
+        fluid.Scope()
+    exe.run(startup, scope=scope_a)
+    for n in scope_a.var_names():
+        v = scope_a.find_var(n)
+        if hasattr(v, "clone"):
+            scope_b.set_var(n, v.clone())
+    t0 = time.perf_counter()
+    go = cc.Go()
+    go.spawn(producer)
+    fed, got = [], []
+    while True:
+        batch, ok = cc.channel_recv(ch)
+        if not ok:
+            break
+        fed.append(batch)
+        got.append(float(np.asarray(exe.run(
+            main_a, feed={"src": batch["src"], "trg": batch["trg"],
+                          "lbl": batch["lbl"][:, :, None]},
+            fetch_list=[cost_a], scope=scope_a)[0]).reshape(-1)[0]))
+    go.join(120)
+    channel_s = time.perf_counter() - t0
+    if len(got) != ELASTIC_CHANNEL_STEPS:
+        raise RuntimeError(f"the channel fed {len(got)} batches, want "
+                           f"{ELASTIC_CHANNEL_STEPS}")
+    direct = []
+    for batch in fed:
+        shard = batch["rids"][0] // ELASTIC_BATCH
+        ids, feed = _elastic_rows(paths[shard])
+        if ids != batch["rids"] or not all(
+                np.array_equal(feed[k].reshape(ELASTIC_BATCH, L),
+                               batch[k]) for k in ("src", "trg", "lbl")):
+            raise RuntimeError(f"the channel's batch of shard {shard} "
+                               "differs from the shard's records")
+        direct.append(float(np.asarray(exe.run(
+            main_b, feed=feed, fetch_list=[cost_b],
+            scope=scope_b)[0]).reshape(-1)[0]))
+    if got != direct:
+        raise RuntimeError(f"channel-fed losses {got} != direct {direct}")
+    if arena.check() != 0 or arena.memory_usage() != 0:
+        raise RuntimeError(f"arena: check {arena.check()}, "
+                           f"{arena.memory_usage()} bytes still held")
+    out = {"losses": got, "shards": [b["rids"][0] // ELASTIC_BATCH
+                                     for b in fed],
+           "bitwise_direct": True, "channel_s": channel_s,
+           "arena_staged_bytes": max(staged), "arena_total": arena.total}
+    arena.close()
+    return out
+
+
+def elastic_phase(torch):
+    """The elastic cloud training path on the card: (a) a LeaseServer and
+    two ElectedMaster candidates (threads) over one snapshot serving
+    ELASTIC_SHARDS recordio shards; (b) two trainer processes
+    (WorkerRegistry, tcp_endpoint_resolver, ElasticTrainer on the card);
+    (c) one SIGKILLed holding a lease, its task requeued, a replacement
+    resumed from its checkpoint; (d) a Go producer feeding an Executor
+    loop through a native Channel."""
+    phase("elastic")
+    import shutil
+    import signal
+    import tempfile
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.distributed import (ElectedMaster, MasterClient,
+                                              WorkerRegistry)
+    from paddle_tpu_torch.distributed.tcp_lease import (LeaseServer,
+                                                         TcpLease,
+                                                         tcp_endpoint_resolver)
+    from paddle_tpu_torch.native import load_native
+
+    t_phase = time.perf_counter()
+    secs = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    lease_srv, masters, procs = LeaseServer(), [], {}
+    try:
+        # (a) master and data
+        t0 = time.perf_counter()
+        load_native()  # the host library (channel, buddy) for (d)
+        host_build_s = time.perf_counter() - t0
+        lease_addr = lease_srv.serve()
+        snap = os.path.join(work, "master.snap")
+        for i in range(2):
+            em = ElectedMaster(None, snap, ttl=5.0, lease=TcpLease(
+                lease_addr, "master", f"m{i}", ttl=5.0),
+                chunks_per_task=1, lease_timeout=ELASTIC_LEASE,
+                failure_max=3)
+            em.start()
+            masters.append(em)
+        deadline = time.monotonic() + 60
+        while not any(em.is_leader.is_set() for em in masters):
+            if time.monotonic() > deadline:
+                raise RuntimeError("no master elected: "
+                                   f"{[em.last_error for em in masters]}")
+            time.sleep(0.05)
+        elected = next(em for em in masters if em.is_leader.is_set())
+        resolve = tcp_endpoint_resolver(lease_addr, "master")
+        paths = _write_elastic_shards(work)
+        client = MasterClient(addr_resolver=resolve, timeout=120)
+        client.set_dataset(paths)
+        leader = elected.service
+        secs["a"] = time.perf_counter() - t0
+        log(f"  (a) lease server {lease_addr[1]}, master "
+            f"{elected.lease.holder} elected (the other candidate standing "
+            f"by) at {elected.addr[1]}, {ELASTIC_SHARDS} shards "
+            f"of {ELASTIC_BATCH} sequences, task lease {ELASTIC_LEASE} s; "
+            f"host library {host_build_s:.2f} s; {secs['a']:.2f} s")
+
+        # (b) trainers
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"  card memory before the trainers: {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free, this process holds "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+        def spawn(wid, ckpt, **extra):
+            cfg = dict(id=wid, ckpt=os.path.join(work, ckpt),
+                       log=os.path.join(work, f"events-{wid}.log"),
+                       device=CARD, model=TRANSFORMER_BASE,
+                       launches=ELASTIC_LAUNCHES,
+                       lease_addr=list(lease_addr),
+                       registry=os.path.join(work, "members"),
+                       spawn_t=time.time(), **extra)
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--elastic-trainer", json.dumps(cfg)]
+            procs[wid] = subprocess.Popen(_logged(cmd, os.path.join(
+                REPO, "smoke_out", f"elastic-{wid}.log")), cwd=REPO)
+            return cfg["log"]
+
+        logs = {"t0": spawn("t0", "ckpt-t0", max_tasks=ELASTIC_T0_TASKS),
+                "victim": spawn("victim", "ckpt-victim",
+                                hold_at=ELASTIC_HOLD_AT)}
+        held = _wait_event(logs["victim"], "HOLDING", procs)
+        secs["b"] = time.perf_counter() - t0
+
+        # (c) death and rejoin
+        t0 = time.perf_counter()
+        procs["victim"].send_signal(signal.SIGKILL)
+        procs["victim"].wait(60)
+        kill_t = time.time()
+        ref_dir = os.path.join(work, "ckpt-ref")
+        os.makedirs(ref_dir)
+        vdir = os.path.join(work, "ckpt-victim")
+        shutil.copy(os.path.join(vdir, "META"), ref_dir)
+        for f in os.listdir(vdir):  # the payload, without a copy
+            if f.endswith(".npz"):
+                os.link(os.path.join(vdir, f), os.path.join(ref_dir, f))
+        logs["t2"] = spawn("t2", "ckpt-victim")
+        requeue_t = None
+        while procs["t0"].poll() is None or procs["t2"].poll() is None:
+            p = leader._pending.get(held["task"])
+            if requeue_t is None and (p is None
+                                      or p.epoch != held["epoch"]):
+                requeue_t = time.time()
+            for w in ("t0", "t2"):
+                if procs[w].poll() not in (None, 0):
+                    raise RuntimeError(
+                        f"trainer {w} exited {procs[w].returncode} "
+                        f"(smoke_out/elastic-{w}.log)")
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError("the trainers did not finish the pass "
+                                   "in 600 s")
+            time.sleep(0.05)
+        stats = client.stats()
+        if stats != {"todo": 0, "pending": 0, "done": ELASTIC_SHARDS,
+                     "dropped": 0, "pass": 0}:
+            raise RuntimeError(f"master stats after the pass: {stats}")
+        finished = {}
+        for w in ("t0", "victim", "t2"):
+            for ev in _events(logs[w], "FINISHED"):
+                if ev["ok"]:
+                    for r in ev["rids"]:
+                        finished.setdefault(r, []).append(w)
+        twice = {r: ws for r, ws in finished.items() if len(ws) != 1}
+        if sorted(finished) != list(range(ELASTIC_SHARDS * ELASTIC_BATCH)) \
+                or twice:
+            raise RuntimeError(f"records not finished exactly once: "
+                               f"{len(finished)} finished, more than once "
+                               f"{twice}")
+        if any(finished[r] != ["t2"] for r in held["rids"]):
+            raise RuntimeError("the victim's held task was not finished "
+                               "by the replacement")
+        tasks = {w: _events(logs[w], "TASK") for w in logs}
+        ready = {w: _events(logs[w], "READY")[0] for w in logs}
+        exits = {w: _events(logs[w], "EXIT")[0] for w in ("t0", "t2")}
+        if ready["t2"]["resumed"] != 1 or not tasks["t2"]:
+            raise RuntimeError(f"the replacement resumed from "
+                               f"{ready['t2']['resumed']}, trained "
+                               f"{len(tasks['t2'])} tasks")
+        members = WorkerRegistry(os.path.join(work, "members"),
+                                 "probe").members()
+        if "t2" not in members.values():
+            raise RuntimeError(f"the registry lists {members}")
+        first = tasks["t2"][0]
+        ref_step, ref_losses = _elastic_reference(
+            fluid, ref_dir, paths[first["task"]])
+        if ref_step != 1 or ref_losses != first["losses"]:
+            raise RuntimeError(f"the replacement's first task losses "
+                               f"{first['losses']} != the in-process "
+                               f"reference's {ref_losses} (step {ref_step})")
+        secs["c"] = time.perf_counter() - t0
+        leased = {w: {(e["task"], e["epoch"]): e["t"]
+                      for e in _events(logs[w], "LEASED")} for w in logs}
+        holds = [e["t"] - leased[w][(e["task"], e["epoch"])]
+                 for w in ("t0", "victim", "t2")
+                 for e in _events(logs[w], "FINISHED")]
+        # a task's last step to its finish: the checkpoint and the RPC
+        trained_t = {(w, e["task"], e["epoch"]): e["t"]
+                     for w in tasks for e in tasks[w]}
+        ckpt_s = [e["t"] - trained_t[(w, e["task"], e["epoch"])]
+                  for w in ("t0", "victim", "t2")
+                  for e in _events(logs[w], "FINISHED")]
+        later = [ms for w in tasks for i, e in enumerate(tasks[w])
+                 for j, ms in enumerate(e["step_ms"]) if i or j]
+        out = {
+            "trainers": {w: {"tasks": [e["task"] for e in tasks[w]],
+                             "losses": [e["losses"] for e in tasks[w]],
+                             "ready_s": ready[w]["since_spawn_s"],
+                             "first_step_s": (tasks[w][0]["since_spawn_s"]
+                                              if tasks[w] else None),
+                             "peak_gb": exits.get(w, {}).get("peak_gb")}
+                         for w in logs},
+            "launches_per_step": {k: v // ELASTIC_STEPS for k, v in
+                                  tasks["t0"][0]["launches"].items()},
+            "plain_calls": sum(e["plain"] for w in tasks
+                               for e in tasks[w]),
+            "task_step_p50_ms": statistics.median(later),
+            "longest_hold_s": max(holds), "lease_s": ELASTIC_LEASE,
+            "checkpoint_and_finish_p50_s": statistics.median(ckpt_s),
+            "requeue_after_kill_s": requeue_t - kill_t,
+            "replacement_resume_s": ready["t2"]["resume_s"],
+            "replacement_first_task": first["task"],
+            "replacement_losses_bitwise": True,
+            "records_finished_once": len(finished),
+            "registry": sorted(members.values()),
+        }
+        log("  (b, c) elastic trainers " + json.dumps(out))
+        if out["longest_hold_s"] >= ELASTIC_LEASE:
+            raise RuntimeError(f"a healthy trainer held a task "
+                               f"{out['longest_hold_s']:.1f} s, past the "
+                               f"{ELASTIC_LEASE} s lease")
+
+        # (d) concurrency
+        t0 = time.perf_counter()
+        ep = resolve()
+        out["channel"] = _elastic_channel(fluid, paths,
+                                          f"{ep[0]}:{ep[1]}")
+        secs["d"] = time.perf_counter() - t0
+        log("  (d) channel-fed steps " + json.dumps(out["channel"]))
+        out["seconds"] = dict(secs, total=time.perf_counter() - t_phase)
+        log(f"  elastic phase: (a) {secs['a']:.1f} s, (b) {secs['b']:.1f} "
+            f"s, (c) {secs['c']:.1f} s, (d) {secs['d']:.1f} s, total "
+            f"{out['seconds']['total']:.1f} s")
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+        for em in masters:
+            em.stop()
+        lease_srv.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
@@ -9664,6 +10186,7 @@ def main():
     mesh_serve = mesh_serve_phase(torch)
     pserver = pserver_phase(torch)
     fleet = fleet_phase(torch, serve_ref)
+    elastic = elastic_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -9733,7 +10256,10 @@ def main():
                         parallel, "layer_norm_f32"), parallel=parallel,
                     pserver_launches_per_step=pserver["transformer"][
                         "launches_per_step"]["layer_norm_f32"],
-                    pserver=pserver),
+                    pserver=pserver,
+                    elastic_launches_per_step=elastic[
+                        "launches_per_step"]["layer_norm_f32"],
+                    elastic=elastic),
         _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
                     "(bf16 x, widened on load at :17)",
@@ -9769,6 +10295,7 @@ def main():
             parallel_launches_per_step=_parallel_launches(parallel, kname),
             pserver_launches_per_step=pserver["transformer"][
                 "launches_per_step"][kname],
+            elastic_launches_per_step=elastic["launches_per_step"][kname],
             **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
@@ -9889,6 +10416,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-trainer"]:
+        # a trainer process of the elastic phase
+        sys.exit(elastic_trainer_main(json.loads(sys.argv[2])))
     try:
         main()
     except Exception as e:

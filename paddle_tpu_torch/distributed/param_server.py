@@ -23,9 +23,12 @@ The pserver's Executor runs on ``device`` (``None``: the card, raising
 without one), so the parameters and optimizer state live there; the RPC
 server itself is host code. A tensor leaves the card by one explicit
 device-to-host copy per tensor per message (``rpc._host``), and a pushed
-gradient reaches the card as the Executor's feed. The /statusz debug
-page of the JAX server is not attached: the port has no
-``observability/debug_server`` yet.
+gradient reaches the card as the Executor's feed. With
+``PADDLE_TPU_DEBUG_PORT`` set, ``serve()`` attaches the process-shared
+debug server and registers a ``pserver:<port>`` section in ``/statusz``
+(the JAX server's keys: sync mode, trainers, round, steps, heartbeat
+ages, evictions, pending pushes, the parameter table, the RPC dedup
+cache).
 
 Trainer side: `ParameterClient` (send/recv), or in-graph `send`/`recv`
 ops the Executor runs as host ops (reference send_op.cc/recv_op.cc) —
@@ -456,12 +459,53 @@ class ParameterServer:
         with self._shared_mu:
             self._steps += 1
 
+    # --- introspection ---------------------------------------------------
+    def _debug_status(self) -> Dict[str, Any]:
+        """The /statusz view: param table, round/step progress, and the
+        failure detector's live heartbeat ages — the page an operator
+        reads to tell a straggler from a dead trainer without attaching
+        a debugger. Under the _cv lock like stats()."""
+        now = time.monotonic()
+        params = {}
+        for p in self._owned:
+            v = self._scope.find_var(p)
+            # numpy's dtype names, read without copying the tensor
+            params[p] = ({"shape": list(v.shape),
+                          "dtype": str(v.dtype).replace("torch.", "")}
+                         if v is not None else None)
+        with self._shared_mu:  # _steps is _shared_mu state, like stats()
+            steps = self._steps
+        with self._cv:
+            beats = {str(tid): round(now - t, 3)
+                     for tid, t in self._beats.items()}
+            out = {
+                "sync": self._sync,
+                "trainers": self._trainers,
+                "round": self._round,
+                "steps": steps,
+                "heartbeat_timeout_s": self._hb_timeout,
+                "heartbeat_age_s": beats,
+                "evicted": sorted(self._evicted),
+                "pending_params": {n: sorted(d)
+                                   for n, d in self._pending.items()},
+            }
+        out["params"] = params
+        out["rpc"] = self._server.stats()  # dedup-cache occupancy
+        return out
+
     # --- lifecycle -----------------------------------------------------
     def serve(self, host: str = "127.0.0.1", port: int = 0
               ) -> Tuple[str, int]:
         addr = self._server.serve(host, port)
         if _tracing.process_label() is None:
             _tracing.set_process_label(f"pserver:{addr[1]}")
+        # PADDLE_TPU_DEBUG_PORT attaches the process-shared debug HTTP
+        # server; this pserver's state appears under /statusz
+        from ..observability import debug_server as _dbg
+
+        self._debug_key = f"pserver:{addr[1]}"
+        if _dbg.maybe_serve_from_env(device=self.device) is not None:
+            _dbg.add_status(self._debug_key, self._debug_status)
         return addr
 
     @property
@@ -473,6 +517,9 @@ class ParameterServer:
         return self._exe.device
 
     def shutdown(self):
+        from ..observability import debug_server as _dbg
+
+        _dbg.remove_status(getattr(self, "_debug_key", None))
         self._server.shutdown()
 
 

@@ -43,8 +43,9 @@ executor runs the transpiler's ``send``/``recv``/``prefetch`` ops
 against ``start_pserver``'s servers (``layers.Send``, ``Recv``,
 ``ListenAndServ``); the tool modules ``memory_optimization_transpiler``
 (``memory_optimize``, ``release_memory``), ``profiler``, ``debugger``,
-``graphviz`` and ``net_drawer``. The executor runs on the card unless
-given ``CPUPlace()`` (or ``"cpu"``).
+``graphviz`` and ``net_drawer``; ``concurrency`` (``Go``,
+``make_channel``, ``Select`` over the port's native channel). The
+executor runs on the card unless given ``CPUPlace()`` (or ``"cpu"``).
 """
 from . import core  # noqa: F401
 from . import ops as _ops  # registers the op emitters  # noqa: F401
@@ -52,6 +53,7 @@ from . import (  # noqa: F401
     average,
     backward,
     clip,
+    concurrency,
     default_scope_funcs,
     distribute_transpiler,
     enforce,

@@ -21,6 +21,13 @@ DTensors: the counterpart of ``paddle_tpu/fluid/parallel_executor.py``
     CPU); a larger mesh needs the caller's launcher (``torchrun``,
     ``torch.multiprocessing.spawn``). A mesh whose size differs from the
     world size raises.
+  - Multi-host form: in a world that ``distributed.init_distributed``
+    started with more than one process (the API the JAX package's
+    multi-host form runs under), each process feeds only its LOCAL shard
+    and the global batch is their concatenation on dim 0, in rank order
+    (the JAX package's ``make_array_from_process_local_data``). The
+    ranks' local batches must be equal and every feed must shard on its
+    batch dim; otherwise ``run`` raises naming the fix.
   - State goes onto the mesh by ``distribute_tensor`` from rank 0, so
     ranks whose startups drew differently cannot diverge (the reference's
     ``BCastParamsToGPUs``); ``bcast_params`` does it again on demand.
@@ -56,9 +63,7 @@ cost counter of the port) on that step and ``bytes_accessed`` with -1
 
 ``device``: ``None`` means the card (a raise without one);
 ``use_cuda=False`` with no ``device`` means the CPU (the reference's
-CPUPlace). Not ported: the JAX package's multi-host form, where each
-process feeds only its local shard (it comes with the rest of
-``distributed/``).
+CPUPlace).
 """
 from __future__ import annotations
 
@@ -415,6 +420,9 @@ class ParallelExecutor:
         self._plan = sharding_plan or ShardingPlan(
             batch_axis=mesh.mesh_dim_names[0])
         self._rank_device = _rank_device(self.device)
+        from ..distributed.env import feeds_local_shards
+
+        self._local_shards = feeds_local_shards()
         note_mesh(mesh, label="parallel_executor")
         self._scope = (share_vars_from._scope if share_vars_from is not None
                        else global_scope())
@@ -489,7 +497,7 @@ class ParallelExecutor:
         return distribute_tensor(value.detach().to(self._rank_device),
                                  self._mesh, target, src_data_rank=0)
 
-    def _place_feed(self, value):
+    def _place_feed(self, name, value):
         from ..parallel import P
         from torch.distributed.tensor import distribute_tensor
 
@@ -497,6 +505,8 @@ class ParallelExecutor:
         if not isinstance(t, torch.Tensor):
             raise TypeError("a ParallelExecutor feeds dense tensors only")
         spec = self._plan.feed_spec(t.ndim)
+        if self._local_shards:
+            return self._local_feed(name, t, spec)
         if not (t.ndim and self._plan.batch_axis
                 and self._divisible(tuple(t.shape), spec)):
             # indivisible feeds stay replicated (reference PE pads/splits)
@@ -505,6 +515,41 @@ class ParallelExecutor:
         # shard, no communication
         return distribute_tensor(t, self._mesh, self._placements(spec),
                                  src_data_rank=None)
+
+    def _local_feed(self, name, t, spec):
+        """The multi-host form: ``t`` is this process's shard of the
+        global batch, split on dim 0 over the mesh dims the plan's feed
+        spec names; the global batch is the shards in rank order."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Shard
+
+        placements = self._placements(spec) if t.ndim else ()
+        split = [i for i, p in enumerate(placements)
+                 if isinstance(p, Shard) and p.dim == 0]
+        if not (self._plan.batch_axis and split):
+            throw_on(
+                "feed '%s' (local shape %s) does not shard on its batch dim "
+                "over the multi-host mesh %s: each process feeds its local "
+                "shard of the global batch, so a feed needs a batch dim and "
+                "the plan a batch axis — feed it from one process group "
+                "started by a launcher instead",
+                name, tuple(t.shape), self._axes, context="ParallelExecutor")
+        rows = torch.tensor([t.shape[0], -t.shape[0]], dtype=torch.int64)
+        dist.all_reduce(rows, op=dist.ReduceOp.MAX)
+        most, least = int(rows[0]), -int(rows[1])
+        if most != least:
+            throw_on(
+                "feed '%s': the processes feed local batches of %d to %d "
+                "rows, which do not divide into equal shards of the global "
+                "batch over the multi-host mesh %s — pad the local batch or "
+                "use drop_last so every process feeds an equal shard",
+                name, least, most, self._axes, context="ParallelExecutor")
+        shape = (t.shape[0] * math.prod(int(self._mesh.shape[i])
+                                        for i in split),) + tuple(t.shape[1:])
+        stride = tuple(math.prod(shape[d + 1:]) for d in range(len(shape)))
+        return DTensor.from_local(t.contiguous(), self._mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
 
     # -- run -----------------------------------------------------------------
     def run(self, fetch_list, feed=None, feed_dict=None,
@@ -541,7 +586,7 @@ class ParallelExecutor:
         from ..parallel import mesh_context
 
         scope = self._scope
-        feeds = {k: self._place_feed(v) for k, v in feed.items()}
+        feeds = {k: self._place_feed(k, v) for k, v in feed.items()}
         fetch_names = tuple(_as_name(v) for v in fetch_list)
         state_in, state_out, segments = self._exe._entry(
             program, list(feeds), True)

@@ -1,7 +1,7 @@
 """Reader creators (reference python/paddle/reader/creator.py: np_array,
-text_file, recordio) — a copy of ``paddle_tpu/reader/creator.py``.
-``cloud_reader`` needs the master service (``distributed.master``), which
-is not ported yet."""
+text_file, recordio, cloud_reader) — a copy of
+``paddle_tpu/reader/creator.py``; ``cloud_reader`` leases recordio shards
+from the port's ``distributed.master``."""
 from __future__ import annotations
 
 import pickle
@@ -52,9 +52,33 @@ def recordio(paths: Union[str, Sequence[str]], num_threads: int = 2,
 def cloud_reader(paths: Union[str, Sequence[str]], master_endpoint,
                  unpickle: bool = True):
     """Master-fed fault-tolerant reader (reference
-    python/paddle/v2/reader/creator.py:91; the JAX package leases recordio
-    chunks from ``distributed.master.MasterService``). Not ported: the
-    master service is ROADMAP Queue 1 item 6."""
-    raise NotImplementedError(
-        "reader.creator.cloud_reader needs distributed.master, which is not "
-        "yet ported to paddle_tpu_torch (ROADMAP Queue 1 item 6)")
+    python/paddle/v2/reader/creator.py:91 cloud_reader — there, recordio
+    chunks are leased from the Go master found via etcd; here from
+    distributed.master.MasterService over its TCP RPC, of either
+    package). The first reader to arrive registers the dataset; every
+    worker then drains leased tasks — a worker that dies mid-task has its
+    lease expire and the task re-queued, so records are processed
+    at-least-once across the fleet. ``master_endpoint``: ``"host:port"``
+    or a ``(host, port)`` pair."""
+    if isinstance(paths, str):
+        paths = [p for p in paths.split(",") if p]
+
+    def reader():
+        from ..distributed.master import MasterClient
+
+        client = MasterClient(addr=master_endpoint)
+        try:
+            # idempotent on the service side: the first worker registers,
+            # later workers (or later passes) join the existing queues
+            client.set_dataset(list(paths))
+            if client.all_done():
+                # previous pass exhausted: this reader() call is an epoch —
+                # re-queue the finished tasks (no-op race-safe: only one
+                # caller's new_pass returns True, everyone then drains)
+                client.new_pass()
+            for rec in client.records():
+                yield pickle.loads(rec) if unpickle else rec
+        finally:
+            client.close()
+
+    return reader

@@ -186,9 +186,23 @@ def test_b_text_file_and_np_array_creators_match_jax(tmp_path):
         assert len(got) == 4
 
 
-def test_b_cloud_reader_names_what_it_needs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        paddle_tpu_torch.reader.creator.cloud_reader(["a"], "host:1")
+def test_b_cloud_reader_names_what_it_needs(tmp_path):
+    # the reader leases its shards from a master (ported since it pinned a
+    # stub): a shard the master hands out but the reader cannot open is
+    # named in the error, and its lease is failed back to the master
+    from paddle_tpu_torch.distributed.master import MasterService
+
+    missing = str(tmp_path / "missing.recordio")
+    svc = MasterService(chunks_per_task=1, lease_timeout=60)
+    addr = svc.serve()
+    try:
+        reader = paddle_tpu_torch.reader.creator.cloud_reader(
+            [missing], f"{addr[0]}:{addr[1]}")
+        with pytest.raises(OSError, match="missing.recordio"):
+            next(reader())
+        assert svc.stats()["todo"] == 1 and svc.stats()["pending"] == 0
+    finally:
+        svc.shutdown()
 
 
 # --- (c) recordio -----------------------------------------------------

@@ -258,14 +258,13 @@ def test_executor_needs_a_card_unless_told_cpu(monkeypatch):
 
 
 def test_not_ported_paths_raise():
-    from paddle_tpu_torch.reader import creator
-
+    # the exported-model format is the one path left (StableHLO); the
+    # send op (tests/test_torch_pserver.py) and the master service a
+    # cloud reader leases from (tests/test_torch_multihost.py) are ported
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tfluid.io.export_compiled_model("unused", [], [], None)
-    # the send op is ported (tests/test_torch_pserver.py); the master
-    # service a cloud reader needs is not
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        creator.cloud_reader(["unused"], "127.0.0.1:1")
+        tfluid.io.load_exported_model("unused")
 
 
 def test_grad_op_replays_its_forward_without_a_record():

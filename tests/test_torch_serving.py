@@ -121,7 +121,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.autotune, paddle_tpu_torch.autotune.__main__, "
             "paddle_tpu_torch.fleet, paddle_tpu_torch.fleet.__main__, "
             "paddle_tpu_torch.observability.debug_server, "
-            "paddle_tpu_torch.observability.timeline; "
+            "paddle_tpu_torch.observability.timeline, "
+            "paddle_tpu_torch.distributed, paddle_tpu_torch.native, "
+            "paddle_tpu_torch.fluid.concurrency; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -184,7 +186,16 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/fleet/launcher.py",
             "paddle_tpu_torch/fleet/__main__.py",
             "paddle_tpu_torch/observability/debug_server.py",
-            "paddle_tpu_torch/observability/timeline.py"} <= rel
+            "paddle_tpu_torch/observability/timeline.py",
+            "paddle_tpu_torch/distributed/master.py",
+            "paddle_tpu_torch/distributed/tcp_lease.py",
+            "paddle_tpu_torch/distributed/election.py",
+            "paddle_tpu_torch/distributed/membership.py",
+            "paddle_tpu_torch/distributed/elastic.py",
+            "paddle_tpu_torch/distributed/env.py",
+            "paddle_tpu_torch/native/channel.py",
+            "paddle_tpu_torch/native/memory.py",
+            "paddle_tpu_torch/fluid/concurrency.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
