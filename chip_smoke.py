@@ -432,6 +432,25 @@ and prints no result):
            ELASTIC_CHANNEL_STEPS Executor steps here: losses bitwise the
            same batches fed directly, the arena clean. Seconds of each
            part and the total.
+  analysis after elastic, the static passes on the card's paths:
+           (a) the train phase's Transformer-base program runs
+           ANALYSIS_STEPS steps with FLAGS['verify_programs'] off, then
+           a fresh build ANALYSIS_STEPS steps with it on: losses
+           bitwise equal, K1/K2/K3a/K3b/delta 30/18/18/18/18 launches a
+           step and no plain call, the verifier once per program-cache
+           miss (its ms each); verify_program(check_shapes=True) over
+           both Transformer programs here (torch on this machine) with
+           no error; (b) one FLAGS['check_nan_inf'] step on a NaN feed
+           raises FloatingPointError naming the var; (c) the serve
+           phase's 8 requests on a GPT-2-medium decoder loaded with the
+           guard sanitizer installed: tokens bitwise the serve phase's,
+           24 K4 launches a target step, no violation; then (plain,
+           sanitized, sanitized, plain) x ANALYSIS_TURNS batches of the
+           same requests for the step ms of each side; (d) `python -m
+           paddle_tpu_torch.analysis --json` and `--selftest` in
+           subprocesses (started first, no device; waited for before
+           (c)'s timed batches) exit 0 with no error and every code
+           fired.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -10101,6 +10120,264 @@ def elastic_phase(torch):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --- analysis: the verifier hook and the guard sanitizer on the card ----
+
+ANALYSIS_STEPS = 3       # Transformer-base steps a side (hook off, on)
+ANALYSIS_LAUNCHES = {"layer_norm_f32": 30, "flash_fwd_f32": 18,
+                     "flash_bwd_dkdv_f32": 18, "flash_bwd_dq_f32": 18,
+                     "flash_delta": 18}
+ANALYSIS_NEW = 32        # new tokens a request (the serve phase's)
+ANALYSIS_TURNS = 4       # (plain, sanitized, sanitized, plain) rounds
+K4_PER_STEP = 24         # K4 launches a target step: one a decoder layer
+
+
+def _analysis_cli(*args):
+    """``python -m paddle_tpu_torch.analysis <args>``, started now."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.analysis", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _cli_result(proc, what):
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"analysis {what} exited {proc.returncode}: "
+                           f"{out[-2000:]} {err[-2000:]}")
+    return json.loads(out)
+
+
+def _verified_training(torch):
+    """(a): Transformer-base with FLAGS['verify_programs'] off, then on."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.analysis import errors, verify
+    from paddle_tpu_torch.flags import FLAGS
+
+    feed = copy_task_batch(TRAIN_BATCH, TRANSFORMER_BASE)
+    real, miss_ms = verify.assert_valid, []
+
+    def timed(program, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(program, **kw)
+        finally:
+            miss_ms.append((time.perf_counter() - t0) * 1e3)
+
+    out = {}
+    verify.assert_valid = timed
+    try:
+        for side in ("off", "on"):
+            FLAGS["verify_programs"] = side == "on"
+            main, startup, cost, _ = build_transformer(TRANSFORMER_BASE,
+                                                       1e-4)
+            exe, scope = _card_executor(fluid), fluid.Scope()
+            exe.run(startup, scope=scope)
+            (losses, ms), launches = _held_window(lambda: _timed_steps(
+                exe, main, [feed] * ANALYSIS_STEPS, [cost], scope))
+            for k, per in ANALYSIS_LAUNCHES.items():
+                if launches.get(k, 0) != per * ANALYSIS_STEPS:
+                    raise RuntimeError(
+                        f"verify_programs {side}: {k} {launches.get(k, 0)} "
+                        f"launches in {ANALYSIS_STEPS} steps, want {per} "
+                        "a step")
+            out[side] = {"losses": losses, "step_ms": ms,
+                         "launches_per_step": {
+                             k: v // ANALYSIS_STEPS
+                             for k, v in launches.items()}}
+            del exe, scope
+            torch.cuda.empty_cache()
+    finally:
+        verify.assert_valid = real
+        FLAGS["verify_programs"] = False
+    if out["on"]["losses"] != out["off"]["losses"] or \
+            not all(np.isfinite(out["on"]["losses"])):
+        raise RuntimeError(f"losses with the verifier on "
+                           f"{out['on']['losses']} != off "
+                           f"{out['off']['losses']}")
+    # startup and main miss once each (the feed names do not change)
+    if len(miss_ms) != 2:
+        raise RuntimeError(f"the verifier ran {len(miss_ms)} times, want "
+                           "one per program-cache miss (2)")
+    out["verifier_ms_per_miss"] = {"startup": miss_ms[0],
+                                   "main": miss_ms[1]}
+    # the meta-tensor shape re-check over both programs, with this
+    # machine's torch
+    shapes = {}
+    for kind, prog in (("main", main), ("startup", startup)):
+        t0 = time.perf_counter()
+        diags = verify.verify_program(prog, check_shapes=True)
+        bad = errors(diags)
+        if bad:
+            raise RuntimeError(f"verify_program({kind}) errors: "
+                               f"{[d.format() for d in bad[:5]]}")
+        codes = {}
+        for d in diags:
+            codes[d.code] = codes.get(d.code, 0) + 1
+        shapes[kind] = {"ops": len(prog.global_block().ops),
+                        "warnings": codes,
+                        "ms": (time.perf_counter() - t0) * 1e3}
+    out["verify_check_shapes"] = shapes
+    out["losses_bitwise"] = True
+    return out
+
+
+def _nan_step(torch):
+    """(b): one FLAGS['check_nan_inf'] step on a NaN-seeded feed."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import layers, unique_name
+    from paddle_tpu_torch.flags import FLAGS
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 5
+    with unique_name.guard(), fluid.program_guard(main, startup):
+        x = layers.data(name="x", shape=[D_MODEL], dtype="float32")
+        y = layers.data(name="y", shape=[1], dtype="float32")
+        cost = layers.mean(layers.square_error_cost(
+            input=layers.fc(input=x, size=1), label=y))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(cost)
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    xs = rng.randn(TRAIN_BATCH, D_MODEL).astype(np.float32)
+    xs[3, 7] = np.nan
+    feed = {"x": xs, "y": np.ones((TRAIN_BATCH, 1), np.float32)}
+    exe.run(main, feed=feed, fetch_list=[cost], scope=scope)  # flag off
+    FLAGS["check_nan_inf"] = True
+    try:
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[cost], scope=scope)
+    except FloatingPointError as e:
+        msg, ms = str(e), (time.perf_counter() - t0) * 1e3
+    else:
+        raise RuntimeError("check_nan_inf: a NaN feed raised nothing")
+    finally:
+        FLAGS["check_nan_inf"] = False
+    if msg != "var 'fc_0.w_0' contains NaN/Inf":
+        raise RuntimeError(f"check_nan_inf raised {msg!r}")
+    return {"raised": msg, "step_ms": ms}
+
+
+def _sanitized_serving(torch, serve_ref, before_turns):
+    """(c): the serve phase's requests under the guard sanitizer;
+    ``before_turns()`` runs between the decoder's load and the first
+    batch."""
+    from paddle_tpu_torch.analysis import sanitize
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.observability import metrics, tracing
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+
+    steps_c = metrics.counter("serving.decode.target_steps")
+    sanitize.clear_violations()
+    installed = sanitize.install()
+    # created while installed: the server, its registry, the engine and
+    # its KV cache and the clients are armed
+    srv = ServingServer()
+    clients = [ServingClient(srv.serve(), timeout=900.0) for _ in range(8)]
+    try:
+        t0 = time.perf_counter()
+        clients[0].load_decoder("gpt2m", GPT2_MEDIUM, **SERVE)
+        load_s = time.perf_counter() - t0
+        before_turns()
+
+        def batch(side):
+            (sanitize.install if side == "sanitized" else
+             sanitize.uninstall)()
+            pa.counts.reset()
+            steps0 = steps_c.value()
+            tracing.trace_reset()
+            tracing.trace_enable()
+            results, wall = _concurrent(clients, "gpt2m",
+                                        serve_ref["prompts"], ANALYSIS_NEW)
+            tracing.trace_disable()
+            steps = steps_c.value() - steps0
+            launches = pa.counts.kernel_launches[pa.KERNEL]
+            plain = pa.counts.plain_calls[pa.KERNEL]
+            if [r["tokens"] for r in results] != serve_ref["tokens"]:
+                raise RuntimeError(f"{side} batch: tokens differ from the "
+                                   "serve phase's")
+            if launches != K4_PER_STEP * steps or not steps or plain:
+                raise RuntimeError(f"{side} batch: {launches} K4 launches, "
+                                   f"{plain} plain calls, {steps} target "
+                                   "steps")
+            if sanitize.violations():
+                raise RuntimeError(f"guard violations: "
+                                   f"{sanitize.violations()[:5]}")
+            ms = [ev["dur"] / 1e3 for ev in tracing.trace_events()
+                  if ev.get("name") == "serving.decode.step"]
+            return {"steps": steps, "launches": launches, "wall_s": wall,
+                    "p50_step_ms": statistics.median(ms)}
+
+        # the main path's window: the first batch, sanitized, prefill
+        # from nothing
+        main_window = batch("sanitized")
+        turns = {"sanitized": [], "plain": []}
+        for _ in range(ANALYSIS_TURNS):
+            for side in ("plain", "sanitized", "sanitized", "plain"):
+                turns[side].append(batch(side))
+        p50 = {k: statistics.median(t["p50_step_ms"] for t in v)
+               for k, v in turns.items()}
+        return {"classes_installed": len(installed), "load_warm_s": load_s,
+                "window": main_window, "tokens_bitwise": True,
+                "k4_launches_per_target_step":
+                    main_window["launches"] / main_window["steps"],
+                "violations": 0, "turns": turns,
+                "p50_step_ms": p50,
+                "step_ratio_sanitized_over_plain":
+                    p50["sanitized"] / p50["plain"]}
+    finally:
+        sanitize.uninstall()
+        for c in clients:
+            c.close()
+        srv.shutdown()
+
+
+def analysis_phase(torch, serve_ref):
+    """The static-analysis passes on the card's paths (see the module
+    docstring)."""
+    phase("analysis")
+    t_phase = time.perf_counter()
+    # (d) first: the CLI touches no device and overlaps the rest
+    cli = {"json": _analysis_cli("--json"),
+           "selftest": _analysis_cli("--selftest", "--json")}
+    try:
+        out = {"train": _verified_training(torch)}
+        log("  (a) verified training " + json.dumps(out["train"]))
+        out["nan"] = _nan_step(torch)
+        log("  (b) check_nan_inf " + json.dumps(out["nan"]))
+
+        def cli_results():
+            # the CLI ends before the timed batches share the host
+            t0 = time.perf_counter()
+            doc = _cli_result(cli["json"], "--json")
+            if doc["errors"]:
+                raise RuntimeError(f"analysis --json: {doc['errors']} "
+                                   "errors")
+            st = _cli_result(cli["selftest"], "--selftest")
+            if not st["ok"]:
+                raise RuntimeError(f"analysis --selftest: {st['selftest']}")
+            out["cli"] = {"passes": doc["passes"], "errors": doc["errors"],
+                          "warnings": doc["warnings"],
+                          "selftest_codes_fired": sum(
+                              r["fired"] for r in st["selftest"]),
+                          "waited_s": time.perf_counter() - t0}
+            log("  (d) cli " + json.dumps(out["cli"]))
+
+        out["serve"] = _sanitized_serving(torch, serve_ref, cli_results)
+        log("  (c) sanitized serving " + json.dumps(out["serve"]))
+    finally:
+        for p in cli.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(60)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  analysis phase: {out['seconds']:.1f} s")
+    return out
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
@@ -10187,6 +10464,7 @@ def main():
     pserver = pserver_phase(torch)
     fleet = fleet_phase(torch, serve_ref)
     elastic = elastic_phase(torch)
+    analysis = analysis_phase(torch, serve_ref)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -10259,7 +10537,10 @@ def main():
                     pserver=pserver,
                     elastic_launches_per_step=elastic[
                         "launches_per_step"]["layer_norm_f32"],
-                    elastic=elastic),
+                    elastic=elastic,
+                    analysis_launches_per_step=analysis["train"]["on"][
+                        "launches_per_step"]["layer_norm_f32"],
+                    analysis=analysis),
         _kernel_row("layer_norm_bf16", "paddle_tpu_torch/csrc/layer_norm.cu",
                     "paddle_tpu/fluid/ops/pallas_kernels/layer_norm.py:42 "
                     "(bf16 x, widened on load at :17)",
@@ -10296,6 +10577,8 @@ def main():
             pserver_launches_per_step=pserver["transformer"][
                 "launches_per_step"][kname],
             elastic_launches_per_step=elastic["launches_per_step"][kname],
+            analysis_launches_per_step=analysis["train"]["on"][
+                "launches_per_step"][kname],
             **extra))
     infer_kernels = [_kernel_row(
         "conv_bn_relu_f32", "paddle_tpu_torch/csrc/conv_bn_relu.cu",
@@ -10407,6 +10690,7 @@ def main():
             "k4_launches_per_target_step", "p50_step_ms", "step_ratio_p50",
             "tokens_bitwise", "k4_local_map")},
         "fleet": fleet,
+        "analysis_serve": analysis["serve"],
     }, _k4_bf16_row(mesh_serve)] + train_kernels + infer_kernels}
     log(json.dumps(kernels))
     print(smi, flush=True)

@@ -13,7 +13,11 @@ machine translation, and the mesh layer (``mesh``, ``parallel``:
 Every TPU kernel on those paths is rewritten by hand in CUDA C++ for
 Hopper (``csrc/``). ``reader``, ``dataset`` and ``batch`` are the JAX
 package's top-level data helpers. Entry points run on the card unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``. ``analysis`` holds the static
+passes (``python -m paddle_tpu_torch.analysis``): the program verifier
+the Executor runs under ``FLAGS['verify_programs']``, the lock, guard
+and invariant lints, and the guard sanitizer that
+``PADDLE_TPU_SANITIZE=guards`` installs at import.
 """
 from . import dataset, reader  # noqa: F401
 from .reader import batch  # noqa: F401
@@ -25,6 +29,16 @@ from .serving import (  # noqa: F401
     build_decoder_params,
     params_from_jax,
 )
+
+# PADDLE_TPU_SANITIZE=guards: instrument the guarded-by-annotated runtime
+# classes so every declared-guard access asserts its lock is held (the
+# dynamic half of the analysis/guards.py lint). Nothing to import unset.
+from .flags import FLAGS as _FLAGS  # noqa: E402
+
+if _FLAGS["sanitize"]:
+    from .analysis import sanitize as _sanitize
+
+    _sanitize.maybe_install()
 
 __all__ = ["DecodeEngine", "DecoderSpec", "ServingClient", "ServingServer",
            "batch", "build_decoder_params", "dataset", "params_from_jax",

@@ -2,21 +2,82 @@
 with the same cold defaults as ``paddle_tpu/fluid/flags.py``. There is
 no kernel-routing flag: a kernel wrapper routes on its tensor's device
 alone (a CPU tensor takes the plain PyTorch version, a CUDA tensor the
-hand-written kernel)."""
+hand-written kernel). Nor are there ``donate_state`` or
+``compile_stats``: XLA buffer donation and per-executable cost
+accounting have no counterpart in an eager executor."""
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
+# the recorder parses PADDLE_TPU_TRACE / PADDLE_TPU_TRACE_BUFFER once at
+# import; FLAGS reads its live state rather than re-parsing the env, so
+# one parser owns both views
+from .observability import tracing as _tracing
+
 __all__ = ["FLAGS", "set_flags", "get_flag", "effective_flag"]
 
-FLAGS: Dict[str, Any] = {
+
+class _Flags(dict):
+    """FLAGS with read-through keys: 'trace'/'trace_buffer' always report
+    the live recorder (``trace_enable()`` toggles it without going
+    through set_flags, so a stored mirror would go stale), and 'faults'
+    reports the live fault-injection plan the same way
+    (``faults.install()``/``scoped()`` toggle it without set_flags)."""
+
+    def __getitem__(self, k):
+        if k == "trace":
+            return _tracing.trace_enabled()
+        if k == "trace_buffer":
+            return _tracing.buffer_capacity()
+        if k == "faults":
+            from .distributed import faults as _faults
+
+            return _faults.active_spec()
+        return dict.__getitem__(self, k)
+
+
+FLAGS: Dict[str, Any] = _Flags({
     # numeric precision of float32 matmuls and convolutions in a run of
     # the Executor, the JAX package's flag: 'highest' = full float32
     # products (TF32 off in cuBLAS and cuDNN, whatever the caller's
     # torch settings); 'high' and 'default' leave the caller's torch
     # settings as they are (TF32 where the caller allowed it)
     "matmul_precision": "highest",
+    # sweep the new state and the fetches for NaN/Inf after each run
+    # (reference FLAGS_check_nan_inf, executor.cc:27): one
+    # torch.isfinite(...).all() per floating var, FloatingPointError on
+    # the first that fails
+    "check_nan_inf": False,
+    # print each run's time, taken after the run's device has finished
+    # its work (reference FLAGS_benchmark, executor.cc:348)
+    "benchmark": False,
+    # run the static program verifier (paddle_tpu_torch.analysis.verify)
+    # on each program-cache miss of the Executor: structural checks
+    # only (use-before-def, unknown vars and ops, block nesting — not
+    # the meta-tensor shape re-check), so the cost is one O(ops) walk
+    # per (program version, feed signature), never per step
+    "verify_programs": False,
+    # record host spans into paddle_tpu_torch.observability.tracing
+    # from process start (trace_enable() also toggles it at run time).
+    # Reads are live (see _Flags); the stored values here only seed
+    # `k in FLAGS` / sorted(FLAGS)
+    "trace": _tracing.trace_enabled(),
+    # span ring-buffer capacity (oldest spans drop past it)
+    "trace_buffer": _tracing.buffer_capacity(),
+    # deterministic fault-injection plan (distributed/faults.py spec
+    # string); None/'' = off. Seeded from PADDLE_TPU_FAULTS; reads are
+    # live (see _Flags)
+    "faults": None,
+    # runtime sanitizers. 'guards' instruments the annotated runtime
+    # classes (analysis/sanitize.py) so every access to a
+    # '# guarded-by:'-declared attribute asserts its lock is held.
+    # Seeded from PADDLE_TPU_SANITIZE at import; the package's
+    # __init__ installs the instrumentation when set. '' = off
+    "sanitize": os.environ.get("PADDLE_TPU_SANITIZE", ""),
+    # the serving bucket ladder: dynamic batches pad up to the next
+    # entry (serving.engine.default_buckets)
+    "serving_buckets": "1,2,4,8,16",
     # admission bound: queue depth past which a request is rejected with
     # ServerOverloaded instead of queueing into unbounded latency
     "serving_max_queue": 64,
@@ -140,7 +201,7 @@ FLAGS: Dict[str, Any] = {
     # window (PADDLE_TPU_FLEET_KEY_PREV env wins)
     "fleet_intent_key_prev": "",
     "fleet_intent_allowlist": "",
-}
+})
 
 
 def set_flags(d: Dict[str, Any]):
@@ -148,6 +209,23 @@ def set_flags(d: Dict[str, Any]):
         if k not in FLAGS:
             raise KeyError(f"unknown flag {k!r}; known: {sorted(FLAGS)}")
         FLAGS[k] = v
+        # propagate to the live recorder and fault plan, so set_flags is
+        # a complete control surface; each key acts on its own (resizing
+        # the buffer does not flip the enable bit, and vice versa)
+        if k == "trace":
+            if v:
+                _tracing.trace_enable(buffer_size=FLAGS["trace_buffer"])
+            else:
+                _tracing.trace_disable()
+        elif k == "trace_buffer":
+            _tracing.resize_buffer(int(v))
+        elif k == "faults":
+            from .distributed import faults as _faults
+
+            if v:
+                _faults.install(v)
+            else:
+                _faults.uninstall()
 
 
 def get_flag(name: str):

@@ -610,6 +610,16 @@ def _run_send_ops(send_ops, values: Dict[str, Any], scope: Scope, device):
                     "get_param", name, copy_result=False), device))
 
 
+def _check_nan_inf(named):
+    """Raise FloatingPointError naming the first floating var (a
+    SelectedRows by its value) holding a NaN or an Inf: one
+    ``isfinite().all()`` a var, read on the host."""
+    for name, v in named:
+        t = v.value if is_selected_rows(v) else v
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"var '{name}' contains NaN/Inf")
+
+
 _MATMUL_PRECISIONS = ("highest", "high", "default")
 
 
@@ -705,12 +715,23 @@ class Executor:
                 pass
         return out
 
-    def _entry(self, program, feed_names, use_program_cache):
+    def _entry(self, program, feed_names, fetch_names, use_program_cache):
         key = (program._version, tuple(sorted(feed_names)))
         prog_cache = self._cache.setdefault(program, {})
         entry = prog_cache.get(key) if use_program_cache else None
         self._last_run_built = entry is None
         if entry is None:
+            if FLAGS["verify_programs"]:
+                # refuse a malformed program here, with op-indexed
+                # diagnostics, instead of deep inside an emitter.
+                # Structural checks only: one O(ops) walk per miss
+                from ..analysis.verify import assert_valid
+
+                assert_valid(
+                    program, check_shapes=False,
+                    fetch_targets=list(fetch_names),
+                    header="program failed verification before lowering "
+                           "(FLAGS['verify_programs'] is on)")
             block = program.global_block()
             ops = [op.desc for op in block.ops
                    if op.desc.type not in _HOST_OP_TYPES]
@@ -757,15 +778,15 @@ class Executor:
                 stream.wait_event(batch.ready)
                 for t in batch.tensors():
                     t.record_stream(stream)
+        fetch_names = [_as_name(v) for v in fetch_list]
         state_in, state_out, segments = self._entry(
-            program, list(feeds), use_program_cache)
+            program, list(feeds), fetch_names, use_program_cache)
         missing = [n for n in state_in if not scope.has_var(n)]
         if missing:
             raise RuntimeError(
                 f"vars {missing} are read by the program but not "
                 "initialized in scope — run the startup program first or "
                 "feed them")
-        fetch_names = [_as_name(v) for v in fetch_list]
         env: Dict[str, Any] = {n: whole(scope.find_var(n))
                                for n in state_in}
         env.update(feeds)
@@ -774,11 +795,17 @@ class Executor:
         sent = [n for op in send_ops for n in op.desc.inputs.get("X", [])
                 if n]
         keep = frozenset(fetch_names) | frozenset(sent)
+        t0 = _time.perf_counter() if FLAGS["benchmark"] else 0.0
         for io, seg, plan in segments:
             if io:
                 _run_io_host_ops(seg, scope, dev, env)
             else:
                 exec_op_descs(ctx, seg, env, keep=keep, plan=plan)
+        if FLAGS["benchmark"]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            print(f"[benchmark] run took "
+                  f"{(_time.perf_counter() - t0) * 1000:.3f} ms")
         for n in state_out:
             if n in env:
                 scope.set_var(n, env[n].detach())
@@ -798,6 +825,14 @@ class Executor:
                     f"fetch target '{n}' was not produced by the block")
             v = env[n].detach()
             fetches.append(_fetched_numpy(v) if return_numpy else v)
+        if FLAGS["check_nan_inf"] and not host_only:
+            # reference FLAGS_check_nan_inf sweep (executor.cc:352-360)
+            # over the new state, then the fetches, in the JAX
+            # executor's order (its new-state dict comes back from jit
+            # in name order)
+            _check_nan_inf([(n, env[n]) for n in sorted(state_out)
+                            if n in env]
+                           + [(n, env[n]) for n in fetch_names])
         return fetches
 
     def close(self):

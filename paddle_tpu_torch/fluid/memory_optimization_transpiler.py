@@ -18,11 +18,11 @@ eager executor runs it as written, so on the card it frees memory too:
 Only vars of fully static shape take part (a -1 batch dim keeps a var
 out), as in the JAX package.
 
-The rewrite is gated as the JAX package gates it (its analysis/verify.py
-``verify_rewrite``), on the checks a rewrite can break: the reuse log
-must alias no live variable (V010), and the rewrite may add no
-use-before-def (V001) or unknown-var (V002) error. A refusal raises
-RewriteError and rolls the program back.
+The rewrite is gated as the JAX package gates it, by the port's
+``analysis.verify``: the reuse log must alias no live variable (V010),
+and the rewrite may add no error-level diagnostic ``verify_program``
+did not report before it. A refusal raises RewriteError and rolls the
+program back.
 """
 from __future__ import annotations
 
@@ -101,62 +101,29 @@ class RewriteError(RuntimeError):
                          for c, w, m in self.diagnostics))
 
 
-def _structure_errors(program) -> Set[tuple]:
-    """The V001 (a non-persistable var read before its first def in the
-    global block) and V002 (a var in no reachable block scope) errors of
-    the JAX package's verifier, as (code, where, message)."""
-    out: Set[tuple] = set()
-    for b in program.blocks:
-        first_def: Dict[str, int] = {}
-        for i, op in enumerate(b.ops):
-            for n in op.desc.output_names():
-                if n:
-                    first_def.setdefault(n, i)
-        for i, op in enumerate(b.ops):
-            od = op.desc
-            where = f"block {b.idx} / op {i} ({od.type})"
-            for kind, io in (("input", od.inputs), ("output", od.outputs)):
-                for slot, names in io.items():
-                    for n in names:
-                        if n and b._var_recursive(n) is None:
-                            out.add(("V002", where, f"{kind} {slot}={n!r} "
-                                     "exists in no reachable block scope"))
-            if b.parent_idx >= 0:
-                continue
-            for slot, names in od.inputs.items():
-                for n in names:
-                    var = b._var_recursive(n) if n else None
-                    if var is None or var.persistable or \
-                            isinstance(var, Parameter):
-                        continue
-                    fd = first_def.get(n)
-                    if fd is not None and fd > i:
-                        out.add(("V001", where,
-                                 f"input {slot}={n!r} is read at op {i} "
-                                 f"but first produced at op {fd}"))
-    return out
-
-
 def _check_reuse_events(cfg, events) -> List[tuple]:
-    """V010: a merge is safe iff its storage's live range (extended by
-    every earlier merge into it) ended strictly before the merging op."""
-    last_use = dict(cfg.last_use_index())
-    storage_last: Dict[str, int] = {}
-    out = []
-    for (i, var, cand) in events:
-        end = storage_last.get(cand, last_use.get(cand, -1))
-        if end >= i:
-            out.append(("V010", f"op {i}",
-                        f"reuse of '{cand}' for '{var}' at op {i} aliases "
-                        f"a live variable (storage still used at op {end})"))
-        storage_last[cand] = max(end, storage_last.get(var,
-                                                       last_use.get(var, -1)))
-    return out
+    """The V010 errors of ``analysis.verify.check_reuse_events`` (a
+    merge is safe iff its storage's live range, extended by every
+    earlier merge into it, ended strictly before the merging op)."""
+    from ..analysis.verify import check_reuse_events
+
+    return [d.key() for d in check_reuse_events(cfg, events)]
 
 
-def _verify_rewrite(program, before, cfg, events):
-    bad = _check_reuse_events(cfg, events) + sorted(
-        _structure_errors(program) - before)
+def _verify_rewrite(program, before_diags, cfg, events):
+    """``analysis.verify.verify_rewrite``'s verdict as a RewriteError:
+    the reuse proof, and the error-level diagnostics the rewrite added
+    to ``before_diags``."""
+    from ..analysis.diagnostics import AnalysisError
+    from ..analysis.verify import verify_rewrite
+
+    bad = _check_reuse_events(cfg, events)
+    try:
+        # no events: the reuse proof is _check_reuse_events's, above
+        verify_rewrite(program, before_diags, cfg, (),
+                       what="memory_optimize")
+    except AnalysisError as e:
+        bad += [d.key() for d in e.diagnostics]
     if bad:
         raise RewriteError(bad)
 
@@ -181,7 +148,9 @@ def memory_optimize(input_program: Program, skip_opt_set=None,
 
     block = input_program.global_block()
     if verify:
-        before_diags = _structure_errors(input_program)
+        from ..analysis.verify import verify_program
+
+        before_diags = verify_program(input_program, check_shapes=False)
         # snapshot what the rewrite mutates (op IO descs + the var map)
         # so a gate refusal can hand the caller back an INTACT program
         # instead of the half-rewritten one the error is about

@@ -589,7 +589,7 @@ class ParallelExecutor:
         feeds = {k: self._place_feed(k, v) for k, v in feed.items()}
         fetch_names = tuple(_as_name(v) for v in fetch_list)
         state_in, state_out, segments = self._exe._entry(
-            program, list(feeds), True)
+            program, list(feeds), fetch_names, True)
         missing = [n for n in state_in if not scope.has_var(n)]
         if missing:
             raise RuntimeError(

@@ -77,13 +77,13 @@ _m_batches = _metrics.counter("serving.batches")
 _m_overloads = _metrics.counter("serving.overloads")
 _m_deadline_miss = _metrics.counter("serving.deadline_misses")
 
-# the hand-set geometric ladder (the JAX package's FLAGS default for
-# serving_buckets)
+# the hand-set geometric ladder — the cold-cache fallback when "auto"
+# has nothing observed and nothing cached (matches the FLAGS default)
 _STATIC_BUCKETS = "1,2,4,8,16"
 
 
 def default_buckets() -> List[int]:
-    return parse_buckets(_STATIC_BUCKETS)
+    return resolve_bucket_spec(FLAGS["serving_buckets"])
 
 
 def _is_auto(spec) -> bool:

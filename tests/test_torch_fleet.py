@@ -213,7 +213,8 @@ def _drive(ctl, ops):
         elif op[0] == "intent":
             out.append(ctl._add_intent(op[1], op[2], op[3])["seq"])
         else:
-            seq = int(op[2] * ctl._next_seq)
+            with ctl._mu:  # the declared guard of _next_seq
+                seq = int(op[2] * ctl._next_seq)
             applied[op[1]] = max(applied.get(op[1], 0), seq)
             out.append(ctl._heartbeat(op[1], applied[op[1]], None))
     log = [{k: v for k, v in i.items() if k != "at"}

@@ -123,7 +123,14 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.observability.debug_server, "
             "paddle_tpu_torch.observability.timeline, "
             "paddle_tpu_torch.distributed, paddle_tpu_torch.native, "
-            "paddle_tpu_torch.fluid.concurrency; "
+            "paddle_tpu_torch.fluid.concurrency, "
+            "paddle_tpu_torch.analysis, paddle_tpu_torch.analysis.__main__, "
+            "paddle_tpu_torch.analysis.examples, "
+            "paddle_tpu_torch.analysis.guards, "
+            "paddle_tpu_torch.analysis.invariants, "
+            "paddle_tpu_torch.analysis.locks, "
+            "paddle_tpu_torch.analysis.sanitize, "
+            "paddle_tpu_torch.analysis.selftest; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -195,7 +202,17 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/distributed/env.py",
             "paddle_tpu_torch/native/channel.py",
             "paddle_tpu_torch/native/memory.py",
-            "paddle_tpu_torch/fluid/concurrency.py"} <= rel
+            "paddle_tpu_torch/fluid/concurrency.py",
+            "paddle_tpu_torch/analysis/__init__.py",
+            "paddle_tpu_torch/analysis/__main__.py",
+            "paddle_tpu_torch/analysis/diagnostics.py",
+            "paddle_tpu_torch/analysis/examples.py",
+            "paddle_tpu_torch/analysis/guards.py",
+            "paddle_tpu_torch/analysis/invariants.py",
+            "paddle_tpu_torch/analysis/locks.py",
+            "paddle_tpu_torch/analysis/sanitize.py",
+            "paddle_tpu_torch/analysis/selftest.py",
+            "paddle_tpu_torch/analysis/verify.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()
