@@ -451,6 +451,33 @@ and prints no result):
            subprocesses (started first, no device; waited for before
            (c)'s timed batches) exit 0 with no error and every code
            fired.
+  v2       after analysis, the v2 API and the legacy config DSL (no
+           kernel of the port on their path; every kernel count held at
+           0 plain calls): (a) v2.networks.vgg_16_network (13 convs, two
+           4096-wide fcs) on cifar train10's first batch through v2.batch
+           at V2_VGG_BATCH, init(use_gpu=True), create, SGD with
+           v2.optimizer.Momentum for V2_VGG_ITERS iterations of that
+           batch through the event handler: costs finite, the last below
+           the first; p50
+           iteration ms, images/s, peak memory; from the card's initial
+           parameters copied to a CPU Parameters, card vs CPU on that
+           batch: SGD.test's cost within V2_TEST_RTOL, the logits
+           through infer within V2_LOGITS_TOL of the max, and one SGD
+           step with dropout off: the gradient of the first conv's filter
+           and the last fc's weight (Momentum's velocity after it), on
+           the card, on the CPU and between them, against a plain
+           PyTorch float64 VGG-16 on the card within V2_STEP_RTOL of its
+           norm, or V2_STEP_F32 times plain float32's own distance; (b) tests/test_v2_api.py's
+           fit_a_line for V2_FIT_PASSES passes, the cost down 3x, infer
+           on 8 test samples card vs CPU (the trained parameters copied)
+           within V2_INFER_TOL of the max; (c) conv_operator in a
+           mixed_layer at V2_CONV, forward and trans=True: the output and
+           the gradients of the image and the computed filter, card vs
+           CPU within V2_CONV_TOL of the max, conv2d_input_filter's
+           forward timed on each; (d) V2_LEGACY_CONFIG (img_conv_layer
+           -> img_pool_layer -> fc_layer -> classification_cost) exec'd
+           through compat.trainer_config_helpers behind a `paddle`
+           module, V2_LEGACY_STEPS SGD steps on the card, costs finite.
 
 The kernels and train kernels phases also hold K4 and K2/K3a/K3b at
 head_dim above 256 (257, 258, 264, 512) and time them at 264 and 512;
@@ -499,8 +526,12 @@ def log(*a):
         print(*a, file=f)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    log(f"== {name}")
+    """A phase's header, with the seconds since the script started."""
+    log(f"== {name} (at {time.perf_counter() - _T0:.1f} s)")
 
 
 def smi_line():
@@ -10378,6 +10409,461 @@ def analysis_phase(torch, serve_ref):
     return out
 
 
+V2_VGG_BATCH = 128       # cifar images an iteration (the issue's batch)
+V2_VGG_ITERS = 10        # SGD iterations through the event handler
+V2_VGG_LR = 0.01         # Momentum(momentum=0.9, learning_rate=V2_VGG_LR)
+V2_TEST_RTOL = 1e-4      # SGD.test cost, card vs CPU, relative
+V2_LOGITS_TOL = 1e-4     # VGG-16's logits, card vs CPU, of the largest |logit|
+V2_STEP_RTOL = 1e-4      # one step's gradient of the exact one, of its norm,
+V2_STEP_F32 = 2.0        # or this many times plain float32's own distance
+V2_FIT_PASSES = 3        # fit_a_line passes (tests/test_v2_api.py's)
+V2_INFER_TOL = 1e-5      # infer, card vs CPU, of the largest |output|
+V2_CONV = dict(batch=64, channels=3, hw=32, filters=16, k=3, padding=1)
+V2_CONV_TOL = 1e-4       # conv_operator card vs CPU, of the largest |value|
+V2_LEGACY_STEPS = 2
+V2_LEGACY_CONFIG = """
+from paddle.trainer_config_helpers import *
+
+settings(batch_size=64, learning_rate=0.001)
+img = data_layer(name='pixel', size=3 * 32 * 32, height=32, width=32)
+conv = img_conv_layer(input=img, filter_size=3, num_filters=32,
+                      num_channels=3, padding=1, act=ReluActivation())
+pool = img_pool_layer(input=conv, pool_size=2, stride=2,
+                      pool_type=MaxPooling())
+prob = fc_layer(input=pool, size=10, act=SoftmaxActivation())
+label = data_layer(name='label', size=10)
+outputs(classification_cost(input=prob, label=label))
+"""
+
+
+@contextlib.contextmanager
+def _v2_world():
+    """Fresh default programs, scope and name counters for one v2
+    topology."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid import unique_name
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.scope_guard(fluid.Scope()), \
+            fluid.program_guard(main, startup), unique_name.guard():
+        yield main, startup
+
+
+def _v2_vgg(v2):
+    """v2.networks.vgg_16_network on 3x32x32 cifar images, 10 classes."""
+    img = v2.layer.data(name="image",
+                        type=v2.data_type.dense_vector(3 * 32 * 32))
+    label = v2.layer.data(name="label", type=v2.data_type.integer_value(10))
+    import paddle_tpu_torch.fluid as fluid
+
+    x4 = fluid.layers.reshape(img, shape=[-1, 3, 32, 32])
+    out = v2.networks.vgg_16_network(x4, num_channels=3, num_classes=10)
+    return v2.layer.classification_cost(input=out, label=label)
+
+
+def _v2_copy(dst, src):
+    for n in src.names():
+        dst.set(n, src.get(n))
+
+
+def _v2_vgg_plain_grads(torch, params, batch, names, dtype):
+    """The gradients of ``names`` for vgg_16_network with dropout off, in
+    plain PyTorch at ``dtype`` on the card: 13 3x3 convs (padding 1,
+    relu) in groups of 2, 2, 3, 3, 3 each closed by a 2x2 max pool, fc
+    4096 relu, fc 4096 relu, fc 10, softmax cross-entropy's mean.
+    ``params`` are numpy arrays under the port's names."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    p = {n: torch.tensor(v, dtype=dtype, device=CARD, requires_grad=True)
+         for n, v in params.items()}
+    x = torch.tensor(np.stack([img for img, _ in batch]), dtype=dtype,
+                     device=CARD).reshape(-1, 3, 32, 32)
+    y = torch.tensor([label for _, label in batch], device=CARD)
+    k = 0
+    for n_convs in (2, 2, 3, 3, 3):
+        for _ in range(n_convs):
+            x = F.relu(F.conv2d(x, p[f"conv2d_{k}.w_0"], padding=1)
+                       + p[f"conv2d_{k}.w_1"].reshape(1, -1, 1, 1))
+            k += 1
+        x = F.max_pool2d(x, 2, 2)
+    x = x.flatten(1)
+    for j in range(3):
+        x = x @ p[f"fc_{j}.w_0"] + p[f"fc_{j}.w_1"]
+        x = F.relu(x) if j < 2 else x
+    F.cross_entropy(x, y).backward()
+    return {n: p[n].grad.double().cpu().numpy() for n in names}
+
+
+def _v2_step_grad(trainer, main, batch, feeding):
+    """One SGD step on ``batch`` with dropout off (its masks come from
+    per-device generators): the gradient of the first conv's filter and
+    of the last fc's weight, by name, read as Momentum's velocity, which
+    the first step sets to the gradient. (The change of a float32
+    parameter rounds to the parameter's ulp, a large share of a change
+    this small.)"""
+    import numpy as np
+
+    ops = main.global_block().ops
+    names = ([op.input("Filter")[0] for op in ops if op.type == "conv2d"][0],
+             [op.input("Y")[0] for op in ops if op.type == "mul"][-1])
+    velocity = {op.input("Param")[0]: op.input("Velocity")[0]
+                for op in ops if op.type == "momentum"}
+    drops = [op for op in ops if op.type == "dropout"]
+    probs = [op.attr("dropout_prob") for op in drops]
+    for op in drops:
+        op.set_attr("dropout_prob", 0.0)
+    if any(np.any(trainer.parameters.get(velocity[n])) for n in names):
+        raise RuntimeError("v2 VGG-16: Momentum's velocity before the "
+                           "first step is not zero")
+    trainer.train(reader=lambda: iter([batch]), num_passes=1,
+                  feeding=feeding)
+    for op, p in zip(drops, probs):
+        op.set_attr("dropout_prob", p)
+    return {n: trainer.parameters.get(velocity[n]) for n in names}
+
+
+def _v2_vgg_run(torch, v2):
+    """(a): VGG-16 trained through SGD's event loop on the card. From the
+    card's initial parameters copied to a CPU twin: SGD.test's cost, the
+    logits through infer, and one step's gradient of the first conv and
+    the last fc (dropout off), card and CPU against plain float64."""
+    import itertools
+
+    import numpy as np
+
+    feeding = {"image": 0, "label": 1}
+    first = next(iter(v2.batch(v2.dataset.cifar.train10(),
+                               V2_VGG_BATCH)()))
+    images = [(img,) for img, _ in first]
+    with _v2_world() as (main, _):
+        cost = _v2_vgg(v2)
+        logits = main.global_block().var(logits_var(main))
+        params = v2.create(cost)
+        trainer = v2.SGD(cost=cost, parameters=params,
+                         update_equation=v2.optimizer.Momentum(
+                             momentum=0.9, learning_rate=V2_VGG_LR))
+        convs = sum(op.type == "conv2d" for op in main.global_block().ops)
+        t0 = time.perf_counter()
+        with _v2_world() as (cpu_main, _):
+            cpu_cost = _v2_vgg(v2)
+            cpu_logits = cpu_main.global_block().var(logits_var(cpu_main))
+            cpu_params = v2.create(cpu_cost, device="cpu")
+            _v2_copy(cpu_params, params)
+            cpu_trainer = v2.SGD(cost=cpu_cost, parameters=cpu_params,
+                                 update_equation=v2.optimizer.Momentum(
+                                     momentum=0.9, learning_rate=V2_VGG_LR),
+                                 device="cpu")
+            cpu_test = cpu_trainer.test(reader=lambda: iter([first]),
+                                        feeding=feeding).cost
+            cpu_out = v2.infer(output_layer=cpu_logits,
+                               parameters=cpu_params, input=images,
+                               feeding={"image": 0}, device="cpu")
+            cpu_grad = _v2_step_grad(cpu_trainer, cpu_main, first, feeding)
+        card_test = trainer.test(reader=lambda: iter([first]),
+                                 feeding=feeding).cost
+        card_out = v2.infer(output_layer=logits, parameters=params,
+                            input=images, feeding={"image": 0})
+        init = {n: params.get(n) for n in params.names()}
+        card_grad = _v2_step_grad(trainer, main, first, feeding)
+        test_err = abs(card_test - cpu_test) / abs(cpu_test)
+        if not test_err <= V2_TEST_RTOL:
+            raise RuntimeError(f"v2 VGG-16 SGD.test card {card_test} vs CPU "
+                               f"{cpu_test}: {test_err} relative "
+                               f"(> {V2_TEST_RTOL})")
+        if card_out.shape != (V2_VGG_BATCH, 10):
+            raise RuntimeError(f"v2 VGG-16 logits of shape {card_out.shape}")
+        logits_err = float(np.abs(card_out - cpu_out).max()
+                           / np.abs(cpu_out).max())
+        if not logits_err <= V2_LOGITS_TOL:
+            raise RuntimeError(f"v2 VGG-16 logits card vs CPU: {logits_err} "
+                               f"of the max (> {V2_LOGITS_TOL})")
+        # the exact gradient (float64), and float32's own distance from
+        # it: on this untrained net a float32 rounding that moves a
+        # near-tie of a max pool or a relu reaches the first convs'
+        # gradients magnified (their terms largely cancel)
+        exact = _v2_vgg_plain_grads(torch, init, first, card_grad,
+                                    torch.float64)
+        plain32 = _v2_vgg_plain_grads(torch, init, first, card_grad,
+                                      torch.float32)
+        grads = {}
+        for n, g in exact.items():
+            norm = float(np.linalg.norm(g))
+            f32 = float(np.linalg.norm(plain32[n] - g) / norm)
+            errs = {"card": float(np.linalg.norm(card_grad[n] - g) / norm),
+                    "cpu": float(np.linalg.norm(cpu_grad[n] - g) / norm),
+                    "card_vs_cpu": float(np.linalg.norm(
+                        card_grad[n] - cpu_grad[n]) / norm)}
+            bound = max(V2_STEP_RTOL, V2_STEP_F32 * f32)
+            grads[n] = {"norm": norm, "plain_f32": f32, "bound": bound,
+                        **errs}
+            if not norm or not max(errs.values()) <= bound:
+                raise RuntimeError(f"v2 VGG-16 one step's gradient of {n} "
+                                   f"against float64: {grads[n]}")
+        check_s = time.perf_counter() - t0
+        costs, ms, begun = [], [], []
+
+        def handler(e):
+            if isinstance(e, v2.event.BeginIteration):
+                begun.append(time.perf_counter())
+            elif isinstance(e, v2.event.EndIteration):
+                ms.append((time.perf_counter() - begun[-1]) * 1e3)
+                costs.append(e.cost)
+
+        def reader():
+            # the same batch each iteration: on the synthetic cifar the
+            # cost sits at chance and moves more from batch to batch
+            # than 10 steps of learning move it, so first and last see
+            # the same images
+            return itertools.repeat(first, V2_VGG_ITERS)
+
+        torch.cuda.reset_peak_memory_stats()
+        _, launches = _held_window(lambda: trainer.train(
+            reader=reader, num_passes=1, event_handler=handler,
+            feeding=feeding))
+    if len(costs) != V2_VGG_ITERS or not all(np.isfinite(costs)):
+        raise RuntimeError(f"v2 VGG-16 costs: {costs}")
+    if not costs[-1] < costs[0]:
+        raise RuntimeError(f"v2 VGG-16 cost {costs[0]} -> {costs[-1]}: the "
+                           "last not below the first")
+    p50 = statistics.median(ms[1:])
+    return {"config": f"v2 vgg_16_network: cifar train10 3x32x32, 10 "
+                      f"classes, {convs} convs, its first batch of "
+                      f"{V2_VGG_BATCH} {V2_VGG_ITERS} times, "
+                      f"Momentum({V2_VGG_LR}, 0.9)",
+            "costs": costs, "iteration_ms": ms, "p50_iteration_ms": p50,
+            "images_per_s": V2_VGG_BATCH / (p50 / 1e3),
+            "peak_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "test_cost_card": card_test, "test_cost_cpu": cpu_test,
+            "test_rel_err": test_err, "logits_err_of_max": logits_err,
+            "step_grad_of_norm": grads,
+            "check_s": check_s,
+            "kernel_launches": launches, "card": smi_line()}
+
+
+def _v2_fit_a_line(v2, device=None):
+    """tests/test_v2_api.py::test_v2_fit_a_line_event_loop's topology in
+    the current world: (pred, cost, parameters)."""
+    x = v2.layer.data(name="x", type=v2.data_type.dense_vector(13))
+    y = v2.layer.data(name="y", type=v2.data_type.dense_vector(1))
+    pred = v2.layer.fc_layer(input=x, size=1)
+    cost = v2.layer.square_error_cost(input=pred, label=y)
+    return pred, cost, v2.create(cost, device=device)
+
+
+def _v2_fit_run(torch, v2):
+    """(b): fit_a_line for V2_FIT_PASSES passes on the card; infer on 8
+    test samples on the card and on the CPU from the trained
+    parameters."""
+    import numpy as np
+
+    samples = [(s[0],) for _, s in zip(range(8),
+                                       v2.dataset.uci_housing.test()())]
+    with _v2_world():
+        pred, cost, params = _v2_fit_a_line(v2)
+        trainer = v2.SGD(cost=cost, parameters=params,
+                         update_equation=v2.optimizer.Momentum(
+                             momentum=0.9, learning_rate=1e-2))
+        costs, passes, ms = [], [], []
+
+        def handler(e):
+            if isinstance(e, v2.event.EndIteration):
+                costs.append(e.cost)
+            elif isinstance(e, v2.event.EndPass):
+                passes.append(e.pass_id)
+
+        t0 = time.perf_counter()
+        trainer.train(reader=v2.batch(v2.dataset.uci_housing.train(), 32),
+                      num_passes=V2_FIT_PASSES, event_handler=handler,
+                      feeding={"x": 0, "y": 1})
+        train_s = time.perf_counter() - t0
+        card = v2.infer(output_layer=pred, parameters=params,
+                        input=samples, feeding={"x": 0})
+        with _v2_world():
+            cpu_pred, _, cpu_params = _v2_fit_a_line(v2, device="cpu")
+            _v2_copy(cpu_params, params)
+            cpu = v2.infer(output_layer=cpu_pred, parameters=cpu_params,
+                           input=samples, feeding={"x": 0}, device="cpu")
+    if passes != list(range(V2_FIT_PASSES)) or not all(np.isfinite(costs)):
+        raise RuntimeError(f"v2 fit_a_line passes {passes} costs {costs}")
+    if not costs[-1] < costs[0] / 3:
+        raise RuntimeError(f"v2 fit_a_line cost {costs[0]} -> {costs[-1]}: "
+                           "not 3x lower")
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    if card.shape != (8, 1) or not err <= V2_INFER_TOL:
+        raise RuntimeError(f"v2 infer card vs CPU: shape {card.shape}, "
+                           f"{err} of the max (> {V2_INFER_TOL})")
+    return {"iterations": len(costs), "cost_first": costs[0],
+            "cost_last": costs[-1], "train_s": train_s,
+            "infer_rel_err": err}
+
+
+def _v2_conv_operator(v2, trans):
+    """test_round4_detection_and_conv_operator_execute's conv_operator at
+    V2_CONV's size: (img, filt, out, [img@GRAD, filt@GRAD]) for a
+    weighted sum of the output."""
+    import paddle_tpu_torch.fluid as fluid
+
+    c, hw, nf, k = (V2_CONV[n] for n in ("channels", "hw", "filters", "k"))
+    img = v2.layer.data(name="img", type=v2.data_type.dense_vector(
+        c * hw * hw))
+    filt = v2.layer.data(name="filt", type=v2.data_type.dense_vector(
+        nf * c * k * k))
+    img.stop_gradient = filt.stop_gradient = False
+    x4 = fluid.layers.reshape(img, shape=[-1, c, hw, hw])
+    out = v2.layer.mixed_layer(input=[v2.layer.conv_operator(
+        x4, filt, filter_size=k, num_filters=nf,
+        padding=V2_CONV["padding"], trans=trans)])
+    dy = v2.layer.data(name="dy", type=v2.data_type.dense_vector(
+        int(out.shape[-1])))
+    loss = fluid.layers.reduce_sum(fluid.layers.elementwise_mul(out, dy))
+    return [out] + list(fluid.calc_gradient(loss, [img, filt]))
+
+
+def _v2_op_ms(torch, fn, device, n=20):
+    """Median ms of ``fn()``: CUDA events on the card, the host clock on
+    the CPU."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        if device == "cpu":
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+            continue
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def _v2_conv_run(torch, v2):
+    """(c): conv_operator forward and both gradients, card vs CPU, in
+    both forms; conv2d_input_filter's forward timed on each."""
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.fluid.registry import EmitCtx, run_forward
+
+    b, c, hw, nf, k = (V2_CONV[n] for n in ("batch", "channels", "hw",
+                                            "filters", "k"))
+    rng = np.random.RandomState(2031)
+    out = {}
+    for trans in (False, True):
+        with _v2_world() as (main, startup):
+            fetch = _v2_conv_operator(v2, trans)
+            width = int(fetch[0].shape[-1])
+            feed = {"img": rng.rand(b, c * hw * hw).astype(np.float32),
+                    "filt": rng.randn(b, nf * c * k * k).astype(np.float32),
+                    "dy": rng.randn(b, width).astype(np.float32)}
+            vals = {}
+            for dev in (CARD, "cpu"):
+                exe, scope = fluid.Executor(dev), fluid.Scope()
+                exe.run(startup, scope=scope)
+                vals[dev] = [np.asarray(v) for v in exe.run(
+                    main, feed=feed, fetch_list=fetch, scope=scope)]
+        errs = {}
+        for name, g, w in zip(("out", "img_grad", "filter_grad"),
+                              vals[CARD], vals["cpu"]):
+            errs[name] = float(np.abs(g - w).max() / np.abs(w).max())
+            if not errs[name] <= V2_CONV_TOL:
+                raise RuntimeError(
+                    f"conv_operator trans={trans} {name}: card vs CPU "
+                    f"{errs[name]} of the max (> {V2_CONV_TOL})")
+        op_ms = {}
+        x = feed["img"].reshape(b, c, hw, hw)
+        f = feed["filt"].reshape(b, nf, c, k, k)
+        for dev in (CARD, "cpu"):
+            ctx = EmitCtx(device=dev)
+            ins = {"X": [torch.from_numpy(x).to(dev)],
+                   "Filter": [torch.from_numpy(f).to(dev)]}
+            attrs = {"stride": 1, "padding": V2_CONV["padding"],
+                     "trans": trans}
+            op_ms[dev] = _v2_op_ms(torch, lambda: run_forward(
+                ctx, "conv2d_input_filter", ins, attrs), dev)
+        out["trans" if trans else "forward"] = {
+            "out_shape": list(vals[CARD][0].shape), "errs": errs,
+            "op_ms_card": op_ms[CARD], "op_ms_cpu": op_ms["cpu"]}
+    out["config"] = (f"conv_operator: img {c}x{hw}x{hw}, {nf} filters "
+                     f"{k}x{k}, padding {V2_CONV['padding']}, batch {b}")
+    return out
+
+
+def _v2_legacy_run(torch):
+    """(d): V2_LEGACY_CONFIG through compat.trainer_config_helpers behind
+    a ``paddle`` module, V2_LEGACY_STEPS SGD steps on the card."""
+    import types
+
+    import numpy as np
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.compat import trainer_config_helpers as tch
+
+    keys = ("paddle", "paddle.trainer_config_helpers")
+    saved = {k: sys.modules.get(k) for k in keys}
+    pkg = types.ModuleType("paddle")
+    pkg.trainer_config_helpers, pkg.__path__ = tch, []
+    sys.modules.update(dict(zip(keys, (pkg, tch))))
+    tch.reset()
+    try:
+        with _v2_world() as (main, startup):
+            tch.declare_input_types({"label": "int"})
+            exec(compile(V2_LEGACY_CONFIG, "<legacy config>", "exec"),
+                 {"__name__": "legacy_config"})
+            cfg = tch.get_config()
+            (loss,) = cfg["outputs"]
+            fluid.optimizer.SGD(learning_rate=float(
+                cfg["settings"]["learning_rate"])).minimize(loss)
+    finally:
+        tch.reset()
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    rng = np.random.RandomState(7)
+    n = cfg["settings"]["batch_size"]
+    feed = {"pixel": rng.rand(n, 3 * 32 * 32).astype(np.float32),
+            "label": rng.randint(0, 10, (n, 1)).astype(np.int64)}
+    exe, scope = _card_executor(fluid), fluid.Scope()
+    exe.run(startup, scope=scope)
+    (costs, ms), launches = _held_window(lambda: _timed_steps(
+        exe, main, [feed] * V2_LEGACY_STEPS, [loss], scope))
+    if not all(np.isfinite(costs)):
+        raise RuntimeError(f"legacy config costs not finite: {costs}")
+    return {"config": "img_conv_layer(32 3x3) -> img_pool_layer(2) -> "
+                      f"fc_layer(10) -> classification_cost, batch {n}",
+            "ops": len(main.global_block().ops), "costs": costs,
+            "step_ms": ms, "kernel_launches": launches}
+
+
+def v2_phase(torch):
+    """The v2 API and the legacy config DSL on the card (see the module
+    docstring)."""
+    phase("v2")
+    import paddle_tpu_torch.v2 as v2
+
+    t_phase = time.perf_counter()
+    v2.init(use_gpu=CARD == "cuda")
+    out = {"vgg16": _v2_vgg_run(torch, v2)}
+    log("  (a) v2 VGG-16 " + json.dumps(out["vgg16"]))
+    out["fit_a_line"] = _v2_fit_run(torch, v2)
+    log("  (b) v2 fit_a_line " + json.dumps(out["fit_a_line"]))
+    out["conv_operator"] = _v2_conv_run(torch, v2)
+    log("  (c) conv_operator " + json.dumps(out["conv_operator"]))
+    out["legacy"] = _v2_legacy_run(torch)
+    log("  (d) legacy config " + json.dumps(out["legacy"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  v2 phase: {out['seconds']:.1f} s")
+    return out
+
+
 def _parallel_launches(parallel, kname):
     """A kernel's launches a step on each way of the parallel phase."""
     return {w: r["launches_per_step"].get(kname, 0)
@@ -10465,6 +10951,7 @@ def main():
     fleet = fleet_phase(torch, serve_ref)
     elastic = elastic_phase(torch)
     analysis = analysis_phase(torch, serve_ref)
+    v2_paths = v2_phase(torch)
     log("  data input paths (no kernel of the port on them) " +
         json.dumps({k: {m: v[m] for m in v if m in (
             "p50_step_ms", "steps_per_s", "p50_step_ms_after_first",
@@ -10504,6 +10991,20 @@ def main():
             "p50_step_ms_after_first", "peak_above_state_gb")}
             for k in ("sparse", "dense")},
         "v1m_in_turns_ms": sparse["v1m"]["in_turns_median_ms"]}))
+    log("  v2 paths (no kernel of the port on them) " + json.dumps({
+        "vgg16": {m: v2_paths["vgg16"][m] for m in (
+            "p50_iteration_ms", "images_per_s", "peak_memory_allocated_gb",
+            "test_rel_err", "logits_err_of_max")},
+        "vgg16_step_grad_of_norm": {
+            n: {m: g[m] for m in ("card", "cpu", "plain_f32", "bound")}
+            for n, g in v2_paths["vgg16"]["step_grad_of_norm"].items()},
+        "fit_a_line_infer_rel_err": v2_paths["fit_a_line"]["infer_rel_err"],
+        "conv_operator_op_ms": {
+            form: [v2_paths["conv_operator"][form][m]
+                   for m in ("op_ms_card", "op_ms_cpu")]
+            for form in ("forward", "trans")},
+        "legacy_costs": v2_paths["legacy"]["costs"],
+        "seconds": v2_paths["seconds"]}))
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     dec = timings["decode"]

@@ -17,7 +17,10 @@ the caller passes ``device="cpu"``. ``analysis`` holds the static
 passes (``python -m paddle_tpu_torch.analysis``): the program verifier
 the Executor runs under ``FLAGS['verify_programs']``, the lock, guard
 and invariant lints, and the guard sanitizer that
-``PADDLE_TPU_SANITIZE=guards`` installs at import.
+``PADDLE_TPU_SANITIZE=guards`` installs at import. ``v2`` is the
+2016-era event-loop API (``init``, ``layer``, ``create``, ``SGD``,
+``infer``) over the Fluid layers, and ``compat.trainer_config_helpers``
+the legacy config DSL over ``v2``.
 """
 from . import dataset, reader  # noqa: F401
 from .reader import batch  # noqa: F401

@@ -221,7 +221,14 @@ def _as_feed(v, device):
                                                                device),
                             v.height)
     if not isinstance(v, torch.Tensor):
-        v = torch.as_tensor(np.asarray(v))
+        v = np.asarray(v)
+        if v.dtype.name == "bfloat16":
+            # numpy's bfloat16 (ml_dtypes) has no torch counterpart to
+            # convert from: reinterpret its 16-bit payload
+            v = torch.from_numpy(np.asarray(v, order="C").view(np.uint16)) \
+                .view(torch.bfloat16)
+        else:
+            v = torch.as_tensor(v)
     return v.to(device)
 
 

@@ -97,6 +97,64 @@ def conv2d(ctx, ins, attrs):
     return _conv(ins, attrs, 2)
 
 
+def _input_filter_operands(ins, attrs):
+    """conv2d_input_filter as one grouped convolution: the batch folded
+    into the channels (``[1, N*C, H, W]``), the filter as that
+    convolution's weight, and its (stride, padding, transposed, groups).
+    ``trans=True`` keeps the JAX op's ``[F, C]`` filter (see
+    ``conv2d_input_filter``): the transposed convolution's ``[in, out]``
+    weight is its ``[C, F]`` transpose."""
+    x, f = one(ins, "X"), one(ins, "Filter")
+    n, c, h, w = x.shape
+    nf, k = f.shape[1], f.shape[-1]
+    trans = bool(attrs.get("trans", False))
+    wg = (f.transpose(1, 2).reshape(n * c, nf, k, k) if trans
+          else f.reshape(n * nf, c, k, k))
+    return (x.reshape(1, n * c, h, w), wg, int(attrs.get("stride", 1)),
+            int(attrs.get("padding", 0)), trans, n)
+
+
+def _input_filter_grad(ctx, fwd_ins, fwd_outs, out_grads, attrs):
+    """dX and dFilter in one ``convolution_backward`` call under the
+    forward's algorithm choice (deterministic on a card), as the
+    convolutions' grad emitter."""
+    x, f = one(fwd_ins, "X"), one(fwd_ins, "Filter")
+    xg, wg, s, p, trans, n = _input_filter_operands(fwd_ins, attrs)
+    dy = out_grads["Out"][0]
+    dy = dy.reshape(1, -1, dy.shape[2], dy.shape[3]).to(xg.dtype)
+    with _conv_algorithms(xg):
+        dx, dw, _ = torch.ops.aten.convolution_backward(
+            dy, xg, wg, None, [s, s], [p, p], [1, 1], trans, [0, 0], n,
+            [True, True, False])
+    if trans:
+        dw = dw.reshape(n, x.shape[1], f.shape[1], *f.shape[3:]) \
+            .transpose(1, 2)
+    return {"GRAD@X": dx.reshape(x.shape),
+            "GRAD@Filter": dw.reshape(f.shape)}
+
+
+@register_op("conv2d_input_filter", grad=_input_filter_grad,
+             ref="legacy ConvOperator/conv_operator (proj_conf with a "
+                 "computed filter layer, trainer/config_parser.py "
+                 "parse_operator)")
+def conv2d_input_filter(ctx, ins, attrs):
+    """Convolve X ``[N, C, H, W]`` with a COMPUTED per-sample filter
+    ``[N, F, C, k, k]`` (both inputs differentiable). The batch folds
+    into the channels: one convolution with ``groups = N``, sample n's
+    channels meeting only its own filter. ``trans=True`` is the adjoint,
+    as the JAX op computes it: the filter stays ``[F, C]`` (a correlation
+    with the spatially flipped filter over the stride-dilated input,
+    padded ``k - 1 - p``), and the output side is
+    ``(H - 1) * s - 2p + k``."""
+    xg, wg, s, p, trans, n = _input_filter_operands(ins, attrs)
+    with _conv_algorithms(xg):
+        if trans:
+            out = F.conv_transpose2d(xg, wg, None, s, p, 0, n)
+        else:
+            out = F.conv2d(xg, wg, None, s, p, 1, n)
+    return {"Out": out.reshape(n, -1, out.shape[2], out.shape[3])}
+
+
 @register_op("depthwise_conv2d", grad=_conv_grad(2, depthwise=True),
              ref="paddle/fluid/operators/conv_op.cc (depthwise)")
 def depthwise_conv2d(ctx, ins, attrs):

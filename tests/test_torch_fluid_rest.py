@@ -73,14 +73,13 @@ NEW_OPS = {
     "positive_negative_pair",
 }
 OPS_BEFORE = 180  # op types the port's own modules registered before
-# the JAX package's op types still to port: mesh and parallel (ROADMAP
-# Queue 1 item 6) and the legacy per-sample conv (item 7)
 # the op types later slices registered: the mesh layer's
-# (tests/test_torch_mesh.py holds them) and the pipeline region's
-# (tests/test_torch_pipeline.py)
+# (tests/test_torch_mesh.py holds them), the pipeline region's
+# (tests/test_torch_pipeline.py) and the legacy per-sample conv
+# (tests/test_torch_v2_ops.py)
 OPS_AFTER = {"get_places", "parallel_do", "moe_ffn", "pipeline",
-             "pipeline_cut"}
-STILL_MISSING = {"conv2d_input_filter"}
+             "pipeline_cut", "conv2d_input_filter"}
+STILL_MISSING = set()
 # held in tests/test_torch_selected_rows.py (a SelectedRows input);
 # drawn, so held by distribution below
 ELSEWHERE = {"split_selected_rows", "uniform_random_batch_size_like",
@@ -765,7 +764,7 @@ def test_registry_holds_212_of_218_op_types():
                if info.forward.__module__.startswith("paddle_tpu.")}
     assert len(NEW_OPS) == 32 and NEW_OPS <= jax_own
     assert NEW_OPS <= own, sorted(NEW_OPS - own)
-    assert len(own) == OPS_BEFORE + len(NEW_OPS) + len(OPS_AFTER) == 217
+    assert len(own) == OPS_BEFORE + len(NEW_OPS) + len(OPS_AFTER) == 218
     assert OPS_AFTER <= own
     assert len(jax_own) == 218
     assert jax_own - own == STILL_MISSING

@@ -304,10 +304,11 @@ def test_stage_count_and_shape_break_errors(world):
         assert "preserve" in r["errors"]["shape"]
 
 
-def test_registry_holds_217_of_218_op_types():
-    """``pipeline`` and ``pipeline_cut`` registered; counted over the
-    port's own modules (other test files register probe ops of their
-    own in a worker's process)."""
+def test_registry_holds_218_of_218_op_types():
+    """``pipeline`` and ``pipeline_cut`` registered, and with the v2
+    API's ``conv2d_input_filter`` every op type of the JAX package;
+    counted over the port's own modules (other test files register
+    probe ops of their own in a worker's process)."""
     from paddle_tpu.fluid.registry import OPS as JAX_OPS
     from paddle_tpu_torch.fluid.registry import OPS
 
@@ -316,5 +317,5 @@ def test_registry_holds_217_of_218_op_types():
     jax_own = {t for t, info in JAX_OPS.items()
                if info.forward.__module__.startswith("paddle_tpu.")}
     assert {"pipeline", "pipeline_cut"} <= own
-    assert len(own) == 217 and len(jax_own) == 218
-    assert jax_own - own == {"conv2d_input_filter"}
+    assert len(own) == 218 and len(jax_own) == 218
+    assert jax_own - own == set()

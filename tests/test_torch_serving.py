@@ -130,7 +130,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.analysis.invariants, "
             "paddle_tpu_torch.analysis.locks, "
             "paddle_tpu_torch.analysis.sanitize, "
-            "paddle_tpu_torch.analysis.selftest; "
+            "paddle_tpu_torch.analysis.selftest, "
+            "paddle_tpu_torch.v2, paddle_tpu_torch.v2.trainer_cli, "
+            "paddle_tpu_torch.v2.master, paddle_tpu_torch.compat; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'paddle_tpu.')) "
             "or m == 'paddle_tpu'); print(bad)")
@@ -212,7 +214,28 @@ def test_source_scan_finds_no_jax_or_paddle_tpu_import():
             "paddle_tpu_torch/analysis/locks.py",
             "paddle_tpu_torch/analysis/sanitize.py",
             "paddle_tpu_torch/analysis/selftest.py",
-            "paddle_tpu_torch/analysis/verify.py"} <= rel
+            "paddle_tpu_torch/analysis/verify.py",
+            "paddle_tpu_torch/v2/__init__.py",
+            "paddle_tpu_torch/v2/attr.py",
+            "paddle_tpu_torch/v2/data_feeder.py",
+            "paddle_tpu_torch/v2/evaluator.py",
+            "paddle_tpu_torch/v2/event.py",
+            "paddle_tpu_torch/v2/image.py",
+            "paddle_tpu_torch/v2/inference.py",
+            "paddle_tpu_torch/v2/layer.py",
+            "paddle_tpu_torch/v2/minibatch.py",
+            "paddle_tpu_torch/v2/networks.py",
+            "paddle_tpu_torch/v2/op.py",
+            "paddle_tpu_torch/v2/optimizer.py",
+            "paddle_tpu_torch/v2/parameters.py",
+            "paddle_tpu_torch/v2/plot.py",
+            "paddle_tpu_torch/v2/topology.py",
+            "paddle_tpu_torch/v2/trainer.py",
+            "paddle_tpu_torch/v2/trainer_cli.py",
+            "paddle_tpu_torch/v2/master/__init__.py",
+            "paddle_tpu_torch/v2/master/client.py",
+            "paddle_tpu_torch/compat/__init__.py",
+            "paddle_tpu_torch/compat/trainer_config_helpers.py"} <= rel
     for path in files:
         with open(path) as f:
             src = f.read()

@@ -44,8 +44,9 @@ OPS_BEFORE = 129  # op types the port's own modules registered before
 # (tests/test_torch_detection.py holds them), 32 of the rest of Fluid
 # (tests/test_torch_fluid_rest.py), 3 of the mesh layer (get_places,
 # parallel_do, moe_ffn: tests/test_torch_mesh.py), 2 of the pipeline
-# region (pipeline, pipeline_cut: tests/test_torch_pipeline.py)
-OPS_AFTER = 27 + 32 + 3 + 2
+# region (pipeline, pipeline_cut: tests/test_torch_pipeline.py), 1 of the
+# v2 API (conv2d_input_filter: tests/test_torch_v2_ops.py)
+OPS_AFTER = 27 + 32 + 3 + 2 + 1
 
 
 def _as_list(v):
