@@ -99,12 +99,14 @@
 // tile), TMA, 32 rows a warp (each B fragment split once for two MMAs;
 // K3a's accumulators would not fit in registers), a persistent grid.
 //
-// head_dim: the tensor-core kernels take the buckets 32, 64 and 128;
-// every head_dim above 128 runs on CUDA-core kernels (flash_*_wide_kernel
-// in flash_wide.cuh, 4 rows a warp; above 256 in 256-column slices of
-// the output),
-// as the accumulators of a 16-row warp would not fit in registers at 256
-// columns. Every entry point takes a head_dim
+// head_dim: the tensor-core kernels here take the buckets 32, 64 and
+// 128. Above 128 the backward (dK/dV, dQ) runs on the tensor cores too,
+// up to 512, in flash_bwd_wide_mma.cuh (8 warps a block, each warp one
+// output or one half of dQ's columns); the forward, and the backward
+// above 512, run on CUDA-core kernels (flash_*_wide_kernel in
+// flash_wide.cuh, 4 rows a warp; above 256 in 256-column slices of the
+// output), as the accumulators of a 16-row warp would not fit in
+// registers at 256 columns. Every entry point takes a head_dim
 // that is a multiple of 4 (16-byte staging); the wrapper
 // (kernels/flash_attention.py:pad_head_dim) zero-pads any other one,
 // which is exact, and passes the scale of the true head_dim.
@@ -119,6 +121,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "flash_bwd_wide_mma.cuh"
 #include "flash_wide.cuh"
 #include "tf32x3.cuh"
 
@@ -802,8 +805,8 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
     e = args(launch_dkdv<64>);
   else if (D <= 128)
     e = args(launch_dkdv<128>);
-  else if (D <= kWideChunk)
-    e = args(launch_dkdv_wide<float, false>);
+  else if (D <= flash_bwd_wide::kMaxD)
+    e = args(flash_bwd_wide::launch_dkdv);
   else
     e = args(launch_dkdv_wide<float, true>);
   return static_cast<int>(e);
@@ -833,8 +836,8 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
     e = args(launch_dq<64>);
   else if (D <= 128)
     e = args(launch_dq<128>);
-  else if (D <= kWideChunk)
-    e = args(launch_dq_wide<float, false>);
+  else if (D <= flash_bwd_wide::kMaxD)
+    e = args(flash_bwd_wide::launch_dq);
   else
     e = args(launch_dq_wide<float, true>);
   return static_cast<int>(e);

@@ -28,8 +28,10 @@ Two implementations of each pass:
     same library) their bfloat16 forms ``flash_fwd_bf16``,
     ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16``. They take every
     head_dim: up to 128 on the tensor cores (3xTF32, or bf16
-    ``mma.sync``), above that on CUDA cores (``csrc/flash_wide.cuh``;
-    above 256 each block computes one 256-column slice of the output); a
+    ``mma.sync``); above that the float32 backward up to 512 on the
+    tensor cores too (``csrc/flash_bwd_wide_mma.cuh``), the rest on CUDA
+    cores (``csrc/flash_wide.cuh``; above 256 each block computes one
+    256-column slice of the output); a
     head_dim that is not a multiple of 4 (float32) or 8 (bfloat16) is
     zero-padded to one (``pad_head_dim``, exact). The bfloat16 forward
     and backward up to head_dim 64 run on ``wgmma`` fed by TMA

@@ -5,9 +5,10 @@ On the CPU the routers run the plain versions of K2, K3a and K3b (the
 CUDA kernels are held against them on the card by chip_smoke.py). Cases:
 causal and not, S = 40 with blocks of 16 (not a multiple of the block),
 Sq != Sk both ways, head_dim 16, 64, 18 (not a multiple of 4: the card
-zero-pads it to 20, test_head_dim_padding_is_exact), 256 (the largest
-bucket, CUDA-core kernels on the card) and 264 (above 256: the card's
-CUDA-core kernels compute it in 256-column slices). Tolerance: 5e-6 absolute on O,
+zero-pads it to 20, test_head_dim_padding_is_exact), 256 and 264 (above
+the 128 bucket: on the card the forward runs CUDA-core kernels, 264 in
+256-column slices, and the backward the tensor-core kernels of
+csrc/flash_bwd_wide_mma.cuh). Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
 
@@ -179,21 +180,25 @@ def _dense_bwd(q, k, v, do, lse, delta, causal, scale, mm):
     return mm(ds, k) * scale, mm(ds.transpose(1, 2), q) * scale, dv
 
 
+@pytest.mark.parametrize("d", [64, 256, 512])
 @pytest.mark.parametrize("causal", [False, True])
-def test_3xtf32_products_keep_float32_accuracy(causal):
+def test_3xtf32_products_keep_float32_accuracy(causal, d):
     """Why K3a/K3b may run their products on the tensor cores without a
-    new tolerance: with the 3xTF32 split, dQ/dK/dV at [2, 512, 64] stay
+    new tolerance: with the 3xTF32 split, dQ/dK/dV at [2, 512, d] stay
     within 1e-6 (of max(1, |reference|)) of a float64 reference and
     within 2x of plain float32 products, while one TF32 product per
-    multiply is at least 100x worse. Only the products differ: the
-    rest of the formulas runs in float64. Not modelled: the tensor
-    core's summation, which does not round to nearest; the kernels add
-    each streamed tile's sum to their accumulators with float32 adds so
-    that it cannot drift over a long sequence."""
+    multiply is at least 100x worse. head_dim 64 is the model's; 256 and
+    512 are the longest products of the kernels above 128
+    (csrc/flash_bwd_wide_mma.cuh), whose scores sum over the whole
+    head_dim. Only the products differ: the rest of the formulas runs in
+    float64. Not modelled: the tensor core's summation, which does not
+    round to nearest; the kernels add each streamed tile's sum (and,
+    above 128, each 32-column chunk of a score) to their accumulators
+    with float32 adds so that it cannot drift over a long sum."""
     rng = np.random.RandomState(0)
-    q, k, v, do = (torch.tensor(rng.randn(2, 512, 64).astype(np.float32))
+    q, k, v, do = (torch.tensor(rng.randn(2, 512, d).astype(np.float32))
                    .double() for _ in range(4))
-    scale = 64 ** -0.5
+    scale = d ** -0.5
     s = torch.matmul(q, k.transpose(1, 2)) * scale
     if causal:
         s = s.masked_fill(~tfa._causal_keep(512, 512, s.device), -1e30)

@@ -22,11 +22,11 @@ by chip_smoke.py). Here:
   (d) Transformer-base's self-attention layer at a small width (2 heads,
       S = 64, head_dim 32): three ``fc`` projections, ``cast`` to
       bfloat16, causal ``ring_attention``, ``cast`` back, the output
-      ``fc``, a squared-error loss, 3 Adam steps against the JAX
+      ``fc``, a squared-error loss, 3 Momentum steps against the JAX
       executor on its Pallas route (``use_pallas_kernels=True,
       flash_min_seq=0``) run op by op (``jax.disable_jit``: a jitted
       block may drop the float32 -> bfloat16 -> float32 round trips);
-      the bfloat16 fetch;
+      the step-1 parameter gradients; the bfloat16 fetch;
   (e) the meta and CPU routes count the bfloat16 kernels under their own
       names (``counts_bf16``), the kernels' checks take bfloat16.
 
@@ -276,11 +276,11 @@ def test_c_cast_layer_builds_the_jax_program():
 
 # --- (d) the attention program ----------------------------------------
 
-def _attention_build(pkg, heads, seq, dh, bf16=True, lr=1e-3):
+def _attention_build(pkg, heads, seq, dh, bf16=True, lr=0.1):
     """Transformer-base's self-attention layer (models/transformer.py
     _mha, seq_parallel form): q, k, v fc projections without bias,
     reshaped to [B, S, H, dh], cast to bfloat16, causal ring_attention,
-    cast back, the output fc, a squared-error loss, Adam."""
+    cast back, the output fc, a squared-error loss, Momentum(lr, 0.9)."""
     fluid, layers, unique_name = pkg
     d = heads * dh
     main, startup = fluid.Program(), fluid.Program()
@@ -302,7 +302,8 @@ def _attention_build(pkg, heads, seq, dh, bf16=True, lr=1e-3):
         ctx = layers.cast(attn, "float32") if bf16 else attn
         out = proj(layers.reshape(ctx, shape=[0, 0, d]), "out")
         cost = layers.mean(layers.square_error_cost(input=out, label=y))
-        _, pg = fluid.optimizer.Adam(lr).minimize(cost)
+        _, pg = fluid.optimizer.Momentum(learning_rate=lr,
+                                         momentum=0.9).minimize(cost)
     return main, startup, cost, attn, [(p.name, g.name) for p, g in pg]
 
 
@@ -321,14 +322,21 @@ def _jax_persistables(program, scope):
 
 
 def test_d_bf16_attention_program_trains_like_jax(jax_flags):
-    """2 heads, S = 64, head_dim 32, batch 2, Adam(1e-3), 3 steps from the
-    JAX scope's values. Losses within LOSS_RTOL = 1e-5 relative (the fc
-    products and Adam are float32 on both sides, summed in other orders;
-    a bfloat16 element of the attention output that rounded the other way
-    would move the loss by ~1e-6 of itself; observed at most 4.3e-7); the
-    attention output fetched at step 1 within the bfloat16 bounds above
-    (observed bitwise equal); every parameter float32, every gradient
-    var of a bfloat16 var bfloat16."""
+    """2 heads, S = 64, head_dim 32, batch 2, Momentum(0.1, 0.9), 3 steps
+    from the JAX scope's values. Losses within LOSS_RTOL = 1e-5 relative
+    (the fc products and the update are float32 on both sides, summed in
+    other orders; a bfloat16 element of the attention output that rounded
+    the other way moves the loss by ~1e-7 of itself; observed at most
+    7.5e-7); the attention output and the four parameter gradients
+    fetched at step 1 within the bfloat16 bounds above, the float32
+    gradients within ULPS only (observed: the output bitwise equal, the
+    gradients within 4e-5 ulps; with other initial values one output
+    element of 8192 one bfloat16 step apart, its exact value 1.5e-8 of
+    itself from the rounding midpoint); every parameter float32, every
+    gradient var of a bfloat16 var bfloat16. The update is linear in the
+    gradient: Adam's first steps move each weight by about lr * sign(g),
+    which amplifies the order noise of gradient elements near 0 (under
+    Adam(1e-3) the step-3 losses differed by 1.3e-5 of themselves)."""
     heads, seq, dh, batch = 2, 64, 32, 2
     jm, js, jcost, jattn, jpg = _attention_build(JAX, heads, seq, dh)
     tm, _, tcost, tattn, tpg = _attention_build(PORT, heads, seq, dh)
@@ -352,23 +360,28 @@ def test_d_bf16_attention_program_trains_like_jax(jax_flags):
     for side, exe, prog, cost, attn, scope in (
             ("jax", jexe, jm, jcost, jattn, jscope),
             ("torch", texe, tm, tcost, tattn, tscope)):
-        losses, fetched_attn = [], None
+        losses, first = [], None
         for i in range(3):
             with jax.disable_jit():
                 got = exe.run(prog, feed=feed, scope=scope,
-                              fetch_list=[cost] + ([attn] if i == 0 else []))
+                              fetch_list=[cost] + ([attn] + [g for _, g in tpg]
+                                                   if i == 0 else []))
             losses.append(float(np.asarray(got[0]).reshape(-1)[0]))
             if i == 0:
-                fetched_attn = got[1]
+                first = got[1:]
         dtypes = {p.name: str(np.asarray(scope.find_var(p.name)).dtype)
                   for p in prog.global_block().all_parameters()}
-        out[side] = (losses, fetched_attn, dtypes)
-    (jl, ja, jd), (tl, ta, td) = out["jax"], out["torch"]
+        out[side] = (losses, first[0], first[1:], dtypes)
+    (jl, ja, jg, jd), (tl, ta, tg, td) = out["jax"], out["torch"]
     assert tfa.counts_bf16.plain_calls == {n: before[n] + 3 for n in before}
     assert tfa.counts.plain_calls == before32
     # the bfloat16 fetch: float32 numpy, the exact widening of the value
     assert ta.dtype == np.float32 and ta.shape == (batch, seq, heads, dh)
     _hold(ta, np.asarray(ja).astype(np.float32), "attention output")
+    # the gradients are float32, summed in other orders: nearly every
+    # element differs in its last bits, so only the ulps bound applies
+    for (name, _), got, want in zip(tpg, tg, jg):
+        assert _ulps(got, want)[0] <= ULPS, name
     for a, b in zip(tl, jl):
         assert abs(a - b) <= LOSS_RTOL * abs(b), (tl, jl)
     assert tl[-1] < tl[0]
