@@ -220,6 +220,13 @@ and prints no result):
            causal beside their bounds (the delta too), K2 and the whole
            backward (delta + K3a + K3b) in turns with SDPA's flash
            backend in bf16; the backward wrappers' host time a call.
+           Above head_dim 128: K2 and K3a (wgmma + TMA up to 512,
+           csrc/flash_wide_wgmma.cuh) held at every WIDE_BWD_DIMS x
+           WIDE_BWD_SHAPES case (O, dK, dV as above, LSE within TOL,
+           two launches bitwise equal); K2, K3a, K3b and the whole
+           backward timed at [BH=32, S=512, D] full, D = 256, 264, 512,
+           beside their bounds and in turns with SDPA (its flash backend
+           at 256, its efficient backend above, where flash stops).
   flash bf16 bench
            the JAX flash benchmark's configuration through the port's
            flash_attention: bf16 [1, S, 8, 64], S 2048 and 4096, causal,
@@ -4553,6 +4560,10 @@ FLASH_BF16_PEAK = ("products in bf16 on the tensor cores (flops over 989 "
 SDPA_FLASH_LIBRARY = "sdpa flash backend, bf16"
 # the ptxas name of K2 bf16's wgmma body (csrc/flash_fwd_wgmma.cuh)
 WGMMA_FWD_KERNEL = "fwd_kernel<2>"
+# ... and the ptxas names of K2's and K3a's bodies at head_dim 129-512
+# (csrc/flash_wide_wgmma.cuh)
+WGMMA_WIDE_KERNELS = {"flash_fwd_bf16": "wgmma_wide_fwd_kernel",
+                      "flash_bwd_dkdv_bf16": "wgmma_wide_dkdv_kernel"}
 # what the earlier mma.sync forms of K3a/K3b bf16 reached against the
 # plain versions at the first 13 cases: recorded beside each backward
 # kernel's worst case (not a gate)
@@ -4698,6 +4709,37 @@ def bf16_kernels_phase(torch):
                                f"launches on the same inputs differ")
     log("  flash bf16 forward and backward: two launches bitwise equal "
         "(full and causal)")
+
+    # K2 and K3a above head_dim 128 (flash_wide_wgmma.cuh up to 512,
+    # flash_wide.cuh above): full and causal, Sq != Sk both ways, S not a
+    # multiple of the tiles; each launched twice for bitwise-equal outputs
+    for d in WIDE_BWD_DIMS:
+        for bh, sq, sk, causal in WIDE_BWD_SHAPES:
+            c = _flash_bf16_case(torch, rng, bh, sq, sk, d, causal)
+            bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                     causal, c["scale"])
+            first, second = (
+                fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
+                + fa._bwd_dkdv_cuda(*bargs) for _ in range(2))
+            _, rk, rv = fa.flash_attention_bwd_reference(*bargs)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise RuntimeError(f"bf16 K2/K3a bh={bh} sq={sq} sk={sk} "
+                                   f"d={d} causal={causal}: two launches "
+                                   f"differ")
+            o, lse, dk, dv = first
+            lse_err = (lse - c["lse"]).abs().max().item()
+            if lse_err > TOL:
+                raise RuntimeError(f"{fa.FWD_BF16} d={d} LSE: max abs err "
+                                   f"{lse_err:.3g} > {TOL}")
+            got = [hold(fa.FWD_BF16, "O", o, c["o"]),
+                   hold(fa.BWD_DKDV_BF16, "dK", dk, rk),
+                   hold(fa.BWD_DKDV_BF16, "dV", dv, rv)]
+            log(f"  wide bf16 bh={bh} sq={sq} sk={sk} d={d} causal={causal}"
+                f": LSE max abs err {lse_err:.3g}; O/dK/dV ulps of max, "
+                f"share differing " + " / ".join(f"{u:.3g} {s:.3g}"
+                                                  for u, s in got)
+                + "; two launches bitwise equal")
     for n in (fa.BWD_DKDV_BF16, fa.BWD_DQ_BF16):
         w = worst[n]
         w["within_mma_sync_marks"] = (w["ulps"] <= MMA_SYNC_BF16_ULPS and
@@ -4787,60 +4829,70 @@ def bf16_kernels_phase(torch):
             + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names)
             + f" / {rows[fa.DELTA][key]['bound_ms']:.4f}")
         del sdpa, sdpa_bwd, c
-    # above head_dim 128 (flash_wide.cuh's CUDA-core kernels): K2, K3a,
-    # K3b and the whole backward at [BH=32, S=SEQ, D=256] full, in turns
-    # with SDPA's flash backend (which takes head_dim up to 256)
-    d = 256
-    c = _flash_bf16_case(torch, rng, 32, SEQ, SEQ, d, False)
-    args = (c["q"], c["k"], c["v"], False, c["scale"])
-    bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
-             c["scale"])
-    bounds = _flash_bf16_bounds(32, SEQ, SEQ, d, False)
-    sdpa, sdpa_bwd = _sdpa(torch, c, False, heads=2,
-                           backend="FLASH_ATTENTION")
+    # above head_dim 128: K2, K3a, K3b and the whole backward at [BH=32,
+    # S=SEQ, D] full, in turns with SDPA: its flash backend takes head_dim
+    # up to 256, its memory-efficient backend above
+    for d in WIDE_TIMED_DIMS:
+        c = _flash_bf16_case(torch, rng, 32, SEQ, SEQ, d, False)
+        args = (c["q"], c["k"], c["v"], False, c["scale"])
+        bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                 False, c["scale"])
+        bounds = _flash_bf16_bounds(32, SEQ, SEQ, d, False)
+        backend = "FLASH_ATTENTION" if d <= 256 else "EFFICIENT_ATTENTION"
+        library = (SDPA_FLASH_LIBRARY if d <= 256 else
+                   "sdpa efficient backend, bf16 (flash stops at 256)")
+        sdpa, sdpa_bwd = _sdpa(torch, c, False, heads=2, backend=backend)
 
-    def wide_bwd():  # as _Flash.backward runs it
-        delta = fa.flash_delta(c["do"], c["o"])
-        return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
-                                      c["lse"], delta, False, c["scale"])
-    key = f"bh32_s{SEQ}_d{d}_full"
-    fwd_ms, sdpa_ms, fwd_turns = _in_turns(
-        torch, lambda: fa._fwd_cuda(*args), sdpa, flush)
-    bwd_ms, sdpa_bwd_ms, bwd_turns = _in_turns(torch, wide_bwd, sdpa_bwd,
-                                               flush)
-    plain_bwd = _time_ms(
-        torch, lambda: fa.flash_attention_bwd_reference(*bargs), flush)
-    for name, ms, plain_ms, lib_ms in (
-            (fa.FWD_BF16, fwd_ms, _time_ms(
-                torch, lambda: fa.flash_attention_fwd_reference(*args),
-                flush), sdpa_ms),
-            (fa.BWD_DKDV_BF16, _time_ms(
-                torch, lambda: fa._bwd_dkdv_cuda(*bargs), flush), plain_bwd,
-             sdpa_bwd_ms),
-            (fa.BWD_DQ_BF16, _time_ms(
-                torch, lambda: fa._bwd_dq_cuda(*bargs), flush), plain_bwd,
-             sdpa_bwd_ms)):
-        rows[name][key] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library": SDPA_FLASH_LIBRARY, **bounds[name],
-            "shape": f"[BH=32, S={SEQ}, D={d}] bf16 causal=False",
-            "source": "paddle_tpu_torch/csrc/flash_wide.cuh (CUDA cores)"}
-    rows[fa.FWD_BF16][key]["in_turns"] = {
-        "port_ms": fwd_ms, "sdpa_ms": sdpa_ms,
-        "ratio_port_over_sdpa": fwd_ms / sdpa_ms, "turns_ms": fwd_turns}
-    rows[fa.BWD_DKDV_BF16][key]["whole_backward"] = {
-        "port_ms": bwd_ms, "sdpa_ms": sdpa_bwd_ms,
-        "ratio_port_over_sdpa": bwd_ms / sdpa_bwd_ms, "turns_ms": bwd_turns,
-        "note": "delta + K3a + K3b against SDPA's flash backward (dQ, dK, "
-                "dV), in turns"}
-    log(f"  time bf16 head_dim {d}: K2 {fwd_ms:.4f} ms vs SDPA flash "
-        f"{sdpa_ms:.4f} (ratio {fwd_ms / sdpa_ms:.3f}); whole backward "
-        f"{bwd_ms:.4f} vs {sdpa_bwd_ms:.4f} (ratio "
-        f"{bwd_ms / sdpa_bwd_ms:.3f}); K3a "
-        f"{rows[fa.BWD_DKDV_BF16][key]['ms']:.4f}, K3b "
-        f"{rows[fa.BWD_DQ_BF16][key]['ms']:.4f}; bounds "
-        + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names))
-    del sdpa, sdpa_bwd, c
+        def wide_bwd(c=c):  # as _Flash.backward runs it
+            delta = fa.flash_delta(c["do"], c["o"])
+            return fa.flash_attention_bwd(c["q"], c["k"], c["v"], c["do"],
+                                          c["lse"], delta, False,
+                                          c["scale"])
+        key = f"bh32_s{SEQ}_d{d}_full"
+        fwd_ms, sdpa_ms, fwd_turns = _in_turns(
+            torch, lambda: fa._fwd_cuda(*args), sdpa, flush)
+        bwd_ms, sdpa_bwd_ms, bwd_turns = _in_turns(torch, wide_bwd,
+                                                   sdpa_bwd, flush)
+        plain_bwd = _time_ms(
+            torch, lambda: fa.flash_attention_bwd_reference(*bargs), flush)
+        wgmma_src = ("paddle_tpu_torch/csrc/flash_wide_wgmma.cuh (wgmma + "
+                     "TMA)")
+        for name, ms, plain_ms, lib_ms, src in (
+                (fa.FWD_BF16, fwd_ms, _time_ms(
+                    torch, lambda: fa.flash_attention_fwd_reference(*args),
+                    flush), sdpa_ms, wgmma_src),
+                (fa.BWD_DKDV_BF16, _time_ms(
+                    torch, lambda: fa._bwd_dkdv_cuda(*bargs), flush),
+                 plain_bwd, sdpa_bwd_ms, wgmma_src),
+                (fa.BWD_DQ_BF16, _time_ms(
+                    torch, lambda: fa._bwd_dq_cuda(*bargs), flush),
+                 plain_bwd, sdpa_bwd_ms,
+                 "paddle_tpu_torch/csrc/flash_wide.cuh (CUDA cores)")):
+            rows[name][key] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "library": library, **bounds[name],
+                "share_of_bound": bounds[name]["bound_ms"] / ms,
+                "shape": f"[BH=32, S={SEQ}, D={d}] bf16 causal=False",
+                "source": src}
+        rows[fa.FWD_BF16][key]["in_turns"] = {
+            "port_ms": fwd_ms, "sdpa_ms": sdpa_ms, "sdpa_backend": backend,
+            "ratio_port_over_sdpa": fwd_ms / sdpa_ms, "turns_ms": fwd_turns}
+        rows[fa.BWD_DKDV_BF16][key]["whole_backward"] = {
+            "port_ms": bwd_ms, "sdpa_ms": sdpa_bwd_ms, "sdpa_backend": backend,
+            "ratio_port_over_sdpa": bwd_ms / sdpa_bwd_ms,
+            "turns_ms": bwd_turns,
+            "note": "delta + K3a + K3b against SDPA's backward (dQ, dK, "
+                    "dV), in turns"}
+        log(f"  time bf16 head_dim {d}: K2 {fwd_ms:.4f} ms vs SDPA "
+            f"{backend} {sdpa_ms:.4f} (ratio {fwd_ms / sdpa_ms:.3f}); whole "
+            f"backward {bwd_ms:.4f} vs {sdpa_bwd_ms:.4f} (ratio "
+            f"{bwd_ms / sdpa_bwd_ms:.3f}); K3a "
+            f"{rows[fa.BWD_DKDV_BF16][key]['ms']:.4f}, K3b "
+            f"{rows[fa.BWD_DQ_BF16][key]['ms']:.4f}; bounds "
+            + " / ".join(f"{bounds[n]['bound_ms']:.4f}" for n in names)
+            + "; shares of bound " + " / ".join(
+                f"{rows[n][key]['share_of_bound']:.3f}" for n in names))
+        del sdpa, sdpa_bwd, c
     del flush
     for name in names:
         rows[name]["worst_vs_plain"] = worst[name]
@@ -11261,6 +11313,10 @@ def main():
             row["library_ms"] = bf16_rows["flash_bwd_dkdv_bf16"][
                 "bh128_s512_full"]["library_ms"]
         extra = {key: rows[key] for key in rows if key != "bh128_s512_full"}
+        if kname in WGMMA_WIDE_KERNELS:
+            # the wgmma body that head_dim 129-512 runs
+            extra["ptxas_wide_body"] = ptxas.get(
+                "flash_attention", {}).get(WGMMA_WIDE_KERNELS[kname])
         if kname == "flash_fwd_bf16":
             extra["ptxas"] = ptxas.get("flash_attention")
             # the wgmma body that head_dim <= 64 runs
@@ -11270,8 +11326,10 @@ def main():
             extra["train_bf16_attn"] = train_bf16
         src = ("paddle_tpu_torch/csrc/" + (
             "flash_fwd_wgmma.cuh" if kname == "flash_fwd_bf16" else
-            "flash_bwd_wgmma.cuh") + " (head_dim <= 64; above, "
-            "flash_attention_bf16.cuh)")
+            "flash_bwd_wgmma.cuh") + " (head_dim <= 64; 65-128 "
+            "flash_attention_bf16.cuh; 129-512 " + (
+                "flash_wide.cuh" if kname == "flash_bwd_dq_bf16" else
+                "flash_wide_wgmma.cuh") + "; above flash_wide.cuh)")
         train_kernels.append(_kernel_row(
             kname, src, f"{fa_py}:{line} (the bf16 branch)",
             train_bf16["kernel_launches"][kname], bf16_errs[kname], row,

@@ -1,30 +1,46 @@
-"""Time the float32 flash backward above head_dim 128 (K3a and K3b:
-csrc/flash_bwd_wide_mma.cuh on the tensor cores up to 512) beside an
-earlier revision of csrc/flash_attention.cu on one NVIDIA card, and hold
-the kernels both revisions share bit for bit.
+"""Time the flash kernels above head_dim 128 beside an earlier revision of
+paddle_tpu_torch/csrc/ on one NVIDIA card, and hold the kernels both
+revisions share bit for bit.
 
-    git show REV:paddle_tpu_torch/csrc/flash_attention.cu > _tree/old_flash.cu
-    python3 flash_wide_vs_old.py _tree/old_flash.cu
+    mkdir -p _tree/old
+    git archive REV paddle_tpu_torch/csrc | tar -x -C _tree/old
+    python3 flash_wide_vs_old.py _tree/old/paddle_tpu_torch/csrc/flash_attention.cu
 
-The earlier source is built with nvcc (the flags of kernels/_build.py,
-and -I paddle_tpu_torch/csrc for the shared headers) into the gitignored
-_tree/ and called through the C interface both revisions have. On the
-same seeded inputs:
+The earlier flash_attention.cu is built with nvcc (the flags of
+kernels/_build.py) into the gitignored _tree/ beside its own revision's
+headers (-I its directory: the whole earlier csrc/, never this one's) and
+called through the C interface both revisions have. On the same seeded
+inputs:
 
-  - at [BH=32, S=512, D] full, D = 256, 264 and 512: K3a and K3b of each
-    revision are held against the plain version (max abs error <= TOL);
-    each kernel and the whole float32 backward (delta + K3a + K3b, as
-    _Flash.backward runs it) are timed in turns (old, new, new, old;
-    chip_smoke._time_ms: the median of 25 launches, the L2 flushed and
-    the queue kept busy before each); K2 above 128 (flash_wide.cuh, not
-    changed) is timed and held bitwise against the earlier revision;
-  - the kernels the tensor-core backward left alone give the earlier
-    revision's bits: float32 K2, K3a and K3b at head_dim 64 and 128, and
-    the bfloat16 K2, K3a and K3b at head_dim 64, 256 and 264 (full and
-    causal, Sq != Sk).
+  - at [BH=32, S=512, D] full, D = 256, 264 and 512: the bfloat16 K2
+    (flash_fwd_bf16) and K3a (flash_bwd_dkdv_bf16), and the whole
+    bfloat16 backward (delta + K3a + K3b, as _Flash.backward runs it), of
+    each revision are timed in turns (old, new, new, old;
+    chip_smoke._time_ms: the median of 25 launches, the L2 flushed and the
+    queue kept busy before each) and held against the plain bf16 version
+    (within chip_smoke.BF16_FLASH_ULPS ulps of the tensor's max, at most
+    chip_smoke.BF16_FLASH_SHARE of the elements differing, LSE within
+    chip_smoke.TOL);
+  - the kernels this revision's bfloat16 wgmma kernels above head_dim 128
+    left alone give the earlier revision's bits: every float32 kernel (K2,
+    K3a, K3b at head_dim 64, 128, 256, 264, 512, 520), the bfloat16 K2,
+    K3a and K3b at head_dim 64, 128 and 520, and the bfloat16 K3b at 256,
+    264 and 512 (full and causal, Sq != Sk).
 
 Prints one JSON line per kernel and shape and the card's nvidia-smi line;
 exits 1 if a hold fails.
+
+    python3 flash_wide_vs_old.py --ablate
+
+times this revision's bfloat16 K2 and K3a above head_dim 128
+(csrc/flash_wide_wgmma.cuh) at [BH=32, S=512, D] full, D = 256 and 512,
+beside copies of the header built into _tree/ablate/ with parts switched
+off (their outputs are not the function; only their times are read):
+"no_mma" issues no wgmma (the loads, waits, softmax and ds arithmetic
+stay), "no_alu" skips the softmax, exp and ds arithmetic and K3a's P^T
+hand-off (the loads and wgmma stay), "loads_only" both. The switches are
+put in by matching the header's text, so an edit there that moves one
+makes this mode fail, not time something else.
 """
 import ctypes
 import json
@@ -38,11 +54,23 @@ sys.path.insert(0, REPO)
 
 BH, S = 32, 512
 TIMED_DIMS = (256, 264, 512)
-# (dtype, BH, Sq, Sk, head_dim, causal) held bitwise against the earlier
-# revision: the kernels the tensor-core backward left alone
-BITWISE = [("f32", 8, 200, 130, 64, True), ("f32", 8, 130, 200, 128, False),
-           ("bf16", 8, 200, 130, 64, True), ("bf16", 8, 200, 130, 256, True),
-           ("bf16", 4, 130, 200, 264, False)]
+# (dtype, BH, Sq, Sk, head_dim, causal, outputs held bitwise against the
+# earlier revision): the kernels the bf16 wgmma kernels above 128 left
+# alone
+ALL = ("o", "lse", "dk", "dv", "dq")
+BITWISE = [("f32", 8, 200, 130, 64, True, ALL),
+           ("f32", 8, 130, 200, 128, False, ALL),
+           ("f32", 2, 200, 130, 256, True, ALL),
+           ("f32", 2, 130, 200, 264, False, ALL),
+           ("f32", 1, 200, 130, 512, True, ALL),
+           ("f32", 1, 130, 200, 520, False, ALL),
+           ("bf16", 8, 200, 130, 64, True, ALL),
+           ("bf16", 8, 130, 200, 128, False, ALL),
+           ("bf16", 2, 200, 130, 256, True, ("dq",)),
+           ("bf16", 2, 130, 200, 264, False, ("dq",)),
+           ("bf16", 1, 200, 130, 512, True, ("dq",)),
+           ("bf16", 1, 130, 200, 520, False, ALL),
+           ("bf16", 1, 200, 130, 520, True, ALL)]
 FNS = ("flash_fwd_f32", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32",
        "flash_fwd_bf16", "flash_bwd_dkdv_bf16", "flash_bwd_dq_bf16",
        "flash_delta")
@@ -55,8 +83,8 @@ def load_old(src):
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, "libold_flash.so")
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                        _build.CSRC, "-o", lib_path, src],
-                       capture_output=True, text=True)
+                        os.path.dirname(os.path.abspath(src)), "-o",
+                        lib_path, src], capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(lib_path)
@@ -112,6 +140,137 @@ class Calls:
         return e or self.dkdv(self.delta) or self.dq_(self.delta)
 
 
+# (the header's text, what replaces it) for each switch
+_ABLATE_EDITS = [
+    ("float p = exp2_ftz(sc[i] * c - rv[2 * j + e]);",
+     "\n#ifdef ABL_NO_ALU\n            float p = sc[i];\n#else\n"
+     "            float p = exp2_ftz(sc[i] * c - rv[2 * j + e]);\n#endif\n"),
+    ("      if (it > 0) named_sync(kPEmpty, kWideThreads);",
+     "#ifndef ABL_NO_ALU\n      if (it > 0) named_sync(kPEmpty, "
+     "kWideThreads);"),
+    ("      named_arrive(kPFull, kWideThreads);\n    } else {\n"
+     "      named_sync(kPFull, kWideThreads);",
+     "      named_arrive(kPFull, kWideThreads);\n#endif\n    } else {\n"
+     "#ifndef ABL_NO_ALU\n      named_sync(kPFull, kWideThreads);"),
+    ("      if (it + 1 < n_tiles) named_arrive(kPEmpty, kWideThreads);",
+     "      if (it + 1 < n_tiles) named_arrive(kPEmpty, kWideThreads);"
+     "\n#endif"),
+    ("            sc[i] = pbuf[i * kThreads + tw] * (sc[i] - rv[2 * j + e]);",
+     "#ifdef ABL_NO_ALU\n            sc[i] = sc[i] - rv[2 * j + e];\n#else"
+     "\n            sc[i] = pbuf[i * kThreads + tw] * (sc[i] - "
+     "rv[2 * j + e]);\n#endif"),
+    ("    // masked scores become -inf", "#ifndef ABL_NO_ALU\n"
+     "    // masked scores become -inf"),
+    ("    uint32_t pa[kKeySteps][4];", "#else\n    float alpha[2] = {1.f, "
+     "1.f};\n#endif\n    uint32_t pa[kKeySteps][4];"),
+]
+_ABLATE_MMA = ("unit_scores(float (&d)[32]", "unit_scores128(float (&d)[64]",
+               "products_into(float (&d)[32]")
+_ABLATE_ENTRY = """#include "flash_wide_wgmma.cuh"
+extern "C" int ablate_fwd(const void* q, const void* k, const void* v,
+                          void* o, void* lse, int BH, int Sq, int Sk, int D,
+                          int causal, float scale, void* stream) {
+  return flash_wgmma::launch_wide_fwd(
+      q, k, v, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      BH, Sq, Sk, D, causal, scale, static_cast<cudaStream_t>(stream));
+}
+extern "C" int ablate_dkdv(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int BH,
+                           int Sq, int Sk, int D, int causal, float scale,
+                           void* stream) {
+  return flash_wgmma::launch_wide_dkdv(
+      q, k, v, dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), BH, Sq, Sk, D, causal, scale,
+      static_cast<cudaStream_t>(stream));
+}
+"""
+ABLATE_VARIANTS = {"full": [], "no_mma": ["-DABL_NO_MMA"],
+                   "no_alu": ["-DABL_NO_ALU"],
+                   "loads_only": ["-DABL_NO_MMA", "-DABL_NO_ALU"]}
+
+
+def build_ablations():
+    """The header with the switches put in, and one library a variant
+    (built at once); {variant: ctypes library}."""
+    import shutil
+
+    from paddle_tpu_torch.kernels import _build
+
+    out = os.path.join(REPO, "_tree", "ablate")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out)
+    path = os.path.join(out, "flash_wide_wgmma.cuh")
+    src = open(path).read()
+    for old, new in _ABLATE_EDITS:
+        if src.count(old) != 1:
+            raise SystemExit(f"--ablate: the header no longer has {old!r}")
+        src = src.replace(old, new)
+    for fn in _ABLATE_MMA:
+        at = src.index("{", src.index(fn)) + 1
+        src = src[:at] + "\n#ifdef ABL_NO_MMA\n  return;\n#endif\n" + \
+            src[at:]
+    open(path, "w").write(src)
+    entry = os.path.join(out, "ablate.cu")
+    open(entry, "w").write(_ABLATE_ENTRY)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o",
+         os.path.join(out, f"lib{name}.so"), entry],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, flags in ABLATE_VARIANTS.items()}
+    libs = {}
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {name} variant:\n{log}")
+        lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
+        lib.ablate_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
+        lib.ablate_dkdv.argtypes = [p] * 8 + [i] * 5 + [f, p]
+        lib.ablate_fwd.restype = lib.ablate_dkdv.restype = i
+        libs[name] = lib
+    return libs
+
+
+def ablate():
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_wide_vs_old.py needs an NVIDIA card")
+    libs = build_ablations()
+    flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(0)
+    for d in (256, 512):
+        c = chip_smoke._flash_bf16_case(torch, rng, BH, S, S, d, False)
+        o, dk, dv = (torch.empty_like(c[n]) for n in ("q", "k", "k"))
+        lse = torch.empty(c["q"].shape[:2], device="cuda")
+        dims = (BH, S, S, d, 0, c["scale"], stream)
+        row = {"shape": f"[BH={BH}, S={S}, D={d}] bf16 full"}
+        for name, lib in libs.items():
+            def fwd(lib=lib):
+                return lib.ablate_fwd(*(c[n].data_ptr() for n in "qkv"),
+                                      o.data_ptr(), lse.data_ptr(), *dims)
+
+            def dkdv(lib=lib):
+                return lib.ablate_dkdv(
+                    *(c[n].data_ptr() for n in ("q", "k", "v", "do", "lse",
+                                                "delta")),
+                    dk.data_ptr(), dv.data_ptr(), *dims)
+            if fwd() or dkdv():
+                raise RuntimeError(f"{name} D={d}: launch failed")
+            torch.cuda.synchronize()
+            row[name] = {"flash_fwd_bf16_ms": chip_smoke._time_ms(
+                torch, fwd, flush), "flash_bwd_dkdv_bf16_ms":
+                chip_smoke._time_ms(torch, dkdv, flush)}
+        print(json.dumps(row), flush=True)
+    print(chip_smoke.smi_line(), flush=True)
+
+
 def main(argv):
     import numpy as np
     import torch
@@ -135,34 +294,39 @@ def main(argv):
         if not ok:
             failed.append(row)
 
+    def vs_plain(got, want):
+        """(ulps of the max, share differing, within the holds)"""
+        _, ulps, share = chip_smoke._bf16_ulps(got, want)
+        return ulps, share, (ulps <= chip_smoke.BF16_FLASH_ULPS and
+                             share <= chip_smoke.BF16_FLASH_SHARE)
+
     for d in TIMED_DIMS:
-        c = chip_smoke._flash_case(torch, rng, BH, S, S, d, False)
+        c = chip_smoke._flash_bf16_case(torch, rng, BH, S, S, d, False)
         calls = {"old": Calls(torch, old, c, stream),
                  "new": Calls(torch, new, c, stream)}
         plain = fa.flash_attention_bwd_reference(
             c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
             c["scale"])
-        shape = f"[BH={BH}, S={S}, D={d}] f32 full"
-        for name, fn in (("flash_fwd_f32", "fwd"),
-                         ("flash_bwd_dkdv_f32", "dkdv"),
-                         ("flash_bwd_dq_f32", "dq_"),
-                         ("whole_backward_f32", "whole_bwd")):
+        shape = f"[BH={BH}, S={S}, D={d}] bf16 full"
+        for name, fn in (("flash_fwd_bf16", "fwd"),
+                         ("flash_bwd_dkdv_bf16", "dkdv"),
+                         ("whole_backward_bf16", "whole_bwd")):
             if any(getattr(calls[w], fn)() for w in calls):
                 raise RuntimeError(f"{name} D={d}: launch failed")
             torch.cuda.synchronize()
-            row = {"kernel": name, "shape": shape}
+            outs = {"fwd": (("o", c["o"]),),
+                    "dkdv": (("dk", plain[1]), ("dv", plain[2])),
+                    "whole_bwd": (("dq", plain[0]), ("dk", plain[1]),
+                                  ("dv", plain[2]))}[fn]
+            holds = {w: {a: vs_plain(getattr(calls[w], a), want)
+                         for a, want in outs} for w in calls}
+            ok = all(h[2] for h in holds["new"].values())
             if fn == "fwd":
-                ok = all(torch.equal(getattr(calls["old"], a),
-                                     getattr(calls["new"], a))
-                         for a in ("o", "lse"))
-                row["outputs_bitwise_equal"] = ok
-            else:
-                outs = {"dkdv": (("dk", 1), ("dv", 2)), "dq_": (("dq", 0),),
-                        "whole_bwd": (("dq", 0), ("dk", 1), ("dv", 2))}[fn]
-                errs = {w: max((getattr(calls[w], a) - plain[i]).abs().max()
-                               .item() for a, i in outs) for w in calls}
-                row["max_abs_err_vs_plain"] = errs
-                ok = all(e <= chip_smoke.TOL for e in errs.values())
+                lse_err = (calls["new"].lse - c["lse"]).abs().max().item()
+                holds["new"]["lse_max_abs_err"] = lse_err
+                ok = ok and lse_err <= chip_smoke.TOL
+            row = {"kernel": name, "shape": shape,
+                   "ulps_share_within_vs_plain": holds}
             times = {"old": [], "new": []}
             for who in ("old", "new", "new", "old"):
                 times[who].append(chip_smoke._time_ms(
@@ -171,10 +335,10 @@ def main(argv):
                        new_ms=statistics.mean(times["new"]),
                        turns_ms=times)
             row["old_over_new"] = row["old_ms"] / row["new_ms"]
-            report(row, ok)
+            report(row, ok and row["new_ms"] < row["old_ms"])
         del c, calls, plain
 
-    for dt, bh, sq, sk, d, causal in BITWISE:
+    for dt, bh, sq, sk, d, causal, held in BITWISE:
         make = chip_smoke._flash_bf16_case if dt == "bf16" else \
             chip_smoke._flash_case
         c = make(torch, rng, bh, sq, sk, d, causal)
@@ -185,8 +349,7 @@ def main(argv):
                 raise RuntimeError(f"{dt} D={d}: launch failed")
         torch.cuda.synchronize()
         same = {a: torch.equal(getattr(calls["old"], a),
-                               getattr(calls["new"], a))
-                for a in ("o", "lse", "dk", "dv", "dq")}
+                               getattr(calls["new"], a)) for a in held}
         report({"kernels": f"K2, K3a, K3b {dt}",
                 "shape": f"[BH={bh}, Sq={sq}, Sk={sk}, D={d}] {dt} "
                          f"causal={causal}",
@@ -197,4 +360,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    main(sys.argv)
+    if sys.argv[1:] == ["--ablate"]:
+        ablate()
+    else:
+        main(sys.argv)

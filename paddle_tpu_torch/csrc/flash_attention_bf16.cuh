@@ -75,9 +75,13 @@
 // warp specialisation, a persistent grid; 128-key forward tiles leave
 // one or two blocks an SM there.
 //
-// head_dim above 128 runs on the CUDA-core kernels of flash_wide.cuh,
-// instantiated for bfloat16 (the same function, bf16 loads widened to
-// float32, P and dS rounded through __float2bfloat16_rn).
+// The shape plan above head_dim 128: the forward and dK/dV at 129-512
+// run the wgmma + TMA kernels of flash_wide_wgmma.cuh (two warpgroups a
+// block; above 256 columns in column slices that recompute the scores);
+// dQ at every head_dim above 128, and the forward and dK/dV above 512,
+// run the CUDA-core kernels of flash_wide.cuh, instantiated for bfloat16
+// (the same function, bf16 loads widened to float32, P and dS rounded
+// through __float2bfloat16_rn).
 //
 // The kernels allocate nothing; the caller passes the outputs. Each C
 // entry point launches on the given stream and returns
@@ -95,6 +99,7 @@
 #include "flash_bwd_wgmma.cuh"
 #include "flash_fwd_wgmma.cuh"
 #include "flash_wide.cuh"
+#include "flash_wide_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace flash_bf16 {
@@ -809,7 +814,8 @@ cudaError_t launch_dq(const uint16_t* q, const uint16_t* k,
 
 extern "C" {
 
-// The CUDA-core kernels above 128 columns take __nv_bfloat16 pointers.
+// The CUDA-core kernels (above 128 columns: K3b, and K2 and K3a above
+// 512) take __nv_bfloat16 pointers.
 using Bf = __nv_bfloat16;
 
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
@@ -837,8 +843,10 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
         D, causal, scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_fwd<128>);
-  else if (D <= flash_wide::kWideChunk)
-    e = wide(flash_wide::launch_fwd_wide<Bf, false>);
+  else if (D <= flash_wgmma::kWideMaxD)
+    e = flash_wgmma::launch_wide_fwd(q, k, v, static_cast<Bf*>(o),
+                                     static_cast<float*>(lse), BH, Sq, Sk, D,
+                                     causal, scale, s);
   else
     e = wide(flash_wide::launch_fwd_wide<Bf, true>);
   return static_cast<int>(e);
@@ -875,8 +883,11 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
         Sq, Sk, D, causal, scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_dkdv<128>);
-  else if (D <= flash_wide::kWideChunk)
-    e = wide(flash_wide::launch_dkdv_wide<Bf, false>);
+  else if (D <= flash_wgmma::kWideMaxD)
+    e = flash_wgmma::launch_wide_dkdv(q, k, v, dout, l, dl,
+                                      static_cast<Bf*>(dk),
+                                      static_cast<Bf*>(dv), BH, Sq, Sk, D,
+                                      causal, scale, s);
   else
     e = wide(flash_wide::launch_dkdv_wide<Bf, true>);
   return static_cast<int>(e);

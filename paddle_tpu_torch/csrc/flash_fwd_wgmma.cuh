@@ -2,7 +2,8 @@
 // (sm_90a): the body of flash_fwd_bf16 on warpgroup matrix multiplies
 // (wgmma) fed by the Tensor Memory Accelerator (TMA).
 // flash_attention_bf16.cuh includes this file and routes head_dim <= 64
-// here; 65-128 keeps its mma.sync kernel, above 128 flash_wide.cuh.
+// here; 65-128 keeps its mma.sync kernel, 129-512 runs
+// flash_wide_wgmma.cuh, above 512 flash_wide.cuh.
 //
 // Replaces, as the mma.sync kernel before it, the bfloat16 branch (lowp)
 // of the Pallas TPU kernel

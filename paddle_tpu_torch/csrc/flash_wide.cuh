@@ -2,7 +2,12 @@
 // (sm_90a): the forward, dK/dV and dQ kernels that flash_attention.cu
 // (float32) and flash_attention_bf16.cuh (bfloat16) launch above the
 // tensor-core buckets, templated on the element type T of q, k, v, dO
-// and the outputs (lse and delta are float32 for both).
+// and the outputs (lse and delta are float32 for both). What still
+// routes here: the float32 forward above 128 and the float32 backward
+// above 512 (129-512: flash_bwd_wide_mma.cuh); bfloat16 dQ above 128,
+// and the bfloat16 forward and dK/dV above 512 (129-512:
+// flash_wide_wgmma.cuh). No model of either package runs a head_dim
+// above 128.
 //
 // Why CUDA cores: the tensor-core kernels keep a 16-row warp's
 // accumulators in registers; at 256 columns the output alone would take

@@ -27,15 +27,18 @@ Two implementations of each pass:
     ``paddle_tpu_torch/csrc/flash_attention_bf16.cuh`` (built into the
     same library) their bfloat16 forms ``flash_fwd_bf16``,
     ``flash_bwd_dkdv_bf16`` and ``flash_bwd_dq_bf16``. They take every
-    head_dim: up to 128 on the tensor cores (3xTF32, or bf16
-    ``mma.sync``); above that the float32 backward up to 512 on the
-    tensor cores too (``csrc/flash_bwd_wide_mma.cuh``), the rest on CUDA
-    cores (``csrc/flash_wide.cuh``; above 256 each block computes one
-    256-column slice of the output); a
+    head_dim, by a shape plan: up to 128 on the tensor cores (3xTF32, or
+    bf16 ``mma.sync``; the bf16 forward and backward up to 64 on
+    ``wgmma`` fed by TMA, ``csrc/flash_fwd_wgmma.cuh``,
+    ``csrc/flash_bwd_wgmma.cuh``); at 129-512 the float32 backward on
+    ``mma.sync`` (``csrc/flash_bwd_wide_mma.cuh``) and the bf16 forward
+    and dK/dV on ``wgmma`` fed by TMA (``csrc/flash_wide_wgmma.cuh``;
+    above 256 in column slices of the output that recompute the scores);
+    the rest (the float32 forward above 128, bf16 dQ above 128, every
+    kernel above 512) on CUDA cores (``csrc/flash_wide.cuh``; above 256
+    each block computes one 256-column slice of the output); a
     head_dim that is not a multiple of 4 (float32) or 8 (bfloat16) is
-    zero-padded to one (``pad_head_dim``, exact). The bfloat16 forward
-    and backward up to head_dim 64 run on ``wgmma`` fed by TMA
-    (``csrc/flash_fwd_wgmma.cuh``, ``csrc/flash_bwd_wgmma.cuh``).
+    zero-padded to one (``pad_head_dim``, exact).
 
 The backward's ``delta = rowsum(dO * O)`` (float32) is one pass too:
 ``flash_delta`` (``csrc/flash_delta.cuh``, in the same library) on a

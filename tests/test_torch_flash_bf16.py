@@ -14,8 +14,10 @@ by chip_smoke.py). Here:
   (a) the plain forward and backward against ``_fwd_pallas`` /
       ``_flash_bwd`` in interpret mode (blocks of 128): full and causal,
       Sq != Sk both ways, Sk = 200 (a padded second key block), head_dim
-      8, 64, 72 and 264; and the float32 plain path bit for bit the
-      dense formulas it was before;
+      8, 64, 72, 256, 264 and 512; and the float32 plain path bit for bit
+      the dense formulas it was before; the wgmma kernels above head_dim
+      128 (``csrc/flash_wide_wgmma.cuh``) emulated in float32 in their
+      order of sums, within 1 ulp of the plain version;
   (b) ``flash_attention``'s autograd at bfloat16 against ``jax.vjp`` of
       the JAX ``flash_attention(..., interpret=True)``;
   (c) the ``cast`` op and its gradient (``astype``'s VJP);
@@ -35,7 +37,9 @@ compared (ulp = 2^(floor(log2 max) - 7)): both sides round the same
 float32 values to bfloat16, and their float32 sums run in other orders,
 so an element may land one bfloat16 step apart where its float32 value
 lies near a rounding boundary: at most 1.5 ulps of the max and at most 1%
-of the elements differing at all (observed: at most 0.5 ulps and 0.59%).
+of the elements differing at all (observed: at most 0.5 ulps and 0.59%);
+at head_dim 512 at most 2% (``SHARE_512``: dS is rounded after a
+512-long dot, observed 0.83-1.21%).
 LSE is float32: within 2e-6. The causal cases keep Sq >= 128: row 0 of
 a causal dQ is 0 in exact arithmetic (one visible key, dP = delta), and
 both sides return the float32 residue of dP - delta (~1e-7), which
@@ -65,12 +69,20 @@ jfa = importlib.import_module(
     "paddle_tpu.fluid.ops.pallas_kernels.flash_attention")
 
 ULPS, SHARE, LSE_TOL, LOSS_RTOL = 1.5, 0.01, 2e-6, 1e-5
+# at head_dim 512 the plain version and the Pallas kernel round more
+# elements apart: dS = p (dP - delta) is rounded to bfloat16 after a
+# 512-long float32 dot summed in another order, and each dS that lands on
+# the other side of a rounding boundary moves a row of dK (and dQ). Over
+# four seeds of the two 512 CASES: 0.83-1.21% of dK (full) and 0.85-1.06%
+# of dQ (causal) differ, every one by at most 0.5 ulp of the max
+SHARE_512 = 0.02
 JAX = (jfluid, jlayers, junique)
 PORT = (tfluid, tlayers, tunique)
 # (Sq, Sk, head_dim, causal)
 CASES = [(256, 256, 64, False), (256, 256, 64, True), (160, 200, 72, True),
          (200, 160, 8, False), (136, 200, 8, True), (130, 200, 264, True),
-         (200, 130, 264, False)]
+         (200, 130, 264, False), (130, 200, 256, True), (200, 130, 256, False),
+         (130, 200, 512, True), (200, 130, 512, False)]
 
 
 def _ulps(got, want):
@@ -84,9 +96,9 @@ def _ulps(got, want):
     return float(np.abs(got - want).max()) / ulp, float((got != want).mean())
 
 
-def _hold(got, want, what):
+def _hold(got, want, what, max_share=SHARE):
     ulps, share = _ulps(got, want)
-    assert ulps <= ULPS and share <= SHARE, (what, ulps, share)
+    assert ulps <= ULPS and share <= max_share, (what, ulps, share)
 
 
 def _seeded(rng, *shape):
@@ -131,7 +143,7 @@ def test_a_plain_bf16_matches_pallas_interpret(sq, sk, d, causal):
                                atol=LSE_TOL)
     for what, got, want in zip(("O", "dQ", "dK", "dV"), (to,) + grads,
                                (jo, jdq, jdk, jdv)):
-        _hold(_f32(got), _f32(want), what)
+        _hold(_f32(got), _f32(want), what, SHARE_512 if d >= 512 else SHARE)
 
 
 def _dense_f32_fwd(q, k, v, causal, scale):
@@ -196,6 +208,140 @@ def test_a_bf16_forward_moves_its_max_at_block_boundaries():
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     dense = torch.matmul(tfa._bf16(p), v32) / p.sum(dim=-1, keepdim=True)
     assert _ulps(_f32(dense.to(torch.bfloat16)), _f32(jo))[1] > SHARE
+
+
+def _units(x, d):
+    """x's last axis (head_dim d) as 64-column units, zero-padded: the
+    TMA boxes of csrc/flash_wide_wgmma.cuh."""
+    return torch.nn.functional.pad(x.float(), (0, -d % 64)).split(64, -1)
+
+
+def _column_plan(d):
+    """(units, [(first unit, units) a slice]): ceil(d / 256) output
+    slices of at most 4 units, balanced (flash_wide_wgmma.cuh plan_of)."""
+    nq, nz = -(-d // 64), -(-d // 256)
+    per = -(-nq // nz)
+    return nq, [(z * per, min(per, nq - z * per)) for z in range(nz)]
+
+
+def _chain(a, b):
+    """sum over units u of a_u b_u^T, one unit after another in float32:
+    the score chain over head_dim."""
+    s = torch.matmul(a[0], b[0].transpose(1, 2))
+    for au, bu in zip(a[1:], b[1:]):
+        s = s + torch.matmul(au, bu.transpose(1, 2))
+    return s
+
+
+def _wide_fwd_emulated(q, k, v, causal, scale):
+    """The wide forward's order of sums: per output slice, 128-key
+    softmax blocks whose scores chain over every unit of head_dim (the
+    slices' P bit for bit the same); acc alpha rounded, then P V of the
+    block added into it in place, a 64-column unit at a time."""
+    bh, sq, d = q.shape
+    nq, slices = _column_plan(d)
+    qu, ku, vu = _units(q, d), _units(k, d), _units(v, d)
+    out = torch.zeros(bh, sq, 64 * nq)
+    probs = []
+    for v0, nv in slices:
+        m = torch.full((bh, sq, 1), tfa.NEG_INF)
+        l = torch.zeros((bh, sq, 1))
+        acc = [torch.zeros(bh, sq, 64) for _ in range(nv)]
+        ps = []
+        for t0 in range(0, k.shape[1], tfa.BLOCK_K):
+            s = _chain(qu, [x[:, t0:t0 + tfa.BLOCK_K] for x in ku]) * scale
+            keep = None
+            if causal:
+                keep = (torch.arange(sq)[:, None]
+                        >= torch.arange(t0, t0 + s.shape[-1])[None, :])
+                s = torch.where(keep, s, torch.full_like(s, tfa.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            if keep is not None:
+                p = torch.where(keep, p, torch.zeros_like(p))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            pb = tfa._bf16(p)
+            for u in range(nv):
+                acc[u] = torch.baddbmm(acc[u] * alpha, pb,
+                                       vu[v0 + u][:, t0:t0 + tfa.BLOCK_K])
+            m = m_new
+            ps.append(p)
+        probs.append(torch.cat(ps, -1))
+        for u in range(nv):
+            out[..., 64 * (v0 + u):64 * (v0 + u + 1)] = acc[u]
+    assert all(torch.equal(p, probs[0]) for p in probs[1:])
+    l = l.clamp(min=torch.finfo(torch.float32).tiny)
+    return (out[..., :d] / l).to(torch.bfloat16), (m + torch.log(l))[..., 0]
+
+
+def _wide_dkdv_emulated(q, k, v, do, lse, delta, causal, scale):
+    """The wide dK/dV's order of sums: per block of 64 keys and output
+    slice, query tiles of 64 (causal: from the block's first key), S^T
+    and dP^T chained over every unit of head_dim (the slices' P^T and
+    dS^T bit for bit the same), dV += bf16(P^T) dO and dK += bf16(dS^T) Q
+    in place, a 64-column unit at a time."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    nq, slices = _column_plan(d)
+    qu, ku, vu, du = (_units(x, d) for x in (q, k, v, do))
+    dk = torch.zeros(bh, sk, 64 * nq)
+    dv = torch.zeros(bh, sk, 64 * nq)
+    for k0 in range(0, sk, 64):
+        kb, vb = ([x[:, k0:k0 + 64] for x in xs] for xs in (ku, vu))
+        kpos = torch.arange(k0, k0 + kb[0].shape[1])[:, None]
+        seen = []
+        for v0, nv in slices:
+            acc_k = [torch.zeros(bh, kb[0].shape[1], 64) for _ in range(nv)]
+            acc_v = [torch.zeros(bh, kb[0].shape[1], 64) for _ in range(nv)]
+            ds_all = []
+            for t0 in range(k0 if causal else 0, sq, 64):
+                qt, dt = ([x[:, t0:t0 + 64] for x in xs] for xs in (qu, du))
+                st = _chain(kb, qt) * scale
+                p = torch.exp(st - lse[:, None, t0:t0 + 64])
+                if causal:
+                    qpos = torch.arange(t0, t0 + st.shape[-1])[None, :]
+                    p = torch.where(qpos >= kpos, p, torch.zeros_like(p))
+                ds = p * (_chain(vb, dt) - delta[:, None, t0:t0 + 64])
+                ds_all += [p, ds]
+                for u in range(nv):
+                    acc_v[u] = torch.baddbmm(acc_v[u], tfa._bf16(p),
+                                             dt[v0 + u])
+                    acc_k[u] = torch.baddbmm(acc_k[u], tfa._bf16(ds),
+                                             qt[v0 + u])
+            seen.append(ds_all)
+            for u in range(nv):
+                cols = slice(64 * (v0 + u), 64 * (v0 + u + 1))
+                dk[:, k0:k0 + 64, cols] = acc_k[u] * scale
+                dv[:, k0:k0 + 64, cols] = acc_v[u]
+        assert all(torch.equal(a, b) for other in seen[1:]
+                   for a, b in zip(seen[0], other))
+    return dk[..., :d].to(torch.bfloat16), dv[..., :d].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (200, 300, 256, True), (300, 200, 264, False), (200, 300, 512, False),
+    (300, 200, 384, True)])
+def test_a_wide_wgmma_order_of_sums_emulated(sq, sk, d, causal):
+    """The order of sums of csrc/flash_wide_wgmma.cuh (K2 and K3a bf16
+    at 128 < head_dim <= 512), emulated in float32, within 1 bf16 ulp of
+    the max of the plain bf16 version (and at most SHARE of the elements
+    differing); every column slice computes the same P and dS."""
+    rng = np.random.RandomState(sq + sk + d)
+    q, k, v = (_to_bf16(_seeded(rng, 2, s, d)) for s in (sq, sk, sk))
+    do = _to_bf16(_seeded(rng, 2, sq, d))
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    eo, else_ = _wide_fwd_emulated(q, k, v, causal, scale)
+    np.testing.assert_allclose(else_.numpy(), lse.numpy(), rtol=0,
+                               atol=LSE_TOL)
+    delta = (do.float() * o.float()).sum(-1)
+    _, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                                  causal, scale)
+    ek, ev = _wide_dkdv_emulated(q, k, v, do, lse, delta, causal, scale)
+    for what, got, want in (("O", eo, o), ("dK", ek, rk), ("dV", ev, rv)):
+        ulps, share = _ulps(_f32(got), _f32(want))
+        assert ulps <= 1 and share <= SHARE, (what, ulps, share)
 
 
 # --- (b) autograd -----------------------------------------------------
