@@ -33,11 +33,14 @@ and prints no result):
            and rstd within 1e-4), and a Fluid program that casts to
            bfloat16 before layer_norm run on the card (one K1 bf16
            launch) and on the CPU, outputs agreeing; K2, K3a and K3b
-           twice on the same inputs, bitwise equal; K3a/K3b, the plain
+           twice on the same inputs, bitwise equal, and above head_dim
+           128 (tensor cores up to 512) held and launched twice at every
+           WIDE_BWD_DIMS x WIDE_BWD_SHAPES case; K3a/K3b, the plain
            backward and SDPA's against float64, then K2, the plain
            forward and SDPA's forward (O and LSE) against float64, at
-           the train shape and a 4x longer sequence (max abs error,
-           recorded, not held); timed at the train phase's shapes beside
+           the train shape, a 4x longer sequence and [BH=32, S=512, D]
+           for D in WIDE_TIMED_DIMS (max abs error, recorded, not
+           held); timed at the train phase's shapes beside
            F.layer_norm (float32 and bf16), torch.linalg.vecdot (the
            delta) and SDPA pinned to its memory-efficient backend
            (forward, and its backward alone for K3a + K3b); K2 and SDPA's
@@ -220,9 +223,9 @@ and prints no result):
            causal beside their bounds (the delta too), K2 and the whole
            backward (delta + K3a + K3b) in turns with SDPA's flash
            backend in bf16; the backward wrappers' host time a call.
-           Above head_dim 128: K2 and K3a (wgmma + TMA up to 512,
+           Above head_dim 128: K2, K3a and K3b (wgmma + TMA up to 512,
            csrc/flash_wide_wgmma.cuh) held at every WIDE_BWD_DIMS x
-           WIDE_BWD_SHAPES case (O, dK, dV as above, LSE within TOL,
+           WIDE_BWD_SHAPES case (O, dK, dV, dQ as above, LSE within TOL,
            two launches bitwise equal); K2, K3a, K3b and the whole
            backward timed at [BH=32, S=512, D] full, D = 256, 264, 512,
            beside their bounds and in turns with SDPA (its flash backend
@@ -1210,12 +1213,15 @@ def _vs_sdpa_in_turns(torch, port, sdpa, flush, what):
 
 def _forward_vs_float64(torch, fa, rng):
     """Max abs error of O and LSE against a float64 forward at the train
-    shape and at a 4x longer sequence, full and causal: K2, the plain
-    version and SDPA's memory-efficient forward."""
+    shape, at a 4x longer sequence and at [BH=32, S=SEQ] for each of
+    WIDE_TIMED_DIMS, full and causal: K2, the plain version and SDPA's
+    memory-efficient forward."""
     out = {}
-    for bh, s in ((16 * N_HEADS, SEQ), (2 * N_HEADS, 4 * SEQ)):
+    shapes = ((16 * N_HEADS, SEQ, D_MODEL // N_HEADS, N_HEADS),
+              (2 * N_HEADS, 4 * SEQ, D_MODEL // N_HEADS, N_HEADS)) + tuple(
+        (32, SEQ, d, 2) for d in WIDE_TIMED_DIMS)
+    for bh, s, d, heads in shapes:
         for causal in (False, True):
-            d = D_MODEL // N_HEADS
             q, k, v = (_randn(torch, rng, bh, s, d) for _ in range(3))
             scale = d ** -0.5
             sc = q.double() @ k.double().transpose(1, 2) * scale
@@ -1229,7 +1235,7 @@ def _forward_vs_float64(torch, fa, rng):
             got = {"kernel": fa._fwd_cuda(q, k, v, causal, scale),
                    "plain": fa.flash_attention_fwd_reference(q, k, v, causal,
                                                              scale)}
-            q4, k4, v4 = (x.reshape(bh // N_HEADS, N_HEADS, s, d)
+            q4, k4, v4 = (x.reshape(bh // heads, heads, s, d)
                           for x in (q, k, v))
             # the op behind SDPA's efficient backend, which returns LSE
             efficient = torch.ops.aten._scaled_dot_product_efficient_attention
@@ -1242,7 +1248,9 @@ def _forward_vs_float64(torch, fa, rng):
             for who, (go, gl) in got.items():
                 row[who] = [(go.double() - o).abs().max().item(),
                             (gl.double() - lse).abs().max().item()]
-            key = f"BH={bh} S={s} {'causal' if causal else 'full'}"
+            key = (f"BH={bh} S={s}"
+                   f"{'' if d == D_MODEL // N_HEADS else f' D={d}'}"
+                   f" {'causal' if causal else 'full'}")
             out[key] = row
             log(f"  forward vs float64, {key}: max abs err O/LSE "
                 + json.dumps(row))
@@ -1361,7 +1369,7 @@ def _wide_flash_times(torch, fa, rng, dh, flush):
     return row
 
 
-# K3a/K3b above head_dim 128: the head_dims held against the plain
+# K2, K3a/K3b above head_dim 128: the head_dims held against the plain
 # version (520: above 512, flash_wide.cuh's slices) and the (BH, Sq, Sk,
 # causal) of each; the head_dims timed and read against float64 at
 # [BH=32, S=SEQ]
@@ -1571,27 +1579,32 @@ def train_kernels_phase(torch):
         log(f"  flash bh={bh} sq={sq} sk={sk} d={d} causal={causal}: max "
             f"abs err O/LSE/dK/dV/dQ " + " / ".join(f"{x:.3g}" for x in e))
 
-    # K3a/K3b above the 128 bucket (csrc/flash_bwd_wide_mma.cuh up to 512,
-    # flash_wide.cuh above): full and causal, Sq != Sk both ways, S not a
-    # multiple of the 64-row tiles, BH = 1; each launched twice for
-    # bitwise-equal outputs
+    # K2 and K3a/K3b above the 128 bucket (csrc/flash_fwd_wide_mma.cuh and
+    # flash_bwd_wide_mma.cuh up to 512, flash_wide.cuh above): full and
+    # causal, Sq != Sk both ways, S not a multiple of the 64-row tiles,
+    # BH = 1; each launched twice for bitwise-equal outputs
     for d in WIDE_BWD_DIMS:
         for bh, sq, sk, causal in WIDE_BWD_SHAPES:
             c = _flash_case(torch, rng, bh, sq, sk, d, causal)
             bargs = (c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
                      causal, c["scale"])
-            first, second = ((*fa._bwd_dkdv_cuda(*bargs),
+            first, second = ((*fa._fwd_cuda(c["q"], c["k"], c["v"], causal,
+                                            c["scale"]),
+                              *fa._bwd_dkdv_cuda(*bargs),
                               fa._bwd_dq_cuda(*bargs)) for _ in range(2))
             rq, rk, rv = fa.flash_attention_bwd_reference(*bargs)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
-                raise RuntimeError(f"K3a/K3b bh={bh} sq={sq} sk={sk} d={d} "
-                                   f"causal={causal}: two launches differ")
-            dk, dv, dq = first
-            e = [hold(fa.BWD_DKDV, "dK", dk, rk),
+                raise RuntimeError(f"K2/K3a/K3b bh={bh} sq={sq} sk={sk} "
+                                   f"d={d} causal={causal}: two launches "
+                                   f"differ")
+            o, lse, dk, dv, dq = first
+            e = [hold(fa.FWD, "O", o, c["o"]),
+                 hold(fa.FWD, "LSE", lse, c["lse"]),
+                 hold(fa.BWD_DKDV, "dK", dk, rk),
                  hold(fa.BWD_DKDV, "dV", dv, rv), hold(fa.BWD_DQ, "dQ", dq, rq)]
-            log(f"  wide backward bh={bh} sq={sq} sk={sk} d={d} "
-                f"causal={causal}: max abs err dK/dV/dQ "
+            log(f"  wide flash bh={bh} sq={sq} sk={sk} d={d} "
+                f"causal={causal}: max abs err O/LSE/dK/dV/dQ "
                 + " / ".join(f"{x:.3g}" for x in e) + "; two launches "
                 "bitwise equal")
 
@@ -4560,10 +4573,11 @@ FLASH_BF16_PEAK = ("products in bf16 on the tensor cores (flops over 989 "
 SDPA_FLASH_LIBRARY = "sdpa flash backend, bf16"
 # the ptxas name of K2 bf16's wgmma body (csrc/flash_fwd_wgmma.cuh)
 WGMMA_FWD_KERNEL = "fwd_kernel<2>"
-# ... and the ptxas names of K2's and K3a's bodies at head_dim 129-512
-# (csrc/flash_wide_wgmma.cuh)
+# ... and the ptxas names of K2's, K3a's and K3b's bodies at head_dim
+# 129-512 (csrc/flash_wide_wgmma.cuh)
 WGMMA_WIDE_KERNELS = {"flash_fwd_bf16": "wgmma_wide_fwd_kernel",
-                      "flash_bwd_dkdv_bf16": "wgmma_wide_dkdv_kernel"}
+                      "flash_bwd_dkdv_bf16": "wgmma_wide_dkdv_kernel",
+                      "flash_bwd_dq_bf16": "wgmma_wide_dq_kernel"}
 # what the earlier mma.sync forms of K3a/K3b bf16 reached against the
 # plain versions at the first 13 cases: recorded beside each backward
 # kernel's worst case (not a gate)
@@ -4710,7 +4724,7 @@ def bf16_kernels_phase(torch):
     log("  flash bf16 forward and backward: two launches bitwise equal "
         "(full and causal)")
 
-    # K2 and K3a above head_dim 128 (flash_wide_wgmma.cuh up to 512,
+    # K2, K3a and K3b above head_dim 128 (flash_wide_wgmma.cuh up to 512,
     # flash_wide.cuh above): full and causal, Sq != Sk both ways, S not a
     # multiple of the tiles; each launched twice for bitwise-equal outputs
     for d in WIDE_BWD_DIMS:
@@ -4720,23 +4734,25 @@ def bf16_kernels_phase(torch):
                      causal, c["scale"])
             first, second = (
                 fa._fwd_cuda(c["q"], c["k"], c["v"], causal, c["scale"])
-                + fa._bwd_dkdv_cuda(*bargs) for _ in range(2))
-            _, rk, rv = fa.flash_attention_bwd_reference(*bargs)
+                + fa._bwd_dkdv_cuda(*bargs) + (fa._bwd_dq_cuda(*bargs),)
+                for _ in range(2))
+            rq, rk, rv = fa.flash_attention_bwd_reference(*bargs)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
-                raise RuntimeError(f"bf16 K2/K3a bh={bh} sq={sq} sk={sk} "
+                raise RuntimeError(f"bf16 K2/K3a/K3b bh={bh} sq={sq} sk={sk} "
                                    f"d={d} causal={causal}: two launches "
                                    f"differ")
-            o, lse, dk, dv = first
+            o, lse, dk, dv, dq = first
             lse_err = (lse - c["lse"]).abs().max().item()
             if lse_err > TOL:
                 raise RuntimeError(f"{fa.FWD_BF16} d={d} LSE: max abs err "
                                    f"{lse_err:.3g} > {TOL}")
             got = [hold(fa.FWD_BF16, "O", o, c["o"]),
                    hold(fa.BWD_DKDV_BF16, "dK", dk, rk),
-                   hold(fa.BWD_DKDV_BF16, "dV", dv, rv)]
+                   hold(fa.BWD_DKDV_BF16, "dV", dv, rv),
+                   hold(fa.BWD_DQ_BF16, "dQ", dq, rq)]
             log(f"  wide bf16 bh={bh} sq={sq} sk={sk} d={d} causal={causal}"
-                f": LSE max abs err {lse_err:.3g}; O/dK/dV ulps of max, "
+                f": LSE max abs err {lse_err:.3g}; O/dK/dV/dQ ulps of max, "
                 f"share differing " + " / ".join(f"{u:.3g} {s:.3g}"
                                                   for u, s in got)
                 + "; two launches bitwise equal")
@@ -4855,25 +4871,23 @@ def bf16_kernels_phase(torch):
                                                    sdpa_bwd, flush)
         plain_bwd = _time_ms(
             torch, lambda: fa.flash_attention_bwd_reference(*bargs), flush)
-        wgmma_src = ("paddle_tpu_torch/csrc/flash_wide_wgmma.cuh (wgmma + "
-                     "TMA)")
-        for name, ms, plain_ms, lib_ms, src in (
+        for name, ms, plain_ms, lib_ms in (
                 (fa.FWD_BF16, fwd_ms, _time_ms(
                     torch, lambda: fa.flash_attention_fwd_reference(*args),
-                    flush), sdpa_ms, wgmma_src),
+                    flush), sdpa_ms),
                 (fa.BWD_DKDV_BF16, _time_ms(
                     torch, lambda: fa._bwd_dkdv_cuda(*bargs), flush),
-                 plain_bwd, sdpa_bwd_ms, wgmma_src),
+                 plain_bwd, sdpa_bwd_ms),
                 (fa.BWD_DQ_BF16, _time_ms(
                     torch, lambda: fa._bwd_dq_cuda(*bargs), flush),
-                 plain_bwd, sdpa_bwd_ms,
-                 "paddle_tpu_torch/csrc/flash_wide.cuh (CUDA cores)")):
+                 plain_bwd, sdpa_bwd_ms)):
             rows[name][key] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "library": library, **bounds[name],
                 "share_of_bound": bounds[name]["bound_ms"] / ms,
                 "shape": f"[BH=32, S={SEQ}, D={d}] bf16 causal=False",
-                "source": src}
+                "source": "paddle_tpu_torch/csrc/flash_wide_wgmma.cuh "
+                          f"({WGMMA_WIDE_KERNELS[name]}: wgmma + TMA)"}
         rows[fa.FWD_BF16][key]["in_turns"] = {
             "port_ms": fwd_ms, "sdpa_ms": sdpa_ms, "sdpa_backend": backend,
             "ratio_port_over_sdpa": fwd_ms / sdpa_ms, "turns_ms": fwd_turns}
@@ -11327,9 +11341,8 @@ def main():
         src = ("paddle_tpu_torch/csrc/" + (
             "flash_fwd_wgmma.cuh" if kname == "flash_fwd_bf16" else
             "flash_bwd_wgmma.cuh") + " (head_dim <= 64; 65-128 "
-            "flash_attention_bf16.cuh; 129-512 " + (
-                "flash_wide.cuh" if kname == "flash_bwd_dq_bf16" else
-                "flash_wide_wgmma.cuh") + "; above flash_wide.cuh)")
+            "flash_attention_bf16.cuh; 129-512 flash_wide_wgmma.cuh "
+            f"{WGMMA_WIDE_KERNELS[kname]}; above flash_wide.cuh)")
         train_kernels.append(_kernel_row(
             kname, src, f"{fa_py}:{line} (the bf16 branch)",
             train_bf16["kernel_launches"][kname], bf16_errs[kname], row,

@@ -12,35 +12,39 @@ headers (-I its directory: the whole earlier csrc/, never this one's) and
 called through the C interface both revisions have. On the same seeded
 inputs:
 
-  - at [BH=32, S=512, D] full, D = 256, 264 and 512: the bfloat16 K2
-    (flash_fwd_bf16) and K3a (flash_bwd_dkdv_bf16), and the whole
-    bfloat16 backward (delta + K3a + K3b, as _Flash.backward runs it), of
-    each revision are timed in turns (old, new, new, old;
+  - at [BH=32, S=512, D] full, D = 256, 264 and 512: the bfloat16 K3b
+    (flash_bwd_dq_bf16) and the whole bfloat16 backward (delta + K3a +
+    K3b, as _Flash.backward runs it), and the float32 K2 (flash_fwd_f32),
+    of each revision are timed in turns (old, new, new, old;
     chip_smoke._time_ms: the median of 25 launches, the L2 flushed and the
-    queue kept busy before each) and held against the plain bf16 version
-    (within chip_smoke.BF16_FLASH_ULPS ulps of the tensor's max, at most
-    chip_smoke.BF16_FLASH_SHARE of the elements differing, LSE within
-    chip_smoke.TOL);
-  - the kernels this revision's bfloat16 wgmma kernels above head_dim 128
-    left alone give the earlier revision's bits: every float32 kernel (K2,
-    K3a, K3b at head_dim 64, 128, 256, 264, 512, 520), the bfloat16 K2,
-    K3a and K3b at head_dim 64, 128 and 520, and the bfloat16 K3b at 256,
-    264 and 512 (full and causal, Sq != Sk).
+    queue kept busy before each) and held against the plain version
+    (bfloat16: within chip_smoke.BF16_FLASH_ULPS ulps of the tensor's max,
+    at most chip_smoke.BF16_FLASH_SHARE of the elements differing;
+    float32: O and LSE within chip_smoke.TOL);
+  - the kernels this revision left alone give the earlier revision's
+    bits: every float32 K3a and K3b (head_dim 64, 128, 256, 264, 512,
+    520), the float32 K2 at 64, 128 and 520, the bfloat16 K2 and K3a at
+    every head_dim, and the bfloat16 K3b at 64, 128 and 520 (full and
+    causal, Sq != Sk).
 
 Prints one JSON line per kernel and shape and the card's nvidia-smi line;
 exits 1 if a hold fails.
 
     python3 flash_wide_vs_old.py --ablate
 
-times this revision's bfloat16 K2 and K3a above head_dim 128
-(csrc/flash_wide_wgmma.cuh) at [BH=32, S=512, D] full, D = 256 and 512,
-beside copies of the header built into _tree/ablate/ with parts switched
-off (their outputs are not the function; only their times are read):
-"no_mma" issues no wgmma (the loads, waits, softmax and ds arithmetic
-stay), "no_alu" skips the softmax, exp and ds arithmetic and K3a's P^T
-hand-off (the loads and wgmma stay), "loads_only" both. The switches are
-put in by matching the header's text, so an edit there that moves one
-makes this mode fail, not time something else.
+times this revision's kernels above head_dim 128 at [BH=32, S=512, D]
+full, D = 256 and 512: the bfloat16 K2, K3a and K3b
+(csrc/flash_wide_wgmma.cuh) and the float32 K2
+(csrc/flash_fwd_wide_mma.cuh), beside copies of the headers built into
+_tree/ablate/ with parts switched off (their outputs are not the
+function; only their times are read): "no_mma" issues no tensor-core
+product (no wgmma; in the float32 K2 no mma.sync, and the compiler drops
+the fragment loads and splits that only fed it; the staged loads, waits,
+softmax and ds arithmetic stay), "no_alu" skips the softmax, exp and ds
+arithmetic (and the bfloat16 kernels' hand-offs of P and dS; the float32
+K2 still hands its scores over), "loads_only" both. The switches are put
+in by matching the headers' text, so an edit there that moves one makes
+this mode fail, not time something else.
 """
 import ctypes
 import json
@@ -55,20 +59,22 @@ sys.path.insert(0, REPO)
 BH, S = 32, 512
 TIMED_DIMS = (256, 264, 512)
 # (dtype, BH, Sq, Sk, head_dim, causal, outputs held bitwise against the
-# earlier revision): the kernels the bf16 wgmma kernels above 128 left
-# alone
+# earlier revision): the kernels this revision left alone (above 128 not
+# the float32 K2 or the bfloat16 K3b up to 512)
 ALL = ("o", "lse", "dk", "dv", "dq")
+BWD_F32 = ("dk", "dv", "dq")
+NOT_DQ = ("o", "lse", "dk", "dv")
 BITWISE = [("f32", 8, 200, 130, 64, True, ALL),
            ("f32", 8, 130, 200, 128, False, ALL),
-           ("f32", 2, 200, 130, 256, True, ALL),
-           ("f32", 2, 130, 200, 264, False, ALL),
-           ("f32", 1, 200, 130, 512, True, ALL),
+           ("f32", 2, 200, 130, 256, True, BWD_F32),
+           ("f32", 2, 130, 200, 264, False, BWD_F32),
+           ("f32", 1, 200, 130, 512, True, BWD_F32),
            ("f32", 1, 130, 200, 520, False, ALL),
            ("bf16", 8, 200, 130, 64, True, ALL),
            ("bf16", 8, 130, 200, 128, False, ALL),
-           ("bf16", 2, 200, 130, 256, True, ("dq",)),
-           ("bf16", 2, 130, 200, 264, False, ("dq",)),
-           ("bf16", 1, 200, 130, 512, True, ("dq",)),
+           ("bf16", 2, 200, 130, 256, True, NOT_DQ),
+           ("bf16", 2, 130, 200, 264, False, NOT_DQ),
+           ("bf16", 1, 200, 130, 512, True, NOT_DQ),
            ("bf16", 1, 130, 200, 520, False, ALL),
            ("bf16", 1, 200, 130, 520, True, ALL)]
 FNS = ("flash_fwd_f32", "flash_bwd_dkdv_f32", "flash_bwd_dq_f32",
@@ -164,9 +170,25 @@ _ABLATE_EDITS = [
     ("    uint32_t pa[kKeySteps][4];", "#else\n    float alpha[2] = {1.f, "
      "1.f};\n#endif\n    uint32_t pa[kKeySteps][4];"),
 ]
+_ABLATE_DQ_EDITS = [
+    ("    // P in place, zero where masked or padded, to warpgroup 1 through",
+     "#ifndef ABL_NO_ALU\n"
+     "    // P in place, zero where masked or padded, to warpgroup 1 through"),
+    ("    uint32_t da[kTileSteps][4];",
+     "#endif\n    uint32_t da[kTileSteps][4];"),
+]
+_ABLATE_F32_EDITS = [
+    ("      if (!(t0 + kTile <= Sk && (!causal || t0 + kTile - 1 <= q0 + rw))) {",
+     "#ifndef ABL_NO_ALU\n"
+     "      if (!(t0 + kTile <= Sk && (!causal || t0 + kTile - 1 <= q0 + rw))) {"),
+    ("      // P and alpha to the group-1 warp of these rows",
+     "#else\n      alpha[0] = alpha[1] = 1.f;\n#endif\n"
+     "      // P and alpha to the group-1 warp of these rows"),
+]
 _ABLATE_MMA = ("unit_scores(float (&d)[32]", "unit_scores128(float (&d)[64]",
                "products_into(float (&d)[32]")
-_ABLATE_ENTRY = """#include "flash_wide_wgmma.cuh"
+_ABLATE_ENTRY = """#include "flash_fwd_wide_mma.cuh"
+#include "flash_wide_wgmma.cuh"
 extern "C" int ablate_fwd(const void* q, const void* k, const void* v,
                           void* o, void* lse, int BH, int Sq, int Sk, int D,
                           int causal, float scale, void* stream) {
@@ -185,6 +207,24 @@ extern "C" int ablate_dkdv(const void* q, const void* k, const void* v,
       static_cast<__nv_bfloat16*>(dv), BH, Sq, Sk, D, causal, scale,
       static_cast<cudaStream_t>(stream));
 }
+extern "C" int ablate_dq(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int BH, int Sq, int Sk, int D, int causal,
+                         float scale, void* stream) {
+  return flash_wgmma::launch_wide_dq(
+      q, k, v, dout, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), BH,
+      Sq, Sk, D, causal, scale, static_cast<cudaStream_t>(stream));
+}
+extern "C" int ablate_fwd_f32(const void* q, const void* k, const void* v,
+                              void* o, void* lse, int BH, int Sq, int Sk,
+                              int D, int causal, float scale, void* stream) {
+  return flash_fwd_wide::launch_fwd(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), BH, Sq, Sk, D, causal, scale,
+      static_cast<cudaStream_t>(stream));
+}
 """
 ABLATE_VARIANTS = {"full": [], "no_mma": ["-DABL_NO_MMA"],
                    "no_alu": ["-DABL_NO_ALU"],
@@ -201,17 +241,22 @@ def build_ablations():
     out = os.path.join(REPO, "_tree", "ablate")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_build.CSRC, out)
-    path = os.path.join(out, "flash_wide_wgmma.cuh")
-    src = open(path).read()
-    for old, new in _ABLATE_EDITS:
-        if src.count(old) != 1:
-            raise SystemExit(f"--ablate: the header no longer has {old!r}")
-        src = src.replace(old, new)
-    for fn in _ABLATE_MMA:
-        at = src.index("{", src.index(fn)) + 1
-        src = src[:at] + "\n#ifdef ABL_NO_MMA\n  return;\n#endif\n" + \
-            src[at:]
-    open(path, "w").write(src)
+    for header, edits, early in (
+            ("flash_wide_wgmma.cuh", _ABLATE_EDITS + _ABLATE_DQ_EDITS,
+             _ABLATE_MMA),
+            ("flash_fwd_wide_mma.cuh", _ABLATE_F32_EDITS, ()),
+            ("tf32x3.cuh", [], ("void mma3x4(",))):
+        path = os.path.join(out, header)
+        src = open(path).read()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise SystemExit(f"--ablate: {header} no longer has {old!r}")
+            src = src.replace(old, new)
+        for fn in early:
+            at = src.index("{", src.index(fn)) + 1
+            src = src[:at] + "\n#ifdef ABL_NO_MMA\n  return;\n#endif\n" + \
+                src[at:]
+        open(path, "w").write(src)
     entry = os.path.join(out, "ablate.cu")
     open(entry, "w").write(_ABLATE_ENTRY)
     procs = {name: subprocess.Popen(
@@ -228,7 +273,11 @@ def build_ablations():
         lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
         lib.ablate_fwd.argtypes = [p] * 5 + [i] * 5 + [f, p]
         lib.ablate_dkdv.argtypes = [p] * 8 + [i] * 5 + [f, p]
-        lib.ablate_fwd.restype = lib.ablate_dkdv.restype = i
+        lib.ablate_dq.argtypes = [p] * 7 + [i] * 5 + [f, p]
+        lib.ablate_fwd_f32.argtypes = [p] * 5 + [i] * 5 + [f, p]
+        for fn in ("ablate_fwd", "ablate_dkdv", "ablate_dq",
+                   "ablate_fwd_f32"):
+            getattr(lib, fn).restype = i
         libs[name] = lib
     return libs
 
@@ -247,26 +296,31 @@ def ablate():
     rng = np.random.RandomState(0)
     for d in (256, 512):
         c = chip_smoke._flash_bf16_case(torch, rng, BH, S, S, d, False)
-        o, dk, dv = (torch.empty_like(c[n]) for n in ("q", "k", "k"))
+        f = chip_smoke._flash_case(torch, rng, BH, S, S, d, False)
+        o, dk, dv, dq = (torch.empty_like(c[n]) for n in ("q", "k", "k", "q"))
+        o32 = torch.empty_like(f["q"])
         lse = torch.empty(c["q"].shape[:2], device="cuda")
         dims = (BH, S, S, d, 0, c["scale"], stream)
-        row = {"shape": f"[BH={BH}, S={S}, D={d}] bf16 full"}
+        row = {"shape": f"[BH={BH}, S={S}, D={d}] full"}
         for name, lib in libs.items():
-            def fwd(lib=lib):
-                return lib.ablate_fwd(*(c[n].data_ptr() for n in "qkv"),
-                                      o.data_ptr(), lse.data_ptr(), *dims)
-
-            def dkdv(lib=lib):
-                return lib.ablate_dkdv(
-                    *(c[n].data_ptr() for n in ("q", "k", "v", "do", "lse",
-                                                "delta")),
-                    dk.data_ptr(), dv.data_ptr(), *dims)
-            if fwd() or dkdv():
+            def ptrs(case, names):
+                return [case[n].data_ptr() for n in names]
+            calls = {
+                "flash_fwd_bf16": lambda lib=lib: lib.ablate_fwd(
+                    *ptrs(c, "qkv"), o.data_ptr(), lse.data_ptr(), *dims),
+                "flash_bwd_dkdv_bf16": lambda lib=lib: lib.ablate_dkdv(
+                    *ptrs(c, ("q", "k", "v", "do", "lse", "delta")),
+                    dk.data_ptr(), dv.data_ptr(), *dims),
+                "flash_bwd_dq_bf16": lambda lib=lib: lib.ablate_dq(
+                    *ptrs(c, ("q", "k", "v", "do", "lse", "delta")),
+                    dq.data_ptr(), *dims),
+                "flash_fwd_f32": lambda lib=lib: lib.ablate_fwd_f32(
+                    *ptrs(f, "qkv"), o32.data_ptr(), lse.data_ptr(), *dims)}
+            if any(call() for call in calls.values()):
                 raise RuntimeError(f"{name} D={d}: launch failed")
             torch.cuda.synchronize()
-            row[name] = {"flash_fwd_bf16_ms": chip_smoke._time_ms(
-                torch, fwd, flush), "flash_bwd_dkdv_bf16_ms":
-                chip_smoke._time_ms(torch, dkdv, flush)}
+            row[name] = {f"{k}_ms": chip_smoke._time_ms(torch, call, flush)
+                         for k, call in calls.items()}
         print(json.dumps(row), flush=True)
     print(chip_smoke.smi_line(), flush=True)
 
@@ -300,33 +354,42 @@ def main(argv):
         return ulps, share, (ulps <= chip_smoke.BF16_FLASH_ULPS and
                              share <= chip_smoke.BF16_FLASH_SHARE)
 
+    def vs_tol(got, want):
+        """(max abs error, within chip_smoke.TOL)"""
+        err = (got - want).abs().max().item()
+        return err, err <= chip_smoke.TOL
+
     for d in TIMED_DIMS:
-        c = chip_smoke._flash_bf16_case(torch, rng, BH, S, S, d, False)
-        calls = {"old": Calls(torch, old, c, stream),
-                 "new": Calls(torch, new, c, stream)}
-        plain = fa.flash_attention_bwd_reference(
-            c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], False,
-            c["scale"])
-        shape = f"[BH={BH}, S={S}, D={d}] bf16 full"
-        for name, fn in (("flash_fwd_bf16", "fwd"),
-                         ("flash_bwd_dkdv_bf16", "dkdv"),
-                         ("whole_backward_bf16", "whole_bwd")):
+        cases = {"bf16": chip_smoke._flash_bf16_case(torch, rng, BH, S, S, d,
+                                                     False),
+                 "f32": chip_smoke._flash_case(torch, rng, BH, S, S, d,
+                                               False)}
+        for name, dt, fn in (("flash_bwd_dq_bf16", "bf16", "dq_"),
+                             ("whole_backward_bf16", "bf16", "whole_bwd"),
+                             ("flash_fwd_f32", "f32", "fwd")):
+            c = cases[dt]
+            calls = {"old": Calls(torch, old, c, stream),
+                     "new": Calls(torch, new, c, stream)}
             if any(getattr(calls[w], fn)() for w in calls):
                 raise RuntimeError(f"{name} D={d}: launch failed")
             torch.cuda.synchronize()
-            outs = {"fwd": (("o", c["o"]),),
-                    "dkdv": (("dk", plain[1]), ("dv", plain[2])),
-                    "whole_bwd": (("dq", plain[0]), ("dk", plain[1]),
-                                  ("dv", plain[2]))}[fn]
-            holds = {w: {a: vs_plain(getattr(calls[w], a), want)
-                         for a, want in outs} for w in calls}
-            ok = all(h[2] for h in holds["new"].values())
             if fn == "fwd":
-                lse_err = (calls["new"].lse - c["lse"]).abs().max().item()
-                holds["new"]["lse_max_abs_err"] = lse_err
-                ok = ok and lse_err <= chip_smoke.TOL
-            row = {"kernel": name, "shape": shape,
-                   "ulps_share_within_vs_plain": holds}
+                holds = {w: {"o": vs_tol(calls[w].o, c["o"]),
+                             "lse": vs_tol(calls[w].lse, c["lse"])}
+                         for w in calls}
+                ok = all(h[1] for h in holds["new"].values())
+            else:
+                plain = fa.flash_attention_bwd_reference(
+                    c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+                    False, c["scale"])
+                outs = (("dq", plain[0]),) if fn == "dq_" else (
+                    ("dq", plain[0]), ("dk", plain[1]), ("dv", plain[2]))
+                holds = {w: {a: vs_plain(getattr(calls[w], a), want)
+                             for a, want in outs} for w in calls}
+                ok = all(h[2] for h in holds["new"].values())
+            row = {"kernel": name, "shape": f"[BH={BH}, S={S}, D={d}] {dt} "
+                                            f"full",
+                   "vs_plain": holds}
             times = {"old": [], "new": []}
             for who in ("old", "new", "new", "old"):
                 times[who].append(chip_smoke._time_ms(
@@ -336,7 +399,8 @@ def main(argv):
                        turns_ms=times)
             row["old_over_new"] = row["old_ms"] / row["new_ms"]
             report(row, ok and row["new_ms"] < row["old_ms"])
-        del c, calls, plain
+            del calls
+        del cases
 
     for dt, bh, sq, sk, d, causal, held in BITWISE:
         make = chip_smoke._flash_bf16_case if dt == "bf16" else \

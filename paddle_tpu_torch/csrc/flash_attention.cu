@@ -100,13 +100,14 @@
 // K3a's accumulators would not fit in registers), a persistent grid.
 //
 // head_dim: the tensor-core kernels here take the buckets 32, 64 and
-// 128. Above 128 the backward (dK/dV, dQ) runs on the tensor cores too,
-// up to 512, in flash_bwd_wide_mma.cuh (8 warps a block, each warp one
-// output or one half of dQ's columns); the forward, and the backward
-// above 512, run on CUDA-core kernels (flash_*_wide_kernel in
-// flash_wide.cuh, 4 rows a warp; above 256 in 256-column slices of the
-// output), as the accumulators of a 16-row warp would not fit in
-// registers at 256 columns. Every entry point takes a head_dim
+// 128. Above 128 all three run on the tensor cores too, up to 512, in
+// 8-warp blocks whose two groups of 4 warps split the work:
+// flash_fwd_wide_mma.cuh (the forward: each group half of the score
+// chunks and half of O's columns) and flash_bwd_wide_mma.cuh (dK/dV: one
+// output a warp; dQ: one half of its columns a group). Above 512 they run
+// on CUDA-core kernels (flash_*_wide_kernel in flash_wide.cuh, 4 rows a
+// warp, in 256-column slices of the output), as the accumulators of a
+// 16-row warp would not fit in registers. Every entry point takes a head_dim
 // that is a multiple of 4 (16-byte staging); the wrapper
 // (kernels/flash_attention.py:pad_head_dim) zero-pads any other one,
 // which is exact, and passes the scale of the true head_dim.
@@ -122,6 +123,7 @@
 #include <type_traits>
 
 #include "flash_bwd_wide_mma.cuh"
+#include "flash_fwd_wide_mma.cuh"
 #include "flash_wide.cuh"
 #include "tf32x3.cuh"
 
@@ -130,7 +132,6 @@ namespace {
 using namespace tf32x3;
 using flash_wide::allow_smem;
 using flash_wide::floats;
-using flash_wide::kWideChunk;
 using flash_wide::launch_dkdv_wide;
 using flash_wide::launch_dq_wide;
 using flash_wide::launch_fwd_wide;
@@ -773,10 +774,10 @@ int flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
     e = args(launch_fwd<64>);
   else if (D <= 128)
     e = args(launch_fwd<128>);
-  else if (D <= kWideChunk)
-    e = args(launch_fwd_wide<float, false>);
+  else if (D <= flash_fwd_wide::kMaxD)
+    e = args(flash_fwd_wide::launch_fwd);
   else
-    e = args(launch_fwd_wide<float, true>);
+    e = args(launch_fwd_wide<float>);
   return static_cast<int>(e);
 }
 
@@ -808,7 +809,7 @@ int flash_bwd_dkdv_f32(const void* q, const void* k, const void* v,
   else if (D <= flash_bwd_wide::kMaxD)
     e = args(flash_bwd_wide::launch_dkdv);
   else
-    e = args(launch_dkdv_wide<float, true>);
+    e = args(launch_dkdv_wide<float>);
   return static_cast<int>(e);
 }
 
@@ -839,7 +840,7 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   else if (D <= flash_bwd_wide::kMaxD)
     e = args(flash_bwd_wide::launch_dq);
   else
-    e = args(launch_dq_wide<float, true>);
+    e = args(launch_dq_wide<float>);
   return static_cast<int>(e);
 }
 

@@ -75,13 +75,14 @@
 // warp specialisation, a persistent grid; 128-key forward tiles leave
 // one or two blocks an SM there.
 //
-// The shape plan above head_dim 128: the forward and dK/dV at 129-512
-// run the wgmma + TMA kernels of flash_wide_wgmma.cuh (two warpgroups a
-// block; above 256 columns in column slices that recompute the scores);
-// dQ at every head_dim above 128, and the forward and dK/dV above 512,
-// run the CUDA-core kernels of flash_wide.cuh, instantiated for bfloat16
-// (the same function, bf16 loads widened to float32, P and dS rounded
-// through __float2bfloat16_rn).
+// The shape plan above head_dim 128: the forward, dK/dV and dQ at
+// 129-512 run the wgmma + TMA kernels of flash_wide_wgmma.cuh (two
+// warpgroups a block; the forward and dK/dV above 256 columns in column
+// slices that recompute the scores, dQ's units split between the
+// warpgroups); above 512 all three run the CUDA-core kernels of
+// flash_wide.cuh, instantiated for bfloat16 (the same function, bf16
+// loads widened to float32, P and dS rounded through
+// __float2bfloat16_rn).
 //
 // The kernels allocate nothing; the caller passes the outputs. Each C
 // entry point launches on the given stream and returns
@@ -848,7 +849,7 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                      static_cast<float*>(lse), BH, Sq, Sk, D,
                                      causal, scale, s);
   else
-    e = wide(flash_wide::launch_fwd_wide<Bf, true>);
+    e = wide(flash_wide::launch_fwd_wide<Bf>);
   return static_cast<int>(e);
 }
 
@@ -889,7 +890,7 @@ int flash_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
                                       static_cast<Bf*>(dv), BH, Sq, Sk, D,
                                       causal, scale, s);
   else
-    e = wide(flash_wide::launch_dkdv_wide<Bf, true>);
+    e = wide(flash_wide::launch_dkdv_wide<Bf>);
   return static_cast<int>(e);
 }
 
@@ -923,10 +924,12 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
         scale, s);
   else if (D <= 128)
     e = tc(flash_bf16::launch_dq<128>);
-  else if (D <= flash_wide::kWideChunk)
-    e = wide(flash_wide::launch_dq_wide<Bf, false>);
+  else if (D <= flash_wgmma::kWideMaxD)
+    e = flash_wgmma::launch_wide_dq(q, k, v, dout, l, dl,
+                                    static_cast<Bf*>(dq), BH, Sq, Sk, D,
+                                    causal, scale, s);
   else
-    e = wide(flash_wide::launch_dq_wide<Bf, true>);
+    e = wide(flash_wide::launch_dq_wide<Bf>);
   return static_cast<int>(e);
 }
 

@@ -3,9 +3,9 @@
 // flash_bwd_dq_bf16 (dQ) on warpgroup matrix multiplies (wgmma) fed by
 // the Tensor Memory Accelerator (TMA). flash_attention_bf16.cuh includes
 // this file and routes head_dim <= 64 here; 65-128 keeps its mma.sync
-// kernels; above 128 dK/dV runs flash_wide_wgmma.cuh up to 512 and
-// flash_wide.cuh above, dQ flash_wide.cuh. What they share with the
-// forward (flash_fwd_wgmma.cuh) is in flash_wgmma.cuh.
+// kernels; above 128 both run flash_wide_wgmma.cuh up to 512 and
+// flash_wide.cuh above. What they share with the forward
+// (flash_fwd_wgmma.cuh) is in flash_wgmma.cuh.
 //
 // Replaces, as the mma.sync kernels before them, the bfloat16 branch
 // (lowp) of the Pallas TPU kernels

@@ -3,9 +3,8 @@
 // (float32) and flash_attention_bf16.cuh (bfloat16) launch above the
 // tensor-core buckets, templated on the element type T of q, k, v, dO
 // and the outputs (lse and delta are float32 for both). What still
-// routes here: the float32 forward above 128 and the float32 backward
-// above 512 (129-512: flash_bwd_wide_mma.cuh); bfloat16 dQ above 128,
-// and the bfloat16 forward and dK/dV above 512 (129-512:
+// routes here: every kernel above head_dim 512, in both types (129-512:
+// float32 flash_fwd_wide_mma.cuh and flash_bwd_wide_mma.cuh, bfloat16
 // flash_wide_wgmma.cuh). No model of either package runs a head_dim
 // above 128.
 //
@@ -20,15 +19,11 @@
 // every block computes its scores (and dP = dO V^T) over the whole
 // head_dim, in 256-column chunks staged through shared memory in the
 // order 0, 256, ..., so every slice computes the same softmax (and dS) bit
-// for bit, then accumulates its own columns; the forward's slice 0 writes
-// the LSE. Up to 256 columns there is one slice and one chunk, and the
-// block's own rows stay in shared memory for the whole key loop: the
-// kernels' kSliced = false form, whose chunk loop the compiler removes (a
-// runtime loop there cost the 256 bucket registers and 60% more time on
-// the card, PERF.md PR 8). Tiles read by lane-row are padded by one float
-// (no bank conflicts); the block's own rows are read as broadcasts. Every
-// sum is a float32 FMA chain in a fixed order, so two launches give
-// bitwise-equal outputs.
+// for bit, then accumulates its own columns (restaging them after the
+// chunks); the forward's slice 0 writes the LSE. Tiles read by lane-row
+// are padded by one float (no bank conflicts); the block's own rows are
+// read as broadcasts. Every sum is a float32 FMA chain in a fixed order,
+// so two launches give bitwise-equal outputs.
 //
 // The element type (Elem<T>): rows load 16 bytes at a time and widen to
 // float32 in shared memory (head_dim a multiple of 4 float32 or 8
@@ -151,7 +146,7 @@ __device__ __forceinline__ void stage_entries(float* dst,
 
 // grid (BH, ceil(Sq / 16), ceil(D / 256)); keys in softmax blocks of NB
 // tiles of 32
-template <typename T, bool kSliced>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
@@ -169,15 +164,14 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t bh = blockIdx.x;
   const int q0 = blockIdx.y * kWideRows;
   // the block's output columns
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
+  const int c0 = blockIdx.z * kWideChunk;
+  const int cw = min(kWideChunk, D - c0);
+  const int n_chunks = (D + kWideChunk - 1) / kWideChunk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const T* qb = q + bh * Sq * D;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
-  if (!kSliced) stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
 
   const int n_keys = causal ? min(Sk, q0 + kWideRows) : Sk;
   const int rw = warp * R;
@@ -204,9 +198,9 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (t0 >= n_keys) continue;  // past the last key: masked below
       for (int ci = 0; ci < n_chunks; ++ci) {
         const int d0 = ci * kWideChunk;
-        const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+        const int dw = min(kWideChunk, D - d0);
         __syncthreads();  // the previous chunk or tile is consumed
-        if (kSliced) stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
+        stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
         stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
         if (NB == 1 && ci == n_chunks - 1)  // the last chunk: V too
           stage_cols(vs, cw, vb, t0, kWideTile, Sk, D, c0, cw);
@@ -297,7 +291,7 @@ flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // grid (BH, ceil(Sk / 16), ceil(D / 256)): the block owns 16 keys and
 // streams query tiles of 32 rows, from the first tile a causal key can
 // see
-template <typename T, bool kSliced>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_wide_kernel(const T* __restrict__ q,
                            const T* __restrict__ k,
@@ -320,19 +314,15 @@ flash_bwd_dkdv_wide_kernel(const T* __restrict__ q,
 
   const int64_t bh = blockIdx.x;
   const int k0 = blockIdx.y * kWideRows;
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
+  const int c0 = blockIdx.z * kWideChunk;
+  const int cw = min(kWideChunk, D - c0);
+  const int n_chunks = (D + kWideChunk - 1) / kWideChunk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const T* qb = q + bh * Sq * D;
   const T* dob = dout + bh * Sq * D;
   const T* kbh = k + bh * Sk * D;
   const T* vbh = v + bh * Sk * D;
-  if (!kSliced) {
-    stage_cols(ks, D, kbh, k0, kWideRows, Sk, D, 0, D);
-    stage_cols(vs, D, vbh, k0, kWideRows, Sk, D, 0, D);
-  }
 
   float acc_k[R][kWideNE], acc_v[R][kWideNE];
 #pragma unroll
@@ -350,12 +340,10 @@ flash_bwd_dkdv_wide_kernel(const T* __restrict__ q,
     for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
     for (int ci = 0; ci < n_chunks; ++ci) {
       const int d0 = ci * kWideChunk;
-      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+      const int dw = min(kWideChunk, D - d0);
       __syncthreads();  // the previous chunk or tile is consumed
-      if (kSliced) {
-        stage_cols(ks, dw, kbh, k0, kWideRows, Sk, D, d0, dw);
-        stage_cols(vs, dw, vbh, k0, kWideRows, Sk, D, d0, dw);
-      }
+      stage_cols(ks, dw, kbh, k0, kWideRows, Sk, D, d0, dw);
+      stage_cols(vs, dw, vbh, k0, kWideRows, Sk, D, d0, dw);
       stage_cols(qs, dw + 1, qb, t0, kWideTile, Sq, D, d0, dw);
       stage_cols(dos, dw + 1, dob, t0, kWideTile, Sq, D, d0, dw);
       if (ci == 0) {
@@ -392,16 +380,12 @@ flash_bwd_dkdv_wide_kernel(const T* __restrict__ q,
       p[i] = Elem<T>::operand(pi);
     }
 
-    // the block's columns of the tile's Q and dO rows: the last chunk
-    // when there is one, else staged anew
-    int ld = D + 1;
-    if (kSliced) {
-      __syncthreads();
-      stage_cols(qs, cw + 1, qb, t0, kWideTile, Sq, D, c0, cw);
-      stage_cols(dos, cw + 1, dob, t0, kWideTile, Sq, D, c0, cw);
-      __syncthreads();
-      ld = cw + 1;
-    }
+    // the block's columns of the tile's Q and dO rows, staged anew
+    __syncthreads();
+    stage_cols(qs, cw + 1, qb, t0, kWideTile, Sq, D, c0, cw);
+    stage_cols(dos, cw + 1, dob, t0, kWideTile, Sq, D, c0, cw);
+    __syncthreads();
+    const int ld = cw + 1;
     const int n_here = min(kWideTile, Sq - t0);
     for (int j = 0; j < n_here; ++j) {
       float qd[kWideNE], dod[kWideNE];
@@ -443,7 +427,7 @@ flash_bwd_dkdv_wide_kernel(const T* __restrict__ q,
 
 // grid (BH, ceil(Sq / 16), ceil(D / 256)): the block owns 16 query rows
 // and streams key tiles of 32 rows, up to its last row when causal
-template <typename T, bool kSliced>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_wide_kernel(const T* __restrict__ q,
                          const T* __restrict__ k,
@@ -466,19 +450,15 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q,
 
   const int64_t bh = blockIdx.x;
   const int q0 = blockIdx.y * kWideRows;
-  const int c0 = kSliced ? blockIdx.z * kWideChunk : 0;
-  const int cw = kSliced ? min(kWideChunk, D - c0) : D;
-  const int n_chunks = kSliced ? (D + kWideChunk - 1) / kWideChunk : 1;
+  const int c0 = blockIdx.z * kWideChunk;
+  const int cw = min(kWideChunk, D - c0);
+  const int n_chunks = (D + kWideChunk - 1) / kWideChunk;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const T* qb = q + bh * Sq * D;
   const T* dob = dout + bh * Sq * D;
   const T* kb = k + bh * Sk * D;
   const T* vb = v + bh * Sk * D;
-  if (!kSliced) {
-    stage_cols(qs, D, qb, q0, kWideRows, Sq, D, 0, D);
-    stage_cols(dos, D, dob, q0, kWideRows, Sq, D, 0, D);
-  }
   stage_entries(lses, lse + bh * Sq, q0, kWideRows, Sq);
   stage_entries(deltas, delta + bh * Sq, q0, kWideRows, Sq);
 
@@ -502,12 +482,10 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q,
     for (int i = 0; i < R; ++i) s[i] = dp[i] = 0.f;
     for (int ci = 0; ci < n_chunks; ++ci) {
       const int d0 = ci * kWideChunk;
-      const int dw = kSliced ? min(kWideChunk, D - d0) : D;
+      const int dw = min(kWideChunk, D - d0);
       __syncthreads();  // the previous chunk or tile is consumed
-      if (kSliced) {
-        stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
-        stage_cols(dos, dw, dob, q0, kWideRows, Sq, D, d0, dw);
-      }
+      stage_cols(qs, dw, qb, q0, kWideRows, Sq, D, d0, dw);
+      stage_cols(dos, dw, dob, q0, kWideRows, Sq, D, d0, dw);
       stage_cols(ks, dw + 1, kb, t0, kWideTile, Sk, D, d0, dw);
       stage_cols(vs, dw + 1, vb, t0, kWideTile, Sk, D, d0, dw);
       __syncthreads();
@@ -535,15 +513,11 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q,
       ds[i] = Elem<T>::operand(p * (dp[i] - deltas[rw + i]));
     }
 
-    // the block's columns of the tile's K rows: the last chunk when
-    // there is one, else staged anew
-    int ld = D + 1;
-    if (kSliced) {
-      __syncthreads();
-      stage_cols(ks, cw + 1, kb, t0, kWideTile, Sk, D, c0, cw);
-      __syncthreads();
-      ld = cw + 1;
-    }
+    // the block's columns of the tile's K rows, staged anew
+    __syncthreads();
+    stage_cols(ks, cw + 1, kb, t0, kWideTile, Sk, D, c0, cw);
+    __syncthreads();
+    const int ld = cw + 1;
     const int n_here = min(kWideTile, n_keys - t0);
     for (int j = 0; j < n_here; ++j) {
       float kd[kWideNE];
@@ -597,13 +571,13 @@ inline dim3 wide_grid(int BH, int S, int D) {
               (D + kWideChunk - 1) / kWideChunk);
 }
 
-template <typename T, bool kSliced>
+template <typename T>
 cudaError_t launch_fwd_wide(const T* q, const T* k, const T* v, T* o,
                             float* lse, int BH, int Sq, int Sk, int D,
                             int causal, float scale, cudaStream_t stream) {
   const size_t W = chunk_cols(D);
   const size_t smem = floats(kWideRows * W + kWideTile * (2 * W + 1));
-  auto kernel = flash_fwd_wide_kernel<T, kSliced>;
+  auto kernel = flash_fwd_wide_kernel<T>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(
@@ -611,7 +585,7 @@ cudaError_t launch_fwd_wide(const T* q, const T* k, const T* v, T* o,
   return cudaGetLastError();
 }
 
-template <typename T, bool kSliced>
+template <typename T>
 cudaError_t launch_dkdv_wide(const T* q, const T* k, const T* v,
                              const T* dout, const float* lse,
                              const float* delta, T* dk, T* dv, int BH, int Sq,
@@ -620,7 +594,7 @@ cudaError_t launch_dkdv_wide(const T* q, const T* k, const T* v,
   const size_t W = chunk_cols(D);
   const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
                              2 * kWideTile);
-  auto kernel = flash_bwd_dkdv_wide_kernel<T, kSliced>;
+  auto kernel = flash_bwd_dkdv_wide_kernel<T>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<wide_grid(BH, Sk, D), kThreads, smem, stream>>>(
@@ -628,7 +602,7 @@ cudaError_t launch_dkdv_wide(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
-template <typename T, bool kSliced>
+template <typename T>
 cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* dout,
                            const float* lse, const float* delta, T* dq,
                            int BH, int Sq, int Sk, int D, int causal,
@@ -636,7 +610,7 @@ cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* dout,
   const size_t W = chunk_cols(D);
   const size_t smem = floats(2 * kWideRows * W + 2 * kWideTile * (W + 1) +
                              2 * kWideRows);
-  auto kernel = flash_bwd_dq_wide_kernel<T, kSliced>;
+  auto kernel = flash_bwd_dq_wide_kernel<T>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<wide_grid(BH, Sq, D), kThreads, smem, stream>>>(

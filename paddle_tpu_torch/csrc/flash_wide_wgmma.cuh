@@ -1,33 +1,35 @@
 // Flash attention, bfloat16, head_dim 129 to 512, for Hopper (sm_90a):
-// the bodies of flash_fwd_bf16 (K2) and flash_bwd_dkdv_bf16 (K3a) on
-// warpgroup matrix multiplies (wgmma) fed by the Tensor Memory
-// Accelerator (TMA). flash_attention_bf16.cuh includes this file and
-// routes 128 < head_dim <= 512 here; above 512 both keep the CUDA-core
-// kernels of flash_wide.cuh (256-column slices), and dQ (K3b) keeps them
-// above 128. What they share with the kernels up to 64 is in
-// flash_wgmma.cuh (tensor maps, 64 x 64 boxes with 128-byte swizzle,
-// mbarriers, the wgmma forms, the bfloat16 packing of accumulators).
+// the bodies of flash_fwd_bf16 (K2), flash_bwd_dkdv_bf16 (K3a) and
+// flash_bwd_dq_bf16 (K3b) on warpgroup matrix multiplies (wgmma) fed by
+// the Tensor Memory Accelerator (TMA). flash_attention_bf16.cuh includes
+// this file and routes 128 < head_dim <= 512 here; above 512 all three
+// keep the CUDA-core kernels of flash_wide.cuh (256-column slices). What
+// they share with the kernels up to 64 is in flash_wgmma.cuh (tensor
+// maps, 64 x 64 boxes with 128-byte swizzle, mbarriers, the wgmma forms,
+// the bfloat16 packing of accumulators).
 //
 // Replaces, as the CUDA-core kernels before them, the bfloat16 branch
 // (lowp) of the Pallas TPU kernels
 //   paddle_tpu/fluid/ops/pallas_kernels/flash_attention.py
 //     _fwd_kernel       (launched by _fwd_pallas)  -> wgmma_wide_fwd_kernel
 //     _bwd_dkdv_kernel  (launched by _flash_bwd)   -> wgmma_wide_dkdv_kernel
+//     _bwd_dq_kernel    (launched by _flash_bwd)   -> wgmma_wide_dq_kernel
 // and computes the same function as the plain versions
 // (paddle_tpu_torch/kernels/flash_attention.py: _fwd_bf16, _bwd_bf16):
 // products of bfloat16 operands summed in float32; the forward's running
 // max and sum move once a block of 128 keys, P is rounded to bfloat16
 // before P V while l adds the unrounded p; dV = bf16(P)^T dO, dS = p (dP
-// - delta) in float32, dK = scale bf16(dS)^T Q; every output rounded once
-// to bfloat16 (to nearest even), LSE float32.
+// - delta) in float32, dK = scale bf16(dS)^T Q, dQ = scale bf16(dS) K;
+// every output rounded once to bfloat16 (to nearest even), LSE float32.
 //
 // What bounds them on this card: operations. At [BH = 32, S = 512, D =
 // 256] the forward's products want 0.0087 ms at the bf16 tensor-core
-// rate and dK/dV's 0.0174 ms; the exp and softmax or ds arithmetic (~5
-// float32 flops a pair) adds 0.0010 ms on the ALUs. Every block also
-// reads the other side's rows from L2 (the keys for 128 query rows, the
-// queries for 64 keys): ~64 MB (forward) and ~128 MB (dK/dV) a launch
-// at that shape. The design:
+// rate, dK/dV's 0.0174 ms and dQ's 0.0130 ms; the exp and softmax or ds
+// arithmetic (~5 float32 flops a pair) adds 0.0010 ms on the ALUs. Every
+// block also reads the other side's rows from L2 (the keys for 128 query
+// rows, the queries for 64 keys, the keys for 64 query rows): ~64 MB
+// (forward), ~128 MB (dK/dV) and ~192 MB (dQ) a launch at that shape.
+// The design:
 //   - head_dim is cut into 64-column units (one TMA box wide); columns
 //     past D and rows past S arrive as zeros from the tensor maps, which
 //     is exact. A score is one wgmma chain over the head_dim's units in
@@ -87,10 +89,34 @@
 //     thread for its 16 query columns at the tile's start. 226
 //     registers, no spill; 64-128 KB resident, 16 KB for P^T and 5-8
 //     stages in <= 227 KB, one block an SM;
+//   - dQ (wgmma_wide_dq_kernel): 64 query rows a block, the two
+//     warpgroups on the same rows, after flash_bwd_wide_mma.cuh's K3b.
+//     Warpgroup 0 forms S = Q K^T and P, warpgroup 1 dP = dO V^T; P goes
+//     to warpgroup 1 through shared memory behind a named barrier, dS = P
+//     (dP - delta) comes back behind another, so both hold the same
+//     floats. S and dP take each unit's product in a fresh accumulator
+//     joined by a float32 add, which rounds to nearest: chained in place
+//     over the units, the tensor core's truncating sums put more dS on
+//     the other side of a bfloat16 rounding boundary (on chip_smoke.py's
+//     cases up to 1.15% of dQ differing from the plain version, against
+//     0.84%) and ran 4-5% slower (PERF.md). Q and dO stay resident (nq
+//     boxes each; 2 x 64 KB at D = 512). K and V stream by TMA in stages
+//     of one unit of a 64-key tile (a K box and a V box): the tile's nq
+//     score units, then its K units again for the products, two a stage
+//     (units 2p and 2p + 1; the last repeated where nq is odd).
+//     Warpgroup w accumulates dQ's units w, w + 2, ... (dQ += bf16(dS) K,
+//     RS wgmma m64n64k16, K MN-major, in place): at most 4 units, 128
+//     registers a thread (214 in all, no spill), so no column slices and
+//     no score recompute. Holding the score stages instead of
+//     loading K twice would want nq stages beside Q and dO: 8 at D = 512,
+//     where 5 fit. The product stages of a tile are held together through
+//     the products, so the ring must have at least ceil(nq / 2) stages
+//     (the launcher checks it). lse and delta are read once, for the
+//     thread's own rows;
 //   - causal blocks skip the tiles no row of theirs sees (the forward
-//     stops at the key tile of its last row, K3a starts at the query
-//     tile of its first key), and causal forward grids start with the
-//     last rows, which see the most keys;
+//     and dQ stop at the key tile of their last row, K3a starts at the
+//     query tile of its first key), and causal forward and dQ grids start
+//     with the last rows, which see the most keys;
 //   - no atomics on outputs: each output element is written once by one
 //     thread, and two launches give bitwise-equal outputs.
 // Not done yet: a persistent grid, overlap of a warpgroup's softmax or
@@ -715,6 +741,207 @@ wgmma_wide_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------------------------------ dQ
+// named barriers of K3b's hand-off: P written (kPFull), dS written
+constexpr int kDsFull = 2;
+
+// The block's schedule of streamed loads: key tile L / nl, then its
+// score unit j (j < nq: the K box and the V box of unit j) or its
+// product pair p = j - nq (K units 2p and 2p + 1; the second is unit 2p
+// again where 2p + 1 = nq, and no warp reads it)
+struct DqSrc {
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  int bh, nq, nl;
+
+  __device__ __forceinline__ void issue(uint8_t* dst, uint64_t* bar,
+                                        int L) const {
+    const int j = L % nl;
+    const int t0 = (L / nl) * kTile;
+    if (j < nq) {
+      tma_load(dst, tk, bar, kDP * j, t0, bh);
+      tma_load(dst + kBox, tv, bar, kDP * j, t0, bh);
+    } else {
+      const int u = 2 * (j - nq);
+      tma_load(dst, tk, bar, kDP * u, t0, bh);
+      tma_load(dst + kBox, tk, bar, kDP * min(u + 1, nq - 1), t0, bh);
+    }
+  }
+};
+
+// grid (BH, ceil(Sq / 64)): the block owns 64 query rows and all of dQ's
+// columns, and streams key tiles of 64 up to its last row when causal
+// (then the last rows first). Warpgroup 0: S, P; warpgroup 1: dP, dS;
+// warpgroup w accumulates dQ's 64-column units w, w + 2, ...
+__global__ void __launch_bounds__(kWideThreads, 1)
+wgmma_wide_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int D,
+                     int causal, float scale, int ns) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kHalf = kWideMaxD / kDP / 2;  // dQ units a warpgroup, at most
+  const int nq = plan_of(D).nq;
+  const int np = (nq + 1) / 2;  // product pairs a tile
+  const int nl = nq + np;
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kRows;
+  const int n_keys = causal ? min(Sk, q0 + kRows) : Sk;
+  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  const DqSrc src = {&tk, &tv, bh, nq, nl};
+
+  uint8_t* base = align1024(smem_raw);
+  uint8_t* res_q = base;
+  uint8_t* res_do = base + nq * kBox;
+  uint8_t* ring = res_do + nq * kBox;
+  float* xbuf = reinterpret_cast<float*>(ring + ns * 2 * kBox);
+  uint64_t* resident = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(xbuf) + kPBytes);
+  const Ring<DqSrc> r =
+      make_ring(ring, reinterpret_cast<uint8_t*>(resident + 1), ns,
+                n_tiles * nl, 8, src);
+  if (threadIdx.x == 0) {
+    mbar_init(resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(resident, 2 * nq * kBox);
+    for (int j = 0; j < nq; ++j) {
+      tma_load(res_q + j * kBox, &tq, resident, kDP * j, q0, bh);
+      tma_load(res_do + j * kBox, &tdo, resident, kDP * j, q0, bh);
+    }
+    for (int L = 0; L < ns && L < r.total; ++L) r.issue(L);
+  }
+  __syncwarp();
+
+  const int wg = threadIdx.x / kThreads;
+  const int tw = threadIdx.x % kThreads;
+  const int warp = tw / 32;
+  const int lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rw = 16 * warp;  // the warp's first row in the block
+  // the score chain's own operand (Q for S, dO for dP); its B is box wg
+  // of a score stage (K, V), and of a product stage (K units 2p + wg)
+  const uint8_t* own = wg == 0 ? res_q : res_do;
+  // the thread's rows g and g + 8 of the warp: lse in log2 units, delta
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = q0 + rw + g + 8 * h;
+    const int64_t at = static_cast<int64_t>(bh) * Sq + qpos;
+    lse_r[h] = qpos < Sq ? lse[at] * kLog2e : 0.f;
+    delta_r[h] = qpos < Sq ? delta[at] : 0.f;
+  }
+  const float c = scale * kLog2e;
+  float acc[kHalf][32];
+#pragma unroll
+  for (int u = 0; u < kHalf; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  if (n_tiles > 0) mbar_wait_or_trap(resident, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = it * kTile;
+    const int L0 = it * nl;
+
+    // S = Q K^T or dP = dO V^T, 64 rows x 64 keys, over the head_dim's
+    // units: each unit's product in a fresh accumulator joined by a
+    // float32 add, its stage released once the product is done
+    float sc[32];
+    for (int j = 0; j < nq; ++j) {
+      r.wait_full(L0 + j);
+      const uint8_t* b = r.stage(L0 + j) + wg * kBox;
+      float f[32];
+      wgmma_fence();
+      unit_scores<false>(f, own + j * kBox, b);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(f);
+      r.release(L0 + j);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = j == 0 ? f[i] : sc[i] + f[i];
+    }
+
+    // P in place, zero where masked or padded, to warpgroup 1 through
+    // xbuf (element i of thread tw at i * 128 + tw), which forms dS = P
+    // (dP - delta) there and hands it back. A tile with no padded row or
+    // column and no causal diagonal in the warp's rows skips the mask.
+    if (wg == 0) {
+      const bool masked = !(q0 + kRows <= Sq && t0 + kTile <= Sk &&
+                            (!causal || t0 + kTile - 1 <= q0 + rw));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * h + e;
+            float p = exp2_ftz(sc[i] * c - lse_r[h]);
+            if (masked) {
+              const int qpos = q0 + rw + g + 8 * h;
+              const int kpos = t0 + 8 * j + 2 * t + e;
+              if (!(qpos < Sq && kpos < Sk && (!causal || kpos <= qpos)))
+                p = 0.f;
+            }
+            xbuf[i * kThreads + tw] = p;
+          }
+      named_arrive(kPFull, kWideThreads);
+      named_sync(kDsFull, kWideThreads);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = xbuf[i * kThreads + tw];
+    } else {
+      named_sync(kPFull, kWideThreads);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = xbuf[i * kThreads + tw] * (sc[i] - delta_r[(i >> 1) & 1]);
+        xbuf[i * kThreads + tw] = sc[i];
+      }
+      named_arrive(kDsFull, kWideThreads);
+    }
+    uint32_t da[kTileSteps][4];
+    acc_as_a(sc, da);
+
+    // dQ += bf16(dS) K over the tile's 64 keys, the warpgroup's units in
+    // place, one commit group a unit, every group in flight at once;
+    // every warp waits for each product stage, read or not
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < kHalf; ++p) {
+      if (p < np) {
+        r.wait_full(L0 + nq + p);
+        if (2 * p + wg < nq) {
+          products_into(acc[p], da, r.stage(L0 + nq + p) + wg * kBox);
+          wgmma_commit();
+        }
+      }
+    }
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < kHalf; ++p) fence_acc(acc[p]);
+    for (int p = 0; p < np; ++p) r.release(L0 + nq + p);
+  }
+
+  // each output element pair is written once, by one thread: dQ times
+  // scale, rounded once
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = q0 + rw + g + 8 * h;
+    if (qpos >= Sq) continue;
+    const int64_t row = (static_cast<int64_t>(bh) * Sq + qpos) * D;
+#pragma unroll
+    for (int p = 0; p < kHalf; ++p) {
+      const int u = 2 * p + wg;
+      if (p < np && u < nq)
+        store_half(dq + row + kDP * u, acc[p], h, t, D - kDP * u, scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 // the most stages that fit in a block's shared memory beside the fixed
 // part, at most kMaxStages
@@ -782,6 +1009,41 @@ cudaError_t launch_wide_dkdv(const void* q, const void* k, const void* v,
   wgmma_wide_dkdv_kernel<<<grid, kWideThreads, smem_of(ns), stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, dk, dv, Sq, Sk, D,
       causal, scale, ns);
+  return cudaGetLastError();
+}
+
+
+cudaError_t launch_wide_dq(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, __nv_bfloat16* dq, int BH,
+                           int Sq, int Sk, int D, int causal, float scale,
+                           cudaStream_t stream) {
+  // dK/dV's layout, with Q and dO resident in the place of K and V
+  const int nq = plan_of(D).nq;
+  auto smem_of = [&](int ns) { return wide_dkdv_smem(nq, ns); };
+  // a tile's product stages are held together: they must all fit in the
+  // ring at once
+  const int ns = stages_within(smem_of);
+  if (ns < 2 || ns < (nq + 1) / 2) return cudaErrorInvalidValue;
+  // with no key the kernel loads no K or V, but a map wants a nonempty
+  // tensor: q's stands in
+  const bool keys = Sk > 0;
+  CUtensorMap maps[4];
+  cudaError_t e = encode_rows(&maps[0], q, BH, Sq, D);
+  if (e == cudaSuccess)
+    e = encode_rows(&maps[1], keys ? k : q, BH, keys ? Sk : Sq, D);
+  if (e == cudaSuccess)
+    e = encode_rows(&maps[2], keys ? v : q, BH, keys ? Sk : Sq, D);
+  if (e == cudaSuccess) e = encode_rows(&maps[3], dout, BH, Sq, D);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(wgmma_wide_dq_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_of(ns));
+  if (e != cudaSuccess) return e;
+  dim3 grid(BH, (Sq + kRows - 1) / kRows);
+  wgmma_wide_dq_kernel<<<grid, kWideThreads, smem_of(ns), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, dq, Sq, Sk, D, causal,
+      scale, ns);
   return cudaGetLastError();
 }
 

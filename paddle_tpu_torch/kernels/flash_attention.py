@@ -30,15 +30,15 @@ Two implementations of each pass:
     head_dim, by a shape plan: up to 128 on the tensor cores (3xTF32, or
     bf16 ``mma.sync``; the bf16 forward and backward up to 64 on
     ``wgmma`` fed by TMA, ``csrc/flash_fwd_wgmma.cuh``,
-    ``csrc/flash_bwd_wgmma.cuh``); at 129-512 the float32 backward on
-    ``mma.sync`` (``csrc/flash_bwd_wide_mma.cuh``) and the bf16 forward
-    and dK/dV on ``wgmma`` fed by TMA (``csrc/flash_wide_wgmma.cuh``;
-    above 256 in column slices of the output that recompute the scores);
-    the rest (the float32 forward above 128, bf16 dQ above 128, every
-    kernel above 512) on CUDA cores (``csrc/flash_wide.cuh``; above 256
-    each block computes one 256-column slice of the output); a
-    head_dim that is not a multiple of 4 (float32) or 8 (bfloat16) is
-    zero-padded to one (``pad_head_dim``, exact).
+    ``csrc/flash_bwd_wgmma.cuh``); at 129-512 the float32 kernels on
+    3xTF32 ``mma.sync`` (``csrc/flash_fwd_wide_mma.cuh``,
+    ``csrc/flash_bwd_wide_mma.cuh``) and the bf16 ones on ``wgmma`` fed
+    by TMA (``csrc/flash_wide_wgmma.cuh``; the forward and dK/dV above
+    256 in column slices of the output that recompute the scores); every
+    kernel above 512 on CUDA cores (``csrc/flash_wide.cuh``: each block
+    computes one 256-column slice of the output); a head_dim that is not
+    a multiple of 4 (float32) or 8 (bfloat16) is zero-padded to one
+    (``pad_head_dim``, exact).
 
 The backward's ``delta = rowsum(dO * O)`` (float32) is one pass too:
 ``flash_delta`` (``csrc/flash_delta.cuh``, in the same library) on a

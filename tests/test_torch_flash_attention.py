@@ -6,8 +6,8 @@ CUDA kernels are held against them on the card by chip_smoke.py). Cases:
 causal and not, S = 40 with blocks of 16 (not a multiple of the block),
 Sq != Sk both ways, head_dim 16, 64, 18 (not a multiple of 4: the card
 zero-pads it to 20, test_head_dim_padding_is_exact), 256 and 264 (above
-the 128 bucket: on the card the forward runs CUDA-core kernels, 264 in
-256-column slices, and the backward the tensor-core kernels of
+the 128 bucket: on the card the forward and the backward run the
+tensor-core kernels of csrc/flash_fwd_wide_mma.cuh and
 csrc/flash_bwd_wide_mma.cuh). Tolerance: 5e-6 absolute on O,
 LSE, dQ, dK and dV (float32 at unit-scale inputs; the dense softmax and
 the blocked online softmax round differently).
@@ -17,7 +17,10 @@ cores in 3xTF32; test_3xtf32_products_keep_float32_accuracy emulates
 that operand split on the CPU and pins why its products keep float32
 accuracy, and test_k2_algorithm_emulated runs K2's whole algorithm (key
 tiles of 64, split products, exp2-domain online softmax, each tile's
-P V merged by O = O alpha + O_tile) against float64 and the JAX kernel.
+P V merged by O = O alpha + O_tile) against float64 and the JAX kernel;
+test_wide_forward_algorithm_emulated runs the order of sums of K2 above
+head_dim 128 (the score chunks split between two warp groups, S = S_0 +
+S_1) against the plain version at head_dim 256, 264 and 512.
 The tensor core's own accumulation is not emulated: chip_smoke.py
 reads the kernels against float64 on the card.
 """
@@ -283,3 +286,59 @@ def test_k2_algorithm_emulated(causal):
         assert e_emu <= 4 * e_plain and e_emu < 1e-5, (name, e_emu, e_plain)
         np.testing.assert_allclose(got.numpy(), np.asarray(jx), rtol=0,
                                    atol=5e-6, err_msg=name)
+
+
+def _wide_fwd_emulated(q, k, v, causal, scale):
+    """The float32 wide forward's order of sums (csrc/flash_fwd_wide_mma.cuh)
+    on the CPU: key tiles of 64; 64-column chunks of the head_dim, group
+    g's chunks g, g + 2, ... each a 3xTF32 product joined to the group's
+    partial scores by a float32 add, S = S_0 + S_1; the exp2-domain
+    online softmax of K2; each chunk of O = O alpha + P V_chunk (3xTF32);
+    lse = (m + log2 l) ln 2. Returns (O, LSE)."""
+    bh, sq, d = q.shape
+    na = -(-d // 64)
+    c = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    m = torch.full((bh, sq, 1), -1e30)
+    l = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    chunks = [slice(64 * a, min(64 * (a + 1), d)) for a in range(na)]
+    for t0 in range(0, k.shape[1], 64):
+        kt, vt = k[:, t0:t0 + 64], v[:, t0:t0 + 64]
+        part = []
+        for g in (0, 1):
+            s = torch.zeros((bh, sq, kt.shape[1]))
+            for cols in chunks[g::2]:
+                s = s + _mm3_f32(q[..., cols], kt[..., cols].transpose(1, 2))
+            part.append(s)
+        s = part[0] + part[1]
+        if causal:
+            kpos = torch.arange(t0, t0 + kt.shape[1])[None, :]
+            s = s.masked_fill(kpos > torch.arange(sq)[:, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        for cols in chunks:
+            acc[..., cols] = acc[..., cols] * alpha + _mm3_f32(p, vt[..., cols])
+        m = m_new
+    den = l.clamp(min=torch.finfo(torch.float32).tiny)
+    return acc / den, ((m + torch.log2(den)) * math.log(2.0))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [256, 264, 512])
+def test_wide_forward_algorithm_emulated(d, causal):
+    """K2's float32 form at 128 < head_dim <= 512 (the score chunks split
+    between two warp groups, O's chunks held by both) keeps float32's
+    function: O and LSE within TOL of the plain version, Sq != Sk."""
+    sq, sk = (200, 130) if causal else (130, 200)
+    rng = np.random.RandomState(d + causal)
+    q, k, v = (torch.tensor(rng.randn(2, s, d).astype(np.float32))
+               for s in (sq, sk, sk))
+    scale = d ** -0.5
+    emu = _wide_fwd_emulated(q, k, v, causal, scale)
+    plain = tfa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    for name, got, want in zip(("O", "LSE"), emu, plain):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=TOL, err_msg=name)

@@ -16,8 +16,8 @@ by chip_smoke.py). Here:
       Sq != Sk both ways, Sk = 200 (a padded second key block), head_dim
       8, 64, 72, 256, 264 and 512; and the float32 plain path bit for bit
       the dense formulas it was before; the wgmma kernels above head_dim
-      128 (``csrc/flash_wide_wgmma.cuh``) emulated in float32 in their
-      order of sums, within 1 ulp of the plain version;
+      128 (``csrc/flash_wide_wgmma.cuh``: K2, K3a, K3b) emulated in
+      float32 in their order of sums, within 1 ulp of the plain version;
   (b) ``flash_attention``'s autograd at bfloat16 against ``jax.vjp`` of
       the JAX ``flash_attention(..., interpret=True)``;
   (c) the ``cast`` op and its gradient (``astype``'s VJP);
@@ -319,14 +319,42 @@ def _wide_dkdv_emulated(q, k, v, do, lse, delta, causal, scale):
     return dk[..., :d].to(torch.bfloat16), dv[..., :d].to(torch.bfloat16)
 
 
+def _wide_dq_emulated(q, k, v, do, lse, delta, causal, scale):
+    """The wide dQ's order of sums: key tiles of 64 in order (causal: the
+    tiles past a block's last row add exact zeros), S and dP chained over
+    every unit of head_dim, dS = P (dP - delta) rounded to bfloat16, dQ
+    += bf16(dS) K in place a 64-column unit at a time (warpgroup w's
+    units w, w + 2, ...: each unit's sum is its own), scale applied once
+    at the end."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    nq = -(-d // 64)
+    qu, ku, vu, du = (_units(x, d) for x in (q, k, v, do))
+    acc = [torch.zeros(bh, sq, 64) for _ in range(nq)]
+    qpos = torch.arange(sq)[:, None]
+    for t0 in range(0, sk, 64):
+        kt, vt = ([x[:, t0:t0 + 64] for x in xs] for xs in (ku, vu))
+        s = _chain(qu, kt) * scale
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            kpos = torch.arange(t0, t0 + s.shape[-1])[None, :]
+            p = torch.where(kpos <= qpos, p, torch.zeros_like(p))
+        ds = tfa._bf16(p * (_chain(du, vt) - delta[..., None]))
+        for w in (0, 1):
+            for u in range(w, nq, 2):
+                acc[u] = torch.baddbmm(acc[u], ds, kt[u])
+    return (torch.cat(acc, -1)[..., :d] * scale).to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("sq,sk,d,causal", [
     (200, 300, 256, True), (300, 200, 264, False), (200, 300, 512, False),
     (300, 200, 384, True)])
 def test_a_wide_wgmma_order_of_sums_emulated(sq, sk, d, causal):
-    """The order of sums of csrc/flash_wide_wgmma.cuh (K2 and K3a bf16
-    at 128 < head_dim <= 512), emulated in float32, within 1 bf16 ulp of
-    the max of the plain bf16 version (and at most SHARE of the elements
-    differing); every column slice computes the same P and dS."""
+    """The order of sums of csrc/flash_wide_wgmma.cuh (K2, K3a and K3b
+    bf16 at 128 < head_dim <= 512), emulated in float32, within 1 bf16
+    ulp of the max of the plain bf16 version (and at most SHARE of the
+    elements differing); every column slice computes the same P and
+    dS."""
     rng = np.random.RandomState(sq + sk + d)
     q, k, v = (_to_bf16(_seeded(rng, 2, s, d)) for s in (sq, sk, sk))
     do = _to_bf16(_seeded(rng, 2, sq, d))
@@ -336,10 +364,12 @@ def test_a_wide_wgmma_order_of_sums_emulated(sq, sk, d, causal):
     np.testing.assert_allclose(else_.numpy(), lse.numpy(), rtol=0,
                                atol=LSE_TOL)
     delta = (do.float() * o.float()).sum(-1)
-    _, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
-                                                  causal, scale)
+    rq, rk, rv = tfa.flash_attention_bwd_reference(q, k, v, do, lse,
+                                                   delta, causal, scale)
     ek, ev = _wide_dkdv_emulated(q, k, v, do, lse, delta, causal, scale)
-    for what, got, want in (("O", eo, o), ("dK", ek, rk), ("dV", ev, rv)):
+    eq = _wide_dq_emulated(q, k, v, do, lse, delta, causal, scale)
+    for what, got, want in (("O", eo, o), ("dK", ek, rk), ("dV", ev, rv),
+                            ("dQ", eq, rq)):
         ulps, share = _ulps(_f32(got), _f32(want))
         assert ulps <= 1 and share <= SHARE, (what, ulps, share)
 
