@@ -18,10 +18,14 @@ and prints no result):
   kernels  (after infer kernels) holds the paged-attention kernel (K4)
            against its plain
            PyTorch version on the card on seeded cases (max abs error
-           <= 1e-4; dead slots and dead query lanes exactly 0), then
-           times kernel, plain version and one PyTorch library call at
-           the serving phase's shapes (CUDA events, L2 flushed before
-           each launch, median of 25).
+           <= 1e-4; dead slots and dead query lanes exactly 0; head_dim
+           1 to 520), checks it bitwise (two launches; a slot alone; a
+           decode slot at C=1 and C=64; head_dim 64, 264, 512, 520),
+           then times kernel, plain version and one PyTorch library
+           call at the serving phase's shapes and at decode and a C=64
+           chunk at head_dim 264 and 512 (CUDA events, L2 flushed
+           before each launch, median of 25; each within 1e-4 of the
+           plain version).
   train kernels
            the same for the training kernels: layer norm (K1), flash
            forward (K2), flash dK/dV (K3a) and flash dQ (K3b) against
@@ -361,7 +365,8 @@ and prints no result):
            after parallel: (a) K4 on bf16 pages against its plain
            version (max abs <= BF16_PAGED_TOL, unit-scale inputs),
            bitwise across repeats, timed (decode B=8, prefill C=64,
-           verify C=5) with its plain version and SDPA on the K/V
+           verify C=5 at head_dim 64; decode and prefill C=64 at 264,
+           512 and 520) with its plain version and SDPA on the K/V
            gathered and widened to float32, in turns; bf16 q returns
            bf16 within a bf16 ulp; (b) the serve phase's GPT-2-medium
            decoder stepped through a bf16 PagedKvCache on the card and
@@ -869,29 +874,41 @@ def _paged_bitwise_checks(torch, pa, rng, base):
     same inputs are bitwise equal; slot b launched alone equals slot b
     of the B=8 batch; a decode slot (q_len 1) gives the same bits in a
     C=1 launch and inside a C=64 launch beside prefilling slots (MHA and
-    GQA: the per-block path follows the slot's own q_len * rep)."""
+    GQA: the per-block path follows the slot's own q_len * rep). At
+    head_dim 64 (Hq 16, Hkv 16 and 4), then 264 (Hq 8, Hkv 8 and 2) and
+    512 (Hq 8, Hkv 8, 2 and 4): a decode slot of 1, 4 or 2 rows takes the
+    wide decode body (its 1-row instance in an MHA C=1 launch, the 4-row
+    one beside prefill chunks), the prefilling slots the chunk body. At
+    520 (Hq 8, Hkv 8 and 2; inputs from a stream of their own, so the
+    rows after keep theirs): paged_wide_kernel."""
+    import numpy as np
+
     kv8 = [1, 1024, 0, 517, 33, 800, 256, 999]
+    d520_rng = np.random.RandomState(2041)
     checks = []
-    for hkv in (16, 4):
+    for d, hq, hkv in ((64, 16, 16), (64, 16, 4), (264, 8, 8), (264, 8, 2),
+                       (512, 8, 8), (512, 8, 2), (512, 8, 4), (520, 8, 8),
+                       (520, 8, 2)):
         for C, ql in ((None, None), (64, [64, 1, 0, 17, 1, 64, 1, 5])):
-            case = dict(base, B=8, C=C, Hq=16, Hkv=hkv,
+            case = dict(base, D=d, B=8, C=C, Hq=hq, Hkv=hkv,
                         kv_lens=[max(k, q or 0) for k, q in
                                  zip(kv8, ql or [0] * 8)], q_lens=ql)
-            args = _paged_case(torch, rng, **case)
+            args = _paged_case(torch, d520_rng if d > 512 else rng, **case)
             first = pa.paged_attention(*args[:5], q_lens=args[5])
             second = pa.paged_attention(*args[:5], q_lens=args[5])
             if not torch.equal(first, second):
-                raise RuntimeError(f"K4 Hkv={hkv} C={C}: two launches "
-                                   f"differ")
+                raise RuntimeError(f"K4 D={d} Hkv={hkv} C={C}: two "
+                                   f"launches differ")
             for b in range(8):
                 alone = pa.paged_attention(
                     args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
                     args[4][b:b + 1],
                     q_lens=None if args[5] is None else args[5][b:b + 1])
                 if not torch.equal(alone[0], first[b]):
-                    raise RuntimeError(f"K4 Hkv={hkv} C={C}: slot {b} "
-                                       f"alone differs from the batch")
-            checks.append(f"Hkv={hkv} C={C}: repeat and 8 slots alone")
+                    raise RuntimeError(f"K4 D={d} Hkv={hkv} C={C}: slot "
+                                       f"{b} alone differs from the batch")
+            checks.append(f"D={d} Hkv={hkv} C={C}: repeat and 8 slots "
+                          "alone")
             if C is None:
                 continue
             # the same slots as a C=1 decode step: q's lane 0, q_len 1
@@ -901,9 +918,10 @@ def _paged_bitwise_checks(torch, pa, rng, base):
             dec = [b for b in range(8) if ql[b] == 1]
             for b in dec:
                 if not torch.equal(one[b, 0], first[b, 0]):
-                    raise RuntimeError(f"K4 Hkv={hkv}: decode slot {b} "
-                                       f"differs between C=1 and C=64")
-            checks.append(f"Hkv={hkv}: decode slots {dec} C=1 == C=64")
+                    raise RuntimeError(f"K4 D={d} Hkv={hkv}: decode slot "
+                                       f"{b} differs between C=1 and C=64")
+            checks.append(f"D={d} Hkv={hkv}: decode slots {dec} C=1 == "
+                          "C=64")
     torch.cuda.synchronize()
     log("  K4 bitwise: " + "; ".join(checks))
     return checks
@@ -915,12 +933,15 @@ SPEC_K4_CASES = ("verify", "draft_catchup", "draft_single", "embed_chunk")
 def kernels_phase(torch):
     """K4 against its plain version on seeded cases (max abs error <=
     TOL, dead rows exactly 0; head_dim 64, 18, 100, 256, 1 and 129, and
-    264, 512 and 257 above 256, page sizes 16, 5 and 3, MHA and GQA,
+    264, 512, 257 and 520 above 256, page sizes 16, 5 and 3, MHA and GQA,
     decode and chunked), the bitwise determinism checks, then timed
     at the serving shapes (decode B=8, the one-slot request B=1, GQA
-    decode, a C=64 prefill chunk): the kernel and SDPA on gathered K/V
-    in turns, the plain version once, both bounds, and the kernel's,
-    the plain version's and SDPA's error against float64."""
+    decode, a C=64 prefill chunk, verify, the draft's decode) and at
+    decode and a C=64 chunk at head_dim 264 and 512 (B=8, Hq=Hkv=4):
+    the kernel and SDPA on gathered K/V in turns, the plain version
+    once, both bounds, the kernel's error against the plain version
+    (<= TOL), and the kernel's, the plain version's and SDPA's error
+    against float64."""
     phase("kernels")
     import numpy as np
 
@@ -963,8 +984,9 @@ def kernels_phase(torch):
         "d129_ps5_chunked": dict(base, D=129, ps=5, W=60, B=3, C=7, Hq=6,
                                  Hkv=3, kv_lens=[300, 7, 61],
                                  q_lens=[7, 2, 1]),
-        # head_dim above 256: the column-slice path, decode and chunked,
-        # MHA and GQA, a head_dim that is not a multiple of 4
+        # head_dim above 256: the wide bodies (paged_wide.cuh), decode
+        # and chunked, MHA and GQA, a head_dim that is not a multiple
+        # of 4
         "d264_chunked": dict(base, D=264, B=3, C=20, Hq=4, Hkv=2,
                              kv_lens=[600, 20, 0], q_lens=[20, 5, 0]),
         "d264_gqa4_single": dict(base, D=264, B=3, C=None, Hq=8, Hkv=2,
@@ -976,6 +998,12 @@ def kernels_phase(torch):
         "d257_ps3_chunked": dict(base, D=257, ps=3, W=100, B=2, C=5, Hq=2,
                                  Hkv=1, kv_lens=[290, 5],
                                  q_lens=[5, 1]),
+        # above head_dim 512: PR 8's paged_wide_kernel (256-column
+        # slices), GQA chunked and MHA decode
+        "d520_chunked": dict(base, D=520, B=3, C=20, Hq=4, Hkv=2,
+                             kv_lens=[600, 20, 0], q_lens=[20, 5, 0]),
+        "d520_single": dict(base, D=520, B=4, C=None, Hq=4, Hkv=4,
+                            kv_lens=[1, 700, 0, 300], q_lens=None),
         # the speculative serving shapes (drawn from their own
         # RandomState, so the cases above and the timed rows below keep
         # their inputs): the target's verify chunk (spec_k 4 + 1 lanes),
@@ -994,11 +1022,14 @@ def kernels_phase(torch):
                             kv_lens=[512, 64, 0], q_lens=[64, 64, 0]),
     }
     spec_rng = np.random.RandomState(2028)
+    # the cases above head_dim 512 draw from their own stream too
+    d520_rng = np.random.RandomState(2040)
     max_err = 0.0
     errors = {}
     for name, case in cases.items():
         args = _paged_case(torch, spec_rng if name in SPEC_K4_CASES
-                           else rng, **case)
+                           else d520_rng if case["D"] > 512 else rng,
+                           **case)
         ref = pa.paged_attention_reference(*args[:5], q_lens=args[5])
         out = pa.paged_attention(*args[:5], q_lens=args[5])
         torch.cuda.synchronize()
@@ -1037,7 +1068,7 @@ def kernels_phase(torch):
                             kv_lens=lens, q_lens=None),
         "prefill": dict(base, B=8, C=64, Hq=16, Hkv=16, P=513,
                         kv_lens=lens, q_lens=[64] * 8),
-        # head_dim above 256 (the column-slice path): decode B=8, 4 heads
+        # head_dim above 256 (the wide decode body): decode B=8, 4 heads
         "decode_d264": dict(base, D=264, B=8, C=None, Hq=4, Hkv=4, P=513,
                             kv_lens=lens, q_lens=None),
         "decode_d512": dict(base, D=512, B=8, C=None, Hq=4, Hkv=4, P=513,
@@ -1048,6 +1079,11 @@ def kernels_phase(torch):
                        kv_lens=lens, q_lens=[5] * 8),
         "draft_decode": dict(base, B=8, C=None, Hq=12, Hkv=12, P=513,
                              kv_lens=lens, q_lens=None),
+        # a C=64 prefill chunk above head_dim 256 (the wide chunk body)
+        "prefill_d264": dict(base, D=264, B=8, C=64, Hq=4, Hkv=4, P=513,
+                             kv_lens=lens, q_lens=[64] * 8),
+        "prefill_d512": dict(base, D=512, B=8, C=64, Hq=4, Hkv=4, P=513,
+                             kv_lens=lens, q_lens=[64] * 8),
     }
     timings = {}
     for name, case in shapes.items():
@@ -1072,6 +1108,9 @@ def kernels_phase(torch):
                      - exact).abs().max().item()}
         row["vs_plain"] = (kern() - pa.paged_attention_reference(
             *args[:5], **kw)).abs().max().item()
+        if row["vs_plain"] > TOL:
+            raise RuntimeError(f"kernel shape {name}: max abs err "
+                               f"{row['vs_plain']:.3g} > {TOL}")
         row["kv_lens"] = case["kv_lens"]
         row["shape"] = (f"B={case['B']} C={case['C'] or 1} Hq={case['Hq']} "
                         f"Hkv={case['Hkv']} D={case['D']} ps=16 W=64")
@@ -8407,15 +8446,30 @@ PAGED_BF16_PEAK = ("bf16 K/V page bytes + float32 Q/O over 3.35 TB/s "
 
 def _bf16_cases():
     """K4 bf16's timed shapes (the kernel table's): decode B=8
-    Hq=Hkv=16 D=64, a C=64 prefill chunk, the verify chunk B=8 C=5."""
+    Hq=Hkv=16 D=64, a C=64 prefill chunk, the verify chunk B=8 C=5; then
+    decode and a C=64 chunk at head_dim 264 and 512 (B=8, Hq=Hkv=4: the
+    f32 wide rows' shapes), and at 520 (paged_wide_kernel)."""
     import numpy as np
 
     rng = np.random.RandomState(2031)
     lens = [int(x) for x in rng.randint(512, 1025, size=8)]
     base = dict(D=64, ps=16, W=64, P=513, Hq=16, Hkv=16, B=8)
+    wide = dict(base, Hq=4, Hkv=4)
     return {"decode": dict(base, C=None, kv_lens=lens, q_lens=None),
             "prefill": dict(base, C=64, kv_lens=lens, q_lens=[64] * 8),
-            "verify": dict(base, C=5, kv_lens=lens, q_lens=[5] * 8)}
+            "verify": dict(base, C=5, kv_lens=lens, q_lens=[5] * 8),
+            "decode_d264": dict(wide, D=264, C=None, kv_lens=lens,
+                                q_lens=None),
+            "decode_d512": dict(wide, D=512, C=None, kv_lens=lens,
+                                q_lens=None),
+            "prefill_d264": dict(wide, D=264, C=64, kv_lens=lens,
+                                 q_lens=[64] * 8),
+            "prefill_d512": dict(wide, D=512, C=64, kv_lens=lens,
+                                 q_lens=[64] * 8),
+            "decode_d520": dict(wide, D=520, C=None, kv_lens=lens,
+                                q_lens=None),
+            "prefill_d520": dict(wide, D=520, C=64, kv_lens=lens,
+                                 q_lens=[64] * 8)}
 
 
 def _paged_bf16_kernel(torch, pa):
@@ -8427,10 +8481,14 @@ def _paged_bf16_kernel(torch, pa):
     import numpy as np
 
     rng = np.random.RandomState(2032)
+    # the cases above head_dim 256 draw from their own stream, so the
+    # earlier cases and the bf16-q check below keep their inputs
+    wide_rng = np.random.RandomState(2034)
     flush = torch.empty(256 << 20, dtype=torch.int8, device="cuda")
     rows, max_err = {}, 0.0
     for name, case in _bf16_cases().items():
-        args = list(_paged_case(torch, rng, **case))
+        args = list(_paged_case(torch, wide_rng if case["D"] > 256 else rng,
+                                **case))
         args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
         kw = dict(q_lens=args[5])
         kern = lambda: pa.paged_attention(*args[:5], **kw)  # noqa: E731
@@ -8459,9 +8517,10 @@ def _paged_bf16_kernel(torch, pa):
                "max_abs_err": err, "bitwise_repeat": True,
                "host_us": _host_us(torch, kern)}
         bound = _bound(case, case["D"])
-        # the pages move as bf16: half the K/V bytes of the f32 bound
+        # the pages move as bf16: half the K/V bytes of the f32 bound (K
+        # and V, 2 bytes a value)
         kv = np.asarray(case["kv_lens"], np.int64)
-        kv_bytes = 2 * int(kv.sum()) * case["Hkv"] * case["D"]
+        kv_bytes = 2 * 2 * int(kv.sum()) * case["Hkv"] * case["D"]
         C = case["C"] or 1
         nbytes = kv_bytes + 2 * case["B"] * C * case["Hq"] * case["D"] * 4 \
             + 4 * (case["B"] * case["W"] + 2 * case["B"])
@@ -8475,6 +8534,7 @@ def _paged_bf16_kernel(torch, pa):
         row["shape"] = (f"B={case['B']} C={C} Hq={case['Hq']} "
                         f"Hkv={case['Hkv']} D={case['D']} ps=16 W=64, bf16 "
                         "pages, f32 q")
+        row["split_keys"] = pa.split_keys(case["D"])
         row["kv_lens"] = case["kv_lens"]
         rows[name] = row
         log(f"  K4 bf16 {name}: " + json.dumps(row))
@@ -11096,6 +11156,8 @@ def _k4_bf16_row(mesh_serve):
                 "untimed), in turns with the kernel",
         shape=dec["shape"], bound_peak=dec["bound_peak"],
         prefill=k4b["prefill"], verify=k4b["verify"],
+        **{k: k4b[k] for k in ("decode_d264", "decode_d512", "prefill_d264",
+                               "prefill_d512")},
         bf16_q_ulps_of_max=k4b["bf16_q_ulps_of_max"], bf16_pool=pool,
         mesh_serve={k: mesh_serve[k] for k in (
             "engine", "checkpoint", "sp_transformer", "pipeline",
@@ -11380,11 +11442,14 @@ def main():
         "shape": "decode B=8 C=1 Hq=Hkv=16 D=64 ps=16 kv_lens "
                  + ",".join(str(x) for x in dec["kv_lens"]),
         "split_keys": pa.SPLIT_KEYS,
+        "split_keys_wide": pa.SPLIT_KEYS_WIDE,
         "prefill": timings["prefill"],
         "decode_b1": timings["decode_b1"],
         "decode_gqa4": timings["decode_gqa4"],
         "decode_d264": timings["decode_d264"],
         "decode_d512": timings["decode_d512"],
+        "prefill_d264": timings["prefill_d264"],
+        "prefill_d512": timings["prefill_d512"],
         "verify": timings["verify"],
         "draft_decode": timings["draft_decode"],
         "launches_per_target_step": per_target,

@@ -1,6 +1,6 @@
 // Ragged paged attention on float32 or bfloat16 pages, for Hopper
-// (sm_90a): split-K over the keys (flash-decoding), a CUDA-core decode
-// path and a 3xTF32 tensor-core chunked-prefill path, and a merge kernel.
+// (sm_90a): split-K over the keys (flash-decoding), CUDA-core decode
+// paths and 3xTF32 tensor-core chunked-prefill paths, and a merge kernel.
 //
 // Replaces the Pallas TPU kernel
 //   paddle_tpu/fluid/ops/pallas_kernels/paged_attention.py:_paged_kernel
@@ -13,17 +13,20 @@
 // (and < W * page_size); dead slots (q_len == 0) and dead lanes
 // (j >= q_len) give exact zeros; query head h reads kv head h / (Hq /
 // Hkv) (GQA); a row's output is its P V over max(l, FLT_MIN). Any
-// head_dim: up to 256 on the two paths below, above 256 on a third
-// (paged_wide_kernel).
+// head_dim: up to 256 in paged_split_kernel below, 257 to 512 in the two
+// bodies of paged_wide.cuh, above 512 in paged_wide_kernel.
 //
 // The work of one (slot b, kv head g): its query rows are the
 // (lane c, head of group g) pairs, row r = c * rep + h % rep, the first
 // q_len * rep of them live. Its keys are cut into splits of `split`
 // keys by absolute position (split s holds keys [s * split, (s + 1) *
 // split)): the partition depends on the slot's own key positions and
-// the fixed split length only, never on B, W, C or the card.
+// the split length only, which the wrapper takes from head_dim alone
+// (kernels/paged_attention.py:split_keys), never from B, W, C or the
+// card.
 //
-//   paged_split_kernel  grid (B * Hkv, ceil(C * rep / 64), n_splits).
+//   paged_split_kernel  head_dim up to 256, grid (B * Hkv, ceil(C * rep
+//     / 64), n_splits).
 //     Block (b, g, y, s) computes, for each of its live rows that sees a
 //     key of split s, the split's partial (m, l, acc[D]) of the online
 //     softmax (m in units of s * scale * log2(e)) and writes it to a
@@ -46,34 +49,36 @@
 //       exactly), each tile's P V in fresh fragments merged as
 //       O = O alpha + O_tile by float32 FMAs.
 //     Both paths gather each 32-key K/V tile through the page table with
-//     cp.async (16-byte copies when head_dim % 4 == 0, 4-byte copies
-//     otherwise; a key's D floats of head g are contiguous in the pool,
-//     so each key row's copies are coalesced) into a ring of 4 tile
-//     buffers (2 above the 64 bucket): the next 3 tiles' bytes are in
-//     flight while one is scored. The split's page-table reads are done
-//     first, all together,
+//     cp.async (a key's D values of head g are contiguous in the pool,
+//     so each key row's copies are coalesced) into a ring of tile
+//     buffers (Ring): the next tiles' bytes are in flight while one is
+//     scored. The split's page-table reads are done first, all together,
 //     into a shared table of key offsets, so no copy waits on a table
-//     read. Columns
-//     head_dim..bucket are zero-filled in shared memory (buckets 32, 64,
-//     128, 256); keys past the block's last visible key are zero-filled
-//     and never read, so padded or invisible pages cost nothing.
-//   paged_wide_kernel  head_dim above 256, grid (B * Hkv, ceil(C * rep /
-//     16) * n_slices, n_splits): the CUDA-core kernels' accumulators
-//     would not fit in registers, so a block computes one 256-column
-//     slice of the output (the y axis carries the slices) for 16 rows,
-//     4 a warp, lane j scoring key j of each 32-key tile, lane l owning
-//     the slice's columns l, l + 32, ...; every block computes its
-//     scores over the whole head_dim in 256-column chunks (Q rows and K
-//     tile staged through shared memory by plain loads, through the
-//     split's shared offsets table), in the order 0, 256, ..., so every
-//     slice computes the same (m, l) bit for bit; slice 0 writes them.
-//     Any q_len * rep; masked keys give p = 0 exactly, as above.
-//   paged_merge_kernel  one warp a row: merges the row's partials of the
-//     splits it sees (weights exp2(m_s - M); M and l by fixed butterflies
-//     over the splits, each column in the order s = 0, 1, ...), divides
-//     by max(l, FLT_MIN) and writes O; a dead row gets exact zeros. No atomics anywhere, so two launches give bitwise-equal
-//     outputs, and a slot's output does not depend on the batch around
-//     it.
+//     read. Columns head_dim..bucket are zero-filled in shared memory
+//     (buckets 32, 64, 128, 256); keys past the block's last visible key
+//     are zero-filled and never read, so padded or invisible pages cost
+//     nothing.
+//   wide_decode_kernel, wide_chunk_kernel (paged_wide.cuh)  head_dim 257
+//     to 512: a decode body for slots of up to 4 live rows (all D
+//     columns a block, 8 warps on 8-key stages of a cp.async ring) and a
+//     3xTF32 chunk body whose two warp groups split O's columns.
+//   paged_wide_kernel  head_dim above 512, grid (B * Hkv, ceil(C * rep /
+//     16) * n_slices, n_splits): a block computes one 256-column slice
+//     of the output (the y axis carries the slices) for 16 rows, 4 a
+//     warp, lane j scoring key j of each 32-key tile, lane l owning the
+//     slice's columns l, l + 32, ...; every block computes its scores
+//     over the whole head_dim in 256-column chunks (Q rows and K tile
+//     staged through shared memory by plain loads, through the split's
+//     shared offsets table), in the order 0, 256, ..., so every slice
+//     computes the same (m, l) bit for bit; slice 0 writes them. Any
+//     q_len * rep; masked keys give p = 0 exactly, as above.
+//   paged_merge_kernel  one warp a row and 32 of its columns: merges the
+//     row's partials of the splits it sees (weights exp2(m_s - M); M and
+//     l by fixed butterflies over the splits, each column in the order
+//     s = 0, 1, ...), divides by max(l, FLT_MIN) and writes O; a dead
+//     row gets exact zeros. No atomics anywhere, so two launches give
+//     bitwise-equal outputs, and a slot's output does not depend on the
+//     batch around it.
 //
 // What bounds it on this card. Decode (one query row per kv head, or a
 // few under GQA) does ~2 flops per byte of K/V: bytes-bound, its floor
@@ -81,27 +86,35 @@
 // 1/17 of that: one block per (slot, kv head) walked 512-1024 keys in
 // order with synchronous loads (16 blocks for a one-slot request on 132
 // SMs).
-// Split-K gives 4 blocks per (slot, kv head) at 1024 keys (the wrapper's
-// splits are 256 keys), each block keeps up to 3 tiles in flight while
-// it scores one, and two blocks share an SM at head_dim 64. The chunk path (C = 64 prefill) does ~64 flops a byte under
-// MHA: operations-bound, on the tensor cores at 3x the TF32 rate, with
-// split-K so that even one slot fills the card. The merge reads and
-// writes n_splits * rows * D floats more: small at decode, at prefill
-// about as many bytes as Q and O.
+// Split-K gives 4 blocks per (slot, kv head) at 1024 keys (256-key
+// splits up to head_dim 256), each block keeps tiles in flight while it
+// scores one, and two blocks share an SM at head_dim 64. The chunk path
+// (C = 64 prefill) does ~64 flops a byte under MHA: operations-bound, on
+// the tensor cores at 3x the TF32 rate, with split-K so that even one
+// slot fills the card. The merge reads and writes n_splits * rows * D
+// floats more: small at decode, at prefill about as many bytes as Q and
+// O.
 //
 // bfloat16 pages (paged_attention_bf16; the Pallas kernel's astype on
 // load, :188-190): every kernel is templated on the page element type.
-// A bf16 key row is read as 16-bit values (8 bytes, 4 columns, a load
-// when head_dim % 4 == 0, else one value), widened to float32 in
-// registers and stored into the same float32 shared tiles, so the paths
-// above and their arithmetic are the f32 form's; the loads are plain
-// loads, not cp.async (which cannot widen), so a bf16 tile is in shared
-// memory when its loads return. Q and the output are float32 or bfloat16
-// on either page type (q_bf16): Q widens as it is staged, the merge
-// rounds O to nearest even as it writes it (the output takes Q's dtype).
+// The K/V tiles are staged in the page's own dtype by cp.async, in the
+// widest unit the row's alignment allows (page_copy_bytes: 16 bytes when
+// head_dim % 8 == 0, 8 when % 4 == 0, 4 when even; an odd head_dim one
+// value by a plain load), and widened to float32 as they are read from
+// shared memory: a decode dot reads 4 bf16 as 8 bytes, the chunk path
+// widens as it builds its B fragments. Half the bytes a tile: the ring
+// and the arithmetic are the f32 form's with every value widened
+// exactly, so at head_dim up to 256 the output is bitwise the output of
+// widening into float32 tiles; in the chunk path a bf16 value is exact
+// in TF32 (its small part is 0), so its products drop the a_big *
+// b_small term, a sum of zeros (mma2x4). Q and the output are float32
+// or bfloat16 on either page type (q_bf16): Q widens as it is staged,
+// the merge rounds O to nearest even as it writes it (the output takes
+// Q's dtype). paged_wide_kernel (above 512) loads bf16 rows by plain
+// loads.
 //
 // The kernels allocate nothing; the caller passes the output and the
-// scratch. paged_attention_f32 and paged_attention_bf16 launch both
+// scratch. paged_attention_f32 and paged_attention_bf16 launch the
 // kernels on the given stream and return cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -109,6 +122,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -124,17 +138,35 @@ constexpr int kKeysPerWarp = kTile / kWarps;    // decode path: 8
 constexpr int kParts = 32 / kKeysPerWarp;       // lanes scoring a key: 4
 constexpr float kLog2e = 1.4426950408889634f;
 
-// K/V tile buffers in the ring: 4 up to the 64 bucket (3 tiles in flight
-// while one is scored), 2 above (shared memory)
-template <int DP>
-struct Ring {
-  static constexpr int kStages = DP <= 64 ? 4 : 2;
-  static constexpr int kLD = DP + 4;  // row stride: 4 (mod 32) floats
-  // floats before the key offsets: Q rows, then the K and V rings
-  static constexpr int kFloats = (kRows + 2 * kStages * kTile) * kLD;
-};
-
 using bf16 = __nv_bfloat16;
+
+// The shared memory of paged_split_kernel at bucket DP on TK pages: Q's
+// kRows float32 rows, then the K and V rings of kStages tiles in the
+// pages' own dtype, then the split's key offsets.
+//   float32 pages: 4 tile buffers up to the 64 bucket (3 tiles in flight
+//     while one is scored), 2 above; rows of DP + 4 = 4 (mod 32) floats.
+//   bf16 pages: half the bytes a tile. Up to the 64 bucket 3 buffers,
+//     so that four blocks share an SM (48 KB each; the registers allow
+//     four): on the card more resident blocks beat a deeper ring there
+//     (8 buffers, two blocks an SM, were slower at decode; PERF.md).
+//     Above, 4 buffers (two blocks an SM at 128, one at 256). Row
+//     strides by path, in bf16: the decode path reads 4 columns (8
+//     bytes) of 4 keys a half-warp, conflict-free at DP + 16 (8 (mod 32)
+//     words a row); the chunk path's fragment loads (rows g, columns t;
+//     rows 2t, columns g) at DP + 8 (4 (mod 8) words a row).
+template <int DP, typename TK>
+struct Ring {
+  static constexpr bool kBf16 = sizeof(TK) == 2;
+  static constexpr int kStages = kBf16 ? (DP <= 64 ? 3 : 4)
+                                       : (DP <= 64 ? 4 : 2);
+  static constexpr int kLDQ = DP + 4;  // Q rows, float32
+  static constexpr int kLDDec = kBf16 ? DP + 16 : DP + 4;
+  static constexpr int kLDChunk = kBf16 ? DP + 8 : DP + 4;
+  // bytes a K (or V) tile buffer, at the larger stride
+  static constexpr int kTileBytes = kTile * kLDDec * int(sizeof(TK));
+  // bytes before the key offsets: Q rows, then the K and V rings
+  static constexpr int kBytes = kRows * kLDQ * 4 + 2 * kStages * kTileBytes;
+};
 
 // What one block of paged_split_kernel works on. q is float32 or bf16
 // (q_bf16); the pools are float32 or bf16 (the kernels' template TK).
@@ -149,6 +181,7 @@ struct Work {
   int64_t NR;             // output rows B * C * Hq
   int C, Hq, Hkv, D, ps, T, split;
   int b, g, rep, q_len, kv_len, n_live, s, s0;
+  int vb;                 // bytes a page copy unit (page_copy_bytes)
   float c;                // scale * log2(e)
 };
 
@@ -165,11 +198,49 @@ __device__ __forceinline__ int64_t row_id(const Work& w, int r) {
          w.g * w.rep + r % w.rep;
 }
 
+// The Work of block (b * Hkv + g, y, s) of a launch: the slot's lengths
+// and table row, its live rows, split s. vb: bytes a page copy unit
+// (page_copy_bytes; 0 where the kernel loads page rows by plain loads).
+__device__ __forceinline__ Work make_work(
+    const void* q, bool q_bf16, const void* k_pages, const void* v_pages,
+    const int* tables, const int* kv_lens, const int* q_lens,
+    float* part_ml, float* part_acc, int C, int Hq, int Hkv, int D, int ps,
+    int W, int split, int vb, float scale) {
+  Work w;
+  w.q = q;
+  w.q_bf16 = q_bf16;
+  w.kp = k_pages;
+  w.vp = v_pages;
+  w.part_ml = part_ml;
+  w.part_acc = part_acc;
+  w.C = C;
+  w.Hq = Hq;
+  w.Hkv = Hkv;
+  w.D = D;
+  w.ps = ps;
+  w.T = W * ps;
+  w.split = split;
+  w.b = blockIdx.x / Hkv;
+  w.g = blockIdx.x % Hkv;
+  w.NR = static_cast<int64_t>(gridDim.x / Hkv) * C * Hq;
+  w.table = tables + static_cast<int64_t>(w.b) * W;
+  w.rep = Hq / Hkv;
+  w.q_len = q_lens[w.b];
+  w.kv_len = kv_lens[w.b];
+  w.n_live = max(0, min(w.q_len, C)) * w.rep;
+  w.s = blockIdx.z;
+  w.s0 = w.s * split;
+  w.vb = vb;
+  w.c = scale * kLog2e;
+  return w;
+}
+
+
 // One copy unit of a row into float32 shared memory: 4 columns at
 // column 4 * part (kVec), else 1 column at column `part`. A null source,
 // or columns at or past D, write zeros and read nothing. float32 rows go
-// by cp.async (`any` is a valid address for the zero-fill); bf16 rows by
-// a plain 8-byte (or 2-byte) load, widened in registers.
+// by cp.async (`any` is a valid address for the zero-fill); bf16 rows (Q)
+// by a plain 8-byte (or 2-byte) load, widened in registers.
 template <bool kVec>
 __device__ __forceinline__ void copy_unit(float* dst_row,
                                           const float* src_row, int part,
@@ -207,6 +278,39 @@ __device__ __forceinline__ void copy_unit(float* dst_row,
   }
 }
 
+// cp.async of 8 bytes (the 16- and 4-byte forms are tf32x3.cuh's)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(s), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// One copy unit of a bf16 page row into bf16 shared memory, in the
+// page's own dtype: vb bytes (16, 8 or 4: vb / 2 columns at column
+// unit * vb / 2) by cp.async, or, at an odd head_dim (vb 2), one column
+// by a plain load. A null source, or columns at or past D, write zeros
+// and read nothing (vb divides the row's bytes, so a unit is all in or
+// all out).
+__device__ __forceinline__ void copy_raw(bf16* dst_row, const bf16* src_row,
+                                         int unit, int D, int vb,
+                                         const bf16* any) {
+  const int col = unit * (vb >> 1);
+  const bool ok = src_row != nullptr && col < D;
+  const void* src = ok ? src_row + col : any;
+  const int n = ok ? vb : 0;
+  if (vb == 16)
+    cp_async16(reinterpret_cast<float*>(dst_row + col),
+               static_cast<const float*>(src), n);
+  else if (vb == 8)
+    cp_async8(dst_row + col, src, n);
+  else if (vb == 4)
+    cp_async4(reinterpret_cast<float*>(dst_row + col),
+              static_cast<const float*>(src), n);
+  else
+    dst_row[col] = ok ? src_row[col] : __float2bfloat16_rn(0.f);
+}
+
 // Slot-rows [r0, r0 + n) of q into n shared rows (dead rows: zeros).
 template <int DP, bool kVec, typename TQ>
 __device__ __forceinline__ void stage_q_as(const Work& w, float* qs, int r0,
@@ -233,9 +337,10 @@ __device__ __forceinline__ void stage_q(const Work& w, float* qs, int r0,
 // The split's key offsets into the pools (head g's row of key s0 + i),
 // -1 past `end`: one page-table read a key, all issued together, so no
 // tile's copies wait on a table read (the cp.async asm orders memory).
+template <int NT = kThreads>
 __device__ __forceinline__ void key_offsets(const Work& w, int64_t* offs,
                                             int end) {
-  for (int i = threadIdx.x; i < w.split; i += kThreads) {
+  for (int i = threadIdx.x; i < w.split; i += NT) {
     const int t = w.s0 + i;
     int64_t off = -1;
     if (t < end) {
@@ -247,65 +352,115 @@ __device__ __forceinline__ void key_offsets(const Work& w, int64_t* offs,
 }
 
 // Tile `it` of the split (its keys s0 + 32 it ..) into shared rows of K
-// and V; keys past the last visible one are zeros and are not read.
-template <int DP, bool kVec, typename TK>
-__device__ __forceinline__ void stage_kv(const Work& w, float* ks,
-                                         float* vs, const int64_t* offs,
-                                         int it) {
-  constexpr int LD = DP + 4, U = kVec ? DP / 4 : DP;
+// and V at stride LD; keys past the last visible one are zeros and are
+// not read. float32 pages as float32 (16- or 4-byte cp.async by kVec);
+// bf16 pages as bf16 (w.vb bytes a copy).
+template <int DP, bool kVec, int LD, typename TK>
+__device__ __forceinline__ void stage_kv(const Work& w, TK* ks, TK* vs,
+                                         const int64_t* offs, int it) {
   const TK* kp = static_cast<const TK*>(w.kp);
   const TK* vp = static_cast<const TK*>(w.vp);
-  for (int i = threadIdx.x; i < kTile * U; i += kThreads) {
-    const int key = i / U;
-    const int64_t off = offs[it * kTile + key];
-    copy_unit<kVec>(ks + key * LD, off >= 0 ? kp + off : nullptr, i % U,
-                    w.D, kp);
-    copy_unit<kVec>(vs + key * LD, off >= 0 ? vp + off : nullptr, i % U,
-                    w.D, kp);
+  if constexpr (sizeof(TK) == 4) {
+    constexpr int U = kVec ? DP / 4 : DP;
+    for (int i = threadIdx.x; i < kTile * U; i += kThreads) {
+      const int key = i / U;
+      const int64_t off = offs[it * kTile + key];
+      copy_unit<kVec>(ks + key * LD, off >= 0 ? kp + off : nullptr, i % U,
+                      w.D, kp);
+      copy_unit<kVec>(vs + key * LD, off >= 0 ? vp + off : nullptr, i % U,
+                      w.D, kp);
+    }
+  } else {
+    // DP / (vb / 2) units a row: a power of two
+    const int ush = __ffs(DP * 2 / w.vb) - 1;
+    const int umask = (1 << ush) - 1;
+    for (int i = threadIdx.x; i < kTile << ush; i += kThreads) {
+      const int key = i >> ush;
+      const int64_t off = offs[it * kTile + key];
+      copy_raw(ks + key * LD, off >= 0 ? kp + off : nullptr, i & umask, w.D,
+               w.vb, kp);
+      copy_raw(vs + key * LD, off >= 0 ? vp + off : nullptr, i & umask, w.D,
+               w.vb, kp);
+    }
   }
+}
+
+// The K and V tile buffers of the ring, at byte offsets of Ring<DP, TK>.
+template <int DP, typename TK>
+__device__ __forceinline__ TK* k_ring(float* smem) {
+  return reinterpret_cast<TK*>(reinterpret_cast<char*>(smem) +
+                               kRows * Ring<DP, TK>::kLDQ * 4);
+}
+
+template <int DP, typename TK>
+__device__ __forceinline__ TK* v_ring(float* smem) {
+  using R = Ring<DP, TK>;
+  return reinterpret_cast<TK*>(reinterpret_cast<char*>(smem) +
+                               kRows * R::kLDQ * 4 +
+                               R::kStages * R::kTileBytes);
 }
 
 // Q's rows and the split's key offsets, then the first kStages - 1
 // tiles (one commit group each; Q joins tile 0's).
-template <int DP, bool kVec, typename TK>
+template <int DP, bool kVec, int LD, typename TK>
 __device__ __forceinline__ void prologue(const Work& w, float* smem,
                                          int r0, int nq, int n_keys,
                                          int n_tiles) {
-  using R = Ring<DP>;
-  float* kb = smem + kRows * R::kLD;
-  float* vb = kb + R::kStages * kTile * R::kLD;
-  int64_t* offs = reinterpret_cast<int64_t*>(smem + R::kFloats);
+  using R = Ring<DP, TK>;
+  TK* kb = k_ring<DP, TK>(smem);
+  TK* vb = v_ring<DP, TK>(smem);
+  int64_t* offs = reinterpret_cast<int64_t*>(
+      reinterpret_cast<char*>(smem) + R::kBytes);
   stage_q<DP, kVec>(w, smem, r0, nq);
   key_offsets(w, offs, w.s0 + n_keys);
   __syncthreads();
 #pragma unroll
   for (int p = 0; p < R::kStages - 1; ++p) {
     if (p < n_tiles)
-      stage_kv<DP, kVec, TK>(w, kb + p * kTile * R::kLD,
-                             vb + p * kTile * R::kLD, offs, p);
+      stage_kv<DP, kVec, LD, TK>(w, kb + p * kTile * LD, vb + p * kTile * LD,
+                                 offs, p);
     cp_async_commit();
   }
 }
 
 // Top of pipeline step `it`: tile it has landed and every warp is done
 // with tile it - 1, whose buffer then takes tile it + kStages - 1.
-template <int DP, bool kVec, typename TK>
+template <int DP, bool kVec, int LD, typename TK>
 __device__ __forceinline__ void advance(const Work& w, float* smem, int it,
                                         int n_tiles) {
-  using R = Ring<DP>;
-  float* kb = smem + kRows * R::kLD;
-  float* vb = kb + R::kStages * kTile * R::kLD;
-  const int64_t* offs = reinterpret_cast<const int64_t*>(smem + R::kFloats);
+  using R = Ring<DP, TK>;
+  TK* kb = k_ring<DP, TK>(smem);
+  TK* vb = v_ring<DP, TK>(smem);
+  const int64_t* offs = reinterpret_cast<const int64_t*>(
+      reinterpret_cast<const char*>(smem) + R::kBytes);
   cp_async_wait<R::kStages - 2>();
   __syncthreads();
   const int nt = it + R::kStages - 1;
   if (nt < n_tiles) {
     const int b = nt % R::kStages;
-    stage_kv<DP, kVec, TK>(w, kb + b * kTile * R::kLD,
-                           vb + b * kTile * R::kLD, offs, nt);
+    stage_kv<DP, kVec, LD, TK>(w, kb + b * kTile * LD, vb + b * kTile * LD,
+                               offs, nt);
   }
   cp_async_commit();
 }
+
+// Four columns of a shared K row as float32 (a bf16 row: 8 bytes,
+// widened), and one column of a V row.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
 
 // ------------------------------------------------------------- decode
 // The slot's MR (>= n_live) rows, n_keys keys of split s from s0. Warp w
@@ -314,15 +469,16 @@ __device__ __forceinline__ void advance(const Work& w, float* smem, int it,
 template <int DP, bool kVec, int MR, typename TK>
 __device__ __forceinline__ void decode_path(const Work& w, float* smem,
                                             int n_keys) {
-  using R = Ring<DP>;
-  constexpr int LD = R::kLD, NE = DP / 32, NM = DP / (4 * kParts);
-  float* qs = smem;                        // [MR][LD]
-  float* kb = qs + kRows * LD;             // [kStages][kTile][LD]
-  float* vb = kb + R::kStages * kTile * LD;  // [kStages][kTile][LD]
+  using R = Ring<DP, TK>;
+  constexpr int LQ = R::kLDQ, LD = R::kLDDec, NE = DP / 32;
+  constexpr int NM = DP / (4 * kParts);
+  const float* qs = smem;                  // [MR][LQ]
+  TK* kb = k_ring<DP, TK>(smem);           // [kStages][kTile][LD]
+  TK* vb = v_ring<DP, TK>(smem);           // [kStages][kTile][LD]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int n_tiles = (n_keys + kTile - 1) / kTile;
-  prologue<DP, kVec, TK>(w, smem, 0, MR, n_keys, n_tiles);
+  prologue<DP, kVec, LD, TK>(w, smem, 0, MR, n_keys, n_tiles);
 
   int limit[MR];
   float m[MR], l[MR], acc[MR][NE];
@@ -338,23 +494,23 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
   const int part = lane % kParts;
 
   for (int it = 0; it < n_tiles; ++it) {
-    advance<DP, kVec, TK>(w, smem, it, n_tiles);
-    const float* kt = kb + (it % R::kStages) * kTile * LD;
-    const float* vt = vb + (it % R::kStages) * kTile * LD;
+    advance<DP, kVec, LD, TK>(w, smem, it, n_tiles);
+    const TK* kt = kb + (it % R::kStages) * kTile * LD;
+    const TK* vt = vb + (it % R::kStages) * kTile * LD;
     const int t = w.s0 + it * kTile + kj;
 
     // the lane's share of q_i . k_t, then the sum over the key's 4 lanes
     float s[MR];
 #pragma unroll
     for (int i = 0; i < MR; ++i) s[i] = 0.f;
-    const float* kr = kt + kj * LD;
+    const TK* kr = kt + kj * LD;
 #pragma unroll
     for (int mm = 0; mm < NM; ++mm) {
       const int d = 4 * (part + kParts * mm);
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+      const float4 kv = load4(kr + d);
 #pragma unroll
       for (int i = 0; i < MR; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + i * LD + d);
+        const float4 qv = *reinterpret_cast<const float4*>(qs + i * LQ + d);
         s[i] = fmaf(qv.x, kv.x, s[i]);
         s[i] = fmaf(qv.y, kv.y, s[i]);
         s[i] = fmaf(qv.z, kv.z, s[i]);
@@ -388,10 +544,10 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
     // acc_i += sum over the warp's keys of p_i V; lane owns lane + 32e
 #pragma unroll
     for (int jj = 0; jj < kKeysPerWarp; ++jj) {
-      const float* vr = vt + (warp * kKeysPerWarp + jj) * LD;
+      const TK* vr = vt + (warp * kKeysPerWarp + jj) * LD;
       float vv[NE];
 #pragma unroll
-      for (int e = 0; e < NE; ++e) vv[e] = vr[lane + 32 * e];
+      for (int e = 0; e < NE; ++e) vv[e] = widen(vr[lane + 32 * e]);
 #pragma unroll
       for (int i = 0; i < MR; ++i) {
         const float pj = __shfl_sync(0xffffffffu, p[i], jj * kParts);
@@ -404,7 +560,7 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
   __syncthreads();  // every warp is done with the tiles: reuse them
 
   // the warps' states, merged in the order 0..3 into the split's partial
-  float* wm = kb;                          // [kWarps][MR]
+  float* wm = reinterpret_cast<float*>(kb);  // [kWarps][MR]
   float* wl = wm + kWarps * MR;            // [kWarps][MR]
   float* wacc = wl + kWarps * MR;          // [kWarps][MR][DP]
 #pragma unroll
@@ -441,27 +597,103 @@ __device__ __forceinline__ void decode_path(const Work& w, float* smem,
 }
 
 // -------------------------------------------------------------- chunk
+// The products' B operands, four n-tiles at a time. From a float32 tile:
+// big and small parts, 3xTF32 (tf32x3.cuh's mma3x4). From a bf16 tile: a
+// bf16 value is exact in TF32 (8 significant bits of TF32's 11), so its
+// big part is its own bits and its small part is 0, and the product
+// a_big * b_small that 3xTF32 would add is a sum of zeros: two products,
+// a_small * b_big then a_big * b_big, in mma3x4's order.
+__device__ __forceinline__ uint32_t tf32_bits(bf16 x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
+}
+
+__device__ __forceinline__ void mma2x4(float (&d0)[4], float (&d1)[4],
+                                       float (&d2)[4], float (&d3)[4],
+                                       const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4],
+                                       const uint32_t (&bb)[4][2]) {
+  mma_tf32(d0, as, bb[0]);
+  mma_tf32(d1, as, bb[1]);
+  mma_tf32(d2, as, bb[2]);
+  mma_tf32(d3, as, bb[3]);
+  mma_tf32(d0, ab, bb[0]);
+  mma_tf32(d1, ab, bb[1]);
+  mma_tf32(d2, ab, bb[2]);
+  mma_tf32(d3, ab, bb[3]);
+}
+
+// d[i] += A K^T for the n-tiles i = 0..3 (keys 8i .. 8i + 7) of k-step
+// kk: A the warp's Q fragment, K a [kTile][ld] tile.
+__device__ __forceinline__ void score4(float (*d)[4], const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4],
+                                       const float* kt, int ld, int kk,
+                                       int g, int t) {
+  uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) load_bt(kt, ld, i, kk, g, t, bb[i], bs[i]);
+  mma3x4(d[0], d[1], d[2], d[3], ab, as, ab, as, ab, as, ab, as, bb, bs);
+}
+
+__device__ __forceinline__ void score4(float (*d)[4], const uint32_t (&ab)[4],
+                                       const uint32_t (&as)[4],
+                                       const bf16* kt, int ld, int kk,
+                                       int g, int t) {
+  uint32_t bb[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bf16* p = kt + (8 * i + g) * ld + 8 * kk + t;
+    bb[i][0] = tf32_bits(p[0]);
+    bb[i][1] = tf32_bits(p[4]);
+  }
+  mma2x4(d[0], d[1], d[2], d[3], ab, as, bb);
+}
+
+// d[i] += P V for O's n-tiles n + i, i = 0..3, over k-step kk (the
+// tile's keys 8 kk .., permuted as acc_as_a leaves P): V a [kTile][ld]
+// tile.
+__device__ __forceinline__ void pv4(float (*d)[4], const uint32_t (&ab)[4],
+                                    const uint32_t (&as)[4], const float* vt,
+                                    int ld, int kk, int n, int g, int t) {
+  uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) load_bp(vt, ld, kk, n + i, g, t, bb[i], bs[i]);
+  mma3x4(d[0], d[1], d[2], d[3], ab, as, ab, as, ab, as, ab, as, bb, bs);
+}
+
+__device__ __forceinline__ void pv4(float (*d)[4], const uint32_t (&ab)[4],
+                                    const uint32_t (&as)[4], const bf16* vt,
+                                    int ld, int kk, int n, int g, int t) {
+  uint32_t bb[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bf16* p = vt + (8 * kk + 2 * t) * ld + 8 * (n + i) + g;
+    bb[i][0] = tf32_bits(p[0]);
+    bb[i][1] = tf32_bits(p[ld]);
+  }
+  mma2x4(d[0], d[1], d[2], d[3], ab, as, bb);
+}
+
 // Slot-rows [r0, r0 + 64), 16 a warp (the m16 side of every product),
 // n_keys keys of split s from s0, in 32-key tiles.
 template <int DP, bool kVec, typename TK>
 __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
                                            int r0, int n_keys) {
-  using R = Ring<DP>;
-  constexpr int LD = R::kLD;
+  using R = Ring<DP, TK>;
+  constexpr int LQ = R::kLDQ, LD = R::kLDChunk;
   constexpr int KS = DP / 8;               // k-steps of S = n-tiles of O
   constexpr int NT = kTile / 8;            // n-tiles of S = k-steps of P V
   constexpr int NC = KS < 8 ? KS : 8;      // O's n-tiles a fresh P V holds
-  float* qs = smem;                        // [kRows][LD]
-  float* kb = qs + kRows * LD;             // [kStages][kTile][LD]
-  float* vb = kb + R::kStages * kTile * LD;  // [kStages][kTile][LD]
+  const float* qs = smem;                  // [kRows][LQ]
+  TK* kb = k_ring<DP, TK>(smem);           // [kStages][kTile][LD]
+  TK* vb = v_ring<DP, TK>(smem);           // [kStages][kTile][LD]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int n_tiles = (n_keys + kTile - 1) / kTile;
-  prologue<DP, kVec, TK>(w, smem, r0, kRows, n_keys, n_tiles);
+  prologue<DP, kVec, LD, TK>(w, smem, r0, kRows, n_keys, n_tiles);
 
   const int rw = warp * 16;                // the warp's first row
-  const float* qw = qs + rw * LD;
+  const float* qw = qs + rw * LQ;
   int lim[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) lim[h] = row_limit(w, r0 + rw + g + 8 * h);
@@ -478,11 +710,11 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    advance<DP, kVec, TK>(w, smem, it, n_tiles);
+    advance<DP, kVec, LD, TK>(w, smem, it, n_tiles);
     const int t0 = w.s0 + it * kTile;
     if (t0 > warp_hi) continue;  // no row of the warp sees the tile
-    const float* kt = kb + (it % R::kStages) * kTile * LD;
-    const float* vt = vb + (it % R::kStages) * kTile * LD;
+    const TK* kt = kb + (it % R::kStages) * kTile * LD;
+    const TK* vt = vb + (it % R::kStages) * kTile * LD;
 
     // S = Q K^T: the warp's 16 rows x 32 keys
     float s[NT][4];
@@ -493,11 +725,8 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t ab[4], as[4];
-      load_a(qw, LD, kk, g, t, ab, as);
-      uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) load_bt(kt, LD, i, kk, g, t, bb[i], bs[i]);
-      mma3x4(s[0], s[1], s[2], s[3], ab, as, ab, as, ab, as, ab, as, bb, bs);
+      load_a(qw, LQ, kk, g, t, ab, as);
+      score4(s, ab, as, kt, LD, kk, g, t);
     }
 
     // masked scores -inf; then the online softmax on the fragments: the
@@ -544,14 +773,8 @@ __device__ __forceinline__ void chunk_path(const Work& w, float* smem,
         uint32_t pbig[4], psml[4];
         acc_as_a(s[j], pbig, psml);
 #pragma unroll
-        for (int n = 0; n < NC; n += 4) {
-          uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            load_bp(vt, LD, j, n0 + n + i, g, t, bb[i], bs[i]);
-          mma3x4(to[n], to[n + 1], to[n + 2], to[n + 3], pbig, psml, pbig,
-                 psml, pbig, psml, pbig, psml, bb, bs);
-        }
+        for (int n = 0; n < NC; n += 4)
+          pv4(to + n, pbig, psml, vt, LD, j, n0 + n, g, t);
       }
 #pragma unroll
       for (int n = 0; n < NC; ++n)
@@ -597,34 +820,12 @@ paged_split_kernel(const void* __restrict__ q, bool q_bf16,
                    const int* __restrict__ q_lens,
                    float* __restrict__ part_ml, float* __restrict__ part_acc,
                    int C, int Hq, int Hkv, int D, int ps, int W, int split,
-                   float scale) {
+                   int vb, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  Work w;
-  w.q = q;
-  w.q_bf16 = q_bf16;
-  w.kp = k_pages;
-  w.vp = v_pages;
-  w.part_ml = part_ml;
-  w.part_acc = part_acc;
-  w.C = C;
-  w.Hq = Hq;
-  w.Hkv = Hkv;
-  w.D = D;
-  w.ps = ps;
-  w.T = W * ps;
-  w.split = split;
-  w.b = blockIdx.x / Hkv;
-  w.g = blockIdx.x % Hkv;
-  w.NR = static_cast<int64_t>(gridDim.x / Hkv) * C * Hq;
-  w.table = tables + static_cast<int64_t>(w.b) * W;
-  w.rep = Hq / Hkv;
-  w.q_len = q_lens[w.b];
-  w.kv_len = kv_lens[w.b];
-  w.n_live = max(0, min(w.q_len, C)) * w.rep;
-  w.s = blockIdx.z;
-  w.s0 = w.s * split;
-  w.c = scale * kLog2e;
+  const Work w = make_work(q, q_bf16, k_pages, v_pages, tables, kv_lens,
+                           q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps, W,
+                           split, vb, scale);
 
   // live rows up to which a slot takes the decode path (at 256 columns
   // 16 rows' accumulators would take 128 registers a lane)
@@ -649,13 +850,17 @@ paged_split_kernel(const void* __restrict__ q, bool q_bf16,
   }
 }
 
-// grid ceil(NR / 4), one warp an output row: the row's partials of the
-// splits it sees. Lane s takes split s (s + 32, ... beyond 32 splits):
-// the max M and the sum of l_s 2^(m_s - M) by fixed butterflies, then
-// each column's sum of acc_s 2^(m_s - M) in the order s = 0, 1, ...;
-// dead rows get zeros. The order depends on the row's own split count
-// only. out is float32, or bf16 (out_bf16: each value rounded to nearest
-// even as it is written).
+// grid (ceil(NR / 4), ceil(D / 32)), one warp an output row and 32 of
+// its columns (lane l column 32 y + l): the row's partials of the splits
+// it sees. Lane s takes split s (s + 32, ... beyond 32 splits): the max
+// M and the sum of l_s 2^(m_s - M) by fixed butterflies (every warp of a
+// row computes the same M and L bit for bit), then each column's sum of
+// acc_s 2^(m_s - M) in the order s = 0, 1, ...; dead rows get zeros. The
+// order depends on the row's own split count only. The column slices
+// give a decode step (a few dozen rows) hundreds of warps, where one
+// warp a row walked all of a row's columns and splits alone. out is
+// float32, or bf16 (out_bf16: each value rounded to nearest even as it
+// is written).
 __device__ __forceinline__ void put(void* out, int64_t i, float v,
                                     bool out_bf16) {
   if (out_bf16)
@@ -684,8 +889,9 @@ paged_merge_kernel(const float* __restrict__ part_ml,
     if (limit >= 0) ns = min(limit / split + 1, n_splits);
   }
   const int64_t o = row * D;
+  const int d0 = blockIdx.y * 32;  // the warp's 32 columns
   if (ns == 0) {
-    for (int d = lane; d < D; d += 32) put(out, o + d, 0.f, out_bf16);
+    if (d0 + lane < D) put(out, o + d0 + lane, 0.f, out_bf16);
     return;
   }
   const float* ml = part_ml + 2 * row;
@@ -705,17 +911,15 @@ paged_merge_kernel(const float* __restrict__ part_ml,
   const float w_own = lane < ns ? exp2f(ml[lane * ml_stride] - M) : 0.f;
   const float* a = part_acc + row * D;
   const int64_t a_stride = NR * D;
-  for (int d0 = 0; d0 < D; d0 += 32) {
-    const int d = d0 + lane;
-    float A = 0.f;
+  const int d = d0 + lane;
+  float A = 0.f;
 #pragma unroll 4
-    for (int s = 0; s < ns; ++s) {
-      const float wt = s < 32 ? __shfl_sync(0xffffffffu, w_own, s)
-                              : exp2f(ml[s * ml_stride] - M);
-      if (d < D) A = fmaf(a[s * a_stride + d], wt, A);
-    }
-    if (d < D) put(out, o + d, A / denom, out_bf16);
+  for (int s = 0; s < ns; ++s) {
+    const float wt = s < 32 ? __shfl_sync(0xffffffffu, w_own, s)
+                            : exp2f(ml[s * ml_stride] - M);
+    if (d < D) A = fmaf(a[s * a_stride + d], wt, A);
   }
+  if (d < D) put(out, o + d, A / denom, out_bf16);
 }
 
 template <int DP, bool kVec, typename TK>
@@ -723,8 +927,8 @@ cudaError_t launch(const void* q, bool q_bf16, const TK* k, const TK* v,
                    const int* tables, const int* kv_lens, const int* q_lens,
                    float* part_ml, float* part_acc, int B, int C, int Hq,
                    int Hkv, int D, int ps, int W, int split, int n_splits,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Ring<DP>::kFloats +
+                   int vb, float scale, cudaStream_t stream) {
+  const size_t smem = Ring<DP, TK>::kBytes +
                       sizeof(int64_t) * static_cast<size_t>(split);
   auto kernel = paged_split_kernel<DP, kVec, TK>;
   if (smem > 48 * 1024) {
@@ -737,7 +941,7 @@ cudaError_t launch(const void* q, bool q_bf16, const TK* k, const TK* v,
   dim3 grid(B * Hkv, (C * rep + kRows - 1) / kRows, n_splits);
   kernel<<<grid, kThreads, smem, stream>>>(q, q_bf16, k, v, tables, kv_lens,
                                            q_lens, part_ml, part_acc, C, Hq,
-                                           Hkv, D, ps, W, split, scale);
+                                           Hkv, D, ps, W, split, vb, scale);
   return cudaGetLastError();
 }
 
@@ -763,9 +967,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
-
 template <typename TK>
 __global__ void __launch_bounds__(kThreads)
 paged_wide_kernel(const void* __restrict__ q, bool q_bf16,
@@ -779,31 +980,9 @@ paged_wide_kernel(const void* __restrict__ q, bool q_bf16,
                   float scale, int n_slices) {
   constexpr int R = kWideRowsPerWarp;
   extern __shared__ float4 smem4[];
-  Work w;
-  w.q = q;
-  w.q_bf16 = q_bf16;
-  w.kp = k_pages;
-  w.vp = v_pages;
-  w.part_ml = part_ml;
-  w.part_acc = part_acc;
-  w.C = C;
-  w.Hq = Hq;
-  w.Hkv = Hkv;
-  w.D = D;
-  w.ps = ps;
-  w.T = W * ps;
-  w.split = split;
-  w.b = blockIdx.x / Hkv;
-  w.g = blockIdx.x % Hkv;
-  w.NR = static_cast<int64_t>(gridDim.x / Hkv) * C * Hq;
-  w.table = tables + static_cast<int64_t>(w.b) * W;
-  w.rep = Hq / Hkv;
-  w.q_len = q_lens[w.b];
-  w.kv_len = kv_lens[w.b];
-  w.n_live = max(0, min(w.q_len, C)) * w.rep;
-  w.s = blockIdx.z;
-  w.s0 = w.s * split;
-  w.c = scale * kLog2e;
+  const Work w = make_work(q, q_bf16, k_pages, v_pages, tables, kv_lens,
+                           q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps, W,
+                           split, 0, scale);
 
   const int slice = blockIdx.y % n_slices;
   const int r0 = (blockIdx.y / n_slices) * kWideRows;
@@ -926,12 +1105,14 @@ paged_wide_kernel(const void* __restrict__ q, bool q_bf16,
   }
 }
 
+#include "paged_wide.cuh"
+
 template <typename TK>
 cudaError_t launch_wide(const void* q, bool q_bf16, const TK* k, const TK* v,
                         const int* tables, const int* kv_lens,
                         const int* q_lens, float* part_ml, float* part_acc,
                         int B, int C, int Hq, int Hkv, int D, int ps, int W,
-                        int split, int n_splits, float scale,
+                        int split, int n_splits, int, float scale,
                         cudaStream_t stream) {
   const size_t smem =
       sizeof(int64_t) * static_cast<size_t>(split) +
@@ -947,6 +1128,19 @@ cudaError_t launch_wide(const void* q, bool q_bf16, const TK* k, const TK* v,
       q, q_bf16, k, v, tables, kv_lens, q_lens, part_ml, part_acc, C, Hq, Hkv, D, ps,
       W, split, scale, n_slices);
   return cudaGetLastError();
+}
+
+// Bytes a copy unit of a page row: the widest cp.async the row's
+// alignment allows (a row starts at a multiple of D elements): float32
+// 16 when D % 4 == 0, else 4; bf16 16 when D % 8 == 0, 8 when D % 4 ==
+// 0, 4 when D is even, else 2 (one column by a plain load).
+// kernels/paged_attention.py:page_copy_bytes is the same rule (a CPU
+// test parses this one and holds the two together), and the wrapper
+// checks the pools' alignment against it.
+template <typename TK>
+int page_copy_bytes(int D) {
+  if (sizeof(TK) == 4) return D % 4 == 0 ? 16 : 4;
+  return D % 8 == 0 ? 16 : D % 4 == 0 ? 8 : D % 2 == 0 ? 4 : 2;
 }
 
 // Checks the arguments, launches the split kernel of D's bucket on TK
@@ -968,6 +1162,10 @@ int run(const void* q, const void* k_pages, const void* v_pages,
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool qb = q_bf16 != 0;
+  const int vb = page_copy_bytes<TK>(D);
+  if (reinterpret_cast<uintptr_t>(k_pages) % vb ||
+      reinterpret_cast<uintptr_t>(v_pages) % vb)
+    return cudaErrorInvalidValue;
   auto args = [&](auto launcher) {
     return launcher(q, qb, static_cast<const TK*>(k_pages),
                     static_cast<const TK*>(v_pages),
@@ -976,8 +1174,10 @@ int run(const void* q, const void* k_pages, const void* v_pages,
                     static_cast<const int*>(q_lens),
                     static_cast<float*>(part_ml),
                     static_cast<float*>(part_acc), B, C, Hq, Hkv, D, ps, W,
-                    split, n_splits, scale, st);
+                    split, n_splits, vb, scale, st);
   };
+  // the bands above 256 are the wrapper's WIDE_DIMS, which set their
+  // split length (a CPU test holds the two together)
   const bool vec = D % 4 == 0;
   cudaError_t e;
   if (D <= 32)
@@ -988,12 +1188,15 @@ int run(const void* q, const void* k_pages, const void* v_pages,
     e = vec ? args(launch<128, true, TK>) : args(launch<128, false, TK>);
   else if (D <= 256)
     e = vec ? args(launch<256, true, TK>) : args(launch<256, false, TK>);
+  else if (D <= wide::kMaxD)
+    e = args(wide::launch<TK>);
   else
     e = args(launch_wide<TK>);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t NR = static_cast<int64_t>(B) * C * Hq;
-  paged_merge_kernel<<<static_cast<unsigned>((NR + kWarps - 1) / kWarps),
-                       kThreads, 0, st>>>(
+  const dim3 merge_grid(static_cast<unsigned>((NR + kWarps - 1) / kWarps),
+                        (D + 31) / 32);
+  paged_merge_kernel<<<merge_grid, kThreads, 0, st>>>(
       static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
       static_cast<const int*>(kv_lens), static_cast<const int*>(q_lens), out,
       qb, NR, C, Hq, D, W * ps, split, n_splits);

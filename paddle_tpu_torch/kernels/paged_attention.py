@@ -31,15 +31,18 @@ Two implementations of the same function:
     ``k_pages[tables]``, repeat for GQA, mask, dense softmax. The CPU
     tests run it, and ``chip_smoke.py`` holds the kernel against it.
   - ``_paged_attention_cuda`` — the hand-written Hopper kernels in
-    ``paddle_tpu_torch/csrc/paged_attention.cu`` (float32 or bfloat16
-    pages, widened to float32 as they load; float32 or bfloat16 q, the
-    output in q's dtype; float32 arithmetic; any head_dim; above 256 on a CUDA-core path whose blocks each compute
-    one 256-column slice of the output), built by ``nvcc`` at first use
-    and bound with ``ctypes``: split-K over each slot's keys in fixed splits of
-    ``SPLIT_KEYS`` (a partial softmax state per split, into a scratch
-    allocated here), then a merge kernel that combines a row's partials
-    in a fixed order. One call of the C entry point launches both and
-    counts as one launch.
+    ``paddle_tpu_torch/csrc/paged_attention.cu`` and ``paged_wide.cuh``
+    (float32 or bfloat16 pages, staged in their own dtype and widened to
+    float32 as they are read; float32 or bfloat16 q, the output in q's
+    dtype; float32 arithmetic; any head_dim: up to 256 and from 257 to
+    512 a CUDA-core decode body and a 3xTF32 tensor-core chunk body,
+    above 512 a CUDA-core kernel in 256-column slices), built by
+    ``nvcc`` at first use and bound with ``ctypes``: split-K over each
+    slot's keys in fixed splits of ``split_keys(head_dim)`` keys (a
+    partial softmax state per split, into a scratch allocated here),
+    then a merge kernel that combines a row's partials in a fixed order.
+    One call of the C entry point launches them all and counts as one
+    launch.
 
 ``paged_attention`` routes on the tensor's device ONLY: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
@@ -58,14 +61,22 @@ from .counts import LaunchCounts
 
 NEG_INF = -1e30
 
-# keys per split of the kernel's split-K: a slot's keys [s * SPLIT_KEYS,
-# (s + 1) * SPLIT_KEYS) form split s whatever the batch, table width or
-# chunk, so a slot's output never depends on what else is in the call
-SPLIT_KEYS = 256  # chosen by k4_splits.py on an H100 (PERF.md)
+# keys per split of the kernel's split-K: a slot's keys [s * split,
+# (s + 1) * split) form split s whatever the batch, table width or chunk,
+# so a slot's output never depends on what else is in the call. The
+# split length follows from head_dim alone (``split_keys``): SPLIT_KEYS,
+# and SPLIT_KEYS_WIDE at head_dim 257-512, where a key's K and V rows
+# are 2-4x longer and decode needs more blocks to fill the card.
+SPLIT_KEYS = 256       # chosen by k4_splits.py on an H100 (PERF.md)
+SPLIT_KEYS_WIDE = 128  # head_dim 257-512; k4_splits.py --wide (PERF.md)
+# head_dims of the kernel's wide bodies: the C dispatch's bands
+# (``D <= 256``, ``wide::kMaxD``); a CPU test holds the two together
+WIDE_DIMS = (257, 512)
 
 __all__ = ["paged_attention", "paged_attention_reference", "counts",
-           "KERNEL", "KERNEL_BF16", "NEG_INF", "SPLIT_KEYS", "n_splits",
-           "kernel_of"]
+           "KERNEL", "KERNEL_BF16", "NEG_INF", "SPLIT_KEYS",
+           "SPLIT_KEYS_WIDE", "WIDE_DIMS", "split_keys", "n_splits",
+           "page_copy_bytes", "kernel_of"]
 
 KERNEL = "paged_attention_f32"
 KERNEL_BF16 = "paged_attention_bf16"
@@ -172,10 +183,32 @@ def paged_attention_reference(q, k_pages, v_pages, page_tables, kv_lens,
     return o[:, 0] if squeeze else o
 
 
-def n_splits(table_width: int, page_size: int) -> int:
+def split_keys(head_dim: int) -> int:
+    """Keys a split of the kernel's split-K, from head_dim alone (never
+    from the batch, the table width, the chunk or the card)."""
+    lo, hi = WIDE_DIMS
+    return SPLIT_KEYS_WIDE if lo <= head_dim <= hi else SPLIT_KEYS
+
+
+def n_splits(table_width: int, page_size: int, head_dim: int) -> int:
     """Splits of the kernel's grid: enough for every key slot of a
     table row. Known on the host, so no device value is read."""
-    return -(-table_width * page_size // SPLIT_KEYS)
+    return -(-table_width * page_size // split_keys(head_dim))
+
+
+def page_copy_bytes(head_dim: int, dtype) -> int:
+    """Bytes the kernel copies at a time from a page row (a row starts
+    at a multiple of head_dim elements): the widest cp.async the row's
+    alignment allows. float32: 16 when head_dim % 4 == 0, else 4.
+    bfloat16: 16 when head_dim % 8 == 0, 8 when % 4 == 0, 4 when even,
+    else 2 (plain loads). The pools must be aligned to it
+    (``csrc/paged_attention.cu:page_copy_bytes`` is the same rule; a CPU
+    test holds the two together)."""
+    d = head_dim
+    if dtype == torch.bfloat16:
+        return 16 if d % 8 == 0 else 8 if d % 4 == 0 else 4 if d % 2 == 0 \
+            else 2
+    return 16 if d % 4 == 0 else 4
 
 
 def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
@@ -208,11 +241,13 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
         if not t.is_contiguous():
             raise ValueError(f"paged attention kernel needs a contiguous "
                              f"{name}")
-        # rows of 4-column units load as one 16-byte (float32) or 8-byte
-        # (bfloat16) access when head_dim % 4 == 0
-        if d % 4 == 0 and t.data_ptr() % (4 * t.element_size()):
+        # q's rows load 4 columns at a time (16 bytes float32, 8 bfloat16)
+        # when head_dim % 4 == 0; the pools' rows by page_copy_bytes
+        need = (page_copy_bytes(d, t.dtype) if name != "q"
+                else 4 * t.element_size() if d % 4 == 0 else 1)
+        if t.data_ptr() % need:
             raise ValueError(f"paged attention kernel needs {name} aligned "
-                             f"to {4 * t.element_size()} bytes")
+                             f"to {need} bytes")
     scale = float(scale) if scale else d ** -0.5
     # index vectors as contiguous int32 (the engine already hands them
     # over so; other callers pay one small conversion)
@@ -222,13 +257,13 @@ def _paged_attention_cuda(q, k_pages, v_pages, page_tables, kv_lens,
     out = torch.empty((b, c, hq, d), dtype=q.dtype, device=dev)
     # one scratch for each split's partial of every output row: (m, l)
     # pairs, then acc[D] rows; only the splits a row sees are written
-    ns = n_splits(w, ps)
+    ns = n_splits(w, ps, d)
     rows = ns * b * c * hq
     scratch = torch.empty(rows * (2 + d), dtype=torch.float32, device=dev)
     launch("paged_attention", kernel, dev, q.data_ptr(), k_pages.data_ptr(),
            v_pages.data_ptr(), tables.data_ptr(), kv_l.data_ptr(),
            q_l.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * rows,
-           out.data_ptr(), b, c, hq, hkv, d, ps, w, SPLIT_KEYS, ns,
+           out.data_ptr(), b, c, hq, hkv, d, ps, w, split_keys(d), ns,
            int(q.dtype == torch.bfloat16), scale)
     counts.kernel_launches[kernel] += 1
     return out[:, 0] if squeeze else out

@@ -9,6 +9,8 @@ same, and the card's kernel (``csrc/paged_attention.cu``,
 ``paged_attention_bf16``) is held to the plain version by
 ``chip_smoke.py``.
 
+Cases include head_dim 264 (the card's wide decode and chunk bodies).
+
 Tolerances: float32 Q, atol 1e-5 (sums in another order); bf16 Q, one
 bf16 ulp of max|O| (the two float32 results round to neighbouring bf16
 values at worst). A decoder step: logits atol 1e-4 (as the float32 step's
@@ -41,6 +43,12 @@ CASES = {
     # GQA: 4 query heads a kv head, chunked, head_dim not a multiple of 4
     "gqa": dict(B=2, C=5, Hq=8, Hkv=2, D=18, ps=8, W=4, P=12,
                 kv_lens=[30, 5], q_lens=[5, 3]),
+    # head_dim 264 (the kernel's wide bodies): decode over more than one
+    # split, and a chunk beside a decode slot and a dead one under GQA
+    "wide_decode_d264": dict(B=3, C=None, Hq=2, Hkv=2, D=264, ps=8, W=36,
+                             P=40, kv_lens=[280, 0, 9], q_lens=None),
+    "wide_chunk_d264": dict(B=3, C=4, Hq=4, Hkv=2, D=264, ps=8, W=36,
+                            P=40, kv_lens=[270, 140, 0], q_lens=[4, 1, 0]),
 }
 
 
